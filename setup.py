@@ -15,7 +15,8 @@ setup(
                  "into BART/T5-family seq2seq LMs with SpeechMix-compatible "
                  "training regimes"),
     packages=find_packages(exclude=("tests",)),
-    package_data={"speechmix_tpu.runtime": ["native.cpp"]},
+    package_data={"speechmix_tpu.runtime": ["native.cpp"],
+                  "speechmix_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",

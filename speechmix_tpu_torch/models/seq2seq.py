@@ -1,0 +1,237 @@
+"""BART-family seq2seq LM, inference (port of ``speechmix_tpu.models.seq2seq``).
+
+The text encoder (``encode``) and the cached single-step decoder
+(``precompute_cross_kv``, ``init_decoder_cache``, ``decode``).  Layers are
+lists of parameter dicts.  T5, the uncached (teacher-forcing) decoder,
+adapters and int8 K/V are not ported yet.
+
+Cache layout: self K/V (L, B, capacity, H, D), written in place by each
+step; cross K/V (L, B, T_enc, H, D).  (The JAX package stores cross K/V
+batch-minor, (L, T_enc, H, D, B), for the TPU's sake.)
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from ..config import Seq2SeqConfig
+from ..ops import layers
+from ..ops.attention import KVCache, attention, cache_position_bias
+from ..ops.masking import combine_masks_to_bias
+from .init import dense_params, embedding_params, layer_norm_params
+
+
+def _check_supported(cfg: Seq2SeqConfig):
+    if cfg.arch != "bart":
+        raise NotImplementedError(f"{cfg.arch!r} seq2seq models are not "
+                                  "ported yet; only BART is")
+    if cfg.activation == "gelu_gated":
+        raise NotImplementedError("gated-GELU FFNs are not ported yet")
+
+
+class DecoderCache(NamedTuple):
+    self_kv: KVCache          # key/value: (L, B, capacity, H, D)
+    cross_k: torch.Tensor     # (L, B, T_enc, H, D)
+    cross_v: torch.Tensor
+
+
+def embed_tokens(params, cfg: Seq2SeqConfig, input_ids, dtype=torch.float32):
+    x = layers.embed(params["shared"], input_ids, dtype)
+    if cfg.scale_embedding:
+        x = x * cfg.hidden_size ** 0.5
+    return x
+
+
+def _encoder_block(block, cfg, x, kv_mask, dtype):
+    a, _ = attention(block["self_attn"], x, kv_mask=kv_mask,
+                     num_heads=cfg.num_heads, head_dim=cfg.per_head_dim,
+                     dtype=dtype, out_proj=False)
+    x = layers.dense_residual_ln_apply(
+        block["self_attn"]["out_proj"], block["self_attn_layer_norm"], a, x,
+        dtype, cfg.layer_norm_eps)
+    return layers.ffn_residual_ln_apply(
+        block["fc1"], block["fc2"], block["final_layer_norm"], x,
+        cfg.activation, dtype, cfg.layer_norm_eps)
+
+
+def encode(params, cfg: Seq2SeqConfig, input_ids=None, inputs_embeds=None,
+           attention_mask=None, output_hidden_states=False,
+           dtype=torch.float32):
+    """Text encoder over token ids or precomputed embeddings (the SpeechMix
+    fusion feeds speech-derived `inputs_embeds`).  Returns
+    dict(last_hidden_state, mask[, hidden_states (L+1, B, T, H)])."""
+    _check_supported(cfg)
+    enc = params["encoder"]
+    if inputs_embeds is None:
+        inputs_embeds = embed_tokens(params, cfg, input_ids, dtype)
+    b, t, _ = inputs_embeds.shape
+    device = inputs_embeds.device
+    if attention_mask is None:
+        attention_mask = torch.ones((b, t), dtype=torch.bool, device=device)
+    pos = layers.embed(enc["embed_positions"],
+                       torch.arange(t, device=device) + 2, dtype)
+    x = layers.layer_norm(enc["layernorm_embedding"], inputs_embeds + pos,
+                          cfg.layer_norm_eps)
+    hidden = [x] if output_hidden_states else None
+    for block in enc["layers"]:
+        x = _encoder_block(block, cfg, x, attention_mask, dtype)
+        if hidden is not None:
+            hidden.append(x)
+    out = {"last_hidden_state": x, "mask": attention_mask}
+    if hidden is not None:
+        out["hidden_states"] = torch.stack(hidden)
+    return out
+
+
+def precompute_cross_kv(params, cfg: Seq2SeqConfig, enc_hidden,
+                        dtype=torch.float32):
+    """Per-layer cross-attention K and V of the encoder output, once per
+    sequence: two (L, B, T_enc, H, D) tensors."""
+    b, t, _ = enc_hidden.shape
+    ks, vs = [], []
+    for block in params["decoder"]["layers"]:
+        ea = block["encoder_attn"]
+        ks.append(layers.dense(ea["k_proj"], enc_hidden, dtype)
+                  .reshape(b, t, cfg.num_heads, cfg.per_head_dim))
+        vs.append(layers.dense(ea["v_proj"], enc_hidden, dtype)
+                  .reshape(b, t, cfg.num_heads, cfg.per_head_dim))
+    return torch.stack(ks), torch.stack(vs)
+
+
+def init_decoder_cache(params, cfg: Seq2SeqConfig, enc_hidden, batch,
+                       capacity, dtype=torch.float32) -> DecoderCache:
+    _check_supported(cfg)
+    cross_k, cross_v = precompute_cross_kv(params, cfg, enc_hidden, dtype)
+    shape = (cfg.decoder_layers, batch, capacity, cfg.num_heads,
+             cfg.per_head_dim)
+    device = enc_hidden.device
+    self_kv = KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                      torch.zeros(shape, dtype=dtype, device=device), 0)
+    return DecoderCache(self_kv, cross_k, cross_v)
+
+
+def _cross_attention(attn_params, cfg, x_q, k, v, kv_mask, dtype):
+    """Cross-attention over precomputed K/V (B, T_enc, H, D); returns the
+    concatenated heads (the caller owns the out-projection)."""
+    d = cfg.per_head_dim
+    q = layers.dense(attn_params["q_proj"], x_q, dtype)
+    q = q.reshape(*q.shape[:2], cfg.num_heads, d)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    logits = logits * (1.0 / math.sqrt(d))
+    if kv_mask is not None:
+        logits = logits + combine_masks_to_bias(kv_mask=kv_mask)
+    probs = torch.softmax(logits, dim=-1).to(dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, v.to(dtype))
+    return out.reshape(*out.shape[:2], cfg.num_heads * d)
+
+
+def _decoder_block(block, cfg, x, self_bias, self_kv_mask, layer_cache,
+                   cross_k, cross_v, cross_kv_mask, dtype):
+    a, new_cache = attention(block["self_attn"], x, bias=self_bias,
+                             kv_mask=self_kv_mask, num_heads=cfg.num_heads,
+                             head_dim=cfg.per_head_dim, cache=layer_cache,
+                             dtype=dtype, out_proj=False)
+    x = layers.dense_residual_ln_apply(
+        block["self_attn"]["out_proj"], block["self_attn_layer_norm"], a, x,
+        dtype, cfg.layer_norm_eps)
+    a = _cross_attention(block["encoder_attn"], cfg, x, cross_k, cross_v,
+                         cross_kv_mask, dtype)
+    x = layers.dense_residual_ln_apply(
+        block["encoder_attn"]["out_proj"], block["encoder_attn_layer_norm"],
+        a, x, dtype, cfg.layer_norm_eps)
+    x = layers.ffn_residual_ln_apply(
+        block["fc1"], block["fc2"], block["final_layer_norm"], x,
+        cfg.activation, dtype, cfg.layer_norm_eps)
+    return x, new_cache
+
+
+def decode(params, cfg: Seq2SeqConfig, decoder_input_ids, encoder_mask,
+           cache: DecoderCache, dtype=torch.float32):
+    """Cached incremental decoder step: decoder_input_ids (B, q_len) continue
+    at position cache.self_kv.index.  Writes the new self K/V into the cache
+    in place.  Returns dict(logits (B, q_len, V) float32, cache)."""
+    _check_supported(cfg)
+    dec = params["decoder"]
+    b, q_len = decoder_input_ids.shape
+    device = decoder_input_ids.device
+    offset = cache.self_kv.index
+    x = embed_tokens(params, cfg, decoder_input_ids, dtype)
+    pos = layers.embed(dec["embed_positions"],
+                       offset + torch.arange(q_len, device=device) + 2, dtype)
+    x = layers.layer_norm(dec["layernorm_embedding"], x + pos,
+                          cfg.layer_norm_eps)
+
+    capacity = cache.self_kv.key.shape[2]
+    self_bias, self_kv_mask = None, None
+    if q_len == 1:
+        # a single-token step only has to exclude the unfilled slots
+        self_kv_mask = (torch.arange(capacity, device=device)[None, :]
+                        <= offset).expand(b, capacity)
+    else:
+        self_bias = cache_position_bias(capacity, offset, q_len,
+                                        device=device)
+    for i, block in enumerate(dec["layers"]):
+        layer_cache = KVCache(cache.self_kv.key[i], cache.self_kv.value[i],
+                              offset)
+        x, _ = _decoder_block(block, cfg, x, self_bias, self_kv_mask,
+                              layer_cache, cache.cross_k[i],
+                              cache.cross_v[i], encoder_mask, dtype)
+    new_cache = cache._replace(self_kv=cache.self_kv._replace(
+        index=offset + q_len))
+
+    if cfg.tie_word_embeddings:
+        logits = F.linear(x, params["shared"]["embedding"].to(dtype)).float()
+    else:
+        logits = layers.dense(params["lm_head"], x, dtype).float()
+    logits = logits + params["final_logits_bias"].float()
+    return {"logits": logits, "cache": new_cache}
+
+
+def init_seq2seq(cfg: Seq2SeqConfig, generator, device, dtype=torch.float32):
+    """Random BART parameters with the JAX package's structure, drawn from
+    `generator`; matrices in `dtype`, vectors in float32."""
+    _check_supported(cfg)
+
+    h, inner = cfg.hidden_size, cfg.kv_dim
+
+    def attn():
+        p = {name: dense_params(generator, device, dtype, h, inner)
+             for name in ("q_proj", "k_proj", "v_proj")}
+        p["out_proj"] = dense_params(generator, device, dtype, inner, h)
+        return p
+
+    def block(is_decoder):
+        p = {"self_attn": attn(),
+             "self_attn_layer_norm": layer_norm_params(h, device),
+             "final_layer_norm": layer_norm_params(h, device)}
+        if is_decoder:
+            p["encoder_attn"] = attn()
+            p["encoder_attn_layer_norm"] = layer_norm_params(h, device)
+        p["fc1"] = dense_params(generator, device, dtype, h, cfg.ffn_dim)
+        p["fc2"] = dense_params(generator, device, dtype, cfg.ffn_dim, h)
+        return p
+
+    def stack(n_layers, is_decoder):
+        return {
+            "embed_positions": embedding_params(
+                generator, device, dtype, cfg.max_positions + 2, h),
+            "layernorm_embedding": layer_norm_params(h, device),
+            "layers": [block(is_decoder) for _ in range(n_layers)],
+        }
+
+    params = {
+        "shared": embedding_params(generator, device, dtype,
+                                   cfg.vocab_size, h),
+        "encoder": stack(cfg.encoder_layers, False),
+        "decoder": stack(cfg.decoder_layers, True),
+        "final_logits_bias": torch.zeros(cfg.vocab_size, dtype=torch.float32,
+                                         device=device),
+    }
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = dense_params(generator, device, dtype, h,
+                                         cfg.vocab_size, use_bias=False)
+    return params

@@ -1,0 +1,84 @@
+"""SpeechMix fusion, inference (port of ``speechmix_tpu.models.speechmix``).
+
+speech encoder -> [learned softmax weighted sum over layer states]
+               -> stride-2 conv length adapters (log2(down_scale) of them)
+               -> Linear enc->dec projection -> frame mask
+               -> [text prompt prefix] -> inputs_embeds of the text encoder.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..config import SpeechMixConfig
+from ..ops import layers
+from ..ops.masking import downscale_lengths, length_mask
+from . import seq2seq
+from . import speech_encoder as se
+from .init import conv_params, dense_params
+
+
+def _check_supported(cfg: SpeechMixConfig):
+    if cfg.variant not in ("eed", "fixed"):
+        raise NotImplementedError(f"the {cfg.variant!r} variant is not "
+                                  "ported yet")
+
+
+def encode_speech(params, cfg: SpeechMixConfig, input_values, lengths=None,
+                  prompt_ids=None, dtype=torch.float32):
+    """Waveform -> fused inputs_embeds for the text encoder.
+    input_values: (B, T_samples) zero-padded; lengths: (B,) sample counts;
+    prompt_ids: optional (P,) or (B, P) token ids embedded and put before
+    the speech embeddings.  Returns (inputs_embeds (B, P+T', H_nlp),
+    mask (B, P+T'))."""
+    enc_out = se.speech_encoder_apply(
+        params["speech_encoder"], cfg.encoder, input_values, lengths,
+        output_hidden_states=cfg.weighted_sum, dtype=dtype)
+    h = enc_out["last_hidden_state"]
+    if cfg.weighted_sum:
+        stacked = enc_out["hidden_states"]  # (L+1, B, T, H)
+        if cfg.weighted_sum_convention == "s3prl":
+            stacked = stacked[1:]  # s3prl omits the embedding output
+        norm_w = torch.softmax(params["weights_sum"].float(), dim=0)
+        h = torch.einsum("l,lbth->bth", norm_w.to(h.dtype), stacked)
+    for conv in params["length_adapter"]:
+        h = layers.conv1d(conv, h, stride=2, dtype=dtype)
+    h = layers.dense(params["enc_to_dec_proj"], h, dtype)
+    frame_lengths = downscale_lengths(enc_out["frame_lengths"], cfg.downloop)
+    mask = length_mask(frame_lengths, h.shape[1])
+    h = h * mask[..., None].to(h.dtype)
+    if prompt_ids is not None:
+        if prompt_ids.ndim == 1:
+            prompt_ids = prompt_ids[None].expand(h.shape[0], -1)
+        prompt = seq2seq.embed_tokens(params["nlp"], cfg.decoder, prompt_ids,
+                                      dtype)
+        h = torch.cat([prompt, h], dim=1)
+        mask = torch.cat([torch.ones(prompt_ids.shape, dtype=torch.bool,
+                                     device=mask.device), mask], dim=1)
+    return h, mask
+
+
+def init_speechmix(cfg: SpeechMixConfig, generator: torch.Generator, device,
+                   dtype=torch.float32):
+    """Random parameters with the JAX package's structure and shapes, drawn
+    from `generator` (not bit-equal to the JAX init).  Matrices are made in
+    `dtype`, vectors in float32, as ``convert.params_from_jax`` casts a
+    converted tree."""
+    _check_supported(cfg)
+
+    enc = se.init_speech_encoder(cfg.encoder, generator, device, dtype)
+    enc = se.truncate_layers(enc, cfg.num_speech_encoder_layers)
+    h = cfg.encoder.hidden_size
+    params = {
+        "speech_encoder": enc,
+        "nlp": seq2seq.init_seq2seq(cfg.decoder, generator, device, dtype),
+        "enc_to_dec_proj": dense_params(generator, device, dtype, h,
+                                        cfg.decoder.hidden_size),
+        "length_adapter": [conv_params(generator, device, dtype, h, h, 2)
+                           for _ in range(cfg.downloop)],
+    }
+    if cfg.weighted_sum:
+        params["weights_sum"] = torch.zeros(cfg.num_weighted_sum,
+                                            dtype=torch.float32,
+                                            device=device)
+    return params

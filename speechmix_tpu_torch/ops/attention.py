@@ -1,0 +1,107 @@
+"""Multi-head attention of the port (counterpart of ``speechmix_tpu.ops.attention``).
+
+Self-attention without a cache or an extra bias (the speech encoder and the
+text encoder) runs kernel K1 (``ops.kernels.attention``) on the (B, T, H*D)
+projection slabs.  Everything else (the cached decoder steps, an additive
+bias) takes the plain path ``_attend``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+
+from . import layers
+from .kernels.attention import attention_fwd
+from .masking import causal_attention_bias, combine_masks_to_bias
+
+
+class KVCache(NamedTuple):
+    """Fixed-capacity K/V buffers + fill index.  key, value:
+    (B, capacity, H, D), or (L, B, capacity, H, D) for a decoder stack.
+    ``attention`` writes new keys/values into the buffers in place (the JAX
+    package returns updated copies; the port saves the copy)."""
+    key: torch.Tensor
+    value: torch.Tensor
+    index: int
+
+
+def _split_heads(x, num_heads):
+    b, t, inner = x.shape
+    return x.reshape(b, t, num_heads, inner // num_heads)
+
+
+def _attend(q, k, v, bias, scale):
+    """q: (B, Tq, H, D), k/v: (B, Tk, H, D), bias: broadcastable to
+    (B, H, Tq, Tk) or None.  f32 scores and softmax; probabilities in q's
+    dtype."""
+    dtype = q.dtype
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if bias is not None:
+        logits = logits + bias.float()
+    probs = torch.softmax(logits, dim=-1).to(dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v.to(dtype))
+
+
+def attention(params, x_q, x_kv=None, bias=None, kv_mask=None, causal=False,
+              num_heads=None, head_dim=None, scale=None,
+              cache: Optional[KVCache] = None, dtype=None, out_proj=True):
+    """General MHA.  x_q: (B, Tq, Dq); x_kv: (B, Tk, Dk) or None for
+    self-attention.  kv_mask: (B, Tk) bool key-padding mask, with `causal`;
+    bias: extra additive bias (forces the plain path).  cache: new keys and
+    values are written at cache.index and attention runs over the whole
+    capacity (kv_mask or bias must exclude unfilled slots).
+    out_proj=False returns the concatenated heads (the caller fuses the
+    out-projection into its residual + LayerNorm epilogue).
+    Returns (out, new_cache)."""
+    dtype = dtype or x_q.dtype
+    x_kv = x_q if x_kv is None else x_kv
+    if num_heads is None and head_dim is None:
+        raise ValueError("attention() needs num_heads or head_dim; the "
+                         "inner projection width alone is ambiguous")
+    inner = params["q_proj"]["kernel"].shape[-1]
+    num_heads = num_heads or inner // head_dim
+    head_dim = head_dim or inner // num_heads
+    scale = scale if scale is not None else 1.0 / math.sqrt(head_dim)
+
+    q = layers.dense(params["q_proj"], x_q, dtype)
+    k = layers.dense(params["k_proj"], x_kv, dtype)
+    v = layers.dense(params["v_proj"], x_kv, dtype)
+
+    new_cache = None
+    if cache is None and bias is None:
+        out = attention_fwd(q, k, v, kv_mask, num_heads, scale, causal)
+    else:
+        q, k, v = (_split_heads(t, num_heads) for t in (q, k, v))
+        if cache is not None:
+            end = cache.index + x_q.shape[1]
+            cache.key[:, cache.index:end] = k.to(cache.key.dtype)
+            cache.value[:, cache.index:end] = v.to(cache.value.dtype)
+            new_cache = KVCache(cache.key, cache.value, end)
+            k, v = cache.key.to(dtype), cache.value.to(dtype)
+        total_bias = bias
+        if kv_mask is not None or causal:
+            b_sz, q_len = x_q.shape[0], x_q.shape[1]
+            struct = combine_masks_to_bias(
+                q_mask=torch.ones((b_sz, q_len), dtype=torch.bool,
+                                  device=x_q.device),
+                kv_mask=(kv_mask if kv_mask is not None else torch.ones(
+                    (b_sz, k.shape[1]), dtype=torch.bool,
+                    device=x_q.device)),
+                causal=causal)
+            total_bias = struct if total_bias is None else total_bias + struct
+        out = _attend(q, k, v, total_bias, scale)
+        out = out.reshape(out.shape[0], out.shape[1], num_heads * head_dim)
+    if out_proj:
+        out = layers.dense(params["out_proj"], out, dtype)
+    return out, new_cache
+
+
+def cache_position_bias(cache_capacity, index, q_len, dtype=torch.float32,
+                        device=None):
+    """Additive bias for cached causal decoding: query i (absolute position
+    index+i) may attend cache slots <= index+i; later slots are masked."""
+    return causal_attention_bias(q_len, cache_capacity, dtype, offset=index,
+                                 device=device)

@@ -1,0 +1,125 @@
+"""Device rules of the PyTorch port: it runs on the card unless asked for
+the CPU, imports nothing of JAX or the JAX package, and its kernel wrappers
+launch or raise for a non-CPU tensor, never falling back to plain code."""
+
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from speechmix_tpu_torch import config as tcfg
+from speechmix_tpu_torch import generation as t_gen
+from speechmix_tpu_torch.models import speechmix as t_smx
+from speechmix_tpu_torch.ops.kernels import _cuda
+from speechmix_tpu_torch.ops.kernels import attention as t_attn
+from speechmix_tpu_torch.ops.kernels import ffn as t_ffn
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _tiny_cfg():
+    return tcfg.SpeechMixConfig(
+        encoder=tcfg.SPEECH_ENCODER_PRESETS["tiny-speech"],
+        decoder=tcfg.SEQ2SEQ_PRESETS["tiny-bart-bytes"], down_scale=2)
+
+
+def test_generate_defaults_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = _tiny_cfg()
+    params = t_smx.init_speechmix(cfg, torch.Generator().manual_seed(0),
+                                  "cpu")
+    wav = np.zeros((1, 4000), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        t_gen.generate(params, cfg, wav, max_length=4)
+    tok, _ = t_gen.generate(params, cfg, wav, max_length=4, device="cpu")
+    assert tok.shape == (1, 4)
+
+
+@pytest.mark.parametrize("kwargs", [dict(num_beams=2), dict(do_sample=True),
+                                    dict(repetition_penalty=1.2),
+                                    dict(bad_words_ids=[[5]])])
+def test_generate_refuses_unported_paths(kwargs):
+    cfg = _tiny_cfg()
+    params = t_smx.init_speechmix(cfg, torch.Generator().manual_seed(0),
+                                  "cpu")
+    with pytest.raises(NotImplementedError):
+        t_gen.generate(params, cfg, np.zeros((1, 4000), np.float32),
+                       max_length=4, device="cpu", **kwargs)
+
+
+def _imported_modules(path):
+    names = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module or "")
+    return names
+
+
+def test_port_imports_no_jax():
+    files = sorted((ROOT / "speechmix_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 10
+    for path in files:
+        for name in _imported_modules(path):
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "speechmix_tpu", "flax",
+                               "optax"), f"{path} imports {name}"
+
+
+def test_kernel_wrappers_raise_instead_of_falling_back():
+    """A tensor that is not on the CPU goes to the kernel or raises: here a
+    meta tensor fails the wrapper's CUDA check."""
+    meta = lambda *s: torch.empty(*s, device="meta")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        t_attn.attention_fwd(meta(1, 8, 64), meta(1, 8, 64), meta(1, 8, 64),
+                             None, 1, 0.125)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        t_ffn.dense_res_ln(meta(4, 8), meta(8, 8), meta(8), meta(4, 8),
+                           meta(8), meta(8))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        t_ffn.ffn_res_ln(meta(4, 8), meta(8, 16), meta(16), meta(16, 8),
+                         meta(8), meta(4, 8), meta(8), meta(8))
+
+
+def _meta(*shape, dtype=torch.bfloat16):
+    return torch.empty(*shape, device="meta", dtype=dtype)
+
+
+def _ffn_args(h, f):
+    vec = lambda n: _meta(n, dtype=torch.float32)
+    return (_meta(4, h), _meta(h, f), vec(f), _meta(f, h), vec(h),
+            _meta(4, h), vec(h), vec(h))
+
+
+@pytest.mark.parametrize("call,match", [
+    (lambda: t_ffn.dense_res_ln(
+        _meta(4, 256), _meta(256, 256), _meta(256, dtype=torch.float32),
+        _meta(4, 256), _meta(256, dtype=torch.float32),
+        _meta(256, dtype=torch.float32)), "bfloat16 supports H"),
+    (lambda: t_ffn.ffn_res_ln(*_ffn_args(256, 1024)), "bfloat16 supports H"),
+    (lambda: t_ffn.ffn_res_ln(*_ffn_args(768, 3000)), "bfloat16 supports H"),
+    (lambda: t_ffn.ffn_res_ln(*_ffn_args(768, 3072), act="tanh"),
+     "unsupported activation"),
+])
+def test_kernel_wrappers_refuse_unbuilt_cases(call, match):
+    """bfloat16 widths without a tensor-core kernel, and activations the
+    kernel lacks, raise instead of taking another path."""
+    with pytest.raises(ValueError, match=match):
+        call()
+
+
+def test_kernel_launch_without_toolkit_raises(monkeypatch, tmp_path):
+    """With no nvcc the first launch raises; nothing is counted."""
+    monkeypatch.setattr(_cuda, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_cuda.shutil, "which", lambda _: None)
+    monkeypatch.setattr(_cuda.os.path, "exists", lambda _: False)
+    kernel = t_attn.KERNEL
+    monkeypatch.setattr(kernel, "_fn", None)
+    before = kernel.launches
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        kernel.launch(*([0] * 14))
+    assert kernel.launches == before
