@@ -6,15 +6,20 @@
 Phases, each printing as it goes; any failure exits non-zero:
   1. the card: name, power limit, torch / CUDA versions; TF32 off;
   2. build the CUDA kernels from speechmix_tpu_torch/csrc with nvcc;
-  3. hold each kernel (K1 attention_fwd, K2 dense_res_ln, K3 ffn_res_ln)
-     against its plain PyTorch version on the card, in bf16 and f32, at the
-     shapes the flagship path gives it, and time kernel, plain version and
-     one PyTorch library call beside it, with the least time the card could
-     take (bound_ms);
-  4. drive the flagship (wav2vec2-base + bart-base, down_scale 2, random
-     weights from the seed, bf16 matrices) through generate() at
-     B = 16 x 16 s, max_length 64: every kernel must launch 18 times per
-     call; the text-encoder output is held against the plain path in f32;
+  3. hold each kernel (K1 attention_fwd, K2 dense_res_ln, K3 ffn_res_ln,
+     K4 decode_attention with float and with int8 K/V, K5 beam_gather, K6
+     conv_ln_gelu) against its plain PyTorch version on the card, in bf16 and
+     f32, at the shapes the flagship path gives it, and time kernel, plain
+     version and one PyTorch library call beside it, with the least time the
+     card could take (bound_ms); K5 must be bit-exact;
+  4. drive the flagship (wav2vec2-base + bart-base, down_scale 2, fused
+     extractor, random weights from the seed, bf16 matrices) through
+     generate() at B = 16 x 16 s, max_length 64, in three modes: greedy
+     (K1-K3 18 launches per call, K6 6, K4 768), greedy with int8 cross K/V
+     (K4's int8 entry 6 per step) and beam search with 4 beams (K5 once per
+     step, K4 twelve times per K5 launch); in f32 the text-encoder output,
+     the tokens of all three modes and the beam scores of the kernel path
+     must agree with the plain path's within the stated limits;
   5. print the `kernels` JSON line, then the card line, then the result
      line {"ok": true, "device": {...}} last.
 Without CUDA it exits 1 before printing any result.
@@ -23,6 +28,7 @@ Without CUDA it exits 1 before printing any result.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import shutil
@@ -45,6 +51,12 @@ TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 1.6e-2)}
 REL_BOUND_F32 = 1e-3
 REL_BOUND_BF16 = 5e-2
 LAYERS_WITH_KERNELS = 12 + 6  # wav2vec2-base layers + bart-base encoder
+FUSED_CONV_LAYERS = 6         # stride-2 extractor layers 1..6
+DECODER_LAYERS = 6
+# K6 in bf16: kernel and plain version round one f32 value of order 1 to
+# bf16 each, from sums taken in another order, so they are at most one bf16
+# ulp apart (<= 2^-7 |p|); 1e-4 covers outputs near zero
+K6_BF16_RULE = "1e-4 + 2^-7 * |p|"
 
 
 def log(*a):
@@ -60,12 +72,17 @@ def nvidia_smi_line():
 
 
 def cuda_ms(fn, iters=20, warmup=3):
+    """Device milliseconds per call of fn.  The card is first kept busy for
+    about 25 ms, so that the host has queued every launch before the first
+    one starts: the events then span the launches back to back, without the
+    gaps a host-bound loop of short kernels would leave between them."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(40_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -178,6 +195,32 @@ def check_kernels(gen, dev):
             qh, kh, vh, attn_mask=sdpa_mask, scale=0.125)),
         flops=flops, bytes=nbytes)
 
+    # the other TPU attention kernels K1 covers, at the shapes checked
+    # above: T = 400 (one block of keys on the TPU) and T = 1500 (tiled)
+    for b, t in ((4, 400), (4, 1500)):
+        lens = torch.tensor([t, t - 37, t // 2 + 3, t - 200], device=dev)
+        mask = torch.arange(t, device=dev)[None, :] < lens[:, None]
+        q, k, v = (randn(b, t, heads * d, dtype=torch.bfloat16)
+                   for _ in range(3))
+        ref = ka.attention_fwd_plain(q, k, v, mask, heads, 0.125)
+        err = compare(f"B={b} T={t} bf16 (timed)",
+                      ka.attention_fwd(q, k, v, mask, heads, 0.125), ref,
+                      attention_bf16_limit(q, k, v, mask, heads, 0.125, False,
+                                           ref), K1_BF16_RULE)
+        qh, kh, vh = (x.view(b, t, heads, d).transpose(1, 2)
+                      for x in (q, k, v))
+        sdpa_mask = mask[:, None, None, :]
+        records[f"attention_fwd (B={b} T={t})"] = dict(
+            shape=f"B={b} T={t} H={heads} D={d} bf16, ragged lengths",
+            max_abs_err=err,
+            ms=cuda_ms(lambda: ka.attention_fwd(q, k, v, mask, heads, 0.125)),
+            plain_ms=cuda_ms(lambda: ka.attention_fwd_plain(q, k, v, mask,
+                                                            heads, 0.125)),
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=sdpa_mask, scale=0.125)),
+            flops=4.0 * heads * d * t * int(lens.sum()),
+            bytes=4 * b * t * heads * d * 2 + b * t)
+
     # ---- K2: attention out-projection + residual + LayerNorm ------------
     log("K2 dense_res_ln")
     h = 768
@@ -267,15 +310,271 @@ def check_kernels(gen, dev):
         flops=4.0 * n * h * f,
         bytes=(3 * n * h + 2 * h * f) * 2 + (f + 3 * h) * 4)
 
+    check_decode_attention(randn, dev, records)
+    check_beam_gather(randn, gen, dev, records)
+    check_conv(randn, dev, records)
+
     for rec in records.values():
         t_flops = rec["flops"] / PEAK_BF16_FLOPS * 1e3
         t_bytes = rec["bytes"] / PEAK_BYTES * 1e3
         rec["bound_ms"] = max(t_flops, t_bytes)
         rec["bound_by"] = "operations" if t_flops >= t_bytes else "bytes"
+        extra = "".join(f" {k} {v:.4f}" for k, v in rec.items()
+                        if k.startswith("library_ms_"))
         log(f"  {rec['shape']}: kernel_ms {rec['ms']:.4f} plain_ms "
-            f"{rec['plain_ms']:.4f} library_ms {rec['library_ms']:.4f} "
+            f"{rec['plain_ms']:.4f} library_ms {rec['library_ms']:.4f}{extra} "
             f"bound_ms {rec['bound_ms']:.4f} ({rec['bound_by']})")
     return records
+
+
+def decode_bf16_limit(q, k, v, mask, scales, ref):
+    """K4's bf16 limit per output element.  Kernel and plain version both
+    round the probabilities to bf16 before P . v, from scores summed in
+    another order, so a probability may land one bf16 step apart (relative
+    2^-8): at most 2^-8 * sum_j p_j |v_j| before the output's own rounding,
+    where the two may again be one ulp apart (<= 2^-7 |p|).  The same form
+    as K1's limit."""
+    from speechmix_tpu_torch.ops.kernels import decode_attention as kd
+    pv = kd.decode_attention_plain(q.float(), k, v.abs(), mask, scale=0.125,
+                                   num_heads=k.shape[2], **scales)
+    return 2.0 ** -8 * pv + 2.0 ** -7 * ref.float().abs()
+
+
+def check_decode_attention(randn, dev, records):
+    """K4 at the decoder's shapes: self-attention over the 64-slot cache
+    (16 rows greedy, 64 rows with 4 beams) and cross-attention over 400
+    encoder positions with kb = 1 (greedy) and kb = 4 (beams share K/V),
+    float and int8 K/V, ragged masks."""
+    import torch
+    import torch.nn.functional as F
+    from speechmix_tpu_torch.models.seq2seq import _quantize_kv
+    from speechmix_tpu_torch.ops.kernels import decode_attention as kd
+
+    log("K4 decode_attention")
+    heads, d = 12, 64
+    timed = {}
+    for name, bkv, kb, t in (("self greedy", 16, 1, 64),
+                             ("self beam-4", 64, 1, 64),
+                             ("cross greedy", 16, 1, 400),
+                             ("cross beam-4", 16, 4, 400)):
+        if name.startswith("self"):     # slots <= the row's step are filled
+            fill = torch.arange(bkv, device=dev) % t
+        else:
+            fill = t - 1 - (torch.arange(bkv, device=dev) * 23) % (t // 2)
+        mask = torch.arange(t, device=dev)[None, :] <= fill[:, None]
+        for dtype in (torch.bfloat16, torch.float32):
+            q = randn(bkv * kb, 1, heads, d, dtype=dtype)
+            k, v = (randn(bkv, t, heads, d, dtype=dtype) for _ in range(2))
+            variants = [("float", k, v, {})]
+            if name.startswith("cross"):
+                (kq, ks), (vq, vs) = _quantize_kv(k), _quantize_kv(v)
+                variants.append(("int8", kq, vq,
+                                 dict(k_scale=ks, v_scale=vs)))
+            for kind, kk, vv, scales in variants:
+                call = lambda: kd.decode_attention(
+                    q, kk, vv, mask, scale=0.125, num_heads=heads, **scales)
+                out = call()
+                ref = kd.decode_attention_plain(
+                    q, kk, vv, mask, scale=0.125, num_heads=heads, **scales)
+                torch.cuda.synchronize()
+                limit = rule = None
+                if dtype == torch.bfloat16:
+                    limit = decode_bf16_limit(q, kk, vv, mask, scales, ref)
+                    rule = K1_BF16_RULE
+                err = compare(f"{name} B={bkv} kb={kb} T={t} {kind} K/V "
+                              f"{dtype}", out, ref, limit, rule)
+                if dtype == torch.bfloat16:
+                    timed[name, kind] = (q, kk, vv, mask, scales, err)
+    # a mask row that attends nothing (softmax over the scores shifted by
+    # -1e9, the plain version's result), one with holes before its last
+    # attended key, and rows whose tail the kernel does not read
+    q = randn(8, 1, heads, d)
+    k, v = (randn(4, 100, heads, d) for _ in range(2))
+    mask = torch.arange(100, device=dev)[None, :] < torch.tensor(
+        [0, 1, 37, 100], device=dev)[:, None]
+    mask[2, 1::3] = False
+    (kq, ks), (vq, vs) = _quantize_kv(k), _quantize_kv(v)
+    for kind, kk, vv, scales in (("float", k, v, {}),
+                                 ("int8", kq, vq, dict(k_scale=ks,
+                                                       v_scale=vs))):
+        compare(f"rows fully masked / 1 key / with holes / full, kb=2 T=100 "
+                f"{kind} K/V "
+                f"{q.dtype}",
+                kd.decode_attention(q, kk, vv, mask, scale=0.125,
+                                    num_heads=heads, **scales),
+                kd.decode_attention_plain(q, kk, vv, mask, scale=0.125,
+                                          num_heads=heads, **scales))
+    # refusals: a head_dim the kernel is not built for, K/V in another type
+    # than q, a misaligned q
+    q = randn(16, 1, heads, d, dtype=torch.bfloat16)
+    k = randn(16, 64, heads, d, dtype=torch.bfloat16)
+    mask = torch.ones(16, 64, dtype=torch.bool, device=dev)
+    expect_refusal("K4 head_dim 32", lambda: kd.decode_attention(
+        q.view(16, 1, 24, 32), k.view(16, 64, 24, 32), k.view(16, 64, 24, 32),
+        mask, scale=0.125, num_heads=24))
+    expect_refusal("K4 f32 K/V under a bf16 q", lambda: kd.decode_attention(
+        q, k.float(), k.float(), mask, scale=0.125, num_heads=heads))
+    slab = torch.empty(16 * heads * d + 1, dtype=torch.bfloat16, device=dev)
+    expect_refusal("K4 bf16 q at a 2-byte offset", lambda: kd.decode_attention(
+        slab[1:].view(16, 1, heads, d), k, k, mask, scale=0.125,
+        num_heads=heads))
+
+    def sdpa(q, k, v, mask, scales):
+        bkv, t = k.shape[:2]
+        if scales:   # dequantisation is part of what the library call costs
+            k = k.to(q.dtype) * scales["k_scale"][..., None].to(q.dtype)
+            v = v.to(q.dtype) * scales["v_scale"][..., None].to(q.dtype)
+        qh = q.view(bkv, -1, heads, d).transpose(1, 2)
+        return F.scaled_dot_product_attention(
+            qh, k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask[:, None, None, :], scale=0.125)
+
+    for (name, kind), (q, k, v, mask, scales, err) in timed.items():
+        # cross-attention reads another layer's K/V at every call: six
+        # layers' worth (62 to 118 MB) is more than the 50 MB L2 holds, so
+        # the timed calls cycle over six copies and find the cache cold, as
+        # the decoder does; the self-attention cache (9 MB) stays in L2
+        sets = [(k, v, scales)]
+        if name.startswith("cross"):
+            sets += [(k.clone(), v.clone(),
+                      {n: s_.clone() for n, s_ in scales.items()})
+                     for _ in range(DECODER_LAYERS - 1)]
+        turn = itertools.cycle(sets)
+
+        def timed_ms(fn):
+            return cuda_ms(lambda: fn(*next(turn)), iters=60, warmup=6)
+        # a masked key adds exactly 0 to the output, so the function needs
+        # K, V and scale rows of attended keys only (as K1's count does);
+        # these masks attend a prefix of the keys, which is what K4 reads
+        attended = int(mask.sum().item())
+        kb = q.shape[0] // k.shape[0]
+        nbytes = (attended * heads * d * k.element_size() * 2
+                  + q.numel() * q.element_size() * 2 + mask.numel()
+                  + attended * heads * 4 * len(scales))
+        rec = dict(
+            shape=f"{name}: q {tuple(q.shape)} k/v {tuple(k.shape)} "
+                  f"{kind} K/V bf16 q, {attended} of {mask.numel()} keys "
+                  "attended",
+            max_abs_err=err,
+            ms=timed_ms(lambda k_, v_, sc: kd.decode_attention(
+                q, k_, v_, mask, scale=0.125, num_heads=heads, **sc)),
+            plain_ms=timed_ms(lambda k_, v_, sc: kd.decode_attention_plain(
+                q, k_, v_, mask, scale=0.125, num_heads=heads, **sc)),
+            library_ms=timed_ms(lambda k_, v_, sc: sdpa(q, k_, v_, mask, sc)),
+            flops=4.0 * kb * attended * heads * d, bytes=nbytes)
+        if name == "cross greedy":      # the records of the kernels line
+            records["decode_attention" if kind == "float"
+                    else "decode_attention_q8"] = rec
+        else:
+            records[f"decode_attention ({name}, {kind})"] = rec
+
+
+def check_beam_gather(randn, gen, dev, records):
+    """K5 on the flagship's beam-4 self-attention cache: bit-exact against
+    index_select, with repeated and identity rows, in both dtypes."""
+    import torch
+    from speechmix_tpu_torch.ops.kernels import beam_gather as kg
+
+    log("K5 beam_gather")
+    layers, batch, beams = DECODER_LAYERS, 16, 4
+    rows = batch * beams
+    for dtype in (torch.bfloat16, torch.float32):
+        key, value = (randn(layers, rows, 64, 12, 64, dtype=dtype)
+                      for _ in range(2))
+        idx = torch.randint(0, beams, (batch, beams), generator=gen,
+                            device=dev)
+        idx[0] = torch.arange(beams, device=dev)        # identity rows
+        idx[1] = 2                                       # one row four times
+        src = (torch.arange(batch, device=dev)[:, None] * beams
+               + idx).reshape(-1).to(torch.int32)
+        spare = (torch.empty_like(key), torch.empty_like(value))
+        for out_arg, what in ((None, "new buffers"), (spare, "given buffers")):
+            out_k, out_v = kg.beam_gather(key, value, src, out=out_arg)
+            ref_k, ref_v = kg.beam_gather_plain(key, value, src)
+            torch.cuda.synchronize()
+            exact = torch.equal(out_k, ref_k) and torch.equal(out_v, ref_v)
+            log(f"  L={layers} N={rows} slab (64, 12, 64) {dtype}, {what}: "
+                f"{'bit-exact' if exact else 'DIFFERS'}")
+            if not exact:
+                raise AssertionError("beam_gather differs from index_select")
+        if dtype == torch.bfloat16:
+            args = (key, value, src, spare)
+    expect_refusal("K5 output into its input", lambda: kg.beam_gather(
+        args[0], args[1], args[2], out=(args[0], args[3][1])))
+    small = randn(2, 4, 3, dtype=torch.bfloat16)
+    expect_refusal("K5 slab of 6 bytes", lambda: kg.beam_gather(
+        small, small.clone(), torch.zeros(4, dtype=torch.int32, device=dev)))
+    key, value, src, spare = args
+    idx64 = src.long()
+    records["beam_gather"] = dict(
+        shape=f"K, V ({layers}, {rows}, 64, 12, 64) bf16", max_abs_err=0.0,
+        ms=cuda_ms(lambda: kg.beam_gather(key, value, src, out=spare)),
+        plain_ms=cuda_ms(lambda: kg.beam_gather_plain(key, value, src,
+                                                      out=spare)),
+        library_ms=cuda_ms(lambda: (torch.index_select(key, 1, idx64),
+                                    torch.index_select(value, 1, idx64))),
+        flops=0.0, bytes=4.0 * key.numel() * key.element_size())
+
+
+def check_conv(randn, dev, records):
+    """K6 at the six fused layers of the flagship extractor at 16 s
+    (T_out = 25599 ... 799, k = 3 then 2, C = 512), with and without the
+    LayerNorm epilogue; bf16 at B = 16, f32 at B = 4."""
+    import torch
+    import torch.nn.functional as F
+    from speechmix_tpu_torch.ops.kernels import conv_extractor as kc
+
+    log("K6 conv_ln_gelu")
+    c = 512
+    geometry = ((51199, 3), (25599, 3), (12799, 3), (6399, 3), (3199, 2),
+                (1599, 2))
+    timed = None
+    for dtype, b in ((torch.bfloat16, 16), (torch.float32, 4)):
+        for t_in, k in geometry:
+            x = randn(b, t_in, c, dtype=dtype)
+            w = randn(c, c, k, scale=(k * c) ** -0.5, dtype=dtype)
+            bias, g, beta = (randn(c, scale=0.1) for _ in range(3))
+            for ln in (None, {"scale": g + 1.0, "bias": beta}):
+                out = kc.fused_conv_layer(x, w, bias, ln)
+                ref = kc.fused_conv_layer_plain(x, w, bias, ln)
+                torch.cuda.synchronize()
+                limit = rule = None
+                if dtype == torch.bfloat16:
+                    limit = 1e-4 + 2.0 ** -7 * ref.float().abs()
+                    rule = K6_BF16_RULE
+                err = compare(f"B={b} T_in={t_in} k={k} C={c} "
+                              f"ln={ln is not None} {dtype}", out, ref, limit,
+                              rule)
+                if timed is None:
+                    timed = (x, w, bias, err)
+            del x, out, ref
+    expect_refusal("K6 bf16 C=256", lambda: kc.fused_conv_layer(
+        randn(2, 100, 256, dtype=torch.bfloat16),
+        randn(256, 256, 3, dtype=torch.bfloat16)))
+    expect_refusal("K6 k=5", lambda: kc.fused_conv_layer(
+        randn(2, 100, c), randn(c, c, 5)))
+    x, w, bias, err = timed
+    b, t_in, _ = x.shape
+    k = w.shape[-1]
+    n = b * ((t_in - k) // 2 + 1)
+    # the library conv wants channels first: timed on a contiguous (B, C, T)
+    # tensor, what the port's "conv" route feeds it layer after layer (it
+    # never holds (B, T, C)), and on the transposed view of K6's own input
+    xt_view = x.transpose(1, 2)
+    xt = xt_view.contiguous()
+    bias_c = bias.to(x.dtype)
+    library = lambda inp: F.gelu(F.conv1d(inp, w, bias_c, stride=2))
+    records["conv_ln_gelu"] = dict(
+        shape=f"x ({b}, {t_in}, {c}) k={k} stride 2, no LayerNorm, bf16",
+        max_abs_err=err,
+        ms=cuda_ms(lambda: kc.fused_conv_layer(x, w, bias), iters=10),
+        plain_ms=cuda_ms(lambda: kc.fused_conv_layer_plain(x, w, bias),
+                         iters=5),
+        library_ms=cuda_ms(lambda: library(xt), iters=10),
+        library_ms_transposed_view=cuda_ms(lambda: library(xt_view),
+                                           iters=10),
+        flops=2.0 * n * k * c * c,
+        bytes=(x.numel() + n * c + w.numel()) * 2 + c * 4)
 
 
 def expect_refusal(name, call):
@@ -293,19 +592,29 @@ def expect_refusal(name, call):
 
 
 class plain_kernels:
-    """Context that routes the port's three kernel call sites to their plain
-    versions, for the f32 reference run of this script only."""
+    """Context that routes the port's kernel call sites to their plain
+    versions, for the f32 reference runs of this script only."""
 
     def __enter__(self):
+        from speechmix_tpu_torch import generation
+        from speechmix_tpu_torch.models import seq2seq
         from speechmix_tpu_torch.ops import attention as attn_mod
         from speechmix_tpu_torch.ops.kernels import attention as ka
+        from speechmix_tpu_torch.ops.kernels import beam_gather as kg
+        from speechmix_tpu_torch.ops.kernels import conv_extractor as kc
+        from speechmix_tpu_torch.ops.kernels import decode_attention as kd
         from speechmix_tpu_torch.ops.kernels import ffn as kf
-        self.saved = [(attn_mod, "attention_fwd", attn_mod.attention_fwd),
-                      (kf, "ffn_res_ln", kf.ffn_res_ln),
-                      (kf, "dense_res_ln", kf.dense_res_ln)]
-        attn_mod.attention_fwd = ka.attention_fwd_plain
-        kf.ffn_res_ln = kf.ffn_res_ln_plain
-        kf.dense_res_ln = kf.dense_res_ln_plain
+        swaps = [(attn_mod, "attention_fwd", ka.attention_fwd_plain),
+                 (kf, "ffn_res_ln", kf.ffn_res_ln_plain),
+                 (kf, "dense_res_ln", kf.dense_res_ln_plain),
+                 (attn_mod, "decode_attention", kd.decode_attention_plain),
+                 (seq2seq, "decode_attention", kd.decode_attention_plain),
+                 (generation, "beam_gather", kg.beam_gather_plain),
+                 (kc, "fused_conv_layer", kc.fused_conv_layer_plain)]
+        self.saved = [(mod, name, getattr(mod, name))
+                      for mod, name, _ in swaps]
+        for mod, name, fn in swaps:
+            setattr(mod, name, fn)
         return self
 
     def __exit__(self, *exc):
@@ -313,56 +622,90 @@ class plain_kernels:
             setattr(mod, name, fn)
 
 
+BATCH, SECONDS, MAX_LEN, BEAMS = 16, 16.0, 64, 4
+# f32 kernel path against f32 plain path on the flagship: share of equal
+# tokens, and largest difference of the beams' length-normalised scores
+TOKEN_AGREEMENT_F32, BEAM_SCORE_TOL_F32 = 0.99, 1e-4
+
+
+def expected_launches(mode, steps):
+    """Launches of every kernel in one generate() of the flagship."""
+    want = {"smx_attention_fwd": LAYERS_WITH_KERNELS,
+            "smx_dense_res_ln": LAYERS_WITH_KERNELS,
+            "smx_ffn_res_ln": LAYERS_WITH_KERNELS,
+            "smx_conv_ln_gelu": FUSED_CONV_LAYERS,
+            # self- and cross-attention of each decoder layer, each step
+            "smx_decode_attention": 2 * DECODER_LAYERS * steps,
+            "smx_decode_attention_q8": 0, "smx_beam_gather": 0}
+    if mode == "greedy-int8":
+        want["smx_decode_attention"] = DECODER_LAYERS * steps
+        want["smx_decode_attention_q8"] = DECODER_LAYERS * steps
+    if mode == "beam-4":
+        want["smx_beam_gather"] = steps
+    return want
+
+
 def run_flagship(seed, card):
-    """Phase 4.  Returns the launch count of each kernel per generate()."""
+    """Phase 4.  Returns {mode: launch count of each kernel per generate()}
+    for the modes greedy, greedy-int8 and beam-4."""
+    import dataclasses
     import torch
     from speechmix_tpu_torch import config, generation
     from speechmix_tpu_torch.models import seq2seq, speechmix
     from speechmix_tpu_torch.ops import kernels
 
     cfg = config.SpeechMixConfig(
-        encoder=config.SPEECH_ENCODER_PRESETS["wav2vec2-base"],
+        encoder=dataclasses.replace(
+            config.SPEECH_ENCODER_PRESETS["wav2vec2-base"],
+            extractor_impl="fused"),
         decoder=config.SEQ2SEQ_PRESETS["bart-base"], down_scale=2)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = speechmix.init_speechmix(cfg, gen, dev, torch.bfloat16)
-    batch, seconds, max_len = 16, 16.0, 64
-    t_samples = int(seconds * 16000)
+    t_samples = int(SECONDS * 16000)
     t_padded = cfg.encoder.aligned_samples(t_samples)
-    wav = torch.zeros(batch, t_padded, device=dev)
-    wav[:, :t_samples] = torch.randn(batch, t_samples, generator=gen,
+    wav = torch.zeros(BATCH, t_padded, device=dev)
+    wav[:, :t_samples] = torch.randn(BATCH, t_samples, generator=gen,
                                      device=dev) * 0.1
-    lengths = torch.full((batch,), t_samples, device=dev)
-    log(f"flagship wav2vec2-base + bart-base, down_scale 2, B={batch} x "
-        f"{seconds} s, max_length {max_len}, bf16 matrices")
+    lengths = torch.full((BATCH,), t_samples, device=dev)
+    log(f"flagship wav2vec2-base + bart-base, down_scale 2, fused extractor, "
+        f"B={BATCH} x {SECONDS} s, max_length {MAX_LEN}, bf16 matrices")
 
-    counts, times = None, []
-    for i in range(8):  # the first two calls are the warm-up
-        kernels.reset_launch_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        tokens, tok_lens = generation.generate(
-            params, cfg, wav, lengths, max_length=max_len,
-            dtype=torch.bfloat16)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        run_counts = {k.symbol: k.launches for k in kernels.kernels()}
-        log(f"  generate call {i}: {dt * 1e3:.1f} ms, launches {run_counts}")
-        for sym, c in run_counts.items():
-            if c != LAYERS_WITH_KERNELS:
-                raise AssertionError(f"{sym} launched {c} times in one "
-                                     f"generate(), expected "
-                                     f"{LAYERS_WITH_KERNELS}")
-        counts = run_counts
-        if i >= 2:
-            times.append(dt)
-    if tokens.shape != (batch, max_len) or (tok_lens < 0).any():
-        raise AssertionError(f"bad generate output {tuple(tokens.shape)}")
-    med = sorted(times)[len(times) // 2]
-    log(f"  audio-seconds per second {batch * seconds / med:.2f} (median of "
-        f"{len(times)} calls, {med * 1e3:.1f} ms; all: "
-        f"{', '.join(f'{t * 1e3:.1f}' for t in times)}) on {card}")
-    stage_breakdown(params, cfg, wav, lengths, max_len)
+    modes = {"greedy": (dict(), 8),          # (generate kwargs, calls)
+             "greedy-int8": (dict(kv_int8=True), 4),
+             "beam-4": (dict(num_beams=BEAMS, num_return_sequences=BEAMS,
+                             output_scores=True), 4)}
+    counts, outputs = {}, {}
+    for mode, (kwargs, calls) in modes.items():
+        want = expected_launches(mode, MAX_LEN)
+        warmup, times = (2 if mode == "greedy" else 1), []
+        for i in range(calls):
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = generation.generate(params, cfg, wav, lengths,
+                                      max_length=MAX_LEN,
+                                      dtype=torch.bfloat16, **kwargs)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            run_counts = {k.symbol: k.launches for k in kernels.kernels()}
+            log(f"  {mode} generate call {i}: {dt * 1e3:.1f} ms, launches "
+                f"{run_counts}")
+            if run_counts != want:
+                raise AssertionError(f"{mode}: launches {run_counts}, "
+                                     f"expected {want}")
+            if i >= warmup:
+                times.append(dt)
+        counts[mode], outputs[mode] = run_counts, out
+        rows = BATCH * kwargs.get("num_return_sequences", 1)
+        if out[0].shape != (rows, MAX_LEN) or (out[1] < 0).any():
+            raise AssertionError(f"{mode}: bad generate output "
+                                 f"{tuple(out[0].shape)}")
+        med = sorted(times)[len(times) // 2]
+        log(f"  {mode}: audio-seconds per second {BATCH * SECONDS / med:.2f} "
+            f"(median of {len(times)} calls, {med * 1e3:.1f} ms; all: "
+            f"{', '.join(f'{t * 1e3:.1f}' for t in times)}) on {card}")
+    stage_breakdown(params, cfg, wav, lengths, modes)
 
     def text_encoder_out(p, dtype):
         emb, mask = speechmix.encode_speech(p, cfg, wav, lengths,
@@ -372,14 +715,22 @@ def run_flagship(seed, card):
         return enc["last_hidden_state"].float(), mask
 
     p32 = _cast_tree(params, torch.float32)
+    f32_run = lambda **kw: generation.generate(
+        p32, cfg, wav, lengths, max_length=MAX_LEN, dtype=torch.float32, **kw)
     with torch.no_grad():
         out_bf16, mask = text_encoder_out(params, torch.bfloat16)
         out_k32, _ = text_encoder_out(p32, torch.float32)
+        k32_tokens, _ = f32_run()
+        k32_int8, _ = f32_run(kv_int8=True)
+        k32_beam = f32_run(**modes["beam-4"][0])
         with plain_kernels():
+            kernels.reset_launch_counts()
             ref, _ = text_encoder_out(p32, torch.float32)
-            ref_tokens, _ = generation.generate(
-                p32, cfg, wav, lengths, max_length=max_len,
-                dtype=torch.float32)
+            ref_tokens, _ = f32_run()
+            ref_int8, _ = f32_run(kv_int8=True)
+            ref_beam = f32_run(**modes["beam-4"][0])
+            if any(k.launches for k in kernels.kernels()):
+                raise AssertionError("the plain reference launched a kernel")
     valid = mask[..., None].float()
 
     def rel(a):
@@ -393,16 +744,58 @@ def run_flagship(seed, card):
             f"error {r:.3e} (bound {bound})")
         if r > bound:
             raise AssertionError(f"{name}: relative error {r} > {bound}")
-    agree = (tokens == ref_tokens).float().mean().item()
+
+    def agreement(a, b):
+        return (a == b).float().mean().item()
+    # the decode wiring (K4 in attention() and _cross_attention, the shared
+    # cross K/V of the beams, K5's ping-pong, the int8 cache): in f32 the
+    # kernel path must decode what the plain path decodes.  A near-tie of two
+    # logits may still flip a token and what follows it in that row, hence
+    # 0.99 and not 1.
+    score_diff = (k32_beam[2] - ref_beam[2]).abs().max().item()
+    for name, a, b in (("greedy", k32_tokens, ref_tokens),
+                       ("greedy-int8", k32_int8, ref_int8),
+                       ("beam-4", k32_beam[0], ref_beam[0])):
+        rate = agreement(a, b)
+        log(f"  {name} token agreement, f32 kernels vs f32 plain path: "
+            f"{rate:.4f} (at least {TOKEN_AGREEMENT_F32})")
+        if rate < TOKEN_AGREEMENT_F32:
+            raise AssertionError(f"{name}: f32 kernel path agrees with the "
+                                 f"plain path on {rate} of the tokens")
+    log(f"  beam-4 sequences_scores, f32 kernels vs f32 plain path: max abs "
+        f"difference {score_diff:.3e} (at most {BEAM_SCORE_TOL_F32})")
+    if not score_diff <= BEAM_SCORE_TOL_F32:
+        raise AssertionError(f"beam-4: f32 sequences_scores differ by "
+                             f"{score_diff}")
+    tokens = outputs["greedy"][0]
     log(f"  greedy token agreement, bf16 kernels vs f32 plain path: "
-        f"{agree:.4f}")
+        f"{agreement(tokens, ref_tokens):.4f}")
+    log(f"  greedy token agreement, int8 vs bf16 cross K/V (bf16 kernels): "
+        f"{agreement(outputs['greedy-int8'][0], tokens):.4f}")
+    beam_tok, _, beam_scores = outputs["beam-4"]
+    log(f"  beam-4 token agreement, bf16 kernels vs f32 plain path: "
+        f"{agreement(beam_tok, ref_beam[0]):.4f}")
+    for name, sc in (("bf16 kernels", beam_scores), ("f32 kernels",
+                                                    k32_beam[2])):
+        per_row = sc.float().reshape(BATCH, BEAMS)
+        if not torch.isfinite(per_row).all() or (per_row < -1e8).any():
+            raise AssertionError(f"beam-4 {name}: unfinished or non-finite "
+                                 "sequences_scores")
+        if (per_row[:, 1:] > per_row[:, :-1]).any():
+            raise AssertionError(f"beam-4 {name}: sequences_scores increase "
+                                 "within an input row")
+    log(f"  beam-4 sequences_scores: finite and non-increasing per input "
+        f"row; best {beam_scores.reshape(BATCH, BEAMS)[:, 0].mean():.3f}, "
+        f"worst {beam_scores.reshape(BATCH, BEAMS)[:, -1].mean():.3f} (means "
+        "over rows)")
     return counts
 
 
-def stage_breakdown(params, cfg, wav, lengths, max_len):
+def stage_breakdown(params, cfg, wav, lengths, modes):
     """Median ms of each stage of generate() (host clock around
-    synchronised calls), and the device-busy share of one whole call from
-    torch.profiler: summed device time of all kernels over wall time."""
+    synchronised calls), and for every mode the device-busy share of one
+    whole call from torch.profiler: summed device time of all kernels over
+    wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from speechmix_tpu_torch import generation
@@ -420,14 +813,22 @@ def stage_breakdown(params, cfg, wav, lengths, max_len):
             params["nlp"], cfg.decoder, inputs_embeds=state["emb"],
             attention_mask=state["mask"], dtype=dt)["last_hidden_state"]
 
-    def decode():
-        generation.greedy_decode(params["nlp"], cfg.decoder, state["enc"],
-                                 state["mask"], max_len, dt)
+    def decode(**kw):
+        return lambda: generation.greedy_decode(
+            params["nlp"], cfg.decoder, state["enc"], state["mask"], MAX_LEN,
+            dt, **kw)
+
+    def beam():
+        generation.beam_search(params["nlp"], cfg.decoder, state["enc"],
+                               state["mask"], MAX_LEN, BEAMS, dtype=dt)
 
     with torch.no_grad():
-        for name, fn in (("speech encoder + bridge", speech),
-                         ("text encoder", text),
-                         ("decode loop (cross-KV + 64 steps)", decode)):
+        for name, fn in (
+                ("speech encoder + bridge", speech), ("text encoder", text),
+                ("greedy decode loop (cross-KV + 64 steps)", decode()),
+                ("greedy-int8 decode loop (int8 cross-KV + 64 steps)",
+                 decode(kv_int8=True)),
+                ("beam-4 decode loop (cross-KV + 64 steps)", beam)):
             runs = []
             for _ in range(5):
                 torch.cuda.synchronize()
@@ -437,20 +838,24 @@ def stage_breakdown(params, cfg, wav, lengths, max_len):
                 runs.append(time.perf_counter() - t0)
             log(f"  stage {name}: {sorted(runs)[2] * 1e3:.1f} ms (median "
                 "of 5)")
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            generation.generate(params, cfg, wav, lengths,
-                                max_length=max_len, dtype=dt)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    busy_us = sum(e.self_device_time_total for e in events)
-    log(f"  profiled generate: wall {wall_us / 1e3:.1f} ms, device busy "
-        f"{busy_us / 1e3:.1f} ms ({busy_us / wall_us:.3f} of wall)")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
-        log(f"    {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d}x  "
-            f"{e.key[:90]}")
+        for mode, (kwargs, _) in modes.items():
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                generation.generate(params, cfg, wav, lengths,
+                                    max_length=MAX_LEN, dtype=dt, **kwargs)
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+            events = [e for e in prof.key_averages()
+                      if e.self_device_time_total > 0]
+            busy_us = sum(e.self_device_time_total for e in events)
+            log(f"  profiled {mode} generate: wall {wall_us / 1e3:.1f} ms, "
+                f"device busy {busy_us / 1e3:.1f} ms "
+                f"({busy_us / wall_us:.3f} of wall)")
+            top = sorted(events, key=lambda e: -e.self_device_time_total)
+            for e in top[:10 if mode == "greedy" else 6]:
+                log(f"    {e.self_device_time_total / 1e3:9.2f} ms  "
+                    f"{e.count:6d}x  {e.key[:90]}")
 
 
 def _cast_tree(tree, dtype):
@@ -499,25 +904,39 @@ def main():
     records = check_kernels(gen, torch.device("cuda"))
     counts = run_flagship(args.seed, card)
 
+    pallas = "speechmix_tpu/ops/pallas/"
+    # name: (source, TPU kernel file:line, mode whose run gives `launches`)
     replaces = {
-        "attention_fwd": ("speechmix_tpu_torch/csrc/attention_fwd.cu",
-                          "speechmix_tpu/ops/pallas/flash_attention_kernel.py"
-                          ":968"),
-        "dense_res_ln": ("speechmix_tpu_torch/csrc/dense_res_ln.cu",
-                         "speechmix_tpu/ops/pallas/ffn_kernel.py:362"),
-        "ffn_res_ln": ("speechmix_tpu_torch/csrc/ffn_res_ln.cu",
-                       "speechmix_tpu/ops/pallas/ffn_kernel.py:180"),
+        "attention_fwd": ("attention_fwd.cu",
+                          "flash_attention_kernel.py:968", "greedy"),
+        "dense_res_ln": ("dense_res_ln.cu", "ffn_kernel.py:362", "greedy"),
+        "ffn_res_ln": ("ffn_res_ln.cu", "ffn_kernel.py:180", "greedy"),
+        "decode_attention": ("decode_attention.cu", "decode_attention.py:31",
+                             "greedy"),
+        "decode_attention_q8": ("decode_attention.cu",
+                                "decode_attention.py:67", "greedy-int8"),
+        "beam_gather": ("beam_gather.cu", "beam_gather.py:39", "beam-4"),
+        "conv_ln_gelu": ("conv_ln_gelu.cu", "conv_extractor.py:88", "greedy"),
     }
     line = {"kernels": []}
-    for name, rec in records.items():
-        source, tpu = replaces[name]
+    for name, (source, tpu, mode) in replaces.items():
+        rec = records[name]
+        launches = counts[mode][f"smx_{name}"]
+        if launches < 1:
+            raise AssertionError(f"{name} was not launched by the {mode} run")
         line["kernels"].append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": tpu, "launches": counts[f"smx_{name}"],
+            "name": name, "route": "cuda",
+            "source": f"speechmix_tpu_torch/csrc/{source}",
+            "replaces": pallas + tpu, "launches": launches,
+            "launches_in": mode,
+            "launches_by_mode": {m: c[f"smx_{name}"]
+                                 for m, c in counts.items()},
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             "shape": rec["shape"], "within_tolerance": True,
+            **{k: v for k, v in rec.items()
+               if k.startswith("library_ms_")},
         })
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(line), flush=True)

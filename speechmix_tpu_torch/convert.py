@@ -101,3 +101,12 @@ def params_from_jax(tree, cfg: SpeechMixConfig, dtype=torch.float32,
     if cfg.weighted_sum:
         out["weights_sum"] = _plain(tree["weights_sum"], dtype, device)
     return out
+
+
+def cross_kv_from_jax(a, device="cpu"):
+    """A cross K or V array of the JAX package's decoder cache, stored
+    batch-minor (L, T_enc, H, D, B) in the compute dtype or as int8 codes,
+    in the port's (L, B, T_enc, H, D) layout.  (The scales are (L, B, T_enc,
+    H) in both packages.)"""
+    return torch.tensor(np.ascontiguousarray(
+        np.asarray(a).transpose(0, 4, 1, 2, 3)), device=device)

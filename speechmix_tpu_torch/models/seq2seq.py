@@ -2,18 +2,24 @@
 
 The text encoder (``encode``) and the cached single-step decoder
 (``precompute_cross_kv``, ``init_decoder_cache``, ``decode``).  Layers are
-lists of parameter dicts.  T5, the uncached (teacher-forcing) decoder,
-adapters and int8 K/V are not ported yet.
+lists of parameter dicts.  T5, the uncached (teacher-forcing) decoder and
+adapters are not ported yet.
 
 Cache layout: self K/V (L, B, capacity, H, D), written in place by each
-step; cross K/V (L, B, T_enc, H, D).  (The JAX package stores cross K/V
-batch-minor, (L, T_enc, H, D, B), for the TPU's sake.)
+step; cross K/V (L, B_enc, T_enc, H, D), in the compute dtype or, with
+``kv_int8``, as int8 codes with float32 scales (L, B_enc, T_enc, H).  (The
+JAX package stores cross K/V batch-minor, (L, T_enc, H, D, B), for the
+TPU's sake.)  B may be a multiple of B_enc: beam search keeps one cross K/V
+per input and the beams of an input, contiguous in the batch, share it.
+
+Single-token cached steps run kernel K4 (``ops.kernels.decode_attention``)
+for self- and cross-attention.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -21,7 +27,8 @@ import torch.nn.functional as F
 from ..config import Seq2SeqConfig
 from ..ops import layers
 from ..ops.attention import KVCache, attention, cache_position_bias
-from ..ops.masking import combine_masks_to_bias
+from ..ops.kernels.decode_attention import (decode_attention,
+                                            decode_attention_plain)
 from .init import dense_params, embedding_params, layer_norm_params
 
 
@@ -35,8 +42,10 @@ def _check_supported(cfg: Seq2SeqConfig):
 
 class DecoderCache(NamedTuple):
     self_kv: KVCache          # key/value: (L, B, capacity, H, D)
-    cross_k: torch.Tensor     # (L, B, T_enc, H, D)
+    cross_k: torch.Tensor     # (L, B_enc, T_enc, H, D); int8 with scales
     cross_v: torch.Tensor
+    cross_k_scale: Optional[torch.Tensor] = None   # (L, B_enc, T_enc, H) f32
+    cross_v_scale: Optional[torch.Tensor] = None
 
 
 def embed_tokens(params, cfg: Seq2SeqConfig, input_ids, dtype=torch.float32):
@@ -87,50 +96,89 @@ def encode(params, cfg: Seq2SeqConfig, input_ids=None, inputs_embeds=None,
     return out
 
 
+def _quantize_kv(x):
+    """Per-(batch, token, head) symmetric int8 over the head dim.
+    x: (B, T, H, D) -> (codes int8, scale float32 (B, T, H))."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1).clamp_min(1e-8) / 127.0
+    codes = torch.round(xf / scale[..., None]).clamp(-127, 127)
+    return codes.to(torch.int8), scale
+
+
 def precompute_cross_kv(params, cfg: Seq2SeqConfig, enc_hidden,
-                        dtype=torch.float32):
+                        dtype=torch.float32, kv_int8=False):
     """Per-layer cross-attention K and V of the encoder output, once per
-    sequence: two (L, B, T_enc, H, D) tensors."""
+    sequence: two (L, B, T_enc, H, D) tensors, or with kv_int8 four: int8
+    codes of K and V and their float32 scales (L, B, T_enc, H)."""
     b, t, _ = enc_hidden.shape
-    ks, vs = [], []
+    outs = []
     for block in params["decoder"]["layers"]:
         ea = block["encoder_attn"]
-        ks.append(layers.dense(ea["k_proj"], enc_hidden, dtype)
-                  .reshape(b, t, cfg.num_heads, cfg.per_head_dim))
-        vs.append(layers.dense(ea["v_proj"], enc_hidden, dtype)
-                  .reshape(b, t, cfg.num_heads, cfg.per_head_dim))
-    return torch.stack(ks), torch.stack(vs)
+        k = layers.dense(ea["k_proj"], enc_hidden, dtype).reshape(
+            b, t, cfg.num_heads, cfg.per_head_dim)
+        v = layers.dense(ea["v_proj"], enc_hidden, dtype).reshape(
+            b, t, cfg.num_heads, cfg.per_head_dim)
+        if kv_int8:
+            kq, ks = _quantize_kv(k)
+            vq, vs = _quantize_kv(v)
+            outs.append((kq, vq, ks, vs))
+        else:
+            outs.append((k, v))
+    return tuple(torch.stack(part) for part in zip(*outs))
 
 
 def init_decoder_cache(params, cfg: Seq2SeqConfig, enc_hidden, batch,
-                       capacity, dtype=torch.float32) -> DecoderCache:
+                       capacity, dtype=torch.float32,
+                       kv_int8=False) -> DecoderCache:
+    """Cross K/V of `enc_hidden` and an empty self-attention cache of `batch`
+    rows (a multiple of enc_hidden's rows: see the module docstring)."""
     _check_supported(cfg)
-    cross_k, cross_v = precompute_cross_kv(params, cfg, enc_hidden, dtype)
+    cross = precompute_cross_kv(params, cfg, enc_hidden, dtype, kv_int8)
     shape = (cfg.decoder_layers, batch, capacity, cfg.num_heads,
              cfg.per_head_dim)
     device = enc_hidden.device
     self_kv = KVCache(torch.zeros(shape, dtype=dtype, device=device),
                       torch.zeros(shape, dtype=dtype, device=device), 0)
-    return DecoderCache(self_kv, cross_k, cross_v)
+    return DecoderCache(self_kv, *cross)
 
 
-def _cross_attention(attn_params, cfg, x_q, k, v, kv_mask, dtype):
-    """Cross-attention over precomputed K/V (B, T_enc, H, D); returns the
-    concatenated heads (the caller owns the out-projection)."""
+def _cross_attention(attn_params, cfg, x_q, k, v, kv_mask, dtype,
+                     k_scale=None, v_scale=None):
+    """Cross-attention over precomputed K/V (B_enc, T_enc, H, D), float or
+    int8 codes with (B_enc, T_enc, H) scales; returns the concatenated heads
+    (the caller owns the out-projection).  A query batch that is a multiple
+    of B_enc shares each K/V row among that many contiguous queries (beam
+    search); kv_mask is then the untiled (B_enc, T_enc) encoder mask.  A
+    single-token step runs K4; a longer chunk takes the plain version."""
     d = cfg.per_head_dim
+    scale = 1.0 / math.sqrt(d)
     q = layers.dense(attn_params["q_proj"], x_q, dtype)
-    q = q.reshape(*q.shape[:2], cfg.num_heads, d)
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
-    logits = logits * (1.0 / math.sqrt(d))
-    if kv_mask is not None:
-        logits = logits + combine_masks_to_bias(kv_mask=kv_mask)
-    probs = torch.softmax(logits, dim=-1).to(dtype)
-    out = torch.einsum("bhqk,bkhd->bqhd", probs, v.to(dtype))
-    return out.reshape(*out.shape[:2], cfg.num_heads * d)
+    bq, q_len = q.shape[:2]
+    q = q.reshape(bq, q_len, cfg.num_heads, d)
+    bkv, t_enc = k.shape[:2]
+    if bq != bkv:
+        if bq % bkv or q_len != 1:
+            raise ValueError(f"cross-KV batch {bkv} incompatible with query "
+                             f"batch {bq} x q_len {q_len}")
+        if kv_mask is not None and kv_mask.shape[0] not in (1, bkv):
+            raise ValueError(f"encoder mask batch {kv_mask.shape[0]} != KV "
+                             f"batch {bkv}; pass the UNTILED encoder mask "
+                             "with a shared-KV cache")
+    if kv_mask is None:
+        kv_mask = torch.ones((bkv, t_enc), dtype=torch.bool, device=q.device)
+    kv_mask = kv_mask.expand(bkv, t_enc).contiguous()
+    kwargs = dict(scale=scale, num_heads=cfg.num_heads, k_scale=k_scale,
+                  v_scale=v_scale)
+    # K4 is the single-token step; a longer chunk is q_len such queries on
+    # the same K/V, which the plain formula takes in one pass
+    attend = decode_attention if q_len == 1 else decode_attention_plain
+    out = attend(q, k, v, kv_mask, **kwargs)
+    return out.reshape(bq, q_len, cfg.num_heads * d)
 
 
 def _decoder_block(block, cfg, x, self_bias, self_kv_mask, layer_cache,
-                   cross_k, cross_v, cross_kv_mask, dtype):
+                   cross_k, cross_v, cross_kv_mask, dtype, cross_k_scale=None,
+                   cross_v_scale=None):
     a, new_cache = attention(block["self_attn"], x, bias=self_bias,
                              kv_mask=self_kv_mask, num_heads=cfg.num_heads,
                              head_dim=cfg.per_head_dim, cache=layer_cache,
@@ -139,7 +187,7 @@ def _decoder_block(block, cfg, x, self_bias, self_kv_mask, layer_cache,
         block["self_attn"]["out_proj"], block["self_attn_layer_norm"], a, x,
         dtype, cfg.layer_norm_eps)
     a = _cross_attention(block["encoder_attn"], cfg, x, cross_k, cross_v,
-                         cross_kv_mask, dtype)
+                         cross_kv_mask, dtype, cross_k_scale, cross_v_scale)
     x = layers.dense_residual_ln_apply(
         block["encoder_attn"]["out_proj"], block["encoder_attn_layer_norm"],
         a, x, dtype, cfg.layer_norm_eps)
@@ -170,16 +218,19 @@ def decode(params, cfg: Seq2SeqConfig, decoder_input_ids, encoder_mask,
     if q_len == 1:
         # a single-token step only has to exclude the unfilled slots
         self_kv_mask = (torch.arange(capacity, device=device)[None, :]
-                        <= offset).expand(b, capacity)
+                        <= offset).expand(b, capacity).contiguous()
     else:
         self_bias = cache_position_bias(capacity, offset, q_len,
                                         device=device)
+    int8_kv = cache.cross_k_scale is not None
     for i, block in enumerate(dec["layers"]):
         layer_cache = KVCache(cache.self_kv.key[i], cache.self_kv.value[i],
                               offset)
-        x, _ = _decoder_block(block, cfg, x, self_bias, self_kv_mask,
-                              layer_cache, cache.cross_k[i],
-                              cache.cross_v[i], encoder_mask, dtype)
+        x, _ = _decoder_block(
+            block, cfg, x, self_bias, self_kv_mask, layer_cache,
+            cache.cross_k[i], cache.cross_v[i], encoder_mask, dtype,
+            cache.cross_k_scale[i] if int8_kv else None,
+            cache.cross_v_scale[i] if int8_kv else None)
     new_cache = cache._replace(self_kv=cache.self_kv._replace(
         index=offset + q_len))
 

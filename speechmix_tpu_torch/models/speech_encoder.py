@@ -1,8 +1,8 @@
 """wav2vec2-family speech encoder, inference (port of
 ``speechmix_tpu.models.speech_encoder``).
 
-Conv feature extractor -> feature projection -> masked positional conv ->
-post-LN transformer layers.  Layers are a list of parameter dicts (the JAX
+Conv feature extractor (optionally with kernel K6 for its stride-2 layers)
+-> feature projection -> masked positional conv -> post-LN transformer layers.  Layers are a list of parameter dicts (the JAX
 package stacks them on a leading axis for ``lax.scan``).  Training-only
 parts (SpecAugment, LayerDrop, dropout) and the pre-LN ("stable layer
 norm") form are not ported yet.
@@ -16,6 +16,7 @@ import torch.nn.functional as F
 from ..config import SpeechEncoderConfig
 from ..ops import layers
 from ..ops.attention import attention
+from ..ops.kernels.conv_extractor import fused_conv_stack
 from ..ops.masking import length_mask
 from .init import conv_params, dense_params, layer_norm_params
 
@@ -33,14 +34,41 @@ def _check_supported(cfg: SpeechEncoderConfig):
             "pre-LN (do_stable_layer_norm) speech encoders are not ported yet")
 
 
+_XLA_ONLY_IMPLS = ("patches", "pairs", "taps")
+
+
+def _fused_extractor_ok(cfg: SpeechEncoderConfig) -> bool:
+    """Geometry gate of the fused extractor kernel (K6): layers 1.. must be
+    stride-2, k in {2, 3}, at one channel width (every wav2vec2 preset)."""
+    return (len(cfg.conv_dims) >= 2
+            and all(s == 2 for s in cfg.conv_strides[1:])
+            and all(k in (2, 3) for k in cfg.conv_kernels[1:])
+            and len(set(cfg.conv_dims)) == 1)
+
+
 def extract_features(params, cfg: SpeechEncoderConfig, waveform,
                      lengths=None, dtype=torch.float32):
     """(B, T_samples) -> (B, T_frames, feature_dim).  `lengths` (valid
     sample counts) gates the group-norm statistics; VALID convolutions never
-    let padding reach valid frames otherwise."""
+    let padding reach valid frames otherwise.
+
+    cfg.extractor_impl: "conv" (and "auto") runs every layer as a library
+    convolution; "fused" runs layer 0 (and its group norm) that way and
+    layers 1.. through kernel K6 (conv + bias [+ LayerNorm] + GELU in one
+    pass), where the geometry allows it (_fused_extractor_ok), else "conv".
+    The JAX package's XLA reformulations ("patches", "pairs", "taps") have no
+    counterpart here."""
+    impl = cfg.extractor_impl
+    if impl in _XLA_ONLY_IMPLS:
+        raise NotImplementedError(f"extractor_impl={impl!r} is an XLA "
+                                  "reformulation and is not ported")
+    if impl not in ("auto", "conv", "fused"):
+        raise ValueError(f"unknown extractor_impl {impl!r}")
+    fused = impl == "fused" and _fused_extractor_ok(cfg)
+    conv_layers = params["feature_extractor"]["layers"]
     x = waveform.to(dtype)[..., None]
     l = lengths
-    for i, layer in enumerate(params["feature_extractor"]["layers"]):
+    for i, layer in enumerate(conv_layers[:1] if fused else conv_layers):
         x = layers.conv1d(layer["conv"], x, cfg.conv_strides[i], dtype)
         group = cfg.feat_extract_norm == "group" and i == 0
         mask = None
@@ -56,6 +84,11 @@ def extract_features(params, cfg: SpeechEncoderConfig, waveform,
             else:
                 x = layers.layer_norm(layer["norm"], x, cfg.layer_norm_eps)
         x = F.gelu(x)
+    if fused:
+        # the library conv leaves (B, T, C) as a view of (B, C, T)
+        x = fused_conv_stack(x.contiguous(), conv_layers[1:],
+                             cfg.feat_extract_norm == "layer",
+                             cfg.layer_norm_eps)
     return x
 
 

@@ -2,8 +2,10 @@
 
 Self-attention without a cache or an extra bias (the speech encoder and the
 text encoder) runs kernel K1 (``ops.kernels.attention``) on the (B, T, H*D)
-projection slabs.  Everything else (the cached decoder steps, an additive
-bias) takes the plain path ``_attend``.
+projection slabs.  A cached single-token step with a structured ``kv_mask``
+runs kernel K4 (``ops.kernels.decode_attention``) over the whole cache
+capacity.  Everything else (a cached multi-token chunk, an additive bias)
+takes the plain path ``_attend``.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch
 
 from . import layers
 from .kernels.attention import attention_fwd
+from .kernels.decode_attention import decode_attention
 from .masking import causal_attention_bias, combine_masks_to_bias
 
 
@@ -73,6 +76,17 @@ def attention(params, x_q, x_kv=None, bias=None, kv_mask=None, causal=False,
     new_cache = None
     if cache is None and bias is None:
         out = attention_fwd(q, k, v, kv_mask, num_heads, scale, causal)
+    elif (cache is not None and bias is None and not causal
+          and kv_mask is not None and x_q.shape[1] == 1):
+        # cached single-token step: one K4 launch over the cache capacity
+        index = cache.index
+        cache.key[:, index] = _split_heads(k, num_heads)[:, 0]
+        cache.value[:, index] = _split_heads(v, num_heads)[:, 0]
+        new_cache = KVCache(cache.key, cache.value, index + 1)
+        out = decode_attention(_split_heads(q, num_heads), cache.key,
+                               cache.value, kv_mask.contiguous(), scale=scale,
+                               num_heads=num_heads)
+        out = out.reshape(out.shape[0], 1, num_heads * head_dim)
     else:
         q, k, v = (_split_heads(t, num_heads) for t in (q, k, v))
         if cache is not None:

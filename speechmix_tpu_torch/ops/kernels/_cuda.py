@@ -1,6 +1,6 @@
 """Build and load the port's CUDA kernels.
 
-Each ``csrc/*.cu`` file exports one plain C launcher and is compiled by
+Each ``csrc/*.cu`` file exports plain C launchers and is compiled by
 ``nvcc`` for ``sm_90a`` into its own shared library under
 ``speechmix_tpu_torch/_build/``, then loaded with ``ctypes``.  Every source
 is compiled by its own ``nvcc`` process, all started together, at the first
@@ -62,7 +62,9 @@ def build_all() -> float:
     RuntimeError with the compiler's output if any build fails."""
     with _BUILD_LOCK:
         t0 = time.perf_counter()
-        todo = [k for k in _REGISTRY if not _lib_path(k.source).exists()]
+        # one build per source: a source may export several launchers
+        todo = list({k.source: k for k in _REGISTRY
+                     if not _lib_path(k.source).exists()}.values())
         if not todo:
             return 0.0
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -151,10 +153,9 @@ def check_cuda_tensor(name: str, t, dtype=None, shape=None, device=None):
 
 def check_aligned(name: str, t, nbytes: int):
     """Raise ValueError unless `t`'s data starts on an `nbytes` boundary (the
-    tensor-core kernels load their operands in words of that size)."""
+    kernels load their operands in words of that size)."""
     if t.data_ptr() % nbytes:
-        raise ValueError(f"{name} must be {nbytes}-byte aligned for the "
-                         "bfloat16 kernel")
+        raise ValueError(f"{name} must be {nbytes}-byte aligned")
 
 
 def dtype_code(dtype) -> int:

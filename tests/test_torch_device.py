@@ -14,6 +14,9 @@ from speechmix_tpu_torch import generation as t_gen
 from speechmix_tpu_torch.models import speechmix as t_smx
 from speechmix_tpu_torch.ops.kernels import _cuda
 from speechmix_tpu_torch.ops.kernels import attention as t_attn
+from speechmix_tpu_torch.ops.kernels import beam_gather as t_bg
+from speechmix_tpu_torch.ops.kernels import conv_extractor as t_conv
+from speechmix_tpu_torch.ops.kernels import decode_attention as t_da
 from speechmix_tpu_torch.ops.kernels import ffn as t_ffn
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -33,13 +36,19 @@ def test_generate_defaults_to_the_card(monkeypatch):
     wav = np.zeros((1, 4000), np.float32)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         t_gen.generate(params, cfg, wav, max_length=4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        t_gen.generate(params, cfg, wav, max_length=4, num_beams=4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        t_gen.generate(params, cfg, wav, max_length=4, kv_int8=True)
     tok, _ = t_gen.generate(params, cfg, wav, max_length=4, device="cpu")
     assert tok.shape == (1, 4)
 
 
-@pytest.mark.parametrize("kwargs", [dict(num_beams=2), dict(do_sample=True),
-                                    dict(repetition_penalty=1.2),
-                                    dict(bad_words_ids=[[5]])])
+@pytest.mark.parametrize("kwargs", [
+    dict(num_beams=2, num_beam_groups=2), dict(do_sample=True),
+    dict(repetition_penalty=1.2), dict(bad_words_ids=[[5]]),
+    dict(early_stop=True), dict(num_beams=2, force_words_ids=[[5]]),
+    dict(min_length=2), dict(num_beams=2, no_repeat_ngram_size=2)])
 def test_generate_refuses_unported_paths(kwargs):
     cfg = _tiny_cfg()
     params = t_smx.init_speechmix(cfg, torch.Generator().manual_seed(0),
@@ -83,6 +92,48 @@ def test_kernel_wrappers_raise_instead_of_falling_back():
     with pytest.raises(ValueError, match="CUDA tensor"):
         t_ffn.ffn_res_ln(meta(4, 8), meta(8, 16), meta(16), meta(16, 8),
                          meta(8), meta(4, 8), meta(8), meta(8))
+
+
+def test_new_kernel_wrappers_raise_instead_of_falling_back():
+    """K4, K5 and K6 given tensors that are not on the CPU raise at their
+    CUDA check and never run their plain versions."""
+    meta = lambda *s, dtype=torch.float32: torch.empty(*s, device="meta",
+                                                       dtype=dtype)
+    q, kv = meta(2, 1, 2, 64), meta(2, 8, 2, 64)
+    mask = meta(2, 8, dtype=torch.bool)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        t_da.decode_attention(q, kv, kv, mask, scale=0.125, num_heads=2)
+    codes, scale = meta(2, 8, 2, 64, dtype=torch.int8), meta(2, 8, 2)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        t_da.decode_attention(q, codes, codes, mask, scale=0.125,
+                              num_heads=2, k_scale=scale, v_scale=scale)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        t_bg.beam_gather(meta(2, 4, 8), meta(2, 4, 8),
+                         meta(4, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        t_conv.fused_conv_layer(meta(1, 20, 16), meta(16, 16, 3), meta(16))
+
+
+@pytest.mark.parametrize("call,match", [
+    (lambda: t_da.decode_attention(
+        _meta(2, 1, 2, 32), _meta(2, 8, 2, 32), _meta(2, 8, 2, 32),
+        _meta(2, 8, dtype=torch.bool), scale=0.125, num_heads=2),
+     "head_dim 64"),
+    (lambda: t_da.decode_attention(
+        _meta(2, 1, 2, 64), _meta(2, 8, 2, 64, dtype=torch.int8),
+        _meta(2, 8, 2, 64, dtype=torch.int8), _meta(2, 8, dtype=torch.bool),
+        scale=0.125, num_heads=2), "k_scale and v_scale"),
+    (lambda: t_conv.fused_conv_layer(_meta(1, 20, 256), _meta(256, 256, 3)),
+     "bfloat16 supports C == 512"),
+    (lambda: t_conv.fused_conv_layer(
+        _meta(1, 20, 2048, dtype=torch.float32),
+        _meta(2048, 2048, 2, dtype=torch.float32)), "supports C <= 1024"),
+])
+def test_new_kernel_wrappers_refuse_unbuilt_cases(call, match):
+    """Shapes and types K4 and K6 have no kernel for raise for a tensor
+    that is not on the CPU."""
+    with pytest.raises(ValueError, match=match):
+        call()
 
 
 def _meta(*shape, dtype=torch.bfloat16):
