@@ -6,12 +6,16 @@
 Phases, each printing as it goes; any failure exits non-zero:
   1. the card: name, power limit, torch / CUDA versions; TF32 off;
   2. build the CUDA kernels from speechmix_tpu_torch/csrc with nvcc;
-  3. hold each kernel (K1 attention_fwd, K2 dense_res_ln, K3 ffn_res_ln,
-     K4 decode_attention with float and with int8 K/V, K5 beam_gather, K6
-     conv_ln_gelu) against its plain PyTorch version on the card, in bf16 and
-     f32, at the shapes the flagship path gives it, and time kernel, plain
-     version and one PyTorch library call beside it, with the least time the
-     card could take (bound_ms); K5 must be bit-exact;
+  3. hold each kernel (K1 attention_fwd and its log-sum-exp, K2
+     dense_res_ln, K3 ffn_res_ln, K4 decode_attention with float and with
+     int8 K/V, K5 beam_gather, K6 conv_ln_gelu, K7 attention_bwd, K8 ffn_bwd
+     with its two entries, K9 ffn_fused) against its plain PyTorch version on
+     the card, in bf16 and f32, at the shapes the flagship path gives it
+     (K2, K3, K8 and K9 at the train step's 12800, 6400 and 1024 rows), and
+     time kernel, plain version and one PyTorch library call beside it, with
+     the least time the card could take (bound_ms); K5 must be bit-exact;
+     the differentiable forms of K3 and K9 (bf16 activations, f32 weights)
+     must give the gradients of the same functions over the plain versions;
   4. drive the flagship (wav2vec2-base + bart-base, down_scale 2, fused
      extractor, random weights from the seed, bf16 matrices) through
      generate() at B = 16 x 16 s, max_length 64, in three modes: greedy
@@ -20,7 +24,13 @@ Phases, each printing as it goes; any failure exits non-zero:
      step, K4 twelve times per K5 launch); in f32 the text-encoder output,
      the tokens of all three modes and the beam scores of the kernel path
      must agree with the plain path's within the stated limits;
-  5. print the `kernels` JSON line, then the card line, then the result
+  5. training: in f32 at full width with 2 + 2 + 2 layers the gradient tree
+     through the kernels must agree with the one through their plain
+     versions; then the flagship at full width and depth takes 8 AdamW steps
+     (bf16 compute, f32 parameters, B = 16 x 16 s, 64 label positions) on one
+     batch: the loss must fall and every step must launch K1, K3, K7, K9 and
+     both entries of K8 24 times each, K2 30 times and K6 6 times;
+  6. print the `kernels` JSON line, then the card line, then the result
      line {"ok": true, "device": {...}} last.
 Without CUDA it exits 1 before printing any result.
 """
@@ -91,9 +101,10 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def compare(name, out, ref, limit=None, rule=None):
+def compare(name, out, ref, limit=None, rule=None, allow_count=0):
     """max |out - ref| after asserting |out - ref| <= limit elementwise;
-    the limit defaults to the dtype's TOL."""
+    the limit defaults to the dtype's TOL.  `allow_count` elements may lie
+    outside it (0 but for K8 under relu, whose derivative jumps)."""
     import torch
     o, r = out.float(), ref.float()
     if limit is None:
@@ -105,10 +116,14 @@ def compare(name, out, ref, limit=None, rule=None):
     err = (o - r).abs()
     bad = err > limit
     max_err = err.max().item()
-    ratio = (err / limit).max().item()
+    # where the limit is 0 (a masked key's gradient) the error must be 0
+    ratio = torch.where(err > 0, err / limit, 0.0).max().item()
+    failed = int(bad.sum()) > allow_count
+    outside = (f", {int(bad.sum())} elements outside ({allow_count} allowed)"
+               if allow_count else "")
     log(f"  {name}: max_abs_err {max_err:.3e}, max err/limit {ratio:.3f} "
-        f"({rule}) {'FAIL' if bad.any() else 'ok'}")
-    if bad.any():
+        f"({rule}){outside} {'FAIL' if failed else 'ok'}")
+    if failed:
         raise AssertionError(f"{name}: {int(bad.sum())} elements outside "
                              "tolerance")
     return max_err
@@ -313,6 +328,8 @@ def check_kernels(gen, dev):
     check_decode_attention(randn, dev, records)
     check_beam_gather(randn, gen, dev, records)
     check_conv(randn, dev, records)
+    check_train_kernels(randn, dev, records)
+    check_trainable_functions(randn, dev)
 
     for rec in records.values():
         t_flops = rec["flops"] / PEAK_BF16_FLOPS * 1e3
@@ -577,6 +594,346 @@ def check_conv(randn, dev, records):
         bytes=(x.numel() + n * c + w.numel()) * 2 + c * 4)
 
 
+def attention_bwd_bf16_limits(q, k, v, mask, out, g, heads, scale, causal,
+                              refs):
+    """K7's bf16 limits per element of (dq, dk, dv), in the form of K1's.
+    Kernel and plain version round p and ds to bf16 from f32 values that
+    differ in their last bits, so an element may land one bf16 step apart
+    (relative 2^-8, doubled here); and the kernel takes delta = g . out from
+    the forward output, which is rounded to bf16 (relative 2^-9, doubled),
+    where the plain version sums p * dp in f32.  With
+      ds_err = 2^-7 |ds| + p * 2^-8 (|g| . |out|):
+      dq: scale * (ds_err |k|),  dk: scale * (ds_err^T |q|),
+      dv: 2^-7 * (p^T |g|),  each + 2^-7 * |ref| for the outputs' rounding."""
+    import torch
+    from speechmix_tpu_torch.ops.kernels import attention as ka
+    b, tq, hd = q.shape
+    tk, d = k.shape[1], hd // heads
+    p = torch.softmax(ka._masked_scores(q, k, mask, heads, scale, causal), -1)
+    split = lambda x, t: x.float().reshape(b, t, heads, d)
+    qf, kf, vf, gf = split(q, tq), split(k, tk), split(v, tk), split(g, tq)
+    dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    delta_err = 2.0 ** -8 * (gf.abs() * split(out, tq).abs()).sum(-1)
+    ds_err = 2.0 ** -7 * ds.abs() + p * delta_err.permute(0, 2, 1)[..., None]
+    bounds = (torch.einsum("bhqk,bkhd->bqhd", ds_err, kf.abs()) * scale,
+              torch.einsum("bhqk,bqhd->bkhd", ds_err, qf.abs()) * scale,
+              2.0 ** -7 * torch.einsum("bhqk,bqhd->bkhd", p, gf.abs()))
+    return [bound.reshape(ref.shape) + 2.0 ** -7 * ref.float().abs()
+            for bound, ref in zip(bounds, refs)]
+
+
+K7_BF16_RULE = ("ds_err = 2^-7|ds| + p 2^-8 (|g|.|out|): scale ds_err|k|, "
+                "scale ds_err^T|q|, 2^-7 p^T|g|; + 2^-7|ref|")
+# K8's float32 weight gradients under bf16 inputs are sums over the N rows
+# (1000 to 12800 here) of products x * da (h * g) of order 1.  Kernel and
+# plain version round da and h to bf16 from f32 values that differ in their
+# last bits, so a few of the N land one bf16 step apart, each moving a sum by
+# up to 2^-8 |x| |da| (0.06 at 4 sigma); 0.25 allows four of them in one sum.
+K8_DW_BF16_TOL = (0.25, 2e-3)
+# in float32 the same sums differ by their order only: terms of order 1
+K8_DW_F32_TOL = (5e-4, 1e-4)
+# relu' jumps at 0: where a = x w1 + b1 lies within f32 rounding of 0 (taken
+# as |a| < 2e-6 for sums of 768 products of order 0.03), kernel and plain
+# version may take different branches, which moves that a's row of dx, its
+# column of dw1 and its entry of db1 by up to |dh| |w1|, |x| |dh| and |dh|.
+# Under relu that many rows, columns and entries may lie outside the limits.
+K8_RELU_NEAR_ZERO = 2e-6
+
+
+def check_train_kernels(randn, dev, records):
+    """The kernels of the training step at the flagship's shapes, bf16 and
+    f32: K1's log-sum-exp output, K7 attention_bwd, K8 ffn_bwd (both
+    entries) and K9 ffn_fused, each against its plain version."""
+    import torch
+    import torch.nn.functional as F
+    from speechmix_tpu_torch.ops.kernels import attention as ka
+    from speechmix_tpu_torch.ops.kernels import ffn as kf
+
+    heads, d, scale = 12, 64, 0.125
+    log("K1 log-sum-exp and K7 attention_bwd")
+
+    def attention_case(b, t, causal, dtype, lens=None, name=""):
+        if lens is None:
+            lens = [t, t - 37, t // 2 + 3, t - min(200, t // 3)][:b]
+        lens = torch.tensor(lens, device=dev)
+        mask = torch.arange(t, device=dev)[None, :] < lens[:, None]
+        q, k, v, g = (randn(b, t, heads * d, dtype=dtype) for _ in range(4))
+        out, lse = ka.attention_fwd(q, k, v, mask, heads, scale, causal,
+                                    return_lse=True)
+        ref_out, ref_lse = ka.attention_fwd_plain(q, k, v, mask, heads, scale,
+                                                  causal, return_lse=True)
+        got = ka.attention_bwd(q, k, v, mask, out, lse, g, heads, scale,
+                               causal)
+        refs = ka.attention_bwd_plain(q, k, v, mask, g, heads, scale, causal)
+        torch.cuda.synchronize()
+        what = f"{name}B={b} T={t} {dtype} causal={causal}"
+        # the log-sum-exp is float32 in both dtypes: summation order only
+        # (a fully masked row gives -1e30 in both)
+        compare(f"lse {what}", lse, ref_lse, 1e-4 + 1e-4 * ref_lse.abs(),
+                "atol 1e-4, rtol 1e-4")
+        limits = [None] * 3
+        rule = None
+        if dtype == torch.bfloat16:
+            limits = attention_bwd_bf16_limits(q, k, v, mask, ref_out, g,
+                                               heads, scale, causal, refs)
+            rule = K7_BF16_RULE
+        errs = [compare(f"{n_} {what}", o, r, lim, rule)
+                for n_, o, r, lim in zip(("dq", "dk", "dv"), got, refs,
+                                         limits)]
+        return max(errs), (q, k, v, mask, out, lse, g, causal, lens)
+
+    timed = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for b, t, causal in ((4, 800, False), (4, 400, False), (4, 64, True),
+                             (2, 1500, False), (2, 1500, True)):
+            attention_case(b, t, causal, dtype)
+        # a row whose keys are all masked (lengths 0), alone and under causal
+        attention_case(3, 100, False, dtype, [0, 100, 41], "masked row ")
+        attention_case(3, 100, True, dtype, [0, 100, 41], "masked row ")
+    # the three shapes of the train step, bf16: speech encoder, text encoder,
+    # decoder self-attention
+    for name, b, t, causal in (("attention_bwd", 16, 800, False),
+                               ("attention_bwd (text encoder)", 16, 400,
+                                False),
+                               ("attention_bwd (decoder, causal)", 16, 64,
+                                True)):
+        err, case = attention_case(b, t, causal, torch.bfloat16, [t] * b,
+                                   "timed ")
+        timed[name] = (err, case)
+    slab = torch.empty(4 * 64 * heads * d + 1, dtype=torch.bfloat16,
+                       device=dev)
+    q = randn(4, 64, heads * d, dtype=torch.bfloat16)
+    lse = randn(4, heads, 64)
+    expect_refusal("K7 bf16 g at a 2-byte offset", lambda: ka.attention_bwd(
+        q, q, q, None, q, lse, slab[1:].view(4, 64, heads * d), heads, scale))
+    expect_refusal("K7 lse in bf16", lambda: ka.attention_bwd(
+        q, q, q, None, q, lse.bfloat16(), q, heads, scale))
+    for name, (err, (q, k, v, mask, out, lse, g, causal, lens)) in \
+            timed.items():
+        b, t, _ = q.shape
+        qh, kh, vh = (x.view(b, t, heads, d).transpose(1, 2).detach()
+                      .requires_grad_() for x in (q, k, v))
+        allowed = mask[:, None, :].expand(b, t, t)
+        if causal:
+            allowed = allowed & torch.ones(t, t, dtype=torch.bool,
+                                           device=dev).tril()
+        lib_out = F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=allowed[:, None], scale=scale)
+        gh = g.view(b, t, heads, d).transpose(1, 2)
+        records[name] = dict(
+            shape=f"B={b} T={t} H={heads} D={d} bf16 causal={causal}",
+            max_abs_err=err,
+            ms=cuda_ms(lambda: ka.attention_bwd(q, k, v, mask, out, lse, g,
+                                                heads, scale, causal)),
+            plain_ms=cuda_ms(lambda: ka.attention_bwd_plain(
+                q, k, v, mask, g, heads, scale, causal), iters=5),
+            library_ms=cuda_ms(lambda: torch.autograd.grad(
+                lib_out, (qh, kh, vh), gh, retain_graph=True)),
+            flops=10.0 * heads * d * int(allowed.sum()),
+            bytes=8 * b * t * heads * d * 2 + b * heads * t * 4 + b * t)
+        del lib_out
+
+    log("K9 ffn_fused and K8 ffn_bwd")
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def ffn_operands(n, hh, ff, dtype):
+        x, g = randn(n, hh, dtype=dtype), randn(n, hh, dtype=dtype)
+        w1 = randn(hh, ff, scale=0.03, dtype=dtype)
+        w2 = randn(ff, hh, scale=0.03, dtype=dtype)
+        return x, g, w1, randn(ff, scale=0.1), w2, randn(hh, scale=0.1)
+
+    def ffn_case(x, g, w1, b1, w2, b2, act="gelu"):
+        """K9 and both entries of K8 against their plain versions; returns
+        the largest errors of (K9, K8 dx, K8 dw)."""
+        (n, hh), ff = x.shape, w1.shape[1]
+        what = f"N={n} H={hh} F={ff} {act} {x.dtype}"
+        dw_tol = K8_DW_BF16_TOL if x.dtype == bf16 else K8_DW_F32_TOL
+        dw_rule = f"atol {dw_tol[0]}, rtol {dw_tol[1]}"
+        near = 0
+        if act == "relu":
+            a = x.float() @ w1.float() + b1
+            near = int((a.abs() < K8_RELU_NEAR_ZERO).sum())
+            log(f"  relu: {near} of {a.numel()} a within "
+                f"{K8_RELU_NEAR_ZERO} of 0")
+            del a
+        e9 = compare(f"K9 {what}", kf.ffn_fused(x, w1, b1, w2, b2, act),
+                     kf.ffn_fused_plain(x, w1, b1, w2, b2, act))
+        got = kf.ffn_bwd(x, g, w1, b1, w2, act)
+        ref = kf.ffn_bwd_plain(x, g, w1, b1, w2, act)
+        torch.cuda.synchronize()
+        edx = compare(f"K8 dx {what}", got[0], ref[0], allow_count=near * hh)
+        edw = max(compare(f"K8 {name} {what}", o, r,
+                          dw_tol[0] + dw_tol[1] * r.abs(), dw_rule,
+                          near * count)
+                  for name, o, r, count in zip(
+                      ("dw1", "db1", "dw2"), got[1:4], ref[1:4], (hh, 1, 0)))
+        return e9, edx, edw
+
+    h, f = 768, 3072
+    for dtype in (bf16, f32):
+        ops = ffn_operands(4096, h, f, dtype)
+        for act in ("gelu", "gelu_new", "relu", "silu"):
+            ffn_case(*ops, act)
+        # a row count that fills neither a row tile nor a split
+        ffn_case(ops[0][:4001].contiguous(), ops[1][:4001].contiguous(),
+                 *ops[2:])
+    # bart-large's width in both dtypes; narrow widths in float32 only
+    for hh, ff in ((1024, 4096), (256, 1024)):
+        for dtype in (bf16, f32):
+            ops = ffn_operands(1000, hh, ff, dtype)
+            if dtype == bf16 and hh not in kf.BF16_HIDDEN:
+                xo, go, w1o, b1o, w2o, b2o = ops
+                expect_refusal(f"K9 N=1000 H={hh} {dtype}", lambda:
+                               kf.ffn_fused(xo, w1o, b1o, w2o, b2o))
+                expect_refusal(f"K8 N=1000 H={hh} {dtype}", lambda:
+                               kf.ffn_bwd(xo, go, w1o, b1o, w2o))
+                continue
+            ffn_case(*ops)
+    # the row counts the train step gives K2, K3, K8 and K9: speech encoder,
+    # text encoder and decoder (B = 16 x 16 s, 64 label positions) in bf16,
+    # and those of the f32 gradient-tree check (B = 8 x 8 s, 128 label
+    # positions).  The count picks the path of K8's weight-gradient entry:
+    # 12800 rows are 8 splits of 1600, 6400 rows 7 of 928 (the last one
+    # short), 1024 rows one split written without the workspace.
+    for dtype, row_counts in ((bf16, (12800, 6400, 1024)),
+                              (f32, (3200, 1600, 1024))):
+        for n in row_counts:
+            ops = ffn_operands(n, h, f, dtype)
+            errs = ffn_case(*ops)
+            x, _, w1, b1, w2, b2 = ops
+            res, w = randn(n, h, dtype=dtype), randn(h, h, scale=0.03,
+                                                     dtype=dtype)
+            gamma, beta = randn(h, scale=0.1) + 1.0, randn(h, scale=0.1)
+            e3 = compare(f"K3 N={n} H={h} F={f} gelu {dtype}",
+                         kf.ffn_res_ln(x, w1, b1, w2, b2, res, gamma, beta),
+                         kf.ffn_res_ln_plain(x, w1, b1, w2, b2, res, gamma,
+                                             beta))
+            e2 = compare(f"K2 N={n} Din=H={h} {dtype}",
+                         kf.dense_res_ln(x, w, b2, res, gamma, beta),
+                         kf.dense_res_ln_plain(x, w, b2, res, gamma, beta))
+            if dtype == bf16 and n == 12800:
+                timed_ffn = (ops, errs, (res, w, gamma, beta), (e3, e2))
+    # timing at the speech encoder's row count, which 12 of the step's 24
+    # layers have
+    (x, g, w1, b1, w2, b2), (e9, edx, edw), (res, w, gamma, beta), (e3, e2) \
+        = timed_ffn
+    n = x.shape[0]
+    lx = x.detach().requires_grad_()
+    lw1, lw2 = (w_.t().contiguous().requires_grad_() for w_ in (w1, w2))
+    lb1, lb2 = (b.to(x.dtype).requires_grad_() for b in (b1, b2))
+    lib = lambda: F.linear(F.gelu(F.linear(lx, lw1, lb1)), lw2, lb2)
+    lib_y = lib()
+    shape = f"N={n} H={h} F={f} gelu bf16"
+    records["ffn_fused"] = dict(
+        shape=shape, max_abs_err=e9,
+        ms=cuda_ms(lambda: kf.ffn_fused(x, w1, b1, w2, b2)),
+        plain_ms=cuda_ms(lambda: kf.ffn_fused_plain(x, w1, b1, w2, b2)),
+        library_ms=cuda_ms(lambda: lib().detach()),
+        flops=4.0 * n * h * f,
+        bytes=(2 * n * h + 2 * h * f) * 2 + (f + h) * 4)
+    records["ffn_bwd_dx"] = dict(
+        shape=shape, max_abs_err=edx,
+        ms=cuda_ms(lambda: kf.ffn_bwd_dx(x, g, w1, b1, w2)),
+        plain_ms=cuda_ms(lambda: kf.ffn_bwd_dx_plain(x, g, w1, b1, w2)),
+        library_ms=cuda_ms(lambda: torch.autograd.grad(
+            lib_y, (lx,), g, retain_graph=True)),
+        flops=6.0 * n * h * f,
+        bytes=(3 * n * h + 2 * h * f) * 2 + f * 4)
+    records["ffn_bwd_dw"] = dict(
+        shape=shape, max_abs_err=edw,
+        ms=cuda_ms(lambda: kf.ffn_bwd_dw(x, g, w1, b1, w2)),
+        plain_ms=cuda_ms(lambda: kf.ffn_bwd_dw_plain(x, g, w1, b1, w2)),
+        library_ms=cuda_ms(lambda: torch.autograd.grad(
+            lib_y, (lw1, lb1, lw2), g, retain_graph=True)),
+        flops=8.0 * n * h * f,
+        bytes=(2 * n * h + 2 * h * f) * 2 + f * 4 + (2 * h * f + f) * 4)
+    # K3 and K2 at the same row count, beside their N = 4096 records
+    wt, w1t, w2t = w.t(), w1.t(), w2.t()
+    b1c, b2c, gc, betac = (t_.to(x.dtype) for t_ in (b1, b2, gamma, beta))
+    records[f"ffn_res_ln (N={n})"] = dict(
+        shape=f"N={n} H={h} F={f} gelu bf16 (K3)", max_abs_err=e3,
+        ms=cuda_ms(lambda: kf.ffn_res_ln(x, w1, b1, w2, b2, res, gamma,
+                                         beta)),
+        plain_ms=cuda_ms(lambda: kf.ffn_res_ln_plain(x, w1, b1, w2, b2, res,
+                                                     gamma, beta)),
+        library_ms=cuda_ms(lambda: F.layer_norm(
+            res + F.linear(F.gelu(F.linear(x, w1t, b1c)), w2t, b2c), (h,),
+            gc, betac, 1e-5)),
+        flops=4.0 * n * h * f,
+        bytes=(3 * n * h + 2 * h * f) * 2 + (f + 3 * h) * 4)
+    records[f"dense_res_ln (N={n})"] = dict(
+        shape=f"N={n} Din=H={h} bf16 (K2)", max_abs_err=e2,
+        ms=cuda_ms(lambda: kf.dense_res_ln(x, w, b2, res, gamma, beta)),
+        plain_ms=cuda_ms(lambda: kf.dense_res_ln_plain(x, w, b2, res, gamma,
+                                                       beta)),
+        library_ms=cuda_ms(lambda: F.layer_norm(
+            res + F.linear(x, wt, b2c), (h,), gc, betac, 1e-5)),
+        flops=2.0 * n * h * h,
+        bytes=(2 * n * h + h * h + n * h) * 2 + 3 * h * 4)
+
+
+def check_trainable_functions(randn, dev):
+    """The differentiable forms as a post-LN layer of the train step calls
+    them: bf16 activations, float32 master weights, the step's three row
+    counts.  Output and every gradient of K3's function (K3 forward; K9, the
+    LayerNorm backward and K8 backward) and of K9's (K9 forward, K8 backward)
+    through the kernels against the same functions over the plain versions.
+    Kernel and plain version differ in single roundings to bf16, so the
+    limits of the kernels' own checks hold for the chain."""
+    import torch
+    from speechmix_tpu_torch.ops import kernels
+    from speechmix_tpu_torch.ops.kernels import ffn as kf
+
+    h, f, bf16 = 768, 3072, torch.bfloat16
+    log("ffn_res_ln_trainable and ffn_fused_trainable, bf16 activations, "
+        "f32 weights: kernels vs plain versions")
+    names = ("x", "w1", "b1", "w2", "b2", "res", "gamma", "beta")
+    sum_rule = f"atol {K8_DW_BF16_TOL[0]}, rtol {K8_DW_BF16_TOL[1]}"
+
+    def run(fn, operands, grad):
+        leaves = [t.detach().requires_grad_() for t in operands]
+        out = fn(*leaves)
+        return (out, *torch.autograd.grad(out, leaves, grad))
+
+    for n in (12800, 6400, 1024):
+        x, res, grad = (randn(n, h, dtype=bf16) for _ in range(3))
+        operands = (x, randn(h, f, scale=0.03), randn(f, scale=0.1),
+                    randn(f, h, scale=0.03), randn(h, scale=0.1), res,
+                    randn(h, scale=0.1) + 1.0, randn(h, scale=0.1))
+        cases = (("ffn_res_ln_trainable", kf.ffn_res_ln_trainable, operands),
+                 ("ffn_fused_trainable", kf.ffn_fused_trainable,
+                  operands[:5]))
+        kernels.reset_launch_counts()
+        got = [run(fn, ops, grad) for _, fn, ops in cases]
+        counts = {k.symbol: k.launches for k in kernels.kernels()
+                  if k.launches}
+        want = {"smx_ffn_res_ln": 1, "smx_ffn_fused": 2,
+                "smx_ffn_bwd_dx": 2, "smx_ffn_bwd_dw": 2}
+        if counts != want:
+            raise AssertionError(f"trainable functions, N={n}: launches "
+                                 f"{counts}, expected {want}")
+        with plain_kernels():
+            ref = [run(fn, ops, grad) for _, fn, ops in cases]
+        for (what, _, ops), outs, refs in zip(cases, got, ref):
+            compare(f"{what} N={n} out", outs[0], refs[0])
+            for name, t, o, r in zip(names, ops, outs[1:], refs[1:]):
+                if o.dtype != t.dtype:
+                    raise AssertionError(f"{what}: d {name} is {o.dtype}")
+                if t.dtype == bf16:
+                    compare(f"{what} N={n} d {name}", o, r)
+                else:  # float32 sums over the rows, as K8's dw
+                    compare(f"{what} N={n} d {name}", o, r,
+                            K8_DW_BF16_TOL[0] + K8_DW_BF16_TOL[1] * r.abs(),
+                            sum_rule)
+            for name, o in zip(names[1:5:2], outs[2:6:2]):
+                # a weight gradient rounded to bf16 on its way would have no
+                # bits below bf16's
+                if torch.equal(o, o.bfloat16().float()):
+                    raise AssertionError(f"{what}: d {name} was rounded to "
+                                         "bfloat16")
+
+
 def expect_refusal(name, call):
     """The wrapper must raise ValueError and launch nothing."""
     from speechmix_tpu_torch.ops import kernels
@@ -604,9 +961,15 @@ class plain_kernels:
         from speechmix_tpu_torch.ops.kernels import conv_extractor as kc
         from speechmix_tpu_torch.ops.kernels import decode_attention as kd
         from speechmix_tpu_torch.ops.kernels import ffn as kf
-        swaps = [(attn_mod, "attention_fwd", ka.attention_fwd_plain),
+        swaps = [(ka, "attention_fwd", ka.attention_fwd_plain),
+                 (ka, "attention_bwd",
+                  lambda q, k, v, mask, out, lse, g, heads, scale, causal:
+                  ka.attention_bwd_plain(q, k, v, mask, g, heads, scale,
+                                         causal)),
                  (kf, "ffn_res_ln", kf.ffn_res_ln_plain),
                  (kf, "dense_res_ln", kf.dense_res_ln_plain),
+                 (kf, "ffn_fused", kf.ffn_fused_plain),
+                 (kf, "ffn_bwd", kf.ffn_bwd_plain),
                  (attn_mod, "decode_attention", kd.decode_attention_plain),
                  (seq2seq, "decode_attention", kd.decode_attention_plain),
                  (generation, "beam_gather", kg.beam_gather_plain),
@@ -636,7 +999,10 @@ def expected_launches(mode, steps):
             "smx_conv_ln_gelu": FUSED_CONV_LAYERS,
             # self- and cross-attention of each decoder layer, each step
             "smx_decode_attention": 2 * DECODER_LAYERS * steps,
-            "smx_decode_attention_q8": 0, "smx_beam_gather": 0}
+            "smx_decode_attention_q8": 0, "smx_beam_gather": 0,
+            # the training kernels: never under generate()
+            "smx_attention_bwd": 0, "smx_ffn_fused": 0, "smx_ffn_bwd_dx": 0,
+            "smx_ffn_bwd_dw": 0}
     if mode == "greedy-int8":
         want["smx_decode_attention"] = DECODER_LAYERS * steps
         want["smx_decode_attention_q8"] = DECODER_LAYERS * steps
@@ -858,6 +1224,190 @@ def stage_breakdown(params, cfg, wav, lengths, modes):
                     f"{e.count:6d}x  {e.key[:90]}")
 
 
+TRAIN_LABELS, TRAIN_STEPS, TRAIN_LR = 64, 8, 1e-4
+# gradient tree of the f32 kernel path against the f32 plain path, per leaf:
+# |a - b| <= GRAD_REL * max|b| + GRAD_FLOOR * (largest gradient of the tree)
+# (order of summation only; the floor covers leaves such as the attention key
+# biases, whose gradient is zero in exact arithmetic and rounding noise here)
+GRAD_REL, GRAD_FLOOR = 2e-3, 1e-5
+
+
+def expected_train_launches(speech_layers, enc_layers, dec_layers, accum=1):
+    """Launches of every kernel in one train step: a post-LN layer runs K1,
+    K2 and K3 forward, K7, K9 and both entries of K8 backward; a decoder
+    layer has a second K2 (the cross-attention's out-projection) and no K1 /
+    K7 for its cross-attention, which carries a bias."""
+    layers = speech_layers + enc_layers + dec_layers
+    want = {"smx_attention_fwd": layers, "smx_attention_bwd": layers,
+            "smx_dense_res_ln": layers + dec_layers,
+            "smx_ffn_res_ln": layers, "smx_ffn_fused": layers,
+            "smx_ffn_bwd_dx": layers, "smx_ffn_bwd_dw": layers,
+            "smx_conv_ln_gelu": FUSED_CONV_LAYERS,
+            "smx_decode_attention": 0, "smx_decode_attention_q8": 0,
+            "smx_beam_gather": 0}
+    return {k: v * accum for k, v in want.items()}
+
+
+def _train_batch(cfg, gen, dev, batch, seconds, labels_len):
+    import torch
+    t_samples = int(seconds * 16000)
+    wav = torch.zeros(batch, cfg.encoder.aligned_samples(t_samples),
+                      device=dev)
+    wav[:, :t_samples] = torch.randn(batch, t_samples, generator=gen,
+                                     device=dev) * 0.1
+    labels = torch.randint(3, cfg.decoder.vocab_size, (batch, labels_len),
+                           generator=gen, device=dev)
+    labels[1, labels_len - 7:] = -100
+    return {"input_values": wav,
+            "lengths": torch.full((batch,), t_samples, device=dev),
+            "labels": labels}
+
+
+def check_gradient_tree(seed):
+    """On the card, f32, full width, 2 + 2 + 2 layers: d loss / d params
+    through the kernels against the same through their plain versions."""
+    import dataclasses
+    import torch
+    from speechmix_tpu_torch import config
+    from speechmix_tpu_torch.models import speechmix
+    from speechmix_tpu_torch.ops import kernels
+    from speechmix_tpu_torch.training.freezing import tree_map, tree_paths
+
+    cfg = config.SpeechMixConfig(
+        encoder=dataclasses.replace(
+            config.SPEECH_ENCODER_PRESETS["wav2vec2-base"],
+            extractor_impl="fused", num_layers=2),
+        decoder=dataclasses.replace(config.SEQ2SEQ_PRESETS["bart-base"],
+                                    encoder_layers=2, decoder_layers=2),
+        down_scale=2)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = speechmix.init_speechmix(cfg, gen, dev, torch.float32)
+    batch = _train_batch(cfg, gen, dev, 8, 8.0, 128)
+    log("gradient tree, f32, full width, 2 + 2 + 2 layers, B=8 x 8 s, 128 "
+        "label positions: kernels vs plain versions")
+
+    def grads():
+        leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
+        out = speechmix.speechmix_forward(
+            leaves, cfg, batch["input_values"], batch["lengths"],
+            labels=batch["labels"], dtype=torch.float32)
+        flat = tree_paths(leaves)
+        got = torch.autograd.grad(out["loss"], [leaf for _, leaf in flat])
+        return out["loss"].item(), {path: g for (path, _), g in
+                                    zip(flat, got)}
+
+    kernels.reset_launch_counts()
+    loss_k, grads_k = grads()
+    counts = {k.symbol: k.launches for k in kernels.kernels()}
+    want = expected_train_launches(2, 2, 2)
+    if counts != want:
+        raise AssertionError(f"gradient tree: launches {counts}, expected "
+                             f"{want}")
+    with plain_kernels():
+        kernels.reset_launch_counts()
+        loss_p, grads_p = grads()
+        if any(k.launches for k in kernels.kernels()):
+            raise AssertionError("the plain reference launched a kernel")
+    top = max(g.abs().max().item() for g in grads_p.values())
+    worst, worst_path = 0.0, None
+    for path, ref in grads_p.items():
+        got = grads_k[path]
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"gradient of {path} is not finite")
+        limit = GRAD_REL * ref.abs().max().item() + GRAD_FLOOR * top
+        ratio = (got - ref).abs().max().item() / limit
+        if ratio > worst:
+            worst, worst_path = ratio, path
+    log(f"  loss {loss_k:.6f} (kernels) vs {loss_p:.6f} (plain); "
+        f"{len(grads_p)} leaves, largest gradient {top:.3e}; worst "
+        f"err/limit {worst:.3f} at {worst_path} (limit {GRAD_REL} * max|leaf|"
+        f" + {GRAD_FLOOR} * {top:.3e})")
+    if abs(loss_k - loss_p) > 1e-4 or worst > 1.0:
+        raise AssertionError("gradient tree: kernels and plain versions "
+                             "disagree")
+
+
+def run_training(seed, card):
+    """The training phase: TRAIN_STEPS AdamW steps of the flagship at full
+    width and depth on one batch.  Returns the launch counts of one step."""
+    import dataclasses
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from speechmix_tpu_torch import config
+    from speechmix_tpu_torch.ops import kernels
+    from speechmix_tpu_torch.training import trainer
+
+    cfg = config.SpeechMixConfig(
+        encoder=dataclasses.replace(
+            config.SPEECH_ENCODER_PRESETS["wav2vec2-base"],
+            extractor_impl="fused"),
+        decoder=config.SEQ2SEQ_PRESETS["bart-base"], down_scale=2)
+    tc = trainer.TrainConfig(learning_rate=TRAIN_LR, warmup_steps=1,
+                             grad_accum=1, bf16=True, dropout=False,
+                             optimizer="adamw")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    state = trainer.create_train_state(gen, cfg, tc)
+    batch = _train_batch(cfg, gen, dev, BATCH, SECONDS, TRAIN_LABELS)
+    step_fn = trainer.make_train_step(cfg, tc, state.params)
+    n_params = sum(p.numel() for _, p in trainer.tree_paths(state.params))
+    log(f"training: flagship, {n_params / 1e6:.1f} M float32 parameters, "
+        f"bf16 compute, AdamW lr {TRAIN_LR}, warmup 1, B={BATCH} x {SECONDS} "
+        f"s, {TRAIN_LABELS} label positions, {TRAIN_STEPS} steps on one "
+        "batch")
+    want = expected_train_launches(cfg.num_speech_encoder_layers,
+                                   cfg.decoder.encoder_layers,
+                                   cfg.decoder.decoder_layers)
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for i in range(TRAIN_STEPS):
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = {k.symbol: k.launches for k in kernels.kernels()}
+        loss, norm = metrics["loss"].item(), metrics["grad_norm"].item()
+        log(f"  step {i + 1}: loss {loss:.4f}, grad_norm {norm:.4f}, "
+            f"{dt * 1e3:.1f} ms")
+        if counts != want:
+            raise AssertionError(f"train step {i + 1}: launches {counts}, "
+                                 f"expected {want}")
+        if not (loss == loss and abs(loss) != float("inf")
+                and norm == norm and abs(norm) != float("inf")):
+            raise AssertionError(f"train step {i + 1}: loss {loss}, "
+                                 f"grad_norm {norm}")
+        losses.append(loss)
+        if i >= 2:
+            times.append(dt)
+    log(f"  launches per step: {counts}")
+    if not losses[-1] < losses[1]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    med = sorted(times)[len(times) // 2]
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  train step: {med * 1e3:.1f} ms (median of {len(times)}; all: "
+        f"{', '.join(f'{t * 1e3:.1f}' for t in times)}), audio-seconds per "
+        f"second trained {BATCH * SECONDS / med:.2f}, peak memory "
+        f"{peak / 2 ** 30:.2f} GiB, loss {losses[1]:.4f} -> {losses[-1]:.4f} "
+        f"on {card}")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    busy_us = sum(e.self_device_time_total for e in events)
+    log(f"  profiled train step: wall {wall_us / 1e3:.1f} ms, device busy "
+        f"{busy_us / 1e3:.1f} ms ({busy_us / wall_us:.3f} of wall)")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:14]:
+        log(f"    {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d}x  "
+            f"{e.key[:90]}")
+    return counts
+
+
 def _cast_tree(tree, dtype):
     if isinstance(tree, dict):
         return {k: _cast_tree(v, dtype) for k, v in tree.items()}
@@ -903,6 +1453,8 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     records = check_kernels(gen, torch.device("cuda"))
     counts = run_flagship(args.seed, card)
+    check_gradient_tree(args.seed)
+    counts["train"] = run_training(args.seed, card)
 
     pallas = "speechmix_tpu/ops/pallas/"
     # name: (source, TPU kernel file:line, mode whose run gives `launches`)
@@ -917,6 +1469,11 @@ def main():
                                 "decode_attention.py:67", "greedy-int8"),
         "beam_gather": ("beam_gather.cu", "beam_gather.py:39", "beam-4"),
         "conv_ln_gelu": ("conv_ln_gelu.cu", "conv_extractor.py:88", "greedy"),
+        "attention_bwd": ("attention_bwd.cu", "flash_attention_kernel.py:378",
+                          "train"),
+        "ffn_bwd_dx": ("ffn_bwd.cu", "ffn_kernel.py:631", "train"),
+        "ffn_bwd_dw": ("ffn_bwd.cu", "ffn_kernel.py:647", "train"),
+        "ffn_fused": ("ffn_res_ln.cu", "ffn_kernel.py:128", "train"),
     }
     line = {"kernels": []}
     for name, (source, tpu, mode) in replaces.items():

@@ -16,6 +16,10 @@ and returns the port's parameters:
   parameters stay float32.
 
 Training-only entries (``masked_spec_embed``) are dropped.
+
+``tree_to_jax_layout`` walks the other way, for a tree shaped like the
+port's parameters (the parameters themselves, or their gradients): numpy
+arrays in the JAX package's layout, layer lists stacked again.
 """
 
 from __future__ import annotations
@@ -110,3 +114,36 @@ def cross_kv_from_jax(a, device="cpu"):
     H) in both packages.)"""
     return torch.tensor(np.ascontiguousarray(
         np.asarray(a).transpose(0, 4, 1, 2, 3)), device=device)
+
+
+def _stack(layer_list):
+    first = layer_list[0]
+    if isinstance(first, dict):
+        return {k: _stack([layer[k] for layer in layer_list]) for k in first}
+    return np.stack([_numpy(t) for t in layer_list])
+
+
+def _numpy(t):
+    return t.detach().float().cpu().numpy()
+
+
+def _to_jax(tree, path=()):
+    if isinstance(tree, dict):
+        if "kernel" in tree and tree["kernel"].ndim == 3:   # a convolution
+            out = {k: _numpy(v) for k, v in tree.items()}
+            out["kernel"] = out["kernel"].transpose(2, 1, 0)
+            return out
+        return {k: (_stack(v) if k == "layers" and path[-1:] != (
+            "feature_extractor",) else _to_jax(v, path + (k,)))
+            for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_to_jax(v, path) for v in tree]
+    return _numpy(tree)
+
+
+def tree_to_jax_layout(tree):
+    """The inverse walk of params_from_jax for a tree shaped like the port's
+    parameters (parameters or gradients): float32 numpy arrays, the three
+    transformer layer lists stacked on a leading axis, conv kernels as
+    (K, C_in, C_out).  Entries the port dropped are absent."""
+    return _to_jax(tree)

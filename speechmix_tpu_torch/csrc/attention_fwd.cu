@@ -14,6 +14,9 @@
 // (1 = key valid); causal: key j is excluded for query i when j > i.
 // Excluded logits are -1e30 (the TPU kernel's NEG_INF), not -inf, so a fully
 // masked row gives a finite average, never NaN.
+// lse: optional (B, H, Tq) float32 output, the row log-sum-exp of the masked,
+// scaled logits (max + log denominator), which attention_bwd.cu reads to
+// recompute the probabilities; null skips it.
 //
 // What bounds it on the H100: at the flagship speech shape (B = 16,
 // T = 800, H = 12) the two products are 4*B*H*T*T*D ~ 31 GFLOP against
@@ -67,8 +70,8 @@ __global__ void __launch_bounds__(NT)
                          const float* __restrict__ k,
                          const float* __restrict__ v,
                          const unsigned char* __restrict__ mask,
-                         float* __restrict__ out, int tq, int tk, int heads,
-                         float scale, int causal) {
+                         float* __restrict__ out, float* __restrict__ lse,
+                         int tq, int tk, int heads, float scale, int causal) {
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;           // (D, LD): qs[d * LD + query]
   float* ks = qs + D * LD;    // (D, LD): ks[d * LD + key]; then P (BK, LD)
@@ -203,12 +206,16 @@ __global__ void __launch_bounds__(NT)
     for (int j = 0; j < 4; ++j) {
       ob[t * row + tx * 4 + j] = acc[i][j] * inv;
     }
+    if (lse != nullptr && tx == 0) {
+      lse[((long long)b * heads + head) * tq + t] = m[i] + logf(l[i]);
+    }
   }
 }
 
 int launch_f32(const void* q, const void* k, const void* v,
-               const unsigned char* mask, void* out, int batch, int tq, int tk,
-               int heads, float scale, int causal, cudaStream_t stream) {
+               const unsigned char* mask, void* out, float* lse, int batch,
+               int tq, int tk, int heads, float scale, int causal,
+               cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       attention_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kSmem));
@@ -216,8 +223,8 @@ int launch_f32(const void* q, const void* k, const void* v,
   dim3 grid((tq + BQ - 1) / BQ, heads, batch);
   attention_fwd_kernel<<<grid, NT, kSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), mask, static_cast<float*>(out), tq, tk,
-      heads, scale, causal);
+      static_cast<const float*>(v), mask, static_cast<float*>(out), lse, tq,
+      tk, heads, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -257,8 +264,8 @@ __global__ void __launch_bounds__(TC_NT)
     attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                             const bf16* __restrict__ v,
                             const unsigned char* __restrict__ mask,
-                            bf16* __restrict__ out, int tq, int tk, int heads,
-                            float scale, int causal) {
+                            bf16* __restrict__ out, float* __restrict__ lse,
+                            int tq, int tk, int heads, float scale, int causal) {
   __shared__ __align__(16) bf16 ks[BK * LDB];
   __shared__ __align__(16) bf16 vs[BK * LDB];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -407,15 +414,21 @@ __global__ void __launch_bounds__(TC_NT)
           pack_bf16(o[nt][2] * inv1, o[nt][3] * inv1);
     }
   }
+  if (lse != nullptr && t4 == 0) {
+    float* lb = lse + ((long long)b * heads + head) * tq;
+    if (qr0 < tq) lb[qr0] = m0 + logf(l0);
+    if (qr1 < tq) lb[qr1] = m1 + logf(l1);
+  }
 }
 
 int launch_tc(const void* q, const void* k, const void* v,
-              const unsigned char* mask, void* out, int batch, int tq, int tk,
-              int heads, float scale, int causal, cudaStream_t stream) {
+              const unsigned char* mask, void* out, float* lse, int batch,
+              int tq, int tk, int heads, float scale, int causal,
+              cudaStream_t stream) {
   dim3 grid((tq + BQ - 1) / BQ, heads, batch);
   attention_fwd_tc_kernel<<<grid, TC_NT, 0, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), mask, static_cast<bf16*>(out), tq, tk,
+      static_cast<const bf16*>(v), mask, static_cast<bf16*>(out), lse, tq, tk,
       heads, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
@@ -428,7 +441,8 @@ bool aligned16(const void* p) {
 
 extern "C" int smx_attention_fwd(const void* q, const void* k, const void* v,
                                  const unsigned char* mask, void* out,
-                                 int batch, int tq, int tk, int heads,
+                                 float* lse, int batch, int tq, int tk,
+                                 int heads,
                                  int head_dim, float scale, int causal,
                                  int dtype, int device, void* stream) {
   if (head_dim != D || batch <= 0 || tq <= 0 || tk <= 0 || heads <= 0 ||
@@ -443,9 +457,9 @@ extern "C" int smx_attention_fwd(const void* q, const void* k, const void* v,
     if (!aligned16(q) || !aligned16(k) || !aligned16(v)) {
       return static_cast<int>(cudaErrorMisalignedAddress);
     }
-    return launch_tc(q, k, v, mask, out, batch, tq, tk, heads, scale, causal,
-                     s);
+    return launch_tc(q, k, v, mask, out, lse, batch, tq, tk, heads, scale,
+                     causal, s);
   }
-  return launch_f32(q, k, v, mask, out, batch, tq, tk, heads, scale, causal,
-                    s);
+  return launch_f32(q, k, v, mask, out, lse, batch, tq, tk, heads, scale,
+                    causal, s);
 }

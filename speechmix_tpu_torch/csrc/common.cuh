@@ -40,6 +40,29 @@ __device__ __forceinline__ float activate(int act, float x) {
   }
 }
 
+// d activate(act, x) / dx, in the same closed forms as the TPU backward
+// kernels' _dact_f32.
+__device__ __forceinline__ float dactivate(int act, float x) {
+  switch (act) {
+    case kGelu: {
+      const float pdf = expf(-0.5f * x * x) * 0.39894228040143268f;  // 1/sqrt(2 pi)
+      return 0.5f * (1.0f + erff(x * 0.70710678118654752f)) + x * pdf;
+    }
+    case kGeluTanh: {
+      const float c = 0.79788456080286536f;
+      const float t = tanhf(c * (x + 0.044715f * x * x * x));
+      return 0.5f * (1.0f + t) +
+             0.5f * x * (1.0f - t * t) * c * (1.0f + 3.0f * 0.044715f * x * x);
+    }
+    case kRelu:
+      return x > 0.0f ? 1.0f : 0.0f;
+    default: {  // kSilu
+      const float s = 1.0f / (1.0f + expf(-x));
+      return s * (1.0f + x * (1.0f - s));
+    }
+  }
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);

@@ -1,8 +1,13 @@
-// K3: ffn_res_ln — out = LayerNorm(res + act(x @ w1 + b1) @ w2 + b2) * g + beta.
+// K3: ffn_res_ln — out = LayerNorm(res + act(x @ w1 + b1) @ w2 + b2) * g + beta
+// (entry smx_ffn_res_ln), and K9: ffn_fused — out = act(x @ w1 + b1) @ w2 + b2,
+// the same body without the residual + LayerNorm epilogue (entry
+// smx_ffn_fused; res, g and beta are not read).
 //
-// Replaces the TPU kernel speechmix_tpu/ops/pallas/ffn_kernel.py:
+// K3 replaces the TPU kernel speechmix_tpu/ops/pallas/ffn_kernel.py:
 // ffn_fused_res_ln (_kernel_res_ln), the post-LN FFN block of the
-// wav2vec2-base encoder layer and the BART blocks.
+// wav2vec2-base encoder layer and the BART blocks.  K9 replaces ffn_fused
+// (_kernel) of the same file: the FFN of pre-LN blocks, and the recompute of
+// the pre-LayerNorm sum inside K3's backward.
 //
 // x, res, out: (n, h); w1: (h, f); w2: (f, h), row-major, in float32 or
 // bfloat16; b1: (f,), b2, g, beta: (h,) float32.  float32: h <= 1024;
@@ -51,6 +56,7 @@ constexpr int NT = 256;
 constexpr int FC = NT;   // f columns per chunk: one per thread
 constexpr int MAXC = 4;  // h <= MAXC * NT
 
+template <bool LN>
 __global__ void __launch_bounds__(NT)
     ffn_res_ln_kernel(const float* __restrict__ x,
                       const float* __restrict__ w1,
@@ -138,21 +144,35 @@ __global__ void __launch_bounds__(NT)
     }
     __syncthreads();
   }
-  smx::res_ln_epilogue<float, BM, MAXC, NT>(acc, b2, res, g, beta, out, n, h,
-                                            r0, eps, red, tot);
+  if constexpr (LN) {
+    smx::res_ln_epilogue<float, BM, MAXC, NT>(acc, b2, res, g, beta, out, n, h,
+                                              r0, eps, red, tot);
+  } else {
+#pragma unroll
+    for (int r = 0; r < BM; ++r) {
+      const int row = r0 + r;
+      if (row >= n) continue;
+#pragma unroll
+      for (int j = 0; j < MAXC; ++j) {
+        const int c = tid + j * NT;
+        if (c < h) out[(long long)row * h + c] = acc[r][j] + b2[c];
+      }
+    }
+  }
 }
 
+template <bool LN>
 int launch_f32(const void* x, const void* w1, const float* b1, const void* w2,
                const float* b2, const void* res, const float* g,
                const float* beta, void* out, int n, int h, int f, int act,
                float eps, cudaStream_t stream) {
   const size_t smem = (size_t)(h + FC) * BM * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      ffn_res_ln_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ffn_res_ln_kernel<LN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((n + BM - 1) / BM);
-  ffn_res_ln_kernel<<<grid, NT, smem, stream>>>(
+  ffn_res_ln_kernel<LN><<<grid, NT, smem, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(w1), b1,
       static_cast<const float*>(w2), b2, static_cast<const float*>(res), g,
       beta, static_cast<float*>(out), n, h, f, act, eps);
@@ -178,7 +198,7 @@ constexpr size_t tc_smem_bytes() {
 }
 
 // h = 128 * NJ; warp w owns output column tiles w + 8 * j, j < NJ
-template <int NJ>
+template <int NJ, bool LN>
 __global__ void __launch_bounds__(TC_NT)
     ffn_res_ln_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
                          const float* __restrict__ b1, const bf16* __restrict__ w2,
@@ -252,21 +272,31 @@ __global__ void __launch_bounds__(TC_NT)
       wm::store_matrix_sync(ys + rt * 16 * LDY + (warp + 8 * j) * 16, acc[rt][j],
                             LDY, wm::mem_row_major);
   __syncthreads();
-  smx::staged_res_ln<bf16>(ys, LDY, TC_BM, b2, res, g, beta, out, n, H, r0, eps);
+  if constexpr (LN) {
+    smx::staged_res_ln<bf16>(ys, LDY, TC_BM, b2, res, g, beta, out, n, H, r0, eps);
+  } else {
+    for (int i = tid; i < TC_BM * H; i += TC_NT) {
+      const int r = i / H, c = i % H;
+      if (r0 + r < n) {
+        out[(long long)(r0 + r) * H + c] =
+            __float2bfloat16(ys[r * LDY + c] + b2[c]);
+      }
+    }
+  }
 }
 
-template <int NJ>
+template <int NJ, bool LN>
 int launch_tc(const void* x, const void* w1, const float* b1, const void* w2,
               const float* b2, const void* res, const float* g,
               const float* beta, void* out, int n, int f, int act, float eps,
               cudaStream_t stream) {
   const size_t smem = tc_smem_bytes<NJ>();
   cudaError_t err = cudaFuncSetAttribute(
-      ffn_res_ln_tc_kernel<NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ffn_res_ln_tc_kernel<NJ, LN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((n + TC_BM - 1) / TC_BM);
-  ffn_res_ln_tc_kernel<NJ><<<grid, TC_NT, smem, stream>>>(
+  ffn_res_ln_tc_kernel<NJ, LN><<<grid, TC_NT, smem, stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w1), b1,
       static_cast<const bf16*>(w2), b2, static_cast<const bf16*>(res), g, beta,
       static_cast<bf16*>(out), n, f, act, eps);
@@ -277,13 +307,11 @@ bool aligned32(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 31u) == 0;
 }
 
-}  // namespace
-
-extern "C" int smx_ffn_res_ln(const void* x, const void* w1, const float* b1,
-                              const void* w2, const float* b2, const void* res,
-                              const float* g, const float* beta, void* out,
-                              int n, int h, int f, int act, float eps,
-                              int dtype, int device, void* stream) {
+template <bool LN>
+int launch(const void* x, const void* w1, const float* b1, const void* w2,
+           const float* b2, const void* res, const float* g, const float* beta,
+           void* out, int n, int h, int f, int act, float eps, int dtype,
+           int device, void* stream) {
   if (h > MAXC * NT || h <= 0 || f <= 0 || n <= 0 || act < 0 || act > 3) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -295,10 +323,29 @@ extern "C" int smx_ffn_res_ln(const void* x, const void* w1, const float* b1,
     if (f % TC_FC != 0 || !aligned32(x) || !aligned32(w1) || !aligned32(w2)) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
-    if (h == 768) return launch_tc<6>(x, w1, b1, w2, b2, res, g, beta, out, n, f, act, eps, s);
-    if (h == 1024) return launch_tc<8>(x, w1, b1, w2, b2, res, g, beta, out, n, f, act, eps, s);
+    if (h == 768) return launch_tc<6, LN>(x, w1, b1, w2, b2, res, g, beta, out, n, f, act, eps, s);
+    if (h == 1024) return launch_tc<8, LN>(x, w1, b1, w2, b2, res, g, beta, out, n, f, act, eps, s);
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch_f32(x, w1, b1, w2, b2, res, g, beta, out, n, h, f, act, eps,
-                    s);
+  return launch_f32<LN>(x, w1, b1, w2, b2, res, g, beta, out, n, h, f, act, eps,
+                        s);
+}
+
+}  // namespace
+
+extern "C" int smx_ffn_res_ln(const void* x, const void* w1, const float* b1,
+                              const void* w2, const float* b2, const void* res,
+                              const float* g, const float* beta, void* out,
+                              int n, int h, int f, int act, float eps,
+                              int dtype, int device, void* stream) {
+  return launch<true>(x, w1, b1, w2, b2, res, g, beta, out, n, h, f, act, eps,
+                      dtype, device, stream);
+}
+
+extern "C" int smx_ffn_fused(const void* x, const void* w1, const float* b1,
+                             const void* w2, const float* b2, void* out, int n,
+                             int h, int f, int act, int dtype, int device,
+                             void* stream) {
+  return launch<false>(x, w1, b1, w2, b2, nullptr, nullptr, nullptr, out, n, h,
+                       f, act, 0.0f, dtype, device, stream);
 }

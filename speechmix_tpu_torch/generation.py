@@ -18,6 +18,7 @@ import torch
 from .config import SpeechMixConfig
 from .models import seq2seq
 from .models import speechmix as smx
+from .ops.kernels._cuda import resolve_device
 from .ops.kernels.beam_gather import beam_gather
 
 # generate() keyword arguments of the JAX package that select a path this
@@ -33,17 +34,6 @@ _NOT_PORTED = {
     "encoder_no_repeat_ngram_size": 0, "encoder_input_ids": None,
     "prefix_allowed_tokens_fn": None, "force_words_ids": None,
 }
-
-
-def resolve_device(device=None) -> torch.device:
-    """`device` as a torch.device; None means the card.  Raises if the card
-    is asked for and CUDA is not available: the port never moves to the CPU
-    on its own."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
-                           "on the CPU")
-    return device
 
 
 def _to_device(tree, device):

@@ -1,9 +1,10 @@
-"""BART-family seq2seq LM, inference (port of ``speechmix_tpu.models.seq2seq``).
+"""BART-family seq2seq LM (port of ``speechmix_tpu.models.seq2seq``).
 
-The text encoder (``encode``) and the cached single-step decoder
-(``precompute_cross_kv``, ``init_decoder_cache``, ``decode``).  Layers are
-lists of parameter dicts.  T5, the uncached (teacher-forcing) decoder and
-adapters are not ported yet.
+The text encoder (``encode``), the decoder (``decode``: cached single steps
+over ``precompute_cross_kv`` / ``init_decoder_cache`` for generation, or the
+uncached teacher-forcing pass for training) and the training forward
+``seq2seq_apply``, deterministic (no dropout).  Layers are lists of parameter
+dicts.  T5, dropout and adapters are not ported yet.
 
 Cache layout: self K/V (L, B, capacity, H, D), written in place by each
 step; cross K/V (L, B_enc, T_enc, H, D), in the compute dtype or, with
@@ -13,7 +14,9 @@ TPU's sake.)  B may be a multiple of B_enc: beam search keeps one cross K/V
 per input and the beams of an input, contiguous in the batch, share it.
 
 Single-token cached steps run kernel K4 (``ops.kernels.decode_attention``)
-for self- and cross-attention.
+for self- and cross-attention.  The uncached decoder's causal self-attention
+runs K1 / K7; its cross-attention carries the encoder's padding mask as a bias
+and takes the plain path.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch.nn.functional as F
 from ..config import Seq2SeqConfig
 from ..ops import layers
 from ..ops.attention import KVCache, attention, cache_position_bias
+from ..ops.masking import combine_masks_to_bias
 from ..ops.kernels.decode_attention import (decode_attention,
                                             decode_attention_plain)
 from .init import dense_params, embedding_params, layer_norm_params
@@ -38,6 +42,15 @@ def _check_supported(cfg: Seq2SeqConfig):
                                   "ported yet; only BART is")
     if cfg.activation == "gelu_gated":
         raise NotImplementedError("gated-GELU FFNs are not ported yet")
+
+
+def shift_tokens_right(input_ids, pad_token_id, decoder_start_token_id):
+    """labels -> decoder_input_ids: shift right, put the start token first,
+    map any -100 to pad."""
+    shifted = torch.empty_like(input_ids)
+    shifted[:, 1:] = input_ids[:, :-1]
+    shifted[:, 0] = decoder_start_token_id
+    return torch.where(shifted == -100, pad_token_id, shifted)
 
 
 class DecoderCache(NamedTuple):
@@ -178,16 +191,28 @@ def _cross_attention(attn_params, cfg, x_q, k, v, kv_mask, dtype,
 
 def _decoder_block(block, cfg, x, self_bias, self_kv_mask, layer_cache,
                    cross_k, cross_v, cross_kv_mask, dtype, cross_k_scale=None,
-                   cross_v_scale=None):
+                   cross_v_scale=None, self_causal=False, enc_hidden=None,
+                   cross_bias=None):
+    """One post-LN decoder block.  Cached: cross-attention over the
+    precomputed cross_k / cross_v.  Uncached (layer_cache None): causal
+    self-attention and cross-attention over enc_hidden under cross_bias."""
     a, new_cache = attention(block["self_attn"], x, bias=self_bias,
-                             kv_mask=self_kv_mask, num_heads=cfg.num_heads,
+                             kv_mask=self_kv_mask, causal=self_causal,
+                             num_heads=cfg.num_heads,
                              head_dim=cfg.per_head_dim, cache=layer_cache,
                              dtype=dtype, out_proj=False)
     x = layers.dense_residual_ln_apply(
         block["self_attn"]["out_proj"], block["self_attn_layer_norm"], a, x,
         dtype, cfg.layer_norm_eps)
-    a = _cross_attention(block["encoder_attn"], cfg, x, cross_k, cross_v,
-                         cross_kv_mask, dtype, cross_k_scale, cross_v_scale)
+    if enc_hidden is not None:
+        a, _ = attention(block["encoder_attn"], x, x_kv=enc_hidden,
+                         bias=cross_bias, num_heads=cfg.num_heads,
+                         head_dim=cfg.per_head_dim, dtype=dtype,
+                         out_proj=False)
+    else:
+        a = _cross_attention(block["encoder_attn"], cfg, x, cross_k, cross_v,
+                             cross_kv_mask, dtype, cross_k_scale,
+                             cross_v_scale)
     x = layers.dense_residual_ln_apply(
         block["encoder_attn"]["out_proj"], block["encoder_attn_layer_norm"],
         a, x, dtype, cfg.layer_norm_eps)
@@ -197,42 +222,65 @@ def _decoder_block(block, cfg, x, self_bias, self_kv_mask, layer_cache,
     return x, new_cache
 
 
-def decode(params, cfg: Seq2SeqConfig, decoder_input_ids, encoder_mask,
-           cache: DecoderCache, dtype=torch.float32):
-    """Cached incremental decoder step: decoder_input_ids (B, q_len) continue
-    at position cache.self_kv.index.  Writes the new self K/V into the cache
-    in place.  Returns dict(logits (B, q_len, V) float32, cache)."""
+def decode(params, cfg: Seq2SeqConfig, decoder_input_ids, encoder_mask=None,
+           cache: Optional[DecoderCache] = None, dtype=torch.float32,
+           enc_hidden=None, decoder_mask=None):
+    """Decoder forward.
+
+    With a cache: incremental step; decoder_input_ids (B, q_len) continue at
+    position cache.self_kv.index, and the new self K/V are written into the
+    cache in place.  Without one: the full teacher-forcing pass over
+    enc_hidden (B, T_enc, H) for training, differentiable, causal over
+    q_len, with decoder_mask (B, q_len) as the self-attention key mask.
+    Returns dict(logits (B, q_len, V) float32, cache (None when uncached))."""
     _check_supported(cfg)
+    if cache is None and enc_hidden is None:
+        raise ValueError("decode() needs a cache or enc_hidden")
     dec = params["decoder"]
     b, q_len = decoder_input_ids.shape
     device = decoder_input_ids.device
-    offset = cache.self_kv.index
+    offset = cache.self_kv.index if cache is not None else 0
     x = embed_tokens(params, cfg, decoder_input_ids, dtype)
     pos = layers.embed(dec["embed_positions"],
                        offset + torch.arange(q_len, device=device) + 2, dtype)
     x = layers.layer_norm(dec["layernorm_embedding"], x + pos,
                           cfg.layer_norm_eps)
 
-    capacity = cache.self_kv.key.shape[2]
-    self_bias, self_kv_mask = None, None
-    if q_len == 1:
-        # a single-token step only has to exclude the unfilled slots
-        self_kv_mask = (torch.arange(capacity, device=device)[None, :]
-                        <= offset).expand(b, capacity).contiguous()
+    if cache is None:
+        # a structured key mask with causal=True keeps K1 / K7 reachable; the
+        # encoder's padding mask reaches the cross-attention as a bias
+        self_kv_mask = (decoder_mask if decoder_mask is not None else
+                        torch.ones((b, q_len), dtype=torch.bool,
+                                   device=device))
+        cross_bias = (None if encoder_mask is None
+                      else combine_masks_to_bias(kv_mask=encoder_mask))
+        for block in dec["layers"]:
+            x, _ = _decoder_block(block, cfg, x, None, self_kv_mask, None,
+                                  None, None, None, dtype, self_causal=True,
+                                  enc_hidden=enc_hidden,
+                                  cross_bias=cross_bias)
+        new_cache = None
     else:
-        self_bias = cache_position_bias(capacity, offset, q_len,
-                                        device=device)
-    int8_kv = cache.cross_k_scale is not None
-    for i, block in enumerate(dec["layers"]):
-        layer_cache = KVCache(cache.self_kv.key[i], cache.self_kv.value[i],
-                              offset)
-        x, _ = _decoder_block(
-            block, cfg, x, self_bias, self_kv_mask, layer_cache,
-            cache.cross_k[i], cache.cross_v[i], encoder_mask, dtype,
-            cache.cross_k_scale[i] if int8_kv else None,
-            cache.cross_v_scale[i] if int8_kv else None)
-    new_cache = cache._replace(self_kv=cache.self_kv._replace(
-        index=offset + q_len))
+        capacity = cache.self_kv.key.shape[2]
+        self_bias, self_kv_mask = None, None
+        if q_len == 1:
+            # a single-token step only has to exclude the unfilled slots
+            self_kv_mask = (torch.arange(capacity, device=device)[None, :]
+                            <= offset).expand(b, capacity).contiguous()
+        else:
+            self_bias = cache_position_bias(capacity, offset, q_len,
+                                            device=device)
+        int8_kv = cache.cross_k_scale is not None
+        for i, block in enumerate(dec["layers"]):
+            layer_cache = KVCache(cache.self_kv.key[i],
+                                  cache.self_kv.value[i], offset)
+            x, _ = _decoder_block(
+                block, cfg, x, self_bias, self_kv_mask, layer_cache,
+                cache.cross_k[i], cache.cross_v[i], encoder_mask, dtype,
+                cache.cross_k_scale[i] if int8_kv else None,
+                cache.cross_v_scale[i] if int8_kv else None)
+        new_cache = cache._replace(self_kv=cache.self_kv._replace(
+            index=offset + q_len))
 
     if cfg.tie_word_embeddings:
         logits = F.linear(x, params["shared"]["embedding"].to(dtype)).float()
@@ -240,6 +288,34 @@ def decode(params, cfg: Seq2SeqConfig, decoder_input_ids, encoder_mask,
         logits = layers.dense(params["lm_head"], x, dtype).float()
     logits = logits + params["final_logits_bias"].float()
     return {"logits": logits, "cache": new_cache}
+
+
+def seq2seq_apply(params, cfg: Seq2SeqConfig, input_ids=None,
+                  inputs_embeds=None, attention_mask=None,
+                  decoder_input_ids=None, decoder_mask=None, labels=None,
+                  dtype=torch.float32):
+    """Full training / evaluation forward: text encoder, teacher-forced
+    decoder, and the mean cross-entropy over labels != -100 when labels
+    (B, L) are given (decoder inputs then default to the labels shifted
+    right).  Returns dict(logits, encoder_last_hidden_state, encoder_mask
+    [, loss])."""
+    if decoder_input_ids is None and labels is not None:
+        decoder_input_ids = shift_tokens_right(
+            labels, cfg.pad_token_id, cfg.decoder_start_token_id)
+    enc = encode(params, cfg, input_ids=input_ids,
+                 inputs_embeds=inputs_embeds, attention_mask=attention_mask,
+                 dtype=dtype)
+    dec_out = decode(params, cfg, decoder_input_ids,
+                     encoder_mask=enc["mask"], dtype=dtype,
+                     enc_hidden=enc["last_hidden_state"],
+                     decoder_mask=decoder_mask)
+    out = {"logits": dec_out["logits"],
+           "encoder_last_hidden_state": enc["last_hidden_state"],
+           "encoder_mask": enc["mask"]}
+    if labels is not None:
+        out["loss"] = layers.cross_entropy_with_ignore(dec_out["logits"],
+                                                       labels)
+    return out
 
 
 def init_seq2seq(cfg: Seq2SeqConfig, generator, device, dtype=torch.float32):

@@ -1,11 +1,14 @@
-"""wav2vec2-family speech encoder, inference (port of
-``speechmix_tpu.models.speech_encoder``).
+"""wav2vec2-family speech encoder (port of
+``speechmix_tpu.models.speech_encoder``), deterministic.
 
 Conv feature extractor (optionally with kernel K6 for its stride-2 layers)
--> feature projection -> masked positional conv -> post-LN transformer layers.  Layers are a list of parameter dicts (the JAX
-package stacks them on a leading axis for ``lax.scan``).  Training-only
-parts (SpecAugment, LayerDrop, dropout) and the pre-LN ("stable layer
-norm") form are not ported yet.
+-> feature projection -> masked positional conv -> post-LN transformer
+layers.  Layers are a list of parameter dicts (the JAX package stacks them
+on a leading axis for ``lax.scan``).  Every step is differentiable, through
+PyTorch autograd or the kernels' own backward functions, so the same code
+serves and trains.  The stochastic parts of training (SpecAugment,
+LayerDrop, dropout) and the pre-LN ("stable layer norm") form are not
+ported yet.
 """
 
 from __future__ import annotations

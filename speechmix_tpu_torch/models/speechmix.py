@@ -1,4 +1,6 @@
-"""SpeechMix fusion, inference (port of ``speechmix_tpu.models.speechmix``).
+"""SpeechMix fusion (port of ``speechmix_tpu.models.speechmix``): the bridge
+``encode_speech`` that serving and training share, and the deterministic
+training forward ``speechmix_forward`` of the variants eed, fixed and ed.
 
 speech encoder -> [learned softmax weighted sum over layer states]
                -> stride-2 conv length adapters (log2(down_scale) of them)
@@ -18,8 +20,11 @@ from . import speech_encoder as se
 from .init import conv_params, dense_params
 
 
+PORTED_VARIANTS = ("eed", "fixed", "ed")
+
+
 def _check_supported(cfg: SpeechMixConfig):
-    if cfg.variant not in ("eed", "fixed"):
+    if cfg.variant not in PORTED_VARIANTS:
         raise NotImplementedError(f"the {cfg.variant!r} variant is not "
                                   "ported yet")
 
@@ -56,6 +61,49 @@ def encode_speech(params, cfg: SpeechMixConfig, input_values, lengths=None,
         mask = torch.cat([torch.ones(prompt_ids.shape, dtype=torch.bool,
                                      device=mask.device), mask], dim=1)
     return h, mask
+
+
+def speechmix_forward(params, cfg: SpeechMixConfig, input_values,
+                      lengths=None, labels=None, decoder_input_ids=None,
+                      prompt_ids=None, dtype=torch.float32, dropout_rng=None):
+    """Training / evaluation forward of the embed-fusion variants eed and
+    fixed (speech embeddings into the text encoder) and of ed (the decoder
+    cross-attends the projected speech states; no text-encoder pass).
+
+    labels: (B, L) with -100 padding; decoder inputs default to the labels
+    shifted right, or to one start token when there are no labels either.
+    dropout_rng must be None: only the deterministic forward is ported.
+    Returns dict(logits (B, L, V) float32[, loss])."""
+    _check_supported(cfg)
+    if dropout_rng is not None:
+        raise NotImplementedError("training-mode dropout is not ported yet; "
+                                  "pass dropout_rng=None")
+    dcfg = cfg.decoder
+    if decoder_input_ids is None and labels is not None:
+        decoder_input_ids = seq2seq.shift_tokens_right(
+            labels, dcfg.pad_token_id, dcfg.decoder_start_token_id)
+    elif decoder_input_ids is None:
+        decoder_input_ids = torch.full(
+            (input_values.shape[0], 1), dcfg.decoder_start_token_id,
+            dtype=torch.long, device=input_values.device)
+    inputs_embeds, enc_mask = encode_speech(params, cfg, input_values,
+                                            lengths, prompt_ids, dtype)
+    if cfg.variant == "ed":
+        out = seq2seq.decode(params["nlp"], dcfg, decoder_input_ids,
+                             encoder_mask=enc_mask, dtype=dtype,
+                             enc_hidden=inputs_embeds)
+        if labels is not None:
+            out["loss"] = layers.cross_entropy_with_ignore(out["logits"],
+                                                           labels)
+    else:
+        out = seq2seq.seq2seq_apply(
+            params["nlp"], dcfg, inputs_embeds=inputs_embeds,
+            attention_mask=enc_mask, decoder_input_ids=decoder_input_ids,
+            labels=labels, dtype=dtype)
+    result = {"logits": out["logits"]}
+    if labels is not None:
+        result["loss"] = out["loss"]
+    return result
 
 
 def init_speechmix(cfg: SpeechMixConfig, generator: torch.Generator, device,

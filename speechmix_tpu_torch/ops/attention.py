@@ -1,11 +1,14 @@
 """Multi-head attention of the port (counterpart of ``speechmix_tpu.ops.attention``).
 
-Self-attention without a cache or an extra bias (the speech encoder and the
-text encoder) runs kernel K1 (``ops.kernels.attention``) on the (B, T, H*D)
-projection slabs.  A cached single-token step with a structured ``kv_mask``
+Attention without a cache or an extra bias (the speech encoder, the text
+encoder and the teacher-forced decoder's causal self-attention) runs kernel
+K1 (``ops.kernels.attention``) on the (B, T, H*D) projection slabs, and
+kernel K7 as its backward.  A cached single-token step with a structured ``kv_mask``
 runs kernel K4 (``ops.kernels.decode_attention``) over the whole cache
 capacity.  Everything else (a cached multi-token chunk, an additive bias)
-takes the plain path ``_attend``.
+takes the plain path ``_attend``, which PyTorch differentiates (the training
+cross-attention, whose padding mask arrives as a bias).  The in-place cache
+writes happen only with a cache, never on the training path.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import layers
-from .kernels.attention import attention_fwd
+from .kernels.attention import attention_trainable
 from .kernels.decode_attention import decode_attention
 from .masking import causal_attention_bias, combine_masks_to_bias
 
@@ -75,7 +78,7 @@ def attention(params, x_q, x_kv=None, bias=None, kv_mask=None, causal=False,
 
     new_cache = None
     if cache is None and bias is None:
-        out = attention_fwd(q, k, v, kv_mask, num_heads, scale, causal)
+        out = attention_trainable(q, k, v, kv_mask, num_heads, scale, causal)
     elif (cache is not None and bias is None and not causal
           and kv_mask is not None and x_q.shape[1] == 1):
         # cached single-token step: one K4 launch over the cache capacity

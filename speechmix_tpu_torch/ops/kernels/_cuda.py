@@ -135,6 +135,18 @@ def reset_launch_counts():
         k.launches = 0
 
 
+def resolve_device(device=None):
+    """`device` as a torch.device; None means the card.  Raises if the card
+    is asked for and CUDA is not available: the port never moves to the CPU
+    on its own."""
+    import torch
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
+                           "on the CPU")
+    return device
+
+
 def check_cuda_tensor(name: str, t, dtype=None, shape=None, device=None):
     """Raise ValueError unless `t` is a contiguous CUDA tensor of the given
     dtype/shape on `device`."""

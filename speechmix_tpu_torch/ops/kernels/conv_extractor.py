@@ -6,7 +6,11 @@ runs ``fused_conv_layer_plain`` for CPU tensors.  It replaces the TPU kernel
 ``speechmix_tpu/ops/pallas/conv_extractor.py: fused_conv_layer``;
 ``fused_conv_stack`` chains it over layers 1.. of the extractor as the TPU
 package's ``fused_conv_stack`` does, with no padded physical shapes: each
-layer writes exactly its ``(T_in - k) // 2 + 1`` frames.
+layer writes exactly its ``(T_in - k) // 2 + 1`` frames.  When a gradient is
+wanted the chain runs as one ``torch.autograd.Function`` whose backward
+recomputes it through library convolutions, as the TPU package's
+``fused_conv_stack_trainable`` recomputes through XLA: there is no backward
+kernel on either side.
 """
 
 from __future__ import annotations
@@ -98,12 +102,76 @@ def fused_conv_layer(x, kernel, bias=None, ln_params=None, ln_eps=1e-5):
     return out
 
 
+def _run_stack(x, layer_params, ln_layers, ln_eps):
+    for kernel, bias, scale, beta in layer_params:
+        ln = {"scale": scale, "bias": beta} if ln_layers else None
+        x = fused_conv_layer(x, kernel.to(x.dtype), bias, ln, ln_eps)
+    return x
+
+
+def conv_stack_recompute(x, layer_params, ln_layers, ln_eps):
+    """The chain of fused_conv_stack out of differentiable library calls:
+    per layer a stride-2 convolution in x's dtype, then bias, optional
+    LayerNorm and exact-erf GELU in float32, rounded once to x's dtype."""
+    for kernel, bias, scale, beta in layer_params:
+        y = F.conv1d(x.transpose(1, 2), kernel.to(x.dtype), None,
+                     stride=STRIDE).transpose(1, 2).float()
+        if bias is not None:
+            y = y + bias.float()
+        if ln_layers:
+            y = F.layer_norm(y, (y.shape[-1],), scale.float(), beta.float(),
+                             ln_eps)
+        x = F.gelu(y).to(x.dtype)
+    return x
+
+
+class _ConvStack(torch.autograd.Function):
+    """K6 layer by layer forward; backward: autograd through
+    conv_stack_recompute from the saved input.  Only the stack's input is
+    kept between the two."""
+
+    @staticmethod
+    def forward(ctx, x, ln_layers, ln_eps, *flat):
+        ctx.ln_layers, ctx.ln_eps = ln_layers, ln_eps
+        ctx.present = [t is not None for t in flat]
+        ctx.save_for_backward(x, *[t for t in flat if t is not None])
+        return _run_stack(x, list(zip(*[iter(flat)] * 4)), ln_layers, ln_eps)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, *saved = ctx.saved_tensors
+        saved = iter(saved)
+        flat = [next(saved) if here else None for here in ctx.present]
+        needs = ctx.needs_input_grad
+        with torch.enable_grad():
+            x_in = x.detach().requires_grad_(needs[0])
+            leaves = [None if t is None
+                      else t.detach().requires_grad_(needs[3 + i])
+                      for i, t in enumerate(flat)]
+            out = conv_stack_recompute(x_in, list(zip(*[iter(leaves)] * 4)),
+                                       ctx.ln_layers, ctx.ln_eps)
+            wanted = [t for t in [x_in] + leaves
+                      if t is not None and t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wanted,
+                                             grad.to(out.dtype)))
+        pick = lambda t: (next(grads) if t is not None and t.requires_grad
+                          else None)
+        dx = pick(x_in)
+        return (dx, None, None, *[pick(t) for t in leaves])
+
+
 def fused_conv_stack(x, layers, ln_layers=False, ln_eps=1e-5):
     """Chain fused_conv_layer over `layers` (dicts with "conv" {kernel, bias}
     and, when ln_layers, "norm" {scale, bias}).  x: (B, T_in, C) in the
-    compute dtype.  Returns (B, T_out, C)."""
+    compute dtype.  Returns (B, T_out, C).  Differentiable in x and in every
+    parameter, which may be stored in another dtype than x's."""
+    flat = []
     for layer in layers:
-        conv = layer["conv"]
-        x = fused_conv_layer(x, conv["kernel"].to(x.dtype), conv.get("bias"),
-                             layer.get("norm") if ln_layers else None, ln_eps)
-    return x
+        conv, norm = layer["conv"], layer.get("norm") if ln_layers else None
+        flat += [conv["kernel"], conv.get("bias"),
+                 None if norm is None else norm["scale"],
+                 None if norm is None else norm["bias"]]
+    if not torch.is_grad_enabled() or not any(
+            t is not None and t.requires_grad for t in [x] + flat):
+        return _run_stack(x, list(zip(*[iter(flat)] * 4)), ln_layers, ln_eps)
+    return _ConvStack.apply(x, ln_layers, ln_eps, *flat)

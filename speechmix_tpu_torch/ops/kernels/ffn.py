@@ -1,18 +1,29 @@
-"""K2 and K3: a dense or FFN product fused with the post-LN residual +
-LayerNorm epilogue.
+"""K2, K3, K8 and K9: the dense and FFN products of a transformer block,
+fused with the post-LN residual + LayerNorm epilogue (K2, K3) or without it
+(K9), and the FFN backward (K8).
 
 ``dense_res_ln`` (K2, ``csrc/dense_res_ln.cu``) replaces the TPU kernel
 ``speechmix_tpu/ops/pallas/ffn_kernel.py: dense_res_ln``;
-``ffn_res_ln`` (K3, ``csrc/ffn_res_ln.cu``) replaces
-``speechmix_tpu/ops/pallas/ffn_kernel.py: ffn_fused_res_ln``.  Each wrapper
-launches its kernel for CUDA tensors and runs its plain PyTorch version,
-which computes the same function with the kernel's f32 arithmetic, for CPU
-tensors.
+``ffn_res_ln`` (K3, ``csrc/ffn_res_ln.cu``) replaces ``ffn_fused_res_ln`` of
+that file, ``ffn_fused`` (K9, a second entry of the same source)
+``ffn_fused``, and ``ffn_bwd`` (K8, ``csrc/ffn_bwd.cu``, two entries)
+``ffn_fused_bwd``.  Each wrapper launches its kernel for CUDA tensors and
+runs its plain PyTorch version, which computes the same function with the
+kernel's f32 arithmetic, for CPU tensors.
+
+``ffn_res_ln_trainable``, ``dense_res_ln_trainable`` and
+``ffn_fused_trainable`` are the differentiable forms, counterparts of the TPU
+package's functions of those names: K3's backward recomputes the
+pre-LayerNorm sum through K9 and runs K8; K2's is plain matrix products, as
+the TPU package has no kernel there; K9's is K8.  They take the weights as
+stored (float32 master weights under bfloat16 compute) and cast inside, so a
+weight gradient reaches its parameter in float32, unrounded.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 import torch.nn.functional as F
@@ -33,6 +44,19 @@ FFN_RES_LN = CudaKernel(
     "ffn_res_ln.cu", "smx_ffn_res_ln",
     [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_float] +
     [ctypes.c_int] * 2)
+FFN_FUSED = CudaKernel(
+    "ffn_res_ln.cu", "smx_ffn_fused",
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6)
+FFN_BWD_DX = CudaKernel(
+    "ffn_bwd.cu", "smx_ffn_bwd_dx",
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6)
+FFN_BWD_DW = CudaKernel(
+    "ffn_bwd.cu", "smx_ffn_bwd_dw",
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8)
+# K8's weight-gradient entry splits the rows over this many blocks per chunk
+# of F at most, about 1024 rows each
+DW_MAX_SPLITS = 8
+DW_ROWS_PER_SPLIT = 1024
 
 
 def act_f32(name, x):
@@ -118,29 +142,301 @@ def ffn_res_ln(x, w1, b1, w2, b2, res, g, beta, act="gelu", eps=1e-5):
     32-byte aligned."""
     if x.device.type == "cpu":
         return ffn_res_ln_plain(x, w1, b1, w2, b2, res, g, beta, act, eps)
-    if act not in ACT_CODES:
-        raise ValueError(f"unsupported activation {act!r}")
-    n, h = x.shape
-    f = w1.shape[1]
-    if h > MAX_HIDDEN:
-        raise ValueError(f"ffn_res_ln supports H <= {MAX_HIDDEN}, got {h}")
-    if x.dtype == torch.bfloat16 and (h not in BF16_HIDDEN or f % 64):
-        raise ValueError(f"ffn_res_ln in bfloat16 supports H in {BF16_HIDDEN}"
-                         f" and F a multiple of 64, got H={h}, F={f}")
-    check_cuda_tensor("x", x)
-    code = dtype_code(x.dtype)
-    check_cuda_tensor("w1", w1, x.dtype, (h, f), x.device)
-    check_cuda_tensor("w2", w2, x.dtype, (f, h), x.device)
+    n, h, f, code = _check_ffn("ffn_res_ln", x, w1, b1, w2, act)
     check_cuda_tensor("res", res, x.dtype, (n, h), x.device)
-    _check_vec("b1", b1, f, x.device)
     for name, t in (("b2", b2), ("g", g), ("beta", beta)):
         _check_vec(name, t, h, x.device)
-    if x.dtype == torch.bfloat16:
-        for name, t in (("x", x), ("w1", w1), ("w2", w2)):
-            check_aligned(name, t, 32)
     out = torch.empty_like(res)
     FFN_RES_LN.launch(x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
                       w2.data_ptr(), b2.data_ptr(), res.data_ptr(),
                       g.data_ptr(), beta.data_ptr(), out.data_ptr(), n, h, f,
                       ACT_CODES[act], float(eps), code, x.device.index)
     return out
+
+
+def dact_f32(name, a):
+    """d act(a) / da on f32 values, in the closed forms of the TPU package's
+    ``_dact_f32``."""
+    if name == "gelu":
+        pdf = torch.exp(-0.5 * a * a) * (1.0 / math.sqrt(2.0 * math.pi))
+        return 0.5 * (1.0 + torch.erf(a * (1.0 / math.sqrt(2.0)))) + a * pdf
+    if name == "gelu_new":
+        c = math.sqrt(2.0 / math.pi)
+        t = torch.tanh(c * (a + 0.044715 * a * a * a))
+        return 0.5 * (1.0 + t) + 0.5 * a * (1.0 - t * t) * c * \
+            (1.0 + 3 * 0.044715 * a * a)
+    if name == "relu":
+        return (a > 0).float()
+    if name == "silu":
+        s = torch.sigmoid(a)
+        return s * (1.0 + a * (1.0 - s))
+    raise ValueError(f"unsupported activation {name!r}")
+
+
+def ln_bwd(grad, y_pre, g, eps):
+    """Backward of LayerNorm(y_pre) * g + beta for d(out) = grad: returns
+    (dy_pre, dgamma, dbeta), all float32, row-local."""
+    grad = grad.float()
+    y = y_pre.float()
+    d = y - y.mean(-1, keepdim=True)
+    inv = torch.rsqrt((d * d).mean(-1, keepdim=True) + eps)
+    xhat = d * inv
+    dgamma = (grad * xhat).sum(0)
+    dbeta = grad.sum(0)
+    gg = grad * g.float()
+    dy = inv * (gg - gg.mean(-1, keepdim=True) -
+                xhat * (gg * xhat).mean(-1, keepdim=True))
+    return dy, dgamma, dbeta
+
+
+def ffn_fused_plain(x, w1, b1, w2, b2, act="gelu"):
+    """act(x @ w1 + b1) @ w2 + b2 with f32 products; the intermediate is
+    rounded to x's dtype before the second product, the output once."""
+    h = act_f32(act, x.float() @ w1.float() + b1.float())
+    h = h.to(x.dtype).float()
+    return (h @ w2.float() + b2.float()).to(x.dtype)
+
+
+def _check_ffn(what, x, w1, b1, w2, act):
+    """Shared checks of the K3 / K8 / K9 wrappers; returns (n, h, f, code)."""
+    if act not in ACT_CODES:
+        raise ValueError(f"unsupported activation {act!r}")
+    n, h = x.shape
+    f = w1.shape[1]
+    if h > MAX_HIDDEN:
+        raise ValueError(f"{what} supports H <= {MAX_HIDDEN}, got {h}")
+    if x.dtype == torch.bfloat16 and (h not in BF16_HIDDEN or f % 64):
+        raise ValueError(f"{what} in bfloat16 supports H in {BF16_HIDDEN}"
+                         f" and F a multiple of 64, got H={h}, F={f}")
+    check_cuda_tensor("x", x)
+    code = dtype_code(x.dtype)
+    check_cuda_tensor("w1", w1, x.dtype, (h, f), x.device)
+    check_cuda_tensor("w2", w2, x.dtype, (f, h), x.device)
+    _check_vec("b1", b1, f, x.device)
+    if x.dtype == torch.bfloat16:
+        for name, t in (("x", x), ("w1", w1), ("w2", w2)):
+            check_aligned(name, t, 32)
+    return n, h, f, code
+
+
+def ffn_fused(x, w1, b1, w2, b2, act="gelu"):
+    """K9; see ffn_fused_plain.  The same dtype and width rules as
+    ffn_res_ln."""
+    if x.device.type == "cpu":
+        return ffn_fused_plain(x, w1, b1, w2, b2, act)
+    n, h, f, code = _check_ffn("ffn_fused", x, w1, b1, w2, act)
+    _check_vec("b2", b2, h, x.device)
+    out = torch.empty_like(x)
+    FFN_FUSED.launch(x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+                     w2.data_ptr(), b2.data_ptr(), out.data_ptr(), n, h, f,
+                     ACT_CODES[act], code, x.device.index)
+    return out
+
+
+def _hidden_and_da(x, g, w1, b1, w2, act):
+    """f32 views of x and g, h = round(act(a)) and da = round(g @ w2^T *
+    act'(a)) for a = x @ w1 + b1 in f32, round() to x's dtype."""
+    xf, gf = x.float(), g.to(x.dtype).float()
+    a = xf @ w1.float() + b1.float()
+    hid = act_f32(act, a).to(x.dtype).float()
+    da = (gf @ w2.float().t() * dact_f32(act, a)).to(x.dtype).float()
+    return xf, gf, hid, da
+
+
+def ffn_bwd_dx_plain(x, g, w1, b1, w2, act="gelu"):
+    """dx = da @ w1^T in x's dtype (see ffn_bwd_plain)."""
+    _, _, _, da = _hidden_and_da(x, g, w1, b1, w2, act)
+    return (da @ w1.float().t()).to(x.dtype)
+
+
+def ffn_bwd_dw_plain(x, g, w1, b1, w2, act="gelu"):
+    """(dw1, db1, dw2) = (x^T da, sum da, h^T g), float32 (see
+    ffn_bwd_plain)."""
+    xf, gf, hid, da = _hidden_and_da(x, g, w1, b1, w2, act)
+    return xf.t() @ da, da.sum(0), hid.t() @ gf
+
+
+def ffn_bwd_plain(x, g, w1, b1, w2, act="gelu"):
+    """Backward of y = act(x @ w1 + b1) @ w2 + b2 for dy = g: returns
+    (dx, dw1, db1, dw2, db2), dx in x's dtype and the rest float32.  With
+    a = x @ w1 + b1 in f32: h = round(act(a)), da = round(g @ w2^T *
+    act'(a)), round() to x's dtype; dx = da @ w1^T, dw1 = x^T da,
+    dw2 = h^T g, db1 = sum da, db2 = sum g, all sums f32."""
+    dw1, db1, dw2 = ffn_bwd_dw_plain(x, g, w1, b1, w2, act)
+    return (ffn_bwd_dx_plain(x, g, w1, b1, w2, act), dw1, db1, dw2,
+            g.to(x.dtype).float().sum(0))
+
+
+def _check_ffn_bwd(what, x, g, w1, b1, w2, act):
+    if x.dtype == torch.float32 and w1.shape[1] % 16:
+        raise ValueError(f"{what} in float32 supports F a multiple of 16, "
+                         f"got F={w1.shape[1]}")
+    n, h, f, code = _check_ffn(what, x, w1, b1, w2, act)
+    check_cuda_tensor("g", g, x.dtype, (n, h), x.device)
+    if x.dtype == torch.bfloat16:
+        check_aligned("g", g, 32)
+    return n, h, f, code
+
+
+def ffn_bwd_dx(x, g, w1, b1, w2, act="gelu"):
+    """K8's input-gradient entry; see ffn_bwd_dx_plain.  CUDA tensors as for
+    ffn_bwd."""
+    if x.device.type == "cpu":
+        return ffn_bwd_dx_plain(x, g, w1, b1, w2, act)
+    n, h, f, code = _check_ffn_bwd("ffn_bwd_dx", x, g, w1, b1, w2, act)
+    dx = torch.empty_like(x)
+    FFN_BWD_DX.launch(x.data_ptr(), g.data_ptr(), w1.data_ptr(),
+                      b1.data_ptr(), w2.data_ptr(), dx.data_ptr(), n, h, f,
+                      ACT_CODES[act], code, x.device.index)
+    return dx
+
+
+def ffn_bwd_dw(x, g, w1, b1, w2, act="gelu"):
+    """K8's weight-gradient entry; see ffn_bwd_dw_plain.  CUDA tensors as for
+    ffn_bwd.  The rows are split over up to DW_MAX_SPLITS blocks per chunk of
+    F, whose partial sums meet in a float32 workspace and are added in split
+    order (no atomics)."""
+    if x.device.type == "cpu":
+        return ffn_bwd_dw_plain(x, g, w1, b1, w2, act)
+    n, h, f, code = _check_ffn_bwd("ffn_bwd_dw", x, g, w1, b1, w2, act)
+    splits = min(DW_MAX_SPLITS, -(-n // DW_ROWS_PER_SPLIT))
+    rows = -(-(-(-n // splits)) // 32) * 32   # per split, a multiple of 32
+    splits = -(-n // rows)
+    size = 2 * h * f + f
+    out = torch.empty(size, dtype=torch.float32, device=x.device)
+    ws = (torch.empty(splits * size, dtype=torch.float32, device=x.device)
+          if splits > 1 else None)
+    FFN_BWD_DW.launch(x.data_ptr(), g.data_ptr(), w1.data_ptr(),
+                      b1.data_ptr(), w2.data_ptr(), out.data_ptr(),
+                      None if ws is None else ws.data_ptr(), n, h, f,
+                      ACT_CODES[act], splits, rows, code, x.device.index)
+    dw1 = out[:h * f].view(h, f)
+    dw2 = out[h * f:2 * h * f].view(f, h)
+    return dw1, out[2 * h * f:], dw2
+
+
+def ffn_bwd(x, g, w1, b1, w2, act="gelu"):
+    """K8 (both entries); see ffn_bwd_plain.  CUDA tensors need x, g, w1, w2
+    in one dtype (float32 or bfloat16), b1 float32, H <= 1024; float32 needs
+    F a multiple of 16; bfloat16 needs H in BF16_HIDDEN, F a multiple of 64
+    and x, g, w1, w2 32-byte aligned.  db2 = sum g is taken outside the
+    kernels, as in the TPU package."""
+    dx = ffn_bwd_dx(x, g, w1, b1, w2, act)
+    dw1, db1, dw2 = ffn_bwd_dw(x, g, w1, b1, w2, act)
+    return dx, dw1, db1, dw2, g.float().sum(0)
+
+
+def _vec_or_zeros(b, size, device):
+    if b is None:
+        return torch.zeros(size, dtype=torch.float32, device=device)
+    return b.float().contiguous()
+
+
+def _dtypes(*params):
+    return tuple(None if p is None else p.dtype for p in params)
+
+
+def _like(grad, dtype):
+    """A gradient in its parameter's dtype; None for an absent parameter."""
+    return None if dtype is None else grad.to(dtype)
+
+
+class _FfnResLn(torch.autograd.Function):
+    """K3 forward; backward: K9 recomputes the pre-LayerNorm sum, ln_bwd,
+    then K8 on the sum's gradient.  Nothing of size (N, F) is kept."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, res, g, beta, act, eps):
+        w1c, w2c = w1.to(x.dtype).contiguous(), w2.to(x.dtype).contiguous()
+        b1c = _vec_or_zeros(b1, w1.shape[1], x.device)
+        b2c = _vec_or_zeros(b2, w2.shape[1], x.device)
+        ctx.act, ctx.eps = act, eps
+        ctx.dtypes = _dtypes(w1, b1, w2, b2)
+        ctx.save_for_backward(x, w1c, b1c, w2c, b2c, res, g, beta)
+        return ffn_res_ln(x, w1c, b1c, w2c, b2c, res, g.float().contiguous(),
+                          beta.float().contiguous(), act, eps)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w1c, b1c, w2c, b2c, res, g, beta = ctx.saved_tensors
+        w1, b1, w2, b2 = ctx.dtypes
+        y_pre = ffn_fused(x, w1c, b1c, w2c, b2c, ctx.act).float() + res.float()
+        dy, dgamma, dbeta = ln_bwd(grad, y_pre, g, ctx.eps)
+        dy = dy.to(x.dtype)
+        dx, dw1, db1, dw2, db2 = ffn_bwd(x, dy.contiguous(), w1c, b1c, w2c,
+                                         ctx.act)
+        return (dx, _like(dw1, w1), _like(db1, b1), _like(dw2, w2),
+                _like(db2, b2), dy.to(res.dtype), dgamma.to(g.dtype),
+                dbeta.to(beta.dtype), None, None)
+
+
+def ffn_res_ln_trainable(x, w1, b1, w2, b2, res, g, beta, act="gelu",
+                         eps=1e-5):
+    """Differentiable LayerNorm(res + act(x @ w1 + b1) @ w2 + b2) * g + beta.
+    x, res: (N, H) in the compute dtype; w1, w2 as stored (cast inside);
+    b1, b2: (F,), (H,) or None; g, beta: (H,)."""
+    return _FfnResLn.apply(x, w1, b1, w2, b2, res, g, beta, act, eps)
+
+
+class _DenseResLn(torch.autograd.Function):
+    """K2 forward; backward by hand in plain matrix products: the
+    pre-LayerNorm sum again, ln_bwd, then dx, dw and db from its gradient
+    rounded to x's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, res, g, beta, eps):
+        wc = w.to(x.dtype).contiguous()
+        bc = _vec_or_zeros(b, w.shape[1], x.device)
+        ctx.eps = eps
+        ctx.dtypes = _dtypes(w, b)
+        ctx.save_for_backward(x, wc, bc, res, g, beta)
+        return dense_res_ln(x, wc, bc, res, g.float().contiguous(),
+                            beta.float().contiguous(), eps)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, wc, bc, res, g, beta = ctx.saved_tensors
+        w, b = ctx.dtypes
+        y_pre = x.float() @ wc.float() + bc + res.float()
+        dy, dgamma, dbeta = ln_bwd(grad, y_pre, g, ctx.eps)
+        g16 = dy.to(x.dtype)
+        dx = g16 @ wc.t()
+        dw = x.float().t() @ g16.float()
+        return (dx, _like(dw, w), _like(dy.sum(0), b), dy.to(res.dtype),
+                dgamma.to(g.dtype), dbeta.to(beta.dtype), None)
+
+
+def dense_res_ln_trainable(x, w, b, res, g, beta, eps=1e-5):
+    """Differentiable LayerNorm(res + x @ w + b) * g + beta.  x: (N, Din),
+    res: (N, H) in the compute dtype; w as stored (cast inside); b: (H,) or
+    None."""
+    return _DenseResLn.apply(x, w, b, res, g, beta, eps)
+
+
+class _FfnFused(torch.autograd.Function):
+    """K9 forward, K8 backward."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, act):
+        w1c, w2c = w1.to(x.dtype).contiguous(), w2.to(x.dtype).contiguous()
+        b1c = _vec_or_zeros(b1, w1.shape[1], x.device)
+        b2c = _vec_or_zeros(b2, w2.shape[1], x.device)
+        ctx.act = act
+        ctx.dtypes = _dtypes(w1, b1, w2, b2)
+        ctx.save_for_backward(x, w1c, b1c, w2c)
+        return ffn_fused(x, w1c, b1c, w2c, b2c, act)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w1c, b1c, w2c = ctx.saved_tensors
+        w1, b1, w2, b2 = ctx.dtypes
+        dx, dw1, db1, dw2, db2 = ffn_bwd(
+            x, grad.to(x.dtype).contiguous(), w1c, b1c, w2c, ctx.act)
+        return (dx, _like(dw1, w1), _like(db1, b1), _like(dw2, w2),
+                _like(db2, b2), None)
+
+
+def ffn_fused_trainable(x, w1, b1, w2, b2, act="gelu"):
+    """Differentiable act(x @ w1 + b1) @ w2 + b2.  x: (N, H) in the compute
+    dtype; w1, w2 as stored (cast inside); b1, b2: (F,), (H,) or None."""
+    return _FfnFused.apply(x, w1, b1, w2, b2, act)

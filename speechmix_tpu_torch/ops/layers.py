@@ -5,10 +5,11 @@ layout ``(in, out)``; conv kernels are stored in PyTorch's ``(out, in, k)``
 layout (``convert.params_from_jax`` maps them).  The compute dtype is the
 caller's; normalisation statistics are f32.
 
-``ffn_residual_ln_apply`` and ``dense_residual_ln_apply`` send blocks of at
-least ``FUSED_MIN_ROWS`` rows to the fused kernels K3 and K2
-(``ops.kernels.ffn``), as the JAX package sends them to its TPU kernels;
-smaller blocks (the cached decode steps, rows == B) take the plain chain.
+``ffn_residual_ln_apply``, ``dense_residual_ln_apply`` and ``ffn_apply`` send
+blocks of at least ``FUSED_MIN_ROWS`` rows to the fused kernels K3, K2 and K9
+(``ops.kernels.ffn``) through their differentiable forms, whose backward runs
+K9 and K8, as the JAX package sends them to its TPU kernels; smaller blocks
+(the cached decode steps, rows == B) take the plain chain.
 """
 
 from __future__ import annotations
@@ -79,46 +80,61 @@ def _rows(x):
     return math.prod(x.shape[:-1])
 
 
-def _bias_or_zeros(params, size, device):
-    b = params.get("bias")
-    if b is None:
-        return torch.zeros(size, dtype=torch.float32, device=device)
-    return b.float().contiguous()
+def ffn_apply(p1, p2, x, act_name, dtype):
+    """FFN block act(x @ W1 + b1) @ W2 + b2 (no dropout).  Blocks of
+    >= FUSED_MIN_ROWS rows run as one fused kernel (K9), with K8 as its
+    backward."""
+    if _rows(x) >= FUSED_MIN_ROWS:
+        lead, h = x.shape[:-1], x.shape[-1]
+        y = ffn_kernels.ffn_fused_trainable(
+            x.to(dtype).reshape(-1, h).contiguous(), p1["kernel"],
+            p1.get("bias"), p2["kernel"], p2.get("bias"), act_name)
+        return y.reshape(*lead, y.shape[-1])
+    return dense(p2, activation(act_name)(dense(p1, x, dtype)), dtype)
 
 
 def ffn_residual_ln_apply(p1, p2, p_ln, x, act_name, dtype, eps=1e-5):
     """Post-LN FFN block: LayerNorm(x + act(x @ W1 + b1) @ W2 + b2).  Blocks
-    of >= FUSED_MIN_ROWS rows run as one fused kernel (K3)."""
+    of >= FUSED_MIN_ROWS rows run as one fused kernel (K3), differentiable
+    through K9 and K8."""
     if _rows(x) >= FUSED_MIN_ROWS:
         lead, h = x.shape[:-1], x.shape[-1]
         x2 = x.to(dtype).reshape(-1, h).contiguous()
-        w1 = p1["kernel"].to(dtype).contiguous()
-        w2 = p2["kernel"].to(dtype).contiguous()
-        y = ffn_kernels.ffn_res_ln(
-            x2, w1, _bias_or_zeros(p1, w1.shape[1], x.device), w2,
-            _bias_or_zeros(p2, w2.shape[1], x.device), x2,
-            p_ln["scale"].float().contiguous(),
-            p_ln["bias"].float().contiguous(), act_name, eps)
-        return y.reshape(*lead, w2.shape[1])
+        # the residual is the FFN input itself
+        y = ffn_kernels.ffn_res_ln_trainable(
+            x2, p1["kernel"], p1.get("bias"), p2["kernel"], p2.get("bias"),
+            x2, p_ln["scale"], p_ln["bias"], act_name, eps)
+        return y.reshape(*lead, y.shape[-1])
     f = dense(p2, activation(act_name)(dense(p1, x, dtype)), dtype)
     return layer_norm(p_ln, x + f, eps)
 
 
 def dense_residual_ln_apply(p, p_ln, x, res, dtype, eps=1e-5):
     """Post-LN attention epilogue: LayerNorm(res + x @ W + b).  Blocks of
-    >= FUSED_MIN_ROWS rows run as one fused kernel (K2)."""
+    >= FUSED_MIN_ROWS rows run as one fused kernel (K2), differentiable by
+    plain matrix products."""
     if _rows(x) >= FUSED_MIN_ROWS:
         lead, din = x.shape[:-1], x.shape[-1]
-        w = p["kernel"].to(dtype).contiguous()
-        h = w.shape[1]
-        y = ffn_kernels.dense_res_ln(
-            x.to(dtype).reshape(-1, din).contiguous(), w,
-            _bias_or_zeros(p, h, x.device),
-            res.to(dtype).reshape(-1, h).contiguous(),
-            p_ln["scale"].float().contiguous(),
-            p_ln["bias"].float().contiguous(), eps)
+        h = p["kernel"].shape[1]
+        y = ffn_kernels.dense_res_ln_trainable(
+            x.to(dtype).reshape(-1, din).contiguous(), p["kernel"],
+            p.get("bias"), res.to(dtype).reshape(-1, h).contiguous(),
+            p_ln["scale"], p_ln["bias"], eps)
         return y.reshape(*lead, h)
     return layer_norm(p_ln, res + dense(p, x, dtype), eps)
+
+
+def cross_entropy_with_ignore(logits, labels, ignore_index=-100):
+    """Mean token cross-entropy over the positions where labels !=
+    ignore_index, in float32 (0 when there is none).  logits: (..., V);
+    labels: (...) integers."""
+    valid = labels != ignore_index
+    safe = torch.where(valid, labels, 0).long()
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None]).squeeze(-1)
+    nll = (logz - gold) * valid.float()
+    return nll.sum() / valid.sum().float().clamp_min(1.0)
 
 
 def conv1d(params, x, stride, dtype=None):

@@ -18,6 +18,7 @@ from speechmix_tpu_torch.ops.kernels import beam_gather as t_bg
 from speechmix_tpu_torch.ops.kernels import conv_extractor as t_conv
 from speechmix_tpu_torch.ops.kernels import decode_attention as t_da
 from speechmix_tpu_torch.ops.kernels import ffn as t_ffn
+from speechmix_tpu_torch.training import trainer as t_trainer
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -72,6 +73,9 @@ def test_port_imports_no_jax():
     files = sorted((ROOT / "speechmix_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
+    names = {str(f.relative_to(ROOT)) for f in files}
+    assert {"speechmix_tpu_torch/training/trainer.py",
+            "speechmix_tpu_torch/training/freezing.py"} <= names
     for path in files:
         for name in _imported_modules(path):
             top = name.split(".")[0]
@@ -174,3 +178,63 @@ def test_kernel_launch_without_toolkit_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         kernel.launch(*([0] * 14))
     assert kernel.launches == before
+
+
+def test_train_step_defaults_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = _tiny_cfg()
+    tc = t_trainer.TrainConfig(dropout=False, optimizer="adamw")
+    params = t_smx.init_speechmix(cfg, torch.Generator().manual_seed(0),
+                                  "cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        t_trainer.make_train_step(cfg, tc, params)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        t_trainer.create_train_state(torch.Generator().manual_seed(0), cfg,
+                                     tc)
+    step = t_trainer.make_train_step(cfg, tc, params, device="cpu")
+    assert callable(step)
+
+
+def test_training_kernel_wrappers_raise_instead_of_falling_back():
+    """K7, K8 (both entries) and K9 given tensors that are not on the CPU
+    raise at their CUDA check and never run their plain versions."""
+    f32 = lambda *s: _meta(*s, dtype=torch.float32)
+    slab, lse = f32(1, 8, 64), f32(1, 1, 8)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        t_attn.attention_bwd(slab, slab, slab, None, slab, lse, slab, 1,
+                             0.125)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        t_attn.attention_fwd(slab, slab, slab, None, 1, 0.125,
+                             return_lse=True)
+    x, w1, b1, w2, b2 = f32(4, 8), f32(8, 16), f32(16), f32(16, 8), f32(8)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        t_ffn.ffn_fused(x, w1, b1, w2, b2)
+    for entry in (t_ffn.ffn_bwd, t_ffn.ffn_bwd_dx, t_ffn.ffn_bwd_dw):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            entry(x, x, w1, b1, w2)
+
+
+@pytest.mark.parametrize("call,match", [
+    (lambda: t_attn.attention_bwd(
+        _meta(1, 8, 32), _meta(1, 8, 32), _meta(1, 8, 32), None,
+        _meta(1, 8, 32), _meta(1, 1, 8, dtype=torch.float32),
+        _meta(1, 8, 32), 1, 0.125), "head_dim 64"),
+    (lambda: t_ffn.ffn_fused(*_ffn_args(256, 1024)[:5]),
+     "bfloat16 supports H"),
+    (lambda: t_ffn.ffn_bwd(_meta(4, 768), _meta(4, 768), _meta(768, 3000),
+                           _meta(3000, dtype=torch.float32),
+                           _meta(3000, 768)), "bfloat16 supports H"),
+    (lambda: t_ffn.ffn_bwd_dw(
+        _meta(4, 64, dtype=torch.float32), _meta(4, 64, dtype=torch.float32),
+        _meta(64, 40, dtype=torch.float32), _meta(40, dtype=torch.float32),
+        _meta(40, 64, dtype=torch.float32)), "F a multiple of 16"),
+    (lambda: t_ffn.ffn_bwd_dx(*_ffn_args(768, 3072)[:1],
+                              *_ffn_args(768, 3072)[:1],
+                              *_ffn_args(768, 3072)[1:4], act="tanh"),
+     "unsupported activation"),
+])
+def test_training_kernel_wrappers_refuse_unbuilt_cases(call, match):
+    """Head dims, widths and activations K7, K8 and K9 have no kernel for
+    raise for a tensor that is not on the CPU."""
+    with pytest.raises(ValueError, match=match):
+        call()
