@@ -16,6 +16,13 @@ Phases, each printing as it goes; any failure exits non-zero:
      the least time the card could take (bound_ms); K5 must be bit-exact;
      the differentiable forms of K3 and K9 (bf16 activations, f32 weights)
      must give the gradients of the same functions over the plain versions;
+     then the dropout kernels: K10 dropout_mask bit-exact against the plain
+     generator at the step's mask shapes, K11 dense_dropout_res_ln, K12
+     ffn_dropout_res_ln, K13 ffn_dropout and K8's dropout entries at the
+     step's row counts, K14 / K15 (attention with probability dropout,
+     forward / backward) at its attention shapes, each against its plain
+     version fed the same key's masks, limits times 1/(1-r); and the
+     differentiable dropout forms;
   4. drive the flagship (wav2vec2-base + bart-base, down_scale 2, fused
      extractor, random weights from the seed, bf16 matrices) through
      generate() at B = 16 x 16 s, max_length 64, in three modes: greedy
@@ -26,10 +33,14 @@ Phases, each printing as it goes; any failure exits non-zero:
      must agree with the plain path's within the stated limits;
   5. training: in f32 at full width with 2 + 2 + 2 layers the gradient tree
      through the kernels must agree with the one through their plain
-     versions; then the flagship at full width and depth takes 8 AdamW steps
-     (bf16 compute, f32 parameters, B = 16 x 16 s, 64 label positions) on one
-     batch: the loss must fall and every step must launch K1, K3, K7, K9 and
-     both entries of K8 24 times each, K2 30 times and K6 6 times;
+     versions, without and with dropout (one key, so the same masks); then
+     the flagship at full width and depth takes 8 AdamW steps (bf16 compute,
+     f32 parameters, B = 16 x 16 s, 64 label positions) on one batch: the
+     loss must fall and every step must launch K1, K3, K7, K9 and both
+     entries of K8 24 times each, K2 30 times and K6 6 times; then 8 more
+     with dropout on at the presets' rates, SpecAugment and LayerDrop: with
+     k speech layers skipped, K14, K15, K12, K13 and K8's dropout entries
+     24 - k times, K11 30 - k, K10 64 - 2k, K6 6, and no deterministic twin;
   6. print the `kernels` JSON line, then the card line, then the result
      line {"ok": true, "device": {...}} last.
 Without CUDA it exits 1 before printing any result.
@@ -129,16 +140,18 @@ def compare(name, out, ref, limit=None, rule=None, allow_count=0):
     return max_err
 
 
-def attention_bf16_limit(q, k, v, mask, heads, scale, causal, ref):
+def attention_bf16_limit(q, k, v, mask, heads, scale, causal, ref,
+                         dmask=None):
     """K1's bf16 limit per output element, from its error model: the kernel
     rounds each probability to bf16 (relative error <= 2^-9) before P . v,
     so before its own rounding it is off by at most 2^-9 * sum_j p_j |v_j|;
     then kernel and plain version each round to bf16 (one ulp apart at most,
     <= 2^-7 |p|).  The limit doubles the first term:
-    2^-8 * (P |v|) + 2^-7 * |p|."""
+    2^-8 * (P |v|) + 2^-7 * |p|.  K14 (dmask): P becomes P * m, whose
+    entries carry the 1/(1-r) scale."""
     from speechmix_tpu_torch.ops.kernels import attention as ka
     pv = ka.attention_fwd_plain(q.float(), k.float(), v.float().abs(), mask,
-                                heads, scale, causal)
+                                heads, scale, causal, dmask=dmask)
     return 2.0 ** -8 * pv + 2.0 ** -7 * ref.float().abs()
 
 
@@ -330,6 +343,7 @@ def check_kernels(gen, dev):
     check_conv(randn, dev, records)
     check_train_kernels(randn, dev, records)
     check_trainable_functions(randn, dev)
+    check_dropout_kernels(randn, dev, records)
 
     for rec in records.values():
         t_flops = rec["flops"] / PEAK_BF16_FLOPS * 1e3
@@ -595,7 +609,7 @@ def check_conv(randn, dev, records):
 
 
 def attention_bwd_bf16_limits(q, k, v, mask, out, g, heads, scale, causal,
-                              refs):
+                              refs, dmask=None):
     """K7's bf16 limits per element of (dq, dk, dv), in the form of K1's.
     Kernel and plain version round p and ds to bf16 from f32 values that
     differ in their last bits, so an element may land one bf16 step apart
@@ -604,7 +618,10 @@ def attention_bwd_bf16_limits(q, k, v, mask, out, g, heads, scale, causal,
     where the plain version sums p * dp in f32.  With
       ds_err = 2^-7 |ds| + p * 2^-8 (|g| . |out|):
       dq: scale * (ds_err |k|),  dk: scale * (ds_err^T |q|),
-      dv: 2^-7 * (p^T |g|),  each + 2^-7 * |ref| for the outputs' rounding."""
+      dv: 2^-7 * (p^T |g|),  each + 2^-7 * |ref| for the outputs' rounding.
+    K15 (dmask, entries 0 or 1/(1-r)): dp and the dv weights carry the mask,
+    dp = (g v^T) m and p^T becomes (p m)^T, so the 1/(1-r) scale enters the
+    limits where it enters the gradients."""
     import torch
     from speechmix_tpu_torch.ops.kernels import attention as ka
     b, tq, hd = q.shape
@@ -613,12 +630,15 @@ def attention_bwd_bf16_limits(q, k, v, mask, out, g, heads, scale, causal,
     split = lambda x, t: x.float().reshape(b, t, heads, d)
     qf, kf, vf, gf = split(q, tq), split(k, tk), split(v, tk), split(g, tq)
     dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
+    pd = p
+    if dmask is not None:
+        dp, pd = dp * dmask, p * dmask
     ds = p * (dp - (dp * p).sum(-1, keepdim=True))
     delta_err = 2.0 ** -8 * (gf.abs() * split(out, tq).abs()).sum(-1)
     ds_err = 2.0 ** -7 * ds.abs() + p * delta_err.permute(0, 2, 1)[..., None]
     bounds = (torch.einsum("bhqk,bkhd->bqhd", ds_err, kf.abs()) * scale,
               torch.einsum("bhqk,bqhd->bkhd", ds_err, qf.abs()) * scale,
-              2.0 ** -7 * torch.einsum("bhqk,bqhd->bkhd", p, gf.abs()))
+              2.0 ** -7 * torch.einsum("bhqk,bqhd->bkhd", pd, gf.abs()))
     return [bound.reshape(ref.shape) + 2.0 ** -7 * ref.float().abs()
             for bound, ref in zip(bounds, refs)]
 
@@ -885,11 +905,18 @@ def check_trainable_functions(randn, dev):
     from speechmix_tpu_torch.ops import kernels
     from speechmix_tpu_torch.ops.kernels import ffn as kf
 
+    from speechmix_tpu_torch.ops.kernels.dropout import DropoutKey
+
     h, f, bf16 = 768, 3072, torch.bfloat16
-    log("ffn_res_ln_trainable and ffn_fused_trainable, bf16 activations, "
-        "f32 weights: kernels vs plain versions")
+    log("ffn_res_ln_trainable, ffn_fused_trainable and their dropout twins "
+        "(and dense_dropout_res_ln_trainable), bf16 activations, f32 "
+        "weights: kernels vs plain versions")
     names = ("x", "w1", "b1", "w2", "b2", "res", "gamma", "beta")
+    dense_names = ("x", "w", "b", "res", "gamma", "beta")
+    key, rate = DropoutKey.from_seed(5), DROP_RATE
     sum_rule = f"atol {K8_DW_BF16_TOL[0]}, rtol {K8_DW_BF16_TOL[1]}"
+    drop_sum_tol = _dropout_tol(K8_DW_BF16_TOL, rate)
+    drop_tol = _dropout_tol(TOL["bfloat16"], rate)
 
     def run(fn, operands, grad):
         leaves = [t.detach().requires_grad_() for t in operands]
@@ -901,37 +928,333 @@ def check_trainable_functions(randn, dev):
         operands = (x, randn(h, f, scale=0.03), randn(f, scale=0.1),
                     randn(f, h, scale=0.03), randn(h, scale=0.1), res,
                     randn(h, scale=0.1) + 1.0, randn(h, scale=0.1))
-        cases = (("ffn_res_ln_trainable", kf.ffn_res_ln_trainable, operands),
+        dense_ops = (x, randn(h, h, scale=0.03), randn(h, scale=0.1), res,
+                     operands[6], operands[7])
+        cases = (("ffn_res_ln_trainable", kf.ffn_res_ln_trainable, operands,
+                  names, False),
                  ("ffn_fused_trainable", kf.ffn_fused_trainable,
-                  operands[:5]))
+                  operands[:5], names, False),
+                 ("ffn_dropout_res_ln_trainable",
+                  lambda *a: kf.ffn_dropout_res_ln_trainable(
+                      *a, key, rate, rate), operands, names, True),
+                 ("ffn_dropout_trainable",
+                  lambda *a: kf.ffn_dropout_trainable(*a, key, rate),
+                  operands[:5], names, True),
+                 ("dense_dropout_res_ln_trainable",
+                  lambda *a: kf.dense_dropout_res_ln_trainable(*a, key, rate),
+                  dense_ops, dense_names, True))
         kernels.reset_launch_counts()
-        got = [run(fn, ops, grad) for _, fn, ops in cases]
+        got = [run(fn, ops, grad) for _, fn, ops, _, _ in cases]
         counts = {k.symbol: k.launches for k in kernels.kernels()
                   if k.launches}
+        # K12's backward: K13, K10 (output mask), K8's dropout entries;
+        # K11's: K10
         want = {"smx_ffn_res_ln": 1, "smx_ffn_fused": 2,
-                "smx_ffn_bwd_dx": 2, "smx_ffn_bwd_dw": 2}
+                "smx_ffn_bwd_dx": 2, "smx_ffn_bwd_dw": 2,
+                "smx_ffn_dropout_res_ln": 1, "smx_ffn_dropout": 2,
+                "smx_ffn_dropout_bwd_dx": 2, "smx_ffn_dropout_bwd_dw": 2,
+                "smx_dense_dropout_res_ln": 1, "smx_dropout_mask": 2}
         if counts != want:
             raise AssertionError(f"trainable functions, N={n}: launches "
                                  f"{counts}, expected {want}")
         with plain_kernels():
-            ref = [run(fn, ops, grad) for _, fn, ops in cases]
-        for (what, _, ops), outs, refs in zip(cases, got, ref):
-            compare(f"{what} N={n} out", outs[0], refs[0])
-            for name, t, o, r in zip(names, ops, outs[1:], refs[1:]):
+            ref = [run(fn, ops, grad) for _, fn, ops, _, _ in cases]
+        for (what, _, ops, op_names, dropped), outs, refs in zip(cases, got,
+                                                                 ref):
+            tol = drop_tol if dropped else TOL["bfloat16"]
+            rule = f"atol {tol[0]:.4g}, rtol {tol[1]:.4g}" + (
+                " (TOL / (1-r))" if dropped else "")
+            stol = drop_sum_tol if dropped else K8_DW_BF16_TOL
+            srule = f"atol {stol[0]:.4g}, rtol {stol[1]:.4g}" + (
+                " (K8's / (1-r))" if dropped else "")
+            compare(f"{what} N={n} out", outs[0], refs[0],
+                    tol[0] + tol[1] * refs[0].float().abs(), rule)
+            for name, t, o, r in zip(op_names, ops, outs[1:], refs[1:]):
                 if o.dtype != t.dtype:
                     raise AssertionError(f"{what}: d {name} is {o.dtype}")
                 if t.dtype == bf16:
-                    compare(f"{what} N={n} d {name}", o, r)
+                    compare(f"{what} N={n} d {name}", o, r,
+                            tol[0] + tol[1] * r.float().abs(), rule)
                 else:  # float32 sums over the rows, as K8's dw
                     compare(f"{what} N={n} d {name}", o, r,
-                            K8_DW_BF16_TOL[0] + K8_DW_BF16_TOL[1] * r.abs(),
-                            sum_rule)
+                            stol[0] + stol[1] * r.abs(), srule)
+            if op_names is dense_names:
+                continue
             for name, o in zip(names[1:5:2], outs[2:6:2]):
                 # a weight gradient rounded to bf16 on its way would have no
                 # bits below bf16's
                 if torch.equal(o, o.bfloat16().float()):
                     raise AssertionError(f"{what}: d {name} was rounded to "
                                          "bfloat16")
+
+
+DROP_RATE = 0.1   # the flagship's rate at every dropout site
+K14_BF16_RULE = "2^-8 * ((P m)|v|) + 2^-7 * |p|, m in {0, 1/(1-r)}"
+
+
+def _dropout_tol(tol, rate):
+    """A kernel's (atol, rtol) with both terms times 1/(1-r): the dropout
+    scale multiplies the kept values, and with them their rounding errors,
+    before the residual, the LayerNorm or the next product."""
+    return tol[0] / (1.0 - rate), tol[1] / (1.0 - rate)
+
+
+def check_dropout_kernels(randn, dev, records):
+    """K10 bit-exact against the plain generator at the step's mask shapes;
+    K11, K12, K13 and K8's dropout entries at the step's row counts and K14,
+    K15 at its attention shapes, in bf16 and f32, against their plain
+    versions fed the plain generator's masks of the same key."""
+    import torch
+    import torch.nn.functional as F
+    from speechmix_tpu_torch.ops.kernels import attention as ka
+    from speechmix_tpu_torch.ops.kernels import dropout as kd
+    from speechmix_tpu_torch.ops.kernels import ffn as kf
+
+    rate, bf16, f32 = DROP_RATE, torch.bfloat16, torch.float32
+    key = kd.DropoutKey.from_seed(20261016)
+    log(f"K10 dropout_mask, rate {rate}")
+    for what, stream, n, cols in (
+            ("FFN activation mask", kd.STREAM_ACT, 12800, 3072),
+            ("output mask", kd.STREAM_OUT, 12800, 768),
+            ("attention mask (16, 12, 800, 800)", kd.STREAM_ACT,
+             16 * 12 * 800, 800),
+            ("ragged columns", kd.STREAM_OUT, 1000, 799)):
+        out = kd.dropout_mask(key, stream, n, cols, rate, dev)
+        ref = kd.dropout_mask_plain(key, stream, n, cols, rate, dev)
+        torch.cuda.synchronize()
+        exact = torch.equal(out, ref)
+        log(f"  {what} ({n}, {cols}): {'bit-exact' if exact else 'DIFFERS'}"
+            f", keep rate {(out > 0).float().mean().item():.6f} (1 - r = "
+            f"{1 - rate})")
+        if not exact:
+            raise AssertionError(f"dropout_mask differs from the plain "
+                                 f"generator: {what}")
+        del out, ref
+    n, cols = 12800, 3072
+    buf = torch.empty(n, cols, device=dev)
+    records["dropout_mask"] = dict(
+        shape=f"({n}, {cols}) float32, rate {rate}", max_abs_err=0.0,
+        ms=cuda_ms(lambda: kd.dropout_mask(key, 0, n, cols, rate, dev)),
+        plain_ms=cuda_ms(lambda: kd.dropout_mask_plain(key, 0, n, cols, rate,
+                                                       dev), iters=5),
+        library_ms=cuda_ms(lambda: buf.bernoulli_(1.0 - rate).mul_(
+            1.0 / (1.0 - rate))),
+        flops=0.0, bytes=4.0 * n * cols)
+    del buf
+
+    log("K11 dense_dropout_res_ln, K12 ffn_dropout_res_ln, K13 ffn_dropout, "
+        "K8 dropout entries")
+    h, f = 768, 3072
+    timed = None
+    for dtype in (bf16, f32):
+        name = str(dtype).replace("torch.", "")
+        atol, rtol = _dropout_tol(TOL[name], rate)
+        dw_tol = _dropout_tol(K8_DW_BF16_TOL if dtype == bf16
+                              else K8_DW_F32_TOL, rate)
+        rule = (f"atol {TOL[name][0]} / (1-r), rtol {TOL[name][1]} / (1-r), "
+                f"r = {rate}")
+        dw_rule = (f"atol {dw_tol[0]:.4g}, rtol {dw_tol[1]:.4g} (K8's / "
+                   f"(1-r))")
+        lim = lambda r: atol + rtol * r.float().abs()
+        for n in (12800, 6400, 1024):
+            x, g, res = (randn(n, h, dtype=dtype) for _ in range(3))
+            w = randn(h, h, scale=0.03, dtype=dtype)
+            w1 = randn(h, f, scale=0.03, dtype=dtype)
+            w2 = randn(f, h, scale=0.03, dtype=dtype)
+            b1, b2, beta = randn(f, scale=0.1), randn(h, scale=0.1), \
+                randn(h, scale=0.1)
+            gamma = randn(h, scale=0.1) + 1.0
+            amask = kd.dropout_mask_plain(key, kd.STREAM_ACT, n, f, rate, dev)
+            omask = kd.dropout_mask_plain(key, kd.STREAM_OUT, n, h, rate, dev)
+            what = f"N={n} H={h} F={f} {name}"
+            ref = kf.dense_dropout_res_ln_plain(x, w, b2, res, gamma, beta,
+                                                omask)
+            e11 = compare(f"K11 {what}", kf.dense_dropout_res_ln(
+                x, w, b2, res, gamma, beta, key, rate), ref, lim(ref), rule)
+            ref = kf.ffn_dropout_res_ln_plain(x, w1, b1, w2, b2, res, gamma,
+                                              beta, amask, omask)
+            e12 = compare(f"K12 {what}", kf.ffn_dropout_res_ln(
+                x, w1, b1, w2, b2, res, gamma, beta, key, rate, rate), ref,
+                lim(ref), rule)
+            ref = kf.ffn_dropout_plain(x, w1, b1, w2, b2, amask)
+            e13 = compare(f"K13 {what}", kf.ffn_dropout(
+                x, w1, b1, w2, b2, key, rate), ref, lim(ref), rule)
+            got = kf.ffn_dropout_bwd(x, g, w1, b1, w2, key, rate)
+            refs = kf.ffn_bwd_plain(x, g, w1, b1, w2, "gelu", amask)
+            torch.cuda.synchronize()
+            edx = compare(f"K8 dropout dx {what}", got[0], refs[0],
+                          lim(refs[0]), rule)
+            edw = max(compare(f"K8 dropout {p_} {what}", o, r,
+                              dw_tol[0] + dw_tol[1] * r.abs(), dw_rule)
+                      for p_, o, r in zip(("dw1", "db1", "dw2"), got[1:4],
+                                          refs[1:4]))
+            if n == 1024:   # one mask of K12 at rate 0: no bits drawn
+                for ar, orate in ((rate, 0.0), (0.0, rate)):
+                    ref = kf.ffn_dropout_res_ln_plain(
+                        x, w1, b1, w2, b2, res, gamma, beta,
+                        amask if ar else None, omask if orate else None)
+                    compare(f"K12 rates ({ar}, {orate}) {what}",
+                            kf.ffn_dropout_res_ln(x, w1, b1, w2, b2, res,
+                                                  gamma, beta, key, ar,
+                                                  orate), ref, lim(ref), rule)
+            if dtype == bf16 and n == 12800:
+                timed = (x, g, res, w, w1, b1, w2, b2, gamma, beta,
+                         (e11, e12, e13, edx, edw))
+            del amask, omask, got, refs
+    x, g, res, w, w1, b1, w2, b2, gamma, beta, errs = timed
+    n = x.shape[0]
+    wt, w1t, w2t = w.t(), w1.t(), w2.t()
+    b1c, b2c, gc, betac = (t_.to(x.dtype) for t_ in (b1, b2, gamma, beta))
+    drop = lambda t_: F.dropout(t_, rate)
+    lib_ffn = lambda: F.linear(drop(F.gelu(F.linear(x, w1t, b1c))), w2t, b2c)
+    lx = x.detach().requires_grad_()
+    lw1, lw2 = (w_.t().contiguous().requires_grad_() for w_ in (w1, w2))
+    lb1, lb2 = (b.to(x.dtype).requires_grad_() for b in (b1, b2))
+    lib_y = F.linear(drop(F.gelu(F.linear(lx, lw1, lb1))), lw2, lb2)
+    shape = f"N={n} H={h} F={f} gelu bf16, rate {rate}"
+    ffn_flops = 4.0 * n * h * f
+    records["dense_dropout_res_ln"] = dict(
+        shape=f"N={n} Din=H={h} bf16, rate {rate}", max_abs_err=errs[0],
+        ms=cuda_ms(lambda: kf.dense_dropout_res_ln(x, w, b2, res, gamma, beta,
+                                                   key, rate)),
+        plain_ms=cuda_ms(lambda: kf.dense_dropout_res_ln_plain(
+            x, w, b2, res, gamma, beta, kd.dropout_mask_plain(
+                key, kd.STREAM_OUT, n, h, rate, dev))),
+        library_ms=cuda_ms(lambda: F.layer_norm(
+            res + drop(F.linear(x, wt, b2c)), (h,), gc, betac, 1e-5)),
+        flops=2.0 * n * h * h,
+        bytes=(2 * n * h + h * h + n * h) * 2 + 3 * h * 4)
+    records["ffn_dropout_res_ln"] = dict(
+        shape=shape, max_abs_err=errs[1],
+        ms=cuda_ms(lambda: kf.ffn_dropout_res_ln(
+            x, w1, b1, w2, b2, res, gamma, beta, key, rate, rate)),
+        plain_ms=cuda_ms(lambda: kf.ffn_dropout_res_ln_plain(
+            x, w1, b1, w2, b2, res, gamma, beta,
+            kd.dropout_mask_plain(key, kd.STREAM_ACT, n, f, rate, dev),
+            kd.dropout_mask_plain(key, kd.STREAM_OUT, n, h, rate, dev)),
+            iters=5),
+        library_ms=cuda_ms(lambda: F.layer_norm(
+            res + drop(lib_ffn()), (h,), gc, betac, 1e-5)),
+        flops=ffn_flops,
+        bytes=(3 * n * h + 2 * h * f) * 2 + (f + 3 * h) * 4)
+    records["ffn_dropout"] = dict(
+        shape=shape, max_abs_err=errs[2],
+        ms=cuda_ms(lambda: kf.ffn_dropout(x, w1, b1, w2, b2, key, rate)),
+        plain_ms=cuda_ms(lambda: kf.ffn_dropout_plain(
+            x, w1, b1, w2, b2, kd.dropout_mask_plain(
+                key, kd.STREAM_ACT, n, f, rate, dev)), iters=5),
+        library_ms=cuda_ms(lib_ffn), flops=ffn_flops,
+        bytes=(2 * n * h + 2 * h * f) * 2 + (f + h) * 4)
+    records["ffn_dropout_bwd_dx"] = dict(
+        shape=shape, max_abs_err=errs[3],
+        ms=cuda_ms(lambda: kf.ffn_dropout_bwd_dx(x, g, w1, b1, w2, key,
+                                                 rate)),
+        plain_ms=cuda_ms(lambda: kf.ffn_bwd_dx_plain(
+            x, g, w1, b1, w2, "gelu", kd.dropout_mask_plain(
+                key, kd.STREAM_ACT, n, f, rate, dev)), iters=5),
+        library_ms=cuda_ms(lambda: torch.autograd.grad(
+            lib_y, (lx,), g, retain_graph=True)),
+        flops=6.0 * n * h * f, bytes=(3 * n * h + 2 * h * f) * 2 + f * 4)
+    records["ffn_dropout_bwd_dw"] = dict(
+        shape=shape, max_abs_err=errs[4],
+        ms=cuda_ms(lambda: kf.ffn_dropout_bwd_dw(x, g, w1, b1, w2, key,
+                                                 rate)),
+        plain_ms=cuda_ms(lambda: kf.ffn_bwd_dw_plain(
+            x, g, w1, b1, w2, "gelu", kd.dropout_mask_plain(
+                key, kd.STREAM_ACT, n, f, rate, dev)), iters=5),
+        library_ms=cuda_ms(lambda: torch.autograd.grad(
+            lib_y, (lw1, lb1, lw2), g, retain_graph=True)),
+        flops=8.0 * n * h * f,
+        bytes=(2 * n * h + 2 * h * f) * 2 + f * 4 + (2 * h * f + f) * 4)
+    del timed, lib_y
+
+    log("K14 attention_dropout_fwd and K15 attention_dropout_bwd")
+    heads, d, scale = 12, 64, 0.125
+
+    def attention_case(b, t, causal, dtype, lens=None, name=""):
+        if lens is None:
+            lens = [t, t - 37, t // 2 + 3, t - min(200, t // 3)][:b]
+        lens = torch.tensor(lens, device=dev)
+        mask = torch.arange(t, device=dev)[None, :] < lens[:, None]
+        q, k, v, g = (randn(b, t, heads * d, dtype=dtype) for _ in range(4))
+        dmask = kd.attention_mask_plain(key, b, heads, t, t, rate, dev)
+        out, lse = ka.attention_dropout_fwd(q, k, v, mask, heads, scale,
+                                            causal, key, rate,
+                                            return_lse=True)
+        ref_out, ref_lse = ka.attention_fwd_plain(
+            q, k, v, mask, heads, scale, causal, return_lse=True, dmask=dmask)
+        got = ka.attention_dropout_bwd(q, k, v, mask, out, lse, g, heads,
+                                       scale, causal, key, rate)
+        refs = ka.attention_bwd_plain(q, k, v, mask, g, heads, scale, causal,
+                                      dmask=dmask)
+        torch.cuda.synchronize()
+        what = f"{name}B={b} T={t} {dtype} causal={causal}"
+        compare(f"K14 lse {what}", lse, ref_lse,
+                1e-4 + 1e-4 * ref_lse.abs(), "atol 1e-4, rtol 1e-4")
+        if dtype == bf16:
+            limit = attention_bf16_limit(q, k, v, mask, heads, scale, causal,
+                                         ref_out, dmask)
+            limits = attention_bwd_bf16_limits(q, k, v, mask, ref_out, g,
+                                               heads, scale, causal, refs,
+                                               dmask)
+            rule, rule15 = K14_BF16_RULE, K7_BF16_RULE + ", p^T as (p m)^T"
+        else:   # f32: the order of summation, of values scaled by 1/(1-r)
+            atol, rtol = _dropout_tol(TOL["float32"], rate)
+            limit = atol + rtol * ref_out.abs()
+            limits = [atol + rtol * r.abs() for r in refs]
+            rule = rule15 = f"atol {atol:.4g}, rtol {rtol:.4g} (TOL / (1-r))"
+        e14 = compare(f"K14 out {what}", out, ref_out, limit, rule)
+        e15 = max(compare(f"K15 {n_} {what}", o, r, lim, rule15)
+                  for n_, o, r, lim in zip(("dq", "dk", "dv"), got, refs,
+                                           limits))
+        return e14, e15, (q, k, v, mask, out, lse, g, causal, lens)
+
+    for dtype in (bf16, f32):
+        for b, t, causal in ((4, 800, False), (4, 400, False), (4, 64, True)):
+            attention_case(b, t, causal, dtype)
+        attention_case(3, 100, True, dtype, [0, 100, 41], "masked row ")
+    for name, b, t, causal in (("speech encoder", 16, 800, False),
+                               ("text encoder", 16, 400, False),
+                               ("decoder, causal", 16, 64, True)):
+        e14, e15, (q, k, v, mask, out, lse, g, causal, lens) = \
+            attention_case(b, t, causal, bf16, [t] * b, "timed ")
+        qh, kh, vh = (x_.view(b, t, heads, d).transpose(1, 2).detach()
+                      .requires_grad_() for x_ in (q, k, v))
+        allowed = mask[:, None, :].expand(b, t, t)
+        if causal:
+            allowed = allowed & torch.ones(t, t, dtype=torch.bool,
+                                           device=dev).tril()
+        sdpa = lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=allowed[:, None], dropout_p=rate,
+            scale=scale)
+        lib_out = sdpa()
+        gh = g.view(b, t, heads, d).transpose(1, 2)
+        suffix = "" if name == "speech encoder" else f" ({name})"
+        shape = f"B={b} T={t} H={heads} D={d} bf16 causal={causal}, rate {rate}"
+        records["attention_dropout_fwd" + suffix] = dict(
+            shape=shape, max_abs_err=e14,
+            ms=cuda_ms(lambda: ka.attention_dropout_fwd(
+                q, k, v, mask, heads, scale, causal, key, rate)),
+            plain_ms=cuda_ms(lambda: ka.attention_fwd_plain(
+                q, k, v, mask, heads, scale, causal,
+                dmask=kd.attention_mask_plain(key, b, heads, t, t, rate,
+                                              dev)), iters=5),
+            library_ms=cuda_ms(lambda: sdpa().detach()),
+            flops=4.0 * heads * d * int(allowed.sum()),
+            bytes=4 * b * t * heads * d * 2 + b * t)
+        records["attention_dropout_bwd" + suffix] = dict(
+            shape=shape, max_abs_err=e15,
+            ms=cuda_ms(lambda: ka.attention_dropout_bwd(
+                q, k, v, mask, out, lse, g, heads, scale, causal, key, rate)),
+            plain_ms=cuda_ms(lambda: ka.attention_bwd_plain(
+                q, k, v, mask, g, heads, scale, causal,
+                dmask=kd.attention_mask_plain(key, b, heads, t, t, rate,
+                                              dev)), iters=5),
+            library_ms=cuda_ms(lambda: torch.autograd.grad(
+                lib_out, (qh, kh, vh), gh, retain_graph=True)),
+            flops=10.0 * heads * d * int(allowed.sum()),
+            bytes=8 * b * t * heads * d * 2 + b * heads * t * 4 + b * t)
+        del lib_out
 
 
 def expect_refusal(name, call):
@@ -960,7 +1283,18 @@ class plain_kernels:
         from speechmix_tpu_torch.ops.kernels import beam_gather as kg
         from speechmix_tpu_torch.ops.kernels import conv_extractor as kc
         from speechmix_tpu_torch.ops.kernels import decode_attention as kd
+        from speechmix_tpu_torch.ops.kernels import dropout as kdrop
         from speechmix_tpu_torch.ops.kernels import ffn as kf
+
+        def mask(key, stream, n, cols, rate, device):
+            return (kdrop.dropout_mask_plain(key, stream, n, cols, rate,
+                                             device) if rate > 0 else None)
+
+        def attn_mask(q, k, heads, key, rate):
+            return kdrop.attention_mask_plain(key, q.shape[0], heads,
+                                              q.shape[1], k.shape[1], rate,
+                                              q.device)
+        act, out = kdrop.STREAM_ACT, kdrop.STREAM_OUT
         swaps = [(ka, "attention_fwd", ka.attention_fwd_plain),
                  (ka, "attention_bwd",
                   lambda q, k, v, mask, out, lse, g, heads, scale, causal:
@@ -973,7 +1307,46 @@ class plain_kernels:
                  (attn_mod, "decode_attention", kd.decode_attention_plain),
                  (seq2seq, "decode_attention", kd.decode_attention_plain),
                  (generation, "beam_gather", kg.beam_gather_plain),
-                 (kc, "fused_conv_layer", kc.fused_conv_layer_plain)]
+                 (kc, "fused_conv_layer", kc.fused_conv_layer_plain),
+                 # the dropout kernels: plain versions fed the plain
+                 # generator's masks of the same key
+                 (kdrop, "dropout_mask", kdrop.dropout_mask_plain),
+                 (kf, "dropout_mask", kdrop.dropout_mask_plain),
+                 (ka, "attention_dropout_fwd",
+                  lambda q, k, v, m, heads, scale, causal, key, rate,
+                  return_lse=False: ka.attention_fwd_plain(
+                      q, k, v, m, heads, scale, causal, return_lse,
+                      attn_mask(q, k, heads, key, rate))),
+                 (ka, "attention_dropout_bwd",
+                  lambda q, k, v, m, o, lse, g, heads, scale, causal, key,
+                  rate: ka.attention_bwd_plain(
+                      q, k, v, m, g, heads, scale, causal,
+                      attn_mask(q, k, heads, key, rate))),
+                 (kf, "dense_dropout_res_ln",
+                  lambda x, w, b, res, g, beta, key, rate, eps=1e-5:
+                  kf.dense_dropout_res_ln_plain(
+                      x, w, b, res, g, beta,
+                      mask(key, out, x.shape[0], w.shape[1], rate, x.device),
+                      eps)),
+                 (kf, "ffn_dropout_res_ln",
+                  lambda x, w1, b1, w2, b2, res, g, beta, key, ar, orate,
+                  act_="gelu", eps=1e-5: kf.ffn_dropout_res_ln_plain(
+                      x, w1, b1, w2, b2, res, g, beta,
+                      mask(key, act, x.shape[0], w1.shape[1], ar, x.device),
+                      mask(key, out, x.shape[0], w2.shape[1], orate,
+                           x.device), act_, eps)),
+                 (kf, "ffn_dropout",
+                  lambda x, w1, b1, w2, b2, key, rate, act_="gelu":
+                  kf.ffn_dropout_plain(
+                      x, w1, b1, w2, b2,
+                      mask(key, act, x.shape[0], w1.shape[1], rate,
+                           x.device), act_)),
+                 (kf, "ffn_dropout_bwd",
+                  lambda x, g, w1, b1, w2, key, rate, act_="gelu":
+                  kf.ffn_bwd_plain(
+                      x, g, w1, b1, w2, act_,
+                      mask(key, act, x.shape[0], w1.shape[1], rate,
+                           x.device)))]
         self.saved = [(mod, name, getattr(mod, name))
                       for mod, name, _ in swaps]
         for mod, name, fn in swaps:
@@ -986,6 +1359,11 @@ class plain_kernels:
 
 
 BATCH, SECONDS, MAX_LEN, BEAMS = 16, 16.0, 64, 4
+# the kernels of the dropout-on train step, never launched elsewhere
+DROPOUT_KERNELS = ("smx_dropout_mask", "smx_dense_dropout_res_ln",
+                   "smx_ffn_dropout_res_ln", "smx_ffn_dropout",
+                   "smx_attention_dropout_fwd", "smx_attention_dropout_bwd",
+                   "smx_ffn_dropout_bwd_dx", "smx_ffn_dropout_bwd_dw")
 # f32 kernel path against f32 plain path on the flagship: share of equal
 # tokens, and largest difference of the beams' length-normalised scores
 TOKEN_AGREEMENT_F32, BEAM_SCORE_TOL_F32 = 0.99, 1e-4
@@ -1002,7 +1380,7 @@ def expected_launches(mode, steps):
             "smx_decode_attention_q8": 0, "smx_beam_gather": 0,
             # the training kernels: never under generate()
             "smx_attention_bwd": 0, "smx_ffn_fused": 0, "smx_ffn_bwd_dx": 0,
-            "smx_ffn_bwd_dw": 0}
+            "smx_ffn_bwd_dw": 0, **dict.fromkeys(DROPOUT_KERNELS, 0)}
     if mode == "greedy-int8":
         want["smx_decode_attention"] = DECODER_LAYERS * steps
         want["smx_decode_attention_q8"] = DECODER_LAYERS * steps
@@ -1244,8 +1622,30 @@ def expected_train_launches(speech_layers, enc_layers, dec_layers, accum=1):
             "smx_ffn_bwd_dx": layers, "smx_ffn_bwd_dw": layers,
             "smx_conv_ln_gelu": FUSED_CONV_LAYERS,
             "smx_decode_attention": 0, "smx_decode_attention_q8": 0,
-            "smx_beam_gather": 0}
+            "smx_beam_gather": 0, **dict.fromkeys(DROPOUT_KERNELS, 0)}
     return {k: v * accum for k, v in want.items()}
+
+
+def expected_dropout_train_launches(speech_layers, enc_layers, dec_layers):
+    """Launches of every kernel in one micro-batch of a train step with
+    dropout on (every rate above 0): a post-LN layer runs K14, K11 and K12
+    forward, K15, K13 (the recompute in K12's backward) and both dropout
+    entries of K8 backward; a decoder layer has a second K11 and a plain
+    cross-attention whose probability mask K10 draws.  K10 also draws the
+    masks of the four plain sites (the feature projection, the positional
+    embedding, the two embeddings) and regenerates the output mask in the
+    backward of every K11 and K12.  `speech_layers` counts the layers
+    LayerDrop kept."""
+    layers = speech_layers + enc_layers + dec_layers
+    want = expected_train_launches(0, 0, 0)
+    want.update({
+        "smx_attention_dropout_fwd": layers,
+        "smx_attention_dropout_bwd": layers,
+        "smx_dense_dropout_res_ln": layers + dec_layers,
+        "smx_ffn_dropout_res_ln": layers, "smx_ffn_dropout": layers,
+        "smx_ffn_dropout_bwd_dx": layers, "smx_ffn_dropout_bwd_dw": layers,
+        "smx_dropout_mask": 4 + dec_layers + (layers + dec_layers) + layers})
+    return want
 
 
 def _train_batch(cfg, gen, dev, batch, seconds, labels_len):
@@ -1263,20 +1663,24 @@ def _train_batch(cfg, gen, dev, batch, seconds, labels_len):
             "labels": labels}
 
 
-def check_gradient_tree(seed):
+def check_gradient_tree(seed, dropout=False):
     """On the card, f32, full width, 2 + 2 + 2 layers: d loss / d params
-    through the kernels against the same through their plain versions."""
+    through the kernels against the same through their plain versions.  With
+    dropout, one key drives both runs, so both draw the same masks (the
+    presets' rates and SpecAugment; LayerDrop off, to keep the layer
+    count)."""
     import dataclasses
     import torch
     from speechmix_tpu_torch import config
     from speechmix_tpu_torch.models import speechmix
     from speechmix_tpu_torch.ops import kernels
+    from speechmix_tpu_torch.ops.kernels.dropout import DropoutKey
     from speechmix_tpu_torch.training.freezing import tree_map, tree_paths
 
     cfg = config.SpeechMixConfig(
         encoder=dataclasses.replace(
             config.SPEECH_ENCODER_PRESETS["wav2vec2-base"],
-            extractor_impl="fused", num_layers=2),
+            extractor_impl="fused", num_layers=2, layerdrop=0.0),
         decoder=dataclasses.replace(config.SEQ2SEQ_PRESETS["bart-base"],
                                     encoder_layers=2, decoder_layers=2),
         down_scale=2)
@@ -1284,23 +1688,28 @@ def check_gradient_tree(seed):
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = speechmix.init_speechmix(cfg, gen, dev, torch.float32)
     batch = _train_batch(cfg, gen, dev, 8, 8.0, 128)
-    log("gradient tree, f32, full width, 2 + 2 + 2 layers, B=8 x 8 s, 128 "
-        "label positions: kernels vs plain versions")
+    key = DropoutKey.from_seed(seed).fold_in(1) if dropout else None
+    log(f"gradient tree, f32, full width, 2 + 2 + 2 layers, B=8 x 8 s, 128 "
+        f"label positions, dropout {'on' if dropout else 'off'}: kernels vs "
+        "plain versions")
 
     def grads():
         leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
         out = speechmix.speechmix_forward(
             leaves, cfg, batch["input_values"], batch["lengths"],
-            labels=batch["labels"], dtype=torch.float32)
+            labels=batch["labels"], dtype=torch.float32, dropout_rng=key)
         flat = tree_paths(leaves)
-        got = torch.autograd.grad(out["loss"], [leaf for _, leaf in flat])
+        # masked_spec_embed has no gradient without SpecAugment
+        got = torch.autograd.grad(out["loss"], [leaf for _, leaf in flat],
+                                  allow_unused=True)
         return out["loss"].item(), {path: g for (path, _), g in
-                                    zip(flat, got)}
+                                    zip(flat, got) if g is not None}
 
     kernels.reset_launch_counts()
     loss_k, grads_k = grads()
     counts = {k.symbol: k.launches for k in kernels.kernels()}
-    want = expected_train_launches(2, 2, 2)
+    want = (expected_dropout_train_launches(2, 2, 2) if dropout
+            else expected_train_launches(2, 2, 2))
     if counts != want:
         raise AssertionError(f"gradient tree: launches {counts}, expected "
                              f"{want}")
@@ -1309,6 +1718,9 @@ def check_gradient_tree(seed):
         loss_p, grads_p = grads()
         if any(k.launches for k in kernels.kernels()):
             raise AssertionError("the plain reference launched a kernel")
+    if grads_k.keys() != grads_p.keys():
+        raise AssertionError("gradient tree: kernels and plain versions "
+                             "differ in the leaves that have a gradient")
     top = max(g.abs().max().item() for g in grads_p.values())
     worst, worst_path = 0.0, None
     for path, ref in grads_p.items():
@@ -1328,13 +1740,27 @@ def check_gradient_tree(seed):
                              "disagree")
 
 
-def run_training(seed, card):
+def layerdrop_replay(trainer, speech_encoder, tc, cfg, step):
+    """The speech-encoder layers LayerDrop skips at `step`, drawn again from
+    the key chain (the step key's speech split, the speech encoder's layer
+    split, its LayerDrop split)."""
+    key = trainer.dropout_keys(tc, step)[0]
+    k_drop = key.split(2)[0].split(4)[2].split(2)[1]
+    skips = speech_encoder.layerdrop_skips(
+        k_drop, cfg.num_speech_encoder_layers, cfg.encoder.layerdrop)
+    return [i for i, skip in enumerate(skips) if skip]
+
+
+def run_training(seed, card, dropout=False):
     """The training phase: TRAIN_STEPS AdamW steps of the flagship at full
-    width and depth on one batch.  Returns the launch counts of one step."""
+    width and depth on one batch, deterministic or with dropout at the
+    presets' rates, SpecAugment and LayerDrop.  Returns the launch counts of
+    the last step."""
     import dataclasses
     import torch
     from torch.profiler import ProfilerActivity, profile
     from speechmix_tpu_torch import config
+    from speechmix_tpu_torch.models import speech_encoder
     from speechmix_tpu_torch.ops import kernels
     from speechmix_tpu_torch.training import trainer
 
@@ -1344,24 +1770,40 @@ def run_training(seed, card):
             extractor_impl="fused"),
         decoder=config.SEQ2SEQ_PRESETS["bart-base"], down_scale=2)
     tc = trainer.TrainConfig(learning_rate=TRAIN_LR, warmup_steps=1,
-                             grad_accum=1, bf16=True, dropout=False,
-                             optimizer="adamw")
+                             grad_accum=1, bf16=True, dropout=dropout,
+                             optimizer="adamw", seed=seed)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     state = trainer.create_train_state(gen, cfg, tc)
     batch = _train_batch(cfg, gen, dev, BATCH, SECONDS, TRAIN_LABELS)
     step_fn = trainer.make_train_step(cfg, tc, state.params)
     n_params = sum(p.numel() for _, p in trainer.tree_paths(state.params))
+    what = "train step" if not dropout else "dropout train step"
+    enc, dec = cfg.encoder, cfg.decoder
+    recipe = ("dropout off" if not dropout else
+              f"dropout on: speech hidden {enc.dropout}, attention "
+              f"{enc.attention_dropout}, activation {enc.activation_dropout}"
+              f", feature projection {enc.feat_proj_dropout}, SpecAugment "
+              f"{enc.apply_spec_augment} (time p {enc.mask_time_prob}, "
+              f"length {enc.mask_time_length}), LayerDrop {enc.layerdrop}; "
+              f"text hidden {dec.dropout}, attention {dec.attention_dropout}, "
+              f"activation {dec.activation_dropout}")
     log(f"training: flagship, {n_params / 1e6:.1f} M float32 parameters, "
         f"bf16 compute, AdamW lr {TRAIN_LR}, warmup 1, B={BATCH} x {SECONDS} "
         f"s, {TRAIN_LABELS} label positions, {TRAIN_STEPS} steps on one "
-        "batch")
-    want = expected_train_launches(cfg.num_speech_encoder_layers,
-                                   cfg.decoder.encoder_layers,
-                                   cfg.decoder.decoder_layers)
+        f"batch, {recipe}")
     torch.cuda.reset_peak_memory_stats()
     losses, times = [], []
     for i in range(TRAIN_STEPS):
+        skipped = []
+        want = expected_train_launches(cfg.num_speech_encoder_layers,
+                                       dec.encoder_layers, dec.decoder_layers)
+        if dropout:
+            skipped = layerdrop_replay(trainer, speech_encoder, tc, cfg,
+                                       state.step)
+            want = expected_dropout_train_launches(
+                cfg.num_speech_encoder_layers - len(skipped),
+                dec.encoder_layers, dec.decoder_layers)
         kernels.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1371,23 +1813,28 @@ def run_training(seed, card):
         counts = {k.symbol: k.launches for k in kernels.kernels()}
         loss, norm = metrics["loss"].item(), metrics["grad_norm"].item()
         log(f"  step {i + 1}: loss {loss:.4f}, grad_norm {norm:.4f}, "
-            f"{dt * 1e3:.1f} ms")
+            f"{dt * 1e3:.1f} ms" + (f", LayerDrop skipped layers {skipped}"
+                                    if dropout else ""))
+        if metrics["layers_skipped"] != [skipped]:
+            raise AssertionError(f"{what} {i + 1}: LayerDrop skipped "
+                                 f"{metrics['layers_skipped']}, the key "
+                                 f"chain gives {skipped}")
         if counts != want:
-            raise AssertionError(f"train step {i + 1}: launches {counts}, "
+            raise AssertionError(f"{what} {i + 1}: launches {counts}, "
                                  f"expected {want}")
         if not (loss == loss and abs(loss) != float("inf")
                 and norm == norm and abs(norm) != float("inf")):
-            raise AssertionError(f"train step {i + 1}: loss {loss}, "
+            raise AssertionError(f"{what} {i + 1}: loss {loss}, "
                                  f"grad_norm {norm}")
         losses.append(loss)
         if i >= 2:
             times.append(dt)
     log(f"  launches per step: {counts}")
     if not losses[-1] < losses[1]:
-        raise AssertionError(f"the loss did not fall: {losses}")
+        raise AssertionError(f"{what}: the loss did not fall: {losses}")
     med = sorted(times)[len(times) // 2]
     peak = torch.cuda.max_memory_allocated()
-    log(f"  train step: {med * 1e3:.1f} ms (median of {len(times)}; all: "
+    log(f"  {what}: {med * 1e3:.1f} ms (median of {len(times)}; all: "
         f"{', '.join(f'{t * 1e3:.1f}' for t in times)}), audio-seconds per "
         f"second trained {BATCH * SECONDS / med:.2f}, peak memory "
         f"{peak / 2 ** 30:.2f} GiB, loss {losses[1]:.4f} -> {losses[-1]:.4f} "
@@ -1400,7 +1847,7 @@ def run_training(seed, card):
         wall_us = (time.perf_counter() - t0) * 1e6
     events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in events)
-    log(f"  profiled train step: wall {wall_us / 1e3:.1f} ms, device busy "
+    log(f"  profiled {what}: wall {wall_us / 1e3:.1f} ms, device busy "
         f"{busy_us / 1e3:.1f} ms ({busy_us / wall_us:.3f} of wall)")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:14]:
         log(f"    {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d}x  "
@@ -1454,7 +1901,9 @@ def main():
     records = check_kernels(gen, torch.device("cuda"))
     counts = run_flagship(args.seed, card)
     check_gradient_tree(args.seed)
+    check_gradient_tree(args.seed, dropout=True)
     counts["train"] = run_training(args.seed, card)
+    counts["train-dropout"] = run_training(args.seed, card, dropout=True)
 
     pallas = "speechmix_tpu/ops/pallas/"
     # name: (source, TPU kernel file:line, mode whose run gives `launches`)
@@ -1474,6 +1923,26 @@ def main():
         "ffn_bwd_dx": ("ffn_bwd.cu", "ffn_kernel.py:631", "train"),
         "ffn_bwd_dw": ("ffn_bwd.cu", "ffn_kernel.py:647", "train"),
         "ffn_fused": ("ffn_res_ln.cu", "ffn_kernel.py:128", "train"),
+        "dropout_mask": ("dropout_mask.cu", "ffn_kernel.py:795",
+                         "train-dropout"),
+        "dense_dropout_res_ln": ("dense_res_ln.cu", "ffn_kernel.py:1097",
+                                 "train-dropout"),
+        "ffn_dropout_res_ln": ("ffn_res_ln.cu", "ffn_kernel.py:1016",
+                               "train-dropout"),
+        "ffn_dropout": ("ffn_res_ln.cu", "ffn_kernel.py:945",
+                        "train-dropout"),
+        "attention_dropout_fwd": ("attention_fwd.cu",
+                                  "flash_attention_kernel.py:727",
+                                  "train-dropout"),
+        "attention_dropout_bwd": ("attention_bwd.cu",
+                                  "flash_attention_kernel.py:815",
+                                  "train-dropout"),
+        # no TPU kernel: the TPU package runs this backward in XLA
+        # (_ffn_bwd_hand with the regenerated mask)
+        "ffn_dropout_bwd_dx": ("ffn_bwd.cu", "ffn_kernel.py:700",
+                               "train-dropout"),
+        "ffn_dropout_bwd_dw": ("ffn_bwd.cu", "ffn_kernel.py:700",
+                               "train-dropout"),
     }
     line = {"kernels": []}
     for name, (source, tpu, mode) in replaces.items():

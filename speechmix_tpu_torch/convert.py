@@ -13,9 +13,10 @@ and returns the port's parameters:
   weight norm the JAX tree already holds merged into one kernel);
 * floating tensors of two or more dimensions are cast to `dtype` (bf16 for
   serving, as the JAX benchmark casts its matrices); biases and LayerNorm
-  parameters stay float32.
-
-Training-only entries (``masked_spec_embed``) are dropped.
+  parameters stay float32;
+* the speech encoder's ``masked_spec_embed`` (SpecAugment's replacement
+  vector, float32) is carried when the tree has it, first in the speech
+  encoder's entries (HF's registration order).
 
 ``tree_to_jax_layout`` walks the other way, for a tree shaped like the
 port's parameters (the parameters themselves, or their gradients): numpy
@@ -77,7 +78,11 @@ def params_from_jax(tree, cfg: SpeechMixConfig, dtype=torch.float32,
     """The port's parameters for a JAX ``init_speechmix``/``load_speechmix``
     tree of numpy arrays (see the module docstring)."""
     se = tree["speech_encoder"]
-    enc = {
+    enc = {}
+    if "masked_spec_embed" in se:
+        enc["masked_spec_embed"] = _tensor(se["masked_spec_embed"], dtype,
+                                           device)
+    enc.update({
         "feature_extractor": {"layers": [
             {k: (_conv(v, dtype, device) if k == "conv"
                  else _plain(v, dtype, device)) for k, v in layer.items()}
@@ -86,7 +91,7 @@ def params_from_jax(tree, cfg: SpeechMixConfig, dtype=torch.float32,
         "pos_conv": _conv(se["pos_conv"], dtype, device),
         "encoder_layer_norm": _plain(se["encoder_layer_norm"], dtype, device),
         "layers": _unstack(se["layers"], dtype, device),
-    }
+    })
     nlp = {k: v for k, v in tree["nlp"].items()
            if k not in ("encoder", "decoder")}
     nlp = _plain(nlp, dtype, device)
@@ -145,5 +150,5 @@ def tree_to_jax_layout(tree):
     """The inverse walk of params_from_jax for a tree shaped like the port's
     parameters (parameters or gradients): float32 numpy arrays, the three
     transformer layer lists stacked on a leading axis, conv kernels as
-    (K, C_in, C_out).  Entries the port dropped are absent."""
+    (K, C_in, C_out)."""
     return _to_jax(tree)

@@ -1,7 +1,18 @@
 // K7: attention_bwd — backward of masked multi-head attention,
 //   out = softmax(q k^T * scale + mask) v,  per (batch, head),
 // on the (B, T, H*D) projection slabs, D = 64: given g = d(out) it writes dq,
-// dk and dv with the probabilities recomputed on chip.
+// dk and dv with the probabilities recomputed on chip (entry
+// smx_attention_bwd).  K15: attention_dropout_bwd — the same for K14's
+// out = (p * m) v (entry smx_attention_dropout_bwd), with the mask m
+// regenerated per tile in both tiled passes from dropout.cuh (the forward's
+// key, stream 0, row (b * H + h) * Tq + q, column k):
+//   dv_j = sum_i round(p_ij m_ij) g_i      dp_ij = (g_i . v_j) m_ij
+//   ds_ij = round(p_ij (dp_ij - delta_i))
+// delta_i = g_i . out_i stays right, as out is the dropped output:
+// sum_j p_ij dp_ij = sum_j p_ij m_ij (g_i . v_j) = g_i . out_i.  K15
+// replaces the TPU kernels of flash_attention_kernel.py: _dropout_bwd
+// (_attn_bwd_dropout_fused_kernel, _attn_bwd_dropout_kernel), which regenerate
+// the mask from (seed, program_id) and stop at T = 1024.
 //
 // Replaces the TPU kernels of
 // speechmix_tpu/ops/pallas/flash_attention_kernel.py:
@@ -226,6 +237,41 @@ __device__ __forceinline__ void probs_and_ds(
   }
 }
 
+// probs_and_ds with the dropout mask: ps = round(p * m), dss = round(p *
+// (dp * m - delta)); one Philox call per four columns of a row.
+template <typename T>
+__device__ __forceinline__ void probs_and_ds_drop(
+    const float* sf, const float* dpf, T* ps, T* dss, const float* lse_s,
+    const float* delta_s, const unsigned char* kmask_s, int q0, int k0, int tq,
+    int tk, float scale, int causal, const smx::Dropout& drop,
+    long long row0) {
+  constexpr int LD = Tiles<T>::LD;
+  const float inv_tk = 1.0f / (float)tk;
+  for (int i = threadIdx.x; i < BT * (BT / 4); i += NT) {
+    const int r = i / (BT / 4), c4 = (i % (BT / 4)) * 4;
+    const int qi = q0 + r;
+    const uint4 bits = drop.bits4(row0 + qi, (k0 + c4) / 4);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = c4 + j, kj = k0 + c;
+      float p = 0.0f;
+      if (qi < tq && kj < tk) {
+        const float l = lse_s[r];
+        if (l <= kAllMasked) {
+          p = inv_tk;
+        } else {
+          const float x = (!kmask_s[c] || (causal && kj > qi))
+                              ? kNegInf : sf[r * LDF + c] * scale;
+          p = expf(x - l);
+        }
+      }
+      const float m = drop.keep(smx::word(bits, j));
+      if (ps != nullptr) ps[r * LD + c] = smx::from_f32<T>(p * m);
+      dss[r * LD + c] = smx::from_f32<T>(p * (dpf[r * LDF + c] * m - delta_s[r]));
+    }
+  }
+}
+
 // delta[b, h, i] = sum_d g[b, i, h, d] * out[b, i, h, d]: one warp each
 template <typename T>
 __global__ void __launch_bounds__(NT)
@@ -248,7 +294,7 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-template <typename T>
+template <typename T, bool DROP>
 __global__ void __launch_bounds__(NT)
     attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                               const T* __restrict__ v, const T* __restrict__ g,
@@ -256,7 +302,8 @@ __global__ void __launch_bounds__(NT)
                               const float* __restrict__ lse,
                               const float* __restrict__ delta,
                               T* __restrict__ dk, T* __restrict__ dv, int tq,
-                              int tk, int heads, float scale, int causal) {
+                              int tk, int heads, float scale, int causal,
+                              smx::Dropout drop) {
   using TL = Tiles<T>;
   constexpr int LD = TL::LD;
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -309,8 +356,14 @@ __global__ void __launch_bounds__(NT)
       TL::store(dp_acc, dpf, LDF, 1.0f);
     }
     __syncthreads();
-    probs_and_ds<T>(sf, dpf, ps, dss, lse_s, delta_s, kmask_s, q0, k0, tq, tk,
-                    scale, causal);
+    if constexpr (DROP) {
+      probs_and_ds_drop<T>(sf, dpf, ps, dss, lse_s, delta_s, kmask_s, q0, k0,
+                           tq, tk, scale, causal, drop,
+                           ((long long)b * heads + head) * tq);
+    } else {
+      probs_and_ds<T>(sf, dpf, ps, dss, lse_s, delta_s, kmask_s, q0, k0, tq, tk,
+                      scale, causal);
+    }
     __syncthreads();
     TL::template mma<true, false>(dv_acc, ps, LD, gs, LD);    // p^T g
     TL::template mma<true, false>(dk_acc, dss, LD, qs, LD);   // ds^T q
@@ -323,7 +376,7 @@ __global__ void __launch_bounds__(NT)
   write_tile<T>(dk + (long long)b * tk * row + head * D, dpf, row, k0, tk);
 }
 
-template <typename T>
+template <typename T, bool DROP>
 __global__ void __launch_bounds__(NT)
     attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             const T* __restrict__ v, const T* __restrict__ g,
@@ -331,7 +384,7 @@ __global__ void __launch_bounds__(NT)
                             const float* __restrict__ lse,
                             const float* __restrict__ delta,
                             T* __restrict__ dq, int tq, int tk, int heads,
-                            float scale, int causal) {
+                            float scale, int causal, smx::Dropout drop) {
   using TL = Tiles<T>;
   constexpr int LD = TL::LD;
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -379,8 +432,14 @@ __global__ void __launch_bounds__(NT)
       TL::store(dp_acc, dpf, LDF, 1.0f);
     }
     __syncthreads();
-    probs_and_ds<T>(sf, dpf, static_cast<T*>(nullptr), dss, lse_s, delta_s,
-                    kmask_s, q0, k0, tq, tk, scale, causal);
+    if constexpr (DROP) {
+      probs_and_ds_drop<T>(sf, dpf, static_cast<T*>(nullptr), dss, lse_s,
+                           delta_s, kmask_s, q0, k0, tq, tk, scale, causal,
+                           drop, ((long long)b * heads + head) * tq);
+    } else {
+      probs_and_ds<T>(sf, dpf, static_cast<T*>(nullptr), dss, lse_s, delta_s,
+                      kmask_s, q0, k0, tq, tk, scale, causal);
+    }
     __syncthreads();
     TL::template mma<false, false>(dq_acc, dss, LD, ks, LD);  // ds k
   }
@@ -390,17 +449,18 @@ __global__ void __launch_bounds__(NT)
   write_tile<T>(dq + (long long)b * tq * row + head * D, sf, row, q0, tq);
 }
 
-template <typename T>
+template <typename T, bool DROP>
 int launch(const void* q, const void* k, const void* v, const void* out,
            const void* g, const unsigned char* mask, const float* lse,
            float* delta, void* dq, void* dk, void* dv, int batch, int tq,
-           int tk, int heads, float scale, int causal, cudaStream_t stream) {
+           int tk, int heads, float scale, int causal, smx::Dropout drop,
+           cudaStream_t stream) {
   const size_t smem = smem_bytes<T>();
   cudaError_t err = cudaFuncSetAttribute(
-      attention_bwd_dkdv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      attention_bwd_dkdv_kernel<T, DROP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(attention_bwd_dq_kernel<T>,
+  err = cudaFuncSetAttribute(attention_bwd_dq_kernel<T, DROP>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -414,16 +474,16 @@ int launch(const void* q, const void* k, const void* v, const void* out,
           gp, static_cast<const T*>(out), delta, tq, heads, warps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  attention_bwd_dkdv_kernel<T>
+  attention_bwd_dkdv_kernel<T, DROP>
       <<<dim3((tk + BT - 1) / BT, heads, batch), NT, smem, stream>>>(
           qp, kp, vp, gp, mask, lse, delta, static_cast<T*>(dk),
-          static_cast<T*>(dv), tq, tk, heads, scale, causal);
+          static_cast<T*>(dv), tq, tk, heads, scale, causal, drop);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  attention_bwd_dq_kernel<T>
+  attention_bwd_dq_kernel<T, DROP>
       <<<dim3((tq + BT - 1) / BT, heads, batch), NT, smem, stream>>>(
           qp, kp, vp, gp, mask, lse, delta, static_cast<T*>(dq), tq, tk, heads,
-          scale, causal);
+          scale, causal, drop);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -431,15 +491,12 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
-}  // namespace
-
-extern "C" int smx_attention_bwd(const void* q, const void* k, const void* v,
-                                 const void* out, const void* g,
-                                 const unsigned char* mask, const float* lse,
-                                 float* delta, void* dq, void* dk, void* dv,
-                                 int batch, int tq, int tk, int heads,
-                                 int head_dim, float scale, int causal,
-                                 int dtype, int device, void* stream) {
+template <bool DROP>
+int entry(const void* q, const void* k, const void* v, const void* out,
+          const void* g, const unsigned char* mask, const float* lse,
+          float* delta, void* dq, void* dk, void* dv, int batch, int tq, int tk,
+          int heads, int head_dim, float scale, int causal, smx::Dropout drop,
+          int dtype, int device, void* stream) {
   if (head_dim != D || batch <= 0 || tq <= 0 || tk <= 0 || heads <= 0 ||
       heads > 65535 || batch > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -453,9 +510,39 @@ extern "C" int smx_attention_bwd(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == smx::kBF16) {
-    return launch<bf16>(q, k, v, out, g, mask, lse, delta, dq, dk, dv, batch,
-                        tq, tk, heads, scale, causal, s);
+    return launch<bf16, DROP>(q, k, v, out, g, mask, lse, delta, dq, dk, dv,
+                              batch, tq, tk, heads, scale, causal, drop, s);
   }
-  return launch<float>(q, k, v, out, g, mask, lse, delta, dq, dk, dv, batch,
-                       tq, tk, heads, scale, causal, s);
+  return launch<float, DROP>(q, k, v, out, g, mask, lse, delta, dq, dk, dv,
+                             batch, tq, tk, heads, scale, causal, drop, s);
+}
+
+}  // namespace
+
+extern "C" int smx_attention_bwd(const void* q, const void* k, const void* v,
+                                 const void* out, const void* g,
+                                 const unsigned char* mask, const float* lse,
+                                 float* delta, void* dq, void* dk, void* dv,
+                                 int batch, int tq, int tk, int heads,
+                                 int head_dim, float scale, int causal,
+                                 int dtype, int device, void* stream) {
+  return entry<false>(q, k, v, out, g, mask, lse, delta, dq, dk, dv, batch, tq,
+                      tk, heads, head_dim, scale, causal, smx::Dropout{}, dtype,
+                      device, stream);
+}
+
+// K15: the forward's key (k0, k1) and the probability mask's threshold and
+// scale, from the host; `out` is K14's (dropped) output.
+extern "C" int smx_attention_dropout_bwd(
+    const void* q, const void* k, const void* v, const void* out,
+    const void* g, const unsigned char* mask, const float* lse, float* delta,
+    void* dq, void* dk, void* dv, int batch, int tq, int tk, int heads,
+    int head_dim, float scale, int causal, uint32_t k0, uint32_t k1,
+    uint32_t threshold, float drop_scale, int dtype, int device,
+    void* stream) {
+  return entry<true>(
+      q, k, v, out, g, mask, lse, delta, dq, dk, dv, batch, tq, tk, heads,
+      head_dim, scale, causal,
+      smx::make_dropout(k0, k1, smx::kStreamAct, threshold, drop_scale), dtype,
+      device, stream);
 }

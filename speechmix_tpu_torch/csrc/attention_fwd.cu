@@ -1,6 +1,20 @@
 // K1: attention_fwd — masked multi-head attention forward,
 //   out = softmax(q k^T * scale + mask) v,  per (batch, head),
-// on the (B, T, H*D) projection slabs, D = 64.
+// on the (B, T, H*D) projection slabs, D = 64 (entry smx_attention_fwd), and
+// K14: attention_dropout_fwd — the same with attention-probability dropout,
+//   out = (softmax(q k^T * scale + mask) * m) v,  m in {0, 1 / (1 - rate)}
+// (entry smx_attention_dropout_fwd).  K14 replaces the TPU kernels of
+// flash_attention_kernel.py: _flash_dropout_fwd_tpu (_attn_dropout_fused_kernel
+// and _attn_single_dropout_kernel).  As there, each tile's unnormalised
+// probabilities are multiplied by the mask before P . v, while the running
+// row sum and the log-sum-exp stay undropped.  The mask is drawn in the
+// kernel from dropout.cuh (stream 0, row (b * H + h) * Tq + q, column k), so
+// K15 (attention_bwd.cu) regenerates it per tile; it never reaches device
+// memory.  In the bf16 kernel the two lanes of a pair (t4, t4 ^ 1), which
+// hold the same four keys of rows qr0 and qr1, each draw one row's four words
+// and swap the halves the other needs: one Philox call per four
+// probabilities.  There is no length limit (the TPU kernels hold whole rows
+// and stop at T = 1024).
 //
 // Replaces the TPU kernel speechmix_tpu/ops/pallas/flash_attention_kernel.py:
 // flash_attention_fused_layout (_attn_single_fused_kernel), and covers the
@@ -65,13 +79,15 @@ constexpr int LD = 68;  // padded row of the transposed tiles (float4-aligned)
 constexpr float kNegInf = -1e30f;
 constexpr size_t kSmem = (size_t)(D * LD + D * LD + BK * D) * sizeof(float);
 
+template <bool DROP>
 __global__ void __launch_bounds__(NT)
     attention_fwd_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
                          const float* __restrict__ v,
                          const unsigned char* __restrict__ mask,
                          float* __restrict__ out, float* __restrict__ lse,
-                         int tq, int tk, int heads, float scale, int causal) {
+                         int tq, int tk, int heads, float scale, int causal,
+                         smx::Dropout drop) {
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;           // (D, LD): qs[d * LD + query]
   float* ks = qs + D * LD;    // (D, LD): ks[d * LD + key]; then P (BK, LD)
@@ -173,6 +189,16 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
       for (int j = 0; j < 4; ++j) acc[i][j] *= alpha;
     }
+    if constexpr (DROP) {
+      // this thread's four keys are one Philox group of each of its rows
+      const long long rbase = ((long long)b * heads + head) * tq + q0 + ty * 4;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const uint4 bits = drop.bits4(rbase + i, (k0 + tx * 4) / 4);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) p[i][j] *= drop.keep(smx::word(bits, j));
+      }
+    }
 
     __syncthreads();  // every thread is done reading ks
     float* ps = ks;   // (BK, LD): ps[key * LD + query]
@@ -212,19 +238,20 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
+template <bool DROP>
 int launch_f32(const void* q, const void* k, const void* v,
                const unsigned char* mask, void* out, float* lse, int batch,
                int tq, int tk, int heads, float scale, int causal,
-               cudaStream_t stream) {
+               smx::Dropout drop, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      attention_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      attention_fwd_kernel<DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kSmem));
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((tq + BQ - 1) / BQ, heads, batch);
-  attention_fwd_kernel<<<grid, NT, kSmem, stream>>>(
+  attention_fwd_kernel<DROP><<<grid, NT, kSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), mask, static_cast<float*>(out), lse, tq,
-      tk, heads, scale, causal);
+      tk, heads, scale, causal, drop);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -260,12 +287,14 @@ __device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+template <bool DROP>
 __global__ void __launch_bounds__(TC_NT)
     attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                             const bf16* __restrict__ v,
                             const unsigned char* __restrict__ mask,
                             bf16* __restrict__ out, float* __restrict__ lse,
-                            int tq, int tk, int heads, float scale, int causal) {
+                            int tq, int tk, int heads, float scale, int causal,
+                            smx::Dropout drop) {
   __shared__ __align__(16) bf16 ks[BK * LDB];
   __shared__ __align__(16) bf16 vs[BK * LDB];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -383,6 +412,26 @@ __global__ void __launch_bounds__(TC_NT)
       o[nt][2] *= al1;
       o[nt][3] *= al1;
     }
+    if constexpr (DROP) {
+      // lanes t4 and t4 ^ 1 hold keys 4 j .. 4 j + 3 of rows qr0 and qr1:
+      // the even lane draws row qr0's words, the odd lane row qr1's, and
+      // each sends the other the two words of its keys
+      const bool odd = t4 & 1;
+      const long long row =
+          ((long long)b * heads + head) * tq + (odd ? qr1 : qr0);
+#pragma unroll
+      for (int nt = 0; nt < BK / 8; ++nt) {
+        const uint4 r = drop.bits4(row, (k0 + nt * 8) / 4 + (t4 >> 1));
+        const uint32_t got0 = __shfl_xor_sync(0xffffffffu, odd ? r.x : r.z, 1);
+        const uint32_t got1 = __shfl_xor_sync(0xffffffffu, odd ? r.y : r.w, 1);
+        // words of keys 2 t4, 2 t4 + 1: even lanes own r.x, r.y of qr0;
+        // odd lanes own r.z, r.w of qr1
+        s[nt][0] *= drop.keep(odd ? got0 : r.x);
+        s[nt][1] *= drop.keep(odd ? got1 : r.y);
+        s[nt][2] *= drop.keep(odd ? r.z : got0);
+        s[nt][3] *= drop.keep(odd ? r.w : got1);
+      }
+    }
     // o += P . v: the score accumulators of key tiles 2kk, 2kk+1 are the
     // A fragment of keys 16kk .. 16kk+15
 #pragma unroll
@@ -421,15 +470,16 @@ __global__ void __launch_bounds__(TC_NT)
   }
 }
 
+template <bool DROP>
 int launch_tc(const void* q, const void* k, const void* v,
               const unsigned char* mask, void* out, float* lse, int batch,
               int tq, int tk, int heads, float scale, int causal,
-              cudaStream_t stream) {
+              smx::Dropout drop, cudaStream_t stream) {
   dim3 grid((tq + BQ - 1) / BQ, heads, batch);
-  attention_fwd_tc_kernel<<<grid, TC_NT, 0, stream>>>(
+  attention_fwd_tc_kernel<DROP><<<grid, TC_NT, 0, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), mask, static_cast<bf16*>(out), lse, tq, tk,
-      heads, scale, causal);
+      heads, scale, causal, drop);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -437,14 +487,11 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
-}  // namespace
-
-extern "C" int smx_attention_fwd(const void* q, const void* k, const void* v,
-                                 const unsigned char* mask, void* out,
-                                 float* lse, int batch, int tq, int tk,
-                                 int heads,
-                                 int head_dim, float scale, int causal,
-                                 int dtype, int device, void* stream) {
+template <bool DROP>
+int launch(const void* q, const void* k, const void* v,
+           const unsigned char* mask, void* out, float* lse, int batch, int tq,
+           int tk, int heads, int head_dim, float scale, int causal,
+           smx::Dropout drop, int dtype, int device, void* stream) {
   if (head_dim != D || batch <= 0 || tq <= 0 || tk <= 0 || heads <= 0 ||
       heads > 65535 || batch > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -457,9 +504,34 @@ extern "C" int smx_attention_fwd(const void* q, const void* k, const void* v,
     if (!aligned16(q) || !aligned16(k) || !aligned16(v)) {
       return static_cast<int>(cudaErrorMisalignedAddress);
     }
-    return launch_tc(q, k, v, mask, out, lse, batch, tq, tk, heads, scale,
-                     causal, s);
+    return launch_tc<DROP>(q, k, v, mask, out, lse, batch, tq, tk, heads,
+                           scale, causal, drop, s);
   }
-  return launch_f32(q, k, v, mask, out, lse, batch, tq, tk, heads, scale,
-                    causal, s);
+  return launch_f32<DROP>(q, k, v, mask, out, lse, batch, tq, tk, heads, scale,
+                          causal, drop, s);
+}
+
+}  // namespace
+
+extern "C" int smx_attention_fwd(const void* q, const void* k, const void* v,
+                                 const unsigned char* mask, void* out,
+                                 float* lse, int batch, int tq, int tk,
+                                 int heads,
+                                 int head_dim, float scale, int causal,
+                                 int dtype, int device, void* stream) {
+  return launch<false>(q, k, v, mask, out, lse, batch, tq, tk, heads, head_dim,
+                       scale, causal, smx::Dropout{}, dtype, device, stream);
+}
+
+// K14: k0, k1 the site's key, threshold and scale of the probability mask
+// (stream 0), from the host.
+extern "C" int smx_attention_dropout_fwd(
+    const void* q, const void* k, const void* v, const unsigned char* mask,
+    void* out, float* lse, int batch, int tq, int tk, int heads, int head_dim,
+    float scale, int causal, uint32_t k0, uint32_t k1, uint32_t threshold,
+    float drop_scale, int dtype, int device, void* stream) {
+  return launch<true>(
+      q, k, v, mask, out, lse, batch, tq, tk, heads, head_dim, scale, causal,
+      smx::make_dropout(k0, k1, smx::kStreamAct, threshold, drop_scale), dtype,
+      device, stream);
 }

@@ -1,10 +1,13 @@
 // Shared device helpers of the port's kernels: f32 <-> storage-type
 // conversion, the FFN activations, and the residual + LayerNorm epilogue
-// that dense_res_ln.cu and ffn_res_ln.cu share.
+// that dense_res_ln.cu and ffn_res_ln.cu share (with the output dropout of
+// their dropout entries, from dropout.cuh).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "dropout.cuh"
 
 namespace smx {
 
@@ -101,13 +104,16 @@ __device__ __forceinline__ void block_row_sums(const float (&part)[BM][MAXC],
 // out[row, c] = LayerNorm(acc + bias + res)[row, c] * g[c] + beta[c] for the
 // rows r0 .. r0 + BM - 1 (< n) of an (n, h) output.  acc holds columns
 // tid + j * NT of every row, accumulated in f32.  Mean and variance are taken
-// over the f32 sum, as the TPU kernels' epilogue does.
-template <typename T, int BM, int MAXC, int NT>
+// over the f32 sum, as the TPU kernels' epilogue does.  With DROP the sum is
+// (acc + bias) * mask(row, c) + res, the mask from `drop` (one Philox call
+// per element: the float32 kernels are the reference runs' and are not
+// tuned).
+template <typename T, int BM, int MAXC, int NT, bool DROP = false>
 __device__ __forceinline__ void res_ln_epilogue(
     float (&acc)[BM][MAXC], const float* __restrict__ bias,
     const T* __restrict__ res, const float* __restrict__ g,
     const float* __restrict__ beta, T* __restrict__ out, int n, int h, int r0,
-    float eps, float* red, float* tot) {
+    float eps, float* red, float* tot, const Dropout& drop = Dropout{}) {
   const int tid = threadIdx.x;
 #pragma unroll
   for (int r = 0; r < BM; ++r) {
@@ -116,7 +122,12 @@ __device__ __forceinline__ void res_ln_epilogue(
     for (int j = 0; j < MAXC; ++j) {
       const int c = tid + j * NT;
       if (c < h && row < n) {
-        acc[r][j] += bias[c] + to_f32(res[(long long)row * h + c]);
+        if constexpr (DROP) {
+          acc[r][j] = (acc[r][j] + bias[c]) * drop.at(row, c) +
+                      to_f32(res[(long long)row * h + c]);
+        } else {
+          acc[r][j] += bias[c] + to_f32(res[(long long)row * h + c]);
+        }
       } else {
         acc[r][j] = 0.0f;
       }
@@ -155,7 +166,8 @@ __device__ __forceinline__ void res_ln_epilogue(
 // kernels store their accumulator fragments there): out[row, c] =
 // LayerNorm(ys[r, c] + bias[c] + res[row, c]) * g[c] + beta[c] for the
 // `rows` rows from r0 (< n).  One warp per row, two passes over the row.
-template <typename T>
+// BIAS false leaves bias unread (staged_bias_dropout added it already).
+template <typename T, bool BIAS = true>
 __device__ __forceinline__ void staged_res_ln(
     const float* ys, int ldy, int rows, const float* __restrict__ bias,
     const T* __restrict__ res, const float* __restrict__ g,
@@ -169,18 +181,26 @@ __device__ __forceinline__ void staged_res_ln(
     if (row >= n) continue;
     const float* y = ys + r * ldy;
     const T* rr = res + (long long)row * h;
+    // y + bias + res, or y + res when the bias is already in y
+    auto sum = [&](int c) {
+      if constexpr (BIAS) {
+        return y[c] + bias[c] + to_f32(rr[c]);
+      } else {
+        return y[c] + to_f32(rr[c]);
+      }
+    };
     float s = 0.0f;
-    for (int c = lane; c < h; c += 32) s += y[c] + bias[c] + to_f32(rr[c]);
+    for (int c = lane; c < h; c += 32) s += sum(c);
     const float mean = warp_sum(s) * inv_h;
     float v = 0.0f;
     for (int c = lane; c < h; c += 32) {
-      const float d = y[c] + bias[c] + to_f32(rr[c]) - mean;
+      const float d = sum(c) - mean;
       v += d * d;
     }
     const float inv = rsqrtf(warp_sum(v) * inv_h + eps);
     T* o = out + (long long)row * h;
     for (int c = lane; c < h; c += 32) {
-      const float d = y[c] + bias[c] + to_f32(rr[c]) - mean;
+      const float d = sum(c) - mean;
       o[c] = from_f32<T>(d * inv * g[c] + beta[c]);
     }
   }

@@ -1,8 +1,14 @@
-// K2: dense_res_ln — out = LayerNorm(res + x @ w + b) * g + beta.
+// K2: dense_res_ln — out = LayerNorm(res + x @ w + b) * g + beta (entry
+// smx_dense_res_ln), and K11: dense_dropout_res_ln — out = LayerNorm(res +
+// drop(x @ w + b)) * g + beta, the same body with the output mask (entry
+// smx_dense_dropout_res_ln; the mask of dropout.cuh, stream 1, at (row, h
+// column), multiplies the f32 sum x @ w + b before the residual).
 //
-// Replaces the TPU kernel speechmix_tpu/ops/pallas/ffn_kernel.py:
+// K2 replaces the TPU kernel speechmix_tpu/ops/pallas/ffn_kernel.py:
 // dense_res_ln (_kernel_dense_res_ln), the post-LN attention epilogue of the
-// wav2vec2-base encoder layer and the BART blocks.
+// wav2vec2-base encoder layer and the BART blocks; K11 replaces
+// dense_dropout_res_ln_trainable (_kernel_dense_dropout_res_ln) of the same
+// file, that epilogue with the out-projection's dropout.
 //
 // x: (n, din), w: (din, h) row-major, res/out: (n, h) in float32 or
 // bfloat16; b, g, beta: (h,) float32.  float32: h <= 1024; bfloat16:
@@ -47,6 +53,7 @@ constexpr int NT = 256;
 constexpr int KC = 32;
 constexpr int MAXC = 4;  // h <= MAXC * NT
 
+template <bool DROP>
 __global__ void __launch_bounds__(NT)
     dense_res_ln_kernel(const float* __restrict__ x,
                         const float* __restrict__ w,
@@ -54,7 +61,7 @@ __global__ void __launch_bounds__(NT)
                         const float* __restrict__ res,
                         const float* __restrict__ g,
                         const float* __restrict__ beta, float* __restrict__ out,
-                        int n, int din, int h, float eps) {
+                        int n, int din, int h, float eps, smx::Dropout drop) {
   __shared__ __align__(16) float xs[KC * BM];  // xs[k * BM + r]
   __shared__ float red[(NT / 32) * BM];
   __shared__ float tot[BM];
@@ -98,18 +105,19 @@ __global__ void __launch_bounds__(NT)
     }
     __syncthreads();
   }
-  smx::res_ln_epilogue<float, BM, MAXC, NT>(acc, b, res, g, beta, out, n, h,
-                                            r0, eps, red, tot);
+  smx::res_ln_epilogue<float, BM, MAXC, NT, DROP>(acc, b, res, g, beta, out, n,
+                                                  h, r0, eps, red, tot, drop);
 }
 
+template <bool DROP>
 int launch_f32(const void* x, const void* w, const float* b, const void* res,
                const float* g, const float* beta, void* out, int n, int din,
-               int h, float eps, cudaStream_t stream) {
+               int h, float eps, smx::Dropout drop, cudaStream_t stream) {
   dim3 grid((n + BM - 1) / BM);
-  dense_res_ln_kernel<<<grid, NT, 0, stream>>>(
+  dense_res_ln_kernel<DROP><<<grid, NT, 0, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(w), b,
       static_cast<const float*>(res), g, beta, static_cast<float*>(out), n,
-      din, h, eps);
+      din, h, eps, drop);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -127,13 +135,13 @@ size_t tc_smem_bytes(int din) {
 }
 
 // h = 128 * NJ; warp w owns output column tiles w + 8 * j, j < NJ
-template <int NJ>
+template <int NJ, bool DROP>
 __global__ void __launch_bounds__(TC_NT)
     dense_res_ln_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                            const float* __restrict__ b, const bf16* __restrict__ res,
                            const float* __restrict__ g,
                            const float* __restrict__ beta, bf16* __restrict__ out,
-                           int n, int din, float eps) {
+                           int n, int din, float eps, smx::Dropout drop) {
   constexpr int H = 128 * NJ;
   constexpr int LDY = H + 4;
   const int ldx = din + 8;
@@ -177,23 +185,30 @@ __global__ void __launch_bounds__(TC_NT)
       wm::store_matrix_sync(ys + rt * 16 * LDY + (warp + 8 * j) * 16, acc[rt][j],
                             LDY, wm::mem_row_major);
   __syncthreads();
-  smx::staged_res_ln<bf16>(ys, LDY, TC_BM, b, res, g, beta, out, n, H, r0, eps);
+  if constexpr (DROP) {
+    smx::staged_bias_dropout(ys, LDY, TC_BM, b, drop, n, H, r0);
+    __syncthreads();
+    smx::staged_res_ln<bf16, false>(ys, LDY, TC_BM, b, res, g, beta, out, n, H,
+                                    r0, eps);
+  } else {
+    smx::staged_res_ln<bf16>(ys, LDY, TC_BM, b, res, g, beta, out, n, H, r0, eps);
+  }
 }
 
-template <int NJ>
+template <int NJ, bool DROP>
 int launch_tc(const void* x, const void* w, const float* b, const void* res,
               const float* g, const float* beta, void* out, int n, int din,
-              float eps, cudaStream_t stream) {
+              float eps, smx::Dropout drop, cudaStream_t stream) {
   const size_t smem = tc_smem_bytes<NJ>(din);
   cudaError_t err = cudaFuncSetAttribute(
-      dense_res_ln_tc_kernel<NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      dense_res_ln_tc_kernel<NJ, DROP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((n + TC_BM - 1) / TC_BM);
-  dense_res_ln_tc_kernel<NJ><<<grid, TC_NT, smem, stream>>>(
+  dense_res_ln_tc_kernel<NJ, DROP><<<grid, TC_NT, smem, stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w), b,
       static_cast<const bf16*>(res), g, beta, static_cast<bf16*>(out), n, din,
-      eps);
+      eps, drop);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -201,13 +216,10 @@ bool aligned32(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 31u) == 0;
 }
 
-}  // namespace
-
-extern "C" int smx_dense_res_ln(const void* x, const void* w, const float* b,
-                                const void* res, const float* g,
-                                const float* beta, void* out, int n, int din,
-                                int h, float eps, int dtype, int device,
-                                void* stream) {
+template <bool DROP>
+int launch(const void* x, const void* w, const float* b, const void* res,
+           const float* g, const float* beta, void* out, int n, int din, int h,
+           float eps, smx::Dropout drop, int dtype, int device, void* stream) {
   if (h > MAXC * NT || h <= 0 || din <= 0 || n <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -220,9 +232,39 @@ extern "C" int smx_dense_res_ln(const void* x, const void* w, const float* b,
     if (din % 16 != 0 || din > 1024 || !aligned32(x) || !aligned32(w)) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
-    if (h == 768) return launch_tc<6>(x, w, b, res, g, beta, out, n, din, eps, s);
-    if (h == 1024) return launch_tc<8>(x, w, b, res, g, beta, out, n, din, eps, s);
+    if (h == 768) {
+      return launch_tc<6, DROP>(x, w, b, res, g, beta, out, n, din, eps, drop, s);
+    }
+    if (h == 1024) {
+      return launch_tc<8, DROP>(x, w, b, res, g, beta, out, n, din, eps, drop, s);
+    }
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch_f32(x, w, b, res, g, beta, out, n, din, h, eps, s);
+  return launch_f32<DROP>(x, w, b, res, g, beta, out, n, din, h, eps, drop, s);
+}
+
+}  // namespace
+
+extern "C" int smx_dense_res_ln(const void* x, const void* w, const float* b,
+                                const void* res, const float* g,
+                                const float* beta, void* out, int n, int din,
+                                int h, float eps, int dtype, int device,
+                                void* stream) {
+  return launch<false>(x, w, b, res, g, beta, out, n, din, h, eps,
+                       smx::Dropout{}, dtype, device, stream);
+}
+
+// K11: k0, k1 the site's key; threshold and scale of the output mask
+// (stream 1), from the host.
+extern "C" int smx_dense_dropout_res_ln(const void* x, const void* w,
+                                        const float* b, const void* res,
+                                        const float* g, const float* beta,
+                                        void* out, int n, int din, int h,
+                                        float eps, uint32_t k0, uint32_t k1,
+                                        uint32_t threshold, float scale,
+                                        int dtype, int device, void* stream) {
+  return launch<true>(x, w, b, res, g, beta, out, n, din, h, eps,
+                      smx::make_dropout(k0, k1, smx::kStreamOut, threshold,
+                                        scale),
+                      dtype, device, stream);
 }

@@ -11,6 +11,15 @@
 //   db1 = sum_rows da        (f,)   float32
 // db2 = sum_rows g stays with the caller, as in the TPU package.
 //
+// The dropout entries smx_ffn_dropout_bwd_dx and smx_ffn_dropout_bwd_dw are
+// the backward of y = drop_a(act(x @ w1 + b1)) @ w2 + b2, the FFN of K12 and
+// K13 (ffn_res_ln.cu): they regenerate the activation mask m (dropout.cuh,
+// stream 0, at (row, f column)) in the kernel and take h = round(act(a) * m)
+// and da = round(dh * act'(a) * m), as the TPU package's _ffn_bwd_hand does
+// with the regenerated mask (ffn_kernel.py, called from _fdrl_bwd and
+// _fdt_bwd, which run it in XLA: the TPU package has no kernel there).  No
+// (n, f) mask or intermediate is kept between forward and backward.
+//
 // x, g, dx: (n, h); w1: (h, f); w2: (f, h), row-major, in float32 or bfloat16;
 // b1: (f,) float32.  float32: h <= 1024, f % 16 == 0.  bfloat16: h in
 // {768, 1024}, f % 64 == 0, x, g, w1, w2 32-byte aligned.  act: 0 gelu (erf),
@@ -50,11 +59,12 @@ constexpr int MAXC = 4;  // h <= MAXC * NT
 constexpr int BM = 16;
 constexpr int FC = NT;  // f columns per chunk: one per thread
 
+template <bool DROP>
 __global__ void __launch_bounds__(NT)
     ffn_bwd_dx_kernel(const float* __restrict__ x, const float* __restrict__ g,
                       const float* __restrict__ w1, const float* __restrict__ b1,
                       const float* __restrict__ w2, float* __restrict__ dx, int n,
-                      int h, int f, int act) {
+                      int h, int f, int act, smx::Dropout drop) {
   extern __shared__ __align__(16) float smem[];
   float* xs = smem;            // (h, BM): xs[k * BM + r]
   float* gs = xs + h * BM;     // (h, BM)
@@ -104,6 +114,7 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
       for (int r = 0; r < BM; ++r) {
         dv[r] *= smx::dactivate(act, av[r] + bias);
+        if constexpr (DROP) dv[r] *= drop.at(r0 + r, col);
       }
     }
     float4* dw = reinterpret_cast<float4*>(das + tid * BM);
@@ -151,11 +162,13 @@ __global__ void __launch_bounds__(NT)
 // ---------------------------------------------------------------- float32 dw
 constexpr int WFC = 16;  // f columns per block
 
+template <bool DROP>
 __global__ void __launch_bounds__(NT)
     ffn_bwd_dw_kernel(const float* __restrict__ x, const float* __restrict__ g,
                       const float* __restrict__ w1, const float* __restrict__ b1,
                       const float* __restrict__ w2, float* __restrict__ out,
-                      int n, int h, int f, int act, int rows_per_split) {
+                      int n, int h, int f, int act, int rows_per_split,
+                      smx::Dropout drop) {
   extern __shared__ __align__(16) float smem[];
   float* xs = smem;              // (BM, h)
   float* gs = xs + BM * h;       // (BM, h)
@@ -193,8 +206,9 @@ __global__ void __launch_bounds__(NT)
       dh += gs[pr * h + k] * w2r[k];
     }
     a += bias;
-    hs[pr * WFC + pc] = smx::activate(act, a);
-    das[pr * WFC + pc] = dh * smx::dactivate(act, a);
+    const float m = DROP ? drop.at(r0 + pr, c0 + pc) : 1.0f;
+    hs[pr * WFC + pc] = smx::activate(act, a) * m;
+    das[pr * WFC + pc] = dh * smx::dactivate(act, a) * m;
     __syncthreads();
     if (tid < WFC) {
 #pragma unroll
@@ -261,12 +275,12 @@ constexpr size_t dx_smem_bytes() {
 }
 
 // h = 128 * NJ; 8 warps; warp w owns output column tiles w + 8 * j, j < NJ
-template <int NJ>
+template <int NJ, bool DROP>
 __global__ void __launch_bounds__(NT)
     ffn_bwd_dx_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
                          const bf16* __restrict__ w1, const float* __restrict__ b1,
                          const bf16* __restrict__ w2, bf16* __restrict__ dx, int n,
-                         int f, int act) {
+                         int f, int act, smx::Dropout drop) {
   constexpr int H = 128 * NJ;
   constexpr int LDX = H + 8;
   constexpr int LDY = H + 4;  // f32 staged output row, over xs and gs
@@ -322,11 +336,26 @@ __global__ void __launch_bounds__(NT)
     wm::store_matrix_sync(dhf + rt1 * 16 * DX_LDF + ct1 * 16, dacc, DX_LDF,
                           wm::mem_row_major);
     __syncthreads();  // also: every warp is done reading dab of the last chunk
-    for (int i = tid; i < TC_BM * DX_FC; i += NT) {
-      const int r = i / DX_FC, c = i % DX_FC;
-      dab[r * DX_LDB + c] = __float2bfloat16(
-          dhf[r * DX_LDF + c] *
-          smx::dactivate(act, af[r * DX_LDF + c] + b1[c0 + c]));
+    if constexpr (DROP) {
+      // one Philox call per four f columns of a row
+      for (int i = tid; i < TC_BM * (DX_FC / 4); i += NT) {
+        const int r = i / (DX_FC / 4), c = (i % (DX_FC / 4)) * 4;
+        const uint4 bits = drop.bits4(r0 + r, (c0 + c) / 4);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          dab[r * DX_LDB + c + j] = __float2bfloat16(
+              dhf[r * DX_LDF + c + j] *
+              smx::dactivate(act, af[r * DX_LDF + c + j] + b1[c0 + c + j]) *
+              drop.keep(smx::word(bits, j)));
+        }
+      }
+    } else {
+      for (int i = tid; i < TC_BM * DX_FC; i += NT) {
+        const int r = i / DX_FC, c = i % DX_FC;
+        dab[r * DX_LDB + c] = __float2bfloat16(
+            dhf[r * DX_LDF + c] *
+            smx::dactivate(act, af[r * DX_LDF + c] + b1[c0 + c]));
+      }
     }
     __syncthreads();
 #pragma unroll
@@ -379,12 +408,13 @@ constexpr size_t dw_smem_bytes() {
 // h^T g (both row tiles, column tiles w - 8 + 8 j of h).
 // One block per SM, stated: with the thread count alone ptxas keeps this
 // kernel to 64 registers and spills its accumulators (2 to 4 KB a thread).
-template <int NJ>
+template <int NJ, bool DROP>
 __global__ void __launch_bounds__(DW_NT, 1)
     ffn_bwd_dw_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
                          const bf16* __restrict__ w1, const float* __restrict__ b1,
                          const bf16* __restrict__ w2, float* __restrict__ out,
-                         int n, int f, int act, int rows_per_split) {
+                         int n, int f, int act, int rows_per_split,
+                         smx::Dropout drop) {
   constexpr int H = 128 * NJ;
   constexpr int LDX = H + 8;
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -454,13 +484,31 @@ __global__ void __launch_bounds__(DW_NT, 1)
       wm::store_matrix_sync(stage, part_acc, DW_LDF, wm::mem_row_major);
     }
     __syncthreads();
-    for (int i = tid; i < TC_BM * DW_FC; i += DW_NT) {
-      const int r = i / DW_FC, c = i % DW_FC;
-      const int at = r * DW_LDF + c;
-      const float a = af[at] + af[TC_BM * DW_LDF + at] + b1[c0 + c];
-      const float dh = dhf[at] + dhf[TC_BM * DW_LDF + at];
-      hb[r * DW_LDB + c] = __float2bfloat16(smx::activate(act, a));
-      dab[r * DW_LDB + c] = __float2bfloat16(dh * smx::dactivate(act, a));
+    if constexpr (DROP) {
+      // one Philox call per four f columns of a row
+      for (int i = tid; i < TC_BM * (DW_FC / 4); i += DW_NT) {
+        const int r = i / (DW_FC / 4), c = (i % (DW_FC / 4)) * 4;
+        const uint4 bits = drop.bits4(r0 + r, (c0 + c) / 4);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int at = r * DW_LDF + c + j;
+          const float a = af[at] + af[TC_BM * DW_LDF + at] + b1[c0 + c + j];
+          const float dh = dhf[at] + dhf[TC_BM * DW_LDF + at];
+          const float m = drop.keep(smx::word(bits, j));
+          hb[r * DW_LDB + c + j] = __float2bfloat16(smx::activate(act, a) * m);
+          dab[r * DW_LDB + c + j] =
+              __float2bfloat16(dh * smx::dactivate(act, a) * m);
+        }
+      }
+    } else {
+      for (int i = tid; i < TC_BM * DW_FC; i += DW_NT) {
+        const int r = i / DW_FC, c = i % DW_FC;
+        const int at = r * DW_LDF + c;
+        const float a = af[at] + af[TC_BM * DW_LDF + at] + b1[c0 + c];
+        const float dh = dhf[at] + dhf[TC_BM * DW_LDF + at];
+        hb[r * DW_LDB + c] = __float2bfloat16(smx::activate(act, a));
+        dab[r * DW_LDB + c] = __float2bfloat16(dh * smx::dactivate(act, a));
+      }
     }
     __syncthreads();
     if (tid < DW_FC) {
@@ -519,35 +567,36 @@ __global__ void __launch_bounds__(DW_NT, 1)
   if (tid < DW_FC) db1[c0 + tid] = bsum;
 }
 
-template <int NJ>
+template <int NJ, bool DROP>
 int launch_dx_tc(const void* x, const void* g, const void* w1, const float* b1,
                  const void* w2, void* dx, int n, int f, int act,
-                 cudaStream_t stream) {
+                 smx::Dropout drop, cudaStream_t stream) {
   const size_t smem = dx_smem_bytes<NJ>();
   cudaError_t err = cudaFuncSetAttribute(
-      ffn_bwd_dx_tc_kernel<NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      ffn_bwd_dx_tc_kernel<NJ, DROP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  ffn_bwd_dx_tc_kernel<NJ><<<(n + TC_BM - 1) / TC_BM, NT, smem, stream>>>(
+  ffn_bwd_dx_tc_kernel<NJ, DROP><<<(n + TC_BM - 1) / TC_BM, NT, smem, stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(g),
       static_cast<const bf16*>(w1), b1, static_cast<const bf16*>(w2),
-      static_cast<bf16*>(dx), n, f, act);
+      static_cast<bf16*>(dx), n, f, act, drop);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int NJ>
+template <int NJ, bool DROP>
 int launch_dw_tc(const void* x, const void* g, const void* w1, const float* b1,
                  const void* w2, float* out, int n, int f, int act, int splits,
-                 int rows_per_split, cudaStream_t stream) {
+                 int rows_per_split, smx::Dropout drop, cudaStream_t stream) {
   const size_t smem = dw_smem_bytes<NJ>();
   cudaError_t err = cudaFuncSetAttribute(
-      ffn_bwd_dw_tc_kernel<NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      ffn_bwd_dw_tc_kernel<NJ, DROP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  ffn_bwd_dw_tc_kernel<NJ><<<dim3(f / DW_FC, splits), DW_NT, smem, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(g),
-      static_cast<const bf16*>(w1), b1, static_cast<const bf16*>(w2), out, n, f,
-      act, rows_per_split);
+  ffn_bwd_dw_tc_kernel<NJ, DROP>
+      <<<dim3(f / DW_FC, splits), DW_NT, smem, stream>>>(
+          static_cast<const bf16*>(x), static_cast<const bf16*>(g),
+          static_cast<const bf16*>(w1), b1, static_cast<const bf16*>(w2), out,
+          n, f, act, rows_per_split, drop);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -559,12 +608,10 @@ bool bad_shape(int n, int h, int f, int act) {
   return h > MAXC * NT || h <= 0 || f <= 0 || n <= 0 || act < 0 || act > 3;
 }
 
-}  // namespace
-
-extern "C" int smx_ffn_bwd_dx(const void* x, const void* g, const void* w1,
-                              const float* b1, const void* w2, void* dx, int n,
-                              int h, int f, int act, int dtype, int device,
-                              void* stream) {
+template <bool DROP>
+int bwd_dx(const void* x, const void* g, const void* w1, const float* b1,
+           const void* w2, void* dx, int n, int h, int f, int act,
+           smx::Dropout drop, int dtype, int device, void* stream) {
   if (bad_shape(n, h, f, act)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -574,30 +621,34 @@ extern "C" int smx_ffn_bwd_dx(const void* x, const void* g, const void* w1,
         !aligned32(w2)) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
-    if (h == 768) return launch_dx_tc<6>(x, g, w1, b1, w2, dx, n, f, act, s);
-    if (h == 1024) return launch_dx_tc<8>(x, g, w1, b1, w2, dx, n, f, act, s);
+    if (h == 768) {
+      return launch_dx_tc<6, DROP>(x, g, w1, b1, w2, dx, n, f, act, drop, s);
+    }
+    if (h == 1024) {
+      return launch_dx_tc<8, DROP>(x, g, w1, b1, w2, dx, n, f, act, drop, s);
+    }
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t smem = (size_t)(2 * h + FC) * BM * sizeof(float);
-  err = cudaFuncSetAttribute(ffn_bwd_dx_kernel,
+  err = cudaFuncSetAttribute(ffn_bwd_dx_kernel<DROP>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  ffn_bwd_dx_kernel<<<(n + BM - 1) / BM, NT, smem, s>>>(
+  ffn_bwd_dx_kernel<DROP><<<(n + BM - 1) / BM, NT, smem, s>>>(
       static_cast<const float*>(x), static_cast<const float*>(g),
       static_cast<const float*>(w1), b1, static_cast<const float*>(w2),
-      static_cast<float*>(dx), n, h, f, act);
+      static_cast<float*>(dx), n, h, f, act, drop);
   return static_cast<int>(cudaGetLastError());
 }
 
 // out: (2 * h * f + f) float32 = dw1 | dw2 | db1.  splits row ranges of
 // rows_per_split rows (a multiple of 32) cover n; with splits > 1, ws holds
 // splits such records.
-extern "C" int smx_ffn_bwd_dw(const void* x, const void* g, const void* w1,
-                              const float* b1, const void* w2, float* out,
-                              float* ws, int n, int h, int f, int act,
-                              int splits, int rows_per_split, int dtype,
-                              int device, void* stream) {
+template <bool DROP>
+int bwd_dw(const void* x, const void* g, const void* w1, const float* b1,
+           const void* w2, float* out, float* ws, int n, int h, int f, int act,
+           int splits, int rows_per_split, smx::Dropout drop, int dtype,
+           int device, void* stream) {
   if (bad_shape(n, h, f, act) || splits < 1 || splits > 65535 ||
       rows_per_split <= 0 || rows_per_split % TC_BM != 0 ||
       (long long)splits * rows_per_split < n ||
@@ -616,25 +667,25 @@ extern "C" int smx_ffn_bwd_dw(const void* x, const void* g, const void* w1,
       return static_cast<int>(cudaErrorInvalidValue);
     }
     if (h == 768) {
-      rc = launch_dw_tc<6>(x, g, w1, b1, w2, target, n, f, act, splits,
-                           rows_per_split, s);
+      rc = launch_dw_tc<6, DROP>(x, g, w1, b1, w2, target, n, f, act, splits,
+                                 rows_per_split, drop, s);
     } else if (h == 1024) {
-      rc = launch_dw_tc<8>(x, g, w1, b1, w2, target, n, f, act, splits,
-                           rows_per_split, s);
+      rc = launch_dw_tc<8, DROP>(x, g, w1, b1, w2, target, n, f, act, splits,
+                                 rows_per_split, drop, s);
     } else {
       return static_cast<int>(cudaErrorInvalidValue);
     }
   } else {
     if (f % WFC != 0) return static_cast<int>(cudaErrorInvalidValue);
     const size_t smem = (size_t)(2 * h + 2 * WFC) * BM * sizeof(float);
-    err = cudaFuncSetAttribute(ffn_bwd_dw_kernel,
+    err = cudaFuncSetAttribute(ffn_bwd_dw_kernel<DROP>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    ffn_bwd_dw_kernel<<<dim3(f / WFC, splits), NT, smem, s>>>(
+    ffn_bwd_dw_kernel<DROP><<<dim3(f / WFC, splits), NT, smem, s>>>(
         static_cast<const float*>(x), static_cast<const float*>(g),
         static_cast<const float*>(w1), b1, static_cast<const float*>(w2),
-        target, n, h, f, act, rows_per_split);
+        target, n, h, f, act, rows_per_split, drop);
     rc = static_cast<int>(cudaGetLastError());
   }
   if (rc != 0 || splits == 1) return rc;
@@ -642,4 +693,51 @@ extern "C" int smx_ffn_bwd_dw(const void* x, const void* g, const void* w1,
   ffn_bwd_reduce_kernel<<<(unsigned)((size + NT - 1) / NT), NT, 0, s>>>(
       ws, out, size, splits);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int smx_ffn_bwd_dx(const void* x, const void* g, const void* w1,
+                              const float* b1, const void* w2, void* dx, int n,
+                              int h, int f, int act, int dtype, int device,
+                              void* stream) {
+  return bwd_dx<false>(x, g, w1, b1, w2, dx, n, h, f, act, smx::Dropout{},
+                       dtype, device, stream);
+}
+
+extern "C" int smx_ffn_bwd_dw(const void* x, const void* g, const void* w1,
+                              const float* b1, const void* w2, float* out,
+                              float* ws, int n, int h, int f, int act,
+                              int splits, int rows_per_split, int dtype,
+                              int device, void* stream) {
+  return bwd_dw<false>(x, g, w1, b1, w2, out, ws, n, h, f, act, splits,
+                       rows_per_split, smx::Dropout{}, dtype, device, stream);
+}
+
+// The dropout twins: k0, k1 the site's key, threshold and scale of the
+// activation mask (stream 0), from the host.
+extern "C" int smx_ffn_dropout_bwd_dx(const void* x, const void* g,
+                                      const void* w1, const float* b1,
+                                      const void* w2, void* dx, int n, int h,
+                                      int f, int act, uint32_t k0, uint32_t k1,
+                                      uint32_t threshold, float scale,
+                                      int dtype, int device, void* stream) {
+  return bwd_dx<true>(
+      x, g, w1, b1, w2, dx, n, h, f, act,
+      smx::make_dropout(k0, k1, smx::kStreamAct, threshold, scale), dtype,
+      device, stream);
+}
+
+extern "C" int smx_ffn_dropout_bwd_dw(const void* x, const void* g,
+                                      const void* w1, const float* b1,
+                                      const void* w2, float* out, float* ws,
+                                      int n, int h, int f, int act, int splits,
+                                      int rows_per_split, uint32_t k0,
+                                      uint32_t k1, uint32_t threshold,
+                                      float scale, int dtype, int device,
+                                      void* stream) {
+  return bwd_dw<true>(
+      x, g, w1, b1, w2, out, ws, n, h, f, act, splits, rows_per_split,
+      smx::make_dropout(k0, k1, smx::kStreamAct, threshold, scale), dtype,
+      device, stream);
 }

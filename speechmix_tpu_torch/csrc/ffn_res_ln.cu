@@ -1,13 +1,25 @@
 // K3: ffn_res_ln — out = LayerNorm(res + act(x @ w1 + b1) @ w2 + b2) * g + beta
 // (entry smx_ffn_res_ln), and K9: ffn_fused — out = act(x @ w1 + b1) @ w2 + b2,
 // the same body without the residual + LayerNorm epilogue (entry
-// smx_ffn_fused; res, g and beta are not read).
+// smx_ffn_fused; res, g and beta are not read).  Their dropout twins, the
+// same bodies instantiated with DROP: K12 ffn_dropout_res_ln —
+// LayerNorm(res + drop_o(drop_a(act(x @ w1 + b1)) @ w2 + b2)) (entry
+// smx_ffn_dropout_res_ln), and K13 ffn_dropout — drop_a(act(x @ w1 + b1)) @
+// w2 + b2 (entry smx_ffn_dropout).
 //
 // K3 replaces the TPU kernel speechmix_tpu/ops/pallas/ffn_kernel.py:
 // ffn_fused_res_ln (_kernel_res_ln), the post-LN FFN block of the
 // wav2vec2-base encoder layer and the BART blocks.  K9 replaces ffn_fused
 // (_kernel) of the same file: the FFN of pre-LN blocks, and the recompute of
-// the pre-LayerNorm sum inside K3's backward.
+// the pre-LayerNorm sum inside K3's backward.  K12 replaces
+// ffn_dropout_res_ln_trainable (_kernel_dropout_res_ln) and K13
+// ffn_dropout_trainable (_kernel_dropout), the recompute inside K12's
+// backward.
+//
+// Dropout (dropout.cuh): the activation mask (stream 0) multiplies act(a) in
+// f32 before its rounding to the storage type, at (row, f column); the
+// output mask (stream 1) multiplies the f32 sum y + b2 before the residual,
+// at (row, h column).  A mask whose threshold is 0 (rate 0) draws no bits.
 //
 // x, res, out: (n, h); w1: (h, f); w2: (f, h), row-major, in float32 or
 // bfloat16; b1: (f,), b2, g, beta: (h,) float32.  float32: h <= 1024;
@@ -56,7 +68,7 @@ constexpr int NT = 256;
 constexpr int FC = NT;   // f columns per chunk: one per thread
 constexpr int MAXC = 4;  // h <= MAXC * NT
 
-template <bool LN>
+template <bool LN, bool DROP>
 __global__ void __launch_bounds__(NT)
     ffn_res_ln_kernel(const float* __restrict__ x,
                       const float* __restrict__ w1,
@@ -66,7 +78,8 @@ __global__ void __launch_bounds__(NT)
                       const float* __restrict__ res,
                       const float* __restrict__ g,
                       const float* __restrict__ beta, float* __restrict__ out,
-                      int n, int h, int f, int act, float eps) {
+                      int n, int h, int f, int act, float eps,
+                      smx::Dropout act_drop, smx::Dropout out_drop) {
   extern __shared__ __align__(16) float smem[];
   float* xs = smem;             // (h, BM): xs[k * BM + r]
   float* hs = xs + h * BM;      // (FC, BM): hs[c * BM + r]
@@ -111,6 +124,9 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
       for (int r = 0; r < BM; ++r) {
         hv[r] = smx::activate(act, hv[r] + bias);
+        if constexpr (DROP) {
+          if (act_drop.threshold) hv[r] *= act_drop.at(r0 + r, col);
+        }
       }
     }
     float4* hw = reinterpret_cast<float4*>(hs + tid * BM);
@@ -145,8 +161,8 @@ __global__ void __launch_bounds__(NT)
     __syncthreads();
   }
   if constexpr (LN) {
-    smx::res_ln_epilogue<float, BM, MAXC, NT>(acc, b2, res, g, beta, out, n, h,
-                                              r0, eps, red, tot);
+    smx::res_ln_epilogue<float, BM, MAXC, NT, DROP>(
+        acc, b2, res, g, beta, out, n, h, r0, eps, red, tot, out_drop);
   } else {
 #pragma unroll
     for (int r = 0; r < BM; ++r) {
@@ -161,21 +177,22 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-template <bool LN>
+template <bool LN, bool DROP>
 int launch_f32(const void* x, const void* w1, const float* b1, const void* w2,
                const float* b2, const void* res, const float* g,
                const float* beta, void* out, int n, int h, int f, int act,
-               float eps, cudaStream_t stream) {
+               float eps, smx::Dropout act_drop, smx::Dropout out_drop,
+               cudaStream_t stream) {
   const size_t smem = (size_t)(h + FC) * BM * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      ffn_res_ln_kernel<LN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ffn_res_ln_kernel<LN, DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((n + BM - 1) / BM);
-  ffn_res_ln_kernel<LN><<<grid, NT, smem, stream>>>(
+  ffn_res_ln_kernel<LN, DROP><<<grid, NT, smem, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(w1), b1,
       static_cast<const float*>(w2), b2, static_cast<const float*>(res), g,
-      beta, static_cast<float*>(out), n, h, f, act, eps);
+      beta, static_cast<float*>(out), n, h, f, act, eps, act_drop, out_drop);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -198,14 +215,15 @@ constexpr size_t tc_smem_bytes() {
 }
 
 // h = 128 * NJ; warp w owns output column tiles w + 8 * j, j < NJ
-template <int NJ, bool LN>
+template <int NJ, bool LN, bool DROP>
 __global__ void __launch_bounds__(TC_NT)
     ffn_res_ln_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
                          const float* __restrict__ b1, const bf16* __restrict__ w2,
                          const float* __restrict__ b2, const bf16* __restrict__ res,
                          const float* __restrict__ g,
                          const float* __restrict__ beta, bf16* __restrict__ out,
-                         int n, int f, int act, float eps) {
+                         int n, int f, int act, float eps,
+                         smx::Dropout act_drop, smx::Dropout out_drop) {
   constexpr int H = 128 * NJ;
   constexpr int LDX = H + 8;   // bf16 x row (padded)
   constexpr int LDY = H + 4;   // f32 staged output row (padded)
@@ -245,10 +263,26 @@ __global__ void __launch_bounds__(TC_NT)
     wm::store_matrix_sync(hf + rt1 * 16 * TC_LDHF + ct1 * 16, hacc, TC_LDHF,
                           wm::mem_row_major);
     __syncthreads();  // also: every warp is done reading hb of the last chunk
-    for (int i = tid; i < TC_BM * TC_FC; i += TC_NT) {
-      const int r = i / TC_FC, c = i % TC_FC;
-      hb[r * TC_LDHB + c] = __float2bfloat16(
-          smx::activate(act, hf[r * TC_LDHF + c] + b1[c0 + c]));
+    if constexpr (DROP) {
+      // one Philox call per four f columns of a row
+      for (int i = tid; i < TC_BM * (TC_FC / 4); i += TC_NT) {
+        const int r = i / (TC_FC / 4), c = (i % (TC_FC / 4)) * 4;
+        const uint4 bits = act_drop.threshold
+                               ? act_drop.bits4(r0 + r, (c0 + c) / 4)
+                               : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          hb[r * TC_LDHB + c + j] = __float2bfloat16(
+              smx::activate(act, hf[r * TC_LDHF + c + j] + b1[c0 + c + j]) *
+              act_drop.keep(smx::word(bits, j)));
+        }
+      }
+    } else {
+      for (int i = tid; i < TC_BM * TC_FC; i += TC_NT) {
+        const int r = i / TC_FC, c = i % TC_FC;
+        hb[r * TC_LDHB + c] = __float2bfloat16(
+            smx::activate(act, hf[r * TC_LDHF + c] + b1[c0 + c]));
+      }
     }
     __syncthreads();
 #pragma unroll
@@ -272,7 +306,17 @@ __global__ void __launch_bounds__(TC_NT)
       wm::store_matrix_sync(ys + rt * 16 * LDY + (warp + 8 * j) * 16, acc[rt][j],
                             LDY, wm::mem_row_major);
   __syncthreads();
-  if constexpr (LN) {
+  if constexpr (LN && DROP) {
+    if (out_drop.threshold) {
+      smx::staged_bias_dropout(ys, LDY, TC_BM, b2, out_drop, n, H, r0);
+      __syncthreads();
+      smx::staged_res_ln<bf16, false>(ys, LDY, TC_BM, b2, res, g, beta, out, n,
+                                      H, r0, eps);
+    } else {
+      smx::staged_res_ln<bf16>(ys, LDY, TC_BM, b2, res, g, beta, out, n, H, r0,
+                               eps);
+    }
+  } else if constexpr (LN) {
     smx::staged_res_ln<bf16>(ys, LDY, TC_BM, b2, res, g, beta, out, n, H, r0, eps);
   } else {
     for (int i = tid; i < TC_BM * H; i += TC_NT) {
@@ -285,21 +329,22 @@ __global__ void __launch_bounds__(TC_NT)
   }
 }
 
-template <int NJ, bool LN>
+template <int NJ, bool LN, bool DROP>
 int launch_tc(const void* x, const void* w1, const float* b1, const void* w2,
               const float* b2, const void* res, const float* g,
               const float* beta, void* out, int n, int f, int act, float eps,
+              smx::Dropout act_drop, smx::Dropout out_drop,
               cudaStream_t stream) {
   const size_t smem = tc_smem_bytes<NJ>();
   cudaError_t err = cudaFuncSetAttribute(
-      ffn_res_ln_tc_kernel<NJ, LN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      ffn_res_ln_tc_kernel<NJ, LN, DROP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((n + TC_BM - 1) / TC_BM);
-  ffn_res_ln_tc_kernel<NJ, LN><<<grid, TC_NT, smem, stream>>>(
+  ffn_res_ln_tc_kernel<NJ, LN, DROP><<<grid, TC_NT, smem, stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w1), b1,
       static_cast<const bf16*>(w2), b2, static_cast<const bf16*>(res), g, beta,
-      static_cast<bf16*>(out), n, f, act, eps);
+      static_cast<bf16*>(out), n, f, act, eps, act_drop, out_drop);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -307,11 +352,12 @@ bool aligned32(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 31u) == 0;
 }
 
-template <bool LN>
+template <bool LN, bool DROP>
 int launch(const void* x, const void* w1, const float* b1, const void* w2,
            const float* b2, const void* res, const float* g, const float* beta,
-           void* out, int n, int h, int f, int act, float eps, int dtype,
-           int device, void* stream) {
+           void* out, int n, int h, int f, int act, float eps,
+           smx::Dropout act_drop, smx::Dropout out_drop, int dtype, int device,
+           void* stream) {
   if (h > MAXC * NT || h <= 0 || f <= 0 || n <= 0 || act < 0 || act > 3) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -323,12 +369,18 @@ int launch(const void* x, const void* w1, const float* b1, const void* w2,
     if (f % TC_FC != 0 || !aligned32(x) || !aligned32(w1) || !aligned32(w2)) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
-    if (h == 768) return launch_tc<6, LN>(x, w1, b1, w2, b2, res, g, beta, out, n, f, act, eps, s);
-    if (h == 1024) return launch_tc<8, LN>(x, w1, b1, w2, b2, res, g, beta, out, n, f, act, eps, s);
+    if (h == 768) {
+      return launch_tc<6, LN, DROP>(x, w1, b1, w2, b2, res, g, beta, out, n, f,
+                                    act, eps, act_drop, out_drop, s);
+    }
+    if (h == 1024) {
+      return launch_tc<8, LN, DROP>(x, w1, b1, w2, b2, res, g, beta, out, n, f,
+                                    act, eps, act_drop, out_drop, s);
+    }
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch_f32<LN>(x, w1, b1, w2, b2, res, g, beta, out, n, h, f, act, eps,
-                        s);
+  return launch_f32<LN, DROP>(x, w1, b1, w2, b2, res, g, beta, out, n, h, f,
+                              act, eps, act_drop, out_drop, s);
 }
 
 }  // namespace
@@ -338,14 +390,45 @@ extern "C" int smx_ffn_res_ln(const void* x, const void* w1, const float* b1,
                               const float* g, const float* beta, void* out,
                               int n, int h, int f, int act, float eps,
                               int dtype, int device, void* stream) {
-  return launch<true>(x, w1, b1, w2, b2, res, g, beta, out, n, h, f, act, eps,
-                      dtype, device, stream);
+  return launch<true, false>(x, w1, b1, w2, b2, res, g, beta, out, n, h, f,
+                             act, eps, smx::Dropout{}, smx::Dropout{}, dtype,
+                             device, stream);
 }
 
 extern "C" int smx_ffn_fused(const void* x, const void* w1, const float* b1,
                              const void* w2, const float* b2, void* out, int n,
                              int h, int f, int act, int dtype, int device,
                              void* stream) {
-  return launch<false>(x, w1, b1, w2, b2, nullptr, nullptr, nullptr, out, n, h,
-                       f, act, 0.0f, dtype, device, stream);
+  return launch<false, false>(x, w1, b1, w2, b2, nullptr, nullptr, nullptr,
+                              out, n, h, f, act, 0.0f, smx::Dropout{},
+                              smx::Dropout{}, dtype, device, stream);
+}
+
+// K12: k0, k1 the site's key; (threshold, scale) of the activation mask
+// (stream 0) and of the output mask (stream 1), from the host.
+extern "C" int smx_ffn_dropout_res_ln(
+    const void* x, const void* w1, const float* b1, const void* w2,
+    const float* b2, const void* res, const float* g, const float* beta,
+    void* out, int n, int h, int f, int act, float eps, uint32_t k0,
+    uint32_t k1, uint32_t act_threshold, float act_scale,
+    uint32_t out_threshold, float out_scale, int dtype, int device,
+    void* stream) {
+  return launch<true, true>(
+      x, w1, b1, w2, b2, res, g, beta, out, n, h, f, act, eps,
+      smx::make_dropout(k0, k1, smx::kStreamAct, act_threshold, act_scale),
+      smx::make_dropout(k0, k1, smx::kStreamOut, out_threshold, out_scale),
+      dtype, device, stream);
+}
+
+// K13: the activation mask only.
+extern "C" int smx_ffn_dropout(const void* x, const void* w1, const float* b1,
+                               const void* w2, const float* b2, void* out,
+                               int n, int h, int f, int act, uint32_t k0,
+                               uint32_t k1, uint32_t act_threshold,
+                               float act_scale, int dtype, int device,
+                               void* stream) {
+  return launch<false, true>(
+      x, w1, b1, w2, b2, nullptr, nullptr, nullptr, out, n, h, f, act, 0.0f,
+      smx::make_dropout(k0, k1, smx::kStreamAct, act_threshold, act_scale),
+      smx::Dropout{}, dtype, device, stream);
 }

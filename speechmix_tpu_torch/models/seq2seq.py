@@ -3,8 +3,11 @@
 The text encoder (``encode``), the decoder (``decode``: cached single steps
 over ``precompute_cross_kv`` / ``init_decoder_cache`` for generation, or the
 uncached teacher-forcing pass for training) and the training forward
-``seq2seq_apply``, deterministic (no dropout).  Layers are lists of parameter
-dicts.  T5, dropout and adapters are not ported yet.
+``seq2seq_apply``.  With a ``dropout_rng`` (a DropoutKey; uncached passes
+only) they train with dropout at HF BART's placements: the embeddings, the
+attention probabilities, each attention output and the FFN's activation and
+output.  Layers are lists of parameter dicts.  T5 and adapters are not
+ported yet.
 
 Cache layout: self K/V (L, B, capacity, H, D), written in place by each
 step; cross K/V (L, B_enc, T_enc, H, D), in the compute dtype or, with
@@ -30,6 +33,7 @@ import torch.nn.functional as F
 from ..config import Seq2SeqConfig
 from ..ops import layers
 from ..ops.attention import KVCache, attention, cache_position_bias
+from ..ops.kernels.dropout import check_key, split_or_none
 from ..ops.masking import combine_masks_to_bias
 from ..ops.kernels.decode_attention import (decode_attention,
                                             decode_attention_plain)
@@ -68,25 +72,39 @@ def embed_tokens(params, cfg: Seq2SeqConfig, input_ids, dtype=torch.float32):
     return x
 
 
-def _encoder_block(block, cfg, x, kv_mask, dtype):
-    a, _ = attention(block["self_attn"], x, kv_mask=kv_mask,
-                     num_heads=cfg.num_heads, head_dim=cfg.per_head_dim,
-                     dtype=dtype, out_proj=False)
-    x = layers.dense_residual_ln_apply(
-        block["self_attn"]["out_proj"], block["self_attn_layer_norm"], a, x,
-        dtype, cfg.layer_norm_eps)
+def _ffn_block(block, cfg, x, dtype, key):
+    """The post-LN FFN block with its two dropout sites."""
     return layers.ffn_residual_ln_apply(
         block["fc1"], block["fc2"], block["final_layer_norm"], x,
-        cfg.activation, dtype, cfg.layer_norm_eps)
+        cfg.activation, dtype, cfg.layer_norm_eps, key=key,
+        act_dropout=cfg.activation_dropout, out_dropout=cfg.dropout)
+
+
+def _encoder_block(block, cfg, x, kv_mask, dtype, dropout_rng=None):
+    k_attn, k_h1, k_ffn = split_or_none(dropout_rng, 3)
+    a, _ = attention(block["self_attn"], x, kv_mask=kv_mask,
+                     num_heads=cfg.num_heads, head_dim=cfg.per_head_dim,
+                     dtype=dtype, out_proj=False,
+                     dropout_rate=cfg.attention_dropout, dropout_rng=k_attn)
+    x = layers.dense_residual_ln_apply(
+        block["self_attn"]["out_proj"], block["self_attn_layer_norm"], a, x,
+        dtype, cfg.layer_norm_eps, key=k_h1, dropout_rate=cfg.dropout)
+    return _ffn_block(block, cfg, x, dtype, k_ffn)
+
+
+def _layer_keys(key, n_layers):
+    return [None] * n_layers if key is None else key.split(n_layers)
 
 
 def encode(params, cfg: Seq2SeqConfig, input_ids=None, inputs_embeds=None,
            attention_mask=None, output_hidden_states=False,
-           dtype=torch.float32):
+           dtype=torch.float32, dropout_rng=None):
     """Text encoder over token ids or precomputed embeddings (the SpeechMix
     fusion feeds speech-derived `inputs_embeds`).  Returns
     dict(last_hidden_state, mask[, hidden_states (L+1, B, T, H)])."""
     _check_supported(cfg)
+    check_key(dropout_rng)
+    k_emb, k_layers = split_or_none(dropout_rng, 2)
     enc = params["encoder"]
     if inputs_embeds is None:
         inputs_embeds = embed_tokens(params, cfg, input_ids, dtype)
@@ -98,9 +116,11 @@ def encode(params, cfg: Seq2SeqConfig, input_ids=None, inputs_embeds=None,
                        torch.arange(t, device=device) + 2, dtype)
     x = layers.layer_norm(enc["layernorm_embedding"], inputs_embeds + pos,
                           cfg.layer_norm_eps)
+    x = layers.dropout(x, cfg.dropout, k_emb)
     hidden = [x] if output_hidden_states else None
-    for block in enc["layers"]:
-        x = _encoder_block(block, cfg, x, attention_mask, dtype)
+    for block, key in zip(enc["layers"],
+                          _layer_keys(k_layers, len(enc["layers"]))):
+        x = _encoder_block(block, cfg, x, attention_mask, dtype, key)
         if hidden is not None:
             hidden.append(x)
     out = {"last_hidden_state": x, "mask": attention_mask}
@@ -192,50 +212,57 @@ def _cross_attention(attn_params, cfg, x_q, k, v, kv_mask, dtype,
 def _decoder_block(block, cfg, x, self_bias, self_kv_mask, layer_cache,
                    cross_k, cross_v, cross_kv_mask, dtype, cross_k_scale=None,
                    cross_v_scale=None, self_causal=False, enc_hidden=None,
-                   cross_bias=None):
+                   cross_bias=None, dropout_rng=None):
     """One post-LN decoder block.  Cached: cross-attention over the
     precomputed cross_k / cross_v.  Uncached (layer_cache None): causal
-    self-attention and cross-attention over enc_hidden under cross_bias."""
+    self-attention and cross-attention over enc_hidden under cross_bias,
+    with dropout at HF's placements when dropout_rng is given."""
+    k_sattn, k_h1, k_cattn, k_h2, k_ffn = split_or_none(dropout_rng, 5)
     a, new_cache = attention(block["self_attn"], x, bias=self_bias,
                              kv_mask=self_kv_mask, causal=self_causal,
                              num_heads=cfg.num_heads,
                              head_dim=cfg.per_head_dim, cache=layer_cache,
-                             dtype=dtype, out_proj=False)
+                             dtype=dtype, out_proj=False,
+                             dropout_rate=cfg.attention_dropout,
+                             dropout_rng=k_sattn)
     x = layers.dense_residual_ln_apply(
         block["self_attn"]["out_proj"], block["self_attn_layer_norm"], a, x,
-        dtype, cfg.layer_norm_eps)
+        dtype, cfg.layer_norm_eps, key=k_h1, dropout_rate=cfg.dropout)
     if enc_hidden is not None:
         a, _ = attention(block["encoder_attn"], x, x_kv=enc_hidden,
                          bias=cross_bias, num_heads=cfg.num_heads,
                          head_dim=cfg.per_head_dim, dtype=dtype,
-                         out_proj=False)
+                         out_proj=False, dropout_rate=cfg.attention_dropout,
+                         dropout_rng=k_cattn)
     else:
         a = _cross_attention(block["encoder_attn"], cfg, x, cross_k, cross_v,
                              cross_kv_mask, dtype, cross_k_scale,
                              cross_v_scale)
     x = layers.dense_residual_ln_apply(
         block["encoder_attn"]["out_proj"], block["encoder_attn_layer_norm"],
-        a, x, dtype, cfg.layer_norm_eps)
-    x = layers.ffn_residual_ln_apply(
-        block["fc1"], block["fc2"], block["final_layer_norm"], x,
-        cfg.activation, dtype, cfg.layer_norm_eps)
-    return x, new_cache
+        a, x, dtype, cfg.layer_norm_eps, key=k_h2, dropout_rate=cfg.dropout)
+    return _ffn_block(block, cfg, x, dtype, k_ffn), new_cache
 
 
 def decode(params, cfg: Seq2SeqConfig, decoder_input_ids, encoder_mask=None,
            cache: Optional[DecoderCache] = None, dtype=torch.float32,
-           enc_hidden=None, decoder_mask=None):
+           enc_hidden=None, decoder_mask=None, dropout_rng=None):
     """Decoder forward.
 
     With a cache: incremental step; decoder_input_ids (B, q_len) continue at
     position cache.self_kv.index, and the new self K/V are written into the
     cache in place.  Without one: the full teacher-forcing pass over
     enc_hidden (B, T_enc, H) for training, differentiable, causal over
-    q_len, with decoder_mask (B, q_len) as the self-attention key mask.
-    Returns dict(logits (B, q_len, V) float32, cache (None when uncached))."""
+    q_len, with decoder_mask (B, q_len) as the self-attention key mask, and
+    with dropout when dropout_rng is given (a cached step ignores it: it is
+    inference).  Returns dict(logits (B, q_len, V) float32, cache (None when
+    uncached))."""
     _check_supported(cfg)
+    check_key(dropout_rng)
     if cache is None and enc_hidden is None:
         raise ValueError("decode() needs a cache or enc_hidden")
+    k_emb, k_layers = split_or_none(
+        None if cache is not None else dropout_rng, 2)
     dec = params["decoder"]
     b, q_len = decoder_input_ids.shape
     device = decoder_input_ids.device
@@ -245,6 +272,7 @@ def decode(params, cfg: Seq2SeqConfig, decoder_input_ids, encoder_mask=None,
                        offset + torch.arange(q_len, device=device) + 2, dtype)
     x = layers.layer_norm(dec["layernorm_embedding"], x + pos,
                           cfg.layer_norm_eps)
+    x = layers.dropout(x, cfg.dropout, k_emb)
 
     if cache is None:
         # a structured key mask with causal=True keeps K1 / K7 reachable; the
@@ -254,11 +282,12 @@ def decode(params, cfg: Seq2SeqConfig, decoder_input_ids, encoder_mask=None,
                                    device=device))
         cross_bias = (None if encoder_mask is None
                       else combine_masks_to_bias(kv_mask=encoder_mask))
-        for block in dec["layers"]:
+        for block, key in zip(dec["layers"],
+                              _layer_keys(k_layers, len(dec["layers"]))):
             x, _ = _decoder_block(block, cfg, x, None, self_kv_mask, None,
                                   None, None, None, dtype, self_causal=True,
                                   enc_hidden=enc_hidden,
-                                  cross_bias=cross_bias)
+                                  cross_bias=cross_bias, dropout_rng=key)
         new_cache = None
     else:
         capacity = cache.self_kv.key.shape[2]
@@ -293,22 +322,24 @@ def decode(params, cfg: Seq2SeqConfig, decoder_input_ids, encoder_mask=None,
 def seq2seq_apply(params, cfg: Seq2SeqConfig, input_ids=None,
                   inputs_embeds=None, attention_mask=None,
                   decoder_input_ids=None, decoder_mask=None, labels=None,
-                  dtype=torch.float32):
+                  dtype=torch.float32, dropout_rng=None):
     """Full training / evaluation forward: text encoder, teacher-forced
     decoder, and the mean cross-entropy over labels != -100 when labels
     (B, L) are given (decoder inputs then default to the labels shifted
-    right).  Returns dict(logits, encoder_last_hidden_state, encoder_mask
-    [, loss])."""
+    right); dropout_rng (a DropoutKey) trains with dropout.  Returns
+    dict(logits, encoder_last_hidden_state, encoder_mask[, loss])."""
+    check_key(dropout_rng)
+    k_enc, k_dec = split_or_none(dropout_rng, 2)
     if decoder_input_ids is None and labels is not None:
         decoder_input_ids = shift_tokens_right(
             labels, cfg.pad_token_id, cfg.decoder_start_token_id)
     enc = encode(params, cfg, input_ids=input_ids,
                  inputs_embeds=inputs_embeds, attention_mask=attention_mask,
-                 dtype=dtype)
+                 dtype=dtype, dropout_rng=k_enc)
     dec_out = decode(params, cfg, decoder_input_ids,
                      encoder_mask=enc["mask"], dtype=dtype,
                      enc_hidden=enc["last_hidden_state"],
-                     decoder_mask=decoder_mask)
+                     decoder_mask=decoder_mask, dropout_rng=k_dec)
     out = {"logits": dec_out["logits"],
            "encoder_last_hidden_state": enc["last_hidden_state"],
            "encoder_mask": enc["mask"]}

@@ -1,14 +1,24 @@
 """wav2vec2-family speech encoder (port of
-``speechmix_tpu.models.speech_encoder``), deterministic.
+``speechmix_tpu.models.speech_encoder``).
 
 Conv feature extractor (optionally with kernel K6 for its stride-2 layers)
--> feature projection -> masked positional conv -> post-LN transformer
-layers.  Layers are a list of parameter dicts (the JAX package stacks them
-on a leading axis for ``lax.scan``).  Every step is differentiable, through
-PyTorch autograd or the kernels' own backward functions, so the same code
-serves and trains.  The stochastic parts of training (SpecAugment,
-LayerDrop, dropout) and the pre-LN ("stable layer norm") form are not
-ported yet.
+-> feature projection -> [SpecAugment] -> masked positional conv -> post-LN
+transformer layers [with LayerDrop].  Layers are a list of parameter dicts
+(the JAX package stacks them on a leading axis for ``lax.scan``).  Every
+step is differentiable, through PyTorch autograd or the kernels' own
+backward functions, so the same code serves and trains.
+
+With a ``dropout_rng`` (a DropoutKey) the forward trains as HF's
+Wav2Vec2Model does: dropout at the feature projection, after the positional
+embedding and at each layer's four sites (attention probabilities, the
+attention output, the activation, the FFN output), SpecAugment time (and
+feature) masking, and LayerDrop.  SpecAugment's span sampler is a pure
+function of its uniform draws, which come from a ``torch.Generator`` seeded
+from the site key; LayerDrop draws its decisions on the host from its key
+and skips a dropped layer (HF's skip_the_layer; the JAX package selects the
+layer's input instead, with the same result and gradient), so a step knows
+its kernel launches without reading the device.  The pre-LN ("stable layer
+norm") form is not ported yet.
 """
 
 from __future__ import annotations
@@ -20,6 +30,7 @@ from ..config import SpeechEncoderConfig
 from ..ops import layers
 from ..ops.attention import attention
 from ..ops.kernels.conv_extractor import fused_conv_stack
+from ..ops.kernels.dropout import check_key, split_or_none
 from ..ops.masking import length_mask
 from .init import conv_params, dense_params, layer_norm_params
 
@@ -95,29 +106,102 @@ def extract_features(params, cfg: SpeechEncoderConfig, waveform,
     return x
 
 
-def _encoder_layer(layer_params, x, kv_mask, cfg, dtype):
+def _host_generator(key):
+    """A CPU torch.Generator seeded from a DropoutKey: its draws are the
+    same on every machine."""
+    return torch.Generator().manual_seed(key.seed & ((1 << 63) - 1))
+
+
+def mask_span_draws(key, batch, size, device):
+    """The uniform draws of one compute_mask_spans call: a shared rounding
+    eps () and the (batch, size) start scores, from `key`."""
+    gen = _host_generator(key)
+    eps = torch.rand((), generator=gen)
+    u = torch.rand((batch, size), generator=gen)
+    return eps.to(device), u.to(device)
+
+
+def compute_mask_spans(eps, u, lengths, prob, mask_len, min_masks):
+    """SpecAugment span sampler with HF's semantics
+    (modeling_wav2vec2._compute_mask_indices), as a pure function of its
+    draws, the JAX package's ``compute_mask_spans`` after its two draws:
+
+      * num = floor(prob * L / mask_len + eps) per row of valid length L,
+        then max(num, min_masks), capped at size // mask_len and at
+        max(L - (mask_len - 1), 0);
+      * the span starts are the num largest scores of u among the valid
+        starts [0, L - mask_len]: a uniform sample without replacement.
+
+    eps: () uniform; u: (B, size) uniform; lengths: (B,).  Returns (B, size)
+    bool, True = masked."""
+    b, size = u.shape
+    lengths = lengths.long()
+    num = torch.floor(prob * lengths.float() / mask_len + eps).long()
+    num = torch.clamp(num, min=min_masks)
+    num = torch.where(num * mask_len > size, size // mask_len, num)
+    room = torch.clamp(lengths - (mask_len - 1), min=0)
+    num = torch.minimum(num, room)
+    # a bound on the spans of a row, known on the host: a full-length row
+    # with eps -> 1, under HF's caps
+    s_max = max(int(prob * size / mask_len) + 1, min_masks)
+    s_max = min(s_max, size // mask_len, max(size - (mask_len - 1), 0))
+    if s_max <= 0:
+        return torch.zeros((b, size), dtype=torch.bool, device=u.device)
+    pos = torch.arange(size, device=u.device)
+    valid = pos[None, :] < room[:, None]
+    starts = torch.topk(torch.where(valid, u, -1.0), s_max, dim=-1).indices
+    active = torch.arange(s_max, device=u.device)[None, :] < num[:, None]
+    t = pos[None, None, :]
+    span = ((t >= starts[..., None]) & (t < (starts + mask_len)[..., None])
+            & active[..., None])
+    return span.any(dim=1)
+
+
+def compute_time_mask(eps, u, lengths, prob, mask_len, min_masks):
+    """SpecAugment time mask (True = replace with masked_spec_embed)."""
+    return compute_mask_spans(eps, u, lengths, prob, mask_len, min_masks)
+
+
+def layerdrop_skips(key, n_layers, rate):
+    """LayerDrop's decisions, drawn on the host: layer i is skipped iff its
+    uniform draw from `key` is below `rate`."""
+    if rate <= 0.0:
+        return [False] * n_layers
+    u = torch.rand(n_layers, generator=_host_generator(key))
+    return [v < rate for v in u.tolist()]
+
+
+def _encoder_layer(layer_params, x, kv_mask, cfg, dtype, dropout_rng=None):
     """Post-LN layer: attention, then out-projection + residual + LN (K2),
-    then FFN + residual + LN (K3)."""
+    then FFN + residual + LN (K3); with a dropout_rng their dropout twins
+    K14, K11 and K12 at HF Wav2Vec2EncoderLayer's placements."""
+    k_attn, k_h1, k_ffn = split_or_none(dropout_rng, 3)
     attn, _ = attention(layer_params["attention"], x, kv_mask=kv_mask,
-                        num_heads=cfg.num_heads, dtype=dtype, out_proj=False)
+                        num_heads=cfg.num_heads, dtype=dtype, out_proj=False,
+                        dropout_rate=cfg.attention_dropout,
+                        dropout_rng=k_attn)
     x = layers.dense_residual_ln_apply(
         layer_params["attention"]["out_proj"],
         layer_params["attention_layer_norm"], attn, x, dtype,
-        cfg.layer_norm_eps)
+        cfg.layer_norm_eps, key=k_h1, dropout_rate=cfg.dropout)
     return layers.ffn_residual_ln_apply(
         layer_params["ffn_in"], layer_params["ffn_out"],
         layer_params["final_layer_norm"], x, cfg.activation, dtype,
-        cfg.layer_norm_eps)
+        cfg.layer_norm_eps, key=k_ffn, act_dropout=cfg.activation_dropout,
+        out_dropout=cfg.dropout)
 
 
 def speech_encoder_apply(params, cfg: SpeechEncoderConfig, waveform,
                          lengths=None, output_hidden_states=False,
-                         dtype=torch.float32):
+                         dtype=torch.float32, dropout_rng=None):
     """waveform: (B, T_samples) zero-padded; lengths: (B,) sample counts or
-    None for full length.  Returns dict(last_hidden_state (B, T, H),
-    frame_lengths (B,), frame_mask (B, T)[, hidden_states (L+1, B, T, H)
-    with the embedding output first])."""
+    None for full length; dropout_rng: a DropoutKey for training mode, None
+    for the deterministic forward.  Returns dict(last_hidden_state
+    (B, T, H), frame_lengths (B,), frame_mask (B, T), layers_skipped (the
+    indices LayerDrop skipped)[, hidden_states (L+1, B, T, H) with the
+    embedding output first; a skipped layer repeats its input])."""
     _check_supported(cfg)
+    check_key(dropout_rng)
     b, t_samples = waveform.shape
     if lengths is None:
         lengths = torch.full((b,), t_samples, dtype=torch.long,
@@ -126,33 +210,72 @@ def speech_encoder_apply(params, cfg: SpeechEncoderConfig, waveform,
     frame_lengths = cfg.feature_lengths(lengths)
     frame_mask = length_mask(frame_lengths, feats.shape[1])
 
+    k_proj, k_pos, k_layers, k_spec = split_or_none(dropout_rng, 4)
+
     fp = params["feature_projection"]
     h = layers.layer_norm(fp["layer_norm"], feats, cfg.layer_norm_eps)
     h = layers.dense(fp["projection"], h, dtype)
+    h = layers.dropout(h, cfg.feat_proj_dropout, k_proj)
+    if k_spec is not None and cfg.apply_spec_augment:
+        h = _spec_augment(params, cfg, h, frame_lengths, k_spec)
     # zero padded frames before the pos-conv so padding can't leak in
     h = h * frame_mask[..., None].to(h.dtype)
     pos = layers.conv1d_same_grouped(params["pos_conv"], h,
                                      cfg.pos_conv_groups, dtype)
     h = h + F.gelu(pos)
     h = layers.layer_norm(params["encoder_layer_norm"], h, cfg.layer_norm_eps)
+    h = layers.dropout(h, cfg.dropout, k_pos)
 
+    n_layers = len(params["layers"])
+    layer_keys, skips = [None] * n_layers, [False] * n_layers
+    if k_layers is not None:
+        k_layers, k_drop = k_layers.split(2)
+        layer_keys = k_layers.split(n_layers)
+        skips = layerdrop_skips(k_drop, n_layers, cfg.layerdrop)
     hidden = [h] if output_hidden_states else None
-    for layer_params in params["layers"]:
-        h = _encoder_layer(layer_params, h, frame_mask, cfg, dtype)
+    for layer_params, key, skip in zip(params["layers"], layer_keys, skips):
+        if not skip:
+            h = _encoder_layer(layer_params, h, frame_mask, cfg, dtype, key)
         if hidden is not None:
             hidden.append(h)
     out = {"last_hidden_state": h, "frame_lengths": frame_lengths,
-           "frame_mask": frame_mask}
+           "frame_mask": frame_mask,
+           "layers_skipped": [i for i, skip in enumerate(skips) if skip]}
     if hidden is not None:
         out["hidden_states"] = torch.stack(hidden)
     return out
 
 
+def _spec_augment(params, cfg, h, frame_lengths, key):
+    """HF's SpecAugment between the feature projection and the positional
+    conv: time spans replaced by masked_spec_embed (when the tree has it),
+    channel spans zeroed across all frames."""
+    b, t_frames, hdim = h.shape
+    k_time, k_feat = key.split(2)
+    if cfg.mask_time_prob > 0 and "masked_spec_embed" in params:
+        tmask = compute_time_mask(
+            *mask_span_draws(k_time, b, t_frames, h.device), frame_lengths,
+            cfg.mask_time_prob, cfg.mask_time_length,
+            cfg.mask_time_min_masks)
+        h = torch.where(tmask[..., None],
+                        params["masked_spec_embed"].to(h.dtype), h)
+    if cfg.mask_feature_prob > 0:
+        fmask = compute_mask_spans(
+            *mask_span_draws(k_feat, b, hdim, h.device),
+            torch.full((b,), hdim, device=h.device), cfg.mask_feature_prob,
+            cfg.mask_feature_length, cfg.mask_feature_min_masks)
+        h = torch.where(fmask[:, None, :], torch.zeros((), dtype=h.dtype,
+                                                       device=h.device), h)
+    return h
+
+
 def init_speech_encoder(cfg: SpeechEncoderConfig, generator, device,
                         dtype=torch.float32):
     """Random parameters with the JAX package's structure (normal(0, 0.02)
-    dense kernels, scaled-normal convs, unit LayerNorms, zero biases),
-    drawn from `generator`; matrices in `dtype`, vectors in float32."""
+    dense kernels, scaled-normal convs, unit LayerNorms, zero biases,
+    masked_spec_embed uniform in [0, 1) as HF's), drawn from `generator`;
+    matrices in `dtype`, vectors in float32.  masked_spec_embed comes first
+    in the tree, where HF registers it."""
     _check_supported(cfg)
 
     conv_layers = []
@@ -171,7 +294,7 @@ def init_speech_encoder(cfg: SpeechEncoderConfig, generator, device,
         return {name: dense_params(generator, device, dtype, h, h)
                 for name in ("q_proj", "k_proj", "v_proj", "out_proj")}
 
-    return {
+    params = {
         "feature_extractor": {"layers": conv_layers},
         "feature_projection": {
             "layer_norm": layer_norm_params(cfg.feature_dim, device),
@@ -190,3 +313,8 @@ def init_speech_encoder(cfg: SpeechEncoderConfig, generator, device,
             "final_layer_norm": layer_norm_params(h, device),
         } for _ in range(cfg.num_layers)],
     }
+    # drawn last, so the other parameters of a seed are those it gave
+    # before the tree carried this vector
+    embed = torch.rand(h, generator=generator,
+                       device=generator.device).to(device)
+    return {"masked_spec_embed": embed, **params}

@@ -1,6 +1,8 @@
 """SpeechMix fusion (port of ``speechmix_tpu.models.speechmix``): the bridge
-``encode_speech`` that serving and training share, and the deterministic
-training forward ``speechmix_forward`` of the variants eed, fixed and ed.
+``encode_speech`` that serving and training share, and the training forward
+``speechmix_forward`` of the variants eed, fixed and ed, deterministic or,
+with a ``dropout_rng`` (a DropoutKey), with dropout, SpecAugment and
+LayerDrop at HF's placements.
 
 speech encoder -> [learned softmax weighted sum over layer states]
                -> stride-2 conv length adapters (log2(down_scale) of them)
@@ -14,6 +16,7 @@ import torch
 
 from ..config import SpeechMixConfig
 from ..ops import layers
+from ..ops.kernels.dropout import check_key, split_or_none
 from ..ops.masking import downscale_lengths, length_mask
 from . import seq2seq
 from . import speech_encoder as se
@@ -30,15 +33,20 @@ def _check_supported(cfg: SpeechMixConfig):
 
 
 def encode_speech(params, cfg: SpeechMixConfig, input_values, lengths=None,
-                  prompt_ids=None, dtype=torch.float32):
+                  prompt_ids=None, dtype=torch.float32, dropout_rng=None,
+                  details=None):
     """Waveform -> fused inputs_embeds for the text encoder.
     input_values: (B, T_samples) zero-padded; lengths: (B,) sample counts;
     prompt_ids: optional (P,) or (B, P) token ids embedded and put before
-    the speech embeddings.  Returns (inputs_embeds (B, P+T', H_nlp),
-    mask (B, P+T'))."""
+    the speech embeddings; dropout_rng: the speech encoder's training key.
+    A `details` dict receives "layers_skipped" (LayerDrop's skipped layer
+    indices).  Returns (inputs_embeds (B, P+T', H_nlp), mask (B, P+T'))."""
     enc_out = se.speech_encoder_apply(
         params["speech_encoder"], cfg.encoder, input_values, lengths,
-        output_hidden_states=cfg.weighted_sum, dtype=dtype)
+        output_hidden_states=cfg.weighted_sum, dtype=dtype,
+        dropout_rng=dropout_rng)
+    if details is not None:
+        details["layers_skipped"] = enc_out["layers_skipped"]
     h = enc_out["last_hidden_state"]
     if cfg.weighted_sum:
         stacked = enc_out["hidden_states"]  # (L+1, B, T, H)
@@ -72,12 +80,13 @@ def speechmix_forward(params, cfg: SpeechMixConfig, input_values,
 
     labels: (B, L) with -100 padding; decoder inputs default to the labels
     shifted right, or to one start token when there are no labels either.
-    dropout_rng must be None: only the deterministic forward is ported.
-    Returns dict(logits (B, L, V) float32[, loss])."""
+    dropout_rng: a DropoutKey for training mode (split for the speech
+    encoder and the NLP model, as the JAX package splits its rng), None for
+    the deterministic forward.  Returns dict(logits (B, L, V) float32,
+    layers_skipped[, loss])."""
     _check_supported(cfg)
-    if dropout_rng is not None:
-        raise NotImplementedError("training-mode dropout is not ported yet; "
-                                  "pass dropout_rng=None")
+    check_key(dropout_rng)
+    k_speech, k_nlp = split_or_none(dropout_rng, 2)
     dcfg = cfg.decoder
     if decoder_input_ids is None and labels is not None:
         decoder_input_ids = seq2seq.shift_tokens_right(
@@ -86,12 +95,14 @@ def speechmix_forward(params, cfg: SpeechMixConfig, input_values,
         decoder_input_ids = torch.full(
             (input_values.shape[0], 1), dcfg.decoder_start_token_id,
             dtype=torch.long, device=input_values.device)
+    details = {}
     inputs_embeds, enc_mask = encode_speech(params, cfg, input_values,
-                                            lengths, prompt_ids, dtype)
+                                            lengths, prompt_ids, dtype,
+                                            k_speech, details)
     if cfg.variant == "ed":
         out = seq2seq.decode(params["nlp"], dcfg, decoder_input_ids,
                              encoder_mask=enc_mask, dtype=dtype,
-                             enc_hidden=inputs_embeds)
+                             enc_hidden=inputs_embeds, dropout_rng=k_nlp)
         if labels is not None:
             out["loss"] = layers.cross_entropy_with_ignore(out["logits"],
                                                            labels)
@@ -99,8 +110,9 @@ def speechmix_forward(params, cfg: SpeechMixConfig, input_values,
         out = seq2seq.seq2seq_apply(
             params["nlp"], dcfg, inputs_embeds=inputs_embeds,
             attention_mask=enc_mask, decoder_input_ids=decoder_input_ids,
-            labels=labels, dtype=dtype)
-    result = {"logits": out["logits"]}
+            labels=labels, dtype=dtype, dropout_rng=k_nlp)
+    result = {"logits": out["logits"],
+              "layers_skipped": details["layers_skipped"]}
     if labels is not None:
         result["loss"] = out["loss"]
     return result

@@ -9,6 +9,12 @@ capacity.  Everything else (a cached multi-token chunk, an additive bias)
 takes the plain path ``_attend``, which PyTorch differentiates (the training
 cross-attention, whose padding mask arrives as a bias).  The in-place cache
 writes happen only with a cache, never on the training path.
+
+Attention-probability dropout (``dropout_rate`` with a ``dropout_rng``
+DropoutKey): the kernel path runs K14 forward and K15 backward, the mask
+drawn in the kernels; the plain path multiplies its probabilities by the
+same mask (K10 on the card), rows (b * H + h) * Tq + q.  The JAX package's
+two paths draw different streams; the port's draw one.
 """
 
 from __future__ import annotations
@@ -19,7 +25,9 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import layers
-from .kernels.attention import attention_trainable
+from .kernels.attention import (attention_dropout_trainable,
+                                attention_trainable)
+from .kernels.dropout import check_key
 from .kernels.decode_attention import decode_attention
 from .masking import causal_attention_bias, combine_masks_to_bias
 
@@ -39,21 +47,23 @@ def _split_heads(x, num_heads):
     return x.reshape(b, t, num_heads, inner // num_heads)
 
 
-def _attend(q, k, v, bias, scale):
+def _attend(q, k, v, bias, scale, dropout_rate=0.0, dropout_rng=None):
     """q: (B, Tq, H, D), k/v: (B, Tk, H, D), bias: broadcastable to
     (B, H, Tq, Tk) or None.  f32 scores and softmax; probabilities in q's
-    dtype."""
+    dtype, dropped with the mask of dropout_rng (if any)."""
     dtype = q.dtype
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     if bias is not None:
         logits = logits + bias.float()
     probs = torch.softmax(logits, dim=-1).to(dtype)
+    probs = layers.dropout(probs, dropout_rate, dropout_rng)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v.to(dtype))
 
 
 def attention(params, x_q, x_kv=None, bias=None, kv_mask=None, causal=False,
               num_heads=None, head_dim=None, scale=None,
-              cache: Optional[KVCache] = None, dtype=None, out_proj=True):
+              cache: Optional[KVCache] = None, dtype=None, out_proj=True,
+              dropout_rate=0.0, dropout_rng=None):
     """General MHA.  x_q: (B, Tq, Dq); x_kv: (B, Tk, Dk) or None for
     self-attention.  kv_mask: (B, Tk) bool key-padding mask, with `causal`;
     bias: extra additive bias (forces the plain path).  cache: new keys and
@@ -61,7 +71,11 @@ def attention(params, x_q, x_kv=None, bias=None, kv_mask=None, causal=False,
     capacity (kv_mask or bias must exclude unfilled slots).
     out_proj=False returns the concatenated heads (the caller fuses the
     out-projection into its residual + LayerNorm epilogue).
+    dropout_rate / dropout_rng: probability dropout (training, no cache).
     Returns (out, new_cache)."""
+    check_key(dropout_rng)
+    if dropout_rng is None or cache is not None:
+        dropout_rate = 0.0
     dtype = dtype or x_q.dtype
     x_kv = x_q if x_kv is None else x_kv
     if num_heads is None and head_dim is None:
@@ -77,7 +91,10 @@ def attention(params, x_q, x_kv=None, bias=None, kv_mask=None, causal=False,
     v = layers.dense(params["v_proj"], x_kv, dtype)
 
     new_cache = None
-    if cache is None and bias is None:
+    if cache is None and bias is None and dropout_rate > 0.0:
+        out = attention_dropout_trainable(q, k, v, kv_mask, num_heads, scale,
+                                          causal, dropout_rng, dropout_rate)
+    elif cache is None and bias is None:
         out = attention_trainable(q, k, v, kv_mask, num_heads, scale, causal)
     elif (cache is not None and bias is None and not causal
           and kv_mask is not None and x_q.shape[1] == 1):
@@ -109,7 +126,7 @@ def attention(params, x_q, x_kv=None, bias=None, kv_mask=None, causal=False,
                     device=x_q.device)),
                 causal=causal)
             total_bias = struct if total_bias is None else total_bias + struct
-        out = _attend(q, k, v, total_bias, scale)
+        out = _attend(q, k, v, total_bias, scale, dropout_rate, dropout_rng)
         out = out.reshape(out.shape[0], out.shape[1], num_heads * head_dim)
     if out_proj:
         out = layers.dense(params["out_proj"], out, dtype)

@@ -11,6 +11,17 @@ backward kernels of the same file, ``_flash_bwd_fused_layout`` and
 ``_trainable_bwd``: dq, dk and dv with the probabilities recomputed from the
 forward's row log-sum-exp.  ``attention_trainable`` ties the two into one
 differentiable function, the counterpart of ``flash_attention_trainable``.
+
+``attention_dropout_fwd`` (K14, ``smx_attention_dropout_fwd`` of
+``csrc/attention_fwd.cu``) and ``attention_dropout_bwd`` (K15,
+``smx_attention_dropout_bwd`` of ``csrc/attention_bwd.cu``) are the same
+with attention-probability dropout, the mask drawn in the kernel from the
+port's generator (``dropout.py``: stream STREAM_ACT, row (b * H + h) * Tq +
+q, column k) and regenerated by the backward.  They replace the TPU
+package's ``_flash_dropout_fwd_tpu`` and ``_dropout_bwd``;
+``attention_dropout_trainable`` is the counterpart of
+``flash_attention_dropout``.  The plain versions take the mask explicitly
+(``dmask``, (B, H, Tq, Tk) float32).
 """
 
 from __future__ import annotations
@@ -20,6 +31,7 @@ import ctypes
 import torch
 
 from ._cuda import CudaKernel, check_aligned, check_cuda_tensor, dtype_code
+from .dropout import DropoutKey, attention_mask_plain, launch_args
 
 # the TPU kernel's excluded-logit value: finite, so a fully masked row
 # averages its values instead of producing NaN
@@ -34,6 +46,17 @@ BWD_KERNEL = CudaKernel(
     "attention_bwd.cu", "smx_attention_bwd",
     [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 +
     [ctypes.c_float] + [ctypes.c_int] * 3)
+# the dropout twins: the key's two words and the mask's (threshold, scale)
+# after `causal`
+_DROP_ARGS = [ctypes.c_uint32] * 3 + [ctypes.c_float]
+DROPOUT_KERNEL = CudaKernel(
+    "attention_fwd.cu", "smx_attention_dropout_fwd",
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float] +
+    [ctypes.c_int] + _DROP_ARGS + [ctypes.c_int] * 2)
+DROPOUT_BWD_KERNEL = CudaKernel(
+    "attention_bwd.cu", "smx_attention_dropout_bwd",
+    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_float] +
+    [ctypes.c_int] + _DROP_ARGS + [ctypes.c_int] * 2)
 
 
 def _masked_scores(q, k, kv_mask, heads, scale, causal):
@@ -54,15 +77,19 @@ def _masked_scores(q, k, kv_mask, heads, scale, causal):
 
 
 def attention_fwd_plain(q, k, v, kv_mask, heads, scale, causal=False,
-                        return_lse=False):
+                        return_lse=False, dmask=None):
     """softmax(q k^T * scale + mask) v per (batch, head), f32 scores,
     softmax and products, output in q's dtype.  q: (B, Tq, H*D); k, v:
     (B, Tk, H*D); kv_mask: (B, Tk) bool or None.  With return_lse also the
-    float32 row log-sum-exp of the masked logits, (B, H, Tq)."""
+    float32 row log-sum-exp of the masked logits, (B, H, Tq).  dmask:
+    (B, H, Tq, Tk) float32 dropout mask multiplying the probabilities (the
+    log-sum-exp stays undropped), or None."""
     b, tq, hd = q.shape
     tk = k.shape[1]
     s = _masked_scores(q, k, kv_mask, heads, scale, causal)
     p = torch.softmax(s, dim=-1)
+    if dmask is not None:
+        p = p * dmask
     vf = v.float().reshape(b, tk, heads, hd // heads)
     out = torch.einsum("bhqk,bkhd->bqhd", p, vf)
     out = out.reshape(b, tq, hd).to(q.dtype)
@@ -97,29 +124,54 @@ def attention_fwd(q, k, v, kv_mask, heads, scale, causal=False,
     if q.device.type == "cpu":
         return attention_fwd_plain(q, k, v, kv_mask, heads, scale, causal,
                                    return_lse)
+    return _fwd_launch(KERNEL, "attention_fwd", q, k, v, kv_mask, heads,
+                       scale, causal, return_lse, ())
+
+
+def attention_dropout_fwd(q, k, v, kv_mask, heads, scale, causal,
+                          key: DropoutKey, rate, return_lse=False):
+    """K14: attention_fwd with probability dropout at `rate`, the mask of
+    `key` (see attention_fwd_plain's dmask).  CUDA tensors as for
+    attention_fwd."""
+    if q.device.type == "cpu":
+        b, tq, _ = q.shape
+        dmask = attention_mask_plain(key, b, heads, tq, k.shape[1], rate,
+                                     q.device)
+        return attention_fwd_plain(q, k, v, kv_mask, heads, scale, causal,
+                                   return_lse, dmask)
+    return _fwd_launch(DROPOUT_KERNEL, "attention_dropout_fwd", q, k, v,
+                       kv_mask, heads, scale, causal, return_lse,
+                       launch_args(key, rate))
+
+
+def _fwd_launch(kernel, what, q, k, v, kv_mask, heads, scale, causal,
+                return_lse, drop_args):
     b, tq, hd = q.shape
     tk = k.shape[1]
-    kv_mask, code = _check_slabs("attention_fwd", q, k, v, kv_mask, heads)
+    kv_mask, code = _check_slabs(what, q, k, v, kv_mask, heads)
     if q.dtype == torch.bfloat16:
         for name, t in (("q", q), ("k", k), ("v", v)):
             check_aligned(name, t, 16)
     out = torch.empty_like(q)
     lse = (torch.empty((b, heads, tq), dtype=torch.float32, device=q.device)
            if return_lse else None)
-    KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    kernel.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                   kv_mask.data_ptr(), out.data_ptr(),
                   None if lse is None else lse.data_ptr(), b, tq, tk, heads,
-                  HEAD_DIM, float(scale), int(bool(causal)), code,
+                  HEAD_DIM, float(scale), int(bool(causal)), *drop_args, code,
                   q.device.index)
     return (out, lse) if return_lse else out
 
 
-def attention_bwd_plain(q, k, v, kv_mask, g, heads, scale, causal=False):
+def attention_bwd_plain(q, k, v, kv_mask, g, heads, scale, causal=False,
+                        dmask=None):
     """(dq, dk, dv) of attention_fwd_plain for d(out) = g, by recomputing the
     probabilities: p = softmax(s) in f32, dv = round(p)^T g,
     ds = round(p * (g v^T - rowsum(g v^T * p))), dq = ds k * scale,
     dk = ds^T q * scale, round() to g's dtype, sums in f32 (the formulas and
-    roundings of the TPU package's backward)."""
+    roundings of the TPU package's backward).  With a dropout mask dmask:
+    dv = round(p * dmask)^T g and dp = (g v^T) * dmask, as the TPU package's
+    _dropout_ref_bwd."""
     b, tq, hd = q.shape
     tk = k.shape[1]
     d = hd // heads
@@ -129,8 +181,11 @@ def attention_bwd_plain(q, k, v, kv_mask, g, heads, scale, causal=False):
     kf = k.float().reshape(b, tk, heads, d)
     vf = v.float().reshape(b, tk, heads, d)
     gf = g.float().reshape(b, tq, heads, d)
-    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(g.dtype).float(), gf)
+    pd = p if dmask is None else p * dmask
+    dv = torch.einsum("bhqk,bqhd->bkhd", pd.to(g.dtype).float(), gf)
     dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
+    if dmask is not None:
+        dp = dp * dmask
     ds = p * (dp - (dp * p).sum(-1, keepdim=True))
     ds = ds.to(g.dtype).float()
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
@@ -149,9 +204,32 @@ def attention_bwd(q, k, v, kv_mask, out, lse, g, heads, scale, causal=False):
     lse of shape (B, H, Tq)."""
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, kv_mask, g, heads, scale, causal)
+    return _bwd_launch(BWD_KERNEL, "attention_bwd", q, k, v, kv_mask, out,
+                       lse, g, heads, scale, causal, ())
+
+
+def attention_dropout_bwd(q, k, v, kv_mask, out, lse, g, heads, scale,
+                          causal, key: DropoutKey, rate):
+    """K15: (dq, dk, dv) of attention_dropout_fwd for d(out) = g, the mask
+    of `key` regenerated per tile; `out` and `lse` are what
+    attention_dropout_fwd(..., return_lse=True) returned.  CUDA tensors as
+    for attention_bwd."""
+    if q.device.type == "cpu":
+        b, tq, _ = q.shape
+        dmask = attention_mask_plain(key, b, heads, tq, k.shape[1], rate,
+                                     q.device)
+        return attention_bwd_plain(q, k, v, kv_mask, g, heads, scale, causal,
+                                   dmask)
+    return _bwd_launch(DROPOUT_BWD_KERNEL, "attention_dropout_bwd", q, k, v,
+                       kv_mask, out, lse, g, heads, scale, causal,
+                       launch_args(key, rate))
+
+
+def _bwd_launch(kernel, what, q, k, v, kv_mask, out, lse, g, heads, scale,
+                causal, drop_args):
     b, tq, hd = q.shape
     tk = k.shape[1]
-    kv_mask, code = _check_slabs("attention_bwd", q, k, v, kv_mask, heads)
+    kv_mask, code = _check_slabs(what, q, k, v, kv_mask, heads)
     check_cuda_tensor("out", out, q.dtype, (b, tq, hd), q.device)
     check_cuda_tensor("g", g, q.dtype, (b, tq, hd), q.device)
     check_cuda_tensor("lse", lse, torch.float32, (b, heads, tq), q.device)
@@ -159,12 +237,11 @@ def attention_bwd(q, k, v, kv_mask, out, lse, g, heads, scale, causal=False):
         check_aligned(name, t, 16)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty_like(lse)
-    BWD_KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      out.data_ptr(), g.data_ptr(), kv_mask.data_ptr(),
-                      lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                      dk.data_ptr(), dv.data_ptr(), b, tq, tk, heads,
-                      HEAD_DIM, float(scale), int(bool(causal)), code,
-                      q.device.index)
+    kernel.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  g.data_ptr(), kv_mask.data_ptr(), lse.data_ptr(),
+                  delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                  dv.data_ptr(), b, tq, tk, heads, HEAD_DIM, float(scale),
+                  int(bool(causal)), *drop_args, code, q.device.index)
     return dq, dk, dv
 
 
@@ -195,3 +272,36 @@ def attention_trainable(q, k, v, kv_mask, heads, scale, causal=False):
     also writes the row log-sum-exp when a gradient is wanted), K7 backward.
     Nothing of size (Tq, Tk) is kept for the backward."""
     return _Attention.apply(q, k, v, kv_mask, heads, scale, causal)
+
+
+class _AttentionDropout(torch.autograd.Function):
+    """attention_dropout_fwd (K14) with attention_dropout_bwd (K15) as its
+    backward; the key, not the mask, is kept."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, heads, scale, causal, key, rate):
+        ctx.heads, ctx.scale, ctx.causal = heads, scale, causal
+        ctx.key, ctx.rate = key, rate
+        if not any(ctx.needs_input_grad[:3]):
+            return attention_dropout_fwd(q, k, v, kv_mask, heads, scale,
+                                         causal, key, rate)
+        out, lse = attention_dropout_fwd(q, k, v, kv_mask, heads, scale,
+                                         causal, key, rate, return_lse=True)
+        ctx.save_for_backward(q, k, v, kv_mask, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, kv_mask, out, lse = ctx.saved_tensors
+        dq, dk, dv = attention_dropout_bwd(
+            q, k, v, kv_mask, out, lse, g.to(q.dtype).contiguous(), ctx.heads,
+            ctx.scale, ctx.causal, ctx.key, ctx.rate)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+def attention_dropout_trainable(q, k, v, kv_mask, heads, scale, causal,
+                                key: DropoutKey, rate):
+    """Differentiable masked MHA with probability dropout on (B, T, H*D)
+    slabs: K14 forward, K15 backward; nothing of size (Tq, Tk) is kept."""
+    return _AttentionDropout.apply(q, k, v, kv_mask, heads, scale, causal,
+                                   key, rate)

@@ -1,6 +1,7 @@
 """K2, K3, K8 and K9: the dense and FFN products of a transformer block,
 fused with the post-LN residual + LayerNorm epilogue (K2, K3) or without it
-(K9), and the FFN backward (K8).
+(K9), and the FFN backward (K8); and their dropout twins K11, K12, K13 and
+K8's dropout entries.
 
 ``dense_res_ln`` (K2, ``csrc/dense_res_ln.cu``) replaces the TPU kernel
 ``speechmix_tpu/ops/pallas/ffn_kernel.py: dense_res_ln``;
@@ -18,6 +19,23 @@ pre-LayerNorm sum through K9 and runs K8; K2's is plain matrix products, as
 the TPU package has no kernel there; K9's is K8.  They take the weights as
 stored (float32 master weights under bfloat16 compute) and cast inside, so a
 weight gradient reaches its parameter in float32, unrounded.
+
+The dropout twins draw their masks in the kernel from the port's generator
+(``dropout.py``): the activation mask (stream 0) over (N, F), the output
+mask (stream 1) over (N, H), keyed on (row, column).  ``dense_dropout_res_ln``
+(K11, ``smx_dense_dropout_res_ln`` of ``dense_res_ln.cu``) replaces
+``dense_dropout_res_ln_trainable``'s TPU kernel, ``ffn_dropout_res_ln`` (K12)
+``ffn_dropout_res_ln_trainable``'s and ``ffn_dropout`` (K13)
+``ffn_dropout_trainable``'s (``smx_ffn_dropout_res_ln`` and
+``smx_ffn_dropout`` of ``ffn_res_ln.cu``); ``ffn_dropout_bwd_dx`` and
+``ffn_dropout_bwd_dw`` (``ffn_bwd.cu``) regenerate the activation mask in the
+backward, where the TPU package runs XLA.  Their plain versions take explicit
+masks (``*_plain(..., amask, omask)``), so a test can hand them any mask.
+``ffn_dropout_res_ln_trainable``, ``dense_dropout_res_ln_trainable`` and
+``ffn_dropout_trainable`` keep the key, not the masks, for the backward: K12's
+backward recomputes the FFN through K13, regenerates the (N, H) output mask
+with K10, and runs K8's dropout entries; K11's regenerates its output mask
+with K10 and runs plain matrix products.
 """
 
 from __future__ import annotations
@@ -29,6 +47,8 @@ import torch
 import torch.nn.functional as F
 
 from ._cuda import CudaKernel, check_aligned, check_cuda_tensor, dtype_code
+from .dropout import (STREAM_ACT, STREAM_OUT, DropoutKey, dropout_mask,
+                      dropout_mask_plain, launch_args)
 
 ACT_CODES = {"gelu": 0, "gelu_new": 1, "relu": 2, "silu": 3}
 MAX_HIDDEN = 1024  # the kernels hold all h columns of a row tile
@@ -53,6 +73,30 @@ FFN_BWD_DX = CudaKernel(
 FFN_BWD_DW = CudaKernel(
     "ffn_bwd.cu", "smx_ffn_bwd_dw",
     [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8)
+# the dropout twins: the deterministic entry's arguments, then the site key's
+# two words and each mask's (threshold, scale) before the dtype and device
+_KEY = [ctypes.c_uint32, ctypes.c_uint32]
+_MASK = [ctypes.c_uint32, ctypes.c_float]
+DENSE_DROPOUT_RES_LN = CudaKernel(
+    "dense_res_ln.cu", "smx_dense_dropout_res_ln",
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_float] + _KEY +
+    _MASK + [ctypes.c_int] * 2)
+FFN_DROPOUT_RES_LN = CudaKernel(
+    "ffn_res_ln.cu", "smx_ffn_dropout_res_ln",
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_float] + _KEY +
+    _MASK * 2 + [ctypes.c_int] * 2)
+FFN_DROPOUT = CudaKernel(
+    "ffn_res_ln.cu", "smx_ffn_dropout",
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + _KEY + _MASK +
+    [ctypes.c_int] * 2)
+FFN_DROPOUT_BWD_DX = CudaKernel(
+    "ffn_bwd.cu", "smx_ffn_dropout_bwd_dx",
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + _KEY + _MASK +
+    [ctypes.c_int] * 2)
+FFN_DROPOUT_BWD_DW = CudaKernel(
+    "ffn_bwd.cu", "smx_ffn_dropout_bwd_dw",
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + _KEY + _MASK +
+    [ctypes.c_int] * 2)
 # K8's weight-gradient entry splits the rows over this many blocks per chunk
 # of F at most, about 1024 rows each
 DW_MAX_SPLITS = 8
@@ -84,17 +128,42 @@ def dense_res_ln_plain(x, w, b, res, g, beta, eps=1e-5):
     """LayerNorm(res + x @ w + b) * g + beta with f32 products and
     statistics, output in x's dtype.  x: (N, Din); w: (Din, H); res: (N, H);
     b, g, beta: (H,)."""
+    return dense_dropout_res_ln_plain(x, w, b, res, g, beta, None, eps)
+
+
+def dense_dropout_res_ln_plain(x, w, b, res, g, beta, omask, eps=1e-5):
+    """LayerNorm(res + (x @ w + b) * omask) * g + beta, as
+    dense_res_ln_plain; omask: (N, H) float32 or None (no dropout)."""
     y = x.float() @ w.float() + b.float()
+    if omask is not None:
+        y = y * omask
     return _res_ln_f32(y, res, g, beta, eps).to(x.dtype)
+
+
+def _hidden(x, w1, b1, act, amask):
+    """round(act(x @ w1 + b1) * amask) in f32, round() to x's dtype."""
+    h = act_f32(act, x.float() @ w1.float() + b1.float())
+    if amask is not None:
+        h = h * amask
+    return h.to(x.dtype).float()
 
 
 def ffn_res_ln_plain(x, w1, b1, w2, b2, res, g, beta, act="gelu", eps=1e-5):
     """LayerNorm(res + act(x @ w1 + b1) @ w2 + b2) * g + beta with f32
     products; the intermediate is rounded to x's dtype before the second
     product, as the kernels do.  x, res: (N, H); w1: (H, F); w2: (F, H)."""
-    h = act_f32(act, x.float() @ w1.float() + b1.float())
-    h = h.to(x.dtype).float()
-    y = h @ w2.float() + b2.float()
+    return ffn_dropout_res_ln_plain(x, w1, b1, w2, b2, res, g, beta, None,
+                                    None, act, eps)
+
+
+def ffn_dropout_res_ln_plain(x, w1, b1, w2, b2, res, g, beta, amask, omask,
+                             act="gelu", eps=1e-5):
+    """LayerNorm(res + (round(act(x @ w1 + b1) * amask) @ w2 + b2) * omask)
+    * g + beta, as ffn_res_ln_plain; amask: (N, F), omask: (N, H), float32
+    or None."""
+    y = _hidden(x, w1, b1, act, amask) @ w2.float() + b2.float()
+    if omask is not None:
+        y = y * omask
     return _res_ln_f32(y, res, g, beta, eps).to(x.dtype)
 
 
@@ -111,11 +180,24 @@ def dense_res_ln(x, w, b, res, g, beta, eps=1e-5):
         return dense_res_ln_plain(x, w, b, res, g, beta, eps)
     n, din = x.shape
     h = w.shape[1]
+    code = _check_dense("dense_res_ln", x, w, b, res, g, beta)
+    out = torch.empty_like(res)
+    DENSE_RES_LN.launch(x.data_ptr(), w.data_ptr(), b.data_ptr(),
+                        res.data_ptr(), g.data_ptr(), beta.data_ptr(),
+                        out.data_ptr(), n, din, h, float(eps), code,
+                        x.device.index)
+    return out
+
+
+def _check_dense(what, x, w, b, res, g, beta):
+    """Shared checks of the K2 / K11 wrappers; returns the dtype code."""
+    n, din = x.shape
+    h = w.shape[1]
     if h > MAX_HIDDEN:
-        raise ValueError(f"dense_res_ln supports H <= {MAX_HIDDEN}, got {h}")
+        raise ValueError(f"{what} supports H <= {MAX_HIDDEN}, got {h}")
     if x.dtype == torch.bfloat16 and (h not in BF16_HIDDEN or din % 16
                                       or din > MAX_HIDDEN):
-        raise ValueError(f"dense_res_ln in bfloat16 supports H in "
+        raise ValueError(f"{what} in bfloat16 supports H in "
                          f"{BF16_HIDDEN} and Din a multiple of 16 up to "
                          f"{MAX_HIDDEN}, got Din={din}, H={h}")
     check_cuda_tensor("x", x)
@@ -127,12 +209,7 @@ def dense_res_ln(x, w, b, res, g, beta, eps=1e-5):
     if x.dtype == torch.bfloat16:
         check_aligned("x", x, 32)
         check_aligned("w", w, 32)
-    out = torch.empty_like(res)
-    DENSE_RES_LN.launch(x.data_ptr(), w.data_ptr(), b.data_ptr(),
-                        res.data_ptr(), g.data_ptr(), beta.data_ptr(),
-                        out.data_ptr(), n, din, h, float(eps), code,
-                        x.device.index)
-    return out
+    return code
 
 
 def ffn_res_ln(x, w1, b1, w2, b2, res, g, beta, act="gelu", eps=1e-5):
@@ -192,8 +269,13 @@ def ln_bwd(grad, y_pre, g, eps):
 def ffn_fused_plain(x, w1, b1, w2, b2, act="gelu"):
     """act(x @ w1 + b1) @ w2 + b2 with f32 products; the intermediate is
     rounded to x's dtype before the second product, the output once."""
-    h = act_f32(act, x.float() @ w1.float() + b1.float())
-    h = h.to(x.dtype).float()
+    return ffn_dropout_plain(x, w1, b1, w2, b2, None, act)
+
+
+def ffn_dropout_plain(x, w1, b1, w2, b2, amask, act="gelu"):
+    """round(act(x @ w1 + b1) * amask) @ w2 + b2, as ffn_fused_plain;
+    amask: (N, F) float32 or None."""
+    h = _hidden(x, w1, b1, act, amask)
     return (h @ w2.float() + b2.float()).to(x.dtype)
 
 
@@ -233,37 +315,42 @@ def ffn_fused(x, w1, b1, w2, b2, act="gelu"):
     return out
 
 
-def _hidden_and_da(x, g, w1, b1, w2, act):
-    """f32 views of x and g, h = round(act(a)) and da = round(g @ w2^T *
-    act'(a)) for a = x @ w1 + b1 in f32, round() to x's dtype."""
+def _hidden_and_da(x, g, w1, b1, w2, act, amask=None):
+    """f32 views of x and g, h = round(act(a) * amask) and da = round(g @
+    w2^T * act'(a) * amask) for a = x @ w1 + b1 in f32, round() to x's
+    dtype (no amask: no dropout)."""
     xf, gf = x.float(), g.to(x.dtype).float()
     a = xf @ w1.float() + b1.float()
-    hid = act_f32(act, a).to(x.dtype).float()
-    da = (gf @ w2.float().t() * dact_f32(act, a)).to(x.dtype).float()
-    return xf, gf, hid, da
+    hid = act_f32(act, a)
+    da = gf @ w2.float().t() * dact_f32(act, a)
+    if amask is not None:
+        hid, da = hid * amask, da * amask
+    return xf, gf, hid.to(x.dtype).float(), da.to(x.dtype).float()
 
 
-def ffn_bwd_dx_plain(x, g, w1, b1, w2, act="gelu"):
+def ffn_bwd_dx_plain(x, g, w1, b1, w2, act="gelu", amask=None):
     """dx = da @ w1^T in x's dtype (see ffn_bwd_plain)."""
-    _, _, _, da = _hidden_and_da(x, g, w1, b1, w2, act)
+    _, _, _, da = _hidden_and_da(x, g, w1, b1, w2, act, amask)
     return (da @ w1.float().t()).to(x.dtype)
 
 
-def ffn_bwd_dw_plain(x, g, w1, b1, w2, act="gelu"):
+def ffn_bwd_dw_plain(x, g, w1, b1, w2, act="gelu", amask=None):
     """(dw1, db1, dw2) = (x^T da, sum da, h^T g), float32 (see
     ffn_bwd_plain)."""
-    xf, gf, hid, da = _hidden_and_da(x, g, w1, b1, w2, act)
+    xf, gf, hid, da = _hidden_and_da(x, g, w1, b1, w2, act, amask)
     return xf.t() @ da, da.sum(0), hid.t() @ gf
 
 
-def ffn_bwd_plain(x, g, w1, b1, w2, act="gelu"):
+def ffn_bwd_plain(x, g, w1, b1, w2, act="gelu", amask=None):
     """Backward of y = act(x @ w1 + b1) @ w2 + b2 for dy = g: returns
     (dx, dw1, db1, dw2, db2), dx in x's dtype and the rest float32.  With
     a = x @ w1 + b1 in f32: h = round(act(a)), da = round(g @ w2^T *
     act'(a)), round() to x's dtype; dx = da @ w1^T, dw1 = x^T da,
-    dw2 = h^T g, db1 = sum da, db2 = sum g, all sums f32."""
-    dw1, db1, dw2 = ffn_bwd_dw_plain(x, g, w1, b1, w2, act)
-    return (ffn_bwd_dx_plain(x, g, w1, b1, w2, act), dw1, db1, dw2,
+    dw2 = h^T g, db1 = sum da, db2 = sum g, all sums f32.  With amask
+    (N, F), the backward of y = (act(x @ w1 + b1) * amask) @ w2 + b2: h and
+    da carry the mask."""
+    dw1, db1, dw2 = ffn_bwd_dw_plain(x, g, w1, b1, w2, act, amask)
+    return (ffn_bwd_dx_plain(x, g, w1, b1, w2, act, amask), dw1, db1, dw2,
             g.to(x.dtype).float().sum(0))
 
 
@@ -299,6 +386,12 @@ def ffn_bwd_dw(x, g, w1, b1, w2, act="gelu"):
     if x.device.type == "cpu":
         return ffn_bwd_dw_plain(x, g, w1, b1, w2, act)
     n, h, f, code = _check_ffn_bwd("ffn_bwd_dw", x, g, w1, b1, w2, act)
+    return _dw_launch(FFN_BWD_DW, x, g, w1, b1, w2, n, h, f, act, code, ())
+
+
+def _dw_launch(kernel, x, g, w1, b1, w2, n, h, f, act, code, drop_args):
+    """Launch a weight-gradient entry of K8 (`drop_args`: the dropout
+    entry's key and mask arguments, or none)."""
     splits = min(DW_MAX_SPLITS, -(-n // DW_ROWS_PER_SPLIT))
     rows = -(-(-(-n // splits)) // 32) * 32   # per split, a multiple of 32
     splits = -(-n // rows)
@@ -306,10 +399,11 @@ def ffn_bwd_dw(x, g, w1, b1, w2, act="gelu"):
     out = torch.empty(size, dtype=torch.float32, device=x.device)
     ws = (torch.empty(splits * size, dtype=torch.float32, device=x.device)
           if splits > 1 else None)
-    FFN_BWD_DW.launch(x.data_ptr(), g.data_ptr(), w1.data_ptr(),
-                      b1.data_ptr(), w2.data_ptr(), out.data_ptr(),
-                      None if ws is None else ws.data_ptr(), n, h, f,
-                      ACT_CODES[act], splits, rows, code, x.device.index)
+    kernel.launch(x.data_ptr(), g.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+                  w2.data_ptr(), out.data_ptr(),
+                  None if ws is None else ws.data_ptr(), n, h, f,
+                  ACT_CODES[act], splits, rows, *drop_args, code,
+                  x.device.index)
     dw1 = out[:h * f].view(h, f)
     dw2 = out[h * f:2 * h * f].view(f, h)
     return dw1, out[2 * h * f:], dw2
@@ -323,6 +417,115 @@ def ffn_bwd(x, g, w1, b1, w2, act="gelu"):
     kernels, as in the TPU package."""
     dx = ffn_bwd_dx(x, g, w1, b1, w2, act)
     dw1, db1, dw2 = ffn_bwd_dw(x, g, w1, b1, w2, act)
+    return dx, dw1, db1, dw2, g.float().sum(0)
+
+
+def _mask_plain(key, stream, n, cols, rate, device):
+    """The plain mask of (key, stream), or None for rate 0."""
+    if rate <= 0.0:
+        return None
+    return dropout_mask_plain(key, stream, n, cols, rate, device)
+
+
+def dense_dropout_res_ln(x, w, b, res, g, beta, key: DropoutKey, rate,
+                         eps=1e-5):
+    """K11: LayerNorm(res + drop(x @ w + b)) * g + beta, the output mask of
+    (key, STREAM_OUT) at rate `rate`; see dense_dropout_res_ln_plain.  CUDA
+    tensors as for dense_res_ln."""
+    n, din = x.shape
+    h = w.shape[1]
+    if x.device.type == "cpu":
+        return dense_dropout_res_ln_plain(
+            x, w, b, res, g, beta,
+            _mask_plain(key, STREAM_OUT, n, h, rate, x.device), eps)
+    code = _check_dense("dense_dropout_res_ln", x, w, b, res, g, beta)
+    out = torch.empty_like(res)
+    DENSE_DROPOUT_RES_LN.launch(
+        x.data_ptr(), w.data_ptr(), b.data_ptr(), res.data_ptr(), g.data_ptr(),
+        beta.data_ptr(), out.data_ptr(), n, din, h, float(eps),
+        *launch_args(key, rate), code, x.device.index)
+    return out
+
+
+def ffn_dropout_res_ln(x, w1, b1, w2, b2, res, g, beta, key: DropoutKey,
+                       act_rate, out_rate, act="gelu", eps=1e-5):
+    """K12: LayerNorm(res + drop_o(drop_a(act(x @ w1 + b1)) @ w2 + b2)) * g
+    + beta, the activation mask of (key, STREAM_ACT) at act_rate and the
+    output mask of (key, STREAM_OUT) at out_rate (either may be 0); see
+    ffn_dropout_res_ln_plain.  CUDA tensors as for ffn_res_ln."""
+    n, h = x.shape
+    f = w1.shape[1]
+    if x.device.type == "cpu":
+        return ffn_dropout_res_ln_plain(
+            x, w1, b1, w2, b2, res, g, beta,
+            _mask_plain(key, STREAM_ACT, n, f, act_rate, x.device),
+            _mask_plain(key, STREAM_OUT, n, h, out_rate, x.device), act, eps)
+    n, h, f, code = _check_ffn("ffn_dropout_res_ln", x, w1, b1, w2, act)
+    check_cuda_tensor("res", res, x.dtype, (n, h), x.device)
+    for name, t in (("b2", b2), ("g", g), ("beta", beta)):
+        _check_vec(name, t, h, x.device)
+    k0, k1, act_thr, act_scale = launch_args(key, act_rate)
+    _, _, out_thr, out_scale = launch_args(key, out_rate)
+    out = torch.empty_like(res)
+    FFN_DROPOUT_RES_LN.launch(
+        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+        b2.data_ptr(), res.data_ptr(), g.data_ptr(), beta.data_ptr(),
+        out.data_ptr(), n, h, f, ACT_CODES[act], float(eps), k0, k1, act_thr,
+        act_scale, out_thr, out_scale, code, x.device.index)
+    return out
+
+
+def ffn_dropout(x, w1, b1, w2, b2, key: DropoutKey, rate, act="gelu"):
+    """K13: drop_a(act(x @ w1 + b1)) @ w2 + b2, the activation mask of
+    (key, STREAM_ACT); see ffn_dropout_plain.  CUDA tensors as for
+    ffn_fused."""
+    if x.device.type == "cpu":
+        return ffn_dropout_plain(
+            x, w1, b1, w2, b2, _mask_plain(key, STREAM_ACT, x.shape[0],
+                                           w1.shape[1], rate, x.device), act)
+    n, h, f, code = _check_ffn("ffn_dropout", x, w1, b1, w2, act)
+    _check_vec("b2", b2, h, x.device)
+    out = torch.empty_like(x)
+    FFN_DROPOUT.launch(x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+                       w2.data_ptr(), b2.data_ptr(), out.data_ptr(), n, h, f,
+                       ACT_CODES[act], *launch_args(key, rate), code,
+                       x.device.index)
+    return out
+
+
+def ffn_dropout_bwd_dx(x, g, w1, b1, w2, key: DropoutKey, rate, act="gelu"):
+    """K8's input-gradient dropout entry: ffn_bwd_dx with the activation
+    mask of (key, STREAM_ACT) regenerated in the kernel."""
+    if x.device.type == "cpu":
+        return ffn_bwd_dx_plain(x, g, w1, b1, w2, act, _mask_plain(
+            key, STREAM_ACT, x.shape[0], w1.shape[1], rate, x.device))
+    n, h, f, code = _check_ffn_bwd("ffn_dropout_bwd_dx", x, g, w1, b1, w2,
+                                   act)
+    dx = torch.empty_like(x)
+    FFN_DROPOUT_BWD_DX.launch(x.data_ptr(), g.data_ptr(), w1.data_ptr(),
+                              b1.data_ptr(), w2.data_ptr(), dx.data_ptr(), n,
+                              h, f, ACT_CODES[act], *launch_args(key, rate),
+                              code, x.device.index)
+    return dx
+
+
+def ffn_dropout_bwd_dw(x, g, w1, b1, w2, key: DropoutKey, rate, act="gelu"):
+    """K8's weight-gradient dropout entry: ffn_bwd_dw with the activation
+    mask of (key, STREAM_ACT) regenerated in the kernel."""
+    if x.device.type == "cpu":
+        return ffn_bwd_dw_plain(x, g, w1, b1, w2, act, _mask_plain(
+            key, STREAM_ACT, x.shape[0], w1.shape[1], rate, x.device))
+    n, h, f, code = _check_ffn_bwd("ffn_dropout_bwd_dw", x, g, w1, b1, w2,
+                                   act)
+    return _dw_launch(FFN_DROPOUT_BWD_DW, x, g, w1, b1, w2, n, h, f, act,
+                      code, launch_args(key, rate))
+
+
+def ffn_dropout_bwd(x, g, w1, b1, w2, key: DropoutKey, rate, act="gelu"):
+    """Both dropout entries of K8; returns (dx, dw1, db1, dw2, db2) as
+    ffn_bwd does."""
+    dx = ffn_dropout_bwd_dx(x, g, w1, b1, w2, key, rate, act)
+    dw1, db1, dw2 = ffn_dropout_bwd_dw(x, g, w1, b1, w2, key, rate, act)
     return dx, dw1, db1, dw2, g.float().sum(0)
 
 
@@ -440,3 +643,132 @@ def ffn_fused_trainable(x, w1, b1, w2, b2, act="gelu"):
     """Differentiable act(x @ w1 + b1) @ w2 + b2.  x: (N, H) in the compute
     dtype; w1, w2 as stored (cast inside); b1, b2: (F,), (H,) or None."""
     return _FfnFused.apply(x, w1, b1, w2, b2, act)
+
+
+class _FfnDropoutResLn(torch.autograd.Function):
+    """K12 forward; backward: K13 (or K9 at act_rate 0) recomputes the FFN,
+    K10 regenerates the output mask, ln_bwd, then K8's dropout entries (or
+    its deterministic ones at act_rate 0) on the masked gradient.  Nothing
+    of size (N, F) or (N, H) is kept beyond the inputs."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, res, g, beta, key, act_rate,
+                out_rate, act, eps):
+        w1c, w2c = w1.to(x.dtype).contiguous(), w2.to(x.dtype).contiguous()
+        b1c = _vec_or_zeros(b1, w1.shape[1], x.device)
+        b2c = _vec_or_zeros(b2, w2.shape[1], x.device)
+        ctx.act, ctx.eps, ctx.key = act, eps, key
+        ctx.rates = (act_rate, out_rate)
+        ctx.dtypes = _dtypes(w1, b1, w2, b2)
+        ctx.save_for_backward(x, w1c, b1c, w2c, b2c, res, g, beta)
+        return ffn_dropout_res_ln(x, w1c, b1c, w2c, b2c, res,
+                                  g.float().contiguous(),
+                                  beta.float().contiguous(), key, act_rate,
+                                  out_rate, act, eps)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w1c, b1c, w2c, b2c, res, g, beta = ctx.saved_tensors
+        w1, b1, w2, b2 = ctx.dtypes
+        (act_rate, out_rate), key = ctx.rates, ctx.key
+        n, h = x.shape
+        if act_rate > 0.0:
+            f = ffn_dropout(x, w1c, b1c, w2c, b2c, key, act_rate, ctx.act)
+        else:
+            f = ffn_fused(x, w1c, b1c, w2c, b2c, ctx.act)
+        y = f.float()
+        omask = None
+        if out_rate > 0.0:
+            omask = dropout_mask(key, STREAM_OUT, n, h, out_rate, x.device)
+            y = y * omask
+        dy, dgamma, dbeta = ln_bwd(grad, y + res.float(), g, ctx.eps)
+        g_out = (dy if omask is None else dy * omask).to(x.dtype).contiguous()
+        if act_rate > 0.0:
+            dx, dw1, db1, dw2, db2 = ffn_dropout_bwd(
+                x, g_out, w1c, b1c, w2c, key, act_rate, ctx.act)
+        else:
+            dx, dw1, db1, dw2, db2 = ffn_bwd(x, g_out, w1c, b1c, w2c, ctx.act)
+        return (dx, _like(dw1, w1), _like(db1, b1), _like(dw2, w2),
+                _like(db2, b2), dy.to(res.dtype), dgamma.to(g.dtype),
+                dbeta.to(beta.dtype), None, None, None, None, None)
+
+
+def ffn_dropout_res_ln_trainable(x, w1, b1, w2, b2, res, g, beta,
+                                 key: DropoutKey, act_rate, out_rate,
+                                 act="gelu", eps=1e-5):
+    """Differentiable LayerNorm(res + drop_o(drop_a(act(x @ w1 + b1)) @ w2 +
+    b2)) * g + beta, the counterpart of the TPU package's function of this
+    name; operands as for ffn_res_ln_trainable; the masks are those of `key`
+    (streams STREAM_ACT and STREAM_OUT), either rate may be 0."""
+    return _FfnDropoutResLn.apply(x, w1, b1, w2, b2, res, g, beta, key,
+                                  act_rate, out_rate, act, eps)
+
+
+class _DenseDropoutResLn(torch.autograd.Function):
+    """K11 forward; backward by hand in plain matrix products, with the
+    output mask regenerated by K10."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, res, g, beta, key, rate, eps):
+        wc = w.to(x.dtype).contiguous()
+        bc = _vec_or_zeros(b, w.shape[1], x.device)
+        ctx.eps, ctx.key, ctx.rate = eps, key, rate
+        ctx.dtypes = _dtypes(w, b)
+        ctx.save_for_backward(x, wc, bc, res, g, beta)
+        return dense_dropout_res_ln(x, wc, bc, res, g.float().contiguous(),
+                                    beta.float().contiguous(), key, rate, eps)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, wc, bc, res, g, beta = ctx.saved_tensors
+        w, b = ctx.dtypes
+        omask = dropout_mask(ctx.key, STREAM_OUT, x.shape[0], wc.shape[1],
+                             ctx.rate, x.device)
+        y_pre = (x.float() @ wc.float() + bc) * omask + res.float()
+        dy, dgamma, dbeta = ln_bwd(grad, y_pre, g, ctx.eps)
+        g_out = dy * omask
+        g16 = g_out.to(x.dtype)
+        dx = g16 @ wc.t()
+        dw = x.float().t() @ g16.float()
+        return (dx, _like(dw, w), _like(g_out.sum(0), b), dy.to(res.dtype),
+                dgamma.to(g.dtype), dbeta.to(beta.dtype), None, None, None)
+
+
+def dense_dropout_res_ln_trainable(x, w, b, res, g, beta, key: DropoutKey,
+                                   rate, eps=1e-5):
+    """Differentiable LayerNorm(res + drop(x @ w + b)) * g + beta, the
+    counterpart of the TPU package's function of this name; operands as for
+    dense_res_ln_trainable, the output mask of (key, STREAM_OUT)."""
+    return _DenseDropoutResLn.apply(x, w, b, res, g, beta, key, rate, eps)
+
+
+class _FfnDropout(torch.autograd.Function):
+    """K13 forward, K8's dropout entries backward."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, key, rate, act):
+        w1c, w2c = w1.to(x.dtype).contiguous(), w2.to(x.dtype).contiguous()
+        b1c = _vec_or_zeros(b1, w1.shape[1], x.device)
+        b2c = _vec_or_zeros(b2, w2.shape[1], x.device)
+        ctx.act, ctx.key, ctx.rate = act, key, rate
+        ctx.dtypes = _dtypes(w1, b1, w2, b2)
+        ctx.save_for_backward(x, w1c, b1c, w2c)
+        return ffn_dropout(x, w1c, b1c, w2c, b2c, key, rate, act)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w1c, b1c, w2c = ctx.saved_tensors
+        w1, b1, w2, b2 = ctx.dtypes
+        dx, dw1, db1, dw2, db2 = ffn_dropout_bwd(
+            x, grad.to(x.dtype).contiguous(), w1c, b1c, w2c, ctx.key,
+            ctx.rate, ctx.act)
+        return (dx, _like(dw1, w1), _like(db1, b1), _like(dw2, w2),
+                _like(db2, b2), None, None, None)
+
+
+def ffn_dropout_trainable(x, w1, b1, w2, b2, key: DropoutKey, rate,
+                          act="gelu"):
+    """Differentiable drop_a(act(x @ w1 + b1)) @ w2 + b2, the counterpart of
+    the TPU package's function of this name; operands as for
+    ffn_fused_trainable, the activation mask of (key, STREAM_ACT)."""
+    return _FfnDropout.apply(x, w1, b1, w2, b2, key, rate, act)

@@ -10,6 +10,12 @@ blocks of at least ``FUSED_MIN_ROWS`` rows to the fused kernels K3, K2 and K9
 (``ops.kernels.ffn``) through their differentiable forms, whose backward runs
 K9 and K8, as the JAX package sends them to its TPU kernels; smaller blocks
 (the cached decode steps, rows == B) take the plain chain.
+
+Dropout: each site takes one ``DropoutKey`` (None: no dropout).  With a key
+and a rate above 0 the fused blocks run the dropout kernels K12, K11 and K13;
+the plain chain draws the same masks (``dropout``: K10 on the card, the plain
+generator on the CPU), keyed on the same rows and streams, so a site's masks
+do not depend on the row gate.
 """
 
 from __future__ import annotations
@@ -20,6 +26,8 @@ import torch
 import torch.nn.functional as F
 
 from .kernels import ffn as ffn_kernels
+from .kernels import dropout as drop
+from .kernels.dropout import STREAM_ACT, STREAM_OUT
 
 FUSED_MIN_ROWS = 1024  # the JAX row gate: cached decode steps stay plain
 
@@ -80,48 +88,89 @@ def _rows(x):
     return math.prod(x.shape[:-1])
 
 
-def ffn_apply(p1, p2, x, act_name, dtype):
-    """FFN block act(x @ W1 + b1) @ W2 + b2 (no dropout).  Blocks of
-    >= FUSED_MIN_ROWS rows run as one fused kernel (K9), with K8 as its
-    backward."""
+def dropout(x, rate, key, stream=STREAM_ACT):
+    """Inverted dropout at rate `rate` with the mask of (key, stream) (K10 on
+    the card), rows the leading dims of x; the identity for key None or rate
+    0 (the JAX package's ``layers.dropout``, whose rng becomes a
+    DropoutKey).  The multiply is taken in float32, the result has x's
+    dtype."""
+    drop.check_key(key)
+    if key is None or rate <= 0.0:
+        return x
+    mask = drop.dropout_mask(key, stream, _rows(x), x.shape[-1], rate,
+                             x.device)
+    return (x.float() * mask.view(x.shape)).to(x.dtype)
+
+
+def _live(key, rate):
+    return rate if key is not None and rate > 0.0 else 0.0
+
+
+def ffn_apply(p1, p2, x, act_name, dtype, key=None, act_dropout=0.0):
+    """FFN block act(x @ W1 + b1) @ W2 + b2, dropout after the activation
+    (mask of (key, STREAM_ACT)).  Blocks of >= FUSED_MIN_ROWS rows run as
+    one fused kernel (K9, or K13 with dropout), with K8 (its dropout
+    entries) as the backward."""
+    rate = _live(key, act_dropout)
     if _rows(x) >= FUSED_MIN_ROWS:
         lead, h = x.shape[:-1], x.shape[-1]
-        y = ffn_kernels.ffn_fused_trainable(
-            x.to(dtype).reshape(-1, h).contiguous(), p1["kernel"],
-            p1.get("bias"), p2["kernel"], p2.get("bias"), act_name)
+        operands = (x.to(dtype).reshape(-1, h).contiguous(), p1["kernel"],
+                    p1.get("bias"), p2["kernel"], p2.get("bias"))
+        if rate:
+            y = ffn_kernels.ffn_dropout_trainable(*operands, key, rate,
+                                                  act_name)
+        else:
+            y = ffn_kernels.ffn_fused_trainable(*operands, act_name)
         return y.reshape(*lead, y.shape[-1])
-    return dense(p2, activation(act_name)(dense(p1, x, dtype)), dtype)
+    h = dropout(activation(act_name)(dense(p1, x, dtype)), rate, key)
+    return dense(p2, h, dtype)
 
 
-def ffn_residual_ln_apply(p1, p2, p_ln, x, act_name, dtype, eps=1e-5):
-    """Post-LN FFN block: LayerNorm(x + act(x @ W1 + b1) @ W2 + b2).  Blocks
-    of >= FUSED_MIN_ROWS rows run as one fused kernel (K3), differentiable
-    through K9 and K8."""
+def ffn_residual_ln_apply(p1, p2, p_ln, x, act_name, dtype, eps=1e-5, *,
+                          key=None, act_dropout=0.0, out_dropout=0.0):
+    """Post-LN FFN block: LayerNorm(x + drop_o(drop_a(act(x @ W1 + b1)) @ W2
+    + b2)), the masks of (key, STREAM_ACT) and (key, STREAM_OUT).  Blocks of
+    >= FUSED_MIN_ROWS rows run as one fused kernel (K3, or K12 with
+    dropout), differentiable through K9 / K13, K10 and K8."""
+    act_rate, out_rate = _live(key, act_dropout), _live(key, out_dropout)
     if _rows(x) >= FUSED_MIN_ROWS:
         lead, h = x.shape[:-1], x.shape[-1]
         x2 = x.to(dtype).reshape(-1, h).contiguous()
         # the residual is the FFN input itself
-        y = ffn_kernels.ffn_res_ln_trainable(
-            x2, p1["kernel"], p1.get("bias"), p2["kernel"], p2.get("bias"),
-            x2, p_ln["scale"], p_ln["bias"], act_name, eps)
+        operands = (x2, p1["kernel"], p1.get("bias"), p2["kernel"],
+                    p2.get("bias"), x2, p_ln["scale"], p_ln["bias"])
+        if act_rate or out_rate:
+            y = ffn_kernels.ffn_dropout_res_ln_trainable(
+                *operands, key, act_rate, out_rate, act_name, eps)
+        else:
+            y = ffn_kernels.ffn_res_ln_trainable(*operands, act_name, eps)
         return y.reshape(*lead, y.shape[-1])
-    f = dense(p2, activation(act_name)(dense(p1, x, dtype)), dtype)
+    f = ffn_apply(p1, p2, x, act_name, dtype, key, act_rate)
+    f = dropout(f, out_rate, key, STREAM_OUT)
     return layer_norm(p_ln, x + f, eps)
 
 
-def dense_residual_ln_apply(p, p_ln, x, res, dtype, eps=1e-5):
-    """Post-LN attention epilogue: LayerNorm(res + x @ W + b).  Blocks of
-    >= FUSED_MIN_ROWS rows run as one fused kernel (K2), differentiable by
-    plain matrix products."""
+def dense_residual_ln_apply(p, p_ln, x, res, dtype, eps=1e-5, *, key=None,
+                            dropout_rate=0.0):
+    """Post-LN attention epilogue: LayerNorm(res + drop(x @ W + b)), the
+    mask of (key, STREAM_OUT).  Blocks of >= FUSED_MIN_ROWS rows run as one
+    fused kernel (K2, or K11 with dropout), differentiable by plain matrix
+    products."""
+    rate = _live(key, dropout_rate)
     if _rows(x) >= FUSED_MIN_ROWS:
         lead, din = x.shape[:-1], x.shape[-1]
         h = p["kernel"].shape[1]
-        y = ffn_kernels.dense_res_ln_trainable(
-            x.to(dtype).reshape(-1, din).contiguous(), p["kernel"],
-            p.get("bias"), res.to(dtype).reshape(-1, h).contiguous(),
-            p_ln["scale"], p_ln["bias"], eps)
+        operands = (x.to(dtype).reshape(-1, din).contiguous(), p["kernel"],
+                    p.get("bias"), res.to(dtype).reshape(-1, h).contiguous(),
+                    p_ln["scale"], p_ln["bias"])
+        if rate:
+            y = ffn_kernels.dense_dropout_res_ln_trainable(*operands, key,
+                                                           rate, eps)
+        else:
+            y = ffn_kernels.dense_res_ln_trainable(*operands, eps)
         return y.reshape(*lead, h)
-    return layer_norm(p_ln, res + dense(p, x, dtype), eps)
+    a = dropout(dense(p, x, dtype), rate, key, STREAM_OUT)
+    return layer_norm(p_ln, res + a, eps)
 
 
 def cross_entropy_with_ignore(logits, labels, ignore_index=-100):

@@ -6,6 +6,10 @@ floats 0.0 (frozen) or 1.0 (trainable); ``apply_grad_mask`` multiplies
 gradients by it inside the train step.  Paths are the '/'-joined keys and
 list indices from the root ("nlp/decoder/layers/3/fc1/kernel"; the JAX
 package stacks the layers and has no index there, which no predicate reads).
+Trees are walked in insertion order, which the model initialisers and
+``convert.params_from_jax`` keep to HF's registration order: the speech
+encoder's ``masked_spec_embed`` first, then the extractor, as the JAX
+package's tensor ranking orders them (its freezing.py, ``_PRE_GROUPS``).
 Gradual unfreezing and the GAN's alternating masks are not ported yet.
 """
 

@@ -1,15 +1,21 @@
-"""The deterministic train step (port of ``speechmix_tpu.training.trainer``):
-AdamW with warmup and decay, gradient accumulation over micro-batches, the
-variant's static freezing mask, clipping by global norm.
+"""The train step (port of ``speechmix_tpu.training.trainer``): AdamW with
+warmup and decay, gradient accumulation over micro-batches, the variant's
+static freezing mask, clipping by global norm, and with ``dropout=True``
+(the default) training-mode dropout, SpecAugment and LayerDrop at the
+models' rates.
 
 Parameters are float32 master weights; ``TrainConfig.bf16`` selects the
 compute dtype, and the kernels' differentiable forms hand each weight its
 gradient in float32.  ``step_fn`` updates the parameters and the optimizer
 moments in place (the JAX package returns new arrays and donates the old).
 
-Not ported yet, and refused with NotImplementedError: dropout (and with it
-SpecAugment and LayerDrop), Adafactor, gradual unfreezing
-(``freeze_epochs > 0``), model / sequence parallelism and ZeRO-1.
+The dropout keys are host integers, chained as the JAX package chains its
+rng: base = key(seed + 0x5EED), then fold_in(step), then one split per
+micro-batch (``dropout_keys``).  A step is deterministic per (seed, step,
+micro-batch); its streams differ from the JAX package's.
+
+Not ported yet, and refused with NotImplementedError: Adafactor, gradual
+unfreezing (``freeze_epochs > 0``), model / sequence parallelism and ZeRO-1.
 ``Trainer.fit``, evaluation, logging and checkpoints wait as well.
 """
 
@@ -24,6 +30,7 @@ import torch
 from ..config import SpeechMixConfig
 from ..models import speechmix as smx
 from ..ops.kernels._cuda import resolve_device
+from ..ops.kernels.dropout import DropoutKey
 from . import freezing
 from .freezing import tree_map, tree_map_with_path, tree_paths
 
@@ -41,6 +48,7 @@ class TrainConfig:
     grad_accum: int = 1
     max_steps: int = 0  # 0 = no cap: the schedule stays constant after warmup
     bf16: bool = False  # compute dtype
+    seed: int = 0       # of the dropout key chain
     dropout: bool = True
     optimizer: str = "adafactor"
     freeze_epochs: int = 0
@@ -64,9 +72,6 @@ def _check_supported(tc: TrainConfig):
     if tc.optimizer != "adamw":
         raise ValueError(f"unknown optimizer {tc.optimizer!r} (expected "
                          "'adafactor' or 'adamw')")
-    if tc.dropout:
-        raise NotImplementedError("training-mode dropout is not ported yet; "
-                                  "set dropout=False")
     if tc.freeze_epochs > 0:
         raise NotImplementedError("gradual unfreezing is not ported yet; "
                                   "set freeze_epochs=0")
@@ -157,6 +162,16 @@ def global_norm(tree):
         torch.stack(torch._foreach_norm(leaves)))
 
 
+def dropout_keys(tc: TrainConfig, step: int):
+    """The dropout key of each micro-batch of step `step` (counted from 0),
+    or Nones with dropout off: the JAX package's chain
+    split(fold_in(PRNGKey(seed + 0x5EED), step), grad_accum) on host keys."""
+    if not tc.dropout:
+        return [None] * tc.grad_accum
+    base = DropoutKey.from_seed(tc.seed + 0x5EED)
+    return base.fold_in(step).split(tc.grad_accum)
+
+
 def make_train_step(cfg: SpeechMixConfig, tc: TrainConfig, params_example,
                     device=None):
     """Build step_fn(state, batch) -> (state, metrics).
@@ -168,7 +183,8 @@ def make_train_step(cfg: SpeechMixConfig, tc: TrainConfig, params_example,
     loss, averages over the grad_accum micro-batches, applies the variant's
     static mask, clips by global norm and updates.  metrics: "loss" (mean
     over micro-batches) and "grad_norm" (after the mask, before clipping),
-    0-d tensors on the device.
+    0-d tensors on the device, and "layers_skipped", the speech-encoder
+    layers LayerDrop skipped in each micro-batch (host lists).
 
     Runs on `device` (default: the card; raises without CUDA); the state
     must live there.  The parameters and moments of `state` are updated in
@@ -182,15 +198,16 @@ def make_train_step(cfg: SpeechMixConfig, tc: TrainConfig, params_example,
         params_example, cfg, tc.fixed_speech, tc.fixed_nlp)
     accum = tc.grad_accum
 
-    def micro_loss(params, micro):
+    def micro_loss(params, micro, key):
         labels = micro["labels"]
         if "example_mask" in micro:
             labels = torch.where(micro["example_mask"][:, None].bool(),
                                  labels, -100)
         out = smx.speechmix_forward(
             params, cfg, micro["input_values"], lengths=micro.get("lengths"),
-            labels=labels, prompt_ids=micro.get("prompt_ids"), dtype=dtype)
-        return out["loss"]
+            labels=labels, prompt_ids=micro.get("prompt_ids"), dtype=dtype,
+            dropout_rng=key)
+        return out["loss"], out["layers_skipped"]
 
     def step_fn(state: TrainState, batch):
         batch = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
@@ -203,10 +220,12 @@ def make_train_step(cfg: SpeechMixConfig, tc: TrainConfig, params_example,
         sums = {path: torch.zeros_like(leaf, dtype=torch.float32)
                 for path, leaf in wanted}
         loss_sum = torch.zeros((), dtype=torch.float32, device=device)
-        for i in range(accum):
+        skipped = []
+        for i, key in enumerate(dropout_keys(tc, state.step)):
             micro = {k: v.reshape(accum, v.shape[0] // accum,
                                   *v.shape[1:])[i] for k, v in batch.items()}
-            loss = micro_loss(leaves, micro)
+            loss, layers_skipped = micro_loss(leaves, micro, key)
+            skipped.append(layers_skipped)
             grads = torch.autograd.grad(loss, [leaf for _, leaf in wanted],
                                         allow_unused=True)
             for (path, _), g in zip(wanted, grads):
@@ -221,7 +240,8 @@ def make_train_step(cfg: SpeechMixConfig, tc: TrainConfig, params_example,
         grad_norm = global_norm(grads)
         opt_state = optimizer.update_(state.params, grads, state.opt_state,
                                       grad_norm)
-        metrics = {"loss": loss_sum / accum, "grad_norm": grad_norm}
+        metrics = {"loss": loss_sum / accum, "grad_norm": grad_norm,
+                   "layers_skipped": skipped}
         return TrainState(state.params, opt_state, state.step + 1), metrics
 
     return step_fn

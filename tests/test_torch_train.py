@@ -86,11 +86,9 @@ def _t_batch(batch):
 
 
 def _flat(tree):
-    """{path: array} of a JAX-layout tree, without the entries the port
-    drops."""
-    out = {jax.tree_util.keystr(kp): np.asarray(leaf) for kp, leaf in
-           jax.tree_util.tree_flatten_with_path(tree)[0]}
-    return {k: v for k, v in out.items() if "masked_spec_embed" not in k}
+    """{path: array} of a JAX-layout tree."""
+    return {jax.tree_util.keystr(kp): np.asarray(leaf) for kp, leaf in
+            jax.tree_util.tree_flatten_with_path(tree)[0]}
 
 
 def _assert_trees_close(port_tree, jax_tree, rel, atol, noise_atol=None):
@@ -107,8 +105,8 @@ def _assert_trees_close(port_tree, jax_tree, rel, atol, noise_atol=None):
 
 
 def test_tree_to_jax_layout_inverts_params_from_jax():
-    """Stacked layers, conv kernel layout and every leaf survive the round
-    trip (masked_spec_embed, which the port drops, aside)."""
+    """Stacked layers, conv kernel layout and every leaf, masked_spec_embed
+    included, survive the round trip."""
     jc, tc = _cfgs("eed")
     tree = _tree(jc)
     back = _flat(convert.tree_to_jax_layout(convert.params_from_jax(tree, tc)))
@@ -173,8 +171,11 @@ def test_gradient_tree_matches_jax_grad(min_rows, monkeypatch):
     loss = t_smx.speechmix_forward(leaves, tc, tb["input_values"],
                                    tb["lengths"], labels=tb["labels"])["loss"]
     flat = [leaf for _, leaf in t_trainer.tree_paths(leaves)]
-    grads = iter(torch.autograd.grad(loss, flat))
-    grad_tree = t_trainer.tree_map(lambda p: next(grads), leaves)
+    # masked_spec_embed is unused without SpecAugment: its gradient is 0
+    grads = iter(torch.autograd.grad(loss, flat, allow_unused=True))
+    grad_tree = t_trainer.tree_map(
+        lambda p: (lambda g: torch.zeros_like(p) if g is None else g)(
+            next(grads)), leaves)
     _assert_trees_close(grad_tree, ref, rel=1e-4, atol=1e-7)
 
 
@@ -245,7 +246,7 @@ def test_first_update_has_rate_zero_and_loss_falls():
 
 
 @pytest.mark.parametrize("kwargs,error", [
-    (dict(dropout=True, optimizer="adamw"), NotImplementedError),
+    (dict(dropout=True, optimizer="adafactor"), NotImplementedError),
     (dict(dropout=False, optimizer="adafactor"), NotImplementedError),
     (dict(dropout=False, optimizer="adamw", freeze_epochs=2),
      NotImplementedError),
@@ -280,8 +281,11 @@ def test_unported_variants_raise(variant):
 
 
 def test_dropout_generator_is_refused():
+    """The dropout key is a host DropoutKey; a torch.Generator (or any other
+    type) is refused."""
     _, tc = _cfgs("eed")
     params = t_smx.init_speechmix(tc, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError):
-        t_smx.speechmix_forward(params, tc, torch.zeros(1, 4000),
-                                dropout_rng=torch.Generator())
+    for wrong in (torch.Generator(), 1234):
+        with pytest.raises(TypeError):
+            t_smx.speechmix_forward(params, tc, torch.zeros(1, 4000),
+                                    dropout_rng=wrong)
