@@ -9,16 +9,19 @@ Phases, each printing as it goes; any failure exits non-zero:
   3. hold each kernel (K1 attention_fwd and its log-sum-exp, K2
      dense_res_ln, K3 ffn_res_ln, K4 decode_attention with float and with
      int8 K/V, K5 beam_gather, K6 conv_ln_gelu, K7 attention_bwd, K8 ffn_bwd
-     with its two entries, K9 ffn_fused) against its plain PyTorch version on
-     the card, in bf16 and f32, at the shapes the flagship path gives it
-     (K2, K3, K8 and K9 at the train step's 12800, 6400 and 1024 rows), and
-     time kernel, plain version and one PyTorch library call beside it, with
-     the least time the card could take (bound_ms); K5 must be bit-exact;
+     (bf16: its recompute pass and its TMA + wgmma products, the products
+     also alone against reference products; f32: its two f32 entries), K9
+     ffn_fused) against its plain PyTorch version on the card, in bf16 and
+     f32, at the shapes the flagship path gives it (K2, K3, K8 and K9 at the
+     train step's 12800, 6400 and 1024 rows; K8's bf16 backward twice, bit
+     for bit), and time kernel, plain version and one PyTorch library call
+     beside it, with the least time the card could take (bound_ms); K5 must
+     be bit-exact;
      the differentiable forms of K3 and K9 (bf16 activations, f32 weights)
      must give the gradients of the same functions over the plain versions;
      then the dropout kernels: K10 dropout_mask bit-exact against the plain
      generator at the step's mask shapes, K11 dense_dropout_res_ln, K12
-     ffn_dropout_res_ln, K13 ffn_dropout and K8's dropout entries at the
+     ffn_dropout_res_ln, K13 ffn_dropout and K8's dropout twins at the
      step's row counts, K14 / K15 (attention with probability dropout,
      forward / backward) at its attention shapes, each against its plain
      version fed the same key's masks, limits times 1/(1-r); and the
@@ -36,11 +39,12 @@ Phases, each printing as it goes; any failure exits non-zero:
      versions, without and with dropout (one key, so the same masks); then
      the flagship at full width and depth takes 8 AdamW steps (bf16 compute,
      f32 parameters, B = 16 x 16 s, 64 label positions) on one batch: the
-     loss must fall and every step must launch K1, K3, K7, K9 and both
-     entries of K8 24 times each, K2 30 times and K6 6 times; then 8 more
-     with dropout on at the presets' rates, SpecAugment and LayerDrop: with
-     k speech layers skipped, K14, K15, K12, K13 and K8's dropout entries
-     24 - k times, K11 30 - k, K10 64 - 2k, K6 6, and no deterministic twin;
+     loss must fall and every step must launch K1, K3, K7, K9 and K8's
+     recompute and products 24 times each, K2 30 times and K6 6 times; then
+     8 more with dropout on at the presets' rates, SpecAugment and LayerDrop:
+     with k speech layers skipped, K14, K15, K12, K13, K8's dropout
+     recompute and its products 24 - k times, K11 30 - k, K10 64 - 2k, K6 6,
+     and no deterministic twin;
   6. print the `kernels` JSON line, then the card line, then the result
      line {"ok": true, "device": {...}} last.
 Without CUDA it exits 1 before printing any result.
@@ -52,6 +56,7 @@ import argparse
 import itertools
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -352,8 +357,10 @@ def check_kernels(gen, dev):
         rec["bound_by"] = "operations" if t_flops >= t_bytes else "bytes"
         extra = "".join(f" {k} {v:.4f}" for k, v in rec.items()
                         if k.startswith("library_ms_"))
+        lib = ("none" if rec["library_ms"] is None
+               else f"{rec['library_ms']:.4f}")
         log(f"  {rec['shape']}: kernel_ms {rec['ms']:.4f} plain_ms "
-            f"{rec['plain_ms']:.4f} library_ms {rec['library_ms']:.4f}{extra} "
+            f"{rec['plain_ms']:.4f} library_ms {lib}{extra} "
             f"bound_ms {rec['bound_ms']:.4f} ({rec['bound_by']})")
     return records
 
@@ -661,6 +668,47 @@ K8_DW_F32_TOL = (5e-4, 1e-4)
 K8_RELU_NEAR_ZERO = 2e-6
 
 
+def expect_equal(name, got, again):
+    """Two calls of a kernel path without atomics give the same bits."""
+    import torch
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{name}: two calls differ")
+    log(f"  {name}: two calls bit-identical")
+
+
+# K8's products alone, f32 sums of K = 12800 products against the f32
+# reference product: each side's error is a rounding of the running sum per
+# step, a random walk of about sqrt(K) 2^-24 of the sum of the absolute
+# products; 2^-12 of that sum leaves a factor of 30 above it
+K8_PRODUCT_RULE = "2^-12 * (|A||B|) + 1e-6 (f32 sums)"
+
+
+def check_products_alone(randn, x, g, w1):
+    """The TMA + wgmma GEMM of K8 at the three products it runs, given
+    random h and da: dx = da w1^T (bf16 out), dw1 = x^T da and dw2 = h^T g
+    (f32) against the same products in f32 (TF32 off) rounded as the
+    kernel rounds, db1 against the sum of the tile sums; and twice, bit for
+    bit."""
+    import torch
+    from speechmix_tpu_torch.ops.kernels import ffn as kf
+    (n, h), f = x.shape, w1.shape[1]
+    hid, da = randn(n, f, dtype=x.dtype), randn(n, f, dtype=x.dtype)
+    colsum = randn(-(-n // kf.ROW_TILE), f)
+    got = kf.ffn_bwd_products(x, g, w1, hid, da, colsum)
+    torch.cuda.synchronize()
+    what = f"K8 products alone N={n} H={h} F={f}"
+    expect_equal(what, got, kf.ffn_bwd_products(x, g, w1, hid, da, colsum))
+    compare(f"{what} dx = da w1^T", got[0],
+            (da.float() @ w1.float().t()).to(x.dtype))
+    for name_, o, a, b in (("dw1 = x^T da", got[1], x, da),
+                           ("dw2 = h^T g", got[3], hid, g)):
+        a, b = a.float().t(), b.float()
+        compare(f"{what} {name_}", o, a @ b,
+                2.0 ** -12 * (a.abs() @ b.abs()) + 1e-6, K8_PRODUCT_RULE)
+    compare(f"{what} db1", got[2], colsum.sum(0),
+            1e-4 + 1e-4 * colsum.abs().sum(0), "1e-4 (1 + sum |tile sums|)")
+
+
 def check_train_kernels(randn, dev, records):
     """The kernels of the training step at the flagship's shapes, bf16 and
     f32: K1's log-sum-exp output, K7 attention_bwd, K8 ffn_bwd (both
@@ -764,7 +812,7 @@ def check_train_kernels(randn, dev, records):
         return x, g, w1, randn(ff, scale=0.1), w2, randn(hh, scale=0.1)
 
     def ffn_case(x, g, w1, b1, w2, b2, act="gelu"):
-        """K9 and both entries of K8 against their plain versions; returns
+        """K9 and K8 against their plain versions; returns
         the largest errors of (K9, K8 dx, K8 dw)."""
         (n, hh), ff = x.shape, w1.shape[1]
         what = f"N={n} H={hh} F={ff} {act} {x.dtype}"
@@ -782,6 +830,8 @@ def check_train_kernels(randn, dev, records):
         got = kf.ffn_bwd(x, g, w1, b1, w2, act)
         ref = kf.ffn_bwd_plain(x, g, w1, b1, w2, act)
         torch.cuda.synchronize()
+        if x.dtype == bf16:
+            expect_equal(f"K8 {what}", got, kf.ffn_bwd(x, g, w1, b1, w2, act))
         edx = compare(f"K8 dx {what}", got[0], ref[0], allow_count=near * hh)
         edw = max(compare(f"K8 {name} {what}", o, r,
                           dw_tol[0] + dw_tol[1] * r.abs(), dw_rule,
@@ -813,14 +863,17 @@ def check_train_kernels(randn, dev, records):
     # the row counts the train step gives K2, K3, K8 and K9: speech encoder,
     # text encoder and decoder (B = 16 x 16 s, 64 label positions) in bf16,
     # and those of the f32 gradient-tree check (B = 8 x 8 s, 128 label
-    # positions).  The count picks the path of K8's weight-gradient entry:
-    # 12800 rows are 8 splits of 1600, 6400 rows 7 of 928 (the last one
-    # short), 1024 rows one split written without the workspace.
+    # positions).  The count picks the row plan of K8's weight gradients:
+    # bf16 12800 rows are 4 ranges of 3200, 6400 rows 2, 1024 rows one range
+    # written without the workspace; f32 3200 rows 4 of 832 (the last one
+    # short), 1600 rows 2 of 832, 1024 rows one.
     for dtype, row_counts in ((bf16, (12800, 6400, 1024)),
                               (f32, (3200, 1600, 1024))):
         for n in row_counts:
             ops = ffn_operands(n, h, f, dtype)
             errs = ffn_case(*ops)
+            if dtype == bf16:
+                check_products_alone(randn, *ops[:3])
             x, _, w1, b1, w2, b2 = ops
             res, w = randn(n, h, dtype=dtype), randn(h, h, scale=0.03,
                                                      dtype=dtype)
@@ -852,22 +905,43 @@ def check_train_kernels(randn, dev, records):
         library_ms=cuda_ms(lambda: lib().detach()),
         flops=4.0 * n * h * f,
         bytes=(2 * n * h + 2 * h * f) * 2 + (f + h) * 4)
-    records["ffn_bwd_dx"] = dict(
-        shape=shape, max_abs_err=edx,
-        ms=cuda_ms(lambda: kf.ffn_bwd_dx(x, g, w1, b1, w2)),
-        plain_ms=cuda_ms(lambda: kf.ffn_bwd_dx_plain(x, g, w1, b1, w2)),
+    hid, da, colsum = kf.ffn_bwd_recompute(x, g, w1, b1, w2)
+    rh, rd, rc = kf.ffn_bwd_recompute_plain(x, g, w1, b1, w2)
+    torch.cuda.synchronize()
+    erc = max(compare(f"K8 recompute {name_} {shape}", o, r, lim, rule)
+              for name_, o, r, lim, rule in (
+                  ("h", hid, rh, None, None), ("da", da, rd, None, None),
+                  ("colsum", colsum, rc,
+                   K8_DW_BF16_TOL[0] + K8_DW_BF16_TOL[1] * rc.abs(),
+                   f"atol {K8_DW_BF16_TOL[0]}, rtol {K8_DW_BF16_TOL[1]}")))
+    del rh, rd, rc
+    records["ffn_bwd_recompute"] = dict(
+        shape=shape + " (h, da, tile sums of da)", max_abs_err=erc,
+        ms=cuda_ms(lambda: kf.ffn_bwd_recompute(x, g, w1, b1, w2)),
+        plain_ms=cuda_ms(lambda: kf.ffn_bwd_recompute_plain(x, g, w1, b1,
+                                                            w2)),
+        library_ms=None, flops=4.0 * n * h * f,
+        bytes=(2 * n * h + 2 * h * f + 2 * n * f) * 2 + f * 4 +
+        -(-n // kf.ROW_TILE) * f * 4)
+    records["ffn_bwd_products"] = dict(
+        shape=shape + " (dx, dw1, dw2, db1 from h, da)",
+        max_abs_err=max(edx, edw),
+        ms=cuda_ms(lambda: kf.ffn_bwd_products(x, g, w1, hid, da, colsum)),
+        plain_ms=cuda_ms(lambda: kf.ffn_bwd_products_plain(x, g, w1, hid, da,
+                                                           colsum)),
+        library_ms=None, flops=6.0 * n * h * f,
+        bytes=(3 * n * h + h * f + 2 * n * f) * 2 +
+        (-(-n // kf.ROW_TILE) * f + 2 * h * f + f) * 4)
+    records["ffn_bwd"] = dict(
+        shape=shape + " (recompute + products)", max_abs_err=max(edx, edw),
+        ms=cuda_ms(lambda: kf.ffn_bwd_products(
+            x, g, w1, *kf.ffn_bwd_recompute(x, g, w1, b1, w2))),
+        plain_ms=cuda_ms(lambda: kf.ffn_bwd_plain(x, g, w1, b1, w2)),
         library_ms=cuda_ms(lambda: torch.autograd.grad(
-            lib_y, (lx,), g, retain_graph=True)),
-        flops=6.0 * n * h * f,
-        bytes=(3 * n * h + 2 * h * f) * 2 + f * 4)
-    records["ffn_bwd_dw"] = dict(
-        shape=shape, max_abs_err=edw,
-        ms=cuda_ms(lambda: kf.ffn_bwd_dw(x, g, w1, b1, w2)),
-        plain_ms=cuda_ms(lambda: kf.ffn_bwd_dw_plain(x, g, w1, b1, w2)),
-        library_ms=cuda_ms(lambda: torch.autograd.grad(
-            lib_y, (lw1, lb1, lw2), g, retain_graph=True)),
-        flops=8.0 * n * h * f,
-        bytes=(2 * n * h + 2 * h * f) * 2 + f * 4 + (2 * h * f + f) * 4)
+            lib_y, (lx, lw1, lb1, lw2), g, retain_graph=True)),
+        flops=10.0 * n * h * f,
+        bytes=(3 * n * h + 2 * h * f) * 2 + f * 4 + (2 * h * f + f) * 4)
+    del hid, da, colsum
     # K3 and K2 at the same row count, beside their N = 4096 records
     wt, w1t, w2t = w.t(), w1.t(), w2.t()
     b1c, b2c, gc, betac = (t_.to(x.dtype) for t_ in (b1, b2, gamma, beta))
@@ -947,12 +1021,12 @@ def check_trainable_functions(randn, dev):
         got = [run(fn, ops, grad) for _, fn, ops, _, _ in cases]
         counts = {k.symbol: k.launches for k in kernels.kernels()
                   if k.launches}
-        # K12's backward: K13, K10 (output mask), K8's dropout entries;
-        # K11's: K10
+        # K12's backward: K13, K10 (output mask), K8's dropout recompute and
+        # its products; K11's: K10
         want = {"smx_ffn_res_ln": 1, "smx_ffn_fused": 2,
-                "smx_ffn_bwd_dx": 2, "smx_ffn_bwd_dw": 2,
+                "smx_ffn_bwd_recompute": 2, "smx_ffn_bwd_products": 4,
                 "smx_ffn_dropout_res_ln": 1, "smx_ffn_dropout": 2,
-                "smx_ffn_dropout_bwd_dx": 2, "smx_ffn_dropout_bwd_dw": 2,
+                "smx_ffn_dropout_bwd_recompute": 2,
                 "smx_dense_dropout_res_ln": 1, "smx_dropout_mask": 2}
         if counts != want:
             raise AssertionError(f"trainable functions, N={n}: launches "
@@ -1001,7 +1075,7 @@ def _dropout_tol(tol, rate):
 
 def check_dropout_kernels(randn, dev, records):
     """K10 bit-exact against the plain generator at the step's mask shapes;
-    K11, K12, K13 and K8's dropout entries at the step's row counts and K14,
+    K11, K12, K13 and K8 with the mask at the step's row counts and K14,
     K15 at its attention shapes, in bf16 and f32, against their plain
     versions fed the plain generator's masks of the same key."""
     import torch
@@ -1043,7 +1117,7 @@ def check_dropout_kernels(randn, dev, records):
     del buf
 
     log("K11 dense_dropout_res_ln, K12 ffn_dropout_res_ln, K13 ffn_dropout, "
-        "K8 dropout entries")
+        "K8 with the activation mask")
     h, f = 768, 3072
     timed = None
     for dtype in (bf16, f32):
@@ -1082,6 +1156,22 @@ def check_dropout_kernels(randn, dev, records):
             got = kf.ffn_dropout_bwd(x, g, w1, b1, w2, key, rate)
             refs = kf.ffn_bwd_plain(x, g, w1, b1, w2, "gelu", amask)
             torch.cuda.synchronize()
+            erc = 0.0
+            if dtype == bf16:
+                expect_equal(f"K8 dropout {what}", got,
+                             kf.ffn_dropout_bwd(x, g, w1, b1, w2, key, rate))
+                rc = kf.ffn_bwd_recompute(x, g, w1, b1, w2, "gelu", key, rate)
+                rcp = kf.ffn_bwd_recompute_plain(x, g, w1, b1, w2, "gelu",
+                                                 amask)
+                erc = max(compare(f"K8 dropout recompute {p_} {what}", o, r,
+                                  lm, rl)
+                          for p_, o, r, lm, rl in (
+                              ("h", rc[0], rcp[0], lim(rcp[0]), rule),
+                              ("da", rc[1], rcp[1], lim(rcp[1]), rule),
+                              ("colsum", rc[2], rcp[2],
+                               dw_tol[0] + dw_tol[1] * rcp[2].abs(),
+                               dw_rule)))
+                del rc, rcp
             edx = compare(f"K8 dropout dx {what}", got[0], refs[0],
                           lim(refs[0]), rule)
             edw = max(compare(f"K8 dropout {p_} {what}", o, r,
@@ -1099,7 +1189,7 @@ def check_dropout_kernels(randn, dev, records):
                                                   orate), ref, lim(ref), rule)
             if dtype == bf16 and n == 12800:
                 timed = (x, g, res, w, w1, b1, w2, b2, gamma, beta,
-                         (e11, e12, e13, edx, edw))
+                         (e11, e12, e13, edx, edw, erc))
             del amask, omask, got, refs
     x, g, res, w, w1, b1, w2, b2, gamma, beta, errs = timed
     n = x.shape[0]
@@ -1145,27 +1235,28 @@ def check_dropout_kernels(randn, dev, records):
                 key, kd.STREAM_ACT, n, f, rate, dev)), iters=5),
         library_ms=cuda_ms(lib_ffn), flops=ffn_flops,
         bytes=(2 * n * h + 2 * h * f) * 2 + (f + h) * 4)
-    records["ffn_dropout_bwd_dx"] = dict(
-        shape=shape, max_abs_err=errs[3],
-        ms=cuda_ms(lambda: kf.ffn_dropout_bwd_dx(x, g, w1, b1, w2, key,
-                                                 rate)),
-        plain_ms=cuda_ms(lambda: kf.ffn_bwd_dx_plain(
-            x, g, w1, b1, w2, "gelu", kd.dropout_mask_plain(
-                key, kd.STREAM_ACT, n, f, rate, dev)), iters=5),
+    k8 = lambda: kf.ffn_bwd_products(x, g, w1, *kf.ffn_bwd_recompute(
+        x, g, w1, b1, w2, "gelu", key, rate))
+    amask_plain = lambda: kd.dropout_mask_plain(key, kd.STREAM_ACT, n, f, rate,
+                                                dev)
+    records["ffn_dropout_bwd_recompute"] = dict(
+        shape=shape + " (h, da, tile sums of da)", max_abs_err=errs[5],
+        ms=cuda_ms(lambda: kf.ffn_bwd_recompute(x, g, w1, b1, w2, "gelu", key,
+                                                rate)),
+        plain_ms=cuda_ms(lambda: kf.ffn_bwd_recompute_plain(
+            x, g, w1, b1, w2, "gelu", amask_plain()), iters=5),
+        library_ms=None, flops=4.0 * n * h * f,
+        bytes=(2 * n * h + 2 * h * f + 2 * n * f) * 2 + f * 4 +
+        -(-n // kf.ROW_TILE) * f * 4)
+    records["ffn_dropout_bwd"] = dict(
+        shape=shape + " (recompute + products)", max_abs_err=max(errs[3:5]),
+        ms=cuda_ms(k8),
+        plain_ms=cuda_ms(lambda: kf.ffn_bwd_plain(x, g, w1, b1, w2, "gelu",
+                                                  amask_plain()), iters=5),
         library_ms=cuda_ms(lambda: torch.autograd.grad(
-            lib_y, (lx,), g, retain_graph=True)),
-        flops=6.0 * n * h * f, bytes=(3 * n * h + 2 * h * f) * 2 + f * 4)
-    records["ffn_dropout_bwd_dw"] = dict(
-        shape=shape, max_abs_err=errs[4],
-        ms=cuda_ms(lambda: kf.ffn_dropout_bwd_dw(x, g, w1, b1, w2, key,
-                                                 rate)),
-        plain_ms=cuda_ms(lambda: kf.ffn_bwd_dw_plain(
-            x, g, w1, b1, w2, "gelu", kd.dropout_mask_plain(
-                key, kd.STREAM_ACT, n, f, rate, dev)), iters=5),
-        library_ms=cuda_ms(lambda: torch.autograd.grad(
-            lib_y, (lw1, lb1, lw2), g, retain_graph=True)),
-        flops=8.0 * n * h * f,
-        bytes=(2 * n * h + 2 * h * f) * 2 + f * 4 + (2 * h * f + f) * 4)
+            lib_y, (lx, lw1, lb1, lw2), g, retain_graph=True)),
+        flops=10.0 * n * h * f,
+        bytes=(3 * n * h + 2 * h * f) * 2 + f * 4 + (2 * h * f + f) * 4)
     del timed, lib_y
 
     log("K14 attention_dropout_fwd and K15 attention_dropout_bwd")
@@ -1363,7 +1454,18 @@ BATCH, SECONDS, MAX_LEN, BEAMS = 16, 16.0, 64, 4
 DROPOUT_KERNELS = ("smx_dropout_mask", "smx_dense_dropout_res_ln",
                    "smx_ffn_dropout_res_ln", "smx_ffn_dropout",
                    "smx_attention_dropout_fwd", "smx_attention_dropout_bwd",
-                   "smx_ffn_dropout_bwd_dx", "smx_ffn_dropout_bwd_dw")
+                   "smx_ffn_dropout_bwd_recompute", "smx_ffn_dropout_bwd_dx",
+                   "smx_ffn_dropout_bwd_dw")
+# K8's entries by compute dtype: bf16 the recompute pass and the products
+# (shared by the dropout twin), f32 the two f32-FMA entries
+K8_ENTRIES = {"bf16": ("smx_ffn_bwd_recompute", "smx_ffn_bwd_products"),
+              "f32": ("smx_ffn_bwd_dx", "smx_ffn_bwd_dw")}
+K8_DROPOUT_ENTRIES = {"bf16": ("smx_ffn_dropout_bwd_recompute",
+                               "smx_ffn_bwd_products"),
+                      "f32": ("smx_ffn_dropout_bwd_dx",
+                              "smx_ffn_dropout_bwd_dw")}
+K8_ALL = sorted({e for d in (K8_ENTRIES, K8_DROPOUT_ENTRIES)
+                 for v in d.values() for e in v})
 # f32 kernel path against f32 plain path on the flagship: share of equal
 # tokens, and largest difference of the beams' length-normalised scores
 TOKEN_AGREEMENT_F32, BEAM_SCORE_TOL_F32 = 0.99, 1e-4
@@ -1379,8 +1481,8 @@ def expected_launches(mode, steps):
             "smx_decode_attention": 2 * DECODER_LAYERS * steps,
             "smx_decode_attention_q8": 0, "smx_beam_gather": 0,
             # the training kernels: never under generate()
-            "smx_attention_bwd": 0, "smx_ffn_fused": 0, "smx_ffn_bwd_dx": 0,
-            "smx_ffn_bwd_dw": 0, **dict.fromkeys(DROPOUT_KERNELS, 0)}
+            "smx_attention_bwd": 0, "smx_ffn_fused": 0,
+            **dict.fromkeys(K8_ALL, 0), **dict.fromkeys(DROPOUT_KERNELS, 0)}
     if mode == "greedy-int8":
         want["smx_decode_attention"] = DECODER_LAYERS * steps
         want["smx_decode_attention_q8"] = DECODER_LAYERS * steps
@@ -1610,28 +1712,34 @@ TRAIN_LABELS, TRAIN_STEPS, TRAIN_LR = 64, 8, 1e-4
 GRAD_REL, GRAD_FLOOR = 2e-3, 1e-5
 
 
-def expected_train_launches(speech_layers, enc_layers, dec_layers, accum=1):
+def expected_train_launches(speech_layers, enc_layers, dec_layers, accum=1,
+                            dtype="bf16"):
     """Launches of every kernel in one train step: a post-LN layer runs K1,
-    K2 and K3 forward, K7, K9 and both entries of K8 backward; a decoder
-    layer has a second K2 (the cross-attention's out-projection) and no K1 /
-    K7 for its cross-attention, which carries a bias."""
+    K2 and K3 forward, K7, K9 and K8 backward (bf16: its recompute pass and
+    its products; f32: its two f32 entries); a decoder layer has a second K2
+    (the cross-attention's out-projection) and no K1 / K7 for its
+    cross-attention, which carries a bias."""
     layers = speech_layers + enc_layers + dec_layers
     want = {"smx_attention_fwd": layers, "smx_attention_bwd": layers,
             "smx_dense_res_ln": layers + dec_layers,
             "smx_ffn_res_ln": layers, "smx_ffn_fused": layers,
-            "smx_ffn_bwd_dx": layers, "smx_ffn_bwd_dw": layers,
+            **dict.fromkeys(K8_ALL, 0),
+            **dict.fromkeys(K8_ENTRIES[dtype], layers),
             "smx_conv_ln_gelu": FUSED_CONV_LAYERS,
             "smx_decode_attention": 0, "smx_decode_attention_q8": 0,
             "smx_beam_gather": 0, **dict.fromkeys(DROPOUT_KERNELS, 0)}
     return {k: v * accum for k, v in want.items()}
 
 
-def expected_dropout_train_launches(speech_layers, enc_layers, dec_layers):
+def expected_dropout_train_launches(speech_layers, enc_layers, dec_layers,
+                                    dtype="bf16"):
     """Launches of every kernel in one micro-batch of a train step with
     dropout on (every rate above 0): a post-LN layer runs K14, K11 and K12
-    forward, K15, K13 (the recompute in K12's backward) and both dropout
-    entries of K8 backward; a decoder layer has a second K11 and a plain
-    cross-attention whose probability mask K10 draws.  K10 also draws the
+    forward, K15, K13 (the recompute in K12's backward) and K8 with the
+    activation mask backward (bf16: the dropout recompute pass and the
+    products; f32: the two f32 dropout entries); a decoder layer has a
+    second K11 and a plain cross-attention whose probability mask K10
+    draws.  K10 also draws the
     masks of the four plain sites (the feature projection, the positional
     embedding, the two embeddings) and regenerates the output mask in the
     backward of every K11 and K12.  `speech_layers` counts the layers
@@ -1643,7 +1751,7 @@ def expected_dropout_train_launches(speech_layers, enc_layers, dec_layers):
         "smx_attention_dropout_bwd": layers,
         "smx_dense_dropout_res_ln": layers + dec_layers,
         "smx_ffn_dropout_res_ln": layers, "smx_ffn_dropout": layers,
-        "smx_ffn_dropout_bwd_dx": layers, "smx_ffn_dropout_bwd_dw": layers,
+        **dict.fromkeys(K8_DROPOUT_ENTRIES[dtype], layers),
         "smx_dropout_mask": 4 + dec_layers + (layers + dec_layers) + layers})
     return want
 
@@ -1708,8 +1816,8 @@ def check_gradient_tree(seed, dropout=False):
     kernels.reset_launch_counts()
     loss_k, grads_k = grads()
     counts = {k.symbol: k.launches for k in kernels.kernels()}
-    want = (expected_dropout_train_launches(2, 2, 2) if dropout
-            else expected_train_launches(2, 2, 2))
+    want = (expected_dropout_train_launches(2, 2, 2, dtype="f32") if dropout
+            else expected_train_launches(2, 2, 2, dtype="f32"))
     if counts != want:
         raise AssertionError(f"gradient tree: launches {counts}, expected "
                              f"{want}")
@@ -1852,7 +1960,18 @@ def run_training(seed, card, dropout=False):
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:14]:
         log(f"    {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d}x  "
             f"{e.key[:90]}")
+    k8 = [e for e in events if any(name in e.key for name in K8_KERNELS)]
+    log(f"  K8 in the profiled {what}: "
+        f"{sum(e.self_device_time_total for e in k8) / 1e3:.2f} ms: " +
+        ", ".join(f"{K8_NAME.search(e.key).group(0)} "
+                  f"{e.self_device_time_total / 1e3:.2f} ms {e.count}x"
+                  for e in k8))
     return counts
+
+
+# K8's device kernels in bf16, by name in the profiler's trace
+K8_KERNELS = ("recompute_kernel", "products_kernel", "ffn_bwd_reduce_kernel")
+K8_NAME = re.compile(r"\w+_kernel(<[^>]*>)?")
 
 
 def _cast_tree(tree, dtype):
@@ -1920,8 +2039,14 @@ def main():
         "conv_ln_gelu": ("conv_ln_gelu.cu", "conv_extractor.py:88", "greedy"),
         "attention_bwd": ("attention_bwd.cu", "flash_attention_kernel.py:378",
                           "train"),
-        "ffn_bwd_dx": ("ffn_bwd.cu", "ffn_kernel.py:631", "train"),
-        "ffn_bwd_dw": ("ffn_bwd.cu", "ffn_kernel.py:647", "train"),
+        # K8 in bf16: the recompute pass holds the recompute of both TPU
+        # kernels (_kernel_bwd_dx :549 and _kernel_bwd_dw :574), the
+        # products their products; "ffn_bwd" is the two together, counted
+        # once per backward (one recompute launch each)
+        "ffn_bwd_recompute": ("ffn_bwd.cu", "ffn_kernel.py:631", "train"),
+        "ffn_bwd_products": ("ffn_bwd.cu", "ffn_kernel.py:647", "train"),
+        "ffn_bwd": ("ffn_bwd.cu", "ffn_kernel.py:631", "train",
+                    "smx_ffn_bwd_recompute"),
         "ffn_fused": ("ffn_res_ln.cu", "ffn_kernel.py:128", "train"),
         "dropout_mask": ("dropout_mask.cu", "ffn_kernel.py:795",
                          "train-dropout"),
@@ -1938,16 +2063,18 @@ def main():
                                   "flash_attention_kernel.py:815",
                                   "train-dropout"),
         # no TPU kernel: the TPU package runs this backward in XLA
-        # (_ffn_bwd_hand with the regenerated mask)
-        "ffn_dropout_bwd_dx": ("ffn_bwd.cu", "ffn_kernel.py:700",
-                               "train-dropout"),
-        "ffn_dropout_bwd_dw": ("ffn_bwd.cu", "ffn_kernel.py:700",
-                               "train-dropout"),
+        # (_ffn_bwd_hand with the regenerated mask); its products are
+        # ffn_bwd_products
+        "ffn_dropout_bwd_recompute": ("ffn_bwd.cu", "ffn_kernel.py:700",
+                                      "train-dropout"),
+        "ffn_dropout_bwd": ("ffn_bwd.cu", "ffn_kernel.py:700",
+                            "train-dropout", "smx_ffn_dropout_bwd_recompute"),
     }
     line = {"kernels": []}
-    for name, (source, tpu, mode) in replaces.items():
+    for name, (source, tpu, mode, *symbol) in replaces.items():
         rec = records[name]
-        launches = counts[mode][f"smx_{name}"]
+        symbol = symbol[0] if symbol else f"smx_{name}"
+        launches = counts[mode][symbol]
         if launches < 1:
             raise AssertionError(f"{name} was not launched by the {mode} run")
         line["kernels"].append({
@@ -1955,8 +2082,7 @@ def main():
             "source": f"speechmix_tpu_torch/csrc/{source}",
             "replaces": pallas + tpu, "launches": launches,
             "launches_in": mode,
-            "launches_by_mode": {m: c[f"smx_{name}"]
-                                 for m, c in counts.items()},
+            "launches_by_mode": {m: c[symbol] for m, c in counts.items()},
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],

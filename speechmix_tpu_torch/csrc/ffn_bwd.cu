@@ -1,59 +1,61 @@
-// K8: ffn_bwd — backward of y = act(x @ w1 + b1) @ w2 + b2 given g = dy, with
-// the (n, f) intermediate and its gradient recomputed on chip, never stored.
+// K8: ffn_bwd — backward of y = act(x @ w1 + b1) @ w2 + b2 given g = dy.
 //
 // Replaces the two TPU kernels of speechmix_tpu/ops/pallas/ffn_kernel.py:
-// ffn_fused_bwd: _kernel_bwd_dx (entry smx_ffn_bwd_dx) and _kernel_bwd_dw
-// (entry smx_ffn_bwd_dw).  With a = x @ w1 + b1 (f32), h = round(act(a)),
-// dh = g @ w2^T (f32) and da = round(dh * act'(a)), round() to x's dtype:
-//   dx  = da @ w1^T          (n, h), x's dtype          smx_ffn_bwd_dx
-//   dw1 = x^T @ da           (h, f) float32             smx_ffn_bwd_dw
+// ffn_fused_bwd (:608), _kernel_bwd_dx (:549, pallas_call :631) and
+// _kernel_bwd_dw (:574, pallas_call :647).  With a = x @ w1 + b1 (f32),
+// h = round(act(a)), dh = g @ w2^T (f32) and da = round(dh * act'(a)),
+// round() to x's dtype:
+//   dx  = da @ w1^T          (n, h), x's dtype
+//   dw1 = x^T @ da           (h, f) float32
 //   dw2 = h^T @ g            (f, h) float32
 //   db1 = sum_rows da        (f,)   float32
-// db2 = sum_rows g stays with the caller, as in the TPU package.
+// db2 = sum_rows g stays with the caller, as in the TPU package.  The
+// dropout twins are the backward of y = drop_a(act(x @ w1 + b1)) @ w2 + b2,
+// the FFN of K12 and K13 (ffn_res_ln.cu): they regenerate the activation
+// mask m (dropout.cuh, stream 0, at (row, f column)) and take
+// h = round(act(a) * m), da = round(dh * act'(a) * m), as the TPU package's
+// _ffn_bwd_hand(amask=) does (ffn_kernel.py:700, run in XLA there).
 //
-// The dropout entries smx_ffn_dropout_bwd_dx and smx_ffn_dropout_bwd_dw are
-// the backward of y = drop_a(act(x @ w1 + b1)) @ w2 + b2, the FFN of K12 and
-// K13 (ffn_res_ln.cu): they regenerate the activation mask m (dropout.cuh,
-// stream 0, at (row, f column)) in the kernel and take h = round(act(a) * m)
-// and da = round(dh * act'(a) * m), as the TPU package's _ffn_bwd_hand does
-// with the regenerated mask (ffn_kernel.py, called from _fdrl_bwd and
-// _fdt_bwd, which run it in XLA: the TPU package has no kernel there).  No
-// (n, f) mask or intermediate is kept between forward and backward.
+// bfloat16, the train step's path (H = 768 or 1024, any n, f % 64 == 0):
+//   smx_ffn_bwd_recompute (smx_ffn_dropout_bwd_recompute with the mask)
+//     forms h and da once, as two (n, f) bf16 buffers, and the column sums
+//     of da per 128-row tile, an f32 (row tiles, f) workspace.  A block owns
+//     a 128 x 128 tile of (n, f); one producer warp keeps TMA loads of x, g
+//     (128 rows x 64 of h), w1 (64 x 128) and w2 (128 x 64) three stages
+//     ahead; two consumer warpgroups of 64 rows each run wgmma into two f32
+//     accumulators (a and dh), then apply b1, act, act', the mask and the
+//     roundings in registers.
+//   smx_ffn_bwd_products runs the three products as one TMA + wgmma GEMM
+//     kernel (128 x 128 output tiles, 64-deep stages, six stages in flight,
+//     one producer warp, two consumer warpgroups): dx = da w1^T (both
+//     operands K-major), dw1 = x^T da and dw2 = h^T g (both operands read
+//     MN-major through the descriptors: no transposed copy).  The row
+//     contraction of dw1 and dw2 is cut into `splits` fixed row ranges whose
+//     f32 partials are added in split order by a second kernel, and db1 is
+//     the ordered sum of the recompute's tile sums: no atomics, so two runs
+//     give the same bits.
+// float32 (the f32 reference runs only): smx_ffn_bwd_dx and smx_ffn_bwd_dw
+// (and their dropout twins) are f32-FMA kernels that recompute a and dh per
+// tile on the CUDA cores, bound by those.
 //
-// x, g, dx: (n, h); w1: (h, f); w2: (f, h), row-major, in float32 or bfloat16;
-// b1: (f,) float32.  float32: h <= 1024, f % 16 == 0.  bfloat16: h in
-// {768, 1024}, f % 64 == 0, x, g, w1, w2 32-byte aligned.  act: 0 gelu (erf),
-// 1 gelu_new (tanh), 2 relu, 3 silu.  The launchers refuse anything else.
+// What bounds it on the H100: 10 n h f FLOPs (4 for the recompute, 6 for
+// the products) against ~0.5 GB at n = 12800, so the tensor cores: h and da
+// are formed once, and every operand load is kept off the math warps' path
+// (PERF.md).
 //
-// smx_ffn_bwd_dx: a block owns a row tile and all h output columns and loops
-// over chunks of f: it recomputes the chunk's a and dh, forms da in shared
-// memory and accumulates da @ w1[:, chunk]^T.
-//
-// smx_ffn_bwd_dw: a block owns a chunk of f columns and one of `splits` row
-// ranges; per row tile it recomputes a, h, dh and da for its chunk and
-// accumulates x^T da, h^T g and the column sums of da in registers.  The TPU
-// grid over f chunks alone would leave most of the 132 SMs idle, so the rows
-// are split over blocks too: with splits > 1 each block writes its partial
-// sums to a float32 workspace (splits, 2 * h * f + f) and a second kernel
-// adds the partials in split order.  No atomics: the result does not depend
-// on scheduling.
-//
-// What bounds it on the H100: 6 * n * h * f (dx) and 8 * n * h * f (dw) FLOPs
-// against a few tens of MB, so the tensor cores are the limit.  The bfloat16
-// kernels use them through WMMA but read every weight tile from L2 without
-// staging or pipelining, and the dw kernel re-reads its x and g rows once per
-// f chunk, which keeps both well above that bound (PERF.md).  float32 takes
-// f32-FMA kernels, bound by the CUDA cores.
+// x, g, dx: (n, h); w1: (h, f); w2: (f, h), row-major; b1: (f,) float32.
+// act: 0 gelu (erf), 1 gelu_new (tanh), 2 relu, 3 silu.  The launchers
+// refuse anything else.
 
-#include <mma.h>
 #include <stdint.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 constexpr int NT = 256;
-constexpr int MAXC = 4;  // h <= MAXC * NT
+constexpr int MAXC = 4;  // f32: h <= MAXC * NT
 
 // ---------------------------------------------------------------- float32 dx
 constexpr int BM = 16;
@@ -247,6 +249,485 @@ __global__ void __launch_bounds__(NT)
   if (tid < WFC) db1[c0 + tid] = bsum;
 }
 
+// ------------------------------------------------------------------ bfloat16
+namespace hw = smx::hopper;
+using bf16 = __nv_bfloat16;
+
+constexpr int TILE = 128;              // output tiles are TILE x TILE
+constexpr int BK = 64;                 // depth of a stage: one 128-byte row
+constexpr int BOX = TILE * BK * 2;     // one operand tile of a stage, 16 KB
+constexpr int HALF = BOX / 2;          // 64 rows of 128 bytes, 8 KB
+constexpr int WG_THREADS = 128;
+constexpr int CONSUMERS = 2 * WG_THREADS;
+constexpr int THREADS = CONSUMERS + WG_THREADS;  // + the producer warpgroup
+constexpr uint32_t SBO = 1024;         // 8 rows of 128 bytes
+constexpr uint32_t MN_LBO = HALF;      // MN-major: the next 64 M or N columns
+constexpr int RC_STAGES = 3;           // recompute: 4 tiles (64 KB) a stage
+constexpr int GEMM_STAGES = 6;         // products: 2 tiles (32 KB) a stage
+
+// a shared-memory buffer rounded up to the swizzle atom
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~static_cast<uintptr_t>(1023));
+}
+
+// act(x) and act'(x) with the expressions of smx::activate and
+// smx::dactivate, their common terms computed once
+template <int ACT>
+__device__ __forceinline__ void act_dact(float x, float& y, float& dy) {
+  if constexpr (ACT == smx::kGelu) {
+    const float e = erff(x * 0.70710678118654752f);
+    const float pdf = expf(-0.5f * x * x) * 0.39894228040143268f;
+    y = 0.5f * x * (1.0f + e);
+    dy = 0.5f * (1.0f + e) + x * pdf;
+  } else if constexpr (ACT == smx::kGeluTanh) {
+    const float c = 0.79788456080286536f;
+    const float t = tanhf(c * (x + 0.044715f * x * x * x));
+    y = 0.5f * x * (1.0f + t);
+    dy = 0.5f * (1.0f + t) +
+         0.5f * x * (1.0f - t * t) * c * (1.0f + 3.0f * 0.044715f * x * x);
+  } else if constexpr (ACT == smx::kRelu) {
+    y = fmaxf(x, 0.0f);
+    dy = x > 0.0f ? 1.0f : 0.0f;
+  } else {
+    const float den = 1.0f + expf(-x);
+    const float s = 1.0f / den;
+    y = x / den;
+    dy = s * (1.0f + x * (1.0f - s));
+  }
+}
+
+// One consumer warpgroup's pass over a stage ring: waits for each stage,
+// issues its four k16 slices on `mma(stage)`, keeps one group of products in
+// flight and releases a stage once its products are done.
+template <int STAGES, typename Mma>
+__device__ __forceinline__ void consume(uint64_t* full, uint64_t* empty,
+                                        int ksteps, Mma mma) {
+  int s = 0, prev = -1;
+  uint32_t phase = 0;
+  for (int kb = 0; kb < ksteps; ++kb) {
+    hw::mbar_wait(&full[s], phase);
+    hw::wgmma_fence();
+    mma(s);
+    hw::wgmma_commit();
+    hw::wgmma_wait<1>();
+    if (prev >= 0) hw::mbar_arrive(&empty[prev]);
+    prev = s;
+    if (++s == STAGES) {
+      s = 0;
+      phase ^= 1;
+    }
+  }
+  hw::wgmma_wait<0>();
+}
+
+// The producer's turn before loading stage s of step kb: wait until the
+// consumers released the stage, announce `bytes`, then load.
+template <int STAGES>
+struct Ring {
+  int s = 0;
+  uint32_t phase = 0;
+  __device__ __forceinline__ void acquire(uint64_t* full, uint64_t* empty,
+                                          uint32_t bytes) {
+    hw::mbar_wait(&empty[s], phase ^ 1);
+    hw::mbar_expect_tx(&full[s], bytes);
+  }
+  __device__ __forceinline__ void advance() {
+    if (++s == STAGES) {
+      s = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+// ------------------------------------------------------- recompute pass
+struct RecomputeArgs {
+  CUtensorMap x, g;  // (n, h) in (128, 64) boxes
+  CUtensorMap w1;    // (h, f) in (64, 64) boxes: MN-major B of a
+  CUtensorMap w2;    // (f, h) in (128, 64) boxes: K-major B of dh
+  const float* b1;
+  bf16* hid;         // (n, f)
+  bf16* da;          // (n, f)
+  float* colsum;     // (row tiles, f): column sums of da per 128-row tile
+  int n, h, f;
+  smx::Dropout drop;
+};
+
+constexpr size_t rc_smem_bytes() {
+  return 1024 + (size_t)RC_STAGES * 4 * BOX + 8 * TILE * sizeof(float) +
+         2 * RC_STAGES * sizeof(uint64_t);
+}
+
+// The epilogue of one consumer thread: its 2 x 32 elements of the block's
+// tile (rows wrow + 8 i, columns n0 + 8 j + 2 (lane % 4) + c).
+template <int ACT, bool DROP>
+__device__ __forceinline__ void recompute_epilogue(const RecomputeArgs& p,
+                                                   float (&acc_a)[64],
+                                                   float (&acc_d)[64],
+                                                   float* red_w, int wrow,
+                                                   int n0, int lane) {
+  const bool odd = lane & 1;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int cl = 8 * j + 2 * (lane % 4);
+    const int col = n0 + cl;
+    const bool col_ok = col < p.f;  // then col + 1 < f: f is even
+    float bias[2] = {0.0f, 0.0f};
+    if (col_ok) {
+      bias[0] = p.b1[col];
+      bias[1] = p.b1[col + 1];
+    }
+    float m[2][2] = {{1.0f, 1.0f}, {1.0f, 1.0f}};
+    if constexpr (DROP) {
+      // lanes 2q and 2q + 1 hold the four columns of one Philox group in
+      // rows wrow and wrow + 8: each draws one row and hands the other the
+      // two words it needs, one call per four elements
+      const uint4 b = p.drop.bits4(wrow + (odd ? 8 : 0), col >> 2);
+      const uint32_t r0 = __shfl_xor_sync(0xffffffffu, odd ? b.x : b.z, 1);
+      const uint32_t r1 = __shfl_xor_sync(0xffffffffu, odd ? b.y : b.w, 1);
+      m[0][0] = p.drop.keep(odd ? r0 : b.x);
+      m[0][1] = p.drop.keep(odd ? r1 : b.y);
+      m[1][0] = p.drop.keep(odd ? b.z : r0);
+      m[1][1] = p.drop.keep(odd ? b.w : r1);
+    }
+    float cs[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = wrow + 8 * i;
+      float hv[2], dv[2];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        float y, dy;
+        act_dact<ACT>(acc_a[4 * j + 2 * i + c] + bias[c], y, dy);
+        hv[c] = y * m[i][c];
+        dv[c] = acc_d[4 * j + 2 * i + c] * dy * m[i][c];
+      }
+      const __nv_bfloat162 hb = __floats2bfloat162_rn(hv[0], hv[1]);
+      const __nv_bfloat162 db = __floats2bfloat162_rn(dv[0], dv[1]);
+      if (row < p.n && col_ok) {
+        const size_t at = (size_t)row * p.f + col;
+        *reinterpret_cast<__nv_bfloat162*>(p.hid + at) = hb;
+        *reinterpret_cast<__nv_bfloat162*>(p.da + at) = db;
+        cs[0] += __low2float(db);
+        cs[1] += __high2float(db);
+      }
+    }
+    // the warp's 16 rows: lanes with one lane % 4 share the columns
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        cs[c] += __shfl_xor_sync(0xffffffffu, cs[c], off);
+      }
+    }
+    if (lane < 4) {
+      red_w[cl] = cs[0];
+      red_w[cl + 1] = cs[1];
+    }
+  }
+}
+
+template <bool DROP>
+__global__ void __launch_bounds__(THREADS, 1)
+    recompute_kernel(const __grid_constant__ RecomputeArgs p, int act) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* xs = align1024(smem_raw);       // RC_STAGES x BOX each
+  uint8_t* gs = xs + RC_STAGES * BOX;
+  uint8_t* w1s = gs + RC_STAGES * BOX;
+  uint8_t* w2s = w1s + RC_STAGES * BOX;
+  float* red = reinterpret_cast<float*>(w2s + RC_STAGES * BOX);  // (8, TILE)
+  uint64_t* full = reinterpret_cast<uint64_t*>(red + 8 * TILE);
+  uint64_t* empty = full + RC_STAGES;
+
+  const int ftiles = (p.f + TILE - 1) / TILE;
+  const int tm = blockIdx.x / ftiles;
+  const int m0 = tm * TILE, n0 = (blockIdx.x % ftiles) * TILE;
+  const int ksteps = p.h / BK;
+  const int wg = threadIdx.x / WG_THREADS;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < RC_STAGES; ++s) {
+      hw::mbar_init(&full[s], 1);
+      hw::mbar_init(&empty[s], CONSUMERS);
+    }
+    hw::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producer
+    hw::setmaxnreg_dec<40>();
+    if (threadIdx.x == CONSUMERS) {
+      Ring<RC_STAGES> ring;
+      for (int kb = 0; kb < ksteps; ++kb) {
+        const int k = kb * BK, s = ring.s;
+        ring.acquire(full, empty, 4 * BOX);
+        hw::tma_load(xs + s * BOX, &p.x, &full[s], k, m0);
+        hw::tma_load(gs + s * BOX, &p.g, &full[s], k, m0);
+        hw::tma_load(w1s + s * BOX, &p.w1, &full[s], n0, k);
+        hw::tma_load(w1s + s * BOX + HALF, &p.w1, &full[s], n0 + 64, k);
+        hw::tma_load(w2s + s * BOX, &p.w2, &full[s], k, n0);
+        ring.advance();
+      }
+    }
+  } else {  // consumers: rows m0 + 64 wg .. + 63
+    hw::setmaxnreg_inc<232>();
+    float acc_a[64], acc_d[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc_a[i] = acc_d[i] = 0.0f;
+    hw::fence_regs(acc_a);
+    hw::fence_regs(acc_d);
+    consume<RC_STAGES>(full, empty, ksteps, [&](int s) {
+      const uint8_t* xa = xs + s * BOX + wg * HALF;
+      const uint8_t* ga = gs + s * BOX + wg * HALF;
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        hw::wgmma_m64n128k16<0, 1>(
+            acc_a, hw::desc_sw128(xa + kk * 32, 16, SBO),
+            hw::desc_sw128(w1s + s * BOX + kk * 2048, MN_LBO, SBO));
+        hw::wgmma_m64n128k16<0, 0>(
+            acc_d, hw::desc_sw128(ga + kk * 32, 16, SBO),
+            hw::desc_sw128(w2s + s * BOX + kk * 32, 16, SBO));
+      }
+    });
+    hw::fence_regs(acc_a);
+    hw::fence_regs(acc_d);
+    const int t = threadIdx.x % WG_THREADS, warp = t / 32, lane = t % 32;
+    const int wrow = m0 + wg * 64 + warp * 16 + lane / 4;
+    float* red_w = red + (wg * 4 + warp) * TILE;
+    switch (act) {
+      case smx::kGelu:
+        recompute_epilogue<smx::kGelu, DROP>(p, acc_a, acc_d, red_w, wrow,
+                                             n0, lane);
+        break;
+      case smx::kGeluTanh:
+        recompute_epilogue<smx::kGeluTanh, DROP>(p, acc_a, acc_d, red_w,
+                                                 wrow, n0, lane);
+        break;
+      case smx::kRelu:
+        recompute_epilogue<smx::kRelu, DROP>(p, acc_a, acc_d, red_w, wrow,
+                                             n0, lane);
+        break;
+      default:
+        recompute_epilogue<smx::kSilu, DROP>(p, acc_a, acc_d, red_w, wrow,
+                                             n0, lane);
+    }
+    hw::bar_sync(1, CONSUMERS);
+    if (threadIdx.x < TILE && n0 + threadIdx.x < p.f) {
+      float s = 0.0f;
+#pragma unroll
+      for (int w = 0; w < 8; ++w) s += red[w * TILE + threadIdx.x];
+      p.colsum[(size_t)tm * p.f + n0 + threadIdx.x] = s;
+    }
+  }
+}
+
+// --------------------------------------------------------- the products
+struct ProductsArgs {
+  CUtensorMap dx_a, dx_b;  // da (n, f), w1 (h, f) in (128, 64) boxes
+  CUtensorMap w1_a, w1_b;  // x (n, h), da (n, f) in (64, 64) boxes
+  CUtensorMap w2_a, w2_b;  // hid (n, f), g (n, h) in (64, 64) boxes
+  bf16* dx;                // (n, h)
+  float* dw;               // splits records of dw1 (h, f) | dw2 (f, h)
+  int n, h, f;
+  int dx_items;            // row tiles x h tiles
+  int dw_tiles;            // (h / 128) x (f / 128) tiles of dw1 and of dw2
+  int splits, rows_per_split;
+};
+
+constexpr size_t gemm_smem_bytes() {
+  return 1024 + (size_t)GEMM_STAGES * 2 * BOX +
+         2 * GEMM_STAGES * sizeof(uint64_t);
+}
+
+// Work items, in launch order: the dx tiles (row tile major), then the dw1
+// tiles of split 0, 1, ..., then the dw2 tiles likewise.
+struct Item {
+  int mode;  // 0 dx, 1 dw1, 2 dw2
+  int m0, n0, k0, k1, split;
+  int rows, cols;  // of this item's output matrix
+};
+
+__device__ __forceinline__ Item decode(const ProductsArgs& p, int item) {
+  Item it;
+  const int htiles = (p.h + TILE - 1) / TILE, ftiles = (p.f + TILE - 1) / TILE;
+  if (item < p.dx_items) {
+    it.mode = 0;
+    it.m0 = item / htiles * TILE;
+    it.n0 = item % htiles * TILE;
+    it.k0 = 0;
+    it.k1 = p.f;
+    it.split = 0;
+    it.rows = p.n;
+    it.cols = p.h;
+    return it;
+  }
+  item -= p.dx_items;
+  const int per_product = p.splits * p.dw_tiles;
+  const int t = item % per_product % p.dw_tiles;
+  it.mode = 1 + item / per_product;
+  it.split = item % per_product / p.dw_tiles;
+  it.k0 = it.split * p.rows_per_split;
+  it.k1 = min(p.n, it.k0 + p.rows_per_split);
+  if (it.mode == 1) {  // dw1 = x^T da: (h, f)
+    it.m0 = t / ftiles * TILE;
+    it.n0 = t % ftiles * TILE;
+    it.rows = p.h;
+    it.cols = p.f;
+  } else {  // dw2 = hid^T g: (f, h)
+    it.m0 = t / htiles * TILE;
+    it.n0 = t % htiles * TILE;
+    it.rows = p.f;
+    it.cols = p.h;
+  }
+  return it;
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+    products_kernel(const __grid_constant__ ProductsArgs p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* as = align1024(smem_raw);       // GEMM_STAGES x BOX
+  uint8_t* bs = as + GEMM_STAGES * BOX;    // GEMM_STAGES x BOX
+  uint64_t* full = reinterpret_cast<uint64_t*>(bs + GEMM_STAGES * BOX);
+  uint64_t* empty = full + GEMM_STAGES;
+
+  const Item it = decode(p, blockIdx.x);
+  const bool mn = it.mode != 0;
+  const int ksteps = (it.k1 - it.k0 + BK - 1) / BK;
+  const int wg = threadIdx.x / WG_THREADS;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < GEMM_STAGES; ++s) {
+      hw::mbar_init(&full[s], 1);
+      hw::mbar_init(&empty[s], CONSUMERS);
+    }
+    hw::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producer
+    if (threadIdx.x == CONSUMERS) {
+      const CUtensorMap* ma = it.mode == 0 ? &p.dx_a
+                              : it.mode == 1 ? &p.w1_a : &p.w2_a;
+      const CUtensorMap* mb = it.mode == 0 ? &p.dx_b
+                              : it.mode == 1 ? &p.w1_b : &p.w2_b;
+      Ring<GEMM_STAGES> ring;
+      for (int kb = 0; kb < ksteps; ++kb) {
+        const int k = it.k0 + kb * BK, s = ring.s;
+        uint8_t* a = as + s * BOX;
+        uint8_t* b = bs + s * BOX;
+        ring.acquire(full, empty, 2 * BOX);
+        if (!mn) {
+          hw::tma_load(a, ma, &full[s], k, it.m0);
+          hw::tma_load(b, mb, &full[s], k, it.n0);
+        } else {
+          hw::tma_load(a, ma, &full[s], it.m0, k);
+          hw::tma_load(a + HALF, ma, &full[s], it.m0 + 64, k);
+          hw::tma_load(b, mb, &full[s], it.n0, k);
+          hw::tma_load(b + HALF, mb, &full[s], it.n0 + 64, k);
+        }
+        ring.advance();
+      }
+    }
+    return;
+  }
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+  hw::fence_regs(acc);
+  if (!mn) {
+    consume<GEMM_STAGES>(full, empty, ksteps, [&](int s) {
+      const uint8_t* a = as + s * BOX + wg * HALF;
+      const uint8_t* b = bs + s * BOX;
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        hw::wgmma_m64n128k16<0, 0>(acc, hw::desc_sw128(a + kk * 32, 16, SBO),
+                                   hw::desc_sw128(b + kk * 32, 16, SBO));
+      }
+    });
+  } else {
+    consume<GEMM_STAGES>(full, empty, ksteps, [&](int s) {
+      const uint8_t* a = as + s * BOX + wg * HALF;
+      const uint8_t* b = bs + s * BOX;
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        hw::wgmma_m64n128k16<1, 1>(
+            acc, hw::desc_sw128(a + kk * 2048, MN_LBO, SBO),
+            hw::desc_sw128(b + kk * 2048, MN_LBO, SBO));
+      }
+    });
+  }
+  hw::fence_regs(acc);
+  const int t = threadIdx.x % WG_THREADS, warp = t / 32, lane = t % 32;
+  const int wrow = it.m0 + wg * 64 + warp * 16 + lane / 4;
+  float* dw = nullptr;
+  if (mn) {
+    dw = p.dw + (size_t)it.split * 2 * p.h * p.f +
+         (it.mode == 2 ? (size_t)p.h * p.f : 0);
+  }
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int col = it.n0 + 8 * j + 2 * (lane % 4);
+    if (col >= it.cols) continue;  // then col + 1 < cols: cols is even
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = wrow + 8 * i;
+      if (row >= it.rows) continue;
+      const float v0 = acc[4 * j + 2 * i], v1 = acc[4 * j + 2 * i + 1];
+      const size_t at = (size_t)row * it.cols + col;
+      if (mn) {
+        *reinterpret_cast<float2*>(dw + at) = make_float2(v0, v1);
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(p.dx + at) =
+            __floats2bfloat162_rn(v0, v1);
+      }
+    }
+  }
+}
+
+bool aligned(const void* p, uintptr_t bytes) {
+  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
+}
+
+int bad_bf16_shape(int n, int h, int f) {
+  return n <= 0 || h <= 0 || f <= 0 || h % BK != 0 || f % BK != 0;
+}
+
+template <bool DROP>
+int recompute(const void* x, const void* g, const void* w1, const float* b1,
+              const void* w2, void* hid, void* da, float* colsum, int n,
+              int h, int f, int act, smx::Dropout drop, int device,
+              void* stream) {
+  if (bad_bf16_shape(n, h, f) || act < 0 || act > 3 ||
+      !aligned(x, 16) || !aligned(g, 16) || !aligned(w1, 16) ||
+      !aligned(w2, 16) || !aligned(hid, 16) || !aligned(da, 16)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  RecomputeArgs p;
+  if (!hw::make_map(&p.x, x, n, h, TILE, BK) ||
+      !hw::make_map(&p.g, g, n, h, TILE, BK) ||
+      !hw::make_map(&p.w1, w1, h, f, BK, BK) ||
+      !hw::make_map(&p.w2, w2, f, h, TILE, BK)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  p.b1 = b1;
+  p.hid = static_cast<bf16*>(hid);
+  p.da = static_cast<bf16*>(da);
+  p.colsum = colsum;
+  p.n = n;
+  p.h = h;
+  p.f = f;
+  p.drop = drop;
+  const size_t smem = rc_smem_bytes();
+  err = cudaFuncSetAttribute(recompute_kernel<DROP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = ((n + TILE - 1) / TILE) * ((f + TILE - 1) / TILE);
+  recompute_kernel<DROP><<<blocks, THREADS, smem,
+                           static_cast<cudaStream_t>(stream)>>>(p, act);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // out[i] = sum over splits, in split order, of ws[s * size + i]
 __global__ void __launch_bounds__(NT)
     ffn_bwd_reduce_kernel(const float* __restrict__ ws, float* __restrict__ out,
@@ -258,352 +739,74 @@ __global__ void __launch_bounds__(NT)
   out[i] = s;
 }
 
-// ------------------------------------------------------------------ bfloat16
-namespace wm = nvcuda::wmma;
-using bf16 = __nv_bfloat16;
-
-constexpr int TC_BM = 32;           // rows per tile: two 16-row tiles
-constexpr int DX_FC = 64;           // dx: f columns per chunk
-constexpr int DX_LDF = DX_FC + 4;   // f32 chunk row
-constexpr int DX_LDB = DX_FC + 8;   // bf16 chunk row
-
-template <int NJ>
-constexpr size_t dx_smem_bytes() {
-  return (size_t)2 * TC_BM * (128 * NJ + 8) * sizeof(bf16) +
-         (size_t)2 * TC_BM * DX_LDF * sizeof(float) +
-         (size_t)TC_BM * DX_LDB * sizeof(bf16);
-}
-
-// h = 128 * NJ; 8 warps; warp w owns output column tiles w + 8 * j, j < NJ
-template <int NJ, bool DROP>
-__global__ void __launch_bounds__(NT)
-    ffn_bwd_dx_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
-                         const bf16* __restrict__ w1, const float* __restrict__ b1,
-                         const bf16* __restrict__ w2, bf16* __restrict__ dx, int n,
-                         int f, int act, smx::Dropout drop) {
-  constexpr int H = 128 * NJ;
-  constexpr int LDX = H + 8;
-  constexpr int LDY = H + 4;  // f32 staged output row, over xs and gs
-  static_assert((size_t)TC_BM * LDY * sizeof(float) <=
-                (size_t)2 * TC_BM * LDX * sizeof(bf16), "staging fits");
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* xs = reinterpret_cast<bf16*>(smem_raw);            // (TC_BM, LDX)
-  bf16* gs = xs + TC_BM * LDX;                             // (TC_BM, LDX)
-  float* af = reinterpret_cast<float*>(gs + TC_BM * LDX);  // (TC_BM, DX_LDF)
-  float* dhf = af + TC_BM * DX_LDF;                        // (TC_BM, DX_LDF)
-  bf16* dab = reinterpret_cast<bf16*>(dhf + TC_BM * DX_LDF);  // (TC_BM, DX_LDB)
-  float* ys = reinterpret_cast<float*>(smem_raw);          // after the loop
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int r0 = blockIdx.x * TC_BM;
-
-  for (int i = tid; i < TC_BM * (H / 8); i += NT) {
-    const int r = i / (H / 8), c = (i % (H / 8)) * 8;
-    const int row = r0 + r;
-    uint4 xv = make_uint4(0u, 0u, 0u, 0u), gv = xv;
-    if (row < n) {
-      xv = *reinterpret_cast<const uint4*>(x + (long long)row * H + c);
-      gv = *reinterpret_cast<const uint4*>(g + (long long)row * H + c);
-    }
-    *reinterpret_cast<uint4*>(xs + r * LDX + c) = xv;
-    *reinterpret_cast<uint4*>(gs + r * LDX + c) = gv;
-  }
-  wm::fragment<wm::accumulator, 16, 16, 16, float> acc[2][NJ];
-#pragma unroll
-  for (int rt = 0; rt < 2; ++rt)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) wm::fill_fragment(acc[rt][j], 0.0f);
-  __syncthreads();
-
-  const int rt1 = warp >> 2, ct1 = warp & 3;  // this warp's tile of a chunk
-  for (int c0 = 0; c0 < f; c0 += DX_FC) {
-    wm::fragment<wm::accumulator, 16, 16, 16, float> aacc, dacc;
-    wm::fill_fragment(aacc, 0.0f);
-    wm::fill_fragment(dacc, 0.0f);
-    const bf16* w2t = w2 + (long long)(c0 + ct1 * 16) * H;
-    for (int k = 0; k < H; k += 16) {
-      wm::fragment<wm::matrix_a, 16, 16, 16, bf16, wm::row_major> a;
-      wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::row_major> b;
-      wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::col_major> bt;
-      wm::load_matrix_sync(a, xs + rt1 * 16 * LDX + k, LDX);
-      wm::load_matrix_sync(b, w1 + (long long)k * f + c0 + ct1 * 16, f);
-      wm::mma_sync(aacc, a, b, aacc);
-      wm::load_matrix_sync(a, gs + rt1 * 16 * LDX + k, LDX);
-      wm::load_matrix_sync(bt, w2t + k, H);  // (k, n) = w2[c0 + n][k]
-      wm::mma_sync(dacc, a, bt, dacc);
-    }
-    wm::store_matrix_sync(af + rt1 * 16 * DX_LDF + ct1 * 16, aacc, DX_LDF,
-                          wm::mem_row_major);
-    wm::store_matrix_sync(dhf + rt1 * 16 * DX_LDF + ct1 * 16, dacc, DX_LDF,
-                          wm::mem_row_major);
-    __syncthreads();  // also: every warp is done reading dab of the last chunk
-    if constexpr (DROP) {
-      // one Philox call per four f columns of a row
-      for (int i = tid; i < TC_BM * (DX_FC / 4); i += NT) {
-        const int r = i / (DX_FC / 4), c = (i % (DX_FC / 4)) * 4;
-        const uint4 bits = drop.bits4(r0 + r, (c0 + c) / 4);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          dab[r * DX_LDB + c + j] = __float2bfloat16(
-              dhf[r * DX_LDF + c + j] *
-              smx::dactivate(act, af[r * DX_LDF + c + j] + b1[c0 + c + j]) *
-              drop.keep(smx::word(bits, j)));
-        }
-      }
-    } else {
-      for (int i = tid; i < TC_BM * DX_FC; i += NT) {
-        const int r = i / DX_FC, c = i % DX_FC;
-        dab[r * DX_LDB + c] = __float2bfloat16(
-            dhf[r * DX_LDF + c] *
-            smx::dactivate(act, af[r * DX_LDF + c] + b1[c0 + c]));
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < DX_FC; ks += 16) {
-      wm::fragment<wm::matrix_a, 16, 16, 16, bf16, wm::row_major> a0, a1;
-      wm::load_matrix_sync(a0, dab + ks, DX_LDB);
-      wm::load_matrix_sync(a1, dab + 16 * DX_LDB + ks, DX_LDB);
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        // (k, n) = w1[(warp + 8 j) * 16 + n][c0 + ks + k]
-        wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::col_major> b;
-        wm::load_matrix_sync(
-            b, w1 + (long long)(warp + 8 * j) * 16 * f + c0 + ks, f);
-        wm::mma_sync(acc[0][j], a0, b, acc[0][j]);
-        wm::mma_sync(acc[1][j], a1, b, acc[1][j]);
-      }
-    }
-  }
-  __syncthreads();  // every warp is done with xs and gs
-#pragma unroll
-  for (int rt = 0; rt < 2; ++rt)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      wm::store_matrix_sync(ys + rt * 16 * LDY + (warp + 8 * j) * 16, acc[rt][j],
-                            LDY, wm::mem_row_major);
-  __syncthreads();
-  for (int i = tid; i < TC_BM * H; i += NT) {
-    const int r = i / H, c = i % H;
-    if (r0 + r < n) {
-      dx[(long long)(r0 + r) * H + c] = __float2bfloat16(ys[r * LDY + c]);
-    }
-  }
-}
-
-constexpr int DW_NT = 512;          // 16 warps
-constexpr int DW_FC = 32;           // dw: f columns per block
-constexpr int DW_LDF = DW_FC + 4;
-constexpr int DW_LDB = DW_FC + 8;
-
-template <int NJ>
-constexpr size_t dw_smem_bytes() {
-  return (size_t)2 * TC_BM * (128 * NJ + 8) * sizeof(bf16) +
-         (size_t)4 * TC_BM * DW_LDF * sizeof(float) +
-         (size_t)2 * TC_BM * DW_LDB * sizeof(bf16);
-}
-
-// h = 128 * NJ.  Recompute: warp w computes one 16 x 16 tile of a (w % 8 < 4)
-// or dh over half of the h contraction (w / 8).  Weight gradients: warps 0-7
-// hold x^T da (row tiles w + 8 j of h, both column tiles), warps 8-15 hold
-// h^T g (both row tiles, column tiles w - 8 + 8 j of h).
-// One block per SM, stated: with the thread count alone ptxas keeps this
-// kernel to 64 registers and spills its accumulators (2 to 4 KB a thread).
-template <int NJ, bool DROP>
-__global__ void __launch_bounds__(DW_NT, 1)
-    ffn_bwd_dw_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
-                         const bf16* __restrict__ w1, const float* __restrict__ b1,
-                         const bf16* __restrict__ w2, float* __restrict__ out,
-                         int n, int f, int act, int rows_per_split,
-                         smx::Dropout drop) {
-  constexpr int H = 128 * NJ;
-  constexpr int LDX = H + 8;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* xs = reinterpret_cast<bf16*>(smem_raw);            // (TC_BM, LDX)
-  bf16* gs = xs + TC_BM * LDX;
-  float* af = reinterpret_cast<float*>(gs + TC_BM * LDX);  // 2 x (TC_BM, DW_LDF)
-  float* dhf = af + 2 * TC_BM * DW_LDF;                    // 2 x (TC_BM, DW_LDF)
-  bf16* hb = reinterpret_cast<bf16*>(dhf + 2 * TC_BM * DW_LDF);  // (TC_BM, DW_LDB)
-  bf16* dab = hb + TC_BM * DW_LDB;
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int c0 = blockIdx.x * DW_FC;
-  const int row_begin = blockIdx.y * rows_per_split;
-  const int row_end = min(n, row_begin + rows_per_split);
-  const long long part = 2LL * H * f + f;
-  float* dw1 = out + blockIdx.y * part;
-  float* dw2 = dw1 + (long long)H * f;
-  float* db1 = dw2 + (long long)H * f;
-
-  wm::fragment<wm::accumulator, 16, 16, 16, float> acc[NJ][2];
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    wm::fill_fragment(acc[j][0], 0.0f);
-    wm::fill_fragment(acc[j][1], 0.0f);
-  }
-  float bsum = 0.0f;
-  const int khalf = warp >> 3, job = warp & 7;
-  const bool is_dh = job >= 4;
-  const int rt1 = (job >> 1) & 1, ct1 = job & 1;
-  const int kbeg = khalf * (H / 2);
-  float* stage = (is_dh ? dhf : af) + khalf * TC_BM * DW_LDF +
-                 rt1 * 16 * DW_LDF + ct1 * 16;
-
-  for (int r0 = row_begin; r0 < row_end; r0 += TC_BM) {
-    __syncthreads();  // the last tile's readers of xs, gs, hb, dab are done
-    for (int i = tid; i < TC_BM * (H / 8); i += DW_NT) {
-      const int r = i / (H / 8), c = (i % (H / 8)) * 8;
-      const int row = r0 + r;
-      uint4 xv = make_uint4(0u, 0u, 0u, 0u), gv = xv;
-      if (row < row_end) {
-        xv = *reinterpret_cast<const uint4*>(x + (long long)row * H + c);
-        gv = *reinterpret_cast<const uint4*>(g + (long long)row * H + c);
-      }
-      *reinterpret_cast<uint4*>(xs + r * LDX + c) = xv;
-      *reinterpret_cast<uint4*>(gs + r * LDX + c) = gv;
-    }
-    __syncthreads();
-    {
-      wm::fragment<wm::accumulator, 16, 16, 16, float> part_acc;
-      wm::fill_fragment(part_acc, 0.0f);
-      wm::fragment<wm::matrix_a, 16, 16, 16, bf16, wm::row_major> a;
-      if (is_dh) {
-        const bf16* w2t = w2 + (long long)(c0 + ct1 * 16) * H;
-        for (int k = kbeg; k < kbeg + H / 2; k += 16) {
-          wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::col_major> bt;
-          wm::load_matrix_sync(a, gs + rt1 * 16 * LDX + k, LDX);
-          wm::load_matrix_sync(bt, w2t + k, H);
-          wm::mma_sync(part_acc, a, bt, part_acc);
-        }
-      } else {
-        for (int k = kbeg; k < kbeg + H / 2; k += 16) {
-          wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::row_major> b;
-          wm::load_matrix_sync(a, xs + rt1 * 16 * LDX + k, LDX);
-          wm::load_matrix_sync(b, w1 + (long long)k * f + c0 + ct1 * 16, f);
-          wm::mma_sync(part_acc, a, b, part_acc);
-        }
-      }
-      wm::store_matrix_sync(stage, part_acc, DW_LDF, wm::mem_row_major);
-    }
-    __syncthreads();
-    if constexpr (DROP) {
-      // one Philox call per four f columns of a row
-      for (int i = tid; i < TC_BM * (DW_FC / 4); i += DW_NT) {
-        const int r = i / (DW_FC / 4), c = (i % (DW_FC / 4)) * 4;
-        const uint4 bits = drop.bits4(r0 + r, (c0 + c) / 4);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int at = r * DW_LDF + c + j;
-          const float a = af[at] + af[TC_BM * DW_LDF + at] + b1[c0 + c + j];
-          const float dh = dhf[at] + dhf[TC_BM * DW_LDF + at];
-          const float m = drop.keep(smx::word(bits, j));
-          hb[r * DW_LDB + c + j] = __float2bfloat16(smx::activate(act, a) * m);
-          dab[r * DW_LDB + c + j] =
-              __float2bfloat16(dh * smx::dactivate(act, a) * m);
-        }
-      }
-    } else {
-      for (int i = tid; i < TC_BM * DW_FC; i += DW_NT) {
-        const int r = i / DW_FC, c = i % DW_FC;
-        const int at = r * DW_LDF + c;
-        const float a = af[at] + af[TC_BM * DW_LDF + at] + b1[c0 + c];
-        const float dh = dhf[at] + dhf[TC_BM * DW_LDF + at];
-        hb[r * DW_LDB + c] = __float2bfloat16(smx::activate(act, a));
-        dab[r * DW_LDB + c] = __float2bfloat16(dh * smx::dactivate(act, a));
-      }
-    }
-    __syncthreads();
-    if (tid < DW_FC) {
-#pragma unroll
-      for (int r = 0; r < TC_BM; ++r) {
-        bsum += __bfloat162float(dab[r * DW_LDB + tid]);
-      }
-    }
-    if (warp < 8) {
-      // dw1[h rows, chunk] += x^T da: (m, k) = xs[k][m]
-#pragma unroll
-      for (int ks = 0; ks < TC_BM; ks += 16) {
-        wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::row_major> b0, b1f;
-        wm::load_matrix_sync(b0, dab + ks * DW_LDB, DW_LDB);
-        wm::load_matrix_sync(b1f, dab + ks * DW_LDB + 16, DW_LDB);
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          wm::fragment<wm::matrix_a, 16, 16, 16, bf16, wm::col_major> a;
-          wm::load_matrix_sync(a, xs + ks * LDX + (warp + 8 * j) * 16, LDX);
-          wm::mma_sync(acc[j][0], a, b0, acc[j][0]);
-          wm::mma_sync(acc[j][1], a, b1f, acc[j][1]);
-        }
-      }
-    } else {
-      // dw2[chunk, h columns] += h^T g: (m, k) = hb[k][m]
-#pragma unroll
-      for (int ks = 0; ks < TC_BM; ks += 16) {
-        wm::fragment<wm::matrix_a, 16, 16, 16, bf16, wm::col_major> a0, a1;
-        wm::load_matrix_sync(a0, hb + ks * DW_LDB, DW_LDB);
-        wm::load_matrix_sync(a1, hb + ks * DW_LDB + 16, DW_LDB);
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::row_major> b;
-          wm::load_matrix_sync(b, gs + ks * LDX + (warp - 8 + 8 * j) * 16, LDX);
-          wm::mma_sync(acc[j][0], a0, b, acc[j][0]);
-          wm::mma_sync(acc[j][1], a1, b, acc[j][1]);
-        }
-      }
-    }
-  }
-  if (warp < 8) {
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      float* o = dw1 + (long long)(warp + 8 * j) * 16 * f + c0;
-      wm::store_matrix_sync(o, acc[j][0], f, wm::mem_row_major);
-      wm::store_matrix_sync(o + 16, acc[j][1], f, wm::mem_row_major);
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      float* o = dw2 + (long long)c0 * H + (warp - 8 + 8 * j) * 16;
-      wm::store_matrix_sync(o, acc[j][0], H, wm::mem_row_major);
-      wm::store_matrix_sync(o + 16LL * H, acc[j][1], H, wm::mem_row_major);
-    }
-  }
-  if (tid < DW_FC) db1[c0 + tid] = bsum;
-}
-
-template <int NJ, bool DROP>
-int launch_dx_tc(const void* x, const void* g, const void* w1, const float* b1,
-                 const void* w2, void* dx, int n, int f, int act,
-                 smx::Dropout drop, cudaStream_t stream) {
-  const size_t smem = dx_smem_bytes<NJ>();
-  cudaError_t err = cudaFuncSetAttribute(
-      ffn_bwd_dx_tc_kernel<NJ, DROP>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ffn_bwd_dx_tc_kernel<NJ, DROP><<<(n + TC_BM - 1) / TC_BM, NT, smem, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(g),
-      static_cast<const bf16*>(w1), b1, static_cast<const bf16*>(w2),
-      static_cast<bf16*>(dx), n, f, act, drop);
+int reduce(const float* ws, float* out, long long size, int splits,
+           cudaStream_t s) {
+  ffn_bwd_reduce_kernel<<<(unsigned)((size + NT - 1) / NT), NT, 0, s>>>(
+      ws, out, size, splits);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int NJ, bool DROP>
-int launch_dw_tc(const void* x, const void* g, const void* w1, const float* b1,
-                 const void* w2, float* out, int n, int f, int act, int splits,
-                 int rows_per_split, smx::Dropout drop, cudaStream_t stream) {
-  const size_t smem = dw_smem_bytes<NJ>();
-  cudaError_t err = cudaFuncSetAttribute(
-      ffn_bwd_dw_tc_kernel<NJ, DROP>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+// The row plan of dw1 / dw2: `splits` ranges of rows_per_split rows (a
+// multiple of BK) that cover the n rows, none empty.
+bool bad_plan(int n, int splits, int rows_per_split) {
+  return splits < 1 || rows_per_split <= 0 || rows_per_split % BK != 0 ||
+         (long long)splits * rows_per_split < n ||
+         (long long)(splits - 1) * rows_per_split >= n;
+}
+
+int products(const void* x, const void* g, const void* w1, const void* hid,
+             const void* da, const float* colsum, void* dx, float* out,
+             float* ws, int n, int h, int f, int splits, int rows_per_split,
+             int device, void* stream) {
+  if (bad_bf16_shape(n, h, f) || bad_plan(n, splits, rows_per_split) ||
+      colsum == nullptr || dx == nullptr || out == nullptr ||
+      !aligned(x, 16) || !aligned(g, 16) ||
+      !aligned(w1, 16) || !aligned(hid, 16) || !aligned(da, 16) ||
+      !aligned(dx, 16) || !aligned(out, 16) ||
+      (splits > 1 && (ws == nullptr || !aligned(ws, 16)))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  ffn_bwd_dw_tc_kernel<NJ, DROP>
-      <<<dim3(f / DW_FC, splits), DW_NT, smem, stream>>>(
-          static_cast<const bf16*>(x), static_cast<const bf16*>(g),
-          static_cast<const bf16*>(w1), b1, static_cast<const bf16*>(w2), out,
-          n, f, act, rows_per_split, drop);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  ProductsArgs p;
+  if (!hw::make_map(&p.dx_a, da, n, f, TILE, BK) ||
+      !hw::make_map(&p.dx_b, w1, h, f, TILE, BK) ||
+      !hw::make_map(&p.w1_a, x, n, h, BK, BK) ||
+      !hw::make_map(&p.w1_b, da, n, f, BK, BK) ||
+      !hw::make_map(&p.w2_a, hid, n, f, BK, BK) ||
+      !hw::make_map(&p.w2_b, g, n, h, BK, BK)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int htiles = (h + TILE - 1) / TILE, ftiles = (f + TILE - 1) / TILE;
+  p.dx = static_cast<bf16*>(dx);
+  p.dw = splits > 1 ? ws : out;
+  p.n = n;
+  p.h = h;
+  p.f = f;
+  p.dx_items = ((n + TILE - 1) / TILE) * htiles;
+  p.dw_tiles = htiles * ftiles;
+  p.splits = splits;
+  p.rows_per_split = rows_per_split;
+  const size_t smem = gemm_smem_bytes();
+  err = cudaFuncSetAttribute(products_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long items = p.dx_items + 2LL * splits * p.dw_tiles;
+  products_kernel<<<(unsigned)items, THREADS, smem, s>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long size = 2LL * h * f;
+  if (splits > 1) {
+    const int rc = reduce(ws, out, size, splits, s);
+    if (rc != 0) return rc;
+  }
+  // db1: the recompute's per-tile column sums, added in tile order
+  return reduce(colsum, out + size, f, (n + TILE - 1) / TILE, s);
 }
 
-bool aligned32(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 31u) == 0;
-}
-
+// ------------------------------------------------------------------ float32
 bool bad_shape(int n, int h, int f, int act) {
   return h > MAXC * NT || h <= 0 || f <= 0 || n <= 0 || act < 0 || act > 3;
 }
@@ -612,29 +815,18 @@ template <bool DROP>
 int bwd_dx(const void* x, const void* g, const void* w1, const float* b1,
            const void* w2, void* dx, int n, int h, int f, int act,
            smx::Dropout drop, int dtype, int device, void* stream) {
-  if (bad_shape(n, h, f, act)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == smx::kBF16) {
-    if (f % DX_FC != 0 || !aligned32(x) || !aligned32(g) || !aligned32(w1) ||
-        !aligned32(w2)) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    if (h == 768) {
-      return launch_dx_tc<6, DROP>(x, g, w1, b1, w2, dx, n, f, act, drop, s);
-    }
-    if (h == 1024) {
-      return launch_dx_tc<8, DROP>(x, g, w1, b1, w2, dx, n, f, act, drop, s);
-    }
+  if (dtype != smx::kF32 || bad_shape(n, h, f, act)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem = (size_t)(2 * h + FC) * BM * sizeof(float);
   err = cudaFuncSetAttribute(ffn_bwd_dx_kernel<DROP>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  ffn_bwd_dx_kernel<DROP><<<(n + BM - 1) / BM, NT, smem, s>>>(
+  ffn_bwd_dx_kernel<DROP><<<(n + BM - 1) / BM, NT, smem,
+                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(g),
       static_cast<const float*>(w1), b1, static_cast<const float*>(w2),
       static_cast<float*>(dx), n, h, f, act, drop);
@@ -642,61 +834,39 @@ int bwd_dx(const void* x, const void* g, const void* w1, const float* b1,
 }
 
 // out: (2 * h * f + f) float32 = dw1 | dw2 | db1.  splits row ranges of
-// rows_per_split rows (a multiple of 32) cover n; with splits > 1, ws holds
-// splits such records.
+// rows_per_split rows (bad_plan) cover n; with splits > 1, ws holds splits
+// such records.
 template <bool DROP>
 int bwd_dw(const void* x, const void* g, const void* w1, const float* b1,
            const void* w2, float* out, float* ws, int n, int h, int f, int act,
            int splits, int rows_per_split, smx::Dropout drop, int dtype,
            int device, void* stream) {
-  if (bad_shape(n, h, f, act) || splits < 1 || splits > 65535 ||
-      rows_per_split <= 0 || rows_per_split % TC_BM != 0 ||
-      (long long)splits * rows_per_split < n ||
-      (long long)(splits - 1) * rows_per_split >= n ||
-      (splits > 1 && ws == nullptr)) {
+  if (dtype != smx::kF32 || bad_shape(n, h, f, act) || f % WFC != 0 ||
+      splits > 65535 || bad_plan(n, splits, rows_per_split) || (splits > 1 && ws == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* target = splits > 1 ? ws : out;
-  int rc;
-  if (dtype == smx::kBF16) {
-    if (f % DX_FC != 0 || !aligned32(x) || !aligned32(g) || !aligned32(w1) ||
-        !aligned32(w2) || !aligned32(target)) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    if (h == 768) {
-      rc = launch_dw_tc<6, DROP>(x, g, w1, b1, w2, target, n, f, act, splits,
-                                 rows_per_split, drop, s);
-    } else if (h == 1024) {
-      rc = launch_dw_tc<8, DROP>(x, g, w1, b1, w2, target, n, f, act, splits,
-                                 rows_per_split, drop, s);
-    } else {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-  } else {
-    if (f % WFC != 0) return static_cast<int>(cudaErrorInvalidValue);
-    const size_t smem = (size_t)(2 * h + 2 * WFC) * BM * sizeof(float);
-    err = cudaFuncSetAttribute(ffn_bwd_dw_kernel<DROP>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    ffn_bwd_dw_kernel<DROP><<<dim3(f / WFC, splits), NT, smem, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(g),
-        static_cast<const float*>(w1), b1, static_cast<const float*>(w2),
-        target, n, h, f, act, rows_per_split, drop);
-    rc = static_cast<int>(cudaGetLastError());
-  }
+  const size_t smem = (size_t)(2 * h + 2 * WFC) * BM * sizeof(float);
+  err = cudaFuncSetAttribute(ffn_bwd_dw_kernel<DROP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ffn_bwd_dw_kernel<DROP><<<dim3(f / WFC, splits), NT, smem, s>>>(
+      static_cast<const float*>(x), static_cast<const float*>(g),
+      static_cast<const float*>(w1), b1, static_cast<const float*>(w2),
+      target, n, h, f, act, rows_per_split, drop);
+  const int rc = static_cast<int>(cudaGetLastError());
   if (rc != 0 || splits == 1) return rc;
-  const long long size = 2LL * h * f + f;
-  ffn_bwd_reduce_kernel<<<(unsigned)((size + NT - 1) / NT), NT, 0, s>>>(
-      ws, out, size, splits);
-  return static_cast<int>(cudaGetLastError());
+  return reduce(ws, out, 2LL * h * f + f, splits, s);
 }
 
 }  // namespace
 
+// float32 entries (the f32 reference runs); bfloat16 is refused here and
+// takes the recompute and products entries below
 extern "C" int smx_ffn_bwd_dx(const void* x, const void* g, const void* w1,
                               const float* b1, const void* w2, void* dx, int n,
                               int h, int f, int act, int dtype, int device,
@@ -740,4 +910,38 @@ extern "C" int smx_ffn_dropout_bwd_dw(const void* x, const void* g,
       x, g, w1, b1, w2, out, ws, n, h, f, act, splits, rows_per_split,
       smx::make_dropout(k0, k1, smx::kStreamAct, threshold, scale), dtype,
       device, stream);
+}
+
+// bfloat16.  hid, da: (n, f) bf16; colsum: (ceil(n / 128), f) float32.
+extern "C" int smx_ffn_bwd_recompute(const void* x, const void* g,
+                                     const void* w1, const float* b1,
+                                     const void* w2, void* hid, void* da,
+                                     float* colsum, int n, int h, int f,
+                                     int act, int device, void* stream) {
+  return recompute<false>(x, g, w1, b1, w2, hid, da, colsum, n, h, f, act,
+                          smx::Dropout{}, device, stream);
+}
+
+extern "C" int smx_ffn_dropout_bwd_recompute(
+    const void* x, const void* g, const void* w1, const float* b1,
+    const void* w2, void* hid, void* da, float* colsum, int n, int h, int f,
+    int act, uint32_t k0, uint32_t k1, uint32_t threshold, float scale,
+    int device, void* stream) {
+  return recompute<true>(
+      x, g, w1, b1, w2, hid, da, colsum, n, h, f, act,
+      smx::make_dropout(k0, k1, smx::kStreamAct, threshold, scale), device,
+      stream);
+}
+
+// dx (n, h) bf16; out (2 h f + f) float32 = dw1 | dw2 | db1; ws: splits *
+// 2 h f float32 when splits > 1.
+extern "C" int smx_ffn_bwd_products(const void* x, const void* g,
+                                    const void* w1, const void* hid,
+                                    const void* da, const float* colsum,
+                                    void* dx, float* out, float* ws, int n,
+                                    int h, int f, int splits,
+                                    int rows_per_split, int device,
+                                    void* stream) {
+  return products(x, g, w1, hid, da, colsum, dx, out, ws, n, h, f, splits,
+                  rows_per_split, device, stream);
 }

@@ -4,11 +4,13 @@ K1 ``attention.attention_fwd``, K2 ``ffn.dense_res_ln``, K3
 ``ffn.ffn_res_ln``, K4 ``decode_attention.decode_attention`` (float and int8
 K/V entries), K5 ``beam_gather.beam_gather``, K6
 ``conv_extractor.fused_conv_layer``, K7 ``attention.attention_bwd``, K8
-``ffn.ffn_bwd_dx`` / ``ffn.ffn_bwd_dw``, K9 ``ffn.ffn_fused``; the dropout
-kernels K10 ``dropout.dropout_mask``, K11 ``ffn.dense_dropout_res_ln``, K12
-``ffn.ffn_dropout_res_ln``, K13 ``ffn.ffn_dropout``, K14
-``attention.attention_dropout_fwd``, K15 ``attention.attention_dropout_bwd``
-and K8's dropout entries ``ffn.ffn_dropout_bwd_dx`` / ``ffn_dropout_bwd_dw``.
+``ffn.ffn_bwd`` (bfloat16: ``ffn.ffn_bwd_recompute`` then
+``ffn.ffn_bwd_products``; float32: ``ffn.ffn_bwd_dx`` / ``ffn.ffn_bwd_dw``),
+K9 ``ffn.ffn_fused``; the dropout kernels K10 ``dropout.dropout_mask``, K11
+``ffn.dense_dropout_res_ln``, K12 ``ffn.ffn_dropout_res_ln``, K13
+``ffn.ffn_dropout``, K14 ``attention.attention_dropout_fwd``, K15
+``attention.attention_dropout_bwd`` and K8 with the activation mask
+``ffn.ffn_dropout_bwd`` (its own recompute entry, the same products).
 A wrapper runs its plain PyTorch version for a CPU tensor, and launches its
 kernel or raises for a CUDA tensor.  Importing the package registers every
 kernel, so ``build_all()`` builds all of them.

@@ -1,16 +1,20 @@
 """K2, K3, K8 and K9: the dense and FFN products of a transformer block,
 fused with the post-LN residual + LayerNorm epilogue (K2, K3) or without it
 (K9), and the FFN backward (K8); and their dropout twins K11, K12, K13 and
-K8's dropout entries.
+K8 with the activation mask.
 
 ``dense_res_ln`` (K2, ``csrc/dense_res_ln.cu``) replaces the TPU kernel
 ``speechmix_tpu/ops/pallas/ffn_kernel.py: dense_res_ln``;
 ``ffn_res_ln`` (K3, ``csrc/ffn_res_ln.cu``) replaces ``ffn_fused_res_ln`` of
 that file, ``ffn_fused`` (K9, a second entry of the same source)
-``ffn_fused``, and ``ffn_bwd`` (K8, ``csrc/ffn_bwd.cu``, two entries)
-``ffn_fused_bwd``.  Each wrapper launches its kernel for CUDA tensors and
-runs its plain PyTorch version, which computes the same function with the
-kernel's f32 arithmetic, for CPU tensors.
+``ffn_fused``, and ``ffn_bwd`` (K8, ``csrc/ffn_bwd.cu``) ``ffn_fused_bwd``.
+K8 in bfloat16 is two entries: ``ffn_bwd_recompute`` forms h, da and da's
+column sums per 128-row tile once, ``ffn_bwd_products`` runs dx, dw1 and
+dw2 from them as one TMA + wgmma GEMM; K8 in float32 (the reference runs)
+keeps its f32 entries ``smx_ffn_bwd_dx`` / ``smx_ffn_bwd_dw``.  Each wrapper
+launches its kernel for CUDA tensors and runs its plain PyTorch version,
+which computes the same function with the kernel's f32 arithmetic, for CPU
+tensors.
 
 ``ffn_res_ln_trainable``, ``dense_res_ln_trainable`` and
 ``ffn_fused_trainable`` are the differentiable forms, counterparts of the TPU
@@ -27,14 +31,15 @@ mask (stream 1) over (N, H), keyed on (row, column).  ``dense_dropout_res_ln``
 ``dense_dropout_res_ln_trainable``'s TPU kernel, ``ffn_dropout_res_ln`` (K12)
 ``ffn_dropout_res_ln_trainable``'s and ``ffn_dropout`` (K13)
 ``ffn_dropout_trainable``'s (``smx_ffn_dropout_res_ln`` and
-``smx_ffn_dropout`` of ``ffn_res_ln.cu``); ``ffn_dropout_bwd_dx`` and
-``ffn_dropout_bwd_dw`` (``ffn_bwd.cu``) regenerate the activation mask in the
-backward, where the TPU package runs XLA.  Their plain versions take explicit
+``smx_ffn_dropout`` of ``ffn_res_ln.cu``); ``ffn_dropout_bwd`` (K8's
+dropout recompute entry, or its f32 dropout entries, in ``ffn_bwd.cu``)
+regenerates the activation mask in the backward, where the TPU package runs
+XLA.  Their plain versions take explicit
 masks (``*_plain(..., amask, omask)``), so a test can hand them any mask.
 ``ffn_dropout_res_ln_trainable``, ``dense_dropout_res_ln_trainable`` and
 ``ffn_dropout_trainable`` keep the key, not the masks, for the backward: K12's
 backward recomputes the FFN through K13, regenerates the (N, H) output mask
-with K10, and runs K8's dropout entries; K11's regenerates its output mask
+with K10, and runs K8 with the activation mask; K11's regenerates its output mask
 with K10 and runs plain matrix products.
 """
 
@@ -97,10 +102,27 @@ FFN_DROPOUT_BWD_DW = CudaKernel(
     "ffn_bwd.cu", "smx_ffn_dropout_bwd_dw",
     [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + _KEY + _MASK +
     [ctypes.c_int] * 2)
-# K8's weight-gradient entry splits the rows over this many blocks per chunk
-# of F at most, about 1024 rows each
+# K8 in bfloat16: the recompute pass (h, da and da's column sums per row
+# tile, once) and the products (dx, dw1, dw2, db1 from them)
+FFN_BWD_RECOMPUTE = CudaKernel(
+    "ffn_bwd.cu", "smx_ffn_bwd_recompute",
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5)
+FFN_DROPOUT_BWD_RECOMPUTE = CudaKernel(
+    "ffn_bwd.cu", "smx_ffn_dropout_bwd_recompute",
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + _KEY + _MASK +
+    [ctypes.c_int])
+FFN_BWD_PRODUCTS = CudaKernel(
+    "ffn_bwd.cu", "smx_ffn_bwd_products",
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6)
+# rows of a recompute tile, each giving one row of da's column sums
+ROW_TILE = 128
+# K8's weight gradients sum over the rows in at most DW_MAX_SPLITS fixed
+# ranges of about this many rows (bf16 products; the f32 kernels' blocks
+# take fewer), added in range order
 DW_MAX_SPLITS = 8
-DW_ROWS_PER_SPLIT = 1024
+DW_ROWS_PER_SPLIT = 3200
+DW_ROWS_PER_SPLIT_F32 = 1024
+DW_SPLIT_ALIGN = 64   # rows: one stage of the products kernel
 
 
 def act_f32(name, x):
@@ -354,6 +376,50 @@ def ffn_bwd_plain(x, g, w1, b1, w2, act="gelu", amask=None):
             g.to(x.dtype).float().sum(0))
 
 
+def dw_split_plan(n, rows_per_split=None):
+    """(splits, rows): the fixed row ranges [s * rows, min(n, (s + 1) *
+    rows)) over which K8 sums its weight gradients, about rows_per_split
+    (default DW_ROWS_PER_SPLIT) rows each, at most DW_MAX_SPLITS of them,
+    each a multiple of DW_SPLIT_ALIGN rows long and none empty."""
+    rows_per_split = rows_per_split or DW_ROWS_PER_SPLIT
+    splits = min(DW_MAX_SPLITS, -(-n // rows_per_split))
+    rows = -(-(-(-n // splits)) // DW_SPLIT_ALIGN) * DW_SPLIT_ALIGN
+    return -(-n // rows), rows
+
+
+def ffn_bwd_recompute_plain(x, g, w1, b1, w2, act="gelu", amask=None):
+    """K8's recompute pass: (h, da, colsum) with h = round(act(a) * amask),
+    da = round(g @ w2^T * act'(a) * amask) in x's dtype, (N, F) each, and
+    colsum (ceil(N / ROW_TILE), F) float32, the column sums of da over each
+    ROW_TILE-row tile."""
+    _, _, hid, da = _hidden_and_da(x, g, w1, b1, w2, act, amask)
+    n, f = da.shape
+    tiles = -(-n // ROW_TILE)
+    pad = da.new_zeros(tiles * ROW_TILE - n, f)
+    colsum = torch.cat([da, pad]).view(tiles, ROW_TILE, f).sum(1)
+    return hid.to(x.dtype), da.to(x.dtype), colsum
+
+
+def _ordered_sum(parts):
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p
+    return total
+
+
+def ffn_bwd_products_plain(x, g, w1, hid, da, colsum):
+    """K8's products from the recompute's (hid, da, colsum): (dx, dw1, db1,
+    dw2) with dx = da @ w1^T in x's dtype, dw1 = x^T da, dw2 = hid^T g, the
+    two summed over the row ranges of dw_split_plan in range order, and db1
+    the sum of colsum's rows in order, all float32."""
+    dx = (da.float() @ w1.float().t()).to(x.dtype)
+    splits, rows = dw_split_plan(x.shape[0])
+    cuts = [slice(s * rows, (s + 1) * rows) for s in range(splits)]
+    dw1 = _ordered_sum([x[c].float().t() @ da[c].float() for c in cuts])
+    dw2 = _ordered_sum([hid[c].float().t() @ g[c].float() for c in cuts])
+    return dx, dw1, _ordered_sum(list(colsum)), dw2
+
+
 def _check_ffn_bwd(what, x, g, w1, b1, w2, act):
     if x.dtype == torch.float32 and w1.shape[1] % 16:
         raise ValueError(f"{what} in float32 supports F a multiple of 16, "
@@ -365,12 +431,87 @@ def _check_ffn_bwd(what, x, g, w1, b1, w2, act):
     return n, h, f, code
 
 
+def ffn_bwd_recompute(x, g, w1, b1, w2, act="gelu", key=None, rate=0.0):
+    """K8's recompute entry (its dropout twin with the activation mask of
+    (key, STREAM_ACT) at `rate` > 0); see ffn_bwd_recompute_plain.  CUDA
+    tensors: bfloat16 only, with the rules of ffn_bwd."""
+    drop = key is not None and rate > 0.0
+    if x.device.type == "cpu":
+        return ffn_bwd_recompute_plain(x, g, w1, b1, w2, act, _mask_plain(
+            key, STREAM_ACT, x.shape[0], w1.shape[1], rate, x.device)
+            if drop else None)
+    n, h, f, _ = _check_ffn_bwd("ffn_bwd_recompute", x, g, w1, b1, w2, act)
+    _require_bf16("ffn_bwd_recompute", x)
+    hid = torch.empty(n, f, dtype=x.dtype, device=x.device)
+    da = torch.empty_like(hid)
+    colsum = torch.empty(-(-n // ROW_TILE), f, dtype=torch.float32,
+                         device=x.device)
+    ptrs = (x.data_ptr(), g.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+            w2.data_ptr(), hid.data_ptr(), da.data_ptr(), colsum.data_ptr(),
+            n, h, f, ACT_CODES[act])
+    if drop:
+        FFN_DROPOUT_BWD_RECOMPUTE.launch(*ptrs, *launch_args(key, rate),
+                                         x.device.index)
+    else:
+        FFN_BWD_RECOMPUTE.launch(*ptrs, x.device.index)
+    return hid, da, colsum
+
+
+def ffn_bwd_products(x, g, w1, hid, da, colsum):
+    """K8's products entry; see ffn_bwd_products_plain.  CUDA tensors:
+    bfloat16 x, g (N, H), w1 (H, F), hid, da (N, F), colsum float32
+    (ceil(N / ROW_TILE), F), with the width rules of ffn_bwd."""
+    if x.device.type == "cpu":
+        return ffn_bwd_products_plain(x, g, w1, hid, da, colsum)
+    check_cuda_tensor("x", x)
+    _require_bf16("ffn_bwd_products", x)
+    n, h = x.shape
+    f = w1.shape[1]
+    if h not in BF16_HIDDEN or f % 64:
+        raise ValueError(f"ffn_bwd_products supports H in {BF16_HIDDEN} and "
+                         f"F a multiple of 64, got H={h}, F={f}")
+    for name, t, shape in (("g", g, (n, h)), ("w1", w1, (h, f)),
+                           ("hid", hid, (n, f)), ("da", da, (n, f))):
+        check_cuda_tensor(name, t, x.dtype, shape, x.device)
+    check_cuda_tensor("colsum", colsum, torch.float32,
+                      (-(-n // ROW_TILE), f), x.device)
+    for name, t in (("x", x), ("g", g), ("w1", w1), ("hid", hid),
+                    ("da", da)):
+        check_aligned(name, t, 32)
+    dx = torch.empty_like(x)
+    splits, rows = dw_split_plan(n)
+    out = torch.empty(2 * h * f + f, dtype=torch.float32, device=x.device)
+    ws = (torch.empty(splits * 2 * h * f, dtype=torch.float32,
+                      device=x.device) if splits > 1 else None)
+    FFN_BWD_PRODUCTS.launch(x.data_ptr(), g.data_ptr(), w1.data_ptr(),
+                            hid.data_ptr(), da.data_ptr(), colsum.data_ptr(),
+                            dx.data_ptr(), out.data_ptr(),
+                            None if ws is None else ws.data_ptr(), n, h, f,
+                            splits, rows, x.device.index)
+    return (dx, out[:h * f].view(h, f), out[2 * h * f:],
+            out[h * f:2 * h * f].view(f, h))
+
+
+def _require_bf16(what, x):
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"{what} takes bfloat16 CUDA tensors, got {x.dtype}")
+
+
+def _bf16_bwd(x, g, w1, b1, w2, act, key=None, rate=0.0):
+    """K8 in bfloat16 on the card: the recompute pass, then the products
+    (dx, dw1, db1, dw2), all of them even where a caller keeps a part."""
+    hid, da, colsum = ffn_bwd_recompute(x, g, w1, b1, w2, act, key, rate)
+    return ffn_bwd_products(x, g, w1, hid, da, colsum)
+
+
 def ffn_bwd_dx(x, g, w1, b1, w2, act="gelu"):
-    """K8's input-gradient entry; see ffn_bwd_dx_plain.  CUDA tensors as for
+    """K8's input gradient; see ffn_bwd_dx_plain.  CUDA tensors as for
     ffn_bwd."""
     if x.device.type == "cpu":
         return ffn_bwd_dx_plain(x, g, w1, b1, w2, act)
     n, h, f, code = _check_ffn_bwd("ffn_bwd_dx", x, g, w1, b1, w2, act)
+    if x.dtype == torch.bfloat16:
+        return _bf16_bwd(x, g, w1, b1, w2, act)[0]
     dx = torch.empty_like(x)
     FFN_BWD_DX.launch(x.data_ptr(), g.data_ptr(), w1.data_ptr(),
                       b1.data_ptr(), w2.data_ptr(), dx.data_ptr(), n, h, f,
@@ -379,22 +520,22 @@ def ffn_bwd_dx(x, g, w1, b1, w2, act="gelu"):
 
 
 def ffn_bwd_dw(x, g, w1, b1, w2, act="gelu"):
-    """K8's weight-gradient entry; see ffn_bwd_dw_plain.  CUDA tensors as for
-    ffn_bwd.  The rows are split over up to DW_MAX_SPLITS blocks per chunk of
-    F, whose partial sums meet in a float32 workspace and are added in split
+    """K8's weight gradients; see ffn_bwd_dw_plain.  CUDA tensors as for
+    ffn_bwd.  The rows are summed over the fixed ranges of dw_split_plan,
+    whose partial sums meet in a float32 workspace and are added in range
     order (no atomics)."""
     if x.device.type == "cpu":
         return ffn_bwd_dw_plain(x, g, w1, b1, w2, act)
     n, h, f, code = _check_ffn_bwd("ffn_bwd_dw", x, g, w1, b1, w2, act)
+    if x.dtype == torch.bfloat16:
+        return _bf16_bwd(x, g, w1, b1, w2, act)[1:]
     return _dw_launch(FFN_BWD_DW, x, g, w1, b1, w2, n, h, f, act, code, ())
 
 
 def _dw_launch(kernel, x, g, w1, b1, w2, n, h, f, act, code, drop_args):
-    """Launch a weight-gradient entry of K8 (`drop_args`: the dropout
-    entry's key and mask arguments, or none)."""
-    splits = min(DW_MAX_SPLITS, -(-n // DW_ROWS_PER_SPLIT))
-    rows = -(-(-(-n // splits)) // 32) * 32   # per split, a multiple of 32
-    splits = -(-n // rows)
+    """Launch a float32 weight-gradient entry of K8 (`drop_args`: the
+    dropout entry's key and mask arguments, or none)."""
+    splits, rows = dw_split_plan(n, DW_ROWS_PER_SPLIT_F32)
     size = 2 * h * f + f
     out = torch.empty(size, dtype=torch.float32, device=x.device)
     ws = (torch.empty(splits * size, dtype=torch.float32, device=x.device)
@@ -410,13 +551,17 @@ def _dw_launch(kernel, x, g, w1, b1, w2, n, h, f, act, code, drop_args):
 
 
 def ffn_bwd(x, g, w1, b1, w2, act="gelu"):
-    """K8 (both entries); see ffn_bwd_plain.  CUDA tensors need x, g, w1, w2
-    in one dtype (float32 or bfloat16), b1 float32, H <= 1024; float32 needs
-    F a multiple of 16; bfloat16 needs H in BF16_HIDDEN, F a multiple of 64
-    and x, g, w1, w2 32-byte aligned.  db2 = sum g is taken outside the
-    kernels, as in the TPU package."""
-    dx = ffn_bwd_dx(x, g, w1, b1, w2, act)
-    dw1, db1, dw2 = ffn_bwd_dw(x, g, w1, b1, w2, act)
+    """K8; see ffn_bwd_plain.  CUDA tensors need x, g, w1, w2 in one dtype
+    (float32 or bfloat16), b1 float32, H <= 1024; float32 needs F a
+    multiple of 16; bfloat16 needs H in BF16_HIDDEN, F a multiple of 64 and
+    x, g, w1, w2 32-byte aligned.  bfloat16 runs the recompute pass and the
+    products (two launches), float32 the two f32 entries.  db2 = sum g is
+    taken outside the kernels, as in the TPU package."""
+    if x.device.type == "cuda" and x.dtype == torch.bfloat16:
+        dx, dw1, db1, dw2 = _bf16_bwd(x, g, w1, b1, w2, act)
+    else:
+        dx = ffn_bwd_dx(x, g, w1, b1, w2, act)
+        dw1, db1, dw2 = ffn_bwd_dw(x, g, w1, b1, w2, act)
     return dx, dw1, db1, dw2, g.float().sum(0)
 
 
@@ -494,13 +639,15 @@ def ffn_dropout(x, w1, b1, w2, b2, key: DropoutKey, rate, act="gelu"):
 
 
 def ffn_dropout_bwd_dx(x, g, w1, b1, w2, key: DropoutKey, rate, act="gelu"):
-    """K8's input-gradient dropout entry: ffn_bwd_dx with the activation
-    mask of (key, STREAM_ACT) regenerated in the kernel."""
+    """K8's input gradient with the activation mask of (key, STREAM_ACT)
+    regenerated in the kernel."""
     if x.device.type == "cpu":
         return ffn_bwd_dx_plain(x, g, w1, b1, w2, act, _mask_plain(
             key, STREAM_ACT, x.shape[0], w1.shape[1], rate, x.device))
     n, h, f, code = _check_ffn_bwd("ffn_dropout_bwd_dx", x, g, w1, b1, w2,
                                    act)
+    if x.dtype == torch.bfloat16:
+        return _bf16_bwd(x, g, w1, b1, w2, act, key, rate)[0]
     dx = torch.empty_like(x)
     FFN_DROPOUT_BWD_DX.launch(x.data_ptr(), g.data_ptr(), w1.data_ptr(),
                               b1.data_ptr(), w2.data_ptr(), dx.data_ptr(), n,
@@ -510,22 +657,28 @@ def ffn_dropout_bwd_dx(x, g, w1, b1, w2, key: DropoutKey, rate, act="gelu"):
 
 
 def ffn_dropout_bwd_dw(x, g, w1, b1, w2, key: DropoutKey, rate, act="gelu"):
-    """K8's weight-gradient dropout entry: ffn_bwd_dw with the activation
-    mask of (key, STREAM_ACT) regenerated in the kernel."""
+    """K8's weight gradients with the activation mask of (key, STREAM_ACT)
+    regenerated in the kernel."""
     if x.device.type == "cpu":
         return ffn_bwd_dw_plain(x, g, w1, b1, w2, act, _mask_plain(
             key, STREAM_ACT, x.shape[0], w1.shape[1], rate, x.device))
     n, h, f, code = _check_ffn_bwd("ffn_dropout_bwd_dw", x, g, w1, b1, w2,
                                    act)
+    if x.dtype == torch.bfloat16:
+        return _bf16_bwd(x, g, w1, b1, w2, act, key, rate)[1:]
     return _dw_launch(FFN_DROPOUT_BWD_DW, x, g, w1, b1, w2, n, h, f, act,
                       code, launch_args(key, rate))
 
 
 def ffn_dropout_bwd(x, g, w1, b1, w2, key: DropoutKey, rate, act="gelu"):
-    """Both dropout entries of K8; returns (dx, dw1, db1, dw2, db2) as
-    ffn_bwd does."""
-    dx = ffn_dropout_bwd_dx(x, g, w1, b1, w2, key, rate, act)
-    dw1, db1, dw2 = ffn_dropout_bwd_dw(x, g, w1, b1, w2, key, rate, act)
+    """K8 with the activation mask regenerated (bfloat16: the dropout
+    recompute pass, then the products; float32: the two f32 dropout
+    entries); returns (dx, dw1, db1, dw2, db2) as ffn_bwd does."""
+    if x.device.type == "cuda" and x.dtype == torch.bfloat16:
+        dx, dw1, db1, dw2 = _bf16_bwd(x, g, w1, b1, w2, act, key, rate)
+    else:
+        dx = ffn_dropout_bwd_dx(x, g, w1, b1, w2, key, rate, act)
+        dw1, db1, dw2 = ffn_dropout_bwd_dw(x, g, w1, b1, w2, key, rate, act)
     return dx, dw1, db1, dw2, g.float().sum(0)
 
 
@@ -647,8 +800,8 @@ def ffn_fused_trainable(x, w1, b1, w2, b2, act="gelu"):
 
 class _FfnDropoutResLn(torch.autograd.Function):
     """K12 forward; backward: K13 (or K9 at act_rate 0) recomputes the FFN,
-    K10 regenerates the output mask, ln_bwd, then K8's dropout entries (or
-    its deterministic ones at act_rate 0) on the masked gradient.  Nothing
+    K10 regenerates the output mask, ln_bwd, then K8 with the activation
+    mask (without it at act_rate 0) on the masked gradient.  Nothing
     of size (N, F) or (N, H) is kept beyond the inputs."""
 
     @staticmethod
@@ -743,7 +896,7 @@ def dense_dropout_res_ln_trainable(x, w, b, res, g, beta, key: DropoutKey,
 
 
 class _FfnDropout(torch.autograd.Function):
-    """K13 forward, K8's dropout entries backward."""
+    """K13 forward, K8 with the activation mask backward."""
 
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2, key, rate, act):
