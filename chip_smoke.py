@@ -11,12 +11,15 @@ Phases, each printing as it goes; any failure exits non-zero:
      int8 K/V, K5 beam_gather, K6 conv_ln_gelu, K7 attention_bwd, K8 ffn_bwd
      (bf16: its recompute pass and its TMA + wgmma products, the products
      also alone against reference products; f32: its two f32 entries), K9
-     ffn_fused) against its plain PyTorch version on the card, in bf16 and
-     f32, at the shapes the flagship path gives it (K2, K3, K8 and K9 at the
-     train step's 12800, 6400 and 1024 rows; K8's bf16 backward twice, bit
-     for bit), and time kernel, plain version and one PyTorch library call
-     beside it, with the least time the card could take (bound_ms); K5 must
-     be bit-exact;
+     ffn_fused; K3 and K9 in bf16 are the TMA + wgmma up and down passes and
+     the LayerNorm row pass of ffn_fwd.cu, each pass also held and timed
+     alone, the down pass's GEMM against a reference product, at every width
+     that is a multiple of 128 from 256 to 1536) against its plain PyTorch
+     version on the card, in bf16 and f32, at the shapes the flagship path
+     gives it (K2, K3, K8 and K9 at the train step's 12800, 6400 and 1024
+     rows; the bf16 K3, K8, K9, K12 and K13 twice, bit for bit), and time
+     kernel, plain version and one PyTorch library call beside it, with the
+     least time the card could take (bound_ms); K5 must be bit-exact;
      the differentiable forms of K3 and K9 (bf16 activations, f32 weights)
      must give the gradients of the same functions over the plain versions;
      then the dropout kernels: K10 dropout_mask bit-exact against the plain
@@ -29,7 +32,8 @@ Phases, each printing as it goes; any failure exits non-zero:
   4. drive the flagship (wav2vec2-base + bart-base, down_scale 2, fused
      extractor, random weights from the seed, bf16 matrices) through
      generate() at B = 16 x 16 s, max_length 64, in three modes: greedy
-     (K1-K3 18 launches per call, K6 6, K4 768), greedy with int8 cross K/V
+     (K1-K3 18 launches per call, K3 as its three passes, K6 6, K4 768),
+     greedy with int8 cross K/V
      (K4's int8 entry 6 per step) and beam search with 4 beams (K5 once per
      step, K4 twelve times per K5 launch); in f32 the text-encoder output,
      the tokens of all three modes and the beam scores of the kernel path
@@ -40,11 +44,13 @@ Phases, each printing as it goes; any failure exits non-zero:
      the flagship at full width and depth takes 8 AdamW steps (bf16 compute,
      f32 parameters, B = 16 x 16 s, 64 label positions) on one batch: the
      loss must fall and every step must launch K1, K3, K7, K9 and K8's
-     recompute and products 24 times each, K2 30 times and K6 6 times; then
+     recompute and products 24 times each (K3 and K9: the up pass 48, the
+     down pass, the down pass to z and the rows 24 each), K2 30 times and
+     K6 6 times, and print the device ms of K8 and of the passes; then
      8 more with dropout on at the presets' rates, SpecAugment and LayerDrop:
      with k speech layers skipped, K14, K15, K12, K13, K8's dropout
-     recompute and its products 24 - k times, K11 30 - k, K10 64 - 2k, K6 6,
-     and no deterministic twin;
+     recompute and its products 24 - k times (the dropout up pass 48 - 2k),
+     K11 30 - k, K10 64 - 2k, K6 6, and no deterministic twin;
   6. print the `kernels` JSON line, then the card line, then the result
      line {"ok": true, "device": {...}} last.
 Without CUDA it exits 1 before printing any result.
@@ -286,7 +292,8 @@ def check_kernels(gen, dev):
     # ---- K3: FFN + residual + LayerNorm ----------------------------------
     log("K3 ffn_res_ln")
     f = 3072
-    for dtype in (torch.bfloat16, torch.float32):
+    bf16, f32 = torch.bfloat16, torch.float32
+    for dtype in (bf16, f32):
         x, res = randn(4096, h, dtype=dtype), randn(4096, h, dtype=dtype)
         w1 = randn(h, f, scale=0.03, dtype=dtype)
         w2 = randn(f, h, scale=0.03, dtype=dtype)
@@ -304,31 +311,45 @@ def check_kernels(gen, dev):
         compare(f"N=4001 (ragged) H={h} F={f} gelu {dtype}",
                 kf.ffn_res_ln(xr, w1, b1, w2, b2, rr, g, beta),
                 kf.ffn_res_ln_plain(xr, w1, b1, w2, b2, rr, g, beta))
+        if dtype == bf16:
+            expect_equal("K3 N=4001 (ragged)",
+                         (kf.ffn_res_ln(xr, w1, b1, w2, b2, rr, g, beta),),
+                         (kf.ffn_res_ln(xr, w1, b1, w2, b2, rr, g, beta),))
     # other widths: bart-large (h 1024, f 4096) in both dtypes; h 256 and
-    # h 64 in float32, and refused in bfloat16 (no tensor-core kernel)
-    for hh, ff in ((1024, 4096), (256, 1024), (64, 128)):
-        for dtype in (torch.bfloat16, torch.float32):
+    # h 64 in float32; in bfloat16 K2 refuses widths outside BF16_HIDDEN,
+    # K3 those that are not multiples of 128.  Then widths of the bf16
+    # passes alone (what the TPU package's gate admits): h 512 under relu,
+    # h 1536 under gelu
+    for hh, ff, act, dtypes in ((1024, 4096, "gelu", (bf16, f32)),
+                                (256, 1024, "gelu", (bf16, f32)),
+                                (64, 128, "gelu", (bf16, f32)),
+                                (512, 2048, "relu", (bf16,)),
+                                (1536, 6144, "gelu", (bf16,))):
+        for dtype in dtypes:
             xo, ro = randn(1000, hh, dtype=dtype), randn(1000, hh, dtype=dtype)
             wo = randn(hh, hh, scale=0.03, dtype=dtype)
             w1o = randn(hh, ff, scale=0.03, dtype=dtype)
             w2o = randn(ff, hh, scale=0.03, dtype=dtype)
             bo, go, beo = (randn(hh, scale=0.1) for _ in range(3))
             b1o = randn(ff, scale=0.1)
-            if dtype == torch.bfloat16 and hh not in kf.BF16_HIDDEN:
+            k3 = (xo, w1o, b1o, w2o, bo, ro, go + 1, beo, act)
+            if dtype == bf16 and hh not in kf.BF16_HIDDEN:
                 expect_refusal(f"K2 N=1000 Din=H={hh} {dtype}",
                                lambda: kf.dense_res_ln(xo, wo, bo, ro, go + 1,
                                                        beo))
+            elif hh <= kf.MAX_HIDDEN:
+                compare(f"K2 N=1000 Din=H={hh} {dtype}",
+                        kf.dense_res_ln(xo, wo, bo, ro, go + 1, beo),
+                        kf.dense_res_ln_plain(xo, wo, bo, ro, go + 1, beo))
+            if dtype == bf16 and hh % kf.FWD_WIDTH:
                 expect_refusal(f"K3 N=1000 H={hh} F={ff} {dtype}",
-                               lambda: kf.ffn_res_ln(xo, w1o, b1o, w2o, bo,
-                                                     ro, go + 1, beo))
+                               lambda: kf.ffn_res_ln(*k3))
                 continue
-            compare(f"K2 N=1000 Din=H={hh} {dtype}",
-                    kf.dense_res_ln(xo, wo, bo, ro, go + 1, beo),
-                    kf.dense_res_ln_plain(xo, wo, bo, ro, go + 1, beo))
-            compare(f"K3 N=1000 H={hh} F={ff} gelu {dtype}",
-                    kf.ffn_res_ln(xo, w1o, b1o, w2o, bo, ro, go + 1, beo),
-                    kf.ffn_res_ln_plain(xo, w1o, b1o, w2o, bo, ro, go + 1,
-                                        beo))
+            compare(f"K3 N=1000 H={hh} F={ff} {act} {dtype}",
+                    kf.ffn_res_ln(*k3), kf.ffn_res_ln_plain(*k3))
+            if dtype == bf16:
+                expect_equal(f"K3 N=1000 H={hh} F={ff} {act}",
+                             (kf.ffn_res_ln(*k3),), (kf.ffn_res_ln(*k3),))
     x, w1, b1, w2, b2, res, g, beta, _ = args
     n = 4096
     w1t, w2t = w1.t(), w2.t()
@@ -709,6 +730,33 @@ def check_products_alone(randn, x, g, w1):
             1e-4 + 1e-4 * colsum.abs().sum(0), "1e-4 (1 + sum |tile sums|)")
 
 
+# the down pass alone, f32 sums of K = F products against the f32 reference
+# product: the same random-walk argument as K8_PRODUCT_RULE's, K = 3072
+DOWN_RULE = "2^-12 * (|h||w2|) + 1e-6 (f32 sums)"
+
+
+def check_down_alone(randn, w2, b2, res):
+    """The TMA + wgmma GEMM of the bf16 forward's down pass given a random
+    h: h w2 + b2 rounded to bf16 (K9's) and h w2 + b2 + res in f32 (K3's
+    sum before its LayerNorm) against the same product in f32 (TF32 off);
+    and twice, bit for bit."""
+    import torch
+    from speechmix_tpu_torch.ops.kernels import ffn as kf
+    (f, h), n = w2.shape, res.shape[0]
+    hid = randn(n, f, dtype=w2.dtype)
+    what = f"down pass alone N={n} H={h} F={f}"
+    y = kf.ffn_down(hid, w2, b2)
+    z = kf.ffn_down(hid, w2, b2, res)
+    torch.cuda.synchronize()
+    expect_equal(what, (y, z), (kf.ffn_down(hid, w2, b2),
+                                kf.ffn_down(hid, w2, b2, res)))
+    ref = hid.float() @ w2.float() + b2
+    compare(f"{what} round(h w2 + b2)", y, ref.to(y.dtype))
+    compare(f"{what} h w2 + b2 + res (f32)", z, ref + res.float(),
+            2.0 ** -12 * (hid.float().abs() @ w2.float().abs()) + 1e-6,
+            DOWN_RULE)
+
+
 def check_train_kernels(randn, dev, records):
     """The kernels of the training step at the flagship's shapes, bf16 and
     f32: K1's log-sum-exp output, K7 attention_bwd, K8 ffn_bwd (both
@@ -827,6 +875,10 @@ def check_train_kernels(randn, dev, records):
             del a
         e9 = compare(f"K9 {what}", kf.ffn_fused(x, w1, b1, w2, b2, act),
                      kf.ffn_fused_plain(x, w1, b1, w2, b2, act))
+        if x.dtype == bf16:
+            expect_equal(f"K9 {what}",
+                         (kf.ffn_fused(x, w1, b1, w2, b2, act),),
+                         (kf.ffn_fused(x, w1, b1, w2, b2, act),))
         got = kf.ffn_bwd(x, g, w1, b1, w2, act)
         ref = kf.ffn_bwd_plain(x, g, w1, b1, w2, act)
         torch.cuda.synchronize()
@@ -848,18 +900,25 @@ def check_train_kernels(randn, dev, records):
         # a row count that fills neither a row tile nor a split
         ffn_case(ops[0][:4001].contiguous(), ops[1][:4001].contiguous(),
                  *ops[2:])
-    # bart-large's width in both dtypes; narrow widths in float32 only
-    for hh, ff in ((1024, 4096), (256, 1024)):
-        for dtype in (bf16, f32):
+    # bart-large's width in both dtypes; h 256 in both, where K8 refuses
+    # bfloat16 (its widths are BF16_HIDDEN); h 512 and 1536, K9 in bfloat16
+    for hh, ff, act, dtypes in ((1024, 4096, "gelu", (bf16, f32)),
+                                (256, 1024, "gelu", (bf16, f32)),
+                                (512, 2048, "relu", (bf16,)),
+                                (1536, 6144, "gelu", (bf16,))):
+        for dtype in dtypes:
             ops = ffn_operands(1000, hh, ff, dtype)
             if dtype == bf16 and hh not in kf.BF16_HIDDEN:
                 xo, go, w1o, b1o, w2o, b2o = ops
-                expect_refusal(f"K9 N=1000 H={hh} {dtype}", lambda:
-                               kf.ffn_fused(xo, w1o, b1o, w2o, b2o))
+                k9 = (xo, w1o, b1o, w2o, b2o, act)
+                compare(f"K9 N=1000 H={hh} F={ff} {act} {dtype}",
+                        kf.ffn_fused(*k9), kf.ffn_fused_plain(*k9))
+                expect_equal(f"K9 N=1000 H={hh} F={ff} {act}",
+                             (kf.ffn_fused(*k9),), (kf.ffn_fused(*k9),))
                 expect_refusal(f"K8 N=1000 H={hh} {dtype}", lambda:
                                kf.ffn_bwd(xo, go, w1o, b1o, w2o))
                 continue
-            ffn_case(*ops)
+            ffn_case(*ops, act)
     # the row counts the train step gives K2, K3, K8 and K9: speech encoder,
     # text encoder and decoder (B = 16 x 16 s, 64 label positions) in bf16,
     # and those of the f32 gradient-tree check (B = 8 x 8 s, 128 label
@@ -872,16 +931,19 @@ def check_train_kernels(randn, dev, records):
         for n in row_counts:
             ops = ffn_operands(n, h, f, dtype)
             errs = ffn_case(*ops)
-            if dtype == bf16:
-                check_products_alone(randn, *ops[:3])
             x, _, w1, b1, w2, b2 = ops
             res, w = randn(n, h, dtype=dtype), randn(h, h, scale=0.03,
                                                      dtype=dtype)
+            if dtype == bf16:
+                check_products_alone(randn, *ops[:3])
+                check_down_alone(randn, w2, b2, res)
             gamma, beta = randn(h, scale=0.1) + 1.0, randn(h, scale=0.1)
+            k3 = (x, w1, b1, w2, b2, res, gamma, beta)
             e3 = compare(f"K3 N={n} H={h} F={f} gelu {dtype}",
-                         kf.ffn_res_ln(x, w1, b1, w2, b2, res, gamma, beta),
-                         kf.ffn_res_ln_plain(x, w1, b1, w2, b2, res, gamma,
-                                             beta))
+                         kf.ffn_res_ln(*k3), kf.ffn_res_ln_plain(*k3))
+            if dtype == bf16:
+                expect_equal(f"K3 N={n} H={h} F={f} gelu",
+                             (kf.ffn_res_ln(*k3),), (kf.ffn_res_ln(*k3),))
             e2 = compare(f"K2 N={n} Din=H={h} {dtype}",
                          kf.dense_res_ln(x, w, b2, res, gamma, beta),
                          kf.dense_res_ln_plain(x, w, b2, res, gamma, beta))
@@ -956,6 +1018,50 @@ def check_train_kernels(randn, dev, records):
             gc, betac, 1e-5)),
         flops=4.0 * n * h * f,
         bytes=(3 * n * h + 2 * h * f) * 2 + (f + 3 * h) * 4)
+    # the bf16 forward's passes at the same rows (K9 = up + down, K3 = up +
+    # down to z + rows), each against its plain version, with the bounds of
+    # the structure: h (N, F) and z (N, H) f32 written once and read once
+    hid = kf.ffn_up(x, w1, b1)
+    z = kf.ffn_down(hid, w2, b2, res)
+    torch.cuda.synchronize()
+    e_up = compare(f"up pass {shape}", hid, kf.ffn_up_plain(x, w1, b1))
+    z_ref = kf.ffn_down_plain(hid, w2, b2, res)
+    e_down = compare(f"down pass to z {shape}", z, z_ref,
+                     2.0 ** -12 * (hid.float().abs() @ w2.float().abs())
+                     + 2.0 ** -20 * z_ref.abs() + 1e-6,
+                     DOWN_RULE + " + 2^-20 |z|")
+    del z_ref
+    e_rows = compare(f"LayerNorm rows {shape}", kf.res_ln_rows(z, gamma, beta),
+                     kf.res_ln_rows_plain(z, gamma, beta))
+    e_out = compare(f"down pass {shape}", kf.ffn_down(hid, w2, b2),
+                    kf.ffn_down_plain(hid, w2, b2))
+    nhf = 2.0 * n * h * f
+    records["ffn_up"] = dict(
+        shape=shape + " (up pass: h = round(gelu(x w1 + b1)))",
+        max_abs_err=e_up, ms=cuda_ms(lambda: kf.ffn_up(x, w1, b1)),
+        plain_ms=cuda_ms(lambda: kf.ffn_up_plain(x, w1, b1)),
+        library_ms=cuda_ms(lambda: F.gelu(F.linear(x, w1t, b1c))),
+        flops=nhf, bytes=(n * h + h * f + n * f) * 2 + f * 4)
+    records["ffn_down"] = dict(
+        shape=shape + " (down pass: round(h w2 + b2), K9's)",
+        max_abs_err=e_out, ms=cuda_ms(lambda: kf.ffn_down(hid, w2, b2)),
+        plain_ms=cuda_ms(lambda: kf.ffn_down_plain(hid, w2, b2)),
+        library_ms=cuda_ms(lambda: F.linear(hid, w2t, b2c)),
+        flops=nhf, bytes=(n * f + f * h + n * h) * 2 + h * 4)
+    records["ffn_down_res"] = dict(
+        shape=shape + " (down pass to z = h w2 + b2 + res in f32, K3's)",
+        max_abs_err=e_down,
+        ms=cuda_ms(lambda: kf.ffn_down(hid, w2, b2, res)),
+        plain_ms=cuda_ms(lambda: kf.ffn_down_plain(hid, w2, b2, res)),
+        library_ms=None, flops=nhf,
+        bytes=(n * f + f * h + n * h) * 2 + n * h * 4 + h * 4)
+    records["res_ln_rows"] = dict(
+        shape=f"z ({n}, {h}) f32 -> LayerNorm rows, bf16 (K3's)",
+        max_abs_err=e_rows, ms=cuda_ms(lambda: kf.res_ln_rows(z, gamma, beta)),
+        plain_ms=cuda_ms(lambda: kf.res_ln_rows_plain(z, gamma, beta)),
+        library_ms=cuda_ms(lambda: F.layer_norm(z, (h,), gamma, beta, 1e-5)),
+        flops=0.0, bytes=n * h * 4 + n * h * 2 + 2 * h * 4)
+    del hid, z
     records[f"dense_res_ln (N={n})"] = dict(
         shape=f"N={n} Din=H={h} bf16 (K2)", max_abs_err=e2,
         ms=cuda_ms(lambda: kf.dense_res_ln(x, w, b2, res, gamma, beta)),
@@ -1021,11 +1127,14 @@ def check_trainable_functions(randn, dev):
         got = [run(fn, ops, grad) for _, fn, ops, _, _ in cases]
         counts = {k.symbol: k.launches for k in kernels.kernels()
                   if k.launches}
-        # K12's backward: K13, K10 (output mask), K8's dropout recompute and
-        # its products; K11's: K10
-        want = {"smx_ffn_res_ln": 1, "smx_ffn_fused": 2,
+        # K3 forward: the up pass, the down pass to z, the rows; its
+        # backward K9 (up, down) and K8; K9: the same up and down, K8.
+        # K12's backward: K13 (the dropout up pass, the down pass), K10
+        # (output mask), K8's dropout recompute and its products; K11's: K10
+        want = {"smx_ffn_up": 3, "smx_ffn_down": 4, "smx_ffn_down_res": 1,
+                "smx_res_ln_rows": 2,
                 "smx_ffn_bwd_recompute": 2, "smx_ffn_bwd_products": 4,
-                "smx_ffn_dropout_res_ln": 1, "smx_ffn_dropout": 2,
+                "smx_ffn_dropout_up": 3, "smx_ffn_dropout_down_res": 1,
                 "smx_ffn_dropout_bwd_recompute": 2,
                 "smx_dense_dropout_res_ln": 1, "smx_dropout_mask": 2}
         if counts != want:
@@ -1153,6 +1262,13 @@ def check_dropout_kernels(randn, dev, records):
             ref = kf.ffn_dropout_plain(x, w1, b1, w2, b2, amask)
             e13 = compare(f"K13 {what}", kf.ffn_dropout(
                 x, w1, b1, w2, b2, key, rate), ref, lim(ref), rule)
+            if dtype == bf16:
+                k12 = (x, w1, b1, w2, b2, res, gamma, beta, key, rate, rate)
+                expect_equal(f"K12 {what}", (kf.ffn_dropout_res_ln(*k12),),
+                             (kf.ffn_dropout_res_ln(*k12),))
+                k13 = (x, w1, b1, w2, b2, key, rate)
+                expect_equal(f"K13 {what}", (kf.ffn_dropout(*k13),),
+                             (kf.ffn_dropout(*k13),))
             got = kf.ffn_dropout_bwd(x, g, w1, b1, w2, key, rate)
             refs = kf.ffn_bwd_plain(x, g, w1, b1, w2, "gelu", amask)
             torch.cuda.synchronize()
@@ -1235,6 +1351,44 @@ def check_dropout_kernels(randn, dev, records):
                 key, kd.STREAM_ACT, n, f, rate, dev)), iters=5),
         library_ms=cuda_ms(lib_ffn), flops=ffn_flops,
         bytes=(2 * n * h + 2 * h * f) * 2 + (f + h) * 4)
+    # the passes K12 and K13 add to K3's and K9's: the up pass with the
+    # activation mask, the down pass to z with the output mask
+    hid = kf.ffn_up(x, w1, b1, "gelu", key, rate)
+    amask = kd.dropout_mask_plain(key, kd.STREAM_ACT, n, f, rate, dev)
+    omask = kd.dropout_mask_plain(key, kd.STREAM_OUT, n, h, rate, dev)
+    torch.cuda.synchronize()
+    ref = kf.ffn_up_plain(x, w1, b1, "gelu", amask)
+    e_up = compare(f"dropout up pass {shape}", hid, ref,
+                   _dropout_tol(TOL["bfloat16"], rate)[0] +
+                   _dropout_tol(TOL["bfloat16"], rate)[1] * ref.float().abs(),
+                   "TOL / (1-r)")
+    z = kf.ffn_down(hid, w2, b2, res, key, rate)
+    torch.cuda.synchronize()
+    ref = kf.ffn_down_plain(hid, w2, b2, res, omask)
+    e_down = compare(f"dropout down pass to z {shape}", z, ref,
+                     (2.0 ** -12 * (hid.float().abs() @ w2.float().abs())
+                      + 1e-6) / (1.0 - rate) + 2.0 ** -20 * ref.abs(),
+                     "(" + DOWN_RULE + ") / (1-r) + 2^-20 |z|")
+    del amask, omask, ref, z
+    records["ffn_dropout_up"] = dict(
+        shape=shape + " (up pass with the activation mask)",
+        max_abs_err=e_up,
+        ms=cuda_ms(lambda: kf.ffn_up(x, w1, b1, "gelu", key, rate)),
+        plain_ms=cuda_ms(lambda: kf.ffn_up_plain(
+            x, w1, b1, "gelu", kd.dropout_mask_plain(
+                key, kd.STREAM_ACT, n, f, rate, dev)), iters=5),
+        library_ms=cuda_ms(lambda: drop(F.gelu(F.linear(x, w1t, b1c)))),
+        flops=2.0 * n * h * f, bytes=(n * h + h * f + n * f) * 2 + f * 4)
+    records["ffn_dropout_down_res"] = dict(
+        shape=shape + " (down pass to z with the output mask)",
+        max_abs_err=e_down,
+        ms=cuda_ms(lambda: kf.ffn_down(hid, w2, b2, res, key, rate)),
+        plain_ms=cuda_ms(lambda: kf.ffn_down_plain(
+            hid, w2, b2, res, kd.dropout_mask_plain(
+                key, kd.STREAM_OUT, n, h, rate, dev)), iters=5),
+        library_ms=None, flops=2.0 * n * h * f,
+        bytes=(n * f + f * h + n * h) * 2 + n * h * 4 + h * 4)
+    del hid
     k8 = lambda: kf.ffn_bwd_products(x, g, w1, *kf.ffn_bwd_recompute(
         x, g, w1, b1, w2, "gelu", key, rate))
     amask_plain = lambda: kd.dropout_mask_plain(key, kd.STREAM_ACT, n, f, rate,
@@ -1453,9 +1607,32 @@ BATCH, SECONDS, MAX_LEN, BEAMS = 16, 16.0, 64, 4
 # the kernels of the dropout-on train step, never launched elsewhere
 DROPOUT_KERNELS = ("smx_dropout_mask", "smx_dense_dropout_res_ln",
                    "smx_ffn_dropout_res_ln", "smx_ffn_dropout",
+                   "smx_ffn_dropout_up", "smx_ffn_dropout_down_res",
                    "smx_attention_dropout_fwd", "smx_attention_dropout_bwd",
                    "smx_ffn_dropout_bwd_recompute", "smx_ffn_dropout_bwd_dx",
                    "smx_ffn_dropout_bwd_dw")
+# K3 / K9 forward entries: in bf16 the passes of ffn_fwd.cu (K3 = up +
+# down_res + rows, K9 = up + down), in f32 the f32-FMA entries of
+# ffn_res_ln.cu; K12 / K13 take the dropout up and down_res passes in bf16,
+# and K13 K9's down pass
+FWD_ENTRIES = ("smx_ffn_res_ln", "smx_ffn_fused", "smx_ffn_up",
+               "smx_ffn_down", "smx_ffn_down_res", "smx_res_ln_rows")
+
+
+def ffn_forward_launches(k3, k9, dtype="bf16", dropout=False):
+    """Launches of the forward entries for k3 calls of K3 (K12 with
+    dropout) and k9 of K9 (K13)."""
+    want = dict.fromkeys(FWD_ENTRIES, 0)
+    if dtype == "f32":
+        names = (("smx_ffn_dropout_res_ln", "smx_ffn_dropout") if dropout
+                 else ("smx_ffn_res_ln", "smx_ffn_fused"))
+        want.update(zip(names, (k3, k9)))
+        return want
+    up, down_res = (("smx_ffn_dropout_up", "smx_ffn_dropout_down_res")
+                    if dropout else ("smx_ffn_up", "smx_ffn_down_res"))
+    want.update({up: k3 + k9, down_res: k3, "smx_res_ln_rows": k3,
+                 "smx_ffn_down": k9})
+    return want
 # K8's entries by compute dtype: bf16 the recompute pass and the products
 # (shared by the dropout twin), f32 the two f32-FMA entries
 K8_ENTRIES = {"bf16": ("smx_ffn_bwd_recompute", "smx_ffn_bwd_products"),
@@ -1475,14 +1652,15 @@ def expected_launches(mode, steps):
     """Launches of every kernel in one generate() of the flagship."""
     want = {"smx_attention_fwd": LAYERS_WITH_KERNELS,
             "smx_dense_res_ln": LAYERS_WITH_KERNELS,
-            "smx_ffn_res_ln": LAYERS_WITH_KERNELS,
             "smx_conv_ln_gelu": FUSED_CONV_LAYERS,
             # self- and cross-attention of each decoder layer, each step
             "smx_decode_attention": 2 * DECODER_LAYERS * steps,
             "smx_decode_attention_q8": 0, "smx_beam_gather": 0,
             # the training kernels: never under generate()
-            "smx_attention_bwd": 0, "smx_ffn_fused": 0,
-            **dict.fromkeys(K8_ALL, 0), **dict.fromkeys(DROPOUT_KERNELS, 0)}
+            "smx_attention_bwd": 0,
+            **dict.fromkeys(K8_ALL, 0), **dict.fromkeys(DROPOUT_KERNELS, 0),
+            # K3 in every encoder layer, in bf16 its three passes
+            **ffn_forward_launches(LAYERS_WITH_KERNELS, 0)}
     if mode == "greedy-int8":
         want["smx_decode_attention"] = DECODER_LAYERS * steps
         want["smx_decode_attention_q8"] = DECODER_LAYERS * steps
@@ -1552,6 +1730,7 @@ def run_flagship(seed, card):
             f"(median of {len(times)} calls, {med * 1e3:.1f} ms; all: "
             f"{', '.join(f'{t * 1e3:.1f}' for t in times)}) on {card}")
     stage_breakdown(params, cfg, wav, lengths, modes)
+    tied_head_times(params, cfg)
 
     def text_encoder_out(p, dtype):
         emb, mask = speechmix.encode_speech(p, cfg, wav, lengths,
@@ -1704,6 +1883,57 @@ def stage_breakdown(params, cfg, wav, lengths, modes):
                     f"{e.count:6d}x  {e.key[:90]}")
 
 
+def tied_head_times(params, cfg):
+    """The tied LM head of bart-base, (V, H) = (50265, 768), as the port runs
+    it: the f32 product of the bf16 operands (seq2seq._tied_logits), held
+    against the f32 product of the same rounded operands and timed beside
+    the bf16-rounded product it replaced, per decode step (greedy: B rows,
+    beam-4: 4 B rows) and as the train step's forward and backward (B x 64
+    rows, f32 master table)."""
+    import torch
+    import torch.nn.functional as F
+    from speechmix_tpu_torch.models import seq2seq
+
+    bf16, dev = torch.bfloat16, torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    emb = params["nlp"]["shared"]["embedding"]
+    head = seq2seq.tied_head_operand(params["nlp"], cfg.decoder, bf16)
+    h = cfg.decoder.hidden_size
+    route = ("torch.mm(out_dtype=float32)" if head.dtype == bf16
+             else "float32 product of the upcast operands")
+    log(f"tied head (V={emb.shape[0]}, H={h}), bf16 operands, f32 result: "
+        f"{route}")
+    for rows, what in ((BATCH, "greedy step"), (BATCH * BEAMS, "beam-4 step")):
+        x = torch.randn(rows, 1, h, generator=gen, device=dev).to(bf16)
+        with torch.no_grad():
+            got = seq2seq._tied_logits(x, head)
+            xf, wf = x.float(), emb.to(bf16).float()
+            compare(f"tied head, {what}", got, F.linear(xf, wf),
+                    2.0 ** -12 * F.linear(xf.abs(), wf.abs()) + 1e-6,
+                    "2^-12 (|x||w|) + 1e-6 (f32 sums)")
+            share = (got == got.to(bf16).float()).float().mean().item()
+            new = cuda_ms(lambda: seq2seq._tied_logits(x, head), iters=64)
+            old = cuda_ms(lambda: F.linear(x, emb.to(bf16)).float(), iters=64)
+        log(f"  {what} ({rows} rows): {new:.4f} ms (x {MAX_LEN} steps: "
+            f"{new * MAX_LEN:.2f} ms per call); the bf16-rounded product "
+            f"{old:.4f} ms; bf16-representable logits {share:.4f}")
+    w32 = emb.float().requires_grad_()
+    x = torch.randn(BATCH, TRAIN_LABELS, h, generator=gen,
+                    device=dev).to(bf16).requires_grad_()
+    g = torch.randn(BATCH, TRAIN_LABELS, emb.shape[0], generator=gen,
+                    device=dev)
+
+    def fwd_bwd(fn):
+        return torch.autograd.grad(fn(), (x, w32), g)
+    new = cuda_ms(lambda: fwd_bwd(
+        lambda: seq2seq._tied_logits(x, w32.to(bf16))), iters=10)
+    old = cuda_ms(lambda: fwd_bwd(
+        lambda: F.linear(x, w32.to(bf16)).float()), iters=10)
+    log(f"  train step forward + backward ({BATCH} x {TRAIN_LABELS} rows): "
+        f"{new:.4f} ms; the bf16-rounded product {old:.4f} ms")
+    del g
+
+
 TRAIN_LABELS, TRAIN_STEPS, TRAIN_LR = 64, 8, 1e-4
 # gradient tree of the f32 kernel path against the f32 plain path, per leaf:
 # |a - b| <= GRAD_REL * max|b| + GRAD_FLOOR * (largest gradient of the tree)
@@ -1715,19 +1945,21 @@ GRAD_REL, GRAD_FLOOR = 2e-3, 1e-5
 def expected_train_launches(speech_layers, enc_layers, dec_layers, accum=1,
                             dtype="bf16"):
     """Launches of every kernel in one train step: a post-LN layer runs K1,
-    K2 and K3 forward, K7, K9 and K8 backward (bf16: its recompute pass and
-    its products; f32: its two f32 entries); a decoder layer has a second K2
+    K2 and K3 forward, K7, K9 and K8 backward (bf16: K3 as the up pass, the
+    down pass to z and the LayerNorm rows, K9 as the up and down passes, K8
+    as its recompute pass and its products; f32: the f32 entries of K3, K9
+    and K8); a decoder layer has a second K2
     (the cross-attention's out-projection) and no K1 / K7 for its
     cross-attention, which carries a bias."""
     layers = speech_layers + enc_layers + dec_layers
     want = {"smx_attention_fwd": layers, "smx_attention_bwd": layers,
             "smx_dense_res_ln": layers + dec_layers,
-            "smx_ffn_res_ln": layers, "smx_ffn_fused": layers,
             **dict.fromkeys(K8_ALL, 0),
             **dict.fromkeys(K8_ENTRIES[dtype], layers),
             "smx_conv_ln_gelu": FUSED_CONV_LAYERS,
             "smx_decode_attention": 0, "smx_decode_attention_q8": 0,
-            "smx_beam_gather": 0, **dict.fromkeys(DROPOUT_KERNELS, 0)}
+            "smx_beam_gather": 0, **dict.fromkeys(DROPOUT_KERNELS, 0),
+            **ffn_forward_launches(layers, layers, dtype)}
     return {k: v * accum for k, v in want.items()}
 
 
@@ -1736,8 +1968,10 @@ def expected_dropout_train_launches(speech_layers, enc_layers, dec_layers,
     """Launches of every kernel in one micro-batch of a train step with
     dropout on (every rate above 0): a post-LN layer runs K14, K11 and K12
     forward, K15, K13 (the recompute in K12's backward) and K8 with the
-    activation mask backward (bf16: the dropout recompute pass and the
-    products; f32: the two f32 dropout entries); a decoder layer has a
+    activation mask backward (bf16: K12 and K13 as the dropout up pass and
+    K3's and K9's other passes, the down pass to z with the output mask,
+    K8 as the dropout recompute pass and the products; f32: the f32
+    dropout entries); a decoder layer has a
     second K11 and a plain cross-attention whose probability mask K10
     draws.  K10 also draws the
     masks of the four plain sites (the feature projection, the positional
@@ -1750,7 +1984,7 @@ def expected_dropout_train_launches(speech_layers, enc_layers, dec_layers,
         "smx_attention_dropout_fwd": layers,
         "smx_attention_dropout_bwd": layers,
         "smx_dense_dropout_res_ln": layers + dec_layers,
-        "smx_ffn_dropout_res_ln": layers, "smx_ffn_dropout": layers,
+        **ffn_forward_launches(layers, layers, dtype, dropout=True),
         **dict.fromkeys(K8_DROPOUT_ENTRIES[dtype], layers),
         "smx_dropout_mask": 4 + dec_layers + (layers + dec_layers) + layers})
     return want
@@ -1960,18 +2194,22 @@ def run_training(seed, card, dropout=False):
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:14]:
         log(f"    {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d}x  "
             f"{e.key[:90]}")
-    k8 = [e for e in events if any(name in e.key for name in K8_KERNELS)]
-    log(f"  K8 in the profiled {what}: "
-        f"{sum(e.self_device_time_total for e in k8) / 1e3:.2f} ms: " +
-        ", ".join(f"{K8_NAME.search(e.key).group(0)} "
-                  f"{e.self_device_time_total / 1e3:.2f} ms {e.count}x"
-                  for e in k8))
+    for label, names in (("K8", K8_KERNELS), ("K3 / K9 passes", FWD_KERNELS)):
+        hit = [e for e in events if any(name in e.key for name in names)]
+        log(f"  {label} in the profiled {what}: "
+            f"{sum(e.self_device_time_total for e in hit) / 1e3:.2f} ms: " +
+            ", ".join(f"{KERNEL_NAME.search(e.key).group(0)} "
+                      f"{e.self_device_time_total / 1e3:.2f} ms {e.count}x"
+                      for e in hit))
     return counts
 
 
-# K8's device kernels in bf16, by name in the profiler's trace
+# K8's device kernels in bf16, and those of the bf16 passes of K3 / K9 /
+# K12 / K13 (ffn_pass_kernel<0, .>: up, <1, .>: down, <2, .>: down to z),
+# by name in the profiler's trace
 K8_KERNELS = ("recompute_kernel", "products_kernel", "ffn_bwd_reduce_kernel")
-K8_NAME = re.compile(r"\w+_kernel(<[^>]*>)?")
+FWD_KERNELS = ("ffn_pass_kernel", "res_ln_rows_kernel")
+KERNEL_NAME = re.compile(r"\w+_kernel(<[^>]*>)?")
 
 
 def _cast_tree(tree, dtype):
@@ -2030,7 +2268,11 @@ def main():
         "attention_fwd": ("attention_fwd.cu",
                           "flash_attention_kernel.py:968", "greedy"),
         "dense_res_ln": ("dense_res_ln.cu", "ffn_kernel.py:362", "greedy"),
-        "ffn_res_ln": ("ffn_res_ln.cu", "ffn_kernel.py:180", "greedy"),
+        # K3, K9, K12 and K13 in bf16: passes of ffn_fwd.cu, each function
+        # counted by the pass only it runs in that mode's run (K3: the down
+        # pass to z; K9 and K13: the down pass to the output)
+        "ffn_res_ln": ("ffn_fwd.cu", "ffn_kernel.py:180", "greedy",
+                       "smx_ffn_down_res"),
         "decode_attention": ("decode_attention.cu", "decode_attention.py:31",
                              "greedy"),
         "decode_attention_q8": ("decode_attention.cu",
@@ -2047,15 +2289,24 @@ def main():
         "ffn_bwd_products": ("ffn_bwd.cu", "ffn_kernel.py:647", "train"),
         "ffn_bwd": ("ffn_bwd.cu", "ffn_kernel.py:631", "train",
                     "smx_ffn_bwd_recompute"),
-        "ffn_fused": ("ffn_res_ln.cu", "ffn_kernel.py:128", "train"),
+        "ffn_fused": ("ffn_fwd.cu", "ffn_kernel.py:128", "train",
+                      "smx_ffn_down"),
+        "ffn_up": ("ffn_fwd.cu", "ffn_kernel.py:128", "train"),
+        "ffn_down": ("ffn_fwd.cu", "ffn_kernel.py:128", "train"),
+        "ffn_down_res": ("ffn_fwd.cu", "ffn_kernel.py:203", "train"),
+        "res_ln_rows": ("ffn_fwd.cu", "ffn_kernel.py:203", "train"),
         "dropout_mask": ("dropout_mask.cu", "ffn_kernel.py:795",
                          "train-dropout"),
         "dense_dropout_res_ln": ("dense_res_ln.cu", "ffn_kernel.py:1097",
                                  "train-dropout"),
-        "ffn_dropout_res_ln": ("ffn_res_ln.cu", "ffn_kernel.py:1016",
-                               "train-dropout"),
-        "ffn_dropout": ("ffn_res_ln.cu", "ffn_kernel.py:945",
-                        "train-dropout"),
+        "ffn_dropout_res_ln": ("ffn_fwd.cu", "ffn_kernel.py:1016",
+                               "train-dropout", "smx_ffn_dropout_down_res"),
+        "ffn_dropout": ("ffn_fwd.cu", "ffn_kernel.py:945", "train-dropout",
+                        "smx_ffn_down"),
+        "ffn_dropout_up": ("ffn_fwd.cu", "ffn_kernel.py:945",
+                           "train-dropout"),
+        "ffn_dropout_down_res": ("ffn_fwd.cu", "ffn_kernel.py:1016",
+                                 "train-dropout"),
         "attention_dropout_fwd": ("attention_fwd.cu",
                                   "flash_attention_kernel.py:727",
                                   "train-dropout"),

@@ -68,6 +68,25 @@ struct Dropout {
   }
 };
 
+// The multipliers m[i][c] of the four elements one lane holds of an
+// 8-column group of a wgmma accumulator (hopper.cuh): rows row + 8 i,
+// columns col + c, col = 8 j + 2 (lane % 4) + the tile's first column.  Lanes
+// 2q and 2q + 1 hold the four columns of one Philox group in rows row and
+// row + 8: each draws one row and hands the other the two words it needs,
+// one call per four elements.  Every lane of the warp must call it.
+__device__ __forceinline__ void accum_mask(const Dropout& d, long long row,
+                                           int col, int lane,
+                                           float (&m)[2][2]) {
+  const bool odd = lane & 1;
+  const uint4 b = d.bits4(row + (odd ? 8 : 0), col >> 2);
+  const uint32_t r0 = __shfl_xor_sync(0xffffffffu, odd ? b.x : b.z, 1);
+  const uint32_t r1 = __shfl_xor_sync(0xffffffffu, odd ? b.y : b.w, 1);
+  m[0][0] = d.keep(odd ? r0 : b.x);
+  m[0][1] = d.keep(odd ? r1 : b.y);
+  m[1][0] = d.keep(odd ? b.z : r0);
+  m[1][1] = d.keep(odd ? b.w : r1);
+}
+
 inline Dropout make_dropout(uint32_t k0, uint32_t k1, uint32_t stream,
                             uint32_t threshold, float scale) {
   Dropout d;
@@ -81,9 +100,9 @@ inline Dropout make_dropout(uint32_t k0, uint32_t k1, uint32_t stream,
 
 // ys[r, c] = (ys[r, c] + bias[c]) * mask(r0 + r, c) for the `rows` rows of
 // an f32 tile staged in shared memory (row stride ldy, h columns, h % 4 == 0),
-// one Philox call per four columns; rows at or past n are left alone.  The
-// tensor-core kernels run it before the residual + LayerNorm epilogue, which
-// then adds no bias (staged_res_ln<T, false>).
+// one Philox call per four columns; rows at or past n are left alone.  K11's
+// tensor-core kernel (dense_res_ln.cu) runs it before the residual +
+// LayerNorm epilogue, which then adds no bias (staged_res_ln<T, false>).
 __device__ __forceinline__ void staged_bias_dropout(float* ys, int ldy, int rows,
                                                     const float* __restrict__ bias,
                                                     const Dropout& d, int n,

@@ -253,23 +253,17 @@ __global__ void __launch_bounds__(NT)
 namespace hw = smx::hopper;
 using bf16 = __nv_bfloat16;
 
-constexpr int TILE = 128;              // output tiles are TILE x TILE
-constexpr int BK = 64;                 // depth of a stage: one 128-byte row
-constexpr int BOX = TILE * BK * 2;     // one operand tile of a stage, 16 KB
-constexpr int HALF = BOX / 2;          // 64 rows of 128 bytes, 8 KB
-constexpr int WG_THREADS = 128;
-constexpr int CONSUMERS = 2 * WG_THREADS;
-constexpr int THREADS = CONSUMERS + WG_THREADS;  // + the producer warpgroup
-constexpr uint32_t SBO = 1024;         // 8 rows of 128 bytes
-constexpr uint32_t MN_LBO = HALF;      // MN-major: the next 64 M or N columns
+using hw::BK;
+using hw::BOX;
+using hw::CONSUMERS;
+using hw::HALF;
+using hw::MN_LBO;
+using hw::SBO;
+using hw::THREADS;
+using hw::TILE;
+using hw::WG_THREADS;
 constexpr int RC_STAGES = 3;           // recompute: 4 tiles (64 KB) a stage
 constexpr int GEMM_STAGES = 6;         // products: 2 tiles (32 KB) a stage
-
-// a shared-memory buffer rounded up to the swizzle atom
-__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
-  return reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(p) + 1023) & ~static_cast<uintptr_t>(1023));
-}
 
 // act(x) and act'(x) with the expressions of smx::activate and
 // smx::dactivate, their common terms computed once
@@ -297,49 +291,6 @@ __device__ __forceinline__ void act_dact(float x, float& y, float& dy) {
   }
 }
 
-// One consumer warpgroup's pass over a stage ring: waits for each stage,
-// issues its four k16 slices on `mma(stage)`, keeps one group of products in
-// flight and releases a stage once its products are done.
-template <int STAGES, typename Mma>
-__device__ __forceinline__ void consume(uint64_t* full, uint64_t* empty,
-                                        int ksteps, Mma mma) {
-  int s = 0, prev = -1;
-  uint32_t phase = 0;
-  for (int kb = 0; kb < ksteps; ++kb) {
-    hw::mbar_wait(&full[s], phase);
-    hw::wgmma_fence();
-    mma(s);
-    hw::wgmma_commit();
-    hw::wgmma_wait<1>();
-    if (prev >= 0) hw::mbar_arrive(&empty[prev]);
-    prev = s;
-    if (++s == STAGES) {
-      s = 0;
-      phase ^= 1;
-    }
-  }
-  hw::wgmma_wait<0>();
-}
-
-// The producer's turn before loading stage s of step kb: wait until the
-// consumers released the stage, announce `bytes`, then load.
-template <int STAGES>
-struct Ring {
-  int s = 0;
-  uint32_t phase = 0;
-  __device__ __forceinline__ void acquire(uint64_t* full, uint64_t* empty,
-                                          uint32_t bytes) {
-    hw::mbar_wait(&empty[s], phase ^ 1);
-    hw::mbar_expect_tx(&full[s], bytes);
-  }
-  __device__ __forceinline__ void advance() {
-    if (++s == STAGES) {
-      s = 0;
-      phase ^= 1;
-    }
-  }
-};
-
 // ------------------------------------------------------- recompute pass
 struct RecomputeArgs {
   CUtensorMap x, g;  // (n, h) in (128, 64) boxes
@@ -366,7 +317,6 @@ __device__ __forceinline__ void recompute_epilogue(const RecomputeArgs& p,
                                                    float (&acc_d)[64],
                                                    float* red_w, int wrow,
                                                    int n0, int lane) {
-  const bool odd = lane & 1;
 #pragma unroll
   for (int j = 0; j < 16; ++j) {
     const int cl = 8 * j + 2 * (lane % 4);
@@ -378,18 +328,7 @@ __device__ __forceinline__ void recompute_epilogue(const RecomputeArgs& p,
       bias[1] = p.b1[col + 1];
     }
     float m[2][2] = {{1.0f, 1.0f}, {1.0f, 1.0f}};
-    if constexpr (DROP) {
-      // lanes 2q and 2q + 1 hold the four columns of one Philox group in
-      // rows wrow and wrow + 8: each draws one row and hands the other the
-      // two words it needs, one call per four elements
-      const uint4 b = p.drop.bits4(wrow + (odd ? 8 : 0), col >> 2);
-      const uint32_t r0 = __shfl_xor_sync(0xffffffffu, odd ? b.x : b.z, 1);
-      const uint32_t r1 = __shfl_xor_sync(0xffffffffu, odd ? b.y : b.w, 1);
-      m[0][0] = p.drop.keep(odd ? r0 : b.x);
-      m[0][1] = p.drop.keep(odd ? r1 : b.y);
-      m[1][0] = p.drop.keep(odd ? b.z : r0);
-      m[1][1] = p.drop.keep(odd ? b.w : r1);
-    }
+    if constexpr (DROP) smx::accum_mask(p.drop, wrow, col, lane, m);
     float cs[2] = {0.0f, 0.0f};
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -431,7 +370,7 @@ template <bool DROP>
 __global__ void __launch_bounds__(THREADS, 1)
     recompute_kernel(const __grid_constant__ RecomputeArgs p, int act) {
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* xs = align1024(smem_raw);       // RC_STAGES x BOX each
+  uint8_t* xs = hw::align1024(smem_raw);       // RC_STAGES x BOX each
   uint8_t* gs = xs + RC_STAGES * BOX;
   uint8_t* w1s = gs + RC_STAGES * BOX;
   uint8_t* w2s = w1s + RC_STAGES * BOX;
@@ -444,19 +383,12 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int m0 = tm * TILE, n0 = (blockIdx.x % ftiles) * TILE;
   const int ksteps = p.h / BK;
   const int wg = threadIdx.x / WG_THREADS;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < RC_STAGES; ++s) {
-      hw::mbar_init(&full[s], 1);
-      hw::mbar_init(&empty[s], CONSUMERS);
-    }
-    hw::mbar_fence_init();
-  }
-  __syncthreads();
+  hw::init_ring<RC_STAGES>(full, empty);
 
   if (wg == 2) {  // producer
     hw::setmaxnreg_dec<40>();
     if (threadIdx.x == CONSUMERS) {
-      Ring<RC_STAGES> ring;
+      hw::Ring<RC_STAGES> ring;
       for (int kb = 0; kb < ksteps; ++kb) {
         const int k = kb * BK, s = ring.s;
         ring.acquire(full, empty, 4 * BOX);
@@ -475,7 +407,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int i = 0; i < 64; ++i) acc_a[i] = acc_d[i] = 0.0f;
     hw::fence_regs(acc_a);
     hw::fence_regs(acc_d);
-    consume<RC_STAGES>(full, empty, ksteps, [&](int s) {
+    hw::consume<RC_STAGES>(full, empty, ksteps, [&](int s) {
       const uint8_t* xa = xs + s * BOX + wg * HALF;
       const uint8_t* ga = gs + s * BOX + wg * HALF;
 #pragma unroll
@@ -584,7 +516,7 @@ __device__ __forceinline__ Item decode(const ProductsArgs& p, int item) {
 __global__ void __launch_bounds__(THREADS, 1)
     products_kernel(const __grid_constant__ ProductsArgs p) {
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* as = align1024(smem_raw);       // GEMM_STAGES x BOX
+  uint8_t* as = hw::align1024(smem_raw);       // GEMM_STAGES x BOX
   uint8_t* bs = as + GEMM_STAGES * BOX;    // GEMM_STAGES x BOX
   uint64_t* full = reinterpret_cast<uint64_t*>(bs + GEMM_STAGES * BOX);
   uint64_t* empty = full + GEMM_STAGES;
@@ -593,14 +525,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   const bool mn = it.mode != 0;
   const int ksteps = (it.k1 - it.k0 + BK - 1) / BK;
   const int wg = threadIdx.x / WG_THREADS;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < GEMM_STAGES; ++s) {
-      hw::mbar_init(&full[s], 1);
-      hw::mbar_init(&empty[s], CONSUMERS);
-    }
-    hw::mbar_fence_init();
-  }
-  __syncthreads();
+  hw::init_ring<GEMM_STAGES>(full, empty);
 
   if (wg == 2) {  // producer
     if (threadIdx.x == CONSUMERS) {
@@ -608,7 +533,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                               : it.mode == 1 ? &p.w1_a : &p.w2_a;
       const CUtensorMap* mb = it.mode == 0 ? &p.dx_b
                               : it.mode == 1 ? &p.w1_b : &p.w2_b;
-      Ring<GEMM_STAGES> ring;
+      hw::Ring<GEMM_STAGES> ring;
       for (int kb = 0; kb < ksteps; ++kb) {
         const int k = it.k0 + kb * BK, s = ring.s;
         uint8_t* a = as + s * BOX;
@@ -633,7 +558,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
   hw::fence_regs(acc);
   if (!mn) {
-    consume<GEMM_STAGES>(full, empty, ksteps, [&](int s) {
+    hw::consume<GEMM_STAGES>(full, empty, ksteps, [&](int s) {
       const uint8_t* a = as + s * BOX + wg * HALF;
       const uint8_t* b = bs + s * BOX;
 #pragma unroll
@@ -643,7 +568,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       }
     });
   } else {
-    consume<GEMM_STAGES>(full, empty, ksteps, [&](int s) {
+    hw::consume<GEMM_STAGES>(full, empty, ksteps, [&](int s) {
       const uint8_t* a = as + s * BOX + wg * HALF;
       const uint8_t* b = bs + s * BOX;
 #pragma unroll

@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks of the port's TMA + wgmma kernels: 2-D
 // tensor maps for the Tensor Memory Accelerator, mbarrier waits and
-// arrivals, TMA tile loads, shared-memory matrix descriptors and the
-// m64n128k16 bf16 warpgroup product with its fences.
+// arrivals, TMA tile loads, shared-memory matrix descriptors, the
+// m64n128k16 bf16 warpgroup product with its fences, and the stage ring
+// (producer and consumer sides) that the kernels of ffn_bwd.cu and
+// ffn_fwd.cu share.
 //
 // Layout used throughout: every operand tile in shared memory is a stack of
 // 128-byte rows written by TMA with the 128-byte swizzle, its base 1024-byte
@@ -206,6 +208,83 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 template <int N>
 __device__ __forceinline__ void setmaxnreg_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(N));
+}
+
+// ------------------------------------------- the kernels' common schedule
+// A block owns a TILE x TILE output tile: a producer (a warpgroup, or one
+// warp; one thread of it issues the TMA loads) and two consumer warpgroups
+// of 64 rows each, fed through a ring of stages BK deep.
+constexpr int TILE = 128;              // output tiles are TILE x TILE
+constexpr int BK = 64;                 // depth of a stage: one 128-byte row
+constexpr int BOX = TILE * BK * 2;     // one operand tile of a stage, 16 KB
+constexpr int HALF = BOX / 2;          // 64 rows of 128 bytes, 8 KB
+constexpr int WG_THREADS = 128;
+constexpr int CONSUMERS = 2 * WG_THREADS;
+constexpr int THREADS = CONSUMERS + WG_THREADS;  // + a producer warpgroup
+constexpr uint32_t SBO = 1024;         // 8 rows of 128 bytes
+constexpr uint32_t MN_LBO = HALF;      // MN-major: the next 64 M or N columns
+
+// a shared-memory buffer rounded up to the swizzle atom
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~static_cast<uintptr_t>(1023));
+}
+
+// One consumer warpgroup's pass over a stage ring: waits for each stage,
+// issues its four k16 slices on `mma(stage)`, keeps one group of products in
+// flight and releases a stage once its products are done.
+template <int STAGES, typename Mma>
+__device__ __forceinline__ void consume(uint64_t* full, uint64_t* empty,
+                                        int ksteps, Mma mma) {
+  int s = 0, prev = -1;
+  uint32_t phase = 0;
+  for (int kb = 0; kb < ksteps; ++kb) {
+    mbar_wait(&full[s], phase);
+    wgmma_fence();
+    mma(s);
+    wgmma_commit();
+    wgmma_wait<1>();
+    if (prev >= 0) mbar_arrive(&empty[prev]);
+    prev = s;
+    if (++s == STAGES) {
+      s = 0;
+      phase ^= 1;
+    }
+  }
+  wgmma_wait<0>();
+}
+
+// The producer's turn before loading stage s of step kb: wait until the
+// consumers released the stage, announce `bytes`, then load.
+template <int STAGES>
+struct Ring {
+  int s = 0;
+  uint32_t phase = 0;
+  __device__ __forceinline__ void acquire(uint64_t* full, uint64_t* empty,
+                                          uint32_t bytes) {
+    mbar_wait(&empty[s], phase ^ 1);
+    mbar_expect_tx(&full[s], bytes);
+  }
+  __device__ __forceinline__ void advance() {
+    if (++s == STAGES) {
+      s = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+// every stage's full / empty barriers: one arrival (the producer's expect)
+// and one per consumer thread; by thread 0, then the whole block syncs
+template <int STAGES>
+__device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
 }
 
 }  // namespace hopper

@@ -244,9 +244,39 @@ def _decoder_block(block, cfg, x, self_bias, self_kv_mask, layer_cache,
     return _ffn_block(block, cfg, x, dtype, k_ffn), new_cache
 
 
+def tied_head_operand(params, cfg: Seq2SeqConfig, dtype=torch.float32):
+    """The tied LM head's (V, H) operand for decode(): the embedding rounded
+    to `dtype`, and off the card upcast to float32 (torch.mm's out_dtype,
+    bfloat16 operands to a float32 result, is a CUDA product), so that a
+    generate call rounds and casts the table once and not at every step.
+    None for an untied head."""
+    if not cfg.tie_word_embeddings:
+        return None
+    w = params["shared"]["embedding"].to(dtype)
+    if w.device.type != "cuda":
+        w = w.float()
+    return w
+
+
+def _tied_logits(x, w):
+    """x @ w^T in float32, not rounded to x's dtype: the operands as given
+    (x in the compute dtype, w the embedding rounded to it or that rounding
+    upcast), their products exact and the sums in f32, as the JAX package's
+    jnp.dot(h, w.T, preferred_element_type=jnp.float32)."""
+    if w.dtype == torch.float32:
+        return F.linear(x.float(), w)
+    if x.device.type == "cuda" and not (torch.is_grad_enabled() and (
+            x.requires_grad or w.requires_grad)):
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w.t(),
+                     out_dtype=torch.float32)
+        return y.reshape(*x.shape[:-1], w.shape[0])
+    return F.linear(x.float(), w.float())
+
+
 def decode(params, cfg: Seq2SeqConfig, decoder_input_ids, encoder_mask=None,
            cache: Optional[DecoderCache] = None, dtype=torch.float32,
-           enc_hidden=None, decoder_mask=None, dropout_rng=None):
+           enc_hidden=None, decoder_mask=None, dropout_rng=None,
+           lm_head=None):
     """Decoder forward.
 
     With a cache: incremental step; decoder_input_ids (B, q_len) continue at
@@ -255,8 +285,9 @@ def decode(params, cfg: Seq2SeqConfig, decoder_input_ids, encoder_mask=None,
     enc_hidden (B, T_enc, H) for training, differentiable, causal over
     q_len, with decoder_mask (B, q_len) as the self-attention key mask, and
     with dropout when dropout_rng is given (a cached step ignores it: it is
-    inference).  Returns dict(logits (B, q_len, V) float32, cache (None when
-    uncached))."""
+    inference).  lm_head: the tied head's operand from tied_head_operand
+    (None: made here).  Returns dict(logits (B, q_len, V) float32, cache
+    (None when uncached))."""
     _check_supported(cfg)
     check_key(dropout_rng)
     if cache is None and enc_hidden is None:
@@ -312,7 +343,9 @@ def decode(params, cfg: Seq2SeqConfig, decoder_input_ids, encoder_mask=None,
             index=offset + q_len))
 
     if cfg.tie_word_embeddings:
-        logits = F.linear(x, params["shared"]["embedding"].to(dtype)).float()
+        if lm_head is None:
+            lm_head = params["shared"]["embedding"].to(dtype)
+        logits = _tied_logits(x, lm_head)
     else:
         logits = layers.dense(params["lm_head"], x, dtype).float()
     logits = logits + params["final_logits_bias"].float()

@@ -5,16 +5,20 @@ K8 with the activation mask.
 
 ``dense_res_ln`` (K2, ``csrc/dense_res_ln.cu``) replaces the TPU kernel
 ``speechmix_tpu/ops/pallas/ffn_kernel.py: dense_res_ln``;
-``ffn_res_ln`` (K3, ``csrc/ffn_res_ln.cu``) replaces ``ffn_fused_res_ln`` of
-that file, ``ffn_fused`` (K9, a second entry of the same source)
-``ffn_fused``, and ``ffn_bwd`` (K8, ``csrc/ffn_bwd.cu``) ``ffn_fused_bwd``.
+``ffn_res_ln`` (K3) replaces ``ffn_fused_res_ln`` of that file,
+``ffn_fused`` (K9) ``ffn_fused``, and ``ffn_bwd`` (K8, ``csrc/ffn_bwd.cu``)
+``ffn_fused_bwd``.  K3 and K9 in bfloat16 are passes of
+``csrc/ffn_fwd.cu``, each a TMA + wgmma kernel or a row pass: ``ffn_up``
+forms h = round(act(x @ w1 + b1)) (N, F) once, ``ffn_down`` takes h @ w2 +
+b2 to the output (K9) or, with the residual, to an f32 sum z (K3), and
+``res_ln_rows`` takes z to LayerNorm(z) * g + beta (K3); in float32 (the
+reference runs) K3 and K9 keep their f32 entries of ``csrc/ffn_res_ln.cu``.
 K8 in bfloat16 is two entries: ``ffn_bwd_recompute`` forms h, da and da's
 column sums per 128-row tile once, ``ffn_bwd_products`` runs dx, dw1 and
-dw2 from them as one TMA + wgmma GEMM; K8 in float32 (the reference runs)
-keeps its f32 entries ``smx_ffn_bwd_dx`` / ``smx_ffn_bwd_dw``.  Each wrapper
-launches its kernel for CUDA tensors and runs its plain PyTorch version,
-which computes the same function with the kernel's f32 arithmetic, for CPU
-tensors.
+dw2 from them as one TMA + wgmma GEMM; K8 in float32 keeps its f32 entries
+``smx_ffn_bwd_dx`` / ``smx_ffn_bwd_dw``.  Each wrapper launches its kernel
+for CUDA tensors and runs its plain PyTorch version, which computes the same
+function with the kernel's f32 arithmetic, for CPU tensors.
 
 ``ffn_res_ln_trainable``, ``dense_res_ln_trainable`` and
 ``ffn_fused_trainable`` are the differentiable forms, counterparts of the TPU
@@ -30,8 +34,10 @@ mask (stream 1) over (N, H), keyed on (row, column).  ``dense_dropout_res_ln``
 (K11, ``smx_dense_dropout_res_ln`` of ``dense_res_ln.cu``) replaces
 ``dense_dropout_res_ln_trainable``'s TPU kernel, ``ffn_dropout_res_ln`` (K12)
 ``ffn_dropout_res_ln_trainable``'s and ``ffn_dropout`` (K13)
-``ffn_dropout_trainable``'s (``smx_ffn_dropout_res_ln`` and
-``smx_ffn_dropout`` of ``ffn_res_ln.cu``); ``ffn_dropout_bwd`` (K8's
+``ffn_dropout_trainable``'s (bfloat16: the up pass with the activation mask,
+then the down pass, with the output mask for K12, and for K12 the row pass;
+float32: ``smx_ffn_dropout_res_ln`` and ``smx_ffn_dropout`` of
+``ffn_res_ln.cu``); ``ffn_dropout_bwd`` (K8's
 dropout recompute entry, or its f32 dropout entries, in ``ffn_bwd.cu``)
 regenerates the activation mask in the backward, where the TPU package runs
 XLA.  Their plain versions take explicit
@@ -56,10 +62,13 @@ from .dropout import (STREAM_ACT, STREAM_OUT, DropoutKey, dropout_mask,
                       dropout_mask_plain, launch_args)
 
 ACT_CODES = {"gelu": 0, "gelu_new": 1, "relu": 2, "silu": 3}
-MAX_HIDDEN = 1024  # the kernels hold all h columns of a row tile
-# widths the bfloat16 tensor-core kernels are instantiated for: the
-# flagship's (wav2vec2-base, bart-base) and bart-large's
+MAX_HIDDEN = 1024  # the f32 kernels hold all h columns of a row tile
+# widths K2 / K11 and K8 take in bfloat16: the flagship's (wav2vec2-base,
+# bart-base) and bart-large's
 BF16_HIDDEN = (768, 1024)
+# the bfloat16 forward passes of K3 / K9 / K12 / K13 take H and F that are
+# multiples of this (their TMA + wgmma tiles), as the TPU package's gate does
+FWD_WIDTH = 128
 
 DENSE_RES_LN = CudaKernel(
     "dense_res_ln.cu", "smx_dense_res_ln",
@@ -114,6 +123,28 @@ FFN_DROPOUT_BWD_RECOMPUTE = CudaKernel(
 FFN_BWD_PRODUCTS = CudaKernel(
     "ffn_bwd.cu", "smx_ffn_bwd_products",
     [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6)
+# the bfloat16 forward passes of K3 / K9 (ffn_fwd.cu): up (K13 / K12: with the
+# activation mask), down to the output (K9 / K13) or to the f32 sum z before
+# the LayerNorm (K3; K12: with the output mask), and the LayerNorm rows
+FFN_UP = CudaKernel(
+    "ffn_fwd.cu", "smx_ffn_up", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5)
+FFN_DROPOUT_UP = CudaKernel(
+    "ffn_fwd.cu", "smx_ffn_dropout_up",
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + _KEY + _MASK +
+    [ctypes.c_int])
+FFN_DOWN = CudaKernel(
+    "ffn_fwd.cu", "smx_ffn_down", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4)
+FFN_DOWN_RES = CudaKernel(
+    "ffn_fwd.cu", "smx_ffn_down_res",
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4)
+FFN_DROPOUT_DOWN_RES = CudaKernel(
+    "ffn_fwd.cu", "smx_ffn_dropout_down_res",
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + _KEY + _MASK +
+    [ctypes.c_int])
+RES_LN_ROWS = CudaKernel(
+    "ffn_fwd.cu", "smx_res_ln_rows",
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_float] +
+    [ctypes.c_int])
 # rows of a recompute tile, each giving one row of da's column sums
 ROW_TILE = 128
 # K8's weight gradients sum over the rows in at most DW_MAX_SPLITS fixed
@@ -138,12 +169,15 @@ def act_f32(name, x):
     raise ValueError(f"unsupported activation {name!r}")
 
 
-def _res_ln_f32(y, res, g, beta, eps):
-    y = y + res.float()
-    mu = y.mean(-1, keepdim=True)
-    d = y - mu
+def _ln_f32(z, g, beta, eps):
+    mu = z.mean(-1, keepdim=True)
+    d = z - mu
     var = (d * d).mean(-1, keepdim=True)
     return d * torch.rsqrt(var + eps) * g.float() + beta.float()
+
+
+def _res_ln_f32(y, res, g, beta, eps):
+    return _ln_f32(y + res.float(), g, beta, eps)
 
 
 def dense_res_ln_plain(x, w, b, res, g, beta, eps=1e-5):
@@ -236,20 +270,142 @@ def _check_dense(what, x, w, b, res, g, beta):
 
 def ffn_res_ln(x, w1, b1, w2, b2, res, g, beta, act="gelu", eps=1e-5):
     """K3; see ffn_res_ln_plain.  CUDA tensors need x, w1, w2, res in one
-    dtype (float32 or bfloat16), b1, b2, g, beta float32, H <= 1024;
-    bfloat16 needs H in BF16_HIDDEN, F a multiple of 64, and x, w1, w2
-    32-byte aligned."""
+    dtype (float32 or bfloat16), b1, b2, g, beta float32; float32 needs
+    H <= 1024, bfloat16 H and F multiples of FWD_WIDTH and x, w1, w2 16-byte
+    aligned, and runs the up pass, the down pass to the f32 sum and the
+    LayerNorm rows (three launches)."""
     if x.device.type == "cpu":
         return ffn_res_ln_plain(x, w1, b1, w2, b2, res, g, beta, act, eps)
     n, h, f, code = _check_ffn("ffn_res_ln", x, w1, b1, w2, act)
     check_cuda_tensor("res", res, x.dtype, (n, h), x.device)
     for name, t in (("b2", b2), ("g", g), ("beta", beta)):
         _check_vec(name, t, h, x.device)
+    if x.dtype == torch.bfloat16:
+        z = ffn_down(ffn_up(x, w1, b1, act), w2, b2, res)
+        return res_ln_rows(z, g, beta, eps)
     out = torch.empty_like(res)
     FFN_RES_LN.launch(x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
                       w2.data_ptr(), b2.data_ptr(), res.data_ptr(),
                       g.data_ptr(), beta.data_ptr(), out.data_ptr(), n, h, f,
                       ACT_CODES[act], float(eps), code, x.device.index)
+    return out
+
+
+# ------------------------------------------- the bf16 forward's passes
+def ffn_up_plain(x, w1, b1, act="gelu", amask=None):
+    """The up pass: h = round(act(x @ w1 + b1) * amask) (N, F) in x's dtype,
+    the product and the activation in f32; amask (N, F) float32 or None."""
+    h = act_f32(act, x.float() @ w1.float() + b1.float())
+    if amask is not None:
+        h = h * amask
+    return h.to(x.dtype)
+
+
+def ffn_down_plain(hid, w2, b2, res=None, omask=None):
+    """The down pass: y = (hid @ w2 + b2) * omask in f32; without res
+    round(y) in hid's dtype (K9), with res (N, H) the f32 sum z = y + res
+    (K3, before its LayerNorm); omask (N, H) float32 or None."""
+    y = hid.float() @ w2.float() + b2.float()
+    if omask is not None:
+        y = y * omask
+    if res is None:
+        return y.to(hid.dtype)
+    return y + res.float()
+
+
+def res_ln_rows_plain(z, g, beta, eps=1e-5, dtype=torch.bfloat16):
+    """The row pass: round(LayerNorm(z) * g + beta) in `dtype`, the mean and
+    then the variance of the centred values of each f32 row of z."""
+    return _ln_f32(z, g, beta, eps).to(dtype)
+
+
+def _check_pass(what, a, w, bias):
+    """Checks of an up or down pass: a (N, K) and w (K, C) bfloat16 CUDA
+    tensors, K and C multiples of FWD_WIDTH, both 16-byte aligned (TMA),
+    bias (C,) float32.  Returns (N, K, C)."""
+    check_cuda_tensor("a", a)
+    _require_bf16(what, a)
+    n, k = a.shape
+    c = w.shape[1]
+    if k % FWD_WIDTH or c % FWD_WIDTH:
+        raise ValueError(f"{what} takes widths that are multiples of "
+                         f"{FWD_WIDTH}, got {k} and {c}")
+    check_cuda_tensor("w", w, a.dtype, (k, c), a.device)
+    _check_vec("bias", bias, c, a.device)
+    check_aligned("a", a, 16)
+    check_aligned("w", w, 16)
+    return n, k, c
+
+
+def ffn_up(x, w1, b1, act="gelu", key=None, rate=0.0):
+    """The up pass (with the activation mask of (key, STREAM_ACT) at `rate`
+    > 0, K13's and K12's); see ffn_up_plain.  CUDA tensors: bfloat16 x (N,
+    H), w1 (H, F), b1 (F,) float32, H and F multiples of FWD_WIDTH."""
+    drop = key is not None and rate > 0.0
+    if x.device.type == "cpu":
+        return ffn_up_plain(x, w1, b1, act, _mask_plain(
+            key, STREAM_ACT, x.shape[0], w1.shape[1], rate, x.device)
+            if drop else None)
+    if act not in ACT_CODES:
+        raise ValueError(f"unsupported activation {act!r}")
+    n, h, f = _check_pass("ffn_up", x, w1, b1)
+    hid = torch.empty(n, f, dtype=x.dtype, device=x.device)
+    ptrs = (x.data_ptr(), w1.data_ptr(), b1.data_ptr(), hid.data_ptr(), n, h,
+            f, ACT_CODES[act])
+    if drop:
+        FFN_DROPOUT_UP.launch(*ptrs, *launch_args(key, rate), x.device.index)
+    else:
+        FFN_UP.launch(*ptrs, x.device.index)
+    return hid
+
+
+def ffn_down(hid, w2, b2, res=None, key=None, rate=0.0):
+    """The down pass; see ffn_down_plain.  With res, the f32 sum z (K3), and
+    the output mask of (key, STREAM_OUT) at `rate` > 0 (K12's; the mask is
+    taken with res only).  CUDA tensors: bfloat16 hid (N, F), w2 (F, H), res
+    (N, H), b2 (H,) float32, H and F multiples of FWD_WIDTH."""
+    drop = key is not None and rate > 0.0
+    if drop and res is None:
+        raise ValueError("ffn_down takes the output mask with res only")
+    if hid.device.type == "cpu":
+        return ffn_down_plain(hid, w2, b2, res, _mask_plain(
+            key, STREAM_OUT, hid.shape[0], w2.shape[1], rate, hid.device)
+            if drop else None)
+    n, f, h = _check_pass("ffn_down", hid, w2, b2)
+    if res is None:
+        out = torch.empty(n, h, dtype=hid.dtype, device=hid.device)
+        FFN_DOWN.launch(hid.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+                        out.data_ptr(), n, h, f, hid.device.index)
+        return out
+    check_cuda_tensor("res", res, hid.dtype, (n, h), hid.device)
+    check_aligned("res", res, 16)
+    z = torch.empty(n, h, dtype=torch.float32, device=hid.device)
+    ptrs = (hid.data_ptr(), w2.data_ptr(), b2.data_ptr(), res.data_ptr(),
+            z.data_ptr(), n, h, f)
+    if drop:
+        FFN_DROPOUT_DOWN_RES.launch(*ptrs, *launch_args(key, rate),
+                                    hid.device.index)
+    else:
+        FFN_DOWN_RES.launch(*ptrs, hid.device.index)
+    return z
+
+
+def res_ln_rows(z, g, beta, eps=1e-5):
+    """The row pass to bfloat16; see res_ln_rows_plain.  CUDA tensors: z (N,
+    H) float32, H a multiple of 4, g, beta (H,) float32."""
+    if z.device.type == "cpu":
+        return res_ln_rows_plain(z, g, beta, eps)
+    check_cuda_tensor("z", z, torch.float32)
+    n, h = z.shape
+    if h % 4:
+        raise ValueError(f"res_ln_rows takes H a multiple of 4, got {h}")
+    for name, t in (("z", z), ("g", g), ("beta", beta)):
+        if t is not z:
+            _check_vec(name, t, h, z.device)
+        check_aligned(name, t, 16)
+    out = torch.empty(n, h, dtype=torch.bfloat16, device=z.device)
+    RES_LN_ROWS.launch(z.data_ptr(), g.data_ptr(), beta.data_ptr(),
+                       out.data_ptr(), n, h, float(eps), z.device.index)
     return out
 
 
@@ -301,35 +457,46 @@ def ffn_dropout_plain(x, w1, b1, w2, b2, amask, act="gelu"):
     return (h @ w2.float() + b2.float()).to(x.dtype)
 
 
-def _check_ffn(what, x, w1, b1, w2, act):
-    """Shared checks of the K3 / K8 / K9 wrappers; returns (n, h, f, code)."""
+def _check_ffn(what, x, w1, b1, w2, act, k8=False):
+    """Shared checks of the K3 / K8 / K9 wrappers; returns (n, h, f, code).
+    float32: H <= MAX_HIDDEN.  bfloat16: the forward (K3, K9 and their
+    twins) takes H and F multiples of FWD_WIDTH and 16-byte aligned
+    operands; K8 (`k8`) H in BF16_HIDDEN, F a multiple of 64 and 32-byte
+    aligned operands."""
     if act not in ACT_CODES:
         raise ValueError(f"unsupported activation {act!r}")
     n, h = x.shape
     f = w1.shape[1]
-    if h > MAX_HIDDEN:
+    bf16 = x.dtype == torch.bfloat16
+    if not bf16 and h > MAX_HIDDEN:
         raise ValueError(f"{what} supports H <= {MAX_HIDDEN}, got {h}")
-    if x.dtype == torch.bfloat16 and (h not in BF16_HIDDEN or f % 64):
+    if bf16 and k8 and (h not in BF16_HIDDEN or f % 64):
         raise ValueError(f"{what} in bfloat16 supports H in {BF16_HIDDEN}"
                          f" and F a multiple of 64, got H={h}, F={f}")
+    if bf16 and not k8 and (h % FWD_WIDTH or f % FWD_WIDTH):
+        raise ValueError(f"{what} in bfloat16 supports H and F multiples "
+                         f"of {FWD_WIDTH}, got H={h}, F={f}")
     check_cuda_tensor("x", x)
     code = dtype_code(x.dtype)
     check_cuda_tensor("w1", w1, x.dtype, (h, f), x.device)
     check_cuda_tensor("w2", w2, x.dtype, (f, h), x.device)
     _check_vec("b1", b1, f, x.device)
-    if x.dtype == torch.bfloat16:
+    if bf16:
         for name, t in (("x", x), ("w1", w1), ("w2", w2)):
-            check_aligned(name, t, 32)
+            check_aligned(name, t, 32 if k8 else 16)
     return n, h, f, code
 
 
 def ffn_fused(x, w1, b1, w2, b2, act="gelu"):
     """K9; see ffn_fused_plain.  The same dtype and width rules as
-    ffn_res_ln."""
+    ffn_res_ln; bfloat16 runs the up pass and the down pass (two
+    launches)."""
     if x.device.type == "cpu":
         return ffn_fused_plain(x, w1, b1, w2, b2, act)
     n, h, f, code = _check_ffn("ffn_fused", x, w1, b1, w2, act)
     _check_vec("b2", b2, h, x.device)
+    if x.dtype == torch.bfloat16:
+        return ffn_down(ffn_up(x, w1, b1, act), w2, b2)
     out = torch.empty_like(x)
     FFN_FUSED.launch(x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
                      w2.data_ptr(), b2.data_ptr(), out.data_ptr(), n, h, f,
@@ -424,7 +591,7 @@ def _check_ffn_bwd(what, x, g, w1, b1, w2, act):
     if x.dtype == torch.float32 and w1.shape[1] % 16:
         raise ValueError(f"{what} in float32 supports F a multiple of 16, "
                          f"got F={w1.shape[1]}")
-    n, h, f, code = _check_ffn(what, x, w1, b1, w2, act)
+    n, h, f, code = _check_ffn(what, x, w1, b1, w2, act, k8=True)
     check_cuda_tensor("g", g, x.dtype, (n, h), x.device)
     if x.dtype == torch.bfloat16:
         check_aligned("g", g, 32)
@@ -597,7 +764,9 @@ def ffn_dropout_res_ln(x, w1, b1, w2, b2, res, g, beta, key: DropoutKey,
     """K12: LayerNorm(res + drop_o(drop_a(act(x @ w1 + b1)) @ w2 + b2)) * g
     + beta, the activation mask of (key, STREAM_ACT) at act_rate and the
     output mask of (key, STREAM_OUT) at out_rate (either may be 0); see
-    ffn_dropout_res_ln_plain.  CUDA tensors as for ffn_res_ln."""
+    ffn_dropout_res_ln_plain.  CUDA tensors as for ffn_res_ln; bfloat16
+    runs the up pass with the activation mask, the down pass with the output
+    mask and the LayerNorm rows."""
     n, h = x.shape
     f = w1.shape[1]
     if x.device.type == "cpu":
@@ -609,6 +778,10 @@ def ffn_dropout_res_ln(x, w1, b1, w2, b2, res, g, beta, key: DropoutKey,
     check_cuda_tensor("res", res, x.dtype, (n, h), x.device)
     for name, t in (("b2", b2), ("g", g), ("beta", beta)):
         _check_vec(name, t, h, x.device)
+    if x.dtype == torch.bfloat16:
+        z = ffn_down(ffn_up(x, w1, b1, act, key, act_rate), w2, b2, res, key,
+                     out_rate)
+        return res_ln_rows(z, g, beta, eps)
     k0, k1, act_thr, act_scale = launch_args(key, act_rate)
     _, _, out_thr, out_scale = launch_args(key, out_rate)
     out = torch.empty_like(res)
@@ -623,13 +796,16 @@ def ffn_dropout_res_ln(x, w1, b1, w2, b2, res, g, beta, key: DropoutKey,
 def ffn_dropout(x, w1, b1, w2, b2, key: DropoutKey, rate, act="gelu"):
     """K13: drop_a(act(x @ w1 + b1)) @ w2 + b2, the activation mask of
     (key, STREAM_ACT); see ffn_dropout_plain.  CUDA tensors as for
-    ffn_fused."""
+    ffn_fused; bfloat16 runs the up pass with the mask, then the down
+    pass."""
     if x.device.type == "cpu":
         return ffn_dropout_plain(
             x, w1, b1, w2, b2, _mask_plain(key, STREAM_ACT, x.shape[0],
                                            w1.shape[1], rate, x.device), act)
     n, h, f, code = _check_ffn("ffn_dropout", x, w1, b1, w2, act)
     _check_vec("b2", b2, h, x.device)
+    if x.dtype == torch.bfloat16:
+        return ffn_down(ffn_up(x, w1, b1, act, key, rate), w2, b2)
     out = torch.empty_like(x)
     FFN_DROPOUT.launch(x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
                        w2.data_ptr(), b2.data_ptr(), out.data_ptr(), n, h, f,

@@ -6,10 +6,14 @@ layout (``convert.params_from_jax`` maps them).  The compute dtype is the
 caller's; normalisation statistics are f32.
 
 ``ffn_residual_ln_apply``, ``dense_residual_ln_apply`` and ``ffn_apply`` send
-blocks of at least ``FUSED_MIN_ROWS`` rows to the fused kernels K3, K2 and K9
+the blocks the JAX package's gate admits to the fused kernels K3, K2 and K9
 (``ops.kernels.ffn``) through their differentiable forms, whose backward runs
-K9 and K8, as the JAX package sends them to its TPU kernels; smaller blocks
-(the cached decode steps, rows == B) take the plain chain.
+K9 and K8, as the JAX package sends them to its TPU kernels: at least
+``FUSED_MIN_ROWS`` rows, both widths multiples of ``FUSED_WIDTH``,
+unquantized weights (a ``kernel`` entry) and, for the FFN, one of the
+kernels' activations.  Every other block (the cached decode steps, rows ==
+B; other widths) takes the plain chain, as the JAX package runs its XLA
+chain there.
 
 Dropout: each site takes one ``DropoutKey`` (None: no dropout).  With a key
 and a rate above 0 the fused blocks run the dropout kernels K12, K11 and K13;
@@ -30,6 +34,7 @@ from .kernels import dropout as drop
 from .kernels.dropout import STREAM_ACT, STREAM_OUT
 
 FUSED_MIN_ROWS = 1024  # the JAX row gate: cached decode steps stay plain
+FUSED_WIDTH = 128      # the JAX width gate: both widths of a fused block
 
 
 def dense(params, x, dtype=None):
@@ -106,13 +111,36 @@ def _live(key, rate):
     return rate if key is not None and rate > 0.0 else 0.0
 
 
+def _ffn_fused_eligible(p1, p2, x, act_name):
+    """The JAX package's gate of the fused FFN kernels (its
+    ``_ffn_fused_eligible``): enough rows, an activation the kernels have,
+    unquantized weights, and H and F multiples of FUSED_WIDTH."""
+    if "kernel" not in p1 or "kernel" not in p2:
+        return False
+    if act_name not in ffn_kernels.ACT_CODES:
+        return False
+    h, f = p1["kernel"].shape
+    return (_rows(x) >= FUSED_MIN_ROWS and h % FUSED_WIDTH == 0
+            and f % FUSED_WIDTH == 0)
+
+
+def _dense_fused_eligible(p, x):
+    """The JAX package's gate of the dense epilogue kernel (its
+    ``_dense_fused_eligible``): the FFN's without the activation."""
+    if "kernel" not in p:
+        return False
+    din, h = p["kernel"].shape
+    return (_rows(x) >= FUSED_MIN_ROWS and din % FUSED_WIDTH == 0
+            and h % FUSED_WIDTH == 0)
+
+
 def ffn_apply(p1, p2, x, act_name, dtype, key=None, act_dropout=0.0):
     """FFN block act(x @ W1 + b1) @ W2 + b2, dropout after the activation
-    (mask of (key, STREAM_ACT)).  Blocks of >= FUSED_MIN_ROWS rows run as
-    one fused kernel (K9, or K13 with dropout), with K8 (its dropout
-    entries) as the backward."""
+    (mask of (key, STREAM_ACT)).  Blocks the gate admits run as one fused
+    kernel (K9, or K13 with dropout), with K8 (its dropout entries) as the
+    backward."""
     rate = _live(key, act_dropout)
-    if _rows(x) >= FUSED_MIN_ROWS:
+    if _ffn_fused_eligible(p1, p2, x, act_name):
         lead, h = x.shape[:-1], x.shape[-1]
         operands = (x.to(dtype).reshape(-1, h).contiguous(), p1["kernel"],
                     p1.get("bias"), p2["kernel"], p2.get("bias"))
@@ -129,11 +157,11 @@ def ffn_apply(p1, p2, x, act_name, dtype, key=None, act_dropout=0.0):
 def ffn_residual_ln_apply(p1, p2, p_ln, x, act_name, dtype, eps=1e-5, *,
                           key=None, act_dropout=0.0, out_dropout=0.0):
     """Post-LN FFN block: LayerNorm(x + drop_o(drop_a(act(x @ W1 + b1)) @ W2
-    + b2)), the masks of (key, STREAM_ACT) and (key, STREAM_OUT).  Blocks of
-    >= FUSED_MIN_ROWS rows run as one fused kernel (K3, or K12 with
-    dropout), differentiable through K9 / K13, K10 and K8."""
+    + b2)), the masks of (key, STREAM_ACT) and (key, STREAM_OUT).  Blocks
+    the gate admits run as one fused kernel (K3, or K12 with dropout),
+    differentiable through K9 / K13, K10 and K8."""
     act_rate, out_rate = _live(key, act_dropout), _live(key, out_dropout)
-    if _rows(x) >= FUSED_MIN_ROWS:
+    if _ffn_fused_eligible(p1, p2, x, act_name):
         lead, h = x.shape[:-1], x.shape[-1]
         x2 = x.to(dtype).reshape(-1, h).contiguous()
         # the residual is the FFN input itself
@@ -153,11 +181,11 @@ def ffn_residual_ln_apply(p1, p2, p_ln, x, act_name, dtype, eps=1e-5, *,
 def dense_residual_ln_apply(p, p_ln, x, res, dtype, eps=1e-5, *, key=None,
                             dropout_rate=0.0):
     """Post-LN attention epilogue: LayerNorm(res + drop(x @ W + b)), the
-    mask of (key, STREAM_OUT).  Blocks of >= FUSED_MIN_ROWS rows run as one
-    fused kernel (K2, or K11 with dropout), differentiable by plain matrix
+    mask of (key, STREAM_OUT).  Blocks the gate admits run as one fused
+    kernel (K2, or K11 with dropout), differentiable by plain matrix
     products."""
     rate = _live(key, dropout_rate)
-    if _rows(x) >= FUSED_MIN_ROWS:
+    if _dense_fused_eligible(p, x):
         lead, din = x.shape[:-1], x.shape[-1]
         h = p["kernel"].shape[1]
         operands = (x.to(dtype).reshape(-1, din).contiguous(), p["kernel"],

@@ -156,7 +156,8 @@ def _ffn_args(h, f):
         _meta(4, 256), _meta(256, 256), _meta(256, dtype=torch.float32),
         _meta(4, 256), _meta(256, dtype=torch.float32),
         _meta(256, dtype=torch.float32)), "bfloat16 supports H"),
-    (lambda: t_ffn.ffn_res_ln(*_ffn_args(256, 1024)), "bfloat16 supports H"),
+    # the bf16 passes of K3 take H and F multiples of 128, as the TPU gate
+    (lambda: t_ffn.ffn_res_ln(*_ffn_args(192, 768)), "bfloat16 supports H"),
     (lambda: t_ffn.ffn_res_ln(*_ffn_args(768, 3000)), "bfloat16 supports H"),
     (lambda: t_ffn.ffn_res_ln(*_ffn_args(768, 3072), act="tanh"),
      "unsupported activation"),
@@ -220,7 +221,7 @@ def test_training_kernel_wrappers_raise_instead_of_falling_back():
         _meta(1, 8, 32), _meta(1, 8, 32), _meta(1, 8, 32), None,
         _meta(1, 8, 32), _meta(1, 1, 8, dtype=torch.float32),
         _meta(1, 8, 32), 1, 0.125), "head_dim 64"),
-    (lambda: t_ffn.ffn_fused(*_ffn_args(256, 1024)[:5]),
+    (lambda: t_ffn.ffn_fused(*_ffn_args(192, 768)[:5]),
      "bfloat16 supports H"),
     (lambda: t_ffn.ffn_bwd(_meta(4, 768), _meta(4, 768), _meta(768, 3000),
                            _meta(3000, dtype=torch.float32),

@@ -181,7 +181,7 @@ def test_residual_ln_blocks_at_kernel_rows(block):
     """Blocks of >= 1024 rows take the fused-kernel dispatch (the plain
     version of K3 / K2 on the CPU); they match the JAX XLA chain."""
     rng = np.random.RandomState(4)
-    b, t, h, f = 2, 520, 64, 128
+    b, t, h, f = 2, 520, 128, 256
     mk = lambda *s, sc=0.1: (rng.randn(*s) * sc).astype(np.float32)
     p1 = {"kernel": mk(h, f), "bias": mk(f)}
     p2 = {"kernel": mk(f, h), "bias": mk(h)}

@@ -151,10 +151,12 @@ def test_forward_without_labels_starts_the_decoder():
 @pytest.mark.parametrize("min_rows", [1024, 1],
                          ids=["plain-chain", "kernel-functions"])
 def test_gradient_tree_matches_jax_grad(min_rows, monkeypatch):
-    """Every leaf of d loss / d params.  With the row gate at 1 the port's
-    blocks run ffn_res_ln_trainable, dense_res_ln_trainable and
-    attention_trainable (plain versions on the CPU)."""
+    """Every leaf of d loss / d params.  With the row gate at 1 (and the
+    width gate at 1, for the tiny widths) the port's blocks run
+    ffn_res_ln_trainable, dense_res_ln_trainable and attention_trainable
+    (plain versions on the CPU)."""
     monkeypatch.setattr(t_layers, "FUSED_MIN_ROWS", min_rows)
+    monkeypatch.setattr(t_layers, "FUSED_WIDTH", 1)
     jc, tc = _cfgs("eed")
     tree, batch = _tree(jc), _batch()
 

@@ -168,6 +168,7 @@ def test_rate_zero_dropout_step_matches_jax():
 # ------------------------------------------------------ flagship rates
 def _flagship_step(min_rows, monkeypatch, steps=3, seed=0):
     monkeypatch.setattr(t_layers, "FUSED_MIN_ROWS", min_rows)
+    monkeypatch.setattr(t_layers, "FUSED_WIDTH", 1)   # the tiny widths
     _, tc = _cfgs(FLAGSHIP_SPEECH)
     t_tc = t_trainer.TrainConfig(learning_rate=LR, warmup_steps=0,
                                  grad_accum=2, optimizer="adamw", seed=seed)
@@ -238,6 +239,7 @@ def test_masks_do_not_depend_on_the_row_gate(monkeypatch):
 
     def run(min_rows):
         monkeypatch.setattr(t_layers, "FUSED_MIN_ROWS", min_rows)
+        monkeypatch.setattr(t_layers, "FUSED_WIDTH", 1)
         leaves = t_trainer.tree_map(lambda p: p.detach().requires_grad_(),
                                     params)
         out = t_smx.speechmix_forward(leaves, tc, tb["input_values"],

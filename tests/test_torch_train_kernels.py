@@ -279,7 +279,7 @@ def test_functions_take_absent_biases():
 def test_layers_route_wide_blocks_through_the_functions(monkeypatch):
     """ffn_residual_ln_apply, dense_residual_ln_apply and ffn_apply at the row
     gate against the plain chain below it, values and gradients."""
-    a = _ffn_inputs(n=64, h=16, f=32)
+    a = _ffn_inputs(n=64, h=128, f=256)
     p1 = {"kernel": _t(a["w1"]), "bias": _t(a["b1"])}
     p2 = {"kernel": _t(a["w2"]), "bias": _t(a["b2"])}
     ln = {"scale": _t(a["g"]), "bias": _t(a["beta"])}
@@ -287,7 +287,7 @@ def test_layers_route_wide_blocks_through_the_functions(monkeypatch):
 
     def run(gate):
         monkeypatch.setattr(t_layers, "FUSED_MIN_ROWS", gate)
-        x = _t(a["x"]).reshape(4, 16, 16).clone().requires_grad_()
+        x = _t(a["x"]).reshape(4, 16, 128).clone().requires_grad_()
         y = t_layers.ffn_residual_ln_apply(p1, p2, ln, x, "gelu",
                                            torch.float32)
         y = t_layers.dense_residual_ln_apply(pd, ln, y, x, torch.float32)
