@@ -8,7 +8,8 @@ Phases, each printing as it goes; any failure exits non-zero:
   2. build the CUDA kernels from speechmix_tpu_torch/csrc with nvcc;
   3. hold each kernel (K1 attention_fwd and its log-sum-exp, K2
      dense_res_ln, K3 ffn_res_ln, K4 decode_attention with float and with
-     int8 K/V, K5 beam_gather, K6 conv_ln_gelu, K7 attention_bwd, K8 ffn_bwd
+     int8 K/V, K5 beam_gather, K6 conv_ln_gelu, K7 attention_bwd (also
+     against attention_bwd_tiled_plain, its tiles in plain PyTorch), K8 ffn_bwd
      (bf16: its recompute pass and its TMA + wgmma products, the products
      also alone against reference products; f32: its two f32 entries), K9
      ffn_fused; K3 and K9 in bf16 are the TMA + wgmma up and down passes and
@@ -17,7 +18,8 @@ Phases, each printing as it goes; any failure exits non-zero:
      that is a multiple of 128 from 256 to 1536) against its plain PyTorch
      version on the card, in bf16 and f32, at the shapes the flagship path
      gives it (K2, K3, K8 and K9 at the train step's 12800, 6400 and 1024
-     rows; the bf16 K3, K8, K9, K12 and K13 twice, bit for bit), and time
+     rows; the bf16 K3, K8, K9, K12 and K13 twice, bit for bit, and K7 and
+     K15 twice at the train step's three attention lengths), and time
      kernel, plain version and one PyTorch library call beside it, with the
      least time the card could take (bound_ms); K5 must be bit-exact;
      the differentiable forms of K3 and K9 (bf16 activations, f32 weights)
@@ -46,19 +48,23 @@ Phases, each printing as it goes; any failure exits non-zero:
      loss must fall and every step must launch K1, K3, K7, K9 and K8's
      recompute and products 24 times each (K3 and K9: the up pass 48, the
      down pass, the down pass to z and the rows 24 each), K2 30 times and
-     K6 6 times, and print the device ms of K8 and of the passes; then
+     K6 6 times, and print the device ms of K8, of the passes and of the
+     attention backward's three kernels; then
      8 more with dropout on at the presets' rates, SpecAugment and LayerDrop:
      with k speech layers skipped, K14, K15, K12, K13, K8's dropout
      recompute and its products 24 - k times (the dropout up pass 48 - 2k),
      K11 30 - k, K10 64 - 2k, K6 6, and no deterministic twin;
-  6. print the `kernels` JSON line, then the card line, then the result
-     line {"ok": true, "device": {...}} last.
+  6. print the `kernels` JSON line (K7 and K15 with a record per attention
+     length of the step and its launches there), then the card line, then
+     the result line {"ok": true, "device": {...}} last.
 Without CUDA it exits 1 before printing any result.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
+import ctypes
 import itertools
 import json
 import os
@@ -782,21 +788,26 @@ def check_train_kernels(randn, dev, records):
         got = ka.attention_bwd(q, k, v, mask, out, lse, g, heads, scale,
                                causal)
         refs = ka.attention_bwd_plain(q, k, v, mask, g, heads, scale, causal)
+        # the kernels' tiles in plain PyTorch, from the kernel's out and lse
+        tiled = ka.attention_bwd_tiled_plain(q, k, v, mask, out, lse, g,
+                                             heads, scale, causal)
         torch.cuda.synchronize()
         what = f"{name}B={b} T={t} {dtype} causal={causal}"
         # the log-sum-exp is float32 in both dtypes: summation order only
         # (a fully masked row gives -1e30 in both)
         compare(f"lse {what}", lse, ref_lse, 1e-4 + 1e-4 * ref_lse.abs(),
                 "atol 1e-4, rtol 1e-4")
-        limits = [None] * 3
-        rule = None
-        if dtype == torch.bfloat16:
-            limits = attention_bwd_bf16_limits(q, k, v, mask, ref_out, g,
-                                               heads, scale, causal, refs)
-            rule = K7_BF16_RULE
-        errs = [compare(f"{n_} {what}", o, r, lim, rule)
-                for n_, o, r, lim in zip(("dq", "dk", "dv"), got, refs,
-                                         limits)]
+        errs = []
+        for against, ref3 in (("", refs), (" vs tiled", tiled)):
+            limits = [None] * 3
+            rule = None
+            if dtype == torch.bfloat16:
+                limits = attention_bwd_bf16_limits(q, k, v, mask, ref_out, g,
+                                                   heads, scale, causal, ref3)
+                rule = K7_BF16_RULE
+            errs += [compare(f"{n_} {what}{against}", o, r, lim, rule)
+                     for n_, o, r, lim in zip(("dq", "dk", "dv"), got, ref3,
+                                              limits)]
         return max(errs), (q, k, v, mask, out, lse, g, causal, lens)
 
     timed = {}
@@ -828,6 +839,9 @@ def check_train_kernels(randn, dev, records):
     for name, (err, (q, k, v, mask, out, lse, g, causal, lens)) in \
             timed.items():
         b, t, _ = q.shape
+        k7 = lambda: ka.attention_bwd(q, k, v, mask, out, lse, g, heads,
+                                      scale, causal)
+        expect_equal(f"K7 {name} B={b} T={t}", k7(), k7())
         qh, kh, vh = (x.view(b, t, heads, d).transpose(1, 2).detach()
                       .requires_grad_() for x in (q, k, v))
         allowed = mask[:, None, :].expand(b, t, t)
@@ -839,9 +853,8 @@ def check_train_kernels(randn, dev, records):
         gh = g.view(b, t, heads, d).transpose(1, 2)
         records[name] = dict(
             shape=f"B={b} T={t} H={heads} D={d} bf16 causal={causal}",
-            max_abs_err=err,
-            ms=cuda_ms(lambda: ka.attention_bwd(q, k, v, mask, out, lse, g,
-                                                heads, scale, causal)),
+            length=t, max_abs_err=err,
+            ms=cuda_ms(k7),
             plain_ms=cuda_ms(lambda: ka.attention_bwd_plain(
                 q, k, v, mask, g, heads, scale, causal), iters=5),
             library_ms=cuda_ms(lambda: torch.autograd.grad(
@@ -1432,26 +1445,33 @@ def check_dropout_kernels(randn, dev, records):
                                        scale, causal, key, rate)
         refs = ka.attention_bwd_plain(q, k, v, mask, g, heads, scale, causal,
                                       dmask=dmask)
+        tiled = ka.attention_bwd_tiled_plain(q, k, v, mask, out, lse, g,
+                                             heads, scale, causal, dmask)
         torch.cuda.synchronize()
         what = f"{name}B={b} T={t} {dtype} causal={causal}"
         compare(f"K14 lse {what}", lse, ref_lse,
                 1e-4 + 1e-4 * ref_lse.abs(), "atol 1e-4, rtol 1e-4")
-        if dtype == bf16:
-            limit = attention_bf16_limit(q, k, v, mask, heads, scale, causal,
-                                         ref_out, dmask)
-            limits = attention_bwd_bf16_limits(q, k, v, mask, ref_out, g,
-                                               heads, scale, causal, refs,
-                                               dmask)
-            rule, rule15 = K14_BF16_RULE, K7_BF16_RULE + ", p^T as (p m)^T"
-        else:   # f32: the order of summation, of values scaled by 1/(1-r)
-            atol, rtol = _dropout_tol(TOL["float32"], rate)
-            limit = atol + rtol * ref_out.abs()
-            limits = [atol + rtol * r.abs() for r in refs]
-            rule = rule15 = f"atol {atol:.4g}, rtol {rtol:.4g} (TOL / (1-r))"
+        e15 = 0.0
+        for against, ref3 in (("", refs), (" vs tiled", tiled)):
+            if dtype == bf16:
+                limit = attention_bf16_limit(q, k, v, mask, heads, scale,
+                                             causal, ref_out, dmask)
+                limits = attention_bwd_bf16_limits(q, k, v, mask, ref_out, g,
+                                                   heads, scale, causal, ref3,
+                                                   dmask)
+                rule = K14_BF16_RULE
+                rule15 = K7_BF16_RULE + ", p^T as (p m)^T"
+            else:   # f32: the order of summation, of values scaled by 1/(1-r)
+                atol, rtol = _dropout_tol(TOL["float32"], rate)
+                limit = atol + rtol * ref_out.abs()
+                limits = [atol + rtol * r.abs() for r in ref3]
+                rule = rule15 = (f"atol {atol:.4g}, rtol {rtol:.4g} "
+                                 "(TOL / (1-r))")
+            e15 = max([e15] + [
+                compare(f"K15 {n_} {what}{against}", o, r, lim, rule15)
+                for n_, o, r, lim in zip(("dq", "dk", "dv"), got, ref3,
+                                         limits)])
         e14 = compare(f"K14 out {what}", out, ref_out, limit, rule)
-        e15 = max(compare(f"K15 {n_} {what}", o, r, lim, rule15)
-                  for n_, o, r, lim in zip(("dq", "dk", "dv"), got, refs,
-                                           limits))
         return e14, e15, (q, k, v, mask, out, lse, g, causal, lens)
 
     for dtype in (bf16, f32):
@@ -1463,6 +1483,9 @@ def check_dropout_kernels(randn, dev, records):
                                ("decoder, causal", 16, 64, True)):
         e14, e15, (q, k, v, mask, out, lse, g, causal, lens) = \
             attention_case(b, t, causal, bf16, [t] * b, "timed ")
+        k15 = lambda: ka.attention_dropout_bwd(q, k, v, mask, out, lse, g,
+                                               heads, scale, causal, key, rate)
+        expect_equal(f"K15 {name} B={b} T={t}", k15(), k15())
         qh, kh, vh = (x_.view(b, t, heads, d).transpose(1, 2).detach()
                       .requires_grad_() for x_ in (q, k, v))
         allowed = mask[:, None, :].expand(b, t, t)
@@ -1488,9 +1511,8 @@ def check_dropout_kernels(randn, dev, records):
             flops=4.0 * heads * d * int(allowed.sum()),
             bytes=4 * b * t * heads * d * 2 + b * t)
         records["attention_dropout_bwd" + suffix] = dict(
-            shape=shape, max_abs_err=e15,
-            ms=cuda_ms(lambda: ka.attention_dropout_bwd(
-                q, k, v, mask, out, lse, g, heads, scale, causal, key, rate)),
+            shape=shape, length=t, max_abs_err=e15,
+            ms=cuda_ms(k15),
             plain_ms=cuda_ms(lambda: ka.attention_bwd_plain(
                 q, k, v, mask, g, heads, scale, causal,
                 dmask=kd.attention_mask_plain(key, b, heads, t, t, rate,
@@ -2136,6 +2158,12 @@ def run_training(seed, card, dropout=False):
         f"batch, {recipe}")
     torch.cuda.reset_peak_memory_stats()
     losses, times = [], []
+    # K7 / K15 launches by query length, counted around their wrappers'
+    # launches, for the kernels line's per-length records
+    from speechmix_tpu_torch.ops.kernels import attention as ka
+    by_length = collections.Counter()
+    for kern in (ka.BWD_KERNEL, ka.DROPOUT_BWD_KERNEL):
+        kern.launch = _tally_by_length(kern, by_length)
     for i in range(TRAIN_STEPS):
         skipped = []
         want = expected_train_launches(cfg.num_speech_encoder_layers,
@@ -2147,6 +2175,7 @@ def run_training(seed, card, dropout=False):
                 cfg.num_speech_encoder_layers - len(skipped),
                 dec.encoder_layers, dec.decoder_layers)
         kernels.reset_launch_counts()
+        by_length.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, metrics = step_fn(state, batch)
@@ -2171,7 +2200,11 @@ def run_training(seed, card, dropout=False):
         losses.append(loss)
         if i >= 2:
             times.append(dt)
+    for kern in (ka.BWD_KERNEL, ka.DROPOUT_BWD_KERNEL):
+        del kern.launch   # the class's own again
     log(f"  launches per step: {counts}")
+    log(f"  K7 / K15 launches per step by query length: "
+        f"{ {f'{k[0]} T={k[1]}': n for k, n in sorted(by_length.items())} }")
     if not losses[-1] < losses[1]:
         raise AssertionError(f"{what}: the loss did not fall: {losses}")
     med = sorted(times)[len(times) // 2]
@@ -2194,14 +2227,28 @@ def run_training(seed, card, dropout=False):
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:14]:
         log(f"    {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d}x  "
             f"{e.key[:90]}")
-    for label, names in (("K8", K8_KERNELS), ("K3 / K9 passes", FWD_KERNELS)):
+    for label, names in (("K8", K8_KERNELS), ("K3 / K9 passes", FWD_KERNELS),
+                         ("attention backward (K7 / K15)", ATTN_BWD_KERNELS)):
         hit = [e for e in events if any(name in e.key for name in names)]
         log(f"  {label} in the profiled {what}: "
             f"{sum(e.self_device_time_total for e in hit) / 1e3:.2f} ms: " +
             ", ".join(f"{KERNEL_NAME.search(e.key).group(0)} "
                       f"{e.self_device_time_total / 1e3:.2f} ms {e.count}x"
                       for e in hit))
-    return counts
+    return counts, dict(by_length)
+
+
+def _tally_by_length(kernel, counter):
+    """kernel.launch that also counts each accepted launch under (symbol,
+    query length); the query length follows the batch, after the pointers."""
+    launch = kernel.launch
+    tq_arg = next(i for i, t in enumerate(kernel.argtypes)
+                  if t is not ctypes.c_void_p) + 1
+
+    def counted(*args):
+        launch(*args)
+        counter[(kernel.symbol, args[tq_arg])] += 1
+    return counted
 
 
 # K8's device kernels in bf16, and those of the bf16 passes of K3 / K9 /
@@ -2209,6 +2256,9 @@ def run_training(seed, card, dropout=False):
 # by name in the profiler's trace
 K8_KERNELS = ("recompute_kernel", "products_kernel", "ffn_bwd_reduce_kernel")
 FWD_KERNELS = ("ffn_pass_kernel", "res_ln_rows_kernel")
+# K7 / K15 in bf16: the delta pass, the dk/dv pass and the dq pass of
+# attention_bwd.cu
+ATTN_BWD_KERNELS = ("attention_bwd_delta_kernel", "dkdv_kernel", "dq_kernel")
 KERNEL_NAME = re.compile(r"\w+_kernel(<[^>]*>)?")
 
 
@@ -2259,8 +2309,10 @@ def main():
     counts = run_flagship(args.seed, card)
     check_gradient_tree(args.seed)
     check_gradient_tree(args.seed, dropout=True)
-    counts["train"] = run_training(args.seed, card)
-    counts["train-dropout"] = run_training(args.seed, card, dropout=True)
+    by_length = {}
+    counts["train"], by_length["train"] = run_training(args.seed, card)
+    counts["train-dropout"], by_length["train-dropout"] = run_training(
+        args.seed, card, dropout=True)
 
     pallas = "speechmix_tpu/ops/pallas/"
     # name: (source, TPU kernel file:line, mode whose run gives `launches`)
@@ -2281,6 +2333,14 @@ def main():
         "conv_ln_gelu": ("conv_ln_gelu.cu", "conv_extractor.py:88", "greedy"),
         "attention_bwd": ("attention_bwd.cu", "flash_attention_kernel.py:378",
                           "train"),
+        # K7 at the text encoder's and the decoder's lengths: the same
+        # launcher, its launches at that length under launches_at_length
+        "attention_bwd (text encoder)": ("attention_bwd.cu",
+                                         "flash_attention_kernel.py:378",
+                                         "train", "smx_attention_bwd"),
+        "attention_bwd (decoder, causal)": ("attention_bwd.cu",
+                                            "flash_attention_kernel.py:378",
+                                            "train", "smx_attention_bwd"),
         # K8 in bf16: the recompute pass holds the recompute of both TPU
         # kernels (_kernel_bwd_dx :549 and _kernel_bwd_dw :574), the
         # products their products; "ffn_bwd" is the two together, counted
@@ -2313,6 +2373,12 @@ def main():
         "attention_dropout_bwd": ("attention_bwd.cu",
                                   "flash_attention_kernel.py:815",
                                   "train-dropout"),
+        "attention_dropout_bwd (text encoder)": (
+            "attention_bwd.cu", "flash_attention_kernel.py:815",
+            "train-dropout", "smx_attention_dropout_bwd"),
+        "attention_dropout_bwd (decoder, causal)": (
+            "attention_bwd.cu", "flash_attention_kernel.py:815",
+            "train-dropout", "smx_attention_dropout_bwd"),
         # no TPU kernel: the TPU package runs this backward in XLA
         # (_ffn_bwd_hand with the regenerated mask); its products are
         # ffn_bwd_products
@@ -2341,6 +2407,12 @@ def main():
             **{k: v for k, v in rec.items()
                if k.startswith("library_ms_")},
         })
+        if "length" in rec:
+            at = by_length[mode].get((symbol, rec["length"]), 0)
+            if at < 1:
+                raise AssertionError(f"{name} was not launched at T="
+                                     f"{rec['length']} by the {mode} run")
+            line["kernels"][-1]["launches_at_length"] = at
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(line), flush=True)
     print(card, flush=True)

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks of the port's TMA + wgmma kernels: 2-D
-// tensor maps for the Tensor Memory Accelerator, mbarrier waits and
+// and 3-D tensor maps for the Tensor Memory Accelerator, mbarrier waits and
 // arrivals, TMA tile loads, shared-memory matrix descriptors, the
-// m64n128k16 bf16 warpgroup product with its fences, and the stage ring
-// (producer and consumer sides) that the kernels of ffn_bwd.cu and
-// ffn_fwd.cu share.
+// m64n128k16 and m64n64k16 bf16 warpgroup products (A in shared memory or,
+// for n64, in registers) with their fences, and the stage ring (producer
+// and consumer sides) that the kernels of ffn_bwd.cu, ffn_fwd.cu and
+// attention_bwd.cu share.
 //
 // Layout used throughout: every operand tile in shared memory is a stack of
 // 128-byte rows written by TMA with the 128-byte swizzle, its base 1024-byte
@@ -64,6 +65,26 @@ inline bool make_map(CUtensorMap* map, const void* base, uint64_t rows,
   const cuuint32_t box[2] = {box_cols, box_rows};
   const cuuint32_t elem_strides[2] = {1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+            dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A row-major (batches, rows, cols) bf16 tensor, loaded in boxes of
+// (box_rows, box_cols) of one batch, box_cols * 2 == 128 bytes, with the
+// 128-byte swizzle.  Rows past `rows` load as zeros within their own batch:
+// a box at the end of one batch never reads the next batch's rows.
+inline bool make_map3(CUtensorMap* map, const void* base, uint64_t batches,
+                      uint64_t rows, uint64_t cols, uint32_t box_rows,
+                      uint32_t box_cols) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {cols, rows, batches};
+  const cuuint64_t strides[2] = {cols * sizeof(__nv_bfloat16),
+                                 rows * cols * sizeof(__nv_bfloat16)};
+  const cuuint32_t box[3] = {box_cols, box_rows, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
             dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
@@ -134,6 +155,18 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// one box of a 3-D `map` at (column c0, row c1, batch c2) into dst
+__device__ __forceinline__ void tma_load3(void* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int c0, int c1,
+                                          int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // shared-memory matrix descriptor, 128-byte swizzle; lbo / sbo in bytes
 __device__ __forceinline__ uint64_t desc_sw128(const void* tile, uint32_t lbo,
                                                uint32_t sbo) {
@@ -156,9 +189,17 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // keeps the compiler from moving accumulator reads or writes across the
 // asynchronous products
-__device__ __forceinline__ void fence_regs(float (&d)[64]) {
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// the same for A fragments held in registers: fenced after the wait that
+// retires their product, they stay live (unclobbered) until then
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(a[i])::"memory");
 }
 
 // d (64 x 128, f32) += A (64 x 16) * B (16 x 128), bf16 operands in shared
@@ -194,6 +235,67 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// d (64 x 64, f32) = A (64 x 16) * B (16 x 64) + (accumulate ? d : 0), bf16
+// operands in shared memory, TA / TB as for m64n128k16.  The accumulator
+// layout is m64n128k16's with j < 8: thread t of the warpgroup holds rows
+// 16 (t / 32) + (t % 32) / 4 + 8 i and columns 8 j + 2 (t % 4) + c in
+// d[4 j + 2 i + c].
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, %32, %33, p, 1, 1, %35, %36;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+// The same with A in registers: a[0..3] hold bf16 pairs of the 64 x 16
+// slice in the accumulator layout of a 64 x 16 tile, a[0] (row r, columns
+// 2 (t % 4) + {0, 1}), a[1] (row r + 8, the same columns), a[2] and a[3]
+// those of columns + 8, r = 16 (t / 32) + (t % 32) / 4; the low half is the
+// lower column.  So the f32 accumulator of an earlier m64nN product,
+// elements 8 kk .. 8 kk + 7 rounded in pairs, is the A slice of columns
+// 16 kk .. 16 kk + 15.  The registers must not change until the product's
+// wait: fence them (fence_regs) after it.
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
+                                                   uint32_t a0, uint32_t a1,
+                                                   uint32_t a2, uint32_t a3,
+                                                   uint64_t db,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate),
+        "n"(TB));
 }
 
 // named barrier over the first `threads` threads of the block (id 1..15)

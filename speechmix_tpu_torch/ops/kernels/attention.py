@@ -53,9 +53,10 @@ DROPOUT_KERNEL = CudaKernel(
     "attention_fwd.cu", "smx_attention_dropout_fwd",
     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float] +
     [ctypes.c_int] + _DROP_ARGS + [ctypes.c_int] * 2)
+# K15 also takes a workspace for the mask's keep bits, after `delta`
 DROPOUT_BWD_KERNEL = CudaKernel(
     "attention_bwd.cu", "smx_attention_dropout_bwd",
-    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_float] +
+    [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_float] +
     [ctypes.c_int] + _DROP_ARGS + [ctypes.c_int] * 2)
 
 
@@ -195,6 +196,73 @@ def attention_bwd_plain(q, k, v, kv_mask, g, heads, scale, causal=False,
             dv.reshape(b, tk, hd).to(v.dtype))
 
 
+# the bf16 kernels' tile: 64 queries or keys per product (a block holds
+# two, one per consumer warpgroup, each summing its own)
+BWD_TILE = 64
+
+
+def attention_bwd_tiled_plain(q, k, v, kv_mask, out, lse, g, heads, scale,
+                              causal=False, dmask=None):
+    """K7 / K15's decomposition in plain PyTorch, tile for tile: delta =
+    rowsum(g * out) from the (rounded) forward output; p = exp(s * scale -
+    lse) from the forward's log-sum-exp, 0 where a logit is excluded and 1 /
+    Tk on every key of a row whose lse <= -1e29 (all excluded); then the dk /
+    dv pass (each 64-key tile sums round(p m)^T g and round(p (dp m -
+    delta))^T q over the 64-query tiles in order) and the dq pass (each
+    64-query tile sums round(ds) k over the 64-key tiles in order), f32
+    sums, round() to g's dtype.  The last tile of each axis is cut at T,
+    where the kernel's is padded with zero rows whose p is 0.  dmask:
+    (B, H, Tq, Tk) float32 dropout mask (K15), or None.  Nothing on the
+    card's path calls it: it pins the kernels' structure in the tests and
+    in chip_smoke.py."""
+    b, tq, hd = q.shape
+    tk = k.shape[1]
+    d = hd // heads
+    split = lambda x, t: x.float().reshape(b, t, heads, d).transpose(1, 2)
+    qf, kf, vf, gf = split(q, tq), split(k, tk), split(v, tk), split(g, tq)
+    delta = (gf * split(out, tq)).sum(-1)
+    lse = lse.float()
+    if kv_mask is None:
+        kv_mask = torch.ones((b, tk), dtype=torch.bool, device=q.device)
+    rnd = lambda x: x.to(g.dtype).float()
+
+    def tile(q0, k0):
+        """round(p m) and round(ds) of the (q0, k0) tile, (B, H, 64, 64)."""
+        qs = slice(q0, min(q0 + BWD_TILE, tq))
+        ks = slice(k0, min(k0 + BWD_TILE, tk))
+        qi = torch.arange(qs.start, qs.stop, device=q.device)[:, None]
+        kj = torch.arange(ks.start, ks.stop, device=q.device)[None, :]
+        allowed = kv_mask.bool()[:, None, None, ks]
+        if causal:
+            allowed = allowed & (kj <= qi)
+        lt = lse[:, :, qs, None]
+        s = qf[:, :, qs] @ kf[:, :, ks].transpose(-1, -2)
+        p = torch.where(allowed, torch.exp(s * scale - lt), 0.0)
+        p = torch.where(lt <= -1e29, 1.0 / tk, p)
+        dp = gf[:, :, qs] @ vf[:, :, ks].transpose(-1, -2)
+        m = 1.0 if dmask is None else dmask[:, :, qs, ks].float()
+        return rnd(p * m), rnd(p * (dp * m - delta[:, :, qs, None]))
+
+    dq, dk, dv = (torch.zeros_like(x) for x in (qf, kf, vf))
+    # dk / dv pass
+    for k0 in range(0, tk, BWD_TILE):
+        ks = slice(k0, min(k0 + BWD_TILE, tk))
+        for q0 in range(0, tq, BWD_TILE):
+            qs = slice(q0, min(q0 + BWD_TILE, tq))
+            pm, ds = tile(q0, k0)
+            dv[:, :, ks] += pm.transpose(-1, -2) @ gf[:, :, qs]
+            dk[:, :, ks] += ds.transpose(-1, -2) @ qf[:, :, qs]
+    # dq pass
+    for q0 in range(0, tq, BWD_TILE):
+        qs = slice(q0, min(q0 + BWD_TILE, tq))
+        for k0 in range(0, tk, BWD_TILE):
+            ks = slice(k0, min(k0 + BWD_TILE, tk))
+            dq[:, :, qs] += tile(q0, k0)[1] @ kf[:, :, ks]
+    join = lambda x, t, dtype: x.transpose(1, 2).reshape(b, t, hd).to(dtype)
+    return (join(dq * scale, tq, q.dtype), join(dk * scale, tk, k.dtype),
+            join(dv, tk, v.dtype))
+
+
 def attention_bwd(q, k, v, kv_mask, out, lse, g, heads, scale, causal=False):
     """K7: (dq, dk, dv) for d(out) = g; see attention_bwd_plain.  `out` and
     `lse` are what attention_fwd(..., return_lse=True) returned for the same
@@ -205,13 +273,13 @@ def attention_bwd(q, k, v, kv_mask, out, lse, g, heads, scale, causal=False):
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, kv_mask, g, heads, scale, causal)
     return _bwd_launch(BWD_KERNEL, "attention_bwd", q, k, v, kv_mask, out,
-                       lse, g, heads, scale, causal, ())
+                       lse, g, heads, scale, causal, (), ())
 
 
 def attention_dropout_bwd(q, k, v, kv_mask, out, lse, g, heads, scale,
                           causal, key: DropoutKey, rate):
     """K15: (dq, dk, dv) of attention_dropout_fwd for d(out) = g, the mask
-    of `key` regenerated per tile; `out` and `lse` are what
+    of `key` regenerated in the kernel; `out` and `lse` are what
     attention_dropout_fwd(..., return_lse=True) returned.  CUDA tensors as
     for attention_bwd."""
     if q.device.type == "cpu":
@@ -220,13 +288,20 @@ def attention_dropout_bwd(q, k, v, kv_mask, out, lse, g, heads, scale,
                                      q.device)
         return attention_bwd_plain(q, k, v, kv_mask, g, heads, scale, causal,
                                    dmask)
+    # bf16: the dk/dv pass hands the mask's keep bits to the dq pass, 16
+    # keys to a 16-bit word, (B*H, ceil(Tk / 64), Tq, 4) words
+    b, tq, _ = q.shape
+    keep = (torch.empty((b * heads, -(-k.shape[1] // BWD_TILE), tq, 4),
+                        dtype=torch.int16, device=q.device)
+            if q.dtype == torch.bfloat16 else None)
     return _bwd_launch(DROPOUT_BWD_KERNEL, "attention_dropout_bwd", q, k, v,
                        kv_mask, out, lse, g, heads, scale, causal,
-                       launch_args(key, rate))
+                       launch_args(key, rate),
+                       (None if keep is None else keep.data_ptr(),))
 
 
 def _bwd_launch(kernel, what, q, k, v, kv_mask, out, lse, g, heads, scale,
-                causal, drop_args):
+                causal, drop_args, workspace):
     b, tq, hd = q.shape
     tk = k.shape[1]
     kv_mask, code = _check_slabs(what, q, k, v, kv_mask, heads)
@@ -239,7 +314,7 @@ def _bwd_launch(kernel, what, q, k, v, kv_mask, out, lse, g, heads, scale,
     delta = torch.empty_like(lse)
     kernel.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   g.data_ptr(), kv_mask.data_ptr(), lse.data_ptr(),
-                  delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                  delta.data_ptr(), *workspace, dq.data_ptr(), dk.data_ptr(),
                   dv.data_ptr(), b, tq, tk, heads, HEAD_DIM, float(scale),
                   int(bool(causal)), *drop_args, code, q.device.index)
     return dq, dk, dv
