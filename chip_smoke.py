@@ -18,12 +18,17 @@ Phases, each printing as it goes; any failure exits non-zero:
      that is a multiple of 128 from 256 to 1536) against its plain PyTorch
      version on the card, in bf16 and f32, at the shapes the flagship path
      gives it (K2, K3, K8 and K9 at the train step's 12800, 6400 and 1024
-     rows; the bf16 K3, K8, K9, K12 and K13 twice, bit for bit, and K7 and
-     K15 twice at the train step's three attention lengths), and time
+     rows; the bf16 K2, K3, K8, K9, K11, K12 and K13 twice, bit for bit,
+     and K7 and K15 twice at the train step's three attention lengths; K2
+     and K11 in bf16 also against their tiled plain version, at every
+     kind of width the gate admits: 256 to 1536, 384, Din != H, 2304 as
+     the down pass and the rows), and time
      kernel, plain version and one PyTorch library call beside it, with the
      least time the card could take (bound_ms); K5 must be bit-exact;
-     the differentiable forms of K3 and K9 (bf16 activations, f32 weights)
-     must give the gradients of the same functions over the plain versions;
+     the differentiable forms of K2, K3 and K9 (bf16 activations, f32
+     weights) must give the gradients of the same functions over the plain
+     versions (K2's backward products: bf16 operands, f32 results, against
+     the upcast products);
      then the dropout kernels: K10 dropout_mask bit-exact against the plain
      generator at the step's mask shapes, K11 dense_dropout_res_ln, K12
      ffn_dropout_res_ln, K13 ffn_dropout and K8's dropout twins at the
@@ -48,8 +53,9 @@ Phases, each printing as it goes; any failure exits non-zero:
      loss must fall and every step must launch K1, K3, K7, K9 and K8's
      recompute and products 24 times each (K3 and K9: the up pass 48, the
      down pass, the down pass to z and the rows 24 each), K2 30 times and
-     K6 6 times, and print the device ms of K8, of the passes and of the
-     attention backward's three kernels; then
+     K6 6 times, and print the device ms of K8, of the passes, of the
+     attention backward's three kernels and of K2 / K11 with their backward
+     products; then
      8 more with dropout on at the presets' rates, SpecAugment and LayerDrop:
      with k speech layers skipped, K14, K15, K12, K13, K8's dropout
      recompute and its products 24 - k times (the dropout up pass 48 - 2k),
@@ -279,6 +285,9 @@ def check_kernels(gen, dev):
             ref = kf.dense_res_ln_plain(x, w, bias, res, g, beta)
             torch.cuda.synchronize()
             e = compare(f"N={n} Din=H={h} {dtype}", out, ref)
+            if dtype == torch.bfloat16:
+                expect_equal(f"K2 N={n} Din=H={h}", (out,),
+                             (kf.dense_res_ln(x, w, bias, res, g, beta),))
             if dtype == torch.bfloat16 and n == 4096:
                 err = e
                 args = (x, w, bias, res, g, beta)
@@ -322,10 +331,10 @@ def check_kernels(gen, dev):
                          (kf.ffn_res_ln(xr, w1, b1, w2, b2, rr, g, beta),),
                          (kf.ffn_res_ln(xr, w1, b1, w2, b2, rr, g, beta),))
     # other widths: bart-large (h 1024, f 4096) in both dtypes; h 256 and
-    # h 64 in float32; in bfloat16 K2 refuses widths outside BF16_HIDDEN,
-    # K3 those that are not multiples of 128.  Then widths of the bf16
-    # passes alone (what the TPU package's gate admits): h 512 under relu,
-    # h 1536 under gelu
+    # h 64 in float32; in bfloat16 K2 and K3 refuse widths that are not
+    # multiples of 128 and take the others (what the TPU package's gate
+    # admits): h 256, h 512 under relu, h 1536 under gelu (K2: the down pass
+    # to the f32 sum and the rows)
     for hh, ff, act, dtypes in ((1024, 4096, "gelu", (bf16, f32)),
                                 (256, 1024, "gelu", (bf16, f32)),
                                 (64, 128, "gelu", (bf16, f32)),
@@ -339,14 +348,13 @@ def check_kernels(gen, dev):
             bo, go, beo = (randn(hh, scale=0.1) for _ in range(3))
             b1o = randn(ff, scale=0.1)
             k3 = (xo, w1o, b1o, w2o, bo, ro, go + 1, beo, act)
-            if dtype == bf16 and hh not in kf.BF16_HIDDEN:
+            k2 = (xo, wo, bo, ro, go + 1, beo)
+            if dtype == bf16 and hh % kf.FWD_WIDTH:
                 expect_refusal(f"K2 N=1000 Din=H={hh} {dtype}",
-                               lambda: kf.dense_res_ln(xo, wo, bo, ro, go + 1,
-                                                       beo))
-            elif hh <= kf.MAX_HIDDEN:
+                               lambda: kf.dense_res_ln(*k2))
+            elif dtype == bf16 or hh <= kf.MAX_HIDDEN:
                 compare(f"K2 N=1000 Din=H={hh} {dtype}",
-                        kf.dense_res_ln(xo, wo, bo, ro, go + 1, beo),
-                        kf.dense_res_ln_plain(xo, wo, bo, ro, go + 1, beo))
+                        kf.dense_res_ln(*k2), kf.dense_res_ln_plain(*k2))
             if dtype == bf16 and hh % kf.FWD_WIDTH:
                 expect_refusal(f"K3 N=1000 H={hh} F={ff} {dtype}",
                                lambda: kf.ffn_res_ln(*k3))
@@ -356,6 +364,7 @@ def check_kernels(gen, dev):
             if dtype == bf16:
                 expect_equal(f"K3 N=1000 H={hh} F={ff} {act}",
                              (kf.ffn_res_ln(*k3),), (kf.ffn_res_ln(*k3),))
+    check_dense_widths(randn, dev)
     x, w1, b1, w2, b2, res, g, beta, _ = args
     n = 4096
     w1t, w2t = w1.t(), w2.t()
@@ -390,6 +399,49 @@ def check_kernels(gen, dev):
             f"{rec['plain_ms']:.4f} library_ms {lib}{extra} "
             f"bound_ms {rec['bound_ms']:.4f} ({rec['bound_by']})")
     return records
+
+
+def check_dense_widths(randn, dev):
+    """K2 and K11 in bf16 at every kind of width the gate admits: one to
+    eight blocks of 256 columns (h 256 .. 1024; h 1536 is six), a width 256
+    does not divide (h 384: three blocks of 128), Din != H both ways, above
+    the cluster (h 2304: the down pass to z and the rows), and rows off the
+    128-row tile, each against its plain version (K11 given the plain
+    generator's mask, which K10 draws bit for bit) and against the tiled
+    plain version, and twice, bit for bit."""
+    import torch
+    from speechmix_tpu_torch.ops.kernels import dropout as kd
+    from speechmix_tpu_torch.ops.kernels import ffn as kf
+
+    rate, bf16 = DROP_RATE, torch.bfloat16
+    key = kd.DropoutKey.from_seed(11)
+    atol, rtol = _dropout_tol(TOL["bfloat16"], rate)
+    rule = f"atol {atol:.4g}, rtol {rtol:.4g} (TOL / (1-r))"
+    log("K2 / K11 in bf16 across widths and row counts")
+    for n, din, hh in ((1000, 256, 256), (1000, 512, 512), (1000, 768, 768),
+                       (1000, 1024, 1024), (1000, 1536, 1536),
+                       (1000, 384, 384), (1000, 1024, 768),
+                       (1000, 768, 1024), (1000, 2304, 2304),
+                       (4001, 768, 768)):
+        x, res = randn(n, din, dtype=bf16), randn(n, hh, dtype=bf16)
+        w = randn(din, hh, scale=0.03, dtype=bf16)
+        b, g, beta = (randn(hh, scale=0.1) for _ in range(3))
+        k2 = (x, w, b, res, g + 1.0, beta)
+        omask = kd.dropout_mask_plain(key, kd.STREAM_OUT, n, hh, rate, dev)
+        what = f"N={n} Din={din} H={hh}"
+        out2 = kf.dense_res_ln(*k2)
+        compare(f"K2 {what}", out2, kf.dense_res_ln_plain(*k2))
+        compare(f"K2 {what} vs tiled", out2, kf.dense_res_ln_tiled_plain(*k2))
+        expect_equal(f"K2 {what}", (out2,), (kf.dense_res_ln(*k2),))
+        out11 = kf.dense_dropout_res_ln(*k2, key, rate)
+        ref = kf.dense_dropout_res_ln_plain(*k2, omask)
+        compare(f"K11 {what}", out11, ref, atol + rtol * ref.float().abs(),
+                rule)
+        ref = kf.dense_res_ln_tiled_plain(*k2, omask)
+        compare(f"K11 {what} vs tiled", out11, ref,
+                atol + rtol * ref.float().abs(), rule)
+        expect_equal(f"K11 {what}", (out11,),
+                     (kf.dense_dropout_res_ln(*k2, key, rate),))
 
 
 def decode_bf16_limit(q, k, v, mask, scales, ref):
@@ -939,6 +991,7 @@ def check_train_kernels(randn, dev, records):
     # bf16 12800 rows are 4 ranges of 3200, 6400 rows 2, 1024 rows one range
     # written without the workspace; f32 3200 rows 4 of 832 (the last one
     # short), 1600 rows 2 of 832, 1024 rows one.
+    dense_cases = {}
     for dtype, row_counts in ((bf16, (12800, 6400, 1024)),
                               (f32, (3200, 1600, 1024))):
         for n in row_counts:
@@ -957,15 +1010,22 @@ def check_train_kernels(randn, dev, records):
             if dtype == bf16:
                 expect_equal(f"K3 N={n} H={h} F={f} gelu",
                              (kf.ffn_res_ln(*k3),), (kf.ffn_res_ln(*k3),))
-            e2 = compare(f"K2 N={n} Din=H={h} {dtype}",
-                         kf.dense_res_ln(x, w, b2, res, gamma, beta),
-                         kf.dense_res_ln_plain(x, w, b2, res, gamma, beta))
+            k2 = (x, w, b2, res, gamma, beta)
+            out2 = kf.dense_res_ln(*k2)
+            e2 = compare(f"K2 N={n} Din=H={h} {dtype}", out2,
+                         kf.dense_res_ln_plain(*k2))
+            if dtype == bf16:
+                compare(f"K2 N={n} Din=H={h} vs tiled", out2,
+                        kf.dense_res_ln_tiled_plain(*k2))
+                expect_equal(f"K2 N={n} Din=H={h}", (out2,),
+                             (kf.dense_res_ln(*k2),))
+                dense_cases[n] = (k2, e2)
             if dtype == bf16 and n == 12800:
-                timed_ffn = (ops, errs, (res, w, gamma, beta), (e3, e2))
+                timed_ffn = (ops, errs, (res, gamma, beta), e3)
     # timing at the speech encoder's row count, which 12 of the step's 24
     # layers have
-    (x, g, w1, b1, w2, b2), (e9, edx, edw), (res, w, gamma, beta), (e3, e2) \
-        = timed_ffn
+    (x, g, w1, b1, w2, b2), (e9, edx, edw), (res, gamma, beta), e3 = \
+        timed_ffn
     n = x.shape[0]
     lx = x.detach().requires_grad_()
     lw1, lw2 = (w_.t().contiguous().requires_grad_() for w_ in (w1, w2))
@@ -1017,8 +1077,8 @@ def check_train_kernels(randn, dev, records):
         flops=10.0 * n * h * f,
         bytes=(3 * n * h + 2 * h * f) * 2 + f * 4 + (2 * h * f + f) * 4)
     del hid, da, colsum
-    # K3 and K2 at the same row count, beside their N = 4096 records
-    wt, w1t, w2t = w.t(), w1.t(), w2.t()
+    # K3 at the same row count, beside its N = 4096 record
+    w1t, w2t = w1.t(), w2.t()
     b1c, b2c, gc, betac = (t_.to(x.dtype) for t_ in (b1, b2, gamma, beta))
     records[f"ffn_res_ln (N={n})"] = dict(
         shape=f"N={n} H={h} F={f} gelu bf16 (K3)", max_abs_err=e3,
@@ -1075,15 +1135,29 @@ def check_train_kernels(randn, dev, records):
         library_ms=cuda_ms(lambda: F.layer_norm(z, (h,), gamma, beta, 1e-5)),
         flops=0.0, bytes=n * h * 4 + n * h * 2 + 2 * h * 4)
     del hid, z
-    records[f"dense_res_ln (N={n})"] = dict(
-        shape=f"N={n} Din=H={h} bf16 (K2)", max_abs_err=e2,
-        ms=cuda_ms(lambda: kf.dense_res_ln(x, w, b2, res, gamma, beta)),
-        plain_ms=cuda_ms(lambda: kf.dense_res_ln_plain(x, w, b2, res, gamma,
-                                                       beta)),
+    # K2 at the step's three row counts, with the launches at each
+    for n, (k2, e2) in dense_cases.items():
+        records[f"dense_res_ln (N={n})"] = dense_record(
+            F, kf.dense_res_ln, kf.dense_res_ln_plain, k2, e2, n, h,
+            "K2", lambda t_: t_)
+
+
+def dense_record(F, kernel, plain, k2, err, n, h, what, drop, *extra):
+    """The record of K2 (K11 with `extra` = key, rate and the plain
+    version's mask) at n rows: kernel, plain version and the library's
+    layer_norm(res + drop(linear)), with the row count whose launches the
+    step tallies."""
+    x, w, b, res, g, beta = k2
+    wt, bc, gc, betac = w.t(), b.to(x.dtype), g.to(x.dtype), beta.to(x.dtype)
+    key_rate, plain_extra = extra[:2], extra[2:]
+    return dict(
+        shape=f"N={n} Din=H={h} bf16 ({what})", max_abs_err=err,
+        ms=cuda_ms(lambda: kernel(*k2, *key_rate)),
+        plain_ms=cuda_ms(lambda: plain(*k2, *plain_extra)),
         library_ms=cuda_ms(lambda: F.layer_norm(
-            res + F.linear(x, wt, b2c), (h,), gc, betac, 1e-5)),
+            res + drop(F.linear(x, wt, bc)), (h,), gc, betac, 1e-5)),
         flops=2.0 * n * h * h,
-        bytes=(2 * n * h + h * h + n * h) * 2 + 3 * h * 4)
+        bytes=(2 * n * h + h * h + n * h) * 2 + 3 * h * 4, rows=n)
 
 
 def check_trainable_functions(randn, dev):
@@ -1102,8 +1176,10 @@ def check_trainable_functions(randn, dev):
 
     h, f, bf16 = 768, 3072, torch.bfloat16
     log("ffn_res_ln_trainable, ffn_fused_trainable and their dropout twins "
-        "(and dense_dropout_res_ln_trainable), bf16 activations, f32 "
-        "weights: kernels vs plain versions")
+        "(and dense_res_ln_trainable, dense_dropout_res_ln_trainable: their "
+        "backward products bf16 operands, f32 results on the card; the "
+        "plain side upcast products), bf16 activations, f32 weights: "
+        "kernels vs plain versions")
     names = ("x", "w1", "b1", "w2", "b2", "res", "gamma", "beta")
     dense_names = ("x", "w", "b", "res", "gamma", "beta")
     key, rate = DropoutKey.from_seed(5), DROP_RATE
@@ -1133,6 +1209,8 @@ def check_trainable_functions(randn, dev):
                  ("ffn_dropout_trainable",
                   lambda *a: kf.ffn_dropout_trainable(*a, key, rate),
                   operands[:5], names, True),
+                 ("dense_res_ln_trainable", kf.dense_res_ln_trainable,
+                  dense_ops, dense_names, False),
                  ("dense_dropout_res_ln_trainable",
                   lambda *a: kf.dense_dropout_res_ln_trainable(*a, key, rate),
                   dense_ops, dense_names, True))
@@ -1143,12 +1221,13 @@ def check_trainable_functions(randn, dev):
         # K3 forward: the up pass, the down pass to z, the rows; its
         # backward K9 (up, down) and K8; K9: the same up and down, K8.
         # K12's backward: K13 (the dropout up pass, the down pass), K10
-        # (output mask), K8's dropout recompute and its products; K11's: K10
+        # (output mask), K8's dropout recompute and its products; K11's: K10;
+        # K2's and K11's backward products: no kernel of the port
         want = {"smx_ffn_up": 3, "smx_ffn_down": 4, "smx_ffn_down_res": 1,
                 "smx_res_ln_rows": 2,
                 "smx_ffn_bwd_recompute": 2, "smx_ffn_bwd_products": 4,
                 "smx_ffn_dropout_up": 3, "smx_ffn_dropout_down_res": 1,
-                "smx_ffn_dropout_bwd_recompute": 2,
+                "smx_ffn_dropout_bwd_recompute": 2, "smx_dense_res_ln": 1,
                 "smx_dense_dropout_res_ln": 1, "smx_dropout_mask": 2}
         if counts != want:
             raise AssertionError(f"trainable functions, N={n}: launches "
@@ -1242,6 +1321,7 @@ def check_dropout_kernels(randn, dev, records):
         "K8 with the activation mask")
     h, f = 768, 3072
     timed = None
+    dense_cases = {}
     for dtype in (bf16, f32):
         name = str(dtype).replace("torch.", "")
         atol, rtol = _dropout_tol(TOL[name], rate)
@@ -1263,10 +1343,16 @@ def check_dropout_kernels(randn, dev, records):
             amask = kd.dropout_mask_plain(key, kd.STREAM_ACT, n, f, rate, dev)
             omask = kd.dropout_mask_plain(key, kd.STREAM_OUT, n, h, rate, dev)
             what = f"N={n} H={h} F={f} {name}"
-            ref = kf.dense_dropout_res_ln_plain(x, w, b2, res, gamma, beta,
-                                                omask)
-            e11 = compare(f"K11 {what}", kf.dense_dropout_res_ln(
-                x, w, b2, res, gamma, beta, key, rate), ref, lim(ref), rule)
+            k11 = (x, w, b2, res, gamma, beta)
+            out11 = kf.dense_dropout_res_ln(*k11, key, rate)
+            ref = kf.dense_dropout_res_ln_plain(*k11, omask)
+            e11 = compare(f"K11 {what}", out11, ref, lim(ref), rule)
+            if dtype == bf16:
+                ref = kf.dense_res_ln_tiled_plain(*k11, omask)
+                compare(f"K11 {what} vs tiled", out11, ref, lim(ref), rule)
+                expect_equal(f"K11 {what}", (out11,),
+                             (kf.dense_dropout_res_ln(*k11, key, rate),))
+                dense_cases[n] = (k11, e11)
             ref = kf.ffn_dropout_res_ln_plain(x, w1, b1, w2, b2, res, gamma,
                                               beta, amask, omask)
             e12 = compare(f"K12 {what}", kf.ffn_dropout_res_ln(
@@ -1322,7 +1408,7 @@ def check_dropout_kernels(randn, dev, records):
             del amask, omask, got, refs
     x, g, res, w, w1, b1, w2, b2, gamma, beta, errs = timed
     n = x.shape[0]
-    wt, w1t, w2t = w.t(), w1.t(), w2.t()
+    w1t, w2t = w1.t(), w2.t()
     b1c, b2c, gc, betac = (t_.to(x.dtype) for t_ in (b1, b2, gamma, beta))
     drop = lambda t_: F.dropout(t_, rate)
     lib_ffn = lambda: F.linear(drop(F.gelu(F.linear(x, w1t, b1c))), w2t, b2c)
@@ -1332,17 +1418,15 @@ def check_dropout_kernels(randn, dev, records):
     lib_y = F.linear(drop(F.gelu(F.linear(lx, lw1, lb1))), lw2, lb2)
     shape = f"N={n} H={h} F={f} gelu bf16, rate {rate}"
     ffn_flops = 4.0 * n * h * f
-    records["dense_dropout_res_ln"] = dict(
-        shape=f"N={n} Din=H={h} bf16, rate {rate}", max_abs_err=errs[0],
-        ms=cuda_ms(lambda: kf.dense_dropout_res_ln(x, w, b2, res, gamma, beta,
-                                                   key, rate)),
-        plain_ms=cuda_ms(lambda: kf.dense_dropout_res_ln_plain(
-            x, w, b2, res, gamma, beta, kd.dropout_mask_plain(
-                key, kd.STREAM_OUT, n, h, rate, dev))),
-        library_ms=cuda_ms(lambda: F.layer_norm(
-            res + drop(F.linear(x, wt, b2c)), (h,), gc, betac, 1e-5)),
-        flops=2.0 * n * h * h,
-        bytes=(2 * n * h + h * h + n * h) * 2 + 3 * h * 4)
+    # K11 at the step's three row counts (N = 12800 under its old name)
+    for n_, (k11, e11) in dense_cases.items():
+        omask = kd.dropout_mask_plain(key, kd.STREAM_OUT, n_, h, rate, dev)
+        name = ("dense_dropout_res_ln" if n_ == 12800
+                else f"dense_dropout_res_ln (N={n_})")
+        records[name] = dense_record(
+            F, kf.dense_dropout_res_ln, kf.dense_dropout_res_ln_plain, k11,
+            e11, n_, h, f"K11, rate {rate}", drop, key, rate, omask)
+    del dense_cases, omask
     records["ffn_dropout_res_ln"] = dict(
         shape=shape, max_abs_err=errs[1],
         ms=cuda_ms(lambda: kf.ffn_dropout_res_ln(
@@ -1571,6 +1655,8 @@ class plain_kernels:
                  (kf, "dense_res_ln", kf.dense_res_ln_plain),
                  (kf, "ffn_fused", kf.ffn_fused_plain),
                  (kf, "ffn_bwd", kf.ffn_bwd_plain),
+                 # the dense backward's products of the upcast operands
+                 (kf, "_mm_f32", lambda a, b: a.float() @ b.float()),
                  (attn_mod, "decode_attention", kd.decode_attention_plain),
                  (seq2seq, "decode_attention", kd.decode_attention_plain),
                  (generation, "beam_gather", kg.beam_gather_plain),
@@ -2158,12 +2244,16 @@ def run_training(seed, card, dropout=False):
         f"batch, {recipe}")
     torch.cuda.reset_peak_memory_stats()
     losses, times = [], []
-    # K7 / K15 launches by query length, counted around their wrappers'
-    # launches, for the kernels line's per-length records
+    # K7 / K15 launches by query length and K2 / K11 launches by row count,
+    # counted around their wrappers' launches, for the kernels line's
+    # per-length and per-row-count records
     from speechmix_tpu_torch.ops.kernels import attention as ka
+    from speechmix_tpu_torch.ops.kernels import ffn as kf
     by_length = collections.Counter()
-    for kern in (ka.BWD_KERNEL, ka.DROPOUT_BWD_KERNEL):
-        kern.launch = _tally_by_length(kern, by_length)
+    tallied = ((ka.BWD_KERNEL, 1), (ka.DROPOUT_BWD_KERNEL, 1),
+               (kf.DENSE_RES_LN, 0), (kf.DENSE_DROPOUT_RES_LN, 0))
+    for kern, offset in tallied:
+        kern.launch = _tally_by_length(kern, by_length, offset)
     for i in range(TRAIN_STEPS):
         skipped = []
         want = expected_train_launches(cfg.num_speech_encoder_layers,
@@ -2200,11 +2290,11 @@ def run_training(seed, card, dropout=False):
         losses.append(loss)
         if i >= 2:
             times.append(dt)
-    for kern in (ka.BWD_KERNEL, ka.DROPOUT_BWD_KERNEL):
+    for kern, _ in tallied:
         del kern.launch   # the class's own again
     log(f"  launches per step: {counts}")
-    log(f"  K7 / K15 launches per step by query length: "
-        f"{ {f'{k[0]} T={k[1]}': n for k, n in sorted(by_length.items())} }")
+    log(f"  K7 / K15 launches per step by query length, K2 / K11 by rows: "
+        f"{ {f'{k[0]} {k[1]}': n for k, n in sorted(by_length.items())} }")
     if not losses[-1] < losses[1]:
         raise AssertionError(f"{what}: the loss did not fall: {losses}")
     med = sorted(times)[len(times) // 2]
@@ -2235,19 +2325,57 @@ def run_training(seed, card, dropout=False):
             ", ".join(f"{KERNEL_NAME.search(e.key).group(0)} "
                       f"{e.self_device_time_total / 1e3:.2f} ms {e.count}x"
                       for e in hit))
+    bwd_ms, products = dense_bwd_product_ms(step_fn, state, batch)
+    hit = [e for e in events if DENSE_KERNEL in e.key]
+    log(f"  dense epilogue (K2 / K11) and its backward products in the "
+        f"profiled {what}: forward "
+        f"{sum(e.self_device_time_total for e in hit) / 1e3:.2f} ms: " +
+        ", ".join(f"{KERNEL_NAME.search(e.key).group(0)} "
+                  f"{e.self_device_time_total / 1e3:.2f} ms {e.count}x"
+                  for e in hit) +
+        f"; backward products (x w and x^T g, bf16 operands, f32 results) "
+        f"{bwd_ms:.2f} ms in {products} products (one more step, profiled "
+        f"with ranges around them)")
     return counts, dict(by_length)
 
 
-def _tally_by_length(kernel, counter):
+def dense_bwd_product_ms(step_fn, state, batch):
+    """Device ms and count of the dense epilogues' backward products
+    (ffn._mm_f32) in one more train step, profiled with a CPU range around
+    each product; the range's device time is its kernels'."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from speechmix_tpu_torch.ops.kernels import ffn as kf
+    mm = kf._mm_f32
+
+    def ranged(a, b):
+        with record_function("dense_bwd_product"):
+            return mm(a, b)
+    kf._mm_f32 = ranged
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step_fn(state, batch)
+            torch.cuda.synchronize()
+    finally:
+        kf._mm_f32 = mm
+    hits = [e for e in prof.events() if e.name == "dense_bwd_product"
+            and e.device_type == DeviceType.CPU]
+    return sum(e.device_time_total for e in hits) / 1e3, len(hits)
+
+
+def _tally_by_length(kernel, counter, offset):
     """kernel.launch that also counts each accepted launch under (symbol,
-    query length); the query length follows the batch, after the pointers."""
+    the integer argument `offset` places after the pointers): K7 / K15's
+    query length (1, after the batch), K2 / K11's row count (0)."""
     launch = kernel.launch
-    tq_arg = next(i for i, t in enumerate(kernel.argtypes)
-                  if t is not ctypes.c_void_p) + 1
+    arg = next(i for i, t in enumerate(kernel.argtypes)
+               if t is not ctypes.c_void_p) + offset
 
     def counted(*args):
         launch(*args)
-        counter[(kernel.symbol, args[tq_arg])] += 1
+        counter[(kernel.symbol, args[arg])] += 1
     return counted
 
 
@@ -2259,6 +2387,8 @@ FWD_KERNELS = ("ffn_pass_kernel", "res_ln_rows_kernel")
 # K7 / K15 in bf16: the delta pass, the dk/dv pass and the dq pass of
 # attention_bwd.cu
 ATTN_BWD_KERNELS = ("attention_bwd_delta_kernel", "dkdv_kernel", "dq_kernel")
+# K2 / K11 in bf16 (dense_res_ln.cu)
+DENSE_KERNEL = "dense_ln_kernel"
 KERNEL_NAME = re.compile(r"\w+_kernel(<[^>]*>)?")
 
 
@@ -2318,12 +2448,20 @@ def main():
     # name: (source, TPU kernel file:line, mode whose run gives `launches`)
     replaces = {
         "attention_fwd": ("attention_fwd.cu",
-                          "flash_attention_kernel.py:968", "greedy"),
-        "dense_res_ln": ("dense_res_ln.cu", "ffn_kernel.py:362", "greedy"),
+                          "flash_attention_kernel.py:985", "greedy"),
+        "dense_res_ln": ("dense_res_ln.cu", "ffn_kernel.py:381", "greedy"),
+        # K2 and K11 at the train step's row counts: the same launcher, its
+        # launches at that row count under launches_at_rows
+        "dense_res_ln (N=12800)": ("dense_res_ln.cu", "ffn_kernel.py:381",
+                                   "train", "smx_dense_res_ln"),
+        "dense_res_ln (N=6400)": ("dense_res_ln.cu", "ffn_kernel.py:381",
+                                  "train", "smx_dense_res_ln"),
+        "dense_res_ln (N=1024)": ("dense_res_ln.cu", "ffn_kernel.py:381",
+                                  "train", "smx_dense_res_ln"),
         # K3, K9, K12 and K13 in bf16: passes of ffn_fwd.cu, each function
         # counted by the pass only it runs in that mode's run (K3: the down
         # pass to z; K9 and K13: the down pass to the output)
-        "ffn_res_ln": ("ffn_fwd.cu", "ffn_kernel.py:180", "greedy",
+        "ffn_res_ln": ("ffn_fwd.cu", "ffn_kernel.py:203", "greedy",
                        "smx_ffn_down_res"),
         "decode_attention": ("decode_attention.cu", "decode_attention.py:31",
                              "greedy"),
@@ -2359,6 +2497,12 @@ def main():
                          "train-dropout"),
         "dense_dropout_res_ln": ("dense_res_ln.cu", "ffn_kernel.py:1097",
                                  "train-dropout"),
+        "dense_dropout_res_ln (N=6400)": (
+            "dense_res_ln.cu", "ffn_kernel.py:1097", "train-dropout",
+            "smx_dense_dropout_res_ln"),
+        "dense_dropout_res_ln (N=1024)": (
+            "dense_res_ln.cu", "ffn_kernel.py:1097", "train-dropout",
+            "smx_dense_dropout_res_ln"),
         "ffn_dropout_res_ln": ("ffn_fwd.cu", "ffn_kernel.py:1016",
                                "train-dropout", "smx_ffn_dropout_down_res"),
         "ffn_dropout": ("ffn_fwd.cu", "ffn_kernel.py:945", "train-dropout",
@@ -2407,12 +2551,14 @@ def main():
             **{k: v for k, v in rec.items()
                if k.startswith("library_ms_")},
         })
-        if "length" in rec:
-            at = by_length[mode].get((symbol, rec["length"]), 0)
-            if at < 1:
-                raise AssertionError(f"{name} was not launched at T="
-                                     f"{rec['length']} by the {mode} run")
-            line["kernels"][-1]["launches_at_length"] = at
+        for at_key in ("length", "rows"):
+            if at_key in rec:
+                at = by_length[mode].get((symbol, rec[at_key]), 0)
+                if at < 1:
+                    raise AssertionError(f"{name} was not launched at "
+                                         f"{at_key} {rec[at_key]} by the "
+                                         f"{mode} run")
+                line["kernels"][-1][f"launches_at_{at_key}"] = at
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(line), flush=True)
     print(card, flush=True)

@@ -162,48 +162,4 @@ __device__ __forceinline__ void res_ln_epilogue(
   }
 }
 
-// The same epilogue for rows staged in shared memory (the tensor-core
-// kernels store their accumulator fragments there): out[row, c] =
-// LayerNorm(ys[r, c] + bias[c] + res[row, c]) * g[c] + beta[c] for the
-// `rows` rows from r0 (< n).  One warp per row, two passes over the row.
-// BIAS false leaves bias unread (staged_bias_dropout added it already).
-template <typename T, bool BIAS = true>
-__device__ __forceinline__ void staged_res_ln(
-    const float* ys, int ldy, int rows, const float* __restrict__ bias,
-    const T* __restrict__ res, const float* __restrict__ g,
-    const float* __restrict__ beta, T* __restrict__ out, int n, int h, int r0,
-    float eps) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const float inv_h = 1.0f / (float)h;
-  for (int r = warp; r < rows; r += nwarps) {
-    const int row = r0 + r;
-    if (row >= n) continue;
-    const float* y = ys + r * ldy;
-    const T* rr = res + (long long)row * h;
-    // y + bias + res, or y + res when the bias is already in y
-    auto sum = [&](int c) {
-      if constexpr (BIAS) {
-        return y[c] + bias[c] + to_f32(rr[c]);
-      } else {
-        return y[c] + to_f32(rr[c]);
-      }
-    };
-    float s = 0.0f;
-    for (int c = lane; c < h; c += 32) s += sum(c);
-    const float mean = warp_sum(s) * inv_h;
-    float v = 0.0f;
-    for (int c = lane; c < h; c += 32) {
-      const float d = sum(c) - mean;
-      v += d * d;
-    }
-    const float inv = rsqrtf(warp_sum(v) * inv_h + eps);
-    T* o = out + (long long)row * h;
-    for (int c = lane; c < h; c += 32) {
-      const float d = sum(c) - mean;
-      o[c] = from_f32<T>(d * inv * g[c] + beta[c]);
-    }
-  }
-}
-
 }  // namespace smx

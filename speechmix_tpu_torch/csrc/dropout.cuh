@@ -98,24 +98,4 @@ inline Dropout make_dropout(uint32_t k0, uint32_t k1, uint32_t stream,
   return d;
 }
 
-// ys[r, c] = (ys[r, c] + bias[c]) * mask(r0 + r, c) for the `rows` rows of
-// an f32 tile staged in shared memory (row stride ldy, h columns, h % 4 == 0),
-// one Philox call per four columns; rows at or past n are left alone.  K11's
-// tensor-core kernel (dense_res_ln.cu) runs it before the residual +
-// LayerNorm epilogue, which then adds no bias (staged_res_ln<T, false>).
-__device__ __forceinline__ void staged_bias_dropout(float* ys, int ldy, int rows,
-                                                    const float* __restrict__ bias,
-                                                    const Dropout& d, int n,
-                                                    int h, int r0) {
-  const int groups = h / 4;
-  for (int i = threadIdx.x; i < rows * groups; i += blockDim.x) {
-    const int r = i / groups, c = (i % groups) * 4;
-    if (r0 + r >= n) continue;
-    const uint4 b = d.bits4(r0 + r, c / 4);
-    float* y = ys + r * ldy + c;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) y[j] = (y[j] + bias[c + j]) * d.keep(word(b, j));
-  }
-}
-
 }  // namespace smx

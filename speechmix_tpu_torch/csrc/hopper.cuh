@@ -1,10 +1,11 @@
 // Hopper (sm_90a) building blocks of the port's TMA + wgmma kernels: 2-D
 // and 3-D tensor maps for the Tensor Memory Accelerator, mbarrier waits and
 // arrivals, TMA tile loads, shared-memory matrix descriptors, the
-// m64n128k16 and m64n64k16 bf16 warpgroup products (A in shared memory or,
-// for n64, in registers) with their fences, and the stage ring (producer
-// and consumer sides) that the kernels of ffn_bwd.cu, ffn_fwd.cu and
-// attention_bwd.cu share.
+// m64n256k16, m64n128k16 and m64n64k16 bf16 warpgroup products (A in shared
+// memory or, for n64, in registers) with their fences, TMA tile stores, the
+// thread-block cluster's barrier and stores to another block's shared
+// memory, and the stage ring (producer and consumer sides) that the kernels
+// of ffn_bwd.cu, ffn_fwd.cu, attention_bwd.cu and dense_res_ln.cu share.
 //
 // Layout used throughout: every operand tile in shared memory is a stack of
 // 128-byte rows written by TMA with the 128-byte swizzle, its base 1024-byte
@@ -237,6 +238,58 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
+// d (64 x 256, f32) += A (64 x 16) * B (16 x 256), bf16 operands in shared
+// memory, TA / TB as for m64n128k16; the accumulator layout is
+// m64n128k16's with j < 32.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+      "%127}, %128, %129, p, 1, 1, %131, %132;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
+        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]),
+        "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]),
+        "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]),
+        "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]),
+        "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]),
+        "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]),
+        "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]),
+        "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
 // d (64 x 64, f32) = A (64 x 16) * B (16 x 64) + (accumulate ? d : 0), bf16
 // operands in shared memory, TA / TB as for m64n128k16.  The accumulator
 // layout is m64n128k16's with j < 8: thread t of the warpgroup holds rows
@@ -301,6 +354,56 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
 // named barrier over the first `threads` threads of the block (id 1..15)
 __device__ __forceinline__ void bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// one box of `map` at (column c0, row c1) from src in shared memory to
+// global memory (rows and columns past the matrix are not written), in the
+// thread's bulk group; src's writes by other threads must be fenced
+// (fence_async_smem) and synchronised before
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          const void* src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, "
+      "%3}], [%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+// close the thread's bulk group, then wait until its stores have read
+// their shared memory
+__device__ __forceinline__ void tma_store_wait() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+// make this thread's shared-memory writes visible to the TMA
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// ------------------------------------------------- thread-block clusters
+// barrier over every thread of every block of the cluster: arrive (making
+// this thread's earlier writes, to its own and to other blocks' shared
+// memory, visible to the cluster), wait (seeing the other blocks' writes).
+// Whole warps call both.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+
+// v to the same shared-memory offset as `p` in block `rank` of the cluster
+__device__ __forceinline__ void st_cluster(const void* p, uint32_t rank,
+                                           float v) {
+  uint32_t addr;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(addr)
+               : "r"(smem_addr(p)), "r"(rank));
+  asm volatile("st.shared::cluster.f32 [%0], %1;" ::"r"(addr), "f"(v)
+               : "memory");
 }
 
 template <int N>

@@ -7,7 +7,11 @@ K8 with the activation mask.
 ``speechmix_tpu/ops/pallas/ffn_kernel.py: dense_res_ln``;
 ``ffn_res_ln`` (K3) replaces ``ffn_fused_res_ln`` of that file,
 ``ffn_fused`` (K9) ``ffn_fused``, and ``ffn_bwd`` (K8, ``csrc/ffn_bwd.cu``)
-``ffn_fused_bwd``.  K3 and K9 in bfloat16 are passes of
+``ffn_fused_bwd``.  K2 in bfloat16 is one TMA + wgmma kernel whose
+thread-block cluster of blocks 256 (or 128) columns wide reduces each
+LayerNorm row across its blocks' shared memory (where the cluster would
+pass 8 blocks, the down pass to the f32 sum and the row pass below).  K3
+and K9 in bfloat16 are passes of
 ``csrc/ffn_fwd.cu``, each a TMA + wgmma kernel or a row pass: ``ffn_up``
 forms h = round(act(x @ w1 + b1)) (N, F) once, ``ffn_down`` takes h @ w2 +
 b2 to the output (K9) or, with the residual, to an f32 sum z (K3), and
@@ -24,7 +28,8 @@ function with the kernel's f32 arithmetic, for CPU tensors.
 ``ffn_fused_trainable`` are the differentiable forms, counterparts of the TPU
 package's functions of those names: K3's backward recomputes the
 pre-LayerNorm sum through K9 and runs K8; K2's is plain matrix products, as
-the TPU package has no kernel there; K9's is K8.  They take the weights as
+the TPU package has no kernel there (bfloat16 operands with f32 results on
+the card, as its ``_dense_bwd_hand``); K9's is K8.  They take the weights as
 stored (float32 master weights under bfloat16 compute) and cast inside, so a
 weight gradient reaches its parameter in float32, unrounded.
 
@@ -63,12 +68,26 @@ from .dropout import (STREAM_ACT, STREAM_OUT, DropoutKey, dropout_mask,
 
 ACT_CODES = {"gelu": 0, "gelu_new": 1, "relu": 2, "silu": 3}
 MAX_HIDDEN = 1024  # the f32 kernels hold all h columns of a row tile
-# widths K2 / K11 and K8 take in bfloat16: the flagship's (wav2vec2-base,
-# bart-base) and bart-large's
+# widths K8 takes in bfloat16: the flagship's (wav2vec2-base, bart-base)
+# and bart-large's
 BF16_HIDDEN = (768, 1024)
-# the bfloat16 forward passes of K3 / K9 / K12 / K13 take H and F that are
-# multiples of this (their TMA + wgmma tiles), as the TPU package's gate does
+# the bfloat16 forward passes of K3 / K9 / K12 / K13 and K2 / K11 take
+# widths that are multiples of this (their TMA + wgmma tiles), as the TPU
+# package's gate does
 FWD_WIDTH = 128
+# K2 / K11 in bfloat16: a cluster of blocks 256 columns wide (128 where 256
+# does not divide H) reduces each LayerNorm row, at most 8 blocks (the
+# portable cluster size); wider rows take the down pass to the f32 sum and
+# the LayerNorm rows of ffn_fwd.cu
+DENSE_MAX_CLUSTER = 8
+
+
+def dense_fused(h):
+    """Whether K2 / K11 in bfloat16 run as the one cluster kernel at width
+    h (a multiple of FWD_WIDTH)."""
+    block = 2 * FWD_WIDTH if h % (2 * FWD_WIDTH) == 0 else FWD_WIDTH
+    return h <= DENSE_MAX_CLUSTER * block
+
 
 DENSE_RES_LN = CudaKernel(
     "dense_res_ln.cu", "smx_dense_res_ln",
@@ -196,6 +215,29 @@ def dense_dropout_res_ln_plain(x, w, b, res, g, beta, omask, eps=1e-5):
     return _res_ln_f32(y, res, g, beta, eps).to(x.dtype)
 
 
+def dense_res_ln_tiled_plain(x, w, b, res, g, beta, omask=None, eps=1e-5):
+    """dense_dropout_res_ln_plain as the bfloat16 kernel reduces its rows:
+    z = (x @ w + b) * omask + res in f32, cut into column slices of
+    FWD_WIDTH (a block of the cluster holds one or two); the slices' row
+    sums, added in slice order and times 1 / H, give the mean, then the
+    sums of the squared centred values, likewise, the variance."""
+    z = x.float() @ w.float() + b.float()
+    if omask is not None:
+        z = z * omask
+    z = z + res.float()
+    inv_h = 1.0 / z.shape[1]
+
+    def row_sum(t):
+        total = torch.zeros(t.shape[0], dtype=torch.float32, device=t.device)
+        for part in t.split(FWD_WIDTH, dim=1):
+            total = total + part.sum(1)
+        return total[:, None]
+
+    d = z - row_sum(z) * inv_h
+    inv = torch.rsqrt(row_sum(d * d) * inv_h + eps)
+    return (d * inv * g.float() + beta.float()).to(x.dtype)
+
+
 def _hidden(x, w1, b1, act, amask):
     """round(act(x @ w1 + b1) * amask) in f32, round() to x's dtype."""
     h = act_f32(act, x.float() @ w1.float() + b1.float())
@@ -229,14 +271,17 @@ def _check_vec(name, t, size, device):
 
 def dense_res_ln(x, w, b, res, g, beta, eps=1e-5):
     """K2; see dense_res_ln_plain.  CUDA tensors need x, w, res in one
-    dtype (float32 or bfloat16), b, g, beta float32, H <= 1024; bfloat16
-    needs H in BF16_HIDDEN, Din a multiple of 16 up to 1024, and x, w
-    32-byte aligned."""
+    dtype (float32 or bfloat16), b, g, beta float32; float32 needs H <=
+    1024; bfloat16 Din and H multiples of FWD_WIDTH and x, w, res, g, beta
+    16-byte aligned, and runs one kernel where dense_fused(H), else the
+    down pass to the f32 sum and the LayerNorm rows."""
     if x.device.type == "cpu":
         return dense_res_ln_plain(x, w, b, res, g, beta, eps)
     n, din = x.shape
     h = w.shape[1]
     code = _check_dense("dense_res_ln", x, w, b, res, g, beta)
+    if x.dtype == torch.bfloat16 and not dense_fused(h):
+        return res_ln_rows(ffn_down(x, w, b, res), g, beta, eps)
     out = torch.empty_like(res)
     DENSE_RES_LN.launch(x.data_ptr(), w.data_ptr(), b.data_ptr(),
                         res.data_ptr(), g.data_ptr(), beta.data_ptr(),
@@ -249,22 +294,22 @@ def _check_dense(what, x, w, b, res, g, beta):
     """Shared checks of the K2 / K11 wrappers; returns the dtype code."""
     n, din = x.shape
     h = w.shape[1]
-    if h > MAX_HIDDEN:
+    bf16 = x.dtype == torch.bfloat16
+    if not bf16 and h > MAX_HIDDEN:
         raise ValueError(f"{what} supports H <= {MAX_HIDDEN}, got {h}")
-    if x.dtype == torch.bfloat16 and (h not in BF16_HIDDEN or din % 16
-                                      or din > MAX_HIDDEN):
-        raise ValueError(f"{what} in bfloat16 supports H in "
-                         f"{BF16_HIDDEN} and Din a multiple of 16 up to "
-                         f"{MAX_HIDDEN}, got Din={din}, H={h}")
+    if bf16 and (h % FWD_WIDTH or din % FWD_WIDTH):
+        raise ValueError(f"{what} in bfloat16 supports H and Din multiples "
+                         f"of {FWD_WIDTH}, got Din={din}, H={h}")
     check_cuda_tensor("x", x)
     code = dtype_code(x.dtype)
     check_cuda_tensor("w", w, x.dtype, (din, h), x.device)
     check_cuda_tensor("res", res, x.dtype, (n, h), x.device)
     for name, t in (("b", b), ("g", g), ("beta", beta)):
         _check_vec(name, t, h, x.device)
-    if x.dtype == torch.bfloat16:
-        check_aligned("x", x, 32)
-        check_aligned("w", w, 32)
+    if bf16:
+        for name, t in (("x", x), ("w", w), ("res", res), ("g", g),
+                        ("beta", beta)):
+            check_aligned(name, t, 16)
     return code
 
 
@@ -743,7 +788,8 @@ def dense_dropout_res_ln(x, w, b, res, g, beta, key: DropoutKey, rate,
                          eps=1e-5):
     """K11: LayerNorm(res + drop(x @ w + b)) * g + beta, the output mask of
     (key, STREAM_OUT) at rate `rate`; see dense_dropout_res_ln_plain.  CUDA
-    tensors as for dense_res_ln."""
+    tensors as for dense_res_ln (bfloat16 without dense_fused(H): the down
+    pass with the output mask, then the LayerNorm rows)."""
     n, din = x.shape
     h = w.shape[1]
     if x.device.type == "cpu":
@@ -751,6 +797,8 @@ def dense_dropout_res_ln(x, w, b, res, g, beta, key: DropoutKey, rate,
             x, w, b, res, g, beta,
             _mask_plain(key, STREAM_OUT, n, h, rate, x.device), eps)
     code = _check_dense("dense_dropout_res_ln", x, w, b, res, g, beta)
+    if x.dtype == torch.bfloat16 and not dense_fused(h):
+        return res_ln_rows(ffn_down(x, w, b, res, key, rate), g, beta, eps)
     out = torch.empty_like(res)
     DENSE_DROPOUT_RES_LN.launch(
         x.data_ptr(), w.data_ptr(), b.data_ptr(), res.data_ptr(), g.data_ptr(),
@@ -873,6 +921,16 @@ def _like(grad, dtype):
     return None if dtype is None else grad.to(dtype)
 
 
+def _mm_f32(a, b):
+    """a @ b as float32.  bfloat16 CUDA operands: their exact products summed
+    in f32 (torch.mm(out_dtype=float32)), as the TPU package's dense
+    backward takes them (preferred_element_type=f32); elsewhere the product
+    of the upcast operands."""
+    if a.device.type == "cuda" and a.dtype == torch.bfloat16:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
 class _FfnResLn(torch.autograd.Function):
     """K3 forward; backward: K9 recomputes the pre-LayerNorm sum, ln_bwd,
     then K8 on the sum's gradient.  Nothing of size (N, F) is kept."""
@@ -911,8 +969,9 @@ def ffn_res_ln_trainable(x, w1, b1, w2, b2, res, g, beta, act="gelu",
 
 
 class _DenseResLn(torch.autograd.Function):
-    """K2 forward; backward by hand in plain matrix products: the
-    pre-LayerNorm sum again, ln_bwd, then dx, dw and db from its gradient
+    """K2 forward; backward by hand in plain matrix products, as the TPU
+    package's _dense_bwd_hand: the pre-LayerNorm sum again (x @ w, f32
+    result), ln_bwd, then dx, dw (f32 result) and db from its gradient
     rounded to x's dtype."""
 
     @staticmethod
@@ -929,11 +988,11 @@ class _DenseResLn(torch.autograd.Function):
     def backward(ctx, grad):
         x, wc, bc, res, g, beta = ctx.saved_tensors
         w, b = ctx.dtypes
-        y_pre = x.float() @ wc.float() + bc + res.float()
+        y_pre = _mm_f32(x, wc) + bc + res.float()
         dy, dgamma, dbeta = ln_bwd(grad, y_pre, g, ctx.eps)
         g16 = dy.to(x.dtype)
         dx = g16 @ wc.t()
-        dw = x.float().t() @ g16.float()
+        dw = _mm_f32(x.t(), g16)
         return (dx, _like(dw, w), _like(dy.sum(0), b), dy.to(res.dtype),
                 dgamma.to(g.dtype), dbeta.to(beta.dtype), None)
 
@@ -1034,8 +1093,8 @@ def ffn_dropout_res_ln_trainable(x, w1, b1, w2, b2, res, g, beta,
 
 
 class _DenseDropoutResLn(torch.autograd.Function):
-    """K11 forward; backward by hand in plain matrix products, with the
-    output mask regenerated by K10."""
+    """K11 forward; backward by hand in plain matrix products (_DenseResLn's),
+    with the output mask regenerated by K10."""
 
     @staticmethod
     def forward(ctx, x, w, b, res, g, beta, key, rate, eps):
@@ -1053,12 +1112,12 @@ class _DenseDropoutResLn(torch.autograd.Function):
         w, b = ctx.dtypes
         omask = dropout_mask(ctx.key, STREAM_OUT, x.shape[0], wc.shape[1],
                              ctx.rate, x.device)
-        y_pre = (x.float() @ wc.float() + bc) * omask + res.float()
+        y_pre = (_mm_f32(x, wc) + bc) * omask + res.float()
         dy, dgamma, dbeta = ln_bwd(grad, y_pre, g, ctx.eps)
         g_out = dy * omask
         g16 = g_out.to(x.dtype)
         dx = g16 @ wc.t()
-        dw = x.float().t() @ g16.float()
+        dw = _mm_f32(x.t(), g16)
         return (dx, _like(dw, w), _like(g_out.sum(0), b), dy.to(res.dtype),
                 dgamma.to(g.dtype), dbeta.to(beta.dtype), None, None, None)
 

@@ -152,10 +152,11 @@ def _ffn_args(h, f):
 
 
 @pytest.mark.parametrize("call,match", [
+    # K2 in bf16 takes Din and H multiples of 128, as the TPU gate
     (lambda: t_ffn.dense_res_ln(
-        _meta(4, 256), _meta(256, 256), _meta(256, dtype=torch.float32),
-        _meta(4, 256), _meta(256, dtype=torch.float32),
-        _meta(256, dtype=torch.float32)), "bfloat16 supports H"),
+        _meta(4, 192), _meta(192, 192), _meta(192, dtype=torch.float32),
+        _meta(4, 192), _meta(192, dtype=torch.float32),
+        _meta(192, dtype=torch.float32)), "bfloat16 supports H"),
     # the bf16 passes of K3 take H and F multiples of 128, as the TPU gate
     (lambda: t_ffn.ffn_res_ln(*_ffn_args(192, 768)), "bfloat16 supports H"),
     (lambda: t_ffn.ffn_res_ln(*_ffn_args(768, 3000)), "bfloat16 supports H"),
