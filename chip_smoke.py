@@ -6,9 +6,13 @@
 Phases, each printing as it goes; any failure exits non-zero:
   1. the card: name, power limit, torch / CUDA versions; TF32 off;
   2. build the CUDA kernels from speechmix_tpu_torch/csrc with nvcc;
-  3. hold each kernel (K1 attention_fwd and its log-sum-exp, K2
+  3. hold each kernel (K1 attention_fwd and its log-sum-exp, in bf16 also
+     against attention_fwd_tiled_plain, its tiles in plain PyTorch, and
+     twice, bit for bit, with causal rows that have no allowed key; K2
      dense_res_ln, K3 ffn_res_ln, K4 decode_attention with float and with
-     int8 K/V, K5 beam_gather, K6 conv_ln_gelu, K7 attention_bwd (also
+     int8 K/V, K5 beam_gather, K6 conv_ln_gelu (in bf16 also against
+     fused_conv_layer_tiled_plain and twice, bit for bit, at the six
+     extractor layers), K7 attention_bwd (also
      against attention_bwd_tiled_plain, its tiles in plain PyTorch), K8 ffn_bwd
      (bf16: its recompute pass and its TMA + wgmma products, the products
      also alone against reference products; f32: its two f32 entries), K9
@@ -34,8 +38,11 @@ Phases, each printing as it goes; any failure exits non-zero:
      ffn_dropout_res_ln, K13 ffn_dropout and K8's dropout twins at the
      step's row counts, K14 / K15 (attention with probability dropout,
      forward / backward) at its attention shapes, each against its plain
-     version fed the same key's masks, limits times 1/(1-r); and the
-     differentiable dropout forms;
+     version fed the same key's masks (K14 in bf16 also against the tiled
+     plain version and twice, bit for bit), limits times 1/(1-r); and the
+     differentiable dropout forms; K1 and K14 are timed at the path's three
+     attention shapes (B = 16; T = 800, 400, causal 64), K6 at each of the
+     six extractor layers;
   4. drive the flagship (wav2vec2-base + bart-base, down_scale 2, fused
      extractor, random weights from the seed, bf16 matrices) through
      generate() at B = 16 x 16 s, max_length 64, in three modes: greedy
@@ -54,15 +61,16 @@ Phases, each printing as it goes; any failure exits non-zero:
      recompute and products 24 times each (K3 and K9: the up pass 48, the
      down pass, the down pass to z and the rows 24 each), K2 30 times and
      K6 6 times, and print the device ms of K8, of the passes, of the
-     attention backward's three kernels and of K2 / K11 with their backward
-     products; then
+     attention backward's three kernels, of K1 / K14, of K6 and of K2 / K11
+     with their backward products; then
      8 more with dropout on at the presets' rates, SpecAugment and LayerDrop:
      with k speech layers skipped, K14, K15, K12, K13, K8's dropout
      recompute and its products 24 - k times (the dropout up pass 48 - 2k),
      K11 30 - k, K10 64 - 2k, K6 6, and no deterministic twin;
-  6. print the `kernels` JSON line (K7 and K15 with a record per attention
-     length of the step and its launches there), then the card line, then
-     the result line {"ok": true, "device": {...}} last.
+  6. print the `kernels` JSON line (K1, K14, K7 and K15 with a record per
+     attention length of the step and its launches there, K6 one per
+     extractor layer), then the card line, then the result line
+     {"ok": true, "device": {...}} last.
 Without CUDA it exits 1 before printing any result.
 """
 
@@ -181,6 +189,36 @@ def attention_bf16_limit(q, k, v, mask, heads, scale, causal, ref,
 K1_BF16_RULE = "2^-8 * (P|v|) + 2^-7 * |p|"
 
 
+def check_attention_fwd(name, q, k, v, mask, heads, causal, scale=0.125):
+    """K1 on one input against its plain version (output and lse) and, in
+    bf16, against attention_fwd_tiled_plain (the bf16 body's tiles) and
+    itself in a second call, bit for bit.  Returns the max error against
+    the plain version."""
+    import torch
+    from speechmix_tpu_torch.ops.kernels import attention as ka
+    out, lse = ka.attention_fwd(q, k, v, mask, heads, scale, causal,
+                                return_lse=True)
+    ref, ref_lse = ka.attention_fwd_plain(q, k, v, mask, heads, scale, causal,
+                                          return_lse=True)
+    torch.cuda.synchronize()
+    limit = rule = None
+    if q.dtype == torch.bfloat16:
+        limit = attention_bf16_limit(q, k, v, mask, heads, scale, causal, ref)
+        rule = K1_BF16_RULE
+    err = compare(name, out, ref, limit, rule)
+    compare(f"{name} lse", lse, ref_lse, 1e-4 + 1e-4 * ref_lse.abs(),
+            "atol 1e-4, rtol 1e-4")
+    if q.dtype == torch.bfloat16:
+        tiled = ka.attention_fwd_tiled_plain(q, k, v, mask, heads, scale,
+                                             causal)
+        compare(f"{name} vs tiled", out, tiled,
+                attention_bf16_limit(q, k, v, mask, heads, scale, causal,
+                                     tiled), K1_BF16_RULE)
+        expect_equal(f"K1 {name}", (out, lse), ka.attention_fwd(
+            q, k, v, mask, heads, scale, causal, return_lse=True))
+    return err
+
+
 def check_kernels(gen, dev):
     """Phase 3.  Returns the per-kernel records of the main-path shape."""
     import torch
@@ -203,17 +241,29 @@ def check_kernels(gen, dev):
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = (randn(b, t, heads * d, dtype=dtype) for _ in range(3))
             for causal in causal_opts:
-                out = ka.attention_fwd(q, k, v, mask, heads, 0.125, causal)
-                ref = ka.attention_fwd_plain(q, k, v, mask, heads, 0.125,
-                                             causal)
-                torch.cuda.synchronize()
-                limit = rule = None
-                if dtype == torch.bfloat16:
-                    limit = attention_bf16_limit(q, k, v, mask, heads, 0.125,
-                                                 causal, ref)
-                    rule = K1_BF16_RULE
-                compare(f"B={b} T={t} {dtype} causal={causal}", out, ref,
-                        limit, rule)
+                check_attention_fwd(f"B={b} T={t} {dtype} causal={causal}",
+                                    q, k, v, mask, heads, causal)
+    # the bf16 body's edges: a causal batch row without any valid key and
+    # one whose keys start at 150 (its first queries have no allowed key,
+    # beside rows that have one, so their blocks visit every key tile),
+    # query and key lengths apart, a single query, one 64-query block
+    late = torch.ones(3, 300, dtype=torch.bool, device=dev)
+    late[1, :150] = False
+    late[2] = False
+    for name, b, tq, tk, causal, mask in (
+            ("masked rows", 3, 100, 100, True, torch.arange(
+                100, device=dev)[None, :] < torch.tensor(
+                    [0, 100, 41], device=dev)[:, None]),
+            ("late first key", 3, 300, 300, True, late),
+            ("Tq != Tk", 2, 130, 200, False, None),
+            ("Tq != Tk", 2, 200, 130, True, None),
+            ("one query", 2, 1, 70, False, None),
+            ("one block", 2, 64, 64, False, None)):
+        q = randn(b, tq, heads * d, dtype=torch.bfloat16)
+        k, v = (randn(b, tk, heads * d, dtype=torch.bfloat16)
+                for _ in range(2))
+        check_attention_fwd(f"{name} B={b} Tq={tq} Tk={tk} bf16 "
+                            f"causal={causal}", q, k, v, mask, heads, causal)
     # bf16 inputs the tensor-core kernel cannot load are refused, not served
     # by another kernel
     slab = torch.empty(4 * 400 * heads * d + 1, dtype=torch.bfloat16,
@@ -222,29 +272,36 @@ def check_kernels(gen, dev):
     k = randn(4, 400, heads * d, dtype=torch.bfloat16)
     expect_refusal("K1 bf16 q at a 2-byte offset", lambda: ka.attention_fwd(
         q_off, k, k, None, heads, 0.125))
-    # timing at the flagship speech-encoder shape: B=16, T=800, bf16
-    b, t = 16, 800
-    lens = torch.full((b,), t, device=dev)
-    mask = torch.arange(t, device=dev)[None, :] < lens[:, None]
-    q, k, v = (randn(b, t, heads * d, dtype=torch.bfloat16) for _ in range(3))
-    ref = ka.attention_fwd_plain(q, k, v, mask, heads, 0.125)
-    err = compare(f"B={b} T={t} bf16 (timed)",
-                  ka.attention_fwd(q, k, v, mask, heads, 0.125), ref,
-                  attention_bf16_limit(q, k, v, mask, heads, 0.125, False,
-                                       ref), K1_BF16_RULE)
-    qh, kh, vh = (x.view(b, t, heads, d).transpose(1, 2) for x in (q, k, v))
-    sdpa_mask = mask[:, None, None, :]
-    valid_keys = int(lens.sum())
-    flops = 4.0 * heads * d * t * valid_keys
-    nbytes = 4 * b * t * heads * d * 2 + b * t
-    records["attention_fwd"] = dict(
-        shape=f"B={b} T={t} H={heads} D={d} bf16", max_abs_err=err,
-        ms=cuda_ms(lambda: ka.attention_fwd(q, k, v, mask, heads, 0.125)),
-        plain_ms=cuda_ms(lambda: ka.attention_fwd_plain(q, k, v, mask,
-                                                        heads, 0.125)),
-        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, attn_mask=sdpa_mask, scale=0.125)),
-        flops=flops, bytes=nbytes)
+    # timing at the path's three launch shapes, bf16, every key valid: the
+    # speech encoder (B=16, T=800), the text encoder (T=400) and the
+    # decoder's causal self-attention in the train step (T=64)
+    for suffix, b, t, causal in (("", 16, 800, False),
+                                 (" (text encoder)", 16, 400, False),
+                                 (" (decoder, causal)", 16, 64, True)):
+        mask = torch.ones(b, t, dtype=torch.bool, device=dev)
+        q, k, v = (randn(b, t, heads * d, dtype=torch.bfloat16)
+                   for _ in range(3))
+        err = check_attention_fwd(f"B={b} T={t} bf16 causal={causal} "
+                                  "(timed)", q, k, v, mask, heads, causal)
+        qh, kh, vh = (x.view(b, t, heads, d).transpose(1, 2)
+                      for x in (q, k, v))
+        allowed = int(mask.sum()) * t if not causal else b * t * (t + 1) // 2
+        records["attention_fwd" + suffix] = dict(
+            shape=f"B={b} T={t} H={heads} D={d} bf16 causal={causal}",
+            max_abs_err=err,
+            ms=cuda_ms(lambda: ka.attention_fwd(q, k, v, mask, heads, 0.125,
+                                                causal)),
+            plain_ms=cuda_ms(lambda: ka.attention_fwd_plain(
+                q, k, v, mask, heads, 0.125, causal)),
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask[:, None, None, :],
+                is_causal=False, scale=0.125) if not causal else
+                F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                               scale=0.125)),
+            flops=4.0 * heads * d * allowed,
+            bytes=4 * b * t * heads * d * 2 + b * t)
+        if suffix:  # the speech encoder's: the whole generate call's
+            records["attention_fwd" + suffix]["length"] = t
 
     # the other TPU attention kernels K1 covers, at the shapes checked
     # above: T = 400 (one block of keys on the TPU) and T = 1500 (tiled)
@@ -253,11 +310,8 @@ def check_kernels(gen, dev):
         mask = torch.arange(t, device=dev)[None, :] < lens[:, None]
         q, k, v = (randn(b, t, heads * d, dtype=torch.bfloat16)
                    for _ in range(3))
-        ref = ka.attention_fwd_plain(q, k, v, mask, heads, 0.125)
-        err = compare(f"B={b} T={t} bf16 (timed)",
-                      ka.attention_fwd(q, k, v, mask, heads, 0.125), ref,
-                      attention_bf16_limit(q, k, v, mask, heads, 0.125, False,
-                                           ref), K1_BF16_RULE)
+        err = check_attention_fwd(f"B={b} T={t} bf16 (timed)", q, k, v, mask,
+                                  heads, False)
         qh, kh, vh = (x.view(b, t, heads, d).transpose(1, 2)
                       for x in (q, k, v))
         sdpa_mask = mask[:, None, None, :]
@@ -633,21 +687,37 @@ def check_beam_gather(randn, gen, dev, records):
         flops=0.0, bytes=4.0 * key.numel() * key.element_size())
 
 
+def extractor_geometry():
+    """(T_in, k) of the fused extractor layers 1.. of the flagship at
+    SECONDS, its samples padded as generate() and the train step pad them
+    (wav2vec2-base: T_in = 51263, 25631, ..., 1601)."""
+    from speechmix_tpu_torch import config
+    enc = config.SPEECH_ENCODER_PRESETS["wav2vec2-base"]
+    t = enc.aligned_samples(int(SECONDS * 16000))
+    out = []
+    for layer, (k, s) in enumerate(zip(enc.conv_kernels, enc.conv_strides)):
+        if layer:
+            out.append((t, k))
+        t = (t - k) // s + 1
+    return tuple(out)
+
+
 def check_conv(randn, dev, records):
     """K6 at the six fused layers of the flagship extractor at 16 s
-    (T_out = 25599 ... 799, k = 3 then 2, C = 512), with and without the
-    LayerNorm epilogue; bf16 at B = 16, f32 at B = 4."""
+    (extractor_geometry: k = 3 then 2, C = 512), with and without the
+    LayerNorm epilogue; bf16 at B = 16 (also against
+    fused_conv_layer_tiled_plain, the bf16 body's tiles, and twice, bit for
+    bit; timed at each layer without LayerNorm, as the flagship runs it),
+    f32 at B = 4."""
     import torch
     import torch.nn.functional as F
     from speechmix_tpu_torch.ops.kernels import conv_extractor as kc
 
     log("K6 conv_ln_gelu")
     c = 512
-    geometry = ((51199, 3), (25599, 3), (12799, 3), (6399, 3), (3199, 2),
-                (1599, 2))
-    timed = None
+    geometry = extractor_geometry()
     for dtype, b in ((torch.bfloat16, 16), (torch.float32, 4)):
-        for t_in, k in geometry:
+        for layer, (t_in, k) in enumerate(geometry, start=1):
             x = randn(b, t_in, c, dtype=dtype)
             w = randn(c, c, k, scale=(k * c) ** -0.5, dtype=dtype)
             bias, g, beta = (randn(c, scale=0.1) for _ in range(3))
@@ -655,25 +725,41 @@ def check_conv(randn, dev, records):
                 out = kc.fused_conv_layer(x, w, bias, ln)
                 ref = kc.fused_conv_layer_plain(x, w, bias, ln)
                 torch.cuda.synchronize()
+                what = (f"B={b} T_in={t_in} k={k} C={c} ln={ln is not None} "
+                        f"{dtype}")
                 limit = rule = None
                 if dtype == torch.bfloat16:
                     limit = 1e-4 + 2.0 ** -7 * ref.float().abs()
                     rule = K6_BF16_RULE
-                err = compare(f"B={b} T_in={t_in} k={k} C={c} "
-                              f"ln={ln is not None} {dtype}", out, ref, limit,
-                              rule)
-                if timed is None:
-                    timed = (x, w, bias, err)
+                err = compare(what, out, ref, limit, rule)
+                if dtype != torch.bfloat16:
+                    continue
+                tiled = kc.fused_conv_layer_tiled_plain(x, w, bias, ln)
+                compare(f"{what} vs tiled", out, tiled,
+                        1e-4 + 2.0 ** -7 * tiled.float().abs(), K6_BF16_RULE)
+                del tiled
+                expect_equal(f"K6 {what}", (out,),
+                             (kc.fused_conv_layer(x, w, bias, ln),))
+                if ln is None:
+                    conv_record(records, layer, x, w, bias, err)
             del x, out, ref
     expect_refusal("K6 bf16 C=256", lambda: kc.fused_conv_layer(
         randn(2, 100, 256, dtype=torch.bfloat16),
         randn(256, 256, 3, dtype=torch.bfloat16)))
     expect_refusal("K6 k=5", lambda: kc.fused_conv_layer(
         randn(2, 100, c), randn(c, c, 5)))
-    x, w, bias, err = timed
-    b, t_in, _ = x.shape
+
+
+def conv_record(records, layer, x, w, bias, err):
+    """The timed record of K6 at one extractor layer (bf16, no LayerNorm):
+    "conv_ln_gelu" at layer 1, "conv_ln_gelu (layer L)" after it, with the
+    launches at its T_in."""
+    import torch.nn.functional as F
+    from speechmix_tpu_torch.ops.kernels import conv_extractor as kc
+    b, t_in, c = x.shape
     k = w.shape[-1]
     n = b * ((t_in - k) // 2 + 1)
+    iters = 10 if t_in > 10000 else 20
     # the library conv wants channels first: timed on a contiguous (B, C, T)
     # tensor, what the port's "conv" route feeds it layer after layer (it
     # never holds (B, T, C)), and on the transposed view of K6's own input
@@ -681,17 +767,21 @@ def check_conv(randn, dev, records):
     xt = xt_view.contiguous()
     bias_c = bias.to(x.dtype)
     library = lambda inp: F.gelu(F.conv1d(inp, w, bias_c, stride=2))
-    records["conv_ln_gelu"] = dict(
+    rec = dict(
         shape=f"x ({b}, {t_in}, {c}) k={k} stride 2, no LayerNorm, bf16",
         max_abs_err=err,
-        ms=cuda_ms(lambda: kc.fused_conv_layer(x, w, bias), iters=10),
+        ms=cuda_ms(lambda: kc.fused_conv_layer(x, w, bias), iters=iters),
         plain_ms=cuda_ms(lambda: kc.fused_conv_layer_plain(x, w, bias),
                          iters=5),
-        library_ms=cuda_ms(lambda: library(xt), iters=10),
+        library_ms=cuda_ms(lambda: library(xt), iters=iters),
         library_ms_transposed_view=cuda_ms(lambda: library(xt_view),
-                                           iters=10),
+                                           iters=iters),
         flops=2.0 * n * k * c * c,
         bytes=(x.numel() + n * c + w.numel()) * 2 + c * 4)
+    if layer == 1:   # its launches: the whole generate call's
+        records["conv_ln_gelu"] = rec
+    else:
+        records[f"conv_ln_gelu (layer {layer})"] = dict(rec, t_in=t_in)
 
 
 def attention_bwd_bf16_limits(q, k, v, mask, out, g, heads, scale, causal,
@@ -1556,6 +1646,16 @@ def check_dropout_kernels(randn, dev, records):
                 for n_, o, r, lim in zip(("dq", "dk", "dv"), got, ref3,
                                          limits)])
         e14 = compare(f"K14 out {what}", out, ref_out, limit, rule)
+        if dtype == bf16:
+            # the bf16 body's tiles, and the same bits in a second call
+            tiled = ka.attention_fwd_tiled_plain(q, k, v, mask, heads, scale,
+                                                 causal, dmask=dmask)
+            compare(f"K14 out {what} vs tiled", out, tiled,
+                    attention_bf16_limit(q, k, v, mask, heads, scale, causal,
+                                         tiled, dmask), rule)
+            expect_equal(f"K14 {what}", (out, lse), ka.attention_dropout_fwd(
+                q, k, v, mask, heads, scale, causal, key, rate,
+                return_lse=True))
         return e14, e15, (q, k, v, mask, out, lse, g, causal, lens)
 
     for dtype in (bf16, f32):
@@ -1584,7 +1684,7 @@ def check_dropout_kernels(randn, dev, records):
         suffix = "" if name == "speech encoder" else f" ({name})"
         shape = f"B={b} T={t} H={heads} D={d} bf16 causal={causal}, rate {rate}"
         records["attention_dropout_fwd" + suffix] = dict(
-            shape=shape, max_abs_err=e14,
+            shape=shape, length=t, max_abs_err=e14,
             ms=cuda_ms(lambda: ka.attention_dropout_fwd(
                 q, k, v, mask, heads, scale, causal, key, rate)),
             plain_ms=cuda_ms(lambda: ka.attention_fwd_plain(
@@ -1989,6 +2089,10 @@ def stage_breakdown(params, cfg, wav, lengths, modes):
             for e in top[:10 if mode == "greedy" else 6]:
                 log(f"    {e.self_device_time_total / 1e3:9.2f} ms  "
                     f"{e.count:6d}x  {e.key[:90]}")
+            for label, name in (("attention forward (K1)", ATTN_FWD_KERNEL),
+                                ("extractor conv (K6)", CONV_KERNEL)):
+                log_kernel_sum(events, label, (name,),
+                               f"the profiled {mode} generate")
 
 
 def tied_head_times(params, cfg):
@@ -2248,10 +2352,12 @@ def run_training(seed, card, dropout=False):
     # counted around their wrappers' launches, for the kernels line's
     # per-length and per-row-count records
     from speechmix_tpu_torch.ops.kernels import attention as ka
+    from speechmix_tpu_torch.ops.kernels import conv_extractor as kc
     from speechmix_tpu_torch.ops.kernels import ffn as kf
     by_length = collections.Counter()
-    tallied = ((ka.BWD_KERNEL, 1), (ka.DROPOUT_BWD_KERNEL, 1),
-               (kf.DENSE_RES_LN, 0), (kf.DENSE_DROPOUT_RES_LN, 0))
+    tallied = ((ka.KERNEL, 1), (ka.DROPOUT_KERNEL, 1), (ka.BWD_KERNEL, 1),
+               (ka.DROPOUT_BWD_KERNEL, 1), (kf.DENSE_RES_LN, 0),
+               (kf.DENSE_DROPOUT_RES_LN, 0), (kc.KERNEL, 1))
     for kern, offset in tallied:
         kern.launch = _tally_by_length(kern, by_length, offset)
     for i in range(TRAIN_STEPS):
@@ -2293,7 +2399,8 @@ def run_training(seed, card, dropout=False):
     for kern, _ in tallied:
         del kern.launch   # the class's own again
     log(f"  launches per step: {counts}")
-    log(f"  K7 / K15 launches per step by query length, K2 / K11 by rows: "
+    log(f"  K1 / K14 / K7 / K15 launches per step by query length, K2 / "
+        f"K11 by rows, K6 by T_in: "
         f"{ {f'{k[0]} {k[1]}': n for k, n in sorted(by_length.items())} }")
     if not losses[-1] < losses[1]:
         raise AssertionError(f"{what}: the loss did not fall: {losses}")
@@ -2318,13 +2425,10 @@ def run_training(seed, card, dropout=False):
         log(f"    {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d}x  "
             f"{e.key[:90]}")
     for label, names in (("K8", K8_KERNELS), ("K3 / K9 passes", FWD_KERNELS),
-                         ("attention backward (K7 / K15)", ATTN_BWD_KERNELS)):
-        hit = [e for e in events if any(name in e.key for name in names)]
-        log(f"  {label} in the profiled {what}: "
-            f"{sum(e.self_device_time_total for e in hit) / 1e3:.2f} ms: " +
-            ", ".join(f"{KERNEL_NAME.search(e.key).group(0)} "
-                      f"{e.self_device_time_total / 1e3:.2f} ms {e.count}x"
-                      for e in hit))
+                         ("attention backward (K7 / K15)", ATTN_BWD_KERNELS),
+                         ("attention forward (K1 / K14)", (ATTN_FWD_KERNEL,)),
+                         ("extractor conv (K6)", (CONV_KERNEL,))):
+        log_kernel_sum(events, label, names, f"the profiled {what}")
     bwd_ms, products = dense_bwd_product_ms(step_fn, state, batch)
     hit = [e for e in events if DENSE_KERNEL in e.key]
     log(f"  dense epilogue (K2 / K11) and its backward products in the "
@@ -2365,10 +2469,22 @@ def dense_bwd_product_ms(step_fn, state, batch):
     return sum(e.device_time_total for e in hits) / 1e3, len(hits)
 
 
+def log_kernel_sum(events, label, names, where):
+    """The device ms of the profiler events whose kernel names contain one
+    of `names`, in all and by kernel."""
+    hit = [e for e in events if any(name in e.key for name in names)]
+    log(f"  {label} in {where}: "
+        f"{sum(e.self_device_time_total for e in hit) / 1e3:.2f} ms: " +
+        ", ".join(f"{KERNEL_NAME.search(e.key).group(0)} "
+                  f"{e.self_device_time_total / 1e3:.2f} ms {e.count}x"
+                  for e in hit))
+
+
 def _tally_by_length(kernel, counter, offset):
     """kernel.launch that also counts each accepted launch under (symbol,
-    the integer argument `offset` places after the pointers): K7 / K15's
-    query length (1, after the batch), K2 / K11's row count (0)."""
+    the integer argument `offset` places after the pointers): K1 / K14 / K7
+    / K15's query length (1, after the batch), K2 / K11's row count (0),
+    K6's T_in (1)."""
     launch = kernel.launch
     arg = next(i for i, t in enumerate(kernel.argtypes)
                if t is not ctypes.c_void_p) + offset
@@ -2389,6 +2505,9 @@ FWD_KERNELS = ("ffn_pass_kernel", "res_ln_rows_kernel")
 ATTN_BWD_KERNELS = ("attention_bwd_delta_kernel", "dkdv_kernel", "dq_kernel")
 # K2 / K11 in bf16 (dense_res_ln.cu)
 DENSE_KERNEL = "dense_ln_kernel"
+# K1 / K14 and K6 in bf16 (attention_fwd.cu, conv_ln_gelu.cu)
+ATTN_FWD_KERNEL = "attention_fwd_tc_kernel"
+CONV_KERNEL = "conv_tc_kernel"
 KERNEL_NAME = re.compile(r"\w+_kernel(<[^>]*>)?")
 
 
@@ -2449,6 +2568,15 @@ def main():
     replaces = {
         "attention_fwd": ("attention_fwd.cu",
                           "flash_attention_kernel.py:985", "greedy"),
+        # K1 at the text encoder's and the decoder's lengths: the same
+        # launcher, its launches at that length in the train step under
+        # launches_at_length
+        "attention_fwd (text encoder)": ("attention_fwd.cu",
+                                         "flash_attention_kernel.py:985",
+                                         "train", "smx_attention_fwd"),
+        "attention_fwd (decoder, causal)": ("attention_fwd.cu",
+                                            "flash_attention_kernel.py:985",
+                                            "train", "smx_attention_fwd"),
         "dense_res_ln": ("dense_res_ln.cu", "ffn_kernel.py:381", "greedy"),
         # K2 and K11 at the train step's row counts: the same launcher, its
         # launches at that row count under launches_at_rows
@@ -2469,6 +2597,11 @@ def main():
                                 "decode_attention.py:67", "greedy-int8"),
         "beam_gather": ("beam_gather.cu", "beam_gather.py:39", "beam-4"),
         "conv_ln_gelu": ("conv_ln_gelu.cu", "conv_extractor.py:88", "greedy"),
+        # K6 at extractor layers 2-6: the same launcher, its launches at
+        # that T_in in the train step under launches_at_t_in
+        **{f"conv_ln_gelu (layer {layer})": (
+            "conv_ln_gelu.cu", "conv_extractor.py:88", "train",
+            "smx_conv_ln_gelu") for layer in range(2, 7)},
         "attention_bwd": ("attention_bwd.cu", "flash_attention_kernel.py:378",
                           "train"),
         # K7 at the text encoder's and the decoder's lengths: the same
@@ -2514,6 +2647,13 @@ def main():
         "attention_dropout_fwd": ("attention_fwd.cu",
                                   "flash_attention_kernel.py:727",
                                   "train-dropout"),
+        # K14 at the text encoder's and the decoder's lengths
+        "attention_dropout_fwd (text encoder)": (
+            "attention_fwd.cu", "flash_attention_kernel.py:727",
+            "train-dropout", "smx_attention_dropout_fwd"),
+        "attention_dropout_fwd (decoder, causal)": (
+            "attention_fwd.cu", "flash_attention_kernel.py:727",
+            "train-dropout", "smx_attention_dropout_fwd"),
         "attention_dropout_bwd": ("attention_bwd.cu",
                                   "flash_attention_kernel.py:815",
                                   "train-dropout"),
@@ -2551,7 +2691,7 @@ def main():
             **{k: v for k, v in rec.items()
                if k.startswith("library_ms_")},
         })
-        for at_key in ("length", "rows"):
+        for at_key in ("length", "rows", "t_in"):
             if at_key in rec:
                 at = by_length[mode].get((symbol, rec[at_key]), 0)
                 if at < 1:

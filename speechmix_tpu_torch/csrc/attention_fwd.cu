@@ -11,10 +11,12 @@
 // kernel from dropout.cuh (stream 0, row (b * H + h) * Tq + q, column k), so
 // K15 (attention_bwd.cu) regenerates it per tile; it never reaches device
 // memory.  In the bf16 kernel the two lanes of a pair (t4, t4 ^ 1), which
-// hold the same four keys of rows qr0 and qr1, each draw one row's four words
-// and swap the halves the other needs: one Philox call per four
-// probabilities.  There is no length limit (the TPU kernels hold whole rows
-// and stop at T = 1024).
+// hold the same four keys of rows r and r + 8 of the accumulator, each draw
+// one row's four words and swap the halves the other needs (accum_mask's
+// pairing): one Philox call per four probabilities, drawn after the
+// tile's softmax while the previous tile's P v runs (drawn before it, as
+// keep bits while both products run, was slower; PERF.md).  There is no
+// length limit (the TPU kernels hold whole rows and stop at T = 1024).
 //
 // Replaces the TPU kernel speechmix_tpu/ops/pallas/flash_attention_kernel.py:
 // flash_attention_fused_layout (_attn_single_fused_kernel), and covers the
@@ -27,7 +29,7 @@
 // bfloat16 (bfloat16 q / k / v 16-byte aligned); mask: (B, Tk) bool
 // (1 = key valid); causal: key j is excluded for query i when j > i.
 // Excluded logits are -1e30 (the TPU kernel's NEG_INF), not -inf, so a fully
-// masked row gives a finite average, never NaN.
+// masked row gives a finite average over all Tk keys, never NaN.
 // lse: optional (B, H, Tq) float32 output, the row log-sum-exp of the masked,
 // scaled logits (max + log denominator), which attention_bwd.cu reads to
 // recompute the probabilities; null skips it.
@@ -35,10 +37,12 @@
 // What bounds it on the H100: at the flagship speech shape (B = 16,
 // T = 800, H = 12) the two products are 4*B*H*T*T*D ~ 31 GFLOP against
 // ~60 MB of q/k/v/out traffic, so the tensor cores are the limit
-// (~0.03 ms).  The bf16 kernel uses them (mma.sync); its online-softmax
-// arithmetic on the CUDA cores and the per-tile k/v staging keep it ~10x
-// above that bound (PERF.md).  Each dtype has one kernel: float32 inputs
-// (the f32 reference runs) take an f32-FMA kernel, bound by those FMAs.
+// (~0.03 ms); beside them, on the CUDA cores and the special-function unit,
+// the online softmax: one exp and ~8 other operations per score (B*H*T*T,
+// 123 M), and for K14 one Philox-4x32-10 call per four scores, which costs
+// more than the softmax (PERF.md has the times).
+// Each dtype has one kernel: float32 inputs (the f32 reference runs) take
+// an f32-FMA kernel, bound by those FMAs.
 //
 // float32 kernel: one block of 256 threads per (64-query tile, head,
 // batch).  Heads are read straight from the slabs by stride, so no head
@@ -52,22 +56,39 @@
 // inner-loop read is a float4.  Ragged ends of Tq and Tk are masked in the
 // kernel.
 //
-// bfloat16 kernel, on the tensor cores, in the FlashAttention-2 layout: one
-// block of 4 warps per (64-query tile, head, batch); each warp owns 16 query
-// rows and keeps their q fragments in registers.  Per 64-key tile (k and v
-// staged in shared memory as bf16, rows padded so fragment loads hit
-// distinct banks), a warp computes its 16 x 64 scores with mma.sync
-// m16n8k16 (bf16 in, f32 accumulate), runs the online softmax on the
-// accumulator registers (the four lanes of a row reduce with shuffles), and
-// feeds the probabilities, rounded to bf16, straight back as the A operand
-// of P . v into its 16 x 64 f32 output accumulator, also in registers.  The
-// denominator sums the f32 probabilities.
+// bfloat16 kernel, TMA + wgmma on Hopper (the FlashAttention-3 layout for
+// D = 64): one block per (64-query tile, head, batch) is a consumer
+// warpgroup of 64 query rows and a producer warp, three blocks per SM.  One
+// producer thread loads the block's q tile once, then streams 64-key tiles
+// of k and v through a ring of STAGES stages by TMA (3-D tensor maps over
+// (B, T, H*D) in boxes of one head's 64 columns: rows past T load as zeros
+// within their batch); the producer warp stages each tile's key mask
+// beside it as a 64-bit word (key < Tk and mask[key]), so no consumer reads
+// the mask.  The consumer warpgroup computes S = q k^T (wgmma m64n64k16,
+// both operands K-major) into 32 f32 registers, masks it branch-free from
+// the stage's word (keys past Tk at -inf, excluded keys at -1e30; a tile
+// that is all valid and below the diagonal skips the masking), runs the
+// online softmax on the registers in log2 units (ex2.approx; the four
+// lanes of a row reduce the max with shuffles, the denominator is summed
+// per lane and reduced once at the end), rounds P to bf16 pairs that are
+// the register A operand of O += P v (wgmma m64n64k16, v MN-major), and
+// keeps the 64 x 64 f32 O in registers.  S of tile j + 1 is issued before
+// O += P_j v_j, so the softmax of one tile runs while the tensor cores do
+// the other's product.  The denominator sums the unrounded f32
+// probabilities; O is divided by it at the end and lse = m + log l.  Under
+// `causal` a block visits the key tiles up to its last query only, unless
+// a row of the block has no valid key at or before its query: such a row
+// averages every key, so that block visits them all.  Timed alternatives,
+// slower at the path's launch shapes (PERF.md): 128-key tiles (at T = 800
+// and 400 the last one is mostly empty), 128-query blocks of two consumer
+// warpgroups with or without the two taking turns at the tensor cores.
 
 #include <math.h>
 
 #include <stdint.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -255,218 +276,329 @@ int launch_f32(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-
+// ------------------------------------------------------------------ bfloat16
+namespace hw = smx::hopper;
 using bf16 = __nv_bfloat16;
 
-constexpr int TC_NT = 128;   // 4 warps x 16 query rows = BQ
-constexpr int LDB = D + 8;   // bf16 row of the k / v tiles (conflict-free)
+constexpr int WG = hw::WG_THREADS;
+constexpr int BOX_ROWS = 64;                   // rows of one TMA box
+constexpr int BOX_BYTES = BOX_ROWS * D * 2;    // one head's 64 x 64 box, 8 KB
+constexpr int BKV = BOX_ROWS;                  // keys of a k / v tile
+constexpr int KV_BYTES = 2 * BOX_BYTES;        // a stage: k tile, v tile
+constexpr int STAGES = 4;
+constexpr uint32_t SBO = hw::SBO;
+constexpr uint32_t LBO = hw::MN_LBO;           // unused at N = 64
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kNegInf2 = kNegInf * kLog2e;   // an excluded logit, log2 units
 
-// d = a(16x16, row) . b(16x8, col) + d, bf16 in, f32 accumulate.  Fragment
-// layouts (PTX ISA, mma.m16n8k16): with g = lane / 4 and t = lane % 4,
-// a[0]: (g, 2t..2t+1), a[1]: (g+8, 2t..), a[2]: (g, 2t+8..), a[3]: (g+8, 2t+8..);
-// b[0]: (k = 2t..2t+1, n = g), b[1]: (k = 2t+8.., n = g);
-// d[0..1]: (g, 2t..2t+1), d[2..3]: (g+8, 2t..2t+1).
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// a consumer warpgroup of BQ = 64 queries (the float32 kernel's tile) and a
+// producer warp; three blocks per SM
+constexpr int TC_THREADS = WG + 32;
+constexpr int TC_BLOCKS_PER_SM = 3;
+// the q box, the ring, each stage's 64 key bits, barriers
+constexpr size_t TC_SMEM = 1024 + (size_t)BOX_BYTES + STAGES * KV_BYTES +
+                           STAGES * sizeof(uint64_t) +
+                           (2 * STAGES + 1) * sizeof(uint64_t);
+
+struct FwdArgs {
+  CUtensorMap q;      // (B, Tq, H*D) in (64, 64) boxes
+  CUtensorMap k, v;   // (B, Tk, H*D) in (64, 64) boxes
+  const unsigned char* mask;
+  bf16* out;
+  float* lse;
+  int tq, tk, heads;
+  float scale;
+  int causal;
+  smx::Dropout drop;
+};
+
+// 2^x by the special-function unit (relative error ~2^-22, far below the
+// bf16 rounding of p that follows)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// bits 0 .. n of a 64-bit word (none for n < 0)
+__device__ __forceinline__ uint64_t bits_upto(int n) {
+  return n < 0 ? 0ull : n >= 63 ? ~0ull : (2ull << n) - 1;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// How many key tiles the block visits: every tile, or under `causal`
+// those up to its last query, when every row of the block has a valid key
+// at or before its query (a row without one averages all Tk keys).  Called
+// by every thread of the block.
+__device__ __forceinline__ int key_tiles(const FwdArgs& p, int b, int q0) {
+  const int all = (p.tk + BKV - 1) / BKV;
+  if (!p.causal) return all;
+  // every row q >= q0 has an allowed key iff a valid key <= q0 exists
+  const int upto = min(q0, p.tk - 1);
+  int found = 0;
+  for (int k = threadIdx.x; k <= upto && !found; k += blockDim.x) {
+    found = p.mask[(long long)b * p.tk + k];
+  }
+  if (!__syncthreads_or(found)) return all;
+  const int q_last = min(q0 + BQ, p.tq) - 1;
+  return min(all, q_last / BKV + 1);
+}
+
+// One consumer thread's scores of a tile, s[4 j + 2 i + c] (row r + 8 i,
+// key k0 + 8 j + 2 (lane % 4) + c, j < 8), to log2 units with the
+// exclusions applied: -inf past Tk, -1e30 for a masked key or one after the
+// query under causal.  `valid` is the stage's 64 bits (key < Tk and
+// mask[key]); q[i] the rows' query indices.
+__device__ __forceinline__ void mask_scores(float (&s)[32], float sl2,
+                                            uint64_t valid, int k0, int tk,
+                                            int causal, const int (&q)[2],
+                                            int t4) {
+  const int first = k0 + 2 * t4;  // key of element (j = 0, c = 0)
+  const uint64_t v = valid >> (2 * t4);
+  const uint64_t in_range = bits_upto(tk - 1 - first);
+  uint64_t allow[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    allow[i] = causal ? v & bits_upto(q[i] - first) : v;
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int bit = 8 * j + c;
+        float& x = s[4 * j + 2 * i + c];
+        const float excluded = (in_range >> bit) & 1 ? kNegInf2 : -INFINITY;
+        x = (allow[i] >> bit) & 1 ? x * sl2 : excluded;
+      }
 }
 
 template <bool DROP>
-__global__ void __launch_bounds__(TC_NT)
-    attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                            const bf16* __restrict__ v,
-                            const unsigned char* __restrict__ mask,
-                            bf16* __restrict__ out, float* __restrict__ lse,
-                            int tq, int tk, int heads, float scale, int causal,
-                            smx::Dropout drop) {
-  __shared__ __align__(16) bf16 ks[BK * LDB];
-  __shared__ __align__(16) bf16 vs[BK * LDB];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
+__global__ void __launch_bounds__(TC_THREADS, TC_BLOCKS_PER_SM)
+    attention_fwd_tc_kernel(const __grid_constant__ FwdArgs p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = hw::align1024(smem_raw);       // the block's 64 queries
+  uint8_t* ring = qs + BOX_BYTES;              // stage s: k box, v box
+  uint64_t* kbits = reinterpret_cast<uint64_t*>(ring + STAGES * KV_BYTES);
+  uint64_t* full = kbits + STAGES;
+  uint64_t* empty = full + STAGES;
+  uint64_t* q_full = empty + STAGES;
+
   const int q0 = blockIdx.x * BQ, head = blockIdx.y, b = blockIdx.z;
-  const long long row = (long long)heads * D;
-  const bf16* kb = k + (long long)b * tk * row + head * D;
-  const bf16* vb = v + (long long)b * tk * row + head * D;
-  const unsigned char* mb = mask + (long long)b * tk;
-  // this thread's two query rows
-  const int qr0 = q0 + warp * 16 + g, qr1 = qr0 + 8;
-
-  // q fragments of the warp's 16 rows, straight from the slab (rows past tq
-  // are zero)
-  uint32_t qa[D / 16][4];
-  {
-    const bf16* qb = q + (long long)b * tq * row + head * D;
-    const uint32_t* r0p = reinterpret_cast<const uint32_t*>(qb + qr0 * row);
-    const uint32_t* r1p = reinterpret_cast<const uint32_t*>(qb + qr1 * row);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const int c = (kk * 16 + 2 * t4) / 2;  // in 32-bit words
-      qa[kk][0] = qr0 < tq ? r0p[c] : 0u;
-      qa[kk][1] = qr1 < tq ? r1p[c] : 0u;
-      qa[kk][2] = qr0 < tq ? r0p[c + 4] : 0u;
-      qa[kk][3] = qr1 < tq ? r1p[c + 4] : 0u;
+  const int ntiles = key_tiles(p, b, q0);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      // the producer's expect and its warp's key bits
+      hw::mbar_init(&full[s], 1 + 32);
+      hw::mbar_init(&empty[s], WG);
     }
+    hw::mbar_init(q_full, 1);
+    hw::mbar_fence_init();
   }
-  float o[D / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) o[nt][i] = 0.0f;
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
+  __syncthreads();
 
-  for (int k0 = 0; k0 < tk; k0 += BK) {
-    __syncthreads();  // every warp is done with the previous k / v tiles
-    for (int i = threadIdx.x; i < BK * (D / 8); i += TC_NT) {
-      const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-      if (k0 + r < tk) {
-        kv = *reinterpret_cast<const uint4*>(kb + (k0 + r) * row + c);
-        vv = *reinterpret_cast<const uint4*>(vb + (k0 + r) * row + c);
-      }
-      *reinterpret_cast<uint4*>(ks + r * LDB + c) = kv;
-      *reinterpret_cast<uint4*>(vs + r * LDB + c) = vv;
+  if (threadIdx.x >= WG) {  // the producer warp
+    const int pl = threadIdx.x - WG;
+    const int col = head * D;
+    if (pl == 0) {
+      hw::mbar_expect_tx(q_full, BOX_BYTES);
+      hw::tma_load3(qs, &p.q, q_full, col, q0, b);
     }
-    __syncthreads();
+    const unsigned char* mb = p.mask + (long long)b * p.tk;
+    hw::Ring<STAGES> r;
+    for (int t = 0; t < ntiles; ++t) {
+      const int k0 = t * BKV;
+      hw::mbar_wait(&empty[r.s], r.phase ^ 1);
+      if (pl == 0) {
+        uint8_t* st = ring + r.s * KV_BYTES;
+        hw::mbar_expect_tx(&full[r.s], KV_BYTES);
+        hw::tma_load3(st, &p.k, &full[r.s], col, k0, b);
+        hw::tma_load3(st + BOX_BYTES, &p.v, &full[r.s], col, k0, b);
+      }
+      // lane pl: keys k0 + 2 pl, k0 + 2 pl + 1, bits 2 pl .. of the tile's 64
+      uint32_t bits = 0;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int key = k0 + 2 * pl + i;
+        if (key < p.tk && mb[key]) bits |= 1u << i;
+      }
+      bits <<= 2 * (pl % 16);
+      uint32_t* words = reinterpret_cast<uint32_t*>(kbits + r.s);
+#pragma unroll
+      for (int w = 0; w < 2; ++w) {
+        const uint32_t word =
+            __reduce_or_sync(0xffffffffu, pl / 16 == w ? bits : 0u);
+        if (pl == w) words[w] = word;
+      }
+      hw::mbar_arrive(&full[r.s]);
+      r.advance();
+    }
+    return;
+  }
 
-    // scores of this warp's 16 rows x 64 keys: 8 tiles of 8 keys
-    float s[BK / 8][4];
+  // the consumer warpgroup: this thread holds rows q[0], q[1] = q[0] + 8
+  // and columns 8 j + 2 t4 + {0, 1} of each tile
+  const int lane = threadIdx.x % 32, t4 = lane % 4;
+  const int wrow = 16 * (threadIdx.x / 32) + lane / 4;
+  const int q[2] = {q0 + wrow, q0 + wrow + 8};
+  const long long bh = (long long)b * p.heads + head;
+  const float sl2 = p.scale * kLog2e;
+  float o[32], s[32];
+  uint32_t pa[16];  // P in bf16 pairs: slice kk of the A operand is pa[4 kk ..]
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
 #pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
+  for (int i = 0; i < 32; ++i) o[i] = 0.0f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) s[nt][i] = 0.0f;
-      const uint32_t* kr =
-          reinterpret_cast<const uint32_t*>(ks + (nt * 8 + g) * LDB);
+  for (int i = 0; i < 16; ++i) pa[i] = 0u;
+  hw::fence_regs(o);
+  hw::fence_regs(pa);
+  hw::mbar_wait(q_full, 0);
+
+  int st = 0, prev = -1;
+  uint32_t phase = 0;
+  for (int kt = 0; kt < ntiles; ++kt) {
+    const int k0 = kt * BKV;
+    const uint8_t* ks = ring + st * KV_BYTES;
+    hw::mbar_wait(&full[st], phase);
+    hw::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const int c = (kk * 16 + 2 * t4) / 2;
-        mma16816(s[nt], qa[kk], kr[c], kr[c + 4]);
-      }
+    for (int kk = 0; kk < 4; ++kk) {  // S = q k^T
+      hw::wgmma_m64n64k16<0, 0>(s, hw::desc_sw128(qs + kk * 32, 16, SBO),
+                                hw::desc_sw128(ks + kk * 32, 16, SBO), kk);
     }
-    // mask and scale; the online-softmax update of both rows
-    float rmax0 = -INFINITY, rmax1 = -INFINITY;
+    hw::wgmma_commit();
+    if (prev >= 0) {  // O += P v of the previous tile, behind S
+      const uint8_t* vs = ring + prev * KV_BYTES + BOX_BYTES;
 #pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
+      for (int kk = 0; kk < 4; ++kk) {
+        hw::wgmma_m64n64k16_rs<1>(o, pa[4 * kk], pa[4 * kk + 1],
+                                  pa[4 * kk + 2], pa[4 * kk + 3],
+                                  hw::desc_sw128(vs + kk * 2048, LBO, SBO),
+                                  1);
+      }
+      hw::wgmma_commit();
+    }
+    // a tile of valid keys below the diagonal needs no masking
+    const uint64_t valid = kbits[st];
+    const bool plain_tile =
+        valid == ~0ull && (!p.causal || k0 + BKV - 1 <= q0);
+    if (prev >= 0) {
+      hw::wgmma_wait<1>();  // S; P v may still run
+    } else {
+      hw::wgmma_wait<0>();
+    }
+    hw::fence_regs(s);
+    if (plain_tile) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int kj = k0 + nt * 8 + 2 * t4 + (i & 1);
-        const int qi = i < 2 ? qr0 : qr1;
-        float x;
-        if (kj >= tk) {
-          x = -INFINITY;  // past the end: no weight at all
-        } else if (!mb[kj] || (causal && kj > qi)) {
-          x = kNegInf;
-        } else {
-          x = s[nt][i] * scale;
+      for (int e = 0; e < 32; ++e) s[e] *= sl2;
+    } else {
+      mask_scores(s, sl2, valid, k0, p.tk, p.causal, q, t4);
+    }
+    // the online softmax in log2 units; the tile holds key k0 < Tk, so each
+    // row's new max is at least -1e30 and finite
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        mx = fmaxf(mx, fmaxf(s[4 * j + 2 * i], s[4 * j + 2 * i + 1]));
+      }
+      const float mn = fmaxf(m[i], quad_max(mx));
+      alpha[i] = ex2(m[i] - mn);  // 0 on the first tile
+      m[i] = mn;
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float& x = s[4 * j + 2 * i + c];
+          x = ex2(x - mn);
+          sum += x;
         }
-        s[nt][i] = x;
-        if (i < 2) rmax0 = fmaxf(rmax0, x); else rmax1 = fmaxf(rmax1, x);
+      l[i] = l[i] * alpha[i] + sum;  // this lane's share of the row
+    }
+    if constexpr (DROP) {  // K14's mask, while the previous tile's P v runs
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (k0 + 8 * j >= p.tk) break;  // p is 0 past Tk (the whole warp)
+        float mk[2][2];
+        smx::accum_mask(p.drop, bh * p.tq + q[0], k0 + 8 * j + 2 * t4, lane,
+                        mk);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          s[4 * j + 2 * i] *= mk[i][0];
+          s[4 * j + 2 * i + 1] *= mk[i][1];
+        }
       }
     }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      rmax0 = fmaxf(rmax0, __shfl_xor_sync(0xffffffffu, rmax0, off));
-      rmax1 = fmaxf(rmax1, __shfl_xor_sync(0xffffffffu, rmax1, off));
-    }
-    // the tile holds key k0 < tk, so each row max >= kNegInf is finite
-    const float mn0 = fmaxf(m0, rmax0), mn1 = fmaxf(m1, rmax1);
-    const float al0 = expf(m0 - mn0), al1 = expf(m1 - mn1);  // 0 at first
-    float rs0 = 0.0f, rs1 = 0.0f;
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-      s[nt][0] = expf(s[nt][0] - mn0);
-      s[nt][1] = expf(s[nt][1] - mn0);
-      s[nt][2] = expf(s[nt][2] - mn1);
-      s[nt][3] = expf(s[nt][3] - mn1);
-      rs0 += s[nt][0] + s[nt][1];
-      rs1 += s[nt][2] + s[nt][3];
+    if (prev >= 0) {
+      hw::wgmma_wait<0>();  // P v of the previous tile: its stage is free
+      hw::fence_regs(o);
+      hw::fence_regs(pa);
+      hw::mbar_arrive(&empty[prev]);
     }
 #pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      rs0 += __shfl_xor_sync(0xffffffffu, rs0, off);
-      rs1 += __shfl_xor_sync(0xffffffffu, rs1, off);
-    }
-    l0 = l0 * al0 + rs0;
-    l1 = l1 * al1 + rs1;
-    m0 = mn0;
-    m1 = mn1;
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt) {
-      o[nt][0] *= al0;
-      o[nt][1] *= al0;
-      o[nt][2] *= al1;
-      o[nt][3] *= al1;
-    }
-    if constexpr (DROP) {
-      // lanes t4 and t4 ^ 1 hold keys 4 j .. 4 j + 3 of rows qr0 and qr1:
-      // the even lane draws row qr0's words, the odd lane row qr1's, and
-      // each sends the other the two words of its keys
-      const bool odd = t4 & 1;
-      const long long row =
-          ((long long)b * heads + head) * tq + (odd ? qr1 : qr0);
-#pragma unroll
-      for (int nt = 0; nt < BK / 8; ++nt) {
-        const uint4 r = drop.bits4(row, (k0 + nt * 8) / 4 + (t4 >> 1));
-        const uint32_t got0 = __shfl_xor_sync(0xffffffffu, odd ? r.x : r.z, 1);
-        const uint32_t got1 = __shfl_xor_sync(0xffffffffu, odd ? r.y : r.w, 1);
-        // words of keys 2 t4, 2 t4 + 1: even lanes own r.x, r.y of qr0;
-        // odd lanes own r.z, r.w of qr1
-        s[nt][0] *= drop.keep(odd ? got0 : r.x);
-        s[nt][1] *= drop.keep(odd ? got1 : r.y);
-        s[nt][2] *= drop.keep(odd ? r.z : got0);
-        s[nt][3] *= drop.keep(odd ? r.w : got1);
+      for (int i = 0; i < 2; ++i) {
+        o[4 * j + 2 * i] *= alpha[i];
+        o[4 * j + 2 * i + 1] *= alpha[i];
       }
-    }
-    // o += P . v: the score accumulators of key tiles 2kk, 2kk+1 are the
-    // A fragment of keys 16kk .. 16kk+15
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      const bf16* v0 = vs + (kk * 16 + 2 * t4) * LDB + g;
-#pragma unroll
-      for (int nt = 0; nt < D / 8; ++nt) {
-        const bf16* vp = v0 + nt * 8;
-        mma16816(o[nt], pa, pack_bf16(vp[0], vp[LDB]),
-                 pack_bf16(vp[8 * LDB], vp[9 * LDB]));
-      }
+    for (int e = 0; e < 16; ++e) pa[e] = pack_bf16(s[2 * e], s[2 * e + 1]);
+    prev = st;
+    if (++st == STAGES) {
+      st = 0;
+      phase ^= 1;
     }
   }
-
-  bf16* ob = out + (long long)b * tq * row + head * D + 2 * t4;
-  const float inv0 = 1.0f / fmaxf(l0, 1e-30f), inv1 = 1.0f / fmaxf(l1, 1e-30f);
+  {  // O += P v of the last tile
+    const uint8_t* vs = ring + prev * KV_BYTES + BOX_BYTES;
+    hw::wgmma_fence();
 #pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) {
-    if (qr0 < tq) {
-      *reinterpret_cast<uint32_t*>(ob + qr0 * row + nt * 8) =
-          pack_bf16(o[nt][0] * inv0, o[nt][1] * inv0);
+    for (int kk = 0; kk < 4; ++kk) {
+      hw::wgmma_m64n64k16_rs<1>(o, pa[4 * kk], pa[4 * kk + 1],
+                                pa[4 * kk + 2], pa[4 * kk + 3],
+                                hw::desc_sw128(vs + kk * 2048, LBO, SBO), 1);
     }
-    if (qr1 < tq) {
-      *reinterpret_cast<uint32_t*>(ob + qr1 * row + nt * 8) =
-          pack_bf16(o[nt][2] * inv1, o[nt][3] * inv1);
-    }
+    hw::wgmma_commit();
+    hw::wgmma_wait<0>();
+    hw::fence_regs(o);
+    hw::fence_regs(pa);
   }
-  if (lse != nullptr && t4 == 0) {
-    float* lb = lse + ((long long)b * heads + head) * tq;
-    if (qr0 < tq) lb[qr0] = m0 + logf(l0);
-    if (qr1 < tq) lb[qr1] = m1 + logf(l1);
+  const long long stride = (long long)p.heads * D;
+  bf16* ob = p.out + (long long)b * p.tq * stride + head * D + 2 * t4;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float li = quad_sum(l[i]);
+    if (q[i] >= p.tq) continue;
+    const float inv = 1.0f / fmaxf(li, 1e-30f);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(ob + q[i] * stride + 8 * j) =
+          __floats2bfloat162_rn(o[4 * j + 2 * i] * inv,
+                                o[4 * j + 2 * i + 1] * inv);
+    }
+    if (p.lse != nullptr && t4 == 0) {
+      p.lse[bh * p.tq + q[i]] = m[i] * kLn2 + logf(li);
+    }
   }
 }
 
@@ -475,11 +607,29 @@ int launch_tc(const void* q, const void* k, const void* v,
               const unsigned char* mask, void* out, float* lse, int batch,
               int tq, int tk, int heads, float scale, int causal,
               smx::Dropout drop, cudaStream_t stream) {
+  FwdArgs p;
+  const uint64_t cols = (uint64_t)heads * D;
+  if (!hw::make_map3(&p.q, q, batch, tq, cols, BOX_ROWS, D) ||
+      !hw::make_map3(&p.k, k, batch, tk, cols, BOX_ROWS, D) ||
+      !hw::make_map3(&p.v, v, batch, tk, cols, BOX_ROWS, D)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  p.mask = mask;
+  p.out = static_cast<bf16*>(out);
+  p.lse = lse;
+  p.tq = tq;
+  p.tk = tk;
+  p.heads = heads;
+  p.scale = scale;
+  p.causal = causal;
+  p.drop = drop;
+  cudaError_t err = cudaFuncSetAttribute(
+      attention_fwd_tc_kernel<DROP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(TC_SMEM));
+  if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((tq + BQ - 1) / BQ, heads, batch);
-  attention_fwd_tc_kernel<DROP><<<grid, TC_NT, 0, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), mask, static_cast<bf16*>(out), lse, tq, tk,
-      heads, scale, causal, drop);
+  attention_fwd_tc_kernel<DROP><<<grid, TC_THREADS, TC_SMEM, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -500,7 +650,7 @@ int launch(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == smx::kBF16) {
-    // the tensor-core kernel reads q / k / v rows as 16-byte words
+    // the TMA reads q / k / v from 16-byte-aligned bases
     if (!aligned16(q) || !aligned16(k) || !aligned16(v)) {
       return static_cast<int>(cudaErrorMisalignedAddress);
     }

@@ -1,11 +1,12 @@
 // Hopper (sm_90a) building blocks of the port's TMA + wgmma kernels: 2-D
-// and 3-D tensor maps for the Tensor Memory Accelerator, mbarrier waits and
-// arrivals, TMA tile loads, shared-memory matrix descriptors, the
-// m64n256k16, m64n128k16 and m64n64k16 bf16 warpgroup products (A in shared
-// memory or, for n64, in registers) with their fences, TMA tile stores, the
-// thread-block cluster's barrier and stores to another block's shared
-// memory, and the stage ring (producer and consumer sides) that the kernels
-// of ffn_bwd.cu, ffn_fwd.cu, attention_bwd.cu and dense_res_ln.cu share.
+// and 3-D tensor maps (dense or strided) for the Tensor Memory Accelerator,
+// mbarrier waits and arrivals, TMA tile loads, shared-memory matrix
+// descriptors, the m64n256k16, m64n128k16 and m64n64k16 bf16 warpgroup
+// products (A in shared memory or, for n64, in registers) with their
+// fences, TMA tile stores, the thread-block cluster's barrier and stores to
+// another block's shared memory, and the stage ring (producer and consumer
+// sides) that the kernels of ffn_bwd.cu, ffn_fwd.cu, attention_fwd.cu,
+// attention_bwd.cu, dense_res_ln.cu and conv_ln_gelu.cu share.
 //
 // Layout used throughout: every operand tile in shared memory is a stack of
 // 128-byte rows written by TMA with the 128-byte swizzle, its base 1024-byte
@@ -71,24 +72,35 @@ inline bool make_map(CUtensorMap* map, const void* base, uint64_t rows,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// A row-major (batches, rows, cols) bf16 tensor, loaded in boxes of
-// (box_rows, box_cols) of one batch, box_cols * 2 == 128 bytes, with the
-// 128-byte swizzle.  Rows past `rows` load as zeros within their own batch:
-// a box at the end of one batch never reads the next batch's rows.
-inline bool make_map3(CUtensorMap* map, const void* base, uint64_t batches,
-                      uint64_t rows, uint64_t cols, uint32_t box_rows,
-                      uint32_t box_cols) {
+// A (batches, rows, cols) bf16 view, element (batch, row, col) at base +
+// batch * batch_stride + row * row_stride + col (strides in elements, each
+// a multiple of 8: 16 bytes), loaded in boxes of (box_rows, box_cols) of
+// one batch, box_cols * 2 == 128 bytes, with the 128-byte swizzle.  Rows
+// past `rows` load as zeros within their own batch: a box at the end of
+// one batch never reads the next batch's rows.
+inline bool make_map3_strided(CUtensorMap* map, const void* base,
+                              uint64_t batches, uint64_t rows, uint64_t cols,
+                              uint64_t row_stride, uint64_t batch_stride,
+                              uint32_t box_rows, uint32_t box_cols) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[3] = {cols, rows, batches};
-  const cuuint64_t strides[2] = {cols * sizeof(__nv_bfloat16),
-                                 rows * cols * sizeof(__nv_bfloat16)};
+  const cuuint64_t strides[2] = {row_stride * sizeof(__nv_bfloat16),
+                                 batch_stride * sizeof(__nv_bfloat16)};
   const cuuint32_t box[3] = {box_cols, box_rows, 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
             dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The same over a row-major (batches, rows, cols) tensor.
+inline bool make_map3(CUtensorMap* map, const void* base, uint64_t batches,
+                      uint64_t rows, uint64_t cols, uint32_t box_rows,
+                      uint32_t box_cols) {
+  return make_map3_strided(map, base, batches, rows, cols, cols, rows * cols,
+                           box_rows, box_cols);
 }
 
 // ---------------------------------------------------------------- device

@@ -99,6 +99,79 @@ def attention_fwd_plain(q, k, v, kv_mask, heads, scale, causal=False,
     return out
 
 
+# the bf16 forward kernel's tiles: a block holds 64 queries and walks 64-key
+# tiles
+FWD_QUERY_BLOCK = 64
+FWD_KEY_TILE = 64
+_LOG2E = 1.4426950408889634
+_LN2 = 0.6931471805599453
+
+
+def attention_fwd_tiled_plain(q, k, v, kv_mask, heads, scale, causal=False,
+                              return_lse=False, dmask=None):
+    """K1 / K14's bf16 forward in plain PyTorch, tile for tile: per block of
+    FWD_QUERY_BLOCK queries, an online softmax over FWD_KEY_TILE-key tiles
+    in order, in log2 units (logits times scale * log2(e); an excluded logit
+    is -1e30 * log2(e), a key past Tk is not there: the kernel's -inf gives
+    it no weight); the running max m, the rescale 2^(m_old - m_new) of the
+    output and of the f32 denominator, which sums the unrounded
+    probabilities; P times the dropout mask (dmask, (B, H, Tq, Tk) float32,
+    or None), rounded to q's dtype before P . v; out = o / l and lse = m ln 2
+    + log l.  Under `causal` a block stops at the key tile of its last
+    query, unless a row of the block has no valid key at or before its
+    query (then it averages all Tk keys, and the block visits every tile).
+    Nothing on the card's path calls it: it pins the kernel's structure in
+    the tests and in chip_smoke.py."""
+    b, tq, hd = q.shape
+    tk = k.shape[1]
+    d = hd // heads
+    split = lambda x, t: x.float().reshape(b, t, heads, d).transpose(1, 2)
+    qf, kf, vf = split(q, tq), split(k, tk), split(v, tk)
+    if kv_mask is None:
+        kv_mask = torch.ones((b, tk), dtype=torch.bool, device=q.device)
+    valid = kv_mask.bool()
+    neg2 = torch.tensor(NEG_INF, dtype=torch.float32) * _LOG2E
+    sl2 = torch.tensor(scale, dtype=torch.float32) * _LOG2E
+    out = torch.empty_like(qf)
+    lse = torch.empty(b, heads, tq, dtype=torch.float32, device=q.device)
+    tiles = -(-tk // FWD_KEY_TILE)
+    for q0 in range(0, tq, FWD_QUERY_BLOCK):
+        qs = slice(q0, min(q0 + FWD_QUERY_BLOCK, tq))
+        qi = torch.arange(qs.start, qs.stop, device=q.device)[:, None]
+        # per batch row: the key tiles this block visits
+        visit = torch.full((b,), tiles, device=q.device)
+        if causal:
+            has_key = valid[:, :min(q0, tk - 1) + 1].any(1)
+            visit = torch.where(has_key, min(tiles, (qs.stop - 1)
+                                             // FWD_KEY_TILE + 1), visit)
+        rows = qs.stop - qs.start
+        m = torch.full((b, heads, rows, 1), -torch.inf, device=q.device)
+        l = torch.zeros(b, heads, rows, 1, device=q.device)
+        o = torch.zeros(b, heads, rows, d, device=q.device)
+        for t in range(tiles):
+            ks = slice(t * FWD_KEY_TILE, min((t + 1) * FWD_KEY_TILE, tk))
+            kj = torch.arange(ks.start, ks.stop, device=q.device)[None, :]
+            allowed = valid[:, None, None, ks]
+            if causal:
+                allowed = allowed & (kj <= qi)
+            x = torch.where(allowed, (qf[:, :, qs] @ kf[:, :, ks]
+                                      .transpose(-1, -2)) * sl2, neg2)
+            m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(x - m_new)
+            step = (t < visit)[:, None, None, None]
+            l = torch.where(step, l * alpha + p.sum(-1, keepdim=True), l)
+            if dmask is not None:
+                p = p * dmask[:, :, qs, ks]
+            pv = p.to(q.dtype).float() @ vf[:, :, ks]
+            o = torch.where(step, o * alpha + pv, o)
+            m = torch.where(step, m_new, m)
+        out[:, :, qs] = o / l.clamp_min(1e-30)
+        lse[:, :, qs] = (m * _LN2 + torch.log(l))[..., 0]
+    out = out.transpose(1, 2).reshape(b, tq, hd).to(q.dtype)
+    return (out, lse) if return_lse else out
+
+
 def _check_slabs(what, q, k, v, kv_mask, heads):
     """Shared checks of the K1 / K7 wrappers; returns (mask, dtype code)."""
     b, tq, hd = q.shape

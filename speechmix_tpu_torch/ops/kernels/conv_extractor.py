@@ -60,6 +60,56 @@ def fused_conv_layer_plain(x, kernel, bias=None, ln_params=None, ln_eps=1e-5):
     return F.gelu(y).to(x.dtype)
 
 
+# the bf16 kernel's tiles: 128 output rows of one batch row, 64-channel
+# steps of each tap, LayerNorm sums over 128-column slices
+ROW_TILE = 128
+K_STEP = 64
+LN_SLICE = 128
+
+
+def fused_conv_layer_tiled_plain(x, kernel, bias=None, ln_params=None,
+                                 ln_eps=1e-5):
+    """fused_conv_layer_plain as the bfloat16 kernel computes it: per batch
+    row, tiles of ROW_TILE output rows cut at T_out; each tile the f32 sum
+    over taps j, then K_STEP-channel steps, of x[2 t + j, step] @
+    w_j[step] (w_j = kernel[:, :, j]^T); plus bias; with LayerNorm the
+    mean from the LN_SLICE-column slices' row sums added in slice order,
+    then the variance from those of the squared centred values; exact-erf
+    GELU, rounded once to x's dtype.  Nothing on the card's path calls it:
+    it pins the kernel's structure in the tests and in chip_smoke.py."""
+    _check_geometry(x, kernel)
+    c, _, k = kernel.shape
+    b, t_in, _ = x.shape
+    t_out = (t_in - k) // STRIDE + 1
+    w = kernel.float().permute(2, 1, 0)  # (k, C_in, C_out)
+    out = torch.empty((b, t_out, c), dtype=x.dtype, device=x.device)
+
+    def row_sum(t):
+        total = torch.zeros(t.shape[:-1], dtype=torch.float32,
+                            device=t.device)
+        for part in t.split(LN_SLICE, dim=-1):
+            total = total + part.sum(-1)
+        return total[..., None]
+
+    for t0 in range(0, t_out, ROW_TILE):
+        t1 = min(t0 + ROW_TILE, t_out)
+        acc = torch.zeros((b, t1 - t0, c), dtype=torch.float32,
+                          device=x.device)
+        for j in range(k):
+            rows = x[:, STRIDE * t0 + j:STRIDE * (t1 - 1) + j + 1:STRIDE]
+            for c0 in range(0, c, K_STEP):
+                acc = acc + (rows[..., c0:c0 + K_STEP].float()
+                             @ w[j, c0:c0 + K_STEP])
+        if bias is not None:
+            acc = acc + bias.float()
+        if ln_params is not None:
+            dev = acc - row_sum(acc) / c
+            acc = (dev * torch.rsqrt(row_sum(dev * dev) / c + ln_eps)
+                   * ln_params["scale"].float() + ln_params["bias"].float())
+        out[:, t0:t1] = F.gelu(acc).to(x.dtype)
+    return out
+
+
 def fused_conv_layer(x, kernel, bias=None, ln_params=None, ln_eps=1e-5):
     """K6; see fused_conv_layer_plain.  CUDA tensors need x and kernel in one
     dtype (float32 or bfloat16), x contiguous, C <= 1024; bfloat16 needs
