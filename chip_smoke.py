@@ -10,7 +10,10 @@ Phases, each printing as it goes; any failure exits non-zero:
      against attention_fwd_tiled_plain, its tiles in plain PyTorch, and
      twice, bit for bit, with causal rows that have no allowed key; K2
      dense_res_ln, K3 ffn_res_ln, K4 decode_attention with float and with
-     int8 K/V, K5 beam_gather, K6 conv_ln_gelu (in bf16 also against
+     int8 K/V (in bf16 also against decode_attention_split_plain, its
+     cluster decomposition in plain PyTorch, and twice, bit for bit, at the
+     decoder's four shapes, at T = 1500 and on edge-mask rows; timed beside
+     its serial body), K5 beam_gather, K6 conv_ln_gelu (in bf16 also against
      fused_conv_layer_tiled_plain and twice, bit for bit, at the six
      extractor layers), K7 attention_bwd (also
      against attention_bwd_tiled_plain, its tiles in plain PyTorch), K8 ffn_bwd
@@ -69,7 +72,9 @@ Phases, each printing as it goes; any failure exits non-zero:
      K11 30 - k, K10 64 - 2k, K6 6, and no deterministic twin;
   6. print the `kernels` JSON line (K1, K14, K7 and K15 with a record per
      attention length of the step and its launches there, K6 one per
-     extractor layer), then the card line, then the result line
+     extractor layer, K4 one per decoder shape with its launches at that key
+     length and its serial body's ms), then the card line, then the result
+     line
      {"ok": true, "device": {...}} last.
 Without CUDA it exits 1 before printing any result.
 """
@@ -511,11 +516,51 @@ def decode_bf16_limit(q, k, v, mask, scales, ref):
     return 2.0 ** -8 * pv + 2.0 ** -7 * ref.float().abs()
 
 
+# K4 at the decoder's shapes: (name, K/V rows, queries per row, keys)
+DECODE_SHAPES = (("self greedy", 16, 1, 64), ("self beam-4", 64, 1, 64),
+                 ("cross greedy", 16, 1, 400), ("cross beam-4", 16, 4, 400),
+                 ("cross greedy T=1500", 16, 1, 1500))
+
+
+def decode_mask(name, bkv, t, dev):
+    """Self-attention: the slots up to the row's step are filled; cross-
+    attention: encoder rows of 200 to 400 (750 to 1500) valid frames."""
+    import torch
+    rows = torch.arange(bkv, device=dev)
+    fill = (rows % t if name.startswith("self")
+            else t - 1 - (rows * 23) % (t // 2))
+    return torch.arange(t, device=dev)[None, :] <= fill[:, None]
+
+
+def check_decode_case(name, q, k, v, mask, scales):
+    """K4 on one input against its plain version and, in bf16, against
+    decode_attention_split_plain (the cluster body's ranges) and itself in
+    a second call, bit for bit.  Returns the max error against the plain
+    version."""
+    import torch
+    from speechmix_tpu_torch.ops.kernels import decode_attention as kd
+    args = dict(scale=0.125, num_heads=k.shape[2], **scales)
+    out = kd.decode_attention(q, k, v, mask, **args)
+    ref = kd.decode_attention_plain(q, k, v, mask, **args)
+    torch.cuda.synchronize()
+    if q.dtype != torch.bfloat16:
+        return compare(name, out, ref)
+    err = compare(name, out, ref, decode_bf16_limit(q, k, v, mask, scales,
+                                                    ref), K1_BF16_RULE)
+    split = kd.decode_attention_split_plain(q, k, v, mask, **args)
+    compare(f"{name} vs split", out, split,
+            decode_bf16_limit(q, k, v, mask, scales, split), K1_BF16_RULE)
+    expect_equal(f"K4 {name}", (out,), (kd.decode_attention(q, k, v, mask,
+                                                            **args),))
+    return err
+
+
 def check_decode_attention(randn, dev, records):
     """K4 at the decoder's shapes: self-attention over the 64-slot cache
     (16 rows greedy, 64 rows with 4 beams) and cross-attention over 400
-    encoder positions with kb = 1 (greedy) and kb = 4 (beams share K/V),
-    float and int8 K/V, ragged masks."""
+    encoder positions with kb = 1 (greedy) and kb = 4 (beams share K/V), and
+    over 1500 (30 s of audio), float and int8 K/V, ragged masks; then mask
+    rows with a fully masked row, one key, holes and late keys."""
     import torch
     import torch.nn.functional as F
     from speechmix_tpu_torch.models.seq2seq import _quantize_kv
@@ -524,15 +569,8 @@ def check_decode_attention(randn, dev, records):
     log("K4 decode_attention")
     heads, d = 12, 64
     timed = {}
-    for name, bkv, kb, t in (("self greedy", 16, 1, 64),
-                             ("self beam-4", 64, 1, 64),
-                             ("cross greedy", 16, 1, 400),
-                             ("cross beam-4", 16, 4, 400)):
-        if name.startswith("self"):     # slots <= the row's step are filled
-            fill = torch.arange(bkv, device=dev) % t
-        else:
-            fill = t - 1 - (torch.arange(bkv, device=dev) * 23) % (t // 2)
-        mask = torch.arange(t, device=dev)[None, :] <= fill[:, None]
+    for name, bkv, kb, t in DECODE_SHAPES:
+        mask = decode_mask(name, bkv, t, dev)
         for dtype in (torch.bfloat16, torch.float32):
             q = randn(bkv * kb, 1, heads, d, dtype=dtype)
             k, v = (randn(bkv, t, heads, d, dtype=dtype) for _ in range(2))
@@ -542,39 +580,32 @@ def check_decode_attention(randn, dev, records):
                 variants.append(("int8", kq, vq,
                                  dict(k_scale=ks, v_scale=vs)))
             for kind, kk, vv, scales in variants:
-                call = lambda: kd.decode_attention(
-                    q, kk, vv, mask, scale=0.125, num_heads=heads, **scales)
-                out = call()
-                ref = kd.decode_attention_plain(
-                    q, kk, vv, mask, scale=0.125, num_heads=heads, **scales)
-                torch.cuda.synchronize()
-                limit = rule = None
-                if dtype == torch.bfloat16:
-                    limit = decode_bf16_limit(q, kk, vv, mask, scales, ref)
-                    rule = K1_BF16_RULE
-                err = compare(f"{name} B={bkv} kb={kb} T={t} {kind} K/V "
-                              f"{dtype}", out, ref, limit, rule)
-                if dtype == torch.bfloat16:
+                err = check_decode_case(
+                    f"{name} B={bkv} kb={kb} T={t} {kind} K/V {dtype}", q,
+                    kk, vv, mask, scales)
+                if dtype == torch.bfloat16 and t < 1500:
                     timed[name, kind] = (q, kk, vv, mask, scales, err)
-    # a mask row that attends nothing (softmax over the scores shifted by
-    # -1e9, the plain version's result), one with holes before its last
-    # attended key, and rows whose tail the kernel does not read
-    q = randn(8, 1, heads, d)
-    k, v = (randn(4, 100, heads, d) for _ in range(2))
-    mask = torch.arange(100, device=dev)[None, :] < torch.tensor(
-        [0, 1, 37, 100], device=dev)[:, None]
-    mask[2, 1::3] = False
-    (kq, ks), (vq, vs) = _quantize_kv(k), _quantize_kv(v)
-    for kind, kk, vv, scales in (("float", k, v, {}),
-                                 ("int8", kq, vq, dict(k_scale=ks,
-                                                       v_scale=vs))):
-        compare(f"rows fully masked / 1 key / with holes / full, kb=2 T=100 "
-                f"{kind} K/V "
-                f"{q.dtype}",
-                kd.decode_attention(q, kk, vv, mask, scale=0.125,
-                                    num_heads=heads, **scales),
-                kd.decode_attention_plain(q, kk, vv, mask, scale=0.125,
-                                          num_heads=heads, **scales))
+    # mask rows: none attended (softmax over the scores shifted by -1e9, the
+    # plain version's result), key 0 alone, a prefix with holes, all, a
+    # late window only (earlier ranges without an attended key) and the
+    # last key alone; kb = 2
+    for t in (100, 400, 1500):
+        lens = torch.tensor([0, 1, 37, t, 0, 0], device=dev)
+        mask = torch.arange(t, device=dev)[None, :] < lens[:, None]
+        mask[2, 1::3] = False
+        mask[4, t // 2:t // 2 + 10] = True
+        mask[5, t - 1] = True
+        for dtype in (torch.bfloat16, torch.float32):
+            q = randn(12, 1, heads, d, dtype=dtype)
+            k, v = (randn(6, t, heads, d, dtype=dtype) for _ in range(2))
+            (kq, ks), (vq, vs) = _quantize_kv(k), _quantize_kv(v)
+            for kind, kk, vv, scales in (("float", k, v, {}),
+                                         ("int8", kq, vq,
+                                          dict(k_scale=ks, v_scale=vs))):
+                check_decode_case(
+                    f"rows fully masked / 1 key / with holes / full / late "
+                    f"window / last key, kb=2 T={t} {kind} K/V {dtype}", q,
+                    kk, vv, mask, scales)
     # refusals: a head_dim the kernel is not built for, K/V in another type
     # than q, a misaligned q
     q = randn(16, 1, heads, d, dtype=torch.bfloat16)
@@ -626,18 +657,20 @@ def check_decode_attention(randn, dev, records):
             shape=f"{name}: q {tuple(q.shape)} k/v {tuple(k.shape)} "
                   f"{kind} K/V bf16 q, {attended} of {mask.numel()} keys "
                   "attended",
-            max_abs_err=err,
+            max_abs_err=err, length=k.shape[1],
             ms=timed_ms(lambda k_, v_, sc: kd.decode_attention(
+                q, k_, v_, mask, scale=0.125, num_heads=heads, **sc)),
+            serial_ms=timed_ms(lambda k_, v_, sc: kd.decode_attention_serial(
                 q, k_, v_, mask, scale=0.125, num_heads=heads, **sc)),
             plain_ms=timed_ms(lambda k_, v_, sc: kd.decode_attention_plain(
                 q, k_, v_, mask, scale=0.125, num_heads=heads, **sc)),
             library_ms=timed_ms(lambda k_, v_, sc: sdpa(q, k_, v_, mask, sc)),
             flops=4.0 * kb * attended * heads * d, bytes=nbytes)
-        if name == "cross greedy":      # the records of the kernels line
-            records["decode_attention" if kind == "float"
-                    else "decode_attention_q8"] = rec
-        else:
-            records[f"decode_attention ({name}, {kind})"] = rec
+        log(f"  {name} {kind} K/V: {rec['ms']:.4f} ms, the serial body "
+            f"alone {rec['serial_ms']:.4f} ms")
+        entry = "decode_attention" if kind == "float" else "decode_attention_q8"
+        records[entry if name == "cross greedy"
+                else f"{entry} ({name})"] = rec
 
 
 def check_beam_gather(randn, gen, dev, records):
@@ -1819,6 +1852,9 @@ DROPOUT_KERNELS = ("smx_dropout_mask", "smx_dense_dropout_res_ln",
                    "smx_attention_dropout_fwd", "smx_attention_dropout_bwd",
                    "smx_ffn_dropout_bwd_recompute", "smx_ffn_dropout_bwd_dx",
                    "smx_ffn_dropout_bwd_dw")
+# K4's serial body through its own entries: timed beside the cluster body
+# in phase 3, never launched by the path
+K4_SERIAL = ("smx_decode_attention_serial", "smx_decode_attention_q8_serial")
 # K3 / K9 forward entries: in bf16 the passes of ffn_fwd.cu (K3 = up +
 # down_res + rows, K9 = up + down), in f32 the f32-FMA entries of
 # ffn_res_ln.cu; K12 / K13 take the dropout up and down_res passes in bf16,
@@ -1864,6 +1900,7 @@ def expected_launches(mode, steps):
             # self- and cross-attention of each decoder layer, each step
             "smx_decode_attention": 2 * DECODER_LAYERS * steps,
             "smx_decode_attention_q8": 0, "smx_beam_gather": 0,
+            **dict.fromkeys(K4_SERIAL, 0),
             # the training kernels: never under generate()
             "smx_attention_bwd": 0,
             **dict.fromkeys(K8_ALL, 0), **dict.fromkeys(DROPOUT_KERNELS, 0),
@@ -1879,12 +1916,21 @@ def expected_launches(mode, steps):
 
 def run_flagship(seed, card):
     """Phase 4.  Returns {mode: launch count of each kernel per generate()}
-    for the modes greedy, greedy-int8 and beam-4."""
+    and {mode: K4's launches per generate() by (entry, key length)} for the
+    modes greedy, greedy-int8 and beam-4."""
     import dataclasses
     import torch
     from speechmix_tpu_torch import config, generation
     from speechmix_tpu_torch.models import seq2seq, speechmix
     from speechmix_tpu_torch.ops import kernels
+    from speechmix_tpu_torch.ops.kernels import decode_attention as kd
+
+    # K4's launches by key length (the argument after the K/V and query
+    # row counts): self-attention over the cache, cross-attention over the
+    # encoder output
+    k4_lengths = collections.Counter()
+    for kern in (kd.KERNEL, kd.KERNEL_Q8):
+        kern.launch = _tally_by_length(kern, k4_lengths, 2)
 
     cfg = config.SpeechMixConfig(
         encoder=dataclasses.replace(
@@ -1907,12 +1953,13 @@ def run_flagship(seed, card):
              "greedy-int8": (dict(kv_int8=True), 4),
              "beam-4": (dict(num_beams=BEAMS, num_return_sequences=BEAMS,
                              output_scores=True), 4)}
-    counts, outputs = {}, {}
+    counts, outputs, by_length = {}, {}, {}
     for mode, (kwargs, calls) in modes.items():
         want = expected_launches(mode, MAX_LEN)
         warmup, times = (2 if mode == "greedy" else 1), []
         for i in range(calls):
             kernels.reset_launch_counts()
+            k4_lengths.clear()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = generation.generate(params, cfg, wav, lengths,
@@ -1929,6 +1976,9 @@ def run_flagship(seed, card):
             if i >= warmup:
                 times.append(dt)
         counts[mode], outputs[mode] = run_counts, out
+        by_length[mode] = dict(k4_lengths)
+        log(f"  {mode}: K4 launches by key length "
+            f"{ {f'{k[0]} {k[1]}': n for k, n in sorted(k4_lengths.items())} }")
         rows = BATCH * kwargs.get("num_return_sequences", 1)
         if out[0].shape != (rows, MAX_LEN) or (out[1] < 0).any():
             raise AssertionError(f"{mode}: bad generate output "
@@ -2021,7 +2071,7 @@ def run_flagship(seed, card):
         f"row; best {beam_scores.reshape(BATCH, BEAMS)[:, 0].mean():.3f}, "
         f"worst {beam_scores.reshape(BATCH, BEAMS)[:, -1].mean():.3f} (means "
         "over rows)")
-    return counts
+    return counts, by_length
 
 
 def stage_breakdown(params, cfg, wav, lengths, modes):
@@ -2089,9 +2139,11 @@ def stage_breakdown(params, cfg, wav, lengths, modes):
             for e in top[:10 if mode == "greedy" else 6]:
                 log(f"    {e.self_device_time_total / 1e3:9.2f} ms  "
                     f"{e.count:6d}x  {e.key[:90]}")
-            for label, name in (("attention forward (K1)", ATTN_FWD_KERNEL),
-                                ("extractor conv (K6)", CONV_KERNEL)):
-                log_kernel_sum(events, label, (name,),
+            for label, names in (("attention forward (K1)",
+                                  (ATTN_FWD_KERNEL,)),
+                                 ("extractor conv (K6)", (CONV_KERNEL,)),
+                                 ("decode attention (K4)", DECODE_KERNELS)):
+                log_kernel_sum(events, label, names,
                                f"the profiled {mode} generate")
 
 
@@ -2170,6 +2222,7 @@ def expected_train_launches(speech_layers, enc_layers, dec_layers, accum=1,
             **dict.fromkeys(K8_ENTRIES[dtype], layers),
             "smx_conv_ln_gelu": FUSED_CONV_LAYERS,
             "smx_decode_attention": 0, "smx_decode_attention_q8": 0,
+            **dict.fromkeys(K4_SERIAL, 0),
             "smx_beam_gather": 0, **dict.fromkeys(DROPOUT_KERNELS, 0),
             **ffn_forward_launches(layers, layers, dtype)}
     return {k: v * accum for k, v in want.items()}
@@ -2508,6 +2561,9 @@ DENSE_KERNEL = "dense_ln_kernel"
 # K1 / K14 and K6 in bf16 (attention_fwd.cu, conv_ln_gelu.cu)
 ATTN_FWD_KERNEL = "attention_fwd_tc_kernel"
 CONV_KERNEL = "conv_tc_kernel"
+# K4: the cluster body (bf16 q, 128 < T <= 2048) and the serial body (f32
+# q, the 64-slot self-attention cache, T > 2048)
+DECODE_KERNELS = ("decode_cluster_kernel", "decode_attention_kernel")
 KERNEL_NAME = re.compile(r"\w+_kernel(<[^>]*>)?")
 
 
@@ -2555,10 +2611,9 @@ def main():
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     records = check_kernels(gen, torch.device("cuda"))
-    counts = run_flagship(args.seed, card)
+    counts, by_length = run_flagship(args.seed, card)
     check_gradient_tree(args.seed)
     check_gradient_tree(args.seed, dropout=True)
-    by_length = {}
     counts["train"], by_length["train"] = run_training(args.seed, card)
     counts["train-dropout"], by_length["train-dropout"] = run_training(
         args.seed, card, dropout=True)
@@ -2595,6 +2650,17 @@ def main():
                              "greedy"),
         "decode_attention_q8": ("decode_attention.cu",
                                 "decode_attention.py:67", "greedy-int8"),
+        # K4 at its other shapes: the same launcher, its launches at that
+        # key length in that mode's run under launches_at_length
+        "decode_attention (self greedy)": (
+            "decode_attention.cu", "decode_attention.py:31", "greedy",
+            "smx_decode_attention"),
+        "decode_attention (self beam-4)": (
+            "decode_attention.cu", "decode_attention.py:31", "beam-4",
+            "smx_decode_attention"),
+        "decode_attention (cross beam-4)": (
+            "decode_attention.cu", "decode_attention.py:31", "beam-4",
+            "smx_decode_attention"),
         "beam_gather": ("beam_gather.cu", "beam_gather.py:39", "beam-4"),
         "conv_ln_gelu": ("conv_ln_gelu.cu", "conv_extractor.py:88", "greedy"),
         # K6 at extractor layers 2-6: the same launcher, its launches at
@@ -2689,7 +2755,7 @@ def main():
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             "shape": rec["shape"], "within_tolerance": True,
             **{k: v for k, v in rec.items()
-               if k.startswith("library_ms_")},
+               if k.startswith("library_ms_") or k == "serial_ms"},
         })
         for at_key in ("length", "rows", "t_in"):
             if at_key in rec:

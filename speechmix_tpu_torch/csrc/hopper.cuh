@@ -4,7 +4,8 @@
 // descriptors, the m64n256k16, m64n128k16 and m64n64k16 bf16 warpgroup
 // products (A in shared memory or, for n64, in registers) with their
 // fences, TMA tile stores, the thread-block cluster's barrier and stores to
-// another block's shared memory, and the stage ring (producer and consumer
+// another block's shared memory (plain, or st.async counted on the
+// receiver's mbarrier), and the stage ring (producer and consumer
 // sides) that the kernels of ffn_bwd.cu, ffn_fwd.cu, attention_fwd.cu,
 // attention_bwd.cu, dense_res_ln.cu and conv_ln_gelu.cu share.
 //
@@ -416,6 +417,59 @@ __device__ __forceinline__ void st_cluster(const void* p, uint32_t rank,
                : "r"(smem_addr(p)), "r"(rank));
   asm volatile("st.shared::cluster.f32 [%0], %1;" ::"r"(addr), "f"(v)
                : "memory");
+}
+
+// the first half of cluster_sync without its release: for a barrier whose
+// only purpose is that every block has started (and initialised its
+// mbarriers, fenced by mbar_fence_init) before any block writes to another
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+}
+
+// v to the same shared-memory offset as `p` in block `rank` of the
+// cluster, counted as 4 bytes of the transaction count of that block's
+// mbarrier at the offset of `bar` (st.async): the receiver waits on its
+// mbarrier (mbar_wait_cluster), not on a cluster barrier
+__device__ __forceinline__ void st_async(const void* p, uint32_t rank,
+                                         float v, const uint64_t* bar) {
+  uint32_t addr, rbar;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(addr)
+               : "r"(smem_addr(p)), "r"(rank));
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(rbar)
+               : "r"(smem_addr(bar)), "r"(rank));
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, "
+      "[%2];" ::"r"(addr),
+      "r"(__float_as_uint(v)), "r"(rbar)
+      : "memory");
+}
+
+// mbar_wait with acquire at cluster scope: the writes other blocks made
+// with st_async are visible after it
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
+                                                  uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done = 0;
+  long long start = -1;
+  do {
+    if (start < 0) {
+      start = clock64();
+    } else if (clock64() - start > (1LL << 35)) {
+      __trap();
+    }
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
 }
 
 template <int N>

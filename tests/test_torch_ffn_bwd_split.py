@@ -10,11 +10,17 @@ runs in interpret mode; the masked cases are held against the TPU package's
 CPU the port's entry wrappers run their plain versions, which are what the
 CUDA kernels are held against on the card.
 
-Tolerances.  float32: 1e-5 absolute and relative (the decomposition sums
-the rows in other groupings: per tile, per range).  bfloat16: the
-decomposition against ``ffn_bwd_plain``, which rounds the same f32 values at
-the same places, 1e-5 on dx (equal roundings) and on the f32 weight
-gradients.
+Tolerances: per element, from the error of f32 sums taken in another
+grouping (``_limits``).  A sum of n terms in f32 is off from the exact sum
+by at most n 2^-24 sum |terms| in any order, so two groupings differ by at
+most 2 n 2^-24 sum |terms|: dx = da w1^T over F, dw1 = x^T da, db1 = sum da
+and dw2 = h^T g over the N rows.  Against ``ffn_bwd_plain`` (the same h and
+da, to the bit) that is the whole limit; against the JAX package, which
+computes h and da itself, the limit adds what their own f32 sums over H may
+move them (|act'| <= 1.2, |act''| <= 1).  bfloat16: dx bit for bit (equal
+roundings of equal f32 values), the f32 weight gradients within the same
+limits.  The limits still catch a 64-row range dropped or counted twice
+(``test_split_limit_catches_a_range_dropped_or_doubled``).
 """
 
 import jax.numpy as jnp
@@ -26,8 +32,9 @@ from speechmix_tpu.ops.pallas import ffn_kernel as fk
 from speechmix_tpu_torch.ops.kernels import ffn as t_ffn
 
 ACTS = ["gelu", "gelu_new", "relu", "silu"]
-TOL = dict(rtol=1e-5, atol=1e-5)
 RATE = 0.1
+U = 2.0 ** -24
+NAMES = ("dx", "dw1", "db1", "dw2")
 
 
 def _inputs(n, h=128, f=256, seed=0, masked=False):
@@ -44,6 +51,48 @@ def _inputs(n, h=128, f=256, seed=0, masked=False):
 
 def _t(a, dtype=torch.float32):
     return None if a is None else torch.from_numpy(np.asarray(a)).to(dtype)
+
+
+def _limits(a, dtype=torch.float32, same_hidden=True):
+    """Per-element limits of (dx, dw1, db1, dw2), float64: 2 n 2^-24 times
+    the sum of the absolute terms of each f32 sum of n terms, over the h and
+    da that both sides share (same_hidden) or, for the JAX package's, plus
+    the spread of its own h and da through the same sums."""
+    x, g, w1, w2 = (_t(a[k], dtype) for k in ("x", "g", "w1", "w2"))
+    b1, amask = _t(a["b1"]), _t(a["amask"])
+    _, _, hid, da = t_ffn._hidden_and_da(x, g, w1, b1, w2, a["act"], amask)
+    x, g, w1, w2, b1 = (t.double().abs() for t in (x, g, w1, w2, b1))
+    hid, da = hid.double().abs(), da.double().abs()
+    n, h = x.shape
+    f = w1.shape[1]
+    gam = lambda terms: 2 * terms * U
+    lim = [gam(f) * da @ w1.T, gam(n) * x.T @ da, gam(n) * da.sum(0),
+           gam(n) * hid.T @ g]
+    if not same_hidden:
+        m = 1.0 if amask is None else amask.double().abs()
+        pre = gam(h) * (x @ w1 + b1)               # a = x w1 + b1
+        gw = g @ w2.T                              # |g w2^T|'s terms
+        da_err = (gam(h) * gw * 1.2 + gw * pre + U * da) * m
+        h_err = (1.2 * pre + U * hid) * m
+        lim[0] = lim[0] + da_err @ w1.T
+        lim[1] = lim[1] + x.T @ da_err
+        lim[2] = lim[2] + da_err.sum(0)
+        lim[3] = lim[3] + h_err.T @ g
+    return lim
+
+
+def _within(got, ref, lim):
+    """(|got - ref| <= lim everywhere, the largest |got - ref| / lim)."""
+    err = (torch.as_tensor(np.array(got)).double()
+           - torch.as_tensor(np.array(ref)).double()).abs()
+    ratio = torch.where(err > 0, err / lim, 0.0).max().item()
+    return bool((err <= lim).all()), ratio
+
+
+def _assert_within(got, ref, lims):
+    for name, o, r, lim in zip(NAMES, got, ref, lims):
+        ok, ratio = _within(o, r, lim)
+        assert ok, f"{name}: max |err| / limit {ratio:.3g}"
 
 
 def _split(a, dtype=torch.float32):
@@ -76,8 +125,29 @@ def test_split_matches_ffn_bwd_plain(act, masked, n, small_ranges):
     ref = t_ffn.ffn_bwd_plain(*(_t(a[k]) for k in ("x", "g", "w1", "b1",
                                                     "w2")), act,
                               _t(a["amask"]))
-    for name, o, r in zip(("dx", "dw1", "db1", "dw2"), got, ref):
-        torch.testing.assert_close(o, r, **TOL, msg=name)
+    _assert_within(got, ref[:4], _limits(a))
+
+
+@pytest.mark.parametrize("fault", ["dropped", "doubled"])
+def test_split_limit_catches_a_range_dropped_or_doubled(fault, small_ranges):
+    """dw1 and dw2 summed over the 64-row ranges with range 1 left out, or
+    counted twice, fail the limits that the right sums pass."""
+    a = _inputs(256)
+    a["act"] = "gelu"
+    x, g, w1, b1, w2 = (_t(a[k]) for k in ("x", "g", "w1", "b1", "w2"))
+    hid, da, _ = t_ffn.ffn_bwd_recompute_plain(x, g, w1, b1, w2, "gelu")
+    splits, rows = t_ffn.dw_split_plan(256)
+    assert splits == 4
+    cuts = [slice(s * rows, (s + 1) * rows) for s in range(splits)]
+    ref = t_ffn.ffn_bwd_plain(x, g, w1, b1, w2, "gelu")
+    lims = _limits(a)
+    for i, left, right in ((1, x, da), (3, hid, g)):
+        parts = [left[c].t() @ right[c] for c in cuts]
+        parts = parts[:1] + parts[2:] if fault == "dropped" else parts + [
+            parts[1]]
+        wrong = t_ffn._ordered_sum(parts)
+        assert not _within(wrong, ref[i], lims[i])[0], NAMES[i]
+        assert _within(_split(a)[i], ref[i], lims[i])[0], NAMES[i]
 
 
 @pytest.mark.parametrize("act", ACTS)
@@ -90,9 +160,7 @@ def test_split_matches_pallas(act, small_ranges):
                            act=act, block_rows=128, block_f=128,
                            interpret=True)
     got = _split(a)
-    for name, o, r in zip(("dx", "dw1", "db1", "dw2"), got, ref):
-        np.testing.assert_allclose(o.numpy(), np.asarray(r), err_msg=name,
-                                   **TOL)
+    _assert_within(got, ref[:4], _limits(a, same_hidden=False))
 
 
 @pytest.mark.parametrize("n", [256, 200])
@@ -107,9 +175,7 @@ def test_split_with_mask_matches_ffn_bwd_hand(act, n, small_ranges):
                            jnp.asarray(a["g"]), act,
                            amask=jnp.asarray(a["amask"]))
     got = _split(a)
-    for name, o, r in zip(("dx", "dw1", "db1", "dw2"), got, ref[:4]):
-        np.testing.assert_allclose(o.numpy(), np.asarray(r), err_msg=name,
-                                   **TOL)
+    _assert_within(got, ref[:4], _limits(a, same_hidden=False))
 
 
 @pytest.mark.parametrize("masked", [False, True])
@@ -125,9 +191,8 @@ def test_split_bf16_matches_ffn_bwd_plain(masked, small_ranges):
                               _t(a["amask"]))
     assert got[0].dtype == bf
     torch.testing.assert_close(got[0], ref[0], rtol=0, atol=0)
-    for name, o, r in zip(("dw1", "db1", "dw2"), got[1:], ref[1:4]):
-        assert o.dtype == torch.float32
-        torch.testing.assert_close(o, r, **TOL, msg=name)
+    assert all(o.dtype == torch.float32 for o in got[1:])
+    _assert_within(got[1:], ref[1:4], _limits(a, bf)[1:])
 
 
 def test_recompute_column_sums_per_tile():
@@ -137,11 +202,13 @@ def test_recompute_column_sums_per_tile():
     x, g, w1, b1, w2 = (_t(a[k]) for k in ("x", "g", "w1", "b1", "w2"))
     hid, da, colsum = t_ffn.ffn_bwd_recompute(x, g, w1, b1, w2, "silu")
     assert colsum.shape == (3, 256)
+    a["act"] = "silu"
     for t in range(3):
-        torch.testing.assert_close(colsum[t], da[128 * t:128 * t + 128].sum(0),
-                                   **TOL)
-    torch.testing.assert_close(colsum.sum(0), t_ffn.ffn_bwd_dw_plain(
-        x, g, w1, b1, w2, "silu")[1], **TOL)
+        tile = da[128 * t:128 * t + 128].double().abs().sum(0)
+        assert _within(colsum[t], da[128 * t:128 * t + 128].sum(0),
+                       2 * 128 * U * tile)[0]
+    assert _within(colsum.sum(0), t_ffn.ffn_bwd_dw_plain(
+        x, g, w1, b1, w2, "silu")[1], _limits(a)[2])[0]
 
 
 @pytest.mark.parametrize("rows_per_split", [t_ffn.DW_ROWS_PER_SPLIT,
