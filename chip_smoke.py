@@ -86,6 +86,7 @@ import collections
 import ctypes
 import itertools
 import json
+import math
 import os
 import re
 import shutil
@@ -444,6 +445,7 @@ def check_kernels(gen, dev):
     check_train_kernels(randn, dev, records)
     check_trainable_functions(randn, dev)
     check_dropout_kernels(randn, dev, records)
+    check_large_kernels(randn, dev, records)
 
     for rec in records.values():
         t_flops = rec["flops"] / PEAK_BF16_FLOPS * 1e3
@@ -1918,9 +1920,8 @@ def run_flagship(seed, card):
     """Phase 4.  Returns {mode: launch count of each kernel per generate()}
     and {mode: K4's launches per generate() by (entry, key length)} for the
     modes greedy, greedy-int8 and beam-4."""
-    import dataclasses
     import torch
-    from speechmix_tpu_torch import config, generation
+    from speechmix_tpu_torch import generation
     from speechmix_tpu_torch.models import seq2seq, speechmix
     from speechmix_tpu_torch.ops import kernels
     from speechmix_tpu_torch.ops.kernels import decode_attention as kd
@@ -1932,11 +1933,7 @@ def run_flagship(seed, card):
     for kern in (kd.KERNEL, kd.KERNEL_Q8):
         kern.launch = _tally_by_length(kern, k4_lengths, 2)
 
-    cfg = config.SpeechMixConfig(
-        encoder=dataclasses.replace(
-            config.SPEECH_ENCODER_PRESETS["wav2vec2-base"],
-            extractor_impl="fused"),
-        decoder=config.SEQ2SEQ_PRESETS["bart-base"], down_scale=2)
+    cfg = flagship_config()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = speechmix.init_speechmix(cfg, gen, dev, torch.bfloat16)
@@ -2270,12 +2267,13 @@ def _train_batch(cfg, gen, dev, batch, seconds, labels_len):
             "labels": labels}
 
 
-def check_gradient_tree(seed, dropout=False):
+def check_gradient_tree(seed, dropout=False, large=False):
     """On the card, f32, full width, 2 + 2 + 2 layers: d loss / d params
     through the kernels against the same through their plain versions.  With
     dropout, one key drives both runs, so both draw the same masks (the
     presets' rates and SpecAugment; LayerDrop off, to keep the layer
-    count)."""
+    count).  `large`: the large pair's widths and pre-LN layers instead of
+    the flagship's."""
     import dataclasses
     import torch
     from speechmix_tpu_torch import config
@@ -2291,14 +2289,16 @@ def check_gradient_tree(seed, dropout=False):
         decoder=dataclasses.replace(config.SEQ2SEQ_PRESETS["bart-base"],
                                     encoder_layers=2, decoder_layers=2),
         down_scale=2)
+    if large:
+        cfg = large_config((2, 2, 2))
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = speechmix.init_speechmix(cfg, gen, dev, torch.float32)
     batch = _train_batch(cfg, gen, dev, 8, 8.0, 128)
     key = DropoutKey.from_seed(seed).fold_in(1) if dropout else None
-    log(f"gradient tree, f32, full width, 2 + 2 + 2 layers, B=8 x 8 s, 128 "
-        f"label positions, dropout {'on' if dropout else 'off'}: kernels vs "
-        "plain versions")
+    log(f"gradient tree, f32, {cfg.encoder.name} + {cfg.decoder.name} at full "
+        f"width, 2 + 2 + 2 layers, B=8 x 8 s, 128 label positions, dropout "
+        f"{'on' if dropout else 'off'}: kernels vs plain versions")
 
     def grads():
         leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
@@ -2315,8 +2315,12 @@ def check_gradient_tree(seed, dropout=False):
     kernels.reset_launch_counts()
     loss_k, grads_k = grads()
     counts = {k.symbol: k.launches for k in kernels.kernels()}
-    want = (expected_dropout_train_launches(2, 2, 2, dtype="f32") if dropout
-            else expected_train_launches(2, 2, 2, dtype="f32"))
+    if large:
+        want = expected_preln_train_launches(2, 2, 2, 2, 2, dtype="f32",
+                                             dropout=dropout)
+    else:
+        want = (expected_dropout_train_launches(2, 2, 2, dtype="f32")
+                if dropout else expected_train_launches(2, 2, 2, dtype="f32"))
     if counts != want:
         raise AssertionError(f"gradient tree: launches {counts}, expected "
                              f"{want}")
@@ -2363,19 +2367,12 @@ def run_training(seed, card, dropout=False):
     width and depth on one batch, deterministic or with dropout at the
     presets' rates, SpecAugment and LayerDrop.  Returns the launch counts of
     the last step."""
-    import dataclasses
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    from speechmix_tpu_torch import config
     from speechmix_tpu_torch.models import speech_encoder
     from speechmix_tpu_torch.ops import kernels
     from speechmix_tpu_torch.training import trainer
 
-    cfg = config.SpeechMixConfig(
-        encoder=dataclasses.replace(
-            config.SPEECH_ENCODER_PRESETS["wav2vec2-base"],
-            extractor_impl="fused"),
-        decoder=config.SEQ2SEQ_PRESETS["bart-base"], down_scale=2)
+    cfg = flagship_config()
     tc = trainer.TrainConfig(learning_rate=TRAIN_LR, warmup_steps=1,
                              grad_accum=1, bf16=True, dropout=dropout,
                              optimizer="adamw", seed=seed)
@@ -2464,19 +2461,7 @@ def run_training(seed, card, dropout=False):
         f"second trained {BATCH * SECONDS / med:.2f}, peak memory "
         f"{peak / 2 ** 30:.2f} GiB, loss {losses[1]:.4f} -> {losses[-1]:.4f} "
         f"on {card}")
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step_fn(state, batch)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    busy_us = sum(e.self_device_time_total for e in events)
-    log(f"  profiled {what}: wall {wall_us / 1e3:.1f} ms, device busy "
-        f"{busy_us / 1e3:.1f} ms ({busy_us / wall_us:.3f} of wall)")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:14]:
-        log(f"    {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d}x  "
-            f"{e.key[:90]}")
+    _, _, events = _profile_step(lambda: step_fn(state, batch), what)
     for label, names in (("K8", K8_KERNELS), ("K3 / K9 passes", FWD_KERNELS),
                          ("attention backward (K7 / K15)", ATTN_BWD_KERNELS),
                          ("attention forward (K1 / K14)", (ATTN_FWD_KERNEL,)),
@@ -2567,6 +2552,656 @@ DECODE_KERNELS = ("decode_cluster_kernel", "decode_attention_kernel")
 KERNEL_NAME = re.compile(r"\w+_kernel(<[^>]*>)?")
 
 
+# ---------------------------------------------------------------------------
+# the large pair (wav2vec2-large-960h-lv60 + bart-large) and the variants
+# ---------------------------------------------------------------------------
+
+LARGE_HEADS, LARGE_H, LARGE_F = 16, 1024, 4096
+LARGE_BATCH = 16
+# the unfreezing progress (epoch / freeze_epochs) of the large pair's steps
+LARGE_PROGRESS = (0.0, 0.0, 0.0, 0.5, 0.5, 0.5, 1.0, 1.0)
+LARGE_FREEZE_EPOCHS = 2
+VARIANT_STEPS = 4
+GAN_DES_UPDATE = 2
+
+
+def large_config(layers=None):
+    """facebook/wav2vec2-large-960h-lv60 (24 pre-LN layers, H=1024, a
+    LayerNorm in every extractor layer, the fused extractor) + bart-large
+    (12 + 12 layers, H=1024, vocabulary 50265), down_scale 2.  `layers`:
+    (speech, text encoder, decoder) depths of a cut copy, LayerDrop off."""
+    import dataclasses
+    from speechmix_tpu_torch import config
+    enc = dataclasses.replace(
+        config.SPEECH_ENCODER_PRESETS["facebook/wav2vec2-large-960h-lv60"],
+        extractor_impl="fused")
+    dec = config.SEQ2SEQ_PRESETS["bart-large"]
+    if layers is not None:
+        enc = dataclasses.replace(enc, num_layers=layers[0], layerdrop=0.0)
+        dec = dataclasses.replace(dec, encoder_layers=layers[1],
+                                  decoder_layers=layers[2])
+    return config.SpeechMixConfig(encoder=enc, decoder=dec, down_scale=2)
+
+
+def flagship_config(variant="eed"):
+    import dataclasses
+    from speechmix_tpu_torch import config
+    return config.SpeechMixConfig(
+        encoder=dataclasses.replace(
+            config.SPEECH_ENCODER_PRESETS["wav2vec2-base"],
+            extractor_impl="fused"),
+        decoder=config.SEQ2SEQ_PRESETS["bart-base"], down_scale=2,
+        variant=variant, gan_discriminator_update_every=GAN_DES_UPDATE)
+
+
+def expected_preln_train_launches(kept, attn_bwd, ffn_bwd, enc_layers,
+                                  dec_layers, dtype="bf16", dropout=False):
+    """Launches of every kernel in one micro-batch of a train step of a
+    pre-LN speech encoder with a BART model whose layers all train: a kept
+    pre-LN layer runs K1 (K14 with dropout) and K9 (K13) forward, K7 (K15)
+    where its attention's backward runs (attn_bwd layers) and K8 where its
+    FFN's backward runs (ffn_bwd layers); its out-projection, residuals and
+    LayerNorms are plain, with dropout K10 drawing its two output masks.
+    The text encoder and the decoder run as in expected_train_launches and
+    expected_dropout_train_launches."""
+    nlp = enc_layers + dec_layers
+    want = expected_train_launches(0, 0, 0, dtype=dtype)
+    if not dropout:
+        want.update({"smx_attention_fwd": kept + nlp,
+                     "smx_attention_bwd": attn_bwd + nlp,
+                     "smx_dense_res_ln": nlp + dec_layers,
+                     **dict.fromkeys(K8_ENTRIES[dtype], ffn_bwd + nlp),
+                     **ffn_forward_launches(nlp, kept + nlp, dtype)})
+        return want
+    want.update({"smx_attention_dropout_fwd": kept + nlp,
+                 "smx_attention_dropout_bwd": attn_bwd + nlp,
+                 "smx_dense_dropout_res_ln": nlp + dec_layers,
+                 **ffn_forward_launches(nlp, kept + nlp, dtype, dropout=True),
+                 **dict.fromkeys(K8_DROPOUT_ENTRIES[dtype], ffn_bwd + nlp),
+                 "smx_dropout_mask": (4 + dec_layers + (nlp + dec_layers)
+                                      + nlp + 2 * kept)})
+    return want
+
+
+def speech_backward_layers(enc_mask, kept):
+    """The kept pre-LN layers whose attention backward (K7 / K15) and FFN
+    backward (K8) run under the unfreezing mask `enc_mask` of the speech
+    encoder: a layer's attention backward runs when its input needs a
+    gradient (something below it trains) or its q / k / v projections or its
+    first LayerNorm train; its FFN backward when its input or anything of
+    the layer trains."""
+    from speechmix_tpu_torch.training.freezing import tree_paths
+    trains = lambda tree: any(m > 0 for _, m in tree_paths(tree))
+    below = trains({k: v for k, v in enc_mask.items()
+                    if k not in ("layers", "encoder_layer_norm")})
+    attn, ffn = [], []
+    for layer in kept:
+        lm = enc_mask["layers"][layer]
+        if below or trains([lm["attention"][n] for n in (
+                "q_proj", "k_proj", "v_proj")]) or trains(
+                lm["attention_layer_norm"]):
+            attn.append(layer)
+        if below or trains(lm):
+            ffn.append(layer)
+        below = below or trains(lm)
+    return attn, ffn
+
+
+def expected_large_generate_launches(steps, layers=(24, 12, 12)):
+    """Launches of every kernel in one greedy generate() of the large pair:
+    K1 in every speech and text-encoder layer, K9's passes in the pre-LN
+    speech layers, K2 and K3's passes in the text encoder, K6 6, K4 twice
+    per decoder layer and step."""
+    speech, enc, dec = layers
+    want = expected_launches("greedy", steps)
+    want.update({"smx_attention_fwd": speech + enc,
+                 "smx_dense_res_ln": enc,
+                 "smx_conv_ln_gelu": FUSED_CONV_LAYERS,
+                 "smx_decode_attention": 2 * dec * steps,
+                 **ffn_forward_launches(enc, speech)})
+    return want
+
+
+def check_large_kernels(randn, dev, records):
+    """The kernels of the large pair's path at its widths in bf16 (H = 1024,
+    F = 4096, 16 heads of 64), each against its plain version at the limits
+    stated for the flagship: K1 / K7 and K14 / K15 at B = 16 and T = 800
+    (speech encoder), 400 (text encoder) and causal 64 (decoder), one row
+    ragged; K9, K13 and K8 (its deterministic and dropout entries) at 12800
+    rows (the pre-LN FFN); K2, K3, K11 and K12 at bart-large's 6400 and
+    1024 rows; K4 with 16 heads over the 64-slot cache and 400 encoder
+    positions.  (K6 in LayerNorm mode at C = 512 is check_conv's.)  Timed:
+    K1, K14 and K15 at T = 800, K9, K13 and K8's dropout entries at 12800
+    rows, K2 and K3 at 6400 rows."""
+    import torch
+    import torch.nn.functional as F
+    from speechmix_tpu_torch.ops.kernels import attention as ka
+    from speechmix_tpu_torch.ops.kernels import dropout as kd
+    from speechmix_tpu_torch.ops.kernels import ffn as kf
+
+    heads, d, scale, h, f = LARGE_HEADS, 64, 0.125, LARGE_H, LARGE_F
+    bf16, rate = torch.bfloat16, DROP_RATE
+    key = kd.DropoutKey.from_seed(20261017)
+    log(f"the large pair's kernels: H={h}, F={f}, {heads} heads of {d}, "
+        f"bf16, dropout rate {rate}")
+    rule15 = K7_BF16_RULE + ", p^T as (p m)^T"
+    for b, t, causal in ((LARGE_BATCH, 800, False), (LARGE_BATCH, 400, False),
+                         (LARGE_BATCH, 64, True)):
+        lens = torch.full((b,), t, device=dev)
+        lens[1] = t - 37
+        mask = torch.arange(t, device=dev)[None, :] < lens[:, None]
+        q, k, v, g = (randn(b, t, heads * d, dtype=bf16) for _ in range(4))
+        what = f"B={b} T={t} H={heads} D={d} bf16 causal={causal}"
+        e1 = check_attention_fwd(f"K1 {what}", q, k, v, mask, heads, causal)
+        out, lse = ka.attention_fwd(q, k, v, mask, heads, scale, causal,
+                                    return_lse=True)
+        ref = ka.attention_fwd_plain(q, k, v, mask, heads, scale, causal)
+        got = ka.attention_bwd(q, k, v, mask, out, lse, g, heads, scale,
+                               causal)
+        refs = ka.attention_bwd_plain(q, k, v, mask, g, heads, scale, causal)
+        torch.cuda.synchronize()
+        limits = attention_bwd_bf16_limits(q, k, v, mask, ref, g, heads,
+                                           scale, causal, refs)
+        for n_, o, r, lim in zip(("dq", "dk", "dv"), got, refs, limits):
+            compare(f"K7 {n_} {what}", o, r, lim, K7_BF16_RULE)
+        del got, refs, limits
+        dmask = kd.attention_mask_plain(key, b, heads, t, t, rate, dev)
+        out_d, lse_d = ka.attention_dropout_fwd(
+            q, k, v, mask, heads, scale, causal, key, rate, return_lse=True)
+        ref_d = ka.attention_fwd_plain(q, k, v, mask, heads, scale, causal,
+                                       dmask=dmask)
+        torch.cuda.synchronize()
+        e14 = compare(f"K14 {what}", out_d, ref_d, attention_bf16_limit(
+            q, k, v, mask, heads, scale, causal, ref_d, dmask), K14_BF16_RULE)
+        got = ka.attention_dropout_bwd(q, k, v, mask, out_d, lse_d, g, heads,
+                                       scale, causal, key, rate)
+        refs = ka.attention_bwd_plain(q, k, v, mask, g, heads, scale, causal,
+                                      dmask=dmask)
+        torch.cuda.synchronize()
+        limits = attention_bwd_bf16_limits(q, k, v, mask, ref_d, g, heads,
+                                           scale, causal, refs, dmask)
+        e15 = max(compare(f"K15 {n_} {what}", o, r, lim, rule15)
+                  for n_, o, r, lim in zip(("dq", "dk", "dv"), got, refs,
+                                           limits))
+        del got, refs, limits, dmask
+        if t != 800:
+            continue
+        allowed = int(lens.sum()) * t
+        flops, nbytes = 4.0 * heads * d * allowed, 4 * b * t * heads * d * 2
+        qh, kh, vh = (x_.view(b, t, heads, d).transpose(1, 2).detach()
+                      .requires_grad_() for x_ in (q, k, v))
+        gh = g.view(b, t, heads, d).transpose(1, 2)
+        sdpa = lambda p: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask[:, None, None, :], dropout_p=p,
+            scale=scale)
+        dmask_plain = lambda: kd.attention_mask_plain(key, b, heads, t, t,
+                                                      rate, dev)
+        shape = f"{what}, one row ragged (large pair)"
+        records["attention_fwd (large, T=800)"] = dict(
+            shape=shape, max_abs_err=e1,
+            ms=cuda_ms(lambda: ka.attention_fwd(q, k, v, mask, heads, scale)),
+            plain_ms=cuda_ms(lambda: ka.attention_fwd_plain(
+                q, k, v, mask, heads, scale), iters=5),
+            library_ms=cuda_ms(lambda: sdpa(0.0).detach()), flops=flops,
+            bytes=nbytes + b * t)
+        records["attention_dropout_fwd (large, T=800)"] = dict(
+            shape=f"{shape}, rate {rate}", max_abs_err=e14,
+            ms=cuda_ms(lambda: ka.attention_dropout_fwd(
+                q, k, v, mask, heads, scale, False, key, rate)),
+            plain_ms=cuda_ms(lambda: ka.attention_fwd_plain(
+                q, k, v, mask, heads, scale, dmask=dmask_plain()), iters=5),
+            library_ms=cuda_ms(lambda: sdpa(rate).detach()), flops=flops,
+            bytes=nbytes + b * t)
+        lib_out = sdpa(rate)
+        records["attention_dropout_bwd (large, T=800)"] = dict(
+            shape=f"{shape}, rate {rate}", max_abs_err=e15,
+            ms=cuda_ms(lambda: ka.attention_dropout_bwd(
+                q, k, v, mask, out_d, lse_d, g, heads, scale, False, key,
+                rate)),
+            plain_ms=cuda_ms(lambda: ka.attention_bwd_plain(
+                q, k, v, mask, g, heads, scale, False, dmask=dmask_plain()),
+                iters=5),
+            library_ms=cuda_ms(lambda: torch.autograd.grad(
+                lib_out, (qh, kh, vh), gh, retain_graph=True)),
+            flops=2.5 * flops,
+            bytes=2 * nbytes + b * heads * t * 4 + b * t)
+        del lib_out
+
+    n = 12800
+    x, g = randn(n, h, dtype=bf16), randn(n, h, dtype=bf16)
+    w1 = randn(h, f, scale=0.03, dtype=bf16)
+    w2 = randn(f, h, scale=0.03, dtype=bf16)
+    b1, b2 = randn(f, scale=0.1), randn(h, scale=0.1)
+    what = f"N={n} H={h} F={f} gelu bf16"
+    dw_rule = f"atol {K8_DW_BF16_TOL[0]}, rtol {K8_DW_BF16_TOL[1]}"
+    k9 = lambda: kf.ffn_fused(x, w1, b1, w2, b2)
+    e9 = compare(f"K9 {what}", k9(), kf.ffn_fused_plain(x, w1, b1, w2, b2))
+    expect_equal(f"K9 {what}", (k9(),), (k9(),))
+    got, refs = kf.ffn_bwd(x, g, w1, b1, w2), kf.ffn_bwd_plain(x, g, w1, b1,
+                                                               w2)
+    torch.cuda.synchronize()
+    compare(f"K8 dx {what}", got[0], refs[0])
+    for name_, o, r in zip(("dw1", "db1", "dw2"), got[1:4], refs[1:4]):
+        compare(f"K8 {name_} {what}", o, r,
+                K8_DW_BF16_TOL[0] + K8_DW_BF16_TOL[1] * r.abs(), dw_rule)
+    del got, refs
+    tol = _dropout_tol(TOL["bfloat16"], rate)
+    dw_tol = _dropout_tol(K8_DW_BF16_TOL, rate)
+    rule = f"atol {tol[0]:.4g}, rtol {tol[1]:.4g} (TOL / (1-r))"
+    amask_plain = lambda: kd.dropout_mask_plain(key, kd.STREAM_ACT, n, f,
+                                                rate, dev)
+    amask = amask_plain()
+    k13 = lambda: kf.ffn_dropout(x, w1, b1, w2, b2, key, rate)
+    ref = kf.ffn_dropout_plain(x, w1, b1, w2, b2, amask)
+    e13 = compare(f"K13 {what}", k13(), ref, tol[0] + tol[1] * ref.abs(),
+                  rule)
+    expect_equal(f"K13 {what}", (k13(),), (k13(),))
+    k8d = lambda: kf.ffn_dropout_bwd(x, g, w1, b1, w2, key, rate)
+    got, refs = k8d(), kf.ffn_bwd_plain(x, g, w1, b1, w2, "gelu", amask)
+    torch.cuda.synchronize()
+    e8 = compare(f"K8 dropout dx {what}", got[0], refs[0],
+                 tol[0] + tol[1] * refs[0].float().abs(), rule)
+    for name_, o, r in zip(("dw1", "db1", "dw2"), got[1:4], refs[1:4]):
+        e8 = max(e8, compare(f"K8 dropout {name_} {what}", o, r,
+                             dw_tol[0] + dw_tol[1] * r.abs(),
+                             f"atol {dw_tol[0]:.4g}, rtol {dw_tol[1]:.4g}"))
+    expect_equal(f"K8 dropout {what}", got, k8d())
+    del got, refs, amask, ref
+    w1t, w2t = w1.t(), w2.t()
+    b1c, b2c = b1.to(bf16), b2.to(bf16)
+    drop = lambda t_: F.dropout(t_, rate)
+    lx = x.detach().requires_grad_()
+    lw1, lw2 = (w_.t().contiguous().requires_grad_() for w_ in (w1, w2))
+    lb1, lb2 = (b_.to(bf16).requires_grad_() for b_ in (b1, b2))
+    lib_y = F.linear(drop(F.gelu(F.linear(lx, lw1, lb1))), lw2, lb2)
+    ffn_flops, ffn_bytes = 4.0 * n * h * f, (2 * n * h + 2 * h * f) * 2
+    shape = f"{what} (pre-LN FFN of the large pair)"
+    records["ffn_fused (large, N=12800)"] = dict(
+        shape=shape, max_abs_err=e9, ms=cuda_ms(k9),
+        plain_ms=cuda_ms(lambda: kf.ffn_fused_plain(x, w1, b1, w2, b2)),
+        library_ms=cuda_ms(lambda: F.linear(F.gelu(F.linear(x, w1t, b1c)),
+                                            w2t, b2c)),
+        flops=ffn_flops, bytes=ffn_bytes + (f + h) * 4)
+    records["ffn_dropout (large, N=12800)"] = dict(
+        shape=f"{shape}, rate {rate}", max_abs_err=e13, ms=cuda_ms(k13),
+        plain_ms=cuda_ms(lambda: kf.ffn_dropout_plain(
+            x, w1, b1, w2, b2, amask_plain()), iters=5),
+        library_ms=cuda_ms(lambda: F.linear(drop(F.gelu(F.linear(
+            x, w1t, b1c))), w2t, b2c)),
+        flops=ffn_flops, bytes=ffn_bytes + (f + h) * 4)
+    records["ffn_dropout_bwd (large, N=12800)"] = dict(
+        shape=f"{shape}, rate {rate} (recompute + products)",
+        max_abs_err=e8, ms=cuda_ms(k8d),
+        plain_ms=cuda_ms(lambda: kf.ffn_bwd_plain(
+            x, g, w1, b1, w2, "gelu", amask_plain()), iters=5),
+        library_ms=cuda_ms(lambda: torch.autograd.grad(
+            lib_y, (lx, lw1, lb1, lw2), g, retain_graph=True)),
+        flops=2.5 * ffn_flops,
+        bytes=(3 * n * h + 2 * h * f) * 2 + f * 4 + (2 * h * f + f) * 4)
+    del lib_y
+
+    for n in (6400, 1024):
+        x, res = randn(n, h, dtype=bf16), randn(n, h, dtype=bf16)
+        w = randn(h, h, scale=0.03, dtype=bf16)
+        w1 = randn(h, f, scale=0.03, dtype=bf16)
+        w2 = randn(f, h, scale=0.03, dtype=bf16)
+        b1, b2, beta = randn(f, scale=0.1), randn(h, scale=0.1), \
+            randn(h, scale=0.1)
+        gamma = randn(h, scale=0.1) + 1.0
+        what = f"N={n} H={h} F={f} bf16 (bart-large)"
+        k2 = (x, w, b2, res, gamma, beta)
+        k3 = (x, w1, b1, w2, b2, res, gamma, beta)
+        out2 = kf.dense_res_ln(*k2)
+        e2 = compare(f"K2 {what}", out2, kf.dense_res_ln_plain(*k2))
+        compare(f"K2 {what} vs tiled", out2, kf.dense_res_ln_tiled_plain(*k2))
+        expect_equal(f"K2 {what}", (out2,), (kf.dense_res_ln(*k2),))
+        e3 = compare(f"K3 {what}", kf.ffn_res_ln(*k3),
+                     kf.ffn_res_ln_plain(*k3))
+        expect_equal(f"K3 {what}", (kf.ffn_res_ln(*k3),),
+                     (kf.ffn_res_ln(*k3),))
+        omask = kd.dropout_mask_plain(key, kd.STREAM_OUT, n, h, rate, dev)
+        amask = kd.dropout_mask_plain(key, kd.STREAM_ACT, n, f, rate, dev)
+        ref = kf.dense_dropout_res_ln_plain(*k2, omask)
+        compare(f"K11 {what}", kf.dense_dropout_res_ln(*k2, key, rate), ref,
+                tol[0] + tol[1] * ref.float().abs(), rule)
+        ref = kf.ffn_dropout_res_ln_plain(*k3, amask, omask)
+        compare(f"K12 {what}", kf.ffn_dropout_res_ln(*k3, key, rate, rate),
+                ref, tol[0] + tol[1] * ref.float().abs(), rule)
+        del omask, amask, ref
+        if n != 6400:
+            continue
+        wt, w1t, w2t = w.t(), w1.t(), w2.t()
+        b1c, b2c, gc, betac = (t_.to(bf16) for t_ in (b1, b2, gamma, beta))
+        records["dense_res_ln (large, N=6400)"] = dict(
+            shape=f"N={n} Din=H={h} bf16 (bart-large text encoder)",
+            max_abs_err=e2, ms=cuda_ms(lambda: kf.dense_res_ln(*k2)),
+            plain_ms=cuda_ms(lambda: kf.dense_res_ln_plain(*k2)),
+            library_ms=cuda_ms(lambda: F.layer_norm(
+                res + F.linear(x, wt, b2c), (h,), gc, betac, 1e-5)),
+            flops=2.0 * n * h * h,
+            bytes=(3 * n * h + h * h) * 2 + 3 * h * 4)
+        records["ffn_res_ln (large, N=6400)"] = dict(
+            shape=f"{what} gelu (text encoder)", max_abs_err=e3,
+            ms=cuda_ms(lambda: kf.ffn_res_ln(*k3)),
+            plain_ms=cuda_ms(lambda: kf.ffn_res_ln_plain(*k3)),
+            library_ms=cuda_ms(lambda: F.layer_norm(
+                res + F.linear(F.gelu(F.linear(x, w1t, b1c)), w2t, b2c),
+                (h,), gc, betac, 1e-5)),
+            flops=4.0 * n * h * f,
+            bytes=(3 * n * h + 2 * h * f) * 2 + (f + 3 * h) * 4)
+
+    for name, bkv, t in (("self greedy", LARGE_BATCH, 64),
+                         ("cross greedy", LARGE_BATCH, 400)):
+        mask = decode_mask(name, bkv, t, dev)
+        q = randn(bkv, 1, heads, d, dtype=bf16)
+        k, v = (randn(bkv, t, heads, d, dtype=bf16) for _ in range(2))
+        check_decode_case(f"K4 {name} B={bkv} T={t} {heads} heads float K/V "
+                          "bf16", q, k, v, mask, {})
+
+
+def _fingerprints(params):
+    """{path: the int64 sum of the leaf's bits}: a leaf that moved changes
+    it."""
+    import torch
+    from speechmix_tpu_torch.training.freezing import tree_paths
+    return {path: int(p.view(torch.int32).sum(dtype=torch.int64))
+            for path, p in tree_paths(params)}
+
+
+def _profile_step(fn, what):
+    """One call of fn under the profiler: (wall ms, busy ms, events)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    busy_us = sum(e.self_device_time_total for e in events)
+    log(f"  profiled {what}: wall {wall_us / 1e3:.1f} ms, device busy "
+        f"{busy_us / 1e3:.1f} ms ({busy_us / wall_us:.3f} of wall)")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:14]:
+        log(f"    {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d}x  "
+            f"{e.key[:90]}")
+    return wall_us / 1e3, busy_us / 1e3, events
+
+
+def run_large_pair(seed, card):
+    """The large pair at full width and depth, random bf16 weights from the
+    seed, B = LARGE_BATCH x 16 s: greedy generate (launch counts, tokens),
+    then TrainConfig(bf16=True, freeze_epochs=2) train steps (Adafactor,
+    dropout on, tensor-granularity unfreezing) at progress 0, 0.5 and 1.0:
+    a finite, falling loss, the leaves the progress freezes bit-unchanged,
+    the released ones moved, exact launch counts.  Returns the launch counts
+    of a generate() and of the last step."""
+    import torch
+    from speechmix_tpu_torch import generation
+    from speechmix_tpu_torch.models import speech_encoder, speechmix
+    from speechmix_tpu_torch.ops import kernels
+    from speechmix_tpu_torch.training import freezing, trainer
+
+    cfg = large_config()
+    enc, dec = cfg.encoder, cfg.decoder
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b = LARGE_BATCH
+    batch = _train_batch(cfg, gen, dev, b, SECONDS, TRAIN_LABELS)
+    wav, lengths = batch["input_values"], batch["lengths"]
+    params = speechmix.init_speechmix(cfg, gen, dev, torch.bfloat16)
+    n_params = sum(p.numel() for _, p in freezing.tree_paths(params))
+    log(f"large pair {enc.name} ({enc.num_layers} pre-LN layers, H="
+        f"{enc.hidden_size}) + {dec.name} ({dec.encoder_layers} + "
+        f"{dec.decoder_layers} layers, vocabulary {dec.vocab_size}), "
+        f"{n_params / 1e6:.1f} M parameters, bf16, B={b} x {SECONDS} s, "
+        f"max_length {MAX_LEN}")
+    want = expected_large_generate_launches(
+        MAX_LEN, (enc.num_layers, dec.encoder_layers, dec.decoder_layers))
+    times = []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(4):
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tokens, lens = generation.generate(params, cfg, wav, lengths,
+                                           max_length=MAX_LEN,
+                                           dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        gen_counts = {k.symbol: k.launches for k in kernels.kernels()}
+        log(f"  large greedy generate call {i}: {dt * 1e3:.1f} ms")
+        if gen_counts != want:
+            raise AssertionError(f"large greedy: launches {gen_counts}, "
+                                 f"expected {want}")
+        if i:
+            times.append(dt)
+    if (tokens.shape != (b, MAX_LEN) or (lens < 0).any()
+            or not ((tokens >= 0) & (tokens < dec.vocab_size)).all()):
+        raise AssertionError(f"large greedy: bad tokens {tuple(tokens.shape)}")
+    log(f"  large greedy launches {gen_counts}")
+    med = sorted(times)[len(times) // 2]
+    log(f"  large greedy: {med * 1e3:.1f} ms per call (median of "
+        f"{len(times)}; all: {', '.join(f'{t * 1e3:.1f}' for t in times)}), "
+        f"audio-seconds per second transcribed {b * SECONDS / med:.2f}, "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
+        f"on {card}")
+    _profile_step(lambda: generation.generate(
+        params, cfg, wav, lengths, max_length=MAX_LEN,
+        dtype=torch.bfloat16), "large greedy generate")
+    del params
+
+    tc = trainer.TrainConfig(learning_rate=TRAIN_LR, warmup_steps=1,
+                             bf16=True, freeze_epochs=LARGE_FREEZE_EPOCHS,
+                             seed=seed)
+    if not (tc.optimizer == "adafactor" and tc.dropout
+            and tc.unfreeze_granularity == "tensor"):
+        raise AssertionError(f"TrainConfig defaults changed: {tc}")
+    state = trainer.create_train_state(gen, cfg, tc)
+    step_fn = trainer.make_train_step(cfg, tc, state.params)
+    log(f"large pair training: {n_params / 1e6:.1f} M float32 parameters, "
+        f"bf16 compute, Adafactor lr {TRAIN_LR}, warmup 1, dropout on, "
+        f"SpecAugment, LayerDrop {enc.layerdrop}, freeze_epochs "
+        f"{LARGE_FREEZE_EPOCHS} (tensor granularity), progress "
+        f"{list(LARGE_PROGRESS)}, B={b} x {SECONDS} s, {TRAIN_LABELS} label "
+        f"positions")
+    torch.cuda.empty_cache()
+    losses, full, peaks = [], [], []
+    for i, progress in enumerate(LARGE_PROGRESS):
+        mask = freezing.reference_unfreeze_scale(
+            state.params, freezing.unfreeze_epoch(progress,
+                                                  LARGE_FREEZE_EPOCHS),
+            LARGE_FREEZE_EPOCHS)
+        frozen = {path for path, m in freezing.tree_paths(mask) if m == 0}
+        skipped = layerdrop_replay(trainer, speech_encoder, tc, cfg,
+                                   state.step)
+        kept = [l for l in range(enc.num_layers) if l not in skipped]
+        attn_bwd, ffn_bwd = speech_backward_layers(mask["speech_encoder"],
+                                                   kept)
+        want = expected_preln_train_launches(
+            len(kept), len(attn_bwd), len(ffn_bwd), dec.encoder_layers,
+            dec.decoder_layers, dropout=True)
+        held = {path: p.clone() for path, p in
+                freezing.tree_paths(state.params) if path in frozen}
+        prints = _fingerprints(state.params)
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch, progress)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = {k.symbol: k.launches for k in kernels.kernels()}
+        loss, norm = metrics["loss"].item(), metrics["grad_norm"].item()
+        now = dict(freezing.tree_paths(state.params))
+        changed = [path for path, p in held.items()
+                   if not torch.equal(now[path], p)]
+        after = _fingerprints(state.params)
+        moved = {path for path in prints if after[path] != prints[path]}
+        released = set(prints) - frozen
+        # a released leaf of a layer LayerDrop kept has a gradient
+        must = {path for path in released
+                if path.startswith("speech_encoder/layers/")
+                and int(path.split("/")[2]) in kept}
+        log(f"  step {i + 1} (progress {progress}): loss {loss:.4f}, "
+            f"grad_norm {norm:.4f}, {dt * 1e3:.1f} ms, {len(frozen)} leaves "
+            f"frozen, {len(moved)} of {len(released)} released leaves moved,"
+            f" LayerDrop skipped {skipped}, attention / FFN backward in "
+            f"{len(attn_bwd)} / {len(ffn_bwd)} speech layers")
+        del held
+        if changed:
+            raise AssertionError(f"large step {i + 1}: frozen leaves moved: "
+                                 f"{changed[:5]}")
+        if moved & frozen:
+            raise AssertionError("large step: a frozen leaf moved")
+        if i and must - moved:
+            raise AssertionError(f"large step {i + 1}: released leaves did "
+                                 f"not move: {sorted(must - moved)[:5]}")
+        if metrics["layers_skipped"] != [skipped]:
+            raise AssertionError(f"large step {i + 1}: LayerDrop skipped "
+                                 f"{metrics['layers_skipped']}, the key "
+                                 f"chain gives {skipped}")
+        if counts != want:
+            raise AssertionError(f"large step {i + 1}: launches {counts}, "
+                                 f"expected {want}")
+        if not (math.isfinite(loss) and math.isfinite(norm)):
+            raise AssertionError(f"large step {i + 1}: loss {loss}, "
+                                 f"grad_norm {norm}")
+        losses.append(loss)
+        if i and not frozen:   # no copies of frozen leaves held
+            full.append(dt)
+            peaks.append(torch.cuda.max_memory_allocated())
+    log(f"  launches of the last step: {counts}")
+    if not losses[-1] < losses[1]:
+        raise AssertionError(f"large pair: the loss did not fall: {losses}")
+    med = sorted(full)[len(full) // 2]
+    peak = max(peaks)
+    log(f"  large train step (all leaves training): {med * 1e3:.1f} ms "
+        f"(median of {len(full)}: {', '.join(f'{t * 1e3:.1f}' for t in full)}"
+        f"), audio-seconds per second trained {b * SECONDS / med:.2f}, peak "
+        f"memory {peak / 2 ** 30:.2f} GiB, loss {losses[1]:.4f} -> "
+        f"{losses[-1]:.4f} on {card}")
+    _, busy, events = _profile_step(
+        lambda: step_fn(state, batch, 1.0), "large train step (progress 1.0)")
+    conv_bwd = [e for e in events if "dgrad" in e.key.lower()
+                or "wgrad" in e.key.lower()]
+    conv_ms = sum(e.self_device_time_total for e in conv_bwd) / 1e3
+    log(f"  cuDNN conv backward (dgrad / wgrad kernels) in the profiled "
+        f"large train step: {conv_ms:.2f} ms of {busy:.1f} ms busy "
+        f"({conv_ms / busy:.3f}): " + ", ".join(
+            f"{e.key[:60]} {e.self_device_time_total / 1e3:.2f} ms "
+            f"{e.count}x" for e in conv_bwd))
+    return gen_counts, counts
+
+
+def run_variants(seed, card):
+    """adapter, self and gan at the flagship's width and depth (wav2vec2-base
+    + bart-base, bf16 compute, B = 16 x 16 s), Adafactor with dropout on:
+    adapter's greedy generate (the flagship's launch counts) and
+    VARIANT_STEPS steps of each; self's batch carries text_input_ids; gan
+    with des_update GAN_DES_UPDATE, its discriminator bit-unchanged in the
+    generator's steps and everything else in the discriminator's.  Returns
+    {mode: launch counts of the last call}."""
+    import torch
+    from speechmix_tpu_torch import generation
+    from speechmix_tpu_torch.ops import kernels
+    from speechmix_tpu_torch.training import freezing, trainer
+
+    dev = torch.device("cuda")
+    out = {}
+    for variant in ("adapter", "self", "gan"):
+        cfg = flagship_config(variant)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        batch = _train_batch(cfg, gen, dev, BATCH, SECONDS, TRAIN_LABELS)
+        if variant in ("self", "gan"):
+            text = torch.randint(3, cfg.decoder.vocab_size,
+                                 (BATCH, TRAIN_LABELS), generator=gen,
+                                 device=dev)
+            text[1, TRAIN_LABELS - 9:] = cfg.decoder.pad_token_id
+            batch["text_input_ids"] = text
+        tc = trainer.TrainConfig(learning_rate=TRAIN_LR, warmup_steps=1,
+                                 bf16=True, seed=seed)
+        state = trainer.create_train_state(gen, cfg, tc)
+        if variant == "adapter":
+            serve = _cast_tree(state.params, torch.bfloat16)
+            want = expected_launches("greedy", MAX_LEN)
+            times = []
+            for i in range(3):
+                kernels.reset_launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tokens, _ = generation.generate(
+                    serve, cfg, batch["input_values"], batch["lengths"],
+                    max_length=MAX_LEN, dtype=torch.bfloat16)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                counts = {k.symbol: k.launches for k in kernels.kernels()}
+                if counts != want:
+                    raise AssertionError(f"adapter greedy: launches {counts}"
+                                         f", expected {want}")
+            if tokens.shape != (BATCH, MAX_LEN):
+                raise AssertionError("adapter greedy: bad tokens")
+            out["adapter-greedy"] = counts
+            log(f"  adapter greedy generate: "
+                f"{', '.join(f'{t * 1e3:.1f}' for t in times)} ms per call, "
+                f"the flagship's launch counts, on {card}")
+            del serve
+        step_fn = trainer.make_train_step(cfg, tc, state.params)
+        log(f"variant {variant}: Adafactor lr {TRAIN_LR}, dropout on, "
+            f"{VARIANT_STEPS} steps, B={BATCH} x {SECONDS} s" +
+            (f", des_update {GAN_DES_UPDATE}" if variant == "gan" else ""))
+        times = {}
+        for i in range(VARIANT_STEPS):
+            disc_step = (state.step // GAN_DES_UPDATE) % 2 == 1
+            held = ({path: p.clone() for path, p in
+                     freezing.tree_paths(state.params)}
+                    if variant == "gan" else {})
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = {k.symbol: k.launches for k in kernels.kernels()}
+            terms = {name: v.item() for name, v in metrics.items()
+                     if name.endswith("loss")}
+            if not all(math.isfinite(v) for v in terms.values()):
+                raise AssertionError(f"{variant} step {i + 1}: {terms}")
+            log(f"  {variant} step {i + 1}" +
+                (f" ({'discriminator' if disc_step else 'generator'})"
+                 if variant == "gan" else "") +
+                f": {dt * 1e3:.1f} ms, " +
+                ", ".join(f"{k} {v:.4f}" for k, v in terms.items()) +
+                f", grad_norm {metrics['grad_norm'].item():.4f}, K1 / K14 "
+                f"launches {counts['smx_attention_fwd']} / "
+                f"{counts['smx_attention_dropout_fwd']}")
+            now = dict(freezing.tree_paths(state.params))
+            for path, p in held.items():
+                stays = (path.startswith("nlp") or
+                         path.startswith("discriminator") != disc_step)
+                if stays and not torch.equal(now[path], p):
+                    raise AssertionError(f"gan step {i + 1}: {path} moved")
+            if held and i:   # the first update has rate 0
+                trained = ("discriminator/kernel" if disc_step
+                           else "enc_to_dec_proj/kernel")
+                if torch.equal(now[trained], held[trained]):
+                    raise AssertionError(f"gan step {i + 1}: {trained} did "
+                                         "not move")
+            del held, now
+            if i:   # the first step compiles and warms up
+                kind = ("discriminator" if disc_step else "generator"
+                        ) if variant == "gan" else "train"
+                times.setdefault(kind, []).append(dt)
+        for kind, ts in times.items():
+            med = sorted(ts)[len(ts) // 2]
+            log(f"  {variant} {kind} step: {med * 1e3:.1f} ms (median of "
+                f"{len(ts)}; all: {', '.join(f'{t * 1e3:.1f}' for t in ts)})"
+                f", audio-seconds per second trained "
+                f"{BATCH * SECONDS / med:.2f} on {card}")
+        out[f"{variant}-train"] = counts
+    return out
+
+
 def _cast_tree(tree, dtype):
     if isinstance(tree, dict):
         return {k: _cast_tree(v, dtype) for k, v in tree.items()}
@@ -2617,6 +3252,10 @@ def main():
     counts["train"], by_length["train"] = run_training(args.seed, card)
     counts["train-dropout"], by_length["train-dropout"] = run_training(
         args.seed, card, dropout=True)
+    counts["large-greedy"], counts["large-train"] = run_large_pair(args.seed,
+                                                                   card)
+    check_gradient_tree(args.seed, large=True)
+    counts.update(run_variants(args.seed, card))
 
     pallas = "speechmix_tpu/ops/pallas/"
     # name: (source, TPU kernel file:line, mode whose run gives `launches`)
@@ -2736,6 +3375,28 @@ def main():
                                       "train-dropout"),
         "ffn_dropout_bwd": ("ffn_bwd.cu", "ffn_kernel.py:700",
                             "train-dropout", "smx_ffn_dropout_bwd_recompute"),
+        # the large pair's widths (H = 1024, F = 4096, 16 heads)
+        "attention_fwd (large, T=800)": ("attention_fwd.cu",
+                                         "flash_attention_kernel.py:985",
+                                         "large-greedy", "smx_attention_fwd"),
+        "attention_dropout_fwd (large, T=800)": (
+            "attention_fwd.cu", "flash_attention_kernel.py:727",
+            "large-train", "smx_attention_dropout_fwd"),
+        "attention_dropout_bwd (large, T=800)": (
+            "attention_bwd.cu", "flash_attention_kernel.py:815",
+            "large-train", "smx_attention_dropout_bwd"),
+        "ffn_fused (large, N=12800)": ("ffn_fwd.cu", "ffn_kernel.py:128",
+                                       "large-greedy", "smx_ffn_down"),
+        "ffn_dropout (large, N=12800)": ("ffn_fwd.cu", "ffn_kernel.py:945",
+                                         "large-train", "smx_ffn_down"),
+        "ffn_dropout_bwd (large, N=12800)": (
+            "ffn_bwd.cu", "ffn_kernel.py:700", "large-train",
+            "smx_ffn_dropout_bwd_recompute"),
+        "dense_res_ln (large, N=6400)": ("dense_res_ln.cu",
+                                         "ffn_kernel.py:381", "large-greedy",
+                                         "smx_dense_res_ln"),
+        "ffn_res_ln (large, N=6400)": ("ffn_fwd.cu", "ffn_kernel.py:203",
+                                       "large-greedy", "smx_ffn_down_res"),
     }
     line = {"kernels": []}
     for name, (source, tpu, mode, *symbol) in replaces.items():

@@ -16,11 +16,18 @@ and returns the port's parameters:
   parameters stay float32;
 * the speech encoder's ``masked_spec_embed`` (SpecAugment's replacement
   vector, float32) is carried when the tree has it, first in the speech
-  encoder's entries (HF's registration order).
+  encoder's entries (HF's registration order);
+* the ``adapter`` variant's adapters, stacked per side in the JAX tree,
+  become lists per side; the ``gan`` variant's ``discriminator`` dense is
+  carried as it is.  The pre-LN speech encoder has the post-LN one's leaves.
 
 ``tree_to_jax_layout`` walks the other way, for a tree shaped like the
 port's parameters (the parameters themselves, or their gradients): numpy
 arrays in the JAX package's layout, layer lists stacked again.
+``jax_layout_groups`` gives, for each leaf of that layout, the port's
+tensors it is made of (the optimizer's view of the JAX layout), and
+``adafactor_state_to_jax`` the port's Adafactor statistics in the layout of
+optax's ``FactoredState``.
 """
 
 from __future__ import annotations
@@ -109,6 +116,11 @@ def params_from_jax(tree, cfg: SpeechMixConfig, dtype=torch.float32,
     }
     if cfg.weighted_sum:
         out["weights_sum"] = _plain(tree["weights_sum"], dtype, device)
+    if "adapters" in tree:
+        out["adapters"] = {side: _unstack(v, dtype, device)
+                           for side, v in tree["adapters"].items()}
+    if "discriminator" in tree:
+        out["discriminator"] = _plain(tree["discriminator"], dtype, device)
     return out
 
 
@@ -121,34 +133,105 @@ def cross_kv_from_jax(a, device="cpu"):
         np.asarray(a).transpose(0, 4, 1, 2, 3)), device=device)
 
 
-def _stack(layer_list):
-    first = layer_list[0]
-    if isinstance(first, dict):
-        return {k: _stack([layer[k] for layer in layer_list]) for k in first}
-    return np.stack([_numpy(t) for t in layer_list])
-
-
 def _numpy(t):
     return t.detach().float().cpu().numpy()
 
 
-def _to_jax(tree, path=()):
+def _stacked_in_jax(path, key):
+    """The layer lists the JAX package stacks on a leading axis: the three
+    transformer stacks and the adapters of each side."""
+    return ((key == "layers" and path[-1:] != ("feature_extractor",))
+            or path[-1:] == ("adapters",))
+
+
+def _zip_layers(trees, stack):
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _zip_layers([t[k] for t in trees], stack) for k in first}
+    return stack(trees)
+
+
+def _jax_layout(tree, leaf, stack, path=()):
+    """A port-shaped tree walked into the JAX package's layout: leaf(t,
+    conv) for each tensor (conv: a conv kernel, (C_out, C_in, K) here,
+    (K, C_in, C_out) there), stack(values) for the layers of a list that the
+    JAX package stacks."""
     if isinstance(tree, dict):
         if "kernel" in tree and tree["kernel"].ndim == 3:   # a convolution
-            out = {k: _numpy(v) for k, v in tree.items()}
-            out["kernel"] = out["kernel"].transpose(2, 1, 0)
-            return out
-        return {k: (_stack(v) if k == "layers" and path[-1:] != (
-            "feature_extractor",) else _to_jax(v, path + (k,)))
-            for k, v in tree.items()}
+            return {k: leaf(v, k == "kernel") for k, v in tree.items()}
+        return {k: (_zip_layers([_jax_layout(layer, leaf, stack)
+                                 for layer in v], stack)
+                    if _stacked_in_jax(path, k)
+                    else _jax_layout(v, leaf, stack, path + (k,)))
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [_to_jax(v, path) for v in tree]
-    return _numpy(tree)
+        return [_jax_layout(v, leaf, stack, path) for v in tree]
+    return leaf(tree, False)
 
 
 def tree_to_jax_layout(tree):
     """The inverse walk of params_from_jax for a tree shaped like the port's
     parameters (parameters or gradients): float32 numpy arrays, the three
-    transformer layer lists stacked on a leading axis, conv kernels as
-    (K, C_in, C_out)."""
-    return _to_jax(tree)
+    transformer layer lists and the adapters stacked on a leading axis, conv
+    kernels as (K, C_in, C_out)."""
+    def leaf(t, conv):
+        a = _numpy(t)
+        return a.transpose(2, 1, 0) if conv else a
+    return _jax_layout(tree, leaf, np.stack)
+
+
+class LayoutGroup:
+    """One leaf of the JAX layout: the port tensors it is made of (one per
+    layer of a stacked list, else one), whether they are stacked on a new
+    leading axis, and whether the leaf is a conv kernel (its JAX layout the
+    reverse of the port's axes)."""
+
+    def __init__(self, tensors, stacked, conv):
+        self.tensors, self.stacked, self.conv = tensors, stacked, conv
+
+    @property
+    def shape(self):
+        """The leaf's shape in the JAX layout."""
+        shape = tuple(self.tensors[0].shape)
+        if self.conv:
+            shape = shape[::-1]
+        return (len(self.tensors),) + shape if self.stacked else shape
+
+    def gather(self):
+        """The leaf in the JAX layout (a copy when stacked)."""
+        if self.stacked:
+            return torch.stack(self.tensors)
+        t = self.tensors[0]
+        return t.permute(2, 1, 0) if self.conv else t
+
+    def views(self, x):
+        """Views of `x`, a tensor in the JAX layout, shaped as the port
+        tensors, in their order."""
+        if self.stacked:
+            return list(x.unbind(0))
+        return [x.permute(2, 1, 0) if self.conv else x]
+
+
+def jax_layout_groups(tree):
+    """The JAX layout of a port-shaped tree of tensors, with a LayoutGroup
+    in place of each leaf."""
+    return _jax_layout(
+        tree, lambda t, conv: LayoutGroup([t], False, conv),
+        lambda groups: LayoutGroup([g.tensors[0] for g in groups], True,
+                                   groups[0].conv))
+
+
+def adafactor_state_to_jax(opt_state):
+    """The port's Adafactor state as optax's FactoredState holds it for the
+    JAX tree of the same parameters: {"count", "v_row", "v_col", "v"}, each
+    statistics tree in the JAX layout (which the port's Adafactor keeps)
+    with float32 numpy leaves; a leaf's unused statistics are zeros of
+    shape (1,), as in optax."""
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [walk(v) for v in t]
+        return _numpy(t)
+    return {"count": opt_state["count"],
+            **{k: walk(opt_state[k]) for k in ("v_row", "v_col", "v")}}

@@ -1,7 +1,9 @@
 """Greedy and beam-search generation (port of ``speechmix_tpu.generation``).
 
 The speech encoder and the text encoder run once (the ``ed`` variant has no
-text-encoder pass: its decoder attends the projected speech states);
+text-encoder pass: its decoder attends the projected speech states; the
+``adapter`` variant runs its adapters after every text-encoder block and
+every cached decoder step's block; ``self`` and ``gan`` generate as ``eed``);
 cross-attention K/V are precomputed per layer (optionally as int8 codes,
 ``kv_int8``); the decode loops run a fixed ``max_length`` steps, with
 padding after each row's EOS.
@@ -49,13 +51,14 @@ def _to_device(tree, device):
 @torch.no_grad()
 def greedy_decode(params, dcfg, enc_hidden, enc_mask, max_length,
                   dtype=torch.float32, kv_int8=False, output_scores=False,
-                  lm_head=None):
+                  lm_head=None, adapters=None):
     """Greedy decode against a text-encoder output.  Returns (tokens
     (B, max_length) with pad_token_id after EOS, the EOS itself included,
     lengths (B,)); with output_scores also the per-step logits
     (max_length, B, V) float32.  kv_int8 keeps the cross K/V as int8 codes;
     lm_head is the tied head's operand of seq2seq.tied_head_operand, made
-    once for all steps (None: each step makes it)."""
+    once for all steps (None: each step makes it); adapters: the adapter
+    variant's, run after each decoder block."""
     b = enc_hidden.shape[0]
     device = enc_hidden.device
     cache = seq2seq.init_decoder_cache(params, dcfg, enc_hidden, b,
@@ -67,7 +70,7 @@ def greedy_decode(params, dcfg, enc_hidden, enc_mask, max_length,
     steps, scores = [], []
     for _ in range(max_length):
         out = seq2seq.decode(params, dcfg, tok, enc_mask, cache, dtype,
-                             lm_head=lm_head)
+                             lm_head=lm_head, adapters=adapters)
         cache = out["cache"]
         logits = out["logits"][:, -1, :]
         next_tok = torch.argmax(logits, dim=-1)
@@ -147,7 +150,7 @@ def _gather_cache(cache, idx, batch, beams, spare):
 def beam_search(params, dcfg, enc_hidden, enc_mask, max_length, num_beams=4,
                 length_penalty=1.0, dtype=torch.float32, early_stopping=False,
                 kv_int8=False, num_return_sequences=1, output_scores=False,
-                lm_head=None):
+                lm_head=None, adapters=None):
     """Batched beam search with HuggingFace `generate()` semantics, as the
     JAX package's `beam_search`:
 
@@ -169,7 +172,7 @@ def beam_search(params, dcfg, enc_hidden, enc_mask, max_length, num_beams=4,
     back to the host: once the JAX loop's condition is false the search
     state is frozen, so the result is the one an early exit would give.
 
-    lm_head: as for greedy_decode.
+    lm_head, adapters: as for greedy_decode.
 
     Returns (tokens (B * num_return_sequences, max_length): the top finished
     beams per row in score order, pad after EOS; lengths); with
@@ -227,7 +230,7 @@ def beam_search(params, dcfg, enc_hidden, enc_mask, max_length, num_beams=4,
             active = active & ~c["is_finished"].all()
 
         out = seq2seq.decode(params, dcfg, last_tok, enc_mask, cache, dtype,
-                             lm_head=lm_head)
+                             lm_head=lm_head, adapters=adapters)
         logp = torch.log_softmax(out["logits"][:, -1, :].float(), dim=-1)
         vocab = logp.shape[-1]
         acc = logp.reshape(b, k, vocab) + c["running_scores"][:, :, None]
@@ -329,6 +332,7 @@ def generate(params, cfg: SpeechMixConfig, input_values, lengths=None,
         prompt_ids = torch.as_tensor(prompt_ids).to(device)
     inputs_embeds, enc_mask = smx.encode_speech(
         params, cfg, input_values, lengths, prompt_ids, dtype)
+    adapters = params["adapters"] if cfg.variant == "adapter" else None
     if cfg.variant == "ed":
         # the decoder cross-attends the projected speech states: no
         # text-encoder pass (as in the training forward)
@@ -336,15 +340,17 @@ def generate(params, cfg: SpeechMixConfig, input_values, lengths=None,
     else:
         enc_hidden = seq2seq.encode(params["nlp"], cfg.decoder,
                                     inputs_embeds=inputs_embeds,
-                                    attention_mask=enc_mask,
-                                    dtype=dtype)["last_hidden_state"]
+                                    attention_mask=enc_mask, dtype=dtype,
+                                    adapters=adapters)["last_hidden_state"]
     lm_head = seq2seq.tied_head_operand(params["nlp"], cfg.decoder, dtype)
     if num_beams <= 1:
         return greedy_decode(params["nlp"], cfg.decoder, enc_hidden, enc_mask,
                              max_length, dtype, kv_int8=kv_int8,
-                             output_scores=output_scores, lm_head=lm_head)
+                             output_scores=output_scores, lm_head=lm_head,
+                             adapters=adapters)
     return beam_search(params["nlp"], cfg.decoder, enc_hidden, enc_mask,
                        max_length, num_beams, length_penalty, dtype,
                        early_stopping=early_stopping, kv_int8=kv_int8,
                        num_return_sequences=num_return_sequences,
-                       output_scores=output_scores, lm_head=lm_head)
+                       output_scores=output_scores, lm_head=lm_head,
+                       adapters=adapters)

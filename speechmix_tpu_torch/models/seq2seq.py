@@ -6,8 +6,10 @@ uncached teacher-forcing pass for training) and the training forward
 ``seq2seq_apply``.  With a ``dropout_rng`` (a DropoutKey; uncached passes
 only) they train with dropout at HF BART's placements: the embeddings, the
 attention probabilities, each attention output and the FFN's activation and
-output.  Layers are lists of parameter dicts.  T5 and adapters are not
-ported yet.
+output.  Layers are lists of parameter dicts.  With ``adapters`` (the
+``adapter`` variant's bottleneck adapters, lists per side) the encoder and
+the decoder replace each block's output by its adapter's.  T5 is not ported
+yet.
 
 Cache layout: self K/V (L, B, capacity, H, D), written in place by each
 step; cross K/V (L, B_enc, T_enc, H, D), in the compute dtype or, with
@@ -96,12 +98,45 @@ def _layer_keys(key, n_layers):
     return [None] * n_layers if key is None else key.split(n_layers)
 
 
+def init_adapter(generator, device, dtype, dim, bottleneck):
+    """Bottleneck adapter: LayerNorm -> dense (dim -> bottleneck) -> ReLU ->
+    dense (bottleneck -> dim)."""
+    return {"layer_norm": layer_norm_params(dim, device),
+            "down": dense_params(generator, device, dtype, dim, bottleneck),
+            "up": dense_params(generator, device, dtype, bottleneck, dim)}
+
+
+def apply_adapter(adapter, x, dtype=torch.float32):
+    """The adapter's output, which replaces the block's (no residual), in
+    plain PyTorch as the JAX package computes it outside any kernel."""
+    h = layers.layer_norm(adapter["layer_norm"], x)
+    h = torch.relu(layers.dense(adapter["down"], h, dtype))
+    return layers.dense(adapter["up"], h, dtype)
+
+
+def init_seq2seq_adapters(cfg: Seq2SeqConfig, generator, device,
+                          dtype=torch.float32, bottleneck_ratio=0.5):
+    """One adapter per text-encoder and per decoder layer:
+    {"encoder": [...], "decoder": [...]} (the JAX package stacks each
+    side)."""
+    bottleneck = int(cfg.hidden_size * bottleneck_ratio)
+    return {side: [init_adapter(generator, device, dtype, cfg.hidden_size,
+                                bottleneck) for _ in range(n)]
+            for side, n in (("encoder", cfg.encoder_layers),
+                            ("decoder", cfg.decoder_layers))}
+
+
+def _side_adapters(adapters, side, n_layers):
+    return [None] * n_layers if adapters is None else adapters[side]
+
+
 def encode(params, cfg: Seq2SeqConfig, input_ids=None, inputs_embeds=None,
            attention_mask=None, output_hidden_states=False,
-           dtype=torch.float32, dropout_rng=None):
+           dtype=torch.float32, dropout_rng=None, adapters=None):
     """Text encoder over token ids or precomputed embeddings (the SpeechMix
-    fusion feeds speech-derived `inputs_embeds`).  Returns
-    dict(last_hidden_state, mask[, hidden_states (L+1, B, T, H)])."""
+    fusion feeds speech-derived `inputs_embeds`); `adapters` replace each
+    block's output by its adapter's.  Returns dict(last_hidden_state,
+    mask[, hidden_states (L+1, B, T, H)])."""
     _check_supported(cfg)
     check_key(dropout_rng)
     k_emb, k_layers = split_or_none(dropout_rng, 2)
@@ -118,9 +153,13 @@ def encode(params, cfg: Seq2SeqConfig, input_ids=None, inputs_embeds=None,
                           cfg.layer_norm_eps)
     x = layers.dropout(x, cfg.dropout, k_emb)
     hidden = [x] if output_hidden_states else None
-    for block, key in zip(enc["layers"],
-                          _layer_keys(k_layers, len(enc["layers"]))):
+    n_layers = len(enc["layers"])
+    for block, key, adapter in zip(
+            enc["layers"], _layer_keys(k_layers, n_layers),
+            _side_adapters(adapters, "encoder", n_layers)):
         x = _encoder_block(block, cfg, x, attention_mask, dtype, key)
+        if adapter is not None:
+            x = apply_adapter(adapter, x, dtype)
         if hidden is not None:
             hidden.append(x)
     out = {"last_hidden_state": x, "mask": attention_mask}
@@ -276,7 +315,7 @@ def _tied_logits(x, w):
 def decode(params, cfg: Seq2SeqConfig, decoder_input_ids, encoder_mask=None,
            cache: Optional[DecoderCache] = None, dtype=torch.float32,
            enc_hidden=None, decoder_mask=None, dropout_rng=None,
-           lm_head=None):
+           lm_head=None, adapters=None, output_hidden_states=False):
     """Decoder forward.
 
     With a cache: incremental step; decoder_input_ids (B, q_len) continue at
@@ -286,8 +325,10 @@ def decode(params, cfg: Seq2SeqConfig, decoder_input_ids, encoder_mask=None,
     q_len, with decoder_mask (B, q_len) as the self-attention key mask, and
     with dropout when dropout_rng is given (a cached step ignores it: it is
     inference).  lm_head: the tied head's operand from tied_head_operand
-    (None: made here).  Returns dict(logits (B, q_len, V) float32, cache
-    (None when uncached))."""
+    (None: made here).  adapters: each block's output is replaced by its
+    adapter's, in both passes.  Returns dict(logits (B, q_len, V) float32,
+    cache (None when uncached)[, hidden_states (L+1, B, q_len, H): the
+    embedding output, then each block's])."""
     _check_supported(cfg)
     check_key(dropout_rng)
     if cache is None and enc_hidden is None:
@@ -304,6 +345,9 @@ def decode(params, cfg: Seq2SeqConfig, decoder_input_ids, encoder_mask=None,
     x = layers.layer_norm(dec["layernorm_embedding"], x + pos,
                           cfg.layer_norm_eps)
     x = layers.dropout(x, cfg.dropout, k_emb)
+    hidden = [x] if output_hidden_states else None
+    n_layers = len(dec["layers"])
+    dec_adapters = _side_adapters(adapters, "decoder", n_layers)
 
     if cache is None:
         # a structured key mask with causal=True keeps K1 / K7 reachable; the
@@ -313,12 +357,17 @@ def decode(params, cfg: Seq2SeqConfig, decoder_input_ids, encoder_mask=None,
                                    device=device))
         cross_bias = (None if encoder_mask is None
                       else combine_masks_to_bias(kv_mask=encoder_mask))
-        for block, key in zip(dec["layers"],
-                              _layer_keys(k_layers, len(dec["layers"]))):
+        for block, key, adapter in zip(dec["layers"],
+                                       _layer_keys(k_layers, n_layers),
+                                       dec_adapters):
             x, _ = _decoder_block(block, cfg, x, None, self_kv_mask, None,
                                   None, None, None, dtype, self_causal=True,
                                   enc_hidden=enc_hidden,
                                   cross_bias=cross_bias, dropout_rng=key)
+            if adapter is not None:
+                x = apply_adapter(adapter, x, dtype)
+            if hidden is not None:
+                hidden.append(x)
         new_cache = None
     else:
         capacity = cache.self_kv.key.shape[2]
@@ -331,7 +380,8 @@ def decode(params, cfg: Seq2SeqConfig, decoder_input_ids, encoder_mask=None,
             self_bias = cache_position_bias(capacity, offset, q_len,
                                             device=device)
         int8_kv = cache.cross_k_scale is not None
-        for i, block in enumerate(dec["layers"]):
+        for i, (block, adapter) in enumerate(zip(dec["layers"],
+                                                 dec_adapters)):
             layer_cache = KVCache(cache.self_kv.key[i],
                                   cache.self_kv.value[i], offset)
             x, _ = _decoder_block(
@@ -339,6 +389,10 @@ def decode(params, cfg: Seq2SeqConfig, decoder_input_ids, encoder_mask=None,
                 cache.cross_k[i], cache.cross_v[i], encoder_mask, dtype,
                 cache.cross_k_scale[i] if int8_kv else None,
                 cache.cross_v_scale[i] if int8_kv else None)
+            if adapter is not None:
+                x = apply_adapter(adapter, x, dtype)
+            if hidden is not None:
+                hidden.append(x)
         new_cache = cache._replace(self_kv=cache.self_kv._replace(
             index=offset + q_len))
 
@@ -349,33 +403,48 @@ def decode(params, cfg: Seq2SeqConfig, decoder_input_ids, encoder_mask=None,
     else:
         logits = layers.dense(params["lm_head"], x, dtype).float()
     logits = logits + params["final_logits_bias"].float()
-    return {"logits": logits, "cache": new_cache}
+    out = {"logits": logits, "cache": new_cache}
+    if hidden is not None:
+        out["hidden_states"] = torch.stack(hidden)
+    return out
 
 
 def seq2seq_apply(params, cfg: Seq2SeqConfig, input_ids=None,
                   inputs_embeds=None, attention_mask=None,
                   decoder_input_ids=None, decoder_mask=None, labels=None,
-                  dtype=torch.float32, dropout_rng=None):
-    """Full training / evaluation forward: text encoder, teacher-forced
+                  dtype=torch.float32, dropout_rng=None, encoder_outputs=None,
+                  output_hidden_states=False, adapters=None):
+    """Full training / evaluation forward: text encoder (skipped when
+    `encoder_outputs`, a dict of encode(), is given), teacher-forced
     decoder, and the mean cross-entropy over labels != -100 when labels
     (B, L) are given (decoder inputs then default to the labels shifted
-    right); dropout_rng (a DropoutKey) trains with dropout.  Returns
-    dict(logits, encoder_last_hidden_state, encoder_mask[, loss])."""
+    right); dropout_rng (a DropoutKey) trains with dropout; adapters as in
+    encode() and decode().  Returns dict(logits, encoder_last_hidden_state,
+    encoder_mask[, encoder_hidden_states, decoder_hidden_states][, loss])."""
     check_key(dropout_rng)
     k_enc, k_dec = split_or_none(dropout_rng, 2)
     if decoder_input_ids is None and labels is not None:
         decoder_input_ids = shift_tokens_right(
             labels, cfg.pad_token_id, cfg.decoder_start_token_id)
-    enc = encode(params, cfg, input_ids=input_ids,
-                 inputs_embeds=inputs_embeds, attention_mask=attention_mask,
-                 dtype=dtype, dropout_rng=k_enc)
+    enc = encoder_outputs
+    if enc is None:
+        enc = encode(params, cfg, input_ids=input_ids,
+                     inputs_embeds=inputs_embeds,
+                     attention_mask=attention_mask,
+                     output_hidden_states=output_hidden_states, dtype=dtype,
+                     dropout_rng=k_enc, adapters=adapters)
     dec_out = decode(params, cfg, decoder_input_ids,
                      encoder_mask=enc["mask"], dtype=dtype,
                      enc_hidden=enc["last_hidden_state"],
-                     decoder_mask=decoder_mask, dropout_rng=k_dec)
+                     decoder_mask=decoder_mask, dropout_rng=k_dec,
+                     adapters=adapters,
+                     output_hidden_states=output_hidden_states)
     out = {"logits": dec_out["logits"],
            "encoder_last_hidden_state": enc["last_hidden_state"],
            "encoder_mask": enc["mask"]}
+    if output_hidden_states:
+        out["encoder_hidden_states"] = enc["hidden_states"]
+        out["decoder_hidden_states"] = dec_out["hidden_states"]
     if labels is not None:
         out["loss"] = layers.cross_entropy_with_ignore(dec_out["logits"],
                                                        labels)

@@ -3,7 +3,8 @@
 
 Conv feature extractor (optionally with kernel K6 for its stride-2 layers)
 -> feature projection -> [SpecAugment] -> masked positional conv -> post-LN
-transformer layers [with LayerDrop].  Layers are a list of parameter dicts
+transformer layers, or pre-LN ones ("stable layer norm", the -large
+presets) with the encoder LayerNorm after them [with LayerDrop].  Layers are a list of parameter dicts
 (the JAX package stacks them on a leading axis for ``lax.scan``).  Every
 step is differentiable, through PyTorch autograd or the kernels' own
 backward functions, so the same code serves and trains.
@@ -17,8 +18,7 @@ function of its uniform draws, which come from a ``torch.Generator`` seeded
 from the site key; LayerDrop draws its decisions on the host from its key
 and skips a dropped layer (HF's skip_the_layer; the JAX package selects the
 layer's input instead, with the same result and gradient), so a step knows
-its kernel launches without reading the device.  The pre-LN ("stable layer
-norm") form is not ported yet.
+its kernel launches without reading the device.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ from ..config import SpeechEncoderConfig
 from ..ops import layers
 from ..ops.attention import attention
 from ..ops.kernels.conv_extractor import fused_conv_stack
-from ..ops.kernels.dropout import check_key, split_or_none
+from ..ops.kernels.dropout import STREAM_OUT, check_key, split_or_none
 from ..ops.masking import length_mask
 from .init import conv_params, dense_params, layer_norm_params
 
@@ -40,12 +40,6 @@ def truncate_layers(params, num_keep: int):
     out = dict(params)
     out["layers"] = list(params["layers"][:num_keep])
     return out
-
-
-def _check_supported(cfg: SpeechEncoderConfig):
-    if cfg.do_stable_layer_norm:
-        raise NotImplementedError(
-            "pre-LN (do_stable_layer_norm) speech encoders are not ported yet")
 
 
 _XLA_ONLY_IMPLS = ("patches", "pairs", "taps")
@@ -174,8 +168,25 @@ def layerdrop_skips(key, n_layers, rate):
 def _encoder_layer(layer_params, x, kv_mask, cfg, dtype, dropout_rng=None):
     """Post-LN layer: attention, then out-projection + residual + LN (K2),
     then FFN + residual + LN (K3); with a dropout_rng their dropout twins
-    K14, K11 and K12 at HF Wav2Vec2EncoderLayer's placements."""
+    K14, K11 and K12 at HF Wav2Vec2EncoderLayer's placements.  Pre-LN
+    (``do_stable_layer_norm``): LN, attention and its out-projection,
+    residual; then LN, FFN (K9, or K13 with dropout), residual, the
+    dropout sites of HF's Wav2Vec2EncoderLayerStableLayerNorm."""
     k_attn, k_h1, k_ffn = split_or_none(dropout_rng, 3)
+    if cfg.do_stable_layer_norm:
+        h = layers.layer_norm(layer_params["attention_layer_norm"], x,
+                              cfg.layer_norm_eps)
+        attn, _ = attention(layer_params["attention"], h, kv_mask=kv_mask,
+                            num_heads=cfg.num_heads, dtype=dtype,
+                            dropout_rate=cfg.attention_dropout,
+                            dropout_rng=k_attn)
+        x = x + layers.dropout(attn, cfg.dropout, k_h1, STREAM_OUT)
+        h = layers.layer_norm(layer_params["final_layer_norm"], x,
+                              cfg.layer_norm_eps)
+        h = layers.ffn_apply(layer_params["ffn_in"], layer_params["ffn_out"],
+                             h, cfg.activation, dtype, k_ffn,
+                             cfg.activation_dropout)
+        return x + layers.dropout(h, cfg.dropout, k_ffn, STREAM_OUT)
     attn, _ = attention(layer_params["attention"], x, kv_mask=kv_mask,
                         num_heads=cfg.num_heads, dtype=dtype, out_proj=False,
                         dropout_rate=cfg.attention_dropout,
@@ -199,8 +210,9 @@ def speech_encoder_apply(params, cfg: SpeechEncoderConfig, waveform,
     for the deterministic forward.  Returns dict(last_hidden_state
     (B, T, H), frame_lengths (B,), frame_mask (B, T), layers_skipped (the
     indices LayerDrop skipped)[, hidden_states (L+1, B, T, H) with the
-    embedding output first; a skipped layer repeats its input])."""
-    _check_supported(cfg)
+    embedding output first; a skipped layer repeats its input; pre-LN: the
+    last entry is the state after the encoder LayerNorm, as HF's
+    Wav2Vec2EncoderStableLayerNorm appends it])."""
     check_key(dropout_rng)
     b, t_samples = waveform.shape
     if lengths is None:
@@ -223,7 +235,9 @@ def speech_encoder_apply(params, cfg: SpeechEncoderConfig, waveform,
     pos = layers.conv1d_same_grouped(params["pos_conv"], h,
                                      cfg.pos_conv_groups, dtype)
     h = h + F.gelu(pos)
-    h = layers.layer_norm(params["encoder_layer_norm"], h, cfg.layer_norm_eps)
+    if not cfg.do_stable_layer_norm:
+        h = layers.layer_norm(params["encoder_layer_norm"], h,
+                              cfg.layer_norm_eps)
     h = layers.dropout(h, cfg.dropout, k_pos)
 
     n_layers = len(params["layers"])
@@ -238,6 +252,11 @@ def speech_encoder_apply(params, cfg: SpeechEncoderConfig, waveform,
             h = _encoder_layer(layer_params, h, frame_mask, cfg, dtype, key)
         if hidden is not None:
             hidden.append(h)
+    if cfg.do_stable_layer_norm:
+        h = layers.layer_norm(params["encoder_layer_norm"], h,
+                              cfg.layer_norm_eps)
+        if hidden is not None:
+            hidden[-1] = h
     out = {"last_hidden_state": h, "frame_lengths": frame_lengths,
            "frame_mask": frame_mask,
            "layers_skipped": [i for i, skip in enumerate(skips) if skip]}
@@ -276,7 +295,6 @@ def init_speech_encoder(cfg: SpeechEncoderConfig, generator, device,
     masked_spec_embed uniform in [0, 1) as HF's), drawn from `generator`;
     matrices in `dtype`, vectors in float32.  masked_spec_embed comes first
     in the tree, where HF registers it."""
-    _check_supported(cfg)
 
     conv_layers = []
     in_ch = 1

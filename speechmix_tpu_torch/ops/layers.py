@@ -214,6 +214,23 @@ def cross_entropy_with_ignore(logits, labels, ignore_index=-100):
     return nll.sum() / valid.sum().float().clamp_min(1.0)
 
 
+def kld_batchmean(student_logits, teacher_logits):
+    """torch's KLDivLoss(reduction='batchmean') of log_softmax(student)
+    against softmax(teacher), in float32: the sum of t (log t - s) over all
+    elements, a term 0 where t == 0, divided by the batch size."""
+    s = torch.log_softmax(student_logits.float(), dim=-1)
+    t = torch.softmax(teacher_logits.float(), dim=-1)
+    log_t = torch.where(t > 0, torch.log(t.clamp_min(1e-30)), 0.0)
+    return (t * (log_t - s)).sum() / student_logits.shape[0]
+
+
+def bce_with_logits(logits, targets):
+    """BCEWithLogitsLoss (mean) in float32."""
+    x = logits.float()
+    return torch.mean(torch.clamp_min(x, 0) - x * targets
+                      + torch.log1p(torch.exp(-x.abs())))
+
+
 def conv1d(params, x, stride, dtype=None):
     """x: (B, T, C_in) -> (B, T_out, C_out), VALID padding; kernel
     (C_out, C_in, K)."""

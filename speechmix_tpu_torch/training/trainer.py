@@ -1,22 +1,24 @@
-"""The train step (port of ``speechmix_tpu.training.trainer``): AdamW with
-warmup and decay, gradient accumulation over micro-batches, the variant's
-static freezing mask, clipping by global norm, and with ``dropout=True``
-(the default) training-mode dropout, SpecAugment and LayerDrop at the
-models' rates.
+"""The train step (port of ``speechmix_tpu.training.trainer``): Adafactor
+(the default, the reference's recipe) or AdamW with warmup and decay,
+gradient accumulation over micro-batches, the variant's static freezing
+mask, gradual unfreezing of the speech encoder, the GAN's alternating
+generator / discriminator masks, clipping by global norm, and with
+``dropout=True`` (the default) training-mode dropout, SpecAugment and
+LayerDrop at the models' rates.
 
 Parameters are float32 master weights; ``TrainConfig.bf16`` selects the
 compute dtype, and the kernels' differentiable forms hand each weight its
 gradient in float32.  ``step_fn`` updates the parameters and the optimizer
-moments in place (the JAX package returns new arrays and donates the old).
+state in place (the JAX package returns new arrays and donates the old).
 
 The dropout keys are host integers, chained as the JAX package chains its
 rng: base = key(seed + 0x5EED), then fold_in(step), then one split per
 micro-batch (``dropout_keys``).  A step is deterministic per (seed, step,
 micro-batch); its streams differ from the JAX package's.
 
-Not ported yet, and refused with NotImplementedError: Adafactor, gradual
-unfreezing (``freeze_epochs > 0``), model / sequence parallelism and ZeRO-1.
-``Trainer.fit``, evaluation, logging and checkpoints wait as well.
+Not ported yet, and refused with NotImplementedError: model / sequence
+parallelism and ZeRO-1.  ``Trainer.fit``, evaluation, logging and
+checkpoints wait as well.
 """
 
 from __future__ import annotations
@@ -25,8 +27,10 @@ import math
 from dataclasses import dataclass
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 
+from .. import convert
 from ..config import SpeechMixConfig
 from ..models import speechmix as smx
 from ..ops.kernels._cuda import resolve_device
@@ -35,6 +39,9 @@ from . import freezing
 from .freezing import tree_map, tree_map_with_path, tree_paths
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+# optax.adafactor's defaults under the JAX package's recipe
+# (multiply_by_parameter_scale=False, min_dim_size_to_factor=0)
+ADAFACTOR_DECAY, ADAFACTOR_EPS, ADAFACTOR_CLIP = 0.8, 1e-30, 1.0
 
 
 @dataclass
@@ -52,6 +59,10 @@ class TrainConfig:
     dropout: bool = True
     optimizer: str = "adafactor"
     freeze_epochs: int = 0
+    # "tensor": the reference's FreezingCallback, tensor by tensor
+    # (freezing.reference_unfreeze_scale); "layer": whole layers
+    # (freezing.gradual_unfreeze_scale)
+    unfreeze_granularity: str = "tensor"
     model_parallel: int = 1
     sequence_parallel: int = 1
     zero1: bool = False
@@ -61,20 +72,20 @@ class TrainConfig:
 
 class TrainState(NamedTuple):
     params: Any      # float32 master weights
-    opt_state: Any   # {"mu", "nu": trees like params, "count": int}
+    # AdamW: {"mu", "nu": trees like params, "count": int}; Adafactor:
+    # {"v_row", "v_col", "v": trees in the JAX package's layout, "count"}
+    opt_state: Any
     step: int
 
 
 def _check_supported(tc: TrainConfig):
-    if tc.optimizer == "adafactor":
-        raise NotImplementedError("Adafactor is not ported yet; set "
-                                  "optimizer='adamw'")
-    if tc.optimizer != "adamw":
+    if tc.optimizer not in OPTIMIZERS:
         raise ValueError(f"unknown optimizer {tc.optimizer!r} (expected "
                          "'adafactor' or 'adamw')")
-    if tc.freeze_epochs > 0:
-        raise NotImplementedError("gradual unfreezing is not ported yet; "
-                                  "set freeze_epochs=0")
+    if tc.unfreeze_granularity not in ("tensor", "layer"):
+        raise ValueError(f"unknown unfreeze_granularity "
+                         f"{tc.unfreeze_granularity!r} (expected 'tensor' "
+                         "or 'layer')")
     if tc.model_parallel > 1 or tc.sequence_parallel > 1 or tc.zero1:
         raise NotImplementedError("model / sequence parallelism and ZeRO-1 "
                                   "are not ported yet")
@@ -141,9 +152,100 @@ class AdamW:
         return {"mu": opt_state["mu"], "nu": opt_state["nu"], "count": count}
 
 
-def make_optimizer(tc: TrainConfig) -> AdamW:
+def _factored_dims(shape):
+    """optax's choice of the two axes a second moment is factored over (its
+    _factored_dims with min_dim_size_to_factor=0): (the second largest, the
+    largest) by np.argsort of the leaf's shape in the JAX layout, or None
+    for a vector."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    return int(order[-2]), int(order[-1])
+
+
+class Adafactor:
+    """Clipping by global norm, then Adafactor: the update of optax's
+    chain(clip_by_global_norm(max_grad_norm), adafactor(schedule,
+    multiply_by_parameter_scale=False, min_dim_size_to_factor=0)).  In order:
+    the second moment's factored estimate (decay 1 - (count + 1)^-0.8,
+    eps 1e-30 added to g^2), the gradient scaled by its inverse square root,
+    clipped to block RMS 1, times the schedule's rate, sign flipped.
+
+    optax works leaf by leaf on the JAX package's tree, so this does too:
+    the statistics, the factored axes (np.argsort of the JAX shape) and the
+    block RMS belong to the leaves of ``convert.jax_layout_groups``, where a
+    layer list is one stacked leaf (a stacked vector (L, n) is factored
+    across its layers; a stacked matrix keeps per-layer row and column
+    statistics but is clipped as a whole) and a conv kernel is (K, C_in,
+    C_out).  Every leaf's statistics move every step, also where the
+    gradient is 0 (a frozen leaf), as optax's do."""
+
+    def __init__(self, tc: TrainConfig):
+        self.schedule = make_lr_schedule(tc)
+        self.max_norm = tc.max_grad_norm
+
+    def init(self, params):
+        def stats(group):
+            zeros = lambda shape: torch.zeros(
+                shape, dtype=torch.float32, device=group.tensors[0].device)
+            shape = group.shape
+            dims = _factored_dims(shape)
+            if dims is None:
+                return zeros(1), zeros(1), zeros(shape)
+            d1, d0 = dims
+            return (zeros(np.delete(shape, d0).tolist()),
+                    zeros(np.delete(shape, d1).tolist()), zeros(1))
+        groups = convert.jax_layout_groups(params)
+        return {"v_row": tree_map(lambda g: stats(g)[0], groups),
+                "v_col": tree_map(lambda g: stats(g)[1], groups),
+                "v": tree_map(lambda g: stats(g)[2], groups), "count": 0}
+
+    @torch.no_grad()
+    def update_(self, params, grads, opt_state, grad_norm):
+        """One update in place; `grad_norm` is the gradients' global norm.
+        Returns the new optimizer state (the same statistics tensors)."""
+        leaves = lambda tree: [leaf for _, leaf in tree_paths(tree)]
+        p_groups = leaves(convert.jax_layout_groups(params))
+        g_groups = leaves(convert.jax_layout_groups(grads))
+        v_rows, v_cols, vs = (leaves(opt_state[k])
+                              for k in ("v_row", "v_col", "v"))
+        count = opt_state["count"]
+        # in float32, as optax computes it
+        decay = float(np.float32(1.0) - np.float32(count + 1)
+                      ** np.float32(-ADAFACTOR_DECAY))
+        lr = self.schedule(count)
+        clipped = grad_norm >= self.max_norm
+        targets, updates = [], []
+        for pg, gg, v_row, v_col, v in zip(p_groups, g_groups, v_rows,
+                                           v_cols, vs):
+            g = gg.gather().float()
+            g = torch.where(clipped, g / grad_norm * self.max_norm, g)
+            g2 = g * g + ADAFACTOR_EPS
+            dims = _factored_dims(pg.shape)
+            if dims is None:
+                v.mul_(decay).add_(g2, alpha=1.0 - decay)
+                u = g * v.pow(-0.5)
+            else:
+                d1, d0 = dims
+                v_row.mul_(decay).add_(g2.mean(d0), alpha=1.0 - decay)
+                v_col.mul_(decay).add_(g2.mean(d1), alpha=1.0 - decay)
+                reduced_d1 = d1 - 1 if d1 > d0 else d1
+                row = (v_row / v_row.mean(reduced_d1, keepdim=True)).pow(-0.5)
+                u = g * row.unsqueeze(d0) * v_col.pow(-0.5).unsqueeze(d1)
+            rms = torch.sqrt(torch.mean(u * u)) / ADAFACTOR_CLIP
+            u = u / torch.clamp_min(rms, 1.0) * -lr
+            targets += pg.tensors
+            updates += pg.views(u)
+        torch._foreach_add_(targets, updates)
+        return {**opt_state, "count": count + 1}
+
+
+OPTIMIZERS = {"adamw": AdamW, "adafactor": Adafactor}
+
+
+def make_optimizer(tc: TrainConfig):
     _check_supported(tc)
-    return AdamW(tc)
+    return OPTIMIZERS[tc.optimizer](tc)
 
 
 def create_train_state(generator: torch.Generator, cfg: SpeechMixConfig,
@@ -174,31 +276,56 @@ def dropout_keys(tc: TrainConfig, step: int):
 
 def make_train_step(cfg: SpeechMixConfig, tc: TrainConfig, params_example,
                     device=None):
-    """Build step_fn(state, batch) -> (state, metrics).
+    """Build step_fn(state, batch, unfreeze_progress=0.0) -> (state,
+    metrics).
 
     batch: dict of tensors or arrays with leading size grad_accum * micro_b:
     input_values (waveforms), labels (-100 = ignored), and optionally
-    lengths, prompt_ids and example_mask (rows that are False are filler and
-    leave the loss).  The step takes the gradient of each micro-batch's mean
-    loss, averages over the grad_accum micro-batches, applies the variant's
-    static mask, clips by global norm and updates.  metrics: "loss" (mean
-    over micro-batches) and "grad_norm" (after the mask, before clipping),
-    0-d tensors on the device, and "layers_skipped", the speech-encoder
-    layers LayerDrop skipped in each micro-batch (host lists).
+    lengths, prompt_ids, text_input_ids and text_mask (the self and gan
+    variants' text pass) and example_mask (rows that are False are filler
+    and leave the loss).  The step takes the gradient of each micro-batch's
+    mean loss and averages over the grad_accum micro-batches.  Then, as the
+    JAX package's step, it multiplies in the variant's static mask, with
+    freeze_epochs > 0 the unfreezing mask at `unfreeze_progress` (epoch /
+    freeze_epochs; tensor or layer granularity), for gan the alternating
+    mask of state.step, clips by global norm and updates.  A leaf the masks
+    freeze gets no gradient computed, only a zero one.  metrics: "loss"
+    (mean over micro-batches), "grad_norm" (after the masks, before
+    clipping) and the variant's named loss terms (self: ce_loss, kld_loss,
+    mse_loss; gan: voice_enc_loss, ...), 0-d tensors on the device, and
+    "layers_skipped", the speech-encoder layers LayerDrop skipped in each
+    micro-batch (host lists).
 
     Runs on `device` (default: the card; raises without CUDA); the state
-    must live there.  The parameters and moments of `state` are updated in
-    place."""
+    must live there.  The parameters and the optimizer state of `state` are
+    updated in place."""
     _check_supported(tc)
     smx._check_supported(cfg)
     device = resolve_device(device)
-    optimizer = AdamW(tc)
+    optimizer = make_optimizer(tc)
     dtype = torch.bfloat16 if tc.bf16 else torch.float32
     static_mask = freezing.variant_trainable_mask(
         params_example, cfg, tc.fixed_speech, tc.fixed_nlp)
     accum = tc.grad_accum
 
-    def micro_loss(params, micro, key):
+    def step_mask(params, step, progress):
+        """The product of the step's masks: one 0.0 or 1.0 per leaf."""
+        masks = [static_mask]
+        if tc.freeze_epochs > 0:
+            if tc.unfreeze_granularity == "tensor":
+                masks.append(freezing.reference_unfreeze_scale(
+                    params, freezing.unfreeze_epoch(progress,
+                                                    tc.freeze_epochs),
+                    tc.freeze_epochs))
+            else:
+                masks.append(freezing.gradual_unfreeze_scale(params,
+                                                             progress))
+        if cfg.variant == "gan":
+            masks.append(freezing.gan_alternating_masks(
+                params, step, cfg.gan_discriminator_update_every))
+        return tree_map(lambda *m: math.prod(m), *masks)
+
+    def micro_forward(params, micro, key):
         labels = micro["labels"]
         if "example_mask" in micro:
             labels = torch.where(micro["example_mask"][:, None].bool(),
@@ -206,42 +333,49 @@ def make_train_step(cfg: SpeechMixConfig, tc: TrainConfig, params_example,
         out = smx.speechmix_forward(
             params, cfg, micro["input_values"], lengths=micro.get("lengths"),
             labels=labels, prompt_ids=micro.get("prompt_ids"), dtype=dtype,
-            dropout_rng=key)
-        return out["loss"], out["layers_skipped"]
+            dropout_rng=key, text_input_ids=micro.get("text_input_ids"),
+            text_mask=micro.get("text_mask"))
+        return out
 
-    def step_fn(state: TrainState, batch):
+    def step_fn(state: TrainState, batch, unfreeze_progress=0.0):
         batch = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
-        # a frozen parameter needs no gradient: its masked gradient is 0
+        mask = step_mask(state.params, state.step, unfreeze_progress)
         leaves = tree_map(
             lambda p, m: p.detach().requires_grad_(m > 0), state.params,
-            static_mask)
+            mask)
         wanted = [(path, leaf) for path, leaf in tree_paths(leaves)
                   if leaf.requires_grad]
         sums = {path: torch.zeros_like(leaf, dtype=torch.float32)
                 for path, leaf in wanted}
-        loss_sum = torch.zeros((), dtype=torch.float32, device=device)
+        terms = {}
         skipped = []
         for i, key in enumerate(dropout_keys(tc, state.step)):
             micro = {k: v.reshape(accum, v.shape[0] // accum,
                                   *v.shape[1:])[i] for k, v in batch.items()}
-            loss, layers_skipped = micro_loss(leaves, micro, key)
-            skipped.append(layers_skipped)
-            grads = torch.autograd.grad(loss, [leaf for _, leaf in wanted],
-                                        allow_unused=True)
-            for (path, _), g in zip(wanted, grads):
-                if g is not None:
-                    sums[path] += g
-            loss_sum += loss.detach().float()
+            out = micro_forward(leaves, micro, key)
+            skipped.append(out["layers_skipped"])
+            if wanted and out["loss"].requires_grad:
+                grads = torch.autograd.grad(
+                    out["loss"], [leaf for _, leaf in wanted],
+                    allow_unused=True)
+                for (path, _), g in zip(wanted, grads):
+                    if g is not None:
+                        sums[path] += g
+            for name, value in out.items():
+                if name == "loss" or name.endswith("_loss"):
+                    terms[name] = (terms.get(name, 0.0)
+                                   + value.detach().float())
+        # the masks are 0.0 or 1.0 per leaf: a frozen leaf's masked gradient
+        # is the zero it gets here, a trained leaf's its own
         grads = tree_map_with_path(
             lambda path, p: (sums[path] / accum if path in sums else
                              torch.zeros_like(p, dtype=torch.float32)),
             state.params)
-        grads = freezing.apply_grad_mask(grads, static_mask)
         grad_norm = global_norm(grads)
         opt_state = optimizer.update_(state.params, grads, state.opt_state,
                                       grad_norm)
-        metrics = {"loss": loss_sum / accum, "grad_norm": grad_norm,
-                   "layers_skipped": skipped}
+        metrics = {**{name: value / accum for name, value in terms.items()},
+                   "grad_norm": grad_norm, "layers_skipped": skipped}
         return TrainState(state.params, opt_state, state.step + 1), metrics
 
     return step_fn

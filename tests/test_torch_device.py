@@ -76,7 +76,12 @@ def test_port_imports_no_jax():
     names = {str(f.relative_to(ROOT)) for f in files}
     assert {"speechmix_tpu_torch/training/trainer.py",
             "speechmix_tpu_torch/training/freezing.py",
-            "speechmix_tpu_torch/ops/kernels/dropout.py"} <= names
+            "speechmix_tpu_torch/ops/kernels/dropout.py",
+            "speechmix_tpu_torch/convert.py",
+            "speechmix_tpu_torch/models/speech_encoder.py",
+            "speechmix_tpu_torch/models/speechmix.py",
+            "speechmix_tpu_torch/models/seq2seq.py",
+            "speechmix_tpu_torch/generation.py"} <= names
     for path in files:
         for name in _imported_modules(path):
             top = name.split(".")[0]
