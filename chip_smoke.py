@@ -70,6 +70,16 @@ Phases, each printing as it goes; any failure exits non-zero:
      with k speech layers skipped, K14, K15, K12, K13, K8's dropout
      recompute and its products 24 - k times (the dropout up pass 48 - 2k),
      K11 30 - k, K10 64 - 2k, K6 6, and no deterministic twin;
+     then the large pair and the variants (Adafactor, unfreezing);
+     then the loop (run_trainer): the flagship through the port's Trainer
+     with the default recipe, 2 epochs of 4 steps over the 4-16 s buckets
+     of the synthetic corpus, eval + greedy predict and npz checkpoints
+     every 4 steps, each step's launches against its LayerDrop draw and
+     unfreezing mask, the eval step without backward kernels, the
+     checkpoints' bits on restore, a resumed Trainer's first step against
+     step_fn on the restored state, load-best-at-end, and the teacher
+     (K1-K4 in f32) against the plain path's tokens; it prints ms per step
+     through fit beside the bare step, eval, predict and checkpoint times;
   6. print the `kernels` JSON line (K1, K14, K7 and K15 with a record per
      attention length of the step and its launches there, K6 one per
      extractor layer, K4 one per decoder shape with its launches at that key
@@ -3202,6 +3212,535 @@ def run_variants(seed, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the loop around the step: Trainer.fit, eval, predict, checkpoints, teacher
+# ---------------------------------------------------------------------------
+
+# words per utterance of the four groups of 16 training utterances: an
+# utterance of k words lasts 0.5 + 0.35 k s, so each group fills one of the
+# 4, 8, 12 and 16 s buckets; the 16 eval utterances fill the 8 s bucket
+TRAINER_WORDS = ((5, 10), (11, 21), (22, 32), (33, 44))
+TRAINER_EVAL_WORDS = (11, 21)
+TRAINER_EPOCHS, TRAINER_FREEZE_EPOCHS, TRAINER_EVAL_STEPS = 2, 2, 4
+# the step of the resumed fit whose wall interval (its entry to the next
+# step's) is profiled: the 16 s batch after the step that is compared bit
+# for bit
+TRAINER_PROFILED_STEP = 11
+TEACHER_SENTENCES, TEACHER_MAX_LEN = 16, 64
+
+
+def expected_postln_dropout_launches(kept, attn_bwd, dense_bwd, ffn_bwd,
+                                     enc_layers, dec_layers):
+    """Launches of every kernel in one micro-batch of a train step with
+    dropout on, of a post-LN speech encoder whose layers may be frozen: a
+    kept layer runs K14, K11 and K12 forward; K15 where its attention's
+    backward runs (attn_bwd layers), K11's backward (K10 regenerating its
+    output mask) where dense_bwd, and K12's backward (K13 recomputing the
+    FFN, K10 the output mask, K8 with the activation mask) where ffn_bwd.
+    The BART layers all run theirs.  With every layer training this is
+    expected_dropout_train_launches(kept, enc_layers, dec_layers)."""
+    nlp = enc_layers + dec_layers
+    want = expected_train_launches(0, 0, 0)
+    want.update({
+        "smx_attention_dropout_fwd": kept + nlp,
+        "smx_attention_dropout_bwd": attn_bwd + nlp,
+        "smx_dense_dropout_res_ln": kept + nlp + dec_layers,
+        **ffn_forward_launches(kept + nlp, ffn_bwd + nlp, dropout=True),
+        **dict.fromkeys(K8_DROPOUT_ENTRIES["bf16"], ffn_bwd + nlp),
+        "smx_dropout_mask": (4 + dec_layers + (dense_bwd + nlp + dec_layers)
+                             + (ffn_bwd + nlp))})
+    return want
+
+
+def postln_backward_layers(enc_mask, kept):
+    """The kept post-LN layers whose backward pieces run under the speech
+    encoder's mask `enc_mask`: the attention's (K15) where its input needs
+    a gradient (something below trains; below the layers are the
+    extractor, the feature projection, the positional conv, the encoder
+    LayerNorm and masked_spec_embed) or its q / k / v projections train;
+    the out-projection epilogue's (K11) where that holds or its
+    out-projection or LayerNorm trains; the FFN block's (K12) where that
+    holds or the FFN or its LayerNorm trains."""
+    from speechmix_tpu_torch.training.freezing import tree_paths
+    trains = lambda tree: any(m > 0 for _, m in tree_paths(tree))
+    below = trains({k: v for k, v in enc_mask.items() if k != "layers"})
+    attn, dense, ffn = [], [], []
+    for layer in kept:
+        lm = enc_mask["layers"][layer]
+        a = below or trains([lm["attention"][n] for n in (
+            "q_proj", "k_proj", "v_proj")])
+        d = a or trains(lm["attention"]["out_proj"]) or trains(
+            lm["attention_layer_norm"])
+        f = d or trains([lm[n] for n in ("ffn_in", "ffn_out",
+                                         "final_layer_norm")])
+        for hit, out in ((a, attn), (d, dense), (f, ffn)):
+            if hit:
+                out.append(layer)
+        below = f
+    return attn, dense, ffn
+
+
+def expected_eval_launches(speech_layers, enc_layers, dec_layers):
+    """The eval step: the train step's forward with dropout off and no
+    backward (no K7, K8, nor K9 recomputing the FFN)."""
+    layers = speech_layers + enc_layers + dec_layers
+    want = expected_train_launches(speech_layers, enc_layers, dec_layers)
+    want.update({"smx_attention_bwd": 0, **dict.fromkeys(K8_ALL, 0),
+                 **ffn_forward_launches(layers, 0)})
+    return want
+
+
+def _state_prints(state):
+    """Fingerprints of the parameters and of the optimizer's tensors."""
+    import torch
+    from speechmix_tpu_torch.training.freezing import tree_paths
+    out = {f"params/{k}": v for k, v in _fingerprints(state.params).items()}
+    for path, t in tree_paths(state.opt_state):
+        if isinstance(t, torch.Tensor):
+            out[f"opt_state/{path}"] = int(
+                t.view(torch.int32).sum(dtype=torch.int64))
+    return out
+
+
+def _trainer_corpus(seed, datasets, model):
+    """The training examples (64, four buckets) and the eval examples (16,
+    the 8 s bucket): synthetic audio, byte-tokenized transcripts."""
+    raw = []
+    for g, (lo, hi) in enumerate(TRAINER_WORDS):
+        raw += datasets.synthetic_corpus(16, seed=seed * 8 + g, min_sec=1.0,
+                                         max_sec=16.0, min_words=lo,
+                                         max_words=hi)
+    eval_raw = datasets.synthetic_corpus(
+        16, seed=seed * 8 + 4, min_sec=1.0, max_sec=16.0,
+        min_words=TRAINER_EVAL_WORDS[0], max_words=TRAINER_EVAL_WORDS[1])
+    return (datasets.prepare_examples(raw, model, use_teacher_targets=False),
+            datasets.prepare_examples(eval_raw, model,
+                                      use_teacher_targets=False))
+
+
+def run_trainer(seed, card):
+    """The flagship (bf16 compute, f32 master weights) through the port's
+    Trainer with the default recipe (Adafactor, dropout on, tensor
+    granularity unfreezing with freeze_epochs 2) for 2 epochs of 4 steps:
+    the synthetic corpus through BucketBatcher at B = 16 over the 4-16 s
+    buckets, the prefetcher, JSONL logging, eval + greedy predict every 4
+    steps, npz checkpoints (keep 2) in a temporary directory; then a second
+    Trainer resumes the directory for one step and loads the best step; then
+    the teacher on 16 sentences with bart-base in f32.  Checks (a)-(g) of
+    the phase; prints the loop's numbers."""
+    import dataclasses
+    import tempfile
+    import types
+    import torch
+    from speechmix_tpu_torch.data import collator, datasets, teacher
+    from speechmix_tpu_torch.data.tokenizer import ByteTokenizer
+    from speechmix_tpu_torch.models import seq2seq, speech_encoder
+    from speechmix_tpu_torch.ops import kernels
+    from speechmix_tpu_torch.ops.layers import FUSED_MIN_ROWS
+    from speechmix_tpu_torch.training import freezing, trainer
+
+    cfg = flagship_config()
+    enc, dec = cfg.encoder, cfg.decoder
+    dev = torch.device("cuda")
+    tok = ByteTokenizer(pad_token_id=dec.pad_token_id,
+                        eos_token_id=dec.eos_token_id,
+                        bos_token_id=dec.bos_token_id)
+    model = types.SimpleNamespace(config=cfg, tokenizer=tok, params=None)
+    train_ex, eval_ex = _trainer_corpus(seed, datasets, model)
+    ccfg = collator.CollatorConfig(
+        pad_token_id=dec.pad_token_id, bos_token_id=tok.bos_token_id,
+        eos_token_id=dec.eos_token_id, max_label_length=dec.max_length,
+        max_text_length=dec.max_length, align_samples=enc.aligned_samples)
+
+    def train_batches_factory():
+        batcher = collator.BucketBatcher(ccfg, BATCH, shuffle_seed=seed)
+        return lambda: batcher(train_ex)
+    eval_batcher = collator.BucketBatcher(ccfg, BATCH)
+    eval_batches = lambda: eval_batcher(eval_ex)
+    audio_s = sum(len(ex["input_values"]) for ex in train_ex) / 16000
+    steps_per_epoch = len(list(train_batches_factory()()))
+    if steps_per_epoch != 4:
+        raise AssertionError(f"trainer: {steps_per_epoch} batches per epoch, "
+                             "expected 4")
+
+    out_dir = tempfile.mkdtemp(prefix="smx_trainer_")
+    tc = trainer.TrainConfig(
+        learning_rate=TRAIN_LR, warmup_steps=1, bf16=True,
+        freeze_epochs=TRAINER_FREEZE_EPOCHS, num_epochs=TRAINER_EPOCHS,
+        eval_steps=TRAINER_EVAL_STEPS, logging_steps=1,
+        predict_with_generate=True, save_total_limit=2, prefetch_depth=2,
+        output_dir=out_dir, seed=seed)
+    if not (tc.optimizer == "adafactor" and tc.dropout
+            and tc.unfreeze_granularity == "tensor"):
+        raise AssertionError(f"TrainConfig defaults changed: {tc}")
+    log(f"trainer: flagship, bf16 compute, f32 master weights, Adafactor lr "
+        f"{TRAIN_LR}, dropout on, freeze_epochs {TRAINER_FREEZE_EPOCHS} "
+        f"(tensor), {TRAINER_EPOCHS} epochs of {steps_per_epoch} steps at "
+        f"B={BATCH} (synthetic corpus, {len(train_ex)} utterances, "
+        f"{audio_s:.1f} audio-s, buckets 4-16 s; eval {len(eval_ex)} "
+        f"utterances), eval + greedy predict every {TRAINER_EVAL_STEPS} "
+        f"steps, save_total_limit {tc.save_total_limit}, prefetch depth "
+        f"{tc.prefetch_depth}, output_dir {out_dir}")
+
+    symbols = lambda: {k.symbol: k.launches for k in kernels.kernels()}
+    steps, evals, predicts, saves = [], [], [], []
+    profiled, capture = {}, {}
+    orig_make = trainer.make_train_step
+
+    def instrumented_make(*a, **kw):
+        step_fn = orig_make(*a, **kw)
+
+        def wrapped(state, batch, progress=0.0):
+            entry = time.perf_counter()
+            if "prof" in profiled:   # the profiled window ends here
+                torch.cuda.synchronize()
+                profiled["wall_ms"] = (time.perf_counter()
+                                       - profiled["t0"]) * 1e3
+                prof = profiled.pop("prof")
+                prof.stop()
+                profiled["events"] = [e for e in prof.key_averages()
+                                      if e.self_device_time_total > 0]
+            if state.step + 1 == TRAINER_PROFILED_STEP:
+                from torch.profiler import ProfilerActivity, profile
+                prof = profile(activities=[ProfilerActivity.CUDA])
+                torch.cuda.synchronize()
+                prof.start()
+                profiled.update(prof=prof, t0=time.perf_counter())
+            kernels.reset_launch_counts()
+            before = state.step
+            state, metrics = step_fn(state, batch, progress)
+            if capture.get("on") and "prints" not in capture:
+                torch.cuda.synchronize()
+                capture["prints"] = _state_prints(state)
+                torch.backends.cudnn.deterministic = False
+            steps.append(dict(step=before, progress=progress, entry=entry,
+                              counts=symbols(), batch=batch,
+                              samples=batch["input_values"].shape[1],
+                              labels=batch["labels"].shape[1],
+                              loss=metrics["loss"],
+                              skipped=metrics["layers_skipped"]))
+            return state, metrics
+        return wrapped
+
+    class TimedTrainer(trainer.Trainer):
+        def evaluate(self, *a, **kw):
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = super().evaluate(*a, **kw)
+            torch.cuda.synchronize()
+            evals.append((time.perf_counter() - t0, symbols()))
+            return out
+
+        def predict(self, *a, **kw):
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = super().predict(*a, **kw)
+            torch.cuda.synchronize()
+            predicts.append((time.perf_counter() - t0, symbols(), out))
+            return out
+
+    def timed_saves(tr):
+        orig = tr.ckpt.save
+
+        def save(step, state, metrics=None):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = orig(step, state, metrics)
+            saves.append(dict(step=step, s=time.perf_counter() - t0,
+                              bytes=os.path.getsize(path),
+                              prints=_state_prints(state)))
+            return path
+        tr.ckpt.save = save
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    trainer.make_train_step = instrumented_make
+    try:
+        tr = TimedTrainer(cfg, tc, tokenizer=tok)
+        timed_saves(tr)
+        state = tr.init_state(gen)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t_fit = time.perf_counter()
+        state = tr.fit(state, train_batches_factory(), eval_batches)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t_fit
+        peak = torch.cuda.max_memory_allocated()
+        fit_steps = list(steps)
+
+        # (a) every step: a finite loss, the launches of its LayerDrop
+        # draw, unfreezing mask and rows under the fused gate
+        for rec in fit_steps:
+            frames = int(enc.feature_lengths(rec["samples"]))
+            rows = {"speech": BATCH * frames,
+                    "text encoder": BATCH * (frames // cfg.down_scale),
+                    "decoder": BATCH * rec["labels"]}
+            if min(rows.values()) < FUSED_MIN_ROWS:
+                raise AssertionError(f"trainer step {rec['step'] + 1}: rows "
+                                     f"{rows} below the fused gate")
+            skipped = layerdrop_replay(trainer, speech_encoder, tc, cfg,
+                                       rec["step"])
+            kept = [l for l in range(enc.num_layers) if l not in skipped]
+            mask = freezing.reference_unfreeze_scale(
+                state.params, freezing.unfreeze_epoch(
+                    rec["progress"], TRAINER_FREEZE_EPOCHS),
+                TRAINER_FREEZE_EPOCHS)
+            attn, dense, ffn = postln_backward_layers(
+                mask["speech_encoder"], kept)
+            want = expected_postln_dropout_launches(
+                len(kept), len(attn), len(dense), len(ffn),
+                dec.encoder_layers, dec.decoder_layers)
+            loss = rec["loss"].item()
+            log(f"  fit step {rec['step'] + 1} (progress {rec['progress']}, "
+                f"{rec['samples'] / 16000:.2f} s bucket, rows "
+                f"{rows['speech']} / {rows['text encoder']} / "
+                f"{rows['decoder']}): loss {loss:.4f}, LayerDrop skipped "
+                f"{skipped}, backward of attention / epilogue / FFN in "
+                f"{len(attn)} / {len(dense)} / {len(ffn)} of {len(kept)} "
+                f"kept speech layers")
+            if rec["skipped"] != [skipped]:
+                raise AssertionError(f"trainer step {rec['step'] + 1}: "
+                                     f"LayerDrop skipped {rec['skipped']}, "
+                                     f"the key chain gives {skipped}")
+            if rec["counts"] != want:
+                raise AssertionError(f"trainer step {rec['step'] + 1}: "
+                                     f"launches {rec['counts']}, expected "
+                                     f"{want}")
+            if not math.isfinite(loss):
+                raise AssertionError(f"trainer step {rec['step'] + 1}: loss "
+                                     f"{loss}")
+        if [r["progress"] for r in fit_steps] != [0.0] * 4 + [0.5] * 4:
+            raise AssertionError(f"trainer: progress "
+                                 f"{[r['progress'] for r in fit_steps]}")
+
+        # (b) eval: a finite eval_loss, no backward kernel; predict: WER /
+        # CER over the 16 examples, K4 launched
+        records = [json.loads(line) for line in
+                   open(os.path.join(out_dir, "metrics.jsonl"))]
+        eval_recs = [r for r in records if "eval_loss" in r]
+        want_eval = expected_eval_launches(enc.num_layers, dec.encoder_layers,
+                                           dec.decoder_layers)
+        want_pred = expected_launches("greedy", dec.max_length)
+        if [r["step"] for r in eval_recs] != [4, 8]:
+            raise AssertionError(f"trainer: eval records {eval_recs}")
+        for r in eval_recs:
+            if not (math.isfinite(r["eval_loss"]) and r["n_examples"] == 16
+                    and math.isfinite(r["predict_wer"])
+                    and math.isfinite(r["predict_cer"])):
+                raise AssertionError(f"trainer: eval record {r}")
+        for _, counts in evals:
+            if counts != want_eval:
+                raise AssertionError(f"trainer eval: launches {counts}, "
+                                     f"expected {want_eval}")
+        for _, counts, _ in predicts:
+            if counts != want_pred:
+                raise AssertionError(f"trainer predict: launches {counts}, "
+                                     f"expected {want_pred}")
+        log(f"  eval records: " + "; ".join(
+            f"step {r['step']}: eval_loss {r['eval_loss']:.4f}, cer "
+            f"{r['cer']:.4f}, wer {r['wer']:.4f}, predict_wer "
+            f"{r['predict_wer']:.4f}, predict_cer {r['predict_cer']:.4f} "
+            f"over {r['n_examples']}" for r in eval_recs))
+        log(f"  eval step launches {evals[-1][1]}; predict launches "
+            f"(greedy, max_length {dec.max_length}) "
+            f"{predicts[-1][1]['smx_decode_attention']} K4")
+
+        # (c) save_total_limit checkpoints kept, the best among them
+        kept_steps = sorted(s for s, _ in tr.ckpt._step_paths())
+        best = tr.ckpt.best_step()
+        if len(kept_steps) != tc.save_total_limit or best not in kept_steps:
+            raise AssertionError(f"trainer: checkpoints {kept_steps}, best "
+                                 f"{best}")
+        # (d) restore: the bits of the state at that step
+        fresh = trainer.create_train_state(gen, cfg, tc)
+        restores = []
+        for rec in saves:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            back, meta = tr.ckpt.restore(fresh, step=rec["step"])
+            torch.cuda.synchronize()
+            restores.append(time.perf_counter() - t0)
+            if back.step != rec["step"] or _state_prints(back) != \
+                    rec["prints"]:
+                raise AssertionError(f"trainer: checkpoint {rec['step']} "
+                                     "restores other bits")
+        log(f"  checkpoints kept {kept_steps}, best {best}; restore of steps "
+            f"{[r['step'] for r in saves]}: parameters and Adafactor "
+            f"statistics bit-identical to the saved state")
+
+        # (e) a second Trainer resumes the directory for one step; (f) it
+        # loads the best step at the end
+        steps.clear()
+        # no eval in the resumed run: its best step is fit's
+        tc2 = dataclasses.replace(tc, max_steps=TRAINER_PROFILED_STEP + 1,
+                                  eval_steps=100)
+        tr2 = TimedTrainer(cfg, tc2, tokenizer=tok)
+        timed_saves(tr2)
+        state2 = trainer.create_train_state(gen, cfg, tc)
+        capture["on"] = True
+        # the port's kernels use no atomics; cuDNN's convolution backward
+        # (the positional conv, the extractor's recompute) may, unless
+        # asked for its deterministic algorithms: asked for in both runs
+        # that are compared bit for bit
+        torch.backends.cudnn.deterministic = True
+        state2 = tr2.fit(state2, train_batches_factory(), eval_batches)
+        records2 = [json.loads(line) for line in
+                    open(os.path.join(out_dir, "metrics.jsonl"))][
+            len(records):]
+        if records2[0] != {"resumed_from_step": 8}:
+            raise AssertionError(f"trainer resume: {records2[:2]}")
+        ref = tr.ckpt.restore(fresh, step=8)[0]
+        ref_step = orig_make(cfg, tc2, ref.params)
+        torch.backends.cudnn.deterministic = True
+        ref, _ = ref_step(ref, steps[0]["batch"], steps[0]["progress"])
+        torch.cuda.synchronize()
+        torch.backends.cudnn.deterministic = False
+        differ = sorted(k for k, v in _state_prints(ref).items()
+                        if capture["prints"][k] != v)
+        if differ:
+            raise AssertionError(f"trainer resume: the first step after "
+                                 f"resuming differs from step_fn on the "
+                                 f"restored state in {len(differ)} leaves: "
+                                 f"{differ[:12]}")
+        best2 = tr2.ckpt.best_step()
+        loaded = [r for r in records2 if "loaded_best_model_from_step" in r]
+        best_prints = [r["prints"] for r in saves if r["step"] == best2]
+        if loaded != [{"loaded_best_model_from_step": best2}] or \
+                _state_prints(state2) != best_prints[0]:
+            raise AssertionError(f"trainer: load_best_model_at_end: "
+                                 f"{loaded}, best {best2}")
+        log(f"  resume: {records2[0]}, step 9 bit-identical to step_fn on "
+            f"the restored step-8 state and the same batch; "
+            f"{loaded[0]}, the saved bits")
+    finally:
+        trainer.make_train_step = orig_make
+        torch.backends.cudnn.deterministic = False
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+    # the loop's numbers.  The fit's step period (a step's entry to the
+    # next's) over steps 5-7, the second epoch, where every bucket has been
+    # seen once, against the bare step_fn on the same batches as one
+    # sequence with one synchronisation at its end (as the loop runs them);
+    # steps 1-3 are each bucket's first use.  Then the bare step of every
+    # fit batch, warmed once and timed alone.
+    period = lambda recs: [(b["entry"] - a["entry"]) * 1e3
+                           for a, b in zip(recs, recs[1:])]
+    first_ms, fit_ms = period(fit_steps[:4]), period(fit_steps[4:])
+    step_fn = orig_make(cfg, tc, state.params)
+    bare_ms = []
+    for rec in fit_steps:
+        for timed in (False, True):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = step_fn(state, rec["batch"], rec["progress"])
+            torch.cuda.synchronize()
+        bare_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for rec in fit_steps[4:7]:
+        state, _ = step_fn(state, rec["batch"], rec["progress"])
+    torch.cuda.synchronize()
+    seq_ms = (time.perf_counter() - t0) * 1e3
+    med = lambda xs: sorted(xs)[len(xs) // 2]
+    bucket = lambda rec: rec["samples"] // 16000
+    padded_s = sum(BATCH * rec["samples"] for rec in fit_steps[4:7]) / 16000
+    log(f"  bare step_fn by fit step (bucket s, progress): " + ", ".join(
+        f"{rec['step'] + 1} ({bucket(rec)}, {rec['progress']}) {t:.1f}"
+        for rec, t in zip(fit_steps, bare_ms)) + " ms")
+    log(f"  fit step period, steps 1-3 (each bucket's first use): "
+        f"{', '.join(f'{t:.1f}' for t in first_ms)} ms; steps 5-7: "
+        f"{', '.join(f'{t:.1f}' for t in fit_ms)} ms, median "
+        f"{med(fit_ms):.1f}; bare step_fn on the same batches "
+        f"{', '.join(f'{t:.1f}' for t in bare_ms[4:7])} ms, median "
+        f"{med(bare_ms[4:7]):.1f}, as a sequence {seq_ms:.1f} ms; the "
+        f"loop's host cost {(sum(fit_ms) - seq_ms) / len(fit_ms):.1f} ms "
+        f"per step")
+    log(f"  audio-seconds per second trained through fit: "
+        f"{padded_s * 1e3 / sum(fit_ms):.2f} over steps 5-7 (padded "
+        f"audio), {audio_s * TRAINER_EPOCHS / fit_s:.2f} over the whole "
+        f"fit ({fit_s:.2f} s for {audio_s * TRAINER_EPOCHS:.1f} audio-s: 8 "
+        f"steps, logging, 2 evals, 2 predicts, 2 checkpoints); peak memory "
+        f"{peak / 2 ** 30:.2f} GiB on {card}")
+    log(f"  eval pass (1 batch of {BATCH}): "
+        f"{', '.join(f'{t * 1e3:.1f}' for t, _ in evals)} ms; predict "
+        f"batch (greedy, max_length {dec.max_length}): "
+        f"{', '.join(f'{t * 1e3:.1f}' for t, _, _ in predicts)} ms; "
+        f"checkpoint save {', '.join('%.2f' % r['s'] for r in saves)} s "
+        f"({saves[0]['bytes']} bytes each), restore "
+        f"{', '.join(f'{t:.2f}' for t in restores)} s on {card}")
+    events = profiled.get("events", [])
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    if not events:
+        raise AssertionError("trainer: the profiled fit step recorded no "
+                             "device time")
+    log(f"  profiled fit step {TRAINER_PROFILED_STEP} of the resumed run "
+        f"(its entry to the next step's): wall {profiled['wall_ms']:.1f} ms, device busy "
+        f"{busy_ms:.1f} ms ({busy_ms / profiled['wall_ms']:.3f} of wall)")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"    {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d}x  "
+            f"{e.key[:90]}")
+    del state, state2, fresh, ref, step_fn, ref_step, fit_steps
+    steps.clear()
+    torch.cuda.empty_cache()
+
+    # (g) the teacher: bart-base in f32 on the card, K1-K4, tokens against
+    # the plain path's
+    nlp = seq2seq.init_seq2seq(dec, gen, dev, torch.float32)
+    # random weights end every row on EOS at once; with the EOS logit
+    # lowered the rows decode their max_length tokens
+    nlp["final_logits_bias"][dec.eos_token_id] = -1e4
+    pool = datasets.synthetic_corpus(64, seed=seed, min_words=6, max_words=9)
+    sentences = [ex["text"] for ex in pool
+                 if 32 < len(tok.encode(ex["text"])) <= 64]
+    sentences = sentences[:TEACHER_SENTENCES]
+    if len(sentences) != TEACHER_SENTENCES:
+        raise AssertionError("teacher: too few sentences of 33-64 tokens")
+    layers = dec.encoder_layers
+    want = expected_train_launches(0, 0, 0, dtype="f32")
+    want.update({"smx_attention_fwd": layers, "smx_dense_res_ln": layers,
+                 "smx_ffn_res_ln": layers, "smx_conv_ln_gelu": 0,
+                 "smx_decode_attention": 2 * dec.decoder_layers
+                 * TEACHER_MAX_LEN})
+    run = lambda: teacher.create_self_decoder_inputs_batched(
+        nlp, dec, tok, sentences, max_length=TEACHER_MAX_LEN,
+        batch_size=TEACHER_SENTENCES)
+    run()
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pairs = run()
+    torch.cuda.synchronize()
+    teacher_ms = (time.perf_counter() - t0) * 1e3
+    counts = symbols()
+    if counts != want:
+        raise AssertionError(f"teacher: launches {counts}, expected {want}")
+    with plain_kernels():
+        kernels.reset_launch_counts()
+        ref_pairs = run()
+        if any(k.launches for k in kernels.kernels()):
+            raise AssertionError("the plain reference launched a kernel")
+    width = TEACHER_MAX_LEN + 1
+    grid = lambda ps: torch.tensor([lab + [-1] * (width - len(lab))
+                                    for _, lab in ps])
+    rate = (grid(pairs) == grid(ref_pairs)).float().mean().item()
+    if [ids for ids, _ in pairs] != [ids for ids, _ in ref_pairs]:
+        raise AssertionError("teacher: text ids differ")
+    log(f"  teacher (bart-base f32, {TEACHER_SENTENCES} sentences of "
+        f"{min(len(i) for i, _ in pairs)}-{max(len(i) for i, _ in pairs)} "
+        f"tokens, text bucket {teacher._text_bucket(max(len(i) for i, _ in pairs))}"
+        f", max_length {TEACHER_MAX_LEN}): {teacher_ms:.1f} ms, launches "
+        f"K1 {counts['smx_attention_fwd']}, K2 {counts['smx_dense_res_ln']}, "
+        f"K3 {counts['smx_ffn_res_ln']}, K4 {counts['smx_decode_attention']}"
+        f"; label lengths {sorted({len(l) for _, l in pairs})}; token "
+        f"agreement with the plain path {rate:.4f} (at least "
+        f"{TOKEN_AGREEMENT_F32}) on {card}")
+    if rate < TOKEN_AGREEMENT_F32:
+        raise AssertionError(f"teacher: the kernel path agrees with the "
+                             f"plain path on {rate} of the tokens")
+
+
 def _cast_tree(tree, dtype):
     if isinstance(tree, dict):
         return {k: _cast_tree(v, dtype) for k, v in tree.items()}
@@ -3256,6 +3795,7 @@ def main():
                                                                    card)
     check_gradient_tree(args.seed, large=True)
     counts.update(run_variants(args.seed, card))
+    run_trainer(args.seed, card)
 
     pallas = "speechmix_tpu/ops/pallas/"
     # name: (source, TPU kernel file:line, mode whose run gives `launches`)

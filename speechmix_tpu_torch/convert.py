@@ -25,12 +25,20 @@ and returns the port's parameters:
 port's parameters (the parameters themselves, or their gradients): numpy
 arrays in the JAX package's layout, layer lists stacked again.
 ``jax_layout_groups`` gives, for each leaf of that layout, the port's
-tensors it is made of (the optimizer's view of the JAX layout), and
-``adafactor_state_to_jax`` the port's Adafactor statistics in the layout of
-optax's ``FactoredState``.
+tensors it is made of (the optimizer's view of the JAX layout).
+``adafactor_state_to_jax`` / ``adafactor_state_from_jax`` and
+``adamw_state_to_jax`` / ``adamw_state_from_jax`` carry the optimizer state
+between the port and the layout of optax's ``FactoredState`` and
+``ScaleByAdamState``.  ``train_state_to_jax`` / ``train_state_from_jax``
+carry a whole port ``TrainState`` to and from the tree that the JAX
+package's checkpoints hold, ``{"params", "opt_state", "step"}``, under the
+JAX package's key strings (``flatten_with_paths``), so that a checkpoint
+written by either package restores in the other.
 """
 
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 import torch
@@ -221,17 +229,172 @@ def jax_layout_groups(tree):
                                    groups[0].conv))
 
 
+def _map_leaves(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_leaves(fn, v) for v in tree]
+    return fn(tree)
+
+
 def adafactor_state_to_jax(opt_state):
     """The port's Adafactor state as optax's FactoredState holds it for the
     JAX tree of the same parameters: {"count", "v_row", "v_col", "v"}, each
     statistics tree in the JAX layout (which the port's Adafactor keeps)
     with float32 numpy leaves; a leaf's unused statistics are zeros of
     shape (1,), as in optax."""
-    def walk(t):
-        if isinstance(t, dict):
-            return {k: walk(v) for k, v in t.items()}
-        if isinstance(t, (list, tuple)):
-            return [walk(v) for v in t]
-        return _numpy(t)
     return {"count": opt_state["count"],
-            **{k: walk(opt_state[k]) for k in ("v_row", "v_col", "v")}}
+            **{k: _map_leaves(_numpy, opt_state[k])
+               for k in ("v_row", "v_col", "v")}}
+
+
+def _stat_groups(tree):
+    """A tree of tensors already in the JAX layout (Adafactor's statistics),
+    with a LayoutGroup of one tensor in place of each."""
+    return _map_leaves(lambda t: LayoutGroup([t], False, False), tree)
+
+
+def _copy_into(group, array, path):
+    """Write `array`, a leaf in the JAX layout, into the port tensors of
+    LayoutGroup `group` with copy_."""
+    a = torch.tensor(np.asarray(array))
+    if tuple(a.shape) != tuple(group.shape):
+        raise ValueError(f"{path}: shape {tuple(a.shape)}, expected "
+                         f"{tuple(group.shape)}")
+    for t, v in zip(group.tensors, group.views(a)):
+        t.copy_(v)
+
+
+@torch.no_grad()
+def _write(groups, arrays):
+    flat = dict(flatten_with_paths(arrays))
+    for path, group in flatten_with_paths(groups):
+        _copy_into(group, flat[path], path)
+
+
+def adafactor_state_from_jax(state, opt_state):
+    """The inverse of adafactor_state_to_jax: `state` (a FactoredState's
+    {"count", "v_row", "v_col", "v"}, numpy leaves in the JAX layout)
+    written into the statistics tensors of the port's Adafactor state
+    `opt_state` in place (copy_); returns the state with the new count."""
+    for k in ("v_row", "v_col", "v"):
+        _write(_stat_groups(opt_state[k]), state[k])
+    return {**opt_state, "count": int(np.asarray(state["count"]))}
+
+
+def adamw_state_to_jax(opt_state):
+    """The port's AdamW state as optax's ScaleByAdamState holds it for the
+    JAX tree of the same parameters: {"count", "mu", "nu"}, the moments in
+    the JAX layout with float32 numpy leaves."""
+    return {"count": opt_state["count"],
+            "mu": tree_to_jax_layout(opt_state["mu"]),
+            "nu": tree_to_jax_layout(opt_state["nu"])}
+
+
+def adamw_state_from_jax(state, opt_state):
+    """The inverse of adamw_state_to_jax: the moments written into the
+    tensors of the port's AdamW state `opt_state` in place (copy_); returns
+    the state with the new count."""
+    for k in ("mu", "nu"):
+        _write(jax_layout_groups(opt_state[k]), state[k])
+    return {**opt_state, "count": int(np.asarray(state["count"]))}
+
+
+# ----------------------------------------------------------------------------
+# the JAX package's checkpoint tree
+# ----------------------------------------------------------------------------
+
+# optax's state of chain(clip_by_global_norm, inner) is (EmptyState(),
+# inner's state): index "1" holds inner's chain, "0" of it the moments'
+# NamedTuple and "2" the ScaleByScheduleState; NamedTuple fields flatten
+# as ".name", in field order
+_OPT_FIELDS = {"adafactor": ("v_row", "v_col", "v"), "adamw": ("mu", "nu")}
+# leaves added to the JAX tree after checkpoints were written: absent from
+# an archive, the live value is kept (with a warning); any other missing
+# leaf raises
+_OPTIONAL_LEAF_SUBSTRINGS = ("masked_spec_embed",)
+
+
+def _jax_sorted(tree):
+    """`tree` with its dicts in the JAX package's flattening order (sorted
+    keys)."""
+    if isinstance(tree, dict):
+        return {k: _jax_sorted(tree[k]) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return [_jax_sorted(v) for v in tree]
+    return tree
+
+
+def _optimizer_name(opt_state):
+    return "adafactor" if "v_row" in opt_state else "adamw"
+
+
+def train_state_to_jax(state):
+    """A port TrainState as the tree the JAX package checkpoints,
+    {"opt_state", "params", "step"} in its flattening order: the parameters
+    and moments in the JAX layout (float32 numpy arrays), the counts and the
+    step int32 scalars.  A synchronous copy to the host."""
+    opt = state.opt_state
+    name = _optimizer_name(opt)
+    count = np.asarray(opt["count"], np.int32)
+    stats = (adafactor_state_to_jax(opt) if name == "adafactor"
+             else adamw_state_to_jax(opt))
+    first = {".count": count,
+             **{f".{k}": _jax_sorted(stats[k]) for k in _OPT_FIELDS[name]}}
+    return {"opt_state": {"1": {"0": first, "2": {".count": count}}},
+            "params": _jax_sorted(tree_to_jax_layout(state.params)),
+            "step": np.asarray(state.step, np.int32)}
+
+
+def flatten_with_paths(tree, prefix=""):
+    """[(path, leaf)] of a tree of dicts and lists in its order, with the
+    JAX package's "/"-joined key strings (utils.pytree.keypath_str)."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return [(prefix, tree)]
+    out = []
+    for k, v in items:
+        out += flatten_with_paths(v, f"{prefix}/{k}" if prefix else str(k))
+    return out
+
+
+def _state_targets(state):
+    """The paths of train_state_to_jax(state), each with the LayoutGroup of
+    port tensors it is written into (None for a count and the step)."""
+    opt = state.opt_state
+    name = _optimizer_name(opt)
+    groups = _stat_groups if name == "adafactor" else jax_layout_groups
+    first = {".count": None,
+             **{f".{k}": _jax_sorted(groups(opt[k]))
+                for k in _OPT_FIELDS[name]}}
+    return flatten_with_paths(
+        {"opt_state": {"1": {"0": first, "2": {".count": None}}},
+         "params": _jax_sorted(jax_layout_groups(state.params)),
+         "step": None})
+
+
+@torch.no_grad()
+def train_state_from_jax(tree, state):
+    """Write the JAX checkpoint tree `tree` (nested as train_state_to_jax
+    gives it, or flat {path: array}) into the tensors of the port TrainState
+    `state` with copy_, so that a step function built on `state` (its
+    in-place update, its static mask) still holds; returns the TrainState
+    with the restored counts and step.  An optional leaf (masked_spec_embed)
+    missing from `tree` keeps its live value, with a warning; any other
+    missing leaf raises KeyError."""
+    flat = dict(flatten_with_paths(tree))
+    for path, group in _state_targets(state):
+        if path not in flat:
+            if any(s in path for s in _OPTIONAL_LEAF_SUBSTRINGS):
+                warnings.warn(f"checkpoint predates parameter {path}; "
+                              "keeping the initialized value")
+                continue
+            raise KeyError(f"checkpoint missing parameter {path}")
+        if group is not None:
+            _copy_into(group, flat[path], path)
+    count = int(np.asarray(flat["opt_state/1/0/.count"]))
+    return type(state)(state.params, {**state.opt_state, "count": count},
+                       int(np.asarray(flat["step"])))

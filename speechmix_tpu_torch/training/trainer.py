@@ -1,4 +1,5 @@
-"""The train step (port of ``speechmix_tpu.training.trainer``): Adafactor
+"""The train step and the loop around it (port of
+``speechmix_tpu.training.trainer``): Adafactor
 (the default, the reference's recipe) or AdamW with warmup and decay,
 gradient accumulation over micro-batches, the variant's static freezing
 mask, gradual unfreezing of the speech encoder, the GAN's alternating
@@ -16,26 +17,42 @@ rng: base = key(seed + 0x5EED), then fold_in(step), then one split per
 micro-batch (``dropout_keys``).  A step is deterministic per (seed, step,
 micro-batch); its streams differ from the JAX package's.
 
+``Trainer`` runs the loop as the JAX package's does: epochs that feed
+``epoch / freeze_epochs`` to the step, batches staged on the card ahead of
+the step (``data.prefetch``), JSONL logging, teacher-forced ``evaluate``
+(``make_eval_step``) and free-running ``predict`` (greedy or beam
+``generate`` with WER / CER) every ``eval_steps``, early stopping,
+checkpoints in the JAX package's npz files (``training.checkpoint``:
+resume from the latest, keep the best, restore it at the end) and a stall
+watchdog.  As in the JAX package, a resumed run starts its epoch again from
+the first batch.
+
 Not ported yet, and refused with NotImplementedError: model / sequence
-parallelism and ZeRO-1.  ``Trainer.fit``, evaluation, logging and
-checkpoints wait as well.
+parallelism and ZeRO-1, and the orbax checkpoint backend.
 """
 
 from __future__ import annotations
 
+import json
 import math
+import os
+import time
 from dataclasses import dataclass
-from typing import Any, NamedTuple
+from typing import Any, Callable, Iterable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from .. import convert
+from .. import convert, generation
 from ..config import SpeechMixConfig
+from ..data.prefetch import _as_tensor, prefetch_to_device
+from ..metrics import cer, compute_metrics, wer
 from ..models import speechmix as smx
 from ..ops.kernels._cuda import resolve_device
 from ..ops.kernels.dropout import DropoutKey
+from ..utils import watchdog as watchdog_lib
 from . import freezing
+from .checkpoint import CheckpointManager
 from .freezing import tree_map, tree_map_with_path, tree_paths
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
@@ -46,14 +63,27 @@ ADAFACTOR_DECAY, ADAFACTOR_EPS, ADAFACTOR_CLIP = 0.8, 1e-30, 1.0
 
 @dataclass
 class TrainConfig:
-    """The fields of the JAX package's TrainConfig that the train step reads,
-    with its defaults."""
+    """The JAX package's TrainConfig with its defaults (its ``use_flash``
+    aside: the port has no attention toggle)."""
     learning_rate: float = 4e-5
     warmup_steps: int = 500
     lr_schedule: str = "linear"  # "linear" | "cosine" | "constant"
     max_grad_norm: float = 10.0
     grad_accum: int = 1
+    num_epochs: int = 10
+    eval_steps: int = 700
+    logging_steps: int = 10
+    save_total_limit: int = 2
+    early_stopping_patience: int = 20
+    # restore the best-eval_loss checkpoint when training ends (the
+    # reference's load_best_model_at_end=True)
+    load_best_model_at_end: bool = True
     max_steps: int = 0  # 0 = no cap: the schedule stays constant after warmup
+    # also run free-running generate() + WER / CER at each eval
+    predict_with_generate: bool = False
+    num_beams: int = 1  # beams of predict_with_generate's decoding
+    output_dir: str = "./checkpoints"
+    checkpoint_backend: str = "npz"  # "orbax" is not ported
     bf16: bool = False  # compute dtype
     seed: int = 0       # of the dropout key chain
     dropout: bool = True
@@ -66,8 +96,15 @@ class TrainConfig:
     model_parallel: int = 1
     sequence_parallel: int = 1
     zero1: bool = False
+    wandb: bool = False  # mirror the metrics to wandb when it is installed
     fixed_speech: bool = False
     fixed_nlp: bool = True
+    # abort (exit 98) if the loop sends no heartbeat for this many seconds,
+    # so that a supervisor can relaunch and resume; 0 = off
+    stall_timeout_s: float = 0.0
+    # batches staged on the device this many steps ahead by a host thread
+    # (data/prefetch.py); 0 = synchronous
+    prefetch_depth: int = 2
 
 
 class TrainState(NamedTuple):
@@ -379,3 +416,268 @@ def make_train_step(cfg: SpeechMixConfig, tc: TrainConfig, params_example,
         return TrainState(state.params, opt_state, state.step + 1), metrics
 
     return step_fn
+
+
+def _to_device(batch, device):
+    return {k: _as_tensor(v).to(device) for k, v in batch.items()}
+
+
+def _host(v):
+    return v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+
+
+def make_eval_step(cfg: SpeechMixConfig, tc: TrainConfig, device=None):
+    """Build eval_fn(params, batch) -> {"loss", "predictions", "n_tokens",
+    "n_examples"}: the teacher-forced forward without dropout and without a
+    gradient, the argmax predictions, the count of label tokens (a batch
+    without any has a NaN-free mean loss of 0, which evaluate() leaves out)
+    and of real rows (``example_mask``), which weight evaluate()'s mean as
+    the reference's Trainer weights it.  Runs on `device` (default: the
+    card; raises without CUDA)."""
+    smx._check_supported(cfg)
+    device = resolve_device(device)
+    dtype = torch.bfloat16 if tc.bf16 else torch.float32
+
+    @torch.no_grad()
+    def eval_fn(params, batch):
+        batch = _to_device(batch, device)
+        labels = batch["labels"]
+        if "example_mask" in batch:
+            labels = torch.where(batch["example_mask"][:, None].bool(),
+                                 labels, -100)
+        out = smx.speechmix_forward(
+            params, cfg, batch["input_values"], lengths=batch.get("lengths"),
+            labels=labels, prompt_ids=batch.get("prompt_ids"), dtype=dtype,
+            text_input_ids=batch.get("text_input_ids"),
+            text_mask=batch.get("text_mask"))
+        n_ex = (batch["example_mask"].sum() if "example_mask" in batch
+                else labels.shape[0])
+        return {"loss": out["loss"],
+                "predictions": torch.argmax(out["logits"], dim=-1),
+                "n_tokens": (labels != -100).sum(), "n_examples": n_ex}
+
+    return eval_fn
+
+
+class JSONLLogger:
+    """Metrics logger: JSON lines in `path` (if given), echoed to stdout;
+    with use_wandb also mirrored to wandb when the package is installed
+    (project from WANDB_PROJECT), else JSONL only."""
+
+    def __init__(self, path: Optional[str], use_wandb: bool = False):
+        self.path = path
+        if path:
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+            self._f = open(path, "a")
+        else:
+            self._f = None
+        self._wandb = None
+        if use_wandb:
+            try:
+                import wandb
+                self._wandb = wandb
+                if wandb.run is None:
+                    wandb.init(project=os.environ.get("WANDB_PROJECT",
+                                                      "speechmix_tpu"))
+            except Exception:  # no package / no auth / offline: JSONL only
+                self._wandb = None
+
+    def log(self, record: dict):
+        record = {k: (float(v) if hasattr(v, "item") else v)
+                  for k, v in record.items()}
+        if self._f:
+            self._f.write(json.dumps(record) + "\n")
+            self._f.flush()
+        if self._wandb is not None:
+            step = record.get("step")
+            self._wandb.log(record,
+                            step=int(step) if step is not None else None)
+        print(json.dumps(record))
+
+    def close(self):
+        if self._f:
+            self._f.close()
+
+
+class Trainer:
+    """The loop around the step functions (epochs, eval, early stopping,
+    checkpoints), on `device` (default: the card; raises without CUDA)."""
+
+    def __init__(self, cfg: SpeechMixConfig, tc: TrainConfig, tokenizer=None,
+                 device=None):
+        _check_supported(tc)
+        self.cfg = cfg
+        self.tc = tc
+        self.tokenizer = tokenizer
+        self.device = resolve_device(device)
+        self.logger = JSONLLogger(os.path.join(tc.output_dir, "metrics.jsonl")
+                                  if tc.output_dir else None,
+                                  use_wandb=tc.wandb)
+        self.ckpt = CheckpointManager(tc.output_dir, tc.save_total_limit,
+                                      backend=tc.checkpoint_backend) \
+            if tc.output_dir else None
+
+    def init_state(self, generator: Optional[torch.Generator] = None):
+        """A fresh TrainState drawn from `generator` (default: seeded with
+        tc.seed) on the trainer's device."""
+        if generator is None:
+            generator = torch.Generator(self.device).manual_seed(self.tc.seed)
+        return create_train_state(generator, self.cfg, self.tc, self.device)
+
+    def fit(self, state: TrainState, train_batches: Callable[[], Iterable],
+            eval_batches: Optional[Callable[[], Iterable]] = None,
+            resume: bool = True):
+        """train_batches / eval_batches: zero-argument callables that return
+        a fresh iterator of batch dicts per epoch.  resume=True restores the
+        latest checkpoint of output_dir (parameters, optimizer state, step)
+        into `state` when there is one.  `state` is updated in place; the
+        returned TrainState carries the final step."""
+        if resume and self.ckpt is not None and \
+                self.ckpt.latest_step() is not None:
+            restored, _ = self.ckpt.restore(state)
+            if restored is not None:
+                state = restored
+                self.logger.log({"resumed_from_step": int(state.step)})
+        step_fn = make_train_step(self.cfg, self.tc, state.params,
+                                  device=self.device)
+        eval_fn = make_eval_step(self.cfg, self.tc, device=self.device)
+
+        watchdog = None
+        if self.tc.stall_timeout_s > 0:
+            watchdog = watchdog_lib.StallWatchdog(self.tc.stall_timeout_s)
+            watchdog.log_path = self.logger.path
+            watchdog.start()
+        try:
+            state = self._fit_loop(state, train_batches, eval_batches,
+                                   step_fn, eval_fn, watchdog)
+        finally:
+            if watchdog is not None:
+                watchdog.stop()
+        if self.tc.load_best_model_at_end and self.ckpt is not None:
+            best = self.ckpt.best_step()
+            if best is not None and best != int(state.step):
+                restored, _ = self.ckpt.restore(state, step=best)
+                if restored is not None:
+                    state = restored
+                    self.logger.log({"loaded_best_model_from_step": best})
+        return state
+
+    def _fit_loop(self, state, train_batches, eval_batches, step_fn, eval_fn,
+                  watchdog):
+        best_metric = float("inf")
+        best_step = 0
+        patience_left = self.tc.early_stopping_patience
+        t0 = time.time()
+        step = int(state.step)
+        for epoch in range(self.tc.num_epochs):
+            progress = (epoch / self.tc.freeze_epochs
+                        if self.tc.freeze_epochs > 0 else 1.0)
+            if self.tc.prefetch_depth > 0:
+                epoch_batches = prefetch_to_device(
+                    train_batches(), self.device, self.tc.prefetch_depth)
+            else:
+                epoch_batches = (_to_device(b, self.device)
+                                 for b in train_batches())
+            for batch in epoch_batches:
+                if watchdog is not None:
+                    watchdog.beat()
+                state, metrics = step_fn(state, batch, progress)
+                step += 1
+                # the max_steps exit comes after the eval / save block (the
+                # reference Trainer's order): a last step that is an eval
+                # step still evaluates and checkpoints
+                if step % self.tc.logging_steps == 0:
+                    self.logger.log({"step": step, "epoch": epoch,
+                                     "loss": metrics["loss"],
+                                     "grad_norm": metrics["grad_norm"],
+                                     "elapsed": time.time() - t0})
+                if eval_batches and step % self.tc.eval_steps == 0:
+                    beat = watchdog.beat if watchdog is not None else None
+                    eval_metrics = self.evaluate(state.params, eval_fn,
+                                                 eval_batches,
+                                                 heartbeat=beat)
+                    if self.tc.predict_with_generate:
+                        eval_metrics.update(self.predict(
+                            state.params, eval_batches,
+                            num_beams=self.tc.num_beams, heartbeat=beat))
+                    self.logger.log({"step": step, **eval_metrics})
+                    score = eval_metrics.get("eval_loss", float("inf"))
+                    if self.ckpt:
+                        # a synchronous host copy, before the next step
+                        # updates the parameters in place
+                        self.ckpt.save(step, state, eval_metrics)
+                    if score < best_metric:
+                        best_metric, best_step = score, step
+                        patience_left = self.tc.early_stopping_patience
+                    else:
+                        patience_left -= 1
+                        if patience_left <= 0:
+                            self.logger.log({"early_stop": True,
+                                             "best_step": best_step})
+                            return state
+                if self.tc.max_steps and step >= self.tc.max_steps:
+                    self.logger.log({"step": step, "loss": metrics["loss"],
+                                     "max_steps_reached": True})
+                    return state
+        return state
+
+    def predict(self, params, eval_batches, max_length=None, num_beams=1,
+                heartbeat=None, kv_int8=False):
+        """Free-running ASR eval: greedy or beam generate() per batch, then
+        corpus WER / CER against the label transcripts over the real rows."""
+        max_length = max_length or self.cfg.decoder.max_length
+        dtype = torch.bfloat16 if self.tc.bf16 else torch.float32
+        refs, hyps = [], []
+        for batch in eval_batches():
+            if heartbeat is not None:
+                heartbeat()
+            tokens, _ = generation.generate(
+                params, self.cfg, _as_tensor(batch["input_values"]),
+                _as_tensor(batch["lengths"]), max_length=max_length,
+                num_beams=num_beams, kv_int8=kv_int8, dtype=dtype,
+                device=self.device)
+            tokens = tokens.cpu().numpy()
+            labels = _host(batch["labels"])
+            real = batch.get("example_mask")
+            real = (np.ones(len(tokens), bool) if real is None
+                    else _host(real))
+            for i in range(len(tokens)):
+                if not real[i]:
+                    continue
+                hyps.append(self.tokenizer.decode(
+                    tokens[i], skip_special_tokens=True))
+                lab = labels[i]
+                refs.append(self.tokenizer.decode(
+                    lab[lab != -100], skip_special_tokens=True))
+        return {"predict_wer": wer(refs, hyps),
+                "predict_cer": cer(refs, hyps),
+                "n_examples": len(refs)}
+
+    def evaluate(self, params, eval_fn, eval_batches, heartbeat=None):
+        """Teacher-forced eval: the example-weighted mean of the batches'
+        mean losses (the reference Trainer's eval_loss; batches without a
+        label token left out) and, with a tokenizer, CER / WER of the
+        argmax predictions."""
+        losses, weights, all_preds, all_labels = [], [], [], []
+        for batch in eval_batches():
+            if heartbeat is not None:
+                heartbeat()
+            out = eval_fn(params, batch)
+            if float(out["n_tokens"]) > 0:
+                losses.append(float(out["loss"]))
+                weights.append(float(out["n_examples"]))
+            labels = _host(batch["labels"])
+            real = batch.get("example_mask")
+            real = (np.ones(len(labels), bool) if real is None
+                    else _host(real))
+            all_preds.append(_host(out["predictions"])[real])
+            all_labels.append(labels[real])
+        total_w = sum(weights)
+        metrics = {"eval_loss": (
+            float(np.dot(losses, weights) / total_w) if total_w > 0
+            else float("nan"))}
+        if self.tokenizer is not None:
+            preds = [p for arr in all_preds for p in arr]
+            labels = [l for arr in all_labels for l in arr]
+            metrics.update(compute_metrics(preds, labels, self.tokenizer))
+        return metrics

@@ -81,7 +81,16 @@ def test_port_imports_no_jax():
             "speechmix_tpu_torch/models/speech_encoder.py",
             "speechmix_tpu_torch/models/speechmix.py",
             "speechmix_tpu_torch/models/seq2seq.py",
-            "speechmix_tpu_torch/generation.py"} <= names
+            "speechmix_tpu_torch/generation.py",
+            "speechmix_tpu_torch/metrics.py",
+            "speechmix_tpu_torch/data/audio.py",
+            "speechmix_tpu_torch/data/collator.py",
+            "speechmix_tpu_torch/data/datasets.py",
+            "speechmix_tpu_torch/data/prefetch.py",
+            "speechmix_tpu_torch/data/teacher.py",
+            "speechmix_tpu_torch/data/tokenizer.py",
+            "speechmix_tpu_torch/training/checkpoint.py",
+            "speechmix_tpu_torch/utils/watchdog.py"} <= names
     for path in files:
         for name in _imported_modules(path):
             top = name.split(".")[0]
@@ -246,3 +255,36 @@ def test_training_kernel_wrappers_refuse_unbuilt_cases(call, match):
     raise for a tensor that is not on the CPU."""
     with pytest.raises(ValueError, match=match):
         call()
+
+
+def test_loop_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    """Trainer, the teacher and the prefetcher resolve device=None to CUDA
+    and raise without it; with device="cpu" they run."""
+    from speechmix_tpu_torch.data import prefetch, teacher, tokenizer
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = _tiny_cfg()
+    tc = t_trainer.TrainConfig(output_dir=str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        t_trainer.Trainer(cfg, tc)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        t_trainer.make_eval_step(cfg, tc)
+    assert t_trainer.Trainer(cfg, tc, device="cpu").device.type == "cpu"
+
+    params = t_smx.init_speechmix(cfg, torch.Generator().manual_seed(0),
+                                  "cpu")
+    tok = tokenizer.ByteTokenizer(pad_token_id=1, eos_token_id=2,
+                                  bos_token_id=0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        teacher.create_self_decoder_inputs_batched(
+            params["nlp"], cfg.decoder, tok, ["hi"], max_length=2,
+            batch_size=1)
+    pairs = teacher.create_self_decoder_inputs_batched(
+        params["nlp"], cfg.decoder, tok, ["hi"], max_length=2, batch_size=1,
+        device="cpu")
+    assert len(pairs) == 1 and pairs[0][1][-1] == 2
+
+    batches = [{"x": np.zeros(3, np.float32)}]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        next(prefetch.prefetch_to_device(iter(batches)))
+    out = next(prefetch.prefetch_to_device(iter(batches), "cpu"))
+    assert out["x"].device.type == "cpu"
