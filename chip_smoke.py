@@ -55,6 +55,22 @@ Phases, each printing as it goes; any failure exits non-zero:
      step, K4 twelve times per K5 launch); in f32 the text-encoder output,
      the tokens of all three modes and the beam scores of the kernel path
      must agree with the plain path's within the stated limits;
+     then the other modes of generate() (run_generate_modes), each in bf16
+     with its exact launches (K4 and K5 by expected_launches), two calls
+     with one seed bit-identical, its output properties, the median ms of
+     three calls, audio-s/s and the busy share of a profiled call: sampled
+     greedy (temperature 0.7, top_k 50, top_p 0.9, typical_p 0.95), the HF
+     processors on greedy (repetition penalty, no-repeat 3-grams,
+     min_length 8, bad words of one and two tokens, suppressed and
+     begin-suppressed tokens, forced BOS / EOS), beam-sample with 4 beams
+     (top_k 50), group beam search (4 beams, 2 groups, diversity 0.5, 2
+     returned), constrained beam search (a 2-token phrase and a
+     disjunctive set; again with int8 cross K/V), early_stop greedy (no
+     repeated bigrams, no EOS at step 0) with final_logits_bias[eos] moved
+     so that rows end at different steps (fewer steps, the tokens of the
+     fixed-length call) and greedy with prefix_allowed_tokens_fn; in f32
+     each mode's tokens through the kernels must equal those through the
+     plain versions;
   5. training: in f32 at full width with 2 + 2 + 2 layers the gradient tree
      through the kernels must agree with the one through their plain
      versions, without and with dropout (one key, so the same masks); then
@@ -1918,12 +1934,38 @@ def expected_launches(mode, steps):
             **dict.fromkeys(K8_ALL, 0), **dict.fromkeys(DROPOUT_KERNELS, 0),
             # K3 in every encoder layer, in bf16 its three passes
             **ffn_forward_launches(LAYERS_WITH_KERNELS, 0)}
-    if mode == "greedy-int8":
+    if mode in ("greedy-int8", "constrained-int8"):
         want["smx_decode_attention"] = DECODER_LAYERS * steps
         want["smx_decode_attention_q8"] = DECODER_LAYERS * steps
-    if mode == "beam-4":
+    if mode in BEAM_MODES:
+        # one K5 reorder of the self-K/V cache per step, for every group
         want["smx_beam_gather"] = steps
     return want
+
+
+# the modes of generate() whose loop reorders the beams (K5) each step; the
+# other modes decode as greedy does
+BEAM_MODES = ("beam-4", "beam-sample", "group-beam", "constrained",
+              "constrained-int8")
+
+
+def flagship_inputs(seed):
+    """The flagship's config, bf16 parameters from `seed` and B = BATCH
+    waveforms of SECONDS s on the card."""
+    import torch
+    from speechmix_tpu_torch.models import speechmix
+
+    cfg = flagship_config()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = speechmix.init_speechmix(cfg, gen, dev, torch.bfloat16)
+    t_samples = int(SECONDS * 16000)
+    t_padded = cfg.encoder.aligned_samples(t_samples)
+    wav = torch.zeros(BATCH, t_padded, device=dev)
+    wav[:, :t_samples] = torch.randn(BATCH, t_samples, generator=gen,
+                                     device=dev) * 0.1
+    lengths = torch.full((BATCH,), t_samples, device=dev)
+    return cfg, params, wav, lengths
 
 
 def run_flagship(seed, card):
@@ -1943,16 +1985,7 @@ def run_flagship(seed, card):
     for kern in (kd.KERNEL, kd.KERNEL_Q8):
         kern.launch = _tally_by_length(kern, k4_lengths, 2)
 
-    cfg = flagship_config()
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    params = speechmix.init_speechmix(cfg, gen, dev, torch.bfloat16)
-    t_samples = int(SECONDS * 16000)
-    t_padded = cfg.encoder.aligned_samples(t_samples)
-    wav = torch.zeros(BATCH, t_padded, device=dev)
-    wav[:, :t_samples] = torch.randn(BATCH, t_samples, generator=gen,
-                                     device=dev) * 0.1
-    lengths = torch.full((BATCH,), t_samples, device=dev)
+    cfg, params, wav, lengths = flagship_inputs(seed)
     log(f"flagship wav2vec2-base + bart-base, down_scale 2, fused extractor, "
         f"B={BATCH} x {SECONDS} s, max_length {MAX_LEN}, bf16 matrices")
 
@@ -2081,13 +2114,29 @@ def run_flagship(seed, card):
     return counts, by_length
 
 
+def profile_call(fn):
+    """One synchronised call of fn under torch.profiler: (wall us, summed
+    device time of its kernels in us, the profiler's events that ran on the
+    device)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    return wall_us, sum(e.self_device_time_total for e in events), events
+
+
 def stage_breakdown(params, cfg, wav, lengths, modes):
     """Median ms of each stage of generate() (host clock around
     synchronised calls), and for every mode the device-busy share of one
     whole call from torch.profiler: summed device time of all kernels over
     wall time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from speechmix_tpu_torch import generation
     from speechmix_tpu_torch.models import seq2seq, speechmix
 
@@ -2129,16 +2178,10 @@ def stage_breakdown(params, cfg, wav, lengths, modes):
             log(f"  stage {name}: {sorted(runs)[2] * 1e3:.1f} ms (median "
                 "of 5)")
         for mode, (kwargs, _) in modes.items():
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                generation.generate(params, cfg, wav, lengths,
-                                    max_length=MAX_LEN, dtype=dt, **kwargs)
-                torch.cuda.synchronize()
-                wall_us = (time.perf_counter() - t0) * 1e6
-            events = [e for e in prof.key_averages()
-                      if e.self_device_time_total > 0]
-            busy_us = sum(e.self_device_time_total for e in events)
+            wall_us, busy_us, events = profile_call(
+                lambda: generation.generate(params, cfg, wav, lengths,
+                                            max_length=MAX_LEN, dtype=dt,
+                                            **kwargs))
             log(f"  profiled {mode} generate: wall {wall_us / 1e3:.1f} ms, "
                 f"device busy {busy_us / 1e3:.1f} ms "
                 f"({busy_us / wall_us:.3f} of wall)")
@@ -2203,6 +2246,294 @@ def tied_head_times(params, cfg):
     log(f"  train step forward + backward ({BATCH} x {TRAIN_LABELS} rows): "
         f"{new:.4f} ms; the bf16-rounded product {old:.4f} ms")
     del g
+
+
+# ---------------------------------------------------------------------------
+# the other modes of generate() (sampling, processors, group, constrained)
+# ---------------------------------------------------------------------------
+
+# token ids of the processors and constraints (bart-base's vocabulary)
+BAD_WORDS = [[1000], [2000, 2001]]
+SUPPRESS, BEGIN_SUPPRESS = [3000, 3001], [4000]
+PHRASE, WORD_SET = [5000, 5001], [[6000], [7000, 7001]]
+MIN_LENGTH, NO_REPEAT = 8, 3
+# how far the EOS bias calibration lowers EOS so that no row ends
+EOS_LOW = 30.0
+
+
+def prefix_allowed(batch_id, seq):
+    """prefix_allowed_tokens_fn of the prefix mode: a window of 200 tokens
+    that moves with the input row and the sequence length, and EOS."""
+    base = (1000 + 997 * batch_id + 13 * len(seq)) % 50000
+    return list(range(base, base + 200)) + [2]
+
+
+def generate_modes(seed):
+    """{mode: (generate kwargs, K4 / K5 formula of expected_launches)}."""
+    sample = dict(do_sample=True, temperature=0.7, top_k=50, top_p=0.9,
+                  typical_p=0.95, rng=seed)
+    constrained = dict(num_beams=BEAMS, force_words_ids=[PHRASE, WORD_SET],
+                       output_scores=True)
+    return {
+        "sample": (dict(output_scores=True, **sample), "greedy"),
+        "processors": (dict(repetition_penalty=1.2,
+                            no_repeat_ngram_size=NO_REPEAT,
+                            min_length=MIN_LENGTH, bad_words_ids=BAD_WORDS,
+                            suppress_tokens=SUPPRESS,
+                            begin_suppress_tokens=BEGIN_SUPPRESS,
+                            forced_bos_token_id=0, forced_eos_token_id=2),
+                       "greedy"),
+        # HF's beam-sample warps the accumulated scores: a temperature t
+        # divides them again each step (t^-64 at the end), and top_p may
+        # leave fewer than 2K live candidates at step 0 (the -1e9 beams
+        # fill up), so f32 rounding would pick the beams: top_k alone
+        "beam-sample": (dict(num_beams=BEAMS, num_return_sequences=2,
+                             output_scores=True, do_sample=True, top_k=50,
+                             rng=seed), "beam-sample"),
+        "group-beam": (dict(num_beams=BEAMS, num_beam_groups=2,
+                            diversity_penalty=0.5, num_return_sequences=2,
+                            output_scores=True), "group-beam"),
+        "constrained": (constrained, "constrained"),
+        "constrained-int8": (dict(kv_int8=True, **constrained),
+                             "constrained-int8"),
+        # the random flagship repeats one token per row from step 1 on
+        # (its EOS gap then stays constant) and prefers EOS at step 0: no
+        # repeated bigrams and no EOS at step 0 make the rows' gaps move
+        "early-stop": (dict(early_stop=True, no_repeat_ngram_size=2,
+                            begin_suppress_tokens=[2]), "greedy"),
+        "prefix": (dict(prefix_allowed_tokens_fn=prefix_allowed), "greedy"),
+    }
+
+
+def eos_bias_for_early_stop(params, cfg, wav, lengths, **kwargs):
+    """A change of final_logits_bias[eos] that makes the rows of the bf16
+    greedy call with `kwargs` end at different steps, all early enough for
+    the early exit to skip steps.
+    One call with EOS lowered by EOS_LOW never ends a row; at its step t,
+    row r's gap is its best logit minus its EOS logit (EOS_LOW added back).
+    With the bias b, row r follows the same tokens and ends at the first
+    step whose gap is below b.  b is taken halfway between two gaps (a
+    margin against rounding) where the rows end at three or more distinct
+    steps (two if no bias gives three) and the loop runs the fewest.
+    Returns (b, the step at which each row should end)."""
+    import torch
+    from speechmix_tpu_torch import generation
+    eos = cfg.decoder.eos_token_id
+    low = dict(params, nlp=dict(params["nlp"]))
+    low["nlp"]["final_logits_bias"] = params["nlp"]["final_logits_bias"] \
+        .clone()
+    low["nlp"]["final_logits_bias"][..., eos] -= EOS_LOW
+    _, _, scores = generation.generate(
+        low, cfg, wav, lengths, max_length=MAX_LEN, dtype=torch.bfloat16,
+        output_scores=True, **kwargs)
+    eos_logit = scores[..., eos].double() + EOS_LOW
+    scores[..., eos] = float("-inf")
+    gap = (scores.max(dim=-1).values.double() - eos_logit).T.cpu()  # (B, T)
+    vals = torch.unique(gap[torch.isfinite(gap)])
+    mids, margins = (vals[1:] + vals[:-1]) / 2, (vals[1:] - vals[:-1]) / 2
+    below = gap[None] < mids[:, None, None]                       # (C, B, T)
+    ends = torch.where(below.any(-1), below.double().argmax(-1), MAX_LEN)
+    distinct = (torch.sort(ends, dim=1).values.diff(dim=1) != 0).sum(1) + 1
+    ok = (ends <= MAX_LEN - 1 - generation._EARLY_STOP_LAG).all(1) & (
+        margins >= 1e-3)
+    distinct = torch.where(ok, distinct, 0)
+    ok &= distinct >= min(3, distinct.max().item())
+    if not ok.any() or distinct.max() < 2:
+        raise AssertionError("early-stop: no EOS bias ends the rows at "
+                             "different steps")
+    # the fewest steps run, then the widest margin
+    last = ends.max(dim=1).values
+    pick = torch.where(ok, last - margins / 1e3, float("inf")).argmin()
+    return mids[pick].item(), ends[pick].long().tolist()
+
+
+def _no_repeated_ngram(seq, n):
+    grams = [tuple(seq[i: i + n]) for i in range(len(seq) - n + 1)]
+    return len(grams) == len(set(grams))
+
+
+def _contains(seq, word):
+    return any(seq[i: i + len(word)] == word
+               for i in range(len(seq) - len(word) + 1))
+
+
+def check_mode_output(mode, out, cfg, fixed_tokens=None):
+    """The properties each mode's output must have; raises if one fails.
+    Returns a short description for the log."""
+    import torch
+    tok, lens = out[0].cpu(), out[1].cpu()
+    eos, pad = cfg.decoder.eos_token_id, cfg.decoder.pad_token_id
+    start = cfg.decoder.decoder_start_token_id
+    seqs = [[start] + row[: int(n)] for row, n in zip(tok.tolist(),
+                                                      lens.tolist())]
+    if mode == "sample":
+        scores = out[2].cpu()                         # (T, B, V) post-warp
+        kept = torch.isfinite(scores).sum(-1)
+        steps = torch.arange(MAX_LEN)[:, None] < lens[None, :]
+        picked = scores.gather(2, tok.T[..., None])[..., 0]
+        if not torch.isfinite(picked[steps]).all():
+            raise AssertionError("sample: a token outside the filtered set")
+        return (f"every token inside the filtered set (at most "
+                f"{int(kept[steps].max())} kept, median "
+                f"{int(kept[steps].median())})")
+    if mode == "processors":
+        if (tok[:, 0] != 0).any() or (tok[:, : MIN_LENGTH - 1] == eos).any():
+            raise AssertionError("processors: forced BOS or min_length")
+        if not ((tok[:, -1] == eos) | (tok[:, -1] == pad)).all():
+            raise AssertionError("processors: forced EOS")
+        for s in seqs:
+            if not _no_repeated_ngram(s, NO_REPEAT):
+                raise AssertionError(f"processors: a repeated 3-gram in {s}")
+            if any(_contains(s, w) for w in BAD_WORDS) or \
+                    set(s) & set(SUPPRESS) or s[1] in BEGIN_SUPPRESS:
+                raise AssertionError(f"processors: a banned token in {s}")
+        return (f"no repeated 3-gram, banned word or suppressed token; no "
+                f"EOS before step {MIN_LENGTH}; lengths "
+                f"{sorted(set(lens.tolist()))}")
+    if mode.startswith("constrained"):
+        bad = [s for s in seqs if not (_contains(s, PHRASE) and any(
+            _contains(s, w) for w in WORD_SET))]
+        if bad:
+            raise AssertionError(f"{mode}: {len(bad)} outputs miss a "
+                                 f"constraint, e.g. {bad[0]}")
+        return f"every output holds {PHRASE} and one of {WORD_SET}"
+    if mode == "early-stop":
+        if not torch.equal(tok, fixed_tokens.cpu()):
+            raise AssertionError("early-stop: tokens differ from the "
+                                 "fixed-length call's")
+        return "tokens equal the fixed-length call's"
+    if mode == "prefix":
+        for r, s in enumerate(seqs):
+            for i in range(1, len(s)):
+                if s[i] not in prefix_allowed(r, s[:i]):
+                    raise AssertionError(f"prefix: row {r} step {i - 1} "
+                                         f"token {s[i]} not allowed")
+        return "every token allowed by the prefix function"
+    if out[0].shape[0] != BATCH * 2:
+        raise AssertionError(f"{mode}: {out[0].shape[0]} rows")
+    per_row = out[2].float().reshape(BATCH, 2)
+    if not torch.isfinite(per_row).all() or (per_row < -1e8).any() or \
+            (per_row[:, 1] > per_row[:, 0]).any():
+        raise AssertionError(f"{mode}: sequences_scores unfinished or "
+                             "increasing within an input")
+    return "sequences_scores finite, finished and non-increasing per input"
+
+
+def run_generate_modes(seed, card):
+    """Phase 4b: the flagship through generate() in the modes of
+    generate_modes.  For each mode in bf16: exact launches of every kernel
+    per call (K4 / K5 from expected_launches), two calls with one seed give
+    the same bits, the mode's output properties, the median ms of three
+    timed calls and the busy share of a profiled one; early-stop's steps.
+    Then in f32 the tokens through the kernels must equal those through the
+    plain versions (beam scores within BEAM_SCORE_TOL_F32).  Returns {mode:
+    launches of each kernel per call}."""
+    import torch
+    from speechmix_tpu_torch import generation
+    from speechmix_tpu_torch.ops import kernels
+
+    cfg, params, wav, lengths = flagship_inputs(seed)
+    eos = cfg.decoder.eos_token_id
+    modes = generate_modes(seed)
+    fixed_kw = {k: v for k, v in modes["early-stop"][0].items()
+                if k != "early_stop"}
+    bias, ends = eos_bias_for_early_stop(params, cfg, wav, lengths,
+                                         **fixed_kw)
+    params_es = dict(params, nlp=dict(params["nlp"]))
+    fb = params["nlp"]["final_logits_bias"].clone()
+    fb[..., eos] += bias
+    params_es["nlp"]["final_logits_bias"] = fb
+    log(f"generate modes of the flagship (B={BATCH} x {SECONDS} s, "
+        f"max_length {MAX_LEN}, bf16); early-stop: final_logits_bias[eos] "
+        f"{bias:+.4f}, rows should end at steps {ends}")
+    counts, outputs = {}, {}
+    for mode, (kwargs, formula) in modes.items():
+        p = params_es if mode == "early-stop" else params
+        call = lambda: generation.generate(  # noqa: E731
+            p, cfg, wav, lengths, max_length=MAX_LEN, dtype=torch.bfloat16,
+            **kwargs)
+        runs, times = [], []
+        for i in range(4):                # a warm-up call, then 3 timed
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = call()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            run_counts = {k.symbol: k.launches for k in kernels.kernels()}
+            steps = MAX_LEN
+            if mode == "early-stop":
+                ended = (out[0] == eos).any(1).all().item()
+                steps = (min(MAX_LEN, out[1].max().item() + 1) if ended
+                         else MAX_LEN)
+            want = expected_launches(formula, steps)
+            if run_counts != want:
+                raise AssertionError(f"{mode}: launches {run_counts}, "
+                                     f"expected {want}")
+            runs.append(out)
+            if i:
+                times.append(dt)
+        for a, b in zip(runs[1], runs[2]):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{mode}: two bf16 calls with one seed "
+                                     "differ")
+        counts[mode], outputs[mode] = run_counts, runs[1]
+        fixed = None
+        if mode == "early-stop":
+            fixed = generation.generate(params_es, cfg, wav, lengths,
+                                        max_length=MAX_LEN,
+                                        dtype=torch.bfloat16, **fixed_kw)[0]
+            if steps >= MAX_LEN or len(set(out[1].tolist())) < 2:
+                raise AssertionError(f"early-stop: {steps} steps, lengths "
+                                     f"{sorted(set(out[1].tolist()))}")
+            log(f"  early-stop: {steps} of {MAX_LEN} steps run, rows end at "
+                f"steps {(out[1] - 1).tolist()}")
+        what = check_mode_output(mode, out, cfg, fixed)
+        med = sorted(times)[1]
+        wall_us, busy_us, _ = profile_call(call)
+        log(f"  {mode}: {med * 1e3:.1f} ms (median of 3: "
+            f"{', '.join(f'{t * 1e3:.1f}' for t in times)}), audio-seconds "
+            f"per second {BATCH * SECONDS / med:.2f}; profiled: wall "
+            f"{wall_us / 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms "
+            f"({busy_us / wall_us:.3f} of wall); K4 "
+            f"{run_counts['smx_decode_attention']}"
+            f"+{run_counts['smx_decode_attention_q8']}, K5 "
+            f"{run_counts['smx_beam_gather']}; two calls bit-identical; "
+            f"{what} on {card}")
+
+    # f32: the kernel path decodes what the plain path decodes
+    p32, p32_es = _cast_tree(params, torch.float32), _cast_tree(
+        params_es, torch.float32)
+    with torch.no_grad():
+        for mode, (kwargs, _) in modes.items():
+            p = p32_es if mode == "early-stop" else p32
+            run = lambda: generation.generate(  # noqa: E731
+                p, cfg, wav, lengths, max_length=MAX_LEN,
+                dtype=torch.float32, **kwargs)
+            got = run()
+            with plain_kernels():
+                kernels.reset_launch_counts()
+                ref = run()
+                if any(k.launches for k in kernels.kernels()):
+                    raise AssertionError("the plain reference launched a "
+                                         "kernel")
+            check_mode_output(mode, got, cfg,
+                              ref[0] if mode == "early-stop" else None)
+            if not (torch.equal(got[0], ref[0])
+                    and torch.equal(got[1], ref[1])):
+                rate = (got[0] == ref[0]).float().mean().item()
+                raise AssertionError(f"{mode}: f32 kernel tokens differ "
+                                     f"from the plain path's ({rate:.4f})")
+            line = f"  {mode}, f32 kernels vs f32 plain path: tokens equal"
+            if mode != "sample" and len(got) == 3:
+                diff = (got[2] - ref[2]).abs().max().item()
+                if not diff <= BEAM_SCORE_TOL_F32:
+                    raise AssertionError(f"{mode}: f32 sequences_scores "
+                                         f"differ by {diff}")
+                line += (f", sequences_scores max abs difference "
+                         f"{diff:.3e} (at most {BEAM_SCORE_TOL_F32})")
+            log(line)
+    return counts
 
 
 TRAIN_LABELS, TRAIN_STEPS, TRAIN_LR = 64, 8, 1e-4
@@ -3786,6 +4117,7 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     records = check_kernels(gen, torch.device("cuda"))
     counts, by_length = run_flagship(args.seed, card)
+    counts.update(run_generate_modes(args.seed, card))
     check_gradient_tree(args.seed)
     check_gradient_tree(args.seed, dropout=True)
     counts["train"], by_length["train"] = run_training(args.seed, card)

@@ -45,18 +45,52 @@ def test_generate_defaults_to_the_card(monkeypatch):
     assert tok.shape == (1, 4)
 
 
-@pytest.mark.parametrize("kwargs", [
-    dict(num_beams=2, num_beam_groups=2), dict(do_sample=True),
-    dict(repetition_penalty=1.2), dict(bad_words_ids=[[5]]),
-    dict(early_stop=True), dict(num_beams=2, force_words_ids=[[5]]),
-    dict(min_length=2), dict(num_beams=2, no_repeat_ngram_size=2)])
-def test_generate_refuses_unported_paths(kwargs):
-    cfg = _tiny_cfg()
-    params = t_smx.init_speechmix(cfg, torch.Generator().manual_seed(0),
-                                  "cpu")
-    with pytest.raises(NotImplementedError):
-        t_gen.generate(params, cfg, np.zeros((1, 4000), np.float32),
-                       max_length=4, device="cpu", **kwargs)
+@pytest.fixture(scope="module")
+def tiny_params():
+    return t_smx.init_speechmix(_tiny_cfg(), torch.Generator().manual_seed(0),
+                                "cpu")
+
+
+@pytest.mark.parametrize("kwargs,through_jax", [
+    (dict(num_beams=2, do_sample=True, force_words_ids=[[5]]), True),
+    (dict(num_beams=4, num_beam_groups=2, force_words_ids=[[5]]), True),
+    (dict(num_beams=2, num_beam_groups=3), True),
+    (dict(num_beam_groups=2, diversity_penalty=0.5), True),
+    (dict(num_beams=4, num_beam_groups=3), False),
+    (dict(num_beams=4, num_beam_groups=2, do_sample=True), False),
+    (dict(num_beams=4, num_beam_groups=2, num_return_sequences=5), False),
+    (dict(num_beams=2, num_return_sequences=3), False),
+    (dict(num_return_sequences=2), False),
+    (dict(force_words_ids=[[5]]), False),
+    (dict(num_beams=2, force_words_ids=[[5]], num_return_sequences=3),
+     False),
+    (dict(num_beams=2, force_words_ids=[]), False),
+    (dict(num_beams=2, force_words_ids=[[5, -6]]), False),
+    (dict(num_beams=2, force_words_ids=[[[4, 5], [4]]]), False)])
+def test_generate_contract_errors(tiny_params, kwargs, through_jax):
+    """Argument sets that both packages' generate() reject with HF's
+    ValueError; the first few (those the JAX package refuses before it
+    encodes) run through the JAX generate too."""
+    wav = np.zeros((1, 4000), np.float32)
+    if through_jax:
+        import jax.numpy as jnp
+        from speechmix_tpu import config as jcfg
+        from speechmix_tpu import generation as j_gen
+        jc = jcfg.SpeechMixConfig(
+            encoder=jcfg.SPEECH_ENCODER_PRESETS["tiny-speech"],
+            decoder=jcfg.SEQ2SEQ_PRESETS["tiny-bart-bytes"], down_scale=2)
+        with pytest.raises(ValueError):
+            j_gen.generate({}, jc, jnp.asarray(wav), max_length=4, **kwargs)
+    with pytest.raises(ValueError):
+        t_gen.generate(tiny_params, _tiny_cfg(), wav, max_length=4,
+                       device="cpu", **kwargs)
+
+
+def test_generate_refuses_unknown_keywords(tiny_params):
+    with pytest.raises(TypeError):
+        t_gen.generate(tiny_params, _tiny_cfg(), np.zeros((1, 4000),
+                                                          np.float32),
+                       max_length=4, device="cpu", use_flash=True)
 
 
 def _imported_modules(path):
