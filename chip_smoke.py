@@ -18,7 +18,8 @@ Phases, each printing as it goes; any failure exits non-zero:
      extractor layers), K7 attention_bwd (also
      against attention_bwd_tiled_plain, its tiles in plain PyTorch), K8 ffn_bwd
      (bf16: its recompute pass and its TMA + wgmma products, the products
-     also alone against reference products; f32: its two f32 entries), K9
+     also alone against reference products, at H = 256, 512, 768, 1024 and
+     1536; f32: its two f32 entries), K9
      ffn_fused; K3 and K9 in bf16 are the TMA + wgmma up and down passes and
      the LayerNorm row pass of ffn_fwd.cu, each pass also held and timed
      alone, the down pass's GEMM against a reference product, at every width
@@ -43,7 +44,14 @@ Phases, each printing as it goes; any failure exits non-zero:
      forward / backward) at its attention shapes, each against its plain
      version fed the same key's masks (K14 in bf16 also against the tiled
      plain version and twice, bit for bit), limits times 1/(1-r); and the
-     differentiable dropout forms; K1 and K14 are timed at the path's three
+     differentiable dropout forms; K9, K13 and K8 (both entries) at
+     t5-small's FFN (relu, H = 512, F = 2048, zero biases) at 6400, 1024
+     and 4001 rows in bf16 and f32, timed at 6400 and 1024, and K8's
+     refusal of an H that is not a multiple of 128 (check_t5_kernels);
+     K4 at the T5 pairs' cross-attention steps (8 and 6 heads, scale 1.0,
+     kb 1 and 4, float and int8 K/V) and K5 on their beam caches
+     (check_t5_decode);
+     K1 and K14 are timed at the path's three
      attention shapes (B = 16; T = 800, 400, causal 64), K6 at each of the
      six extractor layers;
   4. drive the flagship (wav2vec2-base + bart-base, down_scale 2, fused
@@ -96,7 +104,18 @@ Phases, each printing as it goes; any failure exits non-zero:
      step_fn on the restored state, load-best-at-end, and the teacher
      (K1-K4 in f32) against the plain path's tokens; it prints ms per step
      through fit beside the bare step, eval, predict and checkpoint times;
-  6. print the `kernels` JSON line (K1, K14, K7 and K15 with a record per
+     then the T5 family (run_t5): wav2vec2-base + t5-small (greedy,
+     greedy-int8, beam-4; an AdamW step without and with dropout) and +
+     byt5-small (greedy, beam-4, one step) at full width and depth, B = 16
+     x 16 s, 64 steps, each with exact launches (K4 for the
+     cross-attention only, t5-small's FFN as K9 / K13 and K8 at 6400 and
+     1024 rows), two calls bit-identical, ms, audio-s/s, peak memory and
+     busy share, the f32 tokens of the kernels equal to the plain path's,
+     and the t5-small gradient tree at 2 + 2 + 2 layers in f32 (a relu
+     fc1 kernel gradient allowed, beyond the limit, the terms of the a's
+     that the data shows may flip sign between the paths);
+  6. print the `kernels` JSON line (K9, K13 and K8 at t5-small's FFN with
+     their launches at 6400 and 1024 rows; K1, K14, K7 and K15 with a record per
      attention length of the step and its launches there, K6 one per
      extractor layer, K4 one per decoder shape with its launches at that key
      length and its serial body's ms), then the card line, then the result
@@ -472,6 +491,8 @@ def check_kernels(gen, dev):
     check_trainable_functions(randn, dev)
     check_dropout_kernels(randn, dev, records)
     check_large_kernels(randn, dev, records)
+    check_t5_kernels(randn, dev, records)
+    check_t5_decode(randn, gen, dev, records)
 
     for rec in records.values():
         t_flops = rec["flops"] / PEAK_BF16_FLOPS * 1e3
@@ -531,7 +552,7 @@ def check_dense_widths(randn, dev):
                      (kf.dense_dropout_res_ln(*k2, key, rate),))
 
 
-def decode_bf16_limit(q, k, v, mask, scales, ref):
+def decode_bf16_limit(q, k, v, mask, scales, ref, scale=0.125):
     """K4's bf16 limit per output element.  Kernel and plain version both
     round the probabilities to bf16 before P . v, from scores summed in
     another order, so a probability may land one bf16 step apart (relative
@@ -539,7 +560,7 @@ def decode_bf16_limit(q, k, v, mask, scales, ref):
     where the two may again be one ulp apart (<= 2^-7 |p|).  The same form
     as K1's limit."""
     from speechmix_tpu_torch.ops.kernels import decode_attention as kd
-    pv = kd.decode_attention_plain(q.float(), k, v.abs(), mask, scale=0.125,
+    pv = kd.decode_attention_plain(q.float(), k, v.abs(), mask, scale=scale,
                                    num_heads=k.shape[2], **scales)
     return 2.0 ** -8 * pv + 2.0 ** -7 * ref.float().abs()
 
@@ -560,24 +581,25 @@ def decode_mask(name, bkv, t, dev):
     return torch.arange(t, device=dev)[None, :] <= fill[:, None]
 
 
-def check_decode_case(name, q, k, v, mask, scales):
-    """K4 on one input against its plain version and, in bf16, against
-    decode_attention_split_plain (the cluster body's ranges) and itself in
-    a second call, bit for bit.  Returns the max error against the plain
-    version."""
+def check_decode_case(name, q, k, v, mask, scales, scale=0.125):
+    """K4 on one input at attention scale `scale` against its plain version
+    and, in bf16, against decode_attention_split_plain (the cluster body's
+    ranges) and itself in a second call, bit for bit.  Returns the max
+    error against the plain version."""
     import torch
     from speechmix_tpu_torch.ops.kernels import decode_attention as kd
-    args = dict(scale=0.125, num_heads=k.shape[2], **scales)
+    args = dict(scale=scale, num_heads=k.shape[2], **scales)
     out = kd.decode_attention(q, k, v, mask, **args)
     ref = kd.decode_attention_plain(q, k, v, mask, **args)
     torch.cuda.synchronize()
     if q.dtype != torch.bfloat16:
         return compare(name, out, ref)
     err = compare(name, out, ref, decode_bf16_limit(q, k, v, mask, scales,
-                                                    ref), K1_BF16_RULE)
+                                                    ref, scale), K1_BF16_RULE)
     split = kd.decode_attention_split_plain(q, k, v, mask, **args)
     compare(f"{name} vs split", out, split,
-            decode_bf16_limit(q, k, v, mask, scales, split), K1_BF16_RULE)
+            decode_bf16_limit(q, k, v, mask, scales, split, scale),
+            K1_BF16_RULE)
     expect_equal(f"K4 {name}", (out,), (kd.decode_attention(q, k, v, mask,
                                                             **args),))
     return err
@@ -590,7 +612,6 @@ def check_decode_attention(randn, dev, records):
     over 1500 (30 s of audio), float and int8 K/V, ragged masks; then mask
     rows with a fully masked row, one key, holes and late keys."""
     import torch
-    import torch.nn.functional as F
     from speechmix_tpu_torch.models.seq2seq import _quantize_kv
     from speechmix_tpu_torch.ops.kernels import decode_attention as kd
 
@@ -649,6 +670,27 @@ def check_decode_attention(randn, dev, records):
         slab[1:].view(16, 1, heads, d), k, k, mask, scale=0.125,
         num_heads=heads))
 
+    for (name, kind), (q, k, v, mask, scales, err) in timed.items():
+        rec = decode_record(name, kind, q, k, v, mask, scales, err, 0.125,
+                            DECODER_LAYERS if name.startswith("cross")
+                            else 1)
+        entry = "decode_attention" if kind == "float" else "decode_attention_q8"
+        records[entry if name == "cross greedy"
+                else f"{entry} ({name})"] = rec
+
+
+def decode_record(name, kind, q, k, v, mask, scales, err, scale, copies):
+    """The timed record of K4 on one bf16 input at attention scale `scale`:
+    the kernel, its serial body, its plain version and
+    scaled_dot_product_attention.  Cross-attention reads another layer's
+    K/V at every call: six layers' worth of the flagship's (62 to 118 MB)
+    is more than the 50 MB L2 holds, so the timed calls cycle over `copies`
+    copies (the decoder's layers) and find the cache as the decoder does;
+    the self-attention cache (9 MB) stays in L2 (copies = 1)."""
+    import torch.nn.functional as F
+    from speechmix_tpu_torch.ops.kernels import decode_attention as kd
+    heads, d = k.shape[2:]
+
     def sdpa(q, k, v, mask, scales):
         bkv, t = k.shape[:2]
         if scales:   # dequantisation is part of what the library call costs
@@ -657,61 +699,71 @@ def check_decode_attention(randn, dev, records):
         qh = q.view(bkv, -1, heads, d).transpose(1, 2)
         return F.scaled_dot_product_attention(
             qh, k.transpose(1, 2), v.transpose(1, 2),
-            attn_mask=mask[:, None, None, :], scale=0.125)
+            attn_mask=mask[:, None, None, :], scale=scale)
 
-    for (name, kind), (q, k, v, mask, scales, err) in timed.items():
-        # cross-attention reads another layer's K/V at every call: six
-        # layers' worth (62 to 118 MB) is more than the 50 MB L2 holds, so
-        # the timed calls cycle over six copies and find the cache cold, as
-        # the decoder does; the self-attention cache (9 MB) stays in L2
-        sets = [(k, v, scales)]
-        if name.startswith("cross"):
-            sets += [(k.clone(), v.clone(),
-                      {n: s_.clone() for n, s_ in scales.items()})
-                     for _ in range(DECODER_LAYERS - 1)]
-        turn = itertools.cycle(sets)
+    sets = [(k, v, scales)] + [
+        (k.clone(), v.clone(), {n: s_.clone() for n, s_ in scales.items()})
+        for _ in range(copies - 1)]
+    turn = itertools.cycle(sets)
 
-        def timed_ms(fn):
-            return cuda_ms(lambda: fn(*next(turn)), iters=60, warmup=6)
-        # a masked key adds exactly 0 to the output, so the function needs
-        # K, V and scale rows of attended keys only (as K1's count does);
-        # these masks attend a prefix of the keys, which is what K4 reads
-        attended = int(mask.sum().item())
-        kb = q.shape[0] // k.shape[0]
-        nbytes = (attended * heads * d * k.element_size() * 2
-                  + q.numel() * q.element_size() * 2 + mask.numel()
-                  + attended * heads * 4 * len(scales))
-        rec = dict(
-            shape=f"{name}: q {tuple(q.shape)} k/v {tuple(k.shape)} "
-                  f"{kind} K/V bf16 q, {attended} of {mask.numel()} keys "
-                  "attended",
-            max_abs_err=err, length=k.shape[1],
-            ms=timed_ms(lambda k_, v_, sc: kd.decode_attention(
-                q, k_, v_, mask, scale=0.125, num_heads=heads, **sc)),
-            serial_ms=timed_ms(lambda k_, v_, sc: kd.decode_attention_serial(
-                q, k_, v_, mask, scale=0.125, num_heads=heads, **sc)),
-            plain_ms=timed_ms(lambda k_, v_, sc: kd.decode_attention_plain(
-                q, k_, v_, mask, scale=0.125, num_heads=heads, **sc)),
-            library_ms=timed_ms(lambda k_, v_, sc: sdpa(q, k_, v_, mask, sc)),
-            flops=4.0 * kb * attended * heads * d, bytes=nbytes)
-        log(f"  {name} {kind} K/V: {rec['ms']:.4f} ms, the serial body "
-            f"alone {rec['serial_ms']:.4f} ms")
-        entry = "decode_attention" if kind == "float" else "decode_attention_q8"
-        records[entry if name == "cross greedy"
-                else f"{entry} ({name})"] = rec
+    def timed_ms(fn):
+        return cuda_ms(lambda: fn(*next(turn)), iters=60, warmup=6)
+    # a masked key adds exactly 0 to the output, so the function needs K, V
+    # and scale rows of attended keys only (as K1's count does); these
+    # masks attend a prefix of the keys, which is what K4 reads
+    attended = int(mask.sum().item())
+    kb = q.shape[0] // k.shape[0]
+    nbytes = (attended * heads * d * k.element_size() * 2
+              + q.numel() * q.element_size() * 2 + mask.numel()
+              + attended * heads * 4 * len(scales))
+    args = dict(scale=scale, num_heads=heads)
+    rec = dict(
+        shape=f"{name}: q {tuple(q.shape)} k/v {tuple(k.shape)} {kind} K/V "
+              f"bf16 q, scale {scale}, {attended} of {mask.numel()} keys "
+              "attended",
+        max_abs_err=err, length=k.shape[1],
+        ms=timed_ms(lambda k_, v_, sc: kd.decode_attention(
+            q, k_, v_, mask, **args, **sc)),
+        serial_ms=timed_ms(lambda k_, v_, sc: kd.decode_attention_serial(
+            q, k_, v_, mask, **args, **sc)),
+        plain_ms=timed_ms(lambda k_, v_, sc: kd.decode_attention_plain(
+            q, k_, v_, mask, **args, **sc)),
+        library_ms=timed_ms(lambda k_, v_, sc: sdpa(q, k_, v_, mask, sc)),
+        flops=4.0 * kb * attended * heads * d, bytes=nbytes)
+    log(f"  {name} {kind} K/V, {heads} heads, scale {scale}: "
+        f"{rec['ms']:.4f} ms, the serial body alone {rec['serial_ms']:.4f} "
+        "ms")
+    return rec
 
 
 def check_beam_gather(randn, gen, dev, records):
     """K5 on the flagship's beam-4 self-attention cache: bit-exact against
-    index_select, with repeated and identity rows, in both dtypes."""
+    index_select, with repeated and identity rows, in both dtypes; its
+    refusals."""
     import torch
     from speechmix_tpu_torch.ops.kernels import beam_gather as kg
 
     log("K5 beam_gather")
-    layers, batch, beams = DECODER_LAYERS, 16, 4
+    args = beam_gather_case(randn, gen, dev, DECODER_LAYERS, 12)
+    expect_refusal("K5 output into its input", lambda: kg.beam_gather(
+        args[0], args[1], args[2], out=(args[0], args[3][1])))
+    small = randn(2, 4, 3, dtype=torch.bfloat16)
+    expect_refusal("K5 slab of 6 bytes", lambda: kg.beam_gather(
+        small, small.clone(), torch.zeros(4, dtype=torch.int32, device=dev)))
+    records["beam_gather"] = beam_gather_record(*args)
+
+
+def beam_gather_case(randn, gen, dev, layers, heads, batch=16, beams=4):
+    """K5 on a (layers, batch x beams, 64, heads, 64) cache: bit-exact
+    against index_select into new and into given buffers, with repeated
+    and identity rows, in bf16 and f32.  Returns the bf16 (key, value,
+    src, spare buffers)."""
+    import torch
+    from speechmix_tpu_torch.ops.kernels import beam_gather as kg
+
     rows = batch * beams
     for dtype in (torch.bfloat16, torch.float32):
-        key, value = (randn(layers, rows, 64, 12, 64, dtype=dtype)
+        key, value = (randn(layers, rows, 64, heads, 64, dtype=dtype)
                       for _ in range(2))
         idx = torch.randint(0, beams, (batch, beams), generator=gen,
                             device=dev)
@@ -725,21 +777,23 @@ def check_beam_gather(randn, gen, dev, records):
             ref_k, ref_v = kg.beam_gather_plain(key, value, src)
             torch.cuda.synchronize()
             exact = torch.equal(out_k, ref_k) and torch.equal(out_v, ref_v)
-            log(f"  L={layers} N={rows} slab (64, 12, 64) {dtype}, {what}: "
-                f"{'bit-exact' if exact else 'DIFFERS'}")
+            log(f"  L={layers} N={rows} slab (64, {heads}, 64) {dtype}, "
+                f"{what}: {'bit-exact' if exact else 'DIFFERS'}")
             if not exact:
                 raise AssertionError("beam_gather differs from index_select")
         if dtype == torch.bfloat16:
             args = (key, value, src, spare)
-    expect_refusal("K5 output into its input", lambda: kg.beam_gather(
-        args[0], args[1], args[2], out=(args[0], args[3][1])))
-    small = randn(2, 4, 3, dtype=torch.bfloat16)
-    expect_refusal("K5 slab of 6 bytes", lambda: kg.beam_gather(
-        small, small.clone(), torch.zeros(4, dtype=torch.int32, device=dev)))
-    key, value, src, spare = args
+    return args
+
+
+def beam_gather_record(key, value, src, spare):
+    """The timed record of K5 on one bf16 cache: the kernel, its plain
+    version and index_select."""
+    import torch
+    from speechmix_tpu_torch.ops.kernels import beam_gather as kg
     idx64 = src.long()
-    records["beam_gather"] = dict(
-        shape=f"K, V ({layers}, {rows}, 64, 12, 64) bf16", max_abs_err=0.0,
+    return dict(
+        shape=f"K, V {tuple(key.shape)} bf16", max_abs_err=0.0,
         ms=cuda_ms(lambda: kg.beam_gather(key, value, src, out=spare)),
         plain_ms=cuda_ms(lambda: kg.beam_gather_plain(key, value, src,
                                                       out=spare)),
@@ -1116,25 +1170,15 @@ def check_train_kernels(randn, dev, records):
         # a row count that fills neither a row tile nor a split
         ffn_case(ops[0][:4001].contiguous(), ops[1][:4001].contiguous(),
                  *ops[2:])
-    # bart-large's width in both dtypes; h 256 in both, where K8 refuses
-    # bfloat16 (its widths are BF16_HIDDEN); h 512 and 1536, K9 in bfloat16
+    # bart-large's width and h 256 in both dtypes; in bfloat16 h 512 and
+    # 1536 too: K8 takes every h that is a multiple of 128 (t5-small's FFN
+    # at its own rows: check_t5_kernels)
     for hh, ff, act, dtypes in ((1024, 4096, "gelu", (bf16, f32)),
                                 (256, 1024, "gelu", (bf16, f32)),
                                 (512, 2048, "relu", (bf16,)),
                                 (1536, 6144, "gelu", (bf16,))):
         for dtype in dtypes:
-            ops = ffn_operands(1000, hh, ff, dtype)
-            if dtype == bf16 and hh not in kf.BF16_HIDDEN:
-                xo, go, w1o, b1o, w2o, b2o = ops
-                k9 = (xo, w1o, b1o, w2o, b2o, act)
-                compare(f"K9 N=1000 H={hh} F={ff} {act} {dtype}",
-                        kf.ffn_fused(*k9), kf.ffn_fused_plain(*k9))
-                expect_equal(f"K9 N=1000 H={hh} F={ff} {act}",
-                             (kf.ffn_fused(*k9),), (kf.ffn_fused(*k9),))
-                expect_refusal(f"K8 N=1000 H={hh} {dtype}", lambda:
-                               kf.ffn_bwd(xo, go, w1o, b1o, w2o))
-                continue
-            ffn_case(*ops, act)
+            ffn_case(*ffn_operands(1000, hh, ff, dtype), act)
     # the row counts the train step gives K2, K3, K8 and K9: speech encoder,
     # text encoder and decoder (B = 16 x 16 s, 64 label positions) in bf16,
     # and those of the f32 gradient-tree check (B = 8 x 8 s, 128 label
@@ -2542,6 +2586,13 @@ TRAIN_LABELS, TRAIN_STEPS, TRAIN_LR = 64, 8, 1e-4
 # (order of summation only; the floor covers leaves such as the attention key
 # biases, whose gradient is zero in exact arithmetic and rounding noise here)
 GRAD_REL, GRAD_FLOOR = 2e-3, 1e-5
+# relu's derivative jumps at 0: where the two paths put a = x w1 on either
+# side of 0, da[n, f] is dh[n, f] on one path and 0 on the other, which
+# moves element (h, f) of that FFN's fc1 kernel gradient by x[n, h] dh[n, f],
+# one of the N terms of its sum (up to about 0.6% of the leaf's largest
+# entry at t5-small's width, above GRAD_REL).  relu_flip_allowance finds
+# from the data the a's that may flip and adds exactly their terms to the
+# limit of those elements; every other element is held to the limit.
 
 
 def expected_train_launches(speech_layers, enc_layers, dec_layers, accum=1,
@@ -2608,18 +2659,18 @@ def _train_batch(cfg, gen, dev, batch, seconds, labels_len):
             "labels": labels}
 
 
-def check_gradient_tree(seed, dropout=False, large=False):
+def check_gradient_tree(seed, dropout=False, large=False, t5=False):
     """On the card, f32, full width, 2 + 2 + 2 layers: d loss / d params
     through the kernels against the same through their plain versions.  With
     dropout, one key drives both runs, so both draw the same masks (the
     presets' rates and SpecAugment; LayerDrop off, to keep the layer
     count).  `large`: the large pair's widths and pre-LN layers instead of
-    the flagship's."""
+    the flagship's; `t5`: wav2vec2-base + t5-small."""
     import dataclasses
     import torch
     from speechmix_tpu_torch import config
     from speechmix_tpu_torch.models import speechmix
-    from speechmix_tpu_torch.ops import kernels
+    from speechmix_tpu_torch.ops import kernels, layers
     from speechmix_tpu_torch.ops.kernels.dropout import DropoutKey
     from speechmix_tpu_torch.training.freezing import tree_map, tree_paths
 
@@ -2632,6 +2683,8 @@ def check_gradient_tree(seed, dropout=False, large=False):
         down_scale=2)
     if large:
         cfg = large_config((2, 2, 2))
+    if t5:
+        cfg = t5_config("t5-small", (2, 2, 2))
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = speechmix.init_speechmix(cfg, gen, dev, torch.float32)
@@ -2642,23 +2695,46 @@ def check_gradient_tree(seed, dropout=False, large=False):
         f"{'on' if dropout else 'off'}: kernels vs plain versions")
 
     def grads():
+        """(loss, {path: gradient}, {relu fc1 kernel path: (the FFN's input
+        x, d loss / d its output)})."""
         leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
-        out = speechmix.speechmix_forward(
-            leaves, cfg, batch["input_values"], batch["lengths"],
-            labels=batch["labels"], dtype=torch.float32, dropout_rng=key)
         flat = tree_paths(leaves)
+        names = {id(leaf): path for path, leaf in flat}
+        ffn_apply, ffn_io = layers.ffn_apply, {}
+
+        def spy(p1, p2, x, act_name, *args, **kwargs):
+            y = ffn_apply(p1, p2, x, act_name, *args, **kwargs)
+            if act_name == "relu":
+                ffn_io[names[id(p1["kernel"])]] = (x, y)
+            return y
+        layers.ffn_apply = spy
+        try:
+            out = speechmix.speechmix_forward(
+                leaves, cfg, batch["input_values"], batch["lengths"],
+                labels=batch["labels"], dtype=torch.float32,
+                dropout_rng=key)
+        finally:
+            layers.ffn_apply = ffn_apply
+        io = list(ffn_io.items())
         # masked_spec_embed has no gradient without SpecAugment
-        got = torch.autograd.grad(out["loss"], [leaf for _, leaf in flat],
-                                  allow_unused=True)
-        return out["loss"].item(), {path: g for (path, _), g in
-                                    zip(flat, got) if g is not None}
+        got = torch.autograd.grad(
+            out["loss"], [leaf for _, leaf in flat] + [y for _, (_, y) in io],
+            allow_unused=True)
+        return (out["loss"].item(),
+                {path: g for (path, _), g in zip(flat, got) if g is not None},
+                {path: (x.detach(), dy) for (path, (x, _)), dy in
+                 zip(io, got[len(flat):])})
 
     kernels.reset_launch_counts()
-    loss_k, grads_k = grads()
+    loss_k, grads_k, io_k = grads()
     counts = {k.symbol: k.launches for k in kernels.kernels()}
     if large:
         want = expected_preln_train_launches(2, 2, 2, 2, 2, dtype="f32",
                                              dropout=dropout)
+    elif t5:
+        # text-encoder rows 8 x 200, decoder rows 8 x 128
+        want = expected_t5_train_launches(cfg, 2, (1600, 1024), dtype="f32",
+                                          dropout=dropout)
     else:
         want = (expected_dropout_train_launches(2, 2, 2, dtype="f32")
                 if dropout else expected_train_launches(2, 2, 2, dtype="f32"))
@@ -2667,29 +2743,69 @@ def check_gradient_tree(seed, dropout=False, large=False):
                              f"{want}")
     with plain_kernels():
         kernels.reset_launch_counts()
-        loss_p, grads_p = grads()
+        loss_p, grads_p, io_p = grads()
         if any(k.launches for k in kernels.kernels()):
             raise AssertionError("the plain reference launched a kernel")
     if grads_k.keys() != grads_p.keys():
         raise AssertionError("gradient tree: kernels and plain versions "
                              "differ in the leaves that have a gradient")
+    if io_k.keys() != io_p.keys() or io_k and dropout:
+        raise AssertionError("gradient tree: the relu FFNs differ between "
+                             "the paths, or run with dropout")
     top = max(g.abs().max().item() for g in grads_p.values())
-    worst, worst_path = 0.0, None
+    worst, worst_path, flips = 0.0, None, {}
     for path, ref in grads_p.items():
         got = grads_k[path]
         if not torch.isfinite(got).all():
             raise AssertionError(f"gradient of {path} is not finite")
         limit = GRAD_REL * ref.abs().max().item() + GRAD_FLOOR * top
-        ratio = (got - ref).abs().max().item() / limit
+        err = (got - ref).abs()
+        if path in io_p:
+            extra, flips[path] = relu_flip_allowance(
+                params, path, io_k[path], io_p[path])
+            err = err * limit / (limit + extra)
+        ratio = err.max().item() / limit if err.numel() else 0.0
         if ratio > worst:
             worst, worst_path = ratio, path
     log(f"  loss {loss_k:.6f} (kernels) vs {loss_p:.6f} (plain); "
         f"{len(grads_p)} leaves, largest gradient {top:.3e}; worst "
         f"err/limit {worst:.3f} at {worst_path} (limit {GRAD_REL} * max|leaf|"
-        f" + {GRAD_FLOOR} * {top:.3e})")
+        f" + {GRAD_FLOOR} * {top:.3e}" + (
+            ", plus on relu fc1 kernels the terms of the a's that may flip "
+            f"(a's, of them with signs apart, columns): {flips}" if flips
+            else "") + ")")
     if abs(loss_k - loss_p) > 1e-4 or worst > 1.0:
         raise AssertionError("gradient tree: kernels and plain versions "
                              "disagree")
+
+
+def relu_flip_allowance(params, path, io_k, io_p):
+    """For the relu FFN whose fc1 kernel is at `path`, given its input x and
+    the gradient dy of its output on the kernel path (io_k) and on the plain
+    path (io_p): the a = x w1 that may lie on different sides of 0 on the
+    two paths are those within twice the paths' difference |a_k - a_p| (the
+    two inputs through one f32 product) plus 2^-22 sqrt(H) |x[n] * w1[:, f]|
+    (four standard deviations of the rounding of an f32 sum of H products,
+    as a random walk of 2^-24 per addition) of 0.  Returns (the allowance,
+    ((h, f): sum over those n of |x[n, h]| |dh[n, f]|, dh = dy w2^T), (the
+    number of such a's, of them the a's whose signs differ, columns))."""
+    import torch
+    leaf = params
+    for part in path.split("/")[:-2]:
+        leaf = leaf[int(part)] if isinstance(leaf, list) else leaf[part]
+    w1, w2 = leaf["fc1"]["kernel"], leaf["fc2"]["kernel"]
+    b1 = leaf["fc1"].get("bias")
+    x_k, x_p = (io[0].reshape(-1, w1.shape[0]) for io in (io_k, io_p))
+    a_k, a_p = x_k @ w1, x_p @ w1
+    if b1 is not None:
+        a_k, a_p = a_k + b1, a_p + b1
+    rounding = 2.0 ** -22 * w1.shape[0] ** 0.5 * ((x_p * x_p) @ (w1 * w1)
+                                                  ).sqrt()
+    near = a_p.abs() <= 2 * (a_k - a_p).abs() + rounding
+    flips = int(((a_k > 0) != (a_p > 0)).sum())
+    dh = io_p[1].reshape(-1, w2.shape[1]) @ w2.t()
+    extra = x_p.abs().t() @ (near * dh.abs())
+    return extra, (int(near.sum()), flips, int(near.any(0).sum()))
 
 
 def layerdrop_replay(trainer, speech_encoder, tc, cfg, step):
@@ -3238,6 +3354,175 @@ def check_large_kernels(randn, dev, records):
         k, v = (randn(bkv, t, heads, d, dtype=bf16) for _ in range(2))
         check_decode_case(f"K4 {name} B={bkv} T={t} {heads} heads float K/V "
                           "bf16", q, k, v, mask, {})
+
+
+# t5-small's FFN: relu, H = 512, F = 2048, no biases (zero vectors to the
+# kernels), at the rows of its text encoder (B = 16 x 16 s: 6400), of its
+# decoder in a train step (16 x 64 label positions: 1024) and a ragged count
+T5_H, T5_F, T5_ROWS = 512, 2048, (6400, 1024, 4001)
+
+
+def check_t5_kernels(randn, dev, records):
+    """K9, K13 and K8 (its deterministic and dropout entries) at t5-small's
+    FFN, relu, H = T5_H, F = T5_F, zero biases, in bf16 and f32 at the
+    T5_ROWS row counts, each against its plain version (the masked ones fed
+    the plain generator's mask of the same key) at the limits stated for
+    the flagship (times 1/(1-r) with the mask; relu's jump at 0 as
+    K8_RELU_NEAR_ZERO allows); in bf16 each twice, bit for bit.  Timed and
+    recorded: K9, K13 and K8 at 6400 and 1024 rows in bf16, beside the
+    library's linear(relu(linear)) and its autograd backward."""
+    import torch
+    import torch.nn.functional as F
+    from speechmix_tpu_torch.ops.kernels import dropout as kd
+    from speechmix_tpu_torch.ops.kernels import ffn as kf
+
+    h, f, rate = T5_H, T5_F, DROP_RATE
+    bf16, f32 = torch.bfloat16, torch.float32
+    key = kd.DropoutKey.from_seed(20261018)
+    log(f"t5-small's FFN kernels: relu, H={h}, F={f}, zero biases, rows "
+        f"{T5_ROWS}, dropout rate {rate}")
+    for dtype in (bf16, f32):
+        for n in T5_ROWS:
+            x, g = randn(n, h, dtype=dtype), randn(n, h, dtype=dtype)
+            w1 = randn(h, f, scale=0.03, dtype=dtype)
+            w2 = randn(f, h, scale=0.03, dtype=dtype)
+            b1, b2 = torch.zeros(f, device=dev), torch.zeros(h, device=dev)
+            what = f"N={n} H={h} F={f} relu {dtype}"
+            a = x.float() @ w1.float()
+            near = int((a.abs() < K8_RELU_NEAR_ZERO).sum())
+            del a
+            amask = kd.dropout_mask_plain(key, kd.STREAM_ACT, n, f, rate, dev)
+            k9 = lambda: kf.ffn_fused(x, w1, b1, w2, b2, "relu")
+            k13 = lambda: kf.ffn_dropout(x, w1, b1, w2, b2, key, rate, "relu")
+            k8 = lambda: kf.ffn_bwd(x, g, w1, b1, w2, "relu")
+            k8d = lambda: kf.ffn_dropout_bwd(x, g, w1, b1, w2, key, rate,
+                                             "relu")
+            errs = {"K9": compare(f"K9 {what}", k9(), kf.ffn_fused_plain(
+                x, w1, b1, w2, b2, "relu"))}
+            ref = kf.ffn_dropout_plain(x, w1, b1, w2, b2, amask, "relu")
+            tol = _dropout_tol(TOL[str(dtype).replace("torch.", "")], rate)
+            errs["K13"] = compare(f"K13 {what}", k13(), ref,
+                                  tol[0] + tol[1] * ref.float().abs(),
+                                  f"atol {tol[0]:.4g}, rtol {tol[1]:.4g} "
+                                  "(TOL / (1-r))")
+            base_dw = K8_DW_BF16_TOL if dtype == bf16 else K8_DW_F32_TOL
+            for label, run, m, scale in (("K8", k8, None, 1.0),
+                                         ("K8 dropout", k8d, amask,
+                                          1.0 / (1.0 - rate))):
+                got = run()
+                refs = kf.ffn_bwd_plain(x, g, w1, b1, w2, "relu", m)
+                torch.cuda.synchronize()
+                atol, rtol = (t_ * scale for t_ in TOL[
+                    str(dtype).replace("torch.", "")])
+                err = compare(f"{label} dx {what}", got[0], refs[0],
+                              atol + rtol * refs[0].float().abs(),
+                              f"atol {atol:.4g}, rtol {rtol:.4g}",
+                              allow_count=near * h)
+                dw_tol = tuple(t_ * scale for t_ in base_dw)
+                for name_, o, r, count in zip(("dw1", "db1", "dw2"),
+                                              got[1:4], refs[1:4],
+                                              (h, 1, 0)):
+                    err = max(err, compare(
+                        f"{label} {name_} {what}", o, r,
+                        dw_tol[0] + dw_tol[1] * r.abs(),
+                        f"atol {dw_tol[0]:.4g}, rtol {dw_tol[1]:.4g}",
+                        near * count))
+                errs[label] = err
+                if dtype == bf16:
+                    expect_equal(f"{label} {what}", got, run())
+                del got, refs
+            if dtype == bf16:
+                expect_equal(f"K9 {what}", (k9(),), (k9(),))
+                expect_equal(f"K13 {what}", (k13(),), (k13(),))
+            if dtype != bf16 or n == 4001:
+                continue
+            lx = x.detach().requires_grad_()
+            lw1, lw2 = (w_.t().contiguous().requires_grad_() for w_ in (w1, w2))
+            lib = lambda: F.linear(F.relu(F.linear(lx, lw1)), lw2)
+            lib_y = lib()
+            shape = f"{what} (t5-small FFN, zero biases)"
+            ffn_flops = 4.0 * n * h * f
+            ffn_bytes = (2 * n * h + 2 * h * f) * 2 + (f + h) * 4
+            records[f"ffn_fused (t5-small, N={n})"] = dict(
+                shape=shape, rows=n, max_abs_err=errs["K9"], ms=cuda_ms(k9),
+                plain_ms=cuda_ms(lambda: kf.ffn_fused_plain(
+                    x, w1, b1, w2, b2, "relu")),
+                library_ms=cuda_ms(lambda: lib().detach()),
+                flops=ffn_flops, bytes=ffn_bytes)
+            records[f"ffn_dropout (t5-small, N={n})"] = dict(
+                shape=f"{shape}, rate {rate}", rows=n,
+                max_abs_err=errs["K13"], ms=cuda_ms(k13),
+                plain_ms=cuda_ms(lambda: kf.ffn_dropout_plain(
+                    x, w1, b1, w2, b2, kd.dropout_mask_plain(
+                        key, kd.STREAM_ACT, n, f, rate, dev), "relu"),
+                    iters=5),
+                library_ms=cuda_ms(lambda: F.linear(F.dropout(F.relu(
+                    F.linear(lx, lw1)), rate), lw2).detach()),
+                flops=ffn_flops, bytes=ffn_bytes)
+            records[f"ffn_bwd (t5-small, N={n})"] = dict(
+                shape=f"{shape} (recompute + products)", rows=n,
+                max_abs_err=errs["K8"], ms=cuda_ms(k8),
+                plain_ms=cuda_ms(lambda: kf.ffn_bwd_plain(
+                    x, g, w1, b1, w2, "relu")),
+                library_ms=cuda_ms(lambda: torch.autograd.grad(
+                    lib_y, (lx, lw1, lw2), g, retain_graph=True)),
+                flops=10.0 * n * h * f,
+                bytes=(3 * n * h + 2 * h * f) * 2 + f * 4 +
+                (2 * h * f + f) * 4)
+            del lib_y
+    expect_refusal(f"K8 N=1000 H=192 bf16 (not a multiple of "
+                   f"{kf.FWD_WIDTH})", lambda: kf.ffn_bwd(
+                       randn(1000, 192, dtype=bf16),
+                       randn(1000, 192, dtype=bf16),
+                       randn(192, 768, dtype=bf16), randn(768),
+                       randn(768, 192, dtype=bf16)))
+
+
+def check_t5_decode(randn, gen, dev, records):
+    """K4 and K5 at the T5 pairs' decoder shapes.  K4: the cross-attention
+    steps, 16 rows over 400 encoder positions with kb = 1 (greedy) and
+    kb = 4 (beams share K/V), t5-small's 8 heads and byt5-small's 6, at
+    T5's attention scale 1.0 (unscaled scores, so larger logits than the
+    flagship's), float and int8 K/V, bf16 and f32, each against its plain
+    version (bf16: decode_bf16_limit, the split body, twice bit for bit);
+    T5's self-attention steps carry the position bias and take the plain
+    path.  K5: each pair's beam-4 self-attention cache (decoder layers, 64
+    rows, 64 slots, heads, 64), bit-exact.  The bf16 cases that run_t5
+    drives are recorded."""
+    import torch
+    from speechmix_tpu_torch import config
+    from speechmix_tpu_torch.models.seq2seq import _quantize_kv
+
+    log("K4 and K5 at the T5 pairs' decoder shapes")
+    for model in T5_MODES:
+        dec = config.SEQ2SEQ_PRESETS[model]
+        heads, d, layers = dec.num_heads, dec.per_head_dim, dec.decoder_layers
+        for name, bkv, kb, t in DECODE_SHAPES[2:4]:
+            mask = decode_mask(name, bkv, t, dev)
+            for dtype in (torch.bfloat16, torch.float32):
+                q = randn(bkv * kb, 1, heads, d, dtype=dtype)
+                k, v = (randn(bkv, t, heads, d, dtype=dtype)
+                        for _ in range(2))
+                (kq, ks), (vq, vs) = _quantize_kv(k), _quantize_kv(v)
+                for kind, kk, vv, scales in (("float", k, v, {}),
+                                             ("int8", kq, vq,
+                                              dict(k_scale=ks, v_scale=vs))):
+                    err = check_decode_case(
+                        f"{model} {name} B={bkv} kb={kb} T={t} {heads} "
+                        f"heads scale 1.0 {kind} K/V {dtype}", q, kk, vv,
+                        mask, scales, scale=1.0)
+                    # recorded: the bf16 cases that run_t5 drives (int8
+                    # cross K/V in t5-small's greedy-int8 only)
+                    if dtype != torch.bfloat16 or kind == "int8" and (
+                            model != "t5-small" or kb != 1):
+                        continue
+                    entry = ("decode_attention" if kind == "float"
+                             else "decode_attention_q8")
+                    records[f"{entry} ({model}, {name})"] = decode_record(
+                        f"{model} {name}", kind, q, kk, vv, mask, scales,
+                        err, 1.0, layers)
+        args = beam_gather_case(randn, gen, dev, layers, heads)
+        records[f"beam_gather ({model})"] = beam_gather_record(*args)
 
 
 def _fingerprints(params):
@@ -4072,6 +4357,303 @@ def run_trainer(seed, card):
                              f"plain path on {rate} of the tokens")
 
 
+# the T5 pairs' modes: t5-small the three serving modes and both train
+# steps, byt5-small greedy, beam-4 and the step without dropout
+T5_MODES = {"t5-small": (("greedy", "greedy-int8", "beam-4"),
+                         ("train", "train-dropout")),
+            "byt5-small": (("greedy", "beam-4"), ("train",))}
+T5_GENERATE_KWARGS = {"greedy": {}, "greedy-int8": {"kv_int8": True},
+                      "beam-4": {"num_beams": BEAMS,
+                                 "num_return_sequences": BEAMS,
+                                 "output_scores": True}}
+T5_TRAIN_STEPS = 6
+
+
+def t5_config(name, layers=None):
+    """wav2vec2-base (12 post-LN layers, the fused extractor) + t5-small (6
+    + 6 layers, H = 512, relu, tied head, vocabulary 32128) or byt5-small
+    (12 + 4 layers, H = 1472, gated GELU, untied head, vocabulary 384),
+    down_scale 2.  `layers`: (speech, text encoder, decoder) depths of a cut
+    copy, LayerDrop off."""
+    import dataclasses
+    from speechmix_tpu_torch import config
+    enc = dataclasses.replace(config.SPEECH_ENCODER_PRESETS["wav2vec2-base"],
+                              extractor_impl="fused")
+    dec = config.SEQ2SEQ_PRESETS[name]
+    if layers is not None:
+        enc = dataclasses.replace(enc, num_layers=layers[0], layerdrop=0.0)
+        dec = dataclasses.replace(dec, encoder_layers=layers[1],
+                                  decoder_layers=layers[2])
+    return config.SpeechMixConfig(encoder=enc, decoder=dec, down_scale=2)
+
+
+def t5_ffn_fused(dcfg, rows):
+    """Whether the T5 stack's FFN at `rows` rows takes K9 / K13 and K8: the
+    JAX package's gate (relu, widths multiples of 128, >= 1024 rows)."""
+    return (dcfg.activation == "relu" and dcfg.hidden_size % 128 == 0
+            and dcfg.ffn_dim % 128 == 0 and rows >= 1024)
+
+
+def expected_t5_launches(mode, steps, cfg, enc_rows):
+    """Launches of every kernel in one generate() of a T5 pair: the speech
+    encoder's K1, K2, K3 and K6 as the flagship's; the T5 text encoder's
+    FFN as K9 where the gate admits it (its attention carries the position
+    bias: plain); in the decoder K4 once per layer and step for the
+    cross-attention only (the self-attention carries the position bias),
+    its int8 entry with int8 cross K/V; K5 once per step with beams."""
+    speech, dec = cfg.encoder.num_layers, cfg.decoder
+    want = expected_launches(mode, steps)
+    cross = dec.decoder_layers * steps
+    int8 = mode.endswith("int8")
+    want.update({"smx_attention_fwd": speech, "smx_dense_res_ln": speech,
+                 "smx_decode_attention": 0 if int8 else cross,
+                 "smx_decode_attention_q8": cross if int8 else 0,
+                 **ffn_forward_launches(speech, dec.encoder_layers if
+                                        t5_ffn_fused(dec, enc_rows) else 0)})
+    return want
+
+
+def expected_t5_train_launches(cfg, kept, rows, dtype="bf16",
+                               dropout=False):
+    """Launches of every kernel in one train step of a T5 pair: the speech
+    encoder's `kept` post-LN layers as the flagship's; in the T5 stacks K9
+    forward and K8 backward for each layer whose FFN the gate admits at
+    its rows (rows = (text encoder, decoder)), K13 and K8 with the mask
+    with dropout, nothing else (bias-carrying attention, plain
+    out-projections, RMS norms).  With dropout K10 draws the speech
+    encoder's two plain sites and regenerates its K11 / K12 output masks,
+    and in the T5 stacks every plain site: the embedding and the final
+    norm of each stack, per encoder layer the probabilities, the attention
+    output and the FFN output, per decoder layer those of both attentions
+    and the FFN output, and the activation where the FFN runs plain."""
+    dec = cfg.decoder
+    fused = [n * t5_ffn_fused(dec, r) for n, r in
+             zip((dec.encoder_layers, dec.decoder_layers), rows)]
+    t5 = sum(fused)
+    if not dropout:
+        want = expected_train_launches(kept, 0, 0, dtype=dtype)
+        want.update({**dict.fromkeys(K8_ENTRIES[dtype], kept + t5),
+                     **ffn_forward_launches(kept, kept + t5, dtype)})
+        return want
+    want = expected_dropout_train_launches(kept, 0, 0, dtype)
+    plain_act = [n - f_ for n, f_ in zip((dec.encoder_layers,
+                                          dec.decoder_layers), fused)]
+    want.update({
+        **ffn_forward_launches(kept, kept + t5, dtype, dropout=True),
+        **dict.fromkeys(K8_DROPOUT_ENTRIES[dtype], kept + t5),
+        "smx_dropout_mask": (2 + 2 * kept + 2 + 3 * dec.encoder_layers
+                             + 2 + 5 * dec.decoder_layers + sum(plain_act))})
+    return want
+
+
+def run_t5(seed, card):
+    """The T5 family under wav2vec2-base at full width and depth, random
+    bf16 weights from the seed, B = BATCH x SECONDS s, MAX_LEN steps: for
+    t5-small greedy, greedy-int8 and beam-4 generate() and a bf16 AdamW
+    train step without and with dropout, for byt5-small greedy, beam-4 and
+    a step without dropout.  Each: exact launches of every kernel (and K9 /
+    K13 / K8 by rows), two calls (two steps from one state) bit-identical,
+    median ms of the timed calls, audio-s/s, peak memory, the busy share of
+    a profiled call.  In f32 the greedy and beam-4 tokens through the
+    kernels must equal those through the plain versions.  Returns ({mode:
+    launches per call}, {mode: launches by (entry, rows)})."""
+    import torch
+    from speechmix_tpu_torch import generation
+    from speechmix_tpu_torch.models import speech_encoder, speechmix
+    from speechmix_tpu_torch.ops import kernels
+    from speechmix_tpu_torch.ops.kernels import decode_attention as kd
+    from speechmix_tpu_torch.ops.kernels import ffn as kf
+    from speechmix_tpu_torch.training import freezing, trainer
+
+    dev = torch.device("cuda")
+    # K9 / K13 / K8 by rows, K4 by key length (the argument after the K/V
+    # and query row counts)
+    rows = collections.Counter()
+    tallied = {kf.FFN_DOWN: 0, kf.FFN_DROPOUT_UP: 0, kf.FFN_BWD_RECOMPUTE: 0,
+               kf.FFN_DROPOUT_BWD_RECOMPUTE: 0, kd.KERNEL: 2,
+               kd.KERNEL_Q8: 2}
+    for kern, offset in tallied.items():
+        kern.launch = _tally_by_length(kern, rows, offset)
+    counts, by_rows = {}, {}
+
+    def launches():
+        return {k.symbol: k.launches for k in kernels.kernels()}
+
+    for name, (serve_modes, train_modes) in T5_MODES.items():
+        cfg = t5_config(name)
+        dec = cfg.decoder
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        params = speechmix.init_speechmix(cfg, gen, dev, torch.bfloat16)
+        n_params = sum(p.numel() for _, p in freezing.tree_paths(params))
+        t_samples = int(SECONDS * 16000)
+        wav = torch.zeros(BATCH, cfg.encoder.aligned_samples(t_samples),
+                          device=dev)
+        wav[:, :t_samples] = torch.randn(BATCH, t_samples, generator=gen,
+                                         device=dev) * 0.1
+        lengths = torch.full((BATCH,), t_samples, device=dev)
+        enc_rows = BATCH * int(cfg.encoder.feature_lengths(wav.shape[1])
+                               // 2 ** cfg.downloop)
+        log(f"{name} pair: wav2vec2-base + {name} ({dec.encoder_layers} + "
+            f"{dec.decoder_layers} layers, H={dec.hidden_size}, "
+            f"{dec.activation}, vocabulary {dec.vocab_size}, "
+            f"{'tied' if dec.tie_word_embeddings else 'untied'} head), "
+            f"{n_params / 1e6:.1f} M parameters, bf16, B={BATCH} x {SECONDS}"
+            f" s, max_length {MAX_LEN}, text-encoder rows {enc_rows}")
+        for mode in serve_modes:
+            kwargs = T5_GENERATE_KWARGS[mode]
+            want = expected_t5_launches(mode, MAX_LEN, cfg, enc_rows)
+            call = lambda: generation.generate(  # noqa: E731
+                params, cfg, wav, lengths, max_length=MAX_LEN,
+                dtype=torch.bfloat16, **kwargs)
+            outs, times = [], []
+            torch.cuda.reset_peak_memory_stats()
+            for i in range(4):            # a warm-up call, then 3 timed
+                kernels.reset_launch_counts()
+                rows.clear()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = call()
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                run_counts = launches()
+                if run_counts != want:
+                    raise AssertionError(f"{name} {mode}: launches "
+                                         f"{run_counts}, expected {want}")
+                outs.append(out)
+                if i:
+                    times.append(dt)
+            tag = f"{name.split('-')[0]}-{mode}"
+            counts[tag], by_rows[tag] = run_counts, dict(rows)
+            expect_equal(f"{name} {mode} generate", outs[1], outs[2])
+            tok = outs[-1][0]
+            n_rows = BATCH * kwargs.get("num_return_sequences", 1)
+            if (tok.shape != (n_rows, MAX_LEN) or (outs[-1][1] < 0).any()
+                    or not ((tok >= 0) & (tok < dec.vocab_size)).all()):
+                raise AssertionError(f"{name} {mode}: bad tokens "
+                                     f"{tuple(tok.shape)}")
+            med = sorted(times)[len(times) // 2]
+            wall_us, busy_us, events = profile_call(call)
+            log(f"  {name} {mode}: {med * 1e3:.1f} ms per call (median of "
+                f"{len(times)}: {', '.join(f'{t * 1e3:.1f}' for t in times)}"
+                f"), audio-seconds per second {BATCH * SECONDS / med:.2f}, "
+                f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f}"
+                f" GiB, profiled call busy {busy_us / wall_us:.3f} of "
+                f"{wall_us / 1e3:.1f} ms; launches "
+                f"{ {k: v for k, v in run_counts.items() if v} }; K9 / K13 / "
+                f"K8 by rows, K4 by key length "
+                f"{ {f'{k[0]} {k[1]}': n for k, n in sorted(by_rows[tag].items())} } on {card}")
+            log("    device ms by kernel, the profiled call: " + ", ".join(
+                f"{e.key[:48]} {e.self_device_time_total / 1e3:.2f} "
+                f"({e.count}x)" for e in sorted(
+                    events, key=lambda e: -e.self_device_time_total)[:8]))
+        # f32: the kernel path decodes what the plain path decodes
+        p32 = _cast_tree(params, torch.float32)
+        f32_run = lambda **kw: generation.generate(  # noqa: E731
+            p32, cfg, wav, lengths, max_length=MAX_LEN, dtype=torch.float32,
+            **kw)
+        with torch.no_grad():
+            got = [f32_run(), f32_run(**T5_GENERATE_KWARGS["beam-4"])]
+            with plain_kernels():
+                kernels.reset_launch_counts()
+                ref = [f32_run(), f32_run(**T5_GENERATE_KWARGS["beam-4"])]
+                if any(k.launches for k in kernels.kernels()):
+                    raise AssertionError("the plain reference launched a "
+                                         "kernel")
+        for what, a, b in (("greedy", got[0][0], ref[0][0]),
+                           ("beam-4", got[1][0], ref[1][0])):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{name} {what}: f32 kernel tokens "
+                                     f"differ from the plain path's on "
+                                     f"{(a != b).float().mean().item():.4f}")
+        score_diff = (got[1][2] - ref[1][2]).abs().max().item()
+        log(f"  {name}: f32 kernels vs f32 plain path: greedy and beam-4 "
+            f"tokens equal; beam scores max abs difference "
+            f"{score_diff:.3e} (at most {BEAM_SCORE_TOL_F32})")
+        if not score_diff <= BEAM_SCORE_TOL_F32:
+            raise AssertionError(f"{name} beam-4: f32 scores differ by "
+                                 f"{score_diff}")
+        del params, p32, got, ref
+
+        batch = _train_batch(cfg, gen, dev, BATCH, SECONDS, TRAIN_LABELS)
+        step_rows = (enc_rows, BATCH * TRAIN_LABELS)
+        for mode in train_modes:
+            dropout = mode == "train-dropout"
+            tc = trainer.TrainConfig(learning_rate=TRAIN_LR, warmup_steps=1,
+                                     bf16=True, dropout=dropout,
+                                     optimizer="adamw", seed=seed)
+            state = trainer.create_train_state(
+                torch.Generator(device=dev).manual_seed(seed + 1), cfg, tc)
+            twin = trainer.create_train_state(
+                torch.Generator(device=dev).manual_seed(seed + 1), cfg, tc)
+            step_fn = trainer.make_train_step(cfg, tc, state.params)
+            twin_fn = trainer.make_train_step(cfg, tc, twin.params)
+            losses, times = [], []
+            for i in range(T5_TRAIN_STEPS):
+                skipped = (layerdrop_replay(trainer, speech_encoder, tc, cfg,
+                                            state.step) if dropout else [])
+                want = expected_t5_train_launches(
+                    cfg, cfg.encoder.num_layers - len(skipped), step_rows,
+                    dropout=dropout)
+                kernels.reset_launch_counts()
+                rows.clear()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, metrics = step_fn(state, batch)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                run_counts = launches()
+                loss = metrics["loss"].item()
+                norm = metrics["grad_norm"].item()
+                log(f"  {name} {mode} step {i + 1}: loss {loss:.4f}, "
+                    f"grad_norm {norm:.4f}, {dt * 1e3:.1f} ms" +
+                    (f", LayerDrop skipped {skipped}" if dropout else ""))
+                if run_counts != want:
+                    raise AssertionError(f"{name} {mode} {i + 1}: launches "
+                                         f"{run_counts}, expected {want}")
+                if not (math.isfinite(loss) and math.isfinite(norm)):
+                    raise AssertionError(f"{name} {mode}: loss {loss}, "
+                                         f"grad_norm {norm}")
+                if i == 0:
+                    tag = f"{name.split('-')[0]}-{mode}"
+                    counts[tag], by_rows[tag] = run_counts, dict(rows)
+                    twin, twin_metrics = twin_fn(twin, batch)
+                    if (twin_metrics["loss"].item() != loss
+                            or _fingerprints(twin.params)
+                            != _fingerprints(state.params)):
+                        raise AssertionError(f"{name} {mode}: two steps "
+                                             "from one state differ")
+                    log(f"  {name} {mode}: two steps from one state "
+                        "bit-identical")
+                    del twin, twin_fn
+                    torch.cuda.empty_cache()
+                    torch.cuda.reset_peak_memory_stats()
+                else:
+                    times.append(dt)
+                losses.append(loss)
+            if not losses[-1] < losses[1]:
+                raise AssertionError(f"{name} {mode}: the loss did not "
+                                     f"fall: {losses}")
+            med = sorted(times)[len(times) // 2]
+            _, busy, _ = _profile_step(lambda: step_fn(state, batch),
+                                       f"{name} {mode} step")
+            log(f"  {name} {mode}: {med * 1e3:.1f} ms per step (median of "
+                f"{len(times)}: {', '.join(f'{t * 1e3:.1f}' for t in times)}"
+                f"), audio-seconds per second trained "
+                f"{BATCH * SECONDS / med:.2f}, peak memory (steps 2-"
+                f"{T5_TRAIN_STEPS}) "
+                f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, loss "
+                f"{losses[0]:.4f} -> {losses[-1]:.4f}; launches "
+                f"{ {k: v for k, v in counts[tag].items() if v} }"
+                f"; K9 / K13 / K8 by rows (step 1) "
+                f"{ {f'{k[0]} {k[1]}': n for k, n in sorted(by_rows[tag].items())} }"
+                f" on {card}")
+            del state, step_fn
+            torch.cuda.empty_cache()
+    for kern in tallied:
+        del kern.launch   # the class's own again
+    return counts, by_rows
+
+
 def _cast_tree(tree, dtype):
     if isinstance(tree, dict):
         return {k: _cast_tree(v, dtype) for k, v in tree.items()}
@@ -4128,6 +4710,10 @@ def main():
     check_gradient_tree(args.seed, large=True)
     counts.update(run_variants(args.seed, card))
     run_trainer(args.seed, card)
+    t5_counts, t5_rows = run_t5(args.seed, card)
+    counts.update(t5_counts)
+    by_length.update(t5_rows)
+    check_gradient_tree(args.seed, t5=True)
 
     pallas = "speechmix_tpu/ops/pallas/"
     # name: (source, TPU kernel file:line, mode whose run gives `launches`)
@@ -4269,6 +4855,32 @@ def main():
                                          "smx_dense_res_ln"),
         "ffn_res_ln (large, N=6400)": ("ffn_fwd.cu", "ffn_kernel.py:203",
                                        "large-greedy", "smx_ffn_down_res"),
+        # t5-small's FFN (relu, H = 512, no biases) at its text encoder's
+        # and its decoder's rows, the launches at that row count under
+        # launches_at_rows
+        **{f"ffn_fused (t5-small, N={n})": (
+            "ffn_fwd.cu", "ffn_kernel.py:128", mode, "smx_ffn_down")
+           for n, mode in ((6400, "t5-greedy"), (1024, "t5-train"))},
+        **{f"ffn_bwd (t5-small, N={n})": (
+            "ffn_bwd.cu", "ffn_kernel.py:631", "t5-train",
+            "smx_ffn_bwd_recompute") for n in (6400, 1024)},
+        **{f"ffn_dropout (t5-small, N={n})": (
+            "ffn_fwd.cu", "ffn_kernel.py:945", "t5-train-dropout",
+            "smx_ffn_dropout_up") for n in (6400, 1024)},
+        # K4 at the T5 pairs' cross-attention steps (8 and 6 heads, scale
+        # 1.0; their launches at T = 400 under launches_at_length) and K5
+        # on their beam caches
+        **{f"decode_attention ({model}, cross {mode})": (
+            "decode_attention.cu", "decode_attention.py:31",
+            f"{model.split('-')[0]}-{mode}", "smx_decode_attention")
+           for model in T5_MODES for mode in ("greedy", "beam-4")},
+        "decode_attention_q8 (t5-small, cross greedy)": (
+            "decode_attention.cu", "decode_attention.py:67",
+            "t5-greedy-int8", "smx_decode_attention_q8"),
+        **{f"beam_gather ({model})": (
+            "beam_gather.cu", "beam_gather.py:39",
+            f"{model.split('-')[0]}-beam-4", "smx_beam_gather")
+           for model in T5_MODES},
     }
     line = {"kernels": []}
     for name, (source, tpu, mode, *symbol) in replaces.items():

@@ -14,6 +14,13 @@ and returns the port's parameters:
 * floating tensors of two or more dimensions are cast to `dtype` (bf16 for
   serving, as the JAX benchmark casts its matrices); biases and LayerNorm
   parameters stay float32;
+* a T5 model's leaves are carried under the JAX package's names: each
+  stack's ``rel_bias`` table (num_buckets, H) and ``final_layer_norm``
+  scale, ``fc_gate`` of a gated FFN, an untied ``lm_head``; the absent
+  biases, positions and ``final_logits_bias`` stay absent.  The table is a
+  matrix, so it takes `dtype` (bf16 in a bf16 tree, as a bf16 JAX tree
+  holds it); ``models.seq2seq.t5_position_bias`` reads it in float32 and
+  the bias is added to the attention logits in float32;
 * the speech encoder's ``masked_spec_embed`` (SpecAugment's replacement
   vector, float32) is carried when the tree has it, first in the speech
   encoder's entries (HF's registration order);

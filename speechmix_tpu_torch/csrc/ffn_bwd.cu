@@ -16,7 +16,9 @@
 // h = round(act(a) * m), da = round(dh * act'(a) * m), as the TPU package's
 // _ffn_bwd_hand(amask=) does (ffn_kernel.py:700, run in XLA there).
 //
-// bfloat16, the train step's path (H = 768 or 1024, any n, f % 64 == 0):
+// bfloat16, the train step's path (any n; h % 64 == 0 here, the wrapper
+// admits h % 128 == 0 as the TPU package's gate does, checked on the card at
+// h = 256, 512, 768, 1024 and 1536; f % 64 == 0):
 //   smx_ffn_bwd_recompute (smx_ffn_dropout_bwd_recompute with the mask)
 //     forms h and da once, as two (n, f) bf16 buffers, and the column sums
 //     of da per 128-row tile, an f32 (row tiles, f) workspace.  A block owns

@@ -1220,7 +1220,6 @@ def generate(params, cfg: SpeechMixConfig, input_values, lengths=None,
         raise ValueError(
             f"num_beam_groups ({num_beam_groups}) has to be smaller or "
             f"equal to num_beams ({num_beams}) (HF generate contract)")
-    smx._check_supported(cfg)
     device = resolve_device(device)
     params = _to_device(params, device)
     input_values = torch.as_tensor(input_values).to(device)

@@ -42,5 +42,9 @@ def layer_norm_params(dim, device):
             "bias": torch.zeros(dim, dtype=torch.float32, device=device)}
 
 
+def rms_norm_params(dim, device):
+    return {"scale": torch.ones(dim, dtype=torch.float32, device=device)}
+
+
 def embedding_params(generator, device, dtype, vocab, dim, std=0.02):
     return {"embedding": normal(generator, device, (vocab, dim), std, dtype)}

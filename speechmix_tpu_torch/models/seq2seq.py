@@ -1,15 +1,25 @@
-"""BART-family seq2seq LM (port of ``speechmix_tpu.models.seq2seq``).
+"""BART / T5-family seq2seq LM (port of ``speechmix_tpu.models.seq2seq``).
 
 The text encoder (``encode``), the decoder (``decode``: cached single steps
 over ``precompute_cross_kv`` / ``init_decoder_cache`` for generation, or the
 uncached teacher-forcing pass for training) and the training forward
-``seq2seq_apply``.  With a ``dropout_rng`` (a DropoutKey; uncached passes
-only) they train with dropout at HF BART's placements: the embeddings, the
-attention probabilities, each attention output and the FFN's activation and
-output.  Layers are lists of parameter dicts.  With ``adapters`` (the
-``adapter`` variant's bottleneck adapters, lists per side) the encoder and
-the decoder replace each block's output by its adapter's.  T5 is not ported
-yet.
+``seq2seq_apply``.  ``cfg.arch`` picks the graph, as in the JAX package:
+
+  bart: learned positions (offset +2), layernorm_embedding, post-LN blocks,
+        attention scaled by 1/sqrt(d), tied head + final_logits_bias;
+  t5:   relative position buckets (each stack's layer-0 ``rel_bias`` table
+        shared by its layers), RMS-norm pre-LN blocks, unscaled attention,
+        no biases, a final RMS norm per stack, the tied head on x scaled by
+        hidden_size ** -0.5 (or an untied ``lm_head``), and a relu or gated
+        GELU FFN.
+
+With a ``dropout_rng`` (a DropoutKey; uncached passes only) they train with
+dropout at HF's placements: the embeddings, the attention probabilities,
+each attention output and the FFN's activation and output, and for T5 the
+output of each stack's final norm.  Layers are lists of parameter dicts.
+With ``adapters`` (the ``adapter`` variant's bottleneck adapters, lists per
+side) the encoder and the decoder replace each block's output by its
+adapter's.
 
 Cache layout: self K/V (L, B, capacity, H, D), written in place by each
 step; cross K/V (L, B_enc, T_enc, H, D), in the compute dtype or, with
@@ -17,11 +27,19 @@ step; cross K/V (L, B_enc, T_enc, H, D), in the compute dtype or, with
 JAX package stores cross K/V batch-minor, (L, T_enc, H, D, B), for the
 TPU's sake.)  B may be a multiple of B_enc: beam search keeps one cross K/V
 per input and the beams of an input, contiguous in the batch, share it.
+A T5 cache also holds its self-attention bias over the whole capacity, the
+causal cache mask plus the decoder's position bias, (1, H, capacity,
+capacity) float32, made once; step ``offset`` reads row ``offset``.
 
 Single-token cached steps run kernel K4 (``ops.kernels.decode_attention``)
-for self- and cross-attention.  The uncached decoder's causal self-attention
-runs K1 / K7; its cross-attention carries the encoder's padding mask as a bias
-and takes the plain path.
+for the cross-attention, and for BART's self-attention; T5's self-attention
+carries the position bias and takes the plain path, as in the JAX package.
+BART's uncached causal self-attention and every BART encoder layer run K1 /
+K7, and their post-LN epilogues K2 / K3; T5's text stacks carry the position
+bias and attend on the plain path, and their relu FFN is the fused K9 / K8
+(``layers.ffn_apply``) where the JAX package's gate admits it.  The uncached
+cross-attention carries the encoder's padding mask as a bias and takes the
+plain path.
 """
 
 from __future__ import annotations
@@ -35,19 +53,12 @@ import torch.nn.functional as F
 from ..config import Seq2SeqConfig
 from ..ops import layers
 from ..ops.attention import KVCache, attention, cache_position_bias
-from ..ops.kernels.dropout import check_key, split_or_none
+from ..ops.kernels.dropout import STREAM_OUT, check_key, split_or_none
 from ..ops.masking import combine_masks_to_bias
 from ..ops.kernels.decode_attention import (decode_attention,
                                             decode_attention_plain)
-from .init import dense_params, embedding_params, layer_norm_params
-
-
-def _check_supported(cfg: Seq2SeqConfig):
-    if cfg.arch != "bart":
-        raise NotImplementedError(f"{cfg.arch!r} seq2seq models are not "
-                                  "ported yet; only BART is")
-    if cfg.activation == "gelu_gated":
-        raise NotImplementedError("gated-GELU FFNs are not ported yet")
+from .init import (dense_params, embedding_params, layer_norm_params,
+                   rms_norm_params)
 
 
 def shift_tokens_right(input_ids, pad_token_id, decoder_start_token_id):
@@ -65,6 +76,50 @@ class DecoderCache(NamedTuple):
     cross_v: torch.Tensor
     cross_k_scale: Optional[torch.Tensor] = None   # (L, B_enc, T_enc, H) f32
     cross_v_scale: Optional[torch.Tensor] = None
+    # T5: the self-attention bias of every step, (1, H, capacity, capacity)
+    # float32, row q that of the query at position q
+    self_bias: Optional[torch.Tensor] = None
+
+
+# ----------------------------------------------------------------------------
+# T5 relative position bias
+# ----------------------------------------------------------------------------
+
+def _t5_relative_bucket(rel_pos, bidirectional, num_buckets, max_distance):
+    """T5's bucket of each relative position (key - query), integer tensor
+    in, the same shape out: the JAX package's arithmetic, the log term in
+    float32 and truncated toward 0."""
+    ret = torch.zeros_like(rel_pos)
+    n = -rel_pos
+    if bidirectional:
+        num_buckets //= 2
+        ret = ret + (n < 0).to(rel_pos.dtype) * num_buckets
+        n = n.abs()
+    else:
+        n = n.clamp_min(0)
+    max_exact = num_buckets // 2
+    log_range = torch.log(torch.tensor(max_distance / max_exact,
+                                       dtype=torch.float32))
+    val_large = max_exact + (
+        torch.log(n.float() / max_exact + 1e-6) / log_range.to(n.device)
+        * (num_buckets - max_exact)).to(torch.int32).to(rel_pos.dtype)
+    val_large = val_large.clamp_max(num_buckets - 1)
+    return ret + torch.where(n < max_exact, n, val_large)
+
+
+def t5_position_bias(rel_bias_params, q_len, kv_len, bidirectional, cfg,
+                     q_offset=0, device=None):
+    """(1, H, q_len, kv_len) float32 additive bias from a stack's layer-0
+    relative-attention table (num_buckets, H); query i sits at position
+    q_offset + i."""
+    table = rel_bias_params["embedding"]
+    device = device or table.device
+    ctx = torch.arange(q_len, device=device)[:, None] + q_offset
+    mem = torch.arange(kv_len, device=device)[None, :]
+    buckets = _t5_relative_bucket(mem - ctx, bidirectional,
+                                  cfg.relative_attention_num_buckets,
+                                  cfg.relative_attention_max_distance)
+    return table.float().to(device)[buckets].permute(2, 0, 1)[None]
 
 
 def embed_tokens(params, cfg: Seq2SeqConfig, input_ids, dtype=torch.float32):
@@ -74,20 +129,73 @@ def embed_tokens(params, cfg: Seq2SeqConfig, input_ids, dtype=torch.float32):
     return x
 
 
+def _attn_scale(cfg):
+    """The attention scale: 1 for T5 (the 1/sqrt(d) is folded into its
+    initialisation), 1/sqrt(d) for BART."""
+    return 1.0 if cfg.arch == "t5" else 1.0 / math.sqrt(cfg.per_head_dim)
+
+
+def _ffn(block, cfg, x, dtype, key):
+    """The FFN without its residual: the gated GELU gelu_tanh(x w_gate) *
+    (x w1) in plain PyTorch, as the JAX package computes it outside any
+    kernel, or the ungated FFN through layers.ffn_apply (K9 / K13 forward,
+    K8 backward, where the gate admits it); the activation mask of (key,
+    STREAM_ACT)."""
+    rate = cfg.activation_dropout
+    if cfg.activation == "gelu_gated":
+        g = F.gelu(layers.dense(block["fc_gate"], x, dtype),
+                   approximate="tanh")
+        h = layers.dropout(g * layers.dense(block["fc1"], x, dtype), rate,
+                           key)
+        return layers.dense(block["fc2"], h, dtype)
+    return layers.ffn_apply(block["fc1"], block["fc2"], x, cfg.activation,
+                            dtype, key, rate)
+
+
 def _ffn_block(block, cfg, x, dtype, key):
-    """The post-LN FFN block with its two dropout sites."""
+    """The post-LN FFN block with its two dropout sites: K3 / K12, or for a
+    gated FFN LN(x + drop(FFN(x))) in plain PyTorch, as JAX computes it."""
+    if cfg.activation == "gelu_gated":
+        f = layers.dropout(_ffn(block, cfg, x, dtype, key), cfg.dropout, key,
+                           STREAM_OUT)
+        return layers.layer_norm(block["final_layer_norm"], x + f,
+                                 cfg.layer_norm_eps)
     return layers.ffn_residual_ln_apply(
         block["fc1"], block["fc2"], block["final_layer_norm"], x,
         cfg.activation, dtype, cfg.layer_norm_eps, key=key,
         act_dropout=cfg.activation_dropout, out_dropout=cfg.dropout)
 
 
-def _encoder_block(block, cfg, x, kv_mask, dtype, dropout_rng=None):
+def _t5_residual(x, y, cfg, key):
+    """x + dropout(y), the mask of (key, STREAM_OUT)."""
+    return x + layers.dropout(y, cfg.dropout, key, STREAM_OUT)
+
+
+def _t5_ffn_residual(block, cfg, x, dtype, key):
+    """The pre-LN FFN sub-block: x + drop(FFN(rms_norm(x))), both masks of
+    `key` (STREAM_ACT inside, STREAM_OUT on the output), as the post-LN
+    block keys its two sites."""
+    h = layers.rms_norm(block["final_layer_norm"], x, cfg.layer_norm_eps)
+    return _t5_residual(x, _ffn(block, cfg, h, dtype, key), cfg, key)
+
+
+def _encoder_block(block, cfg, x, kv_mask, dtype, dropout_rng=None,
+                   bias=None):
+    """One encoder block: BART's post-LN block (K1, K2, K3), or T5's pre-LN
+    block, whose self-attention carries the position bias `bias` and so
+    takes the plain path."""
     k_attn, k_h1, k_ffn = split_or_none(dropout_rng, 3)
-    a, _ = attention(block["self_attn"], x, kv_mask=kv_mask,
-                     num_heads=cfg.num_heads, head_dim=cfg.per_head_dim,
-                     dtype=dtype, out_proj=False,
-                     dropout_rate=cfg.attention_dropout, dropout_rng=k_attn)
+    attn = dict(kv_mask=kv_mask, num_heads=cfg.num_heads,
+                head_dim=cfg.per_head_dim, scale=_attn_scale(cfg),
+                dtype=dtype, dropout_rate=cfg.attention_dropout,
+                dropout_rng=k_attn)
+    if cfg.arch == "t5":
+        h = layers.rms_norm(block["self_attn_layer_norm"], x,
+                            cfg.layer_norm_eps)
+        a, _ = attention(block["self_attn"], h, bias=bias, **attn)
+        x = _t5_residual(x, a, cfg, k_h1)
+        return _t5_ffn_residual(block, cfg, x, dtype, k_ffn)
+    a, _ = attention(block["self_attn"], x, out_proj=False, **attn)
     x = layers.dense_residual_ln_apply(
         block["self_attn"]["out_proj"], block["self_attn_layer_norm"], a, x,
         dtype, cfg.layer_norm_eps, key=k_h1, dropout_rate=cfg.dropout)
@@ -130,16 +238,26 @@ def _side_adapters(adapters, side, n_layers):
     return [None] * n_layers if adapters is None else adapters[side]
 
 
+def _final_norm(stack, cfg, x, key, hidden):
+    """T5's end of a stack: the final RMS norm and dropout; the last entry
+    of `hidden` (if kept) becomes that state, HF T5Stack's convention."""
+    x = layers.dropout(layers.rms_norm(stack["final_layer_norm"], x,
+                                       cfg.layer_norm_eps), cfg.dropout, key)
+    if hidden is not None:
+        hidden[-1] = x
+    return x
+
+
 def encode(params, cfg: Seq2SeqConfig, input_ids=None, inputs_embeds=None,
            attention_mask=None, output_hidden_states=False,
            dtype=torch.float32, dropout_rng=None, adapters=None):
     """Text encoder over token ids or precomputed embeddings (the SpeechMix
     fusion feeds speech-derived `inputs_embeds`); `adapters` replace each
     block's output by its adapter's.  Returns dict(last_hidden_state,
-    mask[, hidden_states (L+1, B, T, H)])."""
-    _check_supported(cfg)
+    mask[, hidden_states (L+1, B, T, H)]): the embedding output, then each
+    block's, for T5 the last one after the final norm and dropout."""
     check_key(dropout_rng)
-    k_emb, k_layers = split_or_none(dropout_rng, 2)
+    k_emb, k_layers, k_final = split_or_none(dropout_rng, 3)
     enc = params["encoder"]
     if inputs_embeds is None:
         inputs_embeds = embed_tokens(params, cfg, input_ids, dtype)
@@ -147,21 +265,29 @@ def encode(params, cfg: Seq2SeqConfig, input_ids=None, inputs_embeds=None,
     device = inputs_embeds.device
     if attention_mask is None:
         attention_mask = torch.ones((b, t), dtype=torch.bool, device=device)
-    pos = layers.embed(enc["embed_positions"],
-                       torch.arange(t, device=device) + 2, dtype)
-    x = layers.layer_norm(enc["layernorm_embedding"], inputs_embeds + pos,
-                          cfg.layer_norm_eps)
+    x, bias = inputs_embeds, None
+    if cfg.arch == "t5":
+        # the position bias of every layer, computed once
+        bias = t5_position_bias(enc["rel_bias"], t, t, True, cfg,
+                                device=device)
+    else:
+        pos = layers.embed(enc["embed_positions"],
+                           torch.arange(t, device=device) + 2, dtype)
+        x = layers.layer_norm(enc["layernorm_embedding"], x + pos,
+                              cfg.layer_norm_eps)
     x = layers.dropout(x, cfg.dropout, k_emb)
     hidden = [x] if output_hidden_states else None
     n_layers = len(enc["layers"])
     for block, key, adapter in zip(
             enc["layers"], _layer_keys(k_layers, n_layers),
             _side_adapters(adapters, "encoder", n_layers)):
-        x = _encoder_block(block, cfg, x, attention_mask, dtype, key)
+        x = _encoder_block(block, cfg, x, attention_mask, dtype, key, bias)
         if adapter is not None:
             x = apply_adapter(adapter, x, dtype)
         if hidden is not None:
             hidden.append(x)
+    if cfg.arch == "t5":
+        x = _final_norm(enc, cfg, x, k_final, hidden)
     out = {"last_hidden_state": x, "mask": attention_mask}
     if hidden is not None:
         out["hidden_states"] = torch.stack(hidden)
@@ -203,15 +329,22 @@ def init_decoder_cache(params, cfg: Seq2SeqConfig, enc_hidden, batch,
                        capacity, dtype=torch.float32,
                        kv_int8=False) -> DecoderCache:
     """Cross K/V of `enc_hidden` and an empty self-attention cache of `batch`
-    rows (a multiple of enc_hidden's rows: see the module docstring)."""
-    _check_supported(cfg)
+    rows (a multiple of enc_hidden's rows: see the module docstring); for T5
+    also the self-attention bias of every step (the causal cache mask plus
+    the decoder's position bias, as the JAX package adds them per step)."""
     cross = precompute_cross_kv(params, cfg, enc_hidden, dtype, kv_int8)
     shape = (cfg.decoder_layers, batch, capacity, cfg.num_heads,
              cfg.per_head_dim)
     device = enc_hidden.device
     self_kv = KVCache(torch.zeros(shape, dtype=dtype, device=device),
                       torch.zeros(shape, dtype=dtype, device=device), 0)
-    return DecoderCache(self_kv, *cross)
+    self_bias = None
+    if cfg.arch == "t5":
+        self_bias = (cache_position_bias(capacity, 0, capacity, device=device)
+                     + t5_position_bias(params["decoder"]["rel_bias"],
+                                        capacity, capacity, False, cfg,
+                                        device=device))
+    return DecoderCache(self_kv, *cross, self_bias=self_bias)
 
 
 def _cross_attention(attn_params, cfg, x_q, k, v, kv_mask, dtype,
@@ -223,7 +356,6 @@ def _cross_attention(attn_params, cfg, x_q, k, v, kv_mask, dtype,
     search); kv_mask is then the untiled (B_enc, T_enc) encoder mask.  A
     single-token step runs K4; a longer chunk takes the plain version."""
     d = cfg.per_head_dim
-    scale = 1.0 / math.sqrt(d)
     q = layers.dense(attn_params["q_proj"], x_q, dtype)
     bq, q_len = q.shape[:2]
     q = q.reshape(bq, q_len, cfg.num_heads, d)
@@ -239,8 +371,8 @@ def _cross_attention(attn_params, cfg, x_q, k, v, kv_mask, dtype,
     if kv_mask is None:
         kv_mask = torch.ones((bkv, t_enc), dtype=torch.bool, device=q.device)
     kv_mask = kv_mask.expand(bkv, t_enc).contiguous()
-    kwargs = dict(scale=scale, num_heads=cfg.num_heads, k_scale=k_scale,
-                  v_scale=v_scale)
+    kwargs = dict(scale=_attn_scale(cfg), num_heads=cfg.num_heads,
+                  k_scale=k_scale, v_scale=v_scale)
     # K4 is the single-token step; a longer chunk is q_len such queries on
     # the same K/V, which the plain formula takes in one pass
     attend = decode_attention if q_len == 1 else decode_attention_plain
@@ -252,34 +384,48 @@ def _decoder_block(block, cfg, x, self_bias, self_kv_mask, layer_cache,
                    cross_k, cross_v, cross_kv_mask, dtype, cross_k_scale=None,
                    cross_v_scale=None, self_causal=False, enc_hidden=None,
                    cross_bias=None, dropout_rng=None):
-    """One post-LN decoder block.  Cached: cross-attention over the
-    precomputed cross_k / cross_v.  Uncached (layer_cache None): causal
-    self-attention and cross-attention over enc_hidden under cross_bias,
-    with dropout at HF's placements when dropout_rng is given."""
+    """One decoder block, BART's post-LN or T5's pre-LN.  Cached:
+    cross-attention over the precomputed cross_k / cross_v.  Uncached
+    (layer_cache None): causal self-attention and cross-attention over
+    enc_hidden under cross_bias, with dropout at HF's placements when
+    dropout_rng is given."""
     k_sattn, k_h1, k_cattn, k_h2, k_ffn = split_or_none(dropout_rng, 5)
-    a, new_cache = attention(block["self_attn"], x, bias=self_bias,
-                             kv_mask=self_kv_mask, causal=self_causal,
-                             num_heads=cfg.num_heads,
-                             head_dim=cfg.per_head_dim, cache=layer_cache,
-                             dtype=dtype, out_proj=False,
-                             dropout_rate=cfg.attention_dropout,
-                             dropout_rng=k_sattn)
+    attn = dict(num_heads=cfg.num_heads, head_dim=cfg.per_head_dim,
+                scale=_attn_scale(cfg), dtype=dtype,
+                dropout_rate=cfg.attention_dropout)
+    self_attn = dict(bias=self_bias, kv_mask=self_kv_mask,
+                     causal=self_causal, cache=layer_cache,
+                     dropout_rng=k_sattn, **attn)
+
+    def cross(y):
+        """The cross-attention's concatenated heads, before out_proj."""
+        if enc_hidden is not None:
+            return attention(block["encoder_attn"], y, x_kv=enc_hidden,
+                             bias=cross_bias, out_proj=False,
+                             dropout_rng=k_cattn, **attn)[0]
+        return _cross_attention(block["encoder_attn"], cfg, y, cross_k,
+                                cross_v, cross_kv_mask, dtype, cross_k_scale,
+                                cross_v_scale)
+
+    if cfg.arch == "t5":  # pre-LN, RMS norms, plain out-projections
+        h = layers.rms_norm(block["self_attn_layer_norm"], x,
+                            cfg.layer_norm_eps)
+        a, new_cache = attention(block["self_attn"], h, **self_attn)
+        x = _t5_residual(x, a, cfg, k_h1)
+        h = layers.rms_norm(block["encoder_attn_layer_norm"], x,
+                            cfg.layer_norm_eps)
+        a = layers.dense(block["encoder_attn"]["out_proj"], cross(h), dtype)
+        x = _t5_residual(x, a, cfg, k_h2)
+        return _t5_ffn_residual(block, cfg, x, dtype, k_ffn), new_cache
+    a, new_cache = attention(block["self_attn"], x, out_proj=False,
+                             **self_attn)
     x = layers.dense_residual_ln_apply(
         block["self_attn"]["out_proj"], block["self_attn_layer_norm"], a, x,
         dtype, cfg.layer_norm_eps, key=k_h1, dropout_rate=cfg.dropout)
-    if enc_hidden is not None:
-        a, _ = attention(block["encoder_attn"], x, x_kv=enc_hidden,
-                         bias=cross_bias, num_heads=cfg.num_heads,
-                         head_dim=cfg.per_head_dim, dtype=dtype,
-                         out_proj=False, dropout_rate=cfg.attention_dropout,
-                         dropout_rng=k_cattn)
-    else:
-        a = _cross_attention(block["encoder_attn"], cfg, x, cross_k, cross_v,
-                             cross_kv_mask, dtype, cross_k_scale,
-                             cross_v_scale)
     x = layers.dense_residual_ln_apply(
         block["encoder_attn"]["out_proj"], block["encoder_attn_layer_norm"],
-        a, x, dtype, cfg.layer_norm_eps, key=k_h2, dropout_rate=cfg.dropout)
+        cross(x), x, dtype, cfg.layer_norm_eps, key=k_h2,
+        dropout_rate=cfg.dropout)
     return _ffn_block(block, cfg, x, dtype, k_ffn), new_cache
 
 
@@ -312,6 +458,26 @@ def _tied_logits(x, w):
     return F.linear(x.float(), w.float())
 
 
+def _lm_logits(params, cfg: Seq2SeqConfig, x, dtype, lm_head=None):
+    """The LM head on the decoder's last states x: (..., V) float32.  Tied:
+    x (for T5 first multiplied by hidden_size ** -0.5 in x's dtype, the
+    factor rounded to it, as the JAX package's weakly typed product) against
+    the embedding, lm_head its operand from tied_head_operand (None: made
+    here); untied: the `lm_head` dense in `dtype`.  BART adds its
+    final_logits_bias."""
+    if cfg.tie_word_embeddings:
+        if lm_head is None:
+            lm_head = params["shared"]["embedding"].to(dtype)
+        if cfg.arch == "t5":
+            x = x * torch.tensor(cfg.hidden_size ** -0.5, dtype=x.dtype)
+        logits = _tied_logits(x, lm_head)
+    else:
+        logits = layers.dense(params["lm_head"], x, dtype).float()
+    if cfg.arch == "bart":
+        logits = logits + params["final_logits_bias"].float()
+    return logits
+
+
 def decode(params, cfg: Seq2SeqConfig, decoder_input_ids, encoder_mask=None,
            cache: Optional[DecoderCache] = None, dtype=torch.float32,
            enc_hidden=None, decoder_mask=None, dropout_rng=None,
@@ -328,41 +494,47 @@ def decode(params, cfg: Seq2SeqConfig, decoder_input_ids, encoder_mask=None,
     (None: made here).  adapters: each block's output is replaced by its
     adapter's, in both passes.  Returns dict(logits (B, q_len, V) float32,
     cache (None when uncached)[, hidden_states (L+1, B, q_len, H): the
-    embedding output, then each block's])."""
-    _check_supported(cfg)
+    embedding output, then each block's, for T5 the last one after the
+    final norm and dropout])."""
     check_key(dropout_rng)
     if cache is None and enc_hidden is None:
         raise ValueError("decode() needs a cache or enc_hidden")
-    k_emb, k_layers = split_or_none(
-        None if cache is not None else dropout_rng, 2)
+    k_emb, k_layers, k_final = split_or_none(
+        None if cache is not None else dropout_rng, 3)
     dec = params["decoder"]
+    t5 = cfg.arch == "t5"
     b, q_len = decoder_input_ids.shape
     device = decoder_input_ids.device
     offset = cache.self_kv.index if cache is not None else 0
     x = embed_tokens(params, cfg, decoder_input_ids, dtype)
-    pos = layers.embed(dec["embed_positions"],
-                       offset + torch.arange(q_len, device=device) + 2, dtype)
-    x = layers.layer_norm(dec["layernorm_embedding"], x + pos,
-                          cfg.layer_norm_eps)
+    if not t5:
+        pos = layers.embed(dec["embed_positions"],
+                           offset + torch.arange(q_len, device=device) + 2,
+                           dtype)
+        x = layers.layer_norm(dec["layernorm_embedding"], x + pos,
+                              cfg.layer_norm_eps)
     x = layers.dropout(x, cfg.dropout, k_emb)
     hidden = [x] if output_hidden_states else None
     n_layers = len(dec["layers"])
     dec_adapters = _side_adapters(adapters, "decoder", n_layers)
 
     if cache is None:
-        # a structured key mask with causal=True keeps K1 / K7 reachable; the
-        # encoder's padding mask reaches the cross-attention as a bias
+        # a structured key mask with causal=True keeps K1 / K7 reachable for
+        # BART (T5 adds its position bias and attends on the plain path);
+        # the encoder's padding mask reaches the cross-attention as a bias
         self_kv_mask = (decoder_mask if decoder_mask is not None else
                         torch.ones((b, q_len), dtype=torch.bool,
                                    device=device))
+        self_bias = (t5_position_bias(dec["rel_bias"], q_len, q_len, False,
+                                      cfg, device=device) if t5 else None)
         cross_bias = (None if encoder_mask is None
                       else combine_masks_to_bias(kv_mask=encoder_mask))
         for block, key, adapter in zip(dec["layers"],
                                        _layer_keys(k_layers, n_layers),
                                        dec_adapters):
-            x, _ = _decoder_block(block, cfg, x, None, self_kv_mask, None,
-                                  None, None, None, dtype, self_causal=True,
-                                  enc_hidden=enc_hidden,
+            x, _ = _decoder_block(block, cfg, x, self_bias, self_kv_mask,
+                                  None, None, None, None, dtype,
+                                  self_causal=True, enc_hidden=enc_hidden,
                                   cross_bias=cross_bias, dropout_rng=key)
             if adapter is not None:
                 x = apply_adapter(adapter, x, dtype)
@@ -372,7 +544,11 @@ def decode(params, cfg: Seq2SeqConfig, decoder_input_ids, encoder_mask=None,
     else:
         capacity = cache.self_kv.key.shape[2]
         self_bias, self_kv_mask = None, None
-        if q_len == 1:
+        if t5:
+            # the causal cache mask plus the position bias, rows of the
+            # table init_decoder_cache made: no per-step bias arithmetic
+            self_bias = cache.self_bias[:, :, offset:offset + q_len]
+        elif q_len == 1:
             # a single-token step only has to exclude the unfilled slots
             self_kv_mask = (torch.arange(capacity, device=device)[None, :]
                             <= offset).expand(b, capacity).contiguous()
@@ -396,14 +572,10 @@ def decode(params, cfg: Seq2SeqConfig, decoder_input_ids, encoder_mask=None,
         new_cache = cache._replace(self_kv=cache.self_kv._replace(
             index=offset + q_len))
 
-    if cfg.tie_word_embeddings:
-        if lm_head is None:
-            lm_head = params["shared"]["embedding"].to(dtype)
-        logits = _tied_logits(x, lm_head)
-    else:
-        logits = layers.dense(params["lm_head"], x, dtype).float()
-    logits = logits + params["final_logits_bias"].float()
-    out = {"logits": logits, "cache": new_cache}
+    if t5:
+        x = _final_norm(dec, cfg, x, k_final, hidden)
+    out = {"logits": _lm_logits(params, cfg, x, dtype, lm_head),
+           "cache": new_cache}
     if hidden is not None:
         out["hidden_states"] = torch.stack(hidden)
     return out
@@ -452,45 +624,60 @@ def seq2seq_apply(params, cfg: Seq2SeqConfig, input_ids=None,
 
 
 def init_seq2seq(cfg: Seq2SeqConfig, generator, device, dtype=torch.float32):
-    """Random BART parameters with the JAX package's structure, drawn from
-    `generator`; matrices in `dtype`, vectors in float32."""
-    _check_supported(cfg)
-
+    """Random BART or T5 parameters with the JAX package's structure, drawn
+    from `generator`; matrices in `dtype`, vectors in float32.  T5 has no
+    biases, RMS-norm scales in place of the LayerNorms, a ``rel_bias``
+    table (num_buckets, H) and a ``final_layer_norm`` per stack, ``fc_gate``
+    for the gated GELU, and no positions, ``layernorm_embedding`` or
+    ``final_logits_bias``."""
     h, inner = cfg.hidden_size, cfg.kv_dim
+    t5 = cfg.arch == "t5"
+    bias = not t5
+    norm = ((lambda: rms_norm_params(h, device)) if t5
+            else (lambda: layer_norm_params(h, device)))
+
+    def dense(din, dout):
+        return dense_params(generator, device, dtype, din, dout,
+                            use_bias=bias)
 
     def attn():
-        p = {name: dense_params(generator, device, dtype, h, inner)
-             for name in ("q_proj", "k_proj", "v_proj")}
-        p["out_proj"] = dense_params(generator, device, dtype, inner, h)
+        p = {name: dense(h, inner) for name in ("q_proj", "k_proj", "v_proj")}
+        p["out_proj"] = dense(inner, h)
         return p
 
     def block(is_decoder):
-        p = {"self_attn": attn(),
-             "self_attn_layer_norm": layer_norm_params(h, device),
-             "final_layer_norm": layer_norm_params(h, device)}
+        p = {"self_attn": attn(), "self_attn_layer_norm": norm(),
+             "final_layer_norm": norm()}
         if is_decoder:
             p["encoder_attn"] = attn()
-            p["encoder_attn_layer_norm"] = layer_norm_params(h, device)
-        p["fc1"] = dense_params(generator, device, dtype, h, cfg.ffn_dim)
-        p["fc2"] = dense_params(generator, device, dtype, cfg.ffn_dim, h)
+            p["encoder_attn_layer_norm"] = norm()
+        if cfg.activation == "gelu_gated":
+            p["fc_gate"] = dense(h, cfg.ffn_dim)
+        p["fc1"] = dense(h, cfg.ffn_dim)
+        p["fc2"] = dense(cfg.ffn_dim, h)
         return p
 
     def stack(n_layers, is_decoder):
-        return {
-            "embed_positions": embedding_params(
+        if t5:
+            top = {"rel_bias": embedding_params(
+                generator, device, dtype,
+                cfg.relative_attention_num_buckets, cfg.num_heads, std=0.1),
+                "final_layer_norm": norm()}
+        else:
+            top = {"embed_positions": embedding_params(
                 generator, device, dtype, cfg.max_positions + 2, h),
-            "layernorm_embedding": layer_norm_params(h, device),
-            "layers": [block(is_decoder) for _ in range(n_layers)],
-        }
+                "layernorm_embedding": norm()}
+        return {**top, "layers": [block(is_decoder) for _ in range(n_layers)]}
 
     params = {
         "shared": embedding_params(generator, device, dtype,
                                    cfg.vocab_size, h),
         "encoder": stack(cfg.encoder_layers, False),
         "decoder": stack(cfg.decoder_layers, True),
-        "final_logits_bias": torch.zeros(cfg.vocab_size, dtype=torch.float32,
-                                         device=device),
     }
+    if not t5:
+        params["final_logits_bias"] = torch.zeros(
+            cfg.vocab_size, dtype=torch.float32, device=device)
     if not cfg.tie_word_embeddings:
         params["lm_head"] = dense_params(generator, device, dtype, h,
                                          cfg.vocab_size, use_bias=False)

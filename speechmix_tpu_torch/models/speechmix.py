@@ -25,10 +25,6 @@ from . import speech_encoder as se
 from .init import conv_params, dense_params
 
 
-def _check_supported(cfg: SpeechMixConfig):
-    seq2seq._check_supported(cfg.decoder)
-
-
 def encode_speech(params, cfg: SpeechMixConfig, input_values, lengths=None,
                   prompt_ids=None, dtype=torch.float32, dropout_rng=None,
                   details=None):
@@ -159,7 +155,6 @@ def speechmix_forward(params, cfg: SpeechMixConfig, input_values,
     the text pass existed.  Returns dict(logits (B, L, V) float32,
     layers_skipped[, loss, and for self ce_loss, kld_loss, mse_loss, for gan
     voice_enc_loss, voice_dec_loss, nlp_enc_loss, nlp_dec_loss])."""
-    _check_supported(cfg)
     check_key(dropout_rng)
     k_speech, k_nlp, k_text = split_or_none(dropout_rng, 3)
     dcfg = cfg.decoder
@@ -225,7 +220,6 @@ def init_speechmix(cfg: SpeechMixConfig, generator: torch.Generator, device,
     from `generator` (not bit-equal to the JAX init).  Matrices are made in
     `dtype`, vectors in float32, as ``convert.params_from_jax`` casts a
     converted tree."""
-    _check_supported(cfg)
 
     enc = se.init_speech_encoder(cfg.encoder, generator, device, dtype)
     enc = se.truncate_layers(enc, cfg.num_speech_encoder_layers)

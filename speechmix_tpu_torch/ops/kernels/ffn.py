@@ -68,12 +68,10 @@ from .dropout import (STREAM_ACT, STREAM_OUT, DropoutKey, dropout_mask,
 
 ACT_CODES = {"gelu": 0, "gelu_new": 1, "relu": 2, "silu": 3}
 MAX_HIDDEN = 1024  # the f32 kernels hold all h columns of a row tile
-# widths K8 takes in bfloat16: the flagship's (wav2vec2-base, bart-base)
-# and bart-large's
-BF16_HIDDEN = (768, 1024)
-# the bfloat16 forward passes of K3 / K9 / K12 / K13 and K2 / K11 take
-# widths that are multiples of this (their TMA + wgmma tiles), as the TPU
-# package's gate does
+# the bfloat16 forward passes of K3 / K9 / K12 / K13 and K2 / K11, and K8's
+# bfloat16 backward, take widths H (and, for the forward, F) that are
+# multiples of this (their TMA + wgmma tiles), as the TPU package's gate
+# does; K8 takes F a multiple of 64
 FWD_WIDTH = 128
 # K2 / K11 in bfloat16: a cluster of blocks 256 columns wide (128 where 256
 # does not divide H) reduces each LayerNorm row, at most 8 blocks (the
@@ -506,8 +504,8 @@ def _check_ffn(what, x, w1, b1, w2, act, k8=False):
     """Shared checks of the K3 / K8 / K9 wrappers; returns (n, h, f, code).
     float32: H <= MAX_HIDDEN.  bfloat16: the forward (K3, K9 and their
     twins) takes H and F multiples of FWD_WIDTH and 16-byte aligned
-    operands; K8 (`k8`) H in BF16_HIDDEN, F a multiple of 64 and 32-byte
-    aligned operands."""
+    operands; K8 (`k8`) H a multiple of FWD_WIDTH, F a multiple of 64 and
+    32-byte aligned operands."""
     if act not in ACT_CODES:
         raise ValueError(f"unsupported activation {act!r}")
     n, h = x.shape
@@ -515,9 +513,8 @@ def _check_ffn(what, x, w1, b1, w2, act, k8=False):
     bf16 = x.dtype == torch.bfloat16
     if not bf16 and h > MAX_HIDDEN:
         raise ValueError(f"{what} supports H <= {MAX_HIDDEN}, got {h}")
-    if bf16 and k8 and (h not in BF16_HIDDEN or f % 64):
-        raise ValueError(f"{what} in bfloat16 supports H in {BF16_HIDDEN}"
-                         f" and F a multiple of 64, got H={h}, F={f}")
+    if bf16 and k8:
+        _check_k8_widths(what, h, f)
     if bf16 and not k8 and (h % FWD_WIDTH or f % FWD_WIDTH):
         raise ValueError(f"{what} in bfloat16 supports H and F multiples "
                          f"of {FWD_WIDTH}, got H={h}, F={f}")
@@ -530,6 +527,13 @@ def _check_ffn(what, x, w1, b1, w2, act, k8=False):
         for name, t in (("x", x), ("w1", w1), ("w2", w2)):
             check_aligned(name, t, 32 if k8 else 16)
     return n, h, f, code
+
+
+def _check_k8_widths(what, h, f):
+    if h % FWD_WIDTH or f % 64:
+        raise ValueError(f"{what} in bfloat16 supports H a multiple of "
+                         f"{FWD_WIDTH} and F a multiple of 64, got H={h}, "
+                         f"F={f}")
 
 
 def ffn_fused(x, w1, b1, w2, b2, act="gelu"):
@@ -679,9 +683,7 @@ def ffn_bwd_products(x, g, w1, hid, da, colsum):
     _require_bf16("ffn_bwd_products", x)
     n, h = x.shape
     f = w1.shape[1]
-    if h not in BF16_HIDDEN or f % 64:
-        raise ValueError(f"ffn_bwd_products supports H in {BF16_HIDDEN} and "
-                         f"F a multiple of 64, got H={h}, F={f}")
+    _check_k8_widths("ffn_bwd_products", h, f)
     for name, t, shape in (("g", g, (n, h)), ("w1", w1, (h, f)),
                            ("hid", hid, (n, f)), ("da", da, (n, f))):
         check_cuda_tensor(name, t, x.dtype, shape, x.device)
@@ -764,9 +766,9 @@ def _dw_launch(kernel, x, g, w1, b1, w2, n, h, f, act, code, drop_args):
 
 def ffn_bwd(x, g, w1, b1, w2, act="gelu"):
     """K8; see ffn_bwd_plain.  CUDA tensors need x, g, w1, w2 in one dtype
-    (float32 or bfloat16), b1 float32, H <= 1024; float32 needs F a
-    multiple of 16; bfloat16 needs H in BF16_HIDDEN, F a multiple of 64 and
-    x, g, w1, w2 32-byte aligned.  bfloat16 runs the recompute pass and the
+    (float32 or bfloat16), b1 float32; float32 needs H <= 1024 and F a
+    multiple of 16; bfloat16 needs H a multiple of FWD_WIDTH, F a multiple
+    of 64 and x, g, w1, w2 32-byte aligned.  bfloat16 runs the recompute pass and the
     products (two launches), float32 the two f32 entries.  db2 = sum g is
     taken outside the kernels, as in the TPU package."""
     if x.device.type == "cuda" and x.dtype == torch.bfloat16:

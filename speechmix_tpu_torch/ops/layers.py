@@ -55,6 +55,14 @@ def layer_norm(params, x, eps=1e-5):
     return y.to(x.dtype)
 
 
+def rms_norm(params, x, eps=1e-6):
+    """T5's RMS norm: x * rsqrt(mean(x^2) + eps) * scale, the statistics in
+    float32, the result in x's dtype."""
+    xf = x.float()
+    var = (xf * xf).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * params["scale"].float()).to(x.dtype)
+
+
 def group_norm_per_channel(params, x, eps=1e-5, mask=None):
     """GroupNorm with one group per channel over (B, T, C): statistics over
     T per (batch, channel), from the valid frames only when `mask` (B, T)

@@ -337,7 +337,6 @@ def make_train_step(cfg: SpeechMixConfig, tc: TrainConfig, params_example,
     must live there.  The parameters and the optimizer state of `state` are
     updated in place."""
     _check_supported(tc)
-    smx._check_supported(cfg)
     device = resolve_device(device)
     optimizer = make_optimizer(tc)
     dtype = torch.bfloat16 if tc.bf16 else torch.float32
@@ -434,7 +433,6 @@ def make_eval_step(cfg: SpeechMixConfig, tc: TrainConfig, device=None):
     and of real rows (``example_mask``), which weight evaluate()'s mean as
     the reference's Trainer weights it.  Runs on `device` (default: the
     card; raises without CUDA)."""
-    smx._check_supported(cfg)
     device = resolve_device(device)
     dtype = torch.bfloat16 if tc.bf16 else torch.float32
 

@@ -29,6 +29,7 @@ from speechmix_tpu.training import trainer as j_trainer
 from speechmix_tpu_torch import convert
 from speechmix_tpu_torch.training import trainer as t_trainer
 from test_torch_train import LR, _batch, _cfgs, _flat, _j, _t_batch, _tree
+from torch_threads import one_torch_thread  # noqa: F401
 
 L = 3
 

@@ -30,6 +30,7 @@ import torch
 from speechmix_tpu.ops.pallas import flash_attention_kernel as fak
 from speechmix_tpu_torch.ops.kernels import attention as t_attn
 from speechmix_tpu_torch.ops.kernels import dropout as t_drop
+from torch_threads import one_torch_thread  # noqa: F401
 
 HEADS, D, SCALE = 2, 64, 0.125
 T_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16}

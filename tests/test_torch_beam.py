@@ -24,6 +24,7 @@ from speechmix_tpu_torch import generation as t_gen
 from speechmix_tpu_torch.models import seq2seq as t_s2s
 from speechmix_tpu_torch.ops.kernels import beam_gather as t_bg
 from test_torch_slice import _tree
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 # ---------------------------------------------------------------------------

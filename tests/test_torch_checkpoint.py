@@ -42,6 +42,7 @@ from speechmix_tpu_torch.training import checkpoint as t_ckpt
 from speechmix_tpu_torch.training import trainer as t_trainer
 from test_torch_adafactor import _assert_params_close, _is_noise
 from test_torch_train import LR, _cfgs, _tree
+from torch_threads import one_torch_thread  # noqa: F401
 
 BART_IDS = dict(pad_token_id=1, eos_token_id=2, bos_token_id=0)
 

@@ -25,6 +25,7 @@ import torch
 
 from speechmix_tpu.ops.pallas import conv_extractor as j_conv
 from speechmix_tpu_torch.ops.kernels import conv_extractor as t_conv
+from torch_threads import one_torch_thread  # noqa: F401
 
 C, B = 512, 2
 

@@ -41,6 +41,7 @@ from speechmix_tpu_torch.data import prefetch as t_prefetch
 from speechmix_tpu_torch.data import teacher as t_teacher
 from speechmix_tpu_torch.data import tokenizer as t_tok
 from test_torch_slice import _tree as _slice_tree
+from torch_threads import one_torch_thread  # noqa: F401
 
 BART_IDS = dict(pad_token_id=1, eos_token_id=2, bos_token_id=0)
 

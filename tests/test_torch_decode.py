@@ -31,6 +31,7 @@ from speechmix_tpu_torch.models import seq2seq as t_s2s
 from speechmix_tpu_torch.models import speech_encoder as t_se
 from speechmix_tpu_torch.ops.kernels import conv_extractor as t_conv
 from speechmix_tpu_torch.ops.kernels import decode_attention as t_da
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _t(a):

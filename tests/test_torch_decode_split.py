@@ -29,6 +29,7 @@ import torch
 
 from speechmix_tpu.ops.pallas import decode_attention as j_da
 from speechmix_tpu_torch.ops.kernels import decode_attention as t_da
+from torch_threads import one_torch_thread  # noqa: F401
 
 HEADS, D, SCALE = 2, 64, 0.125
 TOL = dict(rtol=1e-5, atol=1e-5)

@@ -32,6 +32,7 @@ from speechmix_tpu.ops.pallas import ffn_kernel as fk
 from speechmix_tpu.ops.pallas.ffn_kernel import _xla_dropout_mask
 from speechmix_tpu_torch.ops.kernels import dropout as t_drop
 from speechmix_tpu_torch.ops.kernels import ffn as t_ffn
+from torch_threads import one_torch_thread  # noqa: F401
 
 EPS = 1e-5
 RATE = 0.1

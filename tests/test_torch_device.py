@@ -19,6 +19,7 @@ from speechmix_tpu_torch.ops.kernels import conv_extractor as t_conv
 from speechmix_tpu_torch.ops.kernels import decode_attention as t_da
 from speechmix_tpu_torch.ops.kernels import ffn as t_ffn
 from speechmix_tpu_torch.training import trainer as t_trainer
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -33,6 +33,7 @@ from speechmix_tpu_torch.ops import layers as t_layers
 from speechmix_tpu_torch.ops.kernels import attention as t_attn
 from speechmix_tpu_torch.ops.kernels import dropout as t_drop
 from speechmix_tpu_torch.ops.kernels import ffn as t_ffn
+from torch_threads import one_torch_thread  # noqa: F401
 
 REL = 1e-5
 N, H, F = 48, 32, 64

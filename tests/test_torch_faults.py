@@ -26,6 +26,7 @@ from speechmix_tpu_torch import generation as t_gen
 from speechmix_tpu_torch.models import seq2seq as t_s2s
 from speechmix_tpu_torch.ops import layers as t_layers
 from speechmix_tpu_torch.ops.kernels import ffn as t_ffn
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _cfgs(variant):

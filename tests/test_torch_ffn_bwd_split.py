@@ -30,6 +30,7 @@ import torch
 
 from speechmix_tpu.ops.pallas import ffn_kernel as fk
 from speechmix_tpu_torch.ops.kernels import ffn as t_ffn
+from torch_threads import one_torch_thread  # noqa: F401
 
 ACTS = ["gelu", "gelu_new", "relu", "silu"]
 RATE = 0.1
@@ -193,6 +194,33 @@ def test_split_bf16_matches_ffn_bwd_plain(masked, small_ranges):
     torch.testing.assert_close(got[0], ref[0], rtol=0, atol=0)
     assert all(o.dtype == torch.float32 for o in got[1:])
     _assert_within(got[1:], ref[1:4], _limits(a, bf)[1:])
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_split_bf16_at_t5_small_width(masked, small_ranges):
+    """t5-small's FFN (relu, H = 512, F = 2048, no biases), the width K8's
+    bfloat16 gate admits since it takes every multiple of 128: the same
+    structure as at the flagship's width, dx bit for bit and the f32 sums
+    within their order; on a tensor off the CPU the gate passes H = 512 and
+    the wrapper stops only at the device check, while H = 192 (not a
+    multiple of 128) is still refused by width."""
+    a = _inputs(200, h=512, f=2048, seed=9, masked=masked)
+    a["b1"] = np.zeros(2048, np.float32)
+    a["act"] = "relu"
+    bf = torch.bfloat16
+    got = _split(a, bf)
+    ref = t_ffn.ffn_bwd_plain(*(_t(a[k], bf) for k in ("x", "g", "w1")),
+                              _t(a["b1"]), _t(a["w2"], bf), "relu",
+                              _t(a["amask"]))
+    torch.testing.assert_close(got[0], ref[0], rtol=0, atol=0)
+    _assert_within(got[1:], ref[1:4], _limits(a, bf)[1:])
+    meta = lambda *s, dtype=bf: torch.empty(*s, dtype=dtype, device="meta")
+    for h, match in ((512, "CUDA tensor"), (192, "supports H a multiple")):
+        args = (meta(4, h), meta(4, h), meta(h, 2048),
+                meta(2048, dtype=torch.float32), meta(2048, h))
+        for entry in (t_ffn.ffn_bwd_dx, t_ffn.ffn_bwd_recompute):
+            with pytest.raises(ValueError, match=match):
+                entry(*args, "relu")
 
 
 def test_recompute_column_sums_per_tile():

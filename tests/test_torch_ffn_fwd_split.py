@@ -17,6 +17,7 @@ import torch
 from speechmix_tpu.ops.pallas import ffn_kernel as fk
 from speechmix_tpu_torch.ops.kernels import dropout as t_drop
 from speechmix_tpu_torch.ops.kernels import ffn as t_ffn
+from torch_threads import one_torch_thread  # noqa: F401
 
 ACTS = ["gelu", "gelu_new", "relu", "silu"]
 TOL = dict(rtol=1e-5, atol=1e-5)

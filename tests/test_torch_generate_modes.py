@@ -28,6 +28,7 @@ from speechmix_tpu_torch import convert
 from speechmix_tpu_torch import generation as t_gen
 from speechmix_tpu_torch.models import seq2seq as t_s2s
 from speechmix_tpu_torch.models import speechmix as t_smx
+from torch_threads import one_torch_thread  # noqa: F401
 
 L = 10                  # max_length
 SEED = 3

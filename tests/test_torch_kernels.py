@@ -20,6 +20,7 @@ from speechmix_tpu.ops.pallas import ffn_kernel as fk
 from speechmix_tpu.ops.pallas import flash_attention_kernel as fak
 from speechmix_tpu_torch.ops.kernels import attention as t_attn
 from speechmix_tpu_torch.ops.kernels import ffn as t_ffn
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

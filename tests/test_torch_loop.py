@@ -38,6 +38,7 @@ from speechmix_tpu_torch.utils import watchdog as t_watchdog
 from test_torch_checkpoint import _batchers, _records
 from test_torch_slice import _tree as _slice_tree
 from test_torch_train import _assert_trees_close, _cfgs, _tree
+from torch_threads import one_torch_thread  # noqa: F401
 
 BART_IDS = dict(pad_token_id=1, eos_token_id=2, bos_token_id=0)
 

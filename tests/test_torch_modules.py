@@ -26,6 +26,7 @@ from speechmix_tpu_torch.models import seq2seq as t_s2s
 from speechmix_tpu_torch.models import speech_encoder as t_se
 from speechmix_tpu_torch.models import speechmix as t_smx
 from speechmix_tpu_torch.ops import layers as t_layers
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-4
 

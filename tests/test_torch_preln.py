@@ -35,6 +35,7 @@ from speechmix_tpu_torch.training import trainer as t_trainer
 from test_torch_adafactor import _assert_params_close
 from test_torch_slice import _tree as _generate_tree
 from test_torch_train import LR, _batch, _j, _t_batch, _tree
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _cfgs(weighted_sum=True, extractor_impl="auto", num_layers=2):

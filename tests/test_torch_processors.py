@@ -14,6 +14,7 @@ from speechmix_tpu import config as jcfg
 from speechmix_tpu import generation as j_gen
 from speechmix_tpu_torch import config as tcfg
 from speechmix_tpu_torch import generation as t_gen
+from torch_threads import one_torch_thread  # noqa: F401
 
 JD = jcfg.SEQ2SEQ_PRESETS["tiny-bart-bytes"]
 TD = tcfg.SEQ2SEQ_PRESETS["tiny-bart-bytes"]

@@ -13,6 +13,7 @@ from speechmix_tpu.models import speechmix as j_smx
 from speechmix_tpu_torch import config as tcfg
 from speechmix_tpu_torch import convert
 from speechmix_tpu_torch import generation as t_gen
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _tree(jc, weight_std, seed):

@@ -20,6 +20,7 @@ a step these leaves are only held to the learning rate per step taken.
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -32,9 +33,11 @@ from speechmix_tpu.models import speechmix as j_smx
 from speechmix_tpu.training import trainer as j_trainer
 from speechmix_tpu_torch import config as tcfg
 from speechmix_tpu_torch import convert
+from speechmix_tpu_torch.models import seq2seq as t_s2s
 from speechmix_tpu_torch.models import speechmix as t_smx
 from speechmix_tpu_torch.ops import layers as t_layers
 from speechmix_tpu_torch.training import trainer as t_trainer
+from torch_threads import one_torch_thread  # noqa: F401
 
 LR = 1e-3
 
@@ -148,6 +151,19 @@ def test_forward_without_labels_starts_the_decoder():
                                np.asarray(ref["logits"]), rtol=0, atol=1e-4)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_grad_tree():
+    """jax.grad of the eed loss on _tree / _batch, jitted with the weights
+    and the batch as arguments and taken once for the file's cases."""
+    jc, _ = _cfgs("eed")
+
+    def loss_fn(p, b):
+        return j_smx.speechmix_forward(
+            p, jc, b["input_values"], b["lengths"],
+            labels=b["labels"])["loss"]
+    return jax.jit(jax.grad(loss_fn))(_j(_tree(jc)), _j(_batch()))
+
+
 @pytest.mark.parametrize("min_rows", [1024, 1],
                          ids=["plain-chain", "kernel-functions"])
 def test_gradient_tree_matches_jax_grad(min_rows, monkeypatch):
@@ -159,13 +175,7 @@ def test_gradient_tree_matches_jax_grad(min_rows, monkeypatch):
     monkeypatch.setattr(t_layers, "FUSED_WIDTH", 1)
     jc, tc = _cfgs("eed")
     tree, batch = _tree(jc), _batch()
-
-    def loss_fn(p):
-        return j_smx.speechmix_forward(
-            p, jc, jnp.asarray(batch["input_values"]),
-            jnp.asarray(batch["lengths"]),
-            labels=jnp.asarray(batch["labels"]))["loss"]
-    ref = jax.grad(loss_fn)(_j(tree))
+    ref = _jax_grad_tree()
 
     params = convert.params_from_jax(tree, tc)
     leaves = t_trainer.tree_map(lambda p: p.requires_grad_(), params)
@@ -270,23 +280,49 @@ def test_train_step_refuses_unported_settings(kwargs, error):
 
 
 @pytest.mark.parametrize("variant", ["self", "gan", "adapter"])
-def test_unported_variants_raise(variant):
-    """Every variant is ported with a BART model; with a T5 decoder, which
-    is not ported yet, each still raises."""
-    _, tc = _cfgs(variant)
-    t5 = dataclasses.replace(tc, decoder=tcfg.SEQ2SEQ_PRESETS["tiny-t5-bytes"])
-    good = t_trainer.TrainConfig(dropout=False)
-    with pytest.raises(NotImplementedError):
-        t_smx.init_speechmix(t5, torch.Generator().manual_seed(0), "cpu")
-    params = t_smx.init_speechmix(tc, torch.Generator().manual_seed(0),
-                                  "cpu")
-    assert ("adapters" in params) == (variant == "adapter")
-    assert ("discriminator" in params) == (variant == "gan")
-    wav = torch.zeros(1, 4000)
-    with pytest.raises(NotImplementedError):
-        t_smx.speechmix_forward(params, t5, wav)
-    with pytest.raises(NotImplementedError):
-        t_trainer.make_train_step(t5, good, params, device="cpu")
+def test_t5_variants_match_jax(variant):
+    """The self, gan and adapter variants with tiny-t5-bytes (pad = start =
+    0): the loss and its named terms within 1e-5 (relative, above 1) of the
+    JAX package's; the gan case also holds the decoder mask of its Gram
+    features: position 0 (the start token, equal to pad) valid, every other
+    pad not."""
+    jc, tc = (dataclasses.replace(
+        c, decoder=m.SEQ2SEQ_PRESETS["tiny-t5-bytes"])
+        for c, m in zip(_cfgs(variant), (jcfg, tcfg)))
+    tree = _tree(jc)
+    if variant == "gan":
+        rng = np.random.RandomState(7)
+        kernel = tree["discriminator"]["kernel"]
+        tree["discriminator"] = dict(
+            tree["discriminator"],
+            kernel=(rng.randn(*kernel.shape) * 1e-3).astype(np.float32))
+    batch = _batch()
+    text = np.random.RandomState(3).randint(3, 384, (4, 10)).astype(np.int32)
+    text[1, 7:] = text[2, 4:] = 0
+    kw = {} if variant == "adapter" else {"text_input_ids": text}
+    ref = jax.jit(lambda p, b, k: j_smx.speechmix_forward(
+        p, jc, b["input_values"], b["lengths"], labels=b["labels"], **k))(
+            _j(tree), _j(batch), _j(kw))
+    tb = _t_batch(batch)
+    out = t_smx.speechmix_forward(
+        convert.params_from_jax(tree, tc), tc, tb["input_values"],
+        tb["lengths"], labels=tb["labels"],
+        **{k: torch.from_numpy(v).long() for k, v in kw.items()})
+    terms = {"self": ("ce_loss", "kld_loss", "mse_loss"),
+             "gan": ("voice_enc_loss", "voice_dec_loss", "nlp_enc_loss",
+                     "nlp_dec_loss"), "adapter": ()}[variant]
+    for name in ("loss",) + terms:
+        want = float(ref[name])
+        assert abs(out[name].item() - want) <= 1e-5 * max(1.0, abs(want)), \
+            name
+    if variant == "gan":
+        dec_ids = t_s2s.shift_tokens_right(tb["labels"], 0, 0)
+        mask = t_smx.gan_decoder_mask(dec_ids, 0)
+        np.testing.assert_array_equal(mask.numpy(), np.asarray(
+            j_smx.gan_decoder_mask(jnp.asarray(dec_ids.numpy()), 0)))
+        assert mask[:, 0].all() and (dec_ids[:, 0] == 0).all()
+        assert torch.equal(mask[:, 1:], dec_ids[:, 1:] != 0)
+        assert not mask[1].all()
 
 
 def test_dropout_generator_is_refused():

@@ -30,6 +30,7 @@ from speechmix_tpu_torch.ops.kernels.dropout import DropoutKey
 from speechmix_tpu_torch.training import trainer as t_trainer
 from test_torch_train import (LR, _assert_trees_close, _batch, _j, _t_batch,
                               _tree)
+from torch_threads import one_torch_thread  # noqa: F401
 
 ZERO_RATES = dict(dropout=0.0, attention_dropout=0.0, activation_dropout=0.0)
 # the flagship's training recipe on the tiny widths: wav2vec2-base's and

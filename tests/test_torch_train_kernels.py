@@ -42,6 +42,7 @@ from speechmix_tpu_torch.ops.kernels import conv_extractor as t_conv
 from speechmix_tpu_torch.ops.kernels import ffn as t_ffn
 from speechmix_tpu_torch.training import freezing as t_freezing
 from speechmix_tpu_torch.training import trainer as t_trainer
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 ACTS = ["gelu", "gelu_new", "relu", "silu"]

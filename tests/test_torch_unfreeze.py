@@ -29,6 +29,7 @@ from speechmix_tpu_torch.training import freezing as t_freezing
 from speechmix_tpu_torch.training import trainer as t_trainer
 from test_torch_adafactor import _assert_params_close
 from test_torch_train import LR, _batch, _cfgs, _flat, _j, _t_batch, _tree
+from torch_threads import one_torch_thread  # noqa: F401
 
 PROGRESS = (0.0, 0.1, 0.2, 0.25, 1 / 3, 0.4, 0.5, 0.6, 2 / 3, 0.75, 0.8,
             0.99, 1.0, 1.5)

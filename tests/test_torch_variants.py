@@ -40,6 +40,7 @@ from test_torch_slice import _tree as _generate_tree
 from test_torch_train import (LR, _assert_trees_close, _batch, _cfgs, _flat,
                               _j, _t_batch, _tree)
 from test_torch_unfreeze import _assert_masks_equal, _trees
+from torch_threads import one_torch_thread  # noqa: F401
 
 TERMS = {"eed": (), "adapter": (),
          "self": ("ce_loss", "kld_loss", "mse_loss"),
