@@ -114,6 +114,34 @@ Phases, each printing as it goes; any failure exits non-zero:
      and the t5-small gradient tree at 2 + 2 + 2 layers in f32 (a relu
      fc1 kernel gradient allowed, beyond the limit, the terms of the a's
      that the data shows may flip sign between the paths);
+     then the serving surface (run_serving), the flagship at full width
+     and depth, B = 16 x 16 s, 64 steps, bf16: int8 weights
+     (quantize_weights) in greedy, greedy-int8 and beam-4 with exact
+     launches (no K2, K3 or K9: the gate sends int8 blocks to the plain
+     chain), two calls bit-identical, ms, audio-s/s, peak memory, busy
+     share and the weight bytes against the bf16 tree's, the int8 product
+     (torch._int_mm, padded) equal to the CPU's and its speech-encoder
+     error under set_int8_dense_compute within 0.08 of the peak, fused
+     q/k/v on float and int8 weights; in f32 the int8 tokens of the
+     kernels equal to the plain path's and the fused trees' to the
+     unfused ones'; the CTC head (wav2vec2-base + 32 tokens): forward
+     launches, f32 logits against the plain path, ctc_greedy_decode, 8
+     AdamW steps on the CTC loss with exact launches and a falling loss;
+     the loaders: export_speechmix -> torch.save -> a composite
+     config.json, HFSpeechMixEED.from_reference_checkpoint and
+     load_hf_checkpoint on the card, parameters and bf16 tokens
+     bit-identical to the source; the API: SpeechMixEED("wav2vec2-base",
+     "bart-base", down_scale=2, dtype="bfloat16") forward with labels,
+     generate greedy and beam-4 bit-identical to generation.generate,
+     save_pretrained -> from_pretrained; the TranscriptionPipeline over 64
+     utterances of 1-30 s (two chunked, one too short) with float32 and
+     int16 transfer, every transcript equal to a direct generate() of its
+     bucket's batch, wall time and audio-s/s, the busy share of the float32
+     run; one batch of each bucket (4-20 s) through the kernels against
+     the plain path: the text encoder's output in bf16 and f32, the f32
+     greedy tokens equal; the phase's seconds by part and by kind of work
+     (busy shares are read from the profiler's raw events,
+     device_totals);
   6. print the `kernels` JSON line (K9, K13 and K8 at t5-small's FFN with
      their launches at 6400 and 1024 rows; K1, K14, K7 and K15 with a record per
      attention length of the step and its launches there, K6 one per
@@ -128,6 +156,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import ctypes
 import itertools
 import json
@@ -568,12 +597,17 @@ def decode_bf16_limit(q, k, v, mask, scales, ref, scale=0.125):
 # K4 at the decoder's shapes: (name, K/V rows, queries per row, keys)
 DECODE_SHAPES = (("self greedy", 16, 1, 64), ("self beam-4", 64, 1, 64),
                  ("cross greedy", 16, 1, 400), ("cross beam-4", 16, 4, 400),
-                 ("cross greedy T=1500", 16, 1, 1500))
+                 ("cross greedy T=1500", 16, 1, 1500),
+                 # the pipeline's 20 s bucket: four shares of 125 keys
+                 ("cross greedy T=500", 16, 1, 500),
+                 # its 8 s and 12 s buckets: clusters of 2 and 3 ranks
+                 ("cross greedy T=200", 16, 1, 200),
+                 ("cross greedy T=300", 16, 1, 300))
 
 
 def decode_mask(name, bkv, t, dev):
     """Self-attention: the slots up to the row's step are filled; cross-
-    attention: encoder rows of 200 to 400 (750 to 1500) valid frames."""
+    attention: encoder rows of t / 2 to t valid frames."""
     import torch
     rows = torch.arange(bkv, device=dev)
     fill = (rows % t if name.startswith("self")
@@ -609,7 +643,9 @@ def check_decode_attention(randn, dev, records):
     """K4 at the decoder's shapes: self-attention over the 64-slot cache
     (16 rows greedy, 64 rows with 4 beams) and cross-attention over 400
     encoder positions with kb = 1 (greedy) and kb = 4 (beams share K/V), and
-    over 1500 (30 s of audio), float and int8 K/V, ragged masks; then mask
+    over 1500 (30 s of audio) and 500, 300 and 200 (the pipeline's 20,
+    12 and 8 s buckets: shares of 125 keys, which are odd, and clusters of
+    3 and 2 ranks), float and int8 K/V, ragged masks; then mask
     rows with a fully masked row, one key, holes and late keys."""
     import torch
     from speechmix_tpu_torch.models.seq2seq import _quantize_kv
@@ -2018,7 +2054,6 @@ def run_flagship(seed, card):
     modes greedy, greedy-int8 and beam-4."""
     import torch
     from speechmix_tpu_torch import generation
-    from speechmix_tpu_torch.models import seq2seq, speechmix
     from speechmix_tpu_torch.ops import kernels
     from speechmix_tpu_torch.ops.kernels import decode_attention as kd
 
@@ -2073,14 +2108,8 @@ def run_flagship(seed, card):
             f"{', '.join(f'{t * 1e3:.1f}' for t in times)}) on {card}")
     stage_breakdown(params, cfg, wav, lengths, modes)
     tied_head_times(params, cfg)
-
-    def text_encoder_out(p, dtype):
-        emb, mask = speechmix.encode_speech(p, cfg, wav, lengths,
-                                            dtype=dtype)
-        enc = seq2seq.encode(p["nlp"], cfg.decoder, inputs_embeds=emb,
-                             attention_mask=mask, dtype=dtype)
-        return enc["last_hidden_state"].float(), mask
-
+    text_encoder_out = lambda p, dtype: encoder_output(  # noqa: E731
+        p, cfg, wav, lengths, dtype)
     p32 = _cast_tree(params, torch.float32)
     f32_run = lambda **kw: generation.generate(
         p32, cfg, wav, lengths, max_length=MAX_LEN, dtype=torch.float32, **kw)
@@ -2158,10 +2187,42 @@ def run_flagship(seed, card):
     return counts, by_length
 
 
-def profile_call(fn):
+def encoder_output(params, cfg, wav, lengths, dtype):
+    """The text encoder's output (speech encoder, length adapter, text
+    encoder: K6, K1, K2 and K3 at these inputs' lengths) in f32, and its
+    frame mask."""
+    from speechmix_tpu_torch.models import seq2seq, speechmix
+    emb, mask = speechmix.encode_speech(params, cfg, wav, lengths,
+                                        dtype=dtype)
+    enc = seq2seq.encode(params["nlp"], cfg.decoder, inputs_embeds=emb,
+                         attention_mask=mask, dtype=dtype)
+    return enc["last_hidden_state"].float(), mask
+
+
+# a name's work on the device in one profiled run: launches, summed us
+DeviceTotal = collections.namedtuple("DeviceTotal",
+                                     "key count self_device_time_total")
+
+
+def device_totals(prof):
+    """The kernels, copies and fills of a finished torch.profiler run, one
+    DeviceTotal per name, read from the profiler's raw events.
+    key_averages() gives the same sums, but builds the whole event tree
+    first: seconds for a decode call's ~10^4 launches."""
+    import torch
+    totals = collections.defaultdict(lambda: [0, 0.0])
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            total = totals[e.name()]
+            total[0] += 1
+            total[1] += e.duration_ns() / 1e3
+    return [DeviceTotal(k, n, us) for k, (n, us) in totals.items() if us > 0]
+
+
+def profile_call(fn, cross_check=False):
     """One synchronised call of fn under torch.profiler: (wall us, summed
-    device time of its kernels in us, the profiler's events that ran on the
-    device)."""
+    device time of its kernels in us, device_totals of the run).  With
+    cross_check the sum is held against key_averages()'s."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2171,8 +2232,16 @@ def profile_call(fn):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    return wall_us, sum(e.self_device_time_total for e in events), events
+    events = device_totals(prof)
+    busy_us = sum(e.self_device_time_total for e in events)
+    if cross_check:
+        ref = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.self_device_time_total > 0)
+        log(f"  device time from the raw events {busy_us:.1f} us, from "
+            f"key_averages() {ref:.1f} us")
+        if abs(busy_us - ref) > 1e-3 * ref + 1.0:
+            raise AssertionError("device_totals differs from key_averages()")
+    return wall_us, busy_us, events
 
 
 def stage_breakdown(params, cfg, wav, lengths, modes):
@@ -3544,7 +3613,7 @@ def _profile_step(fn, what):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    events = device_totals(prof)
     busy_us = sum(e.self_device_time_total for e in events)
     log(f"  profiled {what}: wall {wall_us / 1e3:.1f} ms, device busy "
         f"{busy_us / 1e3:.1f} ms ({busy_us / wall_us:.3f} of wall)")
@@ -4014,8 +4083,7 @@ def run_trainer(seed, card):
                                        - profiled["t0"]) * 1e3
                 prof = profiled.pop("prof")
                 prof.stop()
-                profiled["events"] = [e for e in prof.key_averages()
-                                      if e.self_device_time_total > 0]
+                profiled["events"] = device_totals(prof)
             if state.step + 1 == TRAINER_PROFILED_STEP:
                 from torch.profiler import ProfilerActivity, profile
                 prof = profile(activities=[ProfilerActivity.CUDA])
@@ -4654,6 +4722,753 @@ def run_t5(seed, card):
     return counts, by_rows
 
 
+# ----------------------------------------------------------------------------
+# the serving surface (run_serving): int8 weights, fused q/k/v, CTC, the
+# checkpoint loaders, the API classes and the transcription pipeline
+# ----------------------------------------------------------------------------
+
+SERVING_CALLS = 4             # a warm-up call, then 3 timed
+CTC_VOCAB, CTC_STEPS, CTC_LABELS = 32, 8, 96
+# int8 x int8 -> int32 products held against the CPU's int32 matmul: the
+# decode step's rows (16), the encoder's (12800), widths of the flagship's
+# denses and of the fused q/k/v, and one shape torch._int_mm refuses unpadded
+INT8_MM_SHAPES = ((16, 768, 768), (16, 768, 3072), (16, 3072, 768),
+                  (12800, 768, 2304), (5, 13, 7))
+INT8_COMPUTE_BOUND = 0.08     # tests/test_quantize_remat.py's logits bound
+PIPELINE_UTTERANCES = 64
+# seconds of the serving phase by kind of work, across its parts
+SERVING_SPENT = collections.Counter()
+
+
+@contextlib.contextmanager
+def spending(what):
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        SERVING_SPENT[what] += time.perf_counter() - t0
+
+
+def serving_launches(mode, steps, int8_weights=False, fused_extractor=True):
+    """Launches of one flagship generate() in `mode` (expected_launches), on
+    int8 weights (the fused-block gate sends a block whose weights are not
+    a float `kernel` to the plain chain: no K2, K3 or K9) and / or with the
+    library conv in the extractor (extractor_impl "auto": no K6)."""
+    want = expected_launches(mode, steps)
+    if int8_weights:
+        want.update(ffn_forward_launches(0, 0))
+        want["smx_dense_res_ln"] = 0
+    if not fused_extractor:
+        want["smx_conv_ln_gelu"] = 0
+    return want
+
+
+def _weight_bytes(params):
+    from speechmix_tpu_torch.training.freezing import tree_paths
+    return sum(t.numel() * t.element_size() for _, t in tree_paths(params))
+
+
+def _launches():
+    from speechmix_tpu_torch.ops import kernels
+    return {k.symbol: k.launches for k in kernels.kernels()}
+
+
+def serve_mode(label, call, want, card, audio_s, cross_check=False):
+    """SERVING_CALLS calls of `call` (a warm-up, then the timed ones), each
+    with exactly the launches `want`; the second and third bit-identical;
+    median ms, audio-s/s, peak memory and the busy share of one profiled
+    call (with cross_check, its device time held against key_averages()'s).
+    Returns (launches of a call, the last output, median ms)."""
+    import torch
+    from speechmix_tpu_torch.ops import kernels
+    outs, times = [], []
+    torch.cuda.reset_peak_memory_stats()
+    with spending("timed calls"):
+        for i in range(SERVING_CALLS):
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = call()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = _launches()
+            if counts != want:
+                raise AssertionError(f"{label}: launches {counts}, expected "
+                                     f"{want}")
+            outs.append(out)
+            if i:
+                times.append(dt)
+    expect_equal(label, outs[1], outs[2])
+    med = sorted(times)[len(times) // 2]
+    peak = torch.cuda.max_memory_allocated()
+    with spending("profiled calls"):
+        wall_us, busy_us, _ = profile_call(call, cross_check)
+    log(f"  {label}: {med * 1e3:.1f} ms per call (median of {len(times)}: "
+        f"{', '.join(f'{t * 1e3:.1f}' for t in times)}), audio-seconds per "
+        f"second {audio_s / med:.2f}, peak memory {peak / 2 ** 30:.2f} GiB, "
+        f"profiled call busy {busy_us / wall_us:.3f} of "
+        f"{wall_us / 1e3:.1f} ms; launches "
+        f"{ {k: v for k, v in counts.items() if v} } on {card}")
+    return counts, outs[-1], med
+
+
+def tokens_equal(label, got, want):
+    import torch
+    if not torch.equal(got, want):
+        raise AssertionError(f"{label}: tokens differ on "
+                             f"{(got != want).float().mean().item():.4f}")
+    log(f"  {label}: tokens equal")
+
+
+def check_int8_matmul(dev):
+    """int8_matmul on the card (torch._int_mm, padded where it refuses)
+    against the CPU's int32 matmul, bit for bit."""
+    import torch
+    from speechmix_tpu_torch.ops import layers
+    gen = torch.Generator().manual_seed(7)
+    for m, k, n in INT8_MM_SHAPES:
+        a = torch.randint(-127, 128, (m, k), generator=gen, dtype=torch.int8)
+        b = torch.randint(-127, 128, (k, n), generator=gen, dtype=torch.int8)
+        got = layers.int8_matmul(a.to(dev), b.to(dev)).cpu()
+        if not torch.equal(got, layers.int8_matmul(a, b)):
+            raise AssertionError(f"int8_matmul {(m, k, n)}: the card's "
+                                 "product differs from the CPU's")
+    log(f"  int8 x int8 -> int32 (torch._int_mm, rows padded to "
+        f"{layers._INT_MM_MIN_ROWS}, widths to multiples of "
+        f"{layers._INT_MM_MULTIPLE}) equal to the CPU's int32 matmul at "
+        f"{INT8_MM_SHAPES}")
+
+
+def serve_int8_and_fused(cfg, params, wav, lengths, card, counts):
+    """int8 weights in greedy, greedy with int8 cross K/V and beam-4; the
+    int8 product's error in the speech encoder; fused q/k/v on float and
+    int8 weights; in f32 the int8 / fused tokens of the kernel path against
+    the plain path's and the unfused tree's."""
+    import torch
+    from speechmix_tpu_torch import generation
+    from speechmix_tpu_torch.models import speech_encoder
+    from speechmix_tpu_torch.ops import layers
+    from speechmix_tpu_torch.utils.quantize import (fuse_qkv_params,
+                                                    quantization_report,
+                                                    quantize_weights)
+    bf16, audio_s = torch.bfloat16, BATCH * SECONDS
+    t0 = time.perf_counter()
+    qparams = quantize_weights(params)
+    torch.cuda.synchronize()
+    n_q, n_t = quantization_report(qparams)
+    log(f"int8 weights (quantize_weights, defaults): {n_q / 1e6:.1f} M of "
+        f"{n_t / 1e6:.1f} M elements int8, quantized in "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms; weight bytes on the "
+        f"card {_weight_bytes(qparams) / 2 ** 20:.1f} MiB against the bf16 "
+        f"tree's {_weight_bytes(params) / 2 ** 20:.1f} MiB")
+    modes = {"greedy": {}, "greedy-int8": {"kv_int8": True},
+             "beam-4": {"num_beams": BEAMS}}
+    # the bf16 tree's greedy call beside them, in the same stretch of time
+    serve_mode("bf16 weights greedy generate",
+               lambda: generation.generate(params, cfg, wav, lengths,
+                                           max_length=MAX_LEN, dtype=bf16),
+               serving_launches("greedy", MAX_LEN), card, audio_s)
+    for mode, kwargs in modes.items():
+        call = lambda kw=kwargs: generation.generate(  # noqa: E731
+            qparams, cfg, wav, lengths, max_length=MAX_LEN, dtype=bf16, **kw)
+        counts[f"int8w-{mode}"], _, _ = serve_mode(
+            f"int8 weights {mode} generate", call,
+            serving_launches(mode, MAX_LEN, int8_weights=True), card,
+            audio_s)
+    check_int8_matmul(wav.device)
+    # the int8 product (per-token activation scales) against dequantizing
+    with torch.no_grad():
+        ref = speech_encoder.speech_encoder_apply(
+            qparams["speech_encoder"], cfg.encoder, wav, lengths,
+            dtype=bf16)["last_hidden_state"].float()
+        layers.set_int8_dense_compute(True)
+        try:
+            got = speech_encoder.speech_encoder_apply(
+                qparams["speech_encoder"], cfg.encoder, wav, lengths,
+                dtype=bf16)["last_hidden_state"].float()
+        finally:
+            layers.set_int8_dense_compute(False)
+    err = ((got - ref).abs().max() / ref.abs().max()).item()
+    log(f"  set_int8_dense_compute(True): speech-encoder output max |int8 "
+        f"product - dequantized| / max |dequantized| {err:.4f} (at most "
+        f"{INT8_COMPUTE_BOUND})")
+    if not err <= INT8_COMPUTE_BOUND:
+        raise AssertionError(f"int8 dense compute: error {err}")
+
+    fused = fuse_qkv_params(params)
+    fused_q = fuse_qkv_params(qparams)
+    for label, tree, int8 in (("fused q/k/v", fused, False),
+                              ("fused q/k/v, int8 weights", fused_q, True)):
+        counts[("fused-int8w" if int8 else "fused") + "-greedy"], _, _ = \
+            serve_mode(f"{label} greedy generate",
+                       lambda t=tree: generation.generate(
+                           t, cfg, wav, lengths, max_length=MAX_LEN,
+                           dtype=bf16),
+                       serving_launches("greedy", MAX_LEN, int8), card,
+                       audio_s)
+    # f32: int8 weights through the kernels against the plain path, and the
+    # fused trees against the unfused ones
+    p32 = _cast_tree(params, torch.float32)
+    q32 = quantize_weights(p32)
+    run = lambda tree, **kw: generation.generate(  # noqa: E731
+        tree, cfg, wav, lengths, max_length=MAX_LEN, dtype=torch.float32,
+        **kw)[0]
+    with torch.no_grad(), spending("f32 checks"):
+        got = {mode: run(q32, **kw) for mode, kw in modes.items()}
+        with plain_kernels():
+            from speechmix_tpu_torch.ops import kernels
+            kernels.reset_launch_counts()
+            ref = {mode: run(q32, **kw) for mode, kw in modes.items()}
+            if any(k.launches for k in kernels.kernels()):
+                raise AssertionError("the plain reference launched a kernel")
+        for mode in modes:
+            tokens_equal(f"int8 weights {mode}, f32 kernels vs f32 plain "
+                         "path", got[mode], ref[mode])
+        tokens_equal("fused q/k/v greedy, f32, vs the unfused tree",
+                     run(fuse_qkv_params(p32)), run(p32))
+        tokens_equal("fused q/k/v greedy on int8 weights, f32, vs the "
+                     "unfused int8 tree", run(fuse_qkv_params(q32)),
+                     got["greedy"])
+    del qparams, fused, fused_q, p32, q32
+
+
+def serve_ctc(seed, cfg, wav, lengths, card, counts):
+    """The CTC head on wav2vec2-base (12 layers, the flagship's encoder) with
+    a CTC_VOCAB-token head: the bf16 forward's launches, the f32 logits of
+    the kernels against the plain path, ctc_greedy_decode, then CTC_STEPS
+    AdamW steps on the CTC loss (bf16 compute, f32 parameters)."""
+    import torch
+    from speechmix_tpu_torch.models import ctc
+    from speechmix_tpu_torch.ops import kernels
+    from speechmix_tpu_torch.training import trainer
+    from speechmix_tpu_torch.training.freezing import tree_paths
+    dev, enc = wav.device, cfg.encoder
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    params = ctc.init_ctc_model(enc, CTC_VOCAB, gen, dev, torch.float32)
+    pb = _cast_tree(params, torch.bfloat16)
+    want = serving_launches("greedy", 0)
+    want.update({"smx_attention_fwd": enc.num_layers,
+                 "smx_dense_res_ln": enc.num_layers,
+                 **ffn_forward_launches(enc.num_layers, 0)})
+    with torch.no_grad():
+        counts["ctc-forward"], out, _ = serve_mode(
+            "CTC forward (wav2vec2-base + 32-token head)",
+            lambda: ctc.ctc_apply(pb, enc, wav, lengths,
+                                  dtype=torch.bfloat16)["logits"], want,
+            card, BATCH * SECONDS, cross_check=True)
+        k32 = ctc.ctc_apply(params, enc, wav, lengths)
+        with plain_kernels():
+            ref = ctc.ctc_apply(params, enc, wav, lengths)["logits"]
+    valid = k32["frame_mask"][..., None].float()
+    rel = (((k32["logits"] - ref) * valid).norm() / (ref * valid).norm()
+           ).item()
+    log(f"  CTC logits, f32 kernels vs f32 plain path: relative error "
+        f"{rel:.3e} (bound {REL_BOUND_F32})")
+    if not rel <= REL_BOUND_F32:
+        raise AssertionError(f"CTC logits: relative error {rel}")
+    seqs = ctc.ctc_greedy_decode(out, k32["frame_mask"])
+    n_frames = int(k32["frame_lengths"][0])
+    if len(seqs) != BATCH or any(len(s) > n_frames or any(
+            not 0 < t < CTC_VOCAB for t in s) for s in seqs):
+        raise AssertionError("ctc_greedy_decode: bad output")
+    log(f"  ctc_greedy_decode (bf16 logits): {BATCH} rows, "
+        f"{sum(map(len, seqs)) / BATCH:.1f} labels a row of {n_frames} "
+        f"frames; row 0 starts {seqs[0][:12]}")
+
+    labels = torch.randint(1, CTC_VOCAB, (BATCH, CTC_LABELS), generator=gen,
+                           device=dev)
+    labels[1, CTC_LABELS - 20:] = 0          # a shorter row (blank-padded)
+    tc = trainer.TrainConfig(learning_rate=TRAIN_LR, warmup_steps=1,
+                             optimizer="adamw")
+    opt = trainer.AdamW(tc)
+    want = expected_train_launches(enc.num_layers, 0, 0)
+    box = {"state": opt.init(params)}
+
+    def step():
+        """One AdamW step on the CTC loss: (loss, gradient norm) tensors."""
+        leaves = trainer.tree_map(lambda p: p.detach().requires_grad_(),
+                                  params)
+        loss = ctc.ctc_apply(leaves, enc, wav, lengths, labels=labels,
+                             dtype=torch.bfloat16)["loss"]
+        flat = [p for _, p in tree_paths(leaves)]
+        it = iter(torch.autograd.grad(loss, flat, allow_unused=True))
+        # masked_spec_embed (no SpecAugment here) gets no gradient
+        grads = trainer.tree_map(
+            lambda p: (lambda g: torch.zeros_like(p) if g is None else g)(
+                next(it)), params)
+        norm = trainer.global_norm(grads)
+        box["state"] = opt.update_(params, grads, box["state"], norm)
+        return loss, norm
+
+    losses, times = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(CTC_STEPS):
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, norm = step()
+        loss = loss.item()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        run_counts = _launches()
+        log(f"  CTC step {i + 1}: loss {loss:.3f}, grad_norm "
+            f"{norm.item():.3f}, {dt * 1e3:.1f} ms")
+        if run_counts != want:
+            raise AssertionError(f"CTC step {i + 1}: launches {run_counts}, "
+                                 f"expected {want}")
+        if not math.isfinite(loss):
+            raise AssertionError(f"CTC step {i + 1}: loss {loss}")
+        losses.append(loss)
+        if i >= 2:
+            times.append(dt)
+    counts["ctc-train"] = run_counts
+    if not losses[-1] < losses[1]:
+        raise AssertionError(f"CTC: the loss did not fall: {losses}")
+    med = sorted(times)[len(times) // 2]
+    log(f"  CTC AdamW step: {med * 1e3:.1f} ms (median of {len(times)}), "
+        f"audio-seconds per second trained {BATCH * SECONDS / med:.2f}, "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, "
+        f"loss {losses[1]:.3f} -> {losses[-1]:.3f}, launches per step "
+        f"{ {k: v for k, v in run_counts.items() if v} } on {card}")
+    _profile_step(step, "CTC AdamW step")
+
+
+def hf_config_dicts(cfg):
+    """The HF config.json dicts of a wav2vec2 + BART SpeechMix config, in the
+    reference's composite layout ({"model_type": "speechmix", "encoder",
+    "decoder"})."""
+    enc, dec = cfg.encoder, cfg.decoder
+    return {"model_type": "speechmix", "encoder": {
+        "model_type": "wav2vec2", "_name_or_path": enc.name,
+        "conv_dim": list(enc.conv_dims), "conv_kernel": list(enc.conv_kernels),
+        "conv_stride": list(enc.conv_strides), "conv_bias": enc.conv_bias,
+        "feat_extract_norm": enc.feat_extract_norm,
+        "hidden_size": enc.hidden_size, "num_hidden_layers": enc.num_layers,
+        "num_attention_heads": enc.num_heads, "intermediate_size": enc.ffn_dim,
+        "hidden_act": enc.activation, "layer_norm_eps": enc.layer_norm_eps,
+        "do_stable_layer_norm": enc.do_stable_layer_norm,
+        "num_conv_pos_embeddings": enc.pos_conv_kernel,
+        "num_conv_pos_embedding_groups": enc.pos_conv_groups,
+        "hidden_dropout": enc.dropout,
+        "attention_dropout": enc.attention_dropout,
+        "activation_dropout": enc.activation_dropout,
+        "feat_proj_dropout": enc.feat_proj_dropout,
+        "apply_spec_augment": enc.apply_spec_augment,
+        "mask_time_prob": enc.mask_time_prob,
+        "mask_time_length": enc.mask_time_length,
+        "mask_time_min_masks": enc.mask_time_min_masks,
+        "mask_feature_prob": enc.mask_feature_prob,
+        "mask_feature_length": enc.mask_feature_length,
+        "mask_feature_min_masks": enc.mask_feature_min_masks,
+        "layerdrop": enc.layerdrop}, "decoder": {
+        "model_type": "bart", "_name_or_path": dec.name,
+        "vocab_size": dec.vocab_size, "d_model": dec.hidden_size,
+        "encoder_layers": dec.encoder_layers,
+        "decoder_layers": dec.decoder_layers,
+        "encoder_attention_heads": dec.num_heads,
+        "encoder_ffn_dim": dec.ffn_dim,
+        "activation_function": dec.activation,
+        "max_position_embeddings": dec.max_positions,
+        "pad_token_id": dec.pad_token_id, "bos_token_id": dec.bos_token_id,
+        "eos_token_id": dec.eos_token_id,
+        "decoder_start_token_id": dec.decoder_start_token_id,
+        "dropout": dec.dropout, "attention_dropout": dec.attention_dropout,
+        "activation_dropout": dec.activation_dropout,
+        "scale_embedding": dec.scale_embedding,
+        "tie_word_embeddings": dec.tie_word_embeddings,
+        "max_length": dec.max_length}}
+
+
+def serve_loaders(cfg, params, wav, lengths, card, counts):
+    """export_speechmix of the flagship's parameters through torch.save
+    into pytorch_model.bin beside a composite config.json;
+    HFSpeechMixEED.from_reference_checkpoint and load_hf_checkpoint (from
+    the two backbones' files) on the card, their bf16 greedy tokens
+    bit-identical to the source parameters'."""
+    import dataclasses
+    import tempfile
+    import torch
+    from speechmix_tpu_torch import api, convert, generation
+    from speechmix_tpu_torch.training.freezing import tree_paths
+    bf16 = torch.bfloat16
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        sd = convert.export_speechmix(params, cfg)
+        t_export = time.perf_counter() - t0
+        ckpt = os.path.join(tmp, "ckpt")
+        os.makedirs(ckpt)
+        with open(os.path.join(ckpt, "config.json"), "w") as f:
+            json.dump(hf_config_dicts(cfg), f)
+        t0 = time.perf_counter()
+        torch.save({k: torch.from_numpy(v) for k, v in sd.items()},
+                   os.path.join(ckpt, "pytorch_model.bin"))
+        t_save = time.perf_counter() - t0
+        size = os.path.getsize(os.path.join(ckpt, "pytorch_model.bin"))
+        for name, prefix in (("speech", "encoder_model."),
+                             ("nlp", "decoder_model.")):
+            os.makedirs(os.path.join(tmp, name))
+            torch.save({k[len(prefix):]: torch.from_numpy(v)
+                        for k, v in sd.items() if k.startswith(prefix)},
+                       os.path.join(tmp, name, "pytorch_model.bin"))
+        del sd
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = api.HFSpeechMixEED.from_reference_checkpoint(
+            ckpt, down_scale=2, dtype="bfloat16")
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        derived = model.config
+        for part in ("encoder", "decoder"):
+            want_d = dataclasses.asdict(getattr(cfg, part))
+            got_d = dataclasses.asdict(getattr(derived, part))
+            diff = [k for k in want_d if want_d[k] != got_d[k]
+                    and k not in ("name", "extractor_impl")]
+            if diff:
+                raise AssertionError(f"config_from_hf: the {part} differs "
+                                     f"from the flagship's in {diff}")
+        got = dict(tree_paths(model.params))
+        if sorted(got) != sorted(p for p, _ in tree_paths(params)) or any(
+                not torch.equal(got[p], t) for p, t in tree_paths(params)):
+            raise AssertionError("from_reference_checkpoint: parameters "
+                                 "differ from the exported ones")
+        log(f"loaders: export_speechmix {t_export:.2f} s, torch.save "
+            f"{t_save:.2f} s ({size / 2 ** 20:.0f} MiB), "
+            f"HFSpeechMixEED.from_reference_checkpoint on the card "
+            f"{t_load:.2f} s; every parameter bit-identical to the source; "
+            f"config_from_hf gives the flagship's configuration (extractor "
+            f"{derived.encoder.extractor_impl!r}) on {card}")
+        want, _ = generation.generate(params, derived, wav, lengths,
+                                      max_length=MAX_LEN, dtype=bf16)
+        counts["loaded-greedy"], out, _ = serve_mode(
+            "from_reference_checkpoint greedy generate",
+            lambda: generation.generate(model.params, derived, wav, lengths,
+                                        max_length=MAX_LEN, dtype=bf16),
+            serving_launches("greedy", MAX_LEN, fused_extractor=False),
+            card, BATCH * SECONDS)
+        tokens_equal("from_reference_checkpoint greedy, bf16, vs the source "
+                     "parameters", out[0], want)
+        model.params["speech_encoder"] = model.params["nlp"] = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.load_hf_checkpoint(os.path.join(tmp, "speech"),
+                                 os.path.join(tmp, "nlp"))
+        torch.cuda.synchronize()
+        t_hf = time.perf_counter() - t0
+        out, _ = generation.generate(model.params, derived, wav, lengths,
+                                     max_length=MAX_LEN, dtype=bf16)
+        tokens_equal(f"load_hf_checkpoint (backbones in {t_hf:.2f} s) "
+                     "greedy, bf16, vs the source parameters", out, want)
+    del model
+
+
+def serve_api(seed, wav, lengths, card, counts):
+    """SpeechMixEED("wav2vec2-base", "bart-base", down_scale=2,
+    dtype="bfloat16") on the card: forward with labels, generate greedy and
+    beam-4 against generation.generate on its parameters, save_pretrained
+    -> from_pretrained."""
+    import tempfile
+    import torch
+    from speechmix_tpu_torch import api, generation
+    from speechmix_tpu_torch.training.freezing import tree_paths
+    t0 = time.perf_counter()
+    model = api.SpeechMixEED("wav2vec2-base", "bart-base", down_scale=2,
+                             dtype="bfloat16", seed=seed)
+    torch.cuda.synchronize()
+    log(f"API: SpeechMixEED('wav2vec2-base', 'bart-base', down_scale=2, "
+        f"dtype='bfloat16') on {model.device} in "
+        f"{time.perf_counter() - t0:.2f} s; extractor "
+        f"{model.config.encoder.extractor_impl!r} (the library conv: no K6)")
+    n = int(lengths[0])
+    wavs = [w[:n].cpu().numpy() for w in wav]
+    gen = torch.Generator().manual_seed(seed)
+    labels = torch.randint(3, model.config.decoder.vocab_size,
+                           (BATCH, TRAIN_LABELS), generator=gen)
+    out = model(wavs, labels=labels.numpy(), return_model_detail=True)
+    loss = out["loss"].item()
+    log(f"  forward with labels: loss {loss:.4f}, logits "
+        f"{tuple(out['logits'].shape)}, predictions "
+        f"{tuple(out['predictions'].shape)}, "
+        f"shape_before_length_adapter {out['shape_before_length_adapter']}")
+    if not math.isfinite(loss):
+        raise AssertionError(f"API forward: loss {loss}")
+    batch, lens = api._prepare_audio(wavs, encoder_cfg=model.config.encoder,
+                                     device=model.device)
+    direct = lambda **kw: generation.generate(  # noqa: E731
+        model.params, model.config, batch, lens, max_length=MAX_LEN,
+        dtype=torch.bfloat16, **kw)[0]
+    for mode, kwargs in (("greedy", {}), ("beam-4", {"num_beams": BEAMS})):
+        counts[f"api-{mode}"], got, _ = serve_mode(
+            f"API {mode} generate",
+            lambda kw=kwargs: model.generate(wavs, max_length=MAX_LEN, **kw),
+            serving_launches(mode, MAX_LEN, fused_extractor=False), card,
+            BATCH * SECONDS)
+        tokens_equal(f"API {mode} vs generation.generate on its parameters",
+                     got, direct(**kwargs))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        model.save_pretrained(tmp)
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = api.SpeechMixEED.from_pretrained(tmp)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+    got = dict(tree_paths(back.params))
+    if any(not torch.equal(got[p], t) for p, t in tree_paths(model.params)):
+        raise AssertionError("from_pretrained: parameters differ")
+    tokens_equal(f"save_pretrained ({t_save:.2f} s) -> from_pretrained "
+                 f"({t_load:.2f} s): parameters bit-identical, greedy",
+                 back.generate(wavs, max_length=MAX_LEN),
+                 model.generate(wavs, max_length=MAX_LEN))
+
+
+def _pipeline_utterances(seed):
+    """PIPELINE_UTTERANCES waveforms of 1-30 s from the seed: two longer
+    than the largest bucket (20 s), one shorter than a conv frame, the rest
+    over the buckets, at loudness from 0.01 to 1."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    secs = rng.uniform(1.0, 20.0, PIPELINE_UTTERANCES)
+    secs[[5, 40]] = (27.3, 30.0)
+    n = (secs * 16000).astype(int)
+    n[17] = 300
+    gains = 10.0 ** rng.uniform(-2, 0, PIPELINE_UTTERANCES)
+    return [(rng.randn(k) * g).astype(np.float32) for k, g in zip(n, gains)]
+
+
+class IdTokenizer:
+    """Token ids as text, each as its decimal number, so that a transcript
+    carries every token the decoder chose (the byte tokenizer, the port's
+    stand-in without a local HF tokenizer, has no text for most of
+    bart-base's ids)."""
+
+    def decode(self, ids, skip_special_tokens=True):
+        return " ".join(str(int(i)) for i in ids)
+
+
+def check_bucket_shapes(params, cfg, pipe, by_cap):
+    """The first batch of each of the pipeline's buckets (`by_cap`: its
+    segments by padded length; `pipe` transfers float32): the text
+    encoder's output (K6, K1, K2 and K3 at the bucket's lengths) in bf16
+    and in f32 through the kernels against the f32 plain path, and the f32
+    greedy tokens through the kernels (K4 at the bucket's key length, with
+    exact launches) equal to the plain path's."""
+    import torch
+    from speechmix_tpu_torch import generation
+    from speechmix_tpu_torch.ops import kernels
+    from speechmix_tpu_torch.ops.kernels import decode_attention as kd
+    p32 = _cast_tree(params, torch.float32)
+    want = expected_launches("greedy", MAX_LEN)
+    want.update(ffn_forward_launches(LAYERS_WITH_KERNELS, 0, dtype="f32"))
+    for cap in sorted(by_cap):
+        chunk = by_cap[cap][:BATCH]
+        chunk += [chunk[-1]] * (BATCH - len(chunk))
+        host, lens, _ = pipe._host_batch(chunk, cap)
+        wav = torch.from_numpy(host).to(pipe.device)
+        lengths = torch.from_numpy(lens).to(pipe.device)
+        run = lambda: generation.generate(  # noqa: E731
+            p32, cfg, wav, lengths, max_length=MAX_LEN,
+            dtype=torch.float32)[0]
+        k4 = collections.Counter()
+        kd.KERNEL.launch = _tally_by_length(kd.KERNEL, k4, 2)
+        try:
+            out_bf16, mask = encoder_output(params, cfg, wav, lengths,
+                                            torch.bfloat16)
+            out_k32, _ = encoder_output(p32, cfg, wav, lengths,
+                                        torch.float32)
+            kernels.reset_launch_counts()
+            tokens = run()
+            launched = _launches()
+        finally:
+            del kd.KERNEL.launch   # the class's own again
+        if launched != want:
+            raise AssertionError(f"bucket {cap}: f32 greedy launches "
+                                 f"{launched}, expected {want}")
+        with plain_kernels():
+            kernels.reset_launch_counts()
+            ref, _ = encoder_output(p32, cfg, wav, lengths, torch.float32)
+            ref_tokens = run()
+            if any(k.launches for k in kernels.kernels()):
+                raise AssertionError("the plain reference launched a kernel")
+        valid = mask[..., None].float()
+        errs = []
+        for name, a, bound in (("bf16", out_bf16, REL_BOUND_BF16),
+                               ("f32", out_k32, REL_BOUND_F32)):
+            r = (((a - ref) * valid).norm() / (ref * valid).norm()).item()
+            if not (torch.isfinite(a).all() and r <= bound):
+                raise AssertionError(f"bucket {cap}: {name} text-encoder "
+                                     f"output relative error {r} > {bound}")
+            errs.append(f"{name} {r:.3e} (bound {bound})")
+        keys = sorted(t for _, t in k4 if t != MAX_LEN)
+        tokens_equal(f"bucket {cap} samples ({mask.shape[1]} text-encoder "
+                     f"positions, K4 cross-attention over {keys} keys): "
+                     f"text-encoder output vs the f32 plain path "
+                     f"{', '.join(errs)}; f32 greedy, kernels vs plain path",
+                     tokens, ref_tokens)
+
+
+def serve_pipeline(seed, card, counts, by_length):
+    """TranscriptionPipeline(model, batch_size=16) over the utterances of
+    _pipeline_utterances, with float32 and int16 transfer, the model the
+    flagship's (fused extractor, bf16) with IdTokenizer: order, chunking
+    and the short input, every transcript equal to the text of a direct
+    generate() of its bucket's batch, wall time and audio-s/s; then the
+    kernels at each bucket's shapes against their plain versions
+    (check_bucket_shapes) and the busy share of a profiled float32 run.
+    K4's launches by key length go into by_length."""
+    import torch
+    from speechmix_tpu_torch import api, generation
+    from speechmix_tpu_torch.data import audio
+    from speechmix_tpu_torch.ops import kernels
+    from speechmix_tpu_torch.ops.kernels import decode_attention as kd
+    from speechmix_tpu_torch.pipeline import TranscriptionPipeline
+    cfg = flagship_config()
+    model = api.SpeechMixEED(cfg.encoder, cfg.decoder, down_scale=2,
+                             dtype="bfloat16", seed=seed)
+    model.tokenizer = IdTokenizer()
+    # the random flagship ends its rows at the first steps; EOS lowered, the
+    # rows run every step, as a 16 s utterance's transcript would
+    model.params["nlp"]["final_logits_bias"][cfg.decoder.eos_token_id] -= \
+        EOS_LOW
+    wavs = _pipeline_utterances(seed)
+    total_s = sum(len(w) for w in wavs) / 16000
+    for dtype in ("float32", "int16"):
+        pipe = TranscriptionPipeline(model, batch_size=BATCH,
+                                     max_length=MAX_LEN,
+                                     transfer_dtype=dtype)
+        t0 = time.perf_counter()
+        pipe.warmup()
+        t_warm = time.perf_counter() - t0
+        calls = []
+        real = generation.generate
+
+        def spy(*a, **kw):
+            calls.append(tuple(a[2].shape))
+            return real(*a, **kw)
+        from speechmix_tpu_torch import pipeline as pipe_mod
+        pipe_mod.gen_lib.generate = spy
+        k4_lengths = collections.Counter()
+        kd.KERNEL.launch = _tally_by_length(kd.KERNEL, k4_lengths, 2)
+        try:
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            texts = pipe(wavs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            pipe_mod.gen_lib.generate = real
+            del kd.KERNEL.launch   # the class's own again
+        run_counts = _launches()
+        counts[f"pipeline-{dtype}"] = run_counts
+        by_length[f"pipeline-{dtype}"] = dict(k4_lengths)
+        per_call = serving_launches("greedy", 0)
+        for sym in ("smx_attention_fwd", "smx_dense_res_ln",
+                    "smx_conv_ln_gelu", "smx_ffn_up"):
+            if run_counts[sym] != per_call[sym] * len(calls):
+                raise AssertionError(f"pipeline: {sym} {run_counts[sym]} "
+                                     f"launches in {len(calls)} calls")
+        if run_counts["smx_decode_attention"] % (2 * DECODER_LAYERS):
+            raise AssertionError("pipeline: K4 launches not whole steps")
+        # the expected transcripts: every segment alone in a direct batch
+        # of its bucket (rows do not interact), with the int16 round trip
+        segs = []          # (utterance, segment, waveform)
+        for i, w in enumerate(wavs):
+            parts = (pipe.split_long(w)
+                     if len(w) > pipe.buckets_sec[-1] * 16000 else [w])
+            segs += [(i, j, p) for j, p in enumerate(parts)]
+        by_cap = collections.defaultdict(list)
+        for i, j, w in segs:
+            if len(w) >= pipe._min_samples:
+                cap = cfg.encoder.aligned_samples(
+                    audio.bucket_length(len(w), pipe.buckets_sec))
+                by_cap[cap].append((i, j, w))
+        seg_text = {(i, j): "" for i, j, _ in segs}
+        with spending("pipeline reference batches"):
+            for cap, items in by_cap.items():
+                for start in range(0, len(items), BATCH):
+                    chunk = items[start:start + BATCH]
+                    chunk += [chunk[-1]] * (BATCH - len(chunk))
+                    host, lens, scale = pipe._host_batch(chunk, cap)
+                    x = torch.from_numpy(host).to(model.device)
+                    if dtype == "int16":
+                        x = x.float() * (torch.from_numpy(scale).to(
+                            model.device)[:, None] / 32767.0)
+                    tok, _ = real(model.params, cfg, x,
+                                  torch.from_numpy(lens).to(model.device),
+                                  max_length=MAX_LEN, dtype=torch.bfloat16)
+                    tok = tok.cpu().numpy()
+                    for r, (i, j, _) in enumerate(chunk[:BATCH]):
+                        seg_text[(i, j)] = model.tokenizer.decode(
+                            tok[r], skip_special_tokens=True)
+        want = []
+        for i in range(len(wavs)):
+            parts = [seg_text[k] for k in sorted(seg_text) if k[0] == i]
+            want.append(" ".join(p for p in parts if p).strip()
+                        if len(parts) > 1 else parts[0])
+        if texts != want:
+            bad = [i for i, (a, b) in enumerate(zip(texts, want)) if a != b]
+            raise AssertionError(f"pipeline {dtype}: transcripts {bad} "
+                                 "differ from direct generate()")
+        filled = sum(bool(t) for t in texts)
+        if texts[17] != "" or len(texts) != len(wavs) or \
+                filled != len(wavs) - 1:
+            raise AssertionError(f"pipeline: the short input, the count or "
+                                 f"an empty transcript ({filled} filled)")
+        busy = ""
+        if dtype == "float32":
+            with spending("f32 checks"):
+                check_bucket_shapes(model.params, cfg, pipe, by_cap)
+            with spending("profiled calls"):
+                wall_us, busy_us, _ = profile_call(lambda: pipe(wavs))
+            busy = (f"; profiled call busy {busy_us / wall_us:.3f} of "
+                    f"{wall_us / 1e3:.1f} ms")
+        log(f"pipeline ({dtype} transfer): {len(wavs)} utterances "
+            f"({total_s:.1f} s of audio; 2 chunked, 1 too short), "
+            f"{len(calls)} generate calls at {sorted(set(calls))}, "
+            f"{wall * 1e3:.1f} ms, audio-seconds per second "
+            f"{total_s / wall:.2f}; warmup {t_warm:.2f} s{busy}; "
+            f"transcripts in order, each equal to a direct generate() of "
+            f"its bucket's batch; launches "
+            f"{ {k: v for k, v in run_counts.items() if v} }, K4 by key "
+            f"length { {f'{k[0]} {k[1]}': n for k, n in sorted(k4_lengths.items())} } on {card}")
+    del model
+
+
+def run_serving(seed, card):
+    """The serving surface at the flagship's full width and depth, B =
+    BATCH x SECONDS s, MAX_LEN steps, bf16: int8 weights (greedy,
+    greedy-int8, beam-4), fused q/k/v, the CTC head and its training, the
+    checkpoint loaders, the API classes and the transcription pipeline.
+    Returns ({mode: launches of a call, step or pipeline run}, {pipeline
+    mode: K4's launches by (entry, key length)})."""
+    import torch
+    t_start = time.perf_counter()
+    cfg, params, wav, lengths = flagship_inputs(seed)
+    counts, by_length = {}, {}
+    spent = {}
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        fn(*args)
+        torch.cuda.empty_cache()
+        spent[name] = time.perf_counter() - t0
+    with torch.no_grad():
+        part("int8 and fused", serve_int8_and_fused, cfg, params, wav,
+             lengths, card, counts)
+    part("CTC", serve_ctc, seed, cfg, wav, lengths, card, counts)
+    with torch.no_grad():
+        part("loaders", serve_loaders, cfg, params, wav, lengths, card,
+             counts)
+    del params
+    part("API", serve_api, seed, wav, lengths, card, counts)
+    part("pipeline", serve_pipeline, seed, card, counts, by_length)
+    log(f"serving phase: {time.perf_counter() - t_start:.1f} s ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in spent.items())
+        + "); across the parts: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in SERVING_SPENT.items()))
+    return counts, by_length
+
+
 def _cast_tree(tree, dtype):
     if isinstance(tree, dict):
         return {k: _cast_tree(v, dtype) for k, v in tree.items()}
@@ -4714,6 +5529,9 @@ def main():
     counts.update(t5_counts)
     by_length.update(t5_rows)
     check_gradient_tree(args.seed, t5=True)
+    serving_counts, serving_lengths = run_serving(args.seed, card)
+    counts.update(serving_counts)
+    by_length.update(serving_lengths)
 
     pallas = "speechmix_tpu/ops/pallas/"
     # name: (source, TPU kernel file:line, mode whose run gives `launches`)
@@ -4881,6 +5699,12 @@ def main():
             "beam_gather.cu", "beam_gather.py:39",
             f"{model.split('-')[0]}-beam-4", "smx_beam_gather")
            for model in T5_MODES},
+        # K4 at the pipeline's 20, 12 and 8 s buckets (T = 500, 300, 200),
+        # its launches there
+        **{f"decode_attention (cross greedy T={t})": (
+            "decode_attention.cu", "decode_attention.py:31",
+            "pipeline-float32", "smx_decode_attention")
+           for t in (500, 300, 200)},
     }
     line = {"kernels": []}
     for name, (source, tpu, mode, *symbol) in replaces.items():

@@ -2,9 +2,9 @@
 
 A copy of ``speechmix_tpu.config``: the same classes, field names, defaults
 and presets, so a configuration means the same model in both packages.  The
-port keeps its own copy and imports nothing from the JAX package.  Unlike
-the JAX module, a name that is not a preset is not looked up as a
-checkpoint directory (the port has no HF config loader yet).
+port keeps its own copy and imports nothing from the JAX package.  A local
+HF checkpoint directory (one with a config.json) given in place of a preset
+name derives its architecture through ``convert.config_from_hf``.
 """
 
 from __future__ import annotations
@@ -332,11 +332,29 @@ SEQ2SEQ_PRESETS = {
 }
 
 
+def _maybe_config_from_dir(name):
+    """The configuration of a local HF checkpoint directory (one holding a
+    config.json) through convert.config_from_hf, else None."""
+    import os
+    p = str(name)
+    if os.path.isdir(p) and os.path.exists(os.path.join(p, "config.json")):
+        from . import convert
+        return convert.config_from_hf(p)
+    return None
+
+
 def speech_encoder_config(name_or_cfg) -> SpeechEncoderConfig:
     if isinstance(name_or_cfg, SpeechEncoderConfig):
         return name_or_cfg
     if name_or_cfg in SPEECH_ENCODER_PRESETS:
         return SPEECH_ENCODER_PRESETS[name_or_cfg]
+    derived = _maybe_config_from_dir(name_or_cfg)
+    if derived is not None:
+        if not isinstance(derived, SpeechEncoderConfig):
+            raise ValueError(
+                f"{name_or_cfg} holds a non-speech-encoder config "
+                f"({type(derived).__name__})")
+        return derived
     lowered = str(name_or_cfg).lower()
     # name-substring dispatch, mirroring hf_model.py:210-215
     if "large" in lowered or "lv60" in lowered:
@@ -349,6 +367,13 @@ def seq2seq_config(name_or_cfg) -> Seq2SeqConfig:
         return name_or_cfg
     if name_or_cfg in SEQ2SEQ_PRESETS:
         return SEQ2SEQ_PRESETS[name_or_cfg]
+    derived = _maybe_config_from_dir(name_or_cfg)
+    if derived is not None:
+        if not isinstance(derived, Seq2SeqConfig):
+            raise ValueError(
+                f"{name_or_cfg} holds a non-seq2seq config "
+                f"({type(derived).__name__})")
+        return derived
     lowered = str(name_or_cfg).lower()
     if "byt5" in lowered:
         return dataclasses.replace(BYT5_SMALL, name=str(name_or_cfg))

@@ -315,7 +315,13 @@ __device__ __forceinline__ void widen(const uint2& raw, float* x, int8_t) {
 
 // byte offsets of a block's shared memory over a share of `len` keys in a
 // cluster of `ranks`; the buffers the cluster writes into lie at the same
-// offsets in every block
+// offsets in every block.  Each region after the scores starts on a 16-byte
+// boundary: (KBT, len) f32 scores end on a 4-byte one when KBT * len is
+// odd (T = 500: four shares of 125 keys), and the mbarriers need 8 bytes.
+__host__ __device__ constexpr size_t align16(size_t o) {
+  return (o + 15) & ~static_cast<size_t>(15);
+}
+
 template <typename KT, int KBT>
 struct Layout {
   static constexpr size_t ROW = D * sizeof(KT);  // a key's bytes
@@ -329,6 +335,7 @@ struct Layout {
     o += (size_t)KBT * D * sizeof(float);
     sc = o;  // (KBT, len) scores, then exp(s - m), then probabilities
     o += (size_t)KBT * len * sizeof(float);
+    o = align16(o);
     xpart = o;  // (ranks, KBT, D) the shares' partials, in rank 0
     o += (size_t)ranks * KBT * D * sizeof(float);
     xmax = o;  // (MAX_RANKS, KBT) the shares' maxima
@@ -341,6 +348,7 @@ struct Layout {
     o += (size_t)2 * KBT * sizeof(float);
     msk = o;  // the row's mask bytes
     o += MAX_T;
+    o = align16(o);
     bar = o;  // mbarriers of the exchanges: the statistics, the partials
     o += 2 * sizeof(uint64_t);  // (rank 0)
     total = o;

@@ -431,13 +431,15 @@ def _decoder_block(block, cfg, x, self_bias, self_kv_mask, layer_cache,
 
 def tied_head_operand(params, cfg: Seq2SeqConfig, dtype=torch.float32):
     """The tied LM head's (V, H) operand for decode(): the embedding rounded
-    to `dtype`, and off the card upcast to float32 (torch.mm's out_dtype,
-    bfloat16 operands to a float32 result, is a CUDA product), so that a
-    generate call rounds and casts the table once and not at every step.
-    None for an untied head."""
+    to `dtype` (an int8 table: its codes, exact in `dtype`; _lm_logits
+    applies the per-row scales to the f32 logits), and off the card upcast
+    to float32 (torch.mm's out_dtype, bfloat16 operands to a float32 result,
+    is a CUDA product), so that a generate call rounds and casts the table
+    once and not at every step.  None for an untied head."""
     if not cfg.tie_word_embeddings:
         return None
-    w = params["shared"]["embedding"].to(dtype)
+    shared = params["shared"]
+    w = shared.get("embedding_q", shared.get("embedding")).to(dtype)
     if w.device.type != "cuda":
         w = w.float()
     return w
@@ -464,13 +466,19 @@ def _lm_logits(params, cfg: Seq2SeqConfig, x, dtype, lm_head=None):
     factor rounded to it, as the JAX package's weakly typed product) against
     the embedding, lm_head its operand from tied_head_operand (None: made
     here); untied: the `lm_head` dense in `dtype`.  BART adds its
-    final_logits_bias."""
+    final_logits_bias.  An int8 table (``embedding_q``) enters the product
+    as its codes in `dtype`, and the f32 logits are multiplied by its
+    per-row scales, as the JAX package's int8 head."""
     if cfg.tie_word_embeddings:
+        shared = params["shared"]
         if lm_head is None:
-            lm_head = params["shared"]["embedding"].to(dtype)
+            lm_head = shared.get("embedding_q",
+                                 shared.get("embedding")).to(dtype)
         if cfg.arch == "t5":
             x = x * torch.tensor(cfg.hidden_size ** -0.5, dtype=x.dtype)
         logits = _tied_logits(x, lm_head)
+        if "embedding_q" in shared:
+            logits = logits * shared["embedding_scale"].float()
     else:
         logits = layers.dense(params["lm_head"], x, dtype).float()
     if cfg.arch == "bart":

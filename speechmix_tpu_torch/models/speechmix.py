@@ -33,7 +33,11 @@ def encode_speech(params, cfg: SpeechMixConfig, input_values, lengths=None,
     prompt_ids: optional (P,) or (B, P) token ids embedded and put before
     the speech embeddings; dropout_rng: the speech encoder's training key.
     A `details` dict receives "layers_skipped" (LayerDrop's skipped layer
-    indices).  Returns (inputs_embeds (B, P+T', H_nlp), mask (B, P+T'))."""
+    indices) and the JAX package's model details: "weighted_sum" (the
+    softmaxed layer weights, when the config has them),
+    "shape_before_length_adapter", "shape_before_enc_dec_projector" and
+    "shape_after_enc_dec_projector".  Returns (inputs_embeds (B, P+T',
+    H_nlp), mask (B, P+T'))."""
     enc_out = se.speech_encoder_apply(
         params["speech_encoder"], cfg.encoder, input_values, lengths,
         output_hidden_states=cfg.weighted_sum, dtype=dtype,
@@ -46,10 +50,17 @@ def encode_speech(params, cfg: SpeechMixConfig, input_values, lengths=None,
         if cfg.weighted_sum_convention == "s3prl":
             stacked = stacked[1:]  # s3prl omits the embedding output
         norm_w = torch.softmax(params["weights_sum"].float(), dim=0)
+        if details is not None:
+            details["weighted_sum"] = norm_w
         h = torch.einsum("l,lbth->bth", norm_w.to(h.dtype), stacked)
+    shapes = {"shape_before_length_adapter": tuple(h.shape)}
     for conv in params["length_adapter"]:
         h = layers.conv1d(conv, h, stride=2, dtype=dtype)
+    shapes["shape_before_enc_dec_projector"] = tuple(h.shape)
     h = layers.dense(params["enc_to_dec_proj"], h, dtype)
+    shapes["shape_after_enc_dec_projector"] = tuple(h.shape)
+    if details is not None:
+        details.update(shapes)
     frame_lengths = downscale_lengths(enc_out["frame_lengths"], cfg.downloop)
     mask = length_mask(frame_lengths, h.shape[1])
     h = h * mask[..., None].to(h.dtype)
@@ -137,7 +148,8 @@ def _gan_loss(params, cfg, out, nlp_out, inputs_embeds, enc_mask,
 def speechmix_forward(params, cfg: SpeechMixConfig, input_values,
                       lengths=None, labels=None, decoder_input_ids=None,
                       prompt_ids=None, dtype=torch.float32, dropout_rng=None,
-                      text_input_ids=None, text_mask=None):
+                      text_input_ids=None, text_mask=None,
+                      return_model_detail=False):
     """Training / evaluation forward of the embed-fusion variants eed,
     fixed, adapter (adapters after every NLP block), self and gan (speech
     embeddings into the text encoder), and of ed (the decoder cross-attends
@@ -154,7 +166,8 @@ def speechmix_forward(params, cfg: SpeechMixConfig, input_values,
     ``split(2)``, so the speech and NLP keys are the ones they were before
     the text pass existed.  Returns dict(logits (B, L, V) float32,
     layers_skipped[, loss, and for self ce_loss, kld_loss, mse_loss, for gan
-    voice_enc_loss, voice_dec_loss, nlp_enc_loss, nlp_dec_loss])."""
+    voice_enc_loss, voice_dec_loss, nlp_enc_loss, nlp_dec_loss]), with
+    return_model_detail also encode_speech's model details."""
     check_key(dropout_rng)
     k_speech, k_nlp, k_text = split_or_none(dropout_rng, 3)
     dcfg = cfg.decoder
@@ -188,7 +201,9 @@ def speechmix_forward(params, cfg: SpeechMixConfig, input_values,
             output_hidden_states=variant in ("self", "gan"),
             adapters=params["adapters"] if variant == "adapter" else None)
     result = {"logits": out["logits"],
-              "layers_skipped": details["layers_skipped"]}
+              "layers_skipped": details.pop("layers_skipped")}
+    if return_model_detail:
+        result.update(details)
     if labels is None:
         return result
     if variant == "self":

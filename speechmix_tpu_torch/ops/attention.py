@@ -72,6 +72,8 @@ def attention(params, x_q, x_kv=None, bias=None, kv_mask=None, causal=False,
     out_proj=False returns the concatenated heads (the caller fuses the
     out-projection into its residual + LayerNorm epilogue).
     dropout_rate / dropout_rng: probability dropout (training, no cache).
+    params: q_proj / k_proj / v_proj / out_proj denses (float or int8), or
+    for a self-attention a fused ``qkv_proj`` in place of the first three.
     Returns (out, new_cache)."""
     check_key(dropout_rng)
     if dropout_rng is None or cache is not None:
@@ -81,14 +83,25 @@ def attention(params, x_q, x_kv=None, bias=None, kv_mask=None, causal=False,
     if num_heads is None and head_dim is None:
         raise ValueError("attention() needs num_heads or head_dim; the "
                          "inner projection width alone is ambiguous")
-    inner = params["q_proj"]["kernel"].shape[-1]
+    fused = params.get("qkv_proj")
+    proj = fused if fused is not None else params["q_proj"]
+    inner = proj.get("kernel", proj.get("kernel_q")).shape[-1]
+    if fused is not None:
+        inner //= 3
     num_heads = num_heads or inner // head_dim
     head_dim = head_dim or inner // num_heads
     scale = scale if scale is not None else 1.0 / math.sqrt(head_dim)
 
-    q = layers.dense(params["q_proj"], x_q, dtype)
-    k = layers.dense(params["k_proj"], x_kv, dtype)
-    v = layers.dense(params["v_proj"], x_kv, dtype)
+    if fused is not None:
+        # the pre-concatenated (Din, 3*H*D) kernel of a self-attention
+        # (utils/quantize.fuse_qkv_params): one product, each third made
+        # contiguous for the kernels, which take (B, T, H*D) slabs
+        q, k, v = (part.contiguous() for part in
+                   layers.dense(fused, x_q, dtype).chunk(3, dim=-1))
+    else:
+        q = layers.dense(params["q_proj"], x_q, dtype)
+        k = layers.dense(params["k_proj"], x_kv, dtype)
+        v = layers.dense(params["v_proj"], x_kv, dtype)
 
     new_cache = None
     if cache is None and bias is None and dropout_rate > 0.0:

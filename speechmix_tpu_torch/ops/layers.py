@@ -36,16 +36,78 @@ from .kernels.dropout import STREAM_ACT, STREAM_OUT
 FUSED_MIN_ROWS = 1024  # the JAX row gate: cached decode steps stay plain
 FUSED_WIDTH = 128      # the JAX width gate: both widths of a fused block
 
+# With int8 weights present, also quantize the activations per token and
+# take the product int8 x int8 -> int32 (``set_int8_dense_compute``);
+# off: dequantize the weights and take the product in the compute dtype.
+INT8_DENSE_COMPUTE = False
+# torch._int_mm's conditions on the card: more than 16 rows, inner and
+# output widths multiples of 8; smaller operands are zero-padded up to them
+_INT_MM_MIN_ROWS, _INT_MM_MULTIPLE = 17, 8
+
+
+def set_int8_dense_compute(enabled: bool):
+    """Switch the int8 x int8 -> int32 product of int8 dense weights on or
+    off (the JAX package's trace-time switch; here it acts on the next
+    call).  Serving only: it adds the activations' rounding error."""
+    global INT8_DENSE_COMPUTE
+    INT8_DENSE_COMPUTE = bool(enabled)
+
+
+def _pad_to(n, multiple):
+    return -n % multiple
+
+
+def int8_matmul(a, b):
+    """Exact (M, K) int8 x (K, N) int8 -> (M, N) int32 product.  On the card
+    torch._int_mm (cuBLAS), with the operands zero-padded to its shape
+    conditions; on the CPU an int32 matmul.  Both sum exact integers, so
+    their results are equal bit for bit."""
+    if a.device.type != "cuda":
+        return a.to(torch.int32) @ b.to(torch.int32)
+    m, k = a.shape
+    n = b.shape[1]
+    pm = max(_INT_MM_MIN_ROWS - m, 0)
+    pk, pn = _pad_to(k, _INT_MM_MULTIPLE), _pad_to(n, _INT_MM_MULTIPLE)
+    if pm or pk:
+        a = F.pad(a, (0, pk, 0, pm))
+    if pk or pn:
+        b = F.pad(b, (0, pn, 0, pk))
+    y = torch._int_mm(a.contiguous(), b.contiguous())
+    return y[:m, :n] if pm or pn else y
+
 
 def dense(params, x, dtype=None):
+    """x @ W + b in `dtype`.  An int8 kernel (``kernel_q`` with per-output-
+    channel ``kernel_scale``, utils/quantize.py) is dequantized as the JAX
+    package rounds it, ``q.to(dtype) * scale.to(dtype)``, at every call;
+    with set_int8_dense_compute(True) the activations are quantized per
+    token instead and the product is exact in int32, rescaled in float32."""
     dtype = dtype or x.dtype
-    y = x.to(dtype) @ params["kernel"].to(dtype)
+    if "kernel_q" in params:
+        wq, sw = params["kernel_q"], params["kernel_scale"]
+        if INT8_DENSE_COMPUTE:
+            xf = x.float()
+            sx = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8) / 127.0
+            xq = torch.round(xf / sx).clamp(-127, 127).to(torch.int8)
+            acc = int8_matmul(xq.reshape(-1, xq.shape[-1]), wq)
+            acc = acc.reshape(*x.shape[:-1], wq.shape[1])
+            y = (acc.float() * sx * sw.float()).to(dtype)
+        else:
+            y = x.to(dtype) @ (wq.to(dtype) * sw.to(dtype))
+    else:
+        y = x.to(dtype) @ params["kernel"].to(dtype)
     if "bias" in params:
         y = y + params["bias"].to(dtype)
     return y
 
 
 def embed(params, ids, dtype=torch.float32):
+    """Rows `ids` of the table in `dtype`; an int8 table (``embedding_q``
+    with per-row ``embedding_scale``) is gathered, then dequantized row by
+    row in `dtype`."""
+    if "embedding_q" in params:
+        rows = params["embedding_q"][ids].to(dtype)
+        return rows * params["embedding_scale"][ids].to(dtype)[..., None]
     return params["embedding"][ids].to(dtype)
 
 

@@ -125,7 +125,12 @@ def test_port_imports_no_jax():
             "speechmix_tpu_torch/data/teacher.py",
             "speechmix_tpu_torch/data/tokenizer.py",
             "speechmix_tpu_torch/training/checkpoint.py",
-            "speechmix_tpu_torch/utils/watchdog.py"} <= names
+            "speechmix_tpu_torch/utils/watchdog.py",
+            "speechmix_tpu_torch/utils/quantize.py",
+            "speechmix_tpu_torch/utils/platform.py",
+            "speechmix_tpu_torch/models/ctc.py",
+            "speechmix_tpu_torch/api.py",
+            "speechmix_tpu_torch/pipeline.py"} <= names
     for path in files:
         for name in _imported_modules(path):
             top = name.split(".")[0]
