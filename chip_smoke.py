@@ -142,6 +142,26 @@ Phases, each printing as it goes; any failure exits non-zero:
      greedy tokens equal; the phase's seconds by part and by kind of work
      (busy shares are read from the profiler's raw events,
      device_totals);
+     then the commands (run_commands): python -m speechmix_tpu_torch.train
+     on the flagship (the preset with the fused extractor; bf16, the
+     synthetic corpus, B = 16, the default recipe: Adafactor, dropout,
+     freeze_epochs 3) for 4 steps with an eval + greedy predict at the
+     last, again with --no-dropout for one step, then
+     speechmix_tpu_torch.eval on its final_weights.npz (--synthetic_eval 16
+     --beam 4, and one utterance greedy; f32): each step's, eval's and
+     predict's exact launches against its LayerDrop draw and unfreezing
+     mask, finite logged losses, the npz in the JAX package's layout with
+     the trained bits (loaded by the API), the eval JSON and decoded line,
+     and every kernel K1-K15 launched across the phase; remat (run_remat):
+     one dropout step of the flagship and of the large pair with remat off,
+     off and on, one key: equal losses, gradients bit-identical where the
+     two remat-off runs are, launches with remat_launches added, the bytes
+     the forward leaves for the backward, then train steps in turns with
+     their ms and peak memory; the profiler (run_profiler): utils/
+     profiling.trace around a greedy generate, the file holding the
+     phase's annotate spans and K1's and K4's kernels; the native runtime
+     (run_native) against the numpy plain versions on 64 utterances, host
+     ms both ways;
   6. print the `kernels` JSON line (K9, K13 and K8 at t5-small's FFN with
      their launches at 6400 and 1024 rows; K1, K14, K7 and K15 with a record per
      attention length of the step and its launches there, K6 one per
@@ -5469,6 +5489,713 @@ def run_serving(seed, card):
     return counts, by_length
 
 
+# -- phases of the commands, remat, the profiler and the native runtime ----
+
+# K number -> the entries that launch it (bf16 passes, f32 entries); K9 and
+# K13 share the down pass (smx_ffn_down): K13's in a run with dropout, K9's
+# without (kernel_launches)
+K_ENTRIES = {
+    "K1": ("smx_attention_fwd",), "K2": ("smx_dense_res_ln",),
+    "K3": ("smx_ffn_down_res", "smx_ffn_res_ln"),
+    "K4": ("smx_decode_attention", "smx_decode_attention_q8"),
+    "K5": ("smx_beam_gather",), "K6": ("smx_conv_ln_gelu",),
+    "K7": ("smx_attention_bwd",), "K8": tuple(K8_ALL),
+    "K9": ("smx_ffn_down", "smx_ffn_fused"),
+    "K10": ("smx_dropout_mask",), "K11": ("smx_dense_dropout_res_ln",),
+    "K12": ("smx_ffn_dropout_down_res", "smx_ffn_dropout_res_ln"),
+    "K13": ("smx_ffn_down", "smx_ffn_dropout"),
+    "K14": ("smx_attention_dropout_fwd",),
+    "K15": ("smx_attention_dropout_bwd",)}
+
+
+def kernel_launches(counts, dropout):
+    """Launches by K number in one run's counts; `dropout`: whether the
+    run's FFN down passes (smx_ffn_down) are K13's, else K9's."""
+    out = {k: sum(counts.get(e, 0) for e in entries)
+           for k, entries in K_ENTRIES.items()}
+    out["K9" if dropout else "K13"] -= counts.get("smx_ffn_down", 0)
+    return out
+
+
+def remat_launches(speech_kept, enc_layers, dec_layers, dtype="bf16",
+                   dropout=False, preln=False):
+    """The launches remat adds to a train step whose layers all train:
+    every layer's forward kernels once more, in the backward.  A post-LN
+    layer: K1 (K14), K2 (K11), K3 (K12) and, in a decoder layer, the second
+    K2 (K11) and with dropout K10's probability mask of its plain
+    cross-attention; a pre-LN speech layer (preln): K1 (K14), K9 (K13) and
+    with dropout K10's two output masks.  Masks that a backward regenerates
+    (K11's, K12's) and the backward's own kernels are not forward
+    launches."""
+    nlp = enc_layers + dec_layers
+    post = nlp + (0 if preln else speech_kept)
+    attn, dense = (("smx_attention_dropout_fwd", "smx_dense_dropout_res_ln")
+                   if dropout else ("smx_attention_fwd", "smx_dense_res_ln"))
+    want = {attn: speech_kept + nlp, dense: post + dec_layers,
+            **ffn_forward_launches(post, speech_kept if preln else 0, dtype,
+                                   dropout)}
+    if dropout:
+        want["smx_dropout_mask"] = dec_layers + (2 * speech_kept if preln
+                                                 else 0)
+    return want
+
+
+def with_remat(want, extra):
+    out = dict(want)
+    for k, v in extra.items():
+        out[k] = out.get(k, 0) + v
+    return out
+
+
+def expected_postln_launches(kept, attn_bwd, ffn_bwd, enc_layers,
+                             dec_layers):
+    """Launches of every kernel in one train step with dropout off, of a
+    post-LN speech encoder whose layers may be frozen: a kept layer runs K1,
+    K2 and K3 forward; K7 where its attention's backward runs (attn_bwd
+    layers) and, where its FFN block's backward runs (ffn_bwd), K9
+    recomputing the FFN and K8.  The BART layers all run theirs."""
+    nlp = enc_layers + dec_layers
+    want = expected_train_launches(0, 0, 0)
+    want.update({
+        "smx_attention_fwd": kept + nlp,
+        "smx_attention_bwd": attn_bwd + nlp,
+        "smx_dense_res_ln": kept + nlp + dec_layers,
+        **ffn_forward_launches(kept + nlp, ffn_bwd + nlp),
+        **dict.fromkeys(K8_ENTRIES["bf16"], ffn_bwd + nlp)})
+    return want
+
+
+@contextlib.contextmanager
+def fused_extractor_preset(name="wav2vec2-base"):
+    """The preset `name` with the fused extractor (K6) for the block.  The
+    preset itself says "auto", which runs the library convolution (the JAX
+    package's "auto" runs XLA's); every flagship phase of this script takes
+    the fused extractor, and so do the commands here."""
+    import dataclasses
+    from speechmix_tpu_torch import config
+    presets = config.SPEECH_ENCODER_PRESETS
+    saved = presets[name]
+    presets[name] = dataclasses.replace(saved, extractor_impl="fused")
+    try:
+        yield
+    finally:
+        presets[name] = saved
+
+
+def _captured(fn, *args):
+    """fn(*args) with its standard output captured: (result, lines)."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue().splitlines()
+
+
+COMMAND_STEPS = 4      # train command steps, the last an eval step
+COMMAND_MAX_LEN = 64   # the eval command's --max_length
+
+
+def run_commands(seed, card):
+    """The port's commands at the flagship's width (wav2vec2-base +
+    bart-base, down_scale 2, the fused extractor): `speechmix_tpu_torch.
+    train` with the default recipe (Adafactor, dropout, freeze_epochs 3) in
+    bf16 on the synthetic corpus at B = 16 for COMMAND_STEPS steps, an eval
+    + greedy predict at the last; again with --no-dropout for one step; then
+    `speechmix_tpu_torch.eval` on the final weights: --synthetic_eval 16
+    with 4 beams, and one utterance greedy.  Checks each step's, eval's and
+    predict's launches, the finite logged losses, the npz files (the JAX
+    package's layout, the trained bits), the eval outputs, and that K1-K15
+    all launched.  Returns the phase's counts by run."""
+    import tempfile
+    import numpy as np
+    import torch
+    from speechmix_tpu_torch import api, convert
+    from speechmix_tpu_torch import eval as eval_cmd
+    from speechmix_tpu_torch import train as train_cmd
+    from speechmix_tpu_torch.models import speech_encoder
+    from speechmix_tpu_torch.ops import kernels
+    from speechmix_tpu_torch.ops.layers import FUSED_MIN_ROWS
+    from speechmix_tpu_torch.training import freezing, trainer
+    from speechmix_tpu_torch.training.checkpoint import load_pytree_npz
+
+    t_phase = time.perf_counter()
+    symbols = lambda: {k.symbol: k.launches for k in kernels.kernels()}
+    delta = lambda a, b: {k: b[k] - a.get(k, 0) for k in b}
+    steps, evals, predicts, final = [], [], [], {}
+    orig_make = trainer.make_train_step
+    orig_eval, orig_predict = trainer.Trainer.evaluate, trainer.Trainer.predict
+
+    def make(cfg, tc, *a, **kw):
+        step_fn = orig_make(cfg, tc, *a, **kw)
+
+        def wrapped(state, batch, progress=0.0):
+            torch.cuda.synchronize()
+            before, t0 = symbols(), time.perf_counter()
+            step = state.step
+            state, metrics = step_fn(state, batch, progress)
+            loss = metrics["loss"].item()
+            dt = time.perf_counter() - t0
+            steps.append(dict(step=step, progress=progress, ms=dt * 1e3,
+                              counts=delta(before, symbols()), loss=loss,
+                              tc=tc, cfg=cfg, params=state.params,
+                              samples=batch["input_values"].shape[1],
+                              labels=batch["labels"].shape[1],
+                              skipped=metrics["layers_skipped"]))
+            final["params"] = state.params
+            return state, metrics
+        return wrapped
+
+    def timed(orig, into):
+        def call(self, params, *a, **kw):
+            batches = a[1] if orig is orig_eval else a[0]
+            torch.cuda.synchronize()
+            before, t0 = symbols(), time.perf_counter()
+            out = orig(self, params, *a, **kw)
+            torch.cuda.synchronize()
+            into.append(dict(s=time.perf_counter() - t0, out=out,
+                             counts=delta(before, symbols()),
+                             batches=len(list(batches())),
+                             max_length=kw.get("max_length"),
+                             num_beams=kw.get("num_beams", 1)))
+            return out
+        return call
+
+    out_dir = tempfile.mkdtemp(prefix="smx_train_cmd_")
+    flagship = ["--speech_model_config", "wav2vec2-base",
+                "--nlp_model_config", "bart-base", "--down_scale", "2"]
+    train_argv = ["--HFSpeechMixEED", *flagship, "--bf16", "--synthetic",
+                  "--batch", str(BATCH), "--grad_accum", "1",
+                  "--max_steps", str(COMMAND_STEPS), "--logging_steps", "1",
+                  "--eval_step", str(COMMAND_STEPS),
+                  "--predict_with_generate", "--seed", str(seed),
+                  "--output_dir", out_dir]
+    runs = {}
+    trainer.make_train_step = make
+    trainer.Trainer.evaluate = timed(orig_eval, evals)
+    trainer.Trainer.predict = timed(orig_predict, predicts)
+    try:
+        with fused_extractor_preset():
+            log(f"train command: python -m speechmix_tpu_torch.train "
+                f"{' '.join(train_argv)} (the wav2vec2-base preset with the "
+                f"fused extractor)")
+            kernels.reset_launch_counts()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, lines = _captured(train_cmd.main, train_argv)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            runs["train"] = symbols()
+            for line in lines:
+                log(f"  | {line}")
+            train_steps, train_evals, train_predicts = (
+                list(steps), list(evals), list(predicts))
+            weights = os.path.join(out_dir, "final_weights.npz")
+            final_params = final.pop("params")
+
+            # the deterministic step (K7, K9 and K8's deterministic entries
+            # run only there)
+            det_dir = tempfile.mkdtemp(prefix="smx_train_cmd_det_")
+            det_argv = [a for a in train_argv
+                        if a not in ("--predict_with_generate",)]
+            det_argv[det_argv.index("--max_steps") + 1] = "1"
+            det_argv[det_argv.index("--eval_step") + 1] = "100"
+            det_argv[det_argv.index("--output_dir") + 1] = det_dir
+            det_argv.append("--no-dropout")
+            steps.clear()
+            kernels.reset_launch_counts()
+            _, det_lines = _captured(train_cmd.main, det_argv)
+            runs["train --no-dropout"] = symbols()
+            det_steps = list(steps)
+            final.pop("params")
+            shutil.rmtree(det_dir, ignore_errors=True)
+
+            # the eval command on the trained weights
+            eval_runs = {
+                "eval --synthetic_eval 16 --beam 4": [
+                    *flagship, "--weights", weights, "--synthetic_eval",
+                    str(BATCH), "--batch", str(BATCH), "--beam",
+                    str(BEAMS), "--max_length", str(COMMAND_MAX_LEN)],
+                "eval (one utterance, greedy)": [
+                    *flagship, "--weights", weights, "--max_length",
+                    str(COMMAND_MAX_LEN)]}
+            eval_out, eval_s = {}, {}
+            predicts.clear()
+            for name, argv in eval_runs.items():
+                kernels.reset_launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, eval_out[name] = _captured(eval_cmd.main, argv)
+                torch.cuda.synchronize()
+                eval_s[name] = time.perf_counter() - t0
+                runs[name] = symbols()
+            eval_predicts = list(predicts)
+
+            # the final weights: the JAX package's npz layout, the trained
+            # bits, and the API's float32 model loads them
+            stored = load_pytree_npz(weights)
+            want_paths = convert.flatten_with_paths(
+                convert.params_to_jax_paths(final_params))
+            if list(stored) != [path for path, _ in want_paths]:
+                raise AssertionError("train command: final_weights.npz "
+                                     "paths differ from the JAX layout")
+            for path, value in want_paths:
+                if not np.array_equal(stored[path], value):
+                    raise AssertionError(f"train command: {path} in "
+                                         "final_weights.npz differs from "
+                                         "the trained parameters")
+            model = api.HFSpeechMixEED("wav2vec2-base", "bart-base",
+                                       down_scale=2)
+            model.load_weights(weights)
+            loaded = _fingerprints(model.params)
+            if loaded != _fingerprints(final_params):
+                raise AssertionError("train command: the API model's "
+                                     "loaded parameters differ")
+            del model
+    finally:
+        trainer.make_train_step = orig_make
+        trainer.Trainer.evaluate = orig_eval
+        trainer.Trainer.predict = orig_predict
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+    enc, dec = (train_steps[0]["cfg"].encoder, train_steps[0]["cfg"].decoder)
+    cfg, tc = train_steps[0]["cfg"], train_steps[0]["tc"]
+    if not (tc.optimizer == "adafactor" and tc.dropout and tc.bf16
+            and tc.freeze_epochs == 3 and enc.extractor_impl == "fused"):
+        raise AssertionError(f"train command: config {tc}, extractor "
+                             f"{enc.extractor_impl}")
+    # (1) every step: its launches, its LayerDrop draw, a finite loss
+    records = [json.loads(l) for l in lines if l.startswith("{")]
+    logged = [r for r in records if "grad_norm" in r]
+    if [r["step"] for r in logged] != list(range(1, COMMAND_STEPS + 1)) or \
+            not all(math.isfinite(r["loss"]) for r in logged):
+        raise AssertionError(f"train command: logged {logged}")
+    for rec in train_steps + det_steps:
+        frames = int(enc.feature_lengths(rec["samples"]))
+        rows = (BATCH * frames, BATCH * (frames // cfg.down_scale),
+                BATCH * rec["labels"])
+        if min(rows) < FUSED_MIN_ROWS:
+            raise AssertionError(f"train command: rows {rows} below the "
+                                 "fused gate")
+        mask = freezing.reference_unfreeze_scale(
+            rec["params"], freezing.unfreeze_epoch(rec["progress"],
+                                                   rec["tc"].freeze_epochs),
+            rec["tc"].freeze_epochs)
+        if rec["tc"].dropout:
+            skipped = layerdrop_replay(trainer, speech_encoder, rec["tc"],
+                                       cfg, rec["step"])
+        else:
+            skipped = []
+        kept = [l for l in range(enc.num_layers) if l not in skipped]
+        attn, dense, ffn = postln_backward_layers(mask["speech_encoder"],
+                                                  kept)
+        if rec["tc"].dropout:
+            want = expected_postln_dropout_launches(
+                len(kept), len(attn), len(dense), len(ffn),
+                dec.encoder_layers, dec.decoder_layers)
+        else:
+            want = expected_postln_launches(len(kept), len(attn), len(ffn),
+                                            dec.encoder_layers,
+                                            dec.decoder_layers)
+        what = "step" if rec["tc"].dropout else "--no-dropout step"
+        log(f"  train command {what} {rec['step'] + 1} (progress "
+            f"{rec['progress']}, {rec['samples'] / 16000:.2f} s bucket, rows "
+            f"{' / '.join(map(str, rows))}): loss {rec['loss']:.4f}, "
+            f"{rec['ms']:.1f} ms, LayerDrop skipped {skipped}, backward of "
+            f"attention / epilogue / FFN in {len(attn)} / {len(dense)} / "
+            f"{len(ffn)} of {len(kept)} kept speech layers")
+        if rec["skipped"] != [skipped]:
+            raise AssertionError(f"train command: LayerDrop skipped "
+                                 f"{rec['skipped']}, the key chain gives "
+                                 f"{skipped}")
+        if rec["counts"] != want:
+            raise AssertionError(f"train command {what} {rec['step'] + 1}: "
+                                 f"launches {rec['counts']}, expected {want}")
+        if not math.isfinite(rec["loss"]):
+            raise AssertionError(f"train command: loss {rec['loss']}")
+    # (2) the eval and the predict at the last step
+    want_eval = expected_eval_launches(enc.num_layers, dec.encoder_layers,
+                                       dec.decoder_layers)
+    want_pred = expected_launches("greedy", dec.max_length)
+    eval_recs = [r for r in records if "eval_loss" in r]
+    if len(train_evals) != 1 or len(train_predicts) != 1 or \
+            [r["step"] for r in eval_recs] != [COMMAND_STEPS]:
+        raise AssertionError(f"train command: evals {eval_recs}")
+    ev, pr = train_evals[0], train_predicts[0]
+    for rec, per_batch, what in ((ev, want_eval, "eval"),
+                                 (pr, want_pred, "predict")):
+        want = {k: v * rec["batches"] for k, v in per_batch.items()}
+        if rec["counts"] != want:
+            raise AssertionError(f"train command {what}: launches "
+                                 f"{rec['counts']}, expected {want}")
+    r = eval_recs[0]
+    if not all(math.isfinite(r[k]) for k in ("eval_loss", "predict_wer",
+                                             "predict_cer")):
+        raise AssertionError(f"train command: eval record {r}")
+    log(f"  train command eval at step {r['step']}: eval_loss "
+        f"{r['eval_loss']:.4f}, cer {r['cer']:.4f}, wer {r['wer']:.4f}, "
+        f"predict_wer {r['predict_wer']:.4f} over {r['n_examples']} "
+        f"({ev['batches']} batches: eval {ev['s'] * 1e3:.1f} ms, greedy "
+        f"predict at max_length {dec.max_length} {pr['s'] * 1e3:.1f} ms); "
+        f"launches as expected_eval_launches / expected_launches('greedy')")
+    ms = [rec["ms"] for rec in train_steps]
+    audio = BATCH * train_steps[-1]["samples"] / 16000
+    med = sorted(ms[1:])[len(ms[1:]) // 2]
+    log(f"  train command: {train_s:.1f} s for model, data, "
+        f"{COMMAND_STEPS} steps, eval, predict, a checkpoint and the final "
+        f"weights; steps {', '.join(f'{t:.1f}' for t in ms)} ms (B={BATCH} "
+        f"x {audio / BATCH:.2f} s padded: {audio * 1e3 / med:.2f} audio-s/s "
+        f"at the median of steps 2-{COMMAND_STEPS}, {med:.1f} ms), peak "
+        f"memory {peak / 2 ** 30:.2f} GiB on {card}")
+    log(f"  final_weights.npz: {len(stored)} arrays in the JAX package's "
+        f"layout, the trained parameters' bits; HFSpeechMixEED.load_weights "
+        f"(float32) holds the same bits")
+    det = det_steps[0]
+    log(f"  train command --no-dropout: 1 step, loss {det['loss']:.4f}, "
+        f"{det['ms']:.1f} ms; " + " | ".join(det_lines[:1]))
+
+    # (3) the eval command's outputs and launches
+    synth, one = eval_out.values()
+    synth_name, one_name = eval_runs
+    metrics = json.loads(synth[-1])
+    if metrics.get("n_examples") != BATCH or not all(
+            math.isfinite(metrics[k]) for k in ("predict_wer",
+                                                "predict_cer")):
+        raise AssertionError(f"eval command: {synth}")
+    decoded = [l for l in one if l.startswith("decoded:")]
+    refs = [l for l in one if l.startswith("reference text:")]
+    if len(decoded) != 1 or len(refs) != 1:
+        raise AssertionError(f"eval command: output {one}")
+    want = expected_launches("beam-4", COMMAND_MAX_LEN)
+    want.update(ffn_forward_launches(LAYERS_WITH_KERNELS, 0, dtype="f32"))
+    if runs[synth_name] != want or len(eval_predicts) != 1 or \
+            eval_predicts[0]["batches"] != 1:
+        raise AssertionError(f"eval command {synth_name}: launches "
+                             f"{runs[synth_name]}, expected {want}")
+    # one utterance of 1-3 s: its rows are below the fused gate, so K2 /
+    # K3 give way to the plain chain, as in every decode step
+    want = expected_launches("greedy", COMMAND_MAX_LEN)
+    want.update({"smx_dense_res_ln": 0,
+                 **ffn_forward_launches(0, 0, dtype="f32")})
+    if runs[one_name] != want:
+        raise AssertionError(f"eval command {one_name}: launches "
+                             f"{runs[one_name]}, expected {want}")
+    for name in eval_runs:
+        k = kernel_launches(runs[name], dropout=False)
+        log(f"  {name}: {eval_s[name]:.2f} s (f32, as the JAX package's "
+            f"eval.py), launches " + ", ".join(
+                f"{n} {k[n]}" for n in ("K1", "K2", "K3", "K4", "K5", "K6")))
+        for line in eval_out[name]:
+            log(f"  | {line}")
+    across = collections.Counter()
+    for name in ("eval --synthetic_eval 16 --beam 4",
+                 "eval (one utterance, greedy)"):
+        across.update(kernel_launches(runs[name], dropout=False))
+    if any(across[k] < 1 for k in ("K1", "K2", "K3", "K4", "K5", "K6")):
+        raise AssertionError(f"eval command: launches {dict(across)}")
+    for name, counts in runs.items():
+        across.update(kernel_launches(counts, dropout=(name == "train")))
+    missing = [k for k in K_ENTRIES if across[k] < 1]
+    log(f"  kernels launched across the commands: " + ", ".join(
+        f"{k} {across[k]}" for k in K_ENTRIES))
+    if missing:
+        raise AssertionError(f"commands: {missing} never launched")
+    log(f"commands phase: {time.perf_counter() - t_phase:.1f} s")
+    return runs
+
+
+REMAT_KEY_SEED = 0x5EED
+REMAT_TIMED_STEPS = 3   # train steps timed each way, in turns
+
+
+def run_remat(seed, card):
+    """remat off and on for one train step of the flagship and of the
+    large pair (bf16 compute, f32 weights, dropout on with one key, every
+    leaf training): the loss equal, every gradient leaf bit-identical where
+    two remat-off steps are (cuDNN asked for deterministic algorithms) and
+    otherwise within GRAD_REL / GRAD_FLOOR, the launches with
+    remat_launches added, the bytes the forward leaves allocated; then
+    REMAT_TIMED_STEPS train steps each way in turns: median ms and peak
+    memory."""
+    import dataclasses
+    import torch
+    from speechmix_tpu_torch.models import speechmix
+    from speechmix_tpu_torch.ops import kernels
+    from speechmix_tpu_torch.ops.kernels.dropout import DropoutKey
+    from speechmix_tpu_torch.training import trainer
+    from speechmix_tpu_torch.training.freezing import tree_map, tree_paths
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    key = DropoutKey.from_seed(seed + REMAT_KEY_SEED)
+    symbols = lambda: {k.symbol: k.launches for k in kernels.kernels()}
+
+    def remat_cfg(cfg, on):
+        return dataclasses.replace(
+            cfg, encoder=dataclasses.replace(cfg.encoder, remat=on),
+            decoder=dataclasses.replace(cfg.decoder, remat=on))
+
+    for name, cfg, b in (("flagship", flagship_config(), BATCH),
+                         ("large pair", large_config(), LARGE_BATCH)):
+        enc, dec = cfg.encoder, cfg.decoder
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        batch = _train_batch(cfg, gen, dev, b, SECONDS, TRAIN_LABELS)
+        params = speechmix.init_speechmix(cfg, gen, dev, torch.float32)
+
+        def grads(on):
+            """(loss, LayerDrop's skips, launches, gradients, the bytes
+            the forward left allocated for the backward)."""
+            leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            out = speechmix.speechmix_forward(
+                leaves, remat_cfg(cfg, on), batch["input_values"],
+                lengths=batch["lengths"], labels=batch["labels"],
+                dtype=torch.bfloat16, dropout_rng=key)
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated() - base
+            flat = [(p, l) for p, l in tree_paths(leaves)]
+            g = torch.autograd.grad(out["loss"], [l for _, l in flat],
+                                    allow_unused=True)
+            torch.cuda.synchronize()
+            return (out["loss"].item(), out["layers_skipped"], symbols(),
+                    {p: x for (p, _), x in zip(flat, g) if x is not None},
+                    held)
+
+        torch.backends.cudnn.deterministic = True
+        try:
+            runs = [grads(False), grads(False), grads(True)]
+        finally:
+            torch.backends.cudnn.deterministic = False
+        (loss0, skip0, counts0, g0, held0), (loss1, _, _, g1, _), \
+            (loss2, skip2, counts2, g2, held2) = runs
+        kept = enc.num_layers - len(skip0)
+        if enc.do_stable_layer_norm:
+            want = expected_preln_train_launches(
+                kept, kept, kept, dec.encoder_layers, dec.decoder_layers,
+                dropout=True)
+        else:
+            want = expected_dropout_train_launches(
+                kept, dec.encoder_layers, dec.decoder_layers)
+        want_remat = with_remat(want, remat_launches(
+            kept, dec.encoder_layers, dec.decoder_layers, dropout=True,
+            preln=enc.do_stable_layer_norm))
+        if counts0 != want or counts2 != want_remat or skip2 != skip0:
+            raise AssertionError(f"remat {name}: launches off {counts0} / "
+                                 f"on {counts2}, expected {want} / "
+                                 f"{want_remat}")
+        if loss2 != loss0 or loss1 != loss0 or g2.keys() != g0.keys():
+            raise AssertionError(f"remat {name}: losses {loss0} / {loss1} "
+                                 f"/ {loss2}")
+        top = max(g.abs().max().item() for g in g0.values())
+        same = [p for p in g0 if torch.equal(g0[p], g1[p])]
+        worst, unequal = 0.0, []
+        for p in g0:
+            if torch.equal(g2[p], g0[p]):
+                continue
+            if p in same:
+                unequal.append(p)
+            limit = GRAD_REL * g0[p].abs().max().item() + GRAD_FLOOR * top
+            worst = max(worst, (g2[p] - g0[p]).abs().max().item() / limit)
+        log(f"  remat {name} (B={b} x {SECONDS} s, bf16, dropout on, one "
+            f"key, LayerDrop skipped {skip0}): loss {loss0:.6f} with and "
+            f"without; {len(same)} of {len(g0)} gradient leaves "
+            f"bit-identical between two remat-off runs, "
+            f"{sum(torch.equal(g2[p], g0[p]) for p in g0)} between remat on "
+            f"and off, worst err/limit elsewhere {worst:.3f}; the forward "
+            f"leaves {held0 / 2 ** 30:.2f} GiB allocated for the backward "
+            f"off, {held2 / 2 ** 30:.2f} on; launches on "
+            f"= off + remat_launches: " + ", ".join(
+                f"{k} +{v}" for k, v in sorted(remat_launches(
+                    kept, dec.encoder_layers, dec.decoder_layers,
+                    dropout=True, preln=enc.do_stable_layer_norm).items())
+                if v))
+        if unequal or worst > 1.0:
+            raise AssertionError(f"remat {name}: gradients differ: "
+                                 f"{unequal[:5]}, worst {worst}")
+        del runs, g0, g1, g2
+
+        # a whole train step each way, in turns (off, on, off, on, off,
+        # on): the median ms and the largest peak memory of each
+        tc = trainer.TrainConfig(learning_rate=TRAIN_LR, warmup_steps=1,
+                                 bf16=True, seed=seed)
+        state = trainer.TrainState(
+            params, trainer.make_optimizer(tc).init(params), 0)
+        step_fns = {on: trainer.make_train_step(remat_cfg(cfg, on), tc,
+                                                params) for on in (0, 1)}
+        ms, peaks = {0: [], 1: []}, {0: 0, 1: 0}
+        for on in (0, 1) * REMAT_TIMED_STEPS:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            state, metrics = step_fns[on](state, batch)
+            torch.cuda.synchronize()
+            ms[on].append((time.perf_counter() - t0) * 1e3)
+            peaks[on] = max(peaks[on], torch.cuda.max_memory_allocated())
+            if not math.isfinite(metrics["loss"].item()):
+                raise AssertionError(f"remat {name}: loss {metrics}")
+        med = {on: sorted(t)[len(t) // 2] for on, t in ms.items()}
+        log(f"  remat {name} train step (Adafactor, dropout on; "
+            f"{REMAT_TIMED_STEPS} each, in turns): off {med[0]:.1f} ms "
+            f"({', '.join(f'{t:.1f}' for t in ms[0])}), peak "
+            f"{peaks[0] / 2 ** 30:.2f} GiB; on {med[1]:.1f} ms "
+            f"({', '.join(f'{t:.1f}' for t in ms[1])}), peak "
+            f"{peaks[1] / 2 ** 30:.2f} GiB ({peaks[1] / peaks[0]:.3f} of the "
+            f"memory, {med[1] / med[0]:.3f}x the time) on {card}")
+        if peaks[1] > peaks[0]:
+            raise AssertionError(f"remat {name}: peak memory {peaks}")
+        del state, params, step_fns, batch
+        torch.cuda.empty_cache()
+    log(f"remat phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+def run_profiler(seed, card):
+    """utils/profiling.trace around one flagship greedy generate, with
+    annotate spans opened here; the trace file must hold the spans' names
+    and K1's and K4's kernel names, so a trace that lost its CUDA events
+    fails.  Returns the generate's tokens."""
+    import tempfile
+    import torch
+    from speechmix_tpu_torch import generation
+    from speechmix_tpu_torch.utils import profiling
+
+    cfg, params, wav, lengths = flagship_inputs(seed)
+    run = lambda: generation.generate(params, cfg, wav, lengths,
+                                      max_length=MAX_LEN,
+                                      dtype=torch.bfloat16)
+    run()
+    logdir = tempfile.mkdtemp(prefix="smx_trace_")
+    spans = ("chip_smoke/greedy_generate", "chip_smoke/tokens_to_host")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profiling.trace(logdir):
+            with profiling.annotate(spans[0]):
+                tokens, _ = run()
+            with profiling.annotate(spans[1]):
+                tokens = tokens.cpu()
+        wall = time.perf_counter() - t0
+        files = [os.path.join(logdir, f) for f in os.listdir(logdir)
+                 if f.endswith(".pt.trace.json")]
+        if len(files) != 1:
+            raise AssertionError(f"profiler: trace files {files}")
+        size = os.path.getsize(files[0])
+        with open(files[0]) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+    names = collections.Counter(e.get("name") for e in events)
+    # device kernels by the launcher's name: K1's and K4's bodies
+    device = collections.Counter()
+    for e in events:
+        if e.get("cat") == "kernel":
+            for k in (ATTN_FWD_KERNEL, *DECODE_KERNELS):
+                device[k] += k in e.get("name", "")
+    missing = [s for s in spans if names[s] < 1]
+    if device[ATTN_FWD_KERNEL] < 1:
+        missing.append(f"K1 ({ATTN_FWD_KERNEL})")
+    if not any(device[k] for k in DECODE_KERNELS):
+        missing.append(f"K4 ({', '.join(DECODE_KERNELS)})")
+    log(f"profiler: trace() around one greedy generate, {len(events)} "
+        f"events, {size / 2 ** 20:.1f} MiB, {wall:.2f} s with the trace's "
+        f"writing; spans {', '.join(f'{s} {names[s]}' for s in spans)}; "
+        f"device kernels " + ", ".join(
+            f"{k} {device[k]}" for k in (ATTN_FWD_KERNEL, *DECODE_KERNELS))
+        + f" on {card}")
+    if missing:
+        raise AssertionError(f"profiler: the trace lacks {missing}")
+    return tokens
+
+
+NATIVE_UTTERANCES = 64
+NATIVE_RATES = (8000, 22050, 44100, 48000)
+
+
+def run_native(seed, card, tokens):
+    """The native runtime on the card's host against the numpy plain
+    versions: resample 64 synthetic utterances from each of 8, 22.05, 44.1
+    and 48 kHz to 16 kHz (1e-6), normalize them (1e-6 + 1e-6 |x|), and
+    WER / CER (edit distances, exact) of hypotheses against their
+    transcripts: the greedy generate's decoded rows and the transcripts
+    with seeded word and character edits.  Host ms both ways."""
+    import numpy as np
+    from speechmix_tpu_torch import metrics
+    from speechmix_tpu_torch.data import audio, datasets
+    from speechmix_tpu_torch.data.tokenizer import ByteTokenizer
+    from speechmix_tpu_torch.runtime import native
+
+    # the library is loaded since the commands' WER; built again here
+    # from the source, to time the build
+    native.lib_path().unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    native.build()
+    build_s = time.perf_counter() - t0
+    raw = datasets.synthetic_corpus(NATIVE_UTTERANCES, seed=seed)
+    wavs = [ex["audio"] for ex in raw]
+
+    def timed(fn, repeat=3):
+        """fn() and its median host ms over `repeat` calls."""
+        times = []
+        for _ in range(repeat):
+            t = time.perf_counter()
+            out = fn()
+            times.append((time.perf_counter() - t) * 1e3)
+        return out, sorted(times)[len(times) // 2]
+
+    parts = []
+    for sr in NATIVE_RATES:
+        got, ms_n = timed(lambda: [audio.resample(w, sr) for w in wavs])
+        want, ms_p = timed(lambda: [audio.resample_plain(w, sr)
+                                    for w in wavs], repeat=1)
+        err = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
+        if any(len(g) != len(w) for g, w in zip(got, want)) or err > 1e-6:
+            raise AssertionError(f"native resample from {sr}: err {err}")
+        parts.append(f"resample {sr} Hz: {ms_n:.1f} / {ms_p:.1f} ms (err "
+                     f"{err:.2e})")
+    got, ms_n = timed(lambda: [audio.normalize(w) for w in wavs])
+    want, ms_p = timed(lambda: [audio.normalize_plain(w) for w in wavs])
+    ratio = max(float((np.abs(g - w) / (1e-6 + 1e-6 * np.abs(w))).max())
+                for g, w in zip(got, want))
+    if ratio > 1.0:
+        raise AssertionError(f"native normalize: err/limit {ratio}")
+    parts.append(f"normalize: {ms_n:.1f} / {ms_p:.1f} ms (err/limit "
+                 f"{ratio:.3f})")
+    rng = np.random.RandomState(seed)
+    refs = [ex["text"] for ex in raw]
+    tok = ByteTokenizer(vocab_size=50265)
+    decoded = [tok.decode(row) for row in np.asarray(tokens)]
+    hyps = []
+    for i, ref in enumerate(refs):
+        words = ref.split()
+        keep = [w for w in words if rng.rand() > 0.2]
+        if rng.rand() < 0.5:
+            keep.insert(rng.randint(len(keep) + 1), "zzz")
+        hyps.append(" ".join(keep) + " " + decoded[i % len(decoded)])
+    saved = metrics._edit_distance
+    (wer_n, cer_n), ms_n = timed(lambda: (metrics.wer(refs, hyps),
+                                          metrics.cer(refs, hyps)))
+    metrics._edit_distance = metrics._edit_distance_plain
+    try:
+        (wer_p, cer_p), ms_p = timed(lambda: (metrics.wer(refs, hyps),
+                                              metrics.cer(refs, hyps)))
+    finally:
+        metrics._edit_distance = saved
+    if (wer_n, cer_n) != (wer_p, cer_p):
+        raise AssertionError(f"native edit distance: {wer_n, cer_n} vs "
+                             f"{wer_p, cer_p}")
+    parts.append(f"WER {wer_n:.4f} / CER {cer_n:.4f}: {ms_n:.1f} / "
+                 f"{ms_p:.1f} ms, equal")
+    audio_s = sum(len(w) for w in wavs) / 16000
+    log(f"native runtime ({native.lib_path().name}, built in "
+        f"{build_s:.2f} s) against numpy on {NATIVE_UTTERANCES} synthetic "
+        f"utterances ({audio_s:.1f} s of audio), host ms native / numpy "
+        f"(median of 3, numpy resample once): "
+        + "; ".join(parts) + f"; host of {card}")
+
+
 def _cast_tree(tree, dtype):
     if isinstance(tree, dict):
         return {k: _cast_tree(v, dtype) for k, v in tree.items()}
@@ -5532,6 +6259,9 @@ def main():
     serving_counts, serving_lengths = run_serving(args.seed, card)
     counts.update(serving_counts)
     by_length.update(serving_lengths)
+    run_commands(args.seed, card)
+    run_remat(args.seed, card)
+    run_native(args.seed, card, run_profiler(args.seed, card))
 
     pallas = "speechmix_tpu/ops/pallas/"
     # name: (source, TPU kernel file:line, mode whose run gives `launches`)

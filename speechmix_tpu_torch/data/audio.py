@@ -1,9 +1,10 @@
 """Host-side audio preprocessing (port of ``speechmix_tpu.data.audio``):
 resample to 16 kHz mono, normalize, and static-shape length buckets.
 
-* polyphase resampling in numpy (no torchaudio); the JAX package also has
-  a C++ version of the same loop in ``runtime/native.cpp``, not carried
-  here;
+* polyphase resampling and normalisation by the port's C++ runtime
+  (``runtime/native.cpp``, no torchaudio), as the JAX package runs them
+  when its library is built; ``resample_plain`` and ``normalize_plain``
+  are the numpy versions the tests hold it against;
 * zero padding with explicit lengths;
 * bucket boundaries in seconds, so that a run sees a handful of shapes.
 """
@@ -15,6 +16,8 @@ from fractions import Fraction
 from typing import Optional, Sequence
 
 import numpy as np
+
+from ..runtime import native
 
 TARGET_SR = 16000
 # default bucket grid (seconds); the reference filters to 1..20 s
@@ -33,7 +36,17 @@ def _sinc_kernel(cutoff: float, half_width: int) -> np.ndarray:
 
 def resample(waveform: np.ndarray, orig_sr: int,
              target_sr: int = TARGET_SR) -> np.ndarray:
-    """Rational-ratio polyphase resample (mono float32)."""
+    """Rational-ratio polyphase resample (mono float32), by the native
+    runtime."""
+    if orig_sr == target_sr:
+        return waveform.astype(np.float32)
+    return native.resample(waveform.astype(np.float32), orig_sr, target_sr)
+
+
+def resample_plain(waveform: np.ndarray, orig_sr: int,
+                   target_sr: int = TARGET_SR) -> np.ndarray:
+    """resample's plain version in numpy (the ratio limited to a
+    denominator of 1000, as the JAX package's numpy path has it)."""
     if orig_sr == target_sr:
         return waveform.astype(np.float32)
     frac = Fraction(target_sr, orig_sr).limit_denominator(1000)
@@ -73,7 +86,13 @@ def to_mono(waveform: np.ndarray) -> np.ndarray:
 
 
 def normalize(waveform: np.ndarray, eps: float = 1e-7) -> np.ndarray:
-    """Zero-mean unit-variance (wav2vec2's do_normalize preprocessing)."""
+    """Zero-mean unit-variance (wav2vec2's do_normalize preprocessing), by
+    the native runtime."""
+    return native.normalize(waveform, eps)
+
+
+def normalize_plain(waveform: np.ndarray, eps: float = 1e-7) -> np.ndarray:
+    """normalize's plain version in numpy (float32 moments)."""
     w = np.ascontiguousarray(waveform, np.float32)
     return (w - w.mean()) / math.sqrt(float(w.var()) + eps)
 

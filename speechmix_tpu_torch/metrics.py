@@ -2,10 +2,10 @@
 
 Corpus-level error rate = total edit distance over total reference length,
 word-level for WER and character-level for CER, the semantics of the
-reference's eval metric (``asrp.cer`` / ``asrp.wer``).  One path: the
-two-row Levenshtein DP in numpy (the JAX package also has a C++ inner loop
-in ``runtime/native.cpp``, not carried here; the distances are the same
-integers).
+reference's eval metric (``asrp.cer`` / ``asrp.wer``).  The edit distance
+is the two-row Levenshtein DP of the port's C++ runtime
+(``runtime/native.cpp``), over tokens mapped to int ids as the JAX package
+maps them; ``_edit_distance_plain`` is its numpy version.
 """
 
 from __future__ import annotations
@@ -14,9 +14,21 @@ from typing import List, Sequence
 
 import numpy as np
 
+from .runtime import native
+
 
 def _edit_distance(ref: Sequence, hyp: Sequence) -> int:
-    """Levenshtein distance with a two-row DP."""
+    """Levenshtein distance by the native runtime, each distinct token an
+    int id."""
+    vocab = {}
+
+    def ids(seq):
+        return [vocab.setdefault(t, len(vocab)) for t in seq]
+    return native.edit_distance(ids(ref), ids(hyp))
+
+
+def _edit_distance_plain(ref: Sequence, hyp: Sequence) -> int:
+    """_edit_distance's plain version: the two-row DP in numpy."""
     n, m = len(ref), len(hyp)
     if n == 0:
         return m

@@ -281,7 +281,8 @@ def encode(params, cfg: Seq2SeqConfig, input_ids=None, inputs_embeds=None,
     for block, key, adapter in zip(
             enc["layers"], _layer_keys(k_layers, n_layers),
             _side_adapters(adapters, "encoder", n_layers)):
-        x = _encoder_block(block, cfg, x, attention_mask, dtype, key, bias)
+        x = layers.remat(cfg.remat, _encoder_block, block, cfg, x,
+                         attention_mask, dtype, key, bias)
         if adapter is not None:
             x = apply_adapter(adapter, x, dtype)
         if hidden is not None:
@@ -540,10 +541,11 @@ def decode(params, cfg: Seq2SeqConfig, decoder_input_ids, encoder_mask=None,
         for block, key, adapter in zip(dec["layers"],
                                        _layer_keys(k_layers, n_layers),
                                        dec_adapters):
-            x, _ = _decoder_block(block, cfg, x, self_bias, self_kv_mask,
-                                  None, None, None, None, dtype,
-                                  self_causal=True, enc_hidden=enc_hidden,
-                                  cross_bias=cross_bias, dropout_rng=key)
+            x, _ = layers.remat(
+                cfg.remat, _decoder_block, block, cfg, x, self_bias,
+                self_kv_mask, None, None, None, None, dtype,
+                self_causal=True, enc_hidden=enc_hidden,
+                cross_bias=cross_bias, dropout_rng=key)
             if adapter is not None:
                 x = apply_adapter(adapter, x, dtype)
             if hidden is not None:

@@ -249,7 +249,8 @@ def speech_encoder_apply(params, cfg: SpeechEncoderConfig, waveform,
     hidden = [h] if output_hidden_states else None
     for layer_params, key, skip in zip(params["layers"], layer_keys, skips):
         if not skip:
-            h = _encoder_layer(layer_params, h, frame_mask, cfg, dtype, key)
+            h = layers.remat(cfg.remat, _encoder_layer, layer_params, h,
+                             frame_mask, cfg, dtype, key)
         if hidden is not None:
             hidden.append(h)
     if cfg.do_stable_layer_norm:

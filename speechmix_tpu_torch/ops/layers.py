@@ -325,3 +325,20 @@ def conv1d_same_grouped(params, x, groups, dtype=None):
     if k % 2 == 0:
         y = y[:, :-1, :]
     return y
+
+
+def remat(enabled, fn, *args, **kwargs):
+    """fn(*args, **kwargs); with `enabled` (the configs' ``remat``) while
+    autograd records, rematerialised as the JAX package's jax.checkpoint
+    of a layer: the forward keeps only the inputs, and the backward runs
+    the layer's forward (its kernels included) once more before its own.
+    The kernels' autograd functions save through ``ctx.save_for_backward``,
+    which the checkpoint's hooks drop.  No layer draws from a torch RNG
+    (dropout masks are Philox words of the layer's key; LayerDrop and
+    SpecAugment draw before the loop), so the RNG state is not kept.
+    Without autograd (generate, eval, predict) the call is unchanged."""
+    if enabled and torch.is_grad_enabled():
+        from torch.utils.checkpoint import checkpoint
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False, **kwargs)
+    return fn(*args, **kwargs)

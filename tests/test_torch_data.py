@@ -2,9 +2,11 @@
 numpy inputs from a seed through both.
 
 Everything here is exact (bit for bit, or equal integers and strings): the
-synthetic corpus, the numpy resampler and normalisation (the JAX package's
-numpy path; its C++ runtime, where built, is held to 1e-6 as the JAX
-package's own test holds it), the byte tokenizer, WER / CER, collated
+synthetic corpus, the numpy resampler and normalisation (the port's plain
+versions against the JAX package's numpy path; the port's C++ runtime
+against the JAX package's, where built, to 1e-6 as the JAX package's own
+test holds it; tests/test_torch_native.py holds the runtime against the
+plain versions), the byte tokenizer, WER / CER, collated
 batches and the BucketBatcher's order over two epochs, the prepared
 examples and the datasets' batches, and the teacher's (text ids, labels)
 pairs on tiny-bart-bytes in float32.  The prefetcher stages in order,
@@ -79,9 +81,10 @@ def test_resample_and_normalize_bit_identical(sr, monkeypatch):
         np.testing.assert_allclose(got[:n], native_out[:n], rtol=0,
                                    atol=1e-6)
     monkeypatch.setattr(native, "available", lambda: False)
-    np.testing.assert_array_equal(t_audio.resample(x, sr, 16000),
+    np.testing.assert_array_equal(t_audio.resample_plain(x, sr, 16000),
                                   j_audio.resample(x, sr, 16000))
-    np.testing.assert_array_equal(t_audio.normalize(x), j_audio.normalize(x))
+    np.testing.assert_array_equal(t_audio.normalize_plain(x),
+                                  j_audio.normalize(x))
     stereo = np.stack([x, x * 0.5])
     np.testing.assert_array_equal(t_audio.to_mono(stereo),
                                   j_audio.to_mono(stereo))
@@ -261,7 +264,10 @@ def test_custom_csv_and_wave_reader(tmp_path, monkeypatch):
     """_load_custom_csv's seeded split and resampling over WAV files read
     by the standard library's wave (8-, 16-, 24- and 32-bit, stereo)."""
     monkeypatch.setitem(__import__("sys").modules, "soundfile", None)
+    # both packages' numpy resamplers, bit for bit (the C++ runtimes are
+    # held against them in test_resample_and_normalize_bit_identical)
     monkeypatch.setattr(native, "available", lambda: False)
+    monkeypatch.setattr(t_audio, "resample", t_audio.resample_plain)
     rng = np.random.RandomState(3)
     rows = []
     for i, (width, channels, sr) in enumerate(
@@ -376,7 +382,10 @@ def test_load_librispeech_dir(tmp_path, monkeypatch):
     here by the wave reader) loads as the JAX package loads it, sorted by
     utterance id, with max_utts and a thread pool."""
     monkeypatch.setitem(__import__("sys").modules, "soundfile", None)
+    # both packages' numpy resamplers, bit for bit (the C++ runtimes are
+    # held against them in test_resample_and_normalize_bit_identical)
     monkeypatch.setattr(native, "available", lambda: False)
+    monkeypatch.setattr(t_audio, "resample", t_audio.resample_plain)
     rng = np.random.RandomState(4)
     for spk, chapter, n in (("19", "198", 3), ("7", "11", 2)):
         d = tmp_path / spk / chapter

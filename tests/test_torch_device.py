@@ -130,7 +130,11 @@ def test_port_imports_no_jax():
             "speechmix_tpu_torch/utils/platform.py",
             "speechmix_tpu_torch/models/ctc.py",
             "speechmix_tpu_torch/api.py",
-            "speechmix_tpu_torch/pipeline.py"} <= names
+            "speechmix_tpu_torch/pipeline.py",
+            "speechmix_tpu_torch/train.py",
+            "speechmix_tpu_torch/eval.py",
+            "speechmix_tpu_torch/utils/profiling.py",
+            "speechmix_tpu_torch/runtime/native.py"} <= names
     for path in files:
         for name in _imported_modules(path):
             top = name.split(".")[0]
