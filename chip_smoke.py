@@ -161,7 +161,19 @@ Phases, each printing as it goes; any failure exits non-zero:
      profiling.trace around a greedy generate, the file holding the
      phase's annotate spans and K1's and K4's kernels; the native runtime
      (run_native) against the numpy plain versions on 64 utterances, host
-     ms both ways;
+     ms both ways; then parallelism (run_parallel, the flagship at full
+     width and depth, B = 16 x 16 s): an NCCL group of world size 1 through
+     the mesh code (the 1x1x1 mesh's bf16 dropout step and greedy pipeline
+     bit-identical to the no-mesh path, the same launches), then four
+     ranks sharing cuda:0 over gloo (spawned after the build): the f32
+     gradient at (2, 2, 1) with ZeRO-1 and at (1, 2, 2) with the ring
+     against the one-card f32 step's (loss, every leaf), each rank's
+     launches exact, ms per step, peak memory, optimizer bytes against
+     unsharded and bytes staged through the host; a bf16 dropout-on step
+     at (2, 2, 1) twice, bit-identical; TranscriptionPipeline over (2, 2)
+     on 16 utterances, f32 tokens equal to one card's and bf16 tokens
+     agreeing; every time labelled as four ranks sharing one card, not a
+     multi-card time;
   6. print the `kernels` JSON line (K9, K13 and K8 at t5-small's FFN with
      their launches at 6400 and 1024 rows; K1, K14, K7 and K15 with a record per
      attention length of the step and its launches there, K6 one per
@@ -6196,6 +6208,446 @@ def run_native(seed, card, tokens):
         + "; ".join(parts) + f"; host of {card}")
 
 
+PARALLEL_MAX_LEN = 32          # the sharded pipeline's decode steps
+GLOO_NOTE = "4 ranks sharing one card over gloo, not a multi-card time"
+
+
+def _free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def mesh_train_launches(cfg, speech_attn, kept=None, dropout=False):
+    """Launches of every kernel in one step of the flagship on a rank of a
+    tensor- or sequence-parallel mesh: the FFN and dense epilogues take the
+    plain chain there (the JAX package's gate), so K2, K3, K8, K9 and their
+    dropout twins never run; K1 / K7 (K14 / K15 with dropout) run on the
+    local heads of every attention without a bias: `speech_attn` speech
+    layers (0 when the ring takes them) and every text-encoder and decoder
+    self-attention; K6 once per extractor layer.  With dropout every mask of
+    the plain chain comes from K10, one launch per site whose rate is above
+    0 (`kept` speech layers ran)."""
+    enc, dec = cfg.encoder, cfg.decoder
+    text = dec.encoder_layers + dec.decoder_layers
+    want = expected_train_launches(0, 0, 0, dtype="f32")
+    if not dropout:
+        want.update({"smx_attention_fwd": speech_attn + text,
+                     "smx_attention_bwd": speech_attn + text})
+        return want
+    live = lambda *rates: sum(1 for r in rates if r > 0)
+    masks = (live(enc.feat_proj_dropout, enc.dropout, dec.dropout,
+                  dec.dropout)
+             + kept * live(enc.dropout, enc.activation_dropout, enc.dropout)
+             + dec.encoder_layers * live(dec.dropout, dec.activation_dropout,
+                                         dec.dropout)
+             + dec.decoder_layers * live(dec.dropout, dec.attention_dropout,
+                                         dec.dropout, dec.activation_dropout,
+                                         dec.dropout))
+    want.update({"smx_attention_dropout_fwd": kept + text,
+                 "smx_attention_dropout_bwd": kept + text,
+                 "smx_dropout_mask": masks})
+    return want
+
+
+def mesh_generate_launches(cfg, steps):
+    """Launches of one greedy generate() of the flagship on a rank of a
+    tensor-parallel mesh: K1 on the local heads of every encoder layer, K6,
+    and K4 for the self- and cross-attention of every decoder layer and
+    step; no K2 / K3 (the plain chain)."""
+    want = expected_launches("greedy", steps)
+    want.update(dict.fromkeys(FWD_ENTRIES, 0))
+    want["smx_dense_res_ln"] = 0
+    return want
+
+
+def _launch_counts():
+    from speechmix_tpu_torch.ops import kernels
+    return {k.symbol: k.launches for k in kernels.kernels()}
+
+
+def _parallel_model(seed, dtype):
+    """The flagship as an API model in `dtype` for the sharded pipeline,
+    EOS lowered so that every row runs every step, ids as text."""
+    from speechmix_tpu_torch import api
+    cfg = flagship_config()
+    model = api.SpeechMixEED(cfg.encoder, cfg.decoder, down_scale=2,
+                             dtype=dtype, seed=seed)
+    model.tokenizer = IdTokenizer()
+    model.params["nlp"]["final_logits_bias"][cfg.decoder.eos_token_id] -= \
+        EOS_LOW
+    return model
+
+
+def _parallel_utterances(seed):
+    import numpy as np
+    rng = np.random.RandomState(seed + 17)
+    return [(rng.randn(int(SECONDS * 16000)) * 0.1).astype(np.float32)
+            for _ in range(BATCH)]
+
+
+def _parallel_pipe(model, mesh=None):
+    from speechmix_tpu_torch.pipeline import TranscriptionPipeline
+    return TranscriptionPipeline(model, batch_size=BATCH,
+                                 max_length=PARALLEL_MAX_LEN,
+                                 early_stop=False, mesh=mesh)
+
+
+def _f32_state_and_batch(seed, cfg, tc, dev):
+    """The f32 flagship state and the B = BATCH x SECONDS batch of `seed`,
+    drawn in one order, so that every process gets the same."""
+    import torch
+    from speechmix_tpu_torch.training import trainer
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    state = trainer.create_train_state(gen, cfg, tc, dev)
+    return state, _train_batch(cfg, gen, dev, BATCH, SECONDS, TRAIN_LABELS)
+
+
+def _grad_tc(zero1=False, model_parallel=1, sequence_parallel=1):
+    from speechmix_tpu_torch.training import trainer
+    return trainer.TrainConfig(
+        learning_rate=TRAIN_LR, warmup_steps=1, grad_accum=1, bf16=False,
+        dropout=False, optimizer="adamw", fixed_nlp=False, zero1=zero1,
+        model_parallel=model_parallel, sequence_parallel=sequence_parallel)
+
+
+def parallel_rank(rank, seed, ref_path, shapes):
+    """One of the four ranks on cuda:0 (gloo): the f32 gradient of the
+    flagship's step (layers rematerialised) at each mesh of `shapes`
+    ((shape, zero1)) against the one-card reference in ref_path, its
+    launches, ms per step, peak memory,
+    optimizer bytes and bytes staged through the host; a bf16 dropout-on
+    step at (2, 2, 1) twice from one state; the f32 and bf16 pipeline over
+    (2, 2)."""
+    import dataclasses
+    import hashlib
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    import torch
+    from speechmix_tpu_torch.models import speech_encoder
+    from speechmix_tpu_torch.ops import kernels
+    from speechmix_tpu_torch.parallel import collectives
+    from speechmix_tpu_torch.parallel import mesh as mesh_lib
+    from speechmix_tpu_torch.training import sharded, trainer
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    cfg = flagship_config()
+    out = {"rank": rank, "cases": []}
+
+    def barrier():
+        import torch.distributed as dist
+        torch.cuda.synchronize()
+        dist.barrier()
+
+    ref = torch.load(ref_path, map_location="cpu") if rank == 0 else None
+    # four f32 ranks of the full flagship share the card's memory: their
+    # layers are rematerialised (the same gradients, bit for bit, PR 16;
+    # each layer's forward, K1 included, runs again in the backward)
+    remat = dataclasses.replace(
+        cfg, encoder=dataclasses.replace(cfg.encoder, remat=True),
+        decoder=dataclasses.replace(cfg.decoder, remat=True))
+    for shape, zero1 in shapes:
+        mesh = mesh_lib.make_mesh(*shape, device=dev)
+        tc = _grad_tc(zero1, shape[1], shape[2])
+        full, batch = _f32_state_and_batch(seed, remat, tc, dev)
+        state = trainer.shard_train_state(full, mesh, remat, tc)
+        del full
+        step_fn = trainer.make_train_step(remat, tc, state.params, mesh=mesh)
+        local = mesh_lib.local_batch(mesh, batch)
+        kernels.reset_launch_counts()
+        collectives.reset_staged_bytes()
+        grads, norm, metrics = step_fn.gradients(state, local)
+        counts = _launch_counts()
+        staged = collectives.STAGED_BYTES["count"]
+        want = mesh_train_launches(cfg, 0 if shape[2] > 1 else
+                                   cfg.num_speech_encoder_layers)
+        want["smx_attention_fwd"] *= 2     # the recomputed forwards
+        if counts != want:
+            raise AssertionError(f"rank {rank} {shape}: launches {counts}, "
+                                 f"expected {want}")
+        whole = {p: sharded._gather_model(g, step_fn.layout.model_dim(t),
+                                          mesh)
+                 for (p, g), (_, t) in zip(trainer.tree_paths(grads),
+                                           trainer.tree_paths(state.params))}
+        case = {"shape": shape, "zero1": zero1, "coords": (
+            mesh.data_rank, mesh.model_rank, mesh.seq_rank),
+            "loss": metrics["loss"].item(), "grad_norm": norm.item(),
+            "launches": {k: v for k, v in counts.items() if v},
+            "staged_bytes": staged}
+        if rank == 0:
+            top = max(g.abs().max().item() for g in ref["grads"].values())
+            worst, where = 0.0, None
+            for path, want_g in ref["grads"].items():
+                got = whole[path].float().cpu()
+                limit = GRAD_REL * want_g.abs().max().item() + \
+                    GRAD_FLOOR * top
+                ratio = (got - want_g).abs().max().item() / limit
+                if ratio > worst:
+                    worst, where = ratio, path
+            case.update(worst=worst, worst_path=where, leaves=len(whole),
+                        ref_loss=ref["loss"], ref_norm=ref["grad_norm"])
+        del grads, whole
+        # time whole steps (update included), every rank in step
+        times = []
+        torch.cuda.reset_peak_memory_stats(dev)
+        for _ in range(1):
+            barrier()
+            t0 = time.perf_counter()
+            state, _ = step_fn(state, local)
+            barrier()
+            times.append((time.perf_counter() - t0) * 1e3)
+        plain = sharded.StepLayout(mesh, remat, state.params, tc.optimizer,
+                                   False, shape[2] > 1)
+        case.update(
+            ms=times, peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+            opt_bytes=sharded.opt_state_bytes(state.opt_state),
+            unsharded_opt_bytes=sharded.opt_state_bytes(
+                trainer.make_optimizer(tc, plain).init(state.params)))
+        out["cases"].append(case)
+        del state, step_fn, local, batch
+        torch.cuda.empty_cache()
+
+    # bf16, dropout on (presets' rates, SpecAugment, LayerDrop), twice,
+    # cuDNN's grouped conv backward deterministic in both
+    torch.backends.cudnn.deterministic = True
+    mesh = mesh_lib.make_mesh(2, 2, 1, device=dev)
+    tc = trainer.TrainConfig(learning_rate=TRAIN_LR, warmup_steps=1,
+                             grad_accum=1, bf16=True, dropout=True,
+                             optimizer="adamw", seed=seed, zero1=True,
+                             model_parallel=2)
+    runs = []
+    for _ in range(2):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        full = trainer.create_train_state(gen, cfg, tc, dev)
+        batch = _train_batch(cfg, gen, dev, BATCH, SECONDS, TRAIN_LABELS)
+        state = trainer.shard_train_state(full, mesh, cfg, tc)
+        del full
+        step_fn = trainer.make_train_step(cfg, tc, state.params, mesh=mesh)
+        local = mesh_lib.local_batch(mesh, batch)
+        skipped = layerdrop_replay(trainer, speech_encoder, tc, cfg, 0)
+        kernels.reset_launch_counts()
+        state, metrics = step_fn(state, local)
+        counts = _launch_counts()
+        want = mesh_train_launches(
+            cfg, 0, cfg.num_speech_encoder_layers - len(skipped), True)
+        if counts != want or metrics["layers_skipped"] != [skipped]:
+            raise AssertionError(f"rank {rank} dropout step: launches "
+                                 f"{counts}, expected {want}; skipped "
+                                 f"{metrics['layers_skipped']} {skipped}")
+        digest = hashlib.sha256()
+        for _, t in trainer.tree_paths(state.params):
+            digest.update(t.detach().cpu().numpy().tobytes())
+        runs.append({"loss": metrics["loss"].item(), "skipped": skipped,
+                     "params": digest.hexdigest(),
+                     "launches": {k: v for k, v in counts.items() if v}})
+        del state, step_fn, local, batch
+        torch.cuda.empty_cache()
+    out["dropout"] = runs
+
+    # the pipeline over (2, 2), f32 and bf16
+    mesh = mesh_lib.make_mesh(2, 2, 1, device=dev)
+    wavs = _parallel_utterances(seed)
+    out["pipeline"] = {}
+    for dtype in ("float32", "bfloat16"):
+        pipe = _parallel_pipe(_parallel_model(seed, dtype), mesh)
+        kernels.reset_launch_counts()
+        barrier()
+        t0 = time.perf_counter()
+        texts = pipe(wavs)
+        barrier()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = _launch_counts()
+        want = mesh_generate_launches(cfg, PARALLEL_MAX_LEN)
+        if counts != want:
+            raise AssertionError(f"rank {rank} pipeline {dtype}: launches "
+                                 f"{counts}, expected {want}")
+        out["pipeline"][dtype] = {"texts": texts, "ms": ms, "launches": {
+            k: v for k, v in counts.items() if v}}
+        del pipe
+        torch.cuda.empty_cache()
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    return out
+
+
+def run_parallel(seed, card):
+    """Parallelism on torch.distributed, at the flagship's full width and
+    depth (B = 16 x 16 s): an NCCL group of world size 1 through the mesh
+    code (the bf16 step and the greedy pipeline bit-equal to the no-mesh
+    path, with the same launches), then four ranks sharing cuda:0 over
+    gloo: the f32 gradient at (2, 2, 1) with ZeRO-1 and at (1, 2, 2) with
+    the ring against the one-card f32 step's, a bf16 dropout-on step at
+    (2, 2, 1) twice, and the pipeline over (2, 2); every rank's launches
+    exact."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from speechmix_tpu_torch.ops import kernels
+    from speechmix_tpu_torch.parallel import launch
+    from speechmix_tpu_torch.parallel import mesh as mesh_lib
+    from speechmix_tpu_torch.training import trainer
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = flagship_config()
+    log(f"parallel phase: flagship at full width and depth (12 + 6 + 6 "
+        f"layers, vocabulary {cfg.decoder.vocab_size}), B={BATCH} x "
+        f"{SECONDS} s; card {card}")
+
+    # 1. the 1x1x1 mesh over an NCCL group of one rank; cuDNN's grouped
+    # conv backward is asked for its deterministic algorithms in both runs
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    torch.backends.cudnn.deterministic = True
+    try:
+        mesh = mesh_lib.make_mesh(device=dev)
+        tc = trainer.TrainConfig(learning_rate=TRAIN_LR, warmup_steps=0,
+                                 grad_accum=1, bf16=True, optimizer="adamw",
+                                 seed=seed)
+        got = []
+        for m in (None, mesh):
+            state, batch = _f32_state_and_batch(seed, cfg, tc, dev)
+            if m is not None:
+                state = trainer.shard_train_state(state, m, cfg, tc)
+            step_fn = trainer.make_train_step(cfg, tc, state.params, mesh=m)
+            kernels.reset_launch_counts()
+            state, metrics = step_fn(state, batch)
+            got.append((metrics["loss"].item(), metrics["grad_norm"].item(),
+                        [t.clone() for _, t in
+                         trainer.tree_paths(state.params)], _launch_counts()))
+            del state, step_fn
+        (l0, n0, p0, c0), (l1, n1, p1, c1) = got
+        same = all(torch.equal(a, b) for a, b in zip(p0, p1))
+        if (l0, n0) != (l1, n1) or not same or c0 != c1:
+            raise AssertionError(f"NCCL 1x1x1 bf16 step: loss {l1} vs {l0}, "
+                                 f"grad norm {n1} vs {n0}, parameters equal "
+                                 f"{same}, launches equal {c0 == c1}")
+        log(f"  NCCL world size 1, mesh 1x1x1: bf16 dropout-on step "
+            f"(cuDNN deterministic) bit-identical to the no-mesh step "
+            f"(loss {l0:.6f}, grad norm "
+            f"{n0:.6f}, every parameter), launches equal: "
+            f"{ {k: v for k, v in c0.items() if v} }")
+        del got, p0, p1
+        model = _parallel_model(seed, "bfloat16")
+        wavs = _parallel_utterances(seed)
+        texts = []
+        for m in (None, mesh):
+            kernels.reset_launch_counts()
+            texts.append((_parallel_pipe(model, m)(wavs), _launch_counts()))
+        if texts[0] != texts[1]:
+            raise AssertionError("NCCL 1x1x1: the pipeline's greedy tokens "
+                                 "or launches differ from the no-mesh path")
+        log(f"  NCCL 1x1x1 pipeline, {BATCH} utterances x {SECONDS} s, bf16 "
+            f"greedy, {PARALLEL_MAX_LEN} steps: tokens and launches equal to "
+            f"the no-mesh path "
+            f"({ {k: v for k, v in texts[0][1].items() if v} })")
+        del model
+    finally:
+        torch.backends.cudnn.deterministic = False
+        dist.destroy_process_group()
+
+    # 2. the one-card references: the f32 gradient and the pipeline tokens
+    tmp = tempfile.mkdtemp(prefix="smx_parallel_")
+    ref_path = os.path.join(tmp, "f32_reference.pt")
+    tc = _grad_tc()
+    state, batch = _f32_state_and_batch(seed, cfg, tc, dev)
+    step_fn = trainer.make_train_step(cfg, tc, state.params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grads, norm, metrics = step_fn.gradients(state, batch)
+    torch.cuda.synchronize()
+    ref_ms = (time.perf_counter() - t0) * 1e3
+    torch.save({"loss": metrics["loss"].item(), "grad_norm": norm.item(),
+                "grads": {p: g.cpu() for p, g in trainer.tree_paths(grads)}},
+               ref_path)
+    log(f"  one-card f32 reference: loss {metrics['loss'].item():.6f}, grad "
+        f"norm {norm.item():.6f}, gradient {ref_ms:.1f} ms ({card})")
+    del state, grads, step_fn, batch
+    ref_texts = {}
+    wavs = _parallel_utterances(seed)
+    for dtype in ("float32", "bfloat16"):
+        ref_texts[dtype] = _parallel_pipe(_parallel_model(seed, dtype))(wavs)
+    torch.cuda.empty_cache()
+
+    # 3. four ranks on the one card over gloo
+    shapes = (((2, 2, 1), True), ((1, 2, 2), False))
+    t0 = time.perf_counter()
+    results = launch.spawn(parallel_rank, 4, (seed, ref_path, shapes),
+                           init_method=launch.file_store(tmp),
+                           backend="gloo", threads=2, timeout_s=600,
+                           group_timeout_s=300)
+    spawn_s = time.perf_counter() - t0
+    shutil.rmtree(tmp, ignore_errors=True)
+    for k, (shape, zero1) in enumerate(shapes):
+        c0 = results[0]["cases"][k]
+        what = (f"{shape} f32" + (" ZeRO-1" if zero1 else "")
+                + (" ring" if shape[2] > 1 else ""))
+        losses = {r["cases"][k]["loss"] for r in results}
+        rel = abs(c0["loss"] - c0["ref_loss"]) / abs(c0["ref_loss"])
+        if len(losses) != 1 or rel > 1e-5 or c0["worst"] > 1.0:
+            raise AssertionError(f"{what}: losses {losses} vs one-card "
+                                 f"{c0['ref_loss']}, worst gradient "
+                                 f"err/limit {c0['worst']} at "
+                                 f"{c0['worst_path']}")
+        log(f"  {what}: loss {c0['loss']:.6f} vs one-card "
+            f"{c0['ref_loss']:.6f} (rel {rel:.2e}), grad norm "
+            f"{c0['grad_norm']:.6f} vs {c0['ref_norm']:.6f}; {c0['leaves']} "
+            f"gradients, worst err/limit {c0['worst']:.3f} at "
+            f"{c0['worst_path']} (limit {GRAD_REL} * max|leaf| + "
+            f"{GRAD_FLOOR} * largest)")
+        for r in results:
+            c = r["cases"][k]
+            log(f"    rank {r['rank']} {c['coords']}: {c['ms'][-1]:.1f} ms "
+                f"per step ({GLOO_NOTE}; {card}), peak {c['peak_gib']:.2f} "
+                f"GiB, optimizer state {c['opt_bytes'] / 2**20:.1f} MiB of "
+                f"{c['unsharded_opt_bytes'] / 2**20:.1f} MiB unsharded, "
+                f"{c['staged_bytes'] / 2**20:.1f} MiB staged through host "
+                f"in the gradient, launches {c['launches']}")
+            # ZeRO-1: half the state plus at most the largest leaf's (the
+            # tied embedding's two AdamW moments)
+            largest = 8 * cfg.decoder.vocab_size * cfg.decoder.hidden_size
+            if zero1 and c["opt_bytes"] > c["unsharded_opt_bytes"] / 2 + \
+                    largest:
+                raise AssertionError(f"ZeRO-1 rank {r['rank']}: "
+                                     f"{c['opt_bytes']} bytes")
+    runs = [r["dropout"] for r in results]
+    for r in runs:
+        if r[0]["loss"] != r[1]["loss"] or r[0]["params"] != r[1]["params"]:
+            raise AssertionError("(2,2,1) bf16 dropout step: two runs "
+                                 "differ")
+    if len({r[0]["loss"] for r in runs}) != 1 or \
+            len({str(r[0]["skipped"]) for r in runs}) != 1:
+        raise AssertionError("(2,2,1) bf16 dropout step: ranks disagree on "
+                             "the loss or LayerDrop")
+    log(f"  (2, 2, 1) bf16 dropout-on step, ZeRO-1: two runs bit-identical on "
+        f"every rank (loss {runs[0][0]['loss']:.6f}, LayerDrop skipped "
+        f"{runs[0][0]['skipped']} on every rank), rank 0 launches "
+        f"{runs[0][0]['launches']}")
+    for dtype in ("float32", "bfloat16"):
+        ref = [t.split() for t in ref_texts[dtype]]
+        for r in results:
+            got = [t.split() for t in r["pipeline"][dtype]["texts"]]
+            pairs = [(a, b) for x, y in zip(got, ref) for a, b in zip(x, y)]
+            agree = sum(a == b for a, b in pairs) / max(len(pairs), 1)
+            if dtype == "float32" and got != ref:
+                raise AssertionError(f"pipeline (2, 2) f32 rank {r['rank']}: "
+                                     f"tokens differ from one card's")
+            if agree < TOKEN_AGREEMENT_F32:
+                raise AssertionError(f"pipeline (2, 2) {dtype}: agreement "
+                                     f"{agree}")
+        p0 = results[0]["pipeline"][dtype]
+        log(f"  pipeline over (2, 2), {dtype}, {BATCH} utterances x "
+            f"{SECONDS} s, greedy {PARALLEL_MAX_LEN} steps: tokens "
+            f"{'equal to' if dtype == 'float32' else 'agree with'} the "
+            f"one-card call's on every rank ({agree:.4f}); rank 0 "
+            f"{p0['ms']:.1f} ms ({GLOO_NOTE}; {card}), launches "
+            f"{p0['launches']}")
+    log(f"  ranks' peak memory (GiB): "
+        f"{[round(r['peak_gib'], 2) for r in results]}; spawn {spawn_s:.1f} s")
+    log(f"parallel phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def _cast_tree(tree, dtype):
     if isinstance(tree, dict):
         return {k: _cast_tree(v, dtype) for k, v in tree.items()}
@@ -6262,6 +6714,7 @@ def main():
     run_commands(args.seed, card)
     run_remat(args.seed, card)
     run_native(args.seed, card, run_profiler(args.seed, card))
+    run_parallel(args.seed, card)
 
     pallas = "speechmix_tpu/ops/pallas/"
     # name: (source, TPU kernel file:line, mode whose run gives `launches`)

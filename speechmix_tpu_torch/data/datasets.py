@@ -180,18 +180,31 @@ def _batch_iter_factory(examples: List[dict], model, batch_size: int,
     return factory
 
 
-def build_datasets(input_args, model, device=None) -> Tuple[Callable,
-                                                             Callable]:
+def build_datasets(input_args, model, device=None, mesh=None) -> Tuple[
+        Callable, Callable]:
     """(train_batches, eval_batches): zero-argument iterator factories of
     numpy batches; the train factory shuffles anew per call (epoch), the
     eval factory keeps its order.  `input_args` carries the JAX package's
     train.py options (batch, grad_accum, prompt, synthetic, dataset,
     custom_set, field, train_split, test_split, seed, cache,
     max_input_length_in_sec, worker, group_by_length, multihost); the
-    teacher runs on `device` (default: the card)."""
+    teacher runs on `device` (default: the card).
+
+    multihost: every rank batches the whole example list with the same
+    seed (the same shuffle, bucket schedule and batch count everywhere) into
+    global batches of batch * grad_accum * n_data rows and keeps its data
+    rank's rows of each (``mesh.local_batch_index``: its share of every
+    micro-batch); the model and seq ranks of one data shard get the same
+    rows.  n_data and the data rank come from `mesh` (default: one data
+    rank per process)."""
+    n_data, data_rank = 1, 0
     if getattr(input_args, "multihost", False):
-        raise NotImplementedError("multi-host data loading is not ported "
-                                  "yet")
+        from ..parallel import mesh as mesh_lib
+        if mesh is not None:
+            n_data, data_rank = mesh.n_data, mesh.data_rank
+        else:
+            n_data = mesh_lib.process_count()
+            data_rank = mesh_lib.process_index()
     batch_size = int(input_args.batch) * int(input_args.grad_accum)
     prompt = input_args.prompt or ""
     use_teacher = True
@@ -239,12 +252,30 @@ def build_datasets(input_args, model, device=None) -> Tuple[Callable,
     eval_ex = prep(eval_raw, input_args.test_split or "eval")
     gbl = bool(getattr(input_args, "group_by_length", True))
     # train: a seeded shuffle per epoch; eval: a fixed order
-    train_fac = _batch_iter_factory(train_ex, model, batch_size,
+    train_fac = _batch_iter_factory(train_ex, model, batch_size * n_data,
                                     shuffle_seed=int(input_args.seed),
                                     group_by_length=gbl)
-    eval_fac = _batch_iter_factory(eval_ex, model, batch_size,
+    eval_fac = _batch_iter_factory(eval_ex, model, batch_size * n_data,
                                    group_by_length=gbl)
+    if n_data > 1:
+        accum = int(input_args.grad_accum)
+        train_fac = _data_rank_factory(train_fac, n_data, data_rank, accum)
+        eval_fac = _data_rank_factory(eval_fac, n_data, data_rank, 1)
     return train_fac, eval_fac
+
+
+def _data_rank_factory(factory, n_data, data_rank, accum):
+    """Wrap a global-batch iterator factory so that it yields only this
+    data rank's rows of every batch."""
+    from ..parallel.mesh import local_batch_index
+
+    def wrapped():
+        for batch in factory():
+            rows = len(next(iter(batch.values())))
+            idx = local_batch_index(rows, n_data, data_rank, accum)
+            yield {k: v[idx] for k, v in batch.items()}
+
+    return wrapped
 
 
 def _load_custom_csv(path: str, seed: int = 0, test_size: float = 0.1,

@@ -37,7 +37,12 @@ def prefetch_to_device(batches: Iterable, device=None,
                        depth: int = 2) -> Iterator:
     """Yield the batches (dicts of arrays or tensors) as dicts of tensors on
     `device` (default: the card; raises without CUDA), staged `depth`
-    ahead by a worker thread."""
+    ahead by a worker thread.  `device` may be a ``parallel.mesh.Mesh``
+    (the JAX package's signature): its device; over a mesh each process
+    is one rank and its batches are its data rank's rows already (the
+    multihost data path)."""
+    if hasattr(device, "coords"):   # a parallel.mesh.Mesh
+        device = device.device
     device = resolve_device(device)
     q: "queue.Queue" = queue.Queue(maxsize=max(depth, 1))
     stop = threading.Event()

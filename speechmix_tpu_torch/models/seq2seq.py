@@ -40,6 +40,13 @@ bias and attend on the plain path, and their relu FFN is the fused K9 / K8
 (``layers.ffn_apply``) where the JAX package's gate admits it.  The uncached
 cross-attention carries the encoder's padding mask as a bias and takes the
 plain path.
+
+Under tensor parallelism (``parallel.mesh.tp_sharding``) a block whose
+heads divide by n_model runs this rank's heads (``attention``), its
+out-projections row-parallel; an FFN whose width divides runs this rank's
+columns of fc1 / fc_gate and rows of fc2; the caches hold the local heads'
+K / V and T5's position bias is sliced to them; the tied head and the norms
+stay replicated.
 """
 
 from __future__ import annotations
@@ -57,6 +64,8 @@ from ..ops.kernels.dropout import STREAM_OUT, check_key, split_or_none
 from ..ops.masking import combine_masks_to_bias
 from ..ops.kernels.decode_attention import (decode_attention,
                                             decode_attention_plain)
+from ..parallel import collectives
+from ..parallel import mesh as mesh_lib
 from .init import (dense_params, embedding_params, layer_norm_params,
                    rms_norm_params)
 
@@ -129,6 +138,15 @@ def embed_tokens(params, cfg: Seq2SeqConfig, input_ids, dtype=torch.float32):
     return x
 
 
+def _heads_split(cfg) -> bool:
+    """Whether the active mesh splits this config's attention heads."""
+    return mesh_lib.tp_split(cfg.num_heads) > 1
+
+
+def _local_heads(cfg) -> int:
+    return cfg.num_heads // mesh_lib.tp_split(cfg.num_heads)
+
+
 def _attn_scale(cfg):
     """The attention scale: 1 for T5 (the 1/sqrt(d) is folded into its
     initialisation), 1/sqrt(d) for BART."""
@@ -142,14 +160,18 @@ def _ffn(block, cfg, x, dtype, key):
     K8 backward, where the gate admits it); the activation mask of (key,
     STREAM_ACT)."""
     rate = cfg.activation_dropout
+    tp = mesh_lib.tp_split(cfg.ffn_dim) > 1
     if cfg.activation == "gelu_gated":
+        if tp:
+            x = collectives.copy_to_model(x, mesh_lib.active_tp_mesh())
+            key = mesh_lib.fold_key(key, mesh_lib.MODEL_AXIS)
         g = F.gelu(layers.dense(block["fc_gate"], x, dtype),
                    approximate="tanh")
         h = layers.dropout(g * layers.dense(block["fc1"], x, dtype), rate,
                            key)
-        return layers.dense(block["fc2"], h, dtype)
+        return layers.dense(block["fc2"], h, dtype, row_parallel=tp)
     return layers.ffn_apply(block["fc1"], block["fc2"], x, cfg.activation,
-                            dtype, key, rate)
+                            dtype, key, rate, tp=tp)
 
 
 def _ffn_block(block, cfg, x, dtype, key):
@@ -163,7 +185,8 @@ def _ffn_block(block, cfg, x, dtype, key):
     return layers.ffn_residual_ln_apply(
         block["fc1"], block["fc2"], block["final_layer_norm"], x,
         cfg.activation, dtype, cfg.layer_norm_eps, key=key,
-        act_dropout=cfg.activation_dropout, out_dropout=cfg.dropout)
+        act_dropout=cfg.activation_dropout, out_dropout=cfg.dropout,
+        tp=mesh_lib.tp_split(cfg.ffn_dim) > 1)
 
 
 def _t5_residual(x, y, cfg, key):
@@ -198,7 +221,8 @@ def _encoder_block(block, cfg, x, kv_mask, dtype, dropout_rng=None,
     a, _ = attention(block["self_attn"], x, out_proj=False, **attn)
     x = layers.dense_residual_ln_apply(
         block["self_attn"]["out_proj"], block["self_attn_layer_norm"], a, x,
-        dtype, cfg.layer_norm_eps, key=k_h1, dropout_rate=cfg.dropout)
+        dtype, cfg.layer_norm_eps, key=k_h1, dropout_rate=cfg.dropout,
+        row_parallel=_heads_split(cfg))
     return _ffn_block(block, cfg, x, dtype, k_ffn)
 
 
@@ -310,13 +334,14 @@ def precompute_cross_kv(params, cfg: Seq2SeqConfig, enc_hidden,
     sequence: two (L, B, T_enc, H, D) tensors, or with kv_int8 four: int8
     codes of K and V and their float32 scales (L, B, T_enc, H)."""
     b, t, _ = enc_hidden.shape
+    heads = _local_heads(cfg)
     outs = []
     for block in params["decoder"]["layers"]:
         ea = block["encoder_attn"]
         k = layers.dense(ea["k_proj"], enc_hidden, dtype).reshape(
-            b, t, cfg.num_heads, cfg.per_head_dim)
+            b, t, heads, cfg.per_head_dim)
         v = layers.dense(ea["v_proj"], enc_hidden, dtype).reshape(
-            b, t, cfg.num_heads, cfg.per_head_dim)
+            b, t, heads, cfg.per_head_dim)
         if kv_int8:
             kq, ks = _quantize_kv(k)
             vq, vs = _quantize_kv(v)
@@ -334,7 +359,7 @@ def init_decoder_cache(params, cfg: Seq2SeqConfig, enc_hidden, batch,
     also the self-attention bias of every step (the causal cache mask plus
     the decoder's position bias, as the JAX package adds them per step)."""
     cross = precompute_cross_kv(params, cfg, enc_hidden, dtype, kv_int8)
-    shape = (cfg.decoder_layers, batch, capacity, cfg.num_heads,
+    shape = (cfg.decoder_layers, batch, capacity, _local_heads(cfg),
              cfg.per_head_dim)
     device = enc_hidden.device
     self_kv = KVCache(torch.zeros(shape, dtype=dtype, device=device),
@@ -357,9 +382,10 @@ def _cross_attention(attn_params, cfg, x_q, k, v, kv_mask, dtype,
     search); kv_mask is then the untiled (B_enc, T_enc) encoder mask.  A
     single-token step runs K4; a longer chunk takes the plain version."""
     d = cfg.per_head_dim
+    heads = _local_heads(cfg)
     q = layers.dense(attn_params["q_proj"], x_q, dtype)
     bq, q_len = q.shape[:2]
-    q = q.reshape(bq, q_len, cfg.num_heads, d)
+    q = q.reshape(bq, q_len, heads, d)
     bkv, t_enc = k.shape[:2]
     if bq != bkv:
         if bq % bkv or q_len != 1:
@@ -372,13 +398,13 @@ def _cross_attention(attn_params, cfg, x_q, k, v, kv_mask, dtype,
     if kv_mask is None:
         kv_mask = torch.ones((bkv, t_enc), dtype=torch.bool, device=q.device)
     kv_mask = kv_mask.expand(bkv, t_enc).contiguous()
-    kwargs = dict(scale=_attn_scale(cfg), num_heads=cfg.num_heads,
+    kwargs = dict(scale=_attn_scale(cfg), num_heads=heads,
                   k_scale=k_scale, v_scale=v_scale)
     # K4 is the single-token step; a longer chunk is q_len such queries on
     # the same K/V, which the plain formula takes in one pass
     attend = decode_attention if q_len == 1 else decode_attention_plain
     out = attend(q, k, v, kv_mask, **kwargs)
-    return out.reshape(bq, q_len, cfg.num_heads * d)
+    return out.reshape(bq, q_len, heads * d)
 
 
 def _decoder_block(block, cfg, x, self_bias, self_kv_mask, layer_cache,
@@ -415,18 +441,21 @@ def _decoder_block(block, cfg, x, self_bias, self_kv_mask, layer_cache,
         x = _t5_residual(x, a, cfg, k_h1)
         h = layers.rms_norm(block["encoder_attn_layer_norm"], x,
                             cfg.layer_norm_eps)
-        a = layers.dense(block["encoder_attn"]["out_proj"], cross(h), dtype)
+        a = layers.dense(block["encoder_attn"]["out_proj"], cross(h), dtype,
+                         row_parallel=_heads_split(cfg))
         x = _t5_residual(x, a, cfg, k_h2)
         return _t5_ffn_residual(block, cfg, x, dtype, k_ffn), new_cache
     a, new_cache = attention(block["self_attn"], x, out_proj=False,
                              **self_attn)
+    split = _heads_split(cfg)
     x = layers.dense_residual_ln_apply(
         block["self_attn"]["out_proj"], block["self_attn_layer_norm"], a, x,
-        dtype, cfg.layer_norm_eps, key=k_h1, dropout_rate=cfg.dropout)
+        dtype, cfg.layer_norm_eps, key=k_h1, dropout_rate=cfg.dropout,
+        row_parallel=split)
     x = layers.dense_residual_ln_apply(
         block["encoder_attn"]["out_proj"], block["encoder_attn_layer_norm"],
         cross(x), x, dtype, cfg.layer_norm_eps, key=k_h2,
-        dropout_rate=cfg.dropout)
+        dropout_rate=cfg.dropout, row_parallel=split)
     return _ffn_block(block, cfg, x, dtype, k_ffn), new_cache
 
 

@@ -19,6 +19,18 @@ from the site key; LayerDrop draws its decisions on the host from its key
 and skips a dropped layer (HF's skip_the_layer; the JAX package selects the
 layer's input instead, with the same result and gradient), so a step knows
 its kernel launches without reading the device.
+
+Under a mesh (``parallel.mesh``): the dropout masks of a data rank's rows
+are its own (the data index folded into their keys); LayerDrop's decisions
+and SpecAugment's spans are drawn for the global batch, the same on every
+rank (a rank that skipped a layer another runs would leave it waiting in a
+collective).  With tensor parallelism each layer's heads and FFN columns
+are split over the model group.  With sequence parallelism the extractor,
+the projection and the positional conv run on the whole sequence in every
+seq rank; the time axis (padded to a multiple of n_seq) is then split, the
+layers run on this rank's slice (self-attention round the seq ring, masks
+folded with the seq index), and the slices are gathered after the last
+layer.
 """
 
 from __future__ import annotations
@@ -32,6 +44,9 @@ from ..ops.attention import attention
 from ..ops.kernels.conv_extractor import fused_conv_stack
 from ..ops.kernels.dropout import STREAM_OUT, check_key, split_or_none
 from ..ops.masking import length_mask
+from ..ops.ring_attention import pad_time
+from ..parallel import collectives
+from ..parallel import mesh as mesh_lib
 from .init import conv_params, dense_params, layer_norm_params
 
 
@@ -165,41 +180,45 @@ def layerdrop_skips(key, n_layers, rate):
     return [v < rate for v in u.tolist()]
 
 
-def _encoder_layer(layer_params, x, kv_mask, cfg, dtype, dropout_rng=None):
+def _encoder_layer(layer_params, x, kv_mask, cfg, dtype, dropout_rng=None,
+                   ring_mesh=None):
     """Post-LN layer: attention, then out-projection + residual + LN (K2),
     then FFN + residual + LN (K3); with a dropout_rng their dropout twins
     K14, K11 and K12 at HF Wav2Vec2EncoderLayer's placements.  Pre-LN
     (``do_stable_layer_norm``): LN, attention and its out-projection,
     residual; then LN, FFN (K9, or K13 with dropout), residual, the
-    dropout sites of HF's Wav2Vec2EncoderLayerStableLayerNorm."""
+    dropout sites of HF's Wav2Vec2EncoderLayerStableLayerNorm.  ring_mesh:
+    x is this seq rank's time slice (sequence parallelism)."""
     k_attn, k_h1, k_ffn = split_or_none(dropout_rng, 3)
+    ffn_tp = mesh_lib.tp_split(cfg.ffn_dim) > 1
     if cfg.do_stable_layer_norm:
         h = layers.layer_norm(layer_params["attention_layer_norm"], x,
                               cfg.layer_norm_eps)
         attn, _ = attention(layer_params["attention"], h, kv_mask=kv_mask,
                             num_heads=cfg.num_heads, dtype=dtype,
                             dropout_rate=cfg.attention_dropout,
-                            dropout_rng=k_attn)
+                            dropout_rng=k_attn, ring_mesh=ring_mesh)
         x = x + layers.dropout(attn, cfg.dropout, k_h1, STREAM_OUT)
         h = layers.layer_norm(layer_params["final_layer_norm"], x,
                               cfg.layer_norm_eps)
         h = layers.ffn_apply(layer_params["ffn_in"], layer_params["ffn_out"],
                              h, cfg.activation, dtype, k_ffn,
-                             cfg.activation_dropout)
+                             cfg.activation_dropout, tp=ffn_tp)
         return x + layers.dropout(h, cfg.dropout, k_ffn, STREAM_OUT)
     attn, _ = attention(layer_params["attention"], x, kv_mask=kv_mask,
                         num_heads=cfg.num_heads, dtype=dtype, out_proj=False,
                         dropout_rate=cfg.attention_dropout,
-                        dropout_rng=k_attn)
+                        dropout_rng=k_attn, ring_mesh=ring_mesh)
     x = layers.dense_residual_ln_apply(
         layer_params["attention"]["out_proj"],
         layer_params["attention_layer_norm"], attn, x, dtype,
-        cfg.layer_norm_eps, key=k_h1, dropout_rate=cfg.dropout)
+        cfg.layer_norm_eps, key=k_h1, dropout_rate=cfg.dropout,
+        row_parallel=mesh_lib.tp_split(cfg.num_heads) > 1)
     return layers.ffn_residual_ln_apply(
         layer_params["ffn_in"], layer_params["ffn_out"],
         layer_params["final_layer_norm"], x, cfg.activation, dtype,
         cfg.layer_norm_eps, key=k_ffn, act_dropout=cfg.activation_dropout,
-        out_dropout=cfg.dropout)
+        out_dropout=cfg.dropout, tp=ffn_tp)
 
 
 def speech_encoder_apply(params, cfg: SpeechEncoderConfig, waveform,
@@ -223,6 +242,8 @@ def speech_encoder_apply(params, cfg: SpeechEncoderConfig, waveform,
     frame_mask = length_mask(frame_lengths, feats.shape[1])
 
     k_proj, k_pos, k_layers, k_spec = split_or_none(dropout_rng, 4)
+    own = lambda key, *axes: mesh_lib.fold_key(key, mesh_lib.DATA_AXIS, *axes)
+    k_proj, k_pos = own(k_proj), own(k_pos)
 
     fp = params["feature_projection"]
     h = layers.layer_norm(fp["layer_norm"], feats, cfg.layer_norm_eps)
@@ -242,17 +263,31 @@ def speech_encoder_apply(params, cfg: SpeechEncoderConfig, waveform,
 
     n_layers = len(params["layers"])
     layer_keys, skips = [None] * n_layers, [False] * n_layers
+    seq = mesh_lib.active_seq_mesh()
     if k_layers is not None:
         k_layers, k_drop = k_layers.split(2)
-        layer_keys = k_layers.split(n_layers)
+        layer_keys = [own(k, mesh_lib.SEQ_AXIS)
+                      for k in k_layers.split(n_layers)]
         skips = layerdrop_skips(k_drop, n_layers, cfg.layerdrop)
     hidden = [h] if output_hidden_states else None
+    t_full, kv_mask = h.shape[1], frame_mask
+    if seq is not None:
+        h = collectives.split_time(pad_time(h, seq.n_seq), seq)
+        size = h.shape[1]
+        kv_mask = pad_time(frame_mask, seq.n_seq).narrow(
+            1, seq.seq_rank * size, size)
+
+    def whole(x):
+        if seq is None:
+            return x
+        return collectives.gather_time(x, seq)[:, :t_full]
     for layer_params, key, skip in zip(params["layers"], layer_keys, skips):
         if not skip:
             h = layers.remat(cfg.remat, _encoder_layer, layer_params, h,
-                             frame_mask, cfg, dtype, key)
+                             kv_mask, cfg, dtype, key, seq)
         if hidden is not None:
-            hidden.append(h)
+            hidden.append(whole(h))
+    h = hidden[-1] if hidden is not None else whole(h)
     if cfg.do_stable_layer_norm:
         h = layers.layer_norm(params["encoder_layer_norm"], h,
                               cfg.layer_norm_eps)
@@ -272,16 +307,25 @@ def _spec_augment(params, cfg, h, frame_lengths, key):
     channel spans zeroed across all frames."""
     b, t_frames, hdim = h.shape
     k_time, k_feat = key.split(2)
+    # the draws of the global batch, this data rank's rows of them
+    m = mesh_lib.active_mesh()
+    rows = slice(None) if m is None else slice(m.data_rank * b,
+                                                (m.data_rank + 1) * b)
+    n_rows = mesh_lib.data_global_rows(b)
+
+    def draws(k, size):
+        eps, u = mask_span_draws(k, n_rows, size, h.device)
+        return eps, u[rows]
     if cfg.mask_time_prob > 0 and "masked_spec_embed" in params:
         tmask = compute_time_mask(
-            *mask_span_draws(k_time, b, t_frames, h.device), frame_lengths,
+            *draws(k_time, t_frames), frame_lengths,
             cfg.mask_time_prob, cfg.mask_time_length,
             cfg.mask_time_min_masks)
         h = torch.where(tmask[..., None],
                         params["masked_spec_embed"].to(h.dtype), h)
     if cfg.mask_feature_prob > 0:
         fmask = compute_mask_spans(
-            *mask_span_draws(k_feat, b, hdim, h.device),
+            *draws(k_feat, hdim),
             torch.full((b,), hdim, device=h.device), cfg.mask_feature_prob,
             cfg.mask_feature_length, cfg.mask_feature_min_masks)
         h = torch.where(fmask[:, None, :], torch.zeros((), dtype=h.dtype,

@@ -20,6 +20,7 @@ from ..config import SpeechMixConfig
 from ..ops import layers
 from ..ops.kernels.dropout import check_key, split_or_none
 from ..ops.masking import downscale_lengths, length_mask
+from ..parallel import mesh as mesh_lib
 from . import seq2seq
 from . import speech_encoder as se
 from .init import conv_params, dense_params
@@ -108,8 +109,11 @@ def _self_loss(cfg, out, nlp_out):
                              speech_hidden.float())
     sq = torch.square(projected - nlp_hidden.float())
     valid = nlp_out["encoder_mask"].float()
+    # over the valid positions of the global batch (see
+    # layers.cross_entropy_with_ignore)
     mse = ((sq * valid[..., None]).sum()
-           / torch.clamp_min(valid.sum() * sq.shape[-1], 1.0))
+           / torch.clamp_min(mesh_lib.data_sum(valid.sum()) * sq.shape[-1],
+                             1.0))
     kld = layers.kld_batchmean(out["logits"], nlp_out["logits"])
     ce = out["loss"]
     loss = (cfg.self_kld_weight * kld + cfg.self_ce_weight * ce
@@ -161,15 +165,20 @@ def speechmix_forward(params, cfg: SpeechMixConfig, input_values,
     variants' second pass (the mask defaults to ids != pad_token_id; gan
     without text ids takes the labels, -100 as pad).
     dropout_rng: a DropoutKey for training mode, None for the deterministic
-    forward.  The JAX package splits its rng three ways (speech, NLP, text
-    pass); the port's ``split(3)`` keeps the first two keys of its
-    ``split(2)``, so the speech and NLP keys are the ones they were before
-    the text pass existed.  Returns dict(logits (B, L, V) float32,
+    forward; under a mesh the losses are this data rank's share of the
+    global batch's (``layers.cross_entropy_with_ignore``).  The JAX
+    package splits its rng three ways (speech, NLP, text pass); the port's
+    ``split(3)`` keeps the first two keys of its ``split(2)``, so the speech
+    and NLP keys are the ones they were before the text pass existed.  Returns dict(logits (B, L, V) float32,
     layers_skipped[, loss, and for self ce_loss, kld_loss, mse_loss, for gan
     voice_enc_loss, voice_dec_loss, nlp_enc_loss, nlp_dec_loss]), with
     return_model_detail also encode_speech's model details."""
     check_key(dropout_rng)
     k_speech, k_nlp, k_text = split_or_none(dropout_rng, 3)
+    # the text side's masks are each data rank's own (the speech encoder
+    # folds its mask keys itself, leaving LayerDrop and SpecAugment global)
+    k_nlp = mesh_lib.fold_key(k_nlp, mesh_lib.DATA_AXIS)
+    k_text = mesh_lib.fold_key(k_text, mesh_lib.DATA_AXIS)
     dcfg = cfg.decoder
     if decoder_input_ids is None and labels is not None:
         decoder_input_ids = seq2seq.shift_tokens_right(

@@ -15,6 +15,14 @@ DropoutKey): the kernel path runs K14 forward and K15 backward, the mask
 drawn in the kernels; the plain path multiplies its probabilities by the
 same mask (K10 on the card), rows (b * H + h) * Tq + q.  The JAX package's
 two paths draw different streams; the port's draw one.
+
+Under a mesh (``parallel.mesh``): with tensor parallelism a block whose
+heads divide by n_model runs on this rank's heads (q / k / v column-
+parallel, the input through ``copy_to_model``, a per-head bias sliced to
+the local heads, the probability mask this rank's own) and its out_proj is
+row-parallel; the callers pass the global head count.  ``ring_mesh`` (the
+speech encoder's time-split layers under sequence parallelism) sends the
+non-causal self-attention round the seq ring (``ops.ring_attention``).
 """
 
 from __future__ import annotations
@@ -24,7 +32,10 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..parallel import collectives
+from ..parallel import mesh as mesh_lib
 from . import layers
+from .ring_attention import ring_attention
 from .kernels.attention import (attention_dropout_trainable,
                                 attention_trainable)
 from .kernels.dropout import check_key
@@ -63,7 +74,7 @@ def _attend(q, k, v, bias, scale, dropout_rate=0.0, dropout_rng=None):
 def attention(params, x_q, x_kv=None, bias=None, kv_mask=None, causal=False,
               num_heads=None, head_dim=None, scale=None,
               cache: Optional[KVCache] = None, dtype=None, out_proj=True,
-              dropout_rate=0.0, dropout_rng=None):
+              dropout_rate=0.0, dropout_rng=None, ring_mesh=None):
     """General MHA.  x_q: (B, Tq, Dq); x_kv: (B, Tk, Dk) or None for
     self-attention.  kv_mask: (B, Tk) bool key-padding mask, with `causal`;
     bias: extra additive bias (forces the plain path).  cache: new keys and
@@ -74,15 +85,27 @@ def attention(params, x_q, x_kv=None, bias=None, kv_mask=None, causal=False,
     dropout_rate / dropout_rng: probability dropout (training, no cache).
     params: q_proj / k_proj / v_proj / out_proj denses (float or int8), or
     for a self-attention a fused ``qkv_proj`` in place of the first three.
+    ring_mesh: the seq mesh of time-split activations (ring attention).
     Returns (out, new_cache)."""
     check_key(dropout_rng)
     if dropout_rng is None or cache is not None:
         dropout_rate = 0.0
     dtype = dtype or x_q.dtype
-    x_kv = x_q if x_kv is None else x_kv
     if num_heads is None and head_dim is None:
         raise ValueError("attention() needs num_heads or head_dim; the "
                          "inner projection width alone is ambiguous")
+    shares = mesh_lib.tp_split(num_heads) if num_heads else 1
+    tp = mesh_lib.active_tp_mesh() if shares > 1 else None
+    if tp is not None:
+        self_attention = x_kv is None
+        x_q = collectives.copy_to_model(x_q, tp)
+        if not self_attention:
+            x_kv = collectives.copy_to_model(x_kv, tp)
+        num_heads //= shares
+        dropout_rng = mesh_lib.fold_key(dropout_rng, mesh_lib.MODEL_AXIS)
+        if bias is not None and bias.shape[1] != 1:
+            bias = mesh_lib.local_slice(bias, num_heads, dim=1)
+    x_kv = x_q if x_kv is None else x_kv
     fused = params.get("qkv_proj")
     proj = fused if fused is not None else params["q_proj"]
     inner = proj.get("kernel", proj.get("kernel_q")).shape[-1]
@@ -104,7 +127,14 @@ def attention(params, x_q, x_kv=None, bias=None, kv_mask=None, causal=False,
         v = layers.dense(params["v_proj"], x_kv, dtype)
 
     new_cache = None
-    if cache is None and bias is None and dropout_rate > 0.0:
+    if ring_mesh is not None and cache is None and bias is None \
+            and not causal:
+        out = ring_attention(
+            *(_split_heads(t, num_heads) for t in (q, k, v)), kv_mask,
+            scale=scale, mesh=ring_mesh, dropout_rate=dropout_rate,
+            dropout_key=dropout_rng if dropout_rate > 0.0 else None)
+        out = out.reshape(out.shape[0], out.shape[1], num_heads * head_dim)
+    elif cache is None and bias is None and dropout_rate > 0.0:
         out = attention_dropout_trainable(q, k, v, kv_mask, num_heads, scale,
                                           causal, dropout_rng, dropout_rate)
     elif cache is None and bias is None:
@@ -142,7 +172,8 @@ def attention(params, x_q, x_kv=None, bias=None, kv_mask=None, causal=False,
         out = _attend(q, k, v, total_bias, scale, dropout_rate, dropout_rng)
         out = out.reshape(out.shape[0], out.shape[1], num_heads * head_dim)
     if out_proj:
-        out = layers.dense(params["out_proj"], out, dtype)
+        out = layers.dense(params["out_proj"], out, dtype,
+                           row_parallel=tp is not None)
     return out, new_cache
 
 

@@ -29,6 +29,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..parallel import collectives
+from ..parallel import mesh as mesh_lib
 from .kernels import ffn as ffn_kernels
 from .kernels import dropout as drop
 from .kernels.dropout import STREAM_ACT, STREAM_OUT
@@ -76,15 +78,22 @@ def int8_matmul(a, b):
     return y[:m, :n] if pm or pn else y
 
 
-def dense(params, x, dtype=None):
+def dense(params, x, dtype=None, row_parallel=False):
     """x @ W + b in `dtype`.  An int8 kernel (``kernel_q`` with per-output-
     channel ``kernel_scale``, utils/quantize.py) is dequantized as the JAX
     package rounds it, ``q.to(dtype) * scale.to(dtype)``, at every call;
     with set_int8_dense_compute(True) the activations are quantized per
-    token instead and the product is exact in int32, rescaled in float32."""
+    token instead and the product is exact in int32, rescaled in float32.
+
+    Under tensor parallelism a column-parallel kernel holds this rank's
+    output columns and its replicated bias / scales are sliced to them;
+    row_parallel=True (the kernel holds this rank's input rows, x its
+    share) sums the partial products over the model group before the bias
+    is added."""
     dtype = dtype or x.dtype
     if "kernel_q" in params:
-        wq, sw = params["kernel_q"], params["kernel_scale"]
+        wq = params["kernel_q"]
+        sw = mesh_lib.local_slice(params["kernel_scale"], wq.shape[1])
         if INT8_DENSE_COMPUTE:
             xf = x.float()
             sx = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8) / 127.0
@@ -96,8 +105,10 @@ def dense(params, x, dtype=None):
             y = x.to(dtype) @ (wq.to(dtype) * sw.to(dtype))
     else:
         y = x.to(dtype) @ params["kernel"].to(dtype)
+    if row_parallel:
+        y = collectives.reduce_from_model(y, mesh_lib.active_tp_mesh())
     if "bias" in params:
-        y = y + params["bias"].to(dtype)
+        y = y + mesh_lib.local_slice(params["bias"], y.shape[-1]).to(dtype)
     return y
 
 
@@ -181,10 +192,21 @@ def _live(key, rate):
     return rate if key is not None and rate > 0.0 else 0.0
 
 
+def _sharded_forward() -> bool:
+    """Under tensor or sequence parallelism the JAX package's gates send
+    every block to its XLA chain (GSPMD cannot partition a Pallas call over
+    a sharded contraction or time axis); the port mirrors them."""
+    return (mesh_lib.active_seq_mesh() is not None
+            or mesh_lib.active_tp_mesh() is not None)
+
+
 def _ffn_fused_eligible(p1, p2, x, act_name):
     """The JAX package's gate of the fused FFN kernels (its
     ``_ffn_fused_eligible``): enough rows, an activation the kernels have,
-    unquantized weights, and H and F multiples of FUSED_WIDTH."""
+    unquantized weights, and H and F multiples of FUSED_WIDTH; never under
+    tensor or sequence parallelism."""
+    if _sharded_forward():
+        return False
     if "kernel" not in p1 or "kernel" not in p2:
         return False
     if act_name not in ffn_kernels.ACT_CODES:
@@ -197,6 +219,8 @@ def _ffn_fused_eligible(p1, p2, x, act_name):
 def _dense_fused_eligible(p, x):
     """The JAX package's gate of the dense epilogue kernel (its
     ``_dense_fused_eligible``): the FFN's without the activation."""
+    if _sharded_forward():
+        return False
     if "kernel" not in p:
         return False
     din, h = p["kernel"].shape
@@ -204,12 +228,22 @@ def _dense_fused_eligible(p, x):
             and h % FUSED_WIDTH == 0)
 
 
-def ffn_apply(p1, p2, x, act_name, dtype, key=None, act_dropout=0.0):
+def ffn_apply(p1, p2, x, act_name, dtype, key=None, act_dropout=0.0,
+              tp=False):
     """FFN block act(x @ W1 + b1) @ W2 + b2, dropout after the activation
     (mask of (key, STREAM_ACT)).  Blocks the gate admits run as one fused
     kernel (K9, or K13 with dropout), with K8 (its dropout entries) as the
-    backward."""
+    backward.  tp=True: W1 holds this model rank's columns and W2 its rows
+    (``mesh.tp_split``); the replicated x enters through copy_to_model, the
+    activation mask is this rank's own, and the partial outputs are summed
+    over the model group."""
     rate = _live(key, act_dropout)
+    if tp:
+        mesh = mesh_lib.active_tp_mesh()
+        x = collectives.copy_to_model(x, mesh)
+        h = dropout(activation(act_name)(dense(p1, x, dtype)), rate,
+                    mesh_lib.fold_key(key, mesh_lib.MODEL_AXIS))
+        return dense(p2, h, dtype, row_parallel=True)
     if _ffn_fused_eligible(p1, p2, x, act_name):
         lead, h = x.shape[:-1], x.shape[-1]
         operands = (x.to(dtype).reshape(-1, h).contiguous(), p1["kernel"],
@@ -225,11 +259,12 @@ def ffn_apply(p1, p2, x, act_name, dtype, key=None, act_dropout=0.0):
 
 
 def ffn_residual_ln_apply(p1, p2, p_ln, x, act_name, dtype, eps=1e-5, *,
-                          key=None, act_dropout=0.0, out_dropout=0.0):
+                          key=None, act_dropout=0.0, out_dropout=0.0,
+                          tp=False):
     """Post-LN FFN block: LayerNorm(x + drop_o(drop_a(act(x @ W1 + b1)) @ W2
     + b2)), the masks of (key, STREAM_ACT) and (key, STREAM_OUT).  Blocks
     the gate admits run as one fused kernel (K3, or K12 with dropout),
-    differentiable through K9 / K13, K10 and K8."""
+    differentiable through K9 / K13, K10 and K8.  tp: as in ffn_apply."""
     act_rate, out_rate = _live(key, act_dropout), _live(key, out_dropout)
     if _ffn_fused_eligible(p1, p2, x, act_name):
         lead, h = x.shape[:-1], x.shape[-1]
@@ -243,17 +278,18 @@ def ffn_residual_ln_apply(p1, p2, p_ln, x, act_name, dtype, eps=1e-5, *,
         else:
             y = ffn_kernels.ffn_res_ln_trainable(*operands, act_name, eps)
         return y.reshape(*lead, y.shape[-1])
-    f = ffn_apply(p1, p2, x, act_name, dtype, key, act_rate)
+    f = ffn_apply(p1, p2, x, act_name, dtype, key, act_rate, tp=tp)
     f = dropout(f, out_rate, key, STREAM_OUT)
     return layer_norm(p_ln, x + f, eps)
 
 
 def dense_residual_ln_apply(p, p_ln, x, res, dtype, eps=1e-5, *, key=None,
-                            dropout_rate=0.0):
+                            dropout_rate=0.0, row_parallel=False):
     """Post-LN attention epilogue: LayerNorm(res + drop(x @ W + b)), the
     mask of (key, STREAM_OUT).  Blocks the gate admits run as one fused
     kernel (K2, or K11 with dropout), differentiable by plain matrix
-    products."""
+    products.  row_parallel: x holds this model rank's heads and W their
+    rows (see dense)."""
     rate = _live(key, dropout_rate)
     if _dense_fused_eligible(p, x):
         lead, din = x.shape[:-1], x.shape[-1]
@@ -267,38 +303,46 @@ def dense_residual_ln_apply(p, p_ln, x, res, dtype, eps=1e-5, *, key=None,
         else:
             y = ffn_kernels.dense_res_ln_trainable(*operands, eps)
         return y.reshape(*lead, h)
-    a = dropout(dense(p, x, dtype), rate, key, STREAM_OUT)
+    a = dropout(dense(p, x, dtype, row_parallel), rate, key, STREAM_OUT)
     return layer_norm(p_ln, res + a, eps)
 
 
 def cross_entropy_with_ignore(logits, labels, ignore_index=-100):
     """Mean token cross-entropy over the positions where labels !=
     ignore_index, in float32 (0 when there is none).  logits: (..., V);
-    labels: (...) integers."""
+    labels: (...) integers.  Under a mesh with data ranks the mean is over
+    the valid tokens of the global batch: this rank's sum over the global
+    count (the data group's partial losses sum to the loss)."""
     valid = labels != ignore_index
     safe = torch.where(valid, labels, 0).long()
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, safe[..., None]).squeeze(-1)
     nll = (logz - gold) * valid.float()
-    return nll.sum() / valid.sum().float().clamp_min(1.0)
+    count = mesh_lib.data_sum(valid.sum().float())
+    return nll.sum() / count.clamp_min(1.0)
 
 
 def kld_batchmean(student_logits, teacher_logits):
     """torch's KLDivLoss(reduction='batchmean') of log_softmax(student)
     against softmax(teacher), in float32: the sum of t (log t - s) over all
-    elements, a term 0 where t == 0, divided by the batch size."""
+    elements, a term 0 where t == 0, divided by the (global) batch size."""
     s = torch.log_softmax(student_logits.float(), dim=-1)
     t = torch.softmax(teacher_logits.float(), dim=-1)
     log_t = torch.where(t > 0, torch.log(t.clamp_min(1e-30)), 0.0)
-    return (t * (log_t - s)).sum() / student_logits.shape[0]
+    return ((t * (log_t - s)).sum()
+            / mesh_lib.data_global_rows(student_logits.shape[0]))
 
 
 def bce_with_logits(logits, targets):
-    """BCEWithLogitsLoss (mean) in float32."""
+    """BCEWithLogitsLoss (mean over the global batch) in float32."""
     x = logits.float()
-    return torch.mean(torch.clamp_min(x, 0) - x * targets
-                      + torch.log1p(torch.exp(-x.abs())))
+    terms = (torch.clamp_min(x, 0) - x * targets
+             + torch.log1p(torch.exp(-x.abs())))
+    m = mesh_lib.active_mesh()
+    if m is None or m.n_data == 1:
+        return torch.mean(terms)
+    return terms.sum() / mesh_lib.data_global_rows(terms.numel())
 
 
 def conv1d(params, x, stride, dtype=None):

@@ -9,6 +9,14 @@ repeating their last utterance, and each batch runs
 ``generation.generate`` on the model's device.  Audio longer than the
 largest bucket is cut into chunks at low-energy points (or truncated), and
 the chunks' transcripts are joined.
+
+Over a mesh (``mesh=``, a ``parallel.mesh.Mesh``; every rank of it runs
+the same pipeline call on the same waveforms): each batch's rows are split
+over the data ranks (batch_size a multiple of n_data), the weights over the
+model ranks (``mesh.shard_params``; fuse_qkv is off under tensor
+parallelism, whose shares would cut the fused columns at the wrong places),
+the decode keeps the local heads' K / V, and the data ranks' tokens are
+gathered, so that every rank returns every transcript.
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ import torch
 
 from . import generation as gen_lib
 from .data import audio as audio_lib
+from .parallel import mesh as mesh_lib
 from .utils.platform import torch_dtype
 
 # batches whose tokens have not been read back yet: the host prepares the
@@ -51,8 +60,7 @@ class TranscriptionPipeline:
     (the same tokens).  generate_kwargs: the HF logits-processor knobs
     forwarded to every decode; the ones that return several sequences or
     scores are refused.  use_flash is accepted for the signature's sake
-    only; mesh (multi-card serving) is not ported and raises
-    NotImplementedError unless None."""
+    only.  mesh: serve over a mesh (see the module docstring)."""
 
     def __init__(self, model, batch_size: int = 16, max_length: int = None,
                  num_beams: int = 1, buckets_sec: Sequence[float] =
@@ -62,9 +70,10 @@ class TranscriptionPipeline:
                  long_audio_search_sec: float = 2.0, mesh=None,
                  transfer_dtype: str = "float32", min_length: int = 0,
                  fuse_qkv: bool = False, generate_kwargs: dict = None):
-        if mesh is not None:
-            raise NotImplementedError("multi-card serving (mesh) is not "
-                                      "ported yet")
+        if mesh is not None and batch_size % mesh.n_data != 0:
+            raise ValueError(
+                f"batch_size {batch_size} must be a multiple of the "
+                f"mesh data-axis size {mesh.n_data}")
         if transfer_dtype not in ("float32", "int16"):
             raise ValueError(f"transfer_dtype must be 'float32' or 'int16', "
                              f"got {transfer_dtype!r}")
@@ -108,15 +117,20 @@ class TranscriptionPipeline:
                         reversed(ecfg.conv_strides)):
             need = (need - 1) * s + k
         self._min_samples = need
+        if mesh is not None and mesh.n_model > 1:
+            fuse_qkv = False
         self.fuse_qkv = fuse_qkv
         self._fused_params = None
         self._fused_src = None
+        self._sharded_params = None
+        self._sharded_src = None
 
     @property
     def device(self):
-        return self.model.device
+        return self.mesh.device if self.mesh is not None else \
+            self.model.device
 
-    def _run_params(self):
+    def _base_params(self):
         """The model's parameters, q/k/v-fused when fuse_qkv is set (made
         again when model.params is replaced)."""
         if not self.fuse_qkv:
@@ -127,19 +141,45 @@ class TranscriptionPipeline:
             self._fused_src = self.model.params
         return self._fused_params
 
+    def _run_params(self):
+        """The parameters a decode runs on: _base_params, over a mesh this
+        rank's model shares of them (on its device)."""
+        base = self._base_params()
+        if self.mesh is None:
+            return base
+        if self._sharded_src is not base:
+            from .training.freezing import tree_map
+            self._sharded_params = mesh_lib.shard_params(
+                self.mesh, tree_map(lambda t: t.to(self.device), base),
+                self.model.config)
+            self._sharded_src = base
+        return self._sharded_params
+
     def _generate(self, batch, lengths, scale, max_length=None):
         """Tokens of one batch on the card: int16 rows scaled back to float
-        by their peaks there, then generate()."""
+        by their peaks there, then generate(); over a mesh on this data
+        rank's rows, the tokens of every data rank gathered after."""
+        mesh = self.mesh
+        if mesh is not None:
+            rows = mesh_lib.local_batch_index(len(lengths), mesh.n_data,
+                                              mesh.data_rank)
+            idx = mesh_lib.torch_index(rows).to(batch.device)
+            batch, lengths, scale = (x[idx] for x in (batch, lengths, scale))
         if self.transfer_dtype == "int16":
             batch = batch.float() * (scale[:, None] / 32767.0)
         cfg = self.model.config
-        tokens, _ = gen_lib.generate(
-            self._run_params(), cfg, batch, lengths,
-            max_length=max_length or self.max_length,
-            num_beams=self.num_beams, early_stop=self.early_stop,
-            kv_int8=self.kv_int8, min_length=self.min_length,
-            dtype=torch_dtype(cfg.dtype), device=self.device,
-            **self.generate_kwargs)
+        with mesh_lib.tp_sharding(mesh):
+            tokens, _ = gen_lib.generate(
+                self._run_params(), cfg, batch, lengths,
+                max_length=max_length or self.max_length,
+                num_beams=self.num_beams, early_stop=self.early_stop,
+                kv_int8=self.kv_int8, min_length=self.min_length,
+                dtype=torch_dtype(cfg.dtype), device=self.device,
+                **self.generate_kwargs)
+        if mesh is not None and mesh.group(mesh_lib.DATA_AXIS) is not None:
+            from .parallel import collectives
+            tokens = collectives.all_gather(
+                tokens.contiguous(), mesh.group(mesh_lib.DATA_AXIS), dim=0)
         return tokens
 
     def _bucket_cap(self, sec):

@@ -14,11 +14,22 @@ weights (a bf16 model's matrices upcast), ``Trainer.fit`` trains them, and
 the result is written as ``final_weights.npz`` in the JAX package's npz
 layout, which either package's ``load_weights`` reads.
 
-Not ported, and refused with NotImplementedError (ROADMAP item 6):
-``--model_parallel`` / ``--sequence_parallel`` above 1, ``--zero1``,
-``--multihost`` and ``--checkpoint_backend orbax``.  The JAX compile cache
-has no counterpart; ``--flash_attention`` is accepted and ignored (the
-port runs its attention kernels whenever its tensors are on the card).
+Over a mesh, one process per card:
+
+    torchrun --nproc_per_node 4 -m speechmix_tpu_torch.train \
+        --HFSpeechMixEED --model_parallel 2 --zero1 --bf16 --synthetic ...
+
+Each rank joins the process group torchrun describes (NCCL on the card,
+gloo with ``--platform cpu``), takes cuda:LOCAL_RANK, and sits in the mesh
+of ``--model_parallel`` x ``--sequence_parallel`` model and seq ranks and
+the world over them data ranks; each keeps its data rank's rows of every
+global batch (the ``--multihost`` data path, on whenever there is more
+than one rank), ``--zero1`` shards the optimizer state over the data ranks,
+and only rank 0 logs and writes npz files (``--checkpoint_backend orbax``:
+every rank writes its shards, in the port's own format).  The JAX compile
+cache has no counterpart; ``--flash_attention`` is accepted and ignored
+(the port runs its attention kernels whenever its tensors are on the
+card).
 """
 
 import argparse
@@ -56,8 +67,10 @@ def parse_args(args):
     parser.add_argument("--save_total_limit", default=2, type=int)
     parser.add_argument("--checkpoint_backend", default="npz",
                         choices=["npz", "orbax"],
-                        help="npz: flat single-host files; orbax: not "
-                             "ported")
+                        help="npz: the JAX package's files of the whole "
+                             "state; orbax: each rank its shards "
+                             "(torch.distributed.checkpoint, the port's "
+                             "own files)")
     parser.add_argument("--max_grad_norm", default=10, type=float)
     parser.add_argument("--worker", default=10, type=int,
                         help="host-side data-prep thread count (CSV/audio "
@@ -85,7 +98,9 @@ def parse_args(args):
                         help="training-mode dropout at the HF placements "
                              "(rates from the model configs)")
     parser.add_argument("--multihost", action="store_true",
-                        help="multi-host training: not ported")
+                        help="each process keeps its data rank's rows of "
+                             "every global batch (on whenever the command "
+                             "runs as several ranks)")
     parser.add_argument("--fixed_except", nargs="+",
                         default=["layer_norm", "encoder_attn",
                                  "enc_to_dec_proj", "length_adapter",
@@ -96,13 +111,15 @@ def parse_args(args):
     parser.add_argument("--wandb", action="store_true")
     parser.add_argument("--output_dir", type=str, default=None)
     parser.add_argument("--model_parallel", default=1, type=int,
-                        help="not ported: only 1")
+                        help="model (tensor-parallel) ranks of the mesh")
     parser.add_argument("--sequence_parallel", default=1, type=int,
-                        help="not ported: only 1")
+                        help="seq ranks of the mesh (the speech encoder's "
+                             "time axis, ring attention)")
     parser.add_argument("--optimizer", default="adafactor",
                         choices=("adafactor", "adamw"))
     parser.add_argument("--zero1", action="store_true",
-                        help="ZeRO-1: not ported")
+                        help="ZeRO-1: the optimizer state sharded over "
+                             "the data ranks")
     parser.add_argument("--seed", default=0, type=int)
     parser.add_argument("--freeze_epochs", default=3, type=int)
     parser.add_argument("--synthetic", action="store_true",
@@ -152,20 +169,8 @@ def _coerce(v):
     return v
 
 
-def _check_supported(input_args):
-    """The flags of what is not ported (ROADMAP item 6, parallelism)."""
-    refused = [name for name, on in (
-        ("--model_parallel > 1", input_args.model_parallel > 1),
-        ("--sequence_parallel > 1", input_args.sequence_parallel > 1),
-        ("--zero1", input_args.zero1),
-        ("--multihost", input_args.multihost),
-        ("--checkpoint_backend orbax",
-         input_args.checkpoint_backend == "orbax")) if on]
-    if refused:
-        raise NotImplementedError(
-            f"{', '.join(refused)}: not ported yet (ROADMAP item 6: model / "
-            "sequence parallelism, ZeRO-1, multi-host and the sharding-aware "
-            "checkpoint backend)")
+def _world_size() -> int:
+    return int(os.environ.get("WORLD_SIZE", "1"))
 
 
 def pick_model(input_args, other):
@@ -193,21 +198,37 @@ def pick_model(input_args, other):
 
 def main(arg=None):
     input_args, other = parse_args(sys.argv[1:] if arg is None else arg)
-    _check_supported(input_args)
     import torch
     from speechmix_tpu_torch.data.datasets import build_datasets
+    from speechmix_tpu_torch.parallel import mesh as mesh_lib
     from speechmix_tpu_torch.training import trainer as trainer_lib
     from speechmix_tpu_torch.training.trainer import (TrainConfig, Trainer,
                                                       TrainState)
 
+    if _world_size() > 1:
+        mesh_lib.initialize_distributed(
+            backend="gloo" if input_args.platform == "cpu" else None)
+        if input_args.platform != "cpu":
+            other.setdefault("device",
+                             f"cuda:{os.environ.get('LOCAL_RANK', 0)}")
+        input_args.multihost = True
     model_type, model = pick_model(input_args, other)
-    print(f"model: {model_type} "
-          f"speech_layers={model.speech_encoder_layer} "
-          f"nlp_layers={model.nlp_encoder_layer} "
-          f"trainable={len(model.list_grad)} frozen={len(model.list_no_grad)}")
+    mesh = None
+    if _world_size() > 1 or input_args.model_parallel > 1 or \
+            input_args.sequence_parallel > 1:
+        mesh = mesh_lib.make_mesh(n_model=input_args.model_parallel,
+                                  n_seq=input_args.sequence_parallel,
+                                  device=model.device)
+    rank0 = mesh is None or mesh.rank == 0
+    if rank0:
+        print(f"model: {model_type} "
+              f"speech_layers={model.speech_encoder_layer} "
+              f"nlp_layers={model.nlp_encoder_layer} "
+              f"trainable={len(model.list_grad)} "
+              f"frozen={len(model.list_no_grad)}")
 
     train_iter, eval_iter = build_datasets(input_args, model,
-                                           device=model.device)
+                                           device=model.device, mesh=mesh)
 
     out_dir = input_args.output_dir or (
         f"./{(input_args.speech_model_config or 'wav2vec2').replace('/', '_')}"
@@ -249,17 +270,25 @@ def main(arg=None):
     )
 
     trainer = Trainer(model.config, tc, tokenizer=model.tokenizer,
-                      device=model.device)
+                      device=model.device, mesh=mesh)
     # float32 master weights from the constructed model's parameters
     params = trainer_lib.tree_map(
         lambda p: p.detach().to(torch.float32).clone(), model.params)
     state = TrainState(params=params,
                        opt_state=trainer_lib.make_optimizer(tc).init(params),
                        step=0)
+    if mesh is not None:
+        state = trainer_lib.shard_train_state(state, mesh, model.config, tc)
     state = trainer.fit(state, train_iter, eval_iter)
-    model.params = state.params
-    model.save_weights(os.path.join(out_dir, "final_weights.npz"))
-    print(f"saved final weights to {out_dir}/final_weights.npz")
+    if mesh is not None:   # the whole parameters, gathered on every rank
+        from speechmix_tpu_torch.training import sharded
+        state = sharded.full_state(state, trainer._layout,
+                                   trainer._optimizer)
+    if rank0:
+        model.params = trainer_lib.tree_map(
+            lambda p: p.to(model.device), state.params)
+        model.save_weights(os.path.join(out_dir, "final_weights.npz"))
+        print(f"saved final weights to {out_dir}/final_weights.npz")
 
 
 if __name__ == "__main__":

@@ -11,8 +11,20 @@ optax's (``convert.train_state_to_jax``), so a run begun by either package
 resumes in the other.
 
 ``save_total_limit`` pruning never deletes the best-eval_loss checkpoint,
-so load-best-at-end always has its target.  The JAX package's "orbax"
-backend (sharding-aware, multi-host) is not ported.
+so load-best-at-end always has its target.  Over a mesh the npz file holds
+the whole state: the trainer gathers it and rank 0 writes it, and every
+rank reads it back and takes its share.
+
+The "orbax" backend, the JAX package's sharding-aware one, is in the port
+``torch.distributed.checkpoint``: ``<dir>/step_<N>/`` written by every
+rank, each its own shards (its model share of the parameters, the
+optimizer leaves it owns under ZeRO-1, the step and the count; replicas
+written once), with no gather to one host, beside ``step_<N>.meta.json``
+({"step", "metrics"}).  These files are the port's own: the JAX package's orbax
+archives and these cannot read each other, and a run restores them only
+on the mesh shape that wrote them.  Pruning, best-step retention and the
+error of a damaged archive (the first failure is raised) behave as the JAX
+package's.
 """
 
 from __future__ import annotations
@@ -20,6 +32,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import shutil
 from typing import Optional
 
 import numpy as np
@@ -46,31 +59,34 @@ def load_pytree_npz(path: str) -> dict:
 
 class CheckpointManager:
     """Step-indexed checkpoints with save_total_limit pruning (the best-
-    eval_loss step is never pruned) and latest / best tracking."""
+    eval_loss step is never pruned) and latest / best tracking.  backend
+    "npz" (the JAX package's files) or "orbax" (the port's sharded files);
+    mesh: the rank's ``parallel.mesh.Mesh`` (the orbax backend's keys)."""
 
     def __init__(self, directory: str, save_total_limit: int = 2,
-                 backend: str = "npz"):
-        if backend == "orbax":
-            raise NotImplementedError("the orbax checkpoint backend is a JAX "
-                                      "library; the port writes npz")
-        if backend != "npz":
+                 backend: str = "npz", mesh=None):
+        if backend not in ("npz", "orbax"):
             raise ValueError(f"unknown checkpoint backend {backend!r}")
         self.directory = directory
         self.save_total_limit = save_total_limit
         self.backend = backend
+        self.mesh = mesh
         os.makedirs(directory, exist_ok=True)
 
     # paths -----------------------------------------------------------------
     def _step_path(self, step: int) -> str:
-        return os.path.join(self.directory, f"step_{step}.npz")
+        suffix = ".npz" if self.backend == "npz" else ""
+        return os.path.join(self.directory, f"step_{step}{suffix}")
 
     def _meta_path(self, step: int) -> str:
         return self._step_path(step) + ".meta.json"
 
     def _step_paths(self):
+        pattern = (r"step_(\d+)\.npz$" if self.backend == "npz"
+                   else r"step_(\d+)$")
         out = []
         for name in os.listdir(self.directory):
-            m = re.match(r"step_(\d+)\.npz$", name)
+            m = re.match(pattern, name)
             if m:
                 out.append((int(m.group(1)),
                             os.path.join(self.directory, name)))
@@ -85,13 +101,34 @@ class CheckpointManager:
     # save / restore --------------------------------------------------------
     def save(self, step: int, state, metrics: Optional[dict] = None):
         """Checkpoint the TrainState `state` (a synchronous copy to the
-        host: the next in-place step may start once this returns)."""
+        host: the next in-place step may start once this returns).  npz:
+        the whole state, by one process; orbax: this rank's shares, by
+        every rank of the mesh."""
         path = self._step_path(step)
-        save_pytree_npz(path, convert.train_state_to_jax(state))
-        with open(self._meta_path(step), "w") as f:
-            json.dump({"step": step, "metrics": metrics or {}}, f)
-        self._prune()
+        meta = {"step": step, "metrics": metrics or {}}
+        if self.backend == "npz":
+            save_pytree_npz(path, convert.train_state_to_jax(state))
+        else:
+            import torch.distributed.checkpoint as dcp
+            if self._rank0() and os.path.exists(path):
+                shutil.rmtree(path)
+            self._barrier()
+            dcp.save(_shard_dict(state, self.mesh), checkpoint_id=path)
+        if self._rank0():
+            with open(self._meta_path(step), "w") as f:
+                json.dump(meta, f)
+            self._prune()
+        if self.backend == "orbax":
+            self._barrier()
         return path
+
+    def _rank0(self) -> bool:
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _barrier(self):
+        import torch.distributed as dist
+        if self.mesh is not None and self.mesh.distributed:
+            dist.barrier()
 
     def best_step(self, metric: str = "eval_loss") -> Optional[int]:
         """The step with the lowest recorded eval metric."""
@@ -108,7 +145,10 @@ class CheckpointManager:
         removable = [(s, p) for s, p in steps if s != best]
         excess = len(steps) - self.save_total_limit
         for _, path in removable[:max(excess, 0)]:
-            os.remove(path)
+            if os.path.isdir(path):
+                shutil.rmtree(path)
+            else:
+                os.remove(path)
             if os.path.exists(path + ".meta.json"):
                 os.remove(path + ".meta.json")
 
@@ -124,5 +164,47 @@ class CheckpointManager:
         if step is None:
             return None, None
         path = self._step_path(step)
-        state = convert.train_state_from_jax(load_pytree_npz(path), state)
-        return state, self._meta(path)
+        if self.backend == "npz":
+            state = convert.train_state_from_jax(load_pytree_npz(path), state)
+            return state, self._meta(path)
+        import torch.distributed.checkpoint as dcp
+        meta = self._meta(path)
+        want = _shard_dict(state, self.mesh)
+        try:
+            dcp.load(want, checkpoint_id=path)
+        except Exception as first_err:
+            # an archive from before an optional parameter existed keeps
+            # the live value; if that fails too, the archive is bad: raise
+            # the first error
+            kept = {k: v for k, v in want.items()
+                    if not any(s in k for s in
+                               convert._OPTIONAL_LEAF_SUBSTRINGS)}
+            if len(kept) == len(want):
+                raise
+            try:
+                dcp.load(kept, checkpoint_id=path)
+            except Exception:
+                raise first_err
+        return type(state)(state.params, {**state.opt_state,
+                                          "count": int(want["count"])},
+                           int(want["step"])), meta
+
+
+def _shard_dict(state, mesh) -> dict:
+    """{key: tensor} of this rank's shares of a TrainState, keyed so that
+    replicas of a share write once: the parameters by model rank, the
+    optimizer leaves this rank holds (ZeRO-1: those it owns) by model
+    rank."""
+    import torch
+    from ..training.freezing import tree_paths
+    m = f"@model{mesh.model_rank}of{mesh.n_model}" if mesh is not None \
+        else "@model0of1"
+    out = {"step": torch.tensor(int(state.step)),
+           "count": torch.tensor(int(state.opt_state["count"])),
+           **{f"params/{p}{m}": t for p, t in tree_paths(state.params)}}
+    for field, tree in state.opt_state.items():
+        if field == "count":
+            continue
+        out.update({f"opt/{field}/{p}{m}": t for p, t in tree_paths(tree)
+                    if t is not None})
+    return out

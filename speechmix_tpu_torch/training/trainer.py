@@ -17,18 +17,28 @@ rng: base = key(seed + 0x5EED), then fold_in(step), then one split per
 micro-batch (``dropout_keys``).  A step is deterministic per (seed, step,
 micro-batch); its streams differ from the JAX package's.
 
+Over a mesh (``parallel.mesh``; ``make_train_step(..., mesh=)``,
+``Trainer(..., mesh=)``) each rank holds its share of the parameters
+(``mesh.shard_params``) and its data rank's rows of each batch
+(``mesh.local_batch``, or the multihost data path); the step sums the
+gradients over their groups, takes the global norm, and with ``zero1``
+keeps and updates only the optimizer state this data rank owns, then
+broadcasts the updated parameters (``training.sharded``).  Without a mesh ``model_parallel``,
+``sequence_parallel`` and ``zero1`` change nothing, as the JAX package's
+step without a mesh.
+
 ``Trainer`` runs the loop as the JAX package's does: epochs that feed
 ``epoch / freeze_epochs`` to the step, batches staged on the card ahead of
 the step (``data.prefetch``), JSONL logging, teacher-forced ``evaluate``
 (``make_eval_step``) and free-running ``predict`` (greedy or beam
 ``generate`` with WER / CER) every ``eval_steps``, early stopping,
-checkpoints in the JAX package's npz files (``training.checkpoint``:
-resume from the latest, keep the best, restore it at the end) and a stall
-watchdog.  As in the JAX package, a resumed run starts its epoch again from
-the first batch.
-
-Not ported yet, and refused with NotImplementedError: model / sequence
-parallelism and ZeRO-1, and the orbax checkpoint backend.
+checkpoints (``training.checkpoint``: the JAX package's npz files, or the
+port's sharded ``orbax`` counterpart; resume from the latest, keep the
+best, restore it at the end) and a stall watchdog.  As in the JAX package,
+a resumed run starts its epoch again from the first batch.  Over a mesh
+every rank computes the same metrics (evaluate and predict gather the rows
+of all data ranks) and so makes the same early-stopping decision; only
+rank 0 logs and writes npz files.
 """
 
 from __future__ import annotations
@@ -50,8 +60,11 @@ from ..metrics import cer, compute_metrics, wer
 from ..models import speechmix as smx
 from ..ops.kernels._cuda import resolve_device
 from ..ops.kernels.dropout import DropoutKey
+from ..parallel import collectives
+from ..parallel import mesh as mesh_lib
 from ..utils import watchdog as watchdog_lib
 from . import freezing
+from . import sharded
 from .checkpoint import CheckpointManager
 from .freezing import tree_map, tree_map_with_path, tree_paths
 
@@ -83,7 +96,9 @@ class TrainConfig:
     predict_with_generate: bool = False
     num_beams: int = 1  # beams of predict_with_generate's decoding
     output_dir: str = "./checkpoints"
-    checkpoint_backend: str = "npz"  # "orbax" is not ported
+    # "npz": the JAX package's files; "orbax": the port's sharded files
+    # (torch.distributed.checkpoint), each rank its own shards
+    checkpoint_backend: str = "npz"
     bf16: bool = False  # compute dtype
     seed: int = 0       # of the dropout key chain
     dropout: bool = True
@@ -123,9 +138,6 @@ def _check_supported(tc: TrainConfig):
         raise ValueError(f"unknown unfreeze_granularity "
                          f"{tc.unfreeze_granularity!r} (expected 'tensor' "
                          "or 'layer')")
-    if tc.model_parallel > 1 or tc.sequence_parallel > 1 or tc.zero1:
-        raise NotImplementedError("model / sequence parallelism and ZeRO-1 "
-                                  "are not ported yet")
 
 
 def make_lr_schedule(tc: TrainConfig):
@@ -156,12 +168,18 @@ class AdamW:
     decay 0) at the schedule's rate; the update of optax's
     chain(clip_by_global_norm, adamw)."""
 
-    def __init__(self, tc: TrainConfig):
+    def __init__(self, tc: TrainConfig, layout=None):
+        self.tc = tc
         self.schedule = make_lr_schedule(tc)
         self.max_norm = tc.max_grad_norm
+        self.layout = layout   # training.sharded.StepLayout (ZeRO-1)
 
     def init(self, params):
-        zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)
+        """Zero moments (under ZeRO-1 only for the leaves this data rank
+        owns; None for the others)."""
+        mine = self.layout.mine if self.layout is not None else None
+        zeros = lambda p: (torch.zeros_like(p, dtype=torch.float32)
+                           if mine is None or mine(p) else None)
         return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params),
                 "count": 0}
 
@@ -172,6 +190,9 @@ class AdamW:
         leaves = lambda tree: [leaf for _, leaf in tree_paths(tree)]
         p, g = leaves(params), leaves(grads)
         mu, nu = leaves(opt_state["mu"]), leaves(opt_state["nu"])
+        if self.layout is not None:  # the leaves this data rank owns
+            own = [i for i, m in enumerate(mu) if m is not None]
+            p, g, mu, nu = ([x[i] for i in own] for x in (p, g, mu, nu))
         # g * max_norm / max(norm, max_norm)
         clip = self.max_norm / torch.clamp(grad_norm, min=self.max_norm)
         g = torch._foreach_mul(g, clip)
@@ -217,15 +238,28 @@ class Adafactor:
     C_out).  Every leaf's statistics move every step, also where the
     gradient is 0 (a frozen leaf), as optax's do."""
 
-    def __init__(self, tc: TrainConfig):
+    def __init__(self, tc: TrainConfig, layout=None):
+        self.tc = tc
         self.schedule = make_lr_schedule(tc)
         self.max_norm = tc.max_grad_norm
+        # training.sharded.StepLayout: ZeRO-1 ownership and the model dim
+        # of each leaf (statistics of the whole leaf)
+        self.layout = layout
+
+    def _shape(self, group):
+        return (group.shape if self.layout is None
+                else self.layout.global_shape(group))
 
     def init(self, params):
+        """Zero statistics of each JAX-layout leaf (under ZeRO-1 only of
+        the leaves this data rank owns; None for the others)."""
         def stats(group):
+            if self.layout is not None and \
+                    not self.layout.mine(group.tensors[0]):
+                return None, None, None
             zeros = lambda shape: torch.zeros(
                 shape, dtype=torch.float32, device=group.tensors[0].device)
-            shape = group.shape
+            shape = self._shape(group)
             dims = _factored_dims(shape)
             if dims is None:
                 return zeros(1), zeros(1), zeros(shape)
@@ -253,12 +287,19 @@ class Adafactor:
         lr = self.schedule(count)
         clipped = grad_norm >= self.max_norm
         targets, updates = [], []
+        layout = self.layout
         for pg, gg, v_row, v_col, v in zip(p_groups, g_groups, v_rows,
                                            v_cols, vs):
+            if v is None:   # another data rank owns this leaf
+                continue
             g = gg.gather().float()
+            dim = layout.group_dim(pg) if layout is not None else None
+            if dim is not None:   # the whole leaf from its model shares
+                g = collectives.all_gather(
+                    g.contiguous(), layout.mesh.group("model"), dim=dim)
             g = torch.where(clipped, g / grad_norm * self.max_norm, g)
             g2 = g * g + ADAFACTOR_EPS
-            dims = _factored_dims(pg.shape)
+            dims = _factored_dims(self._shape(pg))
             if dims is None:
                 v.mul_(decay).add_(g2, alpha=1.0 - decay)
                 u = g * v.pow(-0.5)
@@ -271,6 +312,9 @@ class Adafactor:
                 u = g * row.unsqueeze(d0) * v_col.pow(-0.5).unsqueeze(d1)
             rms = torch.sqrt(torch.mean(u * u)) / ADAFACTOR_CLIP
             u = u / torch.clamp_min(rms, 1.0) * -lr
+            if dim is not None:
+                size = u.shape[dim] // layout.mesh.n_model
+                u = u.narrow(dim, layout.mesh.model_rank * size, size)
             targets += pg.tensors
             updates += pg.views(u)
         torch._foreach_add_(targets, updates)
@@ -280,9 +324,9 @@ class Adafactor:
 OPTIMIZERS = {"adamw": AdamW, "adafactor": Adafactor}
 
 
-def make_optimizer(tc: TrainConfig):
+def make_optimizer(tc: TrainConfig, layout=None):
     _check_supported(tc)
-    return OPTIMIZERS[tc.optimizer](tc)
+    return OPTIMIZERS[tc.optimizer](tc, layout)
 
 
 def create_train_state(generator: torch.Generator, cfg: SpeechMixConfig,
@@ -312,7 +356,7 @@ def dropout_keys(tc: TrainConfig, step: int):
 
 
 def make_train_step(cfg: SpeechMixConfig, tc: TrainConfig, params_example,
-                    device=None):
+                    device=None, mesh=None):
     """Build step_fn(state, batch, unfreeze_progress=0.0) -> (state,
     metrics).
 
@@ -335,10 +379,27 @@ def make_train_step(cfg: SpeechMixConfig, tc: TrainConfig, params_example,
 
     Runs on `device` (default: the card; raises without CUDA); the state
     must live there.  The parameters and the optimizer state of `state` are
-    updated in place."""
+    updated in place.
+
+    mesh: a ``parallel.mesh.Mesh``; then `params_example` and the state are
+    this rank's shares (``shard_train_state``), the batch is this data
+    rank's rows (``mesh.local_batch`` with ``accum=grad_accum``), the
+    device is the mesh's, and the metrics are the global batch's (the same
+    on every rank).  Sequence parallelism runs when tc.sequence_parallel >
+    1 and the mesh's seq axis is parallel; ZeRO-1 when tc.zero1.
+
+    ``step_fn.gradients(state, batch, unfreeze_progress)`` gives the step's
+    (grads, grad_norm, metrics) without the update; ``step_fn.layout`` is
+    the mesh plan (``training.sharded.StepLayout``, None without a mesh)."""
     _check_supported(tc)
+    layout = None
+    if mesh is not None:
+        device = mesh.device
+        layout = sharded.StepLayout(mesh, cfg, params_example, tc.optimizer,
+                                    tc.zero1, tc.sequence_parallel > 1)
     device = resolve_device(device)
-    optimizer = make_optimizer(tc)
+    optimizer = make_optimizer(tc, layout)
+    seq_mesh = mesh if layout is not None and layout.seq_parallel else None
     dtype = torch.bfloat16 if tc.bf16 else torch.float32
     static_mask = freezing.variant_trainable_mask(
         params_example, cfg, tc.fixed_speech, tc.fixed_nlp)
@@ -373,7 +434,11 @@ def make_train_step(cfg: SpeechMixConfig, tc: TrainConfig, params_example,
             text_mask=micro.get("text_mask"))
         return out
 
-    def step_fn(state: TrainState, batch, unfreeze_progress=0.0):
+    def gradients(state: TrainState, batch, unfreeze_progress=0.0):
+        """(grads, grad_norm, metrics) of the step without the update: the
+        masked gradients averaged over the micro-batches (over a mesh
+        summed over their groups: this rank's shares of the whole tree's),
+        their global norm, and the metrics without grad_norm."""
         batch = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
         mask = step_mask(state.params, state.step, unfreeze_progress)
         leaves = tree_map(
@@ -385,36 +450,76 @@ def make_train_step(cfg: SpeechMixConfig, tc: TrainConfig, params_example,
                 for path, leaf in wanted}
         terms = {}
         skipped = []
-        for i, key in enumerate(dropout_keys(tc, state.step)):
-            micro = {k: v.reshape(accum, v.shape[0] // accum,
-                                  *v.shape[1:])[i] for k, v in batch.items()}
-            out = micro_forward(leaves, micro, key)
-            skipped.append(out["layers_skipped"])
-            if wanted and out["loss"].requires_grad:
-                grads = torch.autograd.grad(
-                    out["loss"], [leaf for _, leaf in wanted],
-                    allow_unused=True)
-                for (path, _), g in zip(wanted, grads):
-                    if g is not None:
-                        sums[path] += g
-            for name, value in out.items():
-                if name == "loss" or name.endswith("_loss"):
-                    terms[name] = (terms.get(name, 0.0)
-                                   + value.detach().float())
+        # the mesh stays active through the backward: a rematerialised
+        # layer runs its forward again there
+        with mesh_lib.tp_sharding(mesh), mesh_lib.seq_sharding(seq_mesh):
+            for i, key in enumerate(dropout_keys(tc, state.step)):
+                micro = {k: v.reshape(accum, v.shape[0] // accum,
+                                      *v.shape[1:])[i]
+                         for k, v in batch.items()}
+                out = micro_forward(leaves, micro, key)
+                skipped.append(out["layers_skipped"])
+                if wanted and out["loss"].requires_grad:
+                    grads = torch.autograd.grad(
+                        out["loss"], [leaf for _, leaf in wanted],
+                        allow_unused=True)
+                    for (path, _), g in zip(wanted, grads):
+                        if g is not None:
+                            sums[path] += g
+                for name, value in out.items():
+                    if name == "loss" or name.endswith("_loss"):
+                        terms[name] = (terms.get(name, 0.0)
+                                       + value.detach().float())
         # the masks are 0.0 or 1.0 per leaf: a frozen leaf's masked gradient
         # is the zero it gets here, a trained leaf's its own
-        grads = tree_map_with_path(
-            lambda path, p: (sums[path] / accum if path in sums else
-                             torch.zeros_like(p, dtype=torch.float32)),
-            state.params)
-        grad_norm = global_norm(grads)
+        if layout is not None:
+            sums = tree_map_with_path(
+                lambda path, p: sums.get(path, torch.zeros_like(
+                    p, dtype=torch.float32)), state.params)
+            sharded.reduce_gradients(sums, layout)
+            grads = tree_map(lambda g: g / accum, sums)
+            grad_norm = sharded.global_norm(grads, layout)
+            terms = {name: collectives.all_reduce(
+                value.clone(), mesh.group(mesh_lib.DATA_AXIS))
+                for name, value in terms.items()}
+        else:
+            grads = tree_map_with_path(
+                lambda path, p: (sums[path] / accum if path in sums else
+                                 torch.zeros_like(p, dtype=torch.float32)),
+                state.params)
+            grad_norm = global_norm(grads)
+        metrics = {**{name: value / accum for name, value in terms.items()},
+                   "layers_skipped": skipped}
+        return grads, grad_norm, metrics
+
+    def step_fn(state: TrainState, batch, unfreeze_progress=0.0):
+        grads, grad_norm, metrics = gradients(state, batch, unfreeze_progress)
         opt_state = optimizer.update_(state.params, grads, state.opt_state,
                                       grad_norm)
-        metrics = {**{name: value / accum for name, value in terms.items()},
-                   "grad_norm": grad_norm, "layers_skipped": skipped}
+        if layout is not None:
+            sharded.broadcast_updates(state.params, layout)
+        metrics = {**metrics, "grad_norm": grad_norm}
         return TrainState(state.params, opt_state, state.step + 1), metrics
 
+    step_fn.layout = layout
+    step_fn.gradients = gradients
     return step_fn
+
+
+def shard_train_state(state: TrainState, mesh, cfg: SpeechMixConfig,
+                      tc: TrainConfig) -> TrainState:
+    """This rank's share of a one-card TrainState `state` (on any device):
+    its parameters' model shares (``mesh.shard_params``) on the mesh's
+    device, and the optimizer state of make_train_step(..., mesh=)'s layout
+    (under ZeRO-1 only the leaves this data rank owns), copied from
+    `state`'s."""
+    params = mesh_lib.shard_params(
+        mesh, tree_map(lambda t: t.to(mesh.device), state.params), cfg)
+    layout = sharded.StepLayout(mesh, cfg, params, tc.optimizer, tc.zero1,
+                                tc.sequence_parallel > 1)
+    local = TrainState(params, make_optimizer(tc, layout).init(params),
+                       state.step)
+    return sharded.load_full_state(local, state, layout)
 
 
 def _to_device(batch, device):
@@ -425,16 +530,20 @@ def _host(v):
     return v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
 
 
-def make_eval_step(cfg: SpeechMixConfig, tc: TrainConfig, device=None):
+def make_eval_step(cfg: SpeechMixConfig, tc: TrainConfig, device=None,
+                   mesh=None):
     """Build eval_fn(params, batch) -> {"loss", "predictions", "n_tokens",
     "n_examples"}: the teacher-forced forward without dropout and without a
     gradient, the argmax predictions, the count of label tokens (a batch
     without any has a NaN-free mean loss of 0, which evaluate() leaves out)
     and of real rows (``example_mask``), which weight evaluate()'s mean as
     the reference's Trainer weights it.  Runs on `device` (default: the
-    card; raises without CUDA)."""
-    device = resolve_device(device)
+    card; raises without CUDA).  Over a mesh (tensor parallel, no sequence
+    split, as the JAX package's eval step) the loss and the counts are the
+    global batch's, the predictions this data rank's rows."""
+    device = mesh.device if mesh is not None else resolve_device(device)
     dtype = torch.bfloat16 if tc.bf16 else torch.float32
+    group = mesh.group(mesh_lib.DATA_AXIS) if mesh is not None else None
 
     @torch.no_grad()
     def eval_fn(params, batch):
@@ -443,16 +552,25 @@ def make_eval_step(cfg: SpeechMixConfig, tc: TrainConfig, device=None):
         if "example_mask" in batch:
             labels = torch.where(batch["example_mask"][:, None].bool(),
                                  labels, -100)
-        out = smx.speechmix_forward(
-            params, cfg, batch["input_values"], lengths=batch.get("lengths"),
-            labels=labels, prompt_ids=batch.get("prompt_ids"), dtype=dtype,
-            text_input_ids=batch.get("text_input_ids"),
-            text_mask=batch.get("text_mask"))
+        with mesh_lib.tp_sharding(mesh):
+            out = smx.speechmix_forward(
+                params, cfg, batch["input_values"],
+                lengths=batch.get("lengths"), labels=labels,
+                prompt_ids=batch.get("prompt_ids"), dtype=dtype,
+                text_input_ids=batch.get("text_input_ids"),
+                text_mask=batch.get("text_mask"))
         n_ex = (batch["example_mask"].sum() if "example_mask" in batch
                 else labels.shape[0])
-        return {"loss": out["loss"],
+        n_tokens = (labels != -100).sum()
+        loss = out["loss"]
+        if group is not None:
+            loss, n_ex, n_tokens = (
+                collectives.all_reduce(torch.as_tensor(v, device=device)
+                                       .clone(), group)
+                for v in (loss, n_ex, n_tokens))
+        return {"loss": loss,
                 "predictions": torch.argmax(out["logits"], dim=-1),
-                "n_tokens": (labels != -100).sum(), "n_examples": n_ex}
+                "n_tokens": n_tokens, "n_examples": n_ex}
 
     return eval_fn
 
@@ -462,8 +580,10 @@ class JSONLLogger:
     with use_wandb also mirrored to wandb when the package is installed
     (project from WANDB_PROJECT), else JSONL only."""
 
-    def __init__(self, path: Optional[str], use_wandb: bool = False):
+    def __init__(self, path: Optional[str], use_wandb: bool = False,
+                 echo: bool = True):
         self.path = path
+        self.echo = echo
         if path:
             os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
             self._f = open(path, "a")
@@ -490,7 +610,8 @@ class JSONLLogger:
             step = record.get("step")
             self._wandb.log(record,
                             step=int(step) if step is not None else None)
-        print(json.dumps(record))
+        if self.echo:
+            print(json.dumps(record))
 
     def close(self):
         if self._f:
@@ -499,28 +620,79 @@ class JSONLLogger:
 
 class Trainer:
     """The loop around the step functions (epochs, eval, early stopping,
-    checkpoints), on `device` (default: the card; raises without CUDA)."""
+    checkpoints), on `device` (default: the card; raises without CUDA).
+
+    mesh: a ``parallel.mesh.Mesh``; by default, under torch.distributed or
+    with model_parallel / sequence_parallel above 1, make_mesh(n_model=
+    tc.model_parallel, n_seq=tc.sequence_parallel) over the world, as the
+    JAX package builds its mesh; else none (one card).  Over a mesh the
+    states fit() takes and returns are this rank's shares
+    (``init_state`` / ``shard_train_state``), and the batches each rank's
+    rows."""
 
     def __init__(self, cfg: SpeechMixConfig, tc: TrainConfig, tokenizer=None,
-                 device=None):
+                 device=None, mesh=None):
         _check_supported(tc)
         self.cfg = cfg
         self.tc = tc
         self.tokenizer = tokenizer
-        self.device = resolve_device(device)
+        if mesh is None and (mesh_lib.process_count() > 1
+                             or tc.model_parallel > 1
+                             or tc.sequence_parallel > 1):
+            mesh = mesh_lib.make_mesh(n_model=tc.model_parallel,
+                                      n_seq=tc.sequence_parallel,
+                                      device=device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else \
+            resolve_device(device)
+        self.rank0 = mesh is None or mesh.rank == 0
         self.logger = JSONLLogger(os.path.join(tc.output_dir, "metrics.jsonl")
-                                  if tc.output_dir else None,
-                                  use_wandb=tc.wandb)
+                                  if tc.output_dir and self.rank0 else None,
+                                  use_wandb=tc.wandb and self.rank0,
+                                  echo=self.rank0)
         self.ckpt = CheckpointManager(tc.output_dir, tc.save_total_limit,
-                                      backend=tc.checkpoint_backend) \
+                                      backend=tc.checkpoint_backend,
+                                      mesh=mesh) \
             if tc.output_dir else None
 
     def init_state(self, generator: Optional[torch.Generator] = None):
         """A fresh TrainState drawn from `generator` (default: seeded with
-        tc.seed) on the trainer's device."""
+        tc.seed) on the trainer's device; over a mesh this rank's share of
+        it (every rank draws the same tree)."""
         if generator is None:
             generator = torch.Generator(self.device).manual_seed(self.tc.seed)
-        return create_train_state(generator, self.cfg, self.tc, self.device)
+        state = create_train_state(generator, self.cfg, self.tc, self.device)
+        if self.mesh is not None:
+            state = shard_train_state(state, self.mesh, self.cfg, self.tc)
+        return state
+
+    def _barrier(self):
+        import torch.distributed as dist
+        if self.mesh is not None and self.mesh.distributed:
+            dist.barrier()
+
+    def _save(self, step, state, metrics, layout, optimizer):
+        """Checkpoint `state`: the port's sharded files (every rank its
+        shards), or the JAX package's npz of the whole state, gathered on
+        every rank and written by rank 0."""
+        if self.ckpt.backend == "orbax" or layout is None:
+            self.ckpt.save(step, state, metrics)
+        else:
+            full = sharded.full_state(state, layout, optimizer)
+            if self.rank0:
+                self.ckpt.save(step, full, metrics)
+        self._barrier()
+
+    def _restore(self, state, step, layout, optimizer):
+        """(state, meta) of checkpoint `step` (None: the latest) written
+        into `state`'s tensors; (None, None) without one."""
+        if self.ckpt.backend == "orbax" or layout is None:
+            return self.ckpt.restore(state, step=step)
+        template = sharded.full_state(state, layout, optimizer)
+        full, meta = self.ckpt.restore(template, step=step)
+        if full is None:
+            return None, None
+        return sharded.load_full_state(state, full, layout), meta
 
     def fit(self, state: TrainState, train_batches: Callable[[], Iterable],
             eval_batches: Optional[Callable[[], Iterable]] = None,
@@ -530,15 +702,23 @@ class Trainer:
         latest checkpoint of output_dir (parameters, optimizer state, step)
         into `state` when there is one.  `state` is updated in place; the
         returned TrainState carries the final step."""
+        step_fn = make_train_step(self.cfg, self.tc, state.params,
+                                  device=self.device, mesh=self.mesh)
+        eval_fn = make_eval_step(self.cfg, self.tc, device=self.device,
+                                 mesh=self.mesh)
+        # the step's mesh plan, made again here (a layout is a function of
+        # the mesh, the config and the state's tensors)
+        self._layout = None if self.mesh is None else sharded.StepLayout(
+            self.mesh, self.cfg, state.params, self.tc.optimizer,
+            self.tc.zero1, self.tc.sequence_parallel > 1)
+        self._optimizer = make_optimizer(self.tc, self._layout)
         if resume and self.ckpt is not None and \
                 self.ckpt.latest_step() is not None:
-            restored, _ = self.ckpt.restore(state)
+            restored, _ = self._restore(state, None, self._layout,
+                                        self._optimizer)
             if restored is not None:
                 state = restored
                 self.logger.log({"resumed_from_step": int(state.step)})
-        step_fn = make_train_step(self.cfg, self.tc, state.params,
-                                  device=self.device)
-        eval_fn = make_eval_step(self.cfg, self.tc, device=self.device)
 
         watchdog = None
         if self.tc.stall_timeout_s > 0:
@@ -554,7 +734,8 @@ class Trainer:
         if self.tc.load_best_model_at_end and self.ckpt is not None:
             best = self.ckpt.best_step()
             if best is not None and best != int(state.step):
-                restored, _ = self.ckpt.restore(state, step=best)
+                restored, _ = self._restore(state, best, self._layout,
+                                            self._optimizer)
                 if restored is not None:
                     state = restored
                     self.logger.log({"loaded_best_model_from_step": best})
@@ -572,7 +753,8 @@ class Trainer:
                         if self.tc.freeze_epochs > 0 else 1.0)
             if self.tc.prefetch_depth > 0:
                 epoch_batches = prefetch_to_device(
-                    train_batches(), self.device, self.tc.prefetch_depth)
+                    train_batches(), self.mesh or self.device,
+                    self.tc.prefetch_depth)
             else:
                 epoch_batches = (_to_device(b, self.device)
                                  for b in train_batches())
@@ -603,7 +785,8 @@ class Trainer:
                     if self.ckpt:
                         # a synchronous host copy, before the next step
                         # updates the parameters in place
-                        self.ckpt.save(step, state, eval_metrics)
+                        self._save(step, state, eval_metrics, self._layout,
+                                   self._optimizer)
                     if score < best_metric:
                         best_metric, best_step = score, step
                         patience_left = self.tc.early_stopping_patience
@@ -626,19 +809,23 @@ class Trainer:
         max_length = max_length or self.cfg.decoder.max_length
         dtype = torch.bfloat16 if self.tc.bf16 else torch.float32
         refs, hyps = [], []
+        mesh = self.mesh
+        rows = lambda x: mesh_lib.allgather_rows(_host(x), mesh)
         for batch in eval_batches():
             if heartbeat is not None:
                 heartbeat()
-            tokens, _ = generation.generate(
-                params, self.cfg, _as_tensor(batch["input_values"]),
-                _as_tensor(batch["lengths"]), max_length=max_length,
-                num_beams=num_beams, kv_int8=kv_int8, dtype=dtype,
-                device=self.device)
-            tokens = tokens.cpu().numpy()
-            labels = _host(batch["labels"])
+            with mesh_lib.tp_sharding(mesh):
+                tokens, _ = generation.generate(
+                    params, self.cfg, _as_tensor(batch["input_values"]),
+                    _as_tensor(batch["lengths"]), max_length=max_length,
+                    num_beams=num_beams, kv_int8=kv_int8, dtype=dtype,
+                    device=self.device)
+            # every data rank's rows, the same on every rank
+            tokens = rows(mesh_lib.local_rows(tokens))
+            labels = rows(batch["labels"])
             real = batch.get("example_mask")
             real = (np.ones(len(tokens), bool) if real is None
-                    else _host(real))
+                    else rows(real))
             for i in range(len(tokens)):
                 if not real[i]:
                     continue
@@ -664,11 +851,13 @@ class Trainer:
             if float(out["n_tokens"]) > 0:
                 losses.append(float(out["loss"]))
                 weights.append(float(out["n_examples"]))
-            labels = _host(batch["labels"])
+            # every data rank's rows, the same on every rank
+            rows = lambda x: mesh_lib.allgather_rows(_host(x), self.mesh)
+            labels = rows(batch["labels"])
             real = batch.get("example_mask")
             real = (np.ones(len(labels), bool) if real is None
-                    else _host(real))
-            all_preds.append(_host(out["predictions"])[real])
+                    else rows(real))
+            all_preds.append(rows(out["predictions"])[real])
             all_labels.append(labels[real])
         total_w = sum(weights)
         metrics = {"eval_loss": (

@@ -211,8 +211,23 @@ def test_prune_keeps_best_as_jax(tmp_path):
     assert t_mgr.best_step() == 2 and t_mgr.latest_step() == 5
     assert t_ckpt.CheckpointManager(str(tmp_path / "e")).restore(t_state) \
         == (None, None)
-    with pytest.raises(NotImplementedError, match="orbax"):
-        t_ckpt.CheckpointManager(str(tmp_path / "o"), backend="orbax")
+    # the orbax backend is the port's torch.distributed.checkpoint files:
+    # one process writes step_3/ and reads it back into fresh tensors
+    o_mgr = t_ckpt.CheckpointManager(str(tmp_path / "o"), backend="orbax")
+    o_mgr.save(3, t_state, {"eval_loss": 1.5})
+    assert sorted(os.listdir(tmp_path / "o")) == ["step_3",
+                                                  "step_3.meta.json"]
+    _, fresh = _random_states("adafactor", step=7, seed=1)
+    got, meta = o_mgr.restore(fresh)
+    assert meta["step"] == 3 and got.step == t_state.step
+    assert got.opt_state["count"] == t_state.opt_state["count"]
+    for field in ("params", "v_row", "v_col", "v"):
+        tree_a = got.params if field == "params" else got.opt_state[field]
+        tree_b = (t_state.params if field == "params"
+                  else t_state.opt_state[field])
+        for (_, a), (_, b) in zip(t_trainer.tree_paths(tree_a),
+                                  t_trainer.tree_paths(tree_b)):
+            assert torch.equal(a, b)
     with pytest.raises(ValueError, match="unknown checkpoint backend"):
         t_ckpt.CheckpointManager(str(tmp_path / "o"), backend="zarr")
 

@@ -152,9 +152,37 @@ def test_train_config_matches_root(argv, roots, monkeypatch):
 @pytest.mark.parametrize("flags", [
     ["--model_parallel", "2"], ["--sequence_parallel", "4"], ["--zero1"],
     ["--multihost"], ["--checkpoint_backend", "orbax"]])
-def test_unported_flags_raise(flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
-        t_train.main(flags + ["--platform", "cpu"])
+def test_unported_flags_raise(flags, roots, monkeypatch):
+    """The parallelism flags are ported: each reaches the Trainer's
+    TrainConfig as the root command's does.  One process with
+    --model_parallel / --sequence_parallel above 1 has no ranks for the
+    mesh and stops at the JAX package's mesh assertion, as the root
+    command does on too few devices."""
+    from speechmix_tpu.data import datasets as j_ds
+    from speechmix_tpu.training import trainer as j_trainer
+    from speechmix_tpu.utils import compile_cache
+    from speechmix_tpu_torch.data import datasets as t_ds
+    from speechmix_tpu_torch.parallel import mesh as t_mesh
+    from speechmix_tpu_torch.training import trainer as t_trainer
+    monkeypatch.setattr(compile_cache, "setup_compile_cache",
+                        lambda *a, **kw: None)
+    argv = flags + ["--speech_model_config", "tiny-speech",
+                    "--nlp_model_config", "tiny-bart-bytes",
+                    "--platform", "cpu"]
+    if "--model_parallel" in flags or "--sequence_parallel" in flags:
+        with pytest.raises(AssertionError,
+                           match="exceeds the device count"):
+            t_mesh.make_mesh(n_model=int(flags[1]), device="cpu")
+        monkeypatch.setattr(t_train, "_world_size", lambda: 1)
+        monkeypatch.setattr(t_mesh, "make_mesh",
+                            lambda **kw: t_mesh.Mesh(1, 1, 1, device="cpu"))
+    got = dataclasses.asdict(_captured_train_config(
+        t_train.main, t_trainer, t_ds, argv, monkeypatch))
+    root_argv = [a for a in argv if a != "--multihost"]
+    want = dataclasses.asdict(_captured_train_config(
+        roots[0].main, j_trainer, j_ds, root_argv, monkeypatch))
+    want.pop("use_flash")
+    assert got == want
 
 
 def test_commands_default_to_the_card(tmp_path, monkeypatch):

@@ -247,9 +247,13 @@ def test_prepare_filter_cache_and_build_datasets(tmp_path, monkeypatch):
     for _ in range(2):
         _assert_batches_equal(list(t_train()), list(j_train()))
     _assert_batches_equal(list(t_eval()), list(j_eval()))
+    # multihost (ported): one process holds the one data rank, and its
+    # batches are the JAX package's multihost batches on one process
     args.multihost = True
-    with pytest.raises(NotImplementedError):
-        t_ds.build_datasets(args, t_model, device="cpu")
+    t_train, t_eval = t_ds.build_datasets(args, t_model, device="cpu")
+    j_train, j_eval = j_ds.build_datasets(args, j_model)
+    _assert_batches_equal(list(t_train()), list(j_train()))
+    _assert_batches_equal(list(t_eval()), list(j_eval()))
 
 
 def _write_wav(path, data, sr, width, channels=1):

@@ -134,7 +134,12 @@ def test_port_imports_no_jax():
             "speechmix_tpu_torch/train.py",
             "speechmix_tpu_torch/eval.py",
             "speechmix_tpu_torch/utils/profiling.py",
-            "speechmix_tpu_torch/runtime/native.py"} <= names
+            "speechmix_tpu_torch/runtime/native.py",
+            "speechmix_tpu_torch/parallel/mesh.py",
+            "speechmix_tpu_torch/parallel/collectives.py",
+            "speechmix_tpu_torch/parallel/launch.py",
+            "speechmix_tpu_torch/ops/ring_attention.py",
+            "speechmix_tpu_torch/training/sharded.py"} <= names
     for path in files:
         for name in _imported_modules(path):
             top = name.split(".")[0]

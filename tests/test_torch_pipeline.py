@@ -147,8 +147,13 @@ def test_edge_inputs_and_warmup(models, monkeypatch):
 
 def test_refusals(models):
     _, t = models
-    with pytest.raises(NotImplementedError, match="mesh"):
-        t_pipe.TranscriptionPipeline(t, mesh=object())
+    # serving over a mesh is ported: the one-rank mesh gives the same
+    # transcripts (meshes of several ranks: test_torch_parallel_serving)
+    from speechmix_tpu_torch.parallel import mesh as t_mesh
+    wavs = _waveforms()[:3]
+    assert t_pipe.TranscriptionPipeline(
+        t, mesh=t_mesh.make_mesh(device="cpu"), **KW)(wavs) == \
+        t_pipe.TranscriptionPipeline(t, **KW)(wavs)
     with pytest.raises(ValueError, match="not supported"):
         t_pipe.TranscriptionPipeline(
             t, generate_kwargs={"num_return_sequences": 2})
