@@ -36,7 +36,11 @@ Phases, each printing as it goes; any failure exits non-zero:
      the differentiable forms of K2, K3 and K9 (bf16 activations, f32
      weights) must give the gradients of the same functions over the plain
      versions (K2's backward products: bf16 operands, f32 results, against
-     the upcast products);
+     the upcast products); every width the TPU kernels take beyond the
+     first bodies (check_head_widths: K1 / K14 / K7 / K15 at D = 16, 80,
+     120, 128 in bf16 and f32, K4 at D = 16, 80, 128 and t5-3b's cross
+     step, the f32 K2 / K3 / K9 / K8 at H = 1280 and 1920, K6 in bf16 at
+     C = 32 and 256; what stays refused raises on CUDA tensors);
      then the dropout kernels: K10 dropout_mask bit-exact against the plain
      generator at the step's mask shapes, K11 dense_dropout_res_ln, K12
      ffn_dropout_res_ln, K13 ffn_dropout and K8's dropout twins at the
@@ -173,7 +177,17 @@ Phases, each printing as it goes; any failure exits non-zero:
      at (2, 2, 1) twice, bit-identical; TranscriptionPipeline over (2, 2)
      on 16 utterances, f32 tokens equal to one card's and bf16 tokens
      agreeing; every time labelled as four ranks sharing one card, not a
-     multi-card time;
+     multi-card time; then wav2vec2-xls-r-1b + bart-large (run_xl_pair:
+     the XLS-R 1B config.json fields through convert.config_from_hf, 48 +
+     12 + 12 layers, 16 heads of 80, H = 1280, bf16, B = 16 x 16 s):
+     greedy and beam-4 generate with exact launches (K1 at D = 80 in every
+     speech layer), bf16 Adafactor dropout-on train steps (K14 / K15 at
+     D = 80) with a falling loss and their peak memory, the f32 gradient of
+     a 2 + 2 + 2 cut against the plain path (f32 K1 / K7 at D = 80, K9 /
+     K8 at H = 1280); then the tiny presets through the commands on the
+     card (run_tiny_commands: train with --bf16 and eval on tiny-speech +
+     tiny-bart-bytes and + tiny-t5-bytes, K1, K4 at D = 16 and K6 at
+     C = 32 launched);
   6. print the `kernels` JSON line (K9, K13 and K8 at t5-small's FFN with
      their launches at 6400 and 1024 rows; K1, K14, K7 and K15 with a record per
      attention length of the step and its launches there, K6 one per
@@ -203,6 +217,8 @@ import time
 # H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor-core rate, HBM3 rate
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+# float32 outside the tensor cores (the f32-FMA kernels' type)
+PEAK_F32_FLOPS = 67e12
 
 # stated tolerances of kernel vs plain version: |k - p| <= atol + rtol * |p|
 # f32: accumulation order only (sums of up to 3072 products);
@@ -554,9 +570,10 @@ def check_kernels(gen, dev):
     check_large_kernels(randn, dev, records)
     check_t5_kernels(randn, dev, records)
     check_t5_decode(randn, gen, dev, records)
+    check_head_widths(randn, gen, dev, records)
 
     for rec in records.values():
-        t_flops = rec["flops"] / PEAK_BF16_FLOPS * 1e3
+        t_flops = rec["flops"] / rec.get("peak_flops", PEAK_BF16_FLOPS) * 1e3
         t_bytes = rec["bytes"] / PEAK_BYTES * 1e3
         rec["bound_ms"] = max(t_flops, t_bytes)
         rec["bound_by"] = "operations" if t_flops >= t_bytes else "bytes"
@@ -723,14 +740,15 @@ def check_decode_attention(randn, dev, records):
                     f"rows fully masked / 1 key / with holes / full / late "
                     f"window / last key, kb=2 T={t} {kind} K/V {dtype}", q,
                     kk, vv, mask, scales)
-    # refusals: a head_dim the kernel is not built for, K/V in another type
-    # than q, a misaligned q
+    # refusals: a head_dim the kernel is not built for (not a multiple of
+    # 8), K/V in another type than q, a misaligned q
     q = randn(16, 1, heads, d, dtype=torch.bfloat16)
     k = randn(16, 64, heads, d, dtype=torch.bfloat16)
     mask = torch.ones(16, 64, dtype=torch.bool, device=dev)
-    expect_refusal("K4 head_dim 32", lambda: kd.decode_attention(
-        q.view(16, 1, 24, 32), k.view(16, 64, 24, 32), k.view(16, 64, 24, 32),
-        mask, scale=0.125, num_heads=24))
+    k20 = randn(16, 64, 4, 20, dtype=torch.bfloat16)
+    expect_refusal("K4 head_dim 20", lambda: kd.decode_attention(
+        randn(16, 1, 4, 20, dtype=torch.bfloat16), k20, k20, mask,
+        scale=0.125, num_heads=4))
     expect_refusal("K4 f32 K/V under a bf16 q", lambda: kd.decode_attention(
         q, k.float(), k.float(), mask, scale=0.125, num_heads=heads))
     slab = torch.empty(16 * heads * d + 1, dtype=torch.bfloat16, device=dev)
@@ -926,9 +944,9 @@ def check_conv(randn, dev, records):
                 if ln is None:
                     conv_record(records, layer, x, w, bias, err)
             del x, out, ref
-    expect_refusal("K6 bf16 C=256", lambda: kc.fused_conv_layer(
-        randn(2, 100, 256, dtype=torch.bfloat16),
-        randn(256, 256, 3, dtype=torch.bfloat16)))
+    expect_refusal("K6 bf16 C=1536", lambda: kc.fused_conv_layer(
+        randn(2, 100, 1536, dtype=torch.bfloat16),
+        randn(1536, 1536, 3, dtype=torch.bfloat16)))
     expect_refusal("K6 k=5", lambda: kc.fused_conv_layer(
         randn(2, 100, c), randn(c, c, 5)))
 
@@ -2760,13 +2778,16 @@ def _train_batch(cfg, gen, dev, batch, seconds, labels_len):
             "labels": labels}
 
 
-def check_gradient_tree(seed, dropout=False, large=False, t5=False):
+def check_gradient_tree(seed, dropout=False, large=False, t5=False,
+                        xl=False):
     """On the card, f32, full width, 2 + 2 + 2 layers: d loss / d params
     through the kernels against the same through their plain versions.  With
     dropout, one key drives both runs, so both draw the same masks (the
     presets' rates and SpecAugment; LayerDrop off, to keep the layer
     count).  `large`: the large pair's widths and pre-LN layers instead of
-    the flagship's; `t5`: wav2vec2-base + t5-small."""
+    the flagship's; `t5`: wav2vec2-base + t5-small; `xl`: the XL pair's
+    (wav2vec2-xls-r-1b: 16 heads of 80, H = 1280).  Returns the kernels
+    path's launches."""
     import dataclasses
     import torch
     from speechmix_tpu_torch import config
@@ -2784,6 +2805,8 @@ def check_gradient_tree(seed, dropout=False, large=False, t5=False):
         down_scale=2)
     if large:
         cfg = large_config((2, 2, 2))
+    if xl:
+        cfg = xl_config((2, 2, 2))
     if t5:
         cfg = t5_config("t5-small", (2, 2, 2))
     dev = torch.device("cuda")
@@ -2829,7 +2852,7 @@ def check_gradient_tree(seed, dropout=False, large=False, t5=False):
     kernels.reset_launch_counts()
     loss_k, grads_k, io_k = grads()
     counts = {k.symbol: k.launches for k in kernels.kernels()}
-    if large:
+    if large or xl:
         want = expected_preln_train_launches(2, 2, 2, 2, 2, dtype="f32",
                                              dropout=dropout)
     elif t5:
@@ -2878,6 +2901,7 @@ def check_gradient_tree(seed, dropout=False, large=False, t5=False):
     if abs(loss_k - loss_p) > 1e-4 or worst > 1.0:
         raise AssertionError("gradient tree: kernels and plain versions "
                              "disagree")
+    return counts
 
 
 def relu_flip_allowance(params, path, io_k, io_p):
@@ -6656,6 +6680,716 @@ def _cast_tree(tree, dtype):
     return tree.to(dtype) if tree.is_floating_point() else tree
 
 
+# ---------------------------------------------------------------------------
+# the widths the TPU kernels take beyond the port's first bodies: head widths
+# other than 64 (wav2vec2-xls-r-1b's 16 heads of 80, the tiny presets' 16,
+# t5-3b's d_kv 128), f32 widths above 1024, bf16 extractor widths but 512
+# ---------------------------------------------------------------------------
+
+WIDTH_HEADS = 16
+# (head width, batch, length) of the K1 / K14 / K7 / K15 cases, timed:
+# XLS-R 1B / HuBERT-XL (80) and XLS-R 2B (120) at the speech encoder's
+# shape, the tiny presets' 16 and t5-3b's 128 smaller
+ATTN_WIDTHS = ((80, 16, 800), (120, 16, 800), (16, 4, 400), (128, 4, 400))
+# K4's widths: the tiny decoders (16), an XLS-R-wide head (80), t5-3b (128)
+DECODE_WIDTHS = (16, 80, 128)
+# t5-3b's cross-attention step: 16 rows over 400 encoder positions, 32
+# heads of 128, scale 1.0
+T5_3B_CROSS = (16, 400, 32, 128)
+# the f32 FFN / epilogue widths (XLS-R 1B, XLS-R 2B) at the rows of the XL
+# pair's f32 gradient (8 x 8 s: 8 x 399 frames, rounded up)
+F32_WIDTHS, F32_ROWS = (1280, 1920), 3200
+# K6 in bf16 off the tensor-core kernel's 512: tiny-speech's 32 (no
+# LayerNorm, 4 s of audio into layer 1) and 256 with LayerNorm
+BF16_CONV_CASES = ((32, 12799, False), (256, 3199, True))
+
+
+@contextlib.contextmanager
+def tallied(counter, pairs):
+    """Each (kernel, offset) of `pairs` also counts its accepted launches in
+    `counter` under (symbol, the integer argument `offset` places after the
+    pointers), as _tally_by_length does, for the block only."""
+    saved = [(kern, kern.launch) for kern, _ in pairs]
+    for kern, offset in pairs:
+        kern.launch = _tally_by_length(kern, counter, offset)
+    try:
+        yield counter
+    finally:
+        for kern, launch in saved:
+            kern.launch = launch
+
+
+def width_tallies():
+    """The launchers whose widths this PR's phases count: K1 / K14 / K7 /
+    K15 and K4 by head width, K6 by C, the f32 FFN and epilogue entries by
+    H."""
+    from speechmix_tpu_torch.ops.kernels import attention as ka
+    from speechmix_tpu_torch.ops.kernels import conv_extractor as kc
+    from speechmix_tpu_torch.ops.kernels import decode_attention as kd
+    from speechmix_tpu_torch.ops.kernels import ffn as kf
+    return ((ka.KERNEL, 4), (ka.DROPOUT_KERNEL, 4), (ka.BWD_KERNEL, 4),
+            (ka.DROPOUT_BWD_KERNEL, 4), (kd.KERNEL, 4), (kd.KERNEL_Q8, 4),
+            (kc.KERNEL, 2), (kf.FFN_FUSED, 1), (kf.FFN_RES_LN, 1),
+            (kf.FFN_BWD_DX, 1), (kf.FFN_BWD_DW, 1), (kf.DENSE_RES_LN, 2))
+
+
+def _int8_kv(gen, dev, bkv, t, heads, d):
+    """int8 K / V codes with positive float32 scales per (row, key, head)."""
+    import torch
+    codes = [torch.randint(-127, 128, (bkv, t, heads, d), generator=gen,
+                           device=dev, dtype=torch.int8) for _ in range(2)]
+    scales = [torch.rand(bkv, t, heads, generator=gen, device=dev) * 0.02
+              + 1e-3 for _ in range(2)]
+    return codes, {"k_scale": scales[0], "v_scale": scales[1]}
+
+
+def check_head_widths(randn, gen, dev, records):
+    """The widths the TPU kernels take that the port's first bodies (D = 64,
+    f32 H <= 1024, bf16 C = 512) refused, each against its plain version at
+    the limits stated for D = 64, two calls bit-identical: K1 / K14 / K7 /
+    K15 in bf16 at ATTN_WIDTHS (one row ragged; K1 and K7 also against their
+    tiled plain versions) and in f32 at B = 2, T = 200 (and causal with a
+    masked row) at D = 16, 80, 120, 128; K4 at D = 16, 80, 128 over 64 keys
+    (the serial body) and 400 (the cluster body), kb = 1 and 4, bf16 float
+    and int8 K/V and f32, and t5-3b's cross step; the f32 K9 / K3 / K2 / K8
+    at H = 1280 and 1920; K6 in bf16 at C = 32 and 256.  Each width timed
+    with its bound and the library call."""
+    import torch
+    import torch.nn.functional as F
+    from speechmix_tpu_torch.ops.kernels import attention as ka
+    from speechmix_tpu_torch.ops.kernels import conv_extractor as kc
+    from speechmix_tpu_torch.ops.kernels import decode_attention as kd
+    from speechmix_tpu_torch.ops.kernels import dropout as kdrop
+    from speechmix_tpu_torch.ops.kernels import ffn as kf
+
+    t_phase = time.perf_counter()
+    bf16, f32, heads, rate = (torch.bfloat16, torch.float32, WIDTH_HEADS,
+                              DROP_RATE)
+    key = kdrop.DropoutKey.from_seed(20261018)
+    rule15 = K7_BF16_RULE + ", p^T as (p m)^T"
+    log(f"head widths: K1 / K14 / K7 / K15 at {heads} heads, scale "
+        f"D^-0.5, dropout rate {rate}")
+    for d, b, t in ATTN_WIDTHS:
+        scale = d ** -0.5
+        lens = torch.full((b,), t, device=dev)
+        lens[1] = t - 37
+        mask = torch.arange(t, device=dev)[None, :] < lens[:, None]
+        q, k, v, g = (randn(b, t, heads * d, dtype=bf16) for _ in range(4))
+        what = f"B={b} T={t} H={heads} D={d} bf16"
+        e1 = check_attention_fwd(f"K1 {what}", q, k, v, mask, heads, False,
+                                 scale)
+        out, lse = ka.attention_fwd(q, k, v, mask, heads, scale,
+                                    return_lse=True)
+        ref = ka.attention_fwd_plain(q, k, v, mask, heads, scale)
+        k7 = lambda: ka.attention_bwd(q, k, v, mask, out, lse, g, heads,
+                                      scale)
+        got = k7()
+        refs = ka.attention_bwd_plain(q, k, v, mask, g, heads, scale)
+        tiled = ka.attention_bwd_tiled_plain(q, k, v, mask, out, lse, g,
+                                             heads, scale)
+        torch.cuda.synchronize()
+        e7 = None
+        for against, ref3 in (("", refs), (" vs tiled", tiled)):
+            limits = attention_bwd_bf16_limits(q, k, v, mask, ref, g, heads,
+                                               scale, False, ref3)
+            err = max(compare(f"K7 {n_} {what}{against}", o, r, lim,
+                              K7_BF16_RULE)
+                      for n_, o, r, lim in zip(("dq", "dk", "dv"), got, ref3,
+                                               limits))
+            e7 = err if e7 is None else e7
+        expect_equal(f"K7 {what}", got, k7())
+        del got, refs, tiled, limits
+        dmask = kdrop.attention_mask_plain(key, b, heads, t, t, rate, dev)
+        k14 = lambda: ka.attention_dropout_fwd(q, k, v, mask, heads, scale,
+                                               False, key, rate,
+                                               return_lse=True)
+        out_d, lse_d = k14()
+        ref_d = ka.attention_fwd_plain(q, k, v, mask, heads, scale,
+                                       dmask=dmask)
+        torch.cuda.synchronize()
+        e14 = compare(f"K14 {what}", out_d, ref_d, attention_bf16_limit(
+            q, k, v, mask, heads, scale, False, ref_d, dmask), K14_BF16_RULE)
+        expect_equal(f"K14 {what}", (out_d, lse_d), k14())
+        k15 = lambda: ka.attention_dropout_bwd(
+            q, k, v, mask, out_d, lse_d, g, heads, scale, False, key, rate)
+        got = k15()
+        refs = ka.attention_bwd_plain(q, k, v, mask, g, heads, scale, False,
+                                      dmask)
+        torch.cuda.synchronize()
+        limits = attention_bwd_bf16_limits(q, k, v, mask, ref_d, g, heads,
+                                           scale, False, refs, dmask)
+        e15 = max(compare(f"K15 {n_} {what}", o, r, lim, rule15)
+                  for n_, o, r, lim in zip(("dq", "dk", "dv"), got, refs,
+                                           limits))
+        expect_equal(f"K15 {what}", got, k15())
+        del got, refs, limits, dmask, ref, ref_d
+        allowed = int(lens.sum()) * t
+        flops, nbytes = 4.0 * heads * d * allowed, 4 * b * t * heads * d * 2
+        qh, kh, vh = (x_.view(b, t, heads, d).transpose(1, 2).detach()
+                      .requires_grad_() for x_ in (q, k, v))
+        gh = g.view(b, t, heads, d).transpose(1, 2)
+        sdpa = lambda p: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask[:, None, None, :], dropout_p=p,
+            scale=scale)
+        dmask_plain = lambda: kdrop.attention_mask_plain(key, b, heads, t, t,
+                                                         rate, dev)
+        # XLS-R 1B's 80 runs on the main path (the XL pair: K1, K14, K15 in
+        # bf16, K7 in its f32 gradient), the tiny presets' 16 in the tiny
+        # commands (K1 in the eval command, K14 / K15 in training); 120
+        # and 128 only here
+        shape = f"{what}, one row ragged"
+        common = dict(head_dim=d, on_path=d in (16, 80))
+        records[f"attention_fwd (D={d})"] = dict(
+            shape=shape, max_abs_err=e1, **common,
+            ms=cuda_ms(lambda: ka.attention_fwd(q, k, v, mask, heads, scale)),
+            plain_ms=cuda_ms(lambda: ka.attention_fwd_plain(
+                q, k, v, mask, heads, scale), iters=5),
+            library_ms=cuda_ms(lambda: sdpa(0.0).detach()), flops=flops,
+            bytes=nbytes + b * t)
+        lib_out = sdpa(0.0)
+        records[f"attention_bwd (D={d})"] = dict(
+            shape=shape, max_abs_err=e7, **dict(common, on_path=d == 80),
+            ms=cuda_ms(k7),
+            plain_ms=cuda_ms(lambda: ka.attention_bwd_plain(
+                q, k, v, mask, g, heads, scale), iters=5),
+            library_ms=cuda_ms(lambda: torch.autograd.grad(
+                lib_out, (qh, kh, vh), gh, retain_graph=True)),
+            flops=2.5 * flops, bytes=2 * nbytes + b * heads * t * 4 + b * t)
+        records[f"attention_dropout_fwd (D={d})"] = dict(
+            shape=f"{shape}, rate {rate}", max_abs_err=e14, **common,
+            ms=cuda_ms(lambda: ka.attention_dropout_fwd(
+                q, k, v, mask, heads, scale, False, key, rate)),
+            plain_ms=cuda_ms(lambda: ka.attention_fwd_plain(
+                q, k, v, mask, heads, scale, dmask=dmask_plain()), iters=5),
+            library_ms=cuda_ms(lambda: sdpa(rate).detach()), flops=flops,
+            bytes=nbytes + b * t)
+        lib_out = sdpa(rate)
+        records[f"attention_dropout_bwd (D={d})"] = dict(
+            shape=f"{shape}, rate {rate}", max_abs_err=e15, **common,
+            ms=cuda_ms(k15),
+            plain_ms=cuda_ms(lambda: ka.attention_bwd_plain(
+                q, k, v, mask, g, heads, scale, False, dmask=dmask_plain()),
+                iters=5),
+            library_ms=cuda_ms(lambda: torch.autograd.grad(
+                lib_out, (qh, kh, vh), gh, retain_graph=True)),
+            flops=2.5 * flops, bytes=2 * nbytes + b * heads * t * 4 + b * t)
+        del lib_out, q, k, v, g, out, lse, out_d, lse_d, qh, kh, vh
+    tol15 = _dropout_tol(TOL["float32"], rate)
+    rule_f32 = f"atol {tol15[0]:.4g}, rtol {tol15[1]:.4g} (TOL / (1-r))"
+    for d in (16, 80, 120, 128):
+        for causal, lens in ((False, [200, 163]), (True, [0, 200, 41])):
+            b, t, scale = len(lens), 200, d ** -0.5
+            lens = torch.tensor(lens, device=dev)
+            mask = torch.arange(t, device=dev)[None, :] < lens[:, None]
+            q, k, v, g = (randn(b, t, heads * d) for _ in range(4))
+            what = f"B={b} T={t} H={heads} D={d} f32 causal={causal}"
+            check_attention_fwd(f"K1 {what}", q, k, v, mask, heads, causal,
+                                scale)
+            out, lse = ka.attention_fwd(q, k, v, mask, heads, scale, causal,
+                                        return_lse=True)
+            got = ka.attention_bwd(q, k, v, mask, out, lse, g, heads, scale,
+                                   causal)
+            refs = ka.attention_bwd_plain(q, k, v, mask, g, heads, scale,
+                                          causal)
+            for n_, o, r in zip(("dq", "dk", "dv"), got, refs):
+                compare(f"K7 {n_} {what}", o, r)
+            dmask = kdrop.attention_mask_plain(key, b, heads, t, t, rate,
+                                               dev)
+            out_d, lse_d = ka.attention_dropout_fwd(
+                q, k, v, mask, heads, scale, causal, key, rate,
+                return_lse=True)
+            ref_d = ka.attention_fwd_plain(q, k, v, mask, heads, scale,
+                                           causal, dmask=dmask)
+            compare(f"K14 {what}", out_d, ref_d,
+                    tol15[0] + tol15[1] * ref_d.abs(), rule_f32)
+            got = ka.attention_dropout_bwd(q, k, v, mask, out_d, lse_d, g,
+                                           heads, scale, causal, key, rate)
+            refs = ka.attention_bwd_plain(q, k, v, mask, g, heads, scale,
+                                          causal, dmask)
+            for n_, o, r in zip(("dq", "dk", "dv"), got, refs):
+                compare(f"K15 {n_} {what}", o, r,
+                        tol15[0] + tol15[1] * r.abs(), rule_f32)
+
+    log("head widths: K4")
+    bkv = 16
+    for d in DECODE_WIDTHS:
+        for t in (64, 400):
+            name = "self" if t == 64 else "cross"
+            mask = decode_mask(name, bkv, t, dev)
+            for kb in (1, 4):
+                q = randn(bkv * kb, 1, heads, d, dtype=bf16)
+                k, v = (randn(bkv, t, heads, d, dtype=bf16)
+                        for _ in range(2))
+                what = f"{name} D={d} T={t} kb={kb} {heads} heads"
+                err = check_decode_case(f"K4 {what} float K/V bf16", q, k, v,
+                                        mask, {}, d ** -0.5)
+                (kq, vq), scales = _int8_kv(gen, dev, bkv, t, heads, d)
+                err_q = check_decode_case(f"K4 {what} int8 K/V bf16", q, kq,
+                                          vq, mask, scales, d ** -0.5)
+                check_decode_case(f"K4 {what} f32", q.float(), k.float(),
+                                  v.float(), mask, {}, d ** -0.5)
+                check_decode_case(f"K4 {what} int8 K/V f32", q.float(), kq,
+                                  vq, mask, scales, d ** -0.5)
+                if kb != 1 or (d, t) not in ((16, 64), (80, 400)):
+                    continue
+                rec = decode_record(f"{name} greedy D={d} T={t}", "float",
+                                    q, k, v, mask, {}, err, d ** -0.5,
+                                    1 if t == 64 else 6)
+                rec.pop("length")
+                # the tiny decoders' 16 runs on the main path (the tiny
+                # commands), the XLS-R-wide 80 only here
+                records[f"decode_attention (D={d}, T={t})"] = dict(
+                    rec, head_dim=d, on_path=d == 16)
+    rows, t, h5, d = T5_3B_CROSS
+    mask = decode_mask("cross", rows, t, dev)
+    q = randn(rows, 1, h5, d, dtype=bf16)
+    k, v = (randn(rows, t, h5, d, dtype=bf16) for _ in range(2))
+    (kq, vq), scales = _int8_kv(gen, dev, rows, t, h5, d)
+    what = f"t5-3b cross greedy B={rows} T={t} {h5} heads of {d}"
+    err = check_decode_case(f"K4 {what} float K/V bf16, scale 1.0", q, k, v,
+                            mask, {}, 1.0)
+    err_q = check_decode_case(f"K4 {what} int8 K/V bf16, scale 1.0", q, kq,
+                              vq, mask, scales, 1.0)
+    for kind, name, kk, vv, sc, e in (
+            ("float", "decode_attention", k, v, {}, err),
+            ("int8", "decode_attention_q8", kq, vq, scales, err_q)):
+        rec = decode_record(f"t5-3b cross greedy", kind, q, kk, vv, mask, sc,
+                            e, 1.0, 2)
+        rec.pop("length")
+        records[f"{name} (t5-3b cross, D={d})"] = dict(rec, head_dim=d,
+                                                        on_path=False)
+
+    log(f"f32 widths: K9 / K3 / K2 / K8 at H = {F32_WIDTHS}, "
+        f"N = {F32_ROWS}")
+    n = F32_ROWS
+    dw_rule = f"atol {K8_DW_F32_TOL[0]}, rtol {K8_DW_F32_TOL[1]}"
+    for h in F32_WIDTHS:
+        f = 4 * h
+        x, g, res = randn(n, h), randn(n, h), randn(n, h)
+        w = randn(h, h, scale=0.03)
+        w1, w2 = randn(h, f, scale=0.03), randn(f, h, scale=0.03)
+        b1, b2, beta = randn(f, scale=0.1), randn(h, scale=0.1), randn(
+            h, scale=0.1)
+        gamma = randn(h, scale=0.1) + 1.0
+        what = f"N={n} H={h} F={f} gelu f32"
+        k9 = lambda: kf.ffn_fused(x, w1, b1, w2, b2)
+        k3 = lambda: kf.ffn_res_ln(x, w1, b1, w2, b2, res, gamma, beta)
+        k2 = lambda: kf.dense_res_ln(x, w, b2, res, gamma, beta)
+        k8 = lambda: kf.ffn_bwd(x, g, w1, b1, w2)
+        e9 = compare(f"K9 {what}", k9(), kf.ffn_fused_plain(x, w1, b1, w2,
+                                                             b2))
+        e3 = compare(f"K3 {what}", k3(), kf.ffn_res_ln_plain(
+            x, w1, b1, w2, b2, res, gamma, beta))
+        e2 = compare(f"K2 {what}", k2(), kf.dense_res_ln_plain(
+            x, w, b2, res, gamma, beta))
+        got, refs = k8(), kf.ffn_bwd_plain(x, g, w1, b1, w2)
+        torch.cuda.synchronize()
+        e8 = compare(f"K8 dx {what}", got[0], refs[0])
+        for name_, o, r in zip(("dw1", "db1", "dw2"), got[1:4], refs[1:4]):
+            e8 = max(e8, compare(f"K8 {name_} {what}", o, r,
+                                 K8_DW_F32_TOL[0] + K8_DW_F32_TOL[1] *
+                                 r.abs(), dw_rule))
+        as_tuple = lambda r: r if isinstance(r, tuple) else (r,)
+        for label, fn in (("K9", k9), ("K3", k3), ("K2", k2), ("K8", k8)):
+            expect_equal(f"{label} {what}", as_tuple(fn()), as_tuple(fn()))
+        del got, refs
+        lx = x.detach().requires_grad_()
+        lw1, lw2 = (w_.t().contiguous().requires_grad_() for w_ in (w1, w2))
+        lb1 = b1.detach().requires_grad_()
+        lib_y = F.linear(F.gelu(F.linear(lx, lw1, lb1)), lw2, b2)
+        w1t, w2t, wt = w1.t(), w2.t(), w.t()
+        ffn_flops, ffn_bytes = 4.0 * n * h * f, (2 * n * h + 2 * h * f) * 4
+        # XLS-R 1B's 1280 reaches K9 and K8 on the main path (the XL pair's
+        # f32 gradient); its pre-LN layers take no K2 / K3, and 1920 runs
+        # only here
+        common = dict(width=h, peak_flops=PEAK_F32_FLOPS)
+        shape = f"{what} (f32 reference runs)"
+        records[f"ffn_fused (f32, H={h})"] = dict(
+            shape=shape, max_abs_err=e9, on_path=h == 1280, **common,
+            ms=cuda_ms(k9, iters=5), plain_ms=cuda_ms(lambda: kf.ffn_fused_plain(
+                x, w1, b1, w2, b2), iters=5),
+            library_ms=cuda_ms(lambda: F.linear(F.gelu(F.linear(x, w1t, b1)),
+                                                w2t, b2), iters=5),
+            flops=ffn_flops, bytes=ffn_bytes + (f + h) * 4)
+        records[f"ffn_bwd (f32, H={h})"] = dict(
+            shape=f"{shape}, dx + dw", max_abs_err=e8, on_path=h == 1280,
+            **common, ms=cuda_ms(k8, iters=3, warmup=1),
+            plain_ms=cuda_ms(lambda: kf.ffn_bwd_plain(x, g, w1, b1, w2),
+                             iters=3, warmup=1),
+            library_ms=cuda_ms(lambda: torch.autograd.grad(
+                lib_y, (lx, lw1, lb1, lw2), g, retain_graph=True), iters=3,
+                warmup=1),
+            flops=2.5 * ffn_flops,
+            bytes=(3 * n * h + 2 * h * f) * 4 + f * 4 + (2 * h * f + f) * 4)
+        records[f"ffn_res_ln (f32, H={h})"] = dict(
+            shape=shape, max_abs_err=e3, on_path=False, **common,
+            ms=cuda_ms(k3, iters=5), plain_ms=cuda_ms(
+                lambda: kf.ffn_res_ln_plain(x, w1, b1, w2, b2, res, gamma,
+                                            beta), iters=5),
+            library_ms=cuda_ms(lambda: F.layer_norm(
+                res + F.linear(F.gelu(F.linear(x, w1t, b1)), w2t, b2), (h,),
+                gamma, beta, 1e-5), iters=5),
+            flops=ffn_flops, bytes=(3 * n * h + 2 * h * f) * 4 + (f + 3 * h) * 4)
+        records[f"dense_res_ln (f32, H={h})"] = dict(
+            shape=f"N={n} Din=H={h} f32 (f32 reference runs)",
+            max_abs_err=e2, on_path=False, **common, ms=cuda_ms(k2, iters=5),
+            plain_ms=cuda_ms(lambda: kf.dense_res_ln_plain(
+                x, w, b2, res, gamma, beta), iters=5),
+            library_ms=cuda_ms(lambda: F.layer_norm(
+                res + F.linear(x, wt, b2), (h,), gamma, beta, 1e-5), iters=5),
+            flops=2.0 * n * h * h, bytes=(3 * n * h + h * h) * 4 + 3 * h * 4)
+        del lib_y, x, g, res, w, w1, w2, lx, lw1, lw2
+
+    log("bf16 extractor widths: K6 off the tensor-core kernel's C = 512")
+    for c, t_in, ln in BF16_CONV_CASES:
+        b = BATCH
+        x = randn(b, t_in, c, dtype=bf16)
+        w = randn(c, c, 3, scale=(3 * c) ** -0.5, dtype=bf16)
+        bias = randn(c, scale=0.1)
+        lnp = ({"scale": randn(c, scale=0.1) + 1.0, "bias": randn(
+            c, scale=0.1)} if ln else None)
+        k6 = lambda: kc.fused_conv_layer(x, w, bias, lnp)
+        what = f"B={b} T_in={t_in} C={c} k=3 bf16 LayerNorm={ln}"
+        e6 = compare(f"K6 {what}", k6(), kc.fused_conv_layer_plain(
+            x, w, bias, lnp))
+        expect_equal(f"K6 {what}", (k6(),), (k6(),))
+        t_out = (t_in - 3) // 2 + 1
+        wc, bc = w, bias.to(bf16)
+
+        def library():
+            y = F.conv1d(x.transpose(1, 2), wc, bc, stride=2).transpose(1, 2)
+            if lnp is not None:
+                y = F.layer_norm(y, (c,), lnp["scale"].to(bf16),
+                                 lnp["bias"].to(bf16))
+            return F.gelu(y)
+        # tiny-speech's 32 runs on the main path (the tiny commands)
+        records[f"conv_ln_gelu (bf16, C={c})"] = dict(
+            shape=what, max_abs_err=e6, width=c, on_path=c == 32,
+            ms=cuda_ms(k6), plain_ms=cuda_ms(
+                lambda: kc.fused_conv_layer_plain(x, w, bias, lnp)),
+            library_ms=cuda_ms(library),
+            flops=2.0 * b * t_out * 3 * c * c,
+            bytes=(b * t_in * c + 3 * c * c + b * t_out * c) * 2 + 3 * c * 4)
+    # what stays outside the limits raises on CUDA tensors, launching
+    # nothing and never running a plain version
+    slab = randn(2, 64, heads * 136, dtype=bf16)
+    expect_refusal("K1 bf16 D=136", lambda: ka.attention_fwd(
+        slab, slab, slab, None, heads, 0.125))
+    slab = randn(2, 64, heads * 20)
+    expect_refusal("K7 f32 D=20", lambda: ka.attention_bwd(
+        slab, slab, slab, None, slab, randn(2, heads, 64), slab, heads,
+        0.125))
+    q, kv = randn(2, 1, heads, 136, dtype=bf16), randn(2, 64, heads, 136,
+                                                       dtype=bf16)
+    expect_refusal("K4 bf16 D=136", lambda: kd.decode_attention(
+        q, kv, kv, torch.ones(2, 64, dtype=torch.bool, device=dev),
+        scale=0.125, num_heads=heads))
+    x, w1, w2 = randn(8, 2176), randn(2176, 256), randn(256, 2176)
+    expect_refusal("K9 f32 H=2176", lambda: kf.ffn_fused(
+        x, w1, randn(256), w2, randn(2176)))
+    log(f"head widths and f32 / bf16 widths: "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# wav2vec2-xls-r-1b + bart-large: 16 heads of 80, H = 1280, at full width
+# ---------------------------------------------------------------------------
+
+XL_LAYERS = (48, 12, 12)
+XL_STEPS = 4
+
+
+def xl_config(layers=None):
+    """facebook/wav2vec2-xls-r-1b from the fields of its config.json
+    (convert.XLS_R_1B_CONFIG through convert.config_from_hf: 48 pre-LN
+    layers, H = 1280, 16 heads of 80, F = 5120, a LayerNorm in every
+    extractor layer) with the fused extractor, + bart-large, down_scale 2.
+    `layers`: (speech, text encoder, decoder) depths of a cut copy,
+    LayerDrop off."""
+    import dataclasses
+    from speechmix_tpu_torch import config, convert
+    enc = dataclasses.replace(convert.config_from_hf(convert.XLS_R_1B_CONFIG),
+                              extractor_impl="fused")
+    dec = config.SEQ2SEQ_PRESETS["bart-large"]
+    if layers is not None:
+        enc = dataclasses.replace(enc, num_layers=layers[0], layerdrop=0.0)
+        dec = dataclasses.replace(dec, encoder_layers=layers[1],
+                                  decoder_layers=layers[2])
+    return config.SpeechMixConfig(encoder=enc, decoder=dec, down_scale=2)
+
+
+def _expect_widths(label, tally, want):
+    """Each {(symbol, width): launches} of `want` counted so in `tally`."""
+    got = {k: tally.get(k, 0) for k in want}
+    if got != want:
+        raise AssertionError(f"{label}: launches by width {got}, expected "
+                             f"{want}")
+    log(f"  {label}: launches by width " + ", ".join(
+        f"{s} at {w}: {n}" for (s, w), n in sorted(want.items())))
+
+
+def run_xl_pair(seed, card):
+    """wav2vec2-xls-r-1b + bart-large at full width and depth (48 + 12 + 12
+    layers), random bf16 weights from the seed, B = 16 x 16 s: greedy and
+    beam-4 generate (64 steps, exact launch counts, K1 at D = 80 in every
+    speech layer), TrainConfig(bf16=True) train steps (Adafactor, dropout
+    on, SpecAugment, LayerDrop; every leaf training) with K14 / K15 at
+    D = 80, a finite loss that falls, then the f32 gradient of a 2 + 2 + 2
+    cut against the plain path (f32 K1 / K7 at D = 80, K9 / K8 at
+    H = 1280).  Returns ({mode: launches}, {mode: launches by width})."""
+    import torch
+    from speechmix_tpu_torch import generation
+    from speechmix_tpu_torch.models import speech_encoder, speechmix
+    from speechmix_tpu_torch.ops import kernels
+    from speechmix_tpu_torch.training import freezing, trainer
+
+    t_phase = time.perf_counter()
+    cfg = xl_config()
+    enc, dec = cfg.encoder, cfg.decoder
+    d = enc.hidden_size // enc.num_heads
+    if (enc.num_layers, enc.hidden_size, d, enc.ffn_dim,
+            enc.do_stable_layer_norm) != (48, 1280, 80, 5120, True):
+        raise AssertionError(f"XLS-R 1B config: {enc}")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b = LARGE_BATCH
+    batch = _train_batch(cfg, gen, dev, b, SECONDS, TRAIN_LABELS)
+    wav, lengths = batch["input_values"], batch["lengths"]
+    params = speechmix.init_speechmix(cfg, gen, dev, torch.bfloat16)
+    n_params = sum(p.numel() for _, p in freezing.tree_paths(params))
+    log(f"XL pair {enc.name} ({enc.num_layers} pre-LN layers, H="
+        f"{enc.hidden_size}, {enc.num_heads} heads of {d}, F={enc.ffn_dim}) "
+        f"+ {dec.name} ({dec.encoder_layers} + {dec.decoder_layers} layers), "
+        f"{n_params / 1e6:.1f} M parameters, bf16, B={b} x {SECONDS} s, "
+        f"max_length {MAX_LEN}")
+    counts, widths = {}, {}
+    modes = (("xl-greedy", {}, 3),
+             ("xl-beam-4", dict(num_beams=BEAMS, num_return_sequences=BEAMS,
+                                output_scores=True), 3))
+    speech, text, dec_layers = XL_LAYERS
+    for mode, kwargs, calls in modes:
+        want = expected_large_generate_launches(MAX_LEN, XL_LAYERS)
+        if kwargs:
+            want["smx_beam_gather"] = MAX_LEN
+        tally, times = collections.Counter(), []
+        torch.cuda.reset_peak_memory_stats()
+        with tallied(tally, width_tallies()):
+            for i in range(calls):
+                kernels.reset_launch_counts()
+                tally.clear()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = generation.generate(params, cfg, wav, lengths,
+                                          max_length=MAX_LEN,
+                                          dtype=torch.bfloat16, **kwargs)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                got = {k.symbol: k.launches for k in kernels.kernels()}
+                log(f"  {mode} generate call {i}: {dt * 1e3:.1f} ms")
+                if got != want:
+                    raise AssertionError(f"{mode}: launches {got}, expected "
+                                         f"{want}")
+                if i:
+                    times.append(dt)
+        rows = b * kwargs.get("num_return_sequences", 1)
+        tokens, lens = out[0], out[1]
+        if (tokens.shape != (rows, MAX_LEN) or (lens < 0).any()
+                or not ((tokens >= 0) & (tokens < dec.vocab_size)).all()):
+            raise AssertionError(f"{mode}: bad tokens {tuple(tokens.shape)}")
+        _expect_widths(mode, tally, {
+            ("smx_attention_fwd", d): speech,
+            ("smx_attention_fwd", 64): text,
+            ("smx_decode_attention", 64): 2 * dec_layers * MAX_LEN})
+        med = sorted(times)[len(times) // 2]
+        log(f"  {mode}: {med * 1e3:.1f} ms per call (median of "
+            f"{len(times)}), audio-seconds per second transcribed "
+            f"{b * SECONDS / med:.2f}, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB on "
+            f"{card}; launches {got}")
+        _profile_step(lambda: generation.generate(
+            params, cfg, wav, lengths, max_length=MAX_LEN,
+            dtype=torch.bfloat16, **kwargs), f"{mode} generate")
+        counts[mode], widths[mode] = got, dict(tally)
+    del params, out
+
+    tc = trainer.TrainConfig(learning_rate=TRAIN_LR, warmup_steps=1,
+                             bf16=True, freeze_epochs=LARGE_FREEZE_EPOCHS,
+                             seed=seed)
+    if not (tc.optimizer == "adafactor" and tc.dropout
+            and not cfg.encoder.remat):
+        raise AssertionError(f"TrainConfig defaults changed: {tc}")
+    state = trainer.create_train_state(gen, cfg, tc)
+    step_fn = trainer.make_train_step(cfg, tc, state.params)
+    log(f"XL pair training: {n_params / 1e6:.1f} M float32 parameters, bf16 "
+        f"compute, Adafactor lr {TRAIN_LR}, warmup 1, dropout on, "
+        f"SpecAugment, LayerDrop {enc.layerdrop}, every leaf training "
+        f"(progress 1.0 of freeze_epochs {LARGE_FREEZE_EPOCHS}), no remat, "
+        f"B={b} x {SECONDS} s, {TRAIN_LABELS} label positions")
+    torch.cuda.empty_cache()
+    losses, times, peaks = [], [], []
+    tally = collections.Counter()
+    with tallied(tally, width_tallies()):
+        for i in range(XL_STEPS):
+            mask = freezing.reference_unfreeze_scale(
+                state.params, freezing.unfreeze_epoch(1.0,
+                                                      LARGE_FREEZE_EPOCHS),
+                LARGE_FREEZE_EPOCHS)
+            skipped = layerdrop_replay(trainer, speech_encoder, tc, cfg,
+                                       state.step)
+            kept = [l for l in range(enc.num_layers) if l not in skipped]
+            attn_bwd, ffn_bwd = speech_backward_layers(
+                mask["speech_encoder"], kept)
+            want = expected_preln_train_launches(
+                len(kept), len(attn_bwd), len(ffn_bwd), text, dec_layers,
+                dropout=True)
+            kernels.reset_launch_counts()
+            tally.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch, 1.0)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            got = {k.symbol: k.launches for k in kernels.kernels()}
+            loss, norm = metrics["loss"].item(), metrics["grad_norm"].item()
+            log(f"  step {i + 1}: loss {loss:.4f}, grad_norm {norm:.4f}, "
+                f"{dt * 1e3:.1f} ms, LayerDrop skipped {skipped}")
+            if metrics["layers_skipped"] != [skipped]:
+                raise AssertionError(f"XL step {i + 1}: LayerDrop skipped "
+                                     f"{metrics['layers_skipped']}, the key "
+                                     f"chain gives {skipped}")
+            if got != want:
+                raise AssertionError(f"XL step {i + 1}: launches {got}, "
+                                     f"expected {want}")
+            if len(attn_bwd) != len(kept) or len(ffn_bwd) != len(kept):
+                raise AssertionError("XL step: a speech layer's backward "
+                                     "did not run")
+            _expect_widths(f"step {i + 1}", tally, {
+                ("smx_attention_dropout_fwd", d): len(kept),
+                ("smx_attention_dropout_bwd", d): len(attn_bwd),
+                ("smx_attention_dropout_fwd", 64): text + dec_layers,
+                ("smx_conv_ln_gelu", 512): FUSED_CONV_LAYERS})
+            if not (math.isfinite(loss) and math.isfinite(norm)):
+                raise AssertionError(f"XL step {i + 1}: loss {loss}")
+            losses.append(loss)
+            if i:
+                times.append(dt)
+                peaks.append(torch.cuda.max_memory_allocated())
+    if not losses[-1] < losses[1]:
+        raise AssertionError(f"XL pair: the loss did not fall: {losses}")
+    med = sorted(times)[len(times) // 2]
+    log(f"  XL train step: {med * 1e3:.1f} ms (median of {len(times)}: "
+        f"{', '.join(f'{t * 1e3:.1f}' for t in times)}), audio-seconds per "
+        f"second trained {b * SECONDS / med:.2f}, peak memory "
+        f"{max(peaks) / 2 ** 30:.2f} GiB (no remat), loss {losses[1]:.4f} -> "
+        f"{losses[-1]:.4f} on {card}")
+    _profile_step(lambda: step_fn(state, batch, 1.0), "XL train step")
+    counts["xl-train"], widths["xl-train"] = got, dict(tally)
+    del state, step_fn, batch
+    torch.cuda.empty_cache()
+
+    tally = collections.Counter()
+    with tallied(tally, width_tallies()):
+        counts["xl-f32-grad"] = check_gradient_tree(seed, xl=True)
+    _expect_widths("f32 gradient", tally, {
+        ("smx_attention_fwd", d): 2, ("smx_attention_bwd", d): 2,
+        ("smx_ffn_fused", enc.hidden_size): 2,
+        ("smx_ffn_bwd_dx", enc.hidden_size): 2,
+        ("smx_ffn_bwd_dw", enc.hidden_size): 2})
+    widths["xl-f32-grad"] = dict(tally)
+    log(f"XL pair phase: {time.perf_counter() - t_phase:.1f} s")
+    return counts, widths
+
+
+# ---------------------------------------------------------------------------
+# the tiny presets through the commands on the card
+# ---------------------------------------------------------------------------
+
+TINY_PAIRS = (("tiny-speech", "tiny-bart-bytes"),
+              ("tiny-speech", "tiny-t5-bytes"))
+TINY_STEPS = 3
+
+
+def run_tiny_commands(seed, card):
+    """`python -m speechmix_tpu_torch.train` with --bf16 and then
+    `speechmix_tpu_torch.eval` on the trained weights, on tiny-speech +
+    tiny-bart-bytes and tiny-speech + tiny-t5-bytes (the README's CPU
+    commands without --platform; tiny-speech with the fused extractor, as
+    every command phase here): each returns normally, logs finite losses,
+    and launches K1 (K14 / K15 with dropout) and K4 at head width 16 and K6
+    at C = 32 (bf16 in training, f32 in the eval command, which has no
+    --bf16).  Returns ({mode: launches}, {mode: launches by width})."""
+    import tempfile
+    import torch
+    from speechmix_tpu_torch import eval as eval_cmd
+    from speechmix_tpu_torch import train as train_cmd
+    from speechmix_tpu_torch.ops import kernels
+
+    t_phase = time.perf_counter()
+    counts, widths = {}, {}
+    for speech, nlp in TINY_PAIRS:
+        label = "tiny-bart" if "bart" in nlp else "tiny-t5"
+        out_dir = tempfile.mkdtemp(prefix="smx_tiny_cmd_")
+        common = ["--speech_model_config", speech, "--nlp_model_config", nlp,
+                  "--down_scale", "8"]
+        runs = {
+            "train": (train_cmd.main, [
+                "--HFSpeechMixEED", *common, "--bf16", "--synthetic",
+                "--batch", "2", "--grad_accum", "1", "--max_steps",
+                str(TINY_STEPS), "--logging_steps", "1", "--eval_step",
+                str(TINY_STEPS), "--predict_with_generate", "--seed",
+                str(seed), "--output_dir", out_dir]),
+            "eval": (eval_cmd.main, [
+                *common, "--weights", os.path.join(out_dir,
+                                                   "final_weights.npz"),
+                "--synthetic_eval", "4", "--batch", "4", "--max_length",
+                "16"])}
+        try:
+            with fused_extractor_preset(speech):
+                for run, (main_fn, argv) in runs.items():
+                    mode = f"{label}-{run}"
+                    log(f"{mode}: python -m speechmix_tpu_torch.{run} "
+                        f"{' '.join(argv)}")
+                    tally = collections.Counter()
+                    kernels.reset_launch_counts()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    with tallied(tally, width_tallies()):
+                        rc, lines = _captured(main_fn, argv)
+                    torch.cuda.synchronize()
+                    dt = time.perf_counter() - t0
+                    if rc not in (None, 0):
+                        raise AssertionError(f"{mode}: exit {rc}")
+                    for line in lines[-6:]:
+                        log(f"  | {line}")
+                    got = {k.symbol: k.launches for k in kernels.kernels()}
+                    logged = [json.loads(l) for l in lines
+                              if l.startswith("{")]
+                    losses = [r["loss"] for r in logged if "loss" in r]
+                    if run == "train" and (len(losses) < TINY_STEPS or not all(
+                            math.isfinite(x) for x in losses)):
+                        raise AssertionError(f"{mode}: logged {logged}")
+                    need = {("smx_decode_attention", 16),
+                            ("smx_conv_ln_gelu", 32)}
+                    need.add(("smx_attention_dropout_fwd", 16) if run ==
+                             "train" else ("smx_attention_fwd", 16))
+                    if run == "train":
+                        need.add(("smx_attention_dropout_bwd", 16))
+                    missing = [k for k in need if tally.get(k, 0) < 1]
+                    if missing:
+                        raise AssertionError(f"{mode}: not launched "
+                                             f"{missing}")
+                    log(f"  {mode}: exit 0, {dt:.1f} s, launches by width "
+                        + ", ".join(f"{s} at {w}: {n}" for (s, w), n in
+                                    sorted(tally.items())))
+                    counts[mode], widths[mode] = got, dict(tally)
+        finally:
+            shutil.rmtree(out_dir, ignore_errors=True)
+    log(f"tiny commands phase: {time.perf_counter() - t_phase:.1f} s on "
+        f"{card}")
+    return counts, widths
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -6715,6 +7449,10 @@ def main():
     run_remat(args.seed, card)
     run_native(args.seed, card, run_profiler(args.seed, card))
     run_parallel(args.seed, card)
+    for phase in (run_xl_pair, run_tiny_commands):
+        phase_counts, phase_widths = phase(args.seed, card)
+        counts.update(phase_counts)
+        by_length.update(phase_widths)
 
     pallas = "speechmix_tpu/ops/pallas/"
     # name: (source, TPU kernel file:line, mode whose run gives `launches`)
@@ -6888,6 +7626,54 @@ def main():
             "decode_attention.cu", "decode_attention.py:31",
             "pipeline-float32", "smx_decode_attention")
            for t in (500, 300, 200)},
+        # the head widths but 64 (launches_at_head_dim: at that width in
+        # that mode's run; 0 where no path of this script reaches it)
+        **{f"attention_fwd (D={d})": (
+            "attention_fwd.cu", "flash_attention_kernel.py:985",
+            "tiny-bart-eval" if d == 16 else "xl-greedy",
+            "smx_attention_fwd") for d, _, _ in ATTN_WIDTHS},
+        **{f"attention_bwd (D={d})": (
+            "attention_bwd.cu", "flash_attention_kernel.py:378",
+            "xl-f32-grad", "smx_attention_bwd") for d, _, _ in ATTN_WIDTHS},
+        **{f"attention_dropout_fwd (D={d})": (
+            "attention_fwd.cu", "flash_attention_kernel.py:727",
+            "tiny-bart-train" if d == 16 else "xl-train",
+            "smx_attention_dropout_fwd") for d, _, _ in ATTN_WIDTHS},
+        **{f"attention_dropout_bwd (D={d})": (
+            "attention_bwd.cu", "flash_attention_kernel.py:815",
+            "tiny-bart-train" if d == 16 else "xl-train",
+            "smx_attention_dropout_bwd") for d, _, _ in ATTN_WIDTHS},
+        "decode_attention (D=16, T=64)": (
+            "decode_attention.cu", "decode_attention.py:31",
+            "tiny-bart-eval", "smx_decode_attention"),
+        "decode_attention (D=80, T=400)": (
+            "decode_attention.cu", "decode_attention.py:31", "xl-greedy",
+            "smx_decode_attention"),
+        "decode_attention (t5-3b cross, D=128)": (
+            "decode_attention.cu", "decode_attention.py:31", "xl-greedy",
+            "smx_decode_attention"),
+        "decode_attention_q8 (t5-3b cross, D=128)": (
+            "decode_attention.cu", "decode_attention.py:67", "greedy-int8",
+            "smx_decode_attention_q8"),
+        # the f32 widths above 1024 (launches_at_width: at that H in the XL
+        # pair's f32 gradient)
+        **{f"ffn_fused (f32, H={h})": ("ffn_res_ln.cu", "ffn_kernel.py:128",
+                                       "xl-f32-grad", "smx_ffn_fused")
+           for h in F32_WIDTHS},
+        **{f"ffn_bwd (f32, H={h})": ("ffn_bwd.cu", "ffn_kernel.py:631",
+                                     "xl-f32-grad", "smx_ffn_bwd_dx")
+           for h in F32_WIDTHS},
+        **{f"ffn_res_ln (f32, H={h})": ("ffn_res_ln.cu", "ffn_kernel.py:203",
+                                        "xl-f32-grad", "smx_ffn_res_ln")
+           for h in F32_WIDTHS},
+        **{f"dense_res_ln (f32, H={h})": (
+            "dense_res_ln.cu", "ffn_kernel.py:381", "xl-f32-grad",
+            "smx_dense_res_ln") for h in F32_WIDTHS},
+        # K6 in bf16 off C = 512 (launches_at_width: at that C in the tiny
+        # train command)
+        **{f"conv_ln_gelu (bf16, C={c})": (
+            "conv_ln_gelu.cu", "conv_extractor.py:88", "tiny-bart-train",
+            "smx_conv_ln_gelu") for c, _, _ in BF16_CONV_CASES},
     }
     line = {"kernels": []}
     for name, (source, tpu, mode, *symbol) in replaces.items():
@@ -6909,10 +7695,12 @@ def main():
             **{k: v for k, v in rec.items()
                if k.startswith("library_ms_") or k == "serial_ms"},
         })
-        for at_key in ("length", "rows", "t_in"):
+        if "on_path" in rec:
+            line["kernels"][-1]["width_on_main_path"] = rec["on_path"]
+        for at_key in ("length", "rows", "t_in", "head_dim", "width"):
             if at_key in rec:
                 at = by_length[mode].get((symbol, rec[at_key]), 0)
-                if at < 1:
+                if at < 1 and rec.get("on_path", True):
                     raise AssertionError(f"{name} was not launched at "
                                          f"{at_key} {rec[at_key]} by the "
                                          f"{mode} run")

@@ -1230,6 +1230,30 @@ def _seq2seq_config_from_dict(d: dict):
     )
 
 
+# The fields of facebook/wav2vec2-xls-r-1b's published config.json that fix
+# its shapes: 48 pre-LN layers of H = 1280 with 16 heads of 80 and
+# F = 5120, seven 512-channel extractor layers each with a LayerNorm (the
+# widths of facebook/hubert-xlarge-ll60k too).  config_from_hf takes it like
+# a checkpoint's config.json; the other fields keep their HF defaults.
+XLS_R_1B_CONFIG = {
+    "_name_or_path": "facebook/wav2vec2-xls-r-1b",
+    "model_type": "wav2vec2",
+    "hidden_size": 1280,
+    "num_hidden_layers": 48,
+    "num_attention_heads": 16,
+    "intermediate_size": 5120,
+    "conv_dim": [512, 512, 512, 512, 512, 512, 512],
+    "conv_kernel": [10, 3, 3, 3, 3, 2, 2],
+    "conv_stride": [5, 2, 2, 2, 2, 2, 2],
+    "feat_extract_norm": "layer",
+    "conv_bias": True,
+    "do_stable_layer_norm": True,
+    "num_conv_pos_embeddings": 128,
+    "num_conv_pos_embedding_groups": 16,
+    "hidden_act": "gelu",
+}
+
+
 def config_from_hf(path_or_dict):
     """The port's configuration from an HF checkpoint's config.json (a
     checkpoint directory, the file, or the parsed dict): a

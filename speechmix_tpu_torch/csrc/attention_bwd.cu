@@ -1,6 +1,7 @@
 // K7: attention_bwd — backward of masked multi-head attention,
 //   out = softmax(q k^T * scale + mask) v,  per (batch, head),
-// on the (B, T, H*D) projection slabs, D = 64: given g = d(out) it writes dq,
+// on the (B, T, H*D) projection slabs, any head width D that is a multiple
+// of 8 with 8 <= D <= 128: given g = d(out) it writes dq,
 // dk and dv with the probabilities recomputed on chip (entry
 // smx_attention_bwd).  K15: attention_dropout_bwd — the same for K14's
 // out = (p * m) v (entry smx_attention_dropout_bwd), with the mask m
@@ -86,6 +87,21 @@
 // float32 (the f32 reference runs only): the same three passes on 64 x 64
 // tiles staged in shared memory, the products as f32 FMAs (each thread a
 // 4 x 4 patch), bound by the CUDA cores.
+//
+// Head widths.  Both kernels are built for a padded width DP, 64 or 128,
+// and D = 64 runs the body it always ran.  Other widths compute over DP
+// columns whose part past D is zeros (the f32 kernels load zeros there;
+// the bf16 kernels read the slabs through 4-D tensor maps with the head as
+// its own dimension, hopper.cuh's make_map_heads, so that TMA fills those
+// columns with zeros instead of reading the next head), and store D
+// columns.  At DP = 128 a 64-row operand tile is two 64-column boxes; the
+// products over the head (s, dp) take eight k16 slices; and a block holds
+// 64 keys (dk/dv pass) or 64 queries (dq pass) instead of 128: both
+// consumer warpgroups form the same s, dp, p and ds, and each accumulates
+// dk, dv or dq for one 64-column half of the head, so that every
+// accumulator stays at 32 registers a thread (two halves in one warpgroup
+// would need 64 each, beyond the 240 that setmaxnreg gives).  The shared
+// s and dp products are computed twice: a simple body that is right.
 
 #include <math.h>
 #include <stdint.h>
@@ -98,27 +114,37 @@ namespace {
 namespace hw = smx::hopper;
 using bf16 = __nv_bfloat16;
 
-constexpr int D = 64;
 constexpr int BT = 64;    // tile edge, queries and keys
 constexpr int NT = 256;   // threads of the delta and float32 kernels
 constexpr float kNegInf = -1e30f;
 constexpr float kAllMasked = -1e29f;
 
-// delta[b, h, i] = sum_d g[b, i, h, d] * out[b, i, h, d]: one warp each
-template <typename T>
+// delta[b, h, i] = sum_c g[b, i, h, c] * out[b, i, h, c]: one warp each;
+// ANY_D: head width d, else 64
+template <typename T, bool ANY_D>
 __global__ void __launch_bounds__(NT)
     attention_bwd_delta_kernel(const T* __restrict__ g, const T* __restrict__ o,
                                float* __restrict__ delta, int tq, int heads,
-                               long long total) {
+                               int d, long long total) {
   const long long w = (long long)blockIdx.x * (NT / 32) + (threadIdx.x >> 5);
   if (w >= total) return;  // whole warps leave together
   const int lane = threadIdx.x & 31;
   const int h = (int)(w % heads);
   const long long bi = w / heads;  // b * tq + i
-  const T* gp = g + w * D;
-  const T* op = o + w * D;
-  float s = smx::to_f32(gp[lane]) * smx::to_f32(op[lane]) +
-            smx::to_f32(gp[lane + 32]) * smx::to_f32(op[lane + 32]);
+  float s;
+  if constexpr (ANY_D) {
+    const T* gp = g + w * d;
+    const T* op = o + w * d;
+    s = 0.0f;
+    for (int c = lane; c < d; c += 32) {
+      s += smx::to_f32(gp[c]) * smx::to_f32(op[c]);
+    }
+  } else {
+    const T* gp = g + w * 64;
+    const T* op = o + w * 64;
+    s = smx::to_f32(gp[lane]) * smx::to_f32(op[lane]) +
+        smx::to_f32(gp[lane + 32]) * smx::to_f32(op[lane + 32]);
+  }
   s = smx::warp_sum(s);
   if (lane == 0) {
     const long long b = bi / tq, i = bi % tq;
@@ -126,20 +152,49 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
+template <typename T>
+int launch_delta(const void* g, const void* out, float* delta, int batch,
+                 int tq, int heads, int d, cudaStream_t stream) {
+  const long long warps = (long long)batch * tq * heads;
+  const unsigned blocks = (unsigned)((warps + NT / 32 - 1) / (NT / 32));
+  if (d == 64) {
+    attention_bwd_delta_kernel<T, false><<<blocks, NT, 0, stream>>>(
+        static_cast<const T*>(g), static_cast<const T*>(out), delta, tq,
+        heads, d, warps);
+  } else {
+    attention_bwd_delta_kernel<T, true><<<blocks, NT, 0, stream>>>(
+        static_cast<const T*>(g), static_cast<const T*>(out), delta, tq,
+        heads, d, warps);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 // ------------------------------------------------------------------ bfloat16
 constexpr int WG = hw::WG_THREADS;                // a warpgroup
 constexpr int CONSUMERS = hw::CONSUMERS;          // two consumer warpgroups
 constexpr int BF16_THREADS = hw::THREADS;         // + a producer warpgroup
-constexpr int BLOCK_ROWS = 2 * BT;                // a block's keys or queries
-constexpr int TILE_BYTES = BT * D * 2;            // a 64 x 64 bf16 tile, 8 KB
+constexpr int TILE_BYTES = BT * 64 * 2;           // a 64 x 64 bf16 box, 8 KB
 constexpr int STAGES = 3;                         // ring depth, 2 tiles each
 constexpr uint32_t SBO = hw::SBO;
 constexpr uint32_t LBO = hw::MN_LBO;              // unused at M = N = 64
 constexpr float kLog2e = 1.4426950408889634f;
 
+// DP: the padded head width; a 64-row operand tile is NB boxes of 64
+// columns, and at DP = 128 the two consumer warpgroups share a block's 64
+// rows and split the head's columns (SPLIT)
+template <int DP>
+struct Bwd {
+  static constexpr int NB = DP / 64;
+  static constexpr bool SPLIT = DP == 128;
+  static constexpr int BLOCK_ROWS = SPLIT ? BT : 2 * BT;
+  static constexpr int STAGE_BYTES = 2 * NB * TILE_BYTES;  // two tiles
+};
+
 struct BwdArgs {
-  CUtensorMap q, g;   // (B, Tq, H*D) in (64, 64) boxes
-  CUtensorMap k, v;   // (B, Tk, H*D) in (64, 64) boxes
+  // (B, Tq, H*D) and (B, Tk, H*D): at D = 64 3-D maps in (64, 64) boxes,
+  // else make_map_heads maps
+  CUtensorMap q, g;
+  CUtensorMap k, v;
   const unsigned char* mask;
   const float* lse;
   const float* delta;
@@ -150,7 +205,7 @@ struct BwdArgs {
   // (B*H, ceil(Tk / 64), Tq, 4) 16-bit words: bit k of word w of (query,
   // key tile kt) keeps key 64 kt + 16 w + k
   uint16_t* keep;
-  int tq, tk, heads;
+  int tq, tk, heads, d;
   float scale;
   int causal;
   smx::Dropout drop;
@@ -301,31 +356,58 @@ __device__ __forceinline__ void pack_ds(const float (&pr)[32],
 }
 
 // one thread's 64 x 64 f32 accumulator (rows row + 8 i of one head of a
-// slab, rows < tmax) times `mult`, rounded to bf16
+// slab, rows < tmax; with CUT only the columns col0 + c < d) times `mult`,
+// rounded to bf16; `out` points at the accumulator's first column
+template <bool CUT>
 __device__ __forceinline__ void store_rows(bf16* __restrict__ out,
                                            const float (&acc)[32], int row,
                                            int tmax, long long stride,
-                                           float mult, int lane) {
+                                           float mult, int lane, int col0 = 0,
+                                           int d = 64) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (row + 8 * i >= tmax) continue;
     bf16* at = out + (row + 8 * i) * stride + 2 * (lane % 4);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
+      // D is a multiple of 8: a column group is wholly in or past it
+      if (CUT && col0 + 8 * j >= d) continue;
       *reinterpret_cast<__nv_bfloat162*>(at + 8 * j) = __floats2bfloat162_rn(
           acc[4 * j + 2 * i] * mult, acc[4 * j + 2 * i + 1] * mult);
     }
   }
 }
 
-// acc = a_tile b_tile^T: four k16 slices, both operands K-major 64 x 64
-// tiles
+// acc = a_tile b_tile^T over the head: 4 NB k16 slices, both operands
+// K-major 64-row tiles of NB 64-column boxes (the slices of box h start
+// at h * TILE_BYTES)
+template <int NB>
 __device__ __forceinline__ void product_nt(float (&acc)[32], const uint8_t* a,
                                            const uint8_t* b) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    hw::wgmma_m64n64k16<0, 0>(acc, hw::desc_sw128(a + kk * 32, 16, SBO),
-                              hw::desc_sw128(b + kk * 32, 16, SBO), kk);
+  for (int kk = 0; kk < 4 * NB; ++kk) {
+    const int at = (kk / 4) * TILE_BYTES + (kk % 4) * 32;
+    hw::wgmma_m64n64k16<0, 0>(acc, hw::desc_sw128(a + at, 16, SBO),
+                              hw::desc_sw128(b + at, 16, SBO), kk);
+  }
+}
+
+// 64 rows from `row` of one head of a slab into NB boxes at dst: at MAP4
+// one make_map_heads box per 64 columns (zeros past D), else the 3-D box
+// of the head's 64 columns
+template <int NB, bool MAP4>
+__device__ __forceinline__ void load_tile_tma(uint8_t* dst,
+                                              const CUtensorMap* map,
+                                              uint64_t* bar, int head, int row,
+                                              int batch) {
+  if constexpr (MAP4) {
+#pragma unroll
+    for (int h = 0; h < NB; ++h) {
+      hw::tma_load_head(dst + h * TILE_BYTES, map, bar, 64 * h, head, row,
+                        batch);
+    }
+  } else {
+    hw::tma_load3(dst, map, bar, head * 64, row, batch);
   }
 }
 
@@ -347,27 +429,37 @@ __device__ __forceinline__ void init_barriers(uint64_t* full, uint64_t* empty,
   __syncthreads();
 }
 
-// The producer thread: the block's own 128 rows of two slabs (a, b) once,
-// then `tiles` 64-row tiles of two others (c, d) through the ring.
+// The producer thread: the block's own rows of two slabs (a, b) once (128
+// rows of NB = 1 box, or 64 of 2: four boxes), then `tiles` 64-row tiles of
+// two others (c, d) through the ring.
+template <int DP, bool MAP4>
 __device__ __forceinline__ void produce(const CUtensorMap* a,
                                         const CUtensorMap* b,
                                         const CUtensorMap* c,
                                         const CUtensorMap* d, uint8_t* own,
                                         uint8_t* ring, uint64_t* own_full,
                                         uint64_t* full, uint64_t* empty,
-                                        int col, int r0, int batch,
+                                        int head, int r0, int batch,
                                         int tiles) {
+  constexpr int NB = Bwd<DP>::NB, STAGE_BYTES = Bwd<DP>::STAGE_BYTES;
   hw::mbar_expect_tx(own_full, 4 * TILE_BYTES);
-  hw::tma_load3(own, a, own_full, col, r0, batch);
-  hw::tma_load3(own + TILE_BYTES, a, own_full, col, r0 + BT, batch);
-  hw::tma_load3(own + 2 * TILE_BYTES, b, own_full, col, r0, batch);
-  hw::tma_load3(own + 3 * TILE_BYTES, b, own_full, col, r0 + BT, batch);
+#pragma unroll
+  for (int r = 0; r < 2 / NB; ++r) {
+    load_tile_tma<NB, MAP4>(own + r * NB * TILE_BYTES, a, own_full, head,
+                            r0 + r * BT, batch);
+  }
+#pragma unroll
+  for (int r = 0; r < 2 / NB; ++r) {
+    load_tile_tma<NB, MAP4>(own + (2 + r * NB) * TILE_BYTES, b, own_full,
+                            head, r0 + r * BT, batch);
+  }
   hw::Ring<STAGES> r;
   for (int t = 0; t < tiles; ++t) {
-    uint8_t* st = ring + 2 * r.s * TILE_BYTES;
-    r.acquire(full, empty, 2 * TILE_BYTES);
-    hw::tma_load3(st, c, &full[r.s], col, t * BT, batch);
-    hw::tma_load3(st + TILE_BYTES, d, &full[r.s], col, t * BT, batch);
+    uint8_t* st = ring + r.s * STAGE_BYTES;
+    r.acquire(full, empty, STAGE_BYTES);
+    load_tile_tma<NB, MAP4>(st, c, &full[r.s], head, t * BT, batch);
+    load_tile_tma<NB, MAP4>(st + NB * TILE_BYTES, d, &full[r.s], head,
+                            t * BT, batch);
     r.advance();
   }
 }
@@ -390,11 +482,13 @@ struct QueryRows {
 // a quarter of the columns (8 calls), turns them into keep nibbles, and the
 // four share the nibbles (bh: the head's row; kgroup: the 4-key group of
 // the warp's first key).  The lanes of a = 0 also write the warp's keep
-// words of their four queries for the dq pass.
+// words of their four queries for the dq pass (of the `writer` warpgroup,
+// where two draw the same words).
 template <bool DROP>
 __device__ __forceinline__ void drop_mask_t(const BwdArgs& p, long long bh,
                                             int q0, int kgroup, int lane,
-                                            float (&m)[32]) {
+                                            float (&m)[32],
+                                            bool writer = true) {
   if constexpr (!DROP) {
 #pragma unroll
     for (int e = 0; e < 32; ++e) m[e] = 1.0f;
@@ -428,7 +522,7 @@ __device__ __forceinline__ void drop_mask_t(const BwdArgs& p, long long bh,
       v |= __shfl_xor_sync(0xffffffffu, v, 16);
       const int e = 4 * blk + u;
       const int qi = q0 + 8 * (e >> 1) + 2 * t + (e & 1);
-      if (a == 0 && qi < p.tq && kt < ktiles) {
+      if (writer && a == 0 && qi < p.tq && kt < ktiles) {
         words[4 * qi] = (uint16_t)v;
       }
     }
@@ -453,45 +547,55 @@ __device__ __forceinline__ void drop_mask_t(const BwdArgs& p, long long bh,
   }
 }
 
+template <int DP>
 constexpr size_t dkdv_smem_bytes() {
-  // k, v (2 tiles each), the ring with its query rows, barriers
-  return 1024 + (size_t)(4 + 2 * STAGES) * TILE_BYTES +
+  // k, v (four boxes), the ring with its query rows, barriers
+  return 1024 + (size_t)4 * TILE_BYTES + STAGES * Bwd<DP>::STAGE_BYTES +
          STAGES * sizeof(QueryRows) + (2 * STAGES + 1) * sizeof(uint64_t);
 }
 
-template <bool DROP>
+template <int DP, bool MAP4, bool DROP>
 __global__ void __launch_bounds__(BF16_THREADS, 1)
     dkdv_kernel(const __grid_constant__ BwdArgs p) {
+  using G = Bwd<DP>;
+  constexpr int NB = G::NB, STAGE_BYTES = G::STAGE_BYTES;
+  constexpr bool SPLIT = G::SPLIT;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* kv = hw::align1024(smem_raw);        // 128 keys of k, then of v
+  uint8_t* kv = hw::align1024(smem_raw);        // the keys of k, then of v
   uint8_t* ring = kv + 4 * TILE_BYTES;          // stage s: q tile, g tile
   QueryRows* qrows =
-      reinterpret_cast<QueryRows*>(ring + 2 * STAGES * TILE_BYTES);
+      reinterpret_cast<QueryRows*>(ring + STAGES * STAGE_BYTES);
   uint64_t* full = reinterpret_cast<uint64_t*>(qrows + STAGES);
   uint64_t* empty = full + STAGES;
   uint64_t* kv_full = empty + STAGES;
 
-  const int k0 = blockIdx.x * BLOCK_ROWS, head = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x * G::BLOCK_ROWS, head = blockIdx.y;
+  const int b = blockIdx.z;
   const int qtiles = (p.tq + BT - 1) / BT;
   const int wg = threadIdx.x / WG;
   const long long bh = (long long)b * p.heads + head;
   // A stage is full after the producer's expect and its first warp's query
-  // rows.  The last block's second warpgroup may hold no key: it leaves at
-  // once, and the stages wait for the first alone.
-  const int active = k0 + BT < p.tk ? 2 : 1;
+  // rows.  Without SPLIT the last block's second warpgroup may hold no
+  // key: it leaves at once, and the stages wait for the first alone.
+  const int active = SPLIT || k0 + BT < p.tk ? 2 : 1;
   init_barriers(full, empty, kv_full, 1 + 32, active);
 
   if (wg == 2) {
     hw::setmaxnreg_dec<24>();
     const int pl = threadIdx.x - CONSUMERS;
     if (pl >= 32) return;
-    const int col = head * D;
     if (pl == 0) {
       hw::mbar_expect_tx(kv_full, 4 * TILE_BYTES);
-      hw::tma_load3(kv, &p.k, kv_full, col, k0, b);
-      hw::tma_load3(kv + TILE_BYTES, &p.k, kv_full, col, k0 + BT, b);
-      hw::tma_load3(kv + 2 * TILE_BYTES, &p.v, kv_full, col, k0, b);
-      hw::tma_load3(kv + 3 * TILE_BYTES, &p.v, kv_full, col, k0 + BT, b);
+#pragma unroll
+      for (int r = 0; r < 2 / NB; ++r) {
+        load_tile_tma<NB, MAP4>(kv + r * NB * TILE_BYTES, &p.k, kv_full,
+                                head, k0 + r * BT, b);
+      }
+#pragma unroll
+      for (int r = 0; r < 2 / NB; ++r) {
+        load_tile_tma<NB, MAP4>(kv + (2 + r * NB) * TILE_BYTES, &p.v,
+                                kv_full, head, k0 + r * BT, b);
+      }
     }
     // lane pl stages queries pl and pl + 32 of each tile, read one tile
     // ahead so that no stage waits for them
@@ -510,10 +614,11 @@ __global__ void __launch_bounds__(BF16_THREADS, 1)
     for (int t = 0; t < qtiles; ++t) {
       hw::mbar_wait(&empty[r.s], r.phase ^ 1);
       if (pl == 0) {
-        uint8_t* st = ring + 2 * r.s * TILE_BYTES;
-        hw::mbar_expect_tx(&full[r.s], 2 * TILE_BYTES);
-        hw::tma_load3(st, &p.q, &full[r.s], col, t * BT, b);
-        hw::tma_load3(st + TILE_BYTES, &p.g, &full[r.s], col, t * BT, b);
+        uint8_t* st = ring + r.s * STAGE_BYTES;
+        hw::mbar_expect_tx(&full[r.s], STAGE_BYTES);
+        load_tile_tma<NB, MAP4>(st, &p.q, &full[r.s], head, t * BT, b);
+        load_tile_tma<NB, MAP4>(st + NB * TILE_BYTES, &p.g, &full[r.s], head,
+                                t * BT, b);
       }
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -529,10 +634,12 @@ __global__ void __launch_bounds__(BF16_THREADS, 1)
   hw::setmaxnreg_inc<240>();
   if (wg >= active) return;
 
-  // consumers: warpgroup wg owns keys k0 + 64 wg .. + 63 as its M rows
+  // consumers: warpgroup wg owns keys k0 + 64 wg .. + 63 as its M rows, or
+  // with SPLIT keys k0 .. + 63 and the head's columns 64 wg .. + 63
   const int lane = threadIdx.x % 32, t = lane % 4;
   const int row = 16 * ((threadIdx.x % WG) / 32) + lane / 4;
-  const int key0 = k0 + BT * wg + row;         // keys key0 + 8 i
+  const int kfirst = k0 + (SPLIT ? 0 : BT * wg);  // the warpgroup's keys
+  const int key0 = kfirst + row;                  // keys key0 + 8 i
   bool key_in[2], key_valid[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -540,11 +647,12 @@ __global__ void __launch_bounds__(BF16_THREADS, 1)
     key_in[i] = kj < p.tk;
     key_valid[i] = key_in[i] && p.mask[(long long)b * p.tk + kj];
   }
-  const int kgroup = (k0 + BT * wg + row - lane / 4) / 4;
+  const int kgroup = (kfirst + row - lane / 4) / 4;
   const float sl2 = p.scale * kLog2e;
   const float inv_tk = 1.0f / (float)p.tk;
-  const uint8_t* kw = kv + wg * TILE_BYTES;
-  const uint8_t* vw = kv + (2 + wg) * TILE_BYTES;
+  const uint8_t* kw = kv + (SPLIT ? 0 : wg) * TILE_BYTES;
+  const uint8_t* vw = kv + (2 + (SPLIT ? 0 : wg)) * TILE_BYTES;
+  const int half = SPLIT ? wg : 0;  // the box of q and g this wg's dk, dv use
   float dk_acc[32], dv_acc[32], s_acc[32], dp_acc[32];
   uint32_t pa[16], dsa[16];  // the A fragments of (p m)^T and ds^T
 #pragma unroll
@@ -559,17 +667,17 @@ __global__ void __launch_bounds__(BF16_THREADS, 1)
   uint32_t phase = 0;
   for (int qt = 0; qt < qtiles; ++qt) {
     const int q0 = qt * BT, qcol = q0 + 2 * t;
-    const uint8_t* qs = ring + 2 * s * TILE_BYTES;
-    const uint8_t* gs = qs + TILE_BYTES;
+    const uint8_t* qs = ring + s * STAGE_BYTES;
+    const uint8_t* gs = qs + NB * TILE_BYTES;
     hw::mbar_wait(&full[s], phase);
     hw::wgmma_fence();
-    product_nt(s_acc, kw, qs);   // s^T = k q^T
+    product_nt<NB>(s_acc, kw, qs);   // s^T = k q^T
     hw::wgmma_commit();
-    product_nt(dp_acc, vw, gs);  // dp^T = v g^T
+    product_nt<NB>(dp_acc, vw, gs);  // dp^T = v g^T
     hw::wgmma_commit();
     // while the products run: the mask, and which elements take a p
     float m[32];
-    drop_mask_t<DROP>(p, bh, q0, kgroup, lane, m);
+    drop_mask_t<DROP>(p, bh, q0, kgroup, lane, m, !SPLIT || wg == 0);
     float2 l2[8];
     uint64_t uniform = 0;
 #pragma unroll
@@ -616,11 +724,12 @@ __global__ void __launch_bounds__(BF16_THREADS, 1)
       }
     hw::wgmma_fence();
     // dv += (p m)^T g: A from registers, g (queries x d) MN-major
+    const uint8_t* gh = gs + half * TILE_BYTES;
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       hw::wgmma_m64n64k16_rs<1>(dv_acc, pa[4 * kk], pa[4 * kk + 1],
                                 pa[4 * kk + 2], pa[4 * kk + 3],
-                                hw::desc_sw128(gs + kk * 2048, LBO, SBO), 1);
+                                hw::desc_sw128(gh + kk * 2048, LBO, SBO), 1);
     }
     hw::wgmma_commit();
     hw::wgmma_wait<1>();         // dp
@@ -643,11 +752,12 @@ __global__ void __launch_bounds__(BF16_THREADS, 1)
     }
     hw::wgmma_fence();
     // dk += ds^T q: q (queries x d) MN-major
+    const uint8_t* qh = qs + half * TILE_BYTES;
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       hw::wgmma_m64n64k16_rs<1>(dk_acc, dsa[4 * kk], dsa[4 * kk + 1],
                                 dsa[4 * kk + 2], dsa[4 * kk + 3],
-                                hw::desc_sw128(qs + kk * 2048, LBO, SBO), 1);
+                                hw::desc_sw128(qh + kk * 2048, LBO, SBO), 1);
     }
     hw::wgmma_commit();
     prev = s;
@@ -661,44 +771,52 @@ __global__ void __launch_bounds__(BF16_THREADS, 1)
   hw::fence_regs(dv_acc);
   hw::fence_regs(pa);
   hw::fence_regs(dsa);
-  const long long stride = (long long)p.heads * D;
-  const long long base = (long long)b * p.tk * stride + head * D;
-  store_rows(p.dk + base, dk_acc, key0, p.tk, stride, p.scale, lane);
-  store_rows(p.dv + base, dv_acc, key0, p.tk, stride, 1.0f, lane);
+  const int d = MAP4 ? p.d : 64;
+  const long long stride = (long long)p.heads * d;
+  const long long base = (long long)b * p.tk * stride + head * d + 64 * half;
+  store_rows<MAP4>(p.dk + base, dk_acc, key0, p.tk, stride, p.scale, lane,
+                   64 * half, d);
+  store_rows<MAP4>(p.dv + base, dv_acc, key0, p.tk, stride, 1.0f, lane,
+                   64 * half, d);
 }
 
-// the dq pass's shared memory: q, g (2 tiles each), the ring, barriers and
+// the dq pass's shared memory: q, g (four boxes), the ring, barriers and
 // one valid bit per key, in 64-key words
+template <int DP>
 size_t dq_smem_bytes(int tk) {
-  return 1024 + (size_t)(4 + 2 * STAGES) * TILE_BYTES +
+  return 1024 + (size_t)4 * TILE_BYTES + STAGES * Bwd<DP>::STAGE_BYTES +
          (2 * STAGES + 1) * sizeof(uint64_t) +
          (size_t)((tk + BT - 1) / BT) * sizeof(uint64_t);
 }
 
-template <bool DROP>
+template <int DP, bool MAP4, bool DROP>
 __global__ void __launch_bounds__(BF16_THREADS, 1)
     dq_kernel(const __grid_constant__ BwdArgs p) {
+  using G = Bwd<DP>;
+  constexpr int NB = G::NB, STAGE_BYTES = G::STAGE_BYTES;
+  constexpr bool SPLIT = G::SPLIT;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* qg = hw::align1024(smem_raw);        // 128 queries of q, then g
+  uint8_t* qg = hw::align1024(smem_raw);        // the queries of q, then g
   uint8_t* ring = qg + 4 * TILE_BYTES;          // stage s: k tile, v tile
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + 2 * STAGES * TILE_BYTES);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * STAGE_BYTES);
   uint64_t* empty = full + STAGES;
   uint64_t* qg_full = empty + STAGES;
   uint32_t* kbits = reinterpret_cast<uint32_t*>(qg_full + 1);
 
-  const int q0 = blockIdx.x * BLOCK_ROWS, head = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * G::BLOCK_ROWS, head = blockIdx.y;
+  const int b = blockIdx.z;
   const int ktiles = (p.tk + BT - 1) / BT;
   const int wg = threadIdx.x / WG;
-  // the last block's second warpgroup may hold no query: it leaves after
-  // the key bits, and the stages wait for the first alone
-  const int active = q0 + BT < p.tq ? 2 : 1;
+  // without SPLIT the last block's second warpgroup may hold no query: it
+  // leaves after the key bits, and the stages wait for the first alone
+  const int active = SPLIT || q0 + BT < p.tq ? 2 : 1;
   init_barriers(full, empty, qg_full, 1, active);
 
   if (wg == 2) {
     hw::setmaxnreg_dec<24>();
     if (threadIdx.x == CONSUMERS) {
-      produce(&p.q, &p.g, &p.k, &p.v, qg, ring, qg_full, full, empty,
-              head * D, q0, b, ktiles);
+      produce<DP, MAP4>(&p.q, &p.g, &p.k, &p.v, qg, ring, qg_full, full,
+                        empty, head, q0, b, ktiles);
     }
     return;
   }
@@ -713,14 +831,16 @@ __global__ void __launch_bounds__(BF16_THREADS, 1)
   hw::bar_sync(1, CONSUMERS);
   if (wg >= active) return;
 
-  // warpgroup wg owns queries q0 + 64 wg .. + 63
+  // warpgroup wg owns queries q0 + 64 wg .. + 63, or with SPLIT queries
+  // q0 .. + 63 and the head's columns 64 wg .. + 63
   const int lane = threadIdx.x % 32;
   const int row = 16 * ((threadIdx.x % WG) / 32) + lane / 4;
-  const int q_first = q0 + BT * wg + row;
+  const int q_first = q0 + (SPLIT ? 0 : BT * wg) + row;
   const long long bh = (long long)b * p.heads + head;
   const Rows rows = load_rows(p, bh, q_first);
-  const uint8_t* qw = qg + wg * TILE_BYTES;
-  const uint8_t* gw = qg + (2 + wg) * TILE_BYTES;
+  const uint8_t* qw = qg + (SPLIT ? 0 : wg) * TILE_BYTES;
+  const uint8_t* gw = qg + (2 + (SPLIT ? 0 : wg)) * TILE_BYTES;
+  const int half = SPLIT ? wg : 0;  // the box of k this wg's dq uses
   float dq_acc[32], s_acc[32], dp_acc[32];
   uint32_t ds[16];
 #pragma unroll
@@ -735,13 +855,13 @@ __global__ void __launch_bounds__(BF16_THREADS, 1)
   uint32_t phase = 0;
   for (int kt = 0; kt < ktiles; ++kt) {
     const int kcol = kt * BT + 2 * (lane % 4);
-    const uint8_t* kst = ring + 2 * s * TILE_BYTES;
-    const uint8_t* vst = kst + TILE_BYTES;
+    const uint8_t* kst = ring + s * STAGE_BYTES;
+    const uint8_t* vst = kst + NB * TILE_BYTES;
     hw::mbar_wait(&full[s], phase);
     hw::wgmma_fence();
-    product_nt(s_acc, qw, kst);   // s = q k^T
+    product_nt<NB>(s_acc, qw, kst);   // s = q k^T
     hw::wgmma_commit();
-    product_nt(dp_acc, gw, vst);  // dp = g v^T
+    product_nt<NB>(dp_acc, gw, vst);  // dp = g v^T
     hw::wgmma_commit();
     // what does not need s (the mask's Philox words) while the products run
     const uint64_t valid =
@@ -766,11 +886,12 @@ __global__ void __launch_bounds__(BF16_THREADS, 1)
     hw::wgmma_fence();
     // dq += ds k: ds from registers (pack_ds's pairs are the A fragment),
     // k (keys x d) MN-major
+    const uint8_t* kh = kst + half * TILE_BYTES;
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       hw::wgmma_m64n64k16_rs<1>(dq_acc, ds[4 * kk], ds[4 * kk + 1],
                                 ds[4 * kk + 2], ds[4 * kk + 3],
-                                hw::desc_sw128(kst + kk * 2048, LBO, SBO), 1);
+                                hw::desc_sw128(kh + kk * 2048, LBO, SBO), 1);
     }
     hw::wgmma_commit();
     prev = s;
@@ -782,26 +903,34 @@ __global__ void __launch_bounds__(BF16_THREADS, 1)
   hw::wgmma_wait<0>();
   hw::fence_regs(dq_acc);
   hw::fence_regs(ds);
-  const long long stride = (long long)p.heads * D;
-  store_rows(p.dq + (long long)b * p.tq * stride + head * D, dq_acc,
-             q_first, p.tq, stride, p.scale, lane);
+  const int d = MAP4 ? p.d : 64;
+  const long long stride = (long long)p.heads * d;
+  store_rows<MAP4>(p.dq + (long long)b * p.tq * stride + head * d + 64 * half,
+                   dq_acc, q_first, p.tq, stride, p.scale, lane, 64 * half,
+                   d);
 }
 
-template <bool DROP>
+template <int DP, bool MAP4, bool DROP>
 int launch_bf16(const void* q, const void* k, const void* v, const void* out,
                 const void* g, const unsigned char* mask, const float* lse,
                 float* delta, uint16_t* keep, void* dq, void* dk, void* dv,
-                int batch, int tq,
-                int tk, int heads, float scale, int causal, smx::Dropout drop,
-                cudaStream_t stream) {
+                int batch, int tq, int tk, int heads, int d, float scale,
+                int causal, smx::Dropout drop, cudaStream_t stream) {
   BwdArgs p;
-  const uint64_t cols = (uint64_t)heads * D;
-  if (!hw::make_map3(&p.q, q, batch, tq, cols, BT, D) ||
-      !hw::make_map3(&p.g, g, batch, tq, cols, BT, D) ||
-      !hw::make_map3(&p.k, k, batch, tk, cols, BT, D) ||
-      !hw::make_map3(&p.v, v, batch, tk, cols, BT, D)) {
-    return static_cast<int>(cudaErrorInvalidValue);
+  bool mapped;
+  if constexpr (MAP4) {
+    mapped = hw::make_map_heads(&p.q, q, batch, tq, heads, d, BT) &&
+             hw::make_map_heads(&p.g, g, batch, tq, heads, d, BT) &&
+             hw::make_map_heads(&p.k, k, batch, tk, heads, d, BT) &&
+             hw::make_map_heads(&p.v, v, batch, tk, heads, d, BT);
+  } else {
+    const uint64_t cols = (uint64_t)heads * 64;
+    mapped = hw::make_map3(&p.q, q, batch, tq, cols, BT, 64) &&
+             hw::make_map3(&p.g, g, batch, tq, cols, BT, 64) &&
+             hw::make_map3(&p.k, k, batch, tk, cols, BT, 64) &&
+             hw::make_map3(&p.v, v, batch, tk, cols, BT, 64);
   }
+  if (!mapped) return static_cast<int>(cudaErrorInvalidValue);
   p.mask = mask;
   p.lse = lse;
   p.delta = delta;
@@ -812,39 +941,46 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* out,
   p.tq = tq;
   p.tk = tk;
   p.heads = heads;
+  p.d = d;
   p.scale = scale;
   p.causal = causal;
   p.drop = drop;
-  const size_t smem_kv = dkdv_smem_bytes(), smem_q = dq_smem_bytes(tk);
+  const size_t smem_kv = dkdv_smem_bytes<DP>(),
+               smem_q = dq_smem_bytes<DP>(tk);
   cudaError_t err = cudaFuncSetAttribute(
-      dkdv_kernel<DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dkdv_kernel<DP, MAP4, DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem_kv));
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(dq_kernel<DROP>,
+  err = cudaFuncSetAttribute(dq_kernel<DP, MAP4, DROP>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem_q));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long warps = (long long)batch * tq * heads;
-  attention_bwd_delta_kernel<bf16>
-      <<<(unsigned)((warps + NT / 32 - 1) / (NT / 32)), NT, 0, stream>>>(
-          static_cast<const bf16*>(g), static_cast<const bf16*>(out), delta,
-          tq, heads, warps);
+  const int rc = launch_delta<bf16>(g, out, delta, batch, tq, heads, d,
+                                    stream);
+  if (rc != 0) return rc;
+  constexpr int rows = Bwd<DP>::BLOCK_ROWS;
+  dkdv_kernel<DP, MAP4, DROP>
+      <<<dim3((tk + rows - 1) / rows, heads, batch), BF16_THREADS, smem_kv,
+         stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  dkdv_kernel<DROP><<<dim3((tk + BLOCK_ROWS - 1) / BLOCK_ROWS, heads, batch),
-                      BF16_THREADS, smem_kv, stream>>>(p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dq_kernel<DROP><<<dim3((tq + BLOCK_ROWS - 1) / BLOCK_ROWS, heads, batch),
-                    BF16_THREADS, smem_q, stream>>>(p);
+  dq_kernel<DP, MAP4, DROP>
+      <<<dim3((tq + rows - 1) / rows, heads, batch), BF16_THREADS, smem_q,
+         stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 // ------------------------------------------------------------------ float32
-// 64 x 64 x 64 block products by the 256 threads of a block, each a 4 x 4
-// patch.  A(m, k) is A[m * lda + k], or A[k * lda + m] with TA; B(k, n) is
-// B[k * ldb + n], or B[n * ldb + k] with TB.
+// 64 x 64 block products over a depth K by the 256 threads of a block, each
+// a 4 x 4 patch.  A(m, k) is A[m * LDA + k], or A[k * LDA + m] with TA;
+// B(k, n) is B[k * LDB + n], or B[n * LDB + k] with TB.  Tiles of 64 rows
+// by the padded head width DP have rows of LDD = DP + 4 floats; 64 x 64
+// tiles (s, dp, p, ds) rows of LD.
 constexpr int LD = 68;   // tile row (float4-aligned), operands and staging
+template <int DP>
+__host__ __device__ constexpr int ldd() {
+  return DP + 4;
+}
 
 struct Acc {
   float v[4][4];  // rows ty * 4 .., columns tx * 4 ..
@@ -857,16 +993,16 @@ __device__ __forceinline__ void zero(Acc& acc) {
     for (int j = 0; j < 4; ++j) acc.v[i][j] = 0.0f;
 }
 
-template <bool TA, bool TB>
+template <bool TA, bool TB, int K, int LDA, int LDB>
 __device__ __forceinline__ void mma(Acc& acc, const float* A, const float* B) {
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
 #pragma unroll 4
-  for (int k = 0; k < BT; ++k) {
+  for (int k = 0; k < K; ++k) {
     float a[4], b[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      a[i] = TA ? A[k * LD + ty * 4 + i] : A[(ty * 4 + i) * LD + k];
-      b[i] = TB ? B[(tx * 4 + i) * LD + k] : B[k * LD + tx * 4 + i];
+      a[i] = TA ? A[k * LDA + ty * 4 + i] : A[(ty * 4 + i) * LDA + k];
+      b[i] = TB ? B[(tx * 4 + i) * LDB + k] : B[k * LDB + tx * 4 + i];
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -875,44 +1011,51 @@ __device__ __forceinline__ void mma(Acc& acc, const float* A, const float* B) {
   }
 }
 
+template <int LDC>
 __device__ __forceinline__ void store(Acc& acc, float* C, float mult) {
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      C[(ty * 4 + i) * LD + tx * 4 + j] = acc.v[i][j] * mult;
+      C[(ty * 4 + i) * LDC + tx * 4 + j] = acc.v[i][j] * mult;
 }
 
-// rows t0 .. t0 + 63 (zero past tmax) of one head of a slab into a tile, in
-// 16-byte words
+// rows t0 .. t0 + 63 (zero past tmax) of one head of a slab into a tile of
+// DP columns (zero past d), in 16-byte words
+template <int DP>
 __device__ __forceinline__ void load_tile(float* dst,
                                           const float* __restrict__ src,
-                                          long long row, int t0, int tmax) {
+                                          long long row, int t0, int tmax,
+                                          int d) {
   constexpr int VEC = 4;
-  for (int i = threadIdx.x; i < BT * (D / VEC); i += NT) {
-    const int r = i / (D / VEC), c = (i % (D / VEC)) * VEC;
+  for (int i = threadIdx.x; i < BT * (DP / VEC); i += NT) {
+    const int r = i / (DP / VEC), c = (i % (DP / VEC)) * VEC;
     float4 val = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (t0 + r < tmax) {
+    if (t0 + r < tmax && c < d) {
       val = *reinterpret_cast<const float4*>(src + (t0 + r) * row + c);
     }
-    *reinterpret_cast<float4*>(dst + r * LD + c) = val;
+    *reinterpret_cast<float4*>(dst + r * ldd<DP>() + c) = val;
   }
 }
 
-// rows t0 .. of a staged tile into one head of a slab
+// rows t0 .. of a staged tile (DP columns) into one head of a slab, its d
+// columns
+template <int DP>
 __device__ __forceinline__ void write_tile(float* __restrict__ dst,
                                            const float* src, long long row,
-                                           int t0, int tmax) {
-  for (int i = threadIdx.x; i < BT * D; i += NT) {
-    const int r = i / D, c = i % D;
-    if (t0 + r < tmax) dst[(t0 + r) * row + c] = src[r * LD + c];
+                                           int t0, int tmax, int d) {
+  for (int i = threadIdx.x; i < BT * DP; i += NT) {
+    const int r = i / DP, c = i % DP;
+    if (t0 + r < tmax && c < d) dst[(t0 + r) * row + c] = src[r * ldd<DP>() + c];
   }
 }
 
-constexpr size_t kTileBytesF32 = (size_t)BT * LD * sizeof(float);
-// four operand tiles, two staging tiles (s, dp), two tiles of p and ds
-constexpr size_t kSmemF32 = 8 * kTileBytesF32;
+// four operand tiles of 64 x DP, four 64 x 64 tiles (s, dp, p, ds)
+template <int DP>
+constexpr size_t smem_f32() {
+  return (size_t)(4 * BT * ldd<DP>() + 4 * BT * LD) * sizeof(float);
+}
 
 // p and ds of one 64 x 64 tile from the staged s and dp, with the dropout
 // mask m (= 1 without DROP): ps = p * m, dss = p * (dp * m - delta); one
@@ -950,7 +1093,7 @@ __device__ __forceinline__ void probs_and_ds(
   }
 }
 
-template <bool DROP>
+template <int DP, bool DROP>
 __global__ void __launch_bounds__(NT)
     attention_bwd_dkdv_kernel(const float* __restrict__ q,
                               const float* __restrict__ k,
@@ -960,14 +1103,15 @@ __global__ void __launch_bounds__(NT)
                               const float* __restrict__ lse,
                               const float* __restrict__ delta,
                               float* __restrict__ dk, float* __restrict__ dv,
-                              int tq, int tk, int heads, float scale,
+                              int tq, int tk, int heads, int d, float scale,
                               int causal, smx::Dropout drop) {
+  constexpr int NB = DP / 64, LDD = ldd<DP>();
   extern __shared__ __align__(128) unsigned char smem_raw[];
   float* ks = reinterpret_cast<float*>(smem_raw);
-  float* vs = ks + BT * LD;
-  float* qs = vs + BT * LD;
-  float* gs = qs + BT * LD;
-  float* ps = gs + BT * LD;
+  float* vs = ks + BT * LDD;
+  float* qs = vs + BT * LDD;
+  float* gs = qs + BT * LDD;
+  float* ps = gs + BT * LDD;
   float* dss = ps + BT * LD;
   float* sf = dss + BT * LD;
   float* dpf = sf + BT * LD;
@@ -975,27 +1119,30 @@ __global__ void __launch_bounds__(NT)
   __shared__ unsigned char kmask_s[BT];
   const int tid = threadIdx.x;
   const int k0 = blockIdx.x * BT, head = blockIdx.y, b = blockIdx.z;
-  const long long row = (long long)heads * D;
-  const float* qb = q + (long long)b * tq * row + head * D;
-  const float* gb = g + (long long)b * tq * row + head * D;
-  const float* kb = k + (long long)b * tk * row + head * D;
-  const float* vb = v + (long long)b * tk * row + head * D;
+  const long long row = (long long)heads * d;
+  const float* qb = q + (long long)b * tq * row + head * d;
+  const float* gb = g + (long long)b * tq * row + head * d;
+  const float* kb = k + (long long)b * tk * row + head * d;
+  const float* vb = v + (long long)b * tk * row + head * d;
   const float* lb = lse + ((long long)b * heads + head) * tq;
   const float* db = delta + ((long long)b * heads + head) * tq;
 
-  load_tile(ks, kb, row, k0, tk);
-  load_tile(vs, vb, row, k0, tk);
+  load_tile<DP>(ks, kb, row, k0, tk, d);
+  load_tile<DP>(vs, vb, row, k0, tk, d);
   if (tid < BT) {
     kmask_s[tid] = k0 + tid < tk ? mask[(long long)b * tk + k0 + tid] : 0;
   }
-  Acc dk_acc, dv_acc;
-  zero(dk_acc);
-  zero(dv_acc);
+  Acc dk_acc[NB], dv_acc[NB];
+#pragma unroll
+  for (int h = 0; h < NB; ++h) {
+    zero(dk_acc[h]);
+    zero(dv_acc[h]);
+  }
 
   for (int q0 = 0; q0 < tq; q0 += BT) {
     __syncthreads();  // the last tile's readers of qs, gs, ps, dss are done
-    load_tile(qs, qb, row, q0, tq);
-    load_tile(gs, gb, row, q0, tq);
+    load_tile<DP>(qs, qb, row, q0, tq, d);
+    load_tile<DP>(gs, gb, row, q0, tq, d);
     if (tid < BT) {
       const bool in = q0 + tid < tq;
       lse_s[tid] = in ? lb[q0 + tid] : 0.0f;
@@ -1005,29 +1152,36 @@ __global__ void __launch_bounds__(NT)
     {
       Acc s_acc, dp_acc;
       zero(s_acc);
-      mma<false, true>(s_acc, qs, ks);   // q k^T
-      store(s_acc, sf, 1.0f);
+      mma<false, true, DP, LDD, LDD>(s_acc, qs, ks);   // q k^T
+      store<LD>(s_acc, sf, 1.0f);
       zero(dp_acc);
-      mma<false, true>(dp_acc, gs, vs);  // g v^T
-      store(dp_acc, dpf, 1.0f);
+      mma<false, true, DP, LDD, LDD>(dp_acc, gs, vs);  // g v^T
+      store<LD>(dp_acc, dpf, 1.0f);
     }
     __syncthreads();
     probs_and_ds<DROP>(sf, dpf, ps, dss, lse_s, delta_s, kmask_s, q0, k0, tq,
                        tk, scale, causal, drop,
                        ((long long)b * heads + head) * tq);
     __syncthreads();
-    mma<true, false>(dv_acc, ps, gs);    // p^T g
-    mma<true, false>(dk_acc, dss, qs);   // ds^T q
+#pragma unroll
+    for (int h = 0; h < NB; ++h) {
+      mma<true, false, BT, LD, LDD>(dv_acc[h], ps, gs + 64 * h);   // p^T g
+      mma<true, false, BT, LD, LDD>(dk_acc[h], dss, qs + 64 * h);  // ds^T q
+    }
   }
   __syncthreads();
-  store(dv_acc, sf, 1.0f);
-  store(dk_acc, dpf, scale);
+  // stage dv and dk in the q and g tiles' place
+#pragma unroll
+  for (int h = 0; h < NB; ++h) {
+    store<LDD>(dv_acc[h], qs + 64 * h, 1.0f);
+    store<LDD>(dk_acc[h], gs + 64 * h, scale);
+  }
   __syncthreads();
-  write_tile(dv + (long long)b * tk * row + head * D, sf, row, k0, tk);
-  write_tile(dk + (long long)b * tk * row + head * D, dpf, row, k0, tk);
+  write_tile<DP>(dv + (long long)b * tk * row + head * d, qs, row, k0, tk, d);
+  write_tile<DP>(dk + (long long)b * tk * row + head * d, gs, row, k0, tk, d);
 }
 
-template <bool DROP>
+template <int DP, bool DROP>
 __global__ void __launch_bounds__(NT)
     attention_bwd_dq_kernel(const float* __restrict__ q,
                             const float* __restrict__ k,
@@ -1037,38 +1191,41 @@ __global__ void __launch_bounds__(NT)
                             const float* __restrict__ lse,
                             const float* __restrict__ delta,
                             float* __restrict__ dq, int tq, int tk, int heads,
-                            float scale, int causal, smx::Dropout drop) {
+                            int d, float scale, int causal,
+                            smx::Dropout drop) {
+  constexpr int NB = DP / 64, LDD = ldd<DP>();
   extern __shared__ __align__(128) unsigned char smem_raw[];
   float* ks = reinterpret_cast<float*>(smem_raw);
-  float* vs = ks + BT * LD;
-  float* qs = vs + BT * LD;
-  float* gs = qs + BT * LD;
-  float* dss = gs + BT * LD;
+  float* vs = ks + BT * LDD;
+  float* qs = vs + BT * LDD;
+  float* gs = qs + BT * LDD;
+  float* dss = gs + BT * LDD;
   float* sf = dss + 2 * BT * LD;
   float* dpf = sf + BT * LD;
   __shared__ float lse_s[BT], delta_s[BT];
   __shared__ unsigned char kmask_s[BT];
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * BT, head = blockIdx.y, b = blockIdx.z;
-  const long long row = (long long)heads * D;
-  const float* kb = k + (long long)b * tk * row + head * D;
-  const float* vb = v + (long long)b * tk * row + head * D;
+  const long long row = (long long)heads * d;
+  const float* kb = k + (long long)b * tk * row + head * d;
+  const float* vb = v + (long long)b * tk * row + head * d;
 
-  load_tile(qs, q + (long long)b * tq * row + head * D, row, q0, tq);
-  load_tile(gs, g + (long long)b * tq * row + head * D, row, q0, tq);
+  load_tile<DP>(qs, q + (long long)b * tq * row + head * d, row, q0, tq, d);
+  load_tile<DP>(gs, g + (long long)b * tq * row + head * d, row, q0, tq, d);
   if (tid < BT) {
     const bool in = q0 + tid < tq;
     const long long at = ((long long)b * heads + head) * tq + q0 + tid;
     lse_s[tid] = in ? lse[at] : 0.0f;
     delta_s[tid] = in ? delta[at] : 0.0f;
   }
-  Acc dq_acc;
-  zero(dq_acc);
+  Acc dq_acc[NB];
+#pragma unroll
+  for (int h = 0; h < NB; ++h) zero(dq_acc[h]);
 
   for (int k0 = 0; k0 < tk; k0 += BT) {
     __syncthreads();  // the last tile's readers of ks, vs, dss are done
-    load_tile(ks, kb, row, k0, tk);
-    load_tile(vs, vb, row, k0, tk);
+    load_tile<DP>(ks, kb, row, k0, tk, d);
+    load_tile<DP>(vs, vb, row, k0, tk, d);
     if (tid < BT) {
       kmask_s[tid] = k0 + tid < tk ? mask[(long long)b * tk + k0 + tid] : 0;
     }
@@ -1076,59 +1233,62 @@ __global__ void __launch_bounds__(NT)
     {
       Acc s_acc, dp_acc;
       zero(s_acc);
-      mma<false, true>(s_acc, qs, ks);
-      store(s_acc, sf, 1.0f);
+      mma<false, true, DP, LDD, LDD>(s_acc, qs, ks);
+      store<LD>(s_acc, sf, 1.0f);
       zero(dp_acc);
-      mma<false, true>(dp_acc, gs, vs);
-      store(dp_acc, dpf, 1.0f);
+      mma<false, true, DP, LDD, LDD>(dp_acc, gs, vs);
+      store<LD>(dp_acc, dpf, 1.0f);
     }
     __syncthreads();
     probs_and_ds<DROP>(sf, dpf, nullptr, dss, lse_s, delta_s, kmask_s, q0,
                        k0, tq, tk, scale, causal, drop,
                        ((long long)b * heads + head) * tq);
     __syncthreads();
-    mma<false, false>(dq_acc, dss, ks);  // ds k
+#pragma unroll
+    for (int h = 0; h < NB; ++h) {
+      mma<false, false, BT, LD, LDD>(dq_acc[h], dss, ks + 64 * h);  // ds k
+    }
   }
   __syncthreads();
-  store(dq_acc, sf, scale);
+  // stage dq in the k tile's place
+#pragma unroll
+  for (int h = 0; h < NB; ++h) store<LDD>(dq_acc[h], ks + 64 * h, scale);
   __syncthreads();
-  write_tile(dq + (long long)b * tq * row + head * D, sf, row, q0, tq);
+  write_tile<DP>(dq + (long long)b * tq * row + head * d, ks, row, q0, tq, d);
 }
 
-template <bool DROP>
+template <int DP, bool DROP>
 int launch_f32(const void* q, const void* k, const void* v, const void* out,
                const void* g, const unsigned char* mask, const float* lse,
                float* delta, void* dq, void* dk, void* dv, int batch, int tq,
-               int tk, int heads, float scale, int causal, smx::Dropout drop,
-               cudaStream_t stream) {
+               int tk, int heads, int d, float scale, int causal,
+               smx::Dropout drop, cudaStream_t stream) {
+  constexpr size_t smem = smem_f32<DP>();
   cudaError_t err = cudaFuncSetAttribute(
-      attention_bwd_dkdv_kernel<DROP>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmemF32));
+      attention_bwd_dkdv_kernel<DP, DROP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(attention_bwd_dq_kernel<DROP>,
+  err = cudaFuncSetAttribute(attention_bwd_dq_kernel<DP, DROP>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(kSmemF32));
+                             static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const float* qp = static_cast<const float*>(q);
   const float* kp = static_cast<const float*>(k);
   const float* vp = static_cast<const float*>(v);
   const float* gp = static_cast<const float*>(g);
-  const long long warps = (long long)batch * tq * heads;
-  attention_bwd_delta_kernel<float>
-      <<<(unsigned)((warps + NT / 32 - 1) / (NT / 32)), NT, 0, stream>>>(
-          gp, static_cast<const float*>(out), delta, tq, heads, warps);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  attention_bwd_dkdv_kernel<DROP>
-      <<<dim3((tk + BT - 1) / BT, heads, batch), NT, kSmemF32, stream>>>(
+  const int rc = launch_delta<float>(g, out, delta, batch, tq, heads, d,
+                                     stream);
+  if (rc != 0) return rc;
+  attention_bwd_dkdv_kernel<DP, DROP>
+      <<<dim3((tk + BT - 1) / BT, heads, batch), NT, smem, stream>>>(
           qp, kp, vp, gp, mask, lse, delta, static_cast<float*>(dk),
-          static_cast<float*>(dv), tq, tk, heads, scale, causal, drop);
+          static_cast<float*>(dv), tq, tk, heads, d, scale, causal, drop);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  attention_bwd_dq_kernel<DROP>
-      <<<dim3((tq + BT - 1) / BT, heads, batch), NT, kSmemF32, stream>>>(
+  attention_bwd_dq_kernel<DP, DROP>
+      <<<dim3((tq + BT - 1) / BT, heads, batch), NT, smem, stream>>>(
           qp, kp, vp, gp, mask, lse, delta, static_cast<float*>(dq), tq, tk,
-          heads, scale, causal, drop);
+          heads, d, scale, causal, drop);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1143,8 +1303,8 @@ int entry(const void* q, const void* k, const void* v, const void* out,
           int batch, int tq, int tk, int heads, int head_dim, float scale,
           int causal, smx::Dropout drop, int dtype, int device,
           void* stream) {
-  if (head_dim != D || batch <= 0 || tq <= 0 || tk <= 0 || heads <= 0 ||
-      heads > 65535 || batch > 65535) {
+  if (head_dim < 8 || head_dim > 128 || head_dim % 8 || batch <= 0 ||
+      tq <= 0 || tk <= 0 || heads <= 0 || heads > 65535 || batch > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // every slab is read and written in 16-byte words (TMA in bf16)
@@ -1159,11 +1319,29 @@ int entry(const void* q, const void* k, const void* v, const void* out,
     if (DROP && (keep == nullptr || !aligned16(keep))) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
-    return launch_bf16<DROP>(q, k, v, out, g, mask, lse, delta, keep, dq, dk,
-                             dv, batch, tq, tk, heads, scale, causal, drop, s);
+    const int d = head_dim;
+    if (d == 64) {
+      return launch_bf16<64, false, DROP>(q, k, v, out, g, mask, lse, delta,
+                                          keep, dq, dk, dv, batch, tq, tk,
+                                          heads, d, scale, causal, drop, s);
+    }
+    if (d < 64) {
+      return launch_bf16<64, true, DROP>(q, k, v, out, g, mask, lse, delta,
+                                         keep, dq, dk, dv, batch, tq, tk,
+                                         heads, d, scale, causal, drop, s);
+    }
+    return launch_bf16<128, true, DROP>(q, k, v, out, g, mask, lse, delta,
+                                        keep, dq, dk, dv, batch, tq, tk, heads,
+                                        d, scale, causal, drop, s);
   }
-  return launch_f32<DROP>(q, k, v, out, g, mask, lse, delta, dq, dk, dv,
-                          batch, tq, tk, heads, scale, causal, drop, s);
+  if (head_dim <= 64) {
+    return launch_f32<64, DROP>(q, k, v, out, g, mask, lse, delta, dq, dk, dv,
+                                batch, tq, tk, heads, head_dim, scale, causal,
+                                drop, s);
+  }
+  return launch_f32<128, DROP>(q, k, v, out, g, mask, lse, delta, dq, dk, dv,
+                               batch, tq, tk, heads, head_dim, scale, causal,
+                               drop, s);
 }
 
 }  // namespace

@@ -1,6 +1,7 @@
 // K1: attention_fwd — masked multi-head attention forward,
 //   out = softmax(q k^T * scale + mask) v,  per (batch, head),
-// on the (B, T, H*D) projection slabs, D = 64 (entry smx_attention_fwd), and
+// on the (B, T, H*D) projection slabs, any head width D that is a multiple
+// of 8 with 8 <= D <= 128 (entry smx_attention_fwd), and
 // K14: attention_dropout_fwd — the same with attention-probability dropout,
 //   out = (softmax(q k^T * scale + mask) * m) v,  m in {0, 1 / (1 - rate)}
 // (entry smx_attention_dropout_fwd).  K14 replaces the TPU kernels of
@@ -43,6 +44,20 @@
 // more than the softmax (PERF.md has the times).
 // Each dtype has one kernel: float32 inputs (the f32 reference runs) take
 // an f32-FMA kernel, bound by those FMAs.
+//
+// Head widths.  Both kernels are built for a padded width DP, 64 or 128
+// (the smallest that holds D), and D = 64 runs the body it always ran.
+// Other widths compute over DP columns of which those past D are zeros:
+// the f32 kernel loads zeros there, the bf16 kernel reads each head
+// through a 4-D tensor map with the head as its own dimension
+// (hopper.cuh: make_map_heads), so TMA fills the columns past D with zeros
+// instead of reading the next head's.  Only D columns are stored.  At
+// DP = 128 an operand tile is two 64-column boxes (one 128-byte swizzle
+// row each): S = q k^T takes eight k16 slices, four from each box, and
+// O += P v is two m64n64 products, one per box of v, into 64 f32
+// registers; the ring holds 2 stages, and two blocks share an SM.  Padding
+// D = 16 to 64 or D = 80 to 128 wastes that share of the products: a
+// simple body that is right.
 //
 // float32 kernel: one block of 256 threads per (64-query tile, head,
 // batch).  Heads are read straight from the slabs by stride, so no head
@@ -92,62 +107,67 @@
 
 namespace {
 
-constexpr int D = 64;
 constexpr int BQ = 64;
 constexpr int BK = 64;
 constexpr int NT = 256;
 constexpr int LD = 68;  // padded row of the transposed tiles (float4-aligned)
 constexpr float kNegInf = -1e30f;
-constexpr size_t kSmem = (size_t)(D * LD + D * LD + BK * D) * sizeof(float);
+template <int DP>
+constexpr size_t smem_f32() {
+  return (size_t)(DP * LD + DP * LD + BK * DP) * sizeof(float);
+}
 
-template <bool DROP>
+// DP: the padded head width (64 or 128); d <= DP the real one, the
+// columns past it zeros
+template <int DP, bool DROP>
 __global__ void __launch_bounds__(NT)
     attention_fwd_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
                          const float* __restrict__ v,
                          const unsigned char* __restrict__ mask,
                          float* __restrict__ out, float* __restrict__ lse,
-                         int tq, int tk, int heads, float scale, int causal,
-                         smx::Dropout drop) {
+                         int tq, int tk, int heads, int d, float scale,
+                         int causal, smx::Dropout drop) {
+  constexpr int NB = DP / 64;  // 64-column groups of the accumulator
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;           // (D, LD): qs[d * LD + query]
-  float* ks = qs + D * LD;    // (D, LD): ks[d * LD + key]; then P (BK, LD)
-  float* vs = ks + D * LD;    // (BK, D): vs[key * D + d]
+  float* qs = smem;           // (DP, LD): qs[c * LD + query]
+  float* ks = qs + DP * LD;   // (DP, LD): ks[c * LD + key]; then P (BK, LD)
+  float* vs = ks + DP * LD;   // (BK, DP): vs[key * DP + c]
   const int tid = threadIdx.x;
   const int tx = tid & 15;    // keys tx*4 .. +3 of the score tile; dims of out
   const int ty = tid >> 4;    // queries ty*4 .. +3
   const int q0 = blockIdx.x * BQ;
   const int head = blockIdx.y;
   const int b = blockIdx.z;
-  const long long row = (long long)heads * D;  // slab row stride
-  const float* qb = q + (long long)b * tq * row + head * D;
-  const float* kb = k + (long long)b * tk * row + head * D;
-  const float* vb = v + (long long)b * tk * row + head * D;
+  const long long row = (long long)heads * d;  // slab row stride
+  const float* qb = q + (long long)b * tq * row + head * d;
+  const float* kb = k + (long long)b * tk * row + head * d;
+  const float* vb = v + (long long)b * tk * row + head * d;
   const unsigned char* mb = mask + (long long)b * tk;
 
-  for (int i = tid; i < BQ * D; i += NT) {
-    const int r = i / D, d = i % D;
+  for (int i = tid; i < BQ * DP; i += NT) {
+    const int r = i / DP, c = i % DP;
     const int t = q0 + r;
-    qs[d * LD + r] = t < tq ? qb[t * row + d] : 0.0f;
+    qs[c * LD + r] = t < tq && c < d ? qb[t * row + c] : 0.0f;
   }
 
-  float m[4], l[4], acc[4][4];
+  float m[4], l[4], acc[4][4 * NB];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = -INFINITY;
     l[i] = 0.0f;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+    for (int j = 0; j < 4 * NB; ++j) acc[i][j] = 0.0f;
   }
 
   for (int k0 = 0; k0 < tk; k0 += BK) {
     __syncthreads();  // previous tile's readers of ks / vs are done
-    for (int i = tid; i < BK * D; i += NT) {
-      const int r = i / D, d = i % D;
+    for (int i = tid; i < BK * DP; i += NT) {
+      const int r = i / DP, c = i % DP;
       const int t = k0 + r;
-      const bool in = t < tk;
-      ks[d * LD + r] = in ? kb[t * row + d] : 0.0f;
-      vs[r * D + d] = in ? vb[t * row + d] : 0.0f;
+      const bool in = t < tk && c < d;
+      ks[c * LD + r] = in ? kb[t * row + c] : 0.0f;
+      vs[r * DP + c] = in ? vb[t * row + c] : 0.0f;
     }
     __syncthreads();
 
@@ -157,11 +177,11 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
 #pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(qs + d * LD + ty * 4);
-      const float4 c = *reinterpret_cast<const float4*>(ks + d * LD + tx * 4);
+    for (int c = 0; c < DP; ++c) {
+      const float4 a = *reinterpret_cast<const float4*>(qs + c * LD + ty * 4);
+      const float4 kv = *reinterpret_cast<const float4*>(ks + c * LD + tx * 4);
       const float av[4] = {a.x, a.y, a.z, a.w};
-      const float cv[4] = {c.x, c.y, c.z, c.w};
+      const float cv[4] = {kv.x, kv.y, kv.z, kv.w};
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -208,7 +228,7 @@ __global__ void __launch_bounds__(NT)
       l[i] = l[i] * alpha + rsum;
       m[i] = m_new;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] *= alpha;
+      for (int j = 0; j < 4 * NB; ++j) acc[i][j] *= alpha;
     }
     if constexpr (DROP) {
       // this thread's four keys are one Philox group of each of its rows
@@ -233,46 +253,54 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll 8
     for (int kk = 0; kk < BK; ++kk) {
       const float4 a = *reinterpret_cast<const float4*>(ps + kk * LD + ty * 4);
-      const float4 c = *reinterpret_cast<const float4*>(vs + kk * D + tx * 4);
       const float av[4] = {a.x, a.y, a.z, a.w};
-      const float cv[4] = {c.x, c.y, c.z, c.w};
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int h = 0; h < NB; ++h) {
+        const float4 vv = *reinterpret_cast<const float4*>(
+            vs + kk * DP + 64 * h + tx * 4);
+        const float cv[4] = {vv.x, vv.y, vv.z, vv.w};
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] += av[i] * cv[j];
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][4 * h + j] += av[i] * cv[j];
+      }
     }
   }
 
-  float* ob = out + (long long)b * tq * row + head * D;
+  float* ob = out + (long long)b * tq * row + head * d;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int t = q0 + ty * 4 + i;
     if (t >= tq) continue;
     const float inv = 1.0f / fmaxf(l[i], 1e-30f);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      ob[t * row + tx * 4 + j] = acc[i][j] * inv;
-    }
+    for (int h = 0; h < NB; ++h)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = 64 * h + tx * 4 + j;
+        if (c < d) ob[t * row + c] = acc[i][4 * h + j] * inv;
+      }
     if (lse != nullptr && tx == 0) {
       lse[((long long)b * heads + head) * tq + t] = m[i] + logf(l[i]);
     }
   }
 }
 
-template <bool DROP>
+template <int DP, bool DROP>
 int launch_f32(const void* q, const void* k, const void* v,
                const unsigned char* mask, void* out, float* lse, int batch,
-               int tq, int tk, int heads, float scale, int causal,
+               int tq, int tk, int heads, int d, float scale, int causal,
                smx::Dropout drop, cudaStream_t stream) {
+  constexpr size_t smem = smem_f32<DP>();
   cudaError_t err = cudaFuncSetAttribute(
-      attention_fwd_kernel<DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmem));
+      attention_fwd_kernel<DP, DROP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((tq + BQ - 1) / BQ, heads, batch);
-  attention_fwd_kernel<DROP><<<grid, NT, kSmem, stream>>>(
+  attention_fwd_kernel<DP, DROP><<<grid, NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), mask, static_cast<float*>(out), lse, tq,
-      tk, heads, scale, causal, drop);
+      tk, heads, d, scale, causal, drop);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -282,10 +310,8 @@ using bf16 = __nv_bfloat16;
 
 constexpr int WG = hw::WG_THREADS;
 constexpr int BOX_ROWS = 64;                   // rows of one TMA box
-constexpr int BOX_BYTES = BOX_ROWS * D * 2;    // one head's 64 x 64 box, 8 KB
+constexpr int BOX_BYTES = BOX_ROWS * 64 * 2;   // 64 x 64 columns, 8 KB
 constexpr int BKV = BOX_ROWS;                  // keys of a k / v tile
-constexpr int KV_BYTES = 2 * BOX_BYTES;        // a stage: k tile, v tile
-constexpr int STAGES = 4;
 constexpr uint32_t SBO = hw::SBO;
 constexpr uint32_t LBO = hw::MN_LBO;           // unused at N = 64
 constexpr float kLog2e = 1.4426950408889634f;
@@ -293,21 +319,31 @@ constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kNegInf2 = kNegInf * kLog2e;   // an excluded logit, log2 units
 
 // a consumer warpgroup of BQ = 64 queries (the float32 kernel's tile) and a
-// producer warp; three blocks per SM
+// producer warp; at DP = 64 three blocks per SM, at DP = 128 two
 constexpr int TC_THREADS = WG + 32;
-constexpr int TC_BLOCKS_PER_SM = 3;
-// the q box, the ring, each stage's 64 key bits, barriers
-constexpr size_t TC_SMEM = 1024 + (size_t)BOX_BYTES + STAGES * KV_BYTES +
-                           STAGES * sizeof(uint64_t) +
-                           (2 * STAGES + 1) * sizeof(uint64_t);
+template <int DP>
+struct Tc {
+  static constexpr int NB = DP / 64;             // 64-column boxes a tile
+  static constexpr int TILE_BYTES = NB * BOX_BYTES;
+  static constexpr int KV_BYTES = 2 * TILE_BYTES;  // a stage: k, v tiles
+  static constexpr int STAGES = DP == 64 ? 4 : 2;
+  static constexpr int BLOCKS_PER_SM = DP == 64 ? 3 : 2;
+  // the q tile, the ring, each stage's 64 key bits, barriers
+  static constexpr size_t SMEM = 1024 + (size_t)TILE_BYTES +
+                                 STAGES * KV_BYTES +
+                                 STAGES * sizeof(uint64_t) +
+                                 (2 * STAGES + 1) * sizeof(uint64_t);
+};
 
 struct FwdArgs {
-  CUtensorMap q;      // (B, Tq, H*D) in (64, 64) boxes
-  CUtensorMap k, v;   // (B, Tk, H*D) in (64, 64) boxes
+  // (B, Tq, H*D) / (B, Tk, H*D): at D = 64 3-D maps in (64, 64) boxes,
+  // else make_map_heads maps
+  CUtensorMap q;
+  CUtensorMap k, v;
   const unsigned char* mask;
   bf16* out;
   float* lse;
-  int tq, tk, heads;
+  int tq, tk, heads, d;
   float scale;
   int causal;
   smx::Dropout drop;
@@ -389,12 +425,56 @@ __device__ __forceinline__ void mask_scores(float (&s)[32], float sl2,
       }
 }
 
-template <bool DROP>
-__global__ void __launch_bounds__(TC_THREADS, TC_BLOCKS_PER_SM)
+// the producer's loads of one 64-row tile of a slab into NB boxes at dst:
+// at MAP4 one box per 64 columns of the head (zeros past D), else one 3-D
+// box of the head's 64 columns
+template <int NB, bool MAP4>
+__device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int head, int row,
+                                          int b) {
+  if constexpr (MAP4) {
+#pragma unroll
+    for (int h = 0; h < NB; ++h) {
+      hw::tma_load_head(dst + h * BOX_BYTES, map, bar, 64 * h, head, row, b);
+    }
+  } else {
+    hw::tma_load3(dst, map, bar, head * 64, row, b);
+  }
+}
+
+// O += P v: box h of O (64 columns) from box h of the v tile at vs, P the
+// register A operand
+template <int NB>
+__device__ __forceinline__ void pv_product(float (&o)[NB][32],
+                                           const uint32_t (&pa)[16],
+                                           const uint8_t* vs) {
+#pragma unroll
+  for (int h = 0; h < NB; ++h)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      hw::wgmma_m64n64k16_rs<1>(
+          o[h], pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
+          hw::desc_sw128(vs + h * BOX_BYTES + kk * 2048, LBO, SBO), 1);
+    }
+}
+
+template <int NB>
+__device__ __forceinline__ void fence_o(float (&o)[NB][32]) {
+#pragma unroll
+  for (int h = 0; h < NB; ++h) hw::fence_regs(o[h]);
+}
+
+// DP: the padded head width (64 or 128); MAP4: the slabs are read through
+// make_map_heads maps (every D but 64)
+template <int DP, bool MAP4, bool DROP>
+__global__ void __launch_bounds__(TC_THREADS, Tc<DP>::BLOCKS_PER_SM)
     attention_fwd_tc_kernel(const __grid_constant__ FwdArgs p) {
+  using C = Tc<DP>;
+  constexpr int NB = C::NB, STAGES = C::STAGES;
+  constexpr int KV_BYTES = C::KV_BYTES, TILE_BYTES = C::TILE_BYTES;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* qs = hw::align1024(smem_raw);       // the block's 64 queries
-  uint8_t* ring = qs + BOX_BYTES;              // stage s: k box, v box
+  uint8_t* ring = qs + TILE_BYTES;             // stage s: k tile, v tile
   uint64_t* kbits = reinterpret_cast<uint64_t*>(ring + STAGES * KV_BYTES);
   uint64_t* full = kbits + STAGES;
   uint64_t* empty = full + STAGES;
@@ -415,10 +495,9 @@ __global__ void __launch_bounds__(TC_THREADS, TC_BLOCKS_PER_SM)
 
   if (threadIdx.x >= WG) {  // the producer warp
     const int pl = threadIdx.x - WG;
-    const int col = head * D;
     if (pl == 0) {
-      hw::mbar_expect_tx(q_full, BOX_BYTES);
-      hw::tma_load3(qs, &p.q, q_full, col, q0, b);
+      hw::mbar_expect_tx(q_full, TILE_BYTES);
+      load_tile<NB, MAP4>(qs, &p.q, q_full, head, q0, b);
     }
     const unsigned char* mb = p.mask + (long long)b * p.tk;
     hw::Ring<STAGES> r;
@@ -428,8 +507,8 @@ __global__ void __launch_bounds__(TC_THREADS, TC_BLOCKS_PER_SM)
       if (pl == 0) {
         uint8_t* st = ring + r.s * KV_BYTES;
         hw::mbar_expect_tx(&full[r.s], KV_BYTES);
-        hw::tma_load3(st, &p.k, &full[r.s], col, k0, b);
-        hw::tma_load3(st + BOX_BYTES, &p.v, &full[r.s], col, k0, b);
+        load_tile<NB, MAP4>(st, &p.k, &full[r.s], head, k0, b);
+        load_tile<NB, MAP4>(st + TILE_BYTES, &p.v, &full[r.s], head, k0, b);
       }
       // lane pl: keys k0 + 2 pl, k0 + 2 pl + 1, bits 2 pl .. of the tile's 64
       uint32_t bits = 0;
@@ -453,20 +532,23 @@ __global__ void __launch_bounds__(TC_THREADS, TC_BLOCKS_PER_SM)
   }
 
   // the consumer warpgroup: this thread holds rows q[0], q[1] = q[0] + 8
-  // and columns 8 j + 2 t4 + {0, 1} of each tile
+  // and columns 8 j + 2 t4 + {0, 1} of each tile (of each 64-column box of
+  // O)
   const int lane = threadIdx.x % 32, t4 = lane % 4;
   const int wrow = 16 * (threadIdx.x / 32) + lane / 4;
   const int q[2] = {q0 + wrow, q0 + wrow + 8};
   const long long bh = (long long)b * p.heads + head;
   const float sl2 = p.scale * kLog2e;
-  float o[32], s[32];
+  float o[NB][32], s[32];
   uint32_t pa[16];  // P in bf16 pairs: slice kk of the A operand is pa[4 kk ..]
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = 0.0f;
+  for (int h = 0; h < NB; ++h)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[h][i] = 0.0f;
 #pragma unroll
   for (int i = 0; i < 16; ++i) pa[i] = 0u;
-  hw::fence_regs(o);
+  fence_o(o);
   hw::fence_regs(pa);
   hw::mbar_wait(q_full, 0);
 
@@ -478,20 +560,14 @@ __global__ void __launch_bounds__(TC_THREADS, TC_BLOCKS_PER_SM)
     hw::mbar_wait(&full[st], phase);
     hw::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {  // S = q k^T
-      hw::wgmma_m64n64k16<0, 0>(s, hw::desc_sw128(qs + kk * 32, 16, SBO),
-                                hw::desc_sw128(ks + kk * 32, 16, SBO), kk);
+    for (int kk = 0; kk < 4 * NB; ++kk) {  // S = q k^T
+      const int at = (kk / 4) * BOX_BYTES + (kk % 4) * 32;
+      hw::wgmma_m64n64k16<0, 0>(s, hw::desc_sw128(qs + at, 16, SBO),
+                                hw::desc_sw128(ks + at, 16, SBO), kk);
     }
     hw::wgmma_commit();
     if (prev >= 0) {  // O += P v of the previous tile, behind S
-      const uint8_t* vs = ring + prev * KV_BYTES + BOX_BYTES;
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        hw::wgmma_m64n64k16_rs<1>(o, pa[4 * kk], pa[4 * kk + 1],
-                                  pa[4 * kk + 2], pa[4 * kk + 3],
-                                  hw::desc_sw128(vs + kk * 2048, LBO, SBO),
-                                  1);
-      }
+      pv_product(o, pa, ring + prev * KV_BYTES + TILE_BYTES);
       hw::wgmma_commit();
     }
     // a tile of valid keys below the diagonal needs no masking
@@ -550,17 +626,19 @@ __global__ void __launch_bounds__(TC_THREADS, TC_BLOCKS_PER_SM)
     }
     if (prev >= 0) {
       hw::wgmma_wait<0>();  // P v of the previous tile: its stage is free
-      hw::fence_regs(o);
+      fence_o(o);
       hw::fence_regs(pa);
       hw::mbar_arrive(&empty[prev]);
     }
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int h = 0; h < NB; ++h)
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        o[4 * j + 2 * i] *= alpha[i];
-        o[4 * j + 2 * i + 1] *= alpha[i];
-      }
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          o[h][4 * j + 2 * i] *= alpha[i];
+          o[h][4 * j + 2 * i + 1] *= alpha[i];
+        }
 #pragma unroll
     for (int e = 0; e < 16; ++e) pa[e] = pack_bf16(s[2 * e], s[2 * e + 1]);
     prev = st;
@@ -570,66 +648,74 @@ __global__ void __launch_bounds__(TC_THREADS, TC_BLOCKS_PER_SM)
     }
   }
   {  // O += P v of the last tile
-    const uint8_t* vs = ring + prev * KV_BYTES + BOX_BYTES;
     hw::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      hw::wgmma_m64n64k16_rs<1>(o, pa[4 * kk], pa[4 * kk + 1],
-                                pa[4 * kk + 2], pa[4 * kk + 3],
-                                hw::desc_sw128(vs + kk * 2048, LBO, SBO), 1);
-    }
+    pv_product(o, pa, ring + prev * KV_BYTES + TILE_BYTES);
     hw::wgmma_commit();
     hw::wgmma_wait<0>();
-    hw::fence_regs(o);
+    fence_o(o);
     hw::fence_regs(pa);
   }
-  const long long stride = (long long)p.heads * D;
-  bf16* ob = p.out + (long long)b * p.tq * stride + head * D + 2 * t4;
+  const int d = MAP4 ? p.d : 64;
+  const long long stride = (long long)p.heads * d;
+  bf16* ob = p.out + (long long)b * p.tq * stride + head * d + 2 * t4;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const float li = quad_sum(l[i]);
     if (q[i] >= p.tq) continue;
     const float inv = 1.0f / fmaxf(li, 1e-30f);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(ob + q[i] * stride + 8 * j) =
-          __floats2bfloat162_rn(o[4 * j + 2 * i] * inv,
-                                o[4 * j + 2 * i + 1] * inv);
-    }
+    for (int h = 0; h < NB; ++h)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        // D is a multiple of 8: a column group is wholly in or past it
+        if (MAP4 && 64 * h + 8 * j >= d) continue;
+        *reinterpret_cast<__nv_bfloat162*>(ob + q[i] * stride + 64 * h +
+                                           8 * j) =
+            __floats2bfloat162_rn(o[h][4 * j + 2 * i] * inv,
+                                  o[h][4 * j + 2 * i + 1] * inv);
+      }
     if (p.lse != nullptr && t4 == 0) {
       p.lse[bh * p.tq + q[i]] = m[i] * kLn2 + logf(li);
     }
   }
 }
 
-template <bool DROP>
+template <int DP, bool MAP4, bool DROP>
 int launch_tc(const void* q, const void* k, const void* v,
               const unsigned char* mask, void* out, float* lse, int batch,
-              int tq, int tk, int heads, float scale, int causal,
+              int tq, int tk, int heads, int d, float scale, int causal,
               smx::Dropout drop, cudaStream_t stream) {
   FwdArgs p;
-  const uint64_t cols = (uint64_t)heads * D;
-  if (!hw::make_map3(&p.q, q, batch, tq, cols, BOX_ROWS, D) ||
-      !hw::make_map3(&p.k, k, batch, tk, cols, BOX_ROWS, D) ||
-      !hw::make_map3(&p.v, v, batch, tk, cols, BOX_ROWS, D)) {
-    return static_cast<int>(cudaErrorInvalidValue);
+  bool mapped;
+  if constexpr (MAP4) {
+    mapped = hw::make_map_heads(&p.q, q, batch, tq, heads, d, BOX_ROWS) &&
+             hw::make_map_heads(&p.k, k, batch, tk, heads, d, BOX_ROWS) &&
+             hw::make_map_heads(&p.v, v, batch, tk, heads, d, BOX_ROWS);
+  } else {
+    const uint64_t cols = (uint64_t)heads * 64;
+    mapped = hw::make_map3(&p.q, q, batch, tq, cols, BOX_ROWS, 64) &&
+             hw::make_map3(&p.k, k, batch, tk, cols, BOX_ROWS, 64) &&
+             hw::make_map3(&p.v, v, batch, tk, cols, BOX_ROWS, 64);
   }
+  if (!mapped) return static_cast<int>(cudaErrorInvalidValue);
   p.mask = mask;
   p.out = static_cast<bf16*>(out);
   p.lse = lse;
   p.tq = tq;
   p.tk = tk;
   p.heads = heads;
+  p.d = d;
   p.scale = scale;
   p.causal = causal;
   p.drop = drop;
+  constexpr size_t smem = Tc<DP>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
-      attention_fwd_tc_kernel<DROP>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(TC_SMEM));
+      attention_fwd_tc_kernel<DP, MAP4, DROP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((tq + BQ - 1) / BQ, heads, batch);
-  attention_fwd_tc_kernel<DROP><<<grid, TC_THREADS, TC_SMEM, stream>>>(p);
+  attention_fwd_tc_kernel<DP, MAP4, DROP>
+      <<<grid, TC_THREADS, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -642,23 +728,36 @@ int launch(const void* q, const void* k, const void* v,
            const unsigned char* mask, void* out, float* lse, int batch, int tq,
            int tk, int heads, int head_dim, float scale, int causal,
            smx::Dropout drop, int dtype, int device, void* stream) {
-  if (head_dim != D || batch <= 0 || tq <= 0 || tk <= 0 || heads <= 0 ||
-      heads > 65535 || batch > 65535) {
+  if (head_dim < 8 || head_dim > 128 || head_dim % 8 || batch <= 0 ||
+      tq <= 0 || tk <= 0 || heads <= 0 || heads > 65535 || batch > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int d = head_dim;
   if (dtype == smx::kBF16) {
     // the TMA reads q / k / v from 16-byte-aligned bases
     if (!aligned16(q) || !aligned16(k) || !aligned16(v)) {
       return static_cast<int>(cudaErrorMisalignedAddress);
     }
-    return launch_tc<DROP>(q, k, v, mask, out, lse, batch, tq, tk, heads,
-                           scale, causal, drop, s);
+    if (d == 64) {
+      return launch_tc<64, false, DROP>(q, k, v, mask, out, lse, batch, tq,
+                                        tk, heads, d, scale, causal, drop, s);
+    }
+    if (d < 64) {
+      return launch_tc<64, true, DROP>(q, k, v, mask, out, lse, batch, tq,
+                                       tk, heads, d, scale, causal, drop, s);
+    }
+    return launch_tc<128, true, DROP>(q, k, v, mask, out, lse, batch, tq, tk,
+                                      heads, d, scale, causal, drop, s);
   }
-  return launch_f32<DROP>(q, k, v, mask, out, lse, batch, tq, tk, heads, scale,
-                          causal, drop, s);
+  if (d <= 64) {
+    return launch_f32<64, DROP>(q, k, v, mask, out, lse, batch, tq, tk,
+                                heads, d, scale, causal, drop, s);
+  }
+  return launch_f32<128, DROP>(q, k, v, mask, out, lse, batch, tq, tk, heads,
+                               d, scale, causal, drop, s);
 }
 
 }  // namespace

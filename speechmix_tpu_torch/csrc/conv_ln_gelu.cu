@@ -8,8 +8,11 @@
 // x: (b, t_in, c) contiguous, float32 or bfloat16; w: (k * c, c) row-major,
 // row j * c + ci = tap j, input channel ci; k in {2, 3}; bias, g, beta: (c,)
 // float32 (g, beta only with ln); out: (b, t_out, c), t_out = (t_in - k) / 2
-// + 1.  float32: c <= 1024; bfloat16: c = 512, x and w 16-byte aligned
-// (TMA; the launcher refuses anything else).
+// + 1.  c <= 1024 (the launcher refuses anything else).  bfloat16 at
+// c = 512 (every wav2vec2 extractor) takes the tensor-core kernel below, x
+// and w 16-byte aligned (TMA); bfloat16 at any other c takes the float32
+// kernel's body with bf16 loads and stores (f32 products and statistics,
+// one rounding of the output), as does `tiny-speech`'s c = 32.
 //
 // The conv is a sum of GEMMs over the taps: output row t of batch row bi
 // is sum_j x[bi, 2 t + j, :] . w_j, w_j rows j c .. j c + c - 1 of w, the
@@ -64,10 +67,12 @@ __device__ __forceinline__ long long a_offset(int row, int n, int t_in,
   return ((long long)bi * t_in + 2 * t) * c;
 }
 
+// T: the type of x, w and out (float32, or bfloat16 at c != 512)
+template <typename T>
 __global__ void __launch_bounds__(NT)
-    conv_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+    conv_f32_kernel(const T* __restrict__ x, const T* __restrict__ w,
                     const float* __restrict__ bias, const float* __restrict__ g,
-                    const float* __restrict__ beta, float* __restrict__ out,
+                    const float* __restrict__ beta, T* __restrict__ out,
                     int n, int t_in, int t_out, int c, int kc, int ln,
                     float eps) {
   __shared__ __align__(16) float xs[KC * BM];  // xs[k * BM + r]
@@ -89,7 +94,8 @@ __global__ void __launch_bounds__(NT)
     for (int i = tid; i < KC * BM; i += NT) {
       const int r = i / KC, kk = i % KC;
       const int k = k0 + kk;
-      xs[kk * BM + r] = (off[r] >= 0 && k < kc) ? x[off[r] + k] : 0.0f;
+      xs[kk * BM + r] =
+          (off[r] >= 0 && k < kc) ? smx::to_f32(x[off[r] + k]) : 0.0f;
     }
     __syncthreads();
     const int kend = min(KC, kc - k0);
@@ -98,7 +104,7 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
       for (int j = 0; j < MAXC; ++j) {
         const int col = tid + j * NT;
-        wv[j] = col < c ? w[(long long)(k0 + kk) * c + col] : 0.0f;
+        wv[j] = col < c ? smx::to_f32(w[(long long)(k0 + kk) * c + col]) : 0.0f;
       }
       const float4* xr = reinterpret_cast<const float4*>(xs + kk * BM);
 #pragma unroll
@@ -152,7 +158,8 @@ __global__ void __launch_bounds__(NT)
     for (int j = 0; j < MAXC; ++j) {
       const int col = tid + j * NT;
       if (col < c)
-        out[(long long)row * c + col] = smx::activate(smx::kGelu, acc[r][j]);
+        out[(long long)row * c + col] =
+            smx::from_f32<T>(smx::activate(smx::kGelu, acc[r][j]));
     }
   }
 }
@@ -418,16 +425,21 @@ extern "C" int smx_conv_ln_gelu(const void* x, const void* w, const float* bias,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  dim3 grid((n + BM - 1) / BM);
+  if (dtype == smx::kBF16 && c != C) {
+    conv_f32_kernel<bf16><<<grid, NT, 0, s>>>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(w), bias, g,
+        beta, static_cast<bf16*>(out), n, t_in, t_out, c, k * c, ln, eps);
+    return static_cast<int>(cudaGetLastError());
+  }
   if (dtype == smx::kBF16) {
-    if (c != C) return static_cast<int>(cudaErrorInvalidValue);
     if (!aligned(x, 16) || !aligned(w, 16) || !aligned(bias, 8) ||
         !aligned(out, 4) || (ln && (!aligned(g, 8) || !aligned(beta, 8)))) {
       return static_cast<int>(cudaErrorMisalignedAddress);
     }
     return launch_tc(x, w, bias, g, beta, out, b, t_in, t_out, k, ln, eps, s);
   }
-  dim3 grid((n + BM - 1) / BM);
-  conv_f32_kernel<<<grid, NT, 0, s>>>(
+  conv_f32_kernel<float><<<grid, NT, 0, s>>>(
       static_cast<const float*>(x), static_cast<const float*>(w), bias, g, beta,
       static_cast<float*>(out), n, t_in, t_out, c, k * c, ln, eps);
   return static_cast<int>(cudaGetLastError());

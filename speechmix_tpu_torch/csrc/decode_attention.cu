@@ -6,10 +6,11 @@
 // single-token decoder step, self-attention over the cache capacity and
 // cross-attention over the precomputed encoder K/V.
 //
-// q, out: (bkv * kb, heads, 64) float32 or bfloat16: kb queries share one
+// q, out: (bkv * kb, heads, D) float32 or bfloat16: kb queries share one
 // K/V row (the beams of one input, contiguous); kb = 1 is the TPU contract.
-// k, v: (bkv, t, heads, 64) in q's type (float entry) or int8 codes (q8
-// entry) with float32 scales ks, vs (bkv, t, heads).  mask: (bkv, t) bytes,
+// k, v: (bkv, t, heads, D) in q's type (float entry) or int8 codes (q8
+// entry) with float32 scales ks, vs (bkv, t, heads).  D, the head width, is
+// a multiple of 8 with 8 <= D <= 128.  mask: (bkv, t) bytes,
 // non-zero = attend; a masked logit gets -1e9 added, as the plain path does.
 //
 // What bounds it on the H100: bytes, then latency.  Each K/V element is used
@@ -62,6 +63,17 @@
 //
 // The TPU kernel's one-hot segment matmuls and its rows-per-program unroll
 // answer Mosaic's lane rules and grid overhead and have no counterpart.
+//
+// Head widths.  Both bodies are built for a padded width DP, 64 or 128,
+// and D = 64 runs the bodies it always ran.  Every other D runs the `GEN`
+// instances: a lane or a copy owns a word of 8 head elements (16 bytes of
+// bf16, 32 of f32, 8 of int8: D a multiple of 8 keeps each word of each
+// head aligned), the words past D are zeros (in registers in the serial
+// body; stored as zeros beside the cp.async copies in the cluster body's
+// tiles, whose key rows are DP wide), and only D columns are written.  A
+// padded word costs its share of the dot products: a simple body that is
+// right.  At DP = 128 a cluster block holds 16 words of a key in registers
+// for its scores, so four blocks, not eight, share an SM.
 
 #include <math.h>
 #include <stdint.h>
@@ -74,7 +86,6 @@ namespace {
 namespace hw = smx::hopper;
 using bf16 = __nv_bfloat16;
 
-constexpr int D = 64;        // head dim
 constexpr int NT = 256;      // threads per block of the serial body
 constexpr int NW = NT / 32;  // its warps: at most NW queries per block
 constexpr float kMasked = -1e9f;
@@ -102,6 +113,11 @@ __device__ __forceinline__ void unpack(const uint4& raw, float* x, int8_t) {
   for (int i = 0; i < 16; ++i) x[i] = static_cast<float>(c[i]);
 }
 
+// 8 contiguous elements of a word (16 bytes of bf16, 32 of f32, 8 of int8)
+// from an address aligned to the word's size (16 bytes at most), as floats
+template <typename T>
+__device__ __forceinline__ void load_word8(const T* p, float (&x)[8]);
+
 // N contiguous elements from a 16-byte aligned address, as floats
 template <int N, typename T>
 __device__ __forceinline__ void load_elems(const T* p, float (&x)[N]) {
@@ -114,37 +130,70 @@ __device__ __forceinline__ void load_elems(const T* p, float (&x)[N]) {
   }
 }
 
+template <typename T>
+__device__ __forceinline__ void load_word8(const T* p, float (&x)[8]) {
+  if constexpr (sizeof(T) == 1) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const int8_t* c = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) x[i] = static_cast<float>(c[i]);
+  } else {
+    load_elems<8>(p, x);
+  }
+}
+
+// a lane's EPL elements of a key or query: under GEN a word of 8 (zeros
+// where the word lies past the head, `has` false)
+template <bool GEN, int EPL, typename T>
+__device__ __forceinline__ void lane_word(const T* src, bool has,
+                                          float (&x)[EPL]) {
+  if constexpr (GEN) {
+    if (has) {
+      load_word8(src, x);
+    } else {
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) x[e] = 0.0f;
+    }
+  } else {
+    load_elems<EPL>(src, x);
+  }
+}
+
 // ------------------------------------------------------------ serial body
-// QT: type of q and out; KT: type of k and v; KBT: queries per block.
-// A lane owns EPL contiguous head elements of a key (one 16-byte word of
-// bf16 or int8, two of f32); LPK lanes cover a key, KPP keys go per pass.
-template <typename QT, typename KT, int KBT>
+// QT: type of q and out; KT: type of k and v; KBT: queries per block; DP:
+// the padded head width; GEN: any head width d (else d = DP = 64).  A lane
+// owns EPL contiguous head elements of a key (one 16-byte word of bf16 or
+// int8, two of f32; under GEN a word of 8 elements, zeros past d); LPK
+// lanes cover a key, KPP keys go per pass.
+template <typename QT, typename KT, int KBT, int DP, bool GEN>
 __global__ void __launch_bounds__(NT)
     decode_attention_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
                             const KT* __restrict__ v,
                             const uint8_t* __restrict__ mask,
                             const float* __restrict__ ks,
                             const float* __restrict__ vs, QT* __restrict__ out,
-                            int kb, int t, int heads, float scale) {
-  constexpr int EPL = sizeof(KT) == 1 ? 16 : 8;
-  constexpr int LPK = D / EPL;
+                            int kb, int t, int heads, int d, float scale) {
+  constexpr int EPL = GEN ? 8 : sizeof(KT) == 1 ? 16 : 8;
+  constexpr int LPK = DP / EPL;
   constexpr int KPP = NT / LPK;
   extern __shared__ __align__(16) float smem[];
   float* sc = smem;              // (KBT, n <= t) scores, then probabilities
-  float* part = smem + KBT * t;  // (NW, KBT, D) partial outputs
+  float* part = smem + KBT * t;  // (NW, KBT, DP) partial outputs
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int sub = tid % LPK, grp = tid / LPK;
   const int b = blockIdx.x, h = blockIdx.y, q0 = blockIdx.z * KBT;
-  const long long hd = (long long)heads * D;
+  const int dh = GEN ? d : DP;
+  const bool has = !GEN || sub * EPL < dh;  // the lane's word is in the head
+  const long long hd = (long long)heads * dh;
   const long long kv_base =
-      (long long)b * t * hd + (long long)h * D + sub * EPL;
+      (long long)b * t * hd + (long long)h * dh + sub * EPL;
 
   float qr[KBT][EPL];
 #pragma unroll
   for (int j = 0; j < KBT; ++j) {
     if (q0 + j < kb) {
-      load_elems<EPL>(q + ((long long)b * kb + q0 + j) * hd + h * D + sub * EPL,
-                      qr[j]);
+      lane_word<GEN>(q + ((long long)b * kb + q0 + j) * hd + h * dh + sub * EPL,
+                     has, qr[j]);
     } else {
 #pragma unroll
       for (int e = 0; e < EPL; ++e) qr[j][e] = 0.0f;
@@ -169,7 +218,7 @@ __global__ void __launch_bounds__(NT)
     const int key = min(key0 + grp, n - 1);
     const bool live = key0 + grp < n;
     float kf[EPL];
-    load_elems<EPL>(k + kv_base + (long long)key * hd, kf);
+    lane_word<GEN>(k + kv_base + (long long)key * hd, has, kf);
     float bias = 0.0f, ksc = scale;
     if (sub == 0 && live) {
       if (!mrow[key]) bias = kMasked;
@@ -220,7 +269,7 @@ __global__ void __launch_bounds__(NT)
     for (int e = 0; e < EPL; ++e) acc[j][e] = 0.0f;
   for (int key = grp; key < n; key += KPP) {
     float vf[EPL];
-    load_elems<EPL>(v + kv_base + (long long)key * hd, vf);
+    lane_word<GEN>(v + kv_base + (long long)key * hd, has, vf);
 #pragma unroll
     for (int j = 0; j < KBT; ++j) {
       const float p = sc[j * n + key];
@@ -236,16 +285,16 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
       for (int off = LPK; off < 32; off <<= 1)
         a += __shfl_xor_sync(0xffffffffu, a, off);
-      if (lane < LPK) part[(warp * KBT + j) * D + sub * EPL + e] = a;
+      if (lane < LPK) part[(warp * KBT + j) * DP + sub * EPL + e] = a;
     }
   __syncthreads();
-  for (int i = tid; i < KBT * D; i += NT) {
-    const int j = i / D, d = i % D;
-    if (q0 + j >= kb) continue;
+  for (int i = tid; i < KBT * DP; i += NT) {
+    const int j = i / DP, c = i % DP;
+    if (q0 + j >= kb || (GEN && c >= dh)) continue;
     float a = 0.0f;
 #pragma unroll
-    for (int w = 0; w < NW; ++w) a += part[(w * KBT + j) * D + d];
-    out[((long long)b * kb + q0 + j) * hd + h * D + d] = smx::from_f32<QT>(a);
+    for (int w = 0; w < NW; ++w) a += part[(w * KBT + j) * DP + c];
+    out[((long long)b * kb + q0 + j) * hd + h * dh + c] = smx::from_f32<QT>(a);
   }
 }
 
@@ -259,8 +308,6 @@ constexpr int KPT = MAX_T / MAX_RANKS / CT;  // keys of a thread, at most
 constexpr int MPT = MAX_T / CT;              // mask bytes of a thread
 constexpr int MAX_KBT = 4;      // queries of a block
 constexpr int EPL = 8;          // head elements of a 16- or 8-byte word
-constexpr int WPK = D / EPL;    // words of a key
-constexpr int KPP = CT / WPK;   // keys per pass of the value product
 
 struct ClusterArgs {
   const bf16* q;
@@ -270,7 +317,7 @@ struct ClusterArgs {
   const float* ks;
   const float* vs;
   bf16* out;
-  int kb, t, heads;
+  int kb, t, heads, d;
   int ranks;  // blocks of a cluster: shares of a (row, head)'s keys
   int len;    // keys a share may hold: ceil(t / ranks)
   float scale;
@@ -322,22 +369,22 @@ __host__ __device__ constexpr size_t align16(size_t o) {
   return (o + 15) & ~static_cast<size_t>(15);
 }
 
-template <typename KT, int KBT>
+template <typename KT, int KBT, int DP>
 struct Layout {
-  static constexpr size_t ROW = D * sizeof(KT);  // a key's bytes
-  static constexpr size_t PART = (size_t)CW * KBT * D * sizeof(float);
+  static constexpr size_t ROW = DP * sizeof(KT);  // a key's bytes
+  static constexpr size_t PART = (size_t)CW * KBT * DP * sizeof(float);
   size_t tile, qs, sc, xpart, xmax, xsum, red, row, msk, bar, total;
   __host__ __device__ Layout(int len, int ranks) {
     size_t o = 0;
-    tile = o;  // the K tile, then the V tile, then (CW, KBT, D) the warps'
+    tile = o;  // the K tile, then the V tile, then (CW, KBT, DP) the warps'
     o += len * ROW > PART ? len * ROW : PART;  // partial P . v
-    qs = o;  // (KBT, D) the queries in f32
-    o += (size_t)KBT * D * sizeof(float);
+    qs = o;  // (KBT, DP) the queries in f32
+    o += (size_t)KBT * DP * sizeof(float);
     sc = o;  // (KBT, len) scores, then exp(s - m), then probabilities
     o += (size_t)KBT * len * sizeof(float);
     o = align16(o);
-    xpart = o;  // (ranks, KBT, D) the shares' partials, in rank 0
-    o += (size_t)ranks * KBT * D * sizeof(float);
+    xpart = o;  // (ranks, KBT, DP) the shares' partials, in rank 0
+    o += (size_t)ranks * KBT * DP * sizeof(float);
     xmax = o;  // (MAX_RANKS, KBT) the shares' maxima
     o += (size_t)MAX_RANKS * KBT * sizeof(float);
     xsum = o;  // (MAX_RANKS, KBT) the shares' sums of exp(s - max)
@@ -356,26 +403,35 @@ struct Layout {
 };
 
 // Byte offset in a tile of 16-byte chunk c of key `key`, the chunks of a
-// key's row permuted by the key (bf16: 128-byte rows, chunk c ^ key % 8;
-// int8: 64-byte rows, chunk c ^ (key / 2) % 4: the 128- and 64-byte
-// swizzles), so that threads reading the same chunk of consecutive keys,
+// key's row permuted by the key (rows of 64 bytes, int8 at DP = 64: chunk
+// c ^ (key / 2) % 4; else chunk c ^ key % 8: the 64- and 128-byte
+// swizzles, the latter within each 128 bytes of a 256-byte bf16 row at
+// DP = 128), so that threads reading the same chunk of consecutive keys,
 // or consecutive chunks of one key, never share a bank
-template <typename KT>
+template <typename KT, int DP>
 __device__ __forceinline__ int chunk_at(int key, int c) {
-  if constexpr (sizeof(KT) == 1) return key * 64 + ((c ^ ((key >> 1) & 3)) << 4);
-  return key * 128 + ((c ^ (key & 7)) << 4);
+  constexpr int RB = DP * sizeof(KT);
+  if constexpr (RB == 64) return key * 64 + ((c ^ ((key >> 1) & 3)) << 4);
+  return key * RB + ((c ^ (key & 7)) << 4);
 }
 
 // the same for 8-element word w (16 bytes of bf16, 8 of int8)
-template <typename KT>
+template <typename KT, int DP>
 __device__ __forceinline__ int word_at(int key, int w) {
   if constexpr (sizeof(KT) == 1)
-    return chunk_at<KT>(key, w >> 1) + ((w & 1) << 3);
-  return chunk_at<KT>(key, w);
+    return chunk_at<KT, DP>(key, w >> 1) + ((w & 1) << 3);
+  return chunk_at<KT, DP>(key, w);
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   hw::smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(
                    hw::smem_addr(dst)),
                "l"(src)
                : "memory");
@@ -393,15 +449,37 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // keys 0 .. n - 1 of a (row, head)'s K or V, `hd` elements apart from
 // `src`, into `tile` in chunk_at's order: every thread its 16-byte copies,
-// one group
-template <typename KT>
+// one group.  GEN: a head of d elements, copied in 8-element words (16
+// bytes of bf16, 8 of int8), the words of a DP-wide row past d stored as
+// zeros.
+template <typename KT, int DP, bool GEN>
 __device__ __forceinline__ void load_keys(uint8_t* tile, const KT* src, int n,
-                                          long long hd) {
-  constexpr int CPK = D * sizeof(KT) / 16;  // chunks of a key
-  for (int i = threadIdx.x; i < n * CPK; i += CT) {
-    const int key = i / CPK, c = i % CPK;
-    cp_async16(tile + chunk_at<KT>(key, c),
-               reinterpret_cast<const uint8_t*>(src + key * hd) + c * 16);
+                                          long long hd, int d) {
+  if constexpr (GEN) {
+    constexpr int WPR = DP / EPL;  // words of a tile row
+    const int words = d / EPL;     // of them in the head
+    for (int i = threadIdx.x; i < n * WPR; i += CT) {
+      const int key = i / WPR, w = i % WPR;
+      uint8_t* dst = tile + word_at<KT, DP>(key, w);
+      if (w >= words) {
+        if constexpr (sizeof(KT) == 1) {
+          *reinterpret_cast<uint2*>(dst) = make_uint2(0u, 0u);
+        } else {
+          *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+        }
+      } else if constexpr (sizeof(KT) == 1) {
+        cp_async8(dst, src + key * hd + w * EPL);
+      } else {
+        cp_async16(dst, src + key * hd + w * EPL);
+      }
+    }
+  } else {
+    constexpr int CPK = DP * sizeof(KT) / 16;  // chunks of a key
+    for (int i = threadIdx.x; i < n * CPK; i += CT) {
+      const int key = i / CPK, c = i % CPK;
+      cp_async16(tile + chunk_at<KT, DP>(key, c),
+                 reinterpret_cast<const uint8_t*>(src + key * hd) + c * 16);
+    }
   }
   cp_async_commit();
 }
@@ -436,10 +514,12 @@ __device__ __forceinline__ void exchange(float* xmax, float* xsum, int slot0,
 // `rank` of the extent of K/V row x / ranks, head y, and queries KBT z ..
 // KBT z + KBT - 1 of that row.  Thread i holds keys i and i + CT of its
 // share through the scores and the softmax.
-template <typename KT, int KBT>
-__global__ void __launch_bounds__(CT, KBT <= 2 ? 8 : 6)
+template <typename KT, int KBT, int DP, bool GEN>
+__global__ void __launch_bounds__(CT, DP == 128 ? 4 : KBT <= 2 ? 8 : 6)
     decode_cluster_kernel(const __grid_constant__ ClusterArgs a) {
-  using L = Layout<KT, KBT>;
+  using L = Layout<KT, KBT, DP>;
+  constexpr int WPK = DP / EPL;    // words of a key
+  constexpr int KPP = CT / WPK;    // keys per pass of the value product
   using W = typename Word<KT>::T;
   constexpr bool Q8 = sizeof(KT) == 1;
   constexpr int CE = 16 / sizeof(KT);  // elements of a 16-byte chunk
@@ -462,7 +542,8 @@ __global__ void __launch_bounds__(CT, KBT <= 2 ? 8 : 6)
   const int ranks = a.ranks, rank = blockIdx.x % ranks;
   const int b = blockIdx.x / ranks, h = blockIdx.y, q0 = blockIdx.z * KBT;
   const int len = a.len;
-  const long long hd = (long long)a.heads * D;
+  const int dh = GEN ? a.d : DP;
+  const long long hd = (long long)a.heads * dh;
   // the exchanges' barriers; every block of the cluster has started and
   // initialised them before any writes to another's shared memory (the
   // wait comes before the first such write)
@@ -474,11 +555,12 @@ __global__ void __launch_bounds__(CT, KBT <= 2 ? 8 : 6)
   // 1. every global load at once: a word of q and the row's mask (bytes
   // tid, tid + CT, ...: a line a warp)
   const int qj = tid / WPK, qw = tid % WPK;  // word qw of query qj
-  const bool has_q = tid < KBT * WPK && q0 + qj < a.kb;
+  const bool has_q =
+      tid < KBT * WPK && q0 + qj < a.kb && (!GEN || qw * EPL < dh);
   uint4 qraw = {};
   if (has_q)
     qraw = *reinterpret_cast<const uint4*>(
-        a.q + ((long long)b * a.kb + q0 + qj) * hd + h * D + qw * EPL);
+        a.q + ((long long)b * a.kb + q0 + qj) * hd + h * dh + qw * EPL);
   const uint8_t* mrow = a.mask + (long long)b * a.t;
   uint8_t mb[MPT];
 #pragma unroll
@@ -488,7 +570,7 @@ __global__ void __launch_bounds__(CT, KBT <= 2 ? 8 : 6)
     float x[EPL] = {};
     if (has_q) unpack(qraw, x, bf16());
 #pragma unroll
-    for (int e = 0; e < EPL; ++e) qs[qj * D + qw * EPL + e] = x[e];
+    for (int e = 0; e < EPL; ++e) qs[qj * DP + qw * EPL + e] = x[e];
   }
   int last = 0;
 #pragma unroll
@@ -510,11 +592,11 @@ __global__ void __launch_bounds__(CT, KBT <= 2 ? 8 : 6)
   const int start = min(rank * share, extent);
   const int n = min(share, extent - start);
   const long long key0 = (long long)b * a.t + start;  // (row, key) index
-  const KT* kg = static_cast<const KT*>(a.k) + key0 * hd + h * D;
-  const KT* vg = static_cast<const KT*>(a.v) + key0 * hd + h * D;
+  const KT* kg = static_cast<const KT*>(a.k) + key0 * hd + h * dh;
+  const KT* vg = static_cast<const KT*>(a.v) + key0 * hd + h * dh;
 
   // 2. the K tile, every thread its copies, and the thread's keys' scales
-  load_keys(tile, kg, n, hd);
+  load_keys<KT, DP, GEN>(tile, kg, n, hd, dh);
   float kscale[KPT] = {}, vscale[KPT] = {};
   if constexpr (Q8) {
     if (n > 0) {
@@ -538,17 +620,17 @@ __global__ void __launch_bounds__(CT, KBT <= 2 ? 8 : 6)
   for (int i = 0; i < KPT; ++i) {
     const int key = tid + i * CT;
     if (key >= n) break;
-    uint4 kw[D / CE];
+    uint4 kw[DP / CE];
 #pragma unroll
-    for (int c = 0; c < D / CE; ++c)
-      kw[c] = *reinterpret_cast<const uint4*>(tile + chunk_at<KT>(key, c));
+    for (int c = 0; c < DP / CE; ++c)
+      kw[c] = *reinterpret_cast<const uint4*>(tile + chunk_at<KT, DP>(key, c));
     float s[KBT][4];  // four partial sums a query
 #pragma unroll
     for (int j = 0; j < KBT; ++j)
 #pragma unroll
       for (int u = 0; u < 4; ++u) s[j][u] = 0.0f;
 #pragma unroll
-    for (int c = 0; c < D / CE; ++c) {
+    for (int c = 0; c < DP / CE; ++c) {
       float kf[CE];
       widen(kw[c], kf, KT());
 #pragma unroll
@@ -556,7 +638,7 @@ __global__ void __launch_bounds__(CT, KBT <= 2 ? 8 : 6)
 #pragma unroll
         for (int e = 0; e < CE; e += 4) {
           const float4 qv =
-              *reinterpret_cast<const float4*>(qs + j * D + c * CE + e);
+              *reinterpret_cast<const float4*>(qs + j * DP + c * CE + e);
           s[j][0] += qv.x * kf[e];
           s[j][1] += qv.y * kf[e + 1];
           s[j][2] += qv.z * kf[e + 2];
@@ -582,7 +664,7 @@ __global__ void __launch_bounds__(CT, KBT <= 2 ? 8 : 6)
   __syncthreads();
   // the V tile into the K tile's place: it arrives while the cluster
   // exchanges the statistics
-  load_keys(tile, vg, n, hd);
+  load_keys<KT, DP, GEN>(tile, vg, n, hd, dh);
   // the share's maxima (-inf without keys) and its sums of exp(s - max)
   float* red_sum = red + CW * KBT;
 #pragma unroll
@@ -657,7 +739,7 @@ __global__ void __launch_bounds__(CT, KBT <= 2 ? 8 : 6)
     for (int e = 0; e < EPL; ++e) acc[j][e] = 0.0f;
   for (int key = grp; key < n; key += KPP) {
     float vf[EPL];
-    widen(*reinterpret_cast<const W*>(tile + word_at<KT>(key, sub)), vf,
+    widen(*reinterpret_cast<const W*>(tile + word_at<KT, DP>(key, sub)), vf,
           KT());
 #pragma unroll
     for (int j = 0; j < KBT; ++j) {
@@ -676,39 +758,39 @@ __global__ void __launch_bounds__(CT, KBT <= 2 ? 8 : 6)
 #pragma unroll
       for (int off = WPK; off < 32; off <<= 1)
         s += __shfl_xor_sync(0xffffffffu, s, off);
-      if (lane < WPK) part[(warp * KBT + j) * D + sub * EPL + e] = s;
+      if (lane < WPK) part[(warp * KBT + j) * DP + sub * EPL + e] = s;
     }
   __syncthreads();
   // 5. the share's partial into slot `rank` of rank 0, which adds the
   // shares in rank order
-  for (int i = tid; i < KBT * D; i += CT) {
+  for (int i = tid; i < KBT * DP; i += CT) {
     float s = 0.0f;
 #pragma unroll
-    for (int w = 0; w < CW; ++w) s += part[w * KBT * D + i];
-    hw::st_async(xpart + rank * KBT * D + i, 0, s, part_bar);
+    for (int w = 0; w < CW; ++w) s += part[w * KBT * DP + i];
+    hw::st_async(xpart + rank * KBT * DP + i, 0, s, part_bar);
   }
   // nothing writes to this block's shared memory any more unless it is
   // rank 0, which waits for every share's partial
   if (rank != 0) return;
-  if (tid == 0) hw::mbar_expect_tx(part_bar, ranks * KBT * D * 4);
+  if (tid == 0) hw::mbar_expect_tx(part_bar, ranks * KBT * DP * 4);
   hw::mbar_wait_cluster(part_bar, 0);
-  for (int i = tid; i < KBT * D; i += CT) {
-    const int j = i / D, d = i % D;
-    if (q0 + j >= a.kb) continue;
+  for (int i = tid; i < KBT * DP; i += CT) {
+    const int j = i / DP, c = i % DP;
+    if (q0 + j >= a.kb || (GEN && c >= dh)) continue;
     float s = 0.0f;
-    for (int r = 0; r < ranks; ++r) s += xpart[r * KBT * D + i];
-    a.out[((long long)b * a.kb + q0 + j) * hd + h * D + d] =
+    for (int r = 0; r < ranks; ++r) s += xpart[r * KBT * DP + i];
+    a.out[((long long)b * a.kb + q0 + j) * hd + h * dh + c] =
         __float2bfloat16(s);
   }
 }
 
 constexpr size_t kMaxSmem = 232448;  // shared memory a block can use
 
-template <typename KT, int KBT>
+template <typename KT, int KBT, int DP, bool GEN>
 int launch_cluster(const ClusterArgs& a, int bkv, cudaStream_t stream) {
-  const size_t smem = Layout<KT, KBT>(a.len, a.ranks).total;
+  const size_t smem = Layout<KT, KBT, DP>(a.len, a.ranks).total;
   const void* kernel =
-      reinterpret_cast<const void*>(decode_cluster_kernel<KT, KBT>);
+      reinterpret_cast<const void*>(decode_cluster_kernel<KT, KBT, DP, GEN>);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -733,13 +815,14 @@ int launch_cluster(const ClusterArgs& a, int bkv, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename QT, typename KT, int KBT>
+template <typename QT, typename KT, int KBT, int DP, bool GEN>
 int launch_kbt(const void* q, const void* k, const void* v, const void* mask,
                const float* ks, const float* vs, void* out, int bkv, int kb,
-               int t, int heads, float scale, cudaStream_t stream) {
-  const size_t smem = ((size_t)KBT * t + (size_t)NW * KBT * D) * sizeof(float);
+               int t, int heads, int d, float scale, cudaStream_t stream) {
+  const size_t smem =
+      ((size_t)KBT * t + (size_t)NW * KBT * DP) * sizeof(float);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = decode_attention_kernel<QT, KT, KBT>;
+  auto kernel = decode_attention_kernel<QT, KT, KBT, DP, GEN>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -750,27 +833,51 @@ int launch_kbt(const void* q, const void* k, const void* v, const void* mask,
   kernel<<<grid, NT, smem, stream>>>(
       static_cast<const QT*>(q), static_cast<const KT*>(k),
       static_cast<const KT*>(v), static_cast<const uint8_t*>(mask), ks, vs,
-      static_cast<QT*>(out), kb, t, heads, scale);
+      static_cast<QT*>(out), kb, t, heads, d, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-// the serial body
+// the serial body at one padded width
+template <typename QT, typename KT, int DP, bool GEN>
+int launch_serial_dp(const void* q, const void* k, const void* v,
+                     const void* mask, const float* ks, const float* vs,
+                     void* out, int bkv, int kb, int t, int heads, int d,
+                     float scale, cudaStream_t s) {
+  if (kb == 1)
+    return launch_kbt<QT, KT, 1, DP, GEN>(q, k, v, mask, ks, vs, out, bkv, kb,
+                                          t, heads, d, scale, s);
+  if (kb == 2)
+    return launch_kbt<QT, KT, 2, DP, GEN>(q, k, v, mask, ks, vs, out, bkv, kb,
+                                          t, heads, d, scale, s);
+  if (kb <= 4)
+    return launch_kbt<QT, KT, 4, DP, GEN>(q, k, v, mask, ks, vs, out, bkv, kb,
+                                          t, heads, d, scale, s);
+  return launch_kbt<QT, KT, 8, DP, GEN>(q, k, v, mask, ks, vs, out, bkv, kb,
+                                        t, heads, d, scale, s);
+}
+
+// the serial body: D = 64 the body it always ran, other widths the GEN
+// instances at DP = 64 or 128
 template <typename QT, typename KT>
 int launch_serial(const void* q, const void* k, const void* v,
                   const void* mask, const float* ks, const float* vs,
-                  void* out, int bkv, int kb, int t, int heads, float scale,
-                  cudaStream_t s) {
-  if (kb == 1)
-    return launch_kbt<QT, KT, 1>(q, k, v, mask, ks, vs, out, bkv, kb, t, heads,
-                                 scale, s);
-  if (kb == 2)
-    return launch_kbt<QT, KT, 2>(q, k, v, mask, ks, vs, out, bkv, kb, t, heads,
-                                 scale, s);
-  if (kb <= 4)
-    return launch_kbt<QT, KT, 4>(q, k, v, mask, ks, vs, out, bkv, kb, t, heads,
-                                 scale, s);
-  return launch_kbt<QT, KT, 8>(q, k, v, mask, ks, vs, out, bkv, kb, t, heads,
-                               scale, s);
+                  void* out, int bkv, int kb, int t, int heads, int d,
+                  float scale, cudaStream_t s) {
+  if (d == 64)
+    return launch_serial_dp<QT, KT, 64, false>(q, k, v, mask, ks, vs, out, bkv,
+                                               kb, t, heads, d, scale, s);
+  if (d < 64)
+    return launch_serial_dp<QT, KT, 64, true>(q, k, v, mask, ks, vs, out, bkv,
+                                              kb, t, heads, d, scale, s);
+  return launch_serial_dp<QT, KT, 128, true>(q, k, v, mask, ks, vs, out, bkv,
+                                             kb, t, heads, d, scale, s);
+}
+
+template <typename KT, int DP, bool GEN>
+int launch_cluster_kb(const ClusterArgs& a, int bkv, cudaStream_t s) {
+  if (a.kb == 1) return launch_cluster<KT, 1, DP, GEN>(a, bkv, s);
+  if (a.kb == 2) return launch_cluster<KT, 2, DP, GEN>(a, bkv, s);
+  return launch_cluster<KT, MAX_KBT, DP, GEN>(a, bkv, s);
 }
 
 // bf16 q: the cluster body for RANGE < t <= MAX_T (ranks: one a RANGE
@@ -779,14 +886,14 @@ int launch_serial(const void* q, const void* k, const void* v,
 template <typename KT>
 int launch_bf16(const void* q, const void* k, const void* v, const void* mask,
                 const float* ks, const float* vs, void* out, int bkv, int kb,
-                int t, int heads, float scale, cudaStream_t s) {
+                int t, int heads, int d, float scale, cudaStream_t s) {
   const int tiles = (t + RANGE - 1) / RANGE;
   const int per_block = (tiles + MAX_RANKS - 1) / MAX_RANKS;
   if (tiles == 1 || t > MAX_T ||
       (long long)bkv * MAX_RANKS > 0x7fffffffLL ||
       (kb + MAX_KBT - 1) / MAX_KBT > 65535)
     return launch_serial<bf16, KT>(q, k, v, mask, ks, vs, out, bkv, kb, t,
-                                   heads, scale, s);
+                                   heads, d, scale, s);
   ClusterArgs a;
   a.q = static_cast<const bf16*>(q);
   a.k = k;
@@ -798,12 +905,13 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* mask,
   a.kb = kb;
   a.t = t;
   a.heads = heads;
+  a.d = d;
   a.ranks = (tiles + per_block - 1) / per_block;
   a.len = (t + a.ranks - 1) / a.ranks;
   a.scale = scale;
-  if (kb == 1) return launch_cluster<KT, 1>(a, bkv, s);
-  if (kb == 2) return launch_cluster<KT, 2>(a, bkv, s);
-  return launch_cluster<KT, MAX_KBT>(a, bkv, s);
+  if (d == 64) return launch_cluster_kb<KT, 64, false>(a, bkv, s);
+  if (d < 64) return launch_cluster_kb<KT, 64, true>(a, bkv, s);
+  return launch_cluster_kb<KT, 128, true>(a, bkv, s);
 }
 
 bool aligned16(const void* p) {
@@ -812,7 +920,8 @@ bool aligned16(const void* p) {
 
 int check(const void* q, const void* k, const void* v, const void* out,
           int bkv, int kb, int t, int heads, int head_dim, int device) {
-  if (bkv <= 0 || kb <= 0 || t <= 0 || heads <= 0 || head_dim != D ||
+  if (bkv <= 0 || kb <= 0 || t <= 0 || heads <= 0 || head_dim < 8 ||
+      head_dim > 128 || head_dim % 8 ||
       heads > 65535 || (kb + NW - 1) / NW > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -843,9 +952,9 @@ extern "C" int smx_decode_attention(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == smx::kBF16)
     return launch_bf16<bf16>(q, k, v, mask, nullptr, nullptr, out, bkv, kb, t,
-                             heads, scale, s);
+                             heads, head_dim, scale, s);
   return launch_serial<float, float>(q, k, v, mask, nullptr, nullptr, out, bkv,
-                                     kb, t, heads, scale, s);
+                                     kb, t, heads, head_dim, scale, s);
 }
 
 // k, v int8 codes with per-(token, head) float32 scales
@@ -861,9 +970,9 @@ extern "C" int smx_decode_attention_q8(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == smx::kBF16)
     return launch_bf16<int8_t>(q, k, v, mask, ks, vs, out, bkv, kb, t, heads,
-                               scale, s);
+                               head_dim, scale, s);
   return launch_serial<float, int8_t>(q, k, v, mask, ks, vs, out, bkv, kb, t,
-                                      heads, scale, s);
+                                      heads, head_dim, scale, s);
 }
 
 // The same two functions through the serial body in either dtype, for
@@ -879,9 +988,9 @@ extern "C" int smx_decode_attention_serial(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == smx::kBF16)
     return launch_serial<bf16, bf16>(q, k, v, mask, nullptr, nullptr, out, bkv,
-                                     kb, t, heads, scale, s);
+                                     kb, t, heads, head_dim, scale, s);
   return launch_serial<float, float>(q, k, v, mask, nullptr, nullptr, out, bkv,
-                                     kb, t, heads, scale, s);
+                                     kb, t, heads, head_dim, scale, s);
 }
 
 extern "C" int smx_decode_attention_q8_serial(
@@ -895,7 +1004,7 @@ extern "C" int smx_decode_attention_q8_serial(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == smx::kBF16)
     return launch_serial<bf16, int8_t>(q, k, v, mask, ks, vs, out, bkv, kb, t,
-                                       heads, scale, s);
+                                       heads, head_dim, scale, s);
   return launch_serial<float, int8_t>(q, k, v, mask, ks, vs, out, bkv, kb, t,
-                                      heads, scale, s);
+                                      heads, head_dim, scale, s);
 }

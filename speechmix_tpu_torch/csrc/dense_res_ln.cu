@@ -11,7 +11,7 @@
 // file, that epilogue with the out-projection's dropout.
 //
 // x: (n, din), w: (din, h) row-major, res/out: (n, h) in float32 or
-// bfloat16; b, g, beta: (h,) float32.  float32: h <= 1024.  bfloat16: din
+// bfloat16; b, g, beta: (h,) float32.  float32: h <= 2048.  bfloat16: din
 // and h multiples of 128 (what the TPU package's gate admits), h <= 1024,
 // or h <= 2048 where 256 divides it (a cluster of at most 8 blocks); x, w,
 // res, g, beta and out 16-byte aligned (TMA).  Wider bfloat16 rows are the
@@ -35,6 +35,8 @@
 // takes mean and variance per row with warp shuffles and a shared-memory
 // reduction, and stores each output element once.  Rows past n are masked;
 // no padding is needed.  It serves the f32 reference runs and is not tuned.
+// Above h = 1024 the same body holds 8 columns a thread and BM = 8 rows a
+// block (64 accumulator registers); h <= 1024 runs the body it always ran.
 //
 // bfloat16 kernel, TMA + wgmma on Hopper: a 128-row tile of the output is
 // owned by a thread-block cluster of h / BN blocks, block r of the cluster
@@ -65,12 +67,12 @@
 
 namespace {
 
-constexpr int BM = 16;
 constexpr int NT = 256;
 constexpr int KC = 32;
-constexpr int MAXC = 4;  // h <= MAXC * NT
+constexpr int MAX_H = 8 * NT;  // the widest float32 h: 8 columns a thread
 
-template <bool DROP>
+// BM rows a block; h <= MAXC * NT
+template <int BM, int MAXC, bool DROP>
 __global__ void __launch_bounds__(NT)
     dense_res_ln_kernel(const float* __restrict__ x,
                         const float* __restrict__ w,
@@ -126,16 +128,29 @@ __global__ void __launch_bounds__(NT)
                                                   h, r0, eps, red, tot, drop);
 }
 
-template <bool DROP>
-int launch_f32(const void* x, const void* w, const float* b, const void* res,
-               const float* g, const float* beta, void* out, int n, int din,
-               int h, float eps, smx::Dropout drop, cudaStream_t stream) {
+template <int BM, int MAXC, bool DROP>
+int launch_f32_rows(const void* x, const void* w, const float* b,
+                    const void* res, const float* g, const float* beta,
+                    void* out, int n, int din, int h, float eps,
+                    smx::Dropout drop, cudaStream_t stream) {
   dim3 grid((n + BM - 1) / BM);
-  dense_res_ln_kernel<DROP><<<grid, NT, 0, stream>>>(
+  dense_res_ln_kernel<BM, MAXC, DROP><<<grid, NT, 0, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(w), b,
       static_cast<const float*>(res), g, beta, static_cast<float*>(out), n,
       din, h, eps, drop);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool DROP>
+int launch_f32(const void* x, const void* w, const float* b, const void* res,
+               const float* g, const float* beta, void* out, int n, int din,
+               int h, float eps, smx::Dropout drop, cudaStream_t stream) {
+  if (h <= 4 * NT) {
+    return launch_f32_rows<16, 4, DROP>(x, w, b, res, g, beta, out, n, din, h,
+                                        eps, drop, stream);
+  }
+  return launch_f32_rows<8, 8, DROP>(x, w, b, res, g, beta, out, n, din, h,
+                                     eps, drop, stream);
 }
 
 namespace hw = smx::hopper;
@@ -526,7 +541,7 @@ int launch(const void* x, const void* w, const float* b, const void* res,
     return launch_bf16<DROP>(x, w, b, res, g, beta, out, n, din, h, eps, drop,
                              device, s);
   }
-  if (h > MAXC * NT) return static_cast<int>(cudaErrorInvalidValue);
+  if (h > MAX_H) return static_cast<int>(cudaErrorInvalidValue);
   return launch_f32<DROP>(x, w, b, res, g, beta, out, n, din, h, eps, drop, s);
 }
 

@@ -38,7 +38,11 @@
 //     give the same bits.
 // float32 (the f32 reference runs only): smx_ffn_bwd_dx and smx_ffn_bwd_dw
 // (and their dropout twins) are f32-FMA kernels that recompute a and dh per
-// tile on the CUDA cores, bound by those.
+// tile on the CUDA cores, bound by those; h <= 2048.  Above h = 1024 they
+// hold 8 columns of h a thread instead of 4, with 8 rows a block instead of
+// 16 (and dw 8 f columns a block instead of 16, its recompute on the first
+// 64 threads), so that the accumulators stay at 64 and 128 registers;
+// h <= 1024 runs the bodies it always ran.
 //
 // What bounds it on the H100: 10 n h f FLOPs (4 for the recompute, 6 for
 // the products) against ~0.5 GB at n = 12800, so the tensor cores: h and da
@@ -57,13 +61,13 @@
 namespace {
 
 constexpr int NT = 256;
-constexpr int MAXC = 4;  // f32: h <= MAXC * NT
+constexpr int MAX_H = 8 * NT;  // f32: the widest h, 8 columns a thread
 
 // ---------------------------------------------------------------- float32 dx
-constexpr int BM = 16;
 constexpr int FC = NT;  // f columns per chunk: one per thread
 
-template <bool DROP>
+// BM rows a block; h <= MAXC * NT
+template <int BM, int MAXC, bool DROP>
 __global__ void __launch_bounds__(NT)
     ffn_bwd_dx_kernel(const float* __restrict__ x, const float* __restrict__ g,
                       const float* __restrict__ w1, const float* __restrict__ b1,
@@ -164,9 +168,9 @@ __global__ void __launch_bounds__(NT)
 }
 
 // ---------------------------------------------------------------- float32 dw
-constexpr int WFC = 16;  // f columns per block
-
-template <bool DROP>
+// WFC f columns and BM-row tiles a block (BM * WFC <= NT: the threads that
+// recompute one element each); h <= MAXC * NT
+template <int BM, int MAXC, int WFC, bool DROP>
 __global__ void __launch_bounds__(NT)
     ffn_bwd_dw_kernel(const float* __restrict__ x, const float* __restrict__ g,
                       const float* __restrict__ w1, const float* __restrict__ b1,
@@ -204,15 +208,17 @@ __global__ void __launch_bounds__(NT)
       gs[i] = row < row_end ? g[(long long)row * h + i % h] : 0.0f;
     }
     __syncthreads();
-    float a = 0.0f, dh = 0.0f;
-    for (int k = 0; k < h; ++k) {
-      a += xs[pr * h + k] * w1[(long long)k * f + c0 + pc];
-      dh += gs[pr * h + k] * w2r[k];
+    if (BM * WFC == NT || tid < BM * WFC) {
+      float a = 0.0f, dh = 0.0f;
+      for (int k = 0; k < h; ++k) {
+        a += xs[pr * h + k] * w1[(long long)k * f + c0 + pc];
+        dh += gs[pr * h + k] * w2r[k];
+      }
+      a += bias;
+      const float m = DROP ? drop.at(r0 + pr, c0 + pc) : 1.0f;
+      hs[pr * WFC + pc] = smx::activate(act, a) * m;
+      das[pr * WFC + pc] = dh * smx::dactivate(act, a) * m;
     }
-    a += bias;
-    const float m = DROP ? drop.at(r0 + pr, c0 + pc) : 1.0f;
-    hs[pr * WFC + pc] = smx::activate(act, a) * m;
-    das[pr * WFC + pc] = dh * smx::dactivate(act, a) * m;
     __syncthreads();
     if (tid < WFC) {
 #pragma unroll
@@ -735,7 +741,41 @@ int products(const void* x, const void* g, const void* w1, const void* hid,
 
 // ------------------------------------------------------------------ float32
 bool bad_shape(int n, int h, int f, int act) {
-  return h > MAXC * NT || h <= 0 || f <= 0 || n <= 0 || act < 0 || act > 3;
+  return h > MAX_H || h <= 0 || f <= 0 || n <= 0 || act < 0 || act > 3;
+}
+
+template <int BM, int MAXC, bool DROP>
+int bwd_dx_rows(const void* x, const void* g, const void* w1, const float* b1,
+                const void* w2, void* dx, int n, int h, int f, int act,
+                smx::Dropout drop, cudaStream_t stream) {
+  const size_t smem = (size_t)(2 * h + FC) * BM * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      ffn_bwd_dx_kernel<BM, MAXC, DROP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ffn_bwd_dx_kernel<BM, MAXC, DROP><<<(n + BM - 1) / BM, NT, smem, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(g),
+      static_cast<const float*>(w1), b1, static_cast<const float*>(w2),
+      static_cast<float*>(dx), n, h, f, act, drop);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int BM, int MAXC, int WFC, bool DROP>
+int bwd_dw_cols(const void* x, const void* g, const void* w1, const float* b1,
+                const void* w2, float* target, int n, int h, int f, int act,
+                int splits, int rows_per_split, smx::Dropout drop,
+                cudaStream_t stream) {
+  const size_t smem = (size_t)(2 * h + 2 * WFC) * BM * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      ffn_bwd_dw_kernel<BM, MAXC, WFC, DROP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ffn_bwd_dw_kernel<BM, MAXC, WFC, DROP>
+      <<<dim3(f / WFC, splits), NT, smem, stream>>>(
+          static_cast<const float*>(x), static_cast<const float*>(g),
+          static_cast<const float*>(w1), b1, static_cast<const float*>(w2),
+          target, n, h, f, act, rows_per_split, drop);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <bool DROP>
@@ -747,17 +787,12 @@ int bwd_dx(const void* x, const void* g, const void* w1, const float* b1,
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = (size_t)(2 * h + FC) * BM * sizeof(float);
-  err = cudaFuncSetAttribute(ffn_bwd_dx_kernel<DROP>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ffn_bwd_dx_kernel<DROP><<<(n + BM - 1) / BM, NT, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(g),
-      static_cast<const float*>(w1), b1, static_cast<const float*>(w2),
-      static_cast<float*>(dx), n, h, f, act, drop);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (h <= 4 * NT) {
+    return bwd_dx_rows<16, 4, DROP>(x, g, w1, b1, w2, dx, n, h, f, act, drop,
+                                    s);
+  }
+  return bwd_dx_rows<8, 8, DROP>(x, g, w1, b1, w2, dx, n, h, f, act, drop, s);
 }
 
 // out: (2 * h * f + f) float32 = dw1 | dw2 | db1.  splits row ranges of
@@ -768,7 +803,7 @@ int bwd_dw(const void* x, const void* g, const void* w1, const float* b1,
            const void* w2, float* out, float* ws, int n, int h, int f, int act,
            int splits, int rows_per_split, smx::Dropout drop, int dtype,
            int device, void* stream) {
-  if (dtype != smx::kF32 || bad_shape(n, h, f, act) || f % WFC != 0 ||
+  if (dtype != smx::kF32 || bad_shape(n, h, f, act) || f % 16 != 0 ||
       splits > 65535 || bad_plan(n, splits, rows_per_split) || (splits > 1 && ws == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -776,16 +811,12 @@ int bwd_dw(const void* x, const void* g, const void* w1, const float* b1,
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* target = splits > 1 ? ws : out;
-  const size_t smem = (size_t)(2 * h + 2 * WFC) * BM * sizeof(float);
-  err = cudaFuncSetAttribute(ffn_bwd_dw_kernel<DROP>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ffn_bwd_dw_kernel<DROP><<<dim3(f / WFC, splits), NT, smem, s>>>(
-      static_cast<const float*>(x), static_cast<const float*>(g),
-      static_cast<const float*>(w1), b1, static_cast<const float*>(w2),
-      target, n, h, f, act, rows_per_split, drop);
-  const int rc = static_cast<int>(cudaGetLastError());
+  const int rc =
+      h <= 4 * NT
+          ? bwd_dw_cols<16, 4, 16, DROP>(x, g, w1, b1, w2, target, n, h, f,
+                                         act, splits, rows_per_split, drop, s)
+          : bwd_dw_cols<8, 8, 8, DROP>(x, g, w1, b1, w2, target, n, h, f, act,
+                                       splits, rows_per_split, drop, s);
   if (rc != 0 || splits == 1) return rc;
   return reduce(ws, out, 2LL * h * f + f, splits, s);
 }

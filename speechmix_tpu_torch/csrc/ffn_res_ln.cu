@@ -23,7 +23,7 @@
 // 0 (rate 0) draws no bits.
 //
 // x, res, out: (n, h); w1: (h, f); w2: (f, h), row-major float32; b1: (f,),
-// b2, g, beta: (h,) float32; h <= 1024 (the launcher refuses anything else).
+// b2, g, beta: (h,) float32; h <= 2048 (the launcher refuses anything else).
 // act: 0 gelu (erf), 1 gelu_new (tanh), 2 relu, 3 silu.
 //
 // What bounds it on the H100: the f32-FMA rate of the CUDA cores (4 n h f
@@ -35,7 +35,9 @@
 // and writes it to shared memory; then every thread accumulates that
 // (FC, BM) slice times w2[c0 : c0 + FC, its columns].  The (n, f)
 // intermediate never reaches device memory.  The epilogue is K2's.  Rows
-// past n are masked.
+// past n are masked.  Above h = 1024 the same body holds 8 columns a
+// thread (h <= 2048) and BM = 8 rows a block, so that its accumulators stay
+// at 64 registers; h <= 1024 runs the body it always ran.
 
 #include <stdint.h>
 
@@ -43,12 +45,12 @@
 
 namespace {
 
-constexpr int BM = 16;
 constexpr int NT = 256;
 constexpr int FC = NT;   // f columns per chunk: one per thread
-constexpr int MAXC = 4;  // h <= MAXC * NT
+constexpr int MAX_H = 8 * NT;  // the widest h: 8 columns a thread
 
-template <bool LN, bool DROP>
+// BM rows a block; h <= MAXC * NT
+template <int BM, int MAXC, bool LN, bool DROP>
 __global__ void __launch_bounds__(NT)
     ffn_res_ln_kernel(const float* __restrict__ x,
                       const float* __restrict__ w1,
@@ -157,7 +159,7 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-template <bool LN, bool DROP>
+template <int BM, int MAXC, bool LN, bool DROP>
 int launch_f32(const void* x, const void* w1, const float* b1, const void* w2,
                const float* b2, const void* res, const float* g,
                const float* beta, void* out, int n, int h, int f, int act,
@@ -165,11 +167,11 @@ int launch_f32(const void* x, const void* w1, const float* b1, const void* w2,
                cudaStream_t stream) {
   const size_t smem = (size_t)(h + FC) * BM * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      ffn_res_ln_kernel<LN, DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      ffn_res_ln_kernel<BM, MAXC, LN, DROP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((n + BM - 1) / BM);
-  ffn_res_ln_kernel<LN, DROP><<<grid, NT, smem, stream>>>(
+  ffn_res_ln_kernel<BM, MAXC, LN, DROP><<<grid, NT, smem, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(w1), b1,
       static_cast<const float*>(w2), b2, static_cast<const float*>(res), g,
       beta, static_cast<float*>(out), n, h, f, act, eps, act_drop, out_drop);
@@ -182,15 +184,20 @@ int launch(const void* x, const void* w1, const float* b1, const void* w2,
            void* out, int n, int h, int f, int act, float eps,
            smx::Dropout act_drop, smx::Dropout out_drop, int dtype, int device,
            void* stream) {
-  if (dtype != smx::kF32 || h > MAXC * NT || h <= 0 || f <= 0 || n <= 0 ||
+  if (dtype != smx::kF32 || h > MAX_H || h <= 0 || f <= 0 || n <= 0 ||
       act < 0 || act > 3) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return launch_f32<LN, DROP>(x, w1, b1, w2, b2, res, g, beta, out, n, h, f,
-                              act, eps, act_drop, out_drop, s);
+  if (h <= 4 * NT) {
+    return launch_f32<16, 4, LN, DROP>(x, w1, b1, w2, b2, res, g, beta, out,
+                                       n, h, f, act, eps, act_drop, out_drop,
+                                       s);
+  }
+  return launch_f32<8, 8, LN, DROP>(x, w1, b1, w2, b2, res, g, beta, out, n,
+                                    h, f, act, eps, act_drop, out_drop, s);
 }
 
 }  // namespace

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks of the port's TMA + wgmma kernels: 2-D
-// and 3-D tensor maps (dense or strided) for the Tensor Memory Accelerator,
+// and 3-D tensor maps (dense or strided) and 4-D maps with the head as a
+// dimension of its own for the Tensor Memory Accelerator,
 // mbarrier waits and arrivals, TMA tile loads, shared-memory matrix
 // descriptors, the m64n256k16, m64n128k16 and m64n64k16 bf16 warpgroup
 // products (A in shared memory or, for n64, in registers) with their
@@ -104,6 +105,28 @@ inline bool make_map3(CUtensorMap* map, const void* base, uint64_t batches,
                            box_rows, box_cols);
 }
 
+// A (B, T, H*d) bf16 slab seen as (batches, rows, heads, d), loaded in
+// boxes of 64 columns of one head and `box_rows` rows of one batch, with
+// the 128-byte swizzle: the head is a dimension of its own, so the columns
+// of a box past d load as zeros instead of the next head's (d a multiple
+// of 8: 16-byte strides).  Rows past `rows` load as zeros within their
+// batch.  The box lands in shared memory as make_map3's (box_rows, 64) box.
+inline bool make_map_heads(CUtensorMap* map, const void* base,
+                           uint64_t batches, uint64_t rows, uint64_t heads,
+                           uint64_t d, uint32_t box_rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const uint64_t e = sizeof(__nv_bfloat16);
+  const cuuint64_t dims[4] = {d, heads, rows, batches};
+  const cuuint64_t strides[3] = {d * e, heads * d * e, rows * heads * d * e};
+  const cuuint32_t box[4] = {64, 1, box_rows, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+            dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // ---------------------------------------------------------------- device
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -178,6 +201,19 @@ __device__ __forceinline__ void tma_load3(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
       "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// one box of a make_map_heads map at (column c0 of the head, head, row,
+// batch) into dst
+__device__ __forceinline__ void tma_load_head(void* dst, const CUtensorMap* map,
+                                              uint64_t* bar, int c0, int head,
+                                              int row, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(head), "r"(row), "r"(batch)
       : "memory");
 }
 

@@ -36,7 +36,23 @@ from .dropout import DropoutKey, attention_mask_plain, launch_args
 # the TPU kernel's excluded-logit value: finite, so a fully masked row
 # averages its values instead of producing NaN
 NEG_INF = -1e30
-HEAD_DIM = 64
+# the head widths the kernels take: multiples of 8 (16-byte rows of a head
+# in bf16) from 8 to 128 (two 64-column boxes); 64 runs the body built for
+# it, the others one padded to 64 or 128 columns
+MIN_HEAD_DIM, MAX_HEAD_DIM, HEAD_DIM_STEP = 8, 128, 8
+
+
+def check_head_dim(what, width, heads):
+    """The head width of a (.., width) slab of `heads` heads, or
+    ValueError if the kernels do not take it."""
+    d = width // heads if heads and width % heads == 0 else None
+    if d is None or d % HEAD_DIM_STEP or not (
+            MIN_HEAD_DIM <= d <= MAX_HEAD_DIM):
+        raise ValueError(
+            f"{what} needs a head_dim that is a multiple of {HEAD_DIM_STEP} "
+            f"in [{MIN_HEAD_DIM}, {MAX_HEAD_DIM}], got {width} / {heads} "
+            f"heads")
+    return d
 
 KERNEL = CudaKernel(
     "attention_fwd.cu", "smx_attention_fwd",
@@ -176,9 +192,7 @@ def _check_slabs(what, q, k, v, kv_mask, heads):
     """Shared checks of the K1 / K7 wrappers; returns (mask, dtype code)."""
     b, tq, hd = q.shape
     tk = k.shape[1]
-    if hd % heads or hd // heads != HEAD_DIM:
-        raise ValueError(f"{what} needs head_dim {HEAD_DIM}, got "
-                         f"{hd} / {heads} heads")
+    check_head_dim(what, hd, heads)
     check_cuda_tensor("q", q)
     code = dtype_code(q.dtype)
     check_cuda_tensor("k", k, q.dtype, (b, tk, hd), q.device)
@@ -193,8 +207,9 @@ def attention_fwd(q, k, v, kv_mask, heads, scale, causal=False,
                   return_lse=False):
     """Masked MHA forward on (B, T, H*D) slabs; see attention_fwd_plain.
     CPU tensors take the plain version; CUDA tensors launch the kernel, which
-    requires head_dim 64, float32 or bfloat16, contiguous inputs, and for
-    bfloat16 q, k, v 16-byte aligned."""
+    requires a head_dim that is a multiple of 8 in [8, 128] (check_head_dim),
+    float32 or bfloat16, contiguous inputs, and for bfloat16 q, k, v 16-byte
+    aligned."""
     if q.device.type == "cpu":
         return attention_fwd_plain(q, k, v, kv_mask, heads, scale, causal,
                                    return_lse)
@@ -232,8 +247,8 @@ def _fwd_launch(kernel, what, q, k, v, kv_mask, heads, scale, causal,
     kernel.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                   kv_mask.data_ptr(), out.data_ptr(),
                   None if lse is None else lse.data_ptr(), b, tq, tk, heads,
-                  HEAD_DIM, float(scale), int(bool(causal)), *drop_args, code,
-                  q.device.index)
+                  hd // heads, float(scale), int(bool(causal)), *drop_args,
+                  code, q.device.index)
     return (out, lse) if return_lse else out
 
 
@@ -340,8 +355,8 @@ def attention_bwd(q, k, v, kv_mask, out, lse, g, heads, scale, causal=False):
     """K7: (dq, dk, dv) for d(out) = g; see attention_bwd_plain.  `out` and
     `lse` are what attention_fwd(..., return_lse=True) returned for the same
     inputs.  CPU tensors take the plain version (which needs neither); CUDA
-    tensors launch the kernel, which requires head_dim 64, one dtype
-    (float32 or bfloat16), contiguous 16-byte-aligned slabs and a float32
+    tensors launch the kernel, which requires attention_fwd's head widths,
+    one dtype (float32 or bfloat16), contiguous 16-byte-aligned slabs and a float32
     lse of shape (B, H, Tq)."""
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, kv_mask, g, heads, scale, causal)
@@ -388,7 +403,7 @@ def _bwd_launch(kernel, what, q, k, v, kv_mask, out, lse, g, heads, scale,
     kernel.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   g.data_ptr(), kv_mask.data_ptr(), lse.data_ptr(),
                   delta.data_ptr(), *workspace, dq.data_ptr(), dk.data_ptr(),
-                  dv.data_ptr(), b, tq, tk, heads, HEAD_DIM, float(scale),
+                  dv.data_ptr(), b, tq, tk, heads, hd // heads, float(scale),
                   int(bool(causal)), *drop_args, code, q.device.index)
     return dq, dk, dv
 

@@ -25,7 +25,9 @@ from ._cuda import CudaKernel, check_aligned, check_cuda_tensor, dtype_code
 STRIDE = 2
 KERNEL_SIZES = (2, 3)
 MAX_CHANNELS = 1024  # the float32 kernel holds all columns of a row tile
-BF16_CHANNELS = 512  # width the bfloat16 tensor-core kernel is built for
+# width the bfloat16 tensor-core kernel is built for; other bfloat16 widths
+# run the float32 kernel's body with bf16 loads and stores
+BF16_CHANNELS = 512
 
 KERNEL = CudaKernel(
     "conv_ln_gelu.cu", "smx_conv_ln_gelu",
@@ -112,8 +114,8 @@ def fused_conv_layer_tiled_plain(x, kernel, bias=None, ln_params=None,
 
 def fused_conv_layer(x, kernel, bias=None, ln_params=None, ln_eps=1e-5):
     """K6; see fused_conv_layer_plain.  CUDA tensors need x and kernel in one
-    dtype (float32 or bfloat16), x contiguous, C <= 1024; bfloat16 needs
-    C == 512 and x 16-byte aligned."""
+    dtype (float32 or bfloat16), x contiguous, C <= 1024; bfloat16 at
+    C == 512 (the tensor-core kernel) x 16-byte aligned."""
     if x.device.type == "cpu":
         return fused_conv_layer_plain(x, kernel, bias, ln_params, ln_eps)
     _check_geometry(x, kernel)
@@ -122,9 +124,6 @@ def fused_conv_layer(x, kernel, bias=None, ln_params=None, ln_eps=1e-5):
     if c > MAX_CHANNELS:
         raise ValueError(f"fused_conv_layer supports C <= {MAX_CHANNELS}, "
                          f"got {c}")
-    if x.dtype == torch.bfloat16 and c != BF16_CHANNELS:
-        raise ValueError(f"fused_conv_layer in bfloat16 supports C == "
-                         f"{BF16_CHANNELS}, got {c}")
     check_cuda_tensor("x", x)
     code = dtype_code(x.dtype)
     check_cuda_tensor("kernel", kernel, x.dtype, device=x.device)
@@ -139,7 +138,7 @@ def fused_conv_layer(x, kernel, bias=None, ln_params=None, ln_eps=1e-5):
         g, beta = vec(ln_params["scale"]), vec(ln_params["bias"])
         check_cuda_tensor("ln scale", g, torch.float32, (c,), x.device)
         check_cuda_tensor("ln bias", beta, torch.float32, (c,), x.device)
-    if x.dtype == torch.bfloat16:
+    if x.dtype == torch.bfloat16 and c == BF16_CHANNELS:
         check_aligned("x", x, 16)
         check_aligned("kernel", w, 32)
     out = torch.empty((b, (t_in - k) // STRIDE + 1, c), dtype=x.dtype,

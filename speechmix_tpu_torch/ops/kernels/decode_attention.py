@@ -25,9 +25,8 @@ import torch
 
 from ..masking import NEG_INF
 from ._cuda import CudaKernel, check_aligned, check_cuda_tensor, dtype_code
+from .attention import check_head_dim
 from .ffn import _ordered_sum
-
-HEAD_DIM = 64
 # the cluster body's blocks a (row, head) (csrc/decode_attention.cu): one a
 # RANGE_KEYS keys of T, at most MAX_RANKS (the portable cluster size)
 RANGE_KEYS, MAX_RANKS = 128, 8
@@ -148,8 +147,9 @@ def decode_attention_split_plain(q, k, v, mask, *, scale, num_heads,
 
 def decode_attention(q, k, v, mask, *, scale, num_heads, k_scale=None,
                      v_scale=None):
-    """K4; see decode_attention_plain.  CUDA tensors need head_dim 64, q in
-    float32 or bfloat16, contiguous 16-byte aligned q, k, v, and either k, v
+    """K4; see decode_attention_plain.  CUDA tensors need a head_dim that
+    is a multiple of 8 in [8, 128] (attention.check_head_dim), q in float32
+    or bfloat16, contiguous 16-byte aligned q, k, v, and either k, v
     in q's dtype or int8 codes with both float32 scales."""
     if q.device.type == "cpu":
         _beams_per_row(q, k)
@@ -175,9 +175,10 @@ def _launch(kernel, kernel_q8, q, k, v, mask, scale, num_heads, k_scale,
             v_scale):
     kb = _beams_per_row(q, k)
     bkv, t, h, d = k.shape
-    if h != num_heads or d != HEAD_DIM:
-        raise ValueError(f"decode_attention needs {num_heads} heads of "
-                         f"head_dim {HEAD_DIM}, got k {tuple(k.shape)}")
+    if h != num_heads:
+        raise ValueError(f"decode_attention needs {num_heads} heads, got k "
+                         f"{tuple(k.shape)}")
+    check_head_dim("decode_attention", h * d, h)
     int8_kv = k.dtype == torch.int8
     if int8_kv != (k_scale is not None) or int8_kv != (v_scale is not None):
         raise ValueError("decode_attention takes k_scale and v_scale with "

@@ -67,7 +67,7 @@ from .dropout import (STREAM_ACT, STREAM_OUT, DropoutKey, dropout_mask,
                       dropout_mask_plain, launch_args)
 
 ACT_CODES = {"gelu": 0, "gelu_new": 1, "relu": 2, "silu": 3}
-MAX_HIDDEN = 1024  # the f32 kernels hold all h columns of a row tile
+MAX_HIDDEN = 2048  # the f32 kernels hold all h columns of a row tile
 # the bfloat16 forward passes of K3 / K9 / K12 / K13 and K2 / K11, and K8's
 # bfloat16 backward, take widths H (and, for the forward, F) that are
 # multiples of this (their TMA + wgmma tiles), as the TPU package's gate
@@ -270,7 +270,7 @@ def _check_vec(name, t, size, device):
 def dense_res_ln(x, w, b, res, g, beta, eps=1e-5):
     """K2; see dense_res_ln_plain.  CUDA tensors need x, w, res in one
     dtype (float32 or bfloat16), b, g, beta float32; float32 needs H <=
-    1024; bfloat16 Din and H multiples of FWD_WIDTH and x, w, res, g, beta
+    2048; bfloat16 Din and H multiples of FWD_WIDTH and x, w, res, g, beta
     16-byte aligned, and runs one kernel where dense_fused(H), else the
     down pass to the f32 sum and the LayerNorm rows."""
     if x.device.type == "cpu":
@@ -314,7 +314,7 @@ def _check_dense(what, x, w, b, res, g, beta):
 def ffn_res_ln(x, w1, b1, w2, b2, res, g, beta, act="gelu", eps=1e-5):
     """K3; see ffn_res_ln_plain.  CUDA tensors need x, w1, w2, res in one
     dtype (float32 or bfloat16), b1, b2, g, beta float32; float32 needs
-    H <= 1024, bfloat16 H and F multiples of FWD_WIDTH and x, w1, w2 16-byte
+    H <= 2048, bfloat16 H and F multiples of FWD_WIDTH and x, w1, w2 16-byte
     aligned, and runs the up pass, the down pass to the f32 sum and the
     LayerNorm rows (three launches)."""
     if x.device.type == "cpu":
@@ -766,7 +766,7 @@ def _dw_launch(kernel, x, g, w1, b1, w2, n, h, f, act, code, drop_args):
 
 def ffn_bwd(x, g, w1, b1, w2, act="gelu"):
     """K8; see ffn_bwd_plain.  CUDA tensors need x, g, w1, w2 in one dtype
-    (float32 or bfloat16), b1 float32; float32 needs H <= 1024 and F a
+    (float32 or bfloat16), b1 float32; float32 needs H <= 2048 and F a
     multiple of 16; bfloat16 needs H a multiple of FWD_WIDTH, F a multiple
     of 64 and x, g, w1, w2 32-byte aligned.  bfloat16 runs the recompute pass and the
     products (two launches), float32 the two f32 entries.  db2 = sum g is

@@ -17,6 +17,7 @@ from speechmix_tpu_torch.ops.kernels import attention as t_attn
 from speechmix_tpu_torch.ops.kernels import beam_gather as t_bg
 from speechmix_tpu_torch.ops.kernels import conv_extractor as t_conv
 from speechmix_tpu_torch.ops.kernels import decode_attention as t_da
+from speechmix_tpu_torch.ops.kernels import dropout as t_drop
 from speechmix_tpu_torch.ops.kernels import ffn as t_ffn
 from speechmix_tpu_torch.training import trainer as t_trainer
 from torch_threads import one_torch_thread  # noqa: F401
@@ -182,17 +183,28 @@ def test_new_kernel_wrappers_raise_instead_of_falling_back():
         t_conv.fused_conv_layer(meta(1, 20, 16), meta(16, 16, 3), meta(16))
 
 
+HEAD_DIM_RULE = "head_dim that is a multiple of 8 in \\[8, 128\\]"
+
+
 @pytest.mark.parametrize("call,match", [
+    # K4 takes head widths that are multiples of 8 from 8 to 128
     (lambda: t_da.decode_attention(
-        _meta(2, 1, 2, 32), _meta(2, 8, 2, 32), _meta(2, 8, 2, 32),
+        _meta(2, 1, 2, 136), _meta(2, 8, 2, 136), _meta(2, 8, 2, 136),
         _meta(2, 8, dtype=torch.bool), scale=0.125, num_heads=2),
-     "head_dim 64"),
+     HEAD_DIM_RULE),
+    (lambda: t_da.decode_attention(
+        _meta(2, 1, 2, 20), _meta(2, 8, 2, 20, dtype=torch.int8),
+        _meta(2, 8, 2, 20, dtype=torch.int8), _meta(2, 8, dtype=torch.bool),
+        scale=0.125, num_heads=2, k_scale=_meta(2, 8, 2, dtype=torch.float32),
+        v_scale=_meta(2, 8, 2, dtype=torch.float32)), HEAD_DIM_RULE),
     (lambda: t_da.decode_attention(
         _meta(2, 1, 2, 64), _meta(2, 8, 2, 64, dtype=torch.int8),
         _meta(2, 8, 2, 64, dtype=torch.int8), _meta(2, 8, dtype=torch.bool),
         scale=0.125, num_heads=2), "k_scale and v_scale"),
-    (lambda: t_conv.fused_conv_layer(_meta(1, 20, 256), _meta(256, 256, 3)),
-     "bfloat16 supports C == 512"),
+    # K6 takes C <= 1024 in both dtypes
+    (lambda: t_conv.fused_conv_layer(_meta(1, 20, 1536),
+                                     _meta(1536, 1536, 3)),
+     "supports C <= 1024"),
     (lambda: t_conv.fused_conv_layer(
         _meta(1, 20, 2048, dtype=torch.float32),
         _meta(2048, 2048, 2, dtype=torch.float32)), "supports C <= 1024"),
@@ -281,10 +293,27 @@ def test_training_kernel_wrappers_raise_instead_of_falling_back():
 
 
 @pytest.mark.parametrize("call,match", [
+    # K1 / K7 take head widths that are multiples of 8 from 8 to 128
     (lambda: t_attn.attention_bwd(
-        _meta(1, 8, 32), _meta(1, 8, 32), _meta(1, 8, 32), None,
-        _meta(1, 8, 32), _meta(1, 1, 8, dtype=torch.float32),
-        _meta(1, 8, 32), 1, 0.125), "head_dim 64"),
+        _meta(1, 8, 136), _meta(1, 8, 136), _meta(1, 8, 136), None,
+        _meta(1, 8, 136), _meta(1, 1, 8, dtype=torch.float32),
+        _meta(1, 8, 136), 1, 0.125), HEAD_DIM_RULE),
+    (lambda: t_attn.attention_fwd(
+        _meta(1, 8, 40), _meta(1, 8, 40), _meta(1, 8, 40), None, 2, 0.125),
+     HEAD_DIM_RULE),
+    # the f32 FFN and epilogue entries take H <= 2048
+    (lambda: t_ffn.ffn_fused(*(a.float() for a in _ffn_args(2176, 128)[:5])),
+     "supports H <= 2048"),
+    (lambda: t_ffn.dense_res_ln(
+        _meta(4, 2176, dtype=torch.float32),
+        _meta(2176, 2176, dtype=torch.float32),
+        _meta(2176, dtype=torch.float32), _meta(4, 2176, dtype=torch.float32),
+        _meta(2176, dtype=torch.float32), _meta(2176, dtype=torch.float32)),
+     "supports H <= 2048"),
+    (lambda: t_ffn.ffn_bwd_dx(
+        *(a.float() for a in (_meta(4, 2176), _meta(4, 2176),
+                              _meta(2176, 128), _meta(128),
+                              _meta(128, 2176)))), "supports H <= 2048"),
     (lambda: t_ffn.ffn_fused(*_ffn_args(192, 768)[:5]),
      "bfloat16 supports H"),
     (lambda: t_ffn.ffn_bwd(_meta(4, 768), _meta(4, 768), _meta(768, 3000),
@@ -304,6 +333,36 @@ def test_training_kernel_wrappers_refuse_unbuilt_cases(call, match):
     raise for a tensor that is not on the CPU."""
     with pytest.raises(ValueError, match=match):
         call()
+
+
+def test_wrappers_outside_the_widths_raise_and_never_run_plain(monkeypatch):
+    """A tensor off the CPU (here a meta tensor, which takes the CUDA
+    branch as a CUDA tensor does) at a width outside the kernels' limits
+    raises the width's error; the plain versions are never called."""
+    def forbidden(*args, **kwargs):
+        raise AssertionError("a plain version ran for a tensor off the CPU")
+    for mod, name in ((t_attn, "attention_fwd_plain"),
+                      (t_attn, "attention_bwd_plain"),
+                      (t_da, "decode_attention_plain"),
+                      (t_ffn, "ffn_fused_plain"), (t_ffn, "ffn_bwd_dx_plain"),
+                      (t_conv, "fused_conv_layer_plain")):
+        monkeypatch.setattr(mod, name, forbidden)
+    slab = _meta(2, 8, 4 * 136)
+    with pytest.raises(ValueError, match=HEAD_DIM_RULE):
+        t_attn.attention_fwd(slab, slab, slab, None, 4, 0.125)
+    with pytest.raises(ValueError, match=HEAD_DIM_RULE):
+        t_attn.attention_dropout_fwd(slab, slab, slab, None, 4, 0.125, False,
+                                     t_drop.DropoutKey.from_seed(0), 0.1)
+    q, kv = _meta(2, 1, 4, 20), _meta(2, 8, 4, 20)
+    with pytest.raises(ValueError, match=HEAD_DIM_RULE):
+        t_da.decode_attention(q, kv, kv, _meta(2, 8, dtype=torch.bool),
+                              scale=0.125, num_heads=4)
+    f32 = lambda *s: _meta(*s, dtype=torch.float32)
+    with pytest.raises(ValueError, match="supports H <= 2048"):
+        t_ffn.ffn_fused(f32(4, 2176), f32(2176, 128), f32(128),
+                        f32(128, 2176), f32(2176))
+    with pytest.raises(ValueError, match="supports C <= 1024"):
+        t_conv.fused_conv_layer(_meta(1, 20, 1536), _meta(1536, 1536, 2))
 
 
 def test_loop_entry_points_default_to_the_card(monkeypatch, tmp_path):
