@@ -19,7 +19,9 @@ Phases, each printing as it goes; any failure exits non-zero:
      against attention_bwd_tiled_plain, its tiles in plain PyTorch), K8 ffn_bwd
      (bf16: its recompute pass and its TMA + wgmma products, the products
      also alone against reference products, at H = 256, 512, 768, 1024 and
-     1536; f32: its two f32 entries), K9
+     1536; f32: the same two passes with three tf32 products per product,
+     twice bit for bit, at H = 256, 512, 768, 1024, 1280 and 1920 with and
+     without the activation mask), K9
      ffn_fused; K3 and K9 in bf16 are the TMA + wgmma up and down passes and
      the LayerNorm row pass of ffn_fwd.cu, each pass also held and timed
      alone, the down pass's GEMM against a reference product, at every width
@@ -40,7 +42,14 @@ Phases, each printing as it goes; any failure exits non-zero:
      first bodies (check_head_widths: K1 / K14 / K7 / K15 at D = 16, 80,
      120, 128 in bf16 and f32, K4 at D = 16, 80, 128 and t5-3b's cross
      step, the f32 K2 / K3 / K9 / K8 at H = 1280 and 1920, K6 in bf16 at
-     C = 32 and 256; what stays refused raises on CUDA tensors);
+     C = 32, 256 and 1024; what stays refused raises on CUDA tensors);
+     the f32 rows (check_f32_rows): every kernel of the flagship's f32
+     path at that path's shapes (K1 / K14 / K7 / K15 at T = 800, 400 and
+     causal 64, K2 / K11 and K8 with and without the mask at 12800, 6400
+     and 1024 rows, K3 / K9 / K12 / K13 at 12800, K4 with an f32 q, K6 at
+     the six extractor layers with and without LayerNorm), against its
+     plain version and timed beside it and one library call in full f32,
+     with the f32 bound (FLOPs / 165 TFLOP/s: three tf32 products);
      then the dropout kernels: K10 dropout_mask bit-exact against the plain
      generator at the step's mask shapes, K11 dense_dropout_res_ln, K12
      ffn_dropout_res_ln, K13 ffn_dropout and K8's dropout twins at the
@@ -83,6 +92,11 @@ Phases, each printing as it goes; any failure exits non-zero:
      fixed-length call) and greedy with prefix_allowed_tokens_fn; in f32
      each mode's tokens through the kernels must equal those through the
      plain versions;
+     then the flagship's f32 path (run_f32_flagship): greedy generate and
+     the default recipe's train step (Adafactor, dropout on) in f32, each
+     the median of three calls after a warm-up with its exact launches,
+     peak memory, busy share and the port's kernels' device ms, and one
+     step with dropout off for the deterministic entries' launches;
   5. training: in f32 at full width with 2 + 2 + 2 layers the gradient tree
      through the kernels must agree with the one through their plain
      versions, without and with dropout (one key, so the same masks); then
@@ -217,8 +231,10 @@ import time
 # H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor-core rate, HBM3 rate
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
-# float32 outside the tensor cores (the f32-FMA kernels' type)
-PEAK_F32_FLOPS = 67e12
+# the least time for f32-accurate products on this card: min(FLOPs / 67
+# TFLOP/s on the CUDA cores, 3 FLOPs / 495 TFLOP/s as three tf32 products
+# on the tensor cores) = FLOPs / 165 TFLOP/s, the bound of every f32 row
+PEAK_F32_FLOPS = 495e12 / 3
 
 # stated tolerances of kernel vs plain version: |k - p| <= atol + rtol * |p|
 # f32: accumulation order only (sums of up to 3072 products);
@@ -571,6 +587,8 @@ def check_kernels(gen, dev):
     check_t5_kernels(randn, dev, records)
     check_t5_decode(randn, gen, dev, records)
     check_head_widths(randn, gen, dev, records)
+    check_k8_f32_body(randn, dev)
+    check_f32_rows(randn, dev, records)
 
     for rec in records.values():
         t_flops = rec["flops"] / rec.get("peak_flops", PEAK_BF16_FLOPS) * 1e3
@@ -773,6 +791,7 @@ def decode_record(name, kind, q, k, v, mask, scales, err, scale, copies):
     is more than the 50 MB L2 holds, so the timed calls cycle over `copies`
     copies (the decoder's layers) and find the cache as the decoder does;
     the self-attention cache (9 MB) stays in L2 (copies = 1)."""
+    import torch
     import torch.nn.functional as F
     from speechmix_tpu_torch.ops.kernels import decode_attention as kd
     heads, d = k.shape[2:]
@@ -803,9 +822,10 @@ def decode_record(name, kind, q, k, v, mask, scales, err, scale, copies):
               + q.numel() * q.element_size() * 2 + mask.numel()
               + attended * heads * 4 * len(scales))
     args = dict(scale=scale, num_heads=heads)
+    qtype = "f32" if q.dtype == torch.float32 else "bf16"
     rec = dict(
         shape=f"{name}: q {tuple(q.shape)} k/v {tuple(k.shape)} {kind} K/V "
-              f"bf16 q, scale {scale}, {attended} of {mask.numel()} keys "
+              f"{qtype} q, scale {scale}, {attended} of {mask.numel()} keys "
               "attended",
         max_abs_err=err, length=k.shape[1],
         ms=timed_ms(lambda k_, v_, sc: kd.decode_attention(
@@ -934,6 +954,8 @@ def check_conv(randn, dev, records):
                     rule = K6_BF16_RULE
                 err = compare(what, out, ref, limit, rule)
                 if dtype != torch.bfloat16:
+                    expect_equal(f"K6 {what}", (out,),
+                                 (kc.fused_conv_layer(x, w, bias, ln),))
                     continue
                 tiled = kc.fused_conv_layer_tiled_plain(x, w, bias, ln)
                 compare(f"{what} vs tiled", out, tiled,
@@ -1238,8 +1260,7 @@ def check_train_kernels(randn, dev, records):
         got = kf.ffn_bwd(x, g, w1, b1, w2, act)
         ref = kf.ffn_bwd_plain(x, g, w1, b1, w2, act)
         torch.cuda.synchronize()
-        if x.dtype == bf16:
-            expect_equal(f"K8 {what}", got, kf.ffn_bwd(x, g, w1, b1, w2, act))
+        expect_equal(f"K8 {what}", got, kf.ffn_bwd(x, g, w1, b1, w2, act))
         edx = compare(f"K8 dx {what}", got[0], ref[0], allow_count=near * hh)
         edw = max(compare(f"K8 {name} {what}", o, r,
                           dw_tol[0] + dw_tol[1] * r.abs(), dw_rule,
@@ -2008,8 +2029,8 @@ DROPOUT_KERNELS = ("smx_dropout_mask", "smx_dense_dropout_res_ln",
                    "smx_ffn_dropout_res_ln", "smx_ffn_dropout",
                    "smx_ffn_dropout_up", "smx_ffn_dropout_down_res",
                    "smx_attention_dropout_fwd", "smx_attention_dropout_bwd",
-                   "smx_ffn_dropout_bwd_recompute", "smx_ffn_dropout_bwd_dx",
-                   "smx_ffn_dropout_bwd_dw")
+                   "smx_ffn_dropout_bwd_recompute",
+                   "smx_ffn_dropout_bwd_recompute_f32")
 # K4's serial body through its own entries: timed beside the cluster body
 # in phase 3, never launched by the path
 K4_SERIAL = ("smx_decode_attention_serial", "smx_decode_attention_q8_serial")
@@ -2035,14 +2056,14 @@ def ffn_forward_launches(k3, k9, dtype="bf16", dropout=False):
     want.update({up: k3 + k9, down_res: k3, "smx_res_ln_rows": k3,
                  "smx_ffn_down": k9})
     return want
-# K8's entries by compute dtype: bf16 the recompute pass and the products
-# (shared by the dropout twin), f32 the two f32-FMA entries
+# K8's entries by compute dtype: the recompute pass and the products
+# (shared by the dropout twin), in f32 their f32 entries
 K8_ENTRIES = {"bf16": ("smx_ffn_bwd_recompute", "smx_ffn_bwd_products"),
-              "f32": ("smx_ffn_bwd_dx", "smx_ffn_bwd_dw")}
+              "f32": ("smx_ffn_bwd_recompute_f32", "smx_ffn_bwd_products_f32")}
 K8_DROPOUT_ENTRIES = {"bf16": ("smx_ffn_dropout_bwd_recompute",
                                "smx_ffn_bwd_products"),
-                      "f32": ("smx_ffn_dropout_bwd_dx",
-                              "smx_ffn_dropout_bwd_dw")}
+                      "f32": ("smx_ffn_dropout_bwd_recompute_f32",
+                              "smx_ffn_bwd_products_f32")}
 K8_ALL = sorted({e for d in (K8_ENTRIES, K8_DROPOUT_ENTRIES)
                  for v in d.values() for e in v})
 # f32 kernel path against f32 plain path on the flagship: share of equal
@@ -3125,9 +3146,10 @@ FWD_KERNELS = ("ffn_pass_kernel", "res_ln_rows_kernel")
 ATTN_BWD_KERNELS = ("attention_bwd_delta_kernel", "dkdv_kernel", "dq_kernel")
 # K2 / K11 in bf16 (dense_res_ln.cu)
 DENSE_KERNEL = "dense_ln_kernel"
-# K1 / K14 and K6 in bf16 (attention_fwd.cu, conv_ln_gelu.cu)
+# K1 / K14 in bf16 (attention_fwd.cu) and K6 (conv_ln_gelu.cu: conv_kernel<
+# dtype, columns a block, LayerNorm>)
 ATTN_FWD_KERNEL = "attention_fwd_tc_kernel"
-CONV_KERNEL = "conv_tc_kernel"
+CONV_KERNEL = "conv_kernel"
 # K4: the cluster body (bf16 q, 128 < T <= 2048) and the serial body (f32
 # q, the 64-slot self-attention cache, T > 2048)
 DECODE_KERNELS = ("decode_cluster_kernel", "decode_attention_kernel")
@@ -6699,9 +6721,9 @@ T5_3B_CROSS = (16, 400, 32, 128)
 # the f32 FFN / epilogue widths (XLS-R 1B, XLS-R 2B) at the rows of the XL
 # pair's f32 gradient (8 x 8 s: 8 x 399 frames, rounded up)
 F32_WIDTHS, F32_ROWS = (1280, 1920), 3200
-# K6 in bf16 off the tensor-core kernel's 512: tiny-speech's 32 (no
-# LayerNorm, 4 s of audio into layer 1) and 256 with LayerNorm
-BF16_CONV_CASES = ((32, 12799, False), (256, 3199, True))
+# K6 in bf16 off the flagship's 512: tiny-speech's 32 (no LayerNorm, 4 s
+# of audio into layer 1), 256 and 1024 (a cluster of 8) with LayerNorm
+BF16_CONV_CASES = ((32, 12799, False), (256, 3199, True), (1024, 801, True))
 
 
 @contextlib.contextmanager
@@ -6730,7 +6752,8 @@ def width_tallies():
     return ((ka.KERNEL, 4), (ka.DROPOUT_KERNEL, 4), (ka.BWD_KERNEL, 4),
             (ka.DROPOUT_BWD_KERNEL, 4), (kd.KERNEL, 4), (kd.KERNEL_Q8, 4),
             (kc.KERNEL, 2), (kf.FFN_FUSED, 1), (kf.FFN_RES_LN, 1),
-            (kf.FFN_BWD_DX, 1), (kf.FFN_BWD_DW, 1), (kf.DENSE_RES_LN, 2))
+            (kf.FFN_BWD_RECOMPUTE_F32, 1), (kf.FFN_BWD_PRODUCTS_F32, 1),
+            (kf.DENSE_RES_LN, 2))
 
 
 def _int8_kv(gen, dev, bkv, t, heads, d):
@@ -7003,7 +7026,7 @@ def check_head_widths(randn, gen, dev, records):
         # f32 gradient); its pre-LN layers take no K2 / K3, and 1920 runs
         # only here
         common = dict(width=h, peak_flops=PEAK_F32_FLOPS)
-        shape = f"{what} (f32 reference runs)"
+        shape = f"{what} (the f32 path)"
         records[f"ffn_fused (f32, H={h})"] = dict(
             shape=shape, max_abs_err=e9, on_path=h == 1280, **common,
             ms=cuda_ms(k9, iters=5), plain_ms=cuda_ms(lambda: kf.ffn_fused_plain(
@@ -7031,7 +7054,7 @@ def check_head_widths(randn, gen, dev, records):
                 gamma, beta, 1e-5), iters=5),
             flops=ffn_flops, bytes=(3 * n * h + 2 * h * f) * 4 + (f + 3 * h) * 4)
         records[f"dense_res_ln (f32, H={h})"] = dict(
-            shape=f"N={n} Din=H={h} f32 (f32 reference runs)",
+            shape=f"N={n} Din=H={h} f32 (the f32 path)",
             max_abs_err=e2, on_path=False, **common, ms=cuda_ms(k2, iters=5),
             plain_ms=cuda_ms(lambda: kf.dense_res_ln_plain(
                 x, w, b2, res, gamma, beta), iters=5),
@@ -7089,6 +7112,534 @@ def check_head_widths(randn, gen, dev, records):
         x, w1, randn(256), w2, randn(2176)))
     log(f"head widths and f32 / bf16 widths: "
         f"{time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# the f32 path: SpeechMixConfig.dtype's default, what the eval command always
+# runs and the train command runs without --bf16
+# ---------------------------------------------------------------------------
+
+# the attention shapes of the flagship's f32 path: (record suffix, B, T,
+# causal): speech encoder, text encoder, decoder self-attention (the train
+# step's; generate decodes through K4)
+F32_ATTN = (("", BATCH, 800, False), (", text encoder", BATCH, 400, False),
+            (", decoder, causal", BATCH, 64, True))
+# its row counts: speech encoder, text encoder, decoder (64 label positions)
+F32_PATH_ROWS = (12800, 6400, 1024)
+# the K8 f32 body against its plain version at every flagship width
+K8_F32_WIDTHS = (256, 512, 768, 1024, 1280, 1920)
+F32_CALLS = 4          # a warm-up call, then three timed
+
+
+def port_kernel_names():
+    """The names of the __global__ functions of the port's CUDA sources, as
+    a regex that finds them in the profiler's kernel names."""
+    from speechmix_tpu_torch.ops.kernels import _cuda
+    names = set()
+    for path in sorted(_cuda.CSRC.glob("*.cu")):
+        for decl in re.findall(r"__global__([^{;]*)\{", path.read_text()):
+            calls = [n for n in re.findall(r"(\w+)\s*\(", decl)
+                     if n not in ("__launch_bounds__", "sizeof")]
+            if calls:
+                names.add(calls[-1])
+    return re.compile(r"(?<!\w)(" + "|".join(sorted(names)) + r")(?=[<(])")
+
+
+def f32_ms(fn, budget_ms=120.0):
+    """cuda_ms with as many calls (2 to 20) as fit in about budget_ms, from
+    one timed warm-up call."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    fn()
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    once = max(start.elapsed_time(end), 1e-3)
+    return cuda_ms(fn, iters=int(max(2, min(20, budget_ms / once))), warmup=0)
+
+
+def f32_path_rows():
+    """The `kernels` line's entries of check_f32_rows' records: name ->
+    (source, TPU kernel file:line, the f32 run that launches it, entry)."""
+    fa, fb = "flash_attention_kernel.py", "ffn_kernel.py"
+    rows = {}
+    for suffix, _, t, causal in F32_ATTN:
+        plain_mode = "f32-train-no-dropout" if causal else "f32-greedy"
+        rows.update({
+            f"attention_fwd (f32{suffix})": (
+                "attention_fwd.cu", f"{fa}:985", plain_mode,
+                "smx_attention_fwd"),
+            f"attention_dropout_fwd (f32{suffix})": (
+                "attention_fwd.cu", f"{fa}:727", "f32-train",
+                "smx_attention_dropout_fwd"),
+            f"attention_bwd (f32{suffix})": (
+                "attention_bwd.cu", f"{fa}:378", "f32-train-no-dropout",
+                "smx_attention_bwd"),
+            f"attention_dropout_bwd (f32{suffix})": (
+                "attention_bwd.cu", f"{fa}:815", "f32-train",
+                "smx_attention_dropout_bwd")})
+    for n in F32_PATH_ROWS:
+        rows.update({
+            f"dense_res_ln (f32, N={n})": (
+                "dense_res_ln.cu", f"{fb}:381", "f32-greedy" if n > 1024
+                else "f32-train-no-dropout", "smx_dense_res_ln"),
+            f"dense_dropout_res_ln (f32, N={n})": (
+                "dense_res_ln.cu", f"{fb}:1097", "f32-train",
+                "smx_dense_dropout_res_ln"),
+            f"ffn_bwd (f32, N={n})": (
+                "ffn_bwd.cu", f"{fb}:631", "f32-train-no-dropout",
+                "smx_ffn_bwd_recompute_f32"),
+            f"ffn_dropout_bwd (f32, N={n})": (
+                "ffn_bwd.cu", f"{fb}:700", "f32-train",
+                "smx_ffn_dropout_bwd_recompute_f32")})
+    n = F32_PATH_ROWS[0]
+    rows.update({
+        f"ffn_res_ln (f32, N={n})": ("ffn_res_ln.cu", f"{fb}:203",
+                                     "f32-greedy", "smx_ffn_res_ln"),
+        f"ffn_fused (f32, N={n})": ("ffn_res_ln.cu", f"{fb}:128",
+                                    "f32-train-no-dropout", "smx_ffn_fused"),
+        f"ffn_dropout_res_ln (f32, N={n})": (
+            "ffn_res_ln.cu", f"{fb}:1016", "f32-train",
+            "smx_ffn_dropout_res_ln"),
+        f"ffn_dropout (f32, N={n})": ("ffn_res_ln.cu", f"{fb}:945",
+                                      "f32-train", "smx_ffn_dropout"),
+        **{f"decode_attention (f32, {name})": (
+            "decode_attention.cu", "decode_attention.py:31", "f32-greedy",
+            "smx_decode_attention") for name in ("cross greedy",
+                                                  "self greedy")},
+        **{f"conv_ln_gelu (f32, layer {layer})": (
+            "conv_ln_gelu.cu", "conv_extractor.py:88", "f32-greedy",
+            "smx_conv_ln_gelu") for layer in range(1, 7)}})
+    return rows
+
+
+def check_k8_f32_body(randn, dev):
+    """K8's f32 body (the f32 recompute pass, then the f32 products) at every
+    flagship width, 1000 rows (a ragged row tile, one row range), with and
+    without the activation mask, against its plain version at K8's f32
+    limits, and twice, bit for bit."""
+    import torch
+    from speechmix_tpu_torch.ops.kernels import dropout as kdrop
+    from speechmix_tpu_torch.ops.kernels import ffn as kf
+    key = kdrop.DropoutKey.from_seed(20261019)
+    n, rate = 1000, DROP_RATE
+    log(f"K8 f32 body at H = {K8_F32_WIDTHS}, N = {n}, with and without the "
+        f"activation mask (rate {rate})")
+    for h in K8_F32_WIDTHS:
+        f = 4 * h
+        x, g = randn(n, h), randn(n, h)
+        w1, w2 = randn(h, f, scale=0.03), randn(f, h, scale=0.03)
+        b1 = randn(f, scale=0.1)
+        amask = kdrop.dropout_mask_plain(key, kdrop.STREAM_ACT, n, f, rate,
+                                         dev)
+        for r, call, ref in (
+                (0.0, lambda: kf.ffn_bwd(x, g, w1, b1, w2),
+                 kf.ffn_bwd_plain(x, g, w1, b1, w2)),
+                (rate, lambda: kf.ffn_dropout_bwd(x, g, w1, b1, w2, key,
+                                                  rate),
+                 kf.ffn_bwd_plain(x, g, w1, b1, w2, amask=amask))):
+            got = call()
+            torch.cuda.synchronize()
+            what = f"K8 f32 N={n} H={h} F={f} rate={r}"
+            tol = _dropout_tol(TOL["float32"], r)
+            dw = _dropout_tol(K8_DW_F32_TOL, r)
+            compare(f"{what} dx", got[0], ref[0], tol[0] + tol[1] *
+                    ref[0].abs(), f"atol {tol[0]:.4g}, rtol {tol[1]:.4g}")
+            for name, o, rr in zip(("dw1", "db1", "dw2"), got[1:4],
+                                   ref[1:4]):
+                compare(f"{what} {name}", o, rr, dw[0] + dw[1] * rr.abs(),
+                        f"atol {dw[0]:.4g}, rtol {dw[1]:.4g}")
+            expect_equal(what, got, call())
+        del x, g, w1, w2, amask
+
+
+def _f32_row(records, name, shape, err, kernel, plain, library, flops,
+             nbytes, **at):
+    records[name] = dict(
+        shape=f"{shape} f32", max_abs_err=err, ms=f32_ms(kernel),
+        plain_ms=f32_ms(plain), library_ms=f32_ms(library), flops=flops,
+        bytes=nbytes, peak_flops=PEAK_F32_FLOPS, **at)
+
+
+def check_f32_rows(randn, dev, records):
+    """The f32 rows of phase 3: every kernel of the flagship's f32 path (the
+    f32 greedy generate and train step, B = 16 x 16 s) at that path's
+    shapes, each against its plain version, then timed beside its plain
+    version and one library call in full f32 (TF32 off): K1 / K14 / K7 /
+    K15 at F32_ATTN; K2 / K11 at F32_PATH_ROWS; K3 / K9 / K12 / K13 at
+    12800 rows; K4 with an f32 q (cross greedy at T = 400, self at 64); K6
+    at the six extractor layers (C = 512, without LayerNorm as the
+    flagship, and with it); K8 with and without the activation mask at
+    F32_PATH_ROWS."""
+    import torch
+    import torch.nn.functional as F
+    from speechmix_tpu_torch.ops.kernels import attention as ka
+    from speechmix_tpu_torch.ops.kernels import conv_extractor as kc
+    from speechmix_tpu_torch.ops.kernels import dropout as kdrop
+    from speechmix_tpu_torch.ops.kernels import ffn as kf
+
+    t_phase = time.perf_counter()
+    heads, d, scale, rate = 12, 64, 0.125, DROP_RATE
+    key = kdrop.DropoutKey.from_seed(20261019)
+    tol_d = _dropout_tol(TOL["float32"], rate)
+    rule_d = f"atol {tol_d[0]:.4g}, rtol {tol_d[1]:.4g} (TOL / (1-r))"
+    lim_d = lambda r: tol_d[0] + tol_d[1] * r.abs()  # noqa: E731
+    log("f32 rows: the flagship's f32 path at its shapes, rate "
+        f"{rate} where a mask enters")
+    for suffix, b, t, causal in F32_ATTN:
+        mask = torch.ones(b, t, dtype=torch.bool, device=dev)
+        q, k, v, g = (randn(b, t, heads * d) for _ in range(4))
+        qh, kh, vh = (x_.view(b, t, heads, d).transpose(1, 2).detach()
+                      .requires_grad_() for x_ in (q, k, v))
+        gh = g.view(b, t, heads, d).transpose(1, 2)
+        sdpa = lambda p: F.scaled_dot_product_attention(  # noqa: E731
+            qh, kh, vh, dropout_p=p, is_causal=causal, scale=scale)
+        dmask = lambda: kdrop.attention_mask_plain(  # noqa: E731
+            key, b, heads, t, t, rate, dev)
+        what = f"B={b} T={t} H={heads} D={d} causal={causal}"
+        allowed = b * t * (t + 1) // 2 if causal else b * t * t
+        io = 4 * b * t * heads * d * 4 + b * t
+        common = dict(length=t)
+        k1 = lambda: ka.attention_fwd(q, k, v, mask, heads, scale, causal)
+        p1 = lambda: ka.attention_fwd_plain(q, k, v, mask, heads, scale,
+                                            causal)
+        e1 = compare(f"K1 {what} f32", k1(), p1())
+        _f32_row(records, f"attention_fwd (f32{suffix})", what, e1, k1, p1,
+                 lambda: sdpa(0.0).detach(), 4.0 * heads * d * allowed, io,
+                 **common)
+        k14 = lambda: ka.attention_dropout_fwd(q, k, v, mask, heads, scale,
+                                               causal, key, rate)
+        p14 = lambda: ka.attention_fwd_plain(q, k, v, mask, heads, scale,
+                                             causal, dmask=dmask())
+        ref = p14()
+        e14 = compare(f"K14 {what} f32", k14(), ref, lim_d(ref), rule_d)
+        _f32_row(records, f"attention_dropout_fwd (f32{suffix})",
+                 f"{what}, rate {rate}", e14, k14, p14,
+                 lambda: sdpa(rate).detach(), 4.0 * heads * d * allowed, io,
+                 **common)
+        out, lse = ka.attention_fwd(q, k, v, mask, heads, scale, causal,
+                                    return_lse=True)
+        k7 = lambda: ka.attention_bwd(q, k, v, mask, out, lse, g, heads,
+                                      scale, causal)
+        p7 = lambda: ka.attention_bwd_plain(q, k, v, mask, g, heads, scale,
+                                            causal)
+        e7 = max(compare(f"K7 {n_} {what} f32", o, r)
+                 for n_, o, r in zip(("dq", "dk", "dv"), k7(), p7()))
+        lib_out = sdpa(0.0)
+        bwd_io = 8 * b * t * heads * d * 4 + b * heads * t * 4 + b * t
+        _f32_row(records, f"attention_bwd (f32{suffix})", what, e7, k7, p7,
+                 lambda: torch.autograd.grad(lib_out, (qh, kh, vh), gh,
+                                             retain_graph=True),
+                 10.0 * heads * d * allowed, bwd_io, **common)
+        out_d, lse_d = ka.attention_dropout_fwd(
+            q, k, v, mask, heads, scale, causal, key, rate, return_lse=True)
+        k15 = lambda: ka.attention_dropout_bwd(
+            q, k, v, mask, out_d, lse_d, g, heads, scale, causal, key, rate)
+        p15 = lambda: ka.attention_bwd_plain(q, k, v, mask, g, heads, scale,
+                                             causal, dmask())
+        e15 = max(compare(f"K15 {n_} {what} f32", o, r, lim_d(r), rule_d)
+                  for n_, o, r in zip(("dq", "dk", "dv"), k15(), p15()))
+        lib_out = sdpa(rate)
+        _f32_row(records, f"attention_dropout_bwd (f32{suffix})",
+                 f"{what}, rate {rate}", e15, k15, p15,
+                 lambda: torch.autograd.grad(lib_out, (qh, kh, vh), gh,
+                                             retain_graph=True),
+                 10.0 * heads * d * allowed, bwd_io, **common)
+        del q, k, v, g, qh, kh, vh, out, lse, out_d, lse_d, lib_out, ref
+
+    h, f = 768, 3072
+    omask = lambda n: kdrop.dropout_mask_plain(  # noqa: E731
+        key, kdrop.STREAM_OUT, n, h, rate, dev)
+    amask = lambda n: kdrop.dropout_mask_plain(  # noqa: E731
+        key, kdrop.STREAM_ACT, n, f, rate, dev)
+    dw_tol = _dropout_tol(K8_DW_F32_TOL, rate)
+    for n in F32_PATH_ROWS:
+        x, g, res = randn(n, h), randn(n, h), randn(n, h)
+        w = randn(h, h, scale=0.03)
+        w1, w2 = randn(h, f, scale=0.03), randn(f, h, scale=0.03)
+        b1, b2, beta = randn(f, scale=0.1), randn(h, scale=0.1), randn(
+            h, scale=0.1)
+        gamma = randn(h, scale=0.1) + 1.0
+        wt, w1t, w2t = w.t(), w1.t(), w2.t()
+        what = f"N={n} H={h}"
+        k2 = (x, w, b2, res, gamma, beta)
+        e2 = compare(f"K2 {what} f32", kf.dense_res_ln(*k2),
+                     kf.dense_res_ln_plain(*k2))
+        dense_io = (3 * n * h + h * h) * 4 + 3 * h * 4
+        _f32_row(records, f"dense_res_ln (f32, N={n})", f"{what} Din=H", e2,
+                 lambda: kf.dense_res_ln(*k2),
+                 lambda: kf.dense_res_ln_plain(*k2),
+                 lambda: F.layer_norm(res + F.linear(x, wt, b2), (h,),
+                                      gamma, beta, 1e-5),
+                 2.0 * n * h * h, dense_io, rows=n)
+        ref = kf.dense_dropout_res_ln_plain(*k2, omask(n))
+        e11 = compare(f"K11 {what} f32", kf.dense_dropout_res_ln(
+            *k2, key, rate), ref, lim_d(ref), rule_d)
+        _f32_row(records, f"dense_dropout_res_ln (f32, N={n})",
+                 f"{what} Din=H, rate {rate}", e11,
+                 lambda: kf.dense_dropout_res_ln(*k2, key, rate),
+                 lambda: kf.dense_dropout_res_ln_plain(*k2, omask(n)),
+                 lambda: F.layer_norm(res + F.dropout(F.linear(x, wt, b2),
+                                                      rate), (h,), gamma,
+                                      beta, 1e-5),
+                 2.0 * n * h * h, dense_io, rows=n)
+        what = f"N={n} H={h} F={f} gelu"
+        ffn_io = (2 * n * h + 2 * h * f) * 4 + (f + h) * 4
+        lib_ffn = lambda drop: F.linear(  # noqa: E731
+            F.dropout(F.gelu(F.linear(x, w1t, b1)), drop), w2t, b2)
+        if n == F32_PATH_ROWS[0]:
+            k3 = (x, w1, b1, w2, b2, res, gamma, beta)
+            e3 = compare(f"K3 {what} f32", kf.ffn_res_ln(*k3),
+                         kf.ffn_res_ln_plain(*k3))
+            _f32_row(records, f"ffn_res_ln (f32, N={n})", what, e3,
+                     lambda: kf.ffn_res_ln(*k3),
+                     lambda: kf.ffn_res_ln_plain(*k3),
+                     lambda: F.layer_norm(res + lib_ffn(0.0), (h,), gamma,
+                                          beta, 1e-5),
+                     4.0 * n * h * f, ffn_io + (n * h + 2 * h) * 4, rows=n)
+            k9 = (x, w1, b1, w2, b2)
+            e9 = compare(f"K9 {what} f32", kf.ffn_fused(*k9),
+                         kf.ffn_fused_plain(*k9))
+            _f32_row(records, f"ffn_fused (f32, N={n})", what, e9,
+                     lambda: kf.ffn_fused(*k9),
+                     lambda: kf.ffn_fused_plain(*k9),
+                     lambda: lib_ffn(0.0), 4.0 * n * h * f, ffn_io, rows=n)
+            ref = kf.ffn_dropout_res_ln_plain(*k3, amask(n), omask(n))
+            e12 = compare(f"K12 {what} f32", kf.ffn_dropout_res_ln(
+                *k3, key, rate, rate), ref, lim_d(ref), rule_d)
+            _f32_row(records, f"ffn_dropout_res_ln (f32, N={n})",
+                     f"{what}, rates {rate}", e12,
+                     lambda: kf.ffn_dropout_res_ln(*k3, key, rate, rate),
+                     lambda: kf.ffn_dropout_res_ln_plain(*k3, amask(n),
+                                                         omask(n)),
+                     lambda: F.layer_norm(res + F.dropout(lib_ffn(rate),
+                                                          rate), (h,),
+                                          gamma, beta, 1e-5),
+                     4.0 * n * h * f, ffn_io + (n * h + 2 * h) * 4, rows=n)
+            ref = kf.ffn_dropout_plain(*k9, amask(n))
+            e13 = compare(f"K13 {what} f32", kf.ffn_dropout(*k9, key, rate),
+                          ref, lim_d(ref), rule_d)
+            _f32_row(records, f"ffn_dropout (f32, N={n})",
+                     f"{what}, rate {rate}", e13,
+                     lambda: kf.ffn_dropout(*k9, key, rate),
+                     lambda: kf.ffn_dropout_plain(*k9, amask(n)),
+                     lambda: lib_ffn(rate), 4.0 * n * h * f, ffn_io, rows=n)
+        lx = x.detach().requires_grad_()
+        lw1, lw2 = (w_.t().contiguous().requires_grad_() for w_ in (w1, w2))
+        lb1 = b1.detach().requires_grad_()
+        k8_io = (3 * n * h + 2 * h * f) * 4 + f * 4 + (2 * h * f + f) * 4
+        for r in (0.0, rate):
+            if r:
+                k8 = lambda: kf.ffn_dropout_bwd(x, g, w1, b1, w2, key, rate)
+                p8 = lambda: kf.ffn_bwd_plain(x, g, w1, b1, w2,
+                                              amask=amask(n))
+            else:
+                k8 = lambda: kf.ffn_bwd(x, g, w1, b1, w2)
+                p8 = lambda: kf.ffn_bwd_plain(x, g, w1, b1, w2)
+            lib_y = F.linear(F.dropout(F.gelu(F.linear(lx, lw1, lb1)), r),
+                             lw2, b2)
+            got, ref = k8(), p8()
+            tol = _dropout_tol(TOL["float32"], r)
+            dw = _dropout_tol(K8_DW_F32_TOL, r)
+            e8 = compare(f"K8 dx {what} rate={r} f32", got[0], ref[0],
+                         tol[0] + tol[1] * ref[0].abs(),
+                         f"atol {tol[0]:.4g}, rtol {tol[1]:.4g}")
+            for name_, o, rr in zip(("dw1", "db1", "dw2"), got[1:4],
+                                    ref[1:4]):
+                e8 = max(e8, compare(f"K8 {name_} {what} rate={r} f32", o, rr,
+                                     dw[0] + dw[1] * rr.abs(),
+                                     f"atol {dw[0]:.4g}, rtol {dw[1]:.4g}"))
+            del got, ref
+            _f32_row(records, f"ffn_{'dropout_' if r else ''}bwd (f32, N={n})",
+                     f"{what}, dx + dw" + (f", rate {r}" if r else ""), e8,
+                     k8, p8, lambda: torch.autograd.grad(
+                         lib_y, (lx, lw1, lb1, lw2), g, retain_graph=True),
+                     10.0 * n * h * f, k8_io, rows=n)
+            del lib_y
+        del x, g, res, w, w1, w2, lx, lw1, lw2, lb1
+
+    from speechmix_tpu_torch.ops.kernels import decode_attention as kd
+    for name, t in (("cross greedy", 400), ("self greedy", 64)):
+        mask = decode_mask(name, BATCH, t, dev)
+        q = randn(BATCH, 1, heads, d)
+        k, v = (randn(BATCH, t, heads, d) for _ in range(2))
+        err = check_decode_case(f"K4 {name} T={t} f32", q, k, v, mask, {})
+        rec = decode_record(name, "float", q, k, v, mask, {}, err, scale,
+                            DECODER_LAYERS if t == 400 else 1)
+        rec.pop("serial_ms")   # an f32 q takes the serial body
+        records[f"decode_attention (f32, {name})"] = dict(
+            rec, peak_flops=PEAK_F32_FLOPS)
+
+    c = 512
+    for layer, (t_in, k) in enumerate(extractor_geometry(), start=1):
+        b = BATCH
+        x = randn(b, t_in, c)
+        w = randn(c, c, k, scale=(k * c) ** -0.5)
+        bias = randn(c, scale=0.1)
+        xt = x.transpose(1, 2).contiguous()
+        n = b * ((t_in - k) // 2 + 1)
+        for ln in (None, {"scale": randn(c, scale=0.1) + 1.0,
+                          "bias": randn(c, scale=0.1)}):
+            what = f"x ({b}, {t_in}, {c}) k={k} stride 2, " + (
+                "LayerNorm" if ln else "no LayerNorm")
+            k6 = lambda: kc.fused_conv_layer(x, w, bias, ln)
+            p6 = lambda: kc.fused_conv_layer_plain(x, w, bias, ln)
+
+            def library():
+                y = F.conv1d(xt, w, bias, stride=2)
+                if ln is not None:
+                    y = F.layer_norm(y.transpose(1, 2), (c,), ln["scale"],
+                                     ln["bias"])
+                return F.gelu(y)
+            e6 = compare(f"K6 {what} f32", k6(), p6())
+            _f32_row(records, f"conv_ln_gelu (f32, layer {layer}" +
+                     (", LayerNorm)" if ln else ")"), what, e6, k6, p6,
+                     library, 2.0 * n * k * c * c,
+                     (x.numel() + n * c + w.numel()) * 4 + 3 * c * 4,
+                     t_in=t_in)
+        del x, xt
+    log(f"f32 rows: {time.perf_counter() - t_phase:.1f} s")
+
+
+def run_f32_flagship(seed, card, check=True):
+    """The flagship's f32 path end to end at B = 16 x 16 s: greedy generate
+    (64 steps) and the default recipe's train step (Adafactor, dropout on,
+    the presets' rates, SpecAugment and LayerDrop), each a warm-up call and
+    three timed (median), its peak memory and one profiled call's busy
+    share and the port's kernels' device ms beside the wall time; then one
+    step with dropout off (the train command's --no-dropout), whose
+    launches the deterministic f32 entries' rows read.  `check`: hold each
+    call's launches against the expected counts (off for a tree whose
+    entries are named otherwise).  Returns ({mode: launches of the last
+    call}, {mode: launches by (entry, T / rows / T_in)})."""
+    import torch
+    from speechmix_tpu_torch import generation
+    from speechmix_tpu_torch.models import speech_encoder
+    from speechmix_tpu_torch.ops import kernels
+    from speechmix_tpu_torch.ops.kernels import attention as ka
+    from speechmix_tpu_torch.ops.kernels import conv_extractor as kc
+    from speechmix_tpu_torch.ops.kernels import decode_attention as kd
+    from speechmix_tpu_torch.ops.kernels import ffn as kf
+    from speechmix_tpu_torch.training import trainer
+
+    t_phase = time.perf_counter()
+    ours = port_kernel_names()
+    pairs = [(kern, offset) for kern, offset in (
+        (ka.KERNEL, 1), (ka.DROPOUT_KERNEL, 1), (ka.BWD_KERNEL, 1),
+        (ka.DROPOUT_BWD_KERNEL, 1), (kd.KERNEL, 2), (kc.KERNEL, 1),
+        (kf.DENSE_RES_LN, 0), (kf.DENSE_DROPOUT_RES_LN, 0),
+        (kf.FFN_RES_LN, 0), (kf.FFN_FUSED, 0), (kf.FFN_DROPOUT_RES_LN, 0),
+        (kf.FFN_DROPOUT, 0), (getattr(kf, "FFN_BWD_RECOMPUTE_F32", None), 0),
+        (getattr(kf, "FFN_DROPOUT_BWD_RECOMPUTE_F32", None), 0))
+        if kern is not None]
+    counts, shapes = {}, {}
+
+    def timed(label, mode, call, want, calls=F32_CALLS):
+        """calls of `call` (the first a warm-up), each holding its launches
+        against want() (None: no check); the median of the rest, the peak
+        memory, a profiled call's busy share and our kernels' device ms."""
+        times = []
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(calls):
+            expected = want() if want is not None else None
+            kernels.reset_launch_counts()
+            tally = collections.Counter()
+            with tallied(tally, pairs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                call()
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+            got = {k_.symbol: k_.launches for k_ in kernels.kernels()}
+            if check and expected is not None and got != expected:
+                raise AssertionError(f"{label} call {i}: launches {got}, "
+                                     f"expected {expected}")
+            if i:
+                times.append(dt)
+        peak = torch.cuda.max_memory_allocated()
+        counts[mode], shapes[mode] = got, dict(tally)
+        if not times:
+            log(f"  {label}: {dt * 1e3:.1f} ms, launches "
+                f"{ {k_: v for k_, v in got.items() if v} }")
+            return
+        med = sorted(times)[len(times) // 2]
+        wall_us, busy_us, events = profile_call(call)
+        mine = collections.Counter()
+        for e in events:
+            hit = ours.search(e.key)
+            if hit:
+                mine[hit.group(1)] += e.self_device_time_total
+        log(f"  {label}: {med * 1e3:.1f} ms (median of {len(times)}: "
+            f"{', '.join(f'{t_ * 1e3:.1f}' for t_ in times)}), audio-seconds "
+            f"per second {BATCH * SECONDS / med:.2f}, peak memory "
+            f"{peak / 2 ** 30:.2f} GiB; profiled call: wall "
+            f"{wall_us / 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms "
+            f"({busy_us / wall_us:.3f} of wall), the port's kernels "
+            f"{sum(mine.values()) / 1e3:.1f} ms of it: " +
+            ", ".join(f"{n_} {us / 1e3:.2f}" for n_, us in mine.most_common())
+            + f"; launches {({k_: v for k_, v in got.items() if v})} on "
+            f"{card}")
+
+    cfg, params, wav, lengths = flagship_inputs(seed)
+    p32 = _cast_tree(params, torch.float32)
+    del params
+    log(f"f32 path: flagship, float32 (SpeechMixConfig.dtype's default), "
+        f"B={BATCH} x {SECONDS} s")
+    want = expected_launches("greedy", MAX_LEN)
+    want.update(ffn_forward_launches(LAYERS_WITH_KERNELS, 0, "f32"))
+    out = []
+    with torch.no_grad():
+        timed(f"f32 greedy generate ({MAX_LEN} steps)", "f32-greedy",
+              lambda: out.append(generation.generate(
+                  p32, cfg, wav, lengths, max_length=MAX_LEN,
+                  dtype=torch.float32)[0]), lambda: want)
+    if out[-1].shape != (BATCH, MAX_LEN) or not all(
+            torch.equal(o, out[0]) for o in out):
+        raise AssertionError("f32 greedy generate: bad or unequal tokens")
+    del p32, out
+    torch.cuda.empty_cache()
+
+    dec = cfg.decoder
+    for mode, tc in (("f32-train", trainer.TrainConfig(seed=seed)),
+                     ("f32-train-no-dropout", trainer.TrainConfig(
+                         seed=seed, dropout=False))):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        state = trainer.create_train_state(gen, cfg, tc)
+        batch = _train_batch(cfg, gen, torch.device("cuda"), BATCH, SECONDS,
+                             TRAIN_LABELS)
+        step_fn = trainer.make_train_step(cfg, tc, state.params)
+        holder = [state]
+
+        def step():
+            holder[0], metrics = step_fn(holder[0], batch)
+            loss = metrics["loss"].item()
+            if not math.isfinite(loss):
+                raise AssertionError(f"{mode}: loss {loss}")
+
+        def want_step():
+            if not tc.dropout:
+                return expected_train_launches(
+                    cfg.num_speech_encoder_layers, dec.encoder_layers,
+                    dec.decoder_layers, dtype="f32")
+            skipped = layerdrop_replay(trainer, speech_encoder, tc, cfg,
+                                       holder[0].step)
+            return expected_dropout_train_launches(
+                cfg.num_speech_encoder_layers - len(skipped),
+                dec.encoder_layers, dec.decoder_layers, dtype="f32")
+        recipe = ("the default recipe: Adafactor, dropout on" if tc.dropout
+                  else "dropout off")
+        timed(f"f32 train step ({recipe})", mode, step, want_step,
+              F32_CALLS if tc.dropout else 1)
+        del state, holder, step_fn, batch
+        torch.cuda.empty_cache()
+    for mode, tally in shapes.items():
+        log(f"  {mode} launches by (entry, T / rows / T_in): " + ", ".join(
+            f"{k_[0]} {k_[1]}: {n_}" for k_, n_ in sorted(tally.items())))
+    log(f"f32 path phase: {time.perf_counter() - t_phase:.1f} s")
+    return counts, shapes
 
 
 # ---------------------------------------------------------------------------
@@ -7294,8 +7845,8 @@ def run_xl_pair(seed, card):
     _expect_widths("f32 gradient", tally, {
         ("smx_attention_fwd", d): 2, ("smx_attention_bwd", d): 2,
         ("smx_ffn_fused", enc.hidden_size): 2,
-        ("smx_ffn_bwd_dx", enc.hidden_size): 2,
-        ("smx_ffn_bwd_dw", enc.hidden_size): 2})
+        ("smx_ffn_bwd_recompute_f32", enc.hidden_size): 2,
+        ("smx_ffn_bwd_products_f32", enc.hidden_size): 2})
     widths["xl-f32-grad"] = dict(tally)
     log(f"XL pair phase: {time.perf_counter() - t_phase:.1f} s")
     return counts, widths
@@ -7428,6 +7979,9 @@ def main():
     records = check_kernels(gen, torch.device("cuda"))
     counts, by_length = run_flagship(args.seed, card)
     counts.update(run_generate_modes(args.seed, card))
+    f32_counts, f32_shapes = run_f32_flagship(args.seed, card)
+    counts.update(f32_counts)
+    by_length.update(f32_shapes)
     check_gradient_tree(args.seed)
     check_gradient_tree(args.seed, dropout=True)
     counts["train"], by_length["train"] = run_training(args.seed, card)
@@ -7661,7 +8215,8 @@ def main():
                                        "xl-f32-grad", "smx_ffn_fused")
            for h in F32_WIDTHS},
         **{f"ffn_bwd (f32, H={h})": ("ffn_bwd.cu", "ffn_kernel.py:631",
-                                     "xl-f32-grad", "smx_ffn_bwd_dx")
+                                     "xl-f32-grad",
+                                     "smx_ffn_bwd_recompute_f32")
            for h in F32_WIDTHS},
         **{f"ffn_res_ln (f32, H={h})": ("ffn_res_ln.cu", "ffn_kernel.py:203",
                                         "xl-f32-grad", "smx_ffn_res_ln")
@@ -7669,6 +8224,10 @@ def main():
         **{f"dense_res_ln (f32, H={h})": (
             "dense_res_ln.cu", "ffn_kernel.py:381", "xl-f32-grad",
             "smx_dense_res_ln") for h in F32_WIDTHS},
+        # the flagship's f32 path (check_f32_rows), the launches of its
+        # greedy generate, its default-recipe train step or its step with
+        # dropout off, at the row's length, rows or T_in
+        **f32_path_rows(),
         # K6 in bf16 off C = 512 (launches_at_width: at that C in the tiny
         # train command)
         **{f"conv_ln_gelu (bf16, C={c})": (

@@ -84,7 +84,7 @@
 //     workspace from the wrapper;
 //   * two consumer warpgroups per SM: one's softmax runs while the other's
 //     products do.
-// float32 (the f32 reference runs only): the same three passes on 64 x 64
+// float32 (the f32 path, the default dtype): the same three passes on 64 x 64
 // tiles staged in shared memory, the products as f32 FMAs (each thread a
 // 4 x 4 patch), bound by the CUDA cores.
 //

@@ -42,7 +42,7 @@
 // the online softmax: one exp and ~8 other operations per score (B*H*T*T,
 // 123 M), and for K14 one Philox-4x32-10 call per four scores, which costs
 // more than the softmax (PERF.md has the times).
-// Each dtype has one kernel: float32 inputs (the f32 reference runs) take
+// Each dtype has one kernel: float32 inputs (the f32 path, the default dtype) take
 // an f32-FMA kernel, bound by those FMAs.
 //
 // Head widths.  Both kernels are built for a padded width DP, 64 or 128

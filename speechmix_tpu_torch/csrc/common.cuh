@@ -106,8 +106,7 @@ __device__ __forceinline__ void block_row_sums(const float (&part)[BM][MAXC],
 // tid + j * NT of every row, accumulated in f32.  Mean and variance are taken
 // over the f32 sum, as the TPU kernels' epilogue does.  With DROP the sum is
 // (acc + bias) * mask(row, c) + res, the mask from `drop` (one Philox call
-// per element: the float32 kernels are the reference runs' and are not
-// tuned).
+// per element: these float32 kernels are f32-FMA bodies, not yet tuned).
 template <typename T, int BM, int MAXC, int NT, bool DROP = false>
 __device__ __forceinline__ void res_ln_epilogue(
     float (&acc)[BM][MAXC], const float* __restrict__ bias,

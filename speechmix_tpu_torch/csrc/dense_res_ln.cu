@@ -34,7 +34,8 @@
 // neighbouring threads on neighbouring columns.  The epilogue adds b and res,
 // takes mean and variance per row with warp shuffles and a shared-memory
 // reduction, and stores each output element once.  Rows past n are masked;
-// no padding is needed.  It serves the f32 reference runs and is not tuned.
+// no padding is needed.  It serves the f32 path (the default dtype) and
+// is not yet tuned: ROADMAP Queue B ranks it among the f32-FMA bodies.
 // Above h = 1024 the same body holds 8 columns a thread and BM = 8 rows a
 // block (64 accumulator registers); h <= 1024 runs the body it always ran.
 //

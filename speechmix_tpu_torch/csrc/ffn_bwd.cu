@@ -36,19 +36,28 @@
 //     f32 partials are added in split order by a second kernel, and db1 is
 //     the ordered sum of the recompute's tile sums: no atomics, so two runs
 //     give the same bits.
-// float32 (the f32 reference runs only): smx_ffn_bwd_dx and smx_ffn_bwd_dw
-// (and their dropout twins) are f32-FMA kernels that recompute a and dh per
-// tile on the CUDA cores, bound by those; h <= 2048.  Above h = 1024 they
-// hold 8 columns of h a thread instead of 4, with 8 rows a block instead of
-// 16 (and dw 8 f columns a block instead of 16, its recompute on the first
-// 64 threads), so that the accumulators stay at 64 and 128 registers;
-// h <= 1024 runs the bodies it always ran.
+// float32, the compute dtype users run by default (SpeechMixConfig.dtype,
+// the eval command, the train command without --bf16): the same two
+// passes, smx_ffn_bwd_recompute_f32 (smx_ffn_dropout_bwd_recompute_f32 with
+// the mask) on (128, 64) tiles of (n, f) and smx_ffn_bwd_products_f32, with
+// f32-accurate products on the tensor cores: each operand is split into
+// tf32 halves in shared memory and each product is hi hi + hi lo + lo hi,
+// three tf32 wgmma into one f32 accumulator.  tf32 wgmma reads K-major
+// operands only, so the wrapper lays out w1^T, x^T and g^T per call and the
+// recompute writes da^T and h^T beside da: dw1 = x^T da and dw2 = h^T g
+// contract over rows that are then contiguous.  Any h (the wrapper pads h
+// to a multiple of 4; the wrapper admits h <= 2048), f % 16 == 0, any n.
 //
 // What bounds it on the H100: 10 n h f FLOPs (4 for the recompute, 6 for
-// the products) against ~0.5 GB at n = 12800, so the tensor cores: h and da
-// are formed once, and every operand load is kept off the math warps' path
-// (PERF.md).
-//
+// the products) against ~0.5 GB at n = 12800 (bf16; f32 twice the bytes),
+// so the tensor cores: h and da are formed once, and every operand load is
+// kept off the math warps' path (PERF.md).  In f32 the three tf32 products
+// at 495 TFLOP/s make 165 TFLOP/s of f32 work, beyond the CUDA cores' 67;
+// what the f32 body adds is the split (a read and two writes of each
+// stage's tiles in shared memory, overlapping the stage before's products)
+// and the f32 tiles' doubled shared memory, which leaves two stages in
+// flight in the recompute and three in the products.
+
 // x, g, dx: (n, h); w1: (h, f); w2: (f, h), row-major; b1: (f,) float32.
 // act: 0 gelu (erf), 1 gelu_new (tanh), 2 relu, 3 silu.  The launchers
 // refuse anything else.
@@ -60,202 +69,7 @@
 
 namespace {
 
-constexpr int NT = 256;
-constexpr int MAX_H = 8 * NT;  // f32: the widest h, 8 columns a thread
-
-// ---------------------------------------------------------------- float32 dx
-constexpr int FC = NT;  // f columns per chunk: one per thread
-
-// BM rows a block; h <= MAXC * NT
-template <int BM, int MAXC, bool DROP>
-__global__ void __launch_bounds__(NT)
-    ffn_bwd_dx_kernel(const float* __restrict__ x, const float* __restrict__ g,
-                      const float* __restrict__ w1, const float* __restrict__ b1,
-                      const float* __restrict__ w2, float* __restrict__ dx, int n,
-                      int h, int f, int act, smx::Dropout drop) {
-  extern __shared__ __align__(16) float smem[];
-  float* xs = smem;            // (h, BM): xs[k * BM + r]
-  float* gs = xs + h * BM;     // (h, BM)
-  float* das = gs + h * BM;    // (FC, BM): das[c * BM + r]
-  const int tid = threadIdx.x;
-  const int r0 = blockIdx.x * BM;
-
-  for (int i = tid; i < h * BM; i += NT) {
-    const int r = i / h, k = i % h;
-    const int row = r0 + r;
-    xs[k * BM + r] = row < n ? x[(long long)row * h + k] : 0.0f;
-    gs[k * BM + r] = row < n ? g[(long long)row * h + k] : 0.0f;
-  }
-  float acc[BM][MAXC];
-#pragma unroll
-  for (int r = 0; r < BM; ++r)
-#pragma unroll
-    for (int j = 0; j < MAXC; ++j) acc[r][j] = 0.0f;
-  __syncthreads();
-
-  for (int c0 = 0; c0 < f; c0 += FC) {
-    const int col = c0 + tid;
-    float av[BM], dv[BM];
-#pragma unroll
-    for (int r = 0; r < BM; ++r) av[r] = dv[r] = 0.0f;
-    if (col < f) {
-      const float* w2r = w2 + (long long)col * h;
-      for (int k = 0; k < h; ++k) {
-        const float wv = w1[(long long)k * f + col];
-        const float uv = w2r[k];
-        const float4* xr = reinterpret_cast<const float4*>(xs + k * BM);
-        const float4* gr = reinterpret_cast<const float4*>(gs + k * BM);
-#pragma unroll
-        for (int q = 0; q < BM / 4; ++q) {
-          const float4 xv = xr[q], gv = gr[q];
-          av[4 * q + 0] += xv.x * wv;
-          av[4 * q + 1] += xv.y * wv;
-          av[4 * q + 2] += xv.z * wv;
-          av[4 * q + 3] += xv.w * wv;
-          dv[4 * q + 0] += gv.x * uv;
-          dv[4 * q + 1] += gv.y * uv;
-          dv[4 * q + 2] += gv.z * uv;
-          dv[4 * q + 3] += gv.w * uv;
-        }
-      }
-      const float bias = b1[col];
-#pragma unroll
-      for (int r = 0; r < BM; ++r) {
-        dv[r] *= smx::dactivate(act, av[r] + bias);
-        if constexpr (DROP) dv[r] *= drop.at(r0 + r, col);
-      }
-    }
-    float4* dw = reinterpret_cast<float4*>(das + tid * BM);
-#pragma unroll
-    for (int q = 0; q < BM / 4; ++q) {
-      dw[q] = make_float4(dv[4 * q], dv[4 * q + 1], dv[4 * q + 2], dv[4 * q + 3]);
-    }
-    __syncthreads();
-
-    const int cend = min(FC, f - c0);
-    for (int cc = 0; cc < cend; ++cc) {
-      float wv[MAXC];
-#pragma unroll
-      for (int j = 0; j < MAXC; ++j) {
-        const int c = tid + j * NT;
-        wv[j] = c < h ? w1[(long long)c * f + c0 + cc] : 0.0f;
-      }
-      const float4* dr = reinterpret_cast<const float4*>(das + cc * BM);
-#pragma unroll
-      for (int q = 0; q < BM / 4; ++q) {
-        const float4 d4 = dr[q];
-#pragma unroll
-        for (int j = 0; j < MAXC; ++j) {
-          acc[4 * q + 0][j] += d4.x * wv[j];
-          acc[4 * q + 1][j] += d4.y * wv[j];
-          acc[4 * q + 2][j] += d4.z * wv[j];
-          acc[4 * q + 3][j] += d4.w * wv[j];
-        }
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int r = 0; r < BM; ++r) {
-    const int row = r0 + r;
-    if (row >= n) continue;
-#pragma unroll
-    for (int j = 0; j < MAXC; ++j) {
-      const int c = tid + j * NT;
-      if (c < h) dx[(long long)row * h + c] = acc[r][j];
-    }
-  }
-}
-
-// ---------------------------------------------------------------- float32 dw
-// WFC f columns and BM-row tiles a block (BM * WFC <= NT: the threads that
-// recompute one element each); h <= MAXC * NT
-template <int BM, int MAXC, int WFC, bool DROP>
-__global__ void __launch_bounds__(NT)
-    ffn_bwd_dw_kernel(const float* __restrict__ x, const float* __restrict__ g,
-                      const float* __restrict__ w1, const float* __restrict__ b1,
-                      const float* __restrict__ w2, float* __restrict__ out,
-                      int n, int h, int f, int act, int rows_per_split,
-                      smx::Dropout drop) {
-  extern __shared__ __align__(16) float smem[];
-  float* xs = smem;              // (BM, h)
-  float* gs = xs + BM * h;       // (BM, h)
-  float* hs = gs + BM * h;       // (BM, WFC)
-  float* das = hs + BM * WFC;    // (BM, WFC)
-  const int tid = threadIdx.x;
-  const int c0 = blockIdx.x * WFC;
-  const int row_begin = blockIdx.y * rows_per_split;
-  const int row_end = min(n, row_begin + rows_per_split);
-  const long long part = 2LL * h * f + f;
-  float* dw1 = out + blockIdx.y * part;
-  float* dw2 = dw1 + (long long)h * f;
-  float* db1 = dw2 + (long long)h * f;
-
-  float a1[MAXC][WFC], a2[WFC][MAXC], bsum = 0.0f;
-#pragma unroll
-  for (int j = 0; j < MAXC; ++j)
-#pragma unroll
-    for (int c = 0; c < WFC; ++c) a1[j][c] = a2[c][j] = 0.0f;
-  const int pr = tid / WFC, pc = tid % WFC;  // this thread's (row, column)
-  const float bias = b1[c0 + pc];
-  const float* w2r = w2 + (long long)(c0 + pc) * h;
-
-  for (int r0 = row_begin; r0 < row_end; r0 += BM) {
-    __syncthreads();  // the last tile's readers are done
-    for (int i = tid; i < BM * h; i += NT) {
-      const int row = r0 + i / h;
-      xs[i] = row < row_end ? x[(long long)row * h + i % h] : 0.0f;
-      gs[i] = row < row_end ? g[(long long)row * h + i % h] : 0.0f;
-    }
-    __syncthreads();
-    if (BM * WFC == NT || tid < BM * WFC) {
-      float a = 0.0f, dh = 0.0f;
-      for (int k = 0; k < h; ++k) {
-        a += xs[pr * h + k] * w1[(long long)k * f + c0 + pc];
-        dh += gs[pr * h + k] * w2r[k];
-      }
-      a += bias;
-      const float m = DROP ? drop.at(r0 + pr, c0 + pc) : 1.0f;
-      hs[pr * WFC + pc] = smx::activate(act, a) * m;
-      das[pr * WFC + pc] = dh * smx::dactivate(act, a) * m;
-    }
-    __syncthreads();
-    if (tid < WFC) {
-#pragma unroll
-      for (int r = 0; r < BM; ++r) bsum += das[r * WFC + tid];
-    }
-#pragma unroll 2
-    for (int r = 0; r < BM; ++r) {
-      float xv[MAXC], gv[MAXC];
-#pragma unroll
-      for (int j = 0; j < MAXC; ++j) {
-        const int c = tid + j * NT;
-        xv[j] = c < h ? xs[r * h + c] : 0.0f;
-        gv[j] = c < h ? gs[r * h + c] : 0.0f;
-      }
-#pragma unroll
-      for (int c = 0; c < WFC; ++c) {
-        const float dav = das[r * WFC + c], hv = hs[r * WFC + c];
-#pragma unroll
-        for (int j = 0; j < MAXC; ++j) {
-          a1[j][c] += xv[j] * dav;
-          a2[c][j] += hv * gv[j];
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < MAXC; ++j) {
-    const int hc = tid + j * NT;
-    if (hc >= h) continue;
-#pragma unroll
-    for (int c = 0; c < WFC; ++c) {
-      dw1[(long long)hc * f + c0 + c] = a1[j][c];
-      dw2[(long long)(c0 + c) * h + hc] = a2[c][j];
-    }
-  }
-  if (tid < WFC) db1[c0 + tid] = bsum;
-}
+constexpr int NT = 256;  // the reduction kernel's threads
 
 // ------------------------------------------------------------------ bfloat16
 namespace hw = smx::hopper;
@@ -486,7 +300,8 @@ struct Item {
   int rows, cols;  // of this item's output matrix
 };
 
-__device__ __forceinline__ Item decode(const ProductsArgs& p, int item) {
+template <typename Args>
+__device__ __forceinline__ Item decode(const Args& p, int item) {
   Item it;
   const int htiles = (p.h + TILE - 1) / TILE, ftiles = (p.f + TILE - 1) / TILE;
   if (item < p.dx_items) {
@@ -740,134 +555,423 @@ int products(const void* x, const void* g, const void* w1, const void* hid,
 }
 
 // ------------------------------------------------------------------ float32
-bool bad_shape(int n, int h, int f, int act) {
-  return h > MAX_H || h <= 0 || f <= 0 || n <= 0 || act < 0 || act > 3;
+// The bf16 structure on f32 operands: every product is hi hi + hi lo + lo hi
+// of tf32 halves (hopper.cuh: split_tf32, wgmma_tf32x3), the split made in
+// shared memory by the consumers as each stage lands.  tf32 wgmma takes
+// K-major operands only, so the recompute reads w1^T (f, h) and the
+// products read x^T, g^T (h, n) and the recompute's da^T and h^T (f, n), all
+// with rows `ldt` apart (n rounded up to 8: 16-byte TMA strides, 32-byte
+// rows for the transposed stores), beside da (n, f) for dx.
+constexpr int FBK = 32;                     // f32 elements in a 128-byte row
+constexpr int RC32_N = 64;                  // recompute tiles: 128 x 64 of (n, f)
+constexpr int RC32_STAGES = 2;
+constexpr int RC32_HI = 2 * BOX + 2 * HALF;  // x, g (128 rows), w1^T, w2 (64)
+constexpr int GEMM32_STAGES = 3;
+constexpr int GEMM32_HI = 2 * BOX;           // A, B (128 rows each)
+
+struct RecomputeF32Args {
+  CUtensorMap x, g;  // (n, h) in (128, 32) boxes
+  CUtensorMap w1t;   // w1^T (f, h) in (64, 32) boxes
+  CUtensorMap w2;    // (f, h) in (64, 32) boxes
+  const float* b1;
+  float* da;         // (n, f)
+  float* da_t;       // (f, ldt)
+  float* hid_t;      // (f, ldt)
+  float* colsum;     // (row tiles, f): column sums of da per 128-row tile
+  int n, h, f, ldt;
+  smx::Dropout drop;
+};
+
+constexpr size_t rc32_smem_bytes() {
+  return 1024 + (size_t)RC32_STAGES * 2 * RC32_HI +
+         8 * RC32_N * sizeof(float) + 2 * RC32_STAGES * sizeof(uint64_t);
 }
 
-template <int BM, int MAXC, bool DROP>
-int bwd_dx_rows(const void* x, const void* g, const void* w1, const float* b1,
-                const void* w2, void* dx, int n, int h, int f, int act,
-                smx::Dropout drop, cudaStream_t stream) {
-  const size_t smem = (size_t)(2 * h + FC) * BM * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      ffn_bwd_dx_kernel<BM, MAXC, DROP>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ffn_bwd_dx_kernel<BM, MAXC, DROP><<<(n + BM - 1) / BM, NT, smem, stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(g),
-      static_cast<const float*>(w1), b1, static_cast<const float*>(w2),
-      static_cast<float*>(dx), n, h, f, act, drop);
-  return static_cast<int>(cudaGetLastError());
+// one consumer thread's 2 x 16 elements of the block's (128, 64) tile: rows
+// wrow + 8 i, columns n0 + 8 j + 2 (lane % 4) + c; da by rows, da^T and
+// h^T by columns (each store of a warp fills four 32-byte sectors)
+template <int ACT, bool DROP>
+__device__ __forceinline__ void recompute_f32_epilogue(
+    const RecomputeF32Args& p, float (&acc_a)[32], float (&acc_d)[32],
+    float* red_w, int wrow, int n0, int lane) {
+#pragma unroll
+  for (int j = 0; j < RC32_N / 8; ++j) {
+    const int cl = 8 * j + 2 * (lane % 4);
+    const int col = n0 + cl;
+    const bool col_ok = col < p.f;  // then col + 1 < f: f is even
+    float bias[2] = {0.0f, 0.0f};
+    if (col_ok) {
+      bias[0] = p.b1[col];
+      bias[1] = p.b1[col + 1];
+    }
+    float m[2][2] = {{1.0f, 1.0f}, {1.0f, 1.0f}};
+    if constexpr (DROP) smx::accum_mask(p.drop, wrow, col, lane, m);
+    float cs[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = wrow + 8 * i;
+      float hv[2], dv[2];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        float y, dy;
+        act_dact<ACT>(acc_a[4 * j + 2 * i + c] + bias[c], y, dy);
+        hv[c] = y * m[i][c];
+        dv[c] = acc_d[4 * j + 2 * i + c] * dy * m[i][c];
+      }
+      if (row < p.n && col_ok) {
+        *reinterpret_cast<float2*>(p.da + (size_t)row * p.f + col) =
+            make_float2(dv[0], dv[1]);
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const size_t at = (size_t)(col + c) * p.ldt + row;
+          p.da_t[at] = dv[c];
+          p.hid_t[at] = hv[c];
+          cs[c] += dv[c];
+        }
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        cs[c] += __shfl_xor_sync(0xffffffffu, cs[c], off);
+      }
+    }
+    if (lane < 4) {
+      red_w[cl] = cs[0];
+      red_w[cl + 1] = cs[1];
+    }
+  }
 }
 
-template <int BM, int MAXC, int WFC, bool DROP>
-int bwd_dw_cols(const void* x, const void* g, const void* w1, const float* b1,
-                const void* w2, float* target, int n, int h, int f, int act,
-                int splits, int rows_per_split, smx::Dropout drop,
-                cudaStream_t stream) {
-  const size_t smem = (size_t)(2 * h + 2 * WFC) * BM * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      ffn_bwd_dw_kernel<BM, MAXC, WFC, DROP>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ffn_bwd_dw_kernel<BM, MAXC, WFC, DROP>
-      <<<dim3(f / WFC, splits), NT, smem, stream>>>(
-          static_cast<const float*>(x), static_cast<const float*>(g),
-          static_cast<const float*>(w1), b1, static_cast<const float*>(w2),
-          target, n, h, f, act, rows_per_split, drop);
-  return static_cast<int>(cudaGetLastError());
+// A block owns a (128, 64) tile of (n, f): a = x w1 and dh = g w2^T over
+// h in 32-deep stages, two stages in flight (each 48 KB of f32 tiles and
+// 48 KB of their lo halves).
+template <bool DROP>
+__global__ void __launch_bounds__(THREADS, 1)
+    recompute_f32_kernel(const __grid_constant__ RecomputeF32Args p,
+                         int act) {
+  extern __shared__ uint8_t smem_raw[];
+  // stage s: hi tiles x | g | w1^T | w2, then their lo halves
+  uint8_t* stages = hw::align1024(smem_raw);
+  float* red = reinterpret_cast<float*>(stages + RC32_STAGES * 2 * RC32_HI);
+  uint64_t* full = reinterpret_cast<uint64_t*>(red + 8 * RC32_N);
+  uint64_t* empty = full + RC32_STAGES;
+
+  const int ftiles = (p.f + RC32_N - 1) / RC32_N;
+  const int tm = blockIdx.x / ftiles;
+  const int m0 = tm * TILE, n0 = (blockIdx.x % ftiles) * RC32_N;
+  const int ksteps = (p.h + FBK - 1) / FBK;
+  const int wg = threadIdx.x / WG_THREADS;
+  hw::init_ring<RC32_STAGES>(full, empty);
+
+  if (wg == 2) {  // producer
+    hw::setmaxnreg_dec<40>();
+    if (threadIdx.x == CONSUMERS) {
+      hw::Ring<RC32_STAGES> ring;
+      for (int kb = 0; kb < ksteps; ++kb) {
+        const int k = kb * FBK, s = ring.s;
+        uint8_t* st = stages + s * 2 * RC32_HI;
+        ring.acquire(full, empty, RC32_HI);
+        hw::tma_load(st, &p.x, &full[s], k, m0);
+        hw::tma_load(st + BOX, &p.g, &full[s], k, m0);
+        hw::tma_load(st + 2 * BOX, &p.w1t, &full[s], k, n0);
+        hw::tma_load(st + 2 * BOX + HALF, &p.w2, &full[s], k, n0);
+        ring.advance();
+      }
+    }
+  } else {  // consumers: rows m0 + 64 wg .. + 63
+    hw::setmaxnreg_inc<232>();
+    // a = x w1 and dh = g w2^T; each stage's products in the partials
+    float acc_a[32], acc_d[32], part_a[32], part_d[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      acc_a[i] = acc_d[i] = part_a[i] = part_d[i] = 0.0f;
+    }
+    hw::consume_split<RC32_STAGES>(
+        full, empty, ksteps,
+        [&](int s) {
+          uint8_t* st = stages + s * 2 * RC32_HI;
+          hw::split_tf32(st, st + RC32_HI, RC32_HI, threadIdx.x, CONSUMERS);
+        },
+        [&](int s) {
+          const uint8_t* hi = stages + s * 2 * RC32_HI;
+          const uint8_t* lo = hi + RC32_HI;
+          const int xa = wg * HALF, ga = BOX + wg * HALF;
+          const int w1b = 2 * BOX, w2b = 2 * BOX + HALF;
+#pragma unroll
+          for (int kk = 0; kk < FBK / 8; ++kk) {
+            const int o = kk * 32;
+            hw::wgmma_tf32x3<RC32_N>(part_a, hi + xa + o, lo + xa + o,
+                                     hi + w1b + o, lo + w1b + o, kk == 0);
+            hw::wgmma_tf32x3<RC32_N>(part_d, hi + ga + o, lo + ga + o,
+                                     hi + w2b + o, lo + w2b + o, kk == 0);
+          }
+        },
+        [&]() {
+          hw::promote_acc(acc_a, part_a);
+          hw::promote_acc(acc_d, part_d);
+        });
+    const int t = threadIdx.x % WG_THREADS, warp = t / 32, lane = t % 32;
+    const int wrow = m0 + wg * 64 + warp * 16 + lane / 4;
+    float* red_w = red + (wg * 4 + warp) * RC32_N;
+    switch (act) {
+      case smx::kGelu:
+        recompute_f32_epilogue<smx::kGelu, DROP>(p, acc_a, acc_d, red_w,
+                                                 wrow, n0, lane);
+        break;
+      case smx::kGeluTanh:
+        recompute_f32_epilogue<smx::kGeluTanh, DROP>(p, acc_a, acc_d, red_w,
+                                                     wrow, n0, lane);
+        break;
+      case smx::kRelu:
+        recompute_f32_epilogue<smx::kRelu, DROP>(p, acc_a, acc_d, red_w,
+                                                 wrow, n0, lane);
+        break;
+      default:
+        recompute_f32_epilogue<smx::kSilu, DROP>(p, acc_a, acc_d, red_w,
+                                                 wrow, n0, lane);
+    }
+    hw::bar_sync(1, CONSUMERS);
+    if (threadIdx.x < RC32_N && n0 + threadIdx.x < p.f) {
+      float s = 0.0f;
+#pragma unroll
+      for (int w = 0; w < 8; ++w) s += red[w * RC32_N + threadIdx.x];
+      p.colsum[(size_t)tm * p.f + n0 + threadIdx.x] = s;
+    }
+  }
+}
+
+struct ProductsF32Args {
+  CUtensorMap dx_a, dx_b;  // da (n, f), w1 (h, f): K = f
+  CUtensorMap w1_a, w1_b;  // x^T (h, n), da^T (f, n): K = n
+  CUtensorMap w2_a, w2_b;  // h^T (f, n), g^T (h, n): K = n
+  float* dx;               // (n, h)
+  float* dw;               // splits records of dw1 (h, f) | dw2 (f, h)
+  int n, h, f;
+  int dx_items, dw_tiles, splits, rows_per_split;
+};
+
+constexpr size_t gemm32_smem_bytes() {
+  return 1024 + (size_t)GEMM32_STAGES * 2 * GEMM32_HI +
+         2 * GEMM32_STAGES * sizeof(uint64_t);
+}
+
+// The three products of decode()'s items, every operand K-major: a
+// (128, 128) output tile, 32-deep stages, three in flight (each 32 KB of f32
+// tiles and 32 KB of their lo halves).
+__global__ void __launch_bounds__(THREADS, 1)
+    products_f32_kernel(const __grid_constant__ ProductsF32Args p) {
+  extern __shared__ uint8_t smem_raw[];
+  // stage s: hi tiles A | B, then their lo halves
+  uint8_t* stages = hw::align1024(smem_raw);
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(stages + GEMM32_STAGES * 2 * GEMM32_HI);
+  uint64_t* empty = full + GEMM32_STAGES;
+
+  const Item it = decode(p, blockIdx.x);
+  const int ksteps = (it.k1 - it.k0 + FBK - 1) / FBK;
+  const int wg = threadIdx.x / WG_THREADS;
+  hw::init_ring<GEMM32_STAGES>(full, empty);
+
+  if (wg == 2) {  // producer
+    hw::setmaxnreg_dec<40>();
+    if (threadIdx.x == CONSUMERS) {
+      const CUtensorMap* ma = it.mode == 0 ? &p.dx_a
+                              : it.mode == 1 ? &p.w1_a : &p.w2_a;
+      const CUtensorMap* mb = it.mode == 0 ? &p.dx_b
+                              : it.mode == 1 ? &p.w1_b : &p.w2_b;
+      hw::Ring<GEMM32_STAGES> ring;
+      for (int kb = 0; kb < ksteps; ++kb) {
+        const int k = it.k0 + kb * FBK, s = ring.s;
+        uint8_t* st = stages + s * 2 * GEMM32_HI;
+        ring.acquire(full, empty, GEMM32_HI);
+        hw::tma_load(st, ma, &full[s], k, it.m0);
+        hw::tma_load(st + BOX, mb, &full[s], k, it.n0);
+        ring.advance();
+      }
+    }
+    return;
+  }
+  hw::setmaxnreg_inc<232>();
+  float acc[64], part[64];  // each stage's products in part
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.0f;
+  hw::consume_split<GEMM32_STAGES>(
+      full, empty, ksteps,
+      [&](int s) {
+        uint8_t* st = stages + s * 2 * GEMM32_HI;
+        hw::split_tf32(st, st + GEMM32_HI, GEMM32_HI, threadIdx.x, CONSUMERS);
+      },
+      [&](int s) {
+        const uint8_t* hi = stages + s * 2 * GEMM32_HI;
+        const uint8_t* lo = hi + GEMM32_HI;
+        const int a = wg * HALF;
+#pragma unroll
+        for (int kk = 0; kk < FBK / 8; ++kk) {
+          const int o = kk * 32;
+          hw::wgmma_tf32x3<TILE>(part, hi + a + o, lo + a + o, hi + BOX + o,
+                                 lo + BOX + o, kk == 0);
+        }
+      },
+      [&]() { hw::promote_acc(acc, part); });
+  const int t = threadIdx.x % WG_THREADS, warp = t / 32, lane = t % 32;
+  const int wrow = it.m0 + wg * 64 + warp * 16 + lane / 4;
+  float* out = p.dx;
+  if (it.mode != 0) {
+    out = p.dw + (size_t)it.split * 2 * p.h * p.f +
+          (it.mode == 2 ? (size_t)p.h * p.f : 0);
+  }
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int col = it.n0 + 8 * j + 2 * (lane % 4);
+    if (col >= it.cols) continue;  // then col + 1 < cols: cols is even
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = wrow + 8 * i;
+      if (row >= it.rows) continue;
+      *reinterpret_cast<float2*>(out + (size_t)row * it.cols + col) =
+          make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+    }
+  }
+}
+
+// f32 widths: h a multiple of 4 (16-byte TMA strides; the wrapper pads
+// others with zero columns), f a multiple of 16, ldt >= n a multiple of 8
+int bad_f32_shape(int n, int h, int f, int ldt) {
+  return n <= 0 || h <= 0 || f <= 0 || h % 4 != 0 || f % 16 != 0 ||
+         ldt < n || ldt % 8 != 0;
 }
 
 template <bool DROP>
-int bwd_dx(const void* x, const void* g, const void* w1, const float* b1,
-           const void* w2, void* dx, int n, int h, int f, int act,
-           smx::Dropout drop, int dtype, int device, void* stream) {
-  if (dtype != smx::kF32 || bad_shape(n, h, f, act)) {
+int recompute_f32(const void* x, const void* g, const void* w1t,
+                  const float* b1, const void* w2, float* da, float* da_t,
+                  float* hid_t, float* colsum, int n, int h, int f, int ldt,
+                  int act, smx::Dropout drop, int device, void* stream) {
+  if (bad_f32_shape(n, h, f, ldt) || act < 0 || act > 3 ||
+      !aligned(x, 16) || !aligned(g, 16) || !aligned(w1t, 16) ||
+      !aligned(w2, 16) || !aligned(da, 16) || !aligned(da_t, 16) ||
+      !aligned(hid_t, 16)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  RecomputeF32Args p;
+  if (!hw::make_map_f32(&p.x, x, n, h, h, TILE) ||
+      !hw::make_map_f32(&p.g, g, n, h, h, TILE) ||
+      !hw::make_map_f32(&p.w1t, w1t, f, h, h, RC32_N) ||
+      !hw::make_map_f32(&p.w2, w2, f, h, h, RC32_N)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  p.b1 = b1;
+  p.da = da;
+  p.da_t = da_t;
+  p.hid_t = hid_t;
+  p.colsum = colsum;
+  p.n = n;
+  p.h = h;
+  p.f = f;
+  p.ldt = ldt;
+  p.drop = drop;
+  const size_t smem = rc32_smem_bytes();
+  err = cudaFuncSetAttribute(recompute_f32_kernel<DROP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = ((n + TILE - 1) / TILE) * ((f + RC32_N - 1) / RC32_N);
+  recompute_f32_kernel<DROP><<<blocks, THREADS, smem,
+                               static_cast<cudaStream_t>(stream)>>>(p, act);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int products_f32(const void* xt, const void* gt, const void* w1,
+                 const void* hid_t, const void* da, const void* da_t,
+                 const float* colsum, float* dx, float* out, float* ws, int n,
+                 int h, int f, int ldt, int splits, int rows_per_split,
+                 int device, void* stream) {
+  if (bad_f32_shape(n, h, f, ldt) || bad_plan(n, splits, rows_per_split) ||
+      colsum == nullptr || dx == nullptr || out == nullptr ||
+      !aligned(xt, 16) || !aligned(gt, 16) || !aligned(w1, 16) ||
+      !aligned(hid_t, 16) || !aligned(da, 16) || !aligned(da_t, 16) ||
+      !aligned(dx, 16) || !aligned(out, 16) ||
+      (splits > 1 && (ws == nullptr || !aligned(ws, 16)))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (h <= 4 * NT) {
-    return bwd_dx_rows<16, 4, DROP>(x, g, w1, b1, w2, dx, n, h, f, act, drop,
-                                    s);
-  }
-  return bwd_dx_rows<8, 8, DROP>(x, g, w1, b1, w2, dx, n, h, f, act, drop, s);
-}
-
-// out: (2 * h * f + f) float32 = dw1 | dw2 | db1.  splits row ranges of
-// rows_per_split rows (bad_plan) cover n; with splits > 1, ws holds splits
-// such records.
-template <bool DROP>
-int bwd_dw(const void* x, const void* g, const void* w1, const float* b1,
-           const void* w2, float* out, float* ws, int n, int h, int f, int act,
-           int splits, int rows_per_split, smx::Dropout drop, int dtype,
-           int device, void* stream) {
-  if (dtype != smx::kF32 || bad_shape(n, h, f, act) || f % 16 != 0 ||
-      splits > 65535 || bad_plan(n, splits, rows_per_split) || (splits > 1 && ws == nullptr)) {
+  ProductsF32Args p;
+  if (!hw::make_map_f32(&p.dx_a, da, n, f, f, TILE) ||
+      !hw::make_map_f32(&p.dx_b, w1, h, f, f, TILE) ||
+      !hw::make_map_f32(&p.w1_a, xt, h, n, ldt, TILE) ||
+      !hw::make_map_f32(&p.w1_b, da_t, f, n, ldt, TILE) ||
+      !hw::make_map_f32(&p.w2_a, hid_t, f, n, ldt, TILE) ||
+      !hw::make_map_f32(&p.w2_b, gt, h, n, ldt, TILE)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err = cudaSetDevice(device);
+  const int htiles = (h + TILE - 1) / TILE, ftiles = (f + TILE - 1) / TILE;
+  p.dx = dx;
+  p.dw = splits > 1 ? ws : out;
+  p.n = n;
+  p.h = h;
+  p.f = f;
+  p.dx_items = ((n + TILE - 1) / TILE) * htiles;
+  p.dw_tiles = htiles * ftiles;
+  p.splits = splits;
+  p.rows_per_split = rows_per_split;
+  const size_t smem = gemm32_smem_bytes();
+  err = cudaFuncSetAttribute(products_f32_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* target = splits > 1 ? ws : out;
-  const int rc =
-      h <= 4 * NT
-          ? bwd_dw_cols<16, 4, 16, DROP>(x, g, w1, b1, w2, target, n, h, f,
-                                         act, splits, rows_per_split, drop, s)
-          : bwd_dw_cols<8, 8, 8, DROP>(x, g, w1, b1, w2, target, n, h, f, act,
-                                       splits, rows_per_split, drop, s);
-  if (rc != 0 || splits == 1) return rc;
-  return reduce(ws, out, 2LL * h * f + f, splits, s);
+  const long long items = p.dx_items + 2LL * splits * p.dw_tiles;
+  products_f32_kernel<<<(unsigned)items, THREADS, smem, s>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long size = 2LL * h * f;
+  if (splits > 1) {
+    const int rc = reduce(ws, out, size, splits, s);
+    if (rc != 0) return rc;
+  }
+  return reduce(colsum, out + size, f, (n + TILE - 1) / TILE, s);
 }
-
 }  // namespace
 
-// float32 entries (the f32 reference runs); bfloat16 is refused here and
-// takes the recompute and products entries below
-extern "C" int smx_ffn_bwd_dx(const void* x, const void* g, const void* w1,
-                              const float* b1, const void* w2, void* dx, int n,
-                              int h, int f, int act, int dtype, int device,
-                              void* stream) {
-  return bwd_dx<false>(x, g, w1, b1, w2, dx, n, h, f, act, smx::Dropout{},
-                       dtype, device, stream);
+// float32: x, g (n, h), w1t = w1^T (f, h), w2 (f, h); da (n, f); da_t,
+// hid_t (f, ldt); colsum (ceil(n / 128), f)
+extern "C" int smx_ffn_bwd_recompute_f32(const void* x, const void* g,
+                                         const void* w1t, const float* b1,
+                                         const void* w2, float* da,
+                                         float* da_t, float* hid_t,
+                                         float* colsum, int n, int h, int f,
+                                         int ldt, int act, int device,
+                                         void* stream) {
+  return recompute_f32<false>(x, g, w1t, b1, w2, da, da_t, hid_t, colsum, n,
+                              h, f, ldt, act, smx::Dropout{}, device, stream);
 }
 
-extern "C" int smx_ffn_bwd_dw(const void* x, const void* g, const void* w1,
-                              const float* b1, const void* w2, float* out,
-                              float* ws, int n, int h, int f, int act,
-                              int splits, int rows_per_split, int dtype,
-                              int device, void* stream) {
-  return bwd_dw<false>(x, g, w1, b1, w2, out, ws, n, h, f, act, splits,
-                       rows_per_split, smx::Dropout{}, dtype, device, stream);
-}
-
-// The dropout twins: k0, k1 the site's key, threshold and scale of the
+// The dropout twin: k0, k1 the site's key, threshold and scale of the
 // activation mask (stream 0), from the host.
-extern "C" int smx_ffn_dropout_bwd_dx(const void* x, const void* g,
-                                      const void* w1, const float* b1,
-                                      const void* w2, void* dx, int n, int h,
-                                      int f, int act, uint32_t k0, uint32_t k1,
-                                      uint32_t threshold, float scale,
-                                      int dtype, int device, void* stream) {
-  return bwd_dx<true>(
-      x, g, w1, b1, w2, dx, n, h, f, act,
-      smx::make_dropout(k0, k1, smx::kStreamAct, threshold, scale), dtype,
-      device, stream);
+extern "C" int smx_ffn_dropout_bwd_recompute_f32(
+    const void* x, const void* g, const void* w1t, const float* b1,
+    const void* w2, float* da, float* da_t, float* hid_t, float* colsum,
+    int n, int h, int f, int ldt, int act, uint32_t k0, uint32_t k1,
+    uint32_t threshold, float scale, int device, void* stream) {
+  return recompute_f32<true>(
+      x, g, w1t, b1, w2, da, da_t, hid_t, colsum, n, h, f, ldt, act,
+      smx::make_dropout(k0, k1, smx::kStreamAct, threshold, scale), device,
+      stream);
 }
 
-extern "C" int smx_ffn_dropout_bwd_dw(const void* x, const void* g,
-                                      const void* w1, const float* b1,
-                                      const void* w2, float* out, float* ws,
-                                      int n, int h, int f, int act, int splits,
-                                      int rows_per_split, uint32_t k0,
-                                      uint32_t k1, uint32_t threshold,
-                                      float scale, int dtype, int device,
-                                      void* stream) {
-  return bwd_dw<true>(
-      x, g, w1, b1, w2, out, ws, n, h, f, act, splits, rows_per_split,
-      smx::make_dropout(k0, k1, smx::kStreamAct, threshold, scale), dtype,
-      device, stream);
+// xt = x^T, gt = g^T (h, ldt); w1 (h, f); dx (n, h); out (2 h f + f) =
+// dw1 | dw2 | db1; ws: splits * 2 h f when splits > 1
+extern "C" int smx_ffn_bwd_products_f32(
+    const void* xt, const void* gt, const void* w1, const void* hid_t,
+    const void* da, const void* da_t, const float* colsum, float* dx,
+    float* out, float* ws, int n, int h, int f, int ldt, int splits,
+    int rows_per_split, int device, void* stream) {
+  return products_f32(xt, gt, w1, hid_t, da, da_t, colsum, dx, out, ws, n, h,
+                      f, ldt, splits, rows_per_split, device, stream);
 }
 
 // bfloat16.  hid, da: (n, f) bf16; colsum: (ceil(n / 128), f) float32.

@@ -6,7 +6,7 @@
 // LayerNorm(res + drop_o(drop_a(act(x @ w1 + b1)) @ w2 + b2)) (entry
 // smx_ffn_dropout_res_ln), and K13 ffn_dropout — drop_a(act(x @ w1 + b1)) @
 // w2 + b2 (entry smx_ffn_dropout).  These entries take float32, the
-// reference runs' type; bfloat16 runs the TMA + wgmma passes of ffn_fwd.cu.
+// default dtype; bfloat16 runs the TMA + wgmma passes of ffn_fwd.cu.
 //
 // K3 replaces the TPU kernel speechmix_tpu/ops/pallas/ffn_kernel.py:
 // ffn_fused_res_ln (_kernel_res_ln), the post-LN FFN block of the

@@ -1,10 +1,12 @@
 // Hopper (sm_90a) building blocks of the port's TMA + wgmma kernels: 2-D
-// and 3-D tensor maps (dense or strided) and 4-D maps with the head as a
-// dimension of its own for the Tensor Memory Accelerator,
+// and 3-D tensor maps (dense or strided, bf16 or f32) and 4-D maps with the
+// head as a dimension of its own for the Tensor Memory Accelerator,
 // mbarrier waits and arrivals, TMA tile loads, shared-memory matrix
 // descriptors, the m64n256k16, m64n128k16 and m64n64k16 bf16 warpgroup
 // products (A in shared memory or, for n64, in registers) with their
-// fences, TMA tile stores, the thread-block cluster's barrier and stores to
+// fences, the m64n128k8 and m64n64k8 tf32 products and the split of f32
+// tiles into tf32 halves that makes three of them an f32-accurate product,
+// TMA tile stores, the thread-block cluster's barrier and stores to
 // another block's shared memory (plain, or st.async counted on the
 // receiver's mbarrier), and the stage ring (producer and consumer
 // sides) that the kernels of ffn_bwd.cu, ffn_fwd.cu, attention_fwd.cu,
@@ -74,26 +76,49 @@ inline bool make_map(CUtensorMap* map, const void* base, uint64_t rows,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// A (batches, rows, cols) bf16 view, element (batch, row, col) at base +
-// batch * batch_stride + row * row_stride + col (strides in elements, each
-// a multiple of 8: 16 bytes), loaded in boxes of (box_rows, box_cols) of
-// one batch, box_cols * 2 == 128 bytes, with the 128-byte swizzle.  Rows
-// past `rows` load as zeros within their own batch: a box at the end of
-// one batch never reads the next batch's rows.
+// A row-major (rows, cols) float32 matrix whose rows lie `row_stride`
+// elements apart (a multiple of 4: 16 bytes), loaded in (box_rows, 32)
+// boxes (one 128-byte row per matrix row) with the 128-byte swizzle.  Rows
+// and columns past the matrix load as zeros.
+inline bool make_map_f32(CUtensorMap* map, const void* base, uint64_t rows,
+                         uint64_t cols, uint64_t row_stride,
+                         uint32_t box_rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {row_stride * sizeof(float)};
+  const cuuint32_t box[2] = {32, box_rows};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(base),
+            dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A (batches, rows, cols) view of elements of `elem` bytes (bf16 or f32),
+// element (batch, row, col) at base + batch * batch_stride + row *
+// row_stride + col (strides in elements, each 16 bytes a multiple), loaded
+// in boxes of (box_rows, box_cols) of one batch, box_cols * elem == 128
+// bytes, with the 128-byte swizzle.  Rows past `rows` load as zeros within
+// their own batch: a box at the end of one batch never reads the next
+// batch's rows.
 inline bool make_map3_strided(CUtensorMap* map, const void* base,
                               uint64_t batches, uint64_t rows, uint64_t cols,
                               uint64_t row_stride, uint64_t batch_stride,
-                              uint32_t box_rows, uint32_t box_cols) {
+                              uint32_t box_rows, uint32_t box_cols,
+                              uint32_t elem = sizeof(__nv_bfloat16)) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[3] = {cols, rows, batches};
-  const cuuint64_t strides[2] = {row_stride * sizeof(__nv_bfloat16),
-                                 batch_stride * sizeof(__nv_bfloat16)};
+  const cuuint64_t strides[2] = {row_stride * elem, batch_stride * elem};
   const cuuint32_t box[3] = {box_cols, box_rows, 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
-            dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  return fn(map,
+            elem == sizeof(float) ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                  : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+            3, const_cast<void*>(base), dims, strides, box, elem_strides,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -400,6 +425,127 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
         "n"(TB));
 }
 
+// ------------------------------------------------ f32 on the tensor cores
+// d (64 x N, f32) = A (64 x 8) * B (8 x N) + (accumulate ? d : 0), tf32
+// operands in shared memory,
+// both K-major (the transpose bits exist for 16-bit types only): 32-bit
+// elements, 8 of them (32 bytes) per k8 slice, so a K-major tile is laid out
+// as a bf16 one, (rows, 32) f32 boxes, its descriptor stepping 32 bytes per
+// slice and 1024 per 8 rows.  The accumulator layout is that of
+// m64nNk16.  The tensor cores read the top 19 bits of each element: the
+// operands are rounded to tf32 beforehand (split_tf32).
+__device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32],
+                                                   uint64_t da, uint64_t db,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64],
+                                                    uint64_t da, uint64_t db,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], uint64_t da,
+                                           uint64_t db, int accumulate) {
+  static_assert(N == 64 || N == 128, "tf32 products are N = 64 or 128");
+  if constexpr (N == 64) {
+    wgmma_m64n64k8_tf32(d, da, db, accumulate);
+  } else {
+    wgmma_m64n128k8_tf32(d, da, db, accumulate);
+  }
+}
+
+// One k8 slice of an f32-accurate product from split operands (the three
+// products of split_tf32's note, the small ones first): A tiles K-major
+// (rows, 32) at a_hi / a_lo, B tiles at b_hi / b_lo, the slice's 32-byte
+// offset already added; `first`: the slice starts d afresh.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32x3(float (&d)[N / 2],
+                                             const uint8_t* a_hi,
+                                             const uint8_t* a_lo,
+                                             const uint8_t* b_hi,
+                                             const uint8_t* b_lo,
+                                             bool first) {
+  const uint64_t ah = desc_sw128(a_hi, 16, 1024);
+  const uint64_t bh = desc_sw128(b_hi, 16, 1024);
+  wgmma_tf32<N>(d, desc_sw128(a_lo, 16, 1024), bh, first ? 0 : 1);
+  wgmma_tf32<N>(d, ah, desc_sw128(b_lo, 16, 1024), 1);
+  wgmma_tf32<N>(d, ah, bh, 1);
+}
+
+// v rounded to tf32 (10 mantissa bits), to nearest, ties to even
+__device__ __forceinline__ float tf32_rn(float v) {
+  uint32_t u = __float_as_uint(v);
+  u += 0xFFFu + ((u >> 13) & 1u);
+  return __uint_as_float(u & 0xFFFFE000u);
+}
+
+// The three-product split of f32 operands: each element v of a tile that
+// TMA wrote to `hi` becomes hi = tf32(v) in place and lo = tf32(v - hi) at
+// the same offset of `lo` (v - hi is exact), so both tiles keep the
+// swizzled layout and one descriptor offset serves both.  a * b is then
+// hi_a hi_b + hi_a lo_b + lo_a hi_b within about 3 * 2^-22 |a||b|.  Thread
+// `t` of `threads` takes every threads-th 16-byte word of the `bytes`.
+__device__ __forceinline__ void split_tf32(uint8_t* hi, uint8_t* lo,
+                                           int bytes, int t, int threads) {
+  for (int at = t * 16; at < bytes; at += threads * 16) {
+    float4 v = *reinterpret_cast<const float4*>(hi + at);
+    float4 h, l;
+    h.x = tf32_rn(v.x);
+    h.y = tf32_rn(v.y);
+    h.z = tf32_rn(v.z);
+    h.w = tf32_rn(v.w);
+    l.x = tf32_rn(v.x - h.x);
+    l.y = tf32_rn(v.y - h.y);
+    l.z = tf32_rn(v.z - h.z);
+    l.w = tf32_rn(v.w - h.w);
+    *reinterpret_cast<float4*>(hi + at) = h;
+    *reinterpret_cast<float4*>(lo + at) = l;
+  }
+}
+
 // named barrier over the first `threads` threads of the block (id 1..15)
 __device__ __forceinline__ void bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
@@ -559,6 +705,58 @@ __device__ __forceinline__ void consume(uint64_t* full, uint64_t* empty,
     }
   }
   wgmma_wait<0>();
+}
+
+// consume() for f32 operands on the tensor cores.  Once a stage has landed,
+// every consumer thread runs `split(stage)` (its share of the stage's tiles
+// through split_tf32), fences its shared-memory writes for the asynchronous
+// proxy and meets the other consumers, so that the products read whole hi
+// and lo tiles.  `mma(stage)` issues the stage's products into a partial
+// accumulator that its first product starts afresh, and `promote()` adds
+// the partial to the f32 accumulator on the CUDA cores: the tensor cores'
+// sum, whose additions drop low bits (on an H100, K8's dx at K = 7680 came
+// out three times its f32 limit from one accumulator), then spans one
+// stage (12 tf32 products of 8 terms), and the stages are added in f32 with
+// rounding.  The split of one stage overlaps the products of the stage
+// before, still in flight.
+template <int STAGES, typename Split, typename Mma, typename Promote>
+__device__ __forceinline__ void consume_split(uint64_t* full, uint64_t* empty,
+                                              int ksteps, Split split,
+                                              Mma mma, Promote promote) {
+  int s = 0, prev = -1;
+  uint32_t phase = 0;
+  for (int kb = 0; kb < ksteps; ++kb) {
+    mbar_wait(&full[s], phase);
+    split(s);
+    fence_async_smem();
+    bar_sync(1, CONSUMERS);
+    if (prev >= 0) {
+      wgmma_wait<0>();
+      promote();
+      mbar_arrive(&empty[prev]);
+    }
+    wgmma_fence();
+    mma(s);
+    wgmma_commit();
+    prev = s;
+    if (++s == STAGES) {
+      s = 0;
+      phase ^= 1;
+    }
+  }
+  if (prev >= 0) {
+    wgmma_wait<0>();
+    promote();
+  }
+}
+
+// acc += part after the products writing part have retired
+template <int N>
+__device__ __forceinline__ void promote_acc(float (&acc)[N],
+                                            float (&part)[N]) {
+  fence_regs(part);
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[i] += part[i];
 }
 
 // The producer's turn before loading stage s of step kb: wait until the

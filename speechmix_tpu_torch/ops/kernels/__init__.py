@@ -5,7 +5,8 @@ K1 ``attention.attention_fwd``, K2 ``ffn.dense_res_ln``, K3
 K/V entries), K5 ``beam_gather.beam_gather``, K6
 ``conv_extractor.fused_conv_layer``, K7 ``attention.attention_bwd``, K8
 ``ffn.ffn_bwd`` (bfloat16: ``ffn.ffn_bwd_recompute`` then
-``ffn.ffn_bwd_products``; float32: ``ffn.ffn_bwd_dx`` / ``ffn.ffn_bwd_dw``),
+``ffn.ffn_bwd_products``; float32: the same two passes in their f32
+entries, with f32-accurate products on the tensor cores),
 K9 ``ffn.ffn_fused``; the dropout kernels K10 ``dropout.dropout_mask``, K11
 ``ffn.dense_dropout_res_ln``, K12 ``ffn.ffn_dropout_res_ln``, K13
 ``ffn.ffn_dropout``, K14 ``attention.attention_dropout_fwd``, K15

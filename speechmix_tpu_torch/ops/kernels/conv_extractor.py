@@ -24,15 +24,25 @@ from ._cuda import CudaKernel, check_aligned, check_cuda_tensor, dtype_code
 
 STRIDE = 2
 KERNEL_SIZES = (2, 3)
-MAX_CHANNELS = 1024  # the float32 kernel holds all columns of a row tile
-# width the bfloat16 tensor-core kernel is built for; other bfloat16 widths
-# run the float32 kernel's body with bf16 loads and stores
-BF16_CHANNELS = 512
+MAX_CHANNELS = 1024  # a row's columns over at most 8 blocks of 128
 
 KERNEL = CudaKernel(
     "conv_ln_gelu.cu", "smx_conv_ln_gelu",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float] +
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_float] +
     [ctypes.c_int] * 2)
+
+
+def kernel_layout(c, dtype):
+    """(c_in, cpo, kp, depth) of the kernel at C = c in `dtype`: x's row
+    length (c rounded up to 8, the wrapper's padding of x), the output
+    columns the blocks cover (64 for c <= 64, one block holding the row;
+    else c rounded up to 128, a cluster of blocks of 128), the per-tap depth
+    of wt (c_in rounded up to a stage) and the stage depth (64 bf16 or 32
+    f32 elements: one 128-byte row)."""
+    depth = 64 if dtype == torch.bfloat16 else 32
+    c_in = -(-c // 8) * 8
+    cpo = 64 if c <= 64 else -(-c // 128) * 128
+    return c_in, cpo, -(-c_in // depth) * depth, depth
 
 
 def _check_geometry(x, kernel):
@@ -62,28 +72,30 @@ def fused_conv_layer_plain(x, kernel, bias=None, ln_params=None, ln_eps=1e-5):
     return F.gelu(y).to(x.dtype)
 
 
-# the bf16 kernel's tiles: 128 output rows of one batch row, 64-channel
-# steps of each tap, LayerNorm sums over 128-column slices
+# the kernel's tiles: 128 output rows of one batch row, stages of one
+# 128-byte row of channels of each tap (64 bf16, 32 f32), LayerNorm sums
+# over column slices of 128 (one slice below 128 columns)
 ROW_TILE = 128
-K_STEP = 64
 LN_SLICE = 128
 
 
 def fused_conv_layer_tiled_plain(x, kernel, bias=None, ln_params=None,
                                  ln_eps=1e-5):
-    """fused_conv_layer_plain as the bfloat16 kernel computes it: per batch
-    row, tiles of ROW_TILE output rows cut at T_out; each tile the f32 sum
-    over taps j, then K_STEP-channel steps, of x[2 t + j, step] @
-    w_j[step] (w_j = kernel[:, :, j]^T); plus bias; with LayerNorm the
-    mean from the LN_SLICE-column slices' row sums added in slice order,
-    then the variance from those of the squared centred values; exact-erf
-    GELU, rounded once to x's dtype.  Nothing on the card's path calls it:
-    it pins the kernel's structure in the tests and in chip_smoke.py."""
+    """fused_conv_layer_plain as the kernel computes it: per batch row,
+    tiles of ROW_TILE output rows cut at T_out; each tile the f32 sum over
+    taps j, then stages of 64 (bf16) or 32 (f32) channels, of x[2 t + j,
+    step] @ w_j[step] (w_j = kernel[:, :, j]^T); plus bias; with LayerNorm
+    the mean from the LN_SLICE-column slices' row sums added in slice
+    order, then the variance from those of the squared centred values;
+    exact-erf GELU, rounded once to x's dtype.  Nothing on the card's path
+    calls it: it pins the kernel's structure in the tests and in
+    chip_smoke.py."""
     _check_geometry(x, kernel)
     c, _, k = kernel.shape
     b, t_in, _ = x.shape
     t_out = (t_in - k) // STRIDE + 1
     w = kernel.float().permute(2, 1, 0)  # (k, C_in, C_out)
+    step = kernel_layout(c, x.dtype)[3]
     out = torch.empty((b, t_out, c), dtype=x.dtype, device=x.device)
 
     def row_sum(t):
@@ -99,9 +111,9 @@ def fused_conv_layer_tiled_plain(x, kernel, bias=None, ln_params=None,
                           device=x.device)
         for j in range(k):
             rows = x[:, STRIDE * t0 + j:STRIDE * (t1 - 1) + j + 1:STRIDE]
-            for c0 in range(0, c, K_STEP):
-                acc = acc + (rows[..., c0:c0 + K_STEP].float()
-                             @ w[j, c0:c0 + K_STEP])
+            for c0 in range(0, c, step):
+                acc = acc + (rows[..., c0:c0 + step].float()
+                             @ w[j, c0:c0 + step])
         if bias is not None:
             acc = acc + bias.float()
         if ln_params is not None:
@@ -114,8 +126,11 @@ def fused_conv_layer_tiled_plain(x, kernel, bias=None, ln_params=None,
 
 def fused_conv_layer(x, kernel, bias=None, ln_params=None, ln_eps=1e-5):
     """K6; see fused_conv_layer_plain.  CUDA tensors need x and kernel in one
-    dtype (float32 or bfloat16), x contiguous, C <= 1024; bfloat16 at
-    C == 512 (the tensor-core kernel) x 16-byte aligned."""
+    dtype (float32: f32-accurate products on the tensor cores; bfloat16:
+    bf16 products), x contiguous, C <= 1024.  The weights are laid out per
+    call as the kernel's K-major B, wt (k, cpo, kp), zero past C (see
+    kernel_layout); a C that is not a multiple of 8 also pads x's channels
+    with zeros and drops the output's extra columns."""
     if x.device.type == "cpu":
         return fused_conv_layer_plain(x, kernel, bias, ln_params, ln_eps)
     _check_geometry(x, kernel)
@@ -127,28 +142,35 @@ def fused_conv_layer(x, kernel, bias=None, ln_params=None, ln_eps=1e-5):
     check_cuda_tensor("x", x)
     code = dtype_code(x.dtype)
     check_cuda_tensor("kernel", kernel, x.dtype, device=x.device)
-    # (k * C_in, C_out): row j * C + ci is tap j of input channel ci
-    w = kernel.permute(2, 1, 0).reshape(k * c, c).contiguous()
-    vec = lambda t: t.float().contiguous()
-    bias = (torch.zeros(c, dtype=torch.float32, device=x.device)
-            if bias is None else vec(bias))
-    check_cuda_tensor("bias", bias, torch.float32, (c,), x.device)
+    c_in, cpo, kp, _ = kernel_layout(c, x.dtype)
+    if c_in != c:
+        x = F.pad(x, (0, c_in - c))
+    check_aligned("x", x, 16)
+    # where nothing is padded (C = 512: every wav2vec2 extractor) one copy
+    # lays out the weights, and f32 vectors are used as they are
+    wt = kernel.permute(2, 0, 1)
+    wt = (wt.contiguous() if (cpo, kp) == (c, c)
+          else F.pad(wt, (0, kp - c, 0, cpo - c)))
+
+    def vec(t):
+        if t is None:
+            return torch.zeros(cpo, dtype=torch.float32, device=x.device)
+        t = t.float().contiguous()
+        check_cuda_tensor("bias or LayerNorm vector", t, shape=(c,),
+                          device=x.device)
+        return t if cpo == c else F.pad(t, (0, cpo - c))
     g = beta = None
     if ln_params is not None:
         g, beta = vec(ln_params["scale"]), vec(ln_params["bias"])
-        check_cuda_tensor("ln scale", g, torch.float32, (c,), x.device)
-        check_cuda_tensor("ln bias", beta, torch.float32, (c,), x.device)
-    if x.dtype == torch.bfloat16 and c == BF16_CHANNELS:
-        check_aligned("x", x, 16)
-        check_aligned("kernel", w, 32)
-    out = torch.empty((b, (t_in - k) // STRIDE + 1, c), dtype=x.dtype,
+    bias = vec(bias)
+    out = torch.empty((b, (t_in - k) // STRIDE + 1, c_in), dtype=x.dtype,
                       device=x.device)
-    KERNEL.launch(x.data_ptr(), w.data_ptr(), bias.data_ptr(),
+    KERNEL.launch(x.data_ptr(), wt.data_ptr(), bias.data_ptr(),
                   None if g is None else g.data_ptr(),
                   None if beta is None else beta.data_ptr(), out.data_ptr(),
-                  b, t_in, c, k, int(ln_params is not None), float(ln_eps),
-                  code, x.device.index)
-    return out
+                  b, t_in, c, c_in, cpo, kp, k, int(ln_params is not None),
+                  float(ln_eps), code, x.device.index)
+    return out if c_in == c else out[..., :c].contiguous()
 
 
 def _run_stack(x, layer_params, ln_layers, ln_eps):

@@ -15,12 +15,14 @@ and K9 in bfloat16 are passes of
 ``csrc/ffn_fwd.cu``, each a TMA + wgmma kernel or a row pass: ``ffn_up``
 forms h = round(act(x @ w1 + b1)) (N, F) once, ``ffn_down`` takes h @ w2 +
 b2 to the output (K9) or, with the residual, to an f32 sum z (K3), and
-``res_ln_rows`` takes z to LayerNorm(z) * g + beta (K3); in float32 (the
-reference runs) K3 and K9 keep their f32 entries of ``csrc/ffn_res_ln.cu``.
+``res_ln_rows`` takes z to LayerNorm(z) * g + beta (K3); in float32 K3 and
+K9 keep their f32-FMA entries of ``csrc/ffn_res_ln.cu``.
 K8 in bfloat16 is two entries: ``ffn_bwd_recompute`` forms h, da and da's
 column sums per 128-row tile once, ``ffn_bwd_products`` runs dx, dw1 and
-dw2 from them as one TMA + wgmma GEMM; K8 in float32 keeps its f32 entries
-``smx_ffn_bwd_dx`` / ``smx_ffn_bwd_dw``.  Each wrapper launches its kernel
+dw2 from them as one TMA + wgmma GEMM; K8 in float32 is the same two passes
+(``smx_ffn_bwd_recompute_f32`` or its dropout twin, then
+``smx_ffn_bwd_products_f32``) with f32-accurate products on the tensor
+cores, three tf32 products each.  Each wrapper launches its kernel
 for CUDA tensors and runs its plain PyTorch version, which computes the same
 function with the kernel's f32 arithmetic, for CPU tensors.
 
@@ -67,7 +69,9 @@ from .dropout import (STREAM_ACT, STREAM_OUT, DropoutKey, dropout_mask,
                       dropout_mask_plain, launch_args)
 
 ACT_CODES = {"gelu": 0, "gelu_new": 1, "relu": 2, "silu": 3}
-MAX_HIDDEN = 2048  # the f32 kernels hold all h columns of a row tile
+# the f32-FMA kernels (K2, K3, K9 and their twins) hold all h columns of a
+# row tile; K8's f32 entries, which do not, admit the same widths
+MAX_HIDDEN = 2048
 # the bfloat16 forward passes of K3 / K9 / K12 / K13 and K2 / K11, and K8's
 # bfloat16 backward, take widths H (and, for the forward, F) that are
 # multiples of this (their TMA + wgmma tiles), as the TPU package's gate
@@ -98,12 +102,6 @@ FFN_RES_LN = CudaKernel(
 FFN_FUSED = CudaKernel(
     "ffn_res_ln.cu", "smx_ffn_fused",
     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6)
-FFN_BWD_DX = CudaKernel(
-    "ffn_bwd.cu", "smx_ffn_bwd_dx",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6)
-FFN_BWD_DW = CudaKernel(
-    "ffn_bwd.cu", "smx_ffn_bwd_dw",
-    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8)
 # the dropout twins: the deterministic entry's arguments, then the site key's
 # two words and each mask's (threshold, scale) before the dtype and device
 _KEY = [ctypes.c_uint32, ctypes.c_uint32]
@@ -120,14 +118,6 @@ FFN_DROPOUT = CudaKernel(
     "ffn_res_ln.cu", "smx_ffn_dropout",
     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + _KEY + _MASK +
     [ctypes.c_int] * 2)
-FFN_DROPOUT_BWD_DX = CudaKernel(
-    "ffn_bwd.cu", "smx_ffn_dropout_bwd_dx",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + _KEY + _MASK +
-    [ctypes.c_int] * 2)
-FFN_DROPOUT_BWD_DW = CudaKernel(
-    "ffn_bwd.cu", "smx_ffn_dropout_bwd_dw",
-    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + _KEY + _MASK +
-    [ctypes.c_int] * 2)
 # K8 in bfloat16: the recompute pass (h, da and da's column sums per row
 # tile, once) and the products (dx, dw1, dw2, db1 from them)
 FFN_BWD_RECOMPUTE = CudaKernel(
@@ -140,6 +130,19 @@ FFN_DROPOUT_BWD_RECOMPUTE = CudaKernel(
 FFN_BWD_PRODUCTS = CudaKernel(
     "ffn_bwd.cu", "smx_ffn_bwd_products",
     [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6)
+# K8 in float32: the same two passes with f32-accurate products on the
+# tensor cores (three tf32 products each); the recompute also writes da^T
+# and h^T, the products read x^T and g^T (K-major operands)
+FFN_BWD_RECOMPUTE_F32 = CudaKernel(
+    "ffn_bwd.cu", "smx_ffn_bwd_recompute_f32",
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6)
+FFN_DROPOUT_BWD_RECOMPUTE_F32 = CudaKernel(
+    "ffn_bwd.cu", "smx_ffn_dropout_bwd_recompute_f32",
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + _KEY + _MASK +
+    [ctypes.c_int])
+FFN_BWD_PRODUCTS_F32 = CudaKernel(
+    "ffn_bwd.cu", "smx_ffn_bwd_products_f32",
+    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7)
 # the bfloat16 forward passes of K3 / K9 (ffn_fwd.cu): up (K13 / K12: with the
 # activation mask), down to the output (K9 / K13) or to the f32 sum z before
 # the LayerNorm (K3; K12: with the output mask), and the LayerNorm rows
@@ -165,8 +168,9 @@ RES_LN_ROWS = CudaKernel(
 # rows of a recompute tile, each giving one row of da's column sums
 ROW_TILE = 128
 # K8's weight gradients sum over the rows in at most DW_MAX_SPLITS fixed
-# ranges of about this many rows (bf16 products; the f32 kernels' blocks
-# take fewer), added in range order
+# ranges of about this many rows, added in range order; the f32 products,
+# three tf32 products to each bf16 one, take shorter ranges, so that the
+# f32 gradients' 1024-3200 rows still fill the card with blocks
 DW_MAX_SPLITS = 8
 DW_ROWS_PER_SPLIT = 3200
 DW_ROWS_PER_SPLIT_F32 = 1024
@@ -644,6 +648,9 @@ def _check_ffn_bwd(what, x, g, w1, b1, w2, act):
     check_cuda_tensor("g", g, x.dtype, (n, h), x.device)
     if x.dtype == torch.bfloat16:
         check_aligned("g", g, 32)
+    else:   # TMA loads
+        for name, t in (("x", x), ("g", g), ("w1", w1), ("w2", w2)):
+            check_aligned(name, t, 16)
     return n, h, f, code
 
 
@@ -718,19 +725,76 @@ def _bf16_bwd(x, g, w1, b1, w2, act, key=None, rate=0.0):
     return ffn_bwd_products(x, g, w1, hid, da, colsum)
 
 
+def _f32_bwd(x, g, w1, b1, w2, act, key=None, rate=0.0):
+    """K8 in float32 on the card: the f32 recompute pass (its dropout twin
+    with the activation mask of (key, STREAM_ACT) at `rate` > 0), then the
+    f32 products; returns (dx, dw1, db1, dw2).  The layouts the tf32
+    products need are made here, per call: w1^T, and x^T and g^T with rows
+    `ldt` (N rounded up to 8) apart; an H that is not a multiple of 4 is
+    padded with zero columns (zero rows of w1), which change no sum."""
+    n, h = x.shape
+    f = w1.shape[1]
+    hp = -(-h // 4) * 4
+    if hp != h:
+        pad = (0, hp - h)
+        x, g = F.pad(x, pad), F.pad(g, pad)
+        w1, w2 = F.pad(w1, (0, 0, 0, hp - h)), F.pad(w2, pad)
+    ldt = -(-n // 8) * 8
+    dev = x.device
+
+    def transposed(t):
+        out = torch.empty(t.shape[1], ldt, dtype=t.dtype, device=dev)
+        out[:, :n] = t.t()
+        return out
+    w1t = w1.t().contiguous()
+    da = torch.empty(n, f, dtype=x.dtype, device=dev)
+    da_t = torch.empty(f, ldt, dtype=x.dtype, device=dev)
+    hid_t = torch.empty_like(da_t)
+    colsum = torch.empty(-(-n // ROW_TILE), f, dtype=torch.float32,
+                         device=dev)
+    ptrs = (x.data_ptr(), g.data_ptr(), w1t.data_ptr(), b1.data_ptr(),
+            w2.data_ptr(), da.data_ptr(), da_t.data_ptr(), hid_t.data_ptr(),
+            colsum.data_ptr(), n, hp, f, ldt, ACT_CODES[act])
+    if key is not None and rate > 0.0:
+        FFN_DROPOUT_BWD_RECOMPUTE_F32.launch(*ptrs, *launch_args(key, rate),
+                                             dev.index)
+    else:
+        FFN_BWD_RECOMPUTE_F32.launch(*ptrs, dev.index)
+    del w1t
+    xt, gt = transposed(x), transposed(g)
+    dx = torch.empty(n, hp, dtype=x.dtype, device=dev)
+    splits, rows = dw_split_plan(n, DW_ROWS_PER_SPLIT_F32)
+    out = torch.empty(2 * hp * f + f, dtype=torch.float32, device=dev)
+    ws = (torch.empty(splits * 2 * hp * f, dtype=torch.float32, device=dev)
+          if splits > 1 else None)
+    FFN_BWD_PRODUCTS_F32.launch(
+        xt.data_ptr(), gt.data_ptr(), w1.data_ptr(), hid_t.data_ptr(),
+        da.data_ptr(), da_t.data_ptr(), colsum.data_ptr(), dx.data_ptr(),
+        out.data_ptr(), None if ws is None else ws.data_ptr(), n, hp, f, ldt,
+        splits, rows, dev.index)
+    dw1 = out[:hp * f].view(hp, f)
+    dw2 = out[hp * f:2 * hp * f].view(f, hp)
+    if hp != h:
+        dx, dw1, dw2 = (dx[:, :h].contiguous(), dw1[:h].contiguous(),
+                        dw2[:, :h].contiguous())
+    return dx, dw1, out[2 * hp * f:], dw2
+
+
+def _card_bwd(x, g, w1, b1, w2, act, key=None, rate=0.0):
+    """K8 on the card in x's dtype: (dx, dw1, db1, dw2), all of them even
+    where a caller keeps a part."""
+    if x.dtype == torch.bfloat16:
+        return _bf16_bwd(x, g, w1, b1, w2, act, key, rate)
+    return _f32_bwd(x, g, w1, b1, w2, act, key, rate)
+
+
 def ffn_bwd_dx(x, g, w1, b1, w2, act="gelu"):
     """K8's input gradient; see ffn_bwd_dx_plain.  CUDA tensors as for
     ffn_bwd."""
     if x.device.type == "cpu":
         return ffn_bwd_dx_plain(x, g, w1, b1, w2, act)
-    n, h, f, code = _check_ffn_bwd("ffn_bwd_dx", x, g, w1, b1, w2, act)
-    if x.dtype == torch.bfloat16:
-        return _bf16_bwd(x, g, w1, b1, w2, act)[0]
-    dx = torch.empty_like(x)
-    FFN_BWD_DX.launch(x.data_ptr(), g.data_ptr(), w1.data_ptr(),
-                      b1.data_ptr(), w2.data_ptr(), dx.data_ptr(), n, h, f,
-                      ACT_CODES[act], code, x.device.index)
-    return dx
+    _check_ffn_bwd("ffn_bwd_dx", x, g, w1, b1, w2, act)
+    return _card_bwd(x, g, w1, b1, w2, act)[0]
 
 
 def ffn_bwd_dw(x, g, w1, b1, w2, act="gelu"):
@@ -740,42 +804,24 @@ def ffn_bwd_dw(x, g, w1, b1, w2, act="gelu"):
     order (no atomics)."""
     if x.device.type == "cpu":
         return ffn_bwd_dw_plain(x, g, w1, b1, w2, act)
-    n, h, f, code = _check_ffn_bwd("ffn_bwd_dw", x, g, w1, b1, w2, act)
-    if x.dtype == torch.bfloat16:
-        return _bf16_bwd(x, g, w1, b1, w2, act)[1:]
-    return _dw_launch(FFN_BWD_DW, x, g, w1, b1, w2, n, h, f, act, code, ())
-
-
-def _dw_launch(kernel, x, g, w1, b1, w2, n, h, f, act, code, drop_args):
-    """Launch a float32 weight-gradient entry of K8 (`drop_args`: the
-    dropout entry's key and mask arguments, or none)."""
-    splits, rows = dw_split_plan(n, DW_ROWS_PER_SPLIT_F32)
-    size = 2 * h * f + f
-    out = torch.empty(size, dtype=torch.float32, device=x.device)
-    ws = (torch.empty(splits * size, dtype=torch.float32, device=x.device)
-          if splits > 1 else None)
-    kernel.launch(x.data_ptr(), g.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                  w2.data_ptr(), out.data_ptr(),
-                  None if ws is None else ws.data_ptr(), n, h, f,
-                  ACT_CODES[act], splits, rows, *drop_args, code,
-                  x.device.index)
-    dw1 = out[:h * f].view(h, f)
-    dw2 = out[h * f:2 * h * f].view(f, h)
-    return dw1, out[2 * h * f:], dw2
+    _check_ffn_bwd("ffn_bwd_dw", x, g, w1, b1, w2, act)
+    return _card_bwd(x, g, w1, b1, w2, act)[1:]
 
 
 def ffn_bwd(x, g, w1, b1, w2, act="gelu"):
     """K8; see ffn_bwd_plain.  CUDA tensors need x, g, w1, w2 in one dtype
     (float32 or bfloat16), b1 float32; float32 needs H <= 2048 and F a
     multiple of 16; bfloat16 needs H a multiple of FWD_WIDTH, F a multiple
-    of 64 and x, g, w1, w2 32-byte aligned.  bfloat16 runs the recompute pass and the
-    products (two launches), float32 the two f32 entries.  db2 = sum g is
-    taken outside the kernels, as in the TPU package."""
-    if x.device.type == "cuda" and x.dtype == torch.bfloat16:
-        dx, dw1, db1, dw2 = _bf16_bwd(x, g, w1, b1, w2, act)
+    of 64 and x, g, w1, w2 32-byte aligned.  Both run the recompute pass and
+    the products (two launches; float32 their f32 entries, with
+    f32-accurate products on the tensor cores).  db2 = sum g is taken
+    outside the kernels, as in the TPU package."""
+    if x.device.type == "cpu":
+        dx = ffn_bwd_dx_plain(x, g, w1, b1, w2, act)
+        dw1, db1, dw2 = ffn_bwd_dw_plain(x, g, w1, b1, w2, act)
     else:
-        dx = ffn_bwd_dx(x, g, w1, b1, w2, act)
-        dw1, db1, dw2 = ffn_bwd_dw(x, g, w1, b1, w2, act)
+        _check_ffn_bwd("ffn_bwd", x, g, w1, b1, w2, act)
+        dx, dw1, db1, dw2 = _card_bwd(x, g, w1, b1, w2, act)
     return dx, dw1, db1, dw2, g.float().sum(0)
 
 
@@ -870,16 +916,8 @@ def ffn_dropout_bwd_dx(x, g, w1, b1, w2, key: DropoutKey, rate, act="gelu"):
     if x.device.type == "cpu":
         return ffn_bwd_dx_plain(x, g, w1, b1, w2, act, _mask_plain(
             key, STREAM_ACT, x.shape[0], w1.shape[1], rate, x.device))
-    n, h, f, code = _check_ffn_bwd("ffn_dropout_bwd_dx", x, g, w1, b1, w2,
-                                   act)
-    if x.dtype == torch.bfloat16:
-        return _bf16_bwd(x, g, w1, b1, w2, act, key, rate)[0]
-    dx = torch.empty_like(x)
-    FFN_DROPOUT_BWD_DX.launch(x.data_ptr(), g.data_ptr(), w1.data_ptr(),
-                              b1.data_ptr(), w2.data_ptr(), dx.data_ptr(), n,
-                              h, f, ACT_CODES[act], *launch_args(key, rate),
-                              code, x.device.index)
-    return dx
+    _check_ffn_bwd("ffn_dropout_bwd_dx", x, g, w1, b1, w2, act)
+    return _card_bwd(x, g, w1, b1, w2, act, key, rate)[0]
 
 
 def ffn_dropout_bwd_dw(x, g, w1, b1, w2, key: DropoutKey, rate, act="gelu"):
@@ -888,23 +926,22 @@ def ffn_dropout_bwd_dw(x, g, w1, b1, w2, key: DropoutKey, rate, act="gelu"):
     if x.device.type == "cpu":
         return ffn_bwd_dw_plain(x, g, w1, b1, w2, act, _mask_plain(
             key, STREAM_ACT, x.shape[0], w1.shape[1], rate, x.device))
-    n, h, f, code = _check_ffn_bwd("ffn_dropout_bwd_dw", x, g, w1, b1, w2,
-                                   act)
-    if x.dtype == torch.bfloat16:
-        return _bf16_bwd(x, g, w1, b1, w2, act, key, rate)[1:]
-    return _dw_launch(FFN_DROPOUT_BWD_DW, x, g, w1, b1, w2, n, h, f, act,
-                      code, launch_args(key, rate))
+    _check_ffn_bwd("ffn_dropout_bwd_dw", x, g, w1, b1, w2, act)
+    return _card_bwd(x, g, w1, b1, w2, act, key, rate)[1:]
 
 
 def ffn_dropout_bwd(x, g, w1, b1, w2, key: DropoutKey, rate, act="gelu"):
-    """K8 with the activation mask regenerated (bfloat16: the dropout
-    recompute pass, then the products; float32: the two f32 dropout
-    entries); returns (dx, dw1, db1, dw2, db2) as ffn_bwd does."""
-    if x.device.type == "cuda" and x.dtype == torch.bfloat16:
-        dx, dw1, db1, dw2 = _bf16_bwd(x, g, w1, b1, w2, act, key, rate)
+    """K8 with the activation mask regenerated (the dropout recompute pass
+    of x's dtype, then its products); returns (dx, dw1, db1, dw2, db2) as
+    ffn_bwd does."""
+    if x.device.type == "cpu":
+        amask = _mask_plain(key, STREAM_ACT, x.shape[0], w1.shape[1], rate,
+                            x.device)
+        dx = ffn_bwd_dx_plain(x, g, w1, b1, w2, act, amask)
+        dw1, db1, dw2 = ffn_bwd_dw_plain(x, g, w1, b1, w2, act, amask)
     else:
-        dx = ffn_dropout_bwd_dx(x, g, w1, b1, w2, key, rate, act)
-        dw1, db1, dw2 = ffn_dropout_bwd_dw(x, g, w1, b1, w2, key, rate, act)
+        _check_ffn_bwd("ffn_dropout_bwd", x, g, w1, b1, w2, act)
+        dx, dw1, db1, dw2 = _card_bwd(x, g, w1, b1, w2, act, key, rate)
     return dx, dw1, db1, dw2, g.float().sum(0)
 
 
