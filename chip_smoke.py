@@ -589,6 +589,7 @@ def check_kernels(gen, dev):
     check_head_widths(randn, gen, dev, records)
     check_k8_f32_body(randn, dev)
     check_f32_rows(randn, dev, records)
+    check_f32_forward_widths(randn, dev)
 
     for rec in records.values():
         t_flops = rec["flops"] / rec.get("peak_flops", PEAK_BF16_FLOPS) * 1e3
@@ -2026,36 +2027,45 @@ class plain_kernels:
 BATCH, SECONDS, MAX_LEN, BEAMS = 16, 16.0, 64, 4
 # the kernels of the dropout-on train step, never launched elsewhere
 DROPOUT_KERNELS = ("smx_dropout_mask", "smx_dense_dropout_res_ln",
-                   "smx_ffn_dropout_res_ln", "smx_ffn_dropout",
-                   "smx_ffn_dropout_up", "smx_ffn_dropout_down_res",
+                   "smx_dense_dropout_res_ln_f32", "smx_ffn_dropout_up",
+                   "smx_ffn_dropout_down_res", "smx_ffn_dropout_up_f32",
+                   "smx_ffn_dropout_down_res_f32",
                    "smx_attention_dropout_fwd", "smx_attention_dropout_bwd",
                    "smx_ffn_dropout_bwd_recompute",
                    "smx_ffn_dropout_bwd_recompute_f32")
 # K4's serial body through its own entries: timed beside the cluster body
 # in phase 3, never launched by the path
 K4_SERIAL = ("smx_decode_attention_serial", "smx_decode_attention_q8_serial")
-# K3 / K9 forward entries: in bf16 the passes of ffn_fwd.cu (K3 = up +
-# down_res + rows, K9 = up + down), in f32 the f32-FMA entries of
-# ffn_res_ln.cu; K12 / K13 take the dropout up and down_res passes in bf16,
-# and K13 K9's down pass
-FWD_ENTRIES = ("smx_ffn_res_ln", "smx_ffn_fused", "smx_ffn_up",
-               "smx_ffn_down", "smx_ffn_down_res", "smx_res_ln_rows")
+# K3 / K9 forward entries: the passes of ffn_fwd.cu (K3 = up + down_res +
+# rows, K9 = up + down), in f32 their f32 entries; K12 / K13 take the
+# dropout up and down_res passes, and K13 K9's down pass
+FWD_ENTRIES = ("smx_ffn_up", "smx_ffn_down", "smx_ffn_down_res",
+               "smx_res_ln_rows", "smx_ffn_up_f32", "smx_ffn_down_f32",
+               "smx_ffn_down_res_f32", "smx_res_ln_rows_f32")
+# K2 / K11 by compute dtype: the cluster kernel of dense_res_ln.cu in bf16,
+# the f32 entry of ffn_fwd.cu (the f32 down pass to z, then the rows)
+DENSE_ENTRIES = {"bf16": "smx_dense_res_ln", "f32": "smx_dense_res_ln_f32"}
+DENSE_DROPOUT_ENTRIES = {"bf16": "smx_dense_dropout_res_ln",
+                         "f32": "smx_dense_dropout_res_ln_f32"}
 
 
 def ffn_forward_launches(k3, k9, dtype="bf16", dropout=False):
     """Launches of the forward entries for k3 calls of K3 (K12 with
     dropout) and k9 of K9 (K13)."""
     want = dict.fromkeys(FWD_ENTRIES, 0)
-    if dtype == "f32":
-        names = (("smx_ffn_dropout_res_ln", "smx_ffn_dropout") if dropout
-                 else ("smx_ffn_res_ln", "smx_ffn_fused"))
-        want.update(zip(names, (k3, k9)))
-        return want
+    suffix = "_f32" if dtype == "f32" else ""
     up, down_res = (("smx_ffn_dropout_up", "smx_ffn_dropout_down_res")
                     if dropout else ("smx_ffn_up", "smx_ffn_down_res"))
-    want.update({up: k3 + k9, down_res: k3, "smx_res_ln_rows": k3,
-                 "smx_ffn_down": k9})
+    want.update({up + suffix: k3 + k9, down_res + suffix: k3,
+                 "smx_res_ln_rows" + suffix: k3, "smx_ffn_down" + suffix: k9})
     return want
+
+
+def dense_launches(k2, dtype="bf16", dropout=False):
+    """Launches of K2's entries (K11's with dropout) for k2 calls in
+    `dtype`, the other dtype's entry 0."""
+    names = DENSE_DROPOUT_ENTRIES if dropout else DENSE_ENTRIES
+    return {name: k2 if d == dtype else 0 for d, name in names.items()}
 # K8's entries by compute dtype: the recompute pass and the products
 # (shared by the dropout twin), in f32 their f32 entries
 K8_ENTRIES = {"bf16": ("smx_ffn_bwd_recompute", "smx_ffn_bwd_products"),
@@ -2074,7 +2084,7 @@ TOKEN_AGREEMENT_F32, BEAM_SCORE_TOL_F32 = 0.99, 1e-4
 def expected_launches(mode, steps):
     """Launches of every kernel in one generate() of the flagship."""
     want = {"smx_attention_fwd": LAYERS_WITH_KERNELS,
-            "smx_dense_res_ln": LAYERS_WITH_KERNELS,
+            **dense_launches(LAYERS_WITH_KERNELS),
             "smx_conv_ln_gelu": FUSED_CONV_LAYERS,
             # self- and cross-attention of each decoder layer, each step
             "smx_decode_attention": 2 * DECODER_LAYERS * steps,
@@ -2091,6 +2101,15 @@ def expected_launches(mode, steps):
     if mode in BEAM_MODES:
         # one K5 reorder of the self-K/V cache per step, for every group
         want["smx_beam_gather"] = steps
+    return want
+
+
+def f32_generate_launches(mode, steps):
+    """expected_launches for a generate() in f32: K2 and K3's passes in
+    their f32 entries."""
+    want = expected_launches(mode, steps)
+    want.update({**dense_launches(LAYERS_WITH_KERNELS, "f32"),
+                 **ffn_forward_launches(LAYERS_WITH_KERNELS, 0, "f32")})
     return want
 
 
@@ -2738,15 +2757,15 @@ GRAD_REL, GRAD_FLOOR = 2e-3, 1e-5
 def expected_train_launches(speech_layers, enc_layers, dec_layers, accum=1,
                             dtype="bf16"):
     """Launches of every kernel in one train step: a post-LN layer runs K1,
-    K2 and K3 forward, K7, K9 and K8 backward (bf16: K3 as the up pass, the
-    down pass to z and the LayerNorm rows, K9 as the up and down passes, K8
-    as its recompute pass and its products; f32: the f32 entries of K3, K9
-    and K8); a decoder layer has a second K2
+    K2 and K3 forward, K7, K9 and K8 backward (K3 as the up pass, the down
+    pass to z and the LayerNorm rows, K9 as the up and down passes, K8 as
+    its recompute pass and its products; f32: the f32 entries of each, K2's
+    of ffn_fwd.cu); a decoder layer has a second K2
     (the cross-attention's out-projection) and no K1 / K7 for its
     cross-attention, which carries a bias."""
     layers = speech_layers + enc_layers + dec_layers
     want = {"smx_attention_fwd": layers, "smx_attention_bwd": layers,
-            "smx_dense_res_ln": layers + dec_layers,
+            **dense_launches(layers + dec_layers, dtype),
             **dict.fromkeys(K8_ALL, 0),
             **dict.fromkeys(K8_ENTRIES[dtype], layers),
             "smx_conv_ln_gelu": FUSED_CONV_LAYERS,
@@ -2777,7 +2796,7 @@ def expected_dropout_train_launches(speech_layers, enc_layers, dec_layers,
     want.update({
         "smx_attention_dropout_fwd": layers,
         "smx_attention_dropout_bwd": layers,
-        "smx_dense_dropout_res_ln": layers + dec_layers,
+        **dense_launches(layers + dec_layers, dtype, dropout=True),
         **ffn_forward_launches(layers, layers, dtype, dropout=True),
         **dict.fromkeys(K8_DROPOUT_ENTRIES[dtype], layers),
         "smx_dropout_mask": 4 + dec_layers + (layers + dec_layers) + layers})
@@ -3136,8 +3155,9 @@ def _tally_by_length(kernel, counter, offset):
     return counted
 
 
-# K8's device kernels in bf16, and those of the bf16 passes of K3 / K9 /
-# K12 / K13 (ffn_pass_kernel<0, .>: up, <1, .>: down, <2, .>: down to z),
+# K8's device kernels in bf16, and those of the passes of K3 / K9 /
+# K12 / K13 (ffn_pass_kernel<dtype, 0, ...>: up, <., 1, ...>: down, <., 2,
+# ...>: down to z; the float instances in the f32 runs),
 # by name in the profiler's trace
 K8_KERNELS = ("recompute_kernel", "products_kernel", "ffn_bwd_reduce_kernel")
 FWD_KERNELS = ("ffn_pass_kernel", "res_ln_rows_kernel")
@@ -3213,13 +3233,13 @@ def expected_preln_train_launches(kept, attn_bwd, ffn_bwd, enc_layers,
     if not dropout:
         want.update({"smx_attention_fwd": kept + nlp,
                      "smx_attention_bwd": attn_bwd + nlp,
-                     "smx_dense_res_ln": nlp + dec_layers,
+                     **dense_launches(nlp + dec_layers, dtype),
                      **dict.fromkeys(K8_ENTRIES[dtype], ffn_bwd + nlp),
                      **ffn_forward_launches(nlp, kept + nlp, dtype)})
         return want
     want.update({"smx_attention_dropout_fwd": kept + nlp,
                  "smx_attention_dropout_bwd": attn_bwd + nlp,
-                 "smx_dense_dropout_res_ln": nlp + dec_layers,
+                 **dense_launches(nlp + dec_layers, dtype, dropout=True),
                  **ffn_forward_launches(nlp, kept + nlp, dtype, dropout=True),
                  **dict.fromkeys(K8_DROPOUT_ENTRIES[dtype], ffn_bwd + nlp),
                  "smx_dropout_mask": (4 + dec_layers + (nlp + dec_layers)
@@ -4461,8 +4481,10 @@ def run_trainer(seed, card):
         raise AssertionError("teacher: too few sentences of 33-64 tokens")
     layers = dec.encoder_layers
     want = expected_train_launches(0, 0, 0, dtype="f32")
-    want.update({"smx_attention_fwd": layers, "smx_dense_res_ln": layers,
-                 "smx_ffn_res_ln": layers, "smx_conv_ln_gelu": 0,
+    want.update({"smx_attention_fwd": layers,
+                 **dense_launches(layers, "f32"),
+                 **ffn_forward_launches(layers, 0, "f32"),
+                 "smx_conv_ln_gelu": 0,
                  "smx_decode_attention": 2 * dec.decoder_layers
                  * TEACHER_MAX_LEN})
     run = lambda: teacher.create_self_decoder_inputs_batched(
@@ -4493,8 +4515,10 @@ def run_trainer(seed, card):
         f"{min(len(i) for i, _ in pairs)}-{max(len(i) for i, _ in pairs)} "
         f"tokens, text bucket {teacher._text_bucket(max(len(i) for i, _ in pairs))}"
         f", max_length {TEACHER_MAX_LEN}): {teacher_ms:.1f} ms, launches "
-        f"K1 {counts['smx_attention_fwd']}, K2 {counts['smx_dense_res_ln']}, "
-        f"K3 {counts['smx_ffn_res_ln']}, K4 {counts['smx_decode_attention']}"
+        f"K1 {counts['smx_attention_fwd']}, K2 "
+        f"{counts['smx_dense_res_ln_f32']}, K3 "
+        f"{counts['smx_ffn_down_res_f32']}, K4 "
+        f"{counts['smx_decode_attention']}"
         f"; label lengths {sorted({len(l) for _, l in pairs})}; token "
         f"agreement with the plain path {rate:.4f} (at least "
         f"{TOKEN_AGREEMENT_F32}) on {card}")
@@ -5335,8 +5359,7 @@ def check_bucket_shapes(params, cfg, pipe, by_cap):
     from speechmix_tpu_torch.ops import kernels
     from speechmix_tpu_torch.ops.kernels import decode_attention as kd
     p32 = _cast_tree(params, torch.float32)
-    want = expected_launches("greedy", MAX_LEN)
-    want.update(ffn_forward_launches(LAYERS_WITH_KERNELS, 0, dtype="f32"))
+    want = f32_generate_launches("greedy", MAX_LEN)
     for cap in sorted(by_cap):
         chunk = by_cap[cap][:BATCH]
         chunk += [chunk[-1]] * (BATCH - len(chunk))
@@ -5549,29 +5572,32 @@ def run_serving(seed, card):
 
 # -- phases of the commands, remat, the profiler and the native runtime ----
 
-# K number -> the entries that launch it (bf16 passes, f32 entries); K9 and
-# K13 share the down pass (smx_ffn_down): K13's in a run with dropout, K9's
-# without (kernel_launches)
+# K number -> the entries that launch it (bf16, f32); K9 and K13 share the
+# down pass (smx_ffn_down, smx_ffn_down_f32): K13's in a run with dropout,
+# K9's without (kernel_launches)
 K_ENTRIES = {
-    "K1": ("smx_attention_fwd",), "K2": ("smx_dense_res_ln",),
-    "K3": ("smx_ffn_down_res", "smx_ffn_res_ln"),
+    "K1": ("smx_attention_fwd",), "K2": tuple(DENSE_ENTRIES.values()),
+    "K3": ("smx_ffn_down_res", "smx_ffn_down_res_f32"),
     "K4": ("smx_decode_attention", "smx_decode_attention_q8"),
     "K5": ("smx_beam_gather",), "K6": ("smx_conv_ln_gelu",),
     "K7": ("smx_attention_bwd",), "K8": tuple(K8_ALL),
-    "K9": ("smx_ffn_down", "smx_ffn_fused"),
-    "K10": ("smx_dropout_mask",), "K11": ("smx_dense_dropout_res_ln",),
-    "K12": ("smx_ffn_dropout_down_res", "smx_ffn_dropout_res_ln"),
-    "K13": ("smx_ffn_down", "smx_ffn_dropout"),
+    "K9": ("smx_ffn_down", "smx_ffn_down_f32"),
+    "K10": ("smx_dropout_mask",),
+    "K11": tuple(DENSE_DROPOUT_ENTRIES.values()),
+    "K12": ("smx_ffn_dropout_down_res", "smx_ffn_dropout_down_res_f32"),
+    "K13": ("smx_ffn_down", "smx_ffn_down_f32"),
     "K14": ("smx_attention_dropout_fwd",),
     "K15": ("smx_attention_dropout_bwd",)}
 
 
 def kernel_launches(counts, dropout):
     """Launches by K number in one run's counts; `dropout`: whether the
-    run's FFN down passes (smx_ffn_down) are K13's, else K9's."""
+    run's FFN down passes (smx_ffn_down, smx_ffn_down_f32) are K13's, else
+    K9's."""
     out = {k: sum(counts.get(e, 0) for e in entries)
            for k, entries in K_ENTRIES.items()}
-    out["K9" if dropout else "K13"] -= counts.get("smx_ffn_down", 0)
+    out["K9" if dropout else "K13"] -= sum(
+        counts.get(e, 0) for e in K_ENTRIES["K9"])
     return out
 
 
@@ -5926,8 +5952,7 @@ def run_commands(seed, card):
     refs = [l for l in one if l.startswith("reference text:")]
     if len(decoded) != 1 or len(refs) != 1:
         raise AssertionError(f"eval command: output {one}")
-    want = expected_launches("beam-4", COMMAND_MAX_LEN)
-    want.update(ffn_forward_launches(LAYERS_WITH_KERNELS, 0, dtype="f32"))
+    want = f32_generate_launches("beam-4", COMMAND_MAX_LEN)
     if runs[synth_name] != want or len(eval_predicts) != 1 or \
             eval_predicts[0]["batches"] != 1:
         raise AssertionError(f"eval command {synth_name}: launches "
@@ -5935,8 +5960,7 @@ def run_commands(seed, card):
     # one utterance of 1-3 s: its rows are below the fused gate, so K2 /
     # K3 give way to the plain chain, as in every decode step
     want = expected_launches("greedy", COMMAND_MAX_LEN)
-    want.update({"smx_dense_res_ln": 0,
-                 **ffn_forward_launches(0, 0, dtype="f32")})
+    want.update({**dense_launches(0), **ffn_forward_launches(0, 0)})
     if runs[one_name] != want:
         raise AssertionError(f"eval command {one_name}: launches "
                              f"{runs[one_name]}, expected {want}")
@@ -6303,8 +6327,7 @@ def mesh_generate_launches(cfg, steps):
     and K4 for the self- and cross-attention of every decoder layer and
     step; no K2 / K3 (the plain chain)."""
     want = expected_launches("greedy", steps)
-    want.update(dict.fromkeys(FWD_ENTRIES, 0))
-    want["smx_dense_res_ln"] = 0
+    want.update({**dict.fromkeys(FWD_ENTRIES, 0), **dense_launches(0)})
     return want
 
 
@@ -6751,9 +6774,9 @@ def width_tallies():
     from speechmix_tpu_torch.ops.kernels import ffn as kf
     return ((ka.KERNEL, 4), (ka.DROPOUT_KERNEL, 4), (ka.BWD_KERNEL, 4),
             (ka.DROPOUT_BWD_KERNEL, 4), (kd.KERNEL, 4), (kd.KERNEL_Q8, 4),
-            (kc.KERNEL, 2), (kf.FFN_FUSED, 1), (kf.FFN_RES_LN, 1),
+            (kc.KERNEL, 2), (kf.FFN_DOWN_F32, 1), (kf.FFN_DOWN_RES_F32, 1),
             (kf.FFN_BWD_RECOMPUTE_F32, 1), (kf.FFN_BWD_PRODUCTS_F32, 1),
-            (kf.DENSE_RES_LN, 2))
+            (kf.DENSE_RES_LN_F32, 2))
 
 
 def _int8_kv(gen, dev, bkv, t, heads, d):
@@ -7182,30 +7205,35 @@ def f32_path_rows():
                 "attention_bwd.cu", f"{fa}:815", "f32-train",
                 "smx_attention_dropout_bwd")})
     for n in F32_PATH_ROWS:
+        # f32 K2 / K11 are one entry of ffn_fwd.cu each; K3 / K12 counted
+        # by the pass only they run (the down pass to z), K9 / K13 by the
+        # down pass to the output in the run without / with dropout
+        greedy_or_step = "f32-greedy" if n > 1024 else "f32-train-no-dropout"
         rows.update({
             f"dense_res_ln (f32, N={n})": (
-                "dense_res_ln.cu", f"{fb}:381", "f32-greedy" if n > 1024
-                else "f32-train-no-dropout", "smx_dense_res_ln"),
+                "ffn_fwd.cu", f"{fb}:381", greedy_or_step,
+                "smx_dense_res_ln_f32"),
             f"dense_dropout_res_ln (f32, N={n})": (
-                "dense_res_ln.cu", f"{fb}:1097", "f32-train",
-                "smx_dense_dropout_res_ln"),
+                "ffn_fwd.cu", f"{fb}:1097", "f32-train",
+                "smx_dense_dropout_res_ln_f32"),
+            f"ffn_res_ln (f32, N={n})": (
+                "ffn_fwd.cu", f"{fb}:203", greedy_or_step,
+                "smx_ffn_down_res_f32"),
+            f"ffn_fused (f32, N={n})": (
+                "ffn_fwd.cu", f"{fb}:128", "f32-train-no-dropout",
+                "smx_ffn_down_f32"),
+            f"ffn_dropout_res_ln (f32, N={n})": (
+                "ffn_fwd.cu", f"{fb}:1016", "f32-train",
+                "smx_ffn_dropout_down_res_f32"),
+            f"ffn_dropout (f32, N={n})": (
+                "ffn_fwd.cu", f"{fb}:945", "f32-train", "smx_ffn_down_f32"),
             f"ffn_bwd (f32, N={n})": (
                 "ffn_bwd.cu", f"{fb}:631", "f32-train-no-dropout",
                 "smx_ffn_bwd_recompute_f32"),
             f"ffn_dropout_bwd (f32, N={n})": (
                 "ffn_bwd.cu", f"{fb}:700", "f32-train",
                 "smx_ffn_dropout_bwd_recompute_f32")})
-    n = F32_PATH_ROWS[0]
     rows.update({
-        f"ffn_res_ln (f32, N={n})": ("ffn_res_ln.cu", f"{fb}:203",
-                                     "f32-greedy", "smx_ffn_res_ln"),
-        f"ffn_fused (f32, N={n})": ("ffn_res_ln.cu", f"{fb}:128",
-                                    "f32-train-no-dropout", "smx_ffn_fused"),
-        f"ffn_dropout_res_ln (f32, N={n})": (
-            "ffn_res_ln.cu", f"{fb}:1016", "f32-train",
-            "smx_ffn_dropout_res_ln"),
-        f"ffn_dropout (f32, N={n})": ("ffn_res_ln.cu", f"{fb}:945",
-                                      "f32-train", "smx_ffn_dropout"),
         **{f"decode_attention (f32, {name})": (
             "decode_attention.cu", "decode_attention.py:31", "f32-greedy",
             "smx_decode_attention") for name in ("cross greedy",
@@ -7256,6 +7284,70 @@ def check_k8_f32_body(randn, dev):
         del x, g, w1, w2, amask
 
 
+def check_f32_forward_widths(randn, dev):
+    """The f32 passes of ffn_fwd.cu off the model's widths: K9 / K3 / K13 /
+    K12 at H = 100, F = 400 (tiles the TMA fills with zeros) under every
+    activation, H = 2048, F = 256 (the widest H) and H = 99, F = 390 (the
+    wrapper's padding to multiples of 4), K2 / K11 at Din = H = 100, Din =
+    99 with H = 101 and Din = 512 with H = 768, 77 or 1000 rows (ragged
+    tiles), each against its plain version at the f32 limits (over 1 - r
+    with a mask) and twice, bit for bit."""
+    from speechmix_tpu_torch.ops.kernels import dropout as kdrop
+    from speechmix_tpu_torch.ops.kernels import ffn as kf
+
+    rate, key = DROP_RATE, kdrop.DropoutKey.from_seed(20)
+    tol = _dropout_tol(TOL["float32"], rate)
+    rule = f"atol {tol[0]:.4g}, rtol {tol[1]:.4g} (TOL / (1-r))"
+    log("f32 forward passes off the model's widths")
+    for n, h, f, acts in ((1000, 100, 400, tuple(kf.ACT_CODES)),
+                          (1000, 2048, 256, ("gelu",)),
+                          (77, 99, 390, ("gelu", "relu"))):
+        x, res = randn(n, h), randn(n, h)
+        w1, w2 = randn(h, f, scale=0.03), randn(f, h, scale=0.03)
+        b1, b2, beta = randn(f, scale=0.1), randn(h, scale=0.1), randn(
+            h, scale=0.1)
+        gamma = randn(h, scale=0.1) + 1.0
+        amask = kdrop.dropout_mask_plain(key, kdrop.STREAM_ACT, n, f, rate,
+                                         dev)
+        omask = kdrop.dropout_mask_plain(key, kdrop.STREAM_OUT, n, h, rate,
+                                         dev)
+        for act in acts:
+            k9, k3 = (x, w1, b1, w2, b2), (x, w1, b1, w2, b2, res, gamma,
+                                           beta)
+            what = f"N={n} H={h} F={f} {act} f32"
+            for label, fn, ref, r in (
+                    ("K9", lambda: kf.ffn_fused(*k9, act),
+                     kf.ffn_fused_plain(*k9, act), 0.0),
+                    ("K3", lambda: kf.ffn_res_ln(*k3, act),
+                     kf.ffn_res_ln_plain(*k3, act), 0.0),
+                    ("K13", lambda: kf.ffn_dropout(*k9, key, rate, act),
+                     kf.ffn_dropout_plain(*k9, amask, act), rate),
+                    ("K12", lambda: kf.ffn_dropout_res_ln(
+                        *k3, key, rate, rate, act),
+                     kf.ffn_dropout_res_ln_plain(*k3, amask, omask, act),
+                     rate)):
+                t = _dropout_tol(TOL["float32"], r)
+                compare(f"{label} {what}", fn(), ref, t[0] + t[1] * ref.abs(),
+                        rule if r else f"atol {t[0]:.4g}, rtol {t[1]:.4g}")
+                expect_equal(f"{label} {what}", (fn(),), (fn(),))
+    for n, din, h in ((1000, 100, 100), (77, 99, 101), (1000, 512, 768)):
+        x, res = randn(n, din), randn(n, h)
+        w = randn(din, h, scale=0.03)
+        b, beta = randn(h, scale=0.1), randn(h, scale=0.1)
+        k2 = (x, w, b, res, randn(h, scale=0.1) + 1.0, beta)
+        omask = kdrop.dropout_mask_plain(key, kdrop.STREAM_OUT, n, h, rate,
+                                         dev)
+        what = f"N={n} Din={din} H={h} f32"
+        compare(f"K2 {what}", kf.dense_res_ln(*k2), kf.dense_res_ln_plain(*k2))
+        expect_equal(f"K2 {what}", (kf.dense_res_ln(*k2),),
+                     (kf.dense_res_ln(*k2),))
+        ref = kf.dense_dropout_res_ln_plain(*k2, omask)
+        out = kf.dense_dropout_res_ln(*k2, key, rate)
+        compare(f"K11 {what}", out, ref, tol[0] + tol[1] * ref.abs(), rule)
+        expect_equal(f"K11 {what}", (out,),
+                     (kf.dense_dropout_res_ln(*k2, key, rate),))
+
+
 def _f32_row(records, name, shape, err, kernel, plain, library, flops,
              nbytes, **at):
     records[name] = dict(
@@ -7269,8 +7361,8 @@ def check_f32_rows(randn, dev, records):
     f32 greedy generate and train step, B = 16 x 16 s) at that path's
     shapes, each against its plain version, then timed beside its plain
     version and one library call in full f32 (TF32 off): K1 / K14 / K7 /
-    K15 at F32_ATTN; K2 / K11 at F32_PATH_ROWS; K3 / K9 / K12 / K13 at
-    12800 rows; K4 with an f32 q (cross greedy at T = 400, self at 64); K6
+    K15 at F32_ATTN; K2 / K11 and K3 / K9 / K12 / K13 (the f32 passes of
+    ffn_fwd.cu, two calls bit for bit) at F32_PATH_ROWS; K4 with an f32 q (cross greedy at T = 400, self at 64); K6
     at the six extractor layers (C = 512, without LayerNorm as the
     flagship, and with it); K8 with and without the activation mask at
     F32_PATH_ROWS."""
@@ -7390,43 +7482,51 @@ def check_f32_rows(randn, dev, records):
         ffn_io = (2 * n * h + 2 * h * f) * 4 + (f + h) * 4
         lib_ffn = lambda drop: F.linear(  # noqa: E731
             F.dropout(F.gelu(F.linear(x, w1t, b1)), drop), w2t, b2)
-        if n == F32_PATH_ROWS[0]:
-            k3 = (x, w1, b1, w2, b2, res, gamma, beta)
-            e3 = compare(f"K3 {what} f32", kf.ffn_res_ln(*k3),
-                         kf.ffn_res_ln_plain(*k3))
-            _f32_row(records, f"ffn_res_ln (f32, N={n})", what, e3,
-                     lambda: kf.ffn_res_ln(*k3),
-                     lambda: kf.ffn_res_ln_plain(*k3),
-                     lambda: F.layer_norm(res + lib_ffn(0.0), (h,), gamma,
-                                          beta, 1e-5),
-                     4.0 * n * h * f, ffn_io + (n * h + 2 * h) * 4, rows=n)
-            k9 = (x, w1, b1, w2, b2)
-            e9 = compare(f"K9 {what} f32", kf.ffn_fused(*k9),
-                         kf.ffn_fused_plain(*k9))
-            _f32_row(records, f"ffn_fused (f32, N={n})", what, e9,
-                     lambda: kf.ffn_fused(*k9),
-                     lambda: kf.ffn_fused_plain(*k9),
-                     lambda: lib_ffn(0.0), 4.0 * n * h * f, ffn_io, rows=n)
-            ref = kf.ffn_dropout_res_ln_plain(*k3, amask(n), omask(n))
-            e12 = compare(f"K12 {what} f32", kf.ffn_dropout_res_ln(
-                *k3, key, rate, rate), ref, lim_d(ref), rule_d)
-            _f32_row(records, f"ffn_dropout_res_ln (f32, N={n})",
-                     f"{what}, rates {rate}", e12,
-                     lambda: kf.ffn_dropout_res_ln(*k3, key, rate, rate),
-                     lambda: kf.ffn_dropout_res_ln_plain(*k3, amask(n),
-                                                         omask(n)),
-                     lambda: F.layer_norm(res + F.dropout(lib_ffn(rate),
-                                                          rate), (h,),
-                                          gamma, beta, 1e-5),
-                     4.0 * n * h * f, ffn_io + (n * h + 2 * h) * 4, rows=n)
-            ref = kf.ffn_dropout_plain(*k9, amask(n))
-            e13 = compare(f"K13 {what} f32", kf.ffn_dropout(*k9, key, rate),
-                          ref, lim_d(ref), rule_d)
-            _f32_row(records, f"ffn_dropout (f32, N={n})",
-                     f"{what}, rate {rate}", e13,
-                     lambda: kf.ffn_dropout(*k9, key, rate),
-                     lambda: kf.ffn_dropout_plain(*k9, amask(n)),
-                     lambda: lib_ffn(rate), 4.0 * n * h * f, ffn_io, rows=n)
+        k3 = (x, w1, b1, w2, b2, res, gamma, beta)
+        e3 = compare(f"K3 {what} f32", kf.ffn_res_ln(*k3),
+                     kf.ffn_res_ln_plain(*k3))
+        _f32_row(records, f"ffn_res_ln (f32, N={n})", what, e3,
+                 lambda: kf.ffn_res_ln(*k3),
+                 lambda: kf.ffn_res_ln_plain(*k3),
+                 lambda: F.layer_norm(res + lib_ffn(0.0), (h,), gamma,
+                                      beta, 1e-5),
+                 4.0 * n * h * f, ffn_io + (n * h + 2 * h) * 4, rows=n)
+        k9 = (x, w1, b1, w2, b2)
+        e9 = compare(f"K9 {what} f32", kf.ffn_fused(*k9),
+                     kf.ffn_fused_plain(*k9))
+        _f32_row(records, f"ffn_fused (f32, N={n})", what, e9,
+                 lambda: kf.ffn_fused(*k9),
+                 lambda: kf.ffn_fused_plain(*k9),
+                 lambda: lib_ffn(0.0), 4.0 * n * h * f, ffn_io, rows=n)
+        ref = kf.ffn_dropout_res_ln_plain(*k3, amask(n), omask(n))
+        e12 = compare(f"K12 {what} f32", kf.ffn_dropout_res_ln(
+            *k3, key, rate, rate), ref, lim_d(ref), rule_d)
+        # the f32 passes, each call the same bits
+        for label, fn in (
+                ("K2", lambda: kf.dense_res_ln(*k2)),
+                ("K11", lambda: kf.dense_dropout_res_ln(*k2, key, rate)),
+                ("K3", lambda: kf.ffn_res_ln(*k3)),
+                ("K9", lambda: kf.ffn_fused(*k9)),
+                ("K12", lambda: kf.ffn_dropout_res_ln(*k3, key, rate, rate)),
+                ("K13", lambda: kf.ffn_dropout(*k9, key, rate))):
+            expect_equal(f"{label} {what} f32", (fn(),), (fn(),))
+        _f32_row(records, f"ffn_dropout_res_ln (f32, N={n})",
+                 f"{what}, rates {rate}", e12,
+                 lambda: kf.ffn_dropout_res_ln(*k3, key, rate, rate),
+                 lambda: kf.ffn_dropout_res_ln_plain(*k3, amask(n),
+                                                     omask(n)),
+                 lambda: F.layer_norm(res + F.dropout(lib_ffn(rate),
+                                                      rate), (h,),
+                                      gamma, beta, 1e-5),
+                 4.0 * n * h * f, ffn_io + (n * h + 2 * h) * 4, rows=n)
+        ref = kf.ffn_dropout_plain(*k9, amask(n))
+        e13 = compare(f"K13 {what} f32", kf.ffn_dropout(*k9, key, rate),
+                      ref, lim_d(ref), rule_d)
+        _f32_row(records, f"ffn_dropout (f32, N={n})",
+                 f"{what}, rate {rate}", e13,
+                 lambda: kf.ffn_dropout(*k9, key, rate),
+                 lambda: kf.ffn_dropout_plain(*k9, amask(n)),
+                 lambda: lib_ffn(rate), 4.0 * n * h * f, ffn_io, rows=n)
         lx = x.detach().requires_grad_()
         lw1, lw2 = (w_.t().contiguous().requires_grad_() for w_ in (w1, w2))
         lb1 = b1.detach().requires_grad_()
@@ -7527,13 +7627,16 @@ def run_f32_flagship(seed, card, check=True):
 
     t_phase = time.perf_counter()
     ours = port_kernel_names()
+    # the f32 entries by rows (a tree from before they were named so, run
+    # with check=False, tallies those it has)
     pairs = [(kern, offset) for kern, offset in (
         (ka.KERNEL, 1), (ka.DROPOUT_KERNEL, 1), (ka.BWD_KERNEL, 1),
         (ka.DROPOUT_BWD_KERNEL, 1), (kd.KERNEL, 2), (kc.KERNEL, 1),
-        (kf.DENSE_RES_LN, 0), (kf.DENSE_DROPOUT_RES_LN, 0),
-        (kf.FFN_RES_LN, 0), (kf.FFN_FUSED, 0), (kf.FFN_DROPOUT_RES_LN, 0),
-        (kf.FFN_DROPOUT, 0), (getattr(kf, "FFN_BWD_RECOMPUTE_F32", None), 0),
-        (getattr(kf, "FFN_DROPOUT_BWD_RECOMPUTE_F32", None), 0))
+        *((getattr(kf, name, None), 0) for name in (
+            "DENSE_RES_LN_F32", "DENSE_DROPOUT_RES_LN_F32", "FFN_UP_F32",
+            "FFN_DROPOUT_UP_F32", "FFN_DOWN_F32", "FFN_DOWN_RES_F32",
+            "FFN_DROPOUT_DOWN_RES_F32", "RES_LN_ROWS_F32",
+            "FFN_BWD_RECOMPUTE_F32", "FFN_DROPOUT_BWD_RECOMPUTE_F32")))
         if kern is not None]
     counts, shapes = {}, {}
 
@@ -7588,8 +7691,7 @@ def run_f32_flagship(seed, card, check=True):
     del params
     log(f"f32 path: flagship, float32 (SpeechMixConfig.dtype's default), "
         f"B={BATCH} x {SECONDS} s")
-    want = expected_launches("greedy", MAX_LEN)
-    want.update(ffn_forward_launches(LAYERS_WITH_KERNELS, 0, "f32"))
+    want = f32_generate_launches("greedy", MAX_LEN)
     out = []
     with torch.no_grad():
         timed(f"f32 greedy generate ({MAX_LEN} steps)", "f32-greedy",
@@ -7844,7 +7946,7 @@ def run_xl_pair(seed, card):
         counts["xl-f32-grad"] = check_gradient_tree(seed, xl=True)
     _expect_widths("f32 gradient", tally, {
         ("smx_attention_fwd", d): 2, ("smx_attention_bwd", d): 2,
-        ("smx_ffn_fused", enc.hidden_size): 2,
+        ("smx_ffn_down_f32", enc.hidden_size): 2,
         ("smx_ffn_bwd_recompute_f32", enc.hidden_size): 2,
         ("smx_ffn_bwd_products_f32", enc.hidden_size): 2})
     widths["xl-f32-grad"] = dict(tally)
@@ -8211,19 +8313,19 @@ def main():
             "smx_decode_attention_q8"),
         # the f32 widths above 1024 (launches_at_width: at that H in the XL
         # pair's f32 gradient)
-        **{f"ffn_fused (f32, H={h})": ("ffn_res_ln.cu", "ffn_kernel.py:128",
-                                       "xl-f32-grad", "smx_ffn_fused")
+        **{f"ffn_fused (f32, H={h})": ("ffn_fwd.cu", "ffn_kernel.py:128",
+                                       "xl-f32-grad", "smx_ffn_down_f32")
            for h in F32_WIDTHS},
         **{f"ffn_bwd (f32, H={h})": ("ffn_bwd.cu", "ffn_kernel.py:631",
                                      "xl-f32-grad",
                                      "smx_ffn_bwd_recompute_f32")
            for h in F32_WIDTHS},
-        **{f"ffn_res_ln (f32, H={h})": ("ffn_res_ln.cu", "ffn_kernel.py:203",
-                                        "xl-f32-grad", "smx_ffn_res_ln")
+        **{f"ffn_res_ln (f32, H={h})": ("ffn_fwd.cu", "ffn_kernel.py:203",
+                                        "xl-f32-grad", "smx_ffn_down_res_f32")
            for h in F32_WIDTHS},
         **{f"dense_res_ln (f32, H={h})": (
-            "dense_res_ln.cu", "ffn_kernel.py:381", "xl-f32-grad",
-            "smx_dense_res_ln") for h in F32_WIDTHS},
+            "ffn_fwd.cu", "ffn_kernel.py:381", "xl-f32-grad",
+            "smx_dense_res_ln_f32") for h in F32_WIDTHS},
         # the flagship's f32 path (check_f32_rows), the launches of its
         # greedy generate, its default-recipe train step or its step with
         # dropout off, at the row's length, rows or T_in

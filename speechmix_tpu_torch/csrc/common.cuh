@@ -1,7 +1,7 @@
 // Shared device helpers of the port's kernels: f32 <-> storage-type
-// conversion, the FFN activations, and the residual + LayerNorm epilogue
-// that dense_res_ln.cu and ffn_res_ln.cu share (with the output dropout of
-// their dropout entries, from dropout.cuh).
+// conversion, the FFN activations and their derivatives, and a warp's sum
+// (with dropout.cuh, the mask generator every kernel that draws a mask
+// shares).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -70,95 +70,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
-}
-
-// Row sums of a (BM, NT * MAXC) tile spread over the block: thread `tid`
-// holds columns tid + j * NT of every row in part[r][j].  Returns the sum
-// of row r (of its squares with SQ) in out[r] on every thread.  `red` is (NT / 32) * BM floats of
-// shared memory, `tot` BM floats.
-template <int BM, int MAXC, int NT, bool SQ>
-__device__ __forceinline__ void block_row_sums(const float (&part)[BM][MAXC],
-                                               float (&out)[BM], float* red,
-                                               float* tot) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int r = 0; r < BM; ++r) {
-    float s = 0.0f;
-#pragma unroll
-    for (int j = 0; j < MAXC; ++j) s += SQ ? part[r][j] * part[r][j] : part[r][j];
-    s = warp_sum(s);
-    if (lane == 0) red[warp * BM + r] = s;
-  }
-  __syncthreads();
-  if (threadIdx.x < BM) {
-    float s = 0.0f;
-    for (int w = 0; w < NT / 32; ++w) s += red[w * BM + threadIdx.x];
-    tot[threadIdx.x] = s;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int r = 0; r < BM; ++r) out[r] = tot[r];
-  __syncthreads();  // red / tot are reused by the next call
-}
-
-// out[row, c] = LayerNorm(acc + bias + res)[row, c] * g[c] + beta[c] for the
-// rows r0 .. r0 + BM - 1 (< n) of an (n, h) output.  acc holds columns
-// tid + j * NT of every row, accumulated in f32.  Mean and variance are taken
-// over the f32 sum, as the TPU kernels' epilogue does.  With DROP the sum is
-// (acc + bias) * mask(row, c) + res, the mask from `drop` (one Philox call
-// per element: these float32 kernels are f32-FMA bodies, not yet tuned).
-template <typename T, int BM, int MAXC, int NT, bool DROP = false>
-__device__ __forceinline__ void res_ln_epilogue(
-    float (&acc)[BM][MAXC], const float* __restrict__ bias,
-    const T* __restrict__ res, const float* __restrict__ g,
-    const float* __restrict__ beta, T* __restrict__ out, int n, int h, int r0,
-    float eps, float* red, float* tot, const Dropout& drop = Dropout{}) {
-  const int tid = threadIdx.x;
-#pragma unroll
-  for (int r = 0; r < BM; ++r) {
-    const int row = r0 + r;
-#pragma unroll
-    for (int j = 0; j < MAXC; ++j) {
-      const int c = tid + j * NT;
-      if (c < h && row < n) {
-        if constexpr (DROP) {
-          acc[r][j] = (acc[r][j] + bias[c]) * drop.at(row, c) +
-                      to_f32(res[(long long)row * h + c]);
-        } else {
-          acc[r][j] += bias[c] + to_f32(res[(long long)row * h + c]);
-        }
-      } else {
-        acc[r][j] = 0.0f;
-      }
-    }
-  }
-  float mean[BM];
-  block_row_sums<BM, MAXC, NT, false>(acc, mean, red, tot);
-  const float inv_h = 1.0f / (float)h;
-#pragma unroll
-  for (int r = 0; r < BM; ++r) {
-    mean[r] *= inv_h;
-#pragma unroll
-    for (int j = 0; j < MAXC; ++j) {
-      const int c = tid + j * NT;
-      acc[r][j] = c < h ? acc[r][j] - mean[r] : 0.0f;
-    }
-  }
-  float var[BM];
-  block_row_sums<BM, MAXC, NT, true>(acc, var, red, tot);
-#pragma unroll
-  for (int r = 0; r < BM; ++r) {
-    const int row = r0 + r;
-    if (row >= n) continue;
-    const float inv = rsqrtf(var[r] * inv_h + eps);
-#pragma unroll
-    for (int j = 0; j < MAXC; ++j) {
-      const int c = tid + j * NT;
-      if (c < h) {
-        out[(long long)row * h + c] = from_f32<T>(acc[r][j] * inv * g[c] + beta[c]);
-      }
-    }
-  }
 }
 
 }  // namespace smx

@@ -2,7 +2,9 @@
 // smx_dense_res_ln), and K11: dense_dropout_res_ln — out = LayerNorm(res +
 // drop(x @ w + b)) * g + beta, the same body with the output mask (entry
 // smx_dense_dropout_res_ln; the mask of dropout.cuh, stream 1, at (row, h
-// column), multiplies the f32 sum x @ w + b before the residual).
+// column), multiplies the f32 sum x @ w + b before the residual), in
+// bfloat16.  float32 K2 / K11 are the f32 down pass to z and the row pass
+// of ffn_fwd.cu (smx_dense_res_ln_f32, smx_dense_dropout_res_ln_f32).
 //
 // K2 replaces the TPU kernel speechmix_tpu/ops/pallas/ffn_kernel.py:
 // dense_res_ln (_kernel_dense_res_ln), the post-LN attention epilogue of the
@@ -10,12 +12,12 @@
 // dense_dropout_res_ln_trainable (_kernel_dense_dropout_res_ln) of the same
 // file, that epilogue with the out-projection's dropout.
 //
-// x: (n, din), w: (din, h) row-major, res/out: (n, h) in float32 or
-// bfloat16; b, g, beta: (h,) float32.  float32: h <= 2048.  bfloat16: din
-// and h multiples of 128 (what the TPU package's gate admits), h <= 1024,
-// or h <= 2048 where 256 divides it (a cluster of at most 8 blocks); x, w,
-// res, g, beta and out 16-byte aligned (TMA).  Wider bfloat16 rows are the
-// wrapper's two passes of ffn_fwd.cu.  The launcher refuses anything else.
+// x: (n, din), w: (din, h) row-major, res/out: (n, h) bfloat16; b, g, beta:
+// (h,) float32.  din and h multiples of 128 (what the TPU package's gate
+// admits), h <= 1024, or h <= 2048 where 256 divides it (a cluster of at
+// most 8 blocks); x, w, res, g, beta and out 16-byte aligned (TMA).  Wider
+// rows are the wrapper's two passes of ffn_fwd.cu.  The launcher refuses
+// anything else.
 //
 // What bounds it on the H100: at the flagship shape (n = B*T ~ 12800,
 // din = h = 768) the product is 2*n*din*h ~ 15 GFLOP (0.0153 ms at the bf16
@@ -26,20 +28,7 @@
 // for one another twice, and clusters of h / BN blocks leave SMs of a GPC
 // unused.
 //
-// float32 kernel: one block of 256 threads owns BM = 16 rows and all h
-// columns (thread t holds columns t, t+256, ... of every row: 16 x 4 f32
-// accumulators in registers).  The loop over din stages a (KC, BM) slice of
-// x in shared memory, transposed so each thread reads four rows in one
-// float4 broadcast, and streams w straight from global memory with
-// neighbouring threads on neighbouring columns.  The epilogue adds b and res,
-// takes mean and variance per row with warp shuffles and a shared-memory
-// reduction, and stores each output element once.  Rows past n are masked;
-// no padding is needed.  It serves the f32 path (the default dtype) and
-// is not yet tuned: ROADMAP Queue B ranks it among the f32-FMA bodies.
-// Above h = 1024 the same body holds 8 columns a thread and BM = 8 rows a
-// block (64 accumulator registers); h <= 1024 runs the body it always ran.
-//
-// bfloat16 kernel, TMA + wgmma on Hopper: a 128-row tile of the output is
+// The kernel, TMA + wgmma on Hopper: a 128-row tile of the output is
 // owned by a thread-block cluster of h / BN blocks, block r of the cluster
 // owning columns BN r .. BN r + BN - 1; BN is 256 (or 128 where 256 does
 // not divide h, and while the 128-column kernel's clusters take every row
@@ -67,92 +56,6 @@
 #include "hopper.cuh"
 
 namespace {
-
-constexpr int NT = 256;
-constexpr int KC = 32;
-constexpr int MAX_H = 8 * NT;  // the widest float32 h: 8 columns a thread
-
-// BM rows a block; h <= MAXC * NT
-template <int BM, int MAXC, bool DROP>
-__global__ void __launch_bounds__(NT)
-    dense_res_ln_kernel(const float* __restrict__ x,
-                        const float* __restrict__ w,
-                        const float* __restrict__ b,
-                        const float* __restrict__ res,
-                        const float* __restrict__ g,
-                        const float* __restrict__ beta, float* __restrict__ out,
-                        int n, int din, int h, float eps, smx::Dropout drop) {
-  __shared__ __align__(16) float xs[KC * BM];  // xs[k * BM + r]
-  __shared__ float red[(NT / 32) * BM];
-  __shared__ float tot[BM];
-  const int tid = threadIdx.x;
-  const int r0 = blockIdx.x * BM;
-
-  float acc[BM][MAXC];
-#pragma unroll
-  for (int r = 0; r < BM; ++r)
-#pragma unroll
-    for (int j = 0; j < MAXC; ++j) acc[r][j] = 0.0f;
-
-  for (int k0 = 0; k0 < din; k0 += KC) {
-    for (int i = tid; i < KC * BM; i += NT) {
-      const int r = i / KC, kk = i % KC;  // neighbouring threads: along din
-      const int row = r0 + r, k = k0 + kk;
-      xs[kk * BM + r] =
-          (row < n && k < din) ? x[(long long)row * din + k] : 0.0f;
-    }
-    __syncthreads();
-    const int kend = min(KC, din - k0);
-    for (int kk = 0; kk < kend; ++kk) {
-      float wv[MAXC];
-#pragma unroll
-      for (int j = 0; j < MAXC; ++j) {
-        const int c = tid + j * NT;
-        wv[j] = c < h ? w[(long long)(k0 + kk) * h + c] : 0.0f;
-      }
-      const float4* xr = reinterpret_cast<const float4*>(xs + kk * BM);
-#pragma unroll
-      for (int q = 0; q < BM / 4; ++q) {
-        const float4 xv = xr[q];
-#pragma unroll
-        for (int j = 0; j < MAXC; ++j) {
-          acc[4 * q + 0][j] += xv.x * wv[j];
-          acc[4 * q + 1][j] += xv.y * wv[j];
-          acc[4 * q + 2][j] += xv.z * wv[j];
-          acc[4 * q + 3][j] += xv.w * wv[j];
-        }
-      }
-    }
-    __syncthreads();
-  }
-  smx::res_ln_epilogue<float, BM, MAXC, NT, DROP>(acc, b, res, g, beta, out, n,
-                                                  h, r0, eps, red, tot, drop);
-}
-
-template <int BM, int MAXC, bool DROP>
-int launch_f32_rows(const void* x, const void* w, const float* b,
-                    const void* res, const float* g, const float* beta,
-                    void* out, int n, int din, int h, float eps,
-                    smx::Dropout drop, cudaStream_t stream) {
-  dim3 grid((n + BM - 1) / BM);
-  dense_res_ln_kernel<BM, MAXC, DROP><<<grid, NT, 0, stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w), b,
-      static_cast<const float*>(res), g, beta, static_cast<float*>(out), n,
-      din, h, eps, drop);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <bool DROP>
-int launch_f32(const void* x, const void* w, const float* b, const void* res,
-               const float* g, const float* beta, void* out, int n, int din,
-               int h, float eps, smx::Dropout drop, cudaStream_t stream) {
-  if (h <= 4 * NT) {
-    return launch_f32_rows<16, 4, DROP>(x, w, b, res, g, beta, out, n, din, h,
-                                        eps, drop, stream);
-  }
-  return launch_f32_rows<8, 8, DROP>(x, w, b, res, g, beta, out, n, din, h,
-                                     eps, drop, stream);
-}
 
 namespace hw = smx::hopper;
 using hw::BK;
@@ -531,19 +434,14 @@ int launch_bf16(const void* x, const void* w, const float* b, const void* res,
 template <bool DROP>
 int launch(const void* x, const void* w, const float* b, const void* res,
            const float* g, const float* beta, void* out, int n, int din, int h,
-           float eps, smx::Dropout drop, int dtype, int device, void* stream) {
+           float eps, smx::Dropout drop, int device, void* stream) {
   if (h <= 0 || din <= 0 || n <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == smx::kBF16) {
-    return launch_bf16<DROP>(x, w, b, res, g, beta, out, n, din, h, eps, drop,
-                             device, s);
-  }
-  if (h > MAX_H) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_f32<DROP>(x, w, b, res, g, beta, out, n, din, h, eps, drop, s);
+  return launch_bf16<DROP>(x, w, b, res, g, beta, out, n, din, h, eps, drop,
+                           device, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -551,10 +449,9 @@ int launch(const void* x, const void* w, const float* b, const void* res,
 extern "C" int smx_dense_res_ln(const void* x, const void* w, const float* b,
                                 const void* res, const float* g,
                                 const float* beta, void* out, int n, int din,
-                                int h, float eps, int dtype, int device,
-                                void* stream) {
+                                int h, float eps, int device, void* stream) {
   return launch<false>(x, w, b, res, g, beta, out, n, din, h, eps,
-                       smx::Dropout{}, dtype, device, stream);
+                       smx::Dropout{}, device, stream);
 }
 
 // K11: k0, k1 the site's key; threshold and scale of the output mask
@@ -565,9 +462,9 @@ extern "C" int smx_dense_dropout_res_ln(const void* x, const void* w,
                                         void* out, int n, int din, int h,
                                         float eps, uint32_t k0, uint32_t k1,
                                         uint32_t threshold, float scale,
-                                        int dtype, int device, void* stream) {
+                                        int device, void* stream) {
   return launch<true>(x, w, b, res, g, beta, out, n, din, h, eps,
                       smx::make_dropout(k0, k1, smx::kStreamOut, threshold,
                                         scale),
-                      dtype, device, stream);
+                      device, stream);
 }

@@ -11,7 +11,7 @@
 //   db1 = sum_rows da        (f,)   float32
 // db2 = sum_rows g stays with the caller, as in the TPU package.  The
 // dropout twins are the backward of y = drop_a(act(x @ w1 + b1)) @ w2 + b2,
-// the FFN of K12 and K13 (ffn_res_ln.cu): they regenerate the activation
+// the FFN of K12 and K13 (ffn_fwd.cu): they regenerate the activation
 // mask m (dropout.cuh, stream 0, at (row, f column)) and take
 // h = round(act(a) * m), da = round(dh * act'(a) * m), as the TPU package's
 // _ffn_bwd_hand(amask=) does (ffn_kernel.py:700, run in XLA there).

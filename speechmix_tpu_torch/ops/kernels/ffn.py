@@ -11,12 +11,17 @@ K8 with the activation mask.
 thread-block cluster of blocks 256 (or 128) columns wide reduces each
 LayerNorm row across its blocks' shared memory (where the cluster would
 pass 8 blocks, the down pass to the f32 sum and the row pass below).  K3
-and K9 in bfloat16 are passes of
+and K9 are passes of
 ``csrc/ffn_fwd.cu``, each a TMA + wgmma kernel or a row pass: ``ffn_up``
 forms h = round(act(x @ w1 + b1)) (N, F) once, ``ffn_down`` takes h @ w2 +
 b2 to the output (K9) or, with the residual, to an f32 sum z (K3), and
-``res_ln_rows`` takes z to LayerNorm(z) * g + beta (K3); in float32 K3 and
-K9 keep their f32-FMA entries of ``csrc/ffn_res_ln.cu``.
+``res_ln_rows`` takes z to LayerNorm(z) * g + beta (K3).  In float32 the
+same passes run in their f32 entries (``smx_ffn_up_f32``,
+``smx_ffn_down_f32``, ``smx_ffn_down_res_f32``, ``smx_res_ln_rows_f32``),
+with f32-accurate products on the tensor cores, three tf32 products each,
+on w1^T and w2^T that the wrapper lays out per call; float32 K2 is the f32
+down pass to z and the row pass behind one entry of ``ffn_fwd.cu``,
+``smx_dense_res_ln_f32``.
 K8 in bfloat16 is two entries: ``ffn_bwd_recompute`` forms h, da and da's
 column sums per 128-row tile once, ``ffn_bwd_products`` runs dx, dw1 and
 dw2 from them as one TMA + wgmma GEMM; K8 in float32 is the same two passes
@@ -43,8 +48,8 @@ mask (stream 1) over (N, H), keyed on (row, column).  ``dense_dropout_res_ln``
 ``ffn_dropout_res_ln_trainable``'s and ``ffn_dropout`` (K13)
 ``ffn_dropout_trainable``'s (bfloat16: the up pass with the activation mask,
 then the down pass, with the output mask for K12, and for K12 the row pass;
-float32: ``smx_ffn_dropout_res_ln`` and ``smx_ffn_dropout`` of
-``ffn_res_ln.cu``); ``ffn_dropout_bwd`` (K8's
+float32: the same passes' f32 entries, and for K11
+``smx_dense_dropout_res_ln_f32``); ``ffn_dropout_bwd`` (K8's
 dropout recompute entry, or its f32 dropout entries, in ``ffn_bwd.cu``)
 regenerates the activation mask in the backward, where the TPU package runs
 XLA.  Their plain versions take explicit
@@ -69,8 +74,8 @@ from .dropout import (STREAM_ACT, STREAM_OUT, DropoutKey, dropout_mask,
                       dropout_mask_plain, launch_args)
 
 ACT_CODES = {"gelu": 0, "gelu_new": 1, "relu": 2, "silu": 3}
-# the f32-FMA kernels (K2, K3, K9 and their twins) hold all h columns of a
-# row tile; K8's f32 entries, which do not, admit the same widths
+# the widest H that the f32 entries (the forward passes of K2 / K3 / K9 and
+# their twins, K8's two passes) take: the widths the card checks them at
 MAX_HIDDEN = 2048
 # the bfloat16 forward passes of K3 / K9 / K12 / K13 and K2 / K11, and K8's
 # bfloat16 backward, take widths H (and, for the forward, F) that are
@@ -91,33 +96,19 @@ def dense_fused(h):
     return h <= DENSE_MAX_CLUSTER * block
 
 
+# K2 in bfloat16: the cluster kernel
 DENSE_RES_LN = CudaKernel(
     "dense_res_ln.cu", "smx_dense_res_ln",
     [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_float] +
-    [ctypes.c_int] * 2)
-FFN_RES_LN = CudaKernel(
-    "ffn_res_ln.cu", "smx_ffn_res_ln",
-    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_float] +
-    [ctypes.c_int] * 2)
-FFN_FUSED = CudaKernel(
-    "ffn_res_ln.cu", "smx_ffn_fused",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6)
+    [ctypes.c_int])
 # the dropout twins: the deterministic entry's arguments, then the site key's
-# two words and each mask's (threshold, scale) before the dtype and device
+# two words and each mask's (threshold, scale) before the device
 _KEY = [ctypes.c_uint32, ctypes.c_uint32]
 _MASK = [ctypes.c_uint32, ctypes.c_float]
 DENSE_DROPOUT_RES_LN = CudaKernel(
     "dense_res_ln.cu", "smx_dense_dropout_res_ln",
     [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_float] + _KEY +
-    _MASK + [ctypes.c_int] * 2)
-FFN_DROPOUT_RES_LN = CudaKernel(
-    "ffn_res_ln.cu", "smx_ffn_dropout_res_ln",
-    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_float] + _KEY +
-    _MASK * 2 + [ctypes.c_int] * 2)
-FFN_DROPOUT = CudaKernel(
-    "ffn_res_ln.cu", "smx_ffn_dropout",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + _KEY + _MASK +
-    [ctypes.c_int] * 2)
+    _MASK + [ctypes.c_int])
 # K8 in bfloat16: the recompute pass (h, da and da's column sums per row
 # tile, once) and the products (dx, dw1, dw2, db1 from them)
 FFN_BWD_RECOMPUTE = CudaKernel(
@@ -165,6 +156,39 @@ RES_LN_ROWS = CudaKernel(
     "ffn_fwd.cu", "smx_res_ln_rows",
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_float] +
     [ctypes.c_int])
+# the same passes in float32 (K3 / K9 / K12 / K13): f32-accurate products on
+# the tensor cores (three tf32 products), on w1^T and w2^T; the row pass
+# takes the true H beside the row stride of zero-padded rows
+FFN_UP_F32 = CudaKernel(
+    "ffn_fwd.cu", "smx_ffn_up_f32", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5)
+FFN_DROPOUT_UP_F32 = CudaKernel(
+    "ffn_fwd.cu", "smx_ffn_dropout_up_f32",
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + _KEY + _MASK +
+    [ctypes.c_int])
+FFN_DOWN_F32 = CudaKernel(
+    "ffn_fwd.cu", "smx_ffn_down_f32",
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4)
+FFN_DOWN_RES_F32 = CudaKernel(
+    "ffn_fwd.cu", "smx_ffn_down_res_f32",
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4)
+FFN_DROPOUT_DOWN_RES_F32 = CudaKernel(
+    "ffn_fwd.cu", "smx_ffn_dropout_down_res_f32",
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + _KEY + _MASK +
+    [ctypes.c_int])
+RES_LN_ROWS_F32 = CudaKernel(
+    "ffn_fwd.cu", "smx_res_ln_rows_f32",
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float] +
+    [ctypes.c_int])
+# K2 / K11 in float32: the f32 down pass to z on x and w^T, then the f32
+# row pass, behind one entry (z a workspace of the wrapper)
+DENSE_RES_LN_F32 = CudaKernel(
+    "ffn_fwd.cu", "smx_dense_res_ln_f32",
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_float] +
+    [ctypes.c_int])
+DENSE_DROPOUT_RES_LN_F32 = CudaKernel(
+    "ffn_fwd.cu", "smx_dense_dropout_res_ln_f32",
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_float] + _KEY +
+    _MASK + [ctypes.c_int])
 # rows of a recompute tile, each giving one row of da's column sums
 ROW_TILE = 128
 # K8's weight gradients sum over the rows in at most DW_MAX_SPLITS fixed
@@ -274,26 +298,28 @@ def _check_vec(name, t, size, device):
 def dense_res_ln(x, w, b, res, g, beta, eps=1e-5):
     """K2; see dense_res_ln_plain.  CUDA tensors need x, w, res in one
     dtype (float32 or bfloat16), b, g, beta float32; float32 needs H <=
-    2048; bfloat16 Din and H multiples of FWD_WIDTH and x, w, res, g, beta
-    16-byte aligned, and runs one kernel where dense_fused(H), else the
+    2048 and runs the f32 down pass to z and the LayerNorm rows (one entry,
+    _f32_dense); bfloat16 Din and H multiples of FWD_WIDTH and x, w, res, g,
+    beta 16-byte aligned, and runs one kernel where dense_fused(H), else the
     down pass to the f32 sum and the LayerNorm rows."""
     if x.device.type == "cpu":
         return dense_res_ln_plain(x, w, b, res, g, beta, eps)
     n, din = x.shape
     h = w.shape[1]
-    code = _check_dense("dense_res_ln", x, w, b, res, g, beta)
-    if x.dtype == torch.bfloat16 and not dense_fused(h):
+    _check_dense("dense_res_ln", x, w, b, res, g, beta)
+    if x.dtype == torch.float32:
+        return _f32_dense(x, w, b, res, g, beta, eps)
+    if not dense_fused(h):
         return res_ln_rows(ffn_down(x, w, b, res), g, beta, eps)
     out = torch.empty_like(res)
     DENSE_RES_LN.launch(x.data_ptr(), w.data_ptr(), b.data_ptr(),
                         res.data_ptr(), g.data_ptr(), beta.data_ptr(),
-                        out.data_ptr(), n, din, h, float(eps), code,
-                        x.device.index)
+                        out.data_ptr(), n, din, h, float(eps), x.device.index)
     return out
 
 
 def _check_dense(what, x, w, b, res, g, beta):
-    """Shared checks of the K2 / K11 wrappers; returns the dtype code."""
+    """Shared checks of the K2 / K11 wrappers."""
     n, din = x.shape
     h = w.shape[1]
     bf16 = x.dtype == torch.bfloat16
@@ -303,7 +329,7 @@ def _check_dense(what, x, w, b, res, g, beta):
         raise ValueError(f"{what} in bfloat16 supports H and Din multiples "
                          f"of {FWD_WIDTH}, got Din={din}, H={h}")
     check_cuda_tensor("x", x)
-    code = dtype_code(x.dtype)
+    dtype_code(x.dtype)
     check_cuda_tensor("w", w, x.dtype, (din, h), x.device)
     check_cuda_tensor("res", res, x.dtype, (n, h), x.device)
     for name, t in (("b", b), ("g", g), ("beta", beta)):
@@ -312,30 +338,118 @@ def _check_dense(what, x, w, b, res, g, beta):
         for name, t in (("x", x), ("w", w), ("res", res), ("g", g),
                         ("beta", beta)):
             check_aligned(name, t, 16)
-    return code
 
 
 def ffn_res_ln(x, w1, b1, w2, b2, res, g, beta, act="gelu", eps=1e-5):
     """K3; see ffn_res_ln_plain.  CUDA tensors need x, w1, w2, res in one
     dtype (float32 or bfloat16), b1, b2, g, beta float32; float32 needs
     H <= 2048, bfloat16 H and F multiples of FWD_WIDTH and x, w1, w2 16-byte
-    aligned, and runs the up pass, the down pass to the f32 sum and the
-    LayerNorm rows (three launches)."""
+    aligned.  Both run the up pass, the down pass to the f32 sum and the
+    LayerNorm rows (three launches; float32 their f32 entries)."""
     if x.device.type == "cpu":
         return ffn_res_ln_plain(x, w1, b1, w2, b2, res, g, beta, act, eps)
-    n, h, f, code = _check_ffn("ffn_res_ln", x, w1, b1, w2, act)
+    n, h, _ = _check_ffn("ffn_res_ln", x, w1, b1, w2, act)
     check_cuda_tensor("res", res, x.dtype, (n, h), x.device)
     for name, t in (("b2", b2), ("g", g), ("beta", beta)):
         _check_vec(name, t, h, x.device)
-    if x.dtype == torch.bfloat16:
-        z = ffn_down(ffn_up(x, w1, b1, act), w2, b2, res)
-        return res_ln_rows(z, g, beta, eps)
-    out = torch.empty_like(res)
-    FFN_RES_LN.launch(x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                      w2.data_ptr(), b2.data_ptr(), res.data_ptr(),
-                      g.data_ptr(), beta.data_ptr(), out.data_ptr(), n, h, f,
-                      ACT_CODES[act], float(eps), code, x.device.index)
-    return out
+    if x.dtype == torch.float32:
+        return _f32_ffn(x, w1, b1, w2, b2, act, res=res, g=g, beta=beta,
+                        eps=eps)
+    z = ffn_down(ffn_up(x, w1, b1, act), w2, b2, res)
+    return res_ln_rows(z, g, beta, eps)
+
+
+# ------------------------------------------- the float32 forward's passes
+def _up4(n):
+    return -(-n // 4) * 4
+
+
+def _padded(t, cols, rows=None):
+    """t (a vector or a matrix) with zero columns up to `cols` (and zero
+    rows up to `rows`), contiguous and 16-byte aligned for the TMA (a copy
+    where it is not so already)."""
+    pc = cols - t.shape[-1]
+    pr = 0 if rows is None else rows - t.shape[0]
+    if pc or pr:
+        t = F.pad(t, (0, pc) if t.dim() == 1 else (0, pc, 0, pr))
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _f32_ffn(x, w1, b1, w2, b2, act, key=None, act_rate=0.0, res=None,
+             g=None, beta=None, out_rate=0.0, eps=1e-5):
+    """K9 / K13 (no res) and K3 / K12 in float32 on the card: the f32 up
+    pass h = act(x @ w1 + b1) (N, F) in f32, unrounded (with the
+    activation mask of (key, STREAM_ACT) where act_rate > 0), then the f32
+    down pass to the output, or with res to the f32 sum z (with the output
+    mask of (key, STREAM_OUT) where out_rate > 0) and the f32 row pass.
+    The passes read w1^T and w2^T (tf32 products take K-major operands),
+    laid out here per call; H and F are padded to multiples of 4 (16-byte
+    TMA strides) with zero columns, which change no sum (act(0) = 0), and
+    the row pass takes the true H."""
+    n, h = x.shape
+    f = w1.shape[1]
+    hp, fp = _up4(h), _up4(f)
+    dev = x.device
+    x = _padded(x, hp)
+    w1t = _padded(w1, fp, hp).t().contiguous()
+    b1 = _padded(b1, fp)
+    hid = torch.empty(n, fp, dtype=torch.float32, device=dev)
+    ptrs = (x.data_ptr(), w1t.data_ptr(), b1.data_ptr(), hid.data_ptr(), n,
+            hp, fp, ACT_CODES[act])
+    if key is not None and act_rate > 0.0:
+        FFN_DROPOUT_UP_F32.launch(*ptrs, *launch_args(key, act_rate),
+                                  dev.index)
+    else:
+        FFN_UP_F32.launch(*ptrs, dev.index)
+    del w1t
+    w2t = _padded(w2, hp, fp).t().contiguous()
+    b2 = _padded(b2, hp)
+    out = torch.empty(n, hp, dtype=torch.float32, device=dev)
+    if res is None:
+        FFN_DOWN_F32.launch(hid.data_ptr(), w2t.data_ptr(), b2.data_ptr(),
+                            out.data_ptr(), n, hp, fp, dev.index)
+    else:
+        res = _padded(res, hp)
+        z = torch.empty_like(out)
+        ptrs = (hid.data_ptr(), w2t.data_ptr(), b2.data_ptr(), res.data_ptr(),
+                z.data_ptr(), n, hp, fp)
+        if key is not None and out_rate > 0.0:
+            FFN_DROPOUT_DOWN_RES_F32.launch(*ptrs, *launch_args(key, out_rate),
+                                            dev.index)
+        else:
+            FFN_DOWN_RES_F32.launch(*ptrs, dev.index)
+        del hid
+        g, beta = _padded(g, hp), _padded(beta, hp)
+        RES_LN_ROWS_F32.launch(z.data_ptr(), g.data_ptr(), beta.data_ptr(),
+                               out.data_ptr(), n, h, hp, float(eps),
+                               dev.index)
+    return out if hp == h else out[:, :h].contiguous()
+
+
+def _f32_dense(x, w, b, res, g, beta, eps, key=None, rate=None):
+    """K2 (K11 where `rate` is given: the output mask of (key, STREAM_OUT),
+    its entry launched at any rate, as bfloat16's cluster kernel is) in
+    float32 on the card: one entry, the f32 down pass z = (x @ w + b) * m +
+    res on w^T (laid out here per call), then the f32 row pass; Din and H
+    are padded to multiples of 4 with zero columns as in _f32_ffn."""
+    n, din = x.shape
+    h = w.shape[1]
+    dp, hp = _up4(din), _up4(h)
+    dev = x.device
+    x, wt = _padded(x, dp), _padded(w, hp, dp).t().contiguous()
+    b, res, g, beta = (_padded(t, hp) for t in (b, res, g, beta))
+    z = torch.empty(n, hp, dtype=torch.float32, device=dev)
+    out = torch.empty_like(z)
+    ptrs = (x.data_ptr(), wt.data_ptr(), b.data_ptr(), res.data_ptr(),
+            g.data_ptr(), beta.data_ptr(), z.data_ptr(), out.data_ptr(), n,
+            dp, h, hp, float(eps))
+    if rate is None:
+        DENSE_RES_LN_F32.launch(*ptrs, dev.index)
+    else:
+        DENSE_DROPOUT_RES_LN_F32.launch(*ptrs, *launch_args(key, rate),
+                                        dev.index)
+    return out if hp == h else out[:, :h].contiguous()
 
 
 # ------------------------------------------- the bf16 forward's passes
@@ -505,7 +619,7 @@ def ffn_dropout_plain(x, w1, b1, w2, b2, amask, act="gelu"):
 
 
 def _check_ffn(what, x, w1, b1, w2, act, k8=False):
-    """Shared checks of the K3 / K8 / K9 wrappers; returns (n, h, f, code).
+    """Shared checks of the K3 / K8 / K9 wrappers; returns (n, h, f).
     float32: H <= MAX_HIDDEN.  bfloat16: the forward (K3, K9 and their
     twins) takes H and F multiples of FWD_WIDTH and 16-byte aligned
     operands; K8 (`k8`) H a multiple of FWD_WIDTH, F a multiple of 64 and
@@ -523,14 +637,14 @@ def _check_ffn(what, x, w1, b1, w2, act, k8=False):
         raise ValueError(f"{what} in bfloat16 supports H and F multiples "
                          f"of {FWD_WIDTH}, got H={h}, F={f}")
     check_cuda_tensor("x", x)
-    code = dtype_code(x.dtype)
+    dtype_code(x.dtype)
     check_cuda_tensor("w1", w1, x.dtype, (h, f), x.device)
     check_cuda_tensor("w2", w2, x.dtype, (f, h), x.device)
     _check_vec("b1", b1, f, x.device)
     if bf16:
         for name, t in (("x", x), ("w1", w1), ("w2", w2)):
             check_aligned(name, t, 32 if k8 else 16)
-    return n, h, f, code
+    return n, h, f
 
 
 def _check_k8_widths(what, h, f):
@@ -542,19 +656,15 @@ def _check_k8_widths(what, h, f):
 
 def ffn_fused(x, w1, b1, w2, b2, act="gelu"):
     """K9; see ffn_fused_plain.  The same dtype and width rules as
-    ffn_res_ln; bfloat16 runs the up pass and the down pass (two
-    launches)."""
+    ffn_res_ln; it runs the up pass and the down pass (two launches;
+    float32 their f32 entries)."""
     if x.device.type == "cpu":
         return ffn_fused_plain(x, w1, b1, w2, b2, act)
-    n, h, f, code = _check_ffn("ffn_fused", x, w1, b1, w2, act)
+    _, h, _ = _check_ffn("ffn_fused", x, w1, b1, w2, act)
     _check_vec("b2", b2, h, x.device)
-    if x.dtype == torch.bfloat16:
-        return ffn_down(ffn_up(x, w1, b1, act), w2, b2)
-    out = torch.empty_like(x)
-    FFN_FUSED.launch(x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                     w2.data_ptr(), b2.data_ptr(), out.data_ptr(), n, h, f,
-                     ACT_CODES[act], code, x.device.index)
-    return out
+    if x.dtype == torch.float32:
+        return _f32_ffn(x, w1, b1, w2, b2, act)
+    return ffn_down(ffn_up(x, w1, b1, act), w2, b2)
 
 
 def _hidden_and_da(x, g, w1, b1, w2, act, amask=None):
@@ -644,14 +754,14 @@ def _check_ffn_bwd(what, x, g, w1, b1, w2, act):
     if x.dtype == torch.float32 and w1.shape[1] % 16:
         raise ValueError(f"{what} in float32 supports F a multiple of 16, "
                          f"got F={w1.shape[1]}")
-    n, h, f, code = _check_ffn(what, x, w1, b1, w2, act, k8=True)
+    n, h, f = _check_ffn(what, x, w1, b1, w2, act, k8=True)
     check_cuda_tensor("g", g, x.dtype, (n, h), x.device)
     if x.dtype == torch.bfloat16:
         check_aligned("g", g, 32)
     else:   # TMA loads
         for name, t in (("x", x), ("g", g), ("w1", w1), ("w2", w2)):
             check_aligned(name, t, 16)
-    return n, h, f, code
+    return n, h, f
 
 
 def ffn_bwd_recompute(x, g, w1, b1, w2, act="gelu", key=None, rate=0.0):
@@ -663,7 +773,7 @@ def ffn_bwd_recompute(x, g, w1, b1, w2, act="gelu", key=None, rate=0.0):
         return ffn_bwd_recompute_plain(x, g, w1, b1, w2, act, _mask_plain(
             key, STREAM_ACT, x.shape[0], w1.shape[1], rate, x.device)
             if drop else None)
-    n, h, f, _ = _check_ffn_bwd("ffn_bwd_recompute", x, g, w1, b1, w2, act)
+    n, h, f = _check_ffn_bwd("ffn_bwd_recompute", x, g, w1, b1, w2, act)
     _require_bf16("ffn_bwd_recompute", x)
     hid = torch.empty(n, f, dtype=x.dtype, device=x.device)
     da = torch.empty_like(hid)
@@ -836,22 +946,25 @@ def dense_dropout_res_ln(x, w, b, res, g, beta, key: DropoutKey, rate,
                          eps=1e-5):
     """K11: LayerNorm(res + drop(x @ w + b)) * g + beta, the output mask of
     (key, STREAM_OUT) at rate `rate`; see dense_dropout_res_ln_plain.  CUDA
-    tensors as for dense_res_ln (bfloat16 without dense_fused(H): the down
-    pass with the output mask, then the LayerNorm rows)."""
+    tensors as for dense_res_ln (float32: its f32 entry with the mask;
+    bfloat16 without dense_fused(H): the down pass with the output mask,
+    then the LayerNorm rows)."""
     n, din = x.shape
     h = w.shape[1]
     if x.device.type == "cpu":
         return dense_dropout_res_ln_plain(
             x, w, b, res, g, beta,
             _mask_plain(key, STREAM_OUT, n, h, rate, x.device), eps)
-    code = _check_dense("dense_dropout_res_ln", x, w, b, res, g, beta)
-    if x.dtype == torch.bfloat16 and not dense_fused(h):
+    _check_dense("dense_dropout_res_ln", x, w, b, res, g, beta)
+    if x.dtype == torch.float32:
+        return _f32_dense(x, w, b, res, g, beta, eps, key, rate)
+    if not dense_fused(h):
         return res_ln_rows(ffn_down(x, w, b, res, key, rate), g, beta, eps)
     out = torch.empty_like(res)
     DENSE_DROPOUT_RES_LN.launch(
         x.data_ptr(), w.data_ptr(), b.data_ptr(), res.data_ptr(), g.data_ptr(),
         beta.data_ptr(), out.data_ptr(), n, din, h, float(eps),
-        *launch_args(key, rate), code, x.device.index)
+        *launch_args(key, rate), x.device.index)
     return out
 
 
@@ -860,9 +973,10 @@ def ffn_dropout_res_ln(x, w1, b1, w2, b2, res, g, beta, key: DropoutKey,
     """K12: LayerNorm(res + drop_o(drop_a(act(x @ w1 + b1)) @ w2 + b2)) * g
     + beta, the activation mask of (key, STREAM_ACT) at act_rate and the
     output mask of (key, STREAM_OUT) at out_rate (either may be 0); see
-    ffn_dropout_res_ln_plain.  CUDA tensors as for ffn_res_ln; bfloat16
-    runs the up pass with the activation mask, the down pass with the output
-    mask and the LayerNorm rows."""
+    ffn_dropout_res_ln_plain.  CUDA tensors as for ffn_res_ln; it runs the
+    up pass with the activation mask, the down pass with the output mask
+    (each mask where its rate is above 0) and the LayerNorm rows, float32
+    their f32 entries."""
     n, h = x.shape
     f = w1.shape[1]
     if x.device.type == "cpu":
@@ -870,44 +984,32 @@ def ffn_dropout_res_ln(x, w1, b1, w2, b2, res, g, beta, key: DropoutKey,
             x, w1, b1, w2, b2, res, g, beta,
             _mask_plain(key, STREAM_ACT, n, f, act_rate, x.device),
             _mask_plain(key, STREAM_OUT, n, h, out_rate, x.device), act, eps)
-    n, h, f, code = _check_ffn("ffn_dropout_res_ln", x, w1, b1, w2, act)
+    n, h, _ = _check_ffn("ffn_dropout_res_ln", x, w1, b1, w2, act)
     check_cuda_tensor("res", res, x.dtype, (n, h), x.device)
     for name, t in (("b2", b2), ("g", g), ("beta", beta)):
         _check_vec(name, t, h, x.device)
-    if x.dtype == torch.bfloat16:
-        z = ffn_down(ffn_up(x, w1, b1, act, key, act_rate), w2, b2, res, key,
-                     out_rate)
-        return res_ln_rows(z, g, beta, eps)
-    k0, k1, act_thr, act_scale = launch_args(key, act_rate)
-    _, _, out_thr, out_scale = launch_args(key, out_rate)
-    out = torch.empty_like(res)
-    FFN_DROPOUT_RES_LN.launch(
-        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-        b2.data_ptr(), res.data_ptr(), g.data_ptr(), beta.data_ptr(),
-        out.data_ptr(), n, h, f, ACT_CODES[act], float(eps), k0, k1, act_thr,
-        act_scale, out_thr, out_scale, code, x.device.index)
-    return out
+    if x.dtype == torch.float32:
+        return _f32_ffn(x, w1, b1, w2, b2, act, key, act_rate, res, g, beta,
+                        out_rate, eps)
+    z = ffn_down(ffn_up(x, w1, b1, act, key, act_rate), w2, b2, res, key,
+                 out_rate)
+    return res_ln_rows(z, g, beta, eps)
 
 
 def ffn_dropout(x, w1, b1, w2, b2, key: DropoutKey, rate, act="gelu"):
     """K13: drop_a(act(x @ w1 + b1)) @ w2 + b2, the activation mask of
     (key, STREAM_ACT); see ffn_dropout_plain.  CUDA tensors as for
-    ffn_fused; bfloat16 runs the up pass with the mask, then the down
-    pass."""
+    ffn_fused; it runs the up pass with the mask (at `rate` above 0), then
+    the down pass, float32 their f32 entries."""
     if x.device.type == "cpu":
         return ffn_dropout_plain(
             x, w1, b1, w2, b2, _mask_plain(key, STREAM_ACT, x.shape[0],
                                            w1.shape[1], rate, x.device), act)
-    n, h, f, code = _check_ffn("ffn_dropout", x, w1, b1, w2, act)
+    _, h, _ = _check_ffn("ffn_dropout", x, w1, b1, w2, act)
     _check_vec("b2", b2, h, x.device)
-    if x.dtype == torch.bfloat16:
-        return ffn_down(ffn_up(x, w1, b1, act, key, rate), w2, b2)
-    out = torch.empty_like(x)
-    FFN_DROPOUT.launch(x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                       w2.data_ptr(), b2.data_ptr(), out.data_ptr(), n, h, f,
-                       ACT_CODES[act], *launch_args(key, rate), code,
-                       x.device.index)
-    return out
+    if x.dtype == torch.float32:
+        return _f32_ffn(x, w1, b1, w2, b2, act, key, rate)
+    return ffn_down(ffn_up(x, w1, b1, act, key, rate), w2, b2)
 
 
 def ffn_dropout_bwd_dx(x, g, w1, b1, w2, key: DropoutKey, rate, act="gelu"):
