@@ -3161,9 +3161,10 @@ def _tally_by_length(kernel, counter, offset):
 # by name in the profiler's trace
 K8_KERNELS = ("recompute_kernel", "products_kernel", "ffn_bwd_reduce_kernel")
 FWD_KERNELS = ("ffn_pass_kernel", "res_ln_rows_kernel")
-# K7 / K15 in bf16: the delta pass, the dk/dv pass and the dq pass of
-# attention_bwd.cu
-ATTN_BWD_KERNELS = ("attention_bwd_delta_kernel", "dkdv_kernel", "dq_kernel")
+# K7 / K15: the delta pass, the dk/dv pass and the dq pass of
+# attention_bwd.cu (in float32 both tiled passes are attention_bwd_f32_kernel)
+ATTN_BWD_KERNELS = ("attention_bwd_delta_kernel", "dkdv_kernel", "dq_kernel",
+                    "attention_bwd_f32_kernel")
 # K2 / K11 in bf16 (dense_res_ln.cu)
 DENSE_KERNEL = "dense_ln_kernel"
 # K1 / K14 in bf16 (attention_fwd.cu) and K6 (conv_ln_gelu.cu: conv_kernel<
@@ -6101,7 +6102,11 @@ def run_remat(seed, card):
         del runs, g0, g1, g2
 
         # a whole train step each way, in turns (off, on, off, on, off,
-        # on): the median ms and the largest peak memory of each
+        # on): the median ms and the largest peak memory of each, the
+        # bytes the step requested (the caching allocator's allocated
+        # bytes count whole cached blocks that a request takes unsplit,
+        # which depends on what ran before: the flagship's peaks, equal in
+        # requested bytes, differ by ~2 MB there)
         tc = trainer.TrainConfig(learning_rate=TRAIN_LR, warmup_steps=1,
                                  bf16=True, seed=seed)
         state = trainer.TrainState(
@@ -6116,15 +6121,16 @@ def run_remat(seed, card):
             state, metrics = step_fns[on](state, batch)
             torch.cuda.synchronize()
             ms[on].append((time.perf_counter() - t0) * 1e3)
-            peaks[on] = max(peaks[on], torch.cuda.max_memory_allocated())
+            peaks[on] = max(peaks[on], torch.cuda.memory_stats()[
+                "requested_bytes.all.peak"])
             if not math.isfinite(metrics["loss"].item()):
                 raise AssertionError(f"remat {name}: loss {metrics}")
         med = {on: sorted(t)[len(t) // 2] for on, t in ms.items()}
         log(f"  remat {name} train step (Adafactor, dropout on; "
             f"{REMAT_TIMED_STEPS} each, in turns): off {med[0]:.1f} ms "
-            f"({', '.join(f'{t:.1f}' for t in ms[0])}), peak "
+            f"({', '.join(f'{t:.1f}' for t in ms[0])}), peak requested "
             f"{peaks[0] / 2 ** 30:.2f} GiB; on {med[1]:.1f} ms "
-            f"({', '.join(f'{t:.1f}' for t in ms[1])}), peak "
+            f"({', '.join(f'{t:.1f}' for t in ms[1])}), peak requested "
             f"{peaks[1] / 2 ** 30:.2f} GiB ({peaks[1] / peaks[0]:.3f} of the "
             f"memory, {med[1] / med[0]:.3f}x the time) on {card}")
         if peaks[1] > peaks[0]:
@@ -7147,6 +7153,9 @@ def check_head_widths(randn, gen, dev, records):
 # step's; generate decodes through K4)
 F32_ATTN = (("", BATCH, 800, False), (", text encoder", BATCH, 400, False),
             (", decoder, causal", BATCH, 64, True))
+# f32 K7 / K15 also at the XL pair's speech encoder (XLS-R 1B: 16 heads of
+# 80, B = 16 x 16 s): (B, T, H, D)
+F32_ATTN_XL = (BATCH, 800, 16, 80)
 # its row counts: speech encoder, text encoder, decoder (64 label positions)
 F32_PATH_ROWS = (12800, 6400, 1024)
 # the K8 f32 body against its plain version at every flagship width
@@ -7348,6 +7357,62 @@ def check_f32_forward_widths(randn, dev):
                      (kf.dense_dropout_res_ln(*k2, key, rate),))
 
 
+def check_f32_attention_xl(randn, dev, records, key):
+    """f32 K7 / K15 at F32_ATTN_XL (the XL pair's f32 gradient runs K7
+    there; its head padded to 128 columns) against their plain versions,
+    two calls bit for bit, timed beside them and the library call."""
+    import torch
+    import torch.nn.functional as F
+    from speechmix_tpu_torch.ops.kernels import attention as ka
+    from speechmix_tpu_torch.ops.kernels import dropout as kdrop
+
+    b, t, heads, d = F32_ATTN_XL
+    scale, rate = d ** -0.5, DROP_RATE
+    tol_d = _dropout_tol(TOL["float32"], rate)
+    rule_d = f"atol {tol_d[0]:.4g}, rtol {tol_d[1]:.4g} (TOL / (1-r))"
+    mask = torch.ones(b, t, dtype=torch.bool, device=dev)
+    q, k, v, g = (randn(b, t, heads * d) for _ in range(4))
+    qh, kh, vh = (x_.view(b, t, heads, d).transpose(1, 2).detach()
+                  .requires_grad_() for x_ in (q, k, v))
+    gh = g.view(b, t, heads, d).transpose(1, 2)
+    dmask = lambda: kdrop.attention_mask_plain(  # noqa: E731
+        key, b, heads, t, t, rate, dev)
+    what = f"B={b} T={t} H={heads} D={d}"
+    flops = 10.0 * heads * d * b * t * t
+    bwd_io = 8 * b * t * heads * d * 4 + b * heads * t * 4 + b * t
+    out, lse = ka.attention_fwd(q, k, v, mask, heads, scale,
+                                return_lse=True)
+    k7 = lambda: ka.attention_bwd(q, k, v, mask, out, lse, g, heads, scale)
+    p7 = lambda: ka.attention_bwd_plain(q, k, v, mask, g, heads, scale)
+    e7 = max(compare(f"K7 {n_} {what} f32", o, r)
+             for n_, o, r in zip(("dq", "dk", "dv"), k7(), p7()))
+    expect_equal(f"K7 {what} f32", k7(), k7())
+    lib_out = F.scaled_dot_product_attention(qh, kh, vh, scale=scale)
+    # the XL pair's f32 gradient launches K7 at this width
+    _f32_row(records, f"attention_bwd (f32, D={d})", what, e7, k7, p7,
+             lambda: torch.autograd.grad(lib_out, (qh, kh, vh), gh,
+                                         retain_graph=True),
+             flops, bwd_io, head_dim=d, on_path=True)
+    out_d, lse_d = ka.attention_dropout_fwd(q, k, v, mask, heads, scale,
+                                            False, key, rate, return_lse=True)
+    k15 = lambda: ka.attention_dropout_bwd(q, k, v, mask, out_d, lse_d, g,
+                                           heads, scale, False, key, rate)
+    p15 = lambda: ka.attention_bwd_plain(q, k, v, mask, g, heads, scale,
+                                         False, dmask())
+    e15 = max(compare(f"K15 {n_} {what} f32", o, r,
+                      tol_d[0] + tol_d[1] * r.abs(), rule_d)
+              for n_, o, r in zip(("dq", "dk", "dv"), k15(), p15()))
+    expect_equal(f"K15 {what} f32", k15(), k15())
+    lib_out = F.scaled_dot_product_attention(qh, kh, vh, dropout_p=rate,
+                                             scale=scale)
+    # no run of this script trains the XL pair in f32 with dropout
+    _f32_row(records, f"attention_dropout_bwd (f32, D={d})",
+             f"{what}, rate {rate}", e15, k15, p15,
+             lambda: torch.autograd.grad(lib_out, (qh, kh, vh), gh,
+                                         retain_graph=True),
+             flops, bwd_io, head_dim=d, on_path=False)
+
+
 def _f32_row(records, name, shape, err, kernel, plain, library, flops,
              nbytes, **at):
     records[name] = dict(
@@ -7440,7 +7505,11 @@ def check_f32_rows(randn, dev, records):
                  lambda: torch.autograd.grad(lib_out, (qh, kh, vh), gh,
                                              retain_graph=True),
                  10.0 * heads * d * allowed, bwd_io, **common)
+        # no atomics: each call the same bits
+        expect_equal(f"K7 {what} f32", k7(), k7())
+        expect_equal(f"K15 {what} f32", k15(), k15())
         del q, k, v, g, qh, kh, vh, out, lse, out_d, lse_d, lib_out, ref
+    check_f32_attention_xl(randn, dev, records, key)
 
     h, f = 768, 3072
     omask = lambda n: kdrop.dropout_mask_plain(  # noqa: E731
@@ -8330,6 +8399,15 @@ def main():
         # greedy generate, its default-recipe train step or its step with
         # dropout off, at the row's length, rows or T_in
         **f32_path_rows(),
+        # f32 K7 / K15 at the XL pair's head width (launches_at_head_dim:
+        # K7 at that width in the XL f32 gradient; K15's f32 entry there,
+        # and 0 at that width, in the flagship's f32 step)
+        f"attention_bwd (f32, D={F32_ATTN_XL[3]})": (
+            "attention_bwd.cu", "flash_attention_kernel.py:378",
+            "xl-f32-grad", "smx_attention_bwd"),
+        f"attention_dropout_bwd (f32, D={F32_ATTN_XL[3]})": (
+            "attention_bwd.cu", "flash_attention_kernel.py:815", "f32-train",
+            "smx_attention_dropout_bwd"),
         # K6 in bf16 off C = 512 (launches_at_width: at that C in the tiny
         # train command)
         **{f"conv_ln_gelu (bf16, C={c})": (

@@ -6,8 +6,9 @@
 // smx_attention_bwd).  K15: attention_dropout_bwd — the same for K14's
 // out = (p * m) v (entry smx_attention_dropout_bwd), with the mask m
 // regenerated from dropout.cuh (the forward's key, stream 0, row
-// (b * H + h) * Tq + q, column k; in float32 per tile in both tiled passes,
-// in bfloat16 by the dk/dv pass, which hands its bits to the dq pass):
+// (b * H + h) * Tq + q, column k; in float32 per stage in both tiled
+// passes, in bfloat16 by the dk/dv pass, which hands its bits to the dq
+// pass):
 //   dv_j = sum_i round(p_ij m_ij) g_i      dp_ij = (g_i . v_j) m_ij
 //   ds_ij = round(p_ij (dp_ij - delta_i))
 // delta_i = g_i . out_i stays right, as out is the dropped output:
@@ -47,7 +48,9 @@
 //            tiles and accumulates p^T g and ds^T q;
 //   dq:      one block per (query tile, head, batch) loops over the key
 //            tiles and accumulates ds k.
-// Both tiled passes recompute s = q k^T and dp = g v^T.
+// Both tiled passes recompute s = q k^T and dp = g v^T.  In float32 they
+// are one grid (attention_bwd_f32_kernel: its first blocks the dk/dv pass,
+// the rest the dq pass), so that neither ends in a partial wave of its own.
 //
 // bfloat16 (the train step's path).  What bounds it on the H100: the five
 // products, 10 * H * D * Tq * sum(valid keys) FLOPs (this structure computes
@@ -84,24 +87,72 @@
 //     workspace from the wrapper;
 //   * two consumer warpgroups per SM: one's softmax runs while the other's
 //     products do.
-// float32 (the f32 path, the default dtype): the same three passes on 64 x 64
-// tiles staged in shared memory, the products as f32 FMAs (each thread a
-// 4 x 4 patch), bound by the CUDA cores.
+// float32 (the f32 path, the default dtype): the same three passes, every
+// product on the tensor cores as three tf32 wgmma of split operands, hi hi
+// + hi lo + lo hi, f32-accurate at up to 165 TFLOP/s of f32 work on this
+// card against the CUDA cores' 67.  What bounds it: the products (10 H D
+// FLOPs per allowed pair, 14 with s and dp twice) on the tensor cores,
+// where an m64n32k8 with both operands in shared memory runs at two thirds
+// of the tf32 rate, held by shared memory's 128 bytes a cycle (an m64n64k8
+// at the full rate: time_wgmma_tf32.py), and beside them, on the CUDA
+// cores, the split of every stage and the softmax.  The design:
+//   * a block owns 64 rows (keys in the dk/dv pass, queries in the dq
+//     pass) as the products' M and streams the other side in 32-row
+//     stages.  A producer warpgroup loads the own rows once and each stage
+//     into one of two work slots with TMA (make_map_heads maps in 32-column
+//     f32 boxes: zeros past D, and past T within the batch), one stage
+//     ahead, and splits them in place: the tensor cores read the top 19
+//     bits of an f32 operand, so v as TMA wrote it is its own hi half and
+//     the split writes lo = tf32(v - trunc(v)) beside it.  tf32 wgmma reads
+//     K-major operands only, so the split also writes the transposed copy
+//     (hi and lo) of each operand that a product over the stage's rows
+//     reads (q^T, g^T in the dk/dv pass, k^T in the dq pass): no transpose
+//     in device memory.  It stages each query stage's lse and delta;
+//   * two consumer warpgroups share each stage, one a role, so that one's
+//     CUDA-core work runs while the other's products do: the s role
+//     forms s^T = k q^T (dq pass: s = q k^T), p and, in the dk/dv pass, dv
+//     += (p m)^T g; the dp role forms dp^T = v g^T (dp = g v^T), ds = p (dp
+//     m - delta) and dk += ds^T q (dq += ds k).  p goes from the one to the
+//     other through shared memory, a dropped element as -p, so that the s
+//     role alone draws K15's Philox words (per stage in both passes, shared
+//     across the lanes that hold their four keys: no workspace);
+//   * s and dp are m64n32k8 products over the padded head's DP / 8 slices;
+//     p and ds stay in registers, as tf32 halves, as the A operands of the
+//     m64n64k8 products over the stage.  An f32 accumulator holds columns
+//     2 (t % 4) + {0, 1} of each 8 where tf32's A fragment holds t % 4 and
+//     t % 4 + 4, so the transposed copies lay each 8 rows in the order 0,
+//     2, 4, 6, 1, 3, 5, 7 (hopper.cuh: wgmma_m64n64k8_tf32_rs);
+//   * the products over a stage's rows start a partial (12 tf32 products)
+//     that the CUDA cores add to the f32 sums once the stage is done: the
+//     tensor cores' sums drop low bits over a long K (PERF.md), and
+//     these products contract over Tq or Tk.  A product that starts an
+//     accumulator takes it as an output only, and no instruction outside
+//     the products defines an accumulator before the loop: either would
+//     make ptxas serialize the products;
+//   * p = 2^(s * scale log2(e) - lse log2(e)) by ex2.approx (relative error
+//     ~2^-22, as in the bf16 body).
+// Shared memory at DP = 64: the dk/dv pass k, v with their lo halves 64 KB
+// and two slots of q, g, q^T, g^T, hi and lo, and p, 72 KB each (208 KB);
+// the dq pass q, g 64 KB and two slots of k, v, k^T and p, 56 KB each
+// (176 KB).  One block, three warpgroups, an SM.
 //
-// Head widths.  Both kernels are built for a padded width DP, 64 or 128,
-// and D = 64 runs the body it always ran.  Other widths compute over DP
-// columns whose part past D is zeros (the f32 kernels load zeros there;
-// the bf16 kernels read the slabs through 4-D tensor maps with the head as
-// its own dimension, hopper.cuh's make_map_heads, so that TMA fills those
-// columns with zeros instead of reading the next head), and store D
-// columns.  At DP = 128 a 64-row operand tile is two 64-column boxes; the
-// products over the head (s, dp) take eight k16 slices; and a block holds
-// 64 keys (dk/dv pass) or 64 queries (dq pass) instead of 128: both
-// consumer warpgroups form the same s, dp, p and ds, and each accumulates
-// dk, dv or dq for one 64-column half of the head, so that every
-// accumulator stays at 32 registers a thread (two halves in one warpgroup
-// would need 64 each, beyond the 240 that setmaxnreg gives).  The shared
-// s and dp products are computed twice: a simple body that is right.
+// Head widths.  Both bodies are built for a padded width DP, 64 or 128.
+// Other widths compute over DP columns whose part past D is zeros (the
+// kernels read the slabs through 4-D tensor maps with the head as its own
+// dimension, hopper.cuh's make_map_heads, so that TMA fills those columns
+// with zeros instead of reading the next head), and store D columns; bf16
+// D = 64 reads 3-D maps.  In bf16, at DP = 128 a 64-row operand tile is
+// two 64-column boxes; the products over the head (s, dp) take eight k16
+// slices; and a block holds 64 keys (dk/dv pass) or 64 queries (dq pass)
+// instead of 128: both consumer warpgroups form the same s, dp, p and ds,
+// and each accumulates dk, dv or dq for one 64-column half of the head, so
+// that every accumulator stays at 32 registers a thread (two halves in one
+// warpgroup would need 64 each, beyond the 240 that setmaxnreg gives).  In
+// f32 at DP = 128 the own tiles double (128 KB), so one work slot (dk/dv
+// 96 KB, dq 80 KB) and one consumer warpgroup with both roles, whose
+// accumulators hold one 64-column half: two blocks share a tile, each
+// forming s and dp.  The shared s and dp products are computed twice: a
+// simple body that is right.
 
 #include <math.h>
 #include <stdint.h>
@@ -115,8 +166,7 @@ namespace hw = smx::hopper;
 using bf16 = __nv_bfloat16;
 
 constexpr int BT = 64;    // tile edge, queries and keys
-constexpr int NT = 256;   // threads of the delta and float32 kernels
-constexpr float kNegInf = -1e30f;
+constexpr int NT = 256;   // threads of the delta kernel
 constexpr float kAllMasked = -1e29f;
 
 // delta[b, h, i] = sum_c g[b, i, h, c] * out[b, i, h, c]: one warp each;
@@ -971,290 +1021,809 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* out,
 }
 
 // ------------------------------------------------------------------ float32
-// 64 x 64 block products over a depth K by the 256 threads of a block, each
-// a 4 x 4 patch.  A(m, k) is A[m * LDA + k], or A[k * LDA + m] with TA;
-// B(k, n) is B[k * LDB + n], or B[n * LDB + k] with TB.  Tiles of 64 rows
-// by the padded head width DP have rows of LDD = DP + 4 floats; 64 x 64
-// tiles (s, dp, p, ds) rows of LD.
-constexpr int LD = 68;   // tile row (float4-aligned), operands and staging
-template <int DP>
-__host__ __device__ constexpr int ldd() {
-  return DP + 4;
-}
+// The f32 body (see the header): a block's 64 own rows are the products' M,
+// the other side streams in 32-row stages, every product is three tf32
+// wgmma of split operands.
+constexpr int FR = 64;                 // a block's own rows
+constexpr int SR = 32;                 // a stage's rows (queries or keys)
+constexpr int ROW_BYTES = 128;         // a row of a 32-column f32 box
 
-struct Acc {
-  float v[4][4];  // rows ty * 4 .., columns tx * 4 ..
+// The consumer warpgroups' roles: kRoleS forms s (and p) and, in the dk/dv
+// pass, dv; kRoleDp forms dp, ds and dk or dq; one warpgroup with both
+// roles does everything.
+constexpr int kRoleS = 1, kRoleDp = 2, kRoleBoth = 3;
+
+// DP: the padded head width; a block accumulates the 64 columns 64 half ..
+// of the head's DP (NH blocks per tile); a row of a tile is NB boxes of 32
+// columns.  Tiles, each a hi (tf32) and a lo half: OWN the block's own
+// rows, NAT a stage's rows, TR the transposed 64 columns of a stage (64
+// rows of SR).  At DP = 64 two consumer warpgroups, one a role, share each
+// stage in one of two work slots (p handed over in PBUF bytes a slot); at
+// DP = 128, whose own tiles leave room for one slot, one warpgroup takes
+// both roles.
+template <int DP>
+struct F32 {
+  static constexpr int NH = DP / 64;
+  static constexpr int NB = DP / 32;
+  static constexpr int OWN = FR * DP * 4;
+  static constexpr int NAT = SR * DP * 4;
+  static constexpr int TR = 64 * SR * 4;
+  // the dk/dv pass's work slot: q, g (hi, lo), q^T, g^T (hi, lo)
+  static constexpr int KV_WORK = 4 * NAT + 4 * TR;
+  // the dq pass's work slot: k, v (hi, lo), k^T (hi, lo)
+  static constexpr int Q_WORK = 4 * NAT + 2 * TR;
+  static constexpr int CONS = DP == 64 ? 2 : 1;    // consumer warpgroups
+  static constexpr int SLOTS = DP == 64 ? 2 : 1;   // work slots
+  static constexpr int PBUF = CONS > 1 ? SR / 2 * WG * 4 : 0;
+  static constexpr int THREADS = (CONS + 1) * WG;  // + a producer warpgroup
 };
 
-__device__ __forceinline__ void zero(Acc& acc) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc.v[i][j] = 0.0f;
-}
+struct F32Args {
+  // the block's own rows (64-row boxes) and the streamed side (32-row
+  // boxes): k, v and q, g in the dk/dv pass, q, g and k, v in the dq pass;
+  // make_map_heads maps in 32-column boxes (zeros past D)
+  CUtensorMap own_a, own_b, st_a, st_b;
+  const unsigned char* mask;
+  const float* lse;
+  const float* delta;
+  float* out_a;  // dk or dq
+  float* out_b;  // dv (dk/dv pass)
+  int tq, tk, heads, d;
+  float scale;
+  int causal;
+  smx::Dropout drop;
+};
 
-template <bool TA, bool TB, int K, int LDA, int LDB>
-__device__ __forceinline__ void mma(Acc& acc, const float* A, const float* B) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    float a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      a[i] = TA ? A[k * LDA + ty * 4 + i] : A[(ty * 4 + i) * LDA + k];
-      b[i] = TB ? B[(tx * 4 + i) * LDB + k] : B[k * LDB + tx * 4 + i];
+// lse * log2(e) and delta of a stage's queries (the dk/dv pass), 0 past Tq
+struct F32Rows {
+  float lse2[SR];
+  float delta[SR];
+};
+
+
+
+// The barriers of the f32 passes: the own rows landed (TMA) and split (the
+// producer warpgroup); per work slot its stage landed (TMA), split (the
+// producer warpgroup), free again (every consumer warpgroup) and, with two
+// consumer warpgroups, its p handed over (the s role).
+struct F32Bars {
+  uint64_t own_full, own_ready;
+  uint64_t land[2], ready[2], empty[2], p_ready[2];
+};
+
+template <int DP>
+__device__ __forceinline__ void init_f32_bars(F32Bars* bars) {
+  using G = F32<DP>;
+  if (threadIdx.x == 0) {
+    hw::mbar_init(&bars->own_full, 1);
+    hw::mbar_init(&bars->own_ready, WG);
+    for (int s = 0; s < G::SLOTS; ++s) {
+      hw::mbar_init(&bars->land[s], 1);
+      hw::mbar_init(&bars->ready[s], WG);
+      hw::mbar_init(&bars->empty[s], G::CONS * WG);
+      hw::mbar_init(&bars->p_ready[s], WG);
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc.v[i][j] += a[i] * b[j];
+    hw::mbar_fence_init();
   }
+  __syncthreads();
 }
 
-template <int LDC>
-__device__ __forceinline__ void store(Acc& acc, float* C, float mult) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      C[(ty * 4 + i) * LDC + tx * 4 + j] = acc.v[i][j] * mult;
-}
-
-// rows t0 .. t0 + 63 (zero past tmax) of one head of a slab into a tile of
-// DP columns (zero past d), in 16-byte words
+// The slot and the parity of stage n's barriers: its slot's n / SLOTS-th
+// use
 template <int DP>
-__device__ __forceinline__ void load_tile(float* dst,
-                                          const float* __restrict__ src,
-                                          long long row, int t0, int tmax,
-                                          int d) {
-  constexpr int VEC = 4;
-  for (int i = threadIdx.x; i < BT * (DP / VEC); i += NT) {
-    const int r = i / (DP / VEC), c = (i % (DP / VEC)) * VEC;
-    float4 val = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (t0 + r < tmax && c < d) {
-      val = *reinterpret_cast<const float4*>(src + (t0 + r) * row + c);
-    }
-    *reinterpret_cast<float4*>(dst + r * ldd<DP>() + c) = val;
-  }
+__device__ __forceinline__ int slot_of(int n) {
+  return n % F32<DP>::SLOTS;
 }
-
-// rows t0 .. of a staged tile (DP columns) into one head of a slab, its d
-// columns
 template <int DP>
-__device__ __forceinline__ void write_tile(float* __restrict__ dst,
-                                           const float* src, long long row,
-                                           int t0, int tmax, int d) {
-  for (int i = threadIdx.x; i < BT * DP; i += NT) {
-    const int r = i / DP, c = i % DP;
-    if (t0 + r < tmax && c < d) dst[(t0 + r) * row + c] = src[r * ldd<DP>() + c];
-  }
+__device__ __forceinline__ uint32_t parity_of(int n) {
+  return (uint32_t)(n / F32<DP>::SLOTS) & 1u;
 }
 
-// four operand tiles of 64 x DP, four 64 x 64 tiles (s, dp, p, ds)
-template <int DP>
-constexpr size_t smem_f32() {
-  return (size_t)(4 * BT * ldd<DP>() + 4 * BT * LD) * sizeof(float);
+// The tf32 halves of an f32 operand v: the tensor cores read the top 19
+// bits of each element, so v itself serves as its hi half, trunc(v), and
+// lo = tf32(v - trunc(v)) (exact before its rounding, which tf32_rna does
+// in one instruction): a b = hi_a hi_b + hi_a lo_b + lo_a hi_b within
+// about 2^-20 |a||b|, the term lo_a lo_b left out.
+__device__ __forceinline__ float tf32_lo(float v) {
+  return hw::tf32_rna(v - __uint_as_float(__float_as_uint(v) & 0xFFFFE000u));
 }
 
-// p and ds of one 64 x 64 tile from the staged s and dp, with the dropout
-// mask m (= 1 without DROP): ps = p * m, dss = p * (dp * m - delta); one
-// Philox call per four columns of a row.  ps may be null.
-template <bool DROP>
-__device__ __forceinline__ void probs_and_ds(
-    const float* sf, const float* dpf, float* ps, float* dss,
-    const float* lse_s, const float* delta_s, const unsigned char* kmask_s,
-    int q0, int k0, int tq, int tk, float scale, int causal,
-    const smx::Dropout& drop, long long row0) {
-  const float inv_tk = 1.0f / (float)tk;
-  for (int i = threadIdx.x; i < BT * (BT / 4); i += NT) {
-    const int r = i / (BT / 4), c4 = (i % (BT / 4)) * 4;
-    const int qi = q0 + r;
-    uint4 bits = make_uint4(0u, 0u, 0u, 0u);
-    if constexpr (DROP) bits = drop.bits4(row0 + qi, (k0 + c4) / 4);
+// The split, in place, of one streamed slab's stage as TMA wrote it at hi
+// (SR rows of NB swizzled boxes): the lo half of each element at hi + NAT.
+// With T the head's columns 64 half .. + 63 also go, hi and lo, to the
+// transposed tile at t_hi (64 rows of SR, K-major for the products that
+// contract over the stage's rows), stage row r at position 8 (r / 8) +
+// pos(r % 8), pos = 0, 4, 1, 5, 2, 6, 3, 7: the order in which an
+// accumulator's columns enter wgmma_m64n64k8_tf32_rs's A fragment.  Thread
+// tid of the warpgroup takes row tid % SR and every fourth 16-byte word of
+// it, so a warp's loads and its transposed stores meet no bank twice.
+template <int DP, bool T>
+__device__ __forceinline__ void split_stage(uint8_t* hi, uint8_t* t_hi,
+                                            int half, int tid) {
+  using G = F32<DP>;
+  const int r = tid % SR;
+  const int k = (r & ~7) | ((r & 1) << 2) | ((r & 7) >> 1);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = c4 + j, kj = k0 + c;
-      float p = 0.0f;
-      if (qi < tq && kj < tk) {
-        const float l = lse_s[r];
-        if (l <= kAllMasked) {
-          p = inv_tk;
-        } else {
-          const float x = (!kmask_s[c] || (causal && kj > qi))
-                              ? kNegInf : sf[r * LD + c] * scale;
-          p = expf(x - l);
+  for (int ch = tid / SR; ch < DP / 4; ch += WG / SR) {
+    const int at = (ch / 8) * SR * ROW_BYTES + r * ROW_BYTES +
+                   (((ch % 8) ^ (r % 8)) << 4);
+    const float4 v = *reinterpret_cast<const float4*>(hi + at);
+    const float h[4] = {v.x, v.y, v.z, v.w};
+    const float l[4] = {tf32_lo(v.x), tf32_lo(v.y), tf32_lo(v.z),
+                        tf32_lo(v.w)};
+    *reinterpret_cast<float4*>(hi + G::NAT + at) =
+        make_float4(l[0], l[1], l[2], l[3]);
+    if constexpr (T) {
+      const int n0 = 4 * ch - 64 * half;  // the chunk's first transposed row
+      if (n0 >= 0 && n0 < 64) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int n = n0 + e;
+          const int o =
+              n * ROW_BYTES + (((k >> 2) ^ (n & 7)) << 4) + (k & 3) * 4;
+          *reinterpret_cast<float*>(t_hi + o) = h[e];
+          *reinterpret_cast<float*>(t_hi + G::TR + o) = l[e];
         }
       }
-      const float m = DROP ? drop.keep(smx::word(bits, j)) : 1.0f;
-      if (ps != nullptr) ps[r * LD + c] = p * m;
-      dss[r * LD + c] = p * (dpf[r * LD + c] * m - delta_s[r]);
     }
   }
 }
 
+template <int A, int B>
+__device__ __forceinline__ void fence_regs2(uint32_t (&x)[A][B]) {
+#pragma unroll
+  for (int i = 0; i < A; ++i) hw::fence_regs(x[i]);
+}
+
+
+template <int DP>
+__device__ __forceinline__ void split_own(uint8_t* hi, int tid) {
+  for (int at = tid * 16; at < F32<DP>::OWN; at += WG * 16) {
+    const float4 v = *reinterpret_cast<const float4*>(hi + at);
+    *reinterpret_cast<float4*>(hi + F32<DP>::OWN + at) = make_float4(
+        tf32_lo(v.x), tf32_lo(v.y), tf32_lo(v.z), tf32_lo(v.w));
+  }
+}
+
+
+// x (64 x SR) = A B^T over the head's DP / 8 k8 slices: A the block's own
+// 64 rows (hi tile at a, lo at a + OWN), B a stage's SR rows (hi at b, lo
+// at b + NAT), both K-major in 32-column boxes; every slice, also past D
+// (zeros there): a loop that stopped at D would put the products on a
+// divergent path, which ptxas serializes.  The first product starts x
+// afresh, x an output only: an input would keep x's registers live from
+// the stage before, and ptxas serializes the products in flight when it
+// must move them.
+template <int DP>
+__device__ __forceinline__ void product_head(float (&x)[SR / 2],
+                                             const uint8_t* a,
+                                             const uint8_t* b) {
+  using G = F32<DP>;
+#pragma unroll
+  for (int kk = 0; kk < DP / 8; ++kk) {
+    const int ao = (kk / 4) * FR * ROW_BYTES + (kk % 4) * 32;
+    const int bo = (kk / 4) * SR * ROW_BYTES + (kk % 4) * 32;
+    const uint64_t ah = hw::desc_sw128(a + ao, 16, 1024);
+    const uint64_t al = hw::desc_sw128(a + G::OWN + ao, 16, 1024);
+    const uint64_t bh = hw::desc_sw128(b + bo, 16, 1024);
+    const uint64_t bl = hw::desc_sw128(b + G::NAT + bo, 16, 1024);
+    if (kk == 0) {
+      hw::wgmma_m64n32k8_tf32_zero(x, al, bh);
+    } else {
+      hw::wgmma_m64n32k8_tf32(x, al, bh, 1);
+    }
+    hw::wgmma_m64n32k8_tf32(x, ah, bl, 1);
+    hw::wgmma_m64n32k8_tf32(x, ah, bh, 1);
+  }
+}
+
+// x (64 x 64) = X t: X in registers (to_fragments' tf32 halves of a 64 x
+// SR accumulator), t a transposed tile (hi at t, lo at t + TR); x starts
+// afresh as in product_head
+__device__ __forceinline__ void product_rs(float (&x)[32],
+                                           const uint32_t (&xh)[SR / 8][4],
+                                           const uint32_t (&xl)[SR / 8][4],
+                                           const uint8_t* t, int tr) {
+#pragma unroll
+  for (int j = 0; j < SR / 8; ++j) {
+    const uint64_t bh = hw::desc_sw128(t + 32 * j, 16, 1024);
+    const uint64_t bl = hw::desc_sw128(t + tr + 32 * j, 16, 1024);
+    if (j == 0) {
+      hw::wgmma_m64n64k8_tf32_rs_zero(x, xl[j], bh);
+    } else {
+      hw::wgmma_m64n64k8_tf32_rs(x, xl[j], bh, 1);
+    }
+    hw::wgmma_m64n64k8_tf32_rs(x, xh[j], bl, 1);
+    hw::wgmma_m64n64k8_tf32_rs(x, xh[j], bh, 1);
+  }
+}
+
+// x, a 64 x SR accumulator (element 4 j + 2 i + c at column 8 j + 2 (t % 4)
+// + c), as the tf32 halves (tf32_lo) of the A fragments of its SR / 8 k8
+// slices: elements 4 j, 4 j + 2, 4 j + 1, 4 j + 3 (wgmma_m64n64k8_tf32_rs)
+__device__ __forceinline__ void to_fragments(const float (&x)[SR / 2],
+                                             uint32_t (&xh)[SR / 8][4],
+                                             uint32_t (&xl)[SR / 8][4]) {
+#pragma unroll
+  for (int j = 0; j < SR / 8; ++j) {
+    const float v[4] = {x[4 * j], x[4 * j + 2], x[4 * j + 1], x[4 * j + 3]};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      xh[j][e] = __float_as_uint(v[e]);
+      xl[j][e] = __float_as_uint(tf32_lo(v[e]));
+    }
+  }
+}
+
+// one thread's 64 x 64 accumulator times `mult` into one head of a slab
+// (`out` at its row 0, column 0): rows row + 8 i < tmax, columns col0 + 8 j
+// + 2 (t % 4) + c < d
+__device__ __forceinline__ void store_f32(float* __restrict__ out,
+                                          const float (&acc)[32], int row,
+                                          int tmax, long long stride,
+                                          float mult, int lane, int col0,
+                                          int d) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (row + 8 * i >= tmax) continue;
+    float* at = out + (row + 8 * i) * stride + col0 + 2 * (lane % 4);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      // D is a multiple of 8: a column group is wholly in or past it
+      if (col0 + 8 * j >= d) continue;
+      *reinterpret_cast<float2*>(at + 8 * j) = make_float2(
+          acc[4 * j + 2 * i] * mult, acc[4 * j + 2 * i + 1] * mult);
+    }
+  }
+}
+
+__device__ __forceinline__ uint32_t keep_nibble(const uint4& w,
+                                                uint32_t th) {
+  return (uint32_t)(w.x >= th) | (uint32_t)(w.y >= th) << 1 |
+         (uint32_t)(w.z >= th) << 2 | (uint32_t)(w.w >= th) << 3;
+}
+
+// The dk/dv pass's keep bits of a thread's SR / 2 elements of an s^T stage,
+// bit 4 j + 2 i + c: key row + 8 i, query q0 + 8 j + 2 (lane % 4) + c.  A
+// Philox call covers four keys of one query, held by the four lanes u =
+// (lane / 4) % 4 of one column: each draws a quarter of the column's words
+// and the four share the nibbles (drop_mask_t's scheme; kgroup: the 4-key
+// group of the warp's first key).
+__device__ __forceinline__ uint32_t keep_bits_t(const F32Args& p,
+                                                long long bh, int q0,
+                                                int kgroup, int lane) {
+  const int t = lane & 3, u = (lane >> 2) & 3, a = lane >> 4;
+  uint32_t nib = 0;
+#pragma unroll
+  for (int blk = 0; blk < SR / 16; ++blk)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int e = 4 * blk + u;  // this lane's column: 2 j + c
+      const uint4 w =
+          p.drop.bits4(bh * p.tq + q0 + 8 * (e >> 1) + 2 * t + (e & 1),
+                       kgroup + 2 * i + a);
+      nib |= keep_nibble(w, p.drop.threshold) << (4 * (2 * blk + i));
+    }
+  uint32_t nx[4];
+#pragma unroll
+  for (int x = 0; x < 4; ++x) {
+    nx[x] = __shfl_sync(0xffffffffu, nib, (lane & ~12) | (x << 2)) >> u;
+  }
+  uint32_t bits = 0;
+#pragma unroll
+  for (int j = 0; j < SR / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int e = 2 * j + c;
+        bits |= ((nx[e & 3] >> (4 * (2 * (e >> 2) + i))) & 1u)
+                << (4 * j + 2 * i + c);
+      }
+  return bits;
+}
+
+// The dq pass's keep bits of a thread's SR / 2 elements of an s stage, bit
+// 4 j + 2 i + c: query qi[i], key k0 + 8 j + 2 t + c (t = lane % 4).  Lanes
+// t and t ^ 1 hold the four keys of one Philox call: each draws the calls
+// of every other j and hands the other its nibbles.
+__device__ __forceinline__ uint32_t keep_bits_q(const F32Args& p,
+                                                long long bh,
+                                                const int (&qi)[2], int k0,
+                                                int lane) {
+  const int t = lane & 3, odd = t & 1;
+  uint32_t bits = 0;
+#pragma unroll
+  for (int jj = 0; jj < SR / 16; ++jj)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int jm = 2 * jj + odd, jo = 2 * jj + (odd ^ 1);
+      const uint4 w = p.drop.bits4(bh * p.tq + qi[i],
+                                   (k0 + 8 * jm) / 4 + (t >> 1));
+      const uint32_t mine = keep_nibble(w, p.drop.threshold);
+      const uint32_t other = __shfl_xor_sync(0xffffffffu, mine, 1);
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        bits |= ((mine >> (2 * odd + c)) & 1u) << (4 * jm + 2 * i + c);
+        bits |= ((other >> (2 * odd + c)) & 1u) << (4 * jo + 2 * i + c);
+      }
+    }
+  return bits;
+}
+
+
+// The producer warpgroup: its thread 0 loads the block's own rows of both
+// slabs once (at own and own + 2 OWN) and stage n's SR rows of the other
+// side into work slot n % SLOTS with TMA, each as soon as the consumers
+// free the slot (one stage ahead with two slots); every thread splits the
+// own rows once, then each landed stage in place (a, b and the transposed
+// a; with TB the transposed b too) and, with ROWS, stages its lse and delta
+// (the dk/dv pass).  With two slots the split of one stage runs while the
+// consumers multiply the other.
+template <int DP, bool ROWS, bool TB>
+__device__ __forceinline__ void produce_f32(const F32Args& p, uint8_t* own,
+                                            uint8_t* work, int work_bytes,
+                                            F32Rows* rows, F32Bars* bars,
+                                            int head, int r0, int b,
+                                            int tiles, long long bh,
+                                            int half) {
+  using G = F32<DP>;
+  constexpr int NAT = G::NAT, TR = G::TR;
+  const int tid = threadIdx.x - G::CONS * WG;
+  // stage n's rows of both slabs into its slot, once the slot is free
+  auto load = [&](int n) {
+    const int w = slot_of<DP>(n);
+    uint8_t* wk = work + w * work_bytes;
+    hw::mbar_wait(&bars->empty[w], parity_of<DP>(n) ^ 1);
+    hw::mbar_expect_tx(&bars->land[w], 2 * NAT);
+#pragma unroll
+    for (int x = 0; x < G::NB; ++x) {
+      hw::tma_load_head(wk + x * SR * ROW_BYTES, &p.st_a, &bars->land[w],
+                        32 * x, head, n * SR, b);
+      hw::tma_load_head(wk + 2 * NAT + x * SR * ROW_BYTES, &p.st_b,
+                        &bars->land[w], 32 * x, head, n * SR, b);
+    }
+  };
+  if (tid == 0) {
+    hw::mbar_expect_tx(&bars->own_full, 2 * G::OWN);
+#pragma unroll
+    for (int x = 0; x < G::NB; ++x) {
+      hw::tma_load_head(own + x * FR * ROW_BYTES, &p.own_a, &bars->own_full,
+                        32 * x, head, r0, b);
+      hw::tma_load_head(own + 2 * G::OWN + x * FR * ROW_BYTES, &p.own_b,
+                        &bars->own_full, 32 * x, head, r0, b);
+    }
+    load(0);
+  }
+  hw::mbar_wait(&bars->own_full, 0);
+  split_own<DP>(own, tid);
+  split_own<DP>(own + 2 * G::OWN, tid);
+  hw::fence_async_smem();
+  hw::mbar_arrive(&bars->own_ready);
+  for (int n = 0; n < tiles; ++n) {
+    const int w = slot_of<DP>(n);
+    uint8_t* wk = work + w * work_bytes;
+    hw::mbar_wait(&bars->land[w], parity_of<DP>(n));
+    split_stage<DP, true>(wk, wk + 4 * NAT, half, tid);
+    split_stage<DP, TB>(wk + 2 * NAT, wk + 4 * NAT + 2 * TR, half, tid);
+    if constexpr (ROWS) {
+      if (tid < SR) {
+        const int qi = n * SR + tid;
+        const bool in = qi < p.tq;
+        rows[w].lse2[tid] = in ? p.lse[bh * p.tq + qi] * kLog2e : 0.0f;
+        rows[w].delta[tid] = in ? p.delta[bh * p.tq + qi] : 0.0f;
+      }
+    }
+    hw::fence_async_smem();
+    hw::mbar_arrive(&bars->ready[w]);
+    if (tid == 0 && n + 1 < tiles) load(n + 1);
+  }
+}
+
+// The s role's p of a thread's SR / 2 elements to the dp role's same
+// thread, through the slot's hand-over tile: with DROP a dropped element
+// goes as -p (p >= 0, and -0 keeps its sign), so that the mask is drawn
+// once.
+template <bool DROP>
+__device__ __forceinline__ void hand_p(float* pb, const float (&x)[SR / 2],
+                                       uint32_t keep, int tid,
+                                       uint64_t* bar) {
+#pragma unroll
+  for (int e = 0; e < SR / 2; ++e) {
+    pb[e * WG + tid] = DROP && !((keep >> e) & 1u) ? -x[e] : x[e];
+  }
+  hw::mbar_arrive(bar);
+}
+
+// The dp role's side of hand_p: p into x and, with DROP, the keep bits
+template <bool DROP>
+__device__ __forceinline__ void take_p(const float* pb, float (&x)[SR / 2],
+                                       uint32_t& keep, int tid,
+                                       uint64_t* bar, uint32_t parity) {
+  hw::mbar_wait(bar, parity);
+  keep = 0;
+#pragma unroll
+  for (int e = 0; e < SR / 2; ++e) {
+    const float v = pb[e * WG + tid];
+    if constexpr (DROP) keep |= (uint32_t)!signbit(v) << e;
+    x[e] = fabsf(v);
+  }
+}
+
+template <int DP>
+constexpr size_t dkdv_f32_smem_bytes() {
+  using G = F32<DP>;
+  return 1024 + (size_t)4 * G::OWN + G::SLOTS * (G::KV_WORK + G::PBUF) +
+         G::SLOTS * sizeof(F32Rows) + sizeof(F32Bars);
+}
+
+// A dk/dv pass consumer warpgroup with role ROLE: the slot's products and
+// its part of p, ds and the sums, then its outputs.
+template <int DP, bool DROP, int ROLE>
+__device__ __forceinline__ void dkdv_consume(const F32Args& p,
+                                             const uint8_t* own,
+                                             const uint8_t* work,
+                                             const F32Rows* rows,
+                                             F32Bars* bars,
+                                             int k0, int half, int head,
+                                             int b, int qtiles) {
+  using G = F32<DP>;
+  constexpr bool S = ROLE & kRoleS, D = ROLE & kRoleDp;
+  constexpr int OWN = G::OWN, NAT = G::NAT, TR = G::TR;
+  const long long bh = (long long)b * p.heads + head;
+  const int tid = threadIdx.x % WG, lane = tid % 32, t = lane % 4;
+  const int row = 16 * (tid / 32) + lane / 4;
+  const int key0 = k0 + row;  // this thread's keys key0 + 8 i
+  bool key_in[2], key_ok[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int kj = key0 + 8 * i;
+    key_in[i] = kj < p.tk;
+    key_ok[i] = key_in[i] && p.mask[(long long)b * p.tk + kj];
+  }
+  const int kgroup = (k0 + row - lane / 4) / 4;
+  const float inv_tk = 1.0f / (float)p.tk, sl2 = p.scale * kLog2e;
+  // the partials, sa and dpa are written first by products that start
+  // them afresh: no instruction before the loop defines them, which would
+  // make ptxas serialize the products
+  float dv_acc[32], dk_acc[32], dv_part[32], dk_part[32];
+  float sa[SR / 2], dpa[SR / 2];  // s^T, then p; dp^T, then ds
+  uint32_t ph[SR / 8][4], pl[SR / 8][4], dh[SR / 8][4], dl[SR / 8][4];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dv_acc[i] = dk_acc[i] = 0.0f;
+  hw::mbar_wait(&bars->own_ready, 0);
+
+  for (int qt = 0; qt < qtiles; ++qt) {
+    const int q0 = qt * SR, w = slot_of<DP>(qt);
+    const uint32_t par = parity_of<DP>(qt);
+    const uint8_t* wk = work + w * (G::KV_WORK + G::PBUF);
+    const uint8_t* qt_hi = wk + 4 * NAT;    // q^T
+    const uint8_t* gt_hi = qt_hi + 2 * TR;  // g^T
+    float* pb = reinterpret_cast<float*>(const_cast<uint8_t*>(wk) +
+                                         G::KV_WORK);
+    const F32Rows& rw = rows[w];
+    hw::mbar_wait(&bars->ready[w], par);
+    hw::wgmma_fence();
+    if constexpr (S) product_head<DP>(sa, own, wk);  // s^T = k q^T
+    if constexpr (D) {
+      product_head<DP>(dpa, own + 2 * OWN, wk + 2 * NAT);  // dp^T = v g^T
+    }
+    hw::wgmma_commit();
+    // the mask's bits (the s role hands them to the dp role with p)
+    uint32_t keep = DROP && S ? keep_bits_t(p, bh, q0, kgroup, lane) : 0u;
+    hw::wgmma_wait<0>();
+    if constexpr (S) hw::fence_regs(sa);
+    if constexpr (D) hw::fence_regs(dpa);
+    // p where the key is allowed for the query: exp(s * scale - lse) as
+    // 2^(s * scale log2(e) - lse log2(e)), 1 / Tk on every key < Tk of a
+    // row whose lse <= -1e29, else 0
+    if constexpr (S) {
+#pragma unroll
+      for (int j = 0; j < SR / 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int col = 8 * j + 2 * t + c, qi = q0 + col;
+          const float l2 = rw.lse2[col];
+          const bool uniform = l2 <= kAllMasked * kLog2e, q_in = qi < p.tq;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int e = 4 * j + 2 * i + c;
+            const bool take =
+                q_in && key_in[i] &&
+                (uniform || (key_ok[i] && !(p.causal && key0 + 8 * i > qi)));
+            sa[e] = !take ? 0.0f
+                          : uniform ? inv_tk : ex2(fmaf(sa[e], sl2, -l2));
+          }
+        }
+    }
+    if constexpr (ROLE == kRoleS) {
+      hand_p<DROP>(pb, sa, keep, tid, &bars->p_ready[w]);
+    }
+    if constexpr (ROLE == kRoleDp) {
+      take_p<DROP>(pb, sa, keep, tid, &bars->p_ready[w], par);
+    }
+    // p m in the fragments of dv's A, ds = p (dp m - delta) in dk's
+#pragma unroll
+    for (int j = 0; j < SR / 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const float dl_q = rw.delta[8 * j + 2 * t + c];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int e = 4 * j + 2 * i + c;
+          const float m = DROP ? ((keep >> e) & 1u ? p.drop.scale : 0.0f)
+                               : 1.0f;
+          if constexpr (D) dpa[e] = sa[e] * (dpa[e] * m - dl_q);
+          if constexpr (S) sa[e] *= m;
+        }
+      }
+    if constexpr (S) to_fragments(sa, ph, pl);
+    if constexpr (D) to_fragments(dpa, dh, dl);
+    hw::wgmma_fence();
+    if constexpr (S) product_rs(dv_part, ph, pl, gt_hi, TR);  // (p m)^T g
+    if constexpr (D) product_rs(dk_part, dh, dl, qt_hi, TR);  // ds^T q
+    hw::wgmma_commit();
+    // the stage's partials into the sums; the slot is free of this role
+    hw::wgmma_wait<0>();
+    if constexpr (S) {
+      fence_regs2(ph);
+      fence_regs2(pl);
+      hw::promote_acc(dv_acc, dv_part);
+    }
+    if constexpr (D) {
+      fence_regs2(dh);
+      fence_regs2(dl);
+      hw::promote_acc(dk_acc, dk_part);
+    }
+    hw::mbar_arrive(&bars->empty[w]);
+  }
+  const long long stride = (long long)p.heads * p.d;
+  const long long base = (long long)b * p.tk * stride + head * p.d;
+  if constexpr (D) {
+    store_f32(p.out_a + base, dk_acc, key0, p.tk, stride, p.scale, lane,
+              64 * half, p.d);
+  }
+  if constexpr (S) {
+    store_f32(p.out_b + base, dv_acc, key0, p.tk, stride, 1.0f, lane,
+              64 * half, p.d);
+  }
+}
+
+// The dk/dv pass: block bx holds 64 keys (k, v split once) and the head's
+// columns 64 half .. + 63 of their dk, dv; the query stages stream.
 template <int DP, bool DROP>
-__global__ void __launch_bounds__(NT)
-    attention_bwd_dkdv_kernel(const float* __restrict__ q,
-                              const float* __restrict__ k,
-                              const float* __restrict__ v,
-                              const float* __restrict__ g,
-                              const unsigned char* __restrict__ mask,
-                              const float* __restrict__ lse,
-                              const float* __restrict__ delta,
-                              float* __restrict__ dk, float* __restrict__ dv,
-                              int tq, int tk, int heads, int d, float scale,
-                              int causal, smx::Dropout drop) {
-  constexpr int NB = DP / 64, LDD = ldd<DP>();
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  float* ks = reinterpret_cast<float*>(smem_raw);
-  float* vs = ks + BT * LDD;
-  float* qs = vs + BT * LDD;
-  float* gs = qs + BT * LDD;
-  float* ps = gs + BT * LDD;
-  float* dss = ps + BT * LD;
-  float* sf = dss + BT * LD;
-  float* dpf = sf + BT * LD;
-  __shared__ float lse_s[BT], delta_s[BT];
-  __shared__ unsigned char kmask_s[BT];
-  const int tid = threadIdx.x;
-  const int k0 = blockIdx.x * BT, head = blockIdx.y, b = blockIdx.z;
-  const long long row = (long long)heads * d;
-  const float* qb = q + (long long)b * tq * row + head * d;
-  const float* gb = g + (long long)b * tq * row + head * d;
-  const float* kb = k + (long long)b * tk * row + head * d;
-  const float* vb = v + (long long)b * tk * row + head * d;
-  const float* lb = lse + ((long long)b * heads + head) * tq;
-  const float* db = delta + ((long long)b * heads + head) * tq;
+__device__ __forceinline__ void dkdv_f32_block(const F32Args& p, int bx,
+                                               uint8_t* smem) {
+  using G = F32<DP>;
+  constexpr int SLOTS = G::SLOTS;
+  uint8_t* own = smem;  // k hi, lo; v hi, lo
+  // work slot s: q hi, lo; g hi, lo; q^T hi, lo; g^T hi, lo; p handed over
+  uint8_t* work = own + 4 * G::OWN;
+  F32Rows* rows =
+      reinterpret_cast<F32Rows*>(work + SLOTS * (G::KV_WORK + G::PBUF));
+  F32Bars* bars = reinterpret_cast<F32Bars*>(rows + SLOTS);
 
-  load_tile<DP>(ks, kb, row, k0, tk, d);
-  load_tile<DP>(vs, vb, row, k0, tk, d);
-  if (tid < BT) {
-    kmask_s[tid] = k0 + tid < tk ? mask[(long long)b * tk + k0 + tid] : 0;
+  const int half = bx % G::NH, k0 = bx / G::NH * FR;
+  const int head = blockIdx.y, b = blockIdx.z;
+  const int qtiles = (p.tq + SR - 1) / SR;
+  const int c = threadIdx.x / WG;
+  init_f32_bars<DP>(bars);
+  if (c == G::CONS) {
+    produce_f32<DP, true, true>(p, own, work, G::KV_WORK + G::PBUF, rows,
+                                bars, head, k0, b, qtiles,
+                                (long long)b * p.heads + head, half);
+    return;
   }
-  Acc dk_acc[NB], dv_acc[NB];
-#pragma unroll
-  for (int h = 0; h < NB; ++h) {
-    zero(dk_acc[h]);
-    zero(dv_acc[h]);
+  if constexpr (G::CONS == 1) {
+    dkdv_consume<DP, DROP, kRoleBoth>(p, own, work, rows, bars, k0, half,
+                                      head, b, qtiles);
+    return;
   }
+  if (c == 1) {
+    dkdv_consume<DP, DROP, kRoleDp>(p, own, work, rows, bars, k0, half,
+                                    head, b, qtiles);
+    return;
+  }
+  dkdv_consume<DP, DROP, kRoleS>(p, own, work, rows, bars, k0, half, head,
+                                 b, qtiles);
+}
 
-  for (int q0 = 0; q0 < tq; q0 += BT) {
-    __syncthreads();  // the last tile's readers of qs, gs, ps, dss are done
-    load_tile<DP>(qs, qb, row, q0, tq, d);
-    load_tile<DP>(gs, gb, row, q0, tq, d);
-    if (tid < BT) {
-      const bool in = q0 + tid < tq;
-      lse_s[tid] = in ? lb[q0 + tid] : 0.0f;
-      delta_s[tid] = in ? db[q0 + tid] : 0.0f;
-    }
-    __syncthreads();
-    {
-      Acc s_acc, dp_acc;
-      zero(s_acc);
-      mma<false, true, DP, LDD, LDD>(s_acc, qs, ks);   // q k^T
-      store<LD>(s_acc, sf, 1.0f);
-      zero(dp_acc);
-      mma<false, true, DP, LDD, LDD>(dp_acc, gs, vs);  // g v^T
-      store<LD>(dp_acc, dpf, 1.0f);
-    }
-    __syncthreads();
-    probs_and_ds<DROP>(sf, dpf, ps, dss, lse_s, delta_s, kmask_s, q0, k0, tq,
-                       tk, scale, causal, drop,
-                       ((long long)b * heads + head) * tq);
-    __syncthreads();
+template <int DP>
+constexpr size_t dq_f32_smem_bytes() {
+  using G = F32<DP>;
+  return 1024 + (size_t)4 * G::OWN + G::SLOTS * (G::Q_WORK + G::PBUF) +
+         sizeof(F32Bars);
+}
+
+// A dq pass consumer warpgroup with role ROLE: the s role forms p, the dp
+// role ds and dq.
+template <int DP, bool DROP, int ROLE>
+__device__ __forceinline__ void dq_consume(const F32Args& p,
+                                           const uint8_t* own,
+                                           const uint8_t* work,
+                                           F32Bars* bars, int q0, int half,
+                                           int head, int b, int ktiles) {
+  using G = F32<DP>;
+  constexpr bool S = ROLE & kRoleS, D = ROLE & kRoleDp;
+  constexpr int OWN = G::OWN, NAT = G::NAT;
+  const long long bh = (long long)b * p.heads + head;
+  const int tid = threadIdx.x % WG, lane = tid % 32, t = lane % 4;
+  const int row = 16 * (tid / 32) + lane / 4;
+  int qi[2];
+  bool q_in[2], uniform[2];
+  float lse2[2], delta[2];  // lse * log2(e)
 #pragma unroll
-    for (int h = 0; h < NB; ++h) {
-      mma<true, false, BT, LD, LDD>(dv_acc[h], ps, gs + 64 * h);   // p^T g
-      mma<true, false, BT, LD, LDD>(dk_acc[h], dss, qs + 64 * h);  // ds^T q
+  for (int i = 0; i < 2; ++i) {
+    qi[i] = q0 + row + 8 * i;
+    q_in[i] = qi[i] < p.tq;
+    const float l = q_in[i] ? p.lse[bh * p.tq + qi[i]] : 0.0f;
+    delta[i] = q_in[i] ? p.delta[bh * p.tq + qi[i]] : 0.0f;
+    uniform[i] = l <= kAllMasked;
+    lse2[i] = l * kLog2e;
+  }
+  const float inv_tk = 1.0f / (float)p.tk, sl2 = p.scale * kLog2e;
+  const unsigned char* kmask = p.mask + (long long)b * p.tk;
+  // the dk/dv pass's note on its partials
+  float dq_acc[32], dq_part[32];
+  float sa[SR / 2], dpa[SR / 2];  // s, then p; dp, then ds
+  uint32_t dh[SR / 8][4], dl[SR / 8][4];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dq_acc[i] = 0.0f;
+  hw::mbar_wait(&bars->own_ready, 0);
+
+  for (int kt = 0; kt < ktiles; ++kt) {
+    const int k0 = kt * SR, w = slot_of<DP>(kt);
+    const uint32_t par = parity_of<DP>(kt);
+    const uint8_t* wk = work + w * (G::Q_WORK + G::PBUF);
+    const uint8_t* kt_hi = wk + 4 * NAT;  // k^T
+    float* pb = reinterpret_cast<float*>(const_cast<uint8_t*>(wk) +
+                                         G::Q_WORK);
+    hw::mbar_wait(&bars->ready[w], par);
+    hw::wgmma_fence();
+    if constexpr (S) product_head<DP>(sa, own, wk);  // s = q k^T
+    if constexpr (D) {
+      product_head<DP>(dpa, own + 2 * OWN, wk + 2 * NAT);  // dp = g v^T
+    }
+    hw::wgmma_commit();
+    // while the products run: the keys' validity, the mask's bits
+    uint32_t k_in = 0, k_ok = 0;  // bit 2 j + c: key k0 + 8 j + 2 t + c
+    if constexpr (S) {
+#pragma unroll
+      for (int j = 0; j < SR / 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int kk = k0 + 8 * j + 2 * t + c;
+          if (kk < p.tk) {
+            k_in |= 1u << (2 * j + c);
+            if (kmask[kk]) k_ok |= 1u << (2 * j + c);
+          }
+        }
+    }
+    // the mask's bits (the s role hands them to the dp role with p)
+    uint32_t keep = DROP && S ? keep_bits_q(p, bh, qi, k0, lane) : 0u;
+    hw::wgmma_wait<0>();
+    if constexpr (S) {
+      hw::fence_regs(sa);
+#pragma unroll
+      for (int j = 0; j < SR / 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int kk = k0 + 8 * j + 2 * t + c;
+          const bool in = (k_in >> (2 * j + c)) & 1u;
+          const bool ok = (k_ok >> (2 * j + c)) & 1u;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int e = 4 * j + 2 * i + c;
+            const bool take =
+                q_in[i] && in &&
+                (uniform[i] || (ok && !(p.causal && kk > qi[i])));
+            sa[e] = !take ? 0.0f
+                          : uniform[i] ? inv_tk
+                                       : ex2(fmaf(sa[e], sl2, -lse2[i]));
+          }
+        }
+    }
+    if constexpr (ROLE == kRoleS) {  // p to the dp role; the slot is done
+      hand_p<DROP>(pb, sa, keep, tid, &bars->p_ready[w]);
+      hw::mbar_arrive(&bars->empty[w]);
+    }
+    if constexpr (D) {
+      hw::fence_regs(dpa);
+      if constexpr (ROLE == kRoleDp) {
+        take_p<DROP>(pb, sa, keep, tid, &bars->p_ready[w], par);
+      }
+      // ds = p (dp m - delta) in the fragments of dq's A
+#pragma unroll
+      for (int j = 0; j < SR / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int e = 4 * j + 2 * i + c;
+            const float m = DROP ? ((keep >> e) & 1u ? p.drop.scale : 0.0f)
+                                 : 1.0f;
+            dpa[e] = sa[e] * (dpa[e] * m - delta[i]);
+          }
+      to_fragments(dpa, dh, dl);
+      hw::wgmma_fence();
+      product_rs(dq_part, dh, dl, kt_hi, G::TR);  // dq += ds k
+      hw::wgmma_commit();
+      hw::wgmma_wait<0>();
+      fence_regs2(dh);
+      fence_regs2(dl);
+      hw::promote_acc(dq_acc, dq_part);
+      hw::mbar_arrive(&bars->empty[w]);
     }
   }
-  __syncthreads();
-  // stage dv and dk in the q and g tiles' place
-#pragma unroll
-  for (int h = 0; h < NB; ++h) {
-    store<LDD>(dv_acc[h], qs + 64 * h, 1.0f);
-    store<LDD>(dk_acc[h], gs + 64 * h, scale);
+  if constexpr (D) {
+    const long long stride = (long long)p.heads * p.d;
+    store_f32(p.out_a + (long long)b * p.tq * stride + head * p.d, dq_acc,
+              q0 + row, p.tq, stride, p.scale, lane, 64 * half, p.d);
   }
-  __syncthreads();
-  write_tile<DP>(dv + (long long)b * tk * row + head * d, qs, row, k0, tk, d);
-  write_tile<DP>(dk + (long long)b * tk * row + head * d, gs, row, k0, tk, d);
+}
+
+// The dq pass: block bx holds 64 queries (q, g split once) and the head's
+// columns 64 half .. + 63 of their dq; the key stages stream.
+template <int DP, bool DROP>
+__device__ __forceinline__ void dq_f32_block(const F32Args& p, int bx,
+                                             uint8_t* smem) {
+  using G = F32<DP>;
+  uint8_t* own = smem;  // q hi, lo; g hi, lo
+  // work slot s: k hi, lo; v hi, lo; k^T hi, lo; p handed over
+  uint8_t* work = own + 4 * G::OWN;
+  F32Bars* bars =
+      reinterpret_cast<F32Bars*>(work + G::SLOTS * (G::Q_WORK + G::PBUF));
+
+  const int half = bx % G::NH, q0 = bx / G::NH * FR;
+  const int head = blockIdx.y, b = blockIdx.z;
+  const int ktiles = (p.tk + SR - 1) / SR;
+  const int c = threadIdx.x / WG;
+  init_f32_bars<DP>(bars);
+  if (c == G::CONS) {
+    produce_f32<DP, false, false>(p, own, work, G::Q_WORK + G::PBUF,
+                                  nullptr, bars, head, q0, b, ktiles,
+                                  (long long)b * p.heads + head, half);
+    return;
+  }
+  if constexpr (G::CONS == 1) {
+    dq_consume<DP, DROP, kRoleBoth>(p, own, work, bars, q0, half,
+                                    head, b, ktiles);
+    return;
+  }
+  if (c == 1) {
+    dq_consume<DP, DROP, kRoleDp>(p, own, work, bars, q0, half, head,
+                                  b, ktiles);
+    return;
+  }
+  dq_consume<DP, DROP, kRoleS>(p, own, work, bars, q0, half, head, b,
+                               ktiles);
+}
+
+// Both tiled passes in one grid: blocks x < kv_blocks of the dk/dv pass,
+// the rest of the dq pass (independent of each other), so that neither
+// pass ends in a partial wave of its own.
+struct F32BwdArgs {
+  F32Args kv, qa;
+  int kv_blocks;
+};
+
+template <int DP>
+constexpr size_t f32_smem_bytes() {
+  return dkdv_f32_smem_bytes<DP>() > dq_f32_smem_bytes<DP>()
+             ? dkdv_f32_smem_bytes<DP>()
+             : dq_f32_smem_bytes<DP>();
 }
 
 template <int DP, bool DROP>
-__global__ void __launch_bounds__(NT)
-    attention_bwd_dq_kernel(const float* __restrict__ q,
-                            const float* __restrict__ k,
-                            const float* __restrict__ v,
-                            const float* __restrict__ g,
-                            const unsigned char* __restrict__ mask,
-                            const float* __restrict__ lse,
-                            const float* __restrict__ delta,
-                            float* __restrict__ dq, int tq, int tk, int heads,
-                            int d, float scale, int causal,
-                            smx::Dropout drop) {
-  constexpr int NB = DP / 64, LDD = ldd<DP>();
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  float* ks = reinterpret_cast<float*>(smem_raw);
-  float* vs = ks + BT * LDD;
-  float* qs = vs + BT * LDD;
-  float* gs = qs + BT * LDD;
-  float* dss = gs + BT * LDD;
-  float* sf = dss + 2 * BT * LD;
-  float* dpf = sf + BT * LD;
-  __shared__ float lse_s[BT], delta_s[BT];
-  __shared__ unsigned char kmask_s[BT];
-  const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * BT, head = blockIdx.y, b = blockIdx.z;
-  const long long row = (long long)heads * d;
-  const float* kb = k + (long long)b * tk * row + head * d;
-  const float* vb = v + (long long)b * tk * row + head * d;
-
-  load_tile<DP>(qs, q + (long long)b * tq * row + head * d, row, q0, tq, d);
-  load_tile<DP>(gs, g + (long long)b * tq * row + head * d, row, q0, tq, d);
-  if (tid < BT) {
-    const bool in = q0 + tid < tq;
-    const long long at = ((long long)b * heads + head) * tq + q0 + tid;
-    lse_s[tid] = in ? lse[at] : 0.0f;
-    delta_s[tid] = in ? delta[at] : 0.0f;
+__global__ void __launch_bounds__(F32<DP>::THREADS, 1)
+    attention_bwd_f32_kernel(const __grid_constant__ F32BwdArgs a) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = hw::align1024(smem_raw);
+  if (blockIdx.x < a.kv_blocks) {
+    dkdv_f32_block<DP, DROP>(a.kv, blockIdx.x, smem);
+  } else {
+    dq_f32_block<DP, DROP>(a.qa, blockIdx.x - a.kv_blocks, smem);
   }
-  Acc dq_acc[NB];
-#pragma unroll
-  for (int h = 0; h < NB; ++h) zero(dq_acc[h]);
-
-  for (int k0 = 0; k0 < tk; k0 += BT) {
-    __syncthreads();  // the last tile's readers of ks, vs, dss are done
-    load_tile<DP>(ks, kb, row, k0, tk, d);
-    load_tile<DP>(vs, vb, row, k0, tk, d);
-    if (tid < BT) {
-      kmask_s[tid] = k0 + tid < tk ? mask[(long long)b * tk + k0 + tid] : 0;
-    }
-    __syncthreads();
-    {
-      Acc s_acc, dp_acc;
-      zero(s_acc);
-      mma<false, true, DP, LDD, LDD>(s_acc, qs, ks);
-      store<LD>(s_acc, sf, 1.0f);
-      zero(dp_acc);
-      mma<false, true, DP, LDD, LDD>(dp_acc, gs, vs);
-      store<LD>(dp_acc, dpf, 1.0f);
-    }
-    __syncthreads();
-    probs_and_ds<DROP>(sf, dpf, nullptr, dss, lse_s, delta_s, kmask_s, q0,
-                       k0, tq, tk, scale, causal, drop,
-                       ((long long)b * heads + head) * tq);
-    __syncthreads();
-#pragma unroll
-    for (int h = 0; h < NB; ++h) {
-      mma<false, false, BT, LD, LDD>(dq_acc[h], dss, ks + 64 * h);  // ds k
-    }
-  }
-  __syncthreads();
-  // stage dq in the k tile's place
-#pragma unroll
-  for (int h = 0; h < NB; ++h) store<LDD>(dq_acc[h], ks + 64 * h, scale);
-  __syncthreads();
-  write_tile<DP>(dq + (long long)b * tq * row + head * d, ks, row, q0, tq, d);
 }
 
 template <int DP, bool DROP>
@@ -1263,32 +1832,51 @@ int launch_f32(const void* q, const void* k, const void* v, const void* out,
                float* delta, void* dq, void* dk, void* dv, int batch, int tq,
                int tk, int heads, int d, float scale, int causal,
                smx::Dropout drop, cudaStream_t stream) {
-  constexpr size_t smem = smem_f32<DP>();
+  F32BwdArgs a;
+  F32Args& kv = a.kv;
+  F32Args& qa = a.qa;
+  const uint32_t f = sizeof(float);
+  if (!hw::make_map_heads(&kv.own_a, k, batch, tk, heads, d, FR, f) ||
+      !hw::make_map_heads(&kv.own_b, v, batch, tk, heads, d, FR, f) ||
+      !hw::make_map_heads(&kv.st_a, q, batch, tq, heads, d, SR, f) ||
+      !hw::make_map_heads(&kv.st_b, g, batch, tq, heads, d, SR, f) ||
+      !hw::make_map_heads(&qa.own_a, q, batch, tq, heads, d, FR, f) ||
+      !hw::make_map_heads(&qa.own_b, g, batch, tq, heads, d, FR, f) ||
+      !hw::make_map_heads(&qa.st_a, k, batch, tk, heads, d, SR, f) ||
+      !hw::make_map_heads(&qa.st_b, v, batch, tk, heads, d, SR, f)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto common = [&](F32Args& a) {
+    a.mask = mask;
+    a.lse = lse;
+    a.delta = delta;
+    a.tq = tq;
+    a.tk = tk;
+    a.heads = heads;
+    a.d = d;
+    a.scale = scale;
+    a.causal = causal;
+    a.drop = drop;
+  };
+  common(kv);
+  common(qa);
+  kv.out_a = static_cast<float*>(dk);
+  kv.out_b = static_cast<float*>(dv);
+  qa.out_a = static_cast<float*>(dq);
+  qa.out_b = nullptr;
+  constexpr size_t smem = f32_smem_bytes<DP>();
   cudaError_t err = cudaFuncSetAttribute(
-      attention_bwd_dkdv_kernel<DP, DROP>,
+      attention_bwd_f32_kernel<DP, DROP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(attention_bwd_dq_kernel<DP, DROP>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const float* qp = static_cast<const float*>(q);
-  const float* kp = static_cast<const float*>(k);
-  const float* vp = static_cast<const float*>(v);
-  const float* gp = static_cast<const float*>(g);
   const int rc = launch_delta<float>(g, out, delta, batch, tq, heads, d,
                                      stream);
   if (rc != 0) return rc;
-  attention_bwd_dkdv_kernel<DP, DROP>
-      <<<dim3((tk + BT - 1) / BT, heads, batch), NT, smem, stream>>>(
-          qp, kp, vp, gp, mask, lse, delta, static_cast<float*>(dk),
-          static_cast<float*>(dv), tq, tk, heads, d, scale, causal, drop);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  attention_bwd_dq_kernel<DP, DROP>
-      <<<dim3((tq + BT - 1) / BT, heads, batch), NT, smem, stream>>>(
-          qp, kp, vp, gp, mask, lse, delta, static_cast<float*>(dq), tq, tk,
-          heads, d, scale, causal, drop);
+  constexpr int nh = F32<DP>::NH;
+  a.kv_blocks = (tk + FR - 1) / FR * nh;
+  attention_bwd_f32_kernel<DP, DROP>
+      <<<dim3(a.kv_blocks + (tq + FR - 1) / FR * nh, heads, batch),
+         F32<DP>::THREADS, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -4,7 +4,8 @@
 // mbarrier waits and arrivals, TMA tile loads, shared-memory matrix
 // descriptors, the m64n256k16, m64n128k16 and m64n64k16 bf16 warpgroup
 // products (A in shared memory or, for n64, in registers) with their
-// fences, the m64n128k8 and m64n64k8 tf32 products and the split of f32
+// fences, the m64n128k8, m64n64k8 and m64n32k8 tf32 products (A in shared
+// memory or, for n64, in registers) and the split of f32
 // tiles into tf32 halves that makes three of them an f32-accurate product,
 // TMA tile stores, the thread-block cluster's barrier and stores to
 // another block's shared memory (plain, or st.async counted on the
@@ -130,25 +131,31 @@ inline bool make_map3(CUtensorMap* map, const void* base, uint64_t batches,
                            box_rows, box_cols);
 }
 
-// A (B, T, H*d) bf16 slab seen as (batches, rows, heads, d), loaded in
-// boxes of 64 columns of one head and `box_rows` rows of one batch, with
-// the 128-byte swizzle: the head is a dimension of its own, so the columns
-// of a box past d load as zeros instead of the next head's (d a multiple
-// of 8: 16-byte strides).  Rows past `rows` load as zeros within their
-// batch.  The box lands in shared memory as make_map3's (box_rows, 64) box.
+// A (B, T, H*d) bf16 (or, with elem 4, f32) slab seen as (batches, rows,
+// heads, d), loaded in boxes of 128 bytes of one head's row (64 bf16 or 32
+// f32 columns) and `box_rows` rows of one batch, with the 128-byte swizzle:
+// the head is a dimension of its own, so the columns of a box past d load
+// as zeros instead of the next head's (d a multiple of 8: 16-byte
+// strides), and a box wholly past d loads as zeros.  Rows past `rows` load
+// as zeros within their batch.  The box lands in shared memory as
+// make_map3's (box_rows, 128 bytes) box.
 inline bool make_map_heads(CUtensorMap* map, const void* base,
                            uint64_t batches, uint64_t rows, uint64_t heads,
-                           uint64_t d, uint32_t box_rows) {
+                           uint64_t d, uint32_t box_rows,
+                           uint32_t elem = sizeof(__nv_bfloat16)) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
-  const uint64_t e = sizeof(__nv_bfloat16);
+  const uint64_t e = elem;
   const cuuint64_t dims[4] = {d, heads, rows, batches};
   const cuuint64_t strides[3] = {d * e, heads * d * e, rows * heads * d * e};
-  const cuuint32_t box[4] = {64, 1, box_rows, 1};
+  const cuuint32_t box[4] = {128 / elem, 1, box_rows, 1};
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-            dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  return fn(map,
+            elem == sizeof(float) ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                  : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+            4, const_cast<void*>(base), dims, strides, box, elem_strides,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -486,6 +493,46 @@ __device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64],
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+__device__ __forceinline__ void wgmma_m64n32k8_tf32(float (&d)[16],
+                                                   uint64_t da, uint64_t db,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// m64n32k8 with d an output only: the product starts d afresh and reads
+// nothing of it, so d's registers need hold nothing before it (a product
+// that reads d keeps it live, and ptxas serializes the products when it
+// moves registers so held while another product is in flight)
+__device__ __forceinline__ void wgmma_m64n32k8_tf32_zero(float (&d)[16],
+                                                        uint64_t da,
+                                                        uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, 0, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1;\n"
+      "}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]),
+        "=f"(d[5]), "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]),
+        "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]),
+        "=f"(d[15])
+      : "l"(da), "l"(db));
+}
+
 template <int N>
 __device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], uint64_t da,
                                            uint64_t db, int accumulate) {
@@ -495,6 +542,40 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], uint64_t da,
   } else {
     wgmma_m64n128k8_tf32(d, da, db, accumulate);
   }
+}
+
+// d (64 x 64, f32) = A (64 x 8) * B (8 x 64) + (accumulate ? d : 0), A in
+// registers as tf32 values, B K-major in shared memory.  The A fragment of
+// a k8 slice (PTX ISA, wgmma's register fragment of a 64 x 8 tf32 A):
+// thread t of the warpgroup holds rows r = 16 (t / 32) + (t % 32) / 4 and
+// r + 8 at columns c = t % 4 and c + 4, a[0] (r, c), a[1] (r + 8, c),
+// a[2] (r, c + 4), a[3] (r + 8, c + 4).  An f32 accumulator's 8-column
+// group j holds columns 8 j + 2 (t % 4) + {0, 1} instead, so its elements
+// 4 j, 4 j + 2, 4 j + 1, 4 j + 3 are the A slice of those columns taken in
+// the order 0, 2, 4, 6, 1, 3, 5, 7: the B tile's k rows must lie in that
+// order.  The registers must not change until the product's wait.
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32],
+                                                      const uint32_t (&a)[4],
+                                                      uint64_t db,
+                                                      int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
 }
 
 // One k8 slice of an f32-accurate product from split operands (the three
@@ -515,11 +596,42 @@ __device__ __forceinline__ void wgmma_tf32x3(float (&d)[N / 2],
   wgmma_tf32<N>(d, ah, bh, 1);
 }
 
+// wgmma_m64n64k8_tf32_rs that starts d afresh with d an output only (as
+// wgmma_m64n32k8_tf32_zero)
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_rs_zero(
+    float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, 0, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]),
+        "=f"(d[5]), "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]),
+        "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]),
+        "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]),
+        "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]),
+        "=f"(d[30]), "=f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
 // v rounded to tf32 (10 mantissa bits), to nearest, ties to even
 __device__ __forceinline__ float tf32_rn(float v) {
   uint32_t u = __float_as_uint(v);
   u += 0xFFFu + ((u >> 13) & 1u);
   return __uint_as_float(u & 0xFFFFE000u);
+}
+
+// v rounded to tf32 by one instruction: to nearest, ties away from zero
+// (cvt.rna; tf32_rn's ties go to even, which only an exact tie tells apart)
+__device__ __forceinline__ float tf32_rna(float v) {
+  uint32_t u;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(u) : "f"(v));
+  return __uint_as_float(u);
 }
 
 // The three-product split of f32 operands: each element v of a tile that
