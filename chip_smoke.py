@@ -334,10 +334,10 @@ K1_BF16_RULE = "2^-8 * (P|v|) + 2^-7 * |p|"
 
 
 def check_attention_fwd(name, q, k, v, mask, heads, causal, scale=0.125):
-    """K1 on one input against its plain version (output and lse) and, in
-    bf16, against attention_fwd_tiled_plain (the bf16 body's tiles) and
-    itself in a second call, bit for bit.  Returns the max error against
-    the plain version."""
+    """K1 on one input against its plain version (output and lse), in
+    bf16 against attention_fwd_tiled_plain (the bf16 body's tiles), and
+    against itself in a second call, bit for bit.  Returns the max error
+    against the plain version."""
     import torch
     from speechmix_tpu_torch.ops.kernels import attention as ka
     out, lse = ka.attention_fwd(q, k, v, mask, heads, scale, causal,
@@ -358,8 +358,8 @@ def check_attention_fwd(name, q, k, v, mask, heads, causal, scale=0.125):
         compare(f"{name} vs tiled", out, tiled,
                 attention_bf16_limit(q, k, v, mask, heads, scale, causal,
                                      tiled), K1_BF16_RULE)
-        expect_equal(f"K1 {name}", (out, lse), ka.attention_fwd(
-            q, k, v, mask, heads, scale, causal, return_lse=True))
+    expect_equal(f"K1 {name}", (out, lse), ka.attention_fwd(
+        q, k, v, mask, heads, scale, causal, return_lse=True))
     return err
 
 
@@ -387,8 +387,8 @@ def check_kernels(gen, dev):
             for causal in causal_opts:
                 check_attention_fwd(f"B={b} T={t} {dtype} causal={causal}",
                                     q, k, v, mask, heads, causal)
-    # the bf16 body's edges: a causal batch row without any valid key and
-    # one whose keys start at 150 (its first queries have no allowed key,
+    # the bodies' edges: a causal batch row without any valid key and one
+    # whose keys start at 150 (its first queries have no allowed key,
     # beside rows that have one, so their blocks visit every key tile),
     # query and key lengths apart, a single query, one 64-query block
     late = torch.ones(3, 300, dtype=torch.bool, device=dev)
@@ -403,19 +403,21 @@ def check_kernels(gen, dev):
             ("Tq != Tk", 2, 200, 130, True, None),
             ("one query", 2, 1, 70, False, None),
             ("one block", 2, 64, 64, False, None)):
-        q = randn(b, tq, heads * d, dtype=torch.bfloat16)
-        k, v = (randn(b, tk, heads * d, dtype=torch.bfloat16)
-                for _ in range(2))
-        check_attention_fwd(f"{name} B={b} Tq={tq} Tk={tk} bf16 "
-                            f"causal={causal}", q, k, v, mask, heads, causal)
-    # bf16 inputs the tensor-core kernel cannot load are refused, not served
-    # by another kernel
-    slab = torch.empty(4 * 400 * heads * d + 1, dtype=torch.bfloat16,
-                       device=dev)
-    q_off = slab[1:].view(4, 400, heads * d)
-    k = randn(4, 400, heads * d, dtype=torch.bfloat16)
-    expect_refusal("K1 bf16 q at a 2-byte offset", lambda: ka.attention_fwd(
-        q_off, k, k, None, heads, 0.125))
+        for dtype in (torch.bfloat16, torch.float32):
+            q = randn(b, tq, heads * d, dtype=dtype)
+            k, v = (randn(b, tk, heads * d, dtype=dtype) for _ in range(2))
+            check_attention_fwd(f"{name} B={b} Tq={tq} Tk={tk} {dtype} "
+                                f"causal={causal}", q, k, v, mask, heads,
+                                causal)
+    # inputs the tensor-core kernels cannot load (TMA: 16-byte-aligned
+    # bases) are refused, not served by another kernel
+    for label, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        slab = torch.empty(4 * 400 * heads * d + 1, dtype=dtype, device=dev)
+        q_off = slab[1:].view(4, 400, heads * d)
+        k = randn(4, 400, heads * d, dtype=dtype)
+        expect_refusal(f"K1 {label} q at a {slab.element_size()}-byte "
+                       "offset", lambda: ka.attention_fwd(
+                           q_off, k, k, None, heads, 0.125))
     # timing at the path's three launch shapes, bf16, every key valid: the
     # speech encoder (B=16, T=800), the text encoder (T=400) and the
     # decoder's causal self-attention in the train step (T=64)
@@ -2393,7 +2395,7 @@ def stage_breakdown(params, cfg, wav, lengths, modes):
                 log(f"    {e.self_device_time_total / 1e3:9.2f} ms  "
                     f"{e.count:6d}x  {e.key[:90]}")
             for label, names in (("attention forward (K1)",
-                                  (ATTN_FWD_KERNEL,)),
+                                  ATTN_FWD_KERNELS),
                                  ("extractor conv (K6)", (CONV_KERNEL,)),
                                  ("decode attention (K4)", DECODE_KERNELS)):
                 log_kernel_sum(events, label, names,
@@ -3086,7 +3088,7 @@ def run_training(seed, card, dropout=False):
     _, _, events = _profile_step(lambda: step_fn(state, batch), what)
     for label, names in (("K8", K8_KERNELS), ("K3 / K9 passes", FWD_KERNELS),
                          ("attention backward (K7 / K15)", ATTN_BWD_KERNELS),
-                         ("attention forward (K1 / K14)", (ATTN_FWD_KERNEL,)),
+                         ("attention forward (K1 / K14)", ATTN_FWD_KERNELS),
                          ("extractor conv (K6)", (CONV_KERNEL,))):
         log_kernel_sum(events, label, names, f"the profiled {what}")
     bwd_ms, products = dense_bwd_product_ms(step_fn, state, batch)
@@ -3167,9 +3169,11 @@ ATTN_BWD_KERNELS = ("attention_bwd_delta_kernel", "dkdv_kernel", "dq_kernel",
                     "attention_bwd_f32_kernel")
 # K2 / K11 in bf16 (dense_res_ln.cu)
 DENSE_KERNEL = "dense_ln_kernel"
-# K1 / K14 in bf16 (attention_fwd.cu) and K6 (conv_ln_gelu.cu: conv_kernel<
-# dtype, columns a block, LayerNorm>)
+# K1 / K14 in bf16 and in float32 (attention_fwd.cu) and K6
+# (conv_ln_gelu.cu: conv_kernel<dtype, columns a block, LayerNorm>)
 ATTN_FWD_KERNEL = "attention_fwd_tc_kernel"
+F32_FWD_KERNEL = "attention_fwd_f32_kernel"
+ATTN_FWD_KERNELS = (ATTN_FWD_KERNEL, F32_FWD_KERNEL)
 CONV_KERNEL = "conv_kernel"
 # K4: the cluster body (bf16 q, 128 < T <= 2048) and the serial body (f32
 # q, the 64-slot self-attention cache, T > 2048)
@@ -7358,9 +7362,10 @@ def check_f32_forward_widths(randn, dev):
 
 
 def check_f32_attention_xl(randn, dev, records, key):
-    """f32 K7 / K15 at F32_ATTN_XL (the XL pair's f32 gradient runs K7
-    there; its head padded to 128 columns) against their plain versions,
-    two calls bit for bit, timed beside them and the library call."""
+    """f32 K1 / K14 and K7 / K15 at F32_ATTN_XL (the XL pair's f32
+    gradient runs K1 and K7 there; the head padded to 128 columns) against
+    their plain versions, two calls bit for bit, timed beside them and the
+    library call."""
     import torch
     import torch.nn.functional as F
     from speechmix_tpu_torch.ops.kernels import attention as ka
@@ -7378,6 +7383,35 @@ def check_f32_attention_xl(randn, dev, records, key):
     dmask = lambda: kdrop.attention_mask_plain(  # noqa: E731
         key, b, heads, t, t, rate, dev)
     what = f"B={b} T={t} H={heads} D={d}"
+    fwd_io = 4 * b * t * heads * d * 4 + b * t
+    k1 = lambda: ka.attention_fwd(q, k, v, mask, heads, scale,  # noqa: E731
+                                  return_lse=True)
+    p1 = lambda: ka.attention_fwd_plain(  # noqa: E731
+        q, k, v, mask, heads, scale, return_lse=True)
+    e1 = max(compare(f"K1 {n_} {what} f32", o, r)
+             for n_, o, r in zip(("out", "lse"), k1(), p1()))
+    expect_equal(f"K1 {what} f32", k1(), k1())
+    # the XL pair's f32 gradient launches K1 at this width
+    _f32_row(records, f"attention_fwd (f32, D={d})", what, e1, k1, p1,
+             lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                    scale=scale).detach(),
+             4.0 * heads * d * b * t * t, fwd_io, head_dim=d, on_path=True)
+    k14 = lambda: ka.attention_dropout_fwd(  # noqa: E731
+        q, k, v, mask, heads, scale, False, key, rate, return_lse=True)
+    p14 = lambda: ka.attention_fwd_plain(  # noqa: E731
+        q, k, v, mask, heads, scale, False, True, dmask())
+    # the lse is undropped: held at TOL, the output over (1 - r)
+    e14 = max(compare(f"K14 out {what} f32", o_, r_,
+                      tol_d[0] + tol_d[1] * r_.abs(), rule_d) if n_ == "out"
+              else compare(f"K14 lse {what} f32", o_, r_)
+              for n_, o_, r_ in zip(("out", "lse"), k14(), p14()))
+    expect_equal(f"K14 {what} f32", k14(), k14())
+    # no run of this script trains the XL pair in f32 with dropout
+    _f32_row(records, f"attention_dropout_fwd (f32, D={d})",
+             f"{what}, rate {rate}", e14, k14, p14,
+             lambda: F.scaled_dot_product_attention(
+                 qh, kh, vh, dropout_p=rate, scale=scale).detach(),
+             4.0 * heads * d * b * t * t, fwd_io, head_dim=d, on_path=False)
     flops = 10.0 * heads * d * b * t * t
     bwd_io = 8 * b * t * heads * d * 4 + b * heads * t * 4 + b * t
     out, lse = ka.attention_fwd(q, k, v, mask, heads, scale,
@@ -7505,7 +7539,13 @@ def check_f32_rows(randn, dev, records):
                  lambda: torch.autograd.grad(lib_out, (qh, kh, vh), gh,
                                              retain_graph=True),
                  10.0 * heads * d * allowed, bwd_io, **common)
-        # no atomics: each call the same bits
+        # no atomics: each call the same bits (K1 / K14: out and lse)
+        k1l = lambda: ka.attention_fwd(  # noqa: E731
+            q, k, v, mask, heads, scale, causal, return_lse=True)
+        k14l = lambda: ka.attention_dropout_fwd(  # noqa: E731
+            q, k, v, mask, heads, scale, causal, key, rate, return_lse=True)
+        expect_equal(f"K1 {what} f32", k1l(), k1l())
+        expect_equal(f"K14 {what} f32", k14l(), k14l())
         expect_equal(f"K7 {what} f32", k7(), k7())
         expect_equal(f"K15 {what} f32", k15(), k15())
         del q, k, v, g, qh, kh, vh, out, lse, out_d, lse_d, lib_out, ref
@@ -7754,6 +7794,11 @@ def run_f32_flagship(seed, card, check=True):
             ", ".join(f"{n_} {us / 1e3:.2f}" for n_, us in mine.most_common())
             + f"; launches {({k_: v for k_, v in got.items() if v})} on "
             f"{card}")
+        for name, names in (("attention forward (K1 / K14)",
+                             ATTN_FWD_KERNELS),
+                            ("attention backward (K7 / K15)",
+                             ATTN_BWD_KERNELS)):
+            log_kernel_sum(events, name, names, f"the profiled {label}")
 
     cfg, params, wav, lengths = flagship_inputs(seed)
     p32 = _cast_tree(params, torch.float32)
@@ -8145,6 +8190,15 @@ def main():
         for line in text.splitlines():
             if "Used" in line or "spill" in line:
                 log(f"  {source}: {line.strip()}")
+    # the f32 forward's tf32 products must not be serialized (C7513 /
+    # C7515 / C7518 under -Xptxas -v)
+    serialized = [line.strip() for line in
+                  _cuda.BUILD_LOG["attention_fwd.cu"].splitlines()
+                  if "serialized" in line and F32_FWD_KERNEL in line]
+    if serialized:
+        raise AssertionError("ptxas serialized the wgmma of "
+                             f"{F32_FWD_KERNEL}: " + "; ".join(serialized))
+    log(f"  ptxas: no serialized wgmma in {F32_FWD_KERNEL}")
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     records = check_kernels(gen, torch.device("cuda"))
@@ -8399,9 +8453,16 @@ def main():
         # greedy generate, its default-recipe train step or its step with
         # dropout off, at the row's length, rows or T_in
         **f32_path_rows(),
-        # f32 K7 / K15 at the XL pair's head width (launches_at_head_dim:
-        # K7 at that width in the XL f32 gradient; K15's f32 entry there,
-        # and 0 at that width, in the flagship's f32 step)
+        # f32 K1 / K14 and K7 / K15 at the XL pair's head width
+        # (launches_at_head_dim: K1 and K7 at that width in the XL f32
+        # gradient; K14's and K15's f32 entries there, and 0 at that width,
+        # in the flagship's f32 step)
+        f"attention_fwd (f32, D={F32_ATTN_XL[3]})": (
+            "attention_fwd.cu", "flash_attention_kernel.py:985",
+            "xl-f32-grad", "smx_attention_fwd"),
+        f"attention_dropout_fwd (f32, D={F32_ATTN_XL[3]})": (
+            "attention_fwd.cu", "flash_attention_kernel.py:727", "f32-train",
+            "smx_attention_dropout_fwd"),
         f"attention_bwd (f32, D={F32_ATTN_XL[3]})": (
             "attention_bwd.cu", "flash_attention_kernel.py:378",
             "xl-f32-grad", "smx_attention_bwd"),

@@ -1119,15 +1119,6 @@ __device__ __forceinline__ uint32_t parity_of(int n) {
   return (uint32_t)(n / F32<DP>::SLOTS) & 1u;
 }
 
-// The tf32 halves of an f32 operand v: the tensor cores read the top 19
-// bits of each element, so v itself serves as its hi half, trunc(v), and
-// lo = tf32(v - trunc(v)) (exact before its rounding, which tf32_rna does
-// in one instruction): a b = hi_a hi_b + hi_a lo_b + lo_a hi_b within
-// about 2^-20 |a||b|, the term lo_a lo_b left out.
-__device__ __forceinline__ float tf32_lo(float v) {
-  return hw::tf32_rna(v - __uint_as_float(__float_as_uint(v) & 0xFFFFE000u));
-}
-
 // The split, in place, of one streamed slab's stage as TMA wrote it at hi
 // (SR rows of NB swizzled boxes): the lo half of each element at hi + NAT.
 // With T the head's columns 64 half .. + 63 also go, hi and lo, to the
@@ -1149,8 +1140,8 @@ __device__ __forceinline__ void split_stage(uint8_t* hi, uint8_t* t_hi,
                    (((ch % 8) ^ (r % 8)) << 4);
     const float4 v = *reinterpret_cast<const float4*>(hi + at);
     const float h[4] = {v.x, v.y, v.z, v.w};
-    const float l[4] = {tf32_lo(v.x), tf32_lo(v.y), tf32_lo(v.z),
-                        tf32_lo(v.w)};
+    const float l[4] = {hw::tf32_lo(v.x), hw::tf32_lo(v.y),
+                        hw::tf32_lo(v.z), hw::tf32_lo(v.w)};
     *reinterpret_cast<float4*>(hi + G::NAT + at) =
         make_float4(l[0], l[1], l[2], l[3]);
     if constexpr (T) {
@@ -1168,23 +1159,6 @@ __device__ __forceinline__ void split_stage(uint8_t* hi, uint8_t* t_hi,
     }
   }
 }
-
-template <int A, int B>
-__device__ __forceinline__ void fence_regs2(uint32_t (&x)[A][B]) {
-#pragma unroll
-  for (int i = 0; i < A; ++i) hw::fence_regs(x[i]);
-}
-
-
-template <int DP>
-__device__ __forceinline__ void split_own(uint8_t* hi, int tid) {
-  for (int at = tid * 16; at < F32<DP>::OWN; at += WG * 16) {
-    const float4 v = *reinterpret_cast<const float4*>(hi + at);
-    *reinterpret_cast<float4*>(hi + F32<DP>::OWN + at) = make_float4(
-        tf32_lo(v.x), tf32_lo(v.y), tf32_lo(v.z), tf32_lo(v.w));
-  }
-}
-
 
 // x (64 x SR) = A B^T over the head's DP / 8 k8 slices: A the block's own
 // 64 rows (hi tile at a, lo at a + OWN), B a stage's SR rows (hi at b, lo
@@ -1235,23 +1209,6 @@ __device__ __forceinline__ void product_rs(float (&x)[32],
     }
     hw::wgmma_m64n64k8_tf32_rs(x, xh[j], bl, 1);
     hw::wgmma_m64n64k8_tf32_rs(x, xh[j], bh, 1);
-  }
-}
-
-// x, a 64 x SR accumulator (element 4 j + 2 i + c at column 8 j + 2 (t % 4)
-// + c), as the tf32 halves (tf32_lo) of the A fragments of its SR / 8 k8
-// slices: elements 4 j, 4 j + 2, 4 j + 1, 4 j + 3 (wgmma_m64n64k8_tf32_rs)
-__device__ __forceinline__ void to_fragments(const float (&x)[SR / 2],
-                                             uint32_t (&xh)[SR / 8][4],
-                                             uint32_t (&xl)[SR / 8][4]) {
-#pragma unroll
-  for (int j = 0; j < SR / 8; ++j) {
-    const float v[4] = {x[4 * j], x[4 * j + 2], x[4 * j + 1], x[4 * j + 3]};
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      xh[j][e] = __float_as_uint(v[e]);
-      xl[j][e] = __float_as_uint(tf32_lo(v[e]));
-    }
   }
 }
 
@@ -1396,8 +1353,8 @@ __device__ __forceinline__ void produce_f32(const F32Args& p, uint8_t* own,
     load(0);
   }
   hw::mbar_wait(&bars->own_full, 0);
-  split_own<DP>(own, tid);
-  split_own<DP>(own + 2 * G::OWN, tid);
+  hw::split_lo(own, G::OWN, tid, WG);
+  hw::split_lo(own + 2 * G::OWN, G::OWN, tid, WG);
   hw::fence_async_smem();
   hw::mbar_arrive(&bars->own_ready);
   for (int n = 0; n < tiles; ++n) {
@@ -1557,8 +1514,8 @@ __device__ __forceinline__ void dkdv_consume(const F32Args& p,
           if constexpr (S) sa[e] *= m;
         }
       }
-    if constexpr (S) to_fragments(sa, ph, pl);
-    if constexpr (D) to_fragments(dpa, dh, dl);
+    if constexpr (S) hw::to_fragments(sa, ph, pl);
+    if constexpr (D) hw::to_fragments(dpa, dh, dl);
     hw::wgmma_fence();
     if constexpr (S) product_rs(dv_part, ph, pl, gt_hi, TR);  // (p m)^T g
     if constexpr (D) product_rs(dk_part, dh, dl, qt_hi, TR);  // ds^T q
@@ -1566,13 +1523,13 @@ __device__ __forceinline__ void dkdv_consume(const F32Args& p,
     // the stage's partials into the sums; the slot is free of this role
     hw::wgmma_wait<0>();
     if constexpr (S) {
-      fence_regs2(ph);
-      fence_regs2(pl);
+      hw::fence_regs(ph);
+      hw::fence_regs(pl);
       hw::promote_acc(dv_acc, dv_part);
     }
     if constexpr (D) {
-      fence_regs2(dh);
-      fence_regs2(dl);
+      hw::fence_regs(dh);
+      hw::fence_regs(dl);
       hw::promote_acc(dk_acc, dk_part);
     }
     hw::mbar_arrive(&bars->empty[w]);
@@ -1744,13 +1701,13 @@ __device__ __forceinline__ void dq_consume(const F32Args& p,
                                  : 1.0f;
             dpa[e] = sa[e] * (dpa[e] * m - delta[i]);
           }
-      to_fragments(dpa, dh, dl);
+      hw::to_fragments(dpa, dh, dl);
       hw::wgmma_fence();
       product_rs(dq_part, dh, dl, kt_hi, G::TR);  // dq += ds k
       hw::wgmma_commit();
       hw::wgmma_wait<0>();
-      fence_regs2(dh);
-      fence_regs2(dl);
+      hw::fence_regs(dh);
+      hw::fence_regs(dl);
       hw::promote_acc(dq_acc, dq_part);
       hw::mbar_arrive(&bars->empty[w]);
     }

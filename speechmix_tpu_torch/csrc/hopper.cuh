@@ -533,6 +533,29 @@ __device__ __forceinline__ void wgmma_m64n32k8_tf32_zero(float (&d)[16],
       : "l"(da), "l"(db));
 }
 
+// m64n64k8 with d an output only (as wgmma_m64n32k8_tf32_zero)
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_zero(float (&d)[32],
+                                                        uint64_t da,
+                                                        uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, 0, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1;\n"
+      "}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]),
+        "=f"(d[5]), "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]),
+        "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]),
+        "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]),
+        "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]),
+        "=f"(d[30]), "=f"(d[31])
+      : "l"(da), "l"(db));
+}
+
 template <int N>
 __device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], uint64_t da,
                                            uint64_t db, int accumulate) {
@@ -632,6 +655,54 @@ __device__ __forceinline__ float tf32_rna(float v) {
   uint32_t u;
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(u) : "f"(v));
   return __uint_as_float(u);
+}
+
+// The tf32 halves of an f32 operand v: the tensor cores read the top 19
+// bits of each element, so v itself serves as its hi half, trunc(v), and
+// lo = tf32(v - trunc(v)) (exact before its rounding, which tf32_rna does
+// in one instruction): a b = hi_a hi_b + hi_a lo_b + lo_a hi_b within
+// about 2^-20 |a||b|, the term lo_a lo_b left out.
+__device__ __forceinline__ float tf32_lo(float v) {
+  return tf32_rna(v - __uint_as_float(__float_as_uint(v) & 0xFFFFE000u));
+}
+
+// The lo halves (tf32_lo) of the `bytes` of a tile that TMA wrote at hi,
+// to the same offsets from hi + bytes, so that one descriptor offset
+// serves both; thread t of n takes every n-th 16-byte word
+__device__ __forceinline__ void split_lo(uint8_t* hi, int bytes, int t,
+                                         int n) {
+  for (int at = t * 16; at < bytes; at += n * 16) {
+    const float4 v = *reinterpret_cast<const float4*>(hi + at);
+    *reinterpret_cast<float4*>(hi + bytes + at) = make_float4(
+        tf32_lo(v.x), tf32_lo(v.y), tf32_lo(v.z), tf32_lo(v.w));
+  }
+}
+
+// x, a 64 x 8 NJ accumulator (element 4 j + 2 i + c at column 8 j + 2 (t
+// % 4) + c), as the tf32 halves (v itself, tf32_lo) of the A fragments of
+// its NJ k8 slices: elements 4 j, 4 j + 2, 4 j + 1, 4 j + 3
+// (wgmma_m64n64k8_tf32_rs), so the B tile's k rows of each 8 lie in the
+// order 0, 2, 4, 6, 1, 3, 5, 7
+template <int NJ>
+__device__ __forceinline__ void to_fragments(const float (&x)[4 * NJ],
+                                             uint32_t (&xh)[NJ][4],
+                                             uint32_t (&xl)[NJ][4]) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const float v[4] = {x[4 * j], x[4 * j + 2], x[4 * j + 1], x[4 * j + 3]};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      xh[j][e] = __float_as_uint(v[e]);
+      xl[j][e] = __float_as_uint(tf32_lo(v[e]));
+    }
+  }
+}
+
+// fence_regs over the slices of to_fragments' halves
+template <int A, int B>
+__device__ __forceinline__ void fence_regs(uint32_t (&x)[A][B]) {
+#pragma unroll
+  for (int i = 0; i < A; ++i) fence_regs(x[i]);
 }
 
 // The three-product split of f32 operands: each element v of a tile that

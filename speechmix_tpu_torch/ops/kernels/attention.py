@@ -208,8 +208,8 @@ def attention_fwd(q, k, v, kv_mask, heads, scale, causal=False,
     """Masked MHA forward on (B, T, H*D) slabs; see attention_fwd_plain.
     CPU tensors take the plain version; CUDA tensors launch the kernel, which
     requires a head_dim that is a multiple of 8 in [8, 128] (check_head_dim),
-    float32 or bfloat16, contiguous inputs, and for bfloat16 q, k, v 16-byte
-    aligned."""
+    float32 or bfloat16, contiguous inputs, and q, k, v 16-byte aligned (the
+    TMA reads them, in either dtype); anything else raises."""
     if q.device.type == "cpu":
         return attention_fwd_plain(q, k, v, kv_mask, heads, scale, causal,
                                    return_lse)
@@ -238,9 +238,8 @@ def _fwd_launch(kernel, what, q, k, v, kv_mask, heads, scale, causal,
     b, tq, hd = q.shape
     tk = k.shape[1]
     kv_mask, code = _check_slabs(what, q, k, v, kv_mask, heads)
-    if q.dtype == torch.bfloat16:
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            check_aligned(name, t, 16)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        check_aligned(name, t, 16)
     out = torch.empty_like(q)
     lse = (torch.empty((b, heads, tq), dtype=torch.float32, device=q.device)
            if return_lse else None)
