@@ -1,0 +1,7 @@
+"""transcribe_audio_s_per_s: valid audio seconds transcribed over the whole
+window (host clock)."""
+from benchmark import readers
+
+
+def read(run):
+    return readers.audio_s_per_s(run)
