@@ -1,0 +1,8 @@
+"""forward_ms.train_bf16: host ms a traced train step spends in the forward of
+its micro-batches (the span train_step.forward), the mean over the traced
+steps (host clock)."""
+from benchmark import spans
+
+
+def read(run):
+    return spans.per_call_ms(run, "train_step.forward")

@@ -1,0 +1,8 @@
+"""optimizer_ms.train: host ms a traced train step spends in the optimizer
+update (the span train_step.optimizer), the mean over the traced steps (host
+clock)."""
+from benchmark import spans
+
+
+def read(run):
+    return spans.per_call_ms(run, "train_step.optimizer")

@@ -41,10 +41,19 @@ from .models import seq2seq
 from .models import speechmix as smx
 from .ops.kernels._cuda import resolve_device
 from .ops.kernels.beam_gather import beam_gather
+from .utils import profiling
 
 # steps between a greedy step and the read of its all-finished flag
 _EARLY_STOP_LAG = 2
 _NEG_INF = float("-inf")
+
+
+def _steps(n):
+    """range(n) for a decode loop: each step inside a ``decode.step``
+    span."""
+    for t in range(n):
+        with profiling.annotate("decode.step"):
+            yield t
 
 
 def _to_device(tree, device):
@@ -354,7 +363,7 @@ def greedy_decode(params, dcfg, enc_hidden, enc_mask, max_length,
                                  pin_memory=on_card)
         done_events = []
     scores = []
-    for t in range(max_length):
+    for t in _steps(max_length):
         if early_stop and t >= _EARLY_STOP_LAG:
             seen = t - _EARLY_STOP_LAG
             if on_card:
@@ -631,7 +640,7 @@ def beam_search(params, dcfg, enc_hidden, enc_mask, max_length, num_beams=4,
     )
     top_half = (torch.arange(k2, device=loop.device) < k)[None, :]
 
-    for s in range(s_max):
+    for s in _steps(s_max):
         c = state
         active = loop.active(c)
         logp = loop.process(loop.step_logp(), s, c["running_seqs"])
@@ -727,7 +736,7 @@ def group_beam_search(params, dcfg, enc_hidden, enc_mask, max_length,
     )
     top_half = (torch.arange(k2g, device=dev) < kg)[None, :]
 
-    for s in range(s_max):
+    for s in _steps(s_max):
         c = state
         active = loop.active(c)
         logp_all = loop.step_logp()
@@ -1054,7 +1063,7 @@ def constrained_beam_search(params, dcfg, enc_hidden, enc_mask, max_length,
     plain_idx = torch.arange(k, device=dev)[None].expand(b, k)
     after = n_cand + torch.arange(n_cand, device=dev)[None, :]
 
-    for s in range(s_max):
+    for s in _steps(s_max):
         c = state
         st = {name: c["st_" + name] for name in st0}
         active = loop.active(c)
@@ -1200,91 +1209,99 @@ def generate(params, cfg: SpeechMixConfig, input_values, lengths=None,
     encoder_input_ids warns and has no effect (the encoder input is a
     waveform).  Which modes read values back to the host: see the module
     docstring."""
-    if max_new_tokens is not None:
-        max_length = max_new_tokens
-    max_length = max_length or cfg.decoder.max_length
-    if force_words_ids is not None:
-        if do_sample:
-            raise ValueError("`force_words_ids` is incompatible with "
-                             "sampling (HF generate contract)")
-        if num_beam_groups > 1:
-            raise ValueError("`force_words_ids` is incompatible with group "
-                             "beam search (HF generate contract)")
-    if encoder_no_repeat_ngram_size > 0 and encoder_input_ids is None:
-        warnings.warn(
-            "encoder_no_repeat_ngram_size with a waveform encoder input is "
-            "a no-op (the reference's HF generate builds float ngrams that "
-            "never match token lookups); pass encoder_input_ids for a "
-            "functional ban", UserWarning, stacklevel=2)
-    if num_beam_groups > 1 and num_beam_groups > num_beams:
-        raise ValueError(
-            f"num_beam_groups ({num_beam_groups}) has to be smaller or "
-            f"equal to num_beams ({num_beams}) (HF generate contract)")
-    device = resolve_device(device)
-    params = _to_device(params, device)
-    input_values = torch.as_tensor(input_values).to(device)
-    if lengths is not None:
-        lengths = torch.as_tensor(lengths).to(device)
-    if prompt_ids is not None:
-        prompt_ids = torch.as_tensor(prompt_ids).to(device)
-    if encoder_input_ids is not None:
-        encoder_input_ids = torch.as_tensor(encoder_input_ids).to(
-            device=device, dtype=torch.long)
-    inputs_embeds, enc_mask = smx.encode_speech(
-        params, cfg, input_values, lengths, prompt_ids, dtype)
-    adapters = params["adapters"] if cfg.variant == "adapter" else None
-    if cfg.variant == "ed":
-        # the decoder cross-attends the projected speech states: no
-        # text-encoder pass (as in the training forward)
-        enc_hidden = inputs_embeds
-    else:
-        enc_hidden = seq2seq.encode(params["nlp"], cfg.decoder,
-                                    inputs_embeds=inputs_embeds,
-                                    attention_mask=enc_mask, dtype=dtype,
-                                    adapters=adapters)["last_hidden_state"]
-    lm_head = seq2seq.tied_head_operand(params["nlp"], cfg.decoder, dtype)
-    common = dict(dtype=dtype, kv_int8=kv_int8, output_scores=output_scores,
-                  lm_head=lm_head, adapters=adapters, min_length=min_length,
-                  repetition_penalty=repetition_penalty,
-                  no_repeat_ngram_size=no_repeat_ngram_size,
-                  forced_bos_token_id=forced_bos_token_id,
-                  forced_eos_token_id=forced_eos_token_id,
-                  bad_words_ids=bad_words_ids, suppress_tokens=suppress_tokens,
-                  begin_suppress_tokens=begin_suppress_tokens,
-                  encoder_no_repeat_ngram_size=encoder_no_repeat_ngram_size,
-                  encoder_input_ids=encoder_input_ids,
-                  prefix_allowed_tokens_fn=prefix_allowed_tokens_fn)
-    beams = dict(length_penalty=length_penalty, early_stopping=early_stopping,
-                 num_return_sequences=num_return_sequences)
-    sampling = dict(do_sample=do_sample, temperature=temperature,
-                    top_k=top_k, top_p=top_p, typical_p=typical_p, rng=rng)
-    nlp, dcfg = params["nlp"], cfg.decoder
-    if force_words_ids is not None:
-        return constrained_beam_search(nlp, dcfg, enc_hidden, enc_mask,
-                                       max_length, force_words_ids,
-                                       num_beams=num_beams, **beams, **common)
-    if num_beams <= 1:
-        if num_return_sequences > 1:
-            if not do_sample:
-                raise ValueError(
-                    "num_return_sequences > 1 requires num_beams > 1 or "
-                    "do_sample=True (HF greedy contract)")
-            # each input tiled num_return_sequences times, drawn apart
-            tile = lambda x: x.repeat_interleave(  # noqa: E731
-                num_return_sequences, dim=0)
-            enc_hidden, enc_mask = tile(enc_hidden), tile(enc_mask)
-            if encoder_input_ids is not None:
-                common["encoder_input_ids"] = tile(encoder_input_ids)
-        return greedy_decode(nlp, dcfg, enc_hidden, enc_mask, max_length,
-                             early_stop=early_stop, **sampling, **common)
-    if num_beam_groups > 1:
-        if do_sample:
-            raise ValueError("diverse beam search (num_beam_groups > 1) "
-                             "does not support sampling (HF constraint)")
-        return group_beam_search(nlp, dcfg, enc_hidden, enc_mask, max_length,
-                                 num_beams=num_beams,
-                                 num_beam_groups=num_beam_groups,
-                                 diversity_penalty=diversity_penalty,
-                                 **beams, **common)
-    return beam_search(nlp, dcfg, enc_hidden, enc_mask, max_length,
-                       num_beams=num_beams, **beams, **sampling, **common)
+    with profiling.annotate("generate", root=True):
+        if max_new_tokens is not None:
+            max_length = max_new_tokens
+        max_length = max_length or cfg.decoder.max_length
+        if force_words_ids is not None:
+            if do_sample:
+                raise ValueError("`force_words_ids` is incompatible with "
+                                 "sampling (HF generate contract)")
+            if num_beam_groups > 1:
+                raise ValueError("`force_words_ids` is incompatible with "
+                                 "group beam search (HF generate contract)")
+        if encoder_no_repeat_ngram_size > 0 and encoder_input_ids is None:
+            warnings.warn(
+                "encoder_no_repeat_ngram_size with a waveform encoder input "
+                "is a no-op (the reference's HF generate builds float ngrams "
+                "that never match token lookups); pass encoder_input_ids for "
+                "a functional ban", UserWarning, stacklevel=2)
+        if num_beam_groups > 1 and num_beam_groups > num_beams:
+            raise ValueError(
+                f"num_beam_groups ({num_beam_groups}) has to be smaller or "
+                f"equal to num_beams ({num_beams}) (HF generate contract)")
+        device = resolve_device(device)
+        params = _to_device(params, device)
+        input_values = torch.as_tensor(input_values).to(device)
+        if lengths is not None:
+            lengths = torch.as_tensor(lengths).to(device)
+        if prompt_ids is not None:
+            prompt_ids = torch.as_tensor(prompt_ids).to(device)
+        if encoder_input_ids is not None:
+            encoder_input_ids = torch.as_tensor(encoder_input_ids).to(
+                device=device, dtype=torch.long)
+        with profiling.annotate("generate.encode_speech"):
+            inputs_embeds, enc_mask = smx.encode_speech(
+                params, cfg, input_values, lengths, prompt_ids, dtype)
+        adapters = params["adapters"] if cfg.variant == "adapter" else None
+        if cfg.variant == "ed":
+            # the decoder cross-attends the projected speech states: no
+            # text-encoder pass (as in the training forward)
+            enc_hidden = inputs_embeds
+        else:
+            with profiling.annotate("generate.text_encode"):
+                enc_hidden = seq2seq.encode(
+                    params["nlp"], cfg.decoder, inputs_embeds=inputs_embeds,
+                    attention_mask=enc_mask, dtype=dtype,
+                    adapters=adapters)["last_hidden_state"]
+        lm_head = seq2seq.tied_head_operand(params["nlp"], cfg.decoder, dtype)
+        common = dict(
+            dtype=dtype, kv_int8=kv_int8, output_scores=output_scores,
+            lm_head=lm_head, adapters=adapters, min_length=min_length,
+            repetition_penalty=repetition_penalty,
+            no_repeat_ngram_size=no_repeat_ngram_size,
+            forced_bos_token_id=forced_bos_token_id,
+            forced_eos_token_id=forced_eos_token_id,
+            bad_words_ids=bad_words_ids, suppress_tokens=suppress_tokens,
+            begin_suppress_tokens=begin_suppress_tokens,
+            encoder_no_repeat_ngram_size=encoder_no_repeat_ngram_size,
+            encoder_input_ids=encoder_input_ids,
+            prefix_allowed_tokens_fn=prefix_allowed_tokens_fn)
+        beams = dict(length_penalty=length_penalty,
+                     early_stopping=early_stopping,
+                     num_return_sequences=num_return_sequences)
+        sampling = dict(do_sample=do_sample, temperature=temperature,
+                        top_k=top_k, top_p=top_p, typical_p=typical_p, rng=rng)
+        nlp, dcfg = params["nlp"], cfg.decoder
+        with profiling.annotate("generate.decode"):
+            if force_words_ids is not None:
+                return constrained_beam_search(
+                    nlp, dcfg, enc_hidden, enc_mask, max_length,
+                    force_words_ids, num_beams=num_beams, **beams, **common)
+            if num_beams <= 1:
+                if num_return_sequences > 1:
+                    if not do_sample:
+                        raise ValueError(
+                            "num_return_sequences > 1 requires num_beams > 1 "
+                            "or do_sample=True (HF greedy contract)")
+                    # each input tiled num_return_sequences times, drawn apart
+                    tile = lambda x: x.repeat_interleave(  # noqa: E731
+                        num_return_sequences, dim=0)
+                    enc_hidden, enc_mask = tile(enc_hidden), tile(enc_mask)
+                    if encoder_input_ids is not None:
+                        common["encoder_input_ids"] = tile(encoder_input_ids)
+                return greedy_decode(nlp, dcfg, enc_hidden, enc_mask,
+                                     max_length, early_stop=early_stop,
+                                     **sampling, **common)
+            if num_beam_groups > 1:
+                if do_sample:
+                    raise ValueError(
+                        "diverse beam search (num_beam_groups > 1) does not "
+                        "support sampling (HF constraint)")
+                return group_beam_search(
+                    nlp, dcfg, enc_hidden, enc_mask, max_length,
+                    num_beams=num_beams, num_beam_groups=num_beam_groups,
+                    diversity_penalty=diversity_penalty, **beams, **common)
+            return beam_search(nlp, dcfg, enc_hidden, enc_mask, max_length,
+                               num_beams=num_beams, **beams, **sampling,
+                               **common)

@@ -47,6 +47,7 @@ from ..ops.masking import length_mask
 from ..ops.ring_attention import pad_time
 from ..parallel import collectives
 from ..parallel import mesh as mesh_lib
+from ..utils import profiling
 from .init import conv_params, dense_params, layer_norm_params
 
 
@@ -283,8 +284,9 @@ def speech_encoder_apply(params, cfg: SpeechEncoderConfig, waveform,
         return collectives.gather_time(x, seq)[:, :t_full]
     for layer_params, key, skip in zip(params["layers"], layer_keys, skips):
         if not skip:
-            h = layers.remat(cfg.remat, _encoder_layer, layer_params, h,
-                             kv_mask, cfg, dtype, key, seq)
+            with profiling.annotate("speech_encoder.layer"):
+                h = layers.remat(cfg.remat, _encoder_layer, layer_params, h,
+                                 kv_mask, cfg, dtype, key, seq)
         if hidden is not None:
             hidden.append(whole(h))
     h = hidden[-1] if hidden is not None else whole(h)

@@ -10,7 +10,8 @@ this module needs no ``nvcc`` and no card.
 
 A launcher returns the ``cudaError_t`` of ``cudaGetLastError()`` right
 after its launch; ``CudaKernel.launch`` raises if it is not 0 and counts
-only launches that were accepted.
+only launches that were accepted.  Each launch is a ``launch.<symbol>``
+span (``utils.profiling``).
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+from ...utils import profiling
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -104,6 +107,7 @@ class CudaKernel:
         # the stream is always the last argument
         self.argtypes = list(argtypes) + [ctypes.c_void_p]
         self.launches = 0
+        self.span = "launch." + symbol
         self._fn = None
         _REGISTRY.append(self)
 
@@ -119,7 +123,8 @@ class CudaKernel:
     def launch(self, *args):
         import torch
         fn = self._fn or self._load()
-        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+        with profiling.annotate(self.span):
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"{self.symbol}: CUDA launch failed with "
                                f"cudaError_t {err}")

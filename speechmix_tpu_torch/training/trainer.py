@@ -62,6 +62,7 @@ from ..ops.kernels._cuda import resolve_device
 from ..ops.kernels.dropout import DropoutKey
 from ..parallel import collectives
 from ..parallel import mesh as mesh_lib
+from ..utils import profiling
 from ..utils import watchdog as watchdog_lib
 from . import freezing
 from . import sharded
@@ -427,27 +428,33 @@ def make_train_step(cfg: SpeechMixConfig, tc: TrainConfig, params_example,
         if "example_mask" in micro:
             labels = torch.where(micro["example_mask"][:, None].bool(),
                                  labels, -100)
-        out = smx.speechmix_forward(
-            params, cfg, micro["input_values"], lengths=micro.get("lengths"),
-            labels=labels, prompt_ids=micro.get("prompt_ids"), dtype=dtype,
-            dropout_rng=key, text_input_ids=micro.get("text_input_ids"),
-            text_mask=micro.get("text_mask"))
-        return out
+        with profiling.annotate("train_step.forward"):
+            return smx.speechmix_forward(
+                params, cfg, micro["input_values"],
+                lengths=micro.get("lengths"), labels=labels,
+                prompt_ids=micro.get("prompt_ids"), dtype=dtype,
+                dropout_rng=key, text_input_ids=micro.get("text_input_ids"),
+                text_mask=micro.get("text_mask"))
 
     def gradients(state: TrainState, batch, unfreeze_progress=0.0):
         """(grads, grad_norm, metrics) of the step without the update: the
         masked gradients averaged over the micro-batches (over a mesh
         summed over their groups: this rank's shares of the whole tree's),
         their global norm, and the metrics without grad_norm."""
-        batch = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
-        mask = step_mask(state.params, state.step, unfreeze_progress)
-        leaves = tree_map(
-            lambda p, m: p.detach().requires_grad_(m > 0), state.params,
-            mask)
-        wanted = [(path, leaf) for path, leaf in tree_paths(leaves)
-                  if leaf.requires_grad]
-        sums = {path: torch.zeros_like(leaf, dtype=torch.float32)
-                for path, leaf in wanted}
+        # train_step.leaves: the step's host work over every leaf outside
+        # the forward, the backward and the update, here and after the
+        # loop; thousands of host ops for a large tree while the card idles
+        with profiling.annotate("train_step.leaves"):
+            batch = {k: torch.as_tensor(v).to(device)
+                     for k, v in batch.items()}
+            mask = step_mask(state.params, state.step, unfreeze_progress)
+            leaves = tree_map(
+                lambda p, m: p.detach().requires_grad_(m > 0), state.params,
+                mask)
+            wanted = [(path, leaf) for path, leaf in tree_paths(leaves)
+                      if leaf.requires_grad]
+            sums = {path: torch.zeros_like(leaf, dtype=torch.float32)
+                    for path, leaf in wanted}
         terms = {}
         skipped = []
         # the mesh stays active through the backward: a rematerialised
@@ -460,44 +467,52 @@ def make_train_step(cfg: SpeechMixConfig, tc: TrainConfig, params_example,
                 out = micro_forward(leaves, micro, key)
                 skipped.append(out["layers_skipped"])
                 if wanted and out["loss"].requires_grad:
-                    grads = torch.autograd.grad(
-                        out["loss"], [leaf for _, leaf in wanted],
-                        allow_unused=True)
-                    for (path, _), g in zip(wanted, grads):
-                        if g is not None:
-                            sums[path] += g
+                    with profiling.annotate("train_step.backward"):
+                        grads = torch.autograd.grad(
+                            out["loss"], [leaf for _, leaf in wanted],
+                            allow_unused=True)
+                        for (path, _), g in zip(wanted, grads):
+                            if g is not None:
+                                sums[path] += g
                 for name, value in out.items():
                     if name == "loss" or name.endswith("_loss"):
                         terms[name] = (terms.get(name, 0.0)
                                        + value.detach().float())
         # the masks are 0.0 or 1.0 per leaf: a frozen leaf's masked gradient
         # is the zero it gets here, a trained leaf's its own
-        if layout is not None:
-            sums = tree_map_with_path(
-                lambda path, p: sums.get(path, torch.zeros_like(
-                    p, dtype=torch.float32)), state.params)
-            sharded.reduce_gradients(sums, layout)
-            grads = tree_map(lambda g: g / accum, sums)
-            grad_norm = sharded.global_norm(grads, layout)
-            terms = {name: collectives.all_reduce(
-                value.clone(), mesh.group(mesh_lib.DATA_AXIS))
-                for name, value in terms.items()}
-        else:
-            grads = tree_map_with_path(
-                lambda path, p: (sums[path] / accum if path in sums else
-                                 torch.zeros_like(p, dtype=torch.float32)),
-                state.params)
-            grad_norm = global_norm(grads)
+        with profiling.annotate("train_step.leaves"):
+            if layout is not None:
+                sums = tree_map_with_path(
+                    lambda path, p: sums.get(path, torch.zeros_like(
+                        p, dtype=torch.float32)), state.params)
+                sharded.reduce_gradients(sums, layout)
+                grads = tree_map(lambda g: g / accum, sums)
+                grad_norm = sharded.global_norm(grads, layout)
+                terms = {name: collectives.all_reduce(
+                    value.clone(), mesh.group(mesh_lib.DATA_AXIS))
+                    for name, value in terms.items()}
+            else:
+                grads = tree_map_with_path(
+                    lambda path, p: (sums[path] / accum if path in sums else
+                                     torch.zeros_like(p, dtype=torch.float32)),
+                    state.params)
+                grad_norm = global_norm(grads)
+            # released inside the span: thousands of tensors, milliseconds
+            # of host time while the card idles
+            del sums, leaves, wanted, out
         metrics = {**{name: value / accum for name, value in terms.items()},
                    "layers_skipped": skipped}
         return grads, grad_norm, metrics
 
     def step_fn(state: TrainState, batch, unfreeze_progress=0.0):
-        grads, grad_norm, metrics = gradients(state, batch, unfreeze_progress)
-        opt_state = optimizer.update_(state.params, grads, state.opt_state,
-                                      grad_norm)
-        if layout is not None:
-            sharded.broadcast_updates(state.params, layout)
+        with profiling.annotate("train_step", root=True):
+            grads, grad_norm, metrics = gradients(state, batch,
+                                                  unfreeze_progress)
+            with profiling.annotate("train_step.optimizer"):
+                opt_state = optimizer.update_(state.params, grads,
+                                              state.opt_state, grad_norm)
+                if layout is not None:
+                    sharded.broadcast_updates(state.params, layout)
         metrics = {**metrics, "grad_norm": grad_norm}
         return TrainState(state.params, opt_state, state.step + 1), metrics
 
