@@ -15,7 +15,11 @@ Phases, each printing as it goes; any failure exits non-zero:
      decoder's four shapes, at T = 1500 and on edge-mask rows; timed beside
      its serial body), K5 beam_gather, K6 conv_ln_gelu (in bf16 also against
      fused_conv_layer_tiled_plain and twice, bit for bit, at the six
-     extractor layers), K7 attention_bwd (also
+     extractor layers; its backward, conv_bwd.cu's three passes, at the six
+     layers of the flagship in f32 and of XLS-R 1B in bf16 with bias and
+     LayerNorm, B = 16, against the library gradient and twice bit for bit,
+     each pass timed beside cuDNN's, then the whole stack's backward through
+     autograd), K7 attention_bwd (also
      against attention_bwd_tiled_plain, its tiles in plain PyTorch), K8 ffn_bwd
      (bf16: its recompute pass and its TMA + wgmma products, the products
      also alone against reference products, at H = 256, 512, 768, 1024 and
@@ -582,6 +586,7 @@ def check_kernels(gen, dev):
     check_decode_attention(randn, dev, records)
     check_beam_gather(randn, gen, dev, records)
     check_conv(randn, dev, records)
+    check_conv_backward(randn, dev, records)
     check_train_kernels(randn, dev, records)
     check_trainable_functions(randn, dev)
     check_dropout_kernels(randn, dev, records)
@@ -1008,6 +1013,269 @@ def conv_record(records, layer, x, w, bias, err):
         records["conv_ln_gelu"] = rec
     else:
         records[f"conv_ln_gelu (layer {layer})"] = dict(rec, t_in=t_in)
+
+
+# K6's backward (conv_bwd.cu) against the library gradient in float64
+# (library_conv_grads), each gradient's largest error over its largest
+# magnitude.  float32: three tf32 products an f32 product (about 2^-21
+# relative each), f32 sums over fixed row ranges of ~37k rows, 2e-5 as the
+# CPU tests' limit; bfloat16: gz and dx rounded once to bf16 (2^-9) before
+# the products that read them, 1e-2
+CONV_BWD_TOL = {"float32": 2e-5, "bfloat16": 1e-2}
+CONV_BWD = ("smx_conv_bwd_act", "smx_conv_bwd_data", "smx_conv_bwd_weight")
+CONV_BWD_NAMES = ("dx", "dkernel", "dbias", "dscale", "dbeta")
+# the widths and layouts K6's backward takes, small: (dtype, C, k,
+# LayerNorm, bias, B, T_in).  C 32 / 64: one block of 64 columns; 96, 256,
+# 512, 1024: clusters of one to eight blocks of 128; 36 and 100: padded to
+# 40 and 104 zero channels, the LayerNorm over C; T_out 131, 100, 81 and
+# 149 end in a ragged row tile
+CONV_BWD_CASES = (
+    ("float32", 32, 3, True, True, 2, 263),
+    ("float32", 32, 2, False, False, 2, 262),
+    ("bfloat16", 32, 2, False, True, 2, 262),
+    ("bfloat16", 64, 3, True, False, 2, 263),
+    ("float32", 64, 2, False, True, 2, 200),
+    ("float32", 96, 3, True, True, 3, 201),
+    ("bfloat16", 96, 2, True, True, 3, 200),
+    ("float32", 256, 3, True, True, 2, 301),
+    ("float32", 512, 3, False, False, 2, 301),
+    ("float32", 512, 2, False, False, 2, 300),
+    ("bfloat16", 512, 3, True, True, 2, 301),
+    ("bfloat16", 512, 2, True, True, 2, 300),
+    ("bfloat16", 1024, 3, True, True, 2, 161),
+    ("float32", 1024, 2, False, False, 2, 160),
+    ("float32", 36, 3, True, True, 2, 263),
+    ("bfloat16", 36, 2, False, True, 2, 262),
+    ("bfloat16", 100, 2, True, False, 2, 200),
+    ("float32", 100, 3, False, True, 2, 201),
+)
+
+
+def check_conv_backward_widths(randn):
+    """K6's backward at CONV_BWD_CASES: each gradient against
+    conv_layer_backward_tiled_plain (the kernels' tiles, stages and row
+    ranges, f32 products with TF32 off) at CONV_BWD_TOL of its largest
+    magnitude, and two calls bit for bit."""
+    import torch
+    from speechmix_tpu_torch.ops.kernels import conv_extractor as kc
+    for dname, c, k, ln, bias, b, t_in in CONV_BWD_CASES:
+        dtype = getattr(torch, dname)
+        tol = CONV_BWD_TOL[dname]
+        x = randn(b, t_in, c, dtype=dtype)
+        w = randn(c, c, k, scale=(k * c) ** -0.5)
+        bv = randn(c, scale=0.1) if bias else None
+        norm = ({"scale": 1.0 + randn(c, scale=0.1),
+                 "bias": randn(c, scale=0.1)} if ln else None)
+        dout = randn(b, (t_in - k) // 2 + 1, c, dtype=dtype)
+        needs = (True, True, bias, ln, ln)
+        got = kc.conv_layer_backward(x, w, bv, norm, 1e-5, dout, needs)
+        ref = kc.conv_layer_backward_tiled_plain(x, w.to(dtype), bv, norm,
+                                                 1e-5, dout, needs)
+        what = (f"K6 backward B={b} T_in={t_in} C={c} k={k} {dname} "
+                f"LayerNorm={ln} bias={bias}")
+        for name, g, r in zip(CONV_BWD_NAMES, got, ref):
+            if r is not None:
+                compare(f"{what} {name} vs tiled", g, r,
+                        tol * r.float().abs().max(), f"{tol} x max |ref|")
+        expect_equal(what, [g for g in got if g is not None],
+                     [g for g in kc.conv_layer_backward(
+                         x, w, bv, norm, 1e-5, dout, needs)
+                      if g is not None])
+
+
+def check_conv_backward(randn, dev, records):
+    """K6's backward, its three passes (conv_bwd.cu): first at every kind of
+    width and layout (check_conv_backward_widths), then at the six fused
+    extractor layers at 16 s (extractor_geometry) with B = 16: the
+    flagship's (float32, no bias, no LayerNorm) and XLS-R 1B's (bfloat16,
+    bias and LayerNorm).  Per layer dx, dkernel, dbias, dscale, dbeta
+    against the library gradient of the layer (library_conv_grads: autograd
+    in float64) and twice bit for bit; the kernel ms of each pass, the
+    plain version's and the library's (conv_bwd_record); then the whole
+    stack's backward (fused_conv_stack through autograd) against the
+    library gradient of the stack and twice bit for bit."""
+    import torch
+    from speechmix_tpu_torch.ops import kernels
+    from speechmix_tpu_torch.ops.kernels import conv_extractor as kc
+
+    log("K6 backward (conv_bwd.cu: smx_conv_bwd_act, _data, _weight)")
+    check_conv_backward_widths(randn)
+    c, b = 512, 16
+    geometry = extractor_geometry()
+    for dtype, ln, bias in ((torch.float32, False, False),
+                            (torch.bfloat16, True, True)):
+        dname = str(dtype).replace("torch.", "")
+        tol = CONV_BWD_TOL[dname]
+        layers = []
+        for layer, (t_in, k) in enumerate(geometry, start=1):
+            x = randn(b, t_in, c, dtype=dtype)
+            w = randn(c, c, k, scale=(k * c) ** -0.5)
+            bv = randn(c, scale=0.1) if bias else None
+            norm = ({"scale": 1.0 + randn(c, scale=0.1),
+                     "bias": randn(c, scale=0.1)} if ln else None)
+            layers.append((w, bv, None if norm is None else norm["scale"],
+                           None if norm is None else norm["bias"]))
+            t_out = (t_in - k) // 2 + 1
+            dout = randn(b, t_out, c, dtype=dtype)
+            needs = (True, True, bias, ln, ln)
+            got = kc.conv_layer_backward(x, w, bv, norm, 1e-5, dout, needs)
+            torch.cuda.synchronize()
+            ref = library_conv_grads(x, [layers[-1]], ln, dout)
+            what = f"layer {layer} B={b} T_in={t_in} k={k} {dname}"
+            errs = {name: compare(f"{what} {name}", g, r,
+                                  tol * r.float().abs().max(),
+                                  f"{tol} x max |ref|")
+                    for name, g, r in zip(CONV_BWD_NAMES, got, ref)
+                    if r is not None}
+            expect_equal(f"K6 backward {what}", [g for g in got
+                                                 if g is not None],
+                         [g for g in kc.conv_layer_backward(
+                             x, w, bv, norm, 1e-5, dout, needs)
+                          if g is not None])
+            del got, ref
+            conv_bwd_record(records, layer, x, w, bv, norm, dout, errs)
+            del x, dout
+            torch.cuda.empty_cache()
+        # the stack: autograd through fused_conv_stack, twice, and the
+        # library gradient of the whole chain
+        t_in, t_last = geometry[0][0], geometry[-1][0]
+        t_last = (t_last - geometry[-1][1]) // 2 + 1
+        x = randn(b, t_in, c, dtype=dtype)
+        gout = randn(b, t_last, c, dtype=dtype)
+        leaves = [None if t is None else t.clone().requires_grad_()
+                  for layer in layers for t in layer]
+        params = [{"conv": {"kernel": leaves[4 * i],
+                            **({"bias": leaves[4 * i + 1]} if bias else {})},
+                   **({"norm": {"scale": leaves[4 * i + 2],
+                                "bias": leaves[4 * i + 3]}} if ln else {})}
+                  for i in range(len(layers))]
+        xin = x.clone().requires_grad_()
+        wanted = [xin] + [t for t in leaves if t is not None]
+
+        def stack_grads():
+            kernels.reset_launch_counts()
+            y = kc.fused_conv_stack(xin, params, ln, 1e-5)
+            out = torch.autograd.grad(y, wanted, gout)
+            torch.cuda.synchronize()
+            return out, {k.symbol: k.launches for k in kernels.kernels()
+                         if k.symbol in CONV_BWD + ("smx_conv_ln_gelu",)}
+        g1, launches = stack_grads()
+        g2, _ = stack_grads()
+        want = dict.fromkeys(CONV_BWD + ("smx_conv_ln_gelu",), len(layers))
+        if launches != want:
+            raise AssertionError(f"K6 backward stack launches {launches}, "
+                                 f"expected {want}")
+        expect_equal(f"K6 backward stack {dname}", g1, g2)
+        ref = [r for r in library_conv_grads(x, layers, ln, gout)
+               if r is not None]
+        # bf16: each layer rounds gz once more than the reference, and
+        # independent roundings add in quadrature over the layers; the
+        # reading against the per-layer limit is logged beside it
+        stack_tol = tol * (len(layers) ** 0.5 if dtype == torch.bfloat16
+                           else 1.0)
+        for i, (g, r) in enumerate(zip(g1, ref)):
+            scale = r.float().abs().max()
+            ratio = float((g.float() - r.float()).abs().max() / (tol * scale))
+            log(f"  K6 backward stack {dname} gradient {i}: max err/limit "
+                f"{ratio:.3f} against the per-layer {tol}")
+            compare(f"K6 backward stack {dname} gradient {i}", g, r,
+                    stack_tol * scale, f"{stack_tol:.3g} x max |ref|")
+        log(f"  K6 backward stack {dname}: launches {launches}")
+        del g1, g2, ref, x, xin
+        torch.cuda.empty_cache()
+
+
+def library_conv_grads(x, layers, ln, dout):
+    """(dx, then per layer dkernel, dbias, dscale, dbeta; None where the
+    layer has none) of the stack's chain in float64 by autograd: library
+    convolutions, bias, LayerNorm and exact-erf GELU, each layer's output
+    rounded to x's dtype.  float64, because an f32 library sum over the
+    400k rows of layer 1 rounds by as much as the kernels' own (2^-24
+    sqrt(N / 2), ~3e-5 of the sum)."""
+    import torch
+    import torch.nn.functional as F
+    d = torch.float64
+    xf = x.to(d).requires_grad_()
+    leaves = [None if t is None else t.to(d).detach().requires_grad_()
+              for layer in layers for t in layer]
+    with torch.enable_grad():
+        y = xf
+        for kernel, bias, scale, beta in zip(*[iter(leaves)] * 4):
+            z = F.conv1d(y.transpose(1, 2), kernel, None,
+                         stride=2).transpose(1, 2)
+            if bias is not None:
+                z = z + bias
+            if ln:
+                z = F.layer_norm(z, (z.shape[-1],), scale, beta, 1e-5)
+            # each layer's output rounded to x's dtype, as the port and the
+            # JAX package store it (its gradient passes through unchanged)
+            y = F.gelu(z).to(x.dtype).to(d)
+        wanted = [xf] + [t for t in leaves if t is not None]
+        got = iter(torch.autograd.grad(y, wanted, dout.to(d)))
+    dx = next(got)
+    return [dx] + [None if t is None else next(got) for t in leaves]
+
+
+def conv_bwd_record(records, layer, x, w, bias, norm, dout, errs):
+    """The timed records of K6's backward at one layer: each pass's kernel
+    ms, its plain version's (conv_bwd_act_plain, _data_plain,
+    _weight_plain: library calls in float32) and the library's (cuDNN in
+    x's dtype: the recompute's fprop, dgrad, wgrad), with the pass's FLOPs
+    and bytes and its largest error of check_conv_backward (`errs`: by
+    gradient; the act pass every gradient's, since each is computed from
+    its gz; data dx's, weight dkernel's)."""
+    import torch
+    import torch.nn.functional as F
+    from speechmix_tpu_torch.ops.kernels import conv_extractor as kc
+    b, t_in, c = x.shape
+    k = w.shape[-1]
+    t_out = dout.shape[1]
+    f32 = x.dtype == torch.float32
+    es = x.element_size()
+    wx = w.to(x.dtype)
+    vectors = bias is not None or norm is not None
+    gz, gzt, _ = kc.conv_bwd_act(x, wx, bias, norm, 1e-5, dout, f32, vectors)
+    iters = 5 if t_in > 10000 else 10
+    xc = x.transpose(1, 2)
+    gc = gz.transpose(1, 2).contiguous()
+    flops = 2.0 * b * t_out * k * c * c
+    peak = PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS
+    passes = {
+        "act": (lambda: kc.conv_bwd_act(x, wx, bias, norm, 1e-5, dout, f32,
+                                        vectors),
+                lambda: kc.conv_bwd_act_plain(x, wx, bias, norm, 1e-5, dout),
+                lambda: F.conv1d(xc, wx, None, stride=2),
+                (x.numel() + 2 * dout.numel()) * es
+                + (dout.numel() * 4 if f32 else 0),
+                max(errs.values())),
+        "data": (lambda: kc.conv_bwd_data(gz, wx, t_in),
+                 lambda: kc.conv_bwd_data_plain(gz, wx, t_in),
+                 lambda: torch.nn.grad.conv1d_input(xc.shape, wx, gc,
+                                                    stride=2),
+                 (dout.numel() + x.numel()) * es, errs["dx"]),
+        "weight": (lambda: kc.conv_bwd_weight(x, wx, gz, gzt),
+                   lambda: kc.conv_bwd_weight_plain(x, wx, gz),
+                   lambda: torch.nn.grad.conv1d_weight(xc, wx.shape, gc,
+                                                       stride=2),
+                   (x.numel() + dout.numel()) * es, errs["dkernel"])}
+    dname = "f32" if f32 else "bf16"
+    # the f32 records are counted by T_in in the f32 flagship's step, the
+    # bf16 ones (XLS-R 1B's layout) by C in the XL pair's step
+    at = dict(t_in=t_in) if f32 else dict(width=c)
+    for name, (kernel, plain, library, nbytes, err) in passes.items():
+        records[f"conv_bwd {name} (layer {layer}, {dname})"] = dict(
+            shape=f"x ({b}, {t_in}, {c}) k={k}, {dname}, "
+                  f"{'bias + LayerNorm' if norm is not None else 'no bias'}",
+            max_abs_err=err, ms=cuda_ms(kernel, iters=iters),
+            plain_ms=cuda_ms(plain, iters=3, warmup=1),
+            library_ms=cuda_ms(library, iters=iters),
+            flops=flops, bytes=nbytes, peak_flops=peak, **at)
+    rec = [records[f"conv_bwd {n} (layer {layer}, {dname})"] for n in passes]
+    ms, plain, lib = (" / ".join(f"{r[key]:.3f}" for r in rec)
+                      for key in ("ms", "plain_ms", "library_ms"))
+    log(f"  layer {layer} {dname}: act / data / weight {ms} ms; plain "
+        f"{plain} ms; library fprop / dgrad / wgrad {lib} ms; bound "
+        f"{flops / peak * 1e3:.3f} ms a pass")
 
 
 def attention_bwd_bf16_limits(q, k, v, mask, out, g, heads, scale, causal,
@@ -1976,6 +2244,7 @@ class plain_kernels:
                  (seq2seq, "decode_attention", kd.decode_attention_plain),
                  (generation, "beam_gather", kg.beam_gather_plain),
                  (kc, "fused_conv_layer", kc.fused_conv_layer_plain),
+                 (kc, "conv_layer_backward", kc.conv_layer_backward_plain),
                  # the dropout kernels: plain versions fed the plain
                  # generator's masks of the same key
                  (kdrop, "dropout_mask", kdrop.dropout_mask_plain),
@@ -2088,6 +2357,7 @@ def expected_launches(mode, steps):
     want = {"smx_attention_fwd": LAYERS_WITH_KERNELS,
             **dense_launches(LAYERS_WITH_KERNELS),
             "smx_conv_ln_gelu": FUSED_CONV_LAYERS,
+            **dict.fromkeys(CONV_BWD, 0),
             # self- and cross-attention of each decoder layer, each step
             "smx_decode_attention": 2 * DECODER_LAYERS * steps,
             "smx_decode_attention_q8": 0, "smx_beam_gather": 0,
@@ -2771,6 +3041,8 @@ def expected_train_launches(speech_layers, enc_layers, dec_layers, accum=1,
             **dict.fromkeys(K8_ALL, 0),
             **dict.fromkeys(K8_ENTRIES[dtype], layers),
             "smx_conv_ln_gelu": FUSED_CONV_LAYERS,
+            # K6's backward: every leaf of the extractor trains
+            **dict.fromkeys(CONV_BWD, FUSED_CONV_LAYERS),
             "smx_decode_attention": 0, "smx_decode_attention_q8": 0,
             **dict.fromkeys(K4_SERIAL, 0),
             "smx_beam_gather": 0, **dict.fromkeys(DROPOUT_KERNELS, 0),
@@ -3819,6 +4091,7 @@ def run_large_pair(seed, card):
         want = expected_preln_train_launches(
             len(kept), len(attn_bwd), len(ffn_bwd), dec.encoder_layers,
             dec.decoder_layers, dropout=True)
+        want.update(conv_backward_launches(mask["speech_encoder"]))
         held = {path: p.clone() for path, p in
                 freezing.tree_paths(state.params) if path in frozen}
         prints = _fingerprints(state.params)
@@ -4040,6 +4313,16 @@ def expected_postln_dropout_launches(kept, attn_bwd, dense_bwd, ffn_bwd,
     return want
 
 
+def conv_backward_launches(enc_mask):
+    """K6's backward launches under the speech encoder's mask: each of
+    CONV_BWD once a fused layer where a leaf of the extractor trains (the
+    stack's own, or layer 0's below it, whose gradient needs the stack's
+    dx), none where the whole extractor is frozen."""
+    from speechmix_tpu_torch.training.freezing import tree_paths
+    trains = any(m > 0 for _, m in tree_paths(enc_mask["feature_extractor"]))
+    return dict.fromkeys(CONV_BWD, FUSED_CONV_LAYERS if trains else 0)
+
+
 def postln_backward_layers(enc_mask, kept):
     """The kept post-LN layers whose backward pieces run under the speech
     encoder's mask `enc_mask`: the attention's (K15) where its input needs
@@ -4070,10 +4353,11 @@ def postln_backward_layers(enc_mask, kept):
 
 def expected_eval_launches(speech_layers, enc_layers, dec_layers):
     """The eval step: the train step's forward with dropout off and no
-    backward (no K7, K8, nor K9 recomputing the FFN)."""
+    backward (no K7, K8, K9 recomputing the FFN, nor K6's backward)."""
     layers = speech_layers + enc_layers + dec_layers
     want = expected_train_launches(speech_layers, enc_layers, dec_layers)
     want.update({"smx_attention_bwd": 0, **dict.fromkeys(K8_ALL, 0),
+                 **dict.fromkeys(CONV_BWD, 0),
                  **ffn_forward_launches(layers, 0)})
     return want
 
@@ -4279,6 +4563,7 @@ def run_trainer(seed, card):
             want = expected_postln_dropout_launches(
                 len(kept), len(attn), len(dense), len(ffn),
                 dec.encoder_layers, dec.decoder_layers)
+            want.update(conv_backward_launches(mask["speech_encoder"]))
             loss = rec["loss"].item()
             log(f"  fit step {rec['step'] + 1} (progress {rec['progress']}, "
                 f"{rec['samples'] / 16000:.2f} s bucket, rows "
@@ -4368,7 +4653,7 @@ def run_trainer(seed, card):
         state2 = trainer.create_train_state(gen, cfg, tc)
         capture["on"] = True
         # the port's kernels use no atomics; cuDNN's convolution backward
-        # (the positional conv, the extractor's recompute) may, unless
+        # (the positional conv, layer 0's weight gradient) may, unless
         # asked for its deterministic algorithms: asked for in both runs
         # that are compared bit for bit
         torch.backends.cudnn.deterministic = True
@@ -4489,7 +4774,7 @@ def run_trainer(seed, card):
     want.update({"smx_attention_fwd": layers,
                  **dense_launches(layers, "f32"),
                  **ffn_forward_launches(layers, 0, "f32"),
-                 "smx_conv_ln_gelu": 0,
+                 "smx_conv_ln_gelu": 0, **dict.fromkeys(CONV_BWD, 0),
                  "smx_decode_attention": 2 * dec.decoder_layers
                  * TEACHER_MAX_LEN})
     run = lambda: teacher.create_self_decoder_inputs_batched(
@@ -5888,6 +6173,7 @@ def run_commands(seed, card):
             want = expected_postln_launches(len(kept), len(attn), len(ffn),
                                             dec.encoder_layers,
                                             dec.decoder_layers)
+        want.update(conv_backward_launches(mask["speech_encoder"]))
         what = "step" if rec["tc"].dropout else "--no-dropout step"
         log(f"  train command {what} {rec['step'] + 1} (progress "
             f"{rec['progress']}, {rec['samples'] / 16000:.2f} s bucket, rows "
@@ -6776,16 +7062,18 @@ def tallied(counter, pairs):
 
 def width_tallies():
     """The launchers whose widths this PR's phases count: K1 / K14 / K7 /
-    K15 and K4 by head width, K6 by C, the f32 FFN and epilogue entries by
-    H."""
+    K15 and K4 by head width, K6 and its backward's passes by C, the f32
+    FFN and epilogue entries by H."""
     from speechmix_tpu_torch.ops.kernels import attention as ka
     from speechmix_tpu_torch.ops.kernels import conv_extractor as kc
     from speechmix_tpu_torch.ops.kernels import decode_attention as kd
     from speechmix_tpu_torch.ops.kernels import ffn as kf
     return ((ka.KERNEL, 4), (ka.DROPOUT_KERNEL, 4), (ka.BWD_KERNEL, 4),
             (ka.DROPOUT_BWD_KERNEL, 4), (kd.KERNEL, 4), (kd.KERNEL_Q8, 4),
-            (kc.KERNEL, 2), (kf.FFN_DOWN_F32, 1), (kf.FFN_DOWN_RES_F32, 1),
-            (kf.FFN_BWD_RECOMPUTE_F32, 1), (kf.FFN_BWD_PRODUCTS_F32, 1),
+            (kc.KERNEL, 2), (kc.ACT_KERNEL, 2), (kc.DATA_KERNEL, 2),
+            (kc.WEIGHT_KERNEL, 2), (kf.FFN_DOWN_F32, 1),
+            (kf.FFN_DOWN_RES_F32, 1), (kf.FFN_BWD_RECOMPUTE_F32, 1),
+            (kf.FFN_BWD_PRODUCTS_F32, 1),
             (kf.DENSE_RES_LN_F32, 2))
 
 
@@ -7741,6 +8029,7 @@ def run_f32_flagship(seed, card, check=True):
     pairs = [(kern, offset) for kern, offset in (
         (ka.KERNEL, 1), (ka.DROPOUT_KERNEL, 1), (ka.BWD_KERNEL, 1),
         (ka.DROPOUT_BWD_KERNEL, 1), (kd.KERNEL, 2), (kc.KERNEL, 1),
+        (kc.ACT_KERNEL, 1), (kc.DATA_KERNEL, 1), (kc.WEIGHT_KERNEL, 1),
         *((getattr(kf, name, None), 0) for name in (
             "DENSE_RES_LN_F32", "DENSE_DROPOUT_RES_LN_F32", "FFN_UP_F32",
             "FFN_DROPOUT_UP_F32", "FFN_DOWN_F32", "FFN_DOWN_RES_F32",
@@ -8474,6 +8763,15 @@ def main():
         **{f"conv_ln_gelu (bf16, C={c})": (
             "conv_ln_gelu.cu", "conv_extractor.py:88", "tiny-bart-train",
             "smx_conv_ln_gelu") for c, _, _ in BF16_CONV_CASES},
+        # K6's backward (no TPU kernel: fused_conv_stack_trainable
+        # recomputes through XLA) at the six layers: f32 the flagship's
+        # step without dropout, by T_in; bf16 the XL pair's step, by C
+        **{f"conv_bwd {name} (layer {layer}, {dname})": (
+            "conv_bwd.cu", "conv_extractor.py:281", mode,
+            f"smx_conv_bwd_{name}")
+           for dname, mode in (("f32", "f32-train-no-dropout"),
+                               ("bf16", "xl-train"))
+           for layer in range(1, 7) for name in ("act", "data", "weight")},
     }
     line = {"kernels": []}
     for name, (source, tpu, mode, *symbol) in replaces.items():

@@ -1,5 +1,6 @@
 // Shared device helpers of the port's kernels: f32 <-> storage-type
-// conversion, the FFN activations and their derivatives, and a warp's sum
+// conversion, the FFN activations and their derivatives, pairs of row
+// elements to and from float32, and a warp's sum
 // (with dropout.cuh, the mask generator every kernel that draws a mask
 // shares).
 #pragma once
@@ -64,6 +65,21 @@ __device__ __forceinline__ float dactivate(int act, float x) {
       return s * (1.0f + x * (1.0f - s));
     }
   }
+}
+
+// two adjacent elements of a row, to or from float32
+__device__ __forceinline__ void store_pair(float* o, float a, float b) {
+  *reinterpret_cast<float2*>(o) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* o, float a,
+                                           float b) {
+  *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ float2 load_pair(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -115,43 +115,6 @@ struct ConvArgs {
   float eps;
 };
 
-// the sum over the four lanes of a quad (one row of the accumulator layout),
-// the same bits on all four
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// One row statistic over the cluster: this block's row sums v[i] (rows
-// lrow + 8 i, its column slice) to slice `rank` of `part` in every block;
-// after the barrier, the `cluster` slices' sums in slice order.
-__device__ __forceinline__ void cluster_row_sums(float* part, int rank,
-                                                 int cluster, int lrow,
-                                                 int lane, float (&v)[2]) {
-  v[0] = quad_sum(v[0]);
-  v[1] = quad_sum(v[1]);
-  if (lane % 4 == 0) {
-    for (int r = 0; r < cluster; ++r) {
-      hw::st_cluster(part + rank * TILE + lrow, r, v[0]);
-      hw::st_cluster(part + rank * TILE + lrow + 8, r, v[1]);
-    }
-  }
-  hw::cluster_sync();
-  v[0] = 0.0f;
-  v[1] = 0.0f;
-  for (int r = 0; r < cluster; ++r) {
-    v[0] += part[r * TILE + lrow];
-    v[1] += part[r * TILE + lrow + 8];
-  }
-}
-
-__device__ __forceinline__ void store_pair(float* o, float a, float b) {
-  *reinterpret_cast<float2*>(o) = make_float2(a, b);
-}
-__device__ __forceinline__ void store_pair(bf16* o, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(a, b);
-}
-
 // block x: row tile x / cluster (batch row, then 128-row tile within it)
 // and columns NCOL (x % cluster) ..; with LN the blocks of a row tile are a
 // cluster
@@ -268,7 +231,7 @@ __global__ void __launch_bounds__(TC_THREADS, sizeof(T) == 4 ? 1 : 2)
   if constexpr (LN) {
     const float inv_c = 1.0f / (float)p.c;
     hw::cluster_wait();  // every block of the cluster has started
-    cluster_row_sums(psum, rank, p.cluster, lrow, lane, sum);
+    hw::cluster_row_sums(psum, rank, p.cluster, lrow, lane, sum);
     const float mean[2] = {sum[0] * inv_c, sum[1] * inv_c};
     float sq[2] = {0.0f, 0.0f};
 #pragma unroll
@@ -284,7 +247,7 @@ __global__ void __launch_bounds__(TC_THREADS, sizeof(T) == 4 ? 1 : 2)
         }
       }
     // after its barrier no block touches another's shared memory
-    cluster_row_sums(psq, rank, p.cluster, lrow, lane, sq);
+    hw::cluster_row_sums(psq, rank, p.cluster, lrow, lane, sq);
     const float inv[2] = {rsqrtf(sq[0] * inv_c + p.eps),
                           rsqrtf(sq[1] * inv_c + p.eps)};
 #pragma unroll
@@ -308,7 +271,7 @@ __global__ void __launch_bounds__(TC_THREADS, sizeof(T) == 4 ? 1 : 2)
     for (int j = 0; j < NCOL / 8; ++j) {
       const int col = col0 + 8 * j;
       if (col >= p.c_in) continue;  // then col + 1 < c_in: c_in is even
-      store_pair(o + col, smx::activate(smx::kGelu, acc[4 * j + 2 * i]),
+      smx::store_pair(o + col, smx::activate(smx::kGelu, acc[4 * j + 2 * i]),
                  smx::activate(smx::kGelu, acc[4 * j + 2 * i + 1]));
     }
   }

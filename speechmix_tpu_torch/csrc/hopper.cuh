@@ -11,7 +11,9 @@
 // another block's shared memory (plain, or st.async counted on the
 // receiver's mbarrier), and the stage ring (producer and consumer
 // sides) that the kernels of ffn_bwd.cu, ffn_fwd.cu, attention_fwd.cu,
-// attention_bwd.cu, dense_res_ln.cu and conv_ln_gelu.cu share.
+// attention_bwd.cu, dense_res_ln.cu, conv_ln_gelu.cu and conv_bwd.cu share,
+// and the row statistics that K6's forward and backward reduce across a
+// cluster.
 //
 // Layout used throughout: every operand tile in shared memory is a stack of
 // 128-byte rows written by TMA with the 128-byte swizzle, its base 1024-byte
@@ -973,6 +975,41 @@ __device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty) {
     mbar_fence_init();
   }
   __syncthreads();
+}
+
+// ---------------------------------- row statistics across a cluster's blocks
+// (conv_ln_gelu.cu and conv_bwd.cu: a row's columns spread over the blocks
+// of a cluster, in the accumulator layout of m64nNk16)
+
+// the sum over the four lanes of a quad (one row of the accumulator layout),
+// the same bits on all four
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// One row statistic over the cluster: this block's row sums v[i] (rows
+// lrow + 8 i of its TILE-row tile, its column slice) to slice `rank` of
+// `part` ([cluster][TILE] floats) in every block; after the barrier, the
+// `cluster` slices' sums in slice order.
+__device__ __forceinline__ void cluster_row_sums(float* part, int rank,
+                                                 int cluster, int lrow,
+                                                 int lane, float (&v)[2]) {
+  v[0] = quad_sum(v[0]);
+  v[1] = quad_sum(v[1]);
+  if (lane % 4 == 0) {
+    for (int r = 0; r < cluster; ++r) {
+      st_cluster(part + rank * TILE + lrow, r, v[0]);
+      st_cluster(part + rank * TILE + lrow + 8, r, v[1]);
+    }
+  }
+  cluster_sync();
+  v[0] = 0.0f;
+  v[1] = 0.0f;
+  for (int r = 0; r < cluster; ++r) {
+    v[0] += part[r * TILE + lrow];
+    v[1] += part[r * TILE + lrow + 8];
+  }
 }
 
 }  // namespace hopper

@@ -3,7 +3,9 @@
 K1 ``attention.attention_fwd``, K2 ``ffn.dense_res_ln``, K3
 ``ffn.ffn_res_ln``, K4 ``decode_attention.decode_attention`` (float and int8
 K/V entries), K5 ``beam_gather.beam_gather``, K6
-``conv_extractor.fused_conv_layer``, K7 ``attention.attention_bwd``, K8
+``conv_extractor.fused_conv_layer`` (its backward in the stack:
+``conv_extractor.conv_layer_backward``, three passes of ``conv_bwd.cu``),
+K7 ``attention.attention_bwd``, K8
 ``ffn.ffn_bwd`` (bfloat16: ``ffn.ffn_bwd_recompute`` then
 ``ffn.ffn_bwd_products``; float32: the same two passes in their f32
 entries, with f32-accurate products on the tensor cores),
